@@ -1,0 +1,55 @@
+"""Device resolution for the port's entry points.
+
+Entry points run on ``cuda:0`` unless the caller names a device. With no
+CUDA device present and none named, they raise: a run meant for the card
+never carries on silently on the CPU. The CPU is chosen only by asking for
+it (``device="cpu"``, ``--device cpu``), as the tests do.
+
+Resolving a CUDA device also turns TF32 off for matrix products and cuDNN
+convolutions: the JAX package multiplies f32 in true f32 because
+second-order MAML++ stalls when f32 products lose mantissa bits
+(RESULTS.md, the matmul-precision finding).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+DeviceLike = Union[str, torch.device, None]
+
+
+def resolve_device(device: DeviceLike = None) -> torch.device:
+    """The device an entry point runs on: the named one, else ``cuda:0``.
+
+    Raises ``RuntimeError`` naming ``--device cpu`` when no device was
+    named and CUDA is absent, or when a CUDA device was named and CUDA is
+    absent.
+    """
+    dev = torch.device("cuda:0" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"no CUDA device is available for {dev}; this entry point "
+                "runs on the card unless asked otherwise — pass "
+                "--device cpu (device='cpu') to run the plain PyTorch "
+                "versions on the CPU"
+            )
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return dev
+
+
+def device_name(device: torch.device) -> str:
+    """The card's name for a CUDA device, ``'cpu'`` otherwise."""
+    if device.type == "cuda":
+        return torch.cuda.get_device_name(device)
+    return "cpu"
+
+
+def synchronize(device: Optional[torch.device]) -> None:
+    if device is not None and device.type == "cuda":
+        torch.cuda.synchronize(device)

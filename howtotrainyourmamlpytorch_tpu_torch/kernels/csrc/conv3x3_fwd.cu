@@ -1,0 +1,194 @@
+// K1 conv3x3_fwd_stats: the forward 3x3 conv + bias of the slice's block,
+// with the batch-norm statistics of its output.
+//
+// Replaces (JAX package) howtotrainyourmamlpytorch_tpu/ops/functional.py
+// ::conv_bn_act :249 — its `_conv2d_raw` :199 (`_im2col` :85 + one GEMM per
+// task under vmap) and the statistics pass of `batch_norm` :368.
+//
+// Bound on an H100 in f32 (FFMA, 67 TFLOP/s; 3.35 TB/s): at layer 1
+// (cin = 3, K = 27) the bytes bind — the 48-channel output is 16x the input;
+// at layers 2-4 (cin = 48, K = 432) the FLOPs bind, e.g. 1.83 GFLOP against
+// 17 MB per tenant at layer 2 (5 shots). The design answers both: the patch
+// matrix (9x the input) never touches memory, y is written once, and the
+// statistics ride the epilogue on values still in registers, so the
+// normalize pass (K2) is the only re-read of y.
+//
+// Statistics: each block writes (count, mean, M2) of its 256-row tile per
+// channel; a second launch merges the partials of one (tenant, channel)
+// with Chan's formula into the mean and the BIASED variance, plus
+// rstd = 1 / sqrt(var + eps). No atomics, so results are deterministic.
+// The variance is within tolerance of both of the JAX package's
+// `bn_stats_impl` modes ('twopass' and 'fused').
+
+#include <cuda_runtime.h>
+
+#include "conv3x3_tile.cuh"
+
+namespace maml {
+
+__global__ void __launch_bounds__(kThreads)
+conv3x3_fwd_stats_kernel(const float* __restrict__ x,
+                         const float* __restrict__ w,
+                         const float* __restrict__ bias, float* __restrict__ y,
+                         float* __restrict__ part, int N, int H, int W,
+                         int cin, int cout, int mtiles) {
+  __shared__ ConvTileSmem s;
+  __shared__ float red[32][kBN + 1];
+  __shared__ float col_mean[kBN];
+  const int tid = threadIdx.x;
+  const int t = blockIdx.z;
+  const int mt = blockIdx.x;
+  const int n0 = blockIdx.y * kBN;
+  const int m0 = mt * kBM;
+  const int M = N * H * W;
+  float acc[kTM][kTN];
+  conv3x3_tile<false>(x + (size_t)t * M * cin, w + (size_t)t * 9 * cin * cout,
+                      H, W, M, cin, cout, m0, n0, s, acc);
+
+  const int cg = tid % 4;
+  const int rg = tid / 4;
+  float* yt = y + (size_t)t * M * cout;
+#pragma unroll
+  for (int j = 0; j < kTN; ++j) {
+    const int n = n0 + cg * 4 + j;
+    const float b = n < cout ? bias[t * cout + n] : 0.f;
+#pragma unroll
+    for (int i = 0; i < kTM; ++i) {
+      acc[i][j] += b;
+      const int m = m0 + rg + 32 * i;
+      if (m < M && n < cout) yt[(size_t)m * cout + n] = acc[i][j];
+    }
+  }
+
+  // per-tile statistics: column sum -> tile mean -> sum of squared
+  // deviations from the tile mean (M2), both over the valid rows only
+  const int cnt = min(kBM, M - m0);
+#pragma unroll
+  for (int j = 0; j < kTN; ++j) {
+    float sum = 0.f;
+#pragma unroll
+    for (int i = 0; i < kTM; ++i)
+      if (m0 + rg + 32 * i < M) sum += acc[i][j];
+    red[rg][cg * 4 + j] = sum;
+  }
+  __syncthreads();
+  if (tid < kBN) {
+    float sum = 0.f;
+    for (int r = 0; r < 32; ++r) sum += red[r][tid];
+    col_mean[tid] = sum / (float)cnt;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kTN; ++j) {
+    const float mu = col_mean[cg * 4 + j];
+    float q = 0.f;
+#pragma unroll
+    for (int i = 0; i < kTM; ++i) {
+      if (m0 + rg + 32 * i < M) {
+        const float d = acc[i][j] - mu;
+        q = fmaf(d, d, q);
+      }
+    }
+    red[rg][cg * 4 + j] = q;
+  }
+  __syncthreads();
+  if (tid < kBN && n0 + tid < cout) {
+    float q = 0.f;
+    for (int r = 0; r < 32; ++r) q += red[r][tid];
+    float* p = part + ((size_t)t * mtiles + mt) * 3 * cout + n0 + tid;
+    p[0] = (float)cnt;
+    p[cout] = col_mean[tid];
+    p[2 * cout] = q;
+  }
+}
+
+// (n, mean, m2) <- the union of itself and (nb, meanb, m2b) (Chan et al.)
+__device__ __forceinline__ void chan_merge(float& n, float& mean, float& m2,
+                                           float nb, float meanb, float m2b) {
+  if (nb == 0.f) return;
+  if (n == 0.f) {
+    n = nb;
+    mean = meanb;
+    m2 = m2b;
+    return;
+  }
+  const float nn = n + nb;
+  const float d = meanb - mean;
+  mean += d * (nb / nn);
+  m2 += m2b + d * d * (n * nb / nn);
+  n = nn;
+}
+
+constexpr int kMergeThreads = 256;
+
+__global__ void __launch_bounds__(kMergeThreads)
+bn_stats_merge_kernel(const float* __restrict__ part, float* __restrict__ mean,
+                      float* __restrict__ var, float* __restrict__ rstd,
+                      int mtiles, int cout, float eps) {
+  __shared__ float sn[kMergeThreads];
+  __shared__ float sm[kMergeThreads];
+  __shared__ float sq[kMergeThreads];
+  const int c = blockIdx.x;
+  const int t = blockIdx.y;
+  const int tid = threadIdx.x;
+  float n = 0.f, mu = 0.f, m2 = 0.f;
+  for (int i = tid; i < mtiles; i += kMergeThreads) {
+    const float* p = part + ((size_t)t * mtiles + i) * 3 * cout + c;
+    chan_merge(n, mu, m2, p[0], p[cout], p[2 * cout]);
+  }
+  sn[tid] = n;
+  sm[tid] = mu;
+  sq[tid] = m2;
+  __syncthreads();
+  for (int stride = kMergeThreads / 2; stride > 0; stride >>= 1) {
+    if (tid < stride) {
+      float a = sn[tid], b = sm[tid], q = sq[tid];
+      chan_merge(a, b, q, sn[tid + stride], sm[tid + stride],
+                 sq[tid + stride]);
+      sn[tid] = a;
+      sm[tid] = b;
+      sq[tid] = q;
+    }
+    __syncthreads();
+  }
+  if (tid == 0) {
+    const float v = sq[0] / sn[0];
+    mean[t * cout + c] = sm[0];
+    var[t * cout + c] = v;
+    rstd[t * cout + c] = 1.f / sqrtf(v + eps);
+  }
+}
+
+}  // namespace maml
+
+extern "C" {
+
+// y = conv3x3(x, w) + b and y's per-(tenant, channel) mean / biased var /
+// rstd. x (T, N, H, W, cin), w (T, 3, 3, cin, cout), b (T, cout), y
+// (T, N, H, W, cout), part scratch (T, mtiles, 3, cout) with
+// mtiles = ceil(N*H*W / 256); mean, var, rstd (T, cout). Two launches on
+// `stream`; returns the first CUDA error, 0 on success.
+int conv3x3_fwd_stats(const float* x, const float* w, const float* b,
+                      float* y, float* part, float* mean, float* var,
+                      float* rstd, int T, int N, int H, int W, int cin,
+                      int cout, int mtiles, float eps, void* stream) {
+  const int M = N * H * W;
+  if (T < 1 || M < 1 || cin < 1 || cout < 1 ||
+      mtiles != maml::ceil_div(M, maml::kBM))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  dim3 grid(mtiles, maml::ceil_div(cout, maml::kBN), T);
+  maml::conv3x3_fwd_stats_kernel<<<grid, maml::kThreads, 0, st>>>(
+      x, w, b, y, part, N, H, W, cin, cout, mtiles);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  maml::bn_stats_merge_kernel<<<dim3(cout, T), maml::kMergeThreads, 0, st>>>(
+      part, mean, var, rstd, mtiles, cout, eps);
+  return (int)cudaGetLastError();
+}
+
+const char* maml_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

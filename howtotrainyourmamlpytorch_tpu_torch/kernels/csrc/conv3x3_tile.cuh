@@ -1,0 +1,143 @@
+// Shared main loop of the task-batched 3x3 implicit GEMM (stride 1, pad 1,
+// NHWC activations, HWIO weights), used by K1's forward (conv3x3_fwd.cu)
+// and K4's dgrad (conv3x3_bwd.cu).
+//
+// Per tenant t the conv is the GEMM  out[M, cout] = patches[M, K] x W[K, cout]
+// with M = N*H*W output pixels and K = 9*cin in the order (kh, kw, cin) —
+// the order of the JAX package's `_im2col` concatenation and of the HWIO
+// weight reshape (ops/functional.py in both packages). The patch matrix is
+// never written to memory: each block loads its A tile straight from x,
+// zero-padding the halo by a bounds check.
+//
+// Tile: 256 pixels x 16 channels per block of 128 threads; K in stages of 16
+// through shared memory. Thread (rg = tid / 4, cg = tid % 4) owns rows
+// rg + 32*i (i < 8) and the 4 contiguous columns cg*4 .. cg*4+3, so each
+// shared-memory step feeds 32 FFMAs from 8 scalar A reads and one float4 B
+// read. f32 FFMA only: the JAX package multiplies f32 in true f32.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace maml {
+
+constexpr int kThreads = 128;
+constexpr int kBM = 256;  // output pixels per block
+constexpr int kBN = 16;   // output channels per block
+constexpr int kBK = 16;   // reduction depth per shared-memory stage
+constexpr int kTM = 8;    // rows per thread, strided by 32
+constexpr int kTN = 4;    // contiguous columns per thread
+constexpr int kPadM = 4;  // keeps the transposed A stores at 2-way conflicts
+constexpr int kOutOfImage = -1000000;  // a row or tap that never lands in bounds
+
+struct __align__(16) ConvTileSmem {
+  float a[kBK][kBM + kPadM];  // A tile, transposed: a[k][pixel]
+  float b[kBK][kBN];          // B tile: b[k][channel]
+  int row_h[kBM];             // output pixel (h, w) of each tile row
+  int row_w[kBM];
+  int k_dh[kBK];              // tap offsets of each k in the stage
+  int k_dw[kBK];
+  int k_delta[kBK];           // element offset of the tap from the pixel
+};
+
+// acc[i][j] accumulates out[m0 + rg + 32*i][n0 + cg*4 + j].
+// x, w: this tenant's input (M*cin) and weights. kFlipW selects the dgrad
+// weight view: w then holds the FORWARD weights (3, 3, cout, cin) and the
+// kernel reads w'[kh][kw][ci][co] = w[2-kh][2-kw][co][ci], the transposed
+// conv that maps dy to dx.
+template <bool kFlipW>
+__device__ __forceinline__ void conv3x3_tile(
+    const float* __restrict__ x, const float* __restrict__ w, int H, int W,
+    int M, int cin, int cout, int m0, int n0, ConvTileSmem& s,
+    float acc[kTM][kTN]) {
+  const int tid = threadIdx.x;
+  const int HW = H * W;
+  for (int r = tid; r < kBM; r += kThreads) {
+    const int m = m0 + r;
+    if (m < M) {
+      const int hw = m % HW;
+      s.row_h[r] = hw / W;
+      s.row_w[r] = hw % W;
+    } else {
+      s.row_h[r] = kOutOfImage;
+      s.row_w[r] = 0;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kTM; ++i)
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
+
+  const int K = 9 * cin;
+  const int kk_ld = tid % kBK;  // the k this thread loads into the A tile
+  const int r_ld = tid / kBK;   // its first row; rows r_ld + 8*j
+  const int cg = tid % 4;
+  const int rg = tid / 4;
+
+  for (int k0 = 0; k0 < K; k0 += kBK) {
+    if (tid < kBK) {
+      const int k = k0 + tid;
+      if (k < K) {
+        const int kpos = k / cin;
+        const int ci = k - kpos * cin;
+        const int dh = kpos / 3 - 1;
+        const int dw = kpos % 3 - 1;
+        s.k_dh[tid] = dh;
+        s.k_dw[tid] = dw;
+        s.k_delta[tid] = (dh * W + dw) * cin + ci;
+      } else {
+        s.k_dh[tid] = kOutOfImage;
+        s.k_dw[tid] = 0;
+        s.k_delta[tid] = 0;
+      }
+    }
+    for (int e = tid; e < kBK * kBN; e += kThreads) {
+      const int kk = e / kBN;
+      const int nn = e % kBN;
+      const int k = k0 + kk;
+      const int n = n0 + nn;
+      float v = 0.f;
+      if (k < K && n < cout) {
+        if (!kFlipW) {
+          v = w[k * cout + n];
+        } else {
+          const int kpos = k / cin;
+          const int ci = k - kpos * cin;
+          v = w[((8 - kpos) * cout + n) * cin + ci];
+        }
+      }
+      s.b[kk][nn] = v;
+    }
+    __syncthreads();
+    const int dh = s.k_dh[kk_ld];
+    const int dw = s.k_dw[kk_ld];
+    const int delta = s.k_delta[kk_ld];
+#pragma unroll 4
+    for (int j = 0; j < kBM / 8; ++j) {
+      const int r = r_ld + 8 * j;
+      const int h = s.row_h[r] + dh;
+      const int ww = s.row_w[r] + dw;
+      float v = 0.f;
+      if (h >= 0 && h < H && ww >= 0 && ww < W)
+        v = x[(long long)(m0 + r) * cin + delta];
+      s.a[kk_ld][r] = v;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kBK; ++kk) {
+      const float4 bv = *reinterpret_cast<const float4*>(&s.b[kk][cg * 4]);
+#pragma unroll
+      for (int i = 0; i < kTM; ++i) {
+        const float av = s.a[kk][rg + 32 * i];
+        acc[i][0] = fmaf(av, bv.x, acc[i][0]);
+        acc[i][1] = fmaf(av, bv.y, acc[i][1]);
+        acc[i][2] = fmaf(av, bv.z, acc[i][2]);
+        acc[i][3] = fmaf(av, bv.w, acc[i][3]);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
+
+}  // namespace maml

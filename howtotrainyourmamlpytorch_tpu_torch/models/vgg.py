@@ -1,0 +1,202 @@
+"""The few-shot backbone: ``num_stages`` conv blocks + linear head.
+
+The port of the JAX package's ``models/vgg.py``, with its flat parameter
+keys and shapes (``conv{i}.conv.weight`` HWIO, ``conv{i}.norm.gamma``
+``(steps, f)`` under per-step BN, ``linear.weight`` ``(in, out)``) and its
+semantics: batch norm always normalizes with batch statistics, per-step
+gamma/beta/running statistics are indexed by the clamped inner step, and
+the running statistics are returned, never used.
+
+The tenant axis: ``apply`` takes images ``(batch, h, w, c)`` or
+``(T, batch, h, w, c)``. In the tenant form every INNER-ADAPTED parameter
+carries a leading ``T`` axis (each tenant adapts its own copy) while frozen
+parameters are shared, and the returned BN state is per tenant
+``(T, steps, f)``.
+
+This slice covers the model the serving path runs: ``block_order=
+'conv_norm_relu'``, ``norm_layer='batch_norm'``, ``max_pooling=True`` with
+padded convs. Each block is one ``kernels.conv_block.conv_bn_act_pool``
+call (plain ops on the CPU, the hand-written kernels on the card). Other
+configurations raise ``NotImplementedError`` naming the missing kernel.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+
+from ..config import MAMLConfig
+from ..core import partition
+from ..kernels import conv_block
+from ..ops import functional as F
+
+Params = Dict[str, torch.Tensor]
+BNState = Dict[str, torch.Tensor]
+#: ``block(x, w, b, gamma, beta, stats_impl) -> (pooled, mean, var)``
+BlockFn = Callable[..., Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
+
+
+def check_supported(cfg: MAMLConfig) -> None:
+    """Raise ``NotImplementedError`` for a model outside this slice."""
+    missing = []
+    if cfg.block_order != "conv_norm_relu":
+        missing.append("block_order='norm_conv_relu' (standalone batch-norm "
+                       "and conv kernels, ROADMAP Queue B5)")
+    if cfg.norm_layer != "batch_norm":
+        missing.append("norm_layer='layer_norm' (layer-norm kernel, ROADMAP "
+                       "Queue B5)")
+    if not cfg.max_pooling:
+        missing.append("max_pooling=False (stride-2 conv and global average "
+                       "pool kernels, ROADMAP Queue B5)")
+    if not cfg.conv_padding:
+        missing.append("conv_padding=False (unpadded 3x3 conv kernel)")
+    if missing:
+        raise NotImplementedError(
+            "not ported yet: " + "; ".join(missing)
+        )
+
+
+def _stage_dims(cfg: MAMLConfig):
+    """Per-stage (h_in, w_in, h_conv, w_conv, h_out, w_out)."""
+    h, w = cfg.image_height, cfg.image_width
+    pad = 1 if cfg.conv_padding else 0
+    for _ in range(cfg.num_stages):
+        if cfg.max_pooling:
+            ch, cw = h + 2 * pad - 2, w + 2 * pad - 2
+            oh, ow = ch // 2, cw // 2
+        else:
+            ch = (h + 2 * pad - 3) // 2 + 1
+            cw = (w + 2 * pad - 3) // 2 + 1
+            oh, ow = ch, cw
+        yield h, w, ch, cw, oh, ow
+        h, w = oh, ow
+
+
+def _feature_hw(cfg: MAMLConfig) -> Tuple[int, int]:
+    oh, ow = cfg.image_height, cfg.image_width
+    for _, _, _, _, oh, ow in _stage_dims(cfg):
+        pass
+    return oh, ow
+
+
+def feature_dim(cfg: MAMLConfig) -> int:
+    """Flattened feature dim entering the linear head."""
+    if cfg.max_pooling:
+        h, w = _feature_hw(cfg)
+        return h * w * cfg.cnn_num_filters
+    return cfg.cnn_num_filters
+
+
+def _xavier_uniform(gen: torch.Generator, shape, fan_in: int, fan_out: int,
+                    device) -> torch.Tensor:
+    a = math.sqrt(6.0 / (fan_in + fan_out))
+    u = torch.rand(shape, generator=gen, dtype=torch.float32)
+    return (u * (2 * a) - a).to(device)
+
+
+def init(cfg: MAMLConfig, gen: torch.Generator,
+         device: Optional[torch.device] = None) -> Tuple[Params, BNState]:
+    """Parameters and BN state with the JAX package's keys and shapes,
+    drawn from ``gen`` (xavier-uniform conv/linear weights, zero biases,
+    unit gamma, zero beta; running mean 0 and variance 1)."""
+    check_supported(cfg)
+    params: Params = {}
+    bn_state: BNState = {}
+    steps = cfg.bn_num_steps
+    c_in = cfg.image_channels
+    f = cfg.cnn_num_filters
+    for i, _ in enumerate(_stage_dims(cfg)):
+        params[f"conv{i}.conv.weight"] = _xavier_uniform(
+            gen, (3, 3, c_in, f), c_in * 9, f * 9, device
+        )
+        params[f"conv{i}.conv.bias"] = torch.zeros(f, device=device)
+        if (cfg.per_step_bn_statistics
+                and not cfg.enable_inner_loop_optimizable_bn_params):
+            params[f"conv{i}.norm.gamma"] = torch.ones(steps, f, device=device)
+            params[f"conv{i}.norm.beta"] = torch.zeros(steps, f, device=device)
+        else:
+            params[f"conv{i}.norm.gamma"] = torch.ones(f, device=device)
+            params[f"conv{i}.norm.beta"] = torch.zeros(f, device=device)
+        if cfg.per_step_bn_statistics:
+            bn_state[f"conv{i}.norm.mean"] = torch.zeros(steps, f,
+                                                         device=device)
+            bn_state[f"conv{i}.norm.var"] = torch.ones(steps, f,
+                                                       device=device)
+        c_in = f
+    feat = feature_dim(cfg)
+    params["linear.weight"] = _xavier_uniform(
+        gen, (feat, cfg.num_classes_per_set), feat, cfg.num_classes_per_set,
+        device,
+    )
+    params["linear.bias"] = torch.zeros(cfg.num_classes_per_set,
+                                        device=device)
+    return params, bn_state
+
+
+def apply(cfg: MAMLConfig, params: Params, bn_state: BNState,
+          x: torch.Tensor, num_step: int, training: bool = True,
+          block: Optional[BlockFn] = None) -> Tuple[torch.Tensor, BNState]:
+    """Forward pass.
+
+    :param x: images ``(batch, h, w, c)`` or ``(T, batch, h, w, c)``, NHWC.
+    :param num_step: the inner step; indexes the per-step BN parameters and
+        statistics, clamped to the stored step count.
+    :param training: whether the updated running statistics are returned
+        (normalization always uses batch statistics).
+    :param block: the block implementation; default
+        ``kernels.conv_block.conv_bn_act_pool`` (plain ops for CPU tensors,
+        the kernels for CUDA tensors). A caller that wants the plain ops on
+        the card passes ``ops.functional.conv_bn_act_pool``.
+    :return: ``(logits, new_bn_state)``; logits f32 ``(batch, way)`` or
+        ``(T, batch, way)``.
+    """
+    check_supported(cfg)
+    block = conv_block.conv_bn_act_pool if block is None else block
+    tenant = x.dim() == 5
+    if not tenant:
+        x = x.unsqueeze(0)
+        params = {
+            k: v.unsqueeze(0) if partition.is_inner_adapted(cfg, k) else v
+            for k, v in params.items()
+        }
+    dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+    step = min(max(int(num_step), 0), cfg.bn_num_steps - 1)
+    per_step_affine = (cfg.per_step_bn_statistics
+                       and not cfg.enable_inner_loop_optimizable_bn_params)
+    stats_impl = cfg.resolved_bn_stats_impl(x.device)
+    n_tenants = x.shape[0]
+    out = x.to(dtype)
+    new_bn: BNState = {}
+    for i in range(cfg.num_stages):
+        gamma = params[f"conv{i}.norm.gamma"]
+        beta = params[f"conv{i}.norm.beta"]
+        if per_step_affine:
+            gamma, beta = gamma[step], beta[step]
+        conv_n = out.shape[1] * out.shape[2] * out.shape[3]
+        out, mean, var = block(
+            out, params[f"conv{i}.conv.weight"].to(dtype),
+            params[f"conv{i}.conv.bias"].to(dtype), gamma, beta, stats_impl,
+        )
+        mean_key, var_key = f"conv{i}.norm.mean", f"conv{i}.norm.var"
+        if mean_key not in bn_state:
+            continue
+        rm, rv = bn_state[mean_key], bn_state[var_key]
+        if not training:
+            new_bn[mean_key], new_bn[var_key] = rm, rv
+            continue
+        nm, nv = F.running_update(rm[..., step, :], rv[..., step, :],
+                                  mean, var, conv_n)
+        for key, old, new in ((mean_key, rm, nm), (var_key, rv, nv)):
+            full = old.expand(n_tenants, *old.shape[-2:]).clone()
+            full[:, step] = new
+            new_bn[key] = full
+    feats = out.reshape(out.shape[0], out.shape[1], -1)
+    logits = F.linear(feats, params["linear.weight"], params["linear.bias"])
+    logits = logits.float()
+    if not tenant:
+        logits = logits[0]
+        new_bn = {k: v[0] if v.dim() == 3 else v for k, v in new_bn.items()}
+    return logits, new_bn
+

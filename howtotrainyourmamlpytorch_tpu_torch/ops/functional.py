@@ -1,0 +1,309 @@
+"""Plain PyTorch versions of the JAX package's ops (``ops/functional.py``).
+
+Layouts are the JAX package's: NHWC activations, HWIO conv weights,
+``(in, out)`` linear weights. Every op takes an optional leading TENANT
+axis — the JAX package's ``vmap`` over tasks written out as a batch
+dimension: a 5-D activation ``(T, N, H, W, C)`` goes with tenant-batched
+weights ``(T, 3, 3, cin, cout)`` and per-channel vectors ``(C,)`` (shared)
+or ``(T, C)`` (per tenant). Statistics reduce over ``(N, H, W)`` of one
+tenant only, never across tenants.
+
+The second half of the module holds the plain twins of the hand-written
+kernels (``kernels/conv_block.py``): the same functions, the same
+arguments, in plain tensor code. The kernel wrappers use them for CPU
+tensors, and the card run compares each kernel with its twin.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as tF
+
+Tensor = torch.Tensor
+
+BN_EPS = 1e-5
+LEAKY_SLOPE = 0.01
+
+
+def _per_channel(v: Tensor, x: Tensor) -> Tensor:
+    """Broadcast a per-channel vector against an NHWC activation: ``(C,)``
+    as is, a per-tenant ``(T, C)`` against a 5-D ``x`` as
+    ``(T, 1, 1, 1, C)``."""
+    if v.dim() == 2:
+        return v.reshape(v.shape[0], *([1] * (x.dim() - 2)), v.shape[1])
+    return v
+
+
+def _stat_dims(x: Tensor) -> Tuple[int, ...]:
+    """The (N, H, W) axes of an NHWC activation, with or without the
+    tenant axis in front."""
+    return (1, 2, 3) if x.dim() == 5 else (0, 1, 2)
+
+
+def im2col(x: Tensor, kh: int, kw: int, stride: int, padding: int) -> Tensor:
+    """Conv patches ``(..., H, W, C) -> (..., Ho, Wo, kh*kw*C)``, the K
+    order (kh, kw, cin) of the JAX package's ``_im2col``."""
+    if padding:
+        x = tF.pad(x, (0, 0, padding, padding, padding, padding))
+    hp, wp = x.shape[-3], x.shape[-2]
+    ho = (hp - kh) // stride + 1
+    wo = (wp - kw) // stride + 1
+    cols = [
+        x[..., i:i + (ho - 1) * stride + 1:stride,
+          j:j + (wo - 1) * stride + 1:stride, :]
+        for i in range(kh) for j in range(kw)
+    ]
+    return torch.cat(cols, dim=-1)
+
+
+def conv2d(x: Tensor, w: Tensor, b: Optional[Tensor], stride: int = 1,
+           padding: int = 1) -> Tensor:
+    """2-D convolution NHWC x HWIO -> NHWC as patches @ weights (the JAX
+    package's ``im2col`` lowering)."""
+    kh, kw, cin, cout = w.shape[-4:]
+    patches = im2col(x, kh, kw, stride, padding)
+    if x.dim() == 5:
+        t = x.shape[0]
+        out = torch.matmul(
+            patches.reshape(t, -1, kh * kw * cin),
+            w.to(x.dtype).reshape(t, kh * kw * cin, cout),
+        ).reshape(*patches.shape[:-1], cout)
+    else:
+        out = patches @ w.to(x.dtype).reshape(kh * kw * cin, cout)
+    if b is not None:
+        out = out + _per_channel(b.to(out.dtype), out)
+    return out
+
+
+def batch_stats(x: Tensor, stats_impl: str = "twopass"
+                ) -> Tuple[Tensor, Tensor]:
+    """Batch mean and biased variance over (N, H, W) per channel.
+
+    ``'twopass'``: mean, then the mean of squared deviations. ``'fused'``:
+    sum and sum of squares in f32, ``var = E[x^2] - E[x]^2`` clamped at 0.
+    """
+    dims = _stat_dims(x)
+    if stats_impl == "fused":
+        x32 = x.float()
+        n = 1
+        for d in dims:
+            n *= x.shape[d]
+        mean32 = x32.sum(dims) / n
+        var32 = torch.clamp((x32 * x32).sum(dims) / n - mean32 * mean32,
+                            min=0.0)
+        return mean32.to(x.dtype), var32.to(x.dtype)
+    if stats_impl != "twopass":
+        raise ValueError(
+            f"stats_impl must be 'twopass' or 'fused', got {stats_impl!r}"
+        )
+    mean = x.mean(dims)
+    var = ((x - _per_channel(mean, x)) ** 2).mean(dims)
+    return mean, var
+
+
+def running_update(running_mean: Tensor, running_var: Tensor, mean: Tensor,
+                   var: Tensor, n: int, momentum: float = 0.1
+                   ) -> Tuple[Tensor, Tensor]:
+    """torch's running-stat rule: ``new = (1 - m) * old + m * batch``, with
+    the UNBIASED batch variance feeding the running variance."""
+    unbiased = var * (n / max(n - 1, 1))
+    new_mean = (1.0 - momentum) * running_mean + momentum * mean.to(
+        running_mean.dtype)
+    new_var = (1.0 - momentum) * running_var + momentum * unbiased.to(
+        running_var.dtype)
+    return new_mean, new_var
+
+
+def batch_norm(x: Tensor, gamma: Tensor, beta: Tensor,
+               running_mean: Optional[Tensor], running_var: Optional[Tensor],
+               momentum: float = 0.1, eps: float = BN_EPS,
+               stats_impl: str = "twopass"
+               ) -> Tuple[Tensor, Optional[Tensor], Optional[Tensor]]:
+    """Batch norm with batch statistics (always — the reference's
+    ``training=True`` call); the running stats are updated but never
+    normalize anything. Returns ``(y, new_mean, new_var)``."""
+    mean, var = batch_stats(x, stats_impl)
+    inv = torch.rsqrt(var + eps).to(x.dtype)
+    y = (x - _per_channel(mean, x)) * _per_channel(inv, x)
+    y = y * _per_channel(gamma.to(x.dtype), x) + _per_channel(
+        beta.to(x.dtype), x)
+    new_mean = new_var = None
+    if running_mean is not None:
+        n = 1
+        for d in _stat_dims(x):
+            n *= x.shape[d]
+        new_mean, new_var = running_update(
+            running_mean, running_var, mean, var, n, momentum
+        )
+    return y, new_mean, new_var
+
+
+def leaky_relu(x: Tensor, negative_slope: float = LEAKY_SLOPE) -> Tensor:
+    """``where(x >= 0, x, slope * x)``, as ``jax.nn.leaky_relu``."""
+    return torch.where(x >= 0, x, negative_slope * x)
+
+
+def conv_bn_act(x: Tensor, w: Tensor, b: Optional[Tensor], gamma: Tensor,
+                beta: Tensor, running_mean: Optional[Tensor],
+                running_var: Optional[Tensor], stride: int = 1,
+                padding: int = 1, negative_slope: float = LEAKY_SLOPE,
+                bn_stats_impl: str = "twopass"
+                ) -> Tuple[Tensor, Optional[Tensor], Optional[Tensor]]:
+    """conv -> bias -> batch norm -> leaky-ReLU; returns
+    ``(activation, new_running_mean, new_running_var)``."""
+    out = conv2d(x, w, b, stride, padding)
+    out, new_mean, new_var = batch_norm(
+        out, gamma, beta, running_mean, running_var,
+        stats_impl=bn_stats_impl,
+    )
+    return leaky_relu(out, negative_slope), new_mean, new_var
+
+
+def max_pool2d(x: Tensor, window: int = 2, stride: int = 2) -> Tensor:
+    """2x2/2 max pool, NHWC, VALID: a trailing odd row or column is
+    dropped (the JAX package's ``reshape`` lowering)."""
+    if window != stride:
+        raise NotImplementedError("only window == stride pooling is ported")
+    h, w, c = x.shape[-3:]
+    ho, wo = h // window, w // window
+    x = x[..., :ho * window, :wo * window, :]
+    x = x.reshape(*x.shape[:-3], ho, window, wo, window, c)
+    return x.amax(dim=-2).amax(dim=-3)
+
+
+def linear(x: Tensor, w: Tensor, b: Optional[Tensor]) -> Tensor:
+    """``x @ w + b`` with ``w`` of shape (in, out), or ``(T, in, out)``
+    against a ``(T, batch, in)`` activation."""
+    out = torch.matmul(x, w.to(x.dtype))
+    if b is not None:
+        b = b.to(out.dtype)
+        out = out + (b[:, None, :] if b.dim() == 2 else b)
+    return out
+
+
+def cross_entropy(logits: Tensor, labels: Tensor) -> Tensor:
+    """Mean softmax cross-entropy over the batch axis, in f32: a scalar for
+    ``(batch, classes)`` logits, ``(T,)`` for ``(T, batch, classes)``."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, labels.long().unsqueeze(-1)).squeeze(-1)
+    return nll.mean(dim=-1)
+
+
+def accuracy(logits: Tensor, labels: Tensor) -> Tensor:
+    """Per-sample correctness as float."""
+    return (torch.argmax(logits, dim=-1) == labels.long()).float()
+
+
+def conv_bn_act_pool(x: Tensor, w: Tensor, b: Tensor, gamma: Tensor,
+                     beta: Tensor, stats_impl: str = "twopass",
+                     eps: float = BN_EPS,
+                     negative_slope: float = LEAKY_SLOPE
+                     ) -> Tuple[Tensor, Tensor, Tensor]:
+    """The slice's block in plain ops, differentiable by autograd: 3x3 conv
+    (stride 1, pad 1) + bias -> batch norm -> leaky-ReLU -> 2x2 max pool.
+
+    Returns ``(pooled, batch_mean, batch_var)``; the statistics are
+    detached (they only feed the running-stat update, which no gradient
+    reads)."""
+    y = conv2d(x, w, b, 1, 1)
+    mean, var = batch_stats(y, stats_impl)
+    inv = torch.rsqrt(var + eps).to(y.dtype)
+    z = (y - _per_channel(mean, y)) * _per_channel(inv, y)
+    z = z * _per_channel(gamma.to(y.dtype), y) + _per_channel(
+        beta.to(y.dtype), y)
+    pooled = max_pool2d(leaky_relu(z, negative_slope))
+    return pooled, mean.detach(), var.detach()
+
+
+# -- plain twins of the hand-written kernels ----------------------------------
+#
+# All take the tenant axis: x/y (T, N, H, W, C) f32, w (T, 3, 3, cin, cout),
+# per-channel tensors (T, C).
+
+
+def conv3x3_fwd_stats(x: Tensor, w: Tensor, b: Tensor, eps: float = BN_EPS
+                      ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Twin of K1: ``y = conv3x3(x, w) + b`` and y's per-(tenant, channel)
+    batch mean, biased variance and ``rstd = 1 / sqrt(var + eps)``."""
+    y = conv2d(x, w, b, 1, 1)
+    mean, var = batch_stats(y, "twopass")
+    return y, mean, var, 1.0 / torch.sqrt(var + eps)
+
+
+def _windows(a: Tensor) -> Tensor:
+    """``(T, N, H, W, C) -> (T, N, H//2, W//2, C, 4)``: each 2x2 window's
+    elements in the order ``2 * dh + dw`` (odd trailing row/col dropped)."""
+    t, n, h, w, c = a.shape
+    ho, wo = h // 2, w // 2
+    a = a[:, :, :2 * ho, :2 * wo, :].reshape(t, n, ho, 2, wo, 2, c)
+    return a.permute(0, 1, 2, 4, 6, 3, 5).reshape(t, n, ho, wo, c, 4)
+
+
+def _affine_act(y: Tensor, mean: Tensor, rstd: Tensor, gamma: Tensor,
+                beta: Tensor) -> Tuple[Tensor, Tensor]:
+    """``(xhat, z)`` with ``xhat = (y - mean) * rstd`` and
+    ``z = xhat * gamma + beta``."""
+    xhat = (y - _per_channel(mean, y)) * _per_channel(rstd, y)
+    return xhat, xhat * _per_channel(gamma, y) + _per_channel(beta, y)
+
+
+def bn_act_pool_fwd(y: Tensor, mean: Tensor, rstd: Tensor, gamma: Tensor,
+                    beta: Tensor, negative_slope: float = LEAKY_SLOPE
+                    ) -> Tuple[Tensor, Tensor]:
+    """Twin of K2: normalize, affine, leaky-ReLU and 2x2 max pool; returns
+    the pooled activation and each pooled element's window argmax (uint8,
+    ``2 * dh + dw``, the first maximum on ties)."""
+    _, z = _affine_act(y, mean, rstd, gamma, beta)
+    win = _windows(leaky_relu(z, negative_slope))
+    arg = torch.argmax(win, dim=-1, keepdim=True)
+    pooled = torch.gather(win, -1, arg).squeeze(-1)
+    return pooled, arg.squeeze(-1).to(torch.uint8)
+
+
+def bn_act_pool_bwd(dpooled: Tensor, argmax: Tensor, y: Tensor, mean: Tensor,
+                    rstd: Tensor, gamma: Tensor, beta: Tensor,
+                    negative_slope: float = LEAKY_SLOPE
+                    ) -> Tuple[Tensor, Tensor, Tensor]:
+    """Twin of K3: the backward of ``bn_act_pool_fwd`` through batch norm
+    with batch statistics. Routes dL/dpooled to each window's argmax (a
+    dropped odd row or column receives no dz), through the leaky slope, then
+
+        dy = gamma * rstd * (dz - mean(dz) - xhat * mean(dz * xhat)).
+
+    Returns ``(dy, dgamma, dbeta)`` with ``dgamma = sum(dz * xhat)`` and
+    ``dbeta = sum(dz)`` per (tenant, channel)."""
+    t, n, h, w, c = y.shape
+    ho, wo = h // 2, w // 2
+    onehot = tF.one_hot(argmax.long(), 4).to(dpooled.dtype)
+    da = (onehot * dpooled.unsqueeze(-1)).reshape(t, n, ho, wo, c, 2, 2)
+    da = da.permute(0, 1, 2, 5, 3, 6, 4).reshape(t, n, 2 * ho, 2 * wo, c)
+    da = tF.pad(da, (0, 0, 0, w - 2 * wo, 0, h - 2 * ho))
+    xhat, z = _affine_act(y, mean, rstd, gamma, beta)
+    dz = torch.where(z >= 0, da, negative_slope * da)
+    dbeta = dz.sum((1, 2, 3))
+    dgamma = (dz * xhat).sum((1, 2, 3))
+    inv_m = 1.0 / (n * h * w)
+    dy = _per_channel(gamma * rstd, y) * (
+        dz - _per_channel(dbeta * inv_m, y)
+        - xhat * _per_channel(dgamma * inv_m, y)
+    )
+    return dy, dgamma, dbeta
+
+
+def conv3x3_dgrad(dy: Tensor, w: Tensor) -> Tensor:
+    """Twin of K4's dgrad: the input gradient of a 3x3 stride-1 pad-1
+    conv, i.e. the conv of ``dy`` with each tenant's weights flipped in
+    space and transposed in channels."""
+    return conv2d(dy, w.flip(1, 2).transpose(-1, -2), None, 1, 1)
+
+
+def conv3x3_wgrad(x: Tensor, dy: Tensor) -> Tuple[Tensor, Tensor]:
+    """Twin of K4's wgrad: ``dW[t] = patches(x[t])^T @ dy[t]`` in HWIO and
+    ``db[t] = sum(dy[t])`` over (N, H, W)."""
+    t, _, _, _, cin = x.shape
+    cout = dy.shape[-1]
+    patches = im2col(x, 3, 3, 1, 1).reshape(t, -1, 9 * cin)
+    dw = torch.matmul(patches.transpose(1, 2), dy.reshape(t, -1, cout))
+    return dw.reshape(t, 3, 3, cin, cout), dy.sum((1, 2, 3))

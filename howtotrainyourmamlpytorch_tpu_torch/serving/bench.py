@@ -1,0 +1,187 @@
+"""``serve-bench`` — closed-loop load generator for the port's serving path.
+
+The port of the JAX package's ``serving/bench.py`` closed loop: synthetic
+f32 adapt-on-request traffic whose group sizes cycle 1..max_tenants (every
+tenant bucket sees traffic) and whose shots cycle two buckets, served
+through ``ServingEngine`` after a warmup over every (bucket, shots) shape.
+Each group waits for the previous one.
+
+Prints ONE JSON line: adapt latency p50/p95, ``tenants_per_sec``,
+dispatches, tenants, warmup seconds, the ``device`` and its name, the
+``dtype``, each dispatch's (tenants, bucket, shots, adapt_ms), and each
+kernel's launches over the traffic (warmup excluded) in total and per
+dispatch.
+
+Runs on ``cuda:0`` unless ``--device`` names another device; without CUDA
+it raises unless ``--device cpu`` is given (the plain PyTorch ops, for
+tests). The open-loop arrivals, replicas, fleet, telemetry and the
+uint8/index ingests are not ported yet.
+
+    python -m howtotrainyourmamlpytorch_tpu_torch.cli serve-bench \\
+        --config experiment_config/mini-imagenet_maml++-mini-imagenet_5_5_2_0.01_48_0.json \\
+        --requests 32 --seed 0
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+
+from ..config import MAMLConfig
+from ..device import device_name, resolve_device
+from ..kernels import conv_block
+from ..state import init_state
+from .batcher import AdaptRequest, serve_requests
+from .engine import ServingEngine
+
+
+def _bench_cfg(args) -> MAMLConfig:
+    """The generator's config: the user's JSON when given, else a small
+    deterministic serving config (``--fast`` shrinks it further)."""
+    if args.config:
+        return MAMLConfig.from_json_file(args.config)
+    if args.fast:
+        return MAMLConfig(
+            dataset_name="omniglot_dataset",
+            image_height=10, image_width=10, image_channels=1,
+            num_classes_per_set=3, num_samples_per_class=1,
+            num_target_samples=2, batch_size=2, cnn_num_filters=4,
+            num_stages=2, max_pooling=True, per_step_bn_statistics=True,
+            number_of_training_steps_per_iter=2,
+            number_of_evaluation_steps_per_iter=2,
+            serving_bucket_ladder=[1, 2],
+            serving_max_tenants_per_dispatch=2,
+        )
+    return MAMLConfig(
+        dataset_name="omniglot_dataset",
+        image_height=28, image_width=28, image_channels=1,
+        num_classes_per_set=5, num_samples_per_class=1,
+        num_target_samples=5, batch_size=8, cnn_num_filters=32,
+        num_stages=4, max_pooling=True, per_step_bn_statistics=True,
+        number_of_training_steps_per_iter=3,
+        number_of_evaluation_steps_per_iter=3,
+    )
+
+
+def bench_shots_buckets(cfg: MAMLConfig) -> List[int]:
+    """Two shots buckets, so every run exercises both."""
+    return sorted({cfg.num_samples_per_class, cfg.num_samples_per_class + 1})
+
+
+def _synth_request(cfg: MAMLConfig, rng, shots: int,
+                   tenant_id: str) -> AdaptRequest:
+    n, t = cfg.num_classes_per_set, cfg.num_target_samples
+    h, w, c = cfg.im_shape
+    return AdaptRequest(
+        support_x=rng.randn(n, shots, h, w, c).astype(np.float32),
+        support_y=np.tile(np.arange(n, dtype=np.int32)[:, None], (1, shots)),
+        query_x=rng.randn(n, t, h, w, c).astype(np.float32),
+        query_y=np.tile(np.arange(n, dtype=np.int32)[:, None], (1, t)),
+        tenant_id=tenant_id,
+    )
+
+
+def _synth_groups(cfg: MAMLConfig, shots_buckets, n_requests: int, cap: int,
+                  seed: int) -> List[List[AdaptRequest]]:
+    """Deterministic traffic as DISPATCH GROUPS: sizes cycle 1..cap and
+    each group's shots cycle the configured buckets."""
+    rng = np.random.RandomState(seed)
+    groups: List[List[AdaptRequest]] = []
+    size, total, g = 1, 0, 0
+    while total < n_requests:
+        take = min(size, n_requests - total)
+        s = shots_buckets[g % len(shots_buckets)]
+        groups.append([
+            _synth_request(cfg, rng, s, tenant_id=f"tenant-{total + i}")
+            for i in range(take)
+        ])
+        total += take
+        g += 1
+        size = size + 1 if size < cap else 1
+    return groups
+
+
+def _parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="serve-bench",
+        description="Closed-loop load generator for the PyTorch port's "
+                    "adapt-on-request serving engine",
+    )
+    parser.add_argument("--fast", action="store_true",
+                        help="seconds-scale smoke workload")
+    parser.add_argument("--config", default=None,
+                        help="experiment JSON supplying the geometry and "
+                             "serving_* knobs")
+    parser.add_argument("--requests", type=int, default=None,
+                        help="synthetic requests to serve (default: 8 "
+                             "fast, 64 otherwise)")
+    parser.add_argument("--seed", type=int, default=0,
+                        help="traffic seed (the snapshot uses the config's "
+                             "seed)")
+    parser.add_argument("--device", default=None,
+                        help="torch device (default cuda:0; 'cpu' runs the "
+                             "plain PyTorch ops)")
+    return parser
+
+
+def run(argv: Optional[List[str]] = None) -> Dict[str, Any]:
+    """Drive the bench; returns the JSON line as a dict."""
+    args = _parser().parse_args(argv)
+    device = resolve_device(args.device)
+    cfg = _bench_cfg(args)
+    n_requests = args.requests or (8 if args.fast else 64)
+    shots_buckets = bench_shots_buckets(cfg)
+    state = init_state(cfg, device=device)
+    engine = ServingEngine(cfg, state, shots_buckets=shots_buckets,
+                           device=device)
+    warmup_s = engine.warmup()
+    groups = _synth_groups(cfg, shots_buckets, n_requests,
+                           engine.max_tenants, args.seed)
+    per_dispatch = []
+    dispatches = []
+    before = conv_block.launches()
+    for group in groups:
+        at = conv_block.launches()
+        for dr in serve_requests(engine, group)[1]:
+            dispatches.append({"tenants": dr.tenants, "bucket": dr.bucket,
+                               "shots": dr.shots, "adapt_ms": dr.adapt_ms})
+        now = conv_block.launches()
+        per_dispatch.append({k: now[k] - at[k] for k in now})
+    after = conv_block.launches()
+    rollup = engine.rollup()
+    return {
+        "metric": "serving_adaptation_latency_ms",
+        "value": rollup["adapt_ms_p50"],
+        "unit": "ms",
+        "adaptation_latency_ms_p50": rollup["adapt_ms_p50"],
+        "adaptation_latency_ms_p95": rollup["adapt_ms_p95"],
+        "tenants_per_sec": rollup["tenants_per_sec"],
+        "dispatches": rollup["dispatches"],
+        "tenants": rollup["tenants"],
+        "warmup_seconds": warmup_s,
+        "warmup_dispatches": engine.warmup_stats["dispatches"],
+        "device": str(device),
+        "device_name": device_name(device),
+        "dtype": cfg.compute_dtype,
+        "kernel_launches": {k: after[k] - before[k] for k in after},
+        "kernel_launches_per_dispatch": per_dispatch,
+        "per_dispatch": dispatches,
+        "bucket_ladder": list(engine.buckets),
+        "shots_buckets": list(engine.shots_buckets),
+        "max_tenants_per_dispatch": engine.max_tenants,
+        "requests": n_requests,
+        "fast": bool(args.fast),
+    }
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    print(json.dumps(run(argv)))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

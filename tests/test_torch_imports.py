@@ -1,0 +1,175 @@
+"""Boundaries of the PyTorch port:
+
+* no module of the port, and not ``chip_smoke.py``, imports jax, jaxlib,
+  optax, orbax or anything of the JAX package (checked on the AST, so
+  every import counts, however deep in a function it sits);
+* entry points run on the card unless asked for the CPU: with no CUDA
+  device and no device named, they raise naming ``--device cpu``;
+* a tensor that is not on the CPU never reaches a plain version: the
+  wrappers launch their kernel or raise;
+* a second-order request through ``ConvBnActPool`` raises;
+* the port's config loads every experiment JSON as the JAX package's does.
+"""
+
+import ast
+import dataclasses
+import glob
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from howtotrainyourmamlpytorch_tpu.config import MAMLConfig as JaxConfig
+from howtotrainyourmamlpytorch_tpu_torch import state as state_lib
+from howtotrainyourmamlpytorch_tpu_torch.config import MAMLConfig
+from howtotrainyourmamlpytorch_tpu_torch.kernels import conv_block
+from howtotrainyourmamlpytorch_tpu_torch.serving import bench
+from howtotrainyourmamlpytorch_tpu_torch.serving.engine import ServingEngine
+
+torch.set_num_threads(2)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(ROOT, "howtotrainyourmamlpytorch_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "optax", "orbax", "howtotrainyourmamlpytorch_tpu")
+
+
+def _port_files():
+    files = sorted(glob.glob(os.path.join(PORT, "**", "*.py"), recursive=True))
+    return files + [os.path.join(ROOT, "chip_smoke.py")]
+
+
+def _imported_modules(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "id", getattr(node.func, "attr", "")) in (
+                "import_module", "__import__") and node.args and isinstance(
+                node.args[0], ast.Constant):
+            yield str(node.args[0].value)
+
+
+def _forbidden(name):
+    root = name.split(".")[0]
+    return root in FORBIDDEN
+
+
+def test_the_forbidden_rule():
+    assert _forbidden("jax.numpy") and _forbidden("optax")
+    assert _forbidden("howtotrainyourmamlpytorch_tpu.config")
+    assert _forbidden("howtotrainyourmamlpytorch_tpu")
+    assert not _forbidden("howtotrainyourmamlpytorch_tpu_torch.config")
+    assert not _forbidden("torch")
+
+
+@pytest.mark.parametrize(
+    "path", _port_files(), ids=lambda p: os.path.relpath(p, ROOT))
+def test_port_imports_nothing_of_jax(path):
+    bad = [m for m in _imported_modules(path) if _forbidden(m)]
+    assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
+
+
+def _tiny_cfg():
+    return MAMLConfig(
+        dataset_name="omniglot_dataset", image_height=10, image_width=10,
+        image_channels=1, num_classes_per_set=2, num_samples_per_class=1,
+        num_target_samples=1, cnn_num_filters=4, num_stages=2,
+        max_pooling=True, per_step_bn_statistics=True,
+        serving_bucket_ladder=[1], serving_max_tenants_per_dispatch=1,
+    )
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_without_a_device_raise_when_cuda_is_absent(no_cuda):
+    cfg = _tiny_cfg()
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        state_lib.init_state(cfg)
+    host = state_lib.to_numpy(state_lib.init_state(cfg, device="cpu"))
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        ServingEngine(cfg, host)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        state_lib.from_numpy(host)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        bench.run(["--fast"])
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        ServingEngine(cfg, host, device="cuda:0")
+
+
+def _meta(*shape, dtype=torch.float32):
+    return torch.empty(*shape, device="meta", dtype=dtype)
+
+
+def test_wrappers_never_take_the_plain_path_off_the_cpu():
+    """A tensor that is not on the CPU goes to the kernel path, which
+    refuses anything but CUDA; it is never quietly computed in plain ops."""
+    x = _meta(1, 2, 6, 6, 3)
+    w = _meta(1, 3, 3, 3, 4)
+    b = _meta(1, 4)
+    y = _meta(1, 2, 6, 6, 4)
+    v = _meta(1, 4)
+    conv_block.reset_launches()
+    calls = [
+        lambda: conv_block.conv3x3_fwd_stats(x, w, b),
+        lambda: conv_block.bn_act_pool_fwd(y, v, v, v, v),
+        lambda: conv_block.bn_act_pool_bwd(
+            _meta(1, 2, 3, 3, 4), _meta(1, 2, 3, 3, 4, dtype=torch.uint8),
+            y, v, v, v, v),
+        lambda: conv_block.conv3x3_dgrad(y, w),
+        lambda: conv_block.conv3x3_wgrad(x, y),
+    ]
+    for call in calls:
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+    assert conv_block.launches() == {k: 0 for k in conv_block.KERNELS}
+    with pytest.raises(NotImplementedError, match="f32 only"):
+        conv_block.conv_bn_act_pool(
+            _meta(1, 2, 6, 6, 3, dtype=torch.bfloat16), w, b, v, v)
+
+
+def test_second_order_through_the_block_raises():
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(1, 2, 6, 6, 3).astype(np.float32))
+    w = torch.from_numpy(rng.randn(1, 3, 3, 3, 4).astype(np.float32))
+    w.requires_grad_(True)
+    b = torch.zeros(1, 4)
+    g, be = torch.ones(1, 4), torch.zeros(1, 4)
+    pooled, _, _ = conv_block.ConvBnActPool.apply(x, w, b, g, be)
+    (gw,) = torch.autograd.grad((pooled ** 2).sum(), [w], create_graph=True)
+    with pytest.raises(RuntimeError, match="once_differentiable"):
+        gw.sum().backward()
+
+
+def test_config_loads_every_experiment_json_like_the_jax_package():
+    paths = sorted(glob.glob(os.path.join(ROOT, "experiment_config",
+                                          "*.json")))
+    assert paths
+    jax_fields = {f.name for f in dataclasses.fields(JaxConfig)}
+    assert {f.name for f in dataclasses.fields(MAMLConfig)} == jax_fields
+    for path in paths:
+        got = dataclasses.asdict(MAMLConfig.from_json_file(path))
+        want = dataclasses.asdict(JaxConfig.from_json_file(path))
+        assert got == want, path
+
+
+def test_config_validates_like_the_jax_package():
+    for bad in (dict(compute_dtype="fp16"), dict(serving_bucket_ladder=[2, 1]),
+                dict(bn_stats_impl="onepass"), dict(max_pooling=True,
+                                                    image_height=2)):
+        with pytest.raises(ValueError):
+            JaxConfig(**bad)
+        with pytest.raises(ValueError):
+            MAMLConfig(**bad)
+    cfg = MAMLConfig()
+    assert cfg.resolved_bn_stats_impl("cpu") == "fused"
+    assert cfg.resolved_bn_stats_impl(torch.device("cuda", 0)) == "twopass"
+    assert MAMLConfig(bn_stats_impl="twopass").resolved_bn_stats_impl(
+        "cpu") == "twopass"

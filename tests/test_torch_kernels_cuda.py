@@ -1,0 +1,106 @@
+"""The port's hand-written kernels held to their plain twins on an NVIDIA
+card, at small and ragged shapes (odd image sizes, channel counts that do
+not fill a tile). These need the card: marked ``cuda``, they skip where
+``torch.cuda.is_available()`` is false. On the card (``--noconftest``:
+the suite's conftest imports jax, which the port never needs):
+
+    python -m pytest tests/test_torch_kernels_cuda.py -q --noconftest
+
+Tolerance: ``max |kernel - twin| <= 1e-5 + 1e-4 * max |twin|`` (f32, sums
+in another order).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from howtotrainyourmamlpytorch_tpu_torch.kernels import conv_block as cb
+from howtotrainyourmamlpytorch_tpu_torch.ops import functional as F
+
+pytestmark = pytest.mark.cuda
+
+SHAPES = [
+    # T, N, H, W, cin, cout
+    (1, 1, 5, 5, 1, 4),
+    (2, 3, 11, 9, 3, 20),
+    (3, 2, 21, 21, 48, 48),
+    (2, 5, 10, 10, 17, 33),
+]
+
+
+@pytest.fixture
+def device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is "
+                    "false)")
+    from howtotrainyourmamlpytorch_tpu_torch.device import resolve_device
+
+    return resolve_device("cuda:0")
+
+
+def _close(got, want):
+    err = (got.double() - want.double()).abs().max().item()
+    scale = want.double().abs().max().item()
+    assert err <= 1e-5 + 1e-4 * scale, (err, scale)
+
+
+def _inputs(shape, device, seed=0):
+    T, N, H, W, cin, cout = shape
+    g = torch.Generator().manual_seed(seed)
+
+    def r(*s, scale=1.0):
+        return (torch.randn(*s, generator=g) * scale).to(device)
+
+    return (r(T, N, H, W, cin), r(T, 3, 3, cin, cout, scale=0.3),
+            r(T, cout, scale=0.1), 1 + r(T, cout, scale=0.1),
+            r(T, cout, scale=0.1))
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_kernels_match_their_twins(shape, device):
+    x, w, b, gamma, beta = _inputs(shape, device)
+    cb.reset_launches()
+    got = cb.conv3x3_fwd_stats(x, w, b)
+    want = F.conv3x3_fwd_stats(x, w, b)
+    for a, c in zip(got, want):
+        _close(a, c)
+    y, mean, _, rstd = want
+    pooled, arg = cb.bn_act_pool_fwd(y, mean, rstd, gamma, beta)
+    pooled_p, arg_p = F.bn_act_pool_fwd(y, mean, rstd, gamma, beta)
+    _close(pooled, pooled_p)
+    assert torch.equal(arg, arg_p)
+    dp = torch.randn(pooled.shape, device=device)
+    got = cb.bn_act_pool_bwd(dp, arg, y, mean, rstd, gamma, beta)
+    want = F.bn_act_pool_bwd(dp, arg, y, mean, rstd, gamma, beta)
+    for a, c in zip(got, want):
+        _close(a, c)
+    dy = want[0]
+    _close(cb.conv3x3_dgrad(dy, w), F.conv3x3_dgrad(dy, w))
+    for a, c in zip(cb.conv3x3_wgrad(x, dy), F.conv3x3_wgrad(x, dy)):
+        _close(a, c)
+    assert cb.launches() == {k: 1 for k in cb.KERNELS}
+
+
+def test_block_gradients_match_plain_autograd(device):
+    x, w, b, gamma, beta = _inputs((2, 3, 11, 11, 8, 12), device, seed=1)
+    grads = []
+    for fn in (cb.conv_bn_act_pool, F.conv_bn_act_pool):
+        leaves = [t.clone().requires_grad_(True) for t in (x, w, b, gamma,
+                                                          beta)]
+        pooled, _, _ = fn(*leaves)
+        ct = torch.from_numpy(
+            np.random.RandomState(0).randn(*pooled.shape).astype(np.float32)
+        ).to(device)
+        grads.append(torch.autograd.grad((pooled * ct).sum(), leaves))
+    for a, c in zip(*grads):
+        _close(a, c)
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(device):
+    x, w, b, _, _ = _inputs((1, 2, 6, 6, 3, 4), device)
+    with pytest.raises(TypeError, match="float32"):
+        cb.conv3x3_fwd_stats(x.double(), w, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        cb.conv3x3_fwd_stats(x.transpose(2, 3), w, b)
+    with pytest.raises(ValueError, match="shape"):
+        cb.conv3x3_fwd_stats(x, w[:, :, :, :2], b)
