@@ -9,23 +9,34 @@ Phases, in order; any failure raises and the exit code is non-zero:
    ``torch.cuda.is_available()`` is false.
 2. Build the CUDA kernels from ``howtotrainyourmamlpytorch_tpu_torch/
    kernels/csrc`` (and print ptxas' resource usage).
-3. Hold each kernel against its plain PyTorch twin on the card, forward
-   and backward, at the slice's shapes (T = 8 tenants, N = 25 and 75
-   images, layer-1 and layer-2 geometry of the mini-ImageNet model), and
-   time the kernel, the twin and — where one PyTorch call computes the
-   same function — that library call (CUDA events, after a warmup).
-4. Drive the main path: the port's ``serve-bench`` at the full
-   mini-ImageNet 5-way 5-shot configuration, 32 requests, through
-   ``ServingEngine``. Every kernel's launch counter is zeroed just before
-   and read just after, and must have moved by the per-dispatch counts of
-   the model (5 inner steps x 4 blocks) for every dispatch.
-5. Hold the serve step against the same step run with the plain versions
-   on the card: on a small input at the CPU parity tests' tolerances, and
-   one bucket-8 dispatch at full width, beside the spread between the
-   plain versions on the CPU and on the card. Then profile one bucket-8
-   and one bucket-1 dispatch (device time by kernel, device busy share).
-6. Print one ``{"kernels": [...]}`` line, then the result line
-   ``{"ok": true, "device": {...}}`` last.
+3. Hold each kernel against its plain PyTorch twin on the card at the
+   main paths' shapes — the serving kernels K1-K4 at T = 8 tenants, N = 25
+   and 75 images; the training kernels K1 stats-free and K5 at T = 2 and 8
+   tasks, N = 25 — at layer-1 and layer-2 geometry of the mini-ImageNet
+   model, and time the kernel, the twin and, where one PyTorch call
+   computes the same function, that library call (CUDA events, after a
+   warmup). Then the block's first and second derivatives on the kernels
+   against autograd of the plain block.
+4. Serving main path: the port's ``serve-bench`` at the full mini-ImageNet
+   5-way 5-shot configuration, 16 requests, through ``ServingEngine``.
+   Every kernel's launch counter is zeroed just before and read just
+   after, and must have moved by the per-dispatch counts of the model
+   (5 inner steps x 4 blocks) for every dispatch. Then the serve step
+   against the plain serve step (small input; one full-width bucket-8
+   dispatch beside the CPU-vs-card spread of the plain code) and a
+   profile of one bucket-8 and one bucket-1 dispatch.
+5. Training main path: the port's ``train-bench`` at the same
+   configuration, second order from epoch 0 (MSL on), at batch 2 (the
+   config's) and 8, 2 warmup and 5 timed steps each; every step's
+   launches must equal ``expected_train_launches``. Then a learning check
+   (10 steps on one fixed batch), a profile of one batch-2 step, and the
+   meta-gradients of the kernels against the plain ops on the card: on a
+   small input at the CPU parity tolerance, and at full width, batch 2,
+   for three data seeds (``--grad-seeds``), leaf by leaf against the same
+   step in f64, beside the plain ops' own f32 errors (twopass and fused
+   statistics), each the median over five orders of the images.
+6. Print one ``{"kernels": [...]}`` line (launches summed over both main
+   paths), then the result line ``{"ok": true, "device": {...}}`` last.
 
 Needs one card. Imports nothing of JAX or of the JAX package.
 """
@@ -66,6 +77,17 @@ ATOL = 1e-5
 # the kernel-vs-plain error.
 PREDS_ATOL = 1e-2
 LOSS_RTOL = 2e-3
+# second-order meta-gradients at full width (check_grads_full_width): per
+# leaf and data seed, each f32 run's max |err| against the same step in
+# f64, as the median over GRAD_ORDERS orders of the images; the kernels'
+# median within GRADS_FACTOR times the larger of the plain ops' medians
+# (twopass and fused statistics), plus GRADS_FLOOR times the tree's largest
+# entry (for the conv biases, whose true meta-gradient is 0). How
+# GRADS_FACTOR was derived is in check_grads_full_width's docstring.
+GRAD_ORDERS = 5
+GRADS_FACTOR = 4.0
+GRADS_FLOOR = 1e-5
+GRAD_SEEDS = (10, 11, 12)
 
 REPLACES = {
     "conv3x3_fwd_stats": "howtotrainyourmamlpytorch_tpu/ops/functional.py:249",
@@ -73,6 +95,9 @@ REPLACES = {
     "bn_act_pool_bwd": "howtotrainyourmamlpytorch_tpu/ops/functional.py:368",
     "conv3x3_dgrad": "howtotrainyourmamlpytorch_tpu/ops/functional.py:199",
     "conv3x3_wgrad": "howtotrainyourmamlpytorch_tpu/ops/functional.py:199",
+    "conv3x3_fwd": "howtotrainyourmamlpytorch_tpu/ops/functional.py:199",
+    "bn_act_pool_bwd_bwd":
+        "howtotrainyourmamlpytorch_tpu/ops/functional.py:368",
 }
 SOURCES = {
     "conv3x3_fwd_stats": (
@@ -90,15 +115,25 @@ SOURCES = {
     "conv3x3_wgrad": (
         "cuda", "howtotrainyourmamlpytorch_tpu_torch/kernels/csrc/"
                 "conv3x3_bwd.cu"),
+    "conv3x3_fwd": (
+        "cuda", "howtotrainyourmamlpytorch_tpu_torch/kernels/csrc/"
+                "conv3x3_fwd.cu"),
+    "bn_act_pool_bwd_bwd": (
+        "triton", "howtotrainyourmamlpytorch_tpu_torch/kernels/"
+                  "bn_act_pool.py"),
 }
-# the shape each kernel's line reports: (layer label, N)
+# the shape each kernel's line reports (a key of its records)
 REPORT_AT = {
-    "conv3x3_fwd_stats": ("layer1", 75),
-    "bn_act_pool_fwd": ("layer1", 75),
-    "bn_act_pool_bwd": ("layer1", 25),
-    "conv3x3_dgrad": ("layer2", 25),
-    "conv3x3_wgrad": ("layer1", 25),
+    "conv3x3_fwd_stats": "T=8 layer1 N=75",
+    "bn_act_pool_fwd": "T=8 layer1 N=75",
+    "bn_act_pool_bwd": "T=8 layer1 N=25",
+    "conv3x3_dgrad": "T=8 layer2 N=25",
+    "conv3x3_wgrad": "T=8 layer1 N=25",
+    "conv3x3_fwd": "T=8 layer2 N=25",
+    "bn_act_pool_bwd_bwd": "T=8 layer1 N=25",
 }
+TRAIN_TASKS = (2, 8)  # the config's batch, and bench.py's per-chip default
+DEVICE = "cuda:0"
 
 
 def card_line() -> str:
@@ -108,18 +143,6 @@ def card_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
-
-
-def peak_rates(name: str):
-    """(f32 FLOP/s outside the tensor cores, memory bytes/s) from NVIDIA's
-    data sheets: the PCIe H100 at 51.2 TFLOP/s and 2.0 TB/s, the NVL at
-    60 TFLOP/s and 3.9 TB/s, the SXM part (default) at 67 TFLOP/s and
-    3.35 TB/s."""
-    if "PCIe" in name:
-        return 51.2e12, 2.0e12
-    if "NVL" in name:
-        return 60e12, 3.9e12
-    return 67e12, 3.35e12
 
 
 def time_ms(fn, reps: int = 10) -> float:
@@ -136,7 +159,10 @@ def time_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
-def max_err(name: str, got, want) -> float:
+def max_err(name: str, got, want, scaled_atol: bool = False) -> float:
+    """max |got - want|, within ATOL + RTOL * max |want|; with
+    ``scaled_atol`` the ATOL shrinks with an output below unit scale
+    (ATOL * min(1, max |want|)), so it never covers a small output."""
     got, want = got.float(), want.float()
     if got.shape != want.shape:
         raise AssertionError(f"{name}: shape {tuple(got.shape)} != "
@@ -145,10 +171,11 @@ def max_err(name: str, got, want) -> float:
         raise AssertionError(f"{name}: non-finite kernel output")
     err = (got - want).abs().max().item()
     scale = want.abs().max().item()
-    if err > ATOL + RTOL * scale:
+    atol = ATOL * min(1.0, scale) if scaled_atol else ATOL
+    if err > atol + RTOL * scale:
         raise AssertionError(
             f"{name}: max |kernel - plain| = {err:.3e} exceeds "
-            f"{ATOL:g} + {RTOL:g} * {scale:.3e}"
+            f"{atol:.3g} + {RTOL:g} * {scale:.3e}"
         )
     return err
 
@@ -159,43 +186,49 @@ def _nchw_tenants(a):
     return a.permute(1, 0, 4, 2, 3).reshape(n, t * c, h, w).contiguous()
 
 
-def check_kernels(cb, F, peaks):
-    """Phase 3; returns {kernel: {shape label: record}}."""
-    peak_flops, peak_bw = peaks
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    records = {k: {} for k in cb.KERNELS}
+class Records:
+    """{kernel: {shape label: record}} of the kernel phase: max error,
+    kernel / plain / library ms (CUDA events) and the bound."""
 
-    def bound(flops, nbytes):
-        t_ops = flops / peak_flops * 1e3
-        t_bytes = nbytes / peak_bw * 1e3
-        return (max(t_ops, t_bytes),
-                "operations" if t_ops > t_bytes else "bytes")
+    def __init__(self, kernels, peaks):
+        self.by_kernel = {k: {} for k in kernels}
+        self.peak_flops, self.peak_bw = peaks
 
-    def rec(kernel, label, err, kernel_fn, plain_fn, library_fn, flops,
+    def add(self, kernel, label, err, kernel_fn, plain_fn, library_fn, flops,
             nbytes):
-        b_ms, by = bound(flops, nbytes)
+        t_ops = flops / self.peak_flops * 1e3
+        t_bytes = nbytes / self.peak_bw * 1e3
+        by = "operations" if t_ops > t_bytes else "bytes"
         r = {
             "max_abs_err": err,
             "ms": time_ms(kernel_fn),
             "plain_ms": time_ms(plain_fn),
             "library_ms": (time_ms(library_fn) if library_fn is not None
                            else None),
-            "bound_ms": b_ms, "bound_by": by,
+            "bound_ms": max(t_ops, t_bytes), "bound_by": by,
             "flops": flops, "bytes": nbytes,
         }
-        records[kernel][label] = r
+        self.by_kernel[kernel][label] = r
         print(f"  {kernel} @ {label}: err {err:.3e}  kernel "
               f"{r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  library "
-              f"{r['library_ms']} ms  bound {b_ms:.4f} ms ({by})",
+              f"{r['library_ms']} ms  bound {r['bound_ms']:.4f} ms ({by})",
               flush=True)
 
+
+def _randn(gen):
     def randn(*shape, scale=1.0):
         return torch.randn(*shape, device="cuda", generator=gen) * scale
+    return randn
 
+
+def check_kernels(cb, F, records):
+    """Phase 3, the serving kernels K1-K4 at T = 8."""
+    rec = records.add
+    randn = _randn(torch.Generator(device="cuda").manual_seed(0))
     T, C = T_TENANTS, COUT
     for layer, hw, cin in LAYERS:
         for n in IMAGES:
-            label = f"{layer} N={n}"
+            label = f"T={T} {layer} N={n}"
             H = W = hw
             M = n * H * W
             x = randn(T, n, H, W, cin)
@@ -282,30 +315,156 @@ def check_kernels(cb, F, peaks):
                 4 * (x.numel() + dy.numel() + dw.numel() + db.numel()))
             del x, y, y_p, pooled, pooled_p, dy, dy_p, dyl, xl
             torch.cuda.empty_cache()
-    return records
+
+
+def check_train_kernels(cb, F, records):
+    """Phase 3, the kernels only second order launches: K1 stats-free
+    (bias as Wgrad's backward passes it) and K5, at the training shapes:
+    T = 2 and 8 tasks, 5-shot support (N = 25), layers 1 and 2."""
+    rec = records.add
+    randn = _randn(torch.Generator(device="cuda").manual_seed(4))
+    C, n = COUT, 25
+    for T in TRAIN_TASKS:
+        for layer, hw, cin in LAYERS:
+            label = f"T={T} {layer} N={n}"
+            H = W = hw
+            M = n * H * W
+            x = randn(T, n, H, W, cin)
+            w = randn(T, 3, 3, cin, C, scale=math.sqrt(2.0 / (9 * cin)))
+            b = randn(T, C, scale=0.1)
+            y = cb.conv3x3_fwd(x, w, b)
+            err = max(max_err("conv3x3_fwd", y, F.conv3x3(x, w, b)),
+                      max_err("conv3x3_fwd (no bias)", cb.conv3x3_fwd(x, w),
+                              F.conv3x3(x, w)))
+            xl = _nchw_tenants(x)
+            wl = w.permute(0, 4, 3, 1, 2).reshape(T * C, cin, 3, 3)
+            wl = wl.contiguous()
+            bl = b.reshape(-1).contiguous()
+            rec("conv3x3_fwd", label, err,
+                lambda: cb.conv3x3_fwd(x, w, b),
+                lambda: F.conv3x3(x, w, b),
+                lambda: torch.nn.functional.conv2d(xl, wl, bl, padding=1,
+                                                   groups=T),
+                2 * T * M * 9 * cin * C + T * M * C,
+                4 * (x.numel() + w.numel() + b.numel() + y.numel()))
+            # K5 on the statistics, pooling and argmax of that conv output.
+            # Every cotangent at unit scale, so that each term of g_dz, G
+            # and L_r is of the same order; each output gated on its own
+            # scale, its ATOL shrunk with it. Then again with g_gamma =
+            # g_beta = 0, which leaves g_dpooled the projection term
+            # gamma r P(a) alone.
+            gamma = 1.0 + randn(T, C, scale=0.1)
+            beta = randn(T, C, scale=0.1)
+            y, mean, _, rstd = F.conv3x3_fwd_stats(x, w, b)
+            pooled, arg = F.bn_act_pool_fwd(y, mean, rstd, gamma, beta)
+            a, dp = randn(*y.shape), randn(*pooled.shape)
+            args = (a, randn(T, C), randn(T, C), dp, arg, y, mean, rstd,
+                    gamma, beta)
+            zero = torch.zeros(T, C, device="cuda")
+            errs = []
+            for case, case_args in (("", args), (" (g_gamma = g_beta = 0)",
+                                                 (a, zero, zero) + args[3:])):
+                got = cb.bn_act_pool_bwd_bwd(*case_args)
+                want = F.bn_act_pool_bwd_bwd(*case_args)
+                outs = ("g_dpooled", "g_y", "g_gamma")
+                case_errs = [
+                    max_err(f"bn_act_pool_bwd_bwd {what}{case}", g, p,
+                            scaled_atol=True)
+                    for what, g, p in zip(outs, got, want)]
+                errs += case_errs
+                print(f"  bn_act_pool_bwd_bwd @ {label}{case}: "
+                      + ", ".join(
+                          f"{what} err {e:.3e} of max |twin| "
+                          f"{p.abs().max().item():.3e}"
+                          for what, e, p in zip(outs, case_errs, want)),
+                      flush=True)
+            err = max(errs)
+            # reads a, y, dpooled, argmax and six (T, C) vectors once,
+            # writes g_y, g_dpooled, g_gamma; ~42 FLOPs per element of y
+            # over its two passes (normalise, mask, five products/sums;
+            # then the g_dz, G and g_y formulas)
+            rec("bn_act_pool_bwd_bwd", label, err,
+                lambda: cb.bn_act_pool_bwd_bwd(*args),
+                lambda: F.bn_act_pool_bwd_bwd(*args),
+                None,
+                42 * y.numel(),
+                4 * (3 * y.numel() + 2 * pooled.numel() + 7 * T * C)
+                + arg.numel())
+            del x, y, pooled, arg, args, case_args, got, want, xl, a, dp
+            torch.cuda.empty_cache()
+
+
+def _block_errs(what, got, want, names):
+    """max |kernel - plain| of each of the block's derivatives, each on
+    its own scale, except the conv bias ("b"): its derivatives through
+    batch norm are 0, so its computed value is pure round-off, held to the
+    tolerance of the largest entry of them all."""
+    scale = max(v.abs().max().item() for v in want)
+    errs = []
+    for n, g, p in zip(names, got, want):
+        if n != "b":
+            errs.append(max_err(f"{what} {n}", g, p))
+            continue
+        err = (g - p).abs().max().item()
+        if err > ATOL + RTOL * scale:
+            raise AssertionError(
+                f"{what} b: max |kernel - plain| = {err:.3e} exceeds "
+                f"{ATOL:g} + {RTOL:g} * {scale:.3e} (the largest entry)")
+        errs.append(err)
+    print(f"  {what} vs plain autograd: max err "
+          + ", ".join(f"{n} {e:.3e}" for n, e in zip(names, errs))
+          + f" (largest entry {scale:.3e})", flush=True)
+
+
+def _block_inputs(seed):
+    """Layer-2 block inputs at the main path's support shape (8 tasks,
+    5-shot support): x, w, b, gamma, beta, and the generator."""
+    randn = _randn(torch.Generator(device="cuda").manual_seed(seed))
+    return randn, [
+        randn(T_TENANTS, 25, 42, 42, COUT),
+        randn(T_TENANTS, 3, 3, COUT, COUT, scale=math.sqrt(2.0 / (9 * COUT))),
+        randn(T_TENANTS, COUT, scale=0.1),
+        1.0 + randn(COUT, scale=0.1),
+        randn(COUT, scale=0.1),
+    ]
 
 
 def check_block_autograd(cb, F):
-    """The autograd.Function end to end against autograd of the plain
-    block, at layer-2 shapes (5-shot support)."""
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    shape = (T_TENANTS, 25, 42, 42, COUT)
-    x = torch.randn(*shape, device="cuda", generator=gen)
-    w = torch.randn(T_TENANTS, 3, 3, COUT, COUT, device="cuda",
-                    generator=gen) * math.sqrt(2.0 / (9 * COUT))
-    b = torch.zeros(T_TENANTS, COUT, device="cuda")
-    gamma = torch.ones(COUT, device="cuda")
-    beta = torch.zeros(COUT, device="cuda")
-    grads = []
+    """The block's first derivative on the kernels (K3, K4) against
+    autograd of the plain block, at layer-2 shapes, against a unit-scale
+    random cotangent."""
+    randn, inputs = _block_inputs(1)
+    ct, grads = None, []
     for fn in (cb.conv_bn_act_pool, F.conv_bn_act_pool):
-        xs, ws, bs = (t.clone().requires_grad_(True) for t in (x, w, b))
-        pooled, _, _ = fn(xs, ws, bs, gamma, beta)
-        ct = torch.ones_like(pooled) / pooled.numel()
-        grads.append(torch.autograd.grad((pooled * ct).sum(), [xs, ws, bs]))
-    err = max(max_err(f"block grad {n}", g, gp) for n, g, gp in
-              zip(("x", "w", "b"), *grads))
-    print(f"  block autograd vs plain autograd: max err {err:.3e}",
-          flush=True)
+        leaves = [t.clone().requires_grad_(True) for t in inputs]
+        pooled, _, _ = fn(*leaves)
+        if ct is None:
+            ct = randn(*pooled.shape)
+        grads.append(torch.autograd.grad((pooled * ct).sum(), leaves))
+    _block_errs("block first derivative", *grads,
+                ("x", "w", "b", "gamma", "beta"))
+
+
+def check_block_double_backward(cb, F):
+    """The block's second derivative on the card: a scalar function of the
+    block's first gradients (each against a unit-scale random cotangent),
+    differentiated again, on the kernels (K3's backward K5, the conv
+    closure on K1 stats-free and K4) against autograd of the plain block,
+    at layer-2 shapes (8 tasks, 5-shot support)."""
+    randn, inputs = _block_inputs(5)
+    ct, results = None, []
+    for fn in (cb.conv_bn_act_pool, F.conv_bn_act_pool):
+        leaves = [t.clone().requires_grad_(True) for t in inputs]
+        pooled, _, _ = fn(*leaves)
+        if ct is None:
+            ct = randn(*pooled.shape)
+            cts = [randn(*t.shape) for t in leaves[:4]]
+        first = torch.autograd.grad((pooled * ct).sum(), leaves[:4],
+                                    create_graph=True)
+        scalar = sum((g * c).sum() for g, c in zip(first, cts))
+        results.append(torch.autograd.grad(scalar, leaves[:4]))
+    _block_errs("block second derivative", *results,
+                ("x", "w", "b", "gamma"))
 
 
 def expected_launches(cfg):
@@ -316,7 +475,56 @@ def expected_launches(cfg):
         "bn_act_pool_bwd": steps * stages,        # support backward only
         "conv3x3_dgrad": steps * (stages - 1),    # not for the images
         "conv3x3_wgrad": steps * stages,
+        "conv3x3_fwd": 0,                         # second order only
+        "bn_act_pool_bwd_bwd": 0,
     }
+
+
+def expected_train_launches(cfg, second_order):
+    """Kernel launches of ONE train step (``make_train_step``), from the
+    structure of ``kernels/conv_block.py``'s Functions; S inner steps, B
+    blocks, times ``meta_accum_steps`` (each microbatch runs the graph
+    once). Per inner step and block:
+
+    * forward (support, target): K1 and K2 twice each;
+    * inner backward of the support loss: K3 once, K4 wgrad once, dgrad
+      once except at block 1 (its input is the images);
+    * first order adds the outer backward of the target forward only:
+      K3, wgrad, and dgrad except at block 1 — 2 K3, 2 wgrad, 2 dgrad;
+    * second order differentiates the inner backward too: the outer pass
+      runs the target forward's and the support forward's backwards (K3,
+      wgrad, dgrad except at block 1, each twice in all), K5 once (the
+      backward of the support's K3), and the conv closure — Wgrad's
+      backward (K1 stats-free with bias for dy; dgrad for x except at block
+      1) and Dgrad's backward (K1 stats-free for dy; wgrad for w; no Dgrad
+      node at block 1). Totals per step and block, second order: K3 3,
+      wgrad 4 (3 at block 1), dgrad 4 (0 at block 1), K1 stats-free 2 (1 at
+      block 1), K5 1.
+
+    ``tests/test_torch_train.py`` counts the same calls on the CPU through
+    the twins and holds them to this formula."""
+    s, b = cfg.number_of_training_steps_per_iter, cfg.num_stages
+    if second_order:
+        per_step = {
+            "conv3x3_fwd_stats": 2 * s * b,
+            "bn_act_pool_fwd": 2 * s * b,
+            "bn_act_pool_bwd": 3 * s * b,
+            "conv3x3_dgrad": 4 * s * (b - 1),
+            "conv3x3_wgrad": s * (4 * b - 1),
+            "conv3x3_fwd": s * (2 * b - 1),
+            "bn_act_pool_bwd_bwd": s * b,
+        }
+    else:
+        per_step = {
+            "conv3x3_fwd_stats": 2 * s * b,
+            "bn_act_pool_fwd": 2 * s * b,
+            "bn_act_pool_bwd": 2 * s * b,
+            "conv3x3_dgrad": 2 * s * (b - 1),
+            "conv3x3_wgrad": 2 * s * b,
+            "conv3x3_fwd": 0,
+            "bn_act_pool_bwd_bwd": 0,
+        }
+    return {k: v * cfg.meta_accum_steps for k, v in per_step.items()}
 
 
 def check_small_against_plain(cfg, F):
@@ -442,28 +650,309 @@ def profile_dispatch(cfg):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             dr = engine.serve_group(group)
-        events = [e for e in prof.key_averages()
-                  if getattr(e, "device_time_total", 0) > 0
-                  and e.device_type.name == "CUDA"]
-        busy_ms = sum(e.device_time_total for e in events) / 1e3
-        print(f"  profiled bucket-{dr.bucket} dispatch ({dr.tenants} "
-              f"tenants, {dr.shots} shots): adapt_ms {dr.adapt_ms:.3f}",
-              flush=True)
-        if not events:
-            print("  device time by kernel: not measured (the profiler saw "
-                  "no device activity)", flush=True)
-            continue
-        print(f"  device busy {busy_ms:.3f} ms = "
-              f"{100 * busy_ms / dr.adapt_ms:.1f}% of the dispatch, "
-              f"{sum(e.count for e in events)} device activities",
-              flush=True)
-        for e in sorted(events, key=lambda e: -e.device_time_total)[:10]:
-            print(f"    {e.device_time_total / 1e3:9.3f} ms  x{e.count:<4d} "
-                  f"{e.key[:90]}", flush=True)
+        _profile_report(prof, dr.adapt_ms,
+                        f"profiled bucket-{dr.bucket} dispatch "
+                        f"({dr.tenants} tenants, {dr.shots} shots)")
+
+
+def _profile_report(prof, wall_ms, what):
+    """Device time by kernel and the device's busy share of ``wall_ms``."""
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_time_total", 0) > 0
+              and e.device_type.name == "CUDA"]
+    if not events:
+        print(f"  {what}: device time by kernel: not measured (the "
+              "profiler saw no device activity)", flush=True)
+        return
+    busy_ms = sum(e.device_time_total for e in events) / 1e3
+    print(f"  {what}: device busy {busy_ms:.3f} ms = "
+          f"{100 * busy_ms / wall_ms:.1f}% of {wall_ms:.3f} ms, "
+          f"{sum(e.count for e in events)} device activities", flush=True)
+    for e in sorted(events, key=lambda e: -e.device_time_total)[:12]:
+        print(f"    {e.device_time_total / 1e3:9.3f} ms  x{e.count:<4d} "
+              f"{e.key[:90]}", flush=True)
+
+
+def run_train_bench(cb, cfg, batch_size):
+    """Phase 5, the training main path: ``train-bench`` at the flagship
+    config, second order from epoch 0; every timed step's launches equal
+    ``expected_train_launches`` and the run's totals equal it times the
+    steps. Returns (JSON line, launch counts over the run)."""
+    from howtotrainyourmamlpytorch_tpu_torch import bench as train_bench
+
+    warmup, steps = 2, 5
+    print(f"[train] train-bench --config mini-ImageNet 5-way 5-shot "
+          f"--batch-size {batch_size} --epoch 0 --warmup {warmup} --steps "
+          f"{steps}", flush=True)
+    cb.reset_launches()
+    line = train_bench.run([
+        "--config", FLAGSHIP, "--batch-size", str(batch_size), "--epoch",
+        "0", "--warmup", str(warmup), "--steps", str(steps), "--seed", "0",
+        "--device", DEVICE])
+    counts = cb.launches()
+    print(json.dumps(line), flush=True)
+    expected = expected_train_launches(cfg.replace(batch_size=batch_size),
+                                       True)
+    if not line["second_order"] or line["batch_size"] != batch_size:
+        raise AssertionError(f"train-bench ran {line}")
+    for i, got in enumerate(line["kernel_launches_per_step"]):
+        if got != expected:
+            raise AssertionError(
+                f"train step {i}: launches {got}, expected {expected}")
+    for k in cb.KERNELS:
+        if counts[k] == 0 or counts[k] != expected[k] * (warmup + steps):
+            raise AssertionError(
+                f"{k}: {counts[k]} launches over the training path, "
+                f"expected {expected[k]} x {warmup + steps} steps")
+    tps = line["tasks_per_sec"]
+    if not (tps and math.isfinite(tps)
+            and all(math.isfinite(v) for v in line["loss"])):
+        raise AssertionError(f"train-bench line is incomplete: {line}")
+    print(f"[train] batch {batch_size}: tasks_per_sec {tps}  step_ms p50 "
+          f"{line['step_ms_p50']}  p95 {line['step_ms_p95']}  peak_mem_gb "
+          f"{line['peak_mem_gb']}  ffma_peak_share "
+          f"{line['ffma_peak_share']}  launches per step {expected}",
+          flush=True)
+    return line, counts
+
+
+def _batch(cfg, seed):
+    """The bench's batch from ``seed`` on the card."""
+    from howtotrainyourmamlpytorch_tpu_torch import bench as train_bench
+
+    return train_bench.synth_batch(cfg, seed, torch.device(DEVICE))
+
+
+def _image_order(batch, order):
+    """``batch`` with each task's support and target images (with their
+    labels) permuted, the same permutation for every task; order 0 keeps
+    them. The meta-loss and its gradients are sums over the images, so a
+    permutation changes only the order in which the f32 sums are taken."""
+    if order == 0:
+        return batch
+    gen = torch.Generator().manual_seed(order)
+    out = []
+    for x, y in (batch[:2], batch[2:]):
+        b, per_task = y.shape[0], y[0].numel()
+        perm = torch.randperm(per_task, generator=gen).to(x.device)
+        out += [x.reshape(b, per_task, *x.shape[3:])[:, perm].reshape(x.shape),
+                y.reshape(b, per_task)[:, perm].reshape(y.shape)]
+    return tuple(out)
+
+
+def _grads(cfg, block, batch, dtype=None):
+    """(loss, meta-gradients) of one second-order step from the config's
+    seeded state on ``batch``, on the card, in ``dtype`` (f32 unless named:
+    f64 on the plain ops is the reference)."""
+    from howtotrainyourmamlpytorch_tpu_torch.core import maml
+    from howtotrainyourmamlpytorch_tpu_torch.state import (
+        init_state,
+        to_device,
+    )
+
+    device = torch.device(DEVICE)
+    state = init_state(cfg, device=device)
+    x_s, y_s, x_t, y_t = batch
+    if dtype is not None:
+        state = to_device(state, device, dtype)
+        x_s, x_t = x_s.to(dtype), x_t.to(dtype)
+    _, weights, _ = maml.epoch_schedule(cfg, 0)
+    loss, grads = maml.make_grads_fn(cfg, True, block=block)(
+        state, x_s, y_s, x_t, y_t, weights)
+    return float(loss), {f"{g}/{k}": v for g, part in grads.items()
+                         for k, v in part.items()}
+
+
+def check_grads_small(cfg, F):
+    """Phase 5: second-order meta-gradients on a SMALL input — 2 stages, 8
+    filters, 20x20 images, 2 inner steps, batch 2 — kernels vs plain ops
+    on the card, at the CPU parity tests' tolerance (each leaf within
+    1e-6 + 1e-4 * its largest entry; loss rtol 1e-4)."""
+    small = cfg.replace(image_height=20, image_width=20, cnn_num_filters=8,
+                        num_stages=2, number_of_training_steps_per_iter=2,
+                        number_of_evaluation_steps_per_iter=2,
+                        bn_stats_impl="twopass", batch_size=2)
+    batch = _batch(small, 0)
+    loss_k, grads_k = _grads(small, None, batch)
+    loss_p, grads_p = _grads(small, F.conv_bn_act_pool, batch)
+    worst = 0.0
+    for key, want in grads_p.items():
+        err = (grads_k[key] - want).abs().max().item()
+        bound = 1e-6 + 1e-4 * want.abs().max().item()
+        worst = max(worst, err / bound)
+        if err > bound:
+            raise AssertionError(f"small meta-gradient {key}: max err "
+                                 f"{err:.3e} > {bound:.3e}")
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    print(f"  small second-order step, kernels vs plain on the card: loss "
+          f"rel err {rel:.3e}, worst leaf at {worst:.3f} of its bound",
+          flush=True)
+    if rel > 1e-4:
+        raise AssertionError("small train step: loss disagrees with plain")
+
+
+def _quantiles(values):
+    v = sorted(values)
+    return ", ".join(f"{q} {v[min(len(v) - 1, int(p * len(v)))]:.3f}"
+                     for q, p in (("median", 0.5), ("p90", 0.9),
+                                  ("p99", 0.99), ("max", 1.0)))
+
+
+def check_grads_full_width(cfg, F, seeds):
+    """Phase 5: second-order meta-gradients at full width, batch 2, for
+    each data seed, held against the same step in f64 on the plain ops on
+    the card (the reference). Three f32 runs: the kernels, and the plain
+    ops with twopass and with fused statistics, each in GRAD_ORDERS orders
+    of the images (``_image_order``). Per leaf and seed, each run's error
+    is the median over the orders of max |run - f64|; the kernels' must
+    stay within GRADS_FACTOR times the larger plain median, plus
+    GRADS_FLOOR times the tree's largest entry; the loss likewise (relative
+    error, floor 1e-7). Every leaf is printed before the gate.
+
+    Why medians over orders: at this width an f32 step is far from its f64
+    value (1e-3 to 1 of a leaf's own scale), and the error comes in bursts
+    (a max-pool argmax or a leaky-ReLU sign that flips in an early inner
+    step reroutes a gradient), so one order's error varies over 10x between
+    orders of the same code. The median of several orders is steady where
+    a single reading is not, while a fault in the kernels moves every
+    order alike.
+
+    GRADS_FACTOR comes from the null ratios, which this phase prints: the
+    same statistic taken for each plain run instead of the kernels (its
+    median over the larger of the other two runs' medians; nonzero leaves
+    and the loss). If the kernels are one more f32 summation order, their
+    ratio is drawn from that distribution. Over the data seeds 0-9
+    (``--grad-seeds 0,1,2,3,4,5,6,7,8,9``; 420 null ratios on an NVIDIA
+    H100 80GB HBM3 at 700 W) it had median 0.951, p90 1.463, p99 2.565
+    and max 2.792; GRADS_FACTOR = 4 leaves room for that tail over the 63
+    ratios of a three-seed run. The default seeds are other seeds."""
+    import statistics
+
+    cfg = cfg.replace(batch_size=2)
+    twopass = cfg.replace(bn_stats_impl="twopass")
+    runs = (("kernels", cfg, None), ("twopass", twopass, F.conv_bn_act_pool),
+            ("fused", cfg.replace(bn_stats_impl="fused"), F.conv_bn_act_pool))
+    start = time.perf_counter()
+    rows, failures, ratios, null = {}, [], [], []
+    for seed in seeds:
+        batch = _batch(cfg, seed)
+        ref_loss, ref = _grads(twopass, F.conv_bn_act_pool, batch,
+                               torch.float64)
+        scale = max(v.abs().max().item() for v in ref.values())
+        loss_errs = {name: [] for name, _, _ in runs}
+        errs = {name: {key: [] for key in ref} for name, _, _ in runs}
+        for order in range(GRAD_ORDERS):
+            permuted = _image_order(batch, order)
+            for name, c, block in runs:
+                loss, g = _grads(c, block, permuted)
+                loss_errs[name].append(abs(loss - ref_loss) / abs(ref_loss))
+                for key, want in ref.items():
+                    errs[name][key].append(
+                        (g[key].double() - want).abs().max().item())
+                del g
+        stats = [("loss", 1.0, {n: statistics.median(v)
+                                for n, v in loss_errs.items()}, 1e-7)]
+        stats += [(key, want.abs().max().item(),
+                   {n: statistics.median(errs[n][key]) for n in errs},
+                   GRADS_FLOOR * scale) for key, want in ref.items()]
+        print(f"  seed {seed}: loss f64 {ref_loss:.8f}; median rel err vs "
+              "f64 " + ", ".join(f"{n} {v:.3e}" for n, v in
+                                 stats[0][2].items())
+              + " (orders: kernels "
+              + " ".join(f"{v:.1e}" for v in loss_errs["kernels"])
+              + "); largest meta-gradient entry "
+              f"{scale:.3e}", flush=True)
+        for key, m, med, floor in stats:
+            plain = max(med["twopass"], med["fused"])
+            zero = key != "loss" and m < 1e-6 * scale
+            ratio = med["kernels"] / plain if plain else 0.0
+            rows.setdefault(key, []).append((m, med, ratio, zero, scale))
+            if not zero:
+                ratios.append((ratio, seed, key))
+                for n, others in (("twopass", ("kernels", "fused")),
+                                  ("fused", ("kernels", "twopass"))):
+                    null.append((med[n] / max(med[o] for o in others),
+                                 seed, key))
+            if med["kernels"] > GRADS_FACTOR * plain + floor:
+                failures.append(f"seed {seed} {key}")
+    print(f"  per leaf, seeds {list(seeds)}, median over {GRAD_ORDERS} "
+          "image orders: max |f64| ; median max |err| / max |f64| of "
+          "kernels, twopass, fused, or * / the tree's largest entry where "
+          "the leaf is 0 (below 1e-6 of it) ; kernels / larger plain",
+          flush=True)
+    for key, per_seed in rows.items():
+        cells = []
+        for m, med, ratio, zero, scale in per_seed:
+            rel = ("*" if zero else "") + " ".join(
+                f"{med[n] / (scale if zero else m):.2e}" for n in med)
+            cells.append(f"{m:.2e}; {rel}; {ratio:.2f}")
+        print(f"    {key:34s} " + " | ".join(cells), flush=True)
+    print(f"  kernels / larger plain median over {len(ratios)} nonzero "
+          f"leaf-seeds: {_quantiles([r for r, _, _ in ratios])}; worst "
+          + ", ".join(f"{r:.2f} (seed {s} {k})"
+                      for r, s, k in sorted(ratios)[-3:]), flush=True)
+    print(f"  null ratios, each plain median / the larger of the other "
+          f"two runs', over "
+          f"{len(null)}: {_quantiles([r for r, _, _ in null])}; worst "
+          + ", ".join(f"{r:.2f} (seed {s} {k})"
+                      for r, s, k in sorted(null)[-3:])
+          + f" (gate {GRADS_FACTOR:g}x + {GRADS_FLOOR:g} of the largest "
+          f"entry; {time.perf_counter() - start:.1f} s)", flush=True)
+    if failures:
+        raise AssertionError("full-width meta-gradients: kernels further "
+                             "from f64 than the plain orders allow at "
+                             + ", ".join(failures))
+
+
+def check_learning(cfg):
+    """Phase 5: 10 second-order steps on one fixed full-width batch at the
+    config's meta LR; the loss of the last step is below the first's."""
+    from howtotrainyourmamlpytorch_tpu_torch import bench as train_bench
+
+    line = train_bench.run([
+        "--config", FLAGSHIP, "--batch-size", "2", "--epoch", "0",
+        "--warmup", "0", "--steps", "10", "--seed", "1", "--device",
+        DEVICE])
+    losses = line["loss"]
+    print(f"  10 steps on one batch at lr {line['lr']}: loss "
+          f"{[round(v, 5) for v in losses]}", flush=True)
+    if not losses[-1] < losses[0]:
+        raise AssertionError("the loss did not fall over 10 steps")
+
+
+def profile_train_step(cfg):
+    """Phase 5: where a full-width batch-2 second-order step spends its
+    time: ``torch.profiler`` over one warm step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from howtotrainyourmamlpytorch_tpu_torch import bench as train_bench
+    from howtotrainyourmamlpytorch_tpu_torch.core import maml
+    from howtotrainyourmamlpytorch_tpu_torch.state import init_state
+
+    cfg = cfg.replace(batch_size=2)
+    device = torch.device(DEVICE)
+    state = init_state(cfg, device=device, with_opt=True)
+    batch = train_bench.synth_batch(cfg, 0, device)
+    lr, weights, _ = maml.epoch_schedule(cfg, 0)
+    step = maml.make_train_step(cfg, True)
+    state, _ = step(state, *batch, weights, lr)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        state, _ = step(state, *batch, weights, lr)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - start) * 1e3
+    _profile_report(prof, wall_ms, "profiled batch-2 train step")
 
 
 def main() -> int:
-    argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument(
+        "--grad-seeds", default=",".join(map(str, GRAD_SEEDS)),
+        help="data seeds of the full-width meta-gradient check against f64 "
+             "(comma-separated)")
+    seeds = tuple(int(v) for v in parser.parse_args().grad_seeds.split(","))
     card = card_line()
     print(card, flush=True)
     if not torch.cuda.is_available():
@@ -473,7 +962,10 @@ def main() -> int:
           f"python {sys.version.split()[0]} device {kind}", flush=True)
 
     from howtotrainyourmamlpytorch_tpu_torch.config import MAMLConfig
-    from howtotrainyourmamlpytorch_tpu_torch.device import resolve_device
+    from howtotrainyourmamlpytorch_tpu_torch.device import (
+        peak_rates,
+        resolve_device,
+    )
     from howtotrainyourmamlpytorch_tpu_torch.kernels import build
     from howtotrainyourmamlpytorch_tpu_torch.kernels import conv_block as cb
     from howtotrainyourmamlpytorch_tpu_torch.ops import functional as F
@@ -489,15 +981,18 @@ def main() -> int:
 
     print("[kernels] each kernel vs its plain twin on the card", flush=True)
     t0 = time.perf_counter()
-    records = check_kernels(cb, F, peak_rates(kind))
+    records = Records(cb.KERNELS, peak_rates(kind))
+    check_kernels(cb, F, records)
+    check_train_kernels(cb, F, records)
     check_block_autograd(cb, F)
+    check_block_double_backward(cb, F)
     print(f"[kernels] {time.perf_counter() - t0:.1f} s", flush=True)
 
     cfg = MAMLConfig.from_json_file(FLAGSHIP)
     print("[serve] serve-bench --config mini-ImageNet 5-way 5-shot "
-          "--requests 32 --seed 0", flush=True)
+          "--requests 16 --seed 0", flush=True)
     cb.reset_launches()
-    line = bench.run(["--config", FLAGSHIP, "--requests", "32",
+    line = bench.run(["--config", FLAGSHIP, "--requests", "16",
                       "--seed", "0", "--device", "cuda:0"])
     counts = cb.launches()
     print(json.dumps(line), flush=True)
@@ -509,13 +1004,14 @@ def main() -> int:
             )
     dispatches = line["dispatches"] + line["warmup_dispatches"]
     for k in cb.KERNELS:
-        if counts[k] == 0 or counts[k] != expected[k] * dispatches:
+        if (counts[k] == 0) != (expected[k] == 0) \
+                or counts[k] != expected[k] * dispatches:
             raise AssertionError(
                 f"{k}: {counts[k]} launches over the main path, expected "
                 f"{expected[k]} x {dispatches} dispatches"
             )
     tps = line["tenants_per_sec"]
-    if not (line["tenants"] == 32 and tps and math.isfinite(tps)):
+    if not (line["tenants"] == 16 and tps and math.isfinite(tps)):
         raise AssertionError(f"serve-bench line is incomplete: {line}")
     print(f"[serve] tenants_per_sec {tps}  adapt_ms p50 "
           f"{line['adaptation_latency_ms_p50']}  p95 "
@@ -527,21 +1023,34 @@ def main() -> int:
     check_against_plain(cfg, F)
     print("[profile] one bucket-8 and one bucket-1 dispatch", flush=True)
     profile_dispatch(cfg)
+    torch.cuda.empty_cache()
+
+    main_counts = dict(counts)
+    for batch_size in TRAIN_TASKS:
+        _, train_counts = run_train_bench(cb, cfg, batch_size)
+        for k, v in train_counts.items():
+            main_counts[k] += v
+        torch.cuda.empty_cache()
+    print("[train] learning check and profile", flush=True)
+    check_learning(cfg)
+    profile_train_step(cfg)
+    torch.cuda.empty_cache()
+    print("[train] meta-gradients, kernels vs plain on the card", flush=True)
+    check_grads_small(cfg, F)
+    check_grads_full_width(cfg, F, seeds)
 
     kernels = []
     for k in cb.KERNELS:
-        at = REPORT_AT[k]
-        r = records[k][f"{at[0]} N={at[1]}"]
+        r = records.by_kernel[k][REPORT_AT[k]]
         route, source = SOURCES[k]
         kernels.append({
             "name": k, "route": route, "source": source,
-            "replaces": REPLACES[k], "launches": counts[k],
+            "replaces": REPLACES[k], "launches": main_counts[k],
             "max_abs_err": max(v["max_abs_err"]
-                               for v in records[k].values()),
+                               for v in records.by_kernel[k].values()),
             "ms": r["ms"], "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"],
-            "shape": f"T={T_TENANTS} {at[0]} N={at[1]}",
+            "library_ms": r["library_ms"], "shape": REPORT_AT[k],
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,218 @@
+"""``train-bench`` — the port's meta-training step under a timer.
+
+The port of the root ``bench.py``'s measurement (:106-142, :708-...): the
+MAML++ outer step (``core/maml.py::make_train_step``) on synthetic batches
+made from ``--seed`` with numpy and uploaded once, ``--warmup`` steps, then
+``--steps`` timed steps, each timed on the host clock around the step and
+a device synchronise. The defaults are the root bench's flagship
+(mini-ImageNet 5-way 5-shot, 84x84x3, 48 filters, 4 stages, 5 inner steps,
+15 targets per class, second order from epoch 0) at the config's batch;
+``--fast`` is a seconds-scale toy.
+
+Prints ONE JSON line: ``tasks_per_sec``, ``step_ms`` p50/p95 and each
+step's time, ``second_order``, ``batch_size``, ``peak_mem_gb``
+(``torch.cuda.max_memory_allocated``), each step's ``loss`` and
+``accuracy``, ``model_flops_per_task`` (the root bench's analytic count),
+the achieved f32 model FLOP rate and its share of the card's FFMA peak,
+and each kernel's launches in every timed step.
+
+Runs on ``cuda:0`` unless ``--device`` names another device; without CUDA
+it raises unless ``--device cpu`` is given (the plain PyTorch ops, for
+tests).
+
+    python -m howtotrainyourmamlpytorch_tpu_torch.cli train-bench
+    python -m howtotrainyourmamlpytorch_tpu_torch.cli train-bench --fast --device cpu
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from .config import MAMLConfig
+from .core import maml
+from .device import device_name, peak_rates, resolve_device, synchronize
+from .kernels import conv_block
+from .state import init_state
+
+FLAGSHIP = (Path(__file__).resolve().parent.parent / "experiment_config"
+            / "mini-imagenet_maml++-mini-imagenet_5_5_2_0.01_48_0.json")
+
+
+def forward_flops_per_image(cfg: MAMLConfig) -> float:
+    """Analytic forward FLOPs (2 x MACs) of one image through the backbone:
+    ``num_stages`` 3x3 convs (stride 1 and a 2x2 pool with max pooling,
+    else stride 2), then the linear head. A copy of the root bench's."""
+    h, w = cfg.image_height, cfg.image_width
+    cin = cfg.image_channels
+    flops = 0.0
+    for _ in range(cfg.num_stages):
+        if cfg.max_pooling:
+            flops += 2.0 * h * w * 9 * cin * cfg.cnn_num_filters
+            h, w = h // 2, w // 2
+        else:
+            h, w = (h + 1) // 2, (w + 1) // 2
+            flops += 2.0 * h * w * 9 * cin * cfg.cnn_num_filters
+        cin = cfg.cnn_num_filters
+    feat = (h * w * cfg.cnn_num_filters if cfg.max_pooling
+            else cfg.cnn_num_filters)
+    return flops + 2.0 * feat * cfg.num_classes_per_set
+
+
+def train_flops_per_task(cfg: MAMLConfig, second_order: bool = True) -> float:
+    """Analytic FLOPs of one task in the train step, the root bench's model:
+    per inner step a support forward, a support gradient (~2 forwards) and
+    a target forward, ``steps * (3 F_s + F_t)``, times 3 for the outer
+    backward of second order (1.5 for first order)."""
+    f_img = forward_flops_per_image(cfg)
+    f_s = f_img * cfg.num_classes_per_set * cfg.num_samples_per_class
+    f_t = f_img * cfg.num_classes_per_set * cfg.num_target_samples
+    inner = cfg.number_of_training_steps_per_iter * (3.0 * f_s + f_t)
+    return inner * (3.0 if second_order else 1.5)
+
+
+def _bench_cfg(args) -> MAMLConfig:
+    if args.fast:
+        cfg = MAMLConfig(
+            dataset_name="omniglot_dataset",
+            image_height=10, image_width=10, image_channels=1,
+            num_classes_per_set=3, num_samples_per_class=1,
+            num_target_samples=2, batch_size=2, cnn_num_filters=4,
+            num_stages=2, max_pooling=True, per_step_bn_statistics=True,
+            learnable_per_layer_per_step_inner_loop_learning_rate=True,
+            number_of_training_steps_per_iter=2,
+            number_of_evaluation_steps_per_iter=2,
+            second_order=True, use_multi_step_loss_optimization=True,
+        )
+    else:
+        cfg = MAMLConfig.from_json_file(args.config or str(FLAGSHIP))
+    if args.batch_size is not None:
+        cfg = cfg.replace(batch_size=args.batch_size)
+    return cfg
+
+
+def synth_batch(cfg: MAMLConfig, seed: int, device: torch.device):
+    """One task batch ``(x_s, y_s, x_t, y_t)`` on ``device``: NHWC images
+    drawn with numpy from ``seed`` around a per-(task, class) mean (so the
+    classes can be told apart), labels 0..way-1 per class."""
+    rng = np.random.RandomState(seed)
+    b, n = cfg.batch_size, cfg.num_classes_per_set
+    s, t = cfg.num_samples_per_class, cfg.num_target_samples
+    h, w, c = cfg.im_shape
+    means = rng.randn(b, n, 1, 1, 1, 1).astype(np.float32)
+    x_s = (rng.randn(b, n, s, h, w, c) * 0.5 + means).astype(np.float32)
+    x_t = (rng.randn(b, n, t, h, w, c) * 0.5 + means).astype(np.float32)
+    y_s = np.tile(np.arange(n, dtype=np.int32)[None, :, None], (b, 1, s))
+    y_t = np.tile(np.arange(n, dtype=np.int32)[None, :, None], (b, 1, t))
+    return tuple(torch.from_numpy(a).to(device) for a in (x_s, y_s, x_t, y_t))
+
+
+def _percentile(values: List[float], q: float) -> float:
+    return float(np.percentile(np.asarray(values), q))
+
+
+def _parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="train-bench",
+        description="Time the PyTorch port's MAML++ meta-training step",
+    )
+    parser.add_argument("--fast", action="store_true",
+                        help="seconds-scale toy configuration")
+    parser.add_argument("--config", default=None,
+                        help="experiment JSON (default: the mini-ImageNet "
+                             "MAML++ flagship)")
+    parser.add_argument("--batch-size", type=int, default=None,
+                        help="tasks per step (default: the config's)")
+    parser.add_argument("--epoch", type=int, default=0,
+                        help="epoch fed to the schedule (LR, MSL weights, "
+                             "order)")
+    parser.add_argument("--first-order", action="store_true",
+                        help="first order whatever the schedule says")
+    parser.add_argument("--warmup", type=int, default=2,
+                        help="untimed steps before the timed ones")
+    parser.add_argument("--steps", type=int, default=5,
+                        help="timed steps")
+    parser.add_argument("--seed", type=int, default=0,
+                        help="data seed (the weights use the config's seed)")
+    parser.add_argument("--device", default=None,
+                        help="torch device (default cuda:0; 'cpu' runs the "
+                             "plain PyTorch ops)")
+    return parser
+
+
+def run(argv: Optional[List[str]] = None) -> Dict[str, Any]:
+    """Drive the bench; returns the JSON line as a dict."""
+    args = _parser().parse_args(argv)
+    device = resolve_device(args.device)
+    cfg = _bench_cfg(args)
+    lr, weights, second_order = maml.epoch_schedule(cfg, args.epoch)
+    second_order = second_order and not args.first_order
+    state = init_state(cfg, device=device, with_opt=True)
+    batch = synth_batch(cfg, args.seed, device)
+    step = maml.make_train_step(cfg, second_order)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    for _ in range(args.warmup):
+        state, metrics = step(state, *batch, weights, lr)
+    synchronize(device)
+    step_ms, losses, accs, launches = [], [], [], []
+    for _ in range(args.steps):
+        before = conv_block.launches()
+        start = time.perf_counter()
+        state, metrics = step(state, *batch, weights, lr)
+        synchronize(device)
+        step_ms.append((time.perf_counter() - start) * 1e3)
+        now = conv_block.launches()
+        launches.append({k: now[k] - before[k] for k in now})
+        losses.append(float(metrics["loss"]))
+        accs.append(float(metrics["accuracy"]))
+    tasks_per_sec = (cfg.batch_size * len(step_ms) / (sum(step_ms) / 1e3)
+                     if step_ms else None)
+    flops = train_flops_per_task(cfg, second_order)
+    rate = tasks_per_sec * flops if tasks_per_sec else None
+    name = device_name(device)
+    peak = peak_rates(name)[0] if device.type == "cuda" else None
+    return {
+        "metric": "meta_tasks_per_sec",
+        "value": tasks_per_sec,
+        "unit": "tasks/s",
+        "tasks_per_sec": tasks_per_sec,
+        "step_ms_p50": _percentile(step_ms, 50) if step_ms else None,
+        "step_ms_p95": _percentile(step_ms, 95) if step_ms else None,
+        "step_ms": step_ms,
+        "second_order": second_order,
+        "batch_size": cfg.batch_size,
+        "meta_accum_steps": cfg.meta_accum_steps,
+        "epoch": args.epoch,
+        "lr": lr,
+        "msl_weights": [float(w) for w in weights],
+        "loss": losses,
+        "accuracy": accs,
+        "peak_mem_gb": (torch.cuda.max_memory_allocated(device) / 1e9
+                        if device.type == "cuda" else None),
+        "model_flops_per_task": flops,
+        "model_tflops_per_sec": rate / 1e12 if rate else None,
+        "ffma_peak_share": rate / peak if rate and peak else None,
+        "kernel_launches_per_step": launches,
+        "warmup_steps": args.warmup,
+        "device": str(device),
+        "device_name": name,
+        "dtype": cfg.compute_dtype,
+        "fast": bool(args.fast),
+    }
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    print(json.dumps(run(argv)))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,9 +1,11 @@
 """Command line of the PyTorch port.
 
     python -m howtotrainyourmamlpytorch_tpu_torch.cli serve-bench [options]
+    python -m howtotrainyourmamlpytorch_tpu_torch.cli train-bench [options]
 
-``serve-bench`` is the only command ported so far (``serving/bench.py``;
-``--help`` lists its options). Runs on the card unless ``--device cpu``.
+``serve-bench`` (``serving/bench.py``) drives the serving engine,
+``train-bench`` (``bench.py``) times the meta-training step; ``--help``
+lists each one's options. Both run on the card unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -11,7 +13,7 @@ from __future__ import annotations
 import sys
 from typing import List, Optional
 
-COMMANDS = ("serve-bench",)
+COMMANDS = ("serve-bench", "train-bench")
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -20,8 +22,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(f"usage: python -m howtotrainyourmamlpytorch_tpu_torch.cli "
               f"{{{','.join(COMMANDS)}}} [options]", file=sys.stderr)
         return 2
-    from .serving import bench
-
+    if argv[0] == "train-bench":
+        from . import bench
+    else:
+        from .serving import bench
     return bench.main(argv[1:])
 
 

@@ -450,6 +450,12 @@ class MAMLConfig:
         return self.task_learning_rate
 
     @property
+    def clip_grads(self) -> bool:
+        """The outer gradients of the net are clamped to +-10 for imagenet
+        datasets (the reference's few_shot_learning_system.py:332-335)."""
+        return "imagenet" in self.dataset_name
+
+    @property
     def bn_num_steps(self) -> int:
         """Size of the per-step BN arrays: the max of the train and eval
         step counts (indexing is clamped at apply time)."""

@@ -1,45 +1,89 @@
-"""The first-order adapt-then-predict learner and the serving/eval steps.
+"""The MAML / MAML++ learner: second- and first-order training with MSL,
+Adam and merged BN statistics, evaluation, and adapt-then-predict serving.
 
-The port of the JAX package's ``core/maml.py`` for the serving slice:
-``_task_learner`` (first order), ``make_eval_step``, ``_serve_outputs`` and
-``make_serve_step`` (f32 ingest). The JAX package maps one task learner
-over the task axis with ``vmap``; here the TENANT axis is a batch
-dimension written out: every adapted parameter is cloned per tenant, and
-each tenant's batch-norm statistics reduce over its own images only.
+The port of the JAX package's ``core/maml.py``: ``cosine_lr`` (:90),
+``epoch_schedule`` (the JAX package's ``experiment/system.py::
+_epoch_schedule`` :533-555 without its anneal log), ``_task_learner``
+(:149), ``_merge_bn`` (:286), ``_split_microbatches`` (:319),
+``_meta_loss_and_grads`` (:333), ``make_grads_fn`` (:436),
+``make_train_step`` (:506), ``make_eval_step``, ``_serve_outputs`` and
+``make_serve_step`` (f32 ingest). The outer optimizer is
+``core/adam.py::make_optimizer``.
+
+The JAX package maps one task learner over the task axis with ``vmap``;
+here the TENANT (task) axis is a batch dimension written out: every
+adapted parameter is expanded per tenant, and each tenant's batch-norm
+statistics reduce over its own images only.
 
 Per inner step (as ``_task_learner``'s ``inner_step``): the support
 forward, the support gradient of the SUM over tenants of each tenant's
 mean loss (a mean over tenants would scale every tenant's gradient by
-1/T), the LSLR update with the inner gradient cut from the graph (first
-order), then the target forward with the updated weights at the same BN
-step. The target forwards run under ``torch.no_grad()``: serving never
-differentiates them. Every step's target loss is kept and weighted by
-``msl.final_step_only``, exactly as the JAX package does.
+1/T), the LSLR update, then the target forward with the updated weights
+at the same BN step. Every step's target loss is kept and weighted by the
+loss-weight vector (MSL, or one-hot on the last step).
 
-The training slice (second order, Adam, MSL, ``_merge_bn``) is not ported
-yet.
+Whether the learner builds a meta-gradient graph follows PyTorch's grad
+mode at the call. Under ``torch.no_grad()`` (serving, evaluation) each
+step's fast weights are fresh leaves and the target forwards record
+nothing. With grad enabled (training) the fast weights start as the
+tenant-expanded meta-parameters, graph kept, and each inner gradient is
+taken with ``create_graph=second_order``: first order keeps
+``theta_k = theta_{k-1} - alpha * stop_grad(g)`` exactly as the JAX package
+does (:201-209), so the LSLR vectors receive meta-gradients in both
+orders.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import math
+from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..config import MAMLConfig
 from ..models import vgg
 from ..ops import functional as F
 from ..state import MetaState
+from . import adam as adam_lib
 from . import lslr as lslr_lib
 from . import msl as msl_lib
 from . import partition
 
 Tensor = torch.Tensor
+GROUPS = ("net", "lslr")
 
 
-def _task_learner(cfg: MAMLConfig, num_steps: int,
+def cosine_lr(cfg: MAMLConfig, epoch: int) -> float:
+    """CosineAnnealingLR in closed form at the integer epoch:
+    ``eta_min + (lr0 - eta_min) * (1 + cos(pi * epoch / T_max)) / 2``."""
+    return cfg.min_learning_rate + 0.5 * (
+        cfg.meta_learning_rate - cfg.min_learning_rate
+    ) * (1.0 + math.cos(math.pi * epoch / cfg.total_epochs))
+
+
+def epoch_schedule(cfg: MAMLConfig, epoch: int
+                   ) -> Tuple[float, np.ndarray, bool]:
+    """What the outer step takes from the epoch: ``(lr, msl_weights,
+    second_order)``."""
+    lr = cosine_lr(cfg, epoch)
+    weights = msl_lib.loss_weights_for(
+        cfg.number_of_training_steps_per_iter,
+        cfg.use_multi_step_loss_optimization,
+        True,
+        epoch,
+        cfg.multi_step_loss_num_epochs,
+    )
+    second_order = bool(
+        cfg.second_order and epoch > cfg.first_order_to_second_order_epoch
+    )
+    return lr, weights, second_order
+
+
+def _task_learner(cfg: MAMLConfig, num_steps: int, second_order: bool = False,
                   block: Optional[vgg.BlockFn] = None):
-    """The tenant-batched, first-order task learner.
+    """The tenant-batched task learner (see the module docstring for how
+    grad mode decides between serving and training).
 
     Returns ``learner(net, lslr, bn, x_s, y_s, x_t, y_t, loss_weights) ->
     (loss, correct, bn, preds)`` for batches with a leading tenant axis:
@@ -57,42 +101,165 @@ def _task_learner(cfg: MAMLConfig, num_steps: int,
         x_t = x_t.reshape(n_tenants, -1, *x_t.shape[-3:])
         y_s = y_s.reshape(n_tenants, -1)
         y_t = y_t.reshape(n_tenants, -1)
+        meta = torch.is_grad_enabled()
         adapted, frozen = partition.split_inner(cfg, net)
-        theta = {
-            k: v.detach().unsqueeze(0).expand(n_tenants, *v.shape).clone()
-            for k, v in adapted.items()
-        }
+        theta = {k: v.unsqueeze(0).expand(n_tenants, *v.shape)
+                 for k, v in adapted.items()}
+        if not meta:
+            theta = {k: v.detach().clone() for k, v in theta.items()}
         bn = bn_state
         t_losses = []
         t_logits = None
         for step in range(num_steps):
-            for v in theta.values():
-                v.requires_grad_(True)
+            if not meta:
+                for v in theta.values():
+                    v.requires_grad_(True)
             with torch.enable_grad():
                 logits, bn = vgg.apply(cfg, {**frozen, **theta}, bn, x_s,
                                        step, block=block)
                 support_loss = F.cross_entropy(logits, y_s).sum()
-                grads = torch.autograd.grad(support_loss,
-                                            list(theta.values()))
-            with torch.no_grad():
-                grads = dict(zip(theta.keys(), grads))
-                if cfg.inner_loop_optimizer == "sgd":
-                    theta = lslr_lib.sgd_update_params(theta, grads,
-                                                       cfg.inner_lr_init)
-                else:
-                    theta = lslr_lib.update_params(theta, grads,
-                                                   lslr_params, step)
-                t_logits, bn = vgg.apply(cfg, {**frozen, **theta}, bn, x_t,
-                                         step, block=block)
-                t_losses.append(F.cross_entropy(t_logits, y_t))
-        weights = torch.as_tensor(loss_weights, dtype=torch.float32,
+                grads = torch.autograd.grad(
+                    support_loss, list(theta.values()),
+                    create_graph=meta and second_order)
+            grads = dict(zip(theta.keys(), grads))
+            if cfg.inner_loop_optimizer == "sgd":
+                theta = lslr_lib.sgd_update_params(theta, grads,
+                                                   cfg.inner_lr_init)
+            else:
+                theta = lslr_lib.update_params(theta, grads, lslr_params,
+                                               step)
+            t_logits, bn = vgg.apply(cfg, {**frozen, **theta}, bn, x_t, step,
+                                     block=block)
+            t_losses.append(F.cross_entropy(t_logits, y_t))
+        weights = torch.as_tensor(loss_weights, dtype=t_losses[0].dtype,
                                   device=x_s.device)
         loss = torch.stack(t_losses, dim=-1) @ weights
+        t_logits = t_logits.detach()
         correct = F.accuracy(t_logits, y_t)
         preds = torch.softmax(t_logits, dim=-1)
         return loss, correct, bn, preds
 
     return learner
+
+
+def _merge_bn(bn_batched: Dict[str, Tensor]) -> Dict[str, Tensor]:
+    """Per-tenant BN running stats merged into one state: the mean over the
+    tenant axis (the JAX package's documented deviation from the
+    reference's last-task-wins)."""
+    return {k: v.mean(dim=0) for k, v in bn_batched.items()}
+
+
+def _split_microbatches(accum: int, *batches: Tensor) -> Tuple[Tensor, ...]:
+    """Reshape each batch's leading task axis b -> (accum, b // accum)."""
+    out = []
+    for a in batches:
+        b = a.shape[0]
+        if b % accum != 0:
+            raise ValueError(
+                f"meta_accum_steps={accum} must divide the task batch "
+                f"({b} tasks)"
+            )
+        out.append(a.reshape(accum, b // accum, *a.shape[1:]))
+    return tuple(out)
+
+
+def _meta_loss_and_grads(learner, state: MetaState, x_s, y_s, x_t, y_t,
+                         loss_weights, accum: int = 1):
+    """Outer loss and meta-gradients over the task batch.
+
+    Returns ``(loss, correct, bns, grads)``: the task-mean loss, the
+    per-sample correctness (b, way*targets), the per-tenant BN states
+    (b, ...) and the task-mean meta-gradients ``{"net": {...}, "lslr":
+    {...}}``. ``accum > 1`` runs the task axis in ``accum`` microbatches
+    of ``b / accum`` tasks one after the other, each differentiated and
+    freed before the next (the activation peak shrinks ~accum-fold), and
+    adds their gradients in f32 before the one division by ``b`` —
+    the same math as one pass, summed in another order.
+    """
+    leaves = {g: {k: v.detach().requires_grad_(True)
+                  for k, v in getattr(state, g).items()} for g in GROUPS}
+    flat = [v for g in GROUPS for v in leaves[g].values()]
+    sums: List[Tensor] = [torch.zeros_like(v) for v in flat]
+    losses, corrects, bns = [], [], []
+    for xs, ys, xt, yt in zip(*_split_microbatches(accum, x_s, y_s, x_t,
+                                                   y_t)):
+        with torch.enable_grad():
+            loss, correct, bn, _ = learner(
+                leaves["net"], leaves["lslr"], state.bn, xs, ys, xt, yt,
+                loss_weights,
+            )
+            grads = torch.autograd.grad(loss.sum(), flat, allow_unused=True)
+        sums = [acc if g is None else acc + g for acc, g in zip(sums, grads)]
+        losses.append(loss.detach())
+        corrects.append(correct)
+        bns.append(bn)
+    b = x_s.shape[0]
+    it = iter(s / b for s in sums)
+    grads = {g: {k: next(it) for k in leaves[g]} for g in GROUPS}
+    bns = {k: torch.cat([bn[k] for bn in bns]) for k in bns[0]}
+    return torch.cat(losses).mean(), torch.cat(corrects), bns, grads
+
+
+def make_grads_fn(cfg: MAMLConfig, second_order: bool,
+                  block: Optional[vgg.BlockFn] = None):
+    """``grads_fn(state, x_s, y_s, x_t, y_t, loss_weights) -> (loss,
+    grads)``: the meta-gradient computation alone, no optimizer update —
+    the surface the parity tests compare (Adam's normalisation would
+    amplify round-off on near-zero gradients)."""
+    learner = _task_learner(cfg, cfg.number_of_training_steps_per_iter,
+                            second_order, block)
+
+    def grads_fn(state: MetaState, x_s, y_s, x_t, y_t, loss_weights):
+        loss, _, _, grads = _meta_loss_and_grads(
+            learner, state, x_s, y_s, x_t, y_t, loss_weights,
+            cfg.meta_accum_steps,
+        )
+        return loss, grads
+
+    return grads_fn
+
+
+def make_train_step(cfg: MAMLConfig, second_order: bool,
+                    block: Optional[vgg.BlockFn] = None):
+    """``train_step(state, x_s, y_s, x_t, y_t, loss_weights, lr) ->
+    (state, metrics)``: the meta-gradients over the task batch, the +-10
+    clamp on the net's gradients (imagenet datasets), Adam with the frozen
+    leaves zeroed, ``p + (-lr) * update``, and the BN running stats merged
+    over the tasks. ``state.opt`` must hold the Adam state
+    (``init_state(..., with_opt=True)`` or a converted JAX state);
+    ``metrics`` holds the task-mean ``loss`` and ``accuracy``. ``block`` is
+    ``vgg.apply``'s. The uint8 ingest (ROADMAP Queue B6) and the telemetry
+    and health probes are not ported."""
+    learner = _task_learner(cfg, cfg.number_of_training_steps_per_iter,
+                            second_order, block)
+
+    def train_step(state: MetaState, x_s, y_s, x_t, y_t, loss_weights, lr
+                   ) -> Tuple[MetaState, Dict[str, Tensor]]:
+        if state.opt is None:
+            raise ValueError(
+                "train_step needs the Adam state: init_state(..., "
+                "with_opt=True) or a converted training state"
+            )
+        loss, correct, bns, grads = _meta_loss_and_grads(
+            learner, state, x_s, y_s, x_t, y_t, loss_weights,
+            cfg.meta_accum_steps,
+        )
+        with torch.no_grad():
+            if cfg.clip_grads:
+                grads["net"] = {k: g.clamp(-10.0, 10.0)
+                                for k, g in grads["net"].items()}
+            opt = adam_lib.make_optimizer(cfg, state.net)
+            updates, new_opt = opt.update(grads, state.opt)
+            new = {g: {k: p + (-lr) * updates[g][k]
+                       for k, p in getattr(state, g).items()}
+                   for g in GROUPS}
+        new_state = MetaState(
+            net=new["net"], lslr=new["lslr"],
+            bn=_merge_bn(bns) if state.bn else state.bn, opt=new_opt,
+        )
+        return new_state, {"loss": loss, "accuracy": correct.mean()}
+
+    return train_step
 
 
 def make_eval_step(cfg: MAMLConfig, block: Optional[vgg.BlockFn] = None):
@@ -102,7 +269,7 @@ def make_eval_step(cfg: MAMLConfig, block: Optional[vgg.BlockFn] = None):
     task-mean ``loss`` and ``accuracy``; ``preds`` (tasks, targets,
     classes) the final softmax."""
     num_steps = cfg.number_of_evaluation_steps_per_iter
-    learner = _task_learner(cfg, num_steps, block)
+    learner = _task_learner(cfg, num_steps, block=block)
     loss_weights = msl_lib.final_step_only(num_steps)
 
     def eval_step(state: MetaState, x_s, y_s, x_t, y_t):
@@ -150,7 +317,7 @@ def make_serve_step(cfg: MAMLConfig, block: Optional[vgg.BlockFn] = None):
     ROADMAP Queue B6); ``block`` is ``vgg.apply``'s.
     """
     num_steps = cfg.number_of_evaluation_steps_per_iter
-    learner = _task_learner(cfg, num_steps, block)
+    learner = _task_learner(cfg, num_steps, block=block)
     loss_weights = msl_lib.final_step_only(num_steps)
 
     def serve_step(state: MetaState, x_s, y_s, x_t, y_t, valid

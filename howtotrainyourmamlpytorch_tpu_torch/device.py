@@ -13,7 +13,7 @@ second-order MAML++ stalls when f32 products lose mantissa bits
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -48,6 +48,18 @@ def device_name(device: torch.device) -> str:
     if device.type == "cuda":
         return torch.cuda.get_device_name(device)
     return "cpu"
+
+
+def peak_rates(name: str) -> Tuple[float, float]:
+    """(f32 FLOP/s outside the tensor cores, memory bytes/s) of an H100 by
+    its name, from NVIDIA's data sheets: the PCIe part at 51.2 TFLOP/s and
+    2.0 TB/s, the NVL at 60 TFLOP/s and 3.9 TB/s, the SXM part (default) at
+    67 TFLOP/s and 3.35 TB/s."""
+    if "PCIe" in name:
+        return 51.2e12, 2.0e12
+    if "NVL" in name:
+        return 60e12, 3.9e12
+    return 67e12, 3.35e12
 
 
 def synchronize(device: Optional[torch.device]) -> None:

@@ -1,5 +1,5 @@
-"""Triton kernels K2 and K3: batch-norm normalize + affine + leaky-ReLU +
-2x2 max pool, and its backward.
+"""Triton kernels K2, K3 and K5: batch-norm normalize + affine + leaky-ReLU +
+2x2 max pool, its backward, and the backward of that backward.
 
 Replace (JAX package) ``howtotrainyourmamlpytorch_tpu/ops/functional.py``:
 the normalize/affine tail of ``batch_norm`` :368 inside ``conv_bn_act``
@@ -17,6 +17,30 @@ has dz = 0). Triton's masked block loads handle the ragged 21 -> 10 edge.
 
 K3a writes per-(tenant, split) partial sums, which K3b adds in a fixed
 order: deterministic, no atomics.
+
+K5 (``bn_act_pool_bwd_bwd``) replaces the second derivative XLA derives for
+the same ops when the JAX package differentiates its inner-loop gradient
+(second-order MAML, ``core/maml.py::_task_learner``). Given the cotangents
+``a`` of K3's dy and ``ggamma``/``gbeta`` of its dgamma/dbeta, it returns
+the gradients with respect to K3's inputs dpooled, y and gamma (beta enters
+only through the piecewise-constant masks, so its gradient is 0). With
+``P(v) = v - mean(v) - xhat * mean(v * xhat)`` (K3's projection), per
+(tenant, channel) over m = N*H*W positions::
+
+    g_dz      = gamma * r * P(a) + ggamma * xhat + gbeta
+    g_dpooled = g_dz, slope-masked, gathered at each window's argmax
+    g_gamma   = r * (S_adz - m * mean(a) * mean(dz) - m * mean(a xhat) * mean(dz xhat))
+    G         = -gamma * r * (mean(dz xhat) * a + mean(a xhat) * dz) + ggamma * dz
+    g_y       = r * (G - mean(G) - xhat * mean(G xhat)) - r^2 * xhat / m * L_r
+    L_r       = gamma * (S_adz - m * mean(a) mean(dz) - m * mean(a xhat) mean(dz xhat))
+
+with ``r = rstd``; ``mean(G)`` and ``mean(G xhat)`` follow from the same
+five sums, Σa, Σa·xhat, Σdz, Σdz·xhat and Σa·dz. Bound: bytes, like K3 —
+K5a reads a, y and the pooled dpooled/argmax once and writes 5 partial sums
+per split; K5b reads them again and writes g_y densely and g_dpooled at the
+pooled positions only (each pooled element by the one thread that sits on
+its argmax), plus g_gamma (program 0 of each tenant). Two launches,
+partial sums in a fixed order, no atomics.
 
 ``triton`` is imported at the first launch, never at import: the kernel
 bodies below are plain functions until ``_jit()`` compiles them, and they
@@ -154,6 +178,135 @@ def _bn_act_pool_bwd_dy_kernel(dp_ptr, arg_ptr, y_ptr, mean_ptr, rstd_ptr,
     tl.store(dy_ptr + yoff, dy, mask=mask)
 
 
+def _bn_act_pool_bwd_bwd_reduce_kernel(a_ptr, dp_ptr, arg_ptr, y_ptr,
+                                       mean_ptr, rstd_ptr, gamma_ptr,
+                                       beta_ptr, part_ptr, NHW, HW, Ho, Wo,
+                                       W, C, S, CHUNK, slope,
+                                       BLOCK_P: "tl.constexpr",
+                                       BLOCK_C: "tl.constexpr"):
+    t = tl.program_id(0)
+    s = tl.program_id(1)
+    c = tl.arange(0, BLOCK_C)
+    cmask = c < C
+    mu = tl.load(mean_ptr + t * C + c, mask=cmask, other=0.0)[None, :]
+    rs = tl.load(rstd_ptr + t * C + c, mask=cmask, other=0.0)[None, :]
+    g = tl.load(gamma_ptr + t * C + c, mask=cmask, other=0.0)[None, :]
+    b = tl.load(beta_ptr + t * C + c, mask=cmask, other=0.0)[None, :]
+    acc_a = tl.zeros([BLOCK_P, BLOCK_C], tl.float32)
+    acc_ax = tl.zeros([BLOCK_P, BLOCK_C], tl.float32)
+    acc_dz = tl.zeros([BLOCK_P, BLOCK_C], tl.float32)
+    acc_dzx = tl.zeros([BLOCK_P, BLOCK_C], tl.float32)
+    acc_adz = tl.zeros([BLOCK_P, BLOCK_C], tl.float32)
+    start = s * CHUNK
+    end = tl.minimum(start + CHUNK, NHW)
+    for i in range(start, end, BLOCK_P):
+        q = i + tl.arange(0, BLOCK_P)
+        mask = (q < end)[:, None] & cmask[None, :]
+        pos = t.to(tl.int64) * NHW + q
+        img = pos // HW
+        r = q % HW
+        h = r // W
+        w = r % W
+        ho = h // 2
+        wo = w // 2
+        pmask = mask & ((ho < Ho) & (wo < Wo))[:, None]
+        poff = ((img * Ho + ho) * Wo + wo)[:, None] * C + c[None, :]
+        k = tl.load(arg_ptr + poff, mask=pmask, other=255).to(tl.int32)
+        sel = pmask & (k == ((h % 2) * 2 + (w % 2))[:, None])
+        d = tl.load(dp_ptr + poff, mask=sel, other=0.0)
+        yoff = pos[:, None] * C + c[None, :]
+        v = tl.load(y_ptr + yoff, mask=mask, other=0.0)
+        av = tl.load(a_ptr + yoff, mask=mask, other=0.0)
+        xh = tl.where(mask, (v - mu) * rs, 0.0)
+        z = xh * g + b
+        dz = tl.where(z >= 0, d, d * slope)
+        acc_a += av
+        acc_ax += av * xh
+        acc_dz += dz
+        acc_dzx += dz * xh
+        acc_adz += av * dz
+    base = (t * S + s) * 5 * C
+    tl.store(part_ptr + base + c, tl.sum(acc_a, axis=0), mask=cmask)
+    tl.store(part_ptr + base + C + c, tl.sum(acc_ax, axis=0), mask=cmask)
+    tl.store(part_ptr + base + 2 * C + c, tl.sum(acc_dz, axis=0), mask=cmask)
+    tl.store(part_ptr + base + 3 * C + c, tl.sum(acc_dzx, axis=0), mask=cmask)
+    tl.store(part_ptr + base + 4 * C + c, tl.sum(acc_adz, axis=0), mask=cmask)
+
+
+def _bn_act_pool_bwd_bwd_out_kernel(a_ptr, ggamma_ptr, gbeta_ptr, dp_ptr,
+                                    arg_ptr, y_ptr, mean_ptr, rstd_ptr,
+                                    gamma_ptr, beta_ptr, part_ptr, gdp_ptr,
+                                    gy_ptr, ggam_out_ptr, NHW, HW, Ho, Wo, W,
+                                    C, S, inv_m, slope,
+                                    BLOCK_P: "tl.constexpr",
+                                    BLOCK_C: "tl.constexpr"):
+    t = tl.program_id(1)
+    q = tl.program_id(0) * BLOCK_P + tl.arange(0, BLOCK_P)
+    c = tl.arange(0, BLOCK_C)
+    cmask = c < C
+    mask = (q < NHW)[:, None] & cmask[None, :]
+    s_a = tl.zeros([BLOCK_C], tl.float32)
+    s_ax = tl.zeros([BLOCK_C], tl.float32)
+    s_dz = tl.zeros([BLOCK_C], tl.float32)
+    s_dzx = tl.zeros([BLOCK_C], tl.float32)
+    s_adz = tl.zeros([BLOCK_C], tl.float32)
+    for s in range(S):
+        base = (t * S + s) * 5 * C
+        s_a += tl.load(part_ptr + base + c, mask=cmask, other=0.0)
+        s_ax += tl.load(part_ptr + base + C + c, mask=cmask, other=0.0)
+        s_dz += tl.load(part_ptr + base + 2 * C + c, mask=cmask, other=0.0)
+        s_dzx += tl.load(part_ptr + base + 3 * C + c, mask=cmask, other=0.0)
+        s_adz += tl.load(part_ptr + base + 4 * C + c, mask=cmask, other=0.0)
+    mu = tl.load(mean_ptr + t * C + c, mask=cmask, other=0.0)
+    rs = tl.load(rstd_ptr + t * C + c, mask=cmask, other=0.0)
+    g = tl.load(gamma_ptr + t * C + c, mask=cmask, other=0.0)
+    b = tl.load(beta_ptr + t * C + c, mask=cmask, other=0.0)
+    gg = tl.load(ggamma_ptr + t * C + c, mask=cmask, other=0.0)
+    gb = tl.load(gbeta_ptr + t * C + c, mask=cmask, other=0.0)
+    m_a = s_a * inv_m
+    m_ax = s_ax * inv_m
+    m_dz = s_dz * inv_m
+    m_dzx = s_dzx * inv_m
+    # S_adz - m * mean(a) * mean(dz) - m * mean(a xhat) * mean(dz xhat)
+    cross = s_adz - (m_a * s_dz + m_ax * s_dzx)
+    grs = g * rs
+    mean_g = -grs * (m_dzx * m_a + m_ax * m_dz) + gg * m_dz
+    mean_gx = -2.0 * grs * m_ax * m_dzx + gg * m_dzx
+    lr_coef = rs * rs * inv_m * g * cross
+    if tl.program_id(0) == 0:
+        tl.store(ggam_out_ptr + t * C + c, rs * cross, mask=cmask)
+
+    pos = t.to(tl.int64) * NHW + q
+    img = pos // HW
+    r = q % HW
+    h = r // W
+    w = r % W
+    ho = h // 2
+    wo = w // 2
+    pmask = mask & ((ho < Ho) & (wo < Wo))[:, None]
+    poff = ((img * Ho + ho) * Wo + wo)[:, None] * C + c[None, :]
+    k = tl.load(arg_ptr + poff, mask=pmask, other=255).to(tl.int32)
+    sel = pmask & (k == ((h % 2) * 2 + (w % 2))[:, None])
+    d = tl.load(dp_ptr + poff, mask=sel, other=0.0)
+    yoff = pos[:, None] * C + c[None, :]
+    v = tl.load(y_ptr + yoff, mask=mask, other=0.0)
+    av = tl.load(a_ptr + yoff, mask=mask, other=0.0)
+    xh = (v - mu[None, :]) * rs[None, :]
+    z = xh * g[None, :] + b[None, :]
+    pos_side = z >= 0
+    dz = tl.where(pos_side, d, d * slope)
+    # g_dpooled: the slope-masked g_dz at each window's argmax
+    pa = av - m_a[None, :] - xh * m_ax[None, :]
+    gdz = grs[None, :] * pa + gg[None, :] * xh + gb[None, :]
+    tl.store(gdp_ptr + poff, tl.where(pos_side, gdz, gdz * slope), mask=sel)
+    # g_y: the batch-norm backward of G, plus the rstd term
+    big_g = (-grs[None, :] * (m_dzx[None, :] * av + m_ax[None, :] * dz)
+             + gg[None, :] * dz)
+    gy = (rs[None, :] * (big_g - mean_g[None, :] - xh * mean_gx[None, :])
+          - xh * lr_coef[None, :])
+    tl.store(gy_ptr + yoff, gy, mask=mask)
+
+
 @functools.lru_cache(maxsize=None)
 def _jit() -> SimpleNamespace:
     import triton
@@ -165,6 +318,8 @@ def _jit() -> SimpleNamespace:
         fwd=triton.jit(_bn_act_pool_fwd_kernel),
         bwd_reduce=triton.jit(_bn_act_pool_bwd_reduce_kernel),
         bwd_dy=triton.jit(_bn_act_pool_bwd_dy_kernel),
+        bwd_bwd_reduce=triton.jit(_bn_act_pool_bwd_bwd_reduce_kernel),
+        bwd_bwd_out=triton.jit(_bn_act_pool_bwd_bwd_out_kernel),
     )
 
 
@@ -210,4 +365,29 @@ def launch_bwd(dpooled, arg, y, mean, rstd, gamma, beta, part, dy,
     kern.bwd_dy[(_cdiv(NHW, BLOCK_P), T)](
         dpooled, arg, y, mean, rstd, gamma, beta, part, dy, NHW, H * W, Ho,
         Wo, W, C, SPLITS, 1.0 / NHW, slope, BLOCK_P=BLOCK_P, BLOCK_C=BLOCK_C,
+    )
+
+
+def launch_bwd_bwd(a, ggamma, gbeta, dpooled, arg, y, mean, rstd, gamma,
+                   beta, part, g_dpooled, g_y, g_gamma, slope: float) -> None:
+    """K5a then K5b on validated contiguous f32 CUDA tensors; ``part`` is
+    ``(T, SPLITS, 5, C)`` scratch for the five partial sums (see
+    ``conv_block.bn_act_pool_bwd_bwd``)."""
+    T, N, H, W, C = y.shape
+    Ho, Wo = H // 2, W // 2
+    if C > BLOCK_C:
+        raise NotImplementedError(
+            f"bn_act_pool_bwd_bwd takes at most {BLOCK_C} channels, got {C}"
+        )
+    NHW = N * H * W
+    chunk = _cdiv(_cdiv(NHW, SPLITS), BLOCK_P) * BLOCK_P
+    kern = _jit()
+    kern.bwd_bwd_reduce[(T, SPLITS)](
+        a, dpooled, arg, y, mean, rstd, gamma, beta, part, NHW, H * W, Ho,
+        Wo, W, C, SPLITS, chunk, slope, BLOCK_P=BLOCK_P, BLOCK_C=BLOCK_C,
+    )
+    kern.bwd_bwd_out[(_cdiv(NHW, BLOCK_P), T)](
+        a, ggamma, gbeta, dpooled, arg, y, mean, rstd, gamma, beta, part,
+        g_dpooled, g_y, g_gamma, NHW, H * W, Ho, Wo, W, C, SPLITS, 1.0 / NHW,
+        slope, BLOCK_P=BLOCK_P, BLOCK_C=BLOCK_C,
     )

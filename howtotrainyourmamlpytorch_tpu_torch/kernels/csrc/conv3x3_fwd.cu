@@ -19,12 +19,59 @@
 // rstd = 1 / sqrt(var + eps). No atomics, so results are deterministic.
 // The variance is within tolerance of both of the JAX package's
 // `bn_stats_impl` modes ('twopass' and 'fused').
+//
+// Stats-free mode (`conv3x3_fwd`): y = conv3x3(x, w) (+ b when b is given),
+// the same tile, no statistics and no merge launch. The second-order
+// backward of the block needs this conv twice per block and inner step:
+// the derivative of dgrad with respect to dy is conv3x3(ddx, w), and that
+// of wgrad with respect to dy is conv3x3(x, ddw) + ddb. A dedicated mode
+// was chosen over running the dgrad kernel on w.flip(1, 2).transpose(-1,
+// -2): that would materialise a flipped copy of every tenant's weights and
+// read them flipped twice over. Same bound as the forward: bytes at layer 1,
+// FLOPs at layers 2-4.
 
 #include <cuda_runtime.h>
 
 #include "conv3x3_tile.cuh"
 
 namespace maml {
+
+// acc += bias (when given) and the tile's valid rows and columns -> yt.
+__device__ __forceinline__ void add_bias_and_store(float acc[kTM][kTN],
+                                                   const float* bias,
+                                                   float* __restrict__ yt,
+                                                   int M, int cout, int m0,
+                                                   int n0) {
+  const int cg = threadIdx.x % 4;
+  const int rg = threadIdx.x / 4;
+#pragma unroll
+  for (int j = 0; j < kTN; ++j) {
+    const int n = n0 + cg * 4 + j;
+    const float b = (bias != nullptr && n < cout) ? bias[n] : 0.f;
+#pragma unroll
+    for (int i = 0; i < kTM; ++i) {
+      acc[i][j] += b;
+      const int m = m0 + rg + 32 * i;
+      if (m < M && n < cout) yt[(size_t)m * cout + n] = acc[i][j];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+conv3x3_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                   const float* bias, float* __restrict__ y, int N, int H,
+                   int W, int cin, int cout) {
+  __shared__ ConvTileSmem s;
+  const int t = blockIdx.z;
+  const int m0 = blockIdx.x * kBM;
+  const int n0 = blockIdx.y * kBN;
+  const int M = N * H * W;
+  float acc[kTM][kTN];
+  conv3x3_tile<false>(x + (size_t)t * M * cin, w + (size_t)t * 9 * cin * cout,
+                      H, W, M, cin, cout, m0, n0, s, acc);
+  add_bias_and_store(acc, bias == nullptr ? nullptr : bias + t * cout,
+                     y + (size_t)t * M * cout, M, cout, m0, n0);
+}
 
 __global__ void __launch_bounds__(kThreads)
 conv3x3_fwd_stats_kernel(const float* __restrict__ x,
@@ -47,18 +94,8 @@ conv3x3_fwd_stats_kernel(const float* __restrict__ x,
 
   const int cg = tid % 4;
   const int rg = tid / 4;
-  float* yt = y + (size_t)t * M * cout;
-#pragma unroll
-  for (int j = 0; j < kTN; ++j) {
-    const int n = n0 + cg * 4 + j;
-    const float b = n < cout ? bias[t * cout + n] : 0.f;
-#pragma unroll
-    for (int i = 0; i < kTM; ++i) {
-      acc[i][j] += b;
-      const int m = m0 + rg + 32 * i;
-      if (m < M && n < cout) yt[(size_t)m * cout + n] = acc[i][j];
-    }
-  }
+  add_bias_and_store(acc, bias + t * cout, y + (size_t)t * M * cout, M, cout,
+                     m0, n0);
 
   // per-tile statistics: column sum -> tile mean -> sum of squared
   // deviations from the tile mean (M2), both over the valid rows only
@@ -184,6 +221,21 @@ int conv3x3_fwd_stats(const float* x, const float* w, const float* b,
   if (err != cudaSuccess) return (int)err;
   maml::bn_stats_merge_kernel<<<dim3(cout, T), maml::kMergeThreads, 0, st>>>(
       part, mean, var, rstd, mtiles, cout, eps);
+  return (int)cudaGetLastError();
+}
+
+// y = conv3x3(x, w) (+ b): the stats-free mode. x (T, N, H, W, cin), w
+// (T, 3, 3, cin, cout), b (T, cout) or null, y (T, N, H, W, cout). One
+// launch on `stream`; returns its CUDA error, 0 on success.
+int conv3x3_fwd(const float* x, const float* w, const float* b, float* y,
+                int T, int N, int H, int W, int cin, int cout, void* stream) {
+  const int M = N * H * W;
+  if (T < 1 || M < 1 || cin < 1 || cout < 1)
+    return (int)cudaErrorInvalidValue;
+  dim3 grid(maml::ceil_div(M, maml::kBM), maml::ceil_div(cout, maml::kBN), T);
+  maml::conv3x3_fwd_kernel<<<grid, maml::kThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      x, w, b, y, N, H, W, cin, cout);
   return (int)cudaGetLastError();
 }
 

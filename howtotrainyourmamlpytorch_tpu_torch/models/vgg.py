@@ -13,10 +13,11 @@ carries a leading ``T`` axis (each tenant adapts its own copy) while frozen
 parameters are shared, and the returned BN state is per tenant
 ``(T, steps, f)``.
 
-This slice covers the model the serving path runs: ``block_order=
-'conv_norm_relu'``, ``norm_layer='batch_norm'``, ``max_pooling=True`` with
-padded convs. Each block is one ``kernels.conv_block.conv_bn_act_pool``
-call (plain ops on the CPU, the hand-written kernels on the card). Other
+The port covers the model the serving and training paths run:
+``block_order='conv_norm_relu'``, ``norm_layer='batch_norm'``,
+``max_pooling=True`` with padded convs. Each block is one
+``kernels.conv_block.conv_bn_act_pool`` call (plain ops on the CPU, the
+hand-written kernels on the card, differentiable twice). Other
 configurations raise ``NotImplementedError`` naming the missing kernel.
 """
 
@@ -149,7 +150,8 @@ def apply(cfg: MAMLConfig, params: Params, bn_state: BNState,
         ``kernels.conv_block.conv_bn_act_pool`` (plain ops for CPU tensors,
         the kernels for CUDA tensors). A caller that wants the plain ops on
         the card passes ``ops.functional.conv_bn_act_pool``.
-    :return: ``(logits, new_bn_state)``; logits f32 ``(batch, way)`` or
+    :return: ``(logits, new_bn_state)``; logits f32 (f64 for f64 images)
+        ``(batch, way)`` or
         ``(T, batch, way)``.
     """
     check_supported(cfg)
@@ -161,7 +163,9 @@ def apply(cfg: MAMLConfig, params: Params, bn_state: BNState,
             k: v.unsqueeze(0) if partition.is_inner_adapted(cfg, k) else v
             for k, v in params.items()
         }
-    dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+    # f32 compute keeps f64 images in f64 (a reference run)
+    dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
+             else torch.promote_types(x.dtype, torch.float32))
     step = min(max(int(num_step), 0), cfg.bn_num_steps - 1)
     per_step_affine = (cfg.per_step_bn_statistics
                        and not cfg.enable_inner_loop_optimizable_bn_params)
@@ -194,7 +198,7 @@ def apply(cfg: MAMLConfig, params: Params, bn_state: BNState,
             new_bn[key] = full
     feats = out.reshape(out.shape[0], out.shape[1], -1)
     logits = F.linear(feats, params["linear.weight"], params["linear.bias"])
-    logits = logits.float()
+    logits = F.at_least_f32(logits)
     if not tenant:
         logits = logits[0]
         new_bn = {k: v[0] if v.dim() == 3 else v for k, v in new_bn.items()}

@@ -42,6 +42,12 @@ def _stat_dims(x: Tensor) -> Tuple[int, ...]:
     return (1, 2, 3) if x.dim() == 5 else (0, 1, 2)
 
 
+def at_least_f32(x: Tensor) -> Tensor:
+    """``x`` in f32, or as it is when it is wider: an f64 reference run
+    stays f64 end to end."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def im2col(x: Tensor, kh: int, kw: int, stride: int, padding: int) -> Tensor:
     """Conv patches ``(..., H, W, C) -> (..., Ho, Wo, kh*kw*C)``, the K
     order (kh, kw, cin) of the JAX package's ``_im2col``."""
@@ -86,7 +92,7 @@ def batch_stats(x: Tensor, stats_impl: str = "twopass"
     """
     dims = _stat_dims(x)
     if stats_impl == "fused":
-        x32 = x.float()
+        x32 = at_least_f32(x)
         n = 1
         for d in dims:
             n *= x.shape[d]
@@ -184,9 +190,10 @@ def linear(x: Tensor, w: Tensor, b: Optional[Tensor]) -> Tensor:
 
 
 def cross_entropy(logits: Tensor, labels: Tensor) -> Tensor:
-    """Mean softmax cross-entropy over the batch axis, in f32: a scalar for
-    ``(batch, classes)`` logits, ``(T,)`` for ``(T, batch, classes)``."""
-    logp = torch.log_softmax(logits.float(), dim=-1)
+    """Mean softmax cross-entropy over the batch axis, in f32 (f64 for f64
+    logits): a scalar for ``(batch, classes)`` logits, ``(T,)`` for
+    ``(T, batch, classes)``."""
+    logp = torch.log_softmax(at_least_f32(logits), dim=-1)
     nll = -torch.gather(logp, -1, labels.long().unsqueeze(-1)).squeeze(-1)
     return nll.mean(dim=-1)
 
@@ -223,13 +230,24 @@ def conv_bn_act_pool(x: Tensor, w: Tensor, b: Tensor, gamma: Tensor,
 # per-channel tensors (T, C).
 
 
+def bn_stats(y: Tensor, eps: float = BN_EPS) -> Tuple[Tensor, Tensor, Tensor]:
+    """y's per-(tenant, channel) batch mean, biased variance (two passes)
+    and ``rstd = 1 / sqrt(var + eps)``."""
+    mean, var = batch_stats(y, "twopass")
+    return mean, var, 1.0 / torch.sqrt(var + eps)
+
+
 def conv3x3_fwd_stats(x: Tensor, w: Tensor, b: Tensor, eps: float = BN_EPS
                       ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """Twin of K1: ``y = conv3x3(x, w) + b`` and y's per-(tenant, channel)
     batch mean, biased variance and ``rstd = 1 / sqrt(var + eps)``."""
     y = conv2d(x, w, b, 1, 1)
-    mean, var = batch_stats(y, "twopass")
-    return y, mean, var, 1.0 / torch.sqrt(var + eps)
+    return (y, *bn_stats(y, eps))
+
+
+def conv3x3(x: Tensor, w: Tensor, b: Optional[Tensor] = None) -> Tensor:
+    """Twin of K1's stats-free mode: ``y = conv3x3(x, w) (+ b)``."""
+    return conv2d(x, w, b, 1, 1)
 
 
 def _windows(a: Tensor) -> Tensor:
@@ -262,6 +280,17 @@ def bn_act_pool_fwd(y: Tensor, mean: Tensor, rstd: Tensor, gamma: Tensor,
     return pooled, arg.squeeze(-1).to(torch.uint8)
 
 
+def _unpool(pooled: Tensor, argmax: Tensor, h: int, w: int) -> Tensor:
+    """Each pooled value at its window's argmax of an ``(T, N, h, w, C)``
+    grid, zero elsewhere (a dropped odd row or column stays zero)."""
+    t, n, ho, wo, c = pooled.shape
+    onehot = tF.one_hot(argmax.long(), 4).to(pooled.dtype)
+    dense = (onehot * pooled.unsqueeze(-1)).reshape(t, n, ho, wo, c, 2, 2)
+    dense = dense.permute(0, 1, 2, 5, 3, 6, 4).reshape(t, n, 2 * ho, 2 * wo,
+                                                      c)
+    return tF.pad(dense, (0, 0, 0, w - 2 * wo, 0, h - 2 * ho))
+
+
 def bn_act_pool_bwd(dpooled: Tensor, argmax: Tensor, y: Tensor, mean: Tensor,
                     rstd: Tensor, gamma: Tensor, beta: Tensor,
                     negative_slope: float = LEAKY_SLOPE
@@ -275,11 +304,7 @@ def bn_act_pool_bwd(dpooled: Tensor, argmax: Tensor, y: Tensor, mean: Tensor,
     Returns ``(dy, dgamma, dbeta)`` with ``dgamma = sum(dz * xhat)`` and
     ``dbeta = sum(dz)`` per (tenant, channel)."""
     t, n, h, w, c = y.shape
-    ho, wo = h // 2, w // 2
-    onehot = tF.one_hot(argmax.long(), 4).to(dpooled.dtype)
-    da = (onehot * dpooled.unsqueeze(-1)).reshape(t, n, ho, wo, c, 2, 2)
-    da = da.permute(0, 1, 2, 5, 3, 6, 4).reshape(t, n, 2 * ho, 2 * wo, c)
-    da = tF.pad(da, (0, 0, 0, w - 2 * wo, 0, h - 2 * ho))
+    da = _unpool(dpooled, argmax, h, w)
     xhat, z = _affine_act(y, mean, rstd, gamma, beta)
     dz = torch.where(z >= 0, da, negative_slope * da)
     dbeta = dz.sum((1, 2, 3))
@@ -290,6 +315,47 @@ def bn_act_pool_bwd(dpooled: Tensor, argmax: Tensor, y: Tensor, mean: Tensor,
         - xhat * _per_channel(dgamma * inv_m, y)
     )
     return dy, dgamma, dbeta
+
+
+def bn_act_pool_bwd_bwd(a: Tensor, ggamma: Tensor, gbeta: Tensor,
+                        dpooled: Tensor, argmax: Tensor, y: Tensor,
+                        mean: Tensor, rstd: Tensor, gamma: Tensor,
+                        beta: Tensor, negative_slope: float = LEAKY_SLOPE
+                        ) -> Tuple[Tensor, Tensor, Tensor]:
+    """Twin of K5: the backward of ``bn_act_pool_bwd``, written out as
+    formulas (``kernels/bn_act_pool.py`` derives them).
+
+    ``a``, ``ggamma``, ``gbeta`` are the cotangents of K3's ``dy``,
+    ``dgamma`` and ``dbeta``. Returns the gradients with respect to
+    ``dpooled``, ``y`` (through the statistics too: ``mean`` and ``rstd``
+    are functions of y) and ``gamma``; beta's is zero (it enters only
+    through the masks)."""
+    _, n, h, w, _ = y.shape
+    m = n * h * w
+    dims = (1, 2, 3)
+
+    def pc(v):
+        return _per_channel(v, y)
+
+    def masked(v):
+        return torch.where(z >= 0, v, negative_slope * v)
+
+    xhat, z = _affine_act(y, mean, rstd, gamma, beta)
+    dz = masked(_unpool(dpooled, argmax, h, w))
+    m_a, m_ax = a.mean(dims), (a * xhat).mean(dims)
+    m_dz, m_dzx = dz.mean(dims), (dz * xhat).mean(dims)
+    cross = (a * dz).sum(dims) - m * (m_a * m_dz + m_ax * m_dzx)
+    grs = gamma * rstd
+    g_dz = masked(pc(grs) * (a - pc(m_a) - xhat * pc(m_ax))
+                  + pc(ggamma) * xhat + pc(gbeta))
+    g_dpooled = torch.gather(_windows(g_dz), -1,
+                             argmax.long().unsqueeze(-1)).squeeze(-1)
+    big_g = -pc(grs) * (pc(m_dzx) * a + pc(m_ax) * dz) + pc(ggamma) * dz
+    mean_g = -grs * (m_dzx * m_a + m_ax * m_dz) + ggamma * m_dz
+    mean_gx = -2.0 * grs * m_ax * m_dzx + ggamma * m_dzx
+    g_y = (pc(rstd) * (big_g - pc(mean_g) - xhat * pc(mean_gx))
+           - xhat * pc(rstd * rstd * gamma * cross / m))
+    return g_dpooled, g_y, rstd * cross
 
 
 def conv3x3_dgrad(dy: Tensor, w: Tensor) -> Tensor:

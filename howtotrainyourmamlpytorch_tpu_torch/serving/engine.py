@@ -110,7 +110,8 @@ class ServingEngine:
                 f"shots buckets must be >= 1, got {self.shots_buckets}"
             )
         if isinstance(state, state_lib.MetaState) and all(
-            isinstance(v, torch.Tensor) for part in state
+            isinstance(v, torch.Tensor)
+            for part in (state.net, state.lslr, state.bn)
             for v in part.values()
         ):
             self._state = state_lib.to_device(state, self.device)

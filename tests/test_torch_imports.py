@@ -7,7 +7,8 @@
   device and no device named, they raise naming ``--device cpu``;
 * a tensor that is not on the CPU never reaches a plain version: the
   wrappers launch their kernel or raise;
-* a second-order request through ``ConvBnActPool`` raises;
+* second order through the block works, and the one derivative no path
+  takes (K5's own, the block's third) raises;
 * the port's config loads every experiment JSON as the JAX package's does.
 """
 
@@ -135,17 +136,38 @@ def test_wrappers_never_take_the_plain_path_off_the_cpu():
             _meta(1, 2, 6, 6, 3, dtype=torch.bfloat16), w, b, v, v)
 
 
-def test_second_order_through_the_block_raises():
+def test_second_order_through_the_block_is_differentiable():
+    """The block's second derivative is the training path: a gradient of
+    the block's weight gradient, through the hand-written Functions."""
     rng = np.random.RandomState(0)
     x = torch.from_numpy(rng.randn(1, 2, 6, 6, 3).astype(np.float32))
     w = torch.from_numpy(rng.randn(1, 3, 3, 3, 4).astype(np.float32))
     w.requires_grad_(True)
     b = torch.zeros(1, 4)
     g, be = torch.ones(1, 4), torch.zeros(1, 4)
-    pooled, _, _ = conv_block.ConvBnActPool.apply(x, w, b, g, be)
+    pooled, _, _ = conv_block.function_block(x, w, b, g, be)
     (gw,) = torch.autograd.grad((pooled ** 2).sum(), [w], create_graph=True)
-    with pytest.raises(RuntimeError, match="once_differentiable"):
-        gw.sum().backward()
+    (ggw,) = torch.autograd.grad(gw.sum(), [w])
+    assert torch.isfinite(ggw).all() and float(ggw.abs().max()) > 0
+
+
+def test_second_order_through_the_block_raises():
+    """Differentiating the block past what its Functions define raises
+    instead of returning a wrong value. Second order is defined (the test
+    above); what raises is a derivative of the K5 node, the second-order
+    node of the block's batch norm, i.e. the block's third derivative,
+    which no path takes (on the card it would otherwise treat K5's outputs
+    as constants)."""
+    rng = np.random.RandomState(0)
+    g, be = torch.ones(1, 4), torch.zeros(1, 4)
+    y = torch.from_numpy(rng.randn(1, 2, 6, 6, 4).astype(np.float32))
+    y.requires_grad_(True)
+    mean, _, rstd = conv_block.F.bn_stats(y.detach())
+    dp, arg = conv_block.F.bn_act_pool_fwd(y.detach(), mean, rstd, g, be)
+    outs = conv_block.BnActPoolBwdBwd.apply(
+        torch.ones_like(y), g, be, dp, arg, y, mean, rstd, g, be)
+    with pytest.raises(NotImplementedError, match="third derivative"):
+        outs[1].sum().backward()
 
 
 def test_config_loads_every_experiment_json_like_the_jax_package():

@@ -1,6 +1,7 @@
 """The port's hand-written kernels held to their plain twins on an NVIDIA
 card, at small and ragged shapes (odd image sizes, channel counts that do
-not fill a tile). These need the card: marked ``cuda``, they skip where
+not fill a tile), and the block's first and second derivatives on them
+against autograd of the plain block. These need the card: marked ``cuda``, they skip where
 ``torch.cuda.is_available()`` is false. On the card (``--noconftest``:
 the suite's conftest imports jax, which the port never needs):
 
@@ -78,7 +79,23 @@ def test_kernels_match_their_twins(shape, device):
     _close(cb.conv3x3_dgrad(dy, w), F.conv3x3_dgrad(dy, w))
     for a, c in zip(cb.conv3x3_wgrad(x, dy), F.conv3x3_wgrad(x, dy)):
         _close(a, c)
-    assert cb.launches() == {k: 1 for k in cb.KERNELS}
+    # the kernels second order adds: K1 stats-free (with and without a
+    # bias) and K5
+    _close(cb.conv3x3_fwd(x, w, b), F.conv3x3(x, w, b))
+    _close(cb.conv3x3_fwd(x, w), F.conv3x3(x, w))
+    args = (torch.randn(y.shape, device=device), torch.randn_like(gamma),
+            torch.randn_like(beta), dp, arg, y, mean, rstd, gamma, beta)
+    for a, c in zip(cb.bn_act_pool_bwd_bwd(*args),
+                    F.bn_act_pool_bwd_bwd(*args)):
+        _close(a, c)
+    # with g_gamma = g_beta = 0, g_dpooled is K5's projection term alone
+    zero = torch.zeros_like(gamma)
+    args = (args[0], zero, zero) + args[3:]
+    for a, c in zip(cb.bn_act_pool_bwd_bwd(*args),
+                    F.bn_act_pool_bwd_bwd(*args)):
+        _close(a, c)
+    assert cb.launches() == {**{k: 1 for k in cb.KERNELS}, "conv3x3_fwd": 2,
+                             "bn_act_pool_bwd_bwd": 2}
 
 
 def test_block_gradients_match_plain_autograd(device):
@@ -94,6 +111,36 @@ def test_block_gradients_match_plain_autograd(device):
         grads.append(torch.autograd.grad((pooled * ct).sum(), leaves))
     for a, c in zip(*grads):
         _close(a, c)
+
+
+def test_block_second_derivative_matches_plain_autograd(device):
+    """A scalar function of the block's first gradients (each against a
+    random cotangent), differentiated again. x, w and gamma each within
+    1e-5 + 1e-4 * its own largest entry. The conv bias alone is held to
+    1e-5 + 1e-4 * the largest entry of all four: its second derivative is
+    0 through batch norm, so its computed value is pure round-off and no
+    bound relative to itself means anything."""
+    x, w, b, gamma, beta = _inputs((2, 3, 11, 9, 8, 12), device, seed=2)
+    results = []
+    for fn in (cb.conv_bn_act_pool, F.conv_bn_act_pool):
+        leaves = [t.clone().requires_grad_(True) for t in (x, w, b, gamma,
+                                                          beta)]
+        pooled, _, _ = fn(*leaves)
+        rng = np.random.RandomState(3)
+        ct = torch.from_numpy(
+            rng.randn(*pooled.shape).astype(np.float32)).to(device)
+        first = torch.autograd.grad((pooled * ct).sum(), leaves[:4],
+                                    create_graph=True)
+        scalar = sum((g * torch.from_numpy(
+            rng.randn(*g.shape).astype(np.float32)).to(device)).sum()
+            for g in first)
+        results.append(torch.autograd.grad(scalar, leaves[:4]))
+    got, want = results
+    for i in (0, 1, 3):  # x, w, gamma
+        _close(got[i], want[i])
+    scale = max(c.abs().max().item() for c in want)
+    err = (got[2].double() - want[2].double()).abs().max().item()
+    assert err <= 1e-5 + 1e-4 * scale, ("b", err, scale)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(device):

@@ -242,13 +242,14 @@ def test_kernel_twins_compose_to_the_jax_block(hw):
 
 
 def test_block_function_backward_matches_jax():
-    """``ConvBnActPool`` (its wrappers take the twins on the CPU) gives the
-    JAX block's gradients, and leaves every launch counter at 0."""
+    """The block's chain of Functions (``function_block``; its wrappers
+    take the twins on the CPU) gives the JAX block's gradients, and leaves
+    every launch counter at 0."""
     rng = np.random.RandomState(8)
     arrays = _block_inputs(rng, (11, 11))
     conv_block.reset_launches()
-    _check(lambda *a: conv_block.ConvBnActPool.apply(*a)[0],
-           jax.vmap(_jax_block), arrays, rng, "ConvBnActPool")
+    _check(lambda *a: conv_block.function_block(*a)[0],
+           jax.vmap(_jax_block), arrays, rng, "function_block")
     assert conv_block.launches() == {k: 0 for k in conv_block.KERNELS}
 
 
