@@ -13,30 +13,47 @@ Phases, in order; any failure raises and the exit code is non-zero:
    main paths' shapes — the serving kernels K1-K4 at T = 8 tenants, N = 25
    and 75 images; the training kernels K1 stats-free and K5 at T = 2 and 8
    tasks, N = 25 — at layer-1 and layer-2 geometry of the mini-ImageNet
-   model, and time the kernel, the twin and, where one PyTorch call
-   computes the same function, that library call (CUDA events, after a
-   warmup). Then the block's first and second derivatives on the kernels
-   against autograd of the plain block.
-4. Serving main path: the port's ``serve-bench`` at the full mini-ImageNet
-   5-way 5-shot configuration, 16 requests, through ``ServingEngine``.
-   Every kernel's launch counter is zeroed just before and read just
-   after, and must have moved by the per-dispatch counts of the model
-   (5 inner steps x 4 blocks) for every dispatch. Then the serve step
-   against the plain serve step (small input; one full-width bucket-8
-   dispatch beside the CPU-vs-card spread of the plain code) and a
-   profile of one bucket-8 and one bucket-1 dispatch.
-5. Training main path: the port's ``train-bench`` at the same
+   model; K1-K5 again at the four layers of the Omniglot 20-way 1-shot
+   model (28/14/7/3, cin 1 and 64, cout 64, T = 8, N = 20); and the ingest
+   kernel ``episode_expand`` at the Omniglot device-tier train batch, a
+   mini-ImageNet serve bucket of 8 (also with ``reverse_channels``) and the
+   uint8 decode of a mini-ImageNet train batch of 2, where it must EQUAL
+   its twin (a pure lookup), plus rows outside the store. Each is timed
+   beside its twin and, where one PyTorch call computes the same function,
+   that library call (CUDA events, after a warmup). Then the block's first
+   and second derivatives on the kernels against autograd of the plain
+   block.
+4. Serving main paths: the port's ``serve-bench`` at the full mini-ImageNet
+   5-way 5-shot configuration, 16 requests each, through ``ServingEngine``
+   with the f32, uint8 and index ingests (the index store: 12,000 rows).
+   Every kernel's launch counter is zeroed just before each run and read
+   just after, and must have moved by the per-dispatch counts of the model
+   (5 inner steps x 4 blocks, plus 2 / 1 ``episode_expand`` for uint8 /
+   index) for every dispatch. Then the serve step against the plain serve
+   step (small input; one full-width bucket-8 dispatch beside the
+   CPU-vs-card spread of the plain code), one bucket-8 index dispatch
+   against the f32 dispatch on the host-decoded pixels of the same rows
+   (bit-identical preds and loss), and profiles of a bucket-8 and a
+   bucket-1 f32 dispatch and a bucket-8 index dispatch.
+5. Training main paths: the port's ``train-bench`` at the mini-ImageNet
    configuration, second order from epoch 0 (MSL on), at batch 2 (the
-   config's) and 8, 2 warmup and 5 timed steps each; every step's
-   launches must equal ``expected_train_launches``. Then a learning check
-   (10 steps on one fixed batch), a profile of one batch-2 step, and the
-   meta-gradients of the kernels against the plain ops on the card: on a
-   small input at the CPU parity tolerance, and at full width, batch 2,
-   for three data seeds (``--grad-seeds``), leaf by leaf against the same
-   step in f64, beside the plain ops' own f32 errors (twopass and fused
-   statistics), each the median over five orders of the images.
-6. Print one ``{"kernels": [...]}`` line (launches summed over both main
-   paths), then the result line ``{"ok": true, "device": {...}}`` last.
+   config's) and 8 on one fixed batch, and at the Omniglot 20-way 1-shot
+   configuration (batch 8) through the device data tier and the host tier,
+   2 warmup and 5 timed steps each; every step's launches must equal
+   ``expected_step_launches`` (one ``episode_expand`` per device-tier
+   step). Then a learning check (10 steps on one fixed batch) of each
+   model, profiles of a mini-ImageNet batch-2 step and an Omniglot
+   device-tier step, and the meta-gradients of the kernels against the
+   plain ops on the card: on a small input at the CPU parity tolerance,
+   and at full width, batch 2, for three data seeds of each model
+   (``--grad-seeds``, ``--omniglot-grad-seeds``), leaf by leaf against the
+   same step in f64, beside the plain ops' own f32 errors: first with the
+   f64 step replaying each f32 run's pool argmaxes and leaky-ReLU signs
+   (the smooth rounding error alone), then against f64's own path (twopass
+   and fused statistics, each the median over five orders of the images).
+6. Print one ``{"kernels": [...]}`` line (launches summed over all the
+   main paths), then the result line ``{"ok": true, "device": {...}}``
+   last.
 
 Needs one card. Imports nothing of JAX or of the JAX package.
 """
@@ -54,11 +71,23 @@ import torch
 
 FLAGSHIP = ("experiment_config/"
             "mini-imagenet_maml++-mini-imagenet_5_5_2_0.01_48_0.json")
+OMNIGLOT = "experiment_config/omniglot_maml++-omniglot_1_20_8_0.1_64_0.json"
 T_TENANTS = 8
 COUT = 48
 # (label, H = W, cin) of the layers whose shapes the kernels are held at
 LAYERS = (("layer1", 84, 3), ("layer2", 42, 48))
 IMAGES = (25, 75)  # 5-shot support, 15-target query (5-way)
+# the Omniglot 20-way 1-shot model: 64 filters, pooling 28 -> 14 -> 7 -> 3
+# -> 1; 20 support and 20 target images per task
+OMNIGLOT_LAYERS = (("layer1", 28, 1), ("layer2", 14, 64), ("layer3", 7, 64),
+                   ("layer4", 3, 64))
+OMNIGLOT_COUT = 64
+OMNIGLOT_IMAGES = 20
+# the index ingest's store: the mini-ImageNet test split, 20 x 600 rows
+STORE_ROWS = 12000
+# episode_expand launches per serve dispatch / train step of each ingest
+EXPAND_PER_DISPATCH = {"f32": 0, "uint8": 2, "index": 1}
+EXPAND_PER_STEP = {None: 0, "host": 0, "uint8_stream": 2, "device": 1}
 
 # Tolerances, as max |kernel - twin| <= ATOL + RTOL * max |twin|. The
 # kernels sum in another order than the twin (f32 FFMA throughout, no
@@ -88,6 +117,14 @@ GRAD_ORDERS = 5
 GRADS_FACTOR = 4.0
 GRADS_FLOOR = 1e-5
 GRAD_SEEDS = (10, 11, 12)
+# the same step's meta-gradients with every max-pool argmax and leaky-ReLU
+# sign of the f64 reference replayed from the f32 run it is held to
+# (check_grads_replayed): per leaf and data seed, the kernels' median max
+# |err| over GRAD_ORDERS image orders within REPLAY_FACTOR times the
+# larger of the plain ops' (twopass and fused statistics), plus
+# GRADS_FLOOR times the tree's largest entry. How REPLAY_FACTOR was
+# derived is in check_grads_replayed's docstring.
+REPLAY_FACTOR = 5.0
 
 REPLACES = {
     "conv3x3_fwd_stats": "howtotrainyourmamlpytorch_tpu/ops/functional.py:249",
@@ -98,6 +135,8 @@ REPLACES = {
     "conv3x3_fwd": "howtotrainyourmamlpytorch_tpu/ops/functional.py:199",
     "bn_act_pool_bwd_bwd":
         "howtotrainyourmamlpytorch_tpu/ops/functional.py:368",
+    "episode_expand":
+        "howtotrainyourmamlpytorch_tpu/ops/device_pipeline.py:209",
 }
 SOURCES = {
     "conv3x3_fwd_stats": (
@@ -121,6 +160,9 @@ SOURCES = {
     "bn_act_pool_bwd_bwd": (
         "triton", "howtotrainyourmamlpytorch_tpu_torch/kernels/"
                   "bn_act_pool.py"),
+    "episode_expand": (
+        "cuda", "howtotrainyourmamlpytorch_tpu_torch/kernels/csrc/"
+                "episode_expand.cu"),
 }
 # the shape each kernel's line reports (a key of its records)
 REPORT_AT = {
@@ -131,6 +173,7 @@ REPORT_AT = {
     "conv3x3_wgrad": "T=8 layer1 N=25",
     "conv3x3_fwd": "T=8 layer2 N=25",
     "bn_act_pool_bwd_bwd": "T=8 layer1 N=25",
+    "episode_expand": "(a) mini-ImageNet serve bucket 8",
 }
 TRAIN_TASKS = (2, 8)  # the config's batch, and bench.py's per-chip default
 DEVICE = "cuda:0"
@@ -221,14 +264,16 @@ def _randn(gen):
     return randn
 
 
-def check_kernels(cb, F, records):
-    """Phase 3, the serving kernels K1-K4 at T = 8."""
+def check_kernels(cb, F, records, layers=LAYERS, images=IMAGES, C=COUT,
+                  prefix=""):
+    """Phase 3, the serving kernels K1-K4 at T = 8 (by default at the
+    mini-ImageNet model's layers 1-2, N = 25 and 75 images)."""
     rec = records.add
     randn = _randn(torch.Generator(device="cuda").manual_seed(0))
-    T, C = T_TENANTS, COUT
-    for layer, hw, cin in LAYERS:
-        for n in IMAGES:
-            label = f"T={T} {layer} N={n}"
+    T = T_TENANTS
+    for layer, hw, cin in layers:
+        for n in images:
+            label = f"{prefix}T={T} {layer} N={n}"
             H = W = hw
             M = n * H * W
             x = randn(T, n, H, W, cin)
@@ -317,16 +362,17 @@ def check_kernels(cb, F, records):
             torch.cuda.empty_cache()
 
 
-def check_train_kernels(cb, F, records):
+def check_train_kernels(cb, F, records, tasks=TRAIN_TASKS, layers=LAYERS,
+                        n=25, C=COUT, prefix=""):
     """Phase 3, the kernels only second order launches: K1 stats-free
-    (bias as Wgrad's backward passes it) and K5, at the training shapes:
-    T = 2 and 8 tasks, 5-shot support (N = 25), layers 1 and 2."""
+    (bias as Wgrad's backward passes it) and K5, at the training shapes
+    (by default T = 2 and 8 tasks, 5-shot support (N = 25), layers 1 and 2
+    of the mini-ImageNet model)."""
     rec = records.add
     randn = _randn(torch.Generator(device="cuda").manual_seed(4))
-    C, n = COUT, 25
-    for T in TRAIN_TASKS:
-        for layer, hw, cin in LAYERS:
-            label = f"T={T} {layer} N={n}"
+    for T in tasks:
+        for layer, hw, cin in layers:
+            label = f"{prefix}T={T} {layer} N={n}"
             H = W = hw
             M = n * H * W
             x = randn(T, n, H, W, cin)
@@ -392,6 +438,124 @@ def check_train_kernels(cb, F, records):
                 + arg.numel())
             del x, y, pooled, arg, args, case_args, got, want, xl, a, dp
             torch.cuda.empty_cache()
+
+
+def _expand_inputs(cfg, rows_shape, store_rows, gen, rotate=False):
+    """A store of ``store_rows`` random bytes, ``rows_shape`` int32 rows in
+    it, and (when rotating) rot90 draws with all four k present, on the
+    card."""
+    h, w, c = cfg.im_shape
+    store = torch.randint(0, 256, (store_rows, h, w, c), dtype=torch.uint8,
+                          device="cuda", generator=gen)
+    rows = torch.randint(0, store_rows, rows_shape, dtype=torch.int32,
+                         device="cuda", generator=gen)
+    rot = None
+    if rotate:
+        g = math.prod(rows_shape[:-1])
+        order = torch.randperm(g, device="cuda", generator=gen)
+        rot = (order % 4).to(torch.int32).reshape(rows_shape[:-1])
+    return store, rows, rot
+
+
+def _print_device_ms(label, fn):
+    ms = device_ms(fn, "episode_expand")
+    print(f"  episode_expand @ {label}: device time "
+          f"{'not measured' if ms is None else f'{ms:.4f} ms'} per launch "
+          "(profiler; the event time above includes the wrapper's host "
+          "time)", flush=True)
+
+
+def _expand_exact(what, got, want):
+    """The kernel is a pure lookup: it must equal its twin bit for bit."""
+    for g, p in zip(got, want):
+        if g.shape != p.shape or not torch.isfinite(g).all():
+            raise AssertionError(f"episode_expand {what}: shape "
+                                 f"{tuple(g.shape)} vs {tuple(p.shape)} or "
+                                 "non-finite output")
+    err = max((g - p).abs().max().item() if g.numel() else 0.0
+              for g, p in zip(got, want))
+    if err != 0.0 or not all(torch.equal(g, p) for g, p in zip(got, want)):
+        raise AssertionError(f"episode_expand {what}: max |kernel - twin| "
+                             f"= {err:.3e}, expected exact equality")
+    return err
+
+
+def device_ms(fn, kernel, reps=10):
+    """Device time of ``kernel`` (a substring of its name) per call of
+    ``fn``, from ``torch.profiler`` over ``reps`` calls: the kernel's own
+    time, without the host time a launch costs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.device_time_total for e in prof.key_averages()
+                if kernel in e.key)
+    return total / 1e3 / reps if total else None
+
+
+def check_episode_expand(ee, dp, records, mini, omniglot):
+    """Phase 3, the ingest kernel (B6) against its twin, exact equality, at
+    the main paths' shapes: (b) the Omniglot device-tier train batch (8
+    tasks x 20 classes x 2 images, all four k), (a) a mini-ImageNet serve
+    bucket of 8 from the 12,000-row store (with and without
+    ``reverse_channels``), (c) the uint8 decode of a mini-ImageNet train
+    batch of 2 (200 images). Then rows outside the store (negative, past
+    its end) against the twin's rule (wrap once, clamp). Bound: bytes,
+    each uint8 pixel read once and each f32 written once, plus the rows,
+    the k and the table."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    cases = (
+        ("(b) Omniglot train T=8 n=20 S=2 rot", omniglot, (8, 20, 2), 23000,
+         True, False),
+        ("(a) mini-ImageNet serve bucket 8", mini, (8, 5, 20), STORE_ROWS,
+         False, False),
+        ("(a) mini-ImageNet serve bucket 8 reverse_channels", mini,
+         (8, 5, 20), STORE_ROWS, False, True),
+    )
+    for label, cfg, shape, n, rotate, reverse in cases:
+        store, rows, rot = _expand_inputs(cfg, shape, n, gen, rotate)
+        lut = torch.from_numpy(dp.decode_lut(cfg)).cuda()
+        spc = cfg.num_samples_per_class
+        got = ee.gather_decode(store, rows, rot, lut, spc, reverse)
+        want = dp.expand_plain(store, rows, rot, lut, spc, reverse)
+        err = _expand_exact(label, got, want)
+        pixels = rows.numel() * math.prod(cfg.im_shape)
+        records.add(
+            "episode_expand", label, err,
+            lambda: ee.gather_decode(store, rows, rot, lut, spc, reverse),
+            lambda: dp.expand_plain(store, rows, rot, lut, spc, reverse),
+            None, 0,
+            5 * pixels + 4 * rows.numel() + lut.numel() * 4
+            + (4 * rot.numel() if rot is not None else 0))
+        _print_device_ms(label, lambda: ee.gather_decode(
+            store, rows, rot, lut, spc, reverse))
+        del store
+    label = "(c) mini-ImageNet train batch 2 decode"
+    pixels = torch.randint(0, 256, (2, 5, 20) + mini.im_shape,
+                           dtype=torch.uint8, device="cuda", generator=gen)
+    lut = torch.from_numpy(dp.decode_lut(mini)).cuda()
+    err = _expand_exact(label, (ee.decode(pixels, lut),),
+                        (dp.decode_plain(pixels, lut),))
+    records.add("episode_expand", label, err,
+                lambda: ee.decode(pixels, lut),
+                lambda: dp.decode_plain(pixels, lut), None, 0,
+                5 * pixels.numel() + lut.numel() * 4)
+    _print_device_ms(label, lambda: ee.decode(pixels, lut))
+    store, _, _ = _expand_inputs(omniglot, (1, 1), 50, gen)
+    rows = torch.tensor([[[-1, -50, -51, -400, 0], [49, 50, 51, 4000, 7]]],
+                        dtype=torch.int32, device="cuda")
+    rot = torch.tensor([[0, 3]], dtype=torch.int32, device="cuda")
+    lut = torch.from_numpy(dp.decode_lut(omniglot)).cuda()
+    _expand_exact("rows outside the store",
+                  ee.gather_decode(store, rows, rot, lut, 2),
+                  dp.expand_plain(store, rows, rot, lut, 2))
+    print("  episode_expand, rows outside the store: equal to the twin's "
+          "rule (wrap once, then clamp)", flush=True)
+    torch.cuda.empty_cache()
 
 
 def _block_errs(what, got, want, names):
@@ -478,6 +642,19 @@ def expected_launches(cfg):
         "conv3x3_fwd": 0,                         # second order only
         "bn_act_pool_bwd_bwd": 0,
     }
+
+
+def expected_serve_launches(cfg, ingest):
+    """Kernel launches of one serve dispatch with ``ingest``."""
+    return {**expected_launches(cfg),
+            "episode_expand": EXPAND_PER_DISPATCH[ingest]}
+
+
+def expected_step_launches(cfg, placement):
+    """Kernel launches of one second-order train step whose batch comes
+    through the data tier ``placement`` (None: the fixed batch)."""
+    return {**expected_train_launches(cfg, True),
+            "episode_expand": EXPAND_PER_STEP[placement]}
 
 
 def expected_train_launches(cfg, second_order):
@@ -629,10 +806,11 @@ def check_against_plain(cfg, F):
         )
 
 
-def profile_dispatch(cfg):
+def profile_dispatch(cfg, ingest="f32", small=True):
     """Phase 5c: where a dispatch spends its time — ``torch.profiler``
-    over one warm bucket-8 and one warm bucket-1 dispatch: device time by
-    kernel and the device's busy share of the dispatch's wall time."""
+    over one warm bucket-8 (and with ``small`` one warm bucket-1) dispatch
+    of ``ingest``: device time by kernel and the device's busy share of
+    the dispatch's wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     from howtotrainyourmamlpytorch_tpu_torch.serving import bench
@@ -642,17 +820,22 @@ def profile_dispatch(cfg):
     from howtotrainyourmamlpytorch_tpu_torch.state import init_state
 
     shots_buckets = bench.bench_shots_buckets(cfg)
-    groups = bench._synth_groups(cfg, shots_buckets, 36, 8, 0)
-    engine = ServingEngine(cfg, init_state(cfg, device="cuda:0"),
-                           shots_buckets, device="cuda:0")
-    for group in (groups[-1], groups[0]):  # 8 tenants x 6 shots; 1 x 5
+    rows = STORE_ROWS if ingest == "index" else 0
+    groups = bench._synth_groups(cfg, shots_buckets, 36, 8, 0, ingest, rows)
+    engine = ServingEngine(
+        cfg, init_state(cfg, device="cuda:0"), shots_buckets,
+        device="cuda:0", ingest=ingest,
+        store=bench._synth_store(cfg, rows) if rows else None)
+    # 8 tenants x 6 shots; 1 x 5
+    for group in (groups[-1], groups[0]) if small else (groups[-1],):
         engine.serve_group(group)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             dr = engine.serve_group(group)
         _profile_report(prof, dr.adapt_ms,
-                        f"profiled bucket-{dr.bucket} dispatch "
-                        f"({dr.tenants} tenants, {dr.shots} shots)")
+                        f"profiled {ingest} bucket-{dr.bucket} dispatch "
+                        f"({dr.tenants} tenants, {dr.shots} shots, "
+                        f"{dr.ingest_bytes} B uploaded)")
 
 
 def _profile_report(prof, wall_ms, what):
@@ -673,46 +856,51 @@ def _profile_report(prof, wall_ms, what):
               f"{e.key[:90]}", flush=True)
 
 
-def run_train_bench(cb, cfg, batch_size):
-    """Phase 5, the training main path: ``train-bench`` at the flagship
-    config, second order from epoch 0; every timed step's launches equal
-    ``expected_train_launches`` and the run's totals equal it times the
+def run_train_bench(ks, cfg, batch_size, config=FLAGSHIP, name="mini-ImageNet "
+                    "5-way 5-shot", placement=None):
+    """Phase 5, a training main path: ``train-bench`` at ``config``, second
+    order from epoch 0, its batches through the data tier ``placement``
+    (None: one fixed batch); every timed step's launches equal
+    ``expected_step_launches`` and the run's totals equal it times the
     steps. Returns (JSON line, launch counts over the run)."""
     from howtotrainyourmamlpytorch_tpu_torch import bench as train_bench
 
     warmup, steps = 2, 5
-    print(f"[train] train-bench --config mini-ImageNet 5-way 5-shot "
-          f"--batch-size {batch_size} --epoch 0 --warmup {warmup} --steps "
-          f"{steps}", flush=True)
-    cb.reset_launches()
+    tier = [] if placement is None else ["--data-placement", placement]
+    print(f"[train] train-bench --config {name} --batch-size {batch_size} "
+          f"--epoch 0 --warmup {warmup} --steps {steps} {' '.join(tier)}",
+          flush=True)
+    ks.reset_launches()
     line = train_bench.run([
-        "--config", FLAGSHIP, "--batch-size", str(batch_size), "--epoch",
+        "--config", config, "--batch-size", str(batch_size), "--epoch",
         "0", "--warmup", str(warmup), "--steps", str(steps), "--seed", "0",
-        "--device", DEVICE])
-    counts = cb.launches()
+        "--device", DEVICE] + tier)
+    counts = ks.launches()
     print(json.dumps(line), flush=True)
-    expected = expected_train_launches(cfg.replace(batch_size=batch_size),
-                                       True)
+    expected = expected_step_launches(cfg.replace(batch_size=batch_size),
+                                      placement)
     if not line["second_order"] or line["batch_size"] != batch_size:
         raise AssertionError(f"train-bench ran {line}")
     for i, got in enumerate(line["kernel_launches_per_step"]):
         if got != expected:
             raise AssertionError(
                 f"train step {i}: launches {got}, expected {expected}")
-    for k in cb.KERNELS:
-        if counts[k] == 0 or counts[k] != expected[k] * (warmup + steps):
+    for k, per_step in expected.items():
+        if counts[k] != per_step * (warmup + steps):
             raise AssertionError(
                 f"{k}: {counts[k]} launches over the training path, "
-                f"expected {expected[k]} x {warmup + steps} steps")
+                f"expected {per_step} x {warmup + steps} steps")
     tps = line["tasks_per_sec"]
     if not (tps and math.isfinite(tps)
             and all(math.isfinite(v) for v in line["loss"])):
         raise AssertionError(f"train-bench line is incomplete: {line}")
-    print(f"[train] batch {batch_size}: tasks_per_sec {tps}  step_ms p50 "
-          f"{line['step_ms_p50']}  p95 {line['step_ms_p95']}  peak_mem_gb "
-          f"{line['peak_mem_gb']}  ffma_peak_share "
-          f"{line['ffma_peak_share']}  launches per step {expected}",
-          flush=True)
+    print(f"[train] {name} batch {batch_size} {placement or 'fixed batch'}: "
+          f"tasks_per_sec {tps}  step_ms p50 {line['step_ms_p50']}  p95 "
+          f"{line['step_ms_p95']}  peak_mem_gb {line['peak_mem_gb']}  "
+          f"ffma_peak_share {line['ffma_peak_share']}  h2d_bytes_per_step "
+          f"{line['h2d_bytes_per_step']}  host_assembly_ms_per_step "
+          f"{line['host_assembly_ms_per_step']}  launches per step "
+          f"{expected}", flush=True)
     return line, counts
 
 
@@ -825,7 +1013,16 @@ def check_grads_full_width(cfg, F, seeds):
     (``--grad-seeds 0,1,2,3,4,5,6,7,8,9``; 420 null ratios on an NVIDIA
     H100 80GB HBM3 at 700 W) it had median 0.951, p90 1.463, p99 2.565
     and max 2.792; GRADS_FACTOR = 4 leaves room for that tail over the 63
-    ratios of a three-seed run. The default seeds are other seeds."""
+    ratios of a three-seed run. The default seeds are other seeds.
+
+    On the Omniglot 20-way 1-shot model the same calibration (seeds 0-9)
+    gave null max 3.335, but the kernels' ratio reached 8.804 on seed 1 and
+    exceeded 4 on seed 8: there the bursts are decisions (a pool argmax or
+    a sign) that the kernels, another conv summation order, take otherwise
+    than f64 in a later inner step, while the two plain runs, which share
+    their conv code, do not. ``check_grads_replayed`` takes the decisions
+    out of the comparison and passes those seeds; this check keeps its
+    statistic, factor and default seeds for both models."""
     import statistics
 
     cfg = cfg.replace(batch_size=2)
@@ -904,55 +1101,367 @@ def check_grads_full_width(cfg, F, seeds):
                              + ", ".join(failures))
 
 
-def check_learning(cfg):
+def _recording_kernel_block(cb, log):
+    """``conv_block.function_block`` that also appends each call's
+    discrete decisions to ``log``: the window argmax of every pooled
+    element (K2's output) and whether the pooled value (the leaky-ReLU
+    output at that argmax) is >= 0."""
+    def block(x, w, b, gamma, beta, stats_impl="twopass"):
+        T, cout = x.shape[0], w.shape[-1]
+        y, mean, var, rstd = cb.Conv3x3.apply(
+            x.contiguous(), w.contiguous(), b.contiguous(), True)
+        pooled, arg = cb.BnActPool.apply(
+            y, gamma.expand(T, cout).contiguous(),
+            beta.expand(T, cout).contiguous(), mean, rstd)
+        log.append((arg, pooled.detach() >= 0))
+        return pooled, mean, var
+    return block
+
+
+def _plain_block(F, log, replay=False):
+    """The block in plain ops, differentiable by autograd. Recording
+    (``replay=False``): the pool takes each window's first maximum and
+    appends the decisions to ``log`` as ``_recording_kernel_block`` does.
+    Replaying: the pool takes the argmax, and the leaky-ReLU the sign, that
+    the next entry of ``log`` recorded, whatever this run's own values say,
+    so the run follows the recorded run's piecewise-linear path."""
+    entries = iter(log)
+
+    def block(x, w, b, gamma, beta, stats_impl="twopass"):
+        y = F.conv2d(x, w, b, 1, 1)
+        mean, var = F.batch_stats(y, stats_impl)
+        inv = torch.rsqrt(var + F.BN_EPS).to(y.dtype)
+        z = (y - F._per_channel(mean, y)) * F._per_channel(inv, y)
+        z = z * F._per_channel(gamma.to(y.dtype), y) + F._per_channel(
+            beta.to(y.dtype), y)
+        win = F._windows(z)
+        if replay:
+            arg, positive = next(entries)
+        else:
+            arg = torch.argmax(F._windows(F.leaky_relu(z)), dim=-1)
+        z_at = torch.gather(win, -1, arg.long().unsqueeze(-1)).squeeze(-1)
+        if not replay:
+            positive = z_at >= 0
+            log.append((arg.to(torch.uint8), positive))
+        pooled = torch.where(positive, z_at, F.LEAKY_SLOPE * z_at)
+        return pooled, mean.detach(), var.detach()
+    return block
+
+
+def _decision_flips(cfg, cb, F, batch):
+    """The first support forward (inner step 0) of the kernels, the plain
+    ops in f32 and the plain ops in f64 on ``batch``: per implementation,
+    how many of its pool argmax and sign decisions differ from f64's."""
+    from howtotrainyourmamlpytorch_tpu_torch.core import partition
+    from howtotrainyourmamlpytorch_tpu_torch.models import vgg
+    from howtotrainyourmamlpytorch_tpu_torch.state import (
+        init_state,
+        to_device,
+    )
+
+    device = torch.device(DEVICE)
+    x = batch[0].reshape(batch[0].shape[0], -1, *batch[0].shape[-3:])
+    logs = {}
+    for name, dtype in (("kernels", None), ("plain", None),
+                        ("f64", torch.float64)):
+        state = init_state(cfg, device=device)
+        if dtype is not None:
+            state = to_device(state, device, dtype)
+        net = {k: v.unsqueeze(0).expand(x.shape[0], *v.shape).contiguous()
+               if partition.is_inner_adapted(cfg, k) else v
+               for k, v in state.net.items()}
+        log = []
+        block = (_recording_kernel_block(cb, log) if name == "kernels"
+                 else _plain_block(F, log))
+        with torch.no_grad():
+            vgg.apply(cfg, net, state.bn, x if dtype is None
+                      else x.to(dtype), 0, block=block)
+        logs[name] = log
+    return {name: sum(int((a != a64).sum()) + int((p != p64).sum())
+                      for (a, p), (a64, p64) in zip(logs[name], logs["f64"]))
+            for name in ("kernels", "plain")}
+
+
+def check_grads_replayed(cfg, cb, F, seeds):
+    """Phase 5: full-width meta-gradients, batch 2, each f32 run held to an
+    f64 reference that takes the same discrete path. Max pooling and the
+    leaky ReLU make the step piecewise linear: a pool argmax or a sign that
+    an f32 run decides otherwise than f64 (a near-tie within f32 rounding)
+    reroutes a gradient, and those flips, not rounding, make the f32 error
+    bursty (``check_grads_full_width``). Here each f32 run records every
+    argmax and sign it takes, and its reference is the plain step in f64
+    replaying exactly those decisions: what is left is the run's smooth
+    f32 rounding. The runs are ``check_grads_full_width``'s — the kernels,
+    and the plain ops with twopass and with fused statistics — each in
+    GRAD_ORDERS orders of the images. Per leaf and seed, each run's error
+    is the median over the orders of max |run - its reference|; the
+    kernels' must stay within REPLAY_FACTOR times the larger plain median,
+    plus GRADS_FLOOR times the tree's largest entry. Also printed, per
+    seed: how many decisions of the first support forward the kernels and
+    the plain f32 ops take otherwise than f64.
+
+    REPLAY_FACTOR comes from the null ratios this phase prints (each plain
+    median over the larger of the other two runs'), over the data seeds
+    0-9 of both models (``--grad-seeds 0,...,9 --omniglot-grad-seeds
+    0,...,9``; 800 null ratios on an NVIDIA H100 80GB HBM3 at 700 W): max
+    3.624 (mini-ImageNet; Omniglot 2.626). The rule, fixed before that
+    reading: 4 if the null max stayed under 3.2, else the smallest integer
+    at or above 1.25 times it, hence 5. In that run the kernels' ratio had
+    median 0.225 and max 1.003 on mini-ImageNet, median 0.682 and max
+    3.434 on Omniglot. The default seeds are other seeds."""
+    import statistics
+
+    cfg = cfg.replace(batch_size=2)
+    twopass = cfg.replace(bn_stats_impl="twopass")
+    runs = (("kernels", twopass, True), ("twopass", twopass, False),
+            ("fused", cfg.replace(bn_stats_impl="fused"), False))
+    start = time.perf_counter()
+    ratios, null, failures, worst = [], [], [], {}
+    for seed in seeds:
+        batch = _batch(cfg, seed)
+        flips = _decision_flips(twopass, cb, F, batch)
+        errs, scales = {n: {} for n, _, _ in runs}, {}
+        for order in range(GRAD_ORDERS):
+            permuted = _image_order(batch, order)
+            for name, c, kernels in runs:
+                log = []
+                block = (_recording_kernel_block(cb, log) if kernels
+                         else _plain_block(F, log))
+                _, got = _grads(c, block, permuted)
+                _, ref = _grads(twopass, _plain_block(F, log, replay=True),
+                                permuted, torch.float64)
+                for k, v in ref.items():
+                    errs[name].setdefault(k, []).append(
+                        (got[k].double() - v).abs().max().item())
+                    scales[k] = max(scales.get(k, 0.0),
+                                    v.abs().max().item())
+                del got, ref
+        scale = max(scales.values())
+        med = {n: {k: statistics.median(v) for k, v in e.items()}
+               for n, e in errs.items()}
+        rel = {n: max(m[k] / scales[k] for k in m if scales[k] > 1e-6 * scale)
+               for n, m in med.items()}
+        print(f"  seed {seed}: first support forward, decisions unlike f64 "
+              f"kernels {flips['kernels']} plain {flips['plain']}; worst "
+              "leaf median max |err| / max |ref| " + ", ".join(
+                  f"{n} {v:.2e}" for n, v in rel.items()), flush=True)
+        for key in scales:
+            k_err = med["kernels"][key]
+            plain = max(med["twopass"][key], med["fused"][key])
+            if scales[key] > 1e-6 * scale:
+                ratio = k_err / plain if plain else 0.0
+                ratios.append((ratio, seed, key))
+                worst[key] = max(worst.get(key, 0.0), ratio)
+                for n, others in (("twopass", ("kernels", "fused")),
+                                  ("fused", ("kernels", "twopass"))):
+                    den = max(med[o][key] for o in others)
+                    null.append((med[n][key] / den if den else 0.0, seed,
+                                 key))
+            if k_err > REPLAY_FACTOR * plain + GRADS_FLOOR * scale:
+                failures.append(f"seed {seed} {key}")
+    print("  per leaf, the worst kernels / larger plain median over the "
+          "seeds: " + ", ".join(f"{k} {v:.2f}" for k, v in worst.items()),
+          flush=True)
+    print(f"  kernels / larger plain median over {len(ratios)} nonzero "
+          f"leaf-seeds: {_quantiles([r for r, _, _ in ratios])}; worst "
+          + ", ".join(f"{r:.2f} (seed {s} {k})"
+                      for r, s, k in sorted(ratios)[-3:]), flush=True)
+    print(f"  null ratios, each plain median / the larger of the other two "
+          f"runs', over {len(null)}: {_quantiles([r for r, _, _ in null])}; "
+          "worst " + ", ".join(f"{r:.2f} (seed {s} {k})"
+                               for r, s, k in sorted(null)[-3:])
+          + f" (gate {REPLAY_FACTOR:g}x + {GRADS_FLOOR:g} of the largest "
+          f"entry; {time.perf_counter() - start:.1f} s)", flush=True)
+    if failures:
+        raise AssertionError("replayed-path meta-gradients: kernels further "
+                             "from f64 than the plain ops allow at "
+                             + ", ".join(failures))
+
+
+def check_learning(config=FLAGSHIP, batch_size=2):
     """Phase 5: 10 second-order steps on one fixed full-width batch at the
     config's meta LR; the loss of the last step is below the first's."""
     from howtotrainyourmamlpytorch_tpu_torch import bench as train_bench
 
     line = train_bench.run([
-        "--config", FLAGSHIP, "--batch-size", "2", "--epoch", "0",
+        "--config", config, "--batch-size", str(batch_size), "--epoch", "0",
         "--warmup", "0", "--steps", "10", "--seed", "1", "--device",
         DEVICE])
     losses = line["loss"]
-    print(f"  10 steps on one batch at lr {line['lr']}: loss "
+    print(f"  {config.split('/')[-1]}: 10 steps on one batch of "
+          f"{batch_size} at lr {line['lr']}: loss "
           f"{[round(v, 5) for v in losses]}", flush=True)
     if not losses[-1] < losses[0]:
         raise AssertionError("the loss did not fall over 10 steps")
 
 
-def profile_train_step(cfg):
-    """Phase 5: where a full-width batch-2 second-order step spends its
-    time: ``torch.profiler`` over one warm step."""
+def profile_train_step(cfg, batch_size=2, placement=None):
+    """Phase 5: where a full-width second-order step spends its time:
+    ``torch.profiler`` over one warm step, its batch the fixed one or one
+    drawn through the data tier ``placement`` (host assembly and upload
+    included)."""
     from torch.profiler import ProfilerActivity, profile
 
     from howtotrainyourmamlpytorch_tpu_torch import bench as train_bench
     from howtotrainyourmamlpytorch_tpu_torch.core import maml
     from howtotrainyourmamlpytorch_tpu_torch.state import init_state
 
-    cfg = cfg.replace(batch_size=2)
+    cfg = cfg.replace(batch_size=batch_size)
     device = torch.device(DEVICE)
+    if placement is not None:
+        cfg = cfg.replace(use_mmap_cache=True, data_placement=placement)
     state = init_state(cfg, device=device, with_opt=True)
-    batch = train_bench.synth_batch(cfg, 0, device)
     lr, weights, _ = maml.epoch_schedule(cfg, 0)
-    step = maml.make_train_step(cfg, True)
-    state, _ = step(state, *batch, weights, lr)
+    if placement is None:
+        batch = train_bench.synth_batch(cfg, 0, device)
+        step = maml.make_train_step(cfg, True)
+
+        def run(state, i):
+            return step(state, *batch, weights, lr)
+    else:
+        tier = train_bench._Tier(cfg, placement, True, 0, device)
+
+        def run(state, i):
+            return tier.run(state, tier.assemble(i), weights, lr)
+    state, _ = run(state, 0)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
-        state, _ = step(state, *batch, weights, lr)
+        state, _ = run(state, 1)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - start) * 1e3
-    _profile_report(prof, wall_ms, "profiled batch-2 train step")
+    _profile_report(prof, wall_ms, f"profiled batch-{batch_size} train step"
+                    f" ({placement or 'fixed batch'})")
+
+
+def run_serve_bench(ks, cfg, ingest):
+    """Phase 4, a serving main path: ``serve-bench`` at the flagship with
+    ``ingest``, 16 requests; every dispatch's launches equal
+    ``expected_serve_launches`` and the run's totals (warmup included)
+    equal it times the dispatches. Returns (JSON line, launch counts)."""
+    from howtotrainyourmamlpytorch_tpu_torch.serving import bench
+
+    print(f"[serve] serve-bench --config mini-ImageNet 5-way 5-shot "
+          f"--requests 16 --seed 0 --ingest {ingest}", flush=True)
+    ks.reset_launches()
+    line = bench.run(["--config", FLAGSHIP, "--requests", "16", "--seed",
+                      "0", "--device", DEVICE, "--ingest", ingest,
+                      "--store-rows", str(STORE_ROWS)])
+    counts = ks.launches()
+    print(json.dumps(line), flush=True)
+    expected = expected_serve_launches(cfg, ingest)
+    for i, got in enumerate(line["kernel_launches_per_dispatch"]):
+        if got != expected:
+            raise AssertionError(
+                f"{ingest} dispatch {i}: launches {got}, expected {expected}"
+            )
+    dispatches = line["dispatches"] + line["warmup_dispatches"]
+    for k, per_dispatch in expected.items():
+        if counts[k] != per_dispatch * dispatches:
+            raise AssertionError(
+                f"{k}: {counts[k]} launches over the {ingest} path, "
+                f"expected {per_dispatch} x {dispatches} dispatches"
+            )
+    tps = line["tenants_per_sec"]
+    if not (line["tenants"] == 16 and tps and math.isfinite(tps)
+            and line["ingest"] == ingest):
+        raise AssertionError(f"serve-bench line is incomplete: {line}")
+    print(f"[serve] {ingest}: tenants_per_sec {tps}  adapt_ms p50 "
+          f"{line['adaptation_latency_ms_p50']}  p95 "
+          f"{line['adaptation_latency_ms_p95']}  h2d_bytes_per_dispatch "
+          f"{line['h2d_bytes_per_dispatch']}  launches {counts}", flush=True)
+    return line, counts
+
+
+def check_index_bit_identical(cfg):
+    """Phase 4: one bucket-8 index-ingest dispatch (8 tenants, 5 shots,
+    rows of the 12,000-row store) against the f32 dispatch fed the
+    host-decoded pixels of the same rows (the port's host pipeline,
+    ``decode_cached`` + ``augment_stack``), both on the kernels: preds and
+    loss must be bit-identical, in every repetition. Every kernel is
+    deterministic (no atomics), and the expansion is exact, so the two
+    programs see the same inputs. The two ingests are then timed in turns
+    (f32, index, index, f32, three times) on the same card."""
+    import statistics
+
+    import numpy as np
+
+    from howtotrainyourmamlpytorch_tpu_torch.data.episodes import (
+        augment_stack,
+        decode_cached,
+    )
+    from howtotrainyourmamlpytorch_tpu_torch.serving import bench
+    from howtotrainyourmamlpytorch_tpu_torch.serving.batcher import (
+        AdaptRequest,
+    )
+    from howtotrainyourmamlpytorch_tpu_torch.serving.engine import (
+        ServingEngine,
+    )
+    from howtotrainyourmamlpytorch_tpu_torch.state import init_state
+
+    store = bench._synth_store(cfg, STORE_ROWS, 3)
+    shots, n = cfg.num_samples_per_class, cfg.num_classes_per_set
+    group = bench._synth_groups(cfg, [shots], 36, 8, 5, "index",
+                                STORE_ROWS)[-1]
+
+    def host_pixels(rows):
+        x = decode_cached(cfg, store[rows.reshape(-1)])
+        x = augment_stack(cfg, x, 0, False)
+        return np.ascontiguousarray(x, np.float32).reshape(
+            rows.shape + cfg.im_shape)
+
+    pixel_group = [AdaptRequest(
+        support_x=host_pixels(r.support_idx),
+        support_y=np.tile(np.arange(n, dtype=np.int32)[:, None], (1, shots)),
+        query_x=host_pixels(r.query_idx),
+        query_y=np.tile(np.arange(n, dtype=np.int32)[:, None],
+                        (1, cfg.num_target_samples)),
+        tenant_id=r.tenant_id) for r in group]
+    state = init_state(cfg, device=DEVICE)
+    engines = {
+        "index": (ServingEngine(cfg, state, [shots], device=DEVICE,
+                                ingest="index", store=store), group),
+        "f32": (ServingEngine(cfg, state, [shots], device=DEVICE,
+                              ingest="f32"), pixel_group)}
+    # first dispatches warm up; then both in turns, f32, index, index, f32
+    results = {name: [eng.serve_group(reqs)]
+               for name, (eng, reqs) in engines.items()}
+    for name in ("f32", "index", "index", "f32") * 3:
+        eng, reqs = engines[name]
+        results[name].append(eng.serve_group(reqs))
+    index, f32 = results["index"][0], results["f32"][0]
+    same = all(np.array_equal(a.preds, b.preds) and a.loss == b.loss
+               for drs in zip(*results.values())
+               for a, b in zip(drs[0].results, drs[1].results))
+    for name, drs in results.items():
+        times = sorted(d.adapt_ms for d in drs[1:])
+        print(f"  bucket-8 {name:5s} dispatches in turns: adapt_ms median "
+              f"{statistics.median(times):.3f} (min {times[0]:.3f}, max "
+              f"{times[-1]:.3f}, {len(times)} dispatches)", flush=True)
+    print(f"  bucket-{index.bucket} dispatch ({index.tenants} tenants): "
+          f"index ingest ({index.ingest_bytes} B uploaded) vs f32 ingest "
+          f"({f32.ingest_bytes} B) on the same pixels: preds and loss "
+          f"bit-identical {same}; losses "
+          f"{[r.loss for r in index.results[:3]]} ...", flush=True)
+    if index.bucket != 8 or not same:
+        raise AssertionError("index-ingest dispatch differs from the f32 "
+                             "dispatch on the same pixels")
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
         "--grad-seeds", default=",".join(map(str, GRAD_SEEDS)),
-        help="data seeds of the full-width meta-gradient check against f64 "
-             "(comma-separated)")
-    seeds = tuple(int(v) for v in parser.parse_args().grad_seeds.split(","))
+        help="data seeds of the full-width meta-gradient check against f64, "
+             "mini-ImageNet (comma-separated)")
+    parser.add_argument(
+        "--omniglot-grad-seeds", default=",".join(map(str, GRAD_SEEDS)),
+        help="the same for the Omniglot 20-way 1-shot model")
+    args = parser.parse_args()
+    seeds = tuple(int(v) for v in args.grad_seeds.split(","))
+    omniglot_seeds = tuple(int(v) for v in
+                           args.omniglot_grad_seeds.split(","))
     card = card_line()
     print(card, flush=True)
     if not torch.cuda.is_available():
@@ -961,6 +1470,7 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} device {kind}", flush=True)
 
+    from howtotrainyourmamlpytorch_tpu_torch import kernels as ks
     from howtotrainyourmamlpytorch_tpu_torch.config import MAMLConfig
     from howtotrainyourmamlpytorch_tpu_torch.device import (
         peak_rates,
@@ -968,8 +1478,11 @@ def main() -> int:
     )
     from howtotrainyourmamlpytorch_tpu_torch.kernels import build
     from howtotrainyourmamlpytorch_tpu_torch.kernels import conv_block as cb
+    from howtotrainyourmamlpytorch_tpu_torch.kernels import (
+        episode_expand as ee,
+    )
+    from howtotrainyourmamlpytorch_tpu_torch.ops import device_pipeline as dp
     from howtotrainyourmamlpytorch_tpu_torch.ops import functional as F
-    from howtotrainyourmamlpytorch_tpu_torch.serving import bench
 
     resolve_device("cuda:0")  # TF32 off for the plain versions too
     print(f"[build] {build.timed_build():.2f} s into {build.build_dir()}",
@@ -979,68 +1492,78 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"[ptxas {stem}] {line.strip()}", flush=True)
 
+    cfg = MAMLConfig.from_json_file(FLAGSHIP)
+    omniglot = MAMLConfig.from_json_file(OMNIGLOT)
+    all_kernels = cb.KERNELS + ee.KERNELS
     print("[kernels] each kernel vs its plain twin on the card", flush=True)
     t0 = time.perf_counter()
-    records = Records(cb.KERNELS, peak_rates(kind))
+    records = Records(all_kernels, peak_rates(kind))
     check_kernels(cb, F, records)
     check_train_kernels(cb, F, records)
+    print("[kernels] K1-K5 at the Omniglot 20-way 1-shot layers", flush=True)
+    check_kernels(cb, F, records, OMNIGLOT_LAYERS, (OMNIGLOT_IMAGES,),
+                  OMNIGLOT_COUT, "omniglot ")
+    check_train_kernels(cb, F, records, (T_TENANTS,), OMNIGLOT_LAYERS,
+                        OMNIGLOT_IMAGES, OMNIGLOT_COUT, "omniglot ")
+    print("[kernels] episode_expand vs its twin (exact)", flush=True)
+    check_episode_expand(ee, dp, records, cfg, omniglot)
     check_block_autograd(cb, F)
     check_block_double_backward(cb, F)
     print(f"[kernels] {time.perf_counter() - t0:.1f} s", flush=True)
 
-    cfg = MAMLConfig.from_json_file(FLAGSHIP)
-    print("[serve] serve-bench --config mini-ImageNet 5-way 5-shot "
-          "--requests 16 --seed 0", flush=True)
-    cb.reset_launches()
-    line = bench.run(["--config", FLAGSHIP, "--requests", "16",
-                      "--seed", "0", "--device", "cuda:0"])
-    counts = cb.launches()
-    print(json.dumps(line), flush=True)
-    expected = expected_launches(cfg)
-    for i, got in enumerate(line["kernel_launches_per_dispatch"]):
-        if got != expected:
-            raise AssertionError(
-                f"dispatch {i}: launches {got}, expected {expected}"
-            )
-    dispatches = line["dispatches"] + line["warmup_dispatches"]
-    for k in cb.KERNELS:
-        if (counts[k] == 0) != (expected[k] == 0) \
-                or counts[k] != expected[k] * dispatches:
-            raise AssertionError(
-                f"{k}: {counts[k]} launches over the main path, expected "
-                f"{expected[k]} x {dispatches} dispatches"
-            )
-    tps = line["tenants_per_sec"]
-    if not (line["tenants"] == 16 and tps and math.isfinite(tps)):
-        raise AssertionError(f"serve-bench line is incomplete: {line}")
-    print(f"[serve] tenants_per_sec {tps}  adapt_ms p50 "
-          f"{line['adaptation_latency_ms_p50']}  p95 "
-          f"{line['adaptation_latency_ms_p95']}  launches {counts}",
-          flush=True)
+    main_counts = {k: 0 for k in all_kernels}
+    serve_lines = {}
+    for ingest in EXPAND_PER_DISPATCH:
+        serve_lines[ingest], counts = run_serve_bench(ks, cfg, ingest)
+        for k, v in counts.items():
+            main_counts[k] += v
+        torch.cuda.empty_cache()
+    for ingest, line in serve_lines.items():
+        print(f"[serve] {ingest:5s}: h2d_bytes_per_dispatch "
+              f"{line['h2d_bytes_per_dispatch']}  adapt_ms p50 "
+              f"{line['adaptation_latency_ms_p50']}  p95 "
+              f"{line['adaptation_latency_ms_p95']}  tenants_per_sec "
+              f"{line['tenants_per_sec']}", flush=True)
 
     print("[serve] the serve step vs the plain serve step", flush=True)
     check_small_against_plain(cfg, F)
     check_against_plain(cfg, F)
-    print("[profile] one bucket-8 and one bucket-1 dispatch", flush=True)
+    print("[serve] index ingest vs f32 ingest on the same pixels", flush=True)
+    check_index_bit_identical(cfg)
+    print("[profile] one bucket-8 and one bucket-1 f32 dispatch, one "
+          "bucket-8 index dispatch", flush=True)
     profile_dispatch(cfg)
+    profile_dispatch(cfg, "index", small=False)
     torch.cuda.empty_cache()
 
-    main_counts = dict(counts)
     for batch_size in TRAIN_TASKS:
-        _, train_counts = run_train_bench(cb, cfg, batch_size)
-        for k, v in train_counts.items():
+        _, counts = run_train_bench(ks, cfg, batch_size)
+        for k, v in counts.items():
             main_counts[k] += v
         torch.cuda.empty_cache()
-    print("[train] learning check and profile", flush=True)
-    check_learning(cfg)
+    omniglot_name = "Omniglot 20-way 1-shot"
+    for placement in ("device", "host"):
+        _, counts = run_train_bench(ks, omniglot, omniglot.batch_size,
+                                    OMNIGLOT, omniglot_name, placement)
+        for k, v in counts.items():
+            main_counts[k] += v
+        torch.cuda.empty_cache()
+    print("[train] learning checks and profiles", flush=True)
+    check_learning()
+    check_learning(OMNIGLOT, omniglot.batch_size)
     profile_train_step(cfg)
+    profile_train_step(omniglot, omniglot.batch_size, "device")
     torch.cuda.empty_cache()
     print("[train] meta-gradients, kernels vs plain on the card", flush=True)
     check_grads_small(cfg, F)
+    check_grads_replayed(cfg, cb, F, seeds)
     check_grads_full_width(cfg, F, seeds)
+    print(f"[train] {omniglot_name} full-width meta-gradients", flush=True)
+    check_grads_replayed(omniglot, cb, F, omniglot_seeds)
+    check_grads_full_width(omniglot, F, omniglot_seeds)
 
     kernels = []
-    for k in cb.KERNELS:
+    for k in all_kernels:
         r = records.by_kernel[k][REPORT_AT[k]]
         route, source = SOURCES[k]
         kernels.append({

@@ -9,6 +9,28 @@ a device synchronise. The defaults are the root bench's flagship
 15 targets per class, second order from epoch 0) at the config's batch;
 ``--fast`` is a seconds-scale toy.
 
+``--data-placement host|uint8_stream|device`` measures a data tier
+instead of the fixed batch: every step draws new tasks (task seeds
+``seed * 1_000_003 + step * batch + t``, train-time augmentation) from
+one synthetic uint8 ``FlatStore`` made from ``--seed`` with numpy at the
+real train-split size (``synth_train_store``), through the port's sampler,
+so the three tiers draw the same tasks:
+
+* ``host``: float32 pixels decoded and rotated on the host, uploaded;
+* ``uint8_stream``: uint8 pixels gathered and rotated on the host,
+  uploaded, decoded on the card (two ``episode_expand`` launches);
+* ``device``: the store goes to the card once; per step the host ships the
+  (batch, way, shots + targets) int32 rows and (batch, way) rot90 draws,
+  and one ``episode_expand`` launch expands them.
+
+The config's ``use_mmap_cache`` and ``data_placement`` are set to match
+(the port's config requires the first for any tier but host). A tier's
+step time covers the host assembly, the upload, the step and a device
+synchronise; the line adds ``data_placement``, ``h2d_bytes_per_step``
+(the bytes of the arrays uploaded), ``host_assembly_ms_per_step`` and
+``expand_launches_per_step``, the port's counterparts of the root bench's
+``_measure_input_pipeline``.
+
 Prints ONE JSON line: ``tasks_per_sec``, ``step_ms`` p50/p95 and each
 step's time, ``second_order``, ``batch_size``, ``peak_mem_gb``
 (``torch.cuda.max_memory_allocated``), each step's ``loss`` and
@@ -22,6 +44,9 @@ tests).
 
     python -m howtotrainyourmamlpytorch_tpu_torch.cli train-bench
     python -m howtotrainyourmamlpytorch_tpu_torch.cli train-bench --fast --device cpu
+    python -m howtotrainyourmamlpytorch_tpu_torch.cli train-bench \\
+        --config "experiment_config/omniglot_maml++-omniglot_1_20_8_0.1_64_0.json" \\
+        --data-placement device
 """
 
 from __future__ import annotations
@@ -36,11 +61,19 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from . import kernels
 from .config import MAMLConfig
 from .core import maml
+from .data import loader
+from .data.preprocess import FlatStore
 from .device import device_name, peak_rates, resolve_device, synchronize
-from .kernels import conv_block
 from .state import init_state
+
+PLACEMENTS = ("host", "uint8_stream", "device")
+#: Omniglot's character count and images per character
+OMNIGLOT_CLASSES, OMNIGLOT_PER_CLASS = 1623, 20
+#: the mini-ImageNet train split: 64 classes x 600 images
+IMAGENET_TRAIN_CLASSES, IMAGENET_PER_CLASS = 64, 600
 
 FLAGSHIP = (Path(__file__).resolve().parent.parent / "experiment_config"
             / "mini-imagenet_maml++-mini-imagenet_5_5_2_0.01_48_0.json")
@@ -114,6 +147,70 @@ def synth_batch(cfg: MAMLConfig, seed: int, device: torch.device):
     return tuple(torch.from_numpy(a).to(device) for a in (x_s, y_s, x_t, y_t))
 
 
+def synth_train_store(cfg: MAMLConfig, seed: int) -> FlatStore:
+    """A synthetic uint8 train store at the real split size, made from
+    ``seed`` with numpy. Omniglot: ``int(split[0] * 1623)`` classes (the
+    JAX package's ``split_classes`` arithmetic; 1,150 at the shipped split)
+    x 20 images, pixels in {0, 1} as the 1-bit sources decode; other
+    datasets: the mini-ImageNet train split, 64 classes x 600 images, any
+    byte."""
+    if "omniglot" in cfg.dataset_name:
+        classes = int(cfg.train_val_test_split[0] * OMNIGLOT_CLASSES)
+        per_class = OMNIGLOT_PER_CLASS
+    else:
+        classes, per_class = IMAGENET_TRAIN_CLASSES, IMAGENET_PER_CLASS
+    h, w, c = cfg.im_shape
+    rng = np.random.RandomState(seed)
+    data = np.frombuffer(rng.bytes(classes * per_class * h * w * c),
+                         np.uint8).reshape(classes * per_class, h, w, c)
+    data = data & 1 if "omniglot" in cfg.dataset_name else data.copy()
+    return FlatStore(
+        data=data,
+        offsets={str(i): i * per_class for i in range(classes)},
+        sizes={str(i): per_class for i in range(classes)},
+    )
+
+
+class _Tier:
+    """One data tier's per-step work: ``assemble(step)`` builds the host
+    arrays of a step's tasks, ``run(state, arrays, weights, lr)`` uploads
+    them and runs the step."""
+
+    def __init__(self, cfg: MAMLConfig, placement: str, second_order: bool,
+                 seed: int, device: torch.device):
+        self.cfg, self.placement, self.device = cfg, placement, device
+        self.store = synth_train_store(cfg, seed)
+        self.keys = loader.class_keys_of(self.store)
+        self.seed_base = seed * 1_000_003
+        if placement == "device":
+            self.resident = torch.from_numpy(self.store.data).to(device)
+            self.step = maml.make_train_step_indexed(cfg, second_order,
+                                                     augment=True)
+        else:
+            self.step = maml.make_train_step(
+                cfg, second_order, decode_uint8=placement == "uint8_stream")
+
+    def assemble(self, step: int):
+        cfg, b = self.cfg, self.cfg.batch_size
+        seeds = [self.seed_base + step * b + t for t in range(b)]
+        if self.placement == "device":
+            batch = loader.stack_indices(
+                [loader.episode_indices(cfg, self.store, self.keys, s)
+                 for s in seeds], "train", True)
+            return batch.gather, batch.rot_k
+        build = (loader.episode if self.placement == "host"
+                 else loader.episode_uint8)
+        x_s, x_t, y_s, y_t, _ = loader.stack(
+            [build(cfg, self.store, self.keys, s, True) for s in seeds])
+        return x_s, y_s, x_t, y_t
+
+    def run(self, state, arrays, weights, lr):
+        args = [torch.from_numpy(a).to(self.device) for a in arrays]
+        if self.placement == "device":
+            args.insert(0, self.resident)
+        return self.step(state, *args, weights, lr)
+
+
 def _percentile(values: List[float], q: float) -> float:
     return float(np.percentile(np.asarray(values), q))
 
@@ -141,6 +238,10 @@ def _parser() -> argparse.ArgumentParser:
                         help="timed steps")
     parser.add_argument("--seed", type=int, default=0,
                         help="data seed (the weights use the config's seed)")
+    parser.add_argument("--data-placement", choices=PLACEMENTS, default=None,
+                        help="draw every step's tasks through this data tier "
+                             "from a synthetic train store (default: one "
+                             "fixed synthetic batch, uploaded once)")
     parser.add_argument("--device", default=None,
                         help="torch device (default cuda:0; 'cpu' runs the "
                              "plain PyTorch ops)")
@@ -152,24 +253,44 @@ def run(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     args = _parser().parse_args(argv)
     device = resolve_device(args.device)
     cfg = _bench_cfg(args)
+    placement = args.data_placement
+    if placement is not None:
+        cfg = cfg.replace(use_mmap_cache=True, data_placement=placement)
     lr, weights, second_order = maml.epoch_schedule(cfg, args.epoch)
     second_order = second_order and not args.first_order
     state = init_state(cfg, device=device, with_opt=True)
-    batch = synth_batch(cfg, args.seed, device)
-    step = maml.make_train_step(cfg, second_order)
+    if placement is None:
+        batch = synth_batch(cfg, args.seed, device)
+        train_step = maml.make_train_step(cfg, second_order)
+
+        def assemble(step):
+            return batch
+
+        def run(state, arrays, weights, lr):
+            return train_step(state, *arrays, weights, lr)
+    else:
+        tier = _Tier(cfg, placement, second_order, args.seed, device)
+        assemble, run = tier.assemble, tier.run
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    for _ in range(args.warmup):
-        state, metrics = step(state, *batch, weights, lr)
+    for i in range(args.warmup):
+        state, metrics = run(state, assemble(i), weights, lr)
     synchronize(device)
     step_ms, losses, accs, launches = [], [], [], []
-    for _ in range(args.steps):
-        before = conv_block.launches()
+    assembly_ms, h2d_bytes = [], []
+    for i in range(args.warmup, args.warmup + args.steps):
+        before = kernels.launches()
         start = time.perf_counter()
-        state, metrics = step(state, *batch, weights, lr)
+        arrays = assemble(i)
+        assembled = time.perf_counter()
+        state, metrics = run(state, arrays, weights, lr)
         synchronize(device)
-        step_ms.append((time.perf_counter() - start) * 1e3)
-        now = conv_block.launches()
+        end = time.perf_counter()
+        step_ms.append((end - start) * 1e3)
+        assembly_ms.append((assembled - start) * 1e3)
+        h2d_bytes.append(sum(int(a.nbytes) for a in arrays)
+                         if placement is not None else 0)
+        now = kernels.launches()
         launches.append({k: now[k] - before[k] for k in now})
         losses.append(float(metrics["loss"]))
         accs.append(float(metrics["accuracy"]))
@@ -201,6 +322,13 @@ def run(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         "model_tflops_per_sec": rate / 1e12 if rate else None,
         "ffma_peak_share": rate / peak if rate and peak else None,
         "kernel_launches_per_step": launches,
+        "data_placement": placement,
+        "h2d_bytes_per_step": (float(np.mean(h2d_bytes)) if h2d_bytes
+                               and placement is not None else None),
+        "host_assembly_ms_per_step": (float(np.mean(assembly_ms))
+                                      if assembly_ms and placement is not None
+                                      else None),
+        "expand_launches_per_step": [d["episode_expand"] for d in launches],
         "warmup_steps": args.warmup,
         "device": str(device),
         "device_name": name,

@@ -6,9 +6,18 @@ The port of the JAX package's ``core/maml.py``: ``cosine_lr`` (:90),
 _epoch_schedule`` :533-555 without its anneal log), ``_task_learner``
 (:149), ``_merge_bn`` (:286), ``_split_microbatches`` (:319),
 ``_meta_loss_and_grads`` (:333), ``make_grads_fn`` (:436),
-``make_train_step`` (:506), ``make_eval_step``, ``_serve_outputs`` and
-``make_serve_step`` (f32 ingest). The outer optimizer is
-``core/adam.py::make_optimizer``.
+``make_train_step`` (:506, with the uint8 prelude ``_decode_prelude``
+:498), ``make_eval_step`` (:675), ``_serve_outputs``, ``make_serve_step``
+(:762, f32 and uint8 ingests), ``make_serve_step_indexed`` (:843),
+``make_train_step_indexed`` (:1009) and ``make_eval_step_indexed``
+(:1065). The outer optimizer is ``core/adam.py::make_optimizer``.
+
+The uint8 and index ingests put ``ops/device_pipeline.py`` in front of the
+step: uint8 batches are decoded on the card, index batches expanded from a
+uint8 store resident on the card (gather, decode, rot90 in one
+``episode_expand`` launch, labels made on the card). What follows is the
+f32 step unchanged, so each ingest gives the f32 path's numbers on the
+same pixels.
 
 The JAX package maps one task learner over the task axis with ``vmap``;
 here the TENANT (task) axis is a batch dimension written out: every
@@ -43,6 +52,7 @@ import torch
 
 from ..config import MAMLConfig
 from ..models import vgg
+from ..ops import device_pipeline
 from ..ops import functional as F
 from ..state import MetaState
 from . import adam as adam_lib
@@ -219,7 +229,16 @@ def make_grads_fn(cfg: MAMLConfig, second_order: bool,
     return grads_fn
 
 
+def _decode_prelude(cfg: MAMLConfig, decode_uint8: Optional[bool]):
+    """The on-card uint8 decode for ``data_placement='uint8_stream'``
+    batches (None: follow the config), or None for f32 batches."""
+    if decode_uint8 is None:
+        decode_uint8 = cfg.data_placement == "uint8_stream"
+    return device_pipeline.make_decoder(cfg) if decode_uint8 else None
+
+
 def make_train_step(cfg: MAMLConfig, second_order: bool,
+                    decode_uint8: Optional[bool] = None,
                     block: Optional[vgg.BlockFn] = None):
     """``train_step(state, x_s, y_s, x_t, y_t, loss_weights, lr) ->
     (state, metrics)``: the meta-gradients over the task batch, the +-10
@@ -227,14 +246,19 @@ def make_train_step(cfg: MAMLConfig, second_order: bool,
     leaves zeroed, ``p + (-lr) * update``, and the BN running stats merged
     over the tasks. ``state.opt`` must hold the Adam state
     (``init_state(..., with_opt=True)`` or a converted JAX state);
-    ``metrics`` holds the task-mean ``loss`` and ``accuracy``. ``block`` is
-    ``vgg.apply``'s. The uint8 ingest (ROADMAP Queue B6) and the telemetry
-    and health probes are not ported."""
+    ``metrics`` holds the task-mean ``loss`` and ``accuracy``. Under
+    ``data_placement='uint8_stream'`` (or ``decode_uint8=True``) ``x_s`` and
+    ``x_t`` arrive as uint8 and are decoded on the card first (one
+    ``episode_expand`` launch each). ``block`` is ``vgg.apply``'s. The
+    telemetry and health probes are not ported."""
     learner = _task_learner(cfg, cfg.number_of_training_steps_per_iter,
                             second_order, block)
+    decode = _decode_prelude(cfg, decode_uint8)
 
     def train_step(state: MetaState, x_s, y_s, x_t, y_t, loss_weights, lr
                    ) -> Tuple[MetaState, Dict[str, Tensor]]:
+        if decode is not None:
+            x_s, x_t = decode(x_s), decode(x_t)
         if state.opt is None:
             raise ValueError(
                 "train_step needs the Adam state: init_state(..., "
@@ -262,17 +286,21 @@ def make_train_step(cfg: MAMLConfig, second_order: bool,
     return train_step
 
 
-def make_eval_step(cfg: MAMLConfig, block: Optional[vgg.BlockFn] = None):
+def make_eval_step(cfg: MAMLConfig, decode_uint8: Optional[bool] = None,
+                   block: Optional[vgg.BlockFn] = None):
     """``eval_step(state, x_s, y_s, x_t, y_t) -> (metrics, preds)``: first
     order, ``number_of_evaluation_steps_per_iter`` inner steps, only the
     final step's target loss, BN updates discarded. ``metrics`` holds the
     task-mean ``loss`` and ``accuracy``; ``preds`` (tasks, targets,
-    classes) the final softmax."""
+    classes) the final softmax. ``decode_uint8`` as ``make_train_step``'s."""
     num_steps = cfg.number_of_evaluation_steps_per_iter
     learner = _task_learner(cfg, num_steps, block=block)
     loss_weights = msl_lib.final_step_only(num_steps)
+    decode = _decode_prelude(cfg, decode_uint8)
 
     def eval_step(state: MetaState, x_s, y_s, x_t, y_t):
+        if decode is not None:
+            x_s, x_t = decode(x_s), decode(x_t)
         with torch.no_grad():
             losses, correct, _, preds = learner(
                 state.net, state.lslr, state.bn, x_s, y_s, x_t, y_t,
@@ -303,7 +331,8 @@ def _serve_outputs(losses: Tensor, correct: Tensor, preds: Tensor,
     }
 
 
-def make_serve_step(cfg: MAMLConfig, block: Optional[vgg.BlockFn] = None):
+def make_serve_step(cfg: MAMLConfig, ingest: str = "f32",
+                    block: Optional[vgg.BlockFn] = None):
     """``serve_step(state, x_s, y_s, x_t, y_t, valid) -> (state, out)``.
 
     Batches carry a leading tenant axis of the dispatch's bucket width;
@@ -313,16 +342,26 @@ def make_serve_step(cfg: MAMLConfig, block: Optional[vgg.BlockFn] = None):
     (bucket,), and the masked ``metrics``. The state passes through
     unchanged. The per-tenant math is ``make_eval_step``'s.
 
-    Only the f32 ingest is ported (the uint8 decode and index gather are
-    ROADMAP Queue B6); ``block`` is ``vgg.apply``'s.
+    ``ingest='uint8'`` takes uint8 pixels and decodes them on the card
+    first (one ``episode_expand`` launch for ``x_s``, one for ``x_t``); the
+    index ingest is ``make_serve_step_indexed``. ``block`` is
+    ``vgg.apply``'s.
     """
+    if ingest not in ("f32", "uint8"):
+        raise ValueError(
+            f"make_serve_step ingest must be 'f32' or 'uint8', got "
+            f"{ingest!r} (the index ingest is make_serve_step_indexed)"
+        )
     num_steps = cfg.number_of_evaluation_steps_per_iter
     learner = _task_learner(cfg, num_steps, block=block)
     loss_weights = msl_lib.final_step_only(num_steps)
+    decode = device_pipeline.make_decoder(cfg) if ingest == "uint8" else None
 
     def serve_step(state: MetaState, x_s, y_s, x_t, y_t, valid
                    ) -> Tuple[MetaState, Dict[str, object]]:
         with torch.no_grad():
+            if decode is not None:
+                x_s, x_t = decode(x_s), decode(x_t)
             losses, correct, _, preds = learner(
                 state.net, state.lslr, state.bn, x_s, y_s, x_t, y_t,
                 loss_weights,
@@ -330,3 +369,54 @@ def make_serve_step(cfg: MAMLConfig, block: Optional[vgg.BlockFn] = None):
             return state, _serve_outputs(losses, correct, preds, valid)
 
     return serve_step
+
+
+def make_serve_step_indexed(cfg: MAMLConfig, shots: int,
+                            block: Optional[vgg.BlockFn] = None):
+    """``serve_step(state, store, gather, valid) -> (state, out)``: the
+    index ingest. ``store`` is the registered (N, h, w, c) uint8 store on
+    the card, ``gather`` the (bucket, way, shots + targets) int32 rows of
+    each tenant's support then query; one ``episode_expand`` launch turns
+    them into the f32 batch, labels are the class slots (sample (i, j) has
+    label i), and ``out`` is ``make_serve_step``'s."""
+    step = make_serve_step(cfg, block=block)
+    expand = device_pipeline.make_serve_expander(cfg, shots)
+
+    def serve_step(state: MetaState, store, gather, valid):
+        return step(state, *expand(store, gather), valid)
+
+    return serve_step
+
+
+def make_train_step_indexed(cfg: MAMLConfig, second_order: bool,
+                            augment: bool, store_mesh=None,
+                            block: Optional[vgg.BlockFn] = None):
+    """``train_step(state, store, gather, rot_k, loss_weights, lr) ->
+    (state, metrics)``: ``make_train_step`` behind the on-card episode
+    expansion (``data_placement='device'``). ``store`` is the split's
+    (N, h, w, c) uint8 store on the card, ``gather`` (tasks, way, spc +
+    nts) and ``rot_k`` (tasks, way) int32; ``augment`` rotates train-time
+    Omniglot. A store sharded over hosts (``store_mesh``) is not ported
+    (ROADMAP Queue A9)."""
+    step = make_train_step(cfg, second_order, decode_uint8=False,
+                           block=block)
+    expand = device_pipeline.make_index_expander(cfg, augment, store_mesh)
+
+    def train_step(state: MetaState, store, gather, rot_k, loss_weights, lr):
+        return step(state, *expand(store, gather, rot_k), loss_weights, lr)
+
+    return train_step
+
+
+def make_eval_step_indexed(cfg: MAMLConfig, augment: bool = False,
+                           store_mesh=None,
+                           block: Optional[vgg.BlockFn] = None):
+    """``eval_step(state, store, gather, rot_k) -> (metrics, preds)``: the
+    evaluation twin of ``make_train_step_indexed``."""
+    step = make_eval_step(cfg, decode_uint8=False, block=block)
+    expand = device_pipeline.make_index_expander(cfg, augment, store_mesh)
+
+    def eval_step(state: MetaState, store, gather, rot_k):
+        return step(state, *expand(store, gather, rot_k))
+
+    return eval_step

@@ -2,6 +2,23 @@
 
 CUDA C++ sources live in ``csrc/`` and are built at first use by
 ``build.py``; the Triton kernels live in ``bn_act_pool.py``; the wrappers,
-launch counters and the ``autograd.Function`` live in ``conv_block.py``.
+launch counters and the ``autograd.Function`` of the conv block live in
+``conv_block.py``, those of the ingest kernel in ``episode_expand.py``.
 Importing this package imports neither triton nor the CUDA toolkit.
 """
+
+from typing import Dict
+
+
+def launches() -> Dict[str, int]:
+    """Every kernel's launch count since its last reset."""
+    from . import conv_block, episode_expand
+
+    return {**conv_block.launches(), **episode_expand.launches()}
+
+
+def reset_launches() -> None:
+    from . import conv_block, episode_expand
+
+    conv_block.reset_launches()
+    episode_expand.reset_launches()

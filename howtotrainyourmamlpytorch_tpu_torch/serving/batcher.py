@@ -1,7 +1,7 @@
-"""Request type and the synchronous grouping front end of the serving
+"""Request types and the synchronous grouping front end of the serving
 engine: the port of the JAX package's ``serving/batcher.py``
-(``AdaptRequest``, ``group_requests``, ``serve_requests``). The online
-``MicroBatcher`` thread is not ported yet.
+(``AdaptRequest``, ``IndexRequest``, ``group_requests``,
+``serve_requests``). The online ``MicroBatcher`` thread is not ported yet.
 
 Shots are a bucket KEY, never a padding axis: requests with different
 support-shot counts go to different dispatches (pad support samples would
@@ -19,10 +19,11 @@ import numpy as np
 
 @dataclass
 class AdaptRequest:
-    """One tenant's adapt-then-predict request, NHWC float32 pixels:
-    ``support_x`` (way, shots, h, w, c), ``support_y`` (way, shots),
-    ``query_x`` (way, targets, h, w, c), optionally ``query_y``
-    (way, targets) when the caller wants query loss/accuracy back."""
+    """One tenant's adapt-then-predict request, NHWC pixels (float32, or
+    uint8 for an engine with ``ingest='uint8'``): ``support_x`` (way,
+    shots, h, w, c), ``support_y`` (way, shots), ``query_x`` (way, targets,
+    h, w, c), optionally ``query_y`` (way, targets) when the caller wants
+    query loss/accuracy back."""
 
     support_x: np.ndarray
     support_y: np.ndarray
@@ -35,7 +36,26 @@ class AdaptRequest:
         return int(np.asarray(self.support_x).shape[1])
 
 
-def group_requests(requests: Sequence[AdaptRequest],
+@dataclass
+class IndexRequest:
+    """One tenant's request as rows of the engine's registered store
+    (``ingest='index'``): ``support_idx`` (way, shots) and ``query_idx``
+    (way, targets) integer rows, a few hundred bytes. Labels never cross
+    H2D: sample (i, j) carries label i (rows grouped by class slot).
+    ``labeled=False`` marks a tenant whose query grouping is not truthful:
+    its predictions are served, its loss and accuracy masked out."""
+
+    support_idx: np.ndarray
+    query_idx: np.ndarray
+    labeled: bool = True
+    tenant_id: Optional[str] = None
+
+    @property
+    def shots(self) -> int:
+        return int(np.asarray(self.support_idx).shape[1])
+
+
+def group_requests(requests: Sequence[Any],
                    max_tenants: int) -> List[List[int]]:
     """Stable-partition request INDICES by shots, then chunk each
     partition at ``max_tenants``; order is preserved within a bucket."""
@@ -52,7 +72,7 @@ def group_requests(requests: Sequence[AdaptRequest],
     return groups
 
 
-def serve_requests(engine, requests: Sequence[AdaptRequest],
+def serve_requests(engine, requests: Sequence[Any],
                    max_tenants: Optional[int] = None):
     """Serve a request list synchronously; returns ``(results,
     dispatches)``: ``results[i]`` is request i's ``TenantResult``,

@@ -1,25 +1,30 @@
 """``serve-bench`` — closed-loop load generator for the port's serving path.
 
 The port of the JAX package's ``serving/bench.py`` closed loop: synthetic
-f32 adapt-on-request traffic whose group sizes cycle 1..max_tenants (every
+adapt-on-request traffic whose group sizes cycle 1..max_tenants (every
 tenant bucket sees traffic) and whose shots cycle two buckets, served
 through ``ServingEngine`` after a warmup over every (bucket, shots) shape.
-Each group waits for the previous one.
+Each group waits for the previous one. ``--ingest`` picks what a request
+carries: float32 pixels (``f32``), raw uint8 pixels decoded on the card
+(``uint8``), or rows of a synthetic uint8 store of ``--store-rows`` rows
+registered with the engine and uploaded once (``index``; 12,000 rows by
+default, the size of the mini-ImageNet test split, 20 classes x 600).
 
 Prints ONE JSON line: adapt latency p50/p95, ``tenants_per_sec``,
-dispatches, tenants, warmup seconds, the ``device`` and its name, the
-``dtype``, each dispatch's (tenants, bucket, shots, adapt_ms), and each
-kernel's launches over the traffic (warmup excluded) in total and per
-dispatch.
+dispatches, tenants, the ``ingest`` and ``h2d_bytes_per_dispatch`` (the
+mean bytes a dispatch uploads), warmup seconds, the ``device`` and its
+name, the ``dtype``, each dispatch's (tenants, bucket, shots, adapt_ms,
+ingest_bytes), and each kernel's launches over the traffic (warmup
+excluded) in total and per dispatch.
 
 Runs on ``cuda:0`` unless ``--device`` names another device; without CUDA
 it raises unless ``--device cpu`` is given (the plain PyTorch ops, for
-tests). The open-loop arrivals, replicas, fleet, telemetry and the
-uint8/index ingests are not ported yet.
+tests). The open-loop arrivals, replicas, fleet and telemetry are not
+ported yet.
 
     python -m howtotrainyourmamlpytorch_tpu_torch.cli serve-bench \\
         --config experiment_config/mini-imagenet_maml++-mini-imagenet_5_5_2_0.01_48_0.json \\
-        --requests 32 --seed 0
+        --requests 32 --seed 0 --ingest index
 """
 
 from __future__ import annotations
@@ -31,12 +36,16 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from .. import kernels
 from ..config import MAMLConfig
 from ..device import device_name, resolve_device
-from ..kernels import conv_block
 from ..state import init_state
-from .batcher import AdaptRequest, serve_requests
+from .batcher import AdaptRequest, IndexRequest, serve_requests
 from .engine import ServingEngine
+
+INGESTS = ("f32", "uint8", "index")
+#: the mini-ImageNet test split: 20 classes x 600 images
+STORE_ROWS = 12000
 
 
 def _bench_cfg(args) -> MAMLConfig:
@@ -72,31 +81,58 @@ def bench_shots_buckets(cfg: MAMLConfig) -> List[int]:
     return sorted({cfg.num_samples_per_class, cfg.num_samples_per_class + 1})
 
 
-def _synth_request(cfg: MAMLConfig, rng, shots: int,
-                   tenant_id: str) -> AdaptRequest:
+def _synth_store(cfg: MAMLConfig, rows: int = STORE_ROWS,
+                 seed: int = 7) -> np.ndarray:
+    """A deterministic (rows, h, w, c) uint8 store for the index ingest,
+    made from ``seed`` with numpy (raw bytes: no int64 temporary at
+    store size)."""
+    rng = np.random.RandomState(seed)
+    h, w, c = cfg.im_shape
+    return np.frombuffer(rng.bytes(rows * h * w * c), np.uint8).reshape(
+        rows, h, w, c).copy()
+
+
+def _synth_request(cfg: MAMLConfig, rng, shots: int, tenant_id: str,
+                   ingest: str = "f32", store_rows: int = 0):
     n, t = cfg.num_classes_per_set, cfg.num_target_samples
     h, w, c = cfg.im_shape
+    if ingest == "index":
+        return IndexRequest(
+            support_idx=rng.randint(0, store_rows, (n, shots)).astype(
+                np.int32),
+            query_idx=rng.randint(0, store_rows, (n, t)).astype(np.int32),
+            labeled=True,
+            tenant_id=tenant_id,
+        )
+    if ingest == "uint8":
+        sx = rng.randint(0, 256, (n, shots, h, w, c)).astype(np.uint8)
+        qx = rng.randint(0, 256, (n, t, h, w, c)).astype(np.uint8)
+    else:
+        sx = rng.randn(n, shots, h, w, c).astype(np.float32)
+        qx = rng.randn(n, t, h, w, c).astype(np.float32)
     return AdaptRequest(
-        support_x=rng.randn(n, shots, h, w, c).astype(np.float32),
+        support_x=sx,
         support_y=np.tile(np.arange(n, dtype=np.int32)[:, None], (1, shots)),
-        query_x=rng.randn(n, t, h, w, c).astype(np.float32),
+        query_x=qx,
         query_y=np.tile(np.arange(n, dtype=np.int32)[:, None], (1, t)),
         tenant_id=tenant_id,
     )
 
 
 def _synth_groups(cfg: MAMLConfig, shots_buckets, n_requests: int, cap: int,
-                  seed: int) -> List[List[AdaptRequest]]:
+                  seed: int, ingest: str = "f32", store_rows: int = 0
+                  ) -> List[List]:
     """Deterministic traffic as DISPATCH GROUPS: sizes cycle 1..cap and
     each group's shots cycle the configured buckets."""
     rng = np.random.RandomState(seed)
-    groups: List[List[AdaptRequest]] = []
+    groups: List[List] = []
     size, total, g = 1, 0, 0
     while total < n_requests:
         take = min(size, n_requests - total)
         s = shots_buckets[g % len(shots_buckets)]
         groups.append([
-            _synth_request(cfg, rng, s, tenant_id=f"tenant-{total + i}")
+            _synth_request(cfg, rng, s, f"tenant-{total + i}", ingest,
+                           store_rows)
             for i in range(take)
         ])
         total += take
@@ -122,6 +158,11 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--seed", type=int, default=0,
                         help="traffic seed (the snapshot uses the config's "
                              "seed)")
+    parser.add_argument("--ingest", choices=INGESTS, default="f32",
+                        help="what a request carries: f32 pixels, uint8 "
+                             "pixels, or rows of a registered store")
+    parser.add_argument("--store-rows", type=int, default=STORE_ROWS,
+                        help="rows of the synthetic store of --ingest index")
     parser.add_argument("--device", default=None,
                         help="torch device (default cuda:0; 'cpu' runs the "
                              "plain PyTorch ops)")
@@ -136,22 +177,28 @@ def run(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     n_requests = args.requests or (8 if args.fast else 64)
     shots_buckets = bench_shots_buckets(cfg)
     state = init_state(cfg, device=device)
-    engine = ServingEngine(cfg, state, shots_buckets=shots_buckets,
-                           device=device)
+    store_rows = args.store_rows if args.ingest == "index" else 0
+    engine = ServingEngine(
+        cfg, state, shots_buckets=shots_buckets, device=device,
+        ingest=args.ingest,
+        store=(_synth_store(cfg, store_rows, args.seed + 7)
+               if args.ingest == "index" else None))
     warmup_s = engine.warmup()
     groups = _synth_groups(cfg, shots_buckets, n_requests,
-                           engine.max_tenants, args.seed)
+                           engine.max_tenants, args.seed, args.ingest,
+                           store_rows)
     per_dispatch = []
     dispatches = []
-    before = conv_block.launches()
+    before = kernels.launches()
     for group in groups:
-        at = conv_block.launches()
+        at = kernels.launches()
         for dr in serve_requests(engine, group)[1]:
             dispatches.append({"tenants": dr.tenants, "bucket": dr.bucket,
-                               "shots": dr.shots, "adapt_ms": dr.adapt_ms})
-        now = conv_block.launches()
+                               "shots": dr.shots, "adapt_ms": dr.adapt_ms,
+                               "ingest_bytes": dr.ingest_bytes})
+        now = kernels.launches()
         per_dispatch.append({k: now[k] - at[k] for k in now})
-    after = conv_block.launches()
+    after = kernels.launches()
     rollup = engine.rollup()
     return {
         "metric": "serving_adaptation_latency_ms",
@@ -162,6 +209,9 @@ def run(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         "tenants_per_sec": rollup["tenants_per_sec"],
         "dispatches": rollup["dispatches"],
         "tenants": rollup["tenants"],
+        "ingest": rollup["ingest"],
+        "h2d_bytes_per_dispatch": rollup["h2d_bytes_per_dispatch"],
+        "store_rows": store_rows,
         "warmup_seconds": warmup_s,
         "warmup_dispatches": engine.warmup_stats["dispatches"],
         "device": str(device),

@@ -151,7 +151,7 @@ def test_second_order_through_the_block_is_differentiable():
     assert torch.isfinite(ggw).all() and float(ggw.abs().max()) > 0
 
 
-def test_second_order_through_the_block_raises():
+def test_third_derivative_of_the_block_raises():
     """Differentiating the block past what its Functions define raises
     instead of returning a wrong value. Second order is defined (the test
     above); what raises is a derivative of the K5 node, the second-order

@@ -1,7 +1,9 @@
 """The port's hand-written kernels held to their plain twins on an NVIDIA
 card, at small and ragged shapes (odd image sizes, channel counts that do
 not fill a tile), and the block's first and second derivatives on them
-against autograd of the plain block. These need the card: marked ``cuda``, they skip where
+against autograd of the plain block; and the ingest kernel
+``episode_expand`` equal to its twin bit for bit (it is a pure lookup).
+These need the card: marked ``cuda``, they skip where
 ``torch.cuda.is_available()`` is false. On the card (``--noconftest``:
 the suite's conftest imports jax, which the port never needs):
 
@@ -16,6 +18,8 @@ import pytest
 import torch
 
 from howtotrainyourmamlpytorch_tpu_torch.kernels import conv_block as cb
+from howtotrainyourmamlpytorch_tpu_torch.kernels import episode_expand as ee
+from howtotrainyourmamlpytorch_tpu_torch.ops import device_pipeline as dpl
 from howtotrainyourmamlpytorch_tpu_torch.ops import functional as F
 
 pytestmark = pytest.mark.cuda
@@ -151,3 +155,56 @@ def test_wrappers_reject_what_the_kernels_do_not_take(device):
         cb.conv3x3_fwd_stats(x.transpose(2, 3), w, b)
     with pytest.raises(ValueError, match="shape"):
         cb.conv3x3_fwd_stats(x, w[:, :, :, :2], b)
+
+
+# (rows in the store, H = W, C, tasks, classes, columns, support columns)
+EXPAND_SHAPES = [
+    (9, 5, 1, 1, 1, 1, 1),
+    (40, 7, 3, 2, 3, 5, 2),
+    (101, 11, 1, 3, 4, 3, 3),
+    (64, 6, 3, 2, 5, 4, 0),
+]
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("shape", EXPAND_SHAPES, ids=str)
+def test_episode_expand_equals_its_twin(shape, reverse, device):
+    """Every k in 0..3 (and two past the ends, clamped), C in {1, 3}, odd
+    sizes (H*W*C not a multiple of 4: the scalar stores), all-support and
+    all-target splits, and rows outside the store (wrap once, clamp):
+    kernel and twin equal bit for bit, one launch per call."""
+    n, hw, c, tasks, classes, cols, spc = shape
+    g = torch.Generator().manual_seed(n)
+    store = torch.randint(0, 256, (n, hw, hw, c), dtype=torch.uint8,
+                          generator=g).to(device)
+    rows = torch.randint(-2 * n, 2 * n, (tasks, classes, cols),
+                         dtype=torch.int32, generator=g).to(device)
+    rot = (torch.arange(tasks * classes, dtype=torch.int32) % 6 - 1
+           ).reshape(tasks, classes).to(device)
+    lut = torch.randn(256, c, generator=g).to(device)
+    ee.reset_launches()
+    for k in (None, rot):
+        got = ee.gather_decode(store, rows, k, lut, spc, reverse)
+        want = dpl.expand_plain(store, rows, k, lut, spc, reverse)
+        for a, b in zip(got, want):
+            assert a.shape == b.shape and torch.equal(a, b)
+    pixels = store[:3]
+    assert torch.equal(ee.decode(pixels, lut, reverse),
+                       dpl.decode_plain(pixels, lut, reverse))
+    assert ee.launches() == {"episode_expand": 3}
+    torch.cuda.synchronize()
+
+
+def test_episode_expand_rejects_what_it_does_not_take(device):
+    store = torch.zeros(4, 6, 5, 1, dtype=torch.uint8, device=device)
+    rows = torch.zeros(2, 3, dtype=torch.int32, device=device)
+    rot = torch.zeros(2, dtype=torch.int32, device=device)
+    lut = torch.zeros(256, 1, device=device)
+    with pytest.raises(ValueError, match="square"):
+        ee.gather_decode(store, rows, rot, lut, 1)
+    with pytest.raises(ValueError, match="int32"):
+        ee.gather_decode(store, rows.long(), None, lut, 1)
+    with pytest.raises(ValueError, match="lut"):
+        ee.gather_decode(store, rows, None, lut[:, :0], 1)
+    with pytest.raises(ValueError, match="uint8"):
+        ee.decode(store.float(), lut)
