@@ -83,6 +83,13 @@ OMNIGLOT_LAYERS = (("layer1", 28, 1), ("layer2", 14, 64), ("layer3", 7, 64),
                    ("layer4", 3, 64))
 OMNIGLOT_COUT = 64
 OMNIGLOT_IMAGES = 20
+# the strided Omniglot 20-way 1-shot model (the same config with
+# max_pooling=False, the override the JAX command line takes): stride-2
+# convs 28 -> 14 -> 7 -> 4 -> 2, no pool, a global average pool into the
+# (64, 20) head
+STRIDED_LAYERS = (("layer1", 28, 1), ("layer2", 14, 64), ("layer3", 7, 64),
+                  ("layer4", 4, 64))
+STRIDED_ARGS = ("--max_pooling", "false")
 # the index ingest's store: the mini-ImageNet test split, 20 x 600 rows
 STORE_ROWS = 12000
 # episode_expand launches per serve dispatch / train step of each ingest
@@ -137,6 +144,18 @@ REPLACES = {
         "howtotrainyourmamlpytorch_tpu/ops/functional.py:368",
     "episode_expand":
         "howtotrainyourmamlpytorch_tpu/ops/device_pipeline.py:209",
+    "conv3x3_s2_fwd_stats":
+        "howtotrainyourmamlpytorch_tpu/ops/functional.py:249",
+    "bn_act_fwd": "howtotrainyourmamlpytorch_tpu/ops/functional.py:368",
+    "bn_act_bwd": "howtotrainyourmamlpytorch_tpu/ops/functional.py:368",
+    "conv3x3_s2_dgrad": "howtotrainyourmamlpytorch_tpu/ops/functional.py:199",
+    "conv3x3_s2_wgrad": "howtotrainyourmamlpytorch_tpu/ops/functional.py:199",
+    "conv3x3_s2_fwd": "howtotrainyourmamlpytorch_tpu/ops/functional.py:199",
+    "bn_act_bwd_bwd": "howtotrainyourmamlpytorch_tpu/ops/functional.py:368",
+    "global_avg_pool2d_fwd":
+        "howtotrainyourmamlpytorch_tpu/ops/functional.py:357",
+    "global_avg_pool2d_bwd":
+        "howtotrainyourmamlpytorch_tpu/ops/functional.py:357",
 }
 SOURCES = {
     "conv3x3_fwd_stats": (
@@ -164,6 +183,21 @@ SOURCES = {
         "cuda", "howtotrainyourmamlpytorch_tpu_torch/kernels/csrc/"
                 "episode_expand.cu"),
 }
+SOURCES.update({
+    "conv3x3_s2_fwd_stats": SOURCES["conv3x3_fwd_stats"],
+    "conv3x3_s2_fwd": SOURCES["conv3x3_fwd"],
+    "conv3x3_s2_dgrad": SOURCES["conv3x3_dgrad"],
+    "conv3x3_s2_wgrad": SOURCES["conv3x3_wgrad"],
+    "bn_act_fwd": SOURCES["bn_act_pool_fwd"],
+    "bn_act_bwd": SOURCES["bn_act_pool_bwd"],
+    "bn_act_bwd_bwd": SOURCES["bn_act_pool_bwd_bwd"],
+    "global_avg_pool2d_fwd": (
+        "triton", "howtotrainyourmamlpytorch_tpu_torch/kernels/"
+                  "global_avg_pool.py"),
+    "global_avg_pool2d_bwd": (
+        "triton", "howtotrainyourmamlpytorch_tpu_torch/kernels/"
+                  "global_avg_pool.py"),
+})
 # the shape each kernel's line reports (a key of its records)
 REPORT_AT = {
     "conv3x3_fwd_stats": "T=8 layer1 N=75",
@@ -174,6 +208,15 @@ REPORT_AT = {
     "conv3x3_fwd": "T=8 layer2 N=25",
     "bn_act_pool_bwd_bwd": "T=8 layer1 N=25",
     "episode_expand": "(a) mini-ImageNet serve bucket 8",
+    "conv3x3_s2_fwd_stats": "strided T=8 layer2 N=20",
+    "bn_act_fwd": "strided T=8 layer1 N=20",
+    "bn_act_bwd": "strided T=8 layer1 N=20",
+    "conv3x3_s2_dgrad": "strided T=8 layer2 N=20",
+    "conv3x3_s2_wgrad": "strided T=8 layer2 N=20",
+    "conv3x3_s2_fwd": "strided T=8 layer2 N=20",
+    "bn_act_bwd_bwd": "strided T=8 layer1 N=20",
+    "global_avg_pool2d_fwd": "strided T=8 layer4 N=20",
+    "global_avg_pool2d_bwd": "strided T=8 layer4 N=20",
 }
 TRAIN_TASKS = (2, 8)  # the config's batch, and bench.py's per-chip default
 DEVICE = "cuda:0"
@@ -440,6 +483,152 @@ def check_train_kernels(cb, F, records, tasks=TRAIN_TASKS, layers=LAYERS,
             torch.cuda.empty_cache()
 
 
+def _bn_errs(what, got, want, outs, label, scaled_atol=False):
+    """Each output against its twin's; returns the largest error."""
+    errs = [max_err(f"{what} {o}", g, p, scaled_atol)
+            for o, g, p in zip(outs, got, want)]
+    if scaled_atol:
+        print(f"  {what} @ {label}: " + ", ".join(
+            f"{o} err {e:.3e} of max |twin| {p.abs().max().item():.3e}"
+            for o, e, p in zip(outs, errs, want)), flush=True)
+    return max(errs)
+
+
+def check_strided_kernels(cb, F, records, T=T_TENANTS, n=OMNIGLOT_IMAGES,
+                          C=OMNIGLOT_COUT):
+    """Phase 3, the strided model's kernels at its four layers (T = 8
+    tasks, N = 20 images, cout 64): K1 at stride 2 with statistics and
+    stats-free, the pool-free K2, K3 and K5 on its output, K4 dgrad
+    (layers 2-4) and wgrad at stride 2, and the global average pool's
+    forward and backward on layer 4's activation (T, N, 2, 2, 64). Each
+    against its twin, timed beside it and beside one PyTorch call where
+    one computes the same function (grouped ``conv2d`` / ``conv2d_input``
+    / ``conv2d_weight`` at stride 2; ``mean`` over H, W)."""
+    rec = records.add
+    randn = _randn(torch.Generator(device="cuda").manual_seed(11))
+    nn = torch.nn
+    for layer, hw, cin in STRIDED_LAYERS:
+        label = f"strided T={T} {layer} N={n}"
+        H = W = hw
+        Ho = Wo = (hw - 1) // 2 + 1
+        M = n * Ho * Wo
+        x = randn(T, n, H, W, cin)
+        w = randn(T, 3, 3, cin, C, scale=math.sqrt(2.0 / (9 * cin)))
+        b = randn(T, C, scale=0.1)
+        gamma = 1.0 + randn(T, C, scale=0.1)
+        beta = randn(T, C, scale=0.1)
+        xl = _nchw_tenants(x)
+        wl = w.permute(0, 4, 3, 1, 2).reshape(T * C, cin, 3, 3).contiguous()
+        bl = b.reshape(-1).contiguous()
+        conv_flops = 2 * T * M * 9 * cin * C
+        # K1 at stride 2, with statistics and stats-free
+        got = cb.conv3x3_fwd_stats(x, w, b, stride=2)
+        want = F.conv3x3_fwd_stats(x, w, b, stride=2)
+        y, mean, _, rstd = want
+        err = _bn_errs("conv3x3_s2_fwd_stats", got, want,
+                       ("y", "mean", "var", "rstd"), label)
+        rec("conv3x3_s2_fwd_stats", label, err,
+            lambda: cb.conv3x3_fwd_stats(x, w, b, stride=2),
+            lambda: F.conv3x3_fwd_stats(x, w, b, stride=2),
+            lambda: nn.functional.conv2d(xl, wl, bl, stride=2, padding=1,
+                                         groups=T),
+            conv_flops + T * M * C,
+            4 * (x.numel() + w.numel() + b.numel() + y.numel() + 3 * T * C))
+        err = max(max_err("conv3x3_s2_fwd", cb.conv3x3_fwd(x, w, b, 2),
+                          F.conv3x3(x, w, b, stride=2)),
+                  max_err("conv3x3_s2_fwd (no bias)",
+                          cb.conv3x3_fwd(x, w, None, 2),
+                          F.conv3x3(x, w, stride=2)))
+        rec("conv3x3_s2_fwd", label, err,
+            lambda: cb.conv3x3_fwd(x, w, b, 2),
+            lambda: F.conv3x3(x, w, b, stride=2),
+            lambda: nn.functional.conv2d(xl, wl, bl, stride=2, padding=1,
+                                         groups=T),
+            conv_flops, 4 * (x.numel() + w.numel() + b.numel() + y.numel()))
+        # the pool-free K2, K3, K5 on K1's output
+        bn = (y, mean, rstd, gamma, beta)
+        err = max_err("bn_act_fwd", cb.bn_act_fwd(*bn), F.bn_act_fwd(*bn))
+        rec("bn_act_fwd", label, err, lambda: cb.bn_act_fwd(*bn),
+            lambda: F.bn_act_fwd(*bn), None, 6 * y.numel(),
+            4 * (2 * y.numel() + 4 * T * C))
+        da = randn(*y.shape, scale=1.0 / math.sqrt(y.numel()))
+        err = _bn_errs("bn_act_bwd", cb.bn_act_bwd(da, *bn),
+                       F.bn_act_bwd(da, *bn), ("dy", "dgamma", "dbeta"),
+                       label)
+        rec("bn_act_bwd", label, err, lambda: cb.bn_act_bwd(da, *bn),
+            lambda: F.bn_act_bwd(da, *bn), None, 16 * y.numel(),
+            4 * (3 * y.numel() + 6 * T * C))
+        dy = F.bn_act_bwd(da, *bn)[0]
+        # K5 with every cotangent at unit scale, then with g_gamma =
+        # g_beta = 0 (g_da is then the projection term alone); each output
+        # gated on its own scale, its ATOL shrunk with it
+        a, db_ = randn(*y.shape), randn(*y.shape)
+        args = (a, randn(T, C), randn(T, C), db_, *bn)
+        zero = torch.zeros(T, C, device="cuda")
+        err = max(
+            _bn_errs(f"bn_act_bwd_bwd{case}", cb.bn_act_bwd_bwd(*case_args),
+                     F.bn_act_bwd_bwd(*case_args), ("g_da", "g_y",
+                                                    "g_gamma"),
+                     label, scaled_atol=True)
+            for case, case_args in (("", args), (" (g_gamma = g_beta = 0)",
+                                                 (a, zero, zero) + args[3:])))
+        rec("bn_act_bwd_bwd", label, err, lambda: cb.bn_act_bwd_bwd(*args),
+            lambda: F.bn_act_bwd_bwd(*args), None, 42 * y.numel(),
+            4 * (5 * y.numel() + 7 * T * C))
+        dyl = _nchw_tenants(dy)
+        # K4 at stride 2: dgrad at layers 2-4 (layer 1's input is the
+        # images); bound: the useful FLOPs, the forward's
+        if cin == C:
+            err = max_err("conv3x3_s2_dgrad",
+                          cb.conv3x3_dgrad(dy, w, 2, (H, W)),
+                          F.conv3x3_dgrad(dy, w, 2, (H, W)))
+            rec("conv3x3_s2_dgrad", label, err,
+                lambda: cb.conv3x3_dgrad(dy, w, 2, (H, W)),
+                lambda: F.conv3x3_dgrad(dy, w, 2, (H, W)),
+                lambda: nn.grad.conv2d_input(xl.shape, wl, dyl, stride=2,
+                                             padding=1, groups=T),
+                conv_flops, 4 * (dy.numel() + w.numel() + x.numel()))
+        err = _bn_errs("conv3x3_s2_wgrad", cb.conv3x3_wgrad(x, dy, 2),
+                       F.conv3x3_wgrad(x, dy, 2), ("dw", "db"), label)
+        rec("conv3x3_s2_wgrad", label, err,
+            lambda: cb.conv3x3_wgrad(x, dy, 2),
+            lambda: F.conv3x3_wgrad(x, dy, 2),
+            lambda: nn.grad.conv2d_weight(xl, wl.shape, dyl, stride=2,
+                                          padding=1, groups=T),
+            conv_flops + T * M * C,
+            4 * (x.numel() + dy.numel() + w.numel() + T * C))
+        if layer == STRIDED_LAYERS[-1][0]:
+            act = F.bn_act_fwd(*bn)
+            err = max_err("global_avg_pool2d_fwd",
+                          cb.global_avg_pool2d_fwd(act),
+                          F.global_avg_pool2d(act))
+            rec("global_avg_pool2d_fwd", label, err,
+                lambda: cb.global_avg_pool2d_fwd(act),
+                lambda: F.global_avg_pool2d(act),
+                lambda: act.mean(dim=(-3, -2)), act.numel(),
+                4 * (act.numel() + T * n * C))
+            g = randn(T, n, C)
+            err = max_err("global_avg_pool2d_bwd",
+                          cb.global_avg_pool2d_bwd(g, Ho, Wo),
+                          F.global_avg_pool2d_bwd(g, Ho, Wo))
+            rec("global_avg_pool2d_bwd", label, err,
+                lambda: cb.global_avg_pool2d_bwd(g, Ho, Wo),
+                lambda: F.global_avg_pool2d_bwd(g, Ho, Wo), None,
+                act.numel(), 4 * (act.numel() + g.numel()))
+            # launch-bound: the event times above include the wrapper's
+            # host time; the profiler gives the kernels' own
+            for kernel, fn in (
+                    ("_gap_fwd_kernel", lambda: cb.global_avg_pool2d_fwd(act)),
+                    ("_gap_bwd_kernel",
+                     lambda: cb.global_avg_pool2d_bwd(g, Ho, Wo))):
+                ms = device_ms(fn, kernel)
+                print(f"  {kernel} @ {label}: device time "
+                      f"{'not measured' if ms is None else f'{ms:.4f} ms'} "
+                      "per launch (profiler)", flush=True)
+        del x, y, dy, a, db_, args, xl, dyl
+        torch.cuda.empty_cache()
+
+
 def _expand_inputs(cfg, rows_shape, store_rows, gen, rotate=False):
     """A store of ``store_rows`` random bytes, ``rows_shape`` int32 rows in
     it, and (when rotating) rot90 draws with all four k present, on the
@@ -580,68 +769,117 @@ def _block_errs(what, got, want, names):
           + f" (largest entry {scale:.3e})", flush=True)
 
 
-def _block_inputs(seed):
-    """Layer-2 block inputs at the main path's support shape (8 tasks,
-    5-shot support): x, w, b, gamma, beta, and the generator."""
+def _block_inputs(seed, x_shape=(T_TENANTS, 25, 42, 42, COUT), cout=COUT):
+    """Block inputs, by default at layer 2 of the main path's support
+    shape (8 tasks, 5-shot support): x, w, b, gamma, beta, and the
+    generator."""
     randn = _randn(torch.Generator(device="cuda").manual_seed(seed))
+    T, cin = x_shape[0], x_shape[-1]
     return randn, [
-        randn(T_TENANTS, 25, 42, 42, COUT),
-        randn(T_TENANTS, 3, 3, COUT, COUT, scale=math.sqrt(2.0 / (9 * COUT))),
-        randn(T_TENANTS, COUT, scale=0.1),
-        1.0 + randn(COUT, scale=0.1),
-        randn(COUT, scale=0.1),
+        randn(*x_shape),
+        randn(T, 3, 3, cin, cout, scale=math.sqrt(2.0 / (9 * cin))),
+        randn(T, cout, scale=0.1),
+        1.0 + randn(cout, scale=0.1),
+        randn(cout, scale=0.1),
     ]
 
 
-def check_block_autograd(cb, F):
-    """The block's first derivative on the kernels (K3, K4) against
-    autograd of the plain block, at layer-2 shapes, against a unit-scale
-    random cotangent."""
-    randn, inputs = _block_inputs(1)
+def _strided_block_cases():
+    """The strided model's block checks: layer 2 (14 -> 7, pool-free) and
+    layer 4 (4 -> 2) with the global average pool, 8 tasks, 20 images."""
+    x2 = (T_TENANTS, OMNIGLOT_IMAGES, 14, 14, OMNIGLOT_COUT)
+    x4 = (T_TENANTS, OMNIGLOT_IMAGES, 4, 4, OMNIGLOT_COUT)
+    kw = dict(stride=2, pool=False)
+    return (("strided layer 2", x2, kw),
+            ("strided layer 4 + GAP", x4, {**kw, "gap": True}))
+
+
+def check_block_autograd(cb, F, x_shape=(T_TENANTS, 25, 42, 42, COUT),
+                         kw=None, what="block"):
+    """The block's first derivative on the kernels (K3, K4; with ``kw``
+    the strided block's modes) against autograd of the plain block, by
+    default at layer-2 shapes, against a unit-scale random cotangent."""
+    kw = kw or {}
+    randn, inputs = _block_inputs(1, x_shape, x_shape[-1])
     ct, grads = None, []
     for fn in (cb.conv_bn_act_pool, F.conv_bn_act_pool):
         leaves = [t.clone().requires_grad_(True) for t in inputs]
-        pooled, _, _ = fn(*leaves)
+        out, _, _ = fn(*leaves, **kw)
         if ct is None:
-            ct = randn(*pooled.shape)
-        grads.append(torch.autograd.grad((pooled * ct).sum(), leaves))
-    _block_errs("block first derivative", *grads,
+            ct = randn(*out.shape)
+        grads.append(torch.autograd.grad((out * ct).sum(), leaves))
+    _block_errs(f"{what} first derivative", *grads,
                 ("x", "w", "b", "gamma", "beta"))
 
 
-def check_block_double_backward(cb, F):
+def check_block_double_backward(cb, F,
+                                x_shape=(T_TENANTS, 25, 42, 42, COUT),
+                                kw=None, what="block"):
     """The block's second derivative on the card: a scalar function of the
     block's first gradients (each against a unit-scale random cotangent),
     differentiated again, on the kernels (K3's backward K5, the conv
-    closure on K1 stats-free and K4) against autograd of the plain block,
-    at layer-2 shapes (8 tasks, 5-shot support)."""
-    randn, inputs = _block_inputs(5)
+    closure on K1 stats-free and K4; with ``kw`` the strided block's
+    modes) against autograd of the plain block, by default at layer-2
+    shapes (8 tasks, 5-shot support)."""
+    kw = kw or {}
+    randn, inputs = _block_inputs(5, x_shape, x_shape[-1])
     ct, results = None, []
     for fn in (cb.conv_bn_act_pool, F.conv_bn_act_pool):
         leaves = [t.clone().requires_grad_(True) for t in inputs]
-        pooled, _, _ = fn(*leaves)
+        out, _, _ = fn(*leaves, **kw)
         if ct is None:
-            ct = randn(*pooled.shape)
+            ct = randn(*out.shape)
             cts = [randn(*t.shape) for t in leaves[:4]]
-        first = torch.autograd.grad((pooled * ct).sum(), leaves[:4],
+        first = torch.autograd.grad((out * ct).sum(), leaves[:4],
                                     create_graph=True)
         scalar = sum((g * c).sum() for g, c in zip(first, cts))
         results.append(torch.autograd.grad(scalar, leaves[:4]))
-    _block_errs("block second derivative", *results,
+    _block_errs(f"{what} second derivative", *results,
                 ("x", "w", "b", "gamma"))
 
 
+# role -> (the max-pooling model's kernel, the strided model's)
+ROLE_KERNELS = {
+    "fwd_stats": ("conv3x3_fwd_stats", "conv3x3_s2_fwd_stats"),
+    "act_fwd": ("bn_act_pool_fwd", "bn_act_fwd"),
+    "act_bwd": ("bn_act_pool_bwd", "bn_act_bwd"),
+    "dgrad": ("conv3x3_dgrad", "conv3x3_s2_dgrad"),
+    "wgrad": ("conv3x3_wgrad", "conv3x3_s2_wgrad"),
+    "fwd": ("conv3x3_fwd", "conv3x3_s2_fwd"),
+    "act_bwd_bwd": ("bn_act_pool_bwd_bwd", "bn_act_bwd_bwd"),
+}
+GAP_KERNELS = ("global_avg_pool2d_fwd", "global_avg_pool2d_bwd")
+
+
+def _by_kernel(cfg, per_role, gap_fwd, gap_bwd):
+    """Launches per kernel name of the block kernels, from launches per
+    role: the max-pooling model's kernels, or the strided model's
+    (``conv3x3_s2_*``, the pool-free ``bn_act_*``) with its global
+    average pool; every other kernel 0."""
+    strided = not cfg.max_pooling
+    out = {name: 0 for pair in ROLE_KERNELS.values() for name in pair}
+    for role, n in per_role.items():
+        out[ROLE_KERNELS[role][strided]] = n
+    out[GAP_KERNELS[0]] = gap_fwd if strided else 0
+    out[GAP_KERNELS[1]] = gap_bwd if strided else 0
+    return out
+
+
 def expected_launches(cfg):
+    """Block-kernel launches of one serve dispatch (first order, the eval
+    steps S, B blocks), either model. The strided model adds the global
+    average pool: forward once per support and target forward, backward
+    once per support backward."""
     steps, stages = cfg.number_of_evaluation_steps_per_iter, cfg.num_stages
-    return {
-        "conv3x3_fwd_stats": 2 * steps * stages,  # support + target forward
-        "bn_act_pool_fwd": 2 * steps * stages,
-        "bn_act_pool_bwd": steps * stages,        # support backward only
-        "conv3x3_dgrad": steps * (stages - 1),    # not for the images
-        "conv3x3_wgrad": steps * stages,
-        "conv3x3_fwd": 0,                         # second order only
-        "bn_act_pool_bwd_bwd": 0,
-    }
+    return _by_kernel(cfg, {
+        "fwd_stats": 2 * steps * stages,  # support + target forward
+        "act_fwd": 2 * steps * stages,
+        "act_bwd": steps * stages,        # support backward only
+        "dgrad": steps * (stages - 1),    # not for the images
+        "wgrad": steps * stages,
+        "fwd": 0,                         # second order only
+        "act_bwd_bwd": 0,
+    }, gap_fwd=2 * steps, gap_bwd=steps)
 
 
 def expected_serve_launches(cfg, ingest):
@@ -678,29 +916,40 @@ def expected_train_launches(cfg, second_order):
       wgrad 4 (3 at block 1), dgrad 4 (0 at block 1), K1 stats-free 2 (1 at
       block 1), K5 1.
 
+    The strided model (``max_pooling=False``) runs the same graph on the
+    stride-2 conv kernels and the pool-free K2/K3/K5, so the same counts
+    fall on those names; its global average pool (after the last block
+    only) adds, per inner step: the forward once per support and target
+    forward (2), the backward (``GapBwd``) once in the inner support
+    backward; first order, the backward once more in the outer pass (the
+    target's) — forward 2, backward 2; second order, the outer pass runs
+    the backward of both forwards' ``Gap`` nodes (backward 2 more) and the
+    backward of the inner ``GapBwd`` node, which is ``Gap`` (forward 1
+    more) — forward 3, backward 3.
+
     ``tests/test_torch_train.py`` counts the same calls on the CPU through
     the twins and holds them to this formula."""
     s, b = cfg.number_of_training_steps_per_iter, cfg.num_stages
     if second_order:
-        per_step = {
-            "conv3x3_fwd_stats": 2 * s * b,
-            "bn_act_pool_fwd": 2 * s * b,
-            "bn_act_pool_bwd": 3 * s * b,
-            "conv3x3_dgrad": 4 * s * (b - 1),
-            "conv3x3_wgrad": s * (4 * b - 1),
-            "conv3x3_fwd": s * (2 * b - 1),
-            "bn_act_pool_bwd_bwd": s * b,
-        }
+        per_step = _by_kernel(cfg, {
+            "fwd_stats": 2 * s * b,
+            "act_fwd": 2 * s * b,
+            "act_bwd": 3 * s * b,
+            "dgrad": 4 * s * (b - 1),
+            "wgrad": s * (4 * b - 1),
+            "fwd": s * (2 * b - 1),
+            "act_bwd_bwd": s * b,
+        }, gap_fwd=3 * s, gap_bwd=3 * s)
     else:
-        per_step = {
-            "conv3x3_fwd_stats": 2 * s * b,
-            "bn_act_pool_fwd": 2 * s * b,
-            "bn_act_pool_bwd": 2 * s * b,
-            "conv3x3_dgrad": 2 * s * (b - 1),
-            "conv3x3_wgrad": 2 * s * b,
-            "conv3x3_fwd": 0,
-            "bn_act_pool_bwd_bwd": 0,
-        }
+        per_step = _by_kernel(cfg, {
+            "fwd_stats": 2 * s * b,
+            "act_fwd": 2 * s * b,
+            "act_bwd": 2 * s * b,
+            "dgrad": 2 * s * (b - 1),
+            "wgrad": 2 * s * b,
+            "fwd": 0,
+            "act_bwd_bwd": 0,
+        }, gap_fwd=2 * s, gap_bwd=2 * s)
     return {k: v * cfg.meta_accum_steps for k, v in per_step.items()}
 
 
@@ -806,11 +1055,12 @@ def check_against_plain(cfg, F):
         )
 
 
-def profile_dispatch(cfg, ingest="f32", small=True):
+def profile_dispatch(cfg, ingest="f32", small=True, store_rows=STORE_ROWS):
     """Phase 5c: where a dispatch spends its time — ``torch.profiler``
     over one warm bucket-8 (and with ``small`` one warm bucket-1) dispatch
-    of ``ingest``: device time by kernel and the device's busy share of
-    the dispatch's wall time."""
+    of ``ingest`` (the index ingest from a store of ``store_rows``): device
+    time by kernel and the device's busy share of the dispatch's wall
+    time."""
     from torch.profiler import ProfilerActivity, profile
 
     from howtotrainyourmamlpytorch_tpu_torch.serving import bench
@@ -820,7 +1070,7 @@ def profile_dispatch(cfg, ingest="f32", small=True):
     from howtotrainyourmamlpytorch_tpu_torch.state import init_state
 
     shots_buckets = bench.bench_shots_buckets(cfg)
-    rows = STORE_ROWS if ingest == "index" else 0
+    rows = store_rows if ingest == "index" else 0
     groups = bench._synth_groups(cfg, shots_buckets, 36, 8, 0, ingest, rows)
     engine = ServingEngine(
         cfg, init_state(cfg, device="cuda:0"), shots_buckets,
@@ -857,29 +1107,31 @@ def _profile_report(prof, wall_ms, what):
 
 
 def run_train_bench(ks, cfg, batch_size, config=FLAGSHIP, name="mini-ImageNet "
-                    "5-way 5-shot", placement=None):
-    """Phase 5, a training main path: ``train-bench`` at ``config``, second
-    order from epoch 0, its batches through the data tier ``placement``
-    (None: one fixed batch); every timed step's launches equal
-    ``expected_step_launches`` and the run's totals equal it times the
-    steps. Returns (JSON line, launch counts over the run)."""
+                    "5-way 5-shot", placement=None, extra=()):
+    """Phase 5, a training main path: ``train-bench`` at ``config`` (with
+    the ``extra`` arguments: a config override), second order from epoch
+    0, its batches through the data tier ``placement`` (None: one fixed
+    batch); every timed step's launches equal ``expected_step_launches``
+    of ``cfg`` and the run's totals equal it times the steps. Returns
+    (JSON line, launch counts over the run)."""
     from howtotrainyourmamlpytorch_tpu_torch import bench as train_bench
 
     warmup, steps = 2, 5
     tier = [] if placement is None else ["--data-placement", placement]
     print(f"[train] train-bench --config {name} --batch-size {batch_size} "
-          f"--epoch 0 --warmup {warmup} --steps {steps} {' '.join(tier)}",
-          flush=True)
+          f"--epoch 0 --warmup {warmup} --steps {steps} "
+          f"{' '.join(tier + list(extra))}", flush=True)
     ks.reset_launches()
     line = train_bench.run([
         "--config", config, "--batch-size", str(batch_size), "--epoch",
         "0", "--warmup", str(warmup), "--steps", str(steps), "--seed", "0",
-        "--device", DEVICE] + tier)
+        "--device", DEVICE] + tier + list(extra))
     counts = ks.launches()
     print(json.dumps(line), flush=True)
     expected = expected_step_launches(cfg.replace(batch_size=batch_size),
                                       placement)
-    if not line["second_order"] or line["batch_size"] != batch_size:
+    if (not line["second_order"] or line["batch_size"] != batch_size
+            or line["max_pooling"] != cfg.max_pooling):
         raise AssertionError(f"train-bench ran {line}")
     for i, got in enumerate(line["kernel_launches_per_step"]):
         if got != expected:
@@ -1103,18 +1355,23 @@ def check_grads_full_width(cfg, F, seeds):
 
 def _recording_kernel_block(cb, log):
     """``conv_block.function_block`` that also appends each call's
-    discrete decisions to ``log``: the window argmax of every pooled
-    element (K2's output) and whether the pooled value (the leaky-ReLU
-    output at that argmax) is >= 0."""
-    def block(x, w, b, gamma, beta, stats_impl="twopass"):
+    discrete decisions to ``log``: with the max pool, the window argmax of
+    every pooled element (K2's output) and whether the pooled value (the
+    leaky-ReLU output at that argmax) is >= 0; pool-free (the strided
+    model), no argmax (None) and the sign of every activation."""
+    def block(x, w, b, gamma, beta, stats_impl="twopass", stride=1,
+              pool=True, gap=False):
         T, cout = x.shape[0], w.shape[-1]
         y, mean, var, rstd = cb.Conv3x3.apply(
-            x.contiguous(), w.contiguous(), b.contiguous(), True)
-        pooled, arg = cb.BnActPool.apply(
+            x.contiguous(), w.contiguous(), b.contiguous(), True, stride)
+        out = cb.BnActPool.apply(
             y, gamma.expand(T, cout).contiguous(),
-            beta.expand(T, cout).contiguous(), mean, rstd)
-        log.append((arg, pooled.detach() >= 0))
-        return pooled, mean, var
+            beta.expand(T, cout).contiguous(), mean, rstd, pool)
+        out, arg = out if pool else (out, None)
+        log.append((arg, out.detach() >= 0))
+        if gap:
+            out = cb.Gap.apply(out)
+        return out, mean, var
     return block
 
 
@@ -1124,16 +1381,28 @@ def _plain_block(F, log, replay=False):
     appends the decisions to ``log`` as ``_recording_kernel_block`` does.
     Replaying: the pool takes the argmax, and the leaky-ReLU the sign, that
     the next entry of ``log`` recorded, whatever this run's own values say,
-    so the run follows the recorded run's piecewise-linear path."""
+    so the run follows the recorded run's piecewise-linear path. Pool-free
+    (the strided model) the signs alone."""
     entries = iter(log)
 
-    def block(x, w, b, gamma, beta, stats_impl="twopass"):
-        y = F.conv2d(x, w, b, 1, 1)
+    def block(x, w, b, gamma, beta, stats_impl="twopass", stride=1,
+              pool=True, gap=False):
+        y = F.conv2d(x, w, b, stride, 1)
         mean, var = F.batch_stats(y, stats_impl)
         inv = torch.rsqrt(var + F.BN_EPS).to(y.dtype)
         z = (y - F._per_channel(mean, y)) * F._per_channel(inv, y)
         z = z * F._per_channel(gamma.to(y.dtype), y) + F._per_channel(
             beta.to(y.dtype), y)
+        if not pool:
+            if replay:
+                _, positive = next(entries)
+            else:
+                positive = z >= 0
+                log.append((None, positive))
+            out = torch.where(positive, z, F.LEAKY_SLOPE * z)
+            if gap:
+                out = F.global_avg_pool2d(out)
+            return out, mean.detach(), var.detach()
         win = F._windows(z)
         if replay:
             arg, positive = next(entries)
@@ -1177,7 +1446,8 @@ def _decision_flips(cfg, cb, F, batch):
             vgg.apply(cfg, net, state.bn, x if dtype is None
                       else x.to(dtype), 0, block=block)
         logs[name] = log
-    return {name: sum(int((a != a64).sum()) + int((p != p64).sum())
+    return {name: sum((0 if a is None else int((a != a64).sum()))
+                      + int((p != p64).sum())
                       for (a, p), (a64, p64) in zip(logs[name], logs["f64"]))
             for name in ("kernels", "plain")}
 
@@ -1278,17 +1548,19 @@ def check_grads_replayed(cfg, cb, F, seeds):
                              + ", ".join(failures))
 
 
-def check_learning(config=FLAGSHIP, batch_size=2):
+def check_learning(config=FLAGSHIP, batch_size=2, extra=()):
     """Phase 5: 10 second-order steps on one fixed full-width batch at the
-    config's meta LR; the loss of the last step is below the first's."""
+    config's meta LR (``extra``: a config override); the loss of the last
+    step is below the first's."""
     from howtotrainyourmamlpytorch_tpu_torch import bench as train_bench
 
     line = train_bench.run([
         "--config", config, "--batch-size", str(batch_size), "--epoch", "0",
         "--warmup", "0", "--steps", "10", "--seed", "1", "--device",
-        DEVICE])
+        DEVICE] + list(extra))
     losses = line["loss"]
-    print(f"  {config.split('/')[-1]}: 10 steps on one batch of "
+    print(f"  {config.split('/')[-1]} {' '.join(extra)}: 10 steps on one "
+          f"batch of "
           f"{batch_size} at lr {line['lr']}: loss "
           f"{[round(v, 5) for v in losses]}", flush=True)
     if not losses[-1] < losses[0]:
@@ -1335,19 +1607,22 @@ def profile_train_step(cfg, batch_size=2, placement=None):
                     f" ({placement or 'fixed batch'})")
 
 
-def run_serve_bench(ks, cfg, ingest):
-    """Phase 4, a serving main path: ``serve-bench`` at the flagship with
-    ``ingest``, 16 requests; every dispatch's launches equal
-    ``expected_serve_launches`` and the run's totals (warmup included)
-    equal it times the dispatches. Returns (JSON line, launch counts)."""
+def run_serve_bench(ks, cfg, ingest, config=FLAGSHIP,
+                    name="mini-ImageNet 5-way 5-shot",
+                    extra=("--store-rows", str(STORE_ROWS))):
+    """Phase 4, a serving main path: ``serve-bench`` at ``config`` (with
+    the ``extra`` arguments) with ``ingest``, 16 requests; every
+    dispatch's launches equal ``expected_serve_launches`` of ``cfg`` and
+    the run's totals (warmup included) equal it times the dispatches.
+    Returns (JSON line, launch counts)."""
     from howtotrainyourmamlpytorch_tpu_torch.serving import bench
 
-    print(f"[serve] serve-bench --config mini-ImageNet 5-way 5-shot "
-          f"--requests 16 --seed 0 --ingest {ingest}", flush=True)
+    print(f"[serve] serve-bench --config {name} --requests 16 --seed 0 "
+          f"--ingest {ingest} {' '.join(extra)}", flush=True)
     ks.reset_launches()
-    line = bench.run(["--config", FLAGSHIP, "--requests", "16", "--seed",
-                      "0", "--device", DEVICE, "--ingest", ingest,
-                      "--store-rows", str(STORE_ROWS)])
+    line = bench.run(["--config", config, "--requests", "16", "--seed",
+                      "0", "--device", DEVICE, "--ingest", ingest]
+                     + list(extra))
     counts = ks.launches()
     print(json.dumps(line), flush=True)
     expected = expected_serve_launches(cfg, ingest)
@@ -1365,18 +1640,19 @@ def run_serve_bench(ks, cfg, ingest):
             )
     tps = line["tenants_per_sec"]
     if not (line["tenants"] == 16 and tps and math.isfinite(tps)
-            and line["ingest"] == ingest):
+            and line["ingest"] == ingest
+            and line["max_pooling"] == cfg.max_pooling):
         raise AssertionError(f"serve-bench line is incomplete: {line}")
-    print(f"[serve] {ingest}: tenants_per_sec {tps}  adapt_ms p50 "
+    print(f"[serve] {name} {ingest}: tenants_per_sec {tps}  adapt_ms p50 "
           f"{line['adaptation_latency_ms_p50']}  p95 "
           f"{line['adaptation_latency_ms_p95']}  h2d_bytes_per_dispatch "
           f"{line['h2d_bytes_per_dispatch']}  launches {counts}", flush=True)
     return line, counts
 
 
-def check_index_bit_identical(cfg):
-    """Phase 4: one bucket-8 index-ingest dispatch (8 tenants, 5 shots,
-    rows of the 12,000-row store) against the f32 dispatch fed the
+def check_index_bit_identical(cfg, store_rows=STORE_ROWS):
+    """Phase 4: one bucket-8 index-ingest dispatch (8 tenants, the config's
+    shots, rows of a ``store_rows`` store) against the f32 dispatch fed the
     host-decoded pixels of the same rows (the port's host pipeline,
     ``decode_cached`` + ``augment_stack``), both on the kernels: preds and
     loss must be bit-identical, in every repetition. Every kernel is
@@ -1400,10 +1676,10 @@ def check_index_bit_identical(cfg):
     )
     from howtotrainyourmamlpytorch_tpu_torch.state import init_state
 
-    store = bench._synth_store(cfg, STORE_ROWS, 3)
+    store = bench._synth_store(cfg, store_rows, 3)
     shots, n = cfg.num_samples_per_class, cfg.num_classes_per_set
     group = bench._synth_groups(cfg, [shots], 36, 8, 5, "index",
-                                STORE_ROWS)[-1]
+                                store_rows)[-1]
 
     def host_pixels(rows):
         x = decode_cached(cfg, store[rows.reshape(-1)])
@@ -1458,10 +1734,16 @@ def main() -> int:
     parser.add_argument(
         "--omniglot-grad-seeds", default=",".join(map(str, GRAD_SEEDS)),
         help="the same for the Omniglot 20-way 1-shot model")
+    parser.add_argument(
+        "--strided-grad-seeds", default=",".join(map(str, GRAD_SEEDS)),
+        help="data seeds of the replayed-path meta-gradient check of the "
+             "strided Omniglot model")
     args = parser.parse_args()
     seeds = tuple(int(v) for v in args.grad_seeds.split(","))
     omniglot_seeds = tuple(int(v) for v in
                            args.omniglot_grad_seeds.split(","))
+    strided_seeds = tuple(int(v) for v in
+                          args.strided_grad_seeds.split(","))
     card = card_line()
     print(card, flush=True)
     if not torch.cuda.is_available():
@@ -1483,6 +1765,9 @@ def main() -> int:
     )
     from howtotrainyourmamlpytorch_tpu_torch.ops import device_pipeline as dp
     from howtotrainyourmamlpytorch_tpu_torch.ops import functional as F
+    from howtotrainyourmamlpytorch_tpu_torch.serving import (
+        bench as serve_bench,
+    )
 
     resolve_device("cuda:0")  # TF32 off for the plain versions too
     print(f"[build] {build.timed_build():.2f} s into {build.build_dir()}",
@@ -1494,6 +1779,7 @@ def main() -> int:
 
     cfg = MAMLConfig.from_json_file(FLAGSHIP)
     omniglot = MAMLConfig.from_json_file(OMNIGLOT)
+    strided = omniglot.replace(max_pooling=False)
     all_kernels = cb.KERNELS + ee.KERNELS
     print("[kernels] each kernel vs its plain twin on the card", flush=True)
     t0 = time.perf_counter()
@@ -1509,6 +1795,12 @@ def main() -> int:
     check_episode_expand(ee, dp, records, cfg, omniglot)
     check_block_autograd(cb, F)
     check_block_double_backward(cb, F)
+    print("[kernels] the strided model's kernels (stride-2 K1/K4, "
+          "pool-free K2/K3/K5, GAP) at its four layers", flush=True)
+    check_strided_kernels(cb, F, records)
+    for what, x_shape, kw in _strided_block_cases():
+        check_block_autograd(cb, F, x_shape, kw, what)
+        check_block_double_backward(cb, F, x_shape, kw, what)
     print(f"[kernels] {time.perf_counter() - t0:.1f} s", flush=True)
 
     main_counts = {k: 0 for k in all_kernels}
@@ -1561,6 +1853,35 @@ def main() -> int:
     print(f"[train] {omniglot_name} full-width meta-gradients", flush=True)
     check_grads_replayed(omniglot, cb, F, omniglot_seeds)
     check_grads_full_width(omniglot, F, omniglot_seeds)
+
+    # the strided model (max_pooling=False): serving and training
+    t0 = time.perf_counter()
+    strided_name = f"{omniglot_name} strided"
+    store_rows = serve_bench.serving_store_rows(strided)
+    for ingest in ("f32", "index"):
+        _, counts = run_serve_bench(ks, strided, ingest, OMNIGLOT,
+                                    strided_name, STRIDED_ARGS)
+        for k, v in counts.items():
+            main_counts[k] += v
+        torch.cuda.empty_cache()
+    print("[serve] strided: the serve step vs the plain serve step; index "
+          "vs f32 on the same pixels", flush=True)
+    check_small_against_plain(strided, F)
+    check_against_plain(strided, F)
+    check_index_bit_identical(strided, store_rows)
+    profile_dispatch(strided, "index", small=False, store_rows=store_rows)
+    _, counts = run_train_bench(ks, strided, strided.batch_size, OMNIGLOT,
+                                strided_name, "device", STRIDED_ARGS)
+    for k, v in counts.items():
+        main_counts[k] += v
+    torch.cuda.empty_cache()
+    print("[train] strided: learning check, profile, meta-gradients",
+          flush=True)
+    check_learning(OMNIGLOT, strided.batch_size, STRIDED_ARGS)
+    profile_train_step(strided, strided.batch_size, "device")
+    check_grads_small(strided, F)
+    check_grads_replayed(strided, cb, F, strided_seeds)
+    print(f"[strided] {time.perf_counter() - t0:.1f} s", flush=True)
 
     kernels = []
     for k in all_kernels:

@@ -23,6 +23,10 @@ so the three tiers draw the same tasks:
   (batch, way, shots + targets) int32 rows and (batch, way) rot90 draws,
   and one ``episode_expand`` launch expands them.
 
+``--max_pooling true|false`` overrides the config's field, as the JAX
+package's command line overrides any field (``false``: the strided
+model).
+
 The config's ``use_mmap_cache`` and ``data_placement`` are set to match
 (the port's config requires the first for any tier but host). A tier's
 step time covers the host assembly, the upload, the step and a device
@@ -47,6 +51,9 @@ tests).
     python -m howtotrainyourmamlpytorch_tpu_torch.cli train-bench \\
         --config "experiment_config/omniglot_maml++-omniglot_1_20_8_0.1_64_0.json" \\
         --data-placement device
+    python -m howtotrainyourmamlpytorch_tpu_torch.cli train-bench \\
+        --config "experiment_config/omniglot_maml++-omniglot_1_20_8_0.1_64_0.json" \\
+        --max_pooling false --data-placement device
 """
 
 from __future__ import annotations
@@ -67,11 +74,10 @@ from .core import maml
 from .data import loader
 from .data.preprocess import FlatStore
 from .device import device_name, peak_rates, resolve_device, synchronize
+from .serving.bench import OMNIGLOT_CLASSES, OMNIGLOT_PER_CLASS, bool_arg
 from .state import init_state
 
 PLACEMENTS = ("host", "uint8_stream", "device")
-#: Omniglot's character count and images per character
-OMNIGLOT_CLASSES, OMNIGLOT_PER_CLASS = 1623, 20
 #: the mini-ImageNet train split: 64 classes x 600 images
 IMAGENET_TRAIN_CLASSES, IMAGENET_PER_CLASS = 64, 600
 
@@ -128,6 +134,8 @@ def _bench_cfg(args) -> MAMLConfig:
         cfg = MAMLConfig.from_json_file(args.config or str(FLAGSHIP))
     if args.batch_size is not None:
         cfg = cfg.replace(batch_size=args.batch_size)
+    if args.max_pooling is not None:
+        cfg = cfg.replace(max_pooling=args.max_pooling)
     return cfg
 
 
@@ -227,6 +235,9 @@ def _parser() -> argparse.ArgumentParser:
                              "MAML++ flagship)")
     parser.add_argument("--batch-size", type=int, default=None,
                         help="tasks per step (default: the config's)")
+    parser.add_argument("--max_pooling", type=bool_arg, default=None,
+                        help="override the config's max_pooling (true or "
+                             "false), as the JAX command line does")
     parser.add_argument("--epoch", type=int, default=0,
                         help="epoch fed to the schedule (LR, MSL weights, "
                              "order)")
@@ -310,6 +321,7 @@ def run(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         "step_ms": step_ms,
         "second_order": second_order,
         "batch_size": cfg.batch_size,
+        "max_pooling": cfg.max_pooling,
         "meta_accum_steps": cfg.meta_accum_steps,
         "epoch": args.epoch,
         "lr": lr,

@@ -1,5 +1,6 @@
 """Triton kernels K2, K3 and K5: batch-norm normalize + affine + leaky-ReLU +
-2x2 max pool, its backward, and the backward of that backward.
+2x2 max pool, its backward, and the backward of that backward; and their
+pool-free mode, for the strided model (``max_pooling=False``).
 
 Replace (JAX package) ``howtotrainyourmamlpytorch_tpu/ops/functional.py``:
 the normalize/affine tail of ``batch_norm`` :368 inside ``conv_bn_act``
@@ -41,6 +42,16 @@ per split; K5b reads them again and writes g_y densely and g_dpooled at the
 pooled positions only (each pooled element by the one thread that sits on
 its argmax), plus g_gamma (program 0 of each tenant). Two launches,
 partial sums in a fixed order, no atomics.
+
+The pool-free mode (``bn_act_fwd``, ``bn_act_bwd``, ``bn_act_bwd_bwd``:
+sibling kernels, so the pooled ones stay as they were) is the same
+arithmetic with no window: K2 writes the activation densely and no argmax,
+K3a and K5a reduce over every position (dz = the slope-masked da
+everywhere), and K5b writes ``g_da`` densely. Bound: bytes, as pooled —
+K2 reads y and writes the activation once; K3 reads da and y twice
+(reduce, then dy) and writes dy; K5 reads a, da and y twice and writes
+g_da and g_y. The masked block loads cover the ragged maps (7x7, 4x4 and
+2x2 at Omniglot's width); the partial sums keep their fixed order.
 
 ``triton`` is imported at the first launch, never at import: the kernel
 bodies below are plain functions until ``_jit()`` compiles them, and they
@@ -307,6 +318,185 @@ def _bn_act_pool_bwd_bwd_out_kernel(a_ptr, ggamma_ptr, gbeta_ptr, dp_ptr,
     tl.store(gy_ptr + yoff, gy, mask=mask)
 
 
+def _bn_act_fwd_kernel(y_ptr, mean_ptr, rstd_ptr, gamma_ptr, beta_ptr,
+                       out_ptr, P, NHW, C, slope, BLOCK_P: "tl.constexpr",
+                       BLOCK_C: "tl.constexpr"):
+    p = tl.program_id(0).to(tl.int64) * BLOCK_P + tl.arange(0, BLOCK_P)
+    c = tl.arange(0, BLOCK_C)
+    mask = (p < P)[:, None] & (c < C)[None, :]
+    tc = (p // NHW)[:, None] * C + c[None, :]
+    mu = tl.load(mean_ptr + tc, mask=mask, other=0.0)
+    rs = tl.load(rstd_ptr + tc, mask=mask, other=0.0)
+    g = tl.load(gamma_ptr + tc, mask=mask, other=0.0)
+    b = tl.load(beta_ptr + tc, mask=mask, other=0.0)
+    off = p[:, None] * C + c[None, :]
+    v = tl.load(y_ptr + off, mask=mask, other=0.0)
+    z = (v - mu) * rs * g + b
+    tl.store(out_ptr + off, tl.where(z >= 0, z, z * slope), mask=mask)
+
+
+def _bn_act_bwd_reduce_kernel(da_ptr, y_ptr, mean_ptr, rstd_ptr, gamma_ptr,
+                              beta_ptr, part_ptr, NHW, C, S, CHUNK, slope,
+                              BLOCK_P: "tl.constexpr",
+                              BLOCK_C: "tl.constexpr"):
+    t = tl.program_id(0)
+    s = tl.program_id(1)
+    c = tl.arange(0, BLOCK_C)
+    cmask = c < C
+    mu = tl.load(mean_ptr + t * C + c, mask=cmask, other=0.0)[None, :]
+    rs = tl.load(rstd_ptr + t * C + c, mask=cmask, other=0.0)[None, :]
+    g = tl.load(gamma_ptr + t * C + c, mask=cmask, other=0.0)[None, :]
+    b = tl.load(beta_ptr + t * C + c, mask=cmask, other=0.0)[None, :]
+    acc_dz = tl.zeros([BLOCK_P, BLOCK_C], tl.float32)
+    acc_dzx = tl.zeros([BLOCK_P, BLOCK_C], tl.float32)
+    start = s * CHUNK
+    end = tl.minimum(start + CHUNK, NHW)
+    for i in range(start, end, BLOCK_P):
+        q = i + tl.arange(0, BLOCK_P)
+        mask = (q < end)[:, None] & cmask[None, :]
+        off = (t.to(tl.int64) * NHW + q)[:, None] * C + c[None, :]
+        v = tl.load(y_ptr + off, mask=mask, other=0.0)
+        d = tl.load(da_ptr + off, mask=mask, other=0.0)
+        xh = tl.where(mask, (v - mu) * rs, 0.0)
+        z = xh * g + b
+        dz = tl.where(z >= 0, d, d * slope)
+        acc_dz += dz
+        acc_dzx += dz * xh
+    base = (t * S + s) * 2 * C
+    tl.store(part_ptr + base + c, tl.sum(acc_dz, axis=0), mask=cmask)
+    tl.store(part_ptr + base + C + c, tl.sum(acc_dzx, axis=0), mask=cmask)
+
+
+def _bn_act_bwd_dy_kernel(da_ptr, y_ptr, mean_ptr, rstd_ptr, gamma_ptr,
+                          beta_ptr, part_ptr, dy_ptr, NHW, C, S, inv_m,
+                          slope, BLOCK_P: "tl.constexpr",
+                          BLOCK_C: "tl.constexpr"):
+    t = tl.program_id(1)
+    q = tl.program_id(0) * BLOCK_P + tl.arange(0, BLOCK_P)
+    c = tl.arange(0, BLOCK_C)
+    cmask = c < C
+    mask = (q < NHW)[:, None] & cmask[None, :]
+    sum_dz = tl.zeros([BLOCK_C], tl.float32)
+    sum_dzx = tl.zeros([BLOCK_C], tl.float32)
+    for s in range(S):
+        base = (t * S + s) * 2 * C
+        sum_dz += tl.load(part_ptr + base + c, mask=cmask, other=0.0)
+        sum_dzx += tl.load(part_ptr + base + C + c, mask=cmask, other=0.0)
+    mu = tl.load(mean_ptr + t * C + c, mask=cmask, other=0.0)
+    rs = tl.load(rstd_ptr + t * C + c, mask=cmask, other=0.0)
+    g = tl.load(gamma_ptr + t * C + c, mask=cmask, other=0.0)
+    b = tl.load(beta_ptr + t * C + c, mask=cmask, other=0.0)
+    off = (t.to(tl.int64) * NHW + q)[:, None] * C + c[None, :]
+    v = tl.load(y_ptr + off, mask=mask, other=0.0)
+    d = tl.load(da_ptr + off, mask=mask, other=0.0)
+    xh = (v - mu[None, :]) * rs[None, :]
+    z = xh * g[None, :] + b[None, :]
+    dz = tl.where(z >= 0, d, d * slope)
+    dy = (g * rs)[None, :] * (dz - (sum_dz * inv_m)[None, :]
+                              - xh * (sum_dzx * inv_m)[None, :])
+    tl.store(dy_ptr + off, dy, mask=mask)
+
+
+def _bn_act_bwd_bwd_reduce_kernel(a_ptr, da_ptr, y_ptr, mean_ptr, rstd_ptr,
+                                  gamma_ptr, beta_ptr, part_ptr, NHW, C, S,
+                                  CHUNK, slope, BLOCK_P: "tl.constexpr",
+                                  BLOCK_C: "tl.constexpr"):
+    t = tl.program_id(0)
+    s = tl.program_id(1)
+    c = tl.arange(0, BLOCK_C)
+    cmask = c < C
+    mu = tl.load(mean_ptr + t * C + c, mask=cmask, other=0.0)[None, :]
+    rs = tl.load(rstd_ptr + t * C + c, mask=cmask, other=0.0)[None, :]
+    g = tl.load(gamma_ptr + t * C + c, mask=cmask, other=0.0)[None, :]
+    b = tl.load(beta_ptr + t * C + c, mask=cmask, other=0.0)[None, :]
+    acc_a = tl.zeros([BLOCK_P, BLOCK_C], tl.float32)
+    acc_ax = tl.zeros([BLOCK_P, BLOCK_C], tl.float32)
+    acc_dz = tl.zeros([BLOCK_P, BLOCK_C], tl.float32)
+    acc_dzx = tl.zeros([BLOCK_P, BLOCK_C], tl.float32)
+    acc_adz = tl.zeros([BLOCK_P, BLOCK_C], tl.float32)
+    start = s * CHUNK
+    end = tl.minimum(start + CHUNK, NHW)
+    for i in range(start, end, BLOCK_P):
+        q = i + tl.arange(0, BLOCK_P)
+        mask = (q < end)[:, None] & cmask[None, :]
+        off = (t.to(tl.int64) * NHW + q)[:, None] * C + c[None, :]
+        v = tl.load(y_ptr + off, mask=mask, other=0.0)
+        d = tl.load(da_ptr + off, mask=mask, other=0.0)
+        av = tl.load(a_ptr + off, mask=mask, other=0.0)
+        xh = tl.where(mask, (v - mu) * rs, 0.0)
+        z = xh * g + b
+        dz = tl.where(z >= 0, d, d * slope)
+        acc_a += av
+        acc_ax += av * xh
+        acc_dz += dz
+        acc_dzx += dz * xh
+        acc_adz += av * dz
+    base = (t * S + s) * 5 * C
+    tl.store(part_ptr + base + c, tl.sum(acc_a, axis=0), mask=cmask)
+    tl.store(part_ptr + base + C + c, tl.sum(acc_ax, axis=0), mask=cmask)
+    tl.store(part_ptr + base + 2 * C + c, tl.sum(acc_dz, axis=0), mask=cmask)
+    tl.store(part_ptr + base + 3 * C + c, tl.sum(acc_dzx, axis=0), mask=cmask)
+    tl.store(part_ptr + base + 4 * C + c, tl.sum(acc_adz, axis=0), mask=cmask)
+
+
+def _bn_act_bwd_bwd_out_kernel(a_ptr, ggamma_ptr, gbeta_ptr, da_ptr, y_ptr,
+                               mean_ptr, rstd_ptr, gamma_ptr, beta_ptr,
+                               part_ptr, gda_ptr, gy_ptr, ggam_out_ptr, NHW,
+                               C, S, inv_m, slope, BLOCK_P: "tl.constexpr",
+                               BLOCK_C: "tl.constexpr"):
+    t = tl.program_id(1)
+    q = tl.program_id(0) * BLOCK_P + tl.arange(0, BLOCK_P)
+    c = tl.arange(0, BLOCK_C)
+    cmask = c < C
+    mask = (q < NHW)[:, None] & cmask[None, :]
+    s_a = tl.zeros([BLOCK_C], tl.float32)
+    s_ax = tl.zeros([BLOCK_C], tl.float32)
+    s_dz = tl.zeros([BLOCK_C], tl.float32)
+    s_dzx = tl.zeros([BLOCK_C], tl.float32)
+    s_adz = tl.zeros([BLOCK_C], tl.float32)
+    for s in range(S):
+        base = (t * S + s) * 5 * C
+        s_a += tl.load(part_ptr + base + c, mask=cmask, other=0.0)
+        s_ax += tl.load(part_ptr + base + C + c, mask=cmask, other=0.0)
+        s_dz += tl.load(part_ptr + base + 2 * C + c, mask=cmask, other=0.0)
+        s_dzx += tl.load(part_ptr + base + 3 * C + c, mask=cmask, other=0.0)
+        s_adz += tl.load(part_ptr + base + 4 * C + c, mask=cmask, other=0.0)
+    mu = tl.load(mean_ptr + t * C + c, mask=cmask, other=0.0)
+    rs = tl.load(rstd_ptr + t * C + c, mask=cmask, other=0.0)
+    g = tl.load(gamma_ptr + t * C + c, mask=cmask, other=0.0)
+    b = tl.load(beta_ptr + t * C + c, mask=cmask, other=0.0)
+    gg = tl.load(ggamma_ptr + t * C + c, mask=cmask, other=0.0)
+    gb = tl.load(gbeta_ptr + t * C + c, mask=cmask, other=0.0)
+    m_a = s_a * inv_m
+    m_ax = s_ax * inv_m
+    m_dz = s_dz * inv_m
+    m_dzx = s_dzx * inv_m
+    cross = s_adz - (m_a * s_dz + m_ax * s_dzx)
+    grs = g * rs
+    mean_g = -grs * (m_dzx * m_a + m_ax * m_dz) + gg * m_dz
+    mean_gx = -2.0 * grs * m_ax * m_dzx + gg * m_dzx
+    lr_coef = rs * rs * inv_m * g * cross
+    if tl.program_id(0) == 0:
+        tl.store(ggam_out_ptr + t * C + c, rs * cross, mask=cmask)
+
+    off = (t.to(tl.int64) * NHW + q)[:, None] * C + c[None, :]
+    v = tl.load(y_ptr + off, mask=mask, other=0.0)
+    d = tl.load(da_ptr + off, mask=mask, other=0.0)
+    av = tl.load(a_ptr + off, mask=mask, other=0.0)
+    xh = (v - mu[None, :]) * rs[None, :]
+    z = xh * g[None, :] + b[None, :]
+    pos_side = z >= 0
+    dz = tl.where(pos_side, d, d * slope)
+    pa = av - m_a[None, :] - xh * m_ax[None, :]
+    gdz = grs[None, :] * pa + gg[None, :] * xh + gb[None, :]
+    tl.store(gda_ptr + off, tl.where(pos_side, gdz, gdz * slope), mask=mask)
+    big_g = (-grs[None, :] * (m_dzx[None, :] * av + m_ax[None, :] * dz)
+             + gg[None, :] * dz)
+    gy = (rs[None, :] * (big_g - mean_g[None, :] - xh * mean_gx[None, :])
+          - xh * lr_coef[None, :])
+    tl.store(gy_ptr + off, gy, mask=mask)
+
+
 @functools.lru_cache(maxsize=None)
 def _jit() -> SimpleNamespace:
     import triton
@@ -320,6 +510,11 @@ def _jit() -> SimpleNamespace:
         bwd_dy=triton.jit(_bn_act_pool_bwd_dy_kernel),
         bwd_bwd_reduce=triton.jit(_bn_act_pool_bwd_bwd_reduce_kernel),
         bwd_bwd_out=triton.jit(_bn_act_pool_bwd_bwd_out_kernel),
+        act_fwd=triton.jit(_bn_act_fwd_kernel),
+        act_bwd_reduce=triton.jit(_bn_act_bwd_reduce_kernel),
+        act_bwd_dy=triton.jit(_bn_act_bwd_dy_kernel),
+        act_bwd_bwd_reduce=triton.jit(_bn_act_bwd_bwd_reduce_kernel),
+        act_bwd_bwd_out=triton.jit(_bn_act_bwd_bwd_out_kernel),
     )
 
 
@@ -390,4 +585,68 @@ def launch_bwd_bwd(a, ggamma, gbeta, dpooled, arg, y, mean, rstd, gamma,
         a, ggamma, gbeta, dpooled, arg, y, mean, rstd, gamma, beta, part,
         g_dpooled, g_y, g_gamma, NHW, H * W, Ho, Wo, W, C, SPLITS, 1.0 / NHW,
         slope, BLOCK_P=BLOCK_P, BLOCK_C=BLOCK_C,
+    )
+
+
+def _check_channels(name: str, C: int) -> None:
+    if C > BLOCK_C:
+        raise NotImplementedError(
+            f"{name} takes at most {BLOCK_C} channels, got {C}"
+        )
+
+
+def _chunk(positions: int) -> int:
+    """Positions per reduction program: the tenant's positions over SPLITS
+    programs, in whole blocks."""
+    return _cdiv(_cdiv(positions, SPLITS), BLOCK_P) * BLOCK_P
+
+
+def launch_act_fwd(y, mean, rstd, gamma, beta, out, slope: float) -> None:
+    """K2's pool-free mode on validated contiguous f32 CUDA tensors (see
+    ``conv_block.bn_act_fwd``)."""
+    T, N, H, W, C = y.shape
+    _check_channels("bn_act_fwd", C)
+    P = T * N * H * W
+    _jit().act_fwd[(_cdiv(P, BLOCK_P),)](
+        y, mean, rstd, gamma, beta, out, P, N * H * W, C, slope,
+        BLOCK_P=BLOCK_P, BLOCK_C=BLOCK_C,
+    )
+
+
+def launch_act_bwd(da, y, mean, rstd, gamma, beta, part, dy,
+                   slope: float) -> None:
+    """K3a then K3b, pool-free, on validated contiguous f32 CUDA tensors;
+    ``part`` is ``(T, SPLITS, 2, C)`` scratch (see
+    ``conv_block.bn_act_bwd``)."""
+    T, N, H, W, C = y.shape
+    _check_channels("bn_act_bwd", C)
+    NHW = N * H * W
+    kern = _jit()
+    kern.act_bwd_reduce[(T, SPLITS)](
+        da, y, mean, rstd, gamma, beta, part, NHW, C, SPLITS, _chunk(NHW),
+        slope, BLOCK_P=BLOCK_P, BLOCK_C=BLOCK_C,
+    )
+    kern.act_bwd_dy[(_cdiv(NHW, BLOCK_P), T)](
+        da, y, mean, rstd, gamma, beta, part, dy, NHW, C, SPLITS, 1.0 / NHW,
+        slope, BLOCK_P=BLOCK_P, BLOCK_C=BLOCK_C,
+    )
+
+
+def launch_act_bwd_bwd(a, ggamma, gbeta, da, y, mean, rstd, gamma, beta,
+                       part, g_da, g_y, g_gamma, slope: float) -> None:
+    """K5a then K5b, pool-free, on validated contiguous f32 CUDA tensors;
+    ``part`` is ``(T, SPLITS, 5, C)`` scratch (see
+    ``conv_block.bn_act_bwd_bwd``)."""
+    T, N, H, W, C = y.shape
+    _check_channels("bn_act_bwd_bwd", C)
+    NHW = N * H * W
+    kern = _jit()
+    kern.act_bwd_bwd_reduce[(T, SPLITS)](
+        a, da, y, mean, rstd, gamma, beta, part, NHW, C, SPLITS, _chunk(NHW),
+        slope, BLOCK_P=BLOCK_P, BLOCK_C=BLOCK_C,
+    )
+    kern.act_bwd_bwd_out[(_cdiv(NHW, BLOCK_P), T)](
+        a, ggamma, gbeta, da, y, mean, rstd, gamma, beta, part, g_da, g_y,
+        g_gamma, NHW, C, SPLITS, 1.0 / NHW, slope, BLOCK_P=BLOCK_P,
+        BLOCK_C=BLOCK_C,
     )

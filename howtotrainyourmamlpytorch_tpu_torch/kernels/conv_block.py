@@ -1,28 +1,40 @@
 """Wrappers of the port's kernels, their launch counters, and the
-``autograd.Function``s that join them into the conv -> batch-norm ->
-leaky-ReLU -> max-pool block, differentiable twice.
+``autograd.Function``s that join them into the model's block, conv ->
+batch-norm -> leaky-ReLU -> (2x2 max pool | nothing) -> (global average
+pool), differentiable twice.
 
-========================  ======  ==========================  ================
-kernel                    route   source                      launches/call
-========================  ======  ==========================  ================
-``conv3x3_fwd_stats``     CUDA    csrc/conv3x3_fwd.cu (K1)    conv + merge: 2
-``conv3x3_fwd``           CUDA    csrc/conv3x3_fwd.cu (K1)    1 (stats-free)
-``bn_act_pool_fwd``       Triton  bn_act_pool.py (K2)         1
-``bn_act_pool_bwd``       Triton  bn_act_pool.py (K3)         reduce + dy: 2
-``conv3x3_dgrad``         CUDA    csrc/conv3x3_bwd.cu (K4)    1
-``conv3x3_wgrad``         CUDA    csrc/conv3x3_bwd.cu (K4)    wgrad + reduce: 2
-``bn_act_pool_bwd_bwd``   Triton  bn_act_pool.py (K5)         reduce + out: 2
-========================  ======  ==========================  ================
+==========================  ======  ========================  ==================
+kernel                      route   source                    launches/call
+==========================  ======  ========================  ==================
+``conv3x3_fwd_stats``       CUDA    csrc/conv3x3_fwd.cu (K1)  conv + merge: 2
+``conv3x3_fwd``             CUDA    csrc/conv3x3_fwd.cu (K1)  1 (stats-free)
+``bn_act_pool_fwd``         Triton  bn_act_pool.py (K2)       1
+``bn_act_pool_bwd``         Triton  bn_act_pool.py (K3)       reduce + dy: 2
+``conv3x3_dgrad``           CUDA    csrc/conv3x3_bwd.cu (K4)  1
+``conv3x3_wgrad``           CUDA    csrc/conv3x3_bwd.cu (K4)  wgrad + reduce: 2
+``bn_act_pool_bwd_bwd``     Triton  bn_act_pool.py (K5)       reduce + out: 2
+``conv3x3_s2_*``            CUDA    the same sources          as at stride 1
+``bn_act_fwd``              Triton  bn_act_pool.py (K2)       1 (pool-free)
+``bn_act_bwd``              Triton  bn_act_pool.py (K3)       2 (pool-free)
+``bn_act_bwd_bwd``          Triton  bn_act_pool.py (K5)       2 (pool-free)
+``global_avg_pool2d_fwd``   Triton  global_avg_pool.py        1
+``global_avg_pool2d_bwd``   Triton  global_avg_pool.py        1
+==========================  ======  ========================  ==================
+
+The ``conv3x3_s2_*`` names are the four conv kernels at stride 2 (the
+strided model, ``max_pooling=False``), counted apart from stride 1; the
+``bn_act_*`` names are K2, K3 and K5 without the pool.
 
 Each wrapper takes its plain twin (``ops.functional``) for a tensor on the
 CPU, and for a CUDA tensor launches its kernel or raises: it checks
-device, dtype, shape and contiguity, launches on the current stream,
-allocates outputs and scratch with ``torch.empty`` and adds one to its
-counter per call that launched. The kernels work in f32 with FFMA only.
+device, dtype, shape, stride and contiguity, launches on the current
+stream, allocates outputs and scratch with ``torch.empty`` and adds one to
+its counter per call that launched. The kernels work in f32 with FFMA
+only.
 
 All tensors carry the tenant axis: activations ``(T, N, H, W, C)``
 (NHWC), weights ``(T, 3, 3, cin, cout)`` (HWIO), per-channel tensors
-``(T, C)``.
+``(T, C)``, pooled features ``(T, N, C)``.
 
 The Functions (forward -> backward; every backward is built from further
 Functions, so the block's first gradient can be differentiated again, as
@@ -33,9 +45,11 @@ second-order MAML does):
 * ``Dgrad``: K4 dgrad -> ``Conv3x3`` stats-free for dy, ``Wgrad`` for w;
 * ``Wgrad``: K4 wgrad -> ``Conv3x3`` stats-free with bias for dy,
   ``Dgrad`` for x. The three convs are bilinear, so they are closed under
-  differentiation;
-* ``BnActPool``: K2 -> ``BnActPoolBwd``;
-* ``BnActPoolBwd``: K3 -> K5.
+  differentiation, at either stride (each carries its stride);
+* ``BnActPool``: K2 -> ``BnActPoolBwd``, pooled or pool-free;
+* ``BnActPoolBwd``: K3 -> K5, pooled or pool-free;
+* ``Gap``: the GAP forward -> ``GapBwd``; ``GapBwd``: the GAP backward ->
+  ``Gap``. Both are linear, so every derivative order closes.
 
 K5's own derivative (the block's third) is taken by no path: on the card
 asking for it raises; on the CPU the twin's formulas are plain ops that
@@ -51,7 +65,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..ops import functional as F
-from . import bn_act_pool, build
+from . import bn_act_pool, build, global_avg_pool
 
 Tensor = torch.Tensor
 
@@ -63,7 +77,18 @@ KERNELS = (
     "conv3x3_wgrad",
     "conv3x3_fwd",
     "bn_act_pool_bwd_bwd",
+    "conv3x3_s2_fwd_stats",
+    "bn_act_fwd",
+    "bn_act_bwd",
+    "conv3x3_s2_dgrad",
+    "conv3x3_s2_wgrad",
+    "conv3x3_s2_fwd",
+    "bn_act_bwd_bwd",
+    "global_avg_pool2d_fwd",
+    "global_avg_pool2d_bwd",
 )
+#: the conv strides the kernels take
+STRIDES = (1, 2)
 
 #: launches per kernel since the last ``reset_launches()`` (CUDA only)
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -120,6 +145,9 @@ def _check_act(name: str, x: Tensor) -> Tuple[int, int, int, int, int]:
             f"{tuple(x.shape)}"
         )
     _check(name, "the activation", x, x.shape, x.device)
+    if x[0].numel() >= 2 ** 31:
+        raise ValueError(f"{name}: one tenant's activation must hold fewer "
+                         "than 2**31 elements (32-bit offsets)")
     return tuple(x.shape)
 
 
@@ -131,52 +159,66 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _conv_name(name: str, stride: int) -> str:
+    """The counter of conv kernel ``name`` at ``stride``: its own name at
+    stride 1, ``conv3x3_s2_*`` at stride 2; raises for a stride the
+    kernels do not take."""
+    if stride not in STRIDES:
+        raise ValueError(f"{name}: the conv kernels take stride 1 or 2, got "
+                         f"{stride}")
+    return name if stride == 1 else name.replace("conv3x3_", "conv3x3_s2_")
+
+
 # -- K1 -----------------------------------------------------------------------
 
 
 def conv3x3_fwd_stats(x: Tensor, w: Tensor, b: Tensor,
-                      eps: float = F.BN_EPS
+                      eps: float = F.BN_EPS, stride: int = 1
                       ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
-    """``y = conv3x3(x, w) + b`` (stride 1, pad 1) and y's per-(tenant,
+    """``y = conv3x3(x, w) + b`` (``stride``, pad 1) and y's per-(tenant,
     channel) batch mean, biased variance and rstd."""
     if _on_cpu(x):
-        return F.conv3x3_fwd_stats(x, w, b, eps)
-    name = "conv3x3_fwd_stats"
+        return F.conv3x3_fwd_stats(x, w, b, eps, stride=stride)
+    name = _conv_name("conv3x3_fwd_stats", stride)
     T, N, H, W, cin = _check_act(name, x)
     cout = w.shape[-1]
     _check(name, "w", w, (T, 3, 3, cin, cout), x.device)
     _check(name, "b", b, (T, cout), x.device)
-    mtiles = -(-(N * H * W) // CONV_TILE_ROWS)
-    y = torch.empty((T, N, H, W, cout), device=x.device)
+    Ho, Wo = F.conv_out_hw(H, W, stride)
+    mtiles = -(-(N * Ho * Wo) // CONV_TILE_ROWS)
+    y = torch.empty((T, N, Ho, Wo, cout), device=x.device)
     part = torch.empty((T, mtiles, 3, cout), device=x.device)
     mean, var, rstd = (torch.empty((T, cout), device=x.device)
                        for _ in range(3))
-    fn = build.function("conv3x3_fwd", name,
-                        (_P,) * 8 + (_I,) * 7 + (_F, _P))
+    fn = build.function("conv3x3_fwd", "conv3x3_fwd_stats",
+                        (_P,) * 8 + (_I,) * 8 + (_F, _P))
     with torch.cuda.device(x.device):
         rc = fn(_ptr(x), _ptr(w), _ptr(b), _ptr(y), _ptr(part), _ptr(mean),
-                _ptr(var), _ptr(rstd), T, N, H, W, cin, cout, mtiles, eps,
-                _stream(x.device))
+                _ptr(var), _ptr(rstd), T, N, H, W, stride, cin, cout, mtiles,
+                eps, _stream(x.device))
     build.check(rc, name)
     LAUNCHES[name] += 1
     return y, mean, var, rstd
 
 
-def conv3x3_fwd(x: Tensor, w: Tensor, b: Optional[Tensor] = None) -> Tensor:
+def conv3x3_fwd(x: Tensor, w: Tensor, b: Optional[Tensor] = None,
+                stride: int = 1) -> Tensor:
     """K1's stats-free mode: ``y = conv3x3(x, w) (+ b)``, one launch."""
     if _on_cpu(x):
-        return F.conv3x3(x, w, b)
-    name = "conv3x3_fwd"
+        return F.conv3x3(x, w, b, stride=stride)
+    name = _conv_name("conv3x3_fwd", stride)
     T, N, H, W, cin = _check_act(name, x)
     cout = w.shape[-1]
     _check(name, "w", w, (T, 3, 3, cin, cout), x.device)
     if b is not None:
         _check(name, "b", b, (T, cout), x.device)
-    y = torch.empty((T, N, H, W, cout), device=x.device)
-    fn = build.function("conv3x3_fwd", name, (_P,) * 4 + (_I,) * 6 + (_P,))
+    y = torch.empty((T, N, *F.conv_out_hw(H, W, stride), cout),
+                    device=x.device)
+    fn = build.function("conv3x3_fwd", "conv3x3_fwd",
+                        (_P,) * 4 + (_I,) * 7 + (_P,))
     with torch.cuda.device(x.device):
         rc = fn(_ptr(x), _ptr(w), None if b is None else _ptr(b), _ptr(y),
-                T, N, H, W, cin, cout, _stream(x.device))
+                T, N, H, W, stride, cin, cout, _stream(x.device))
     build.check(rc, name)
     LAUNCHES[name] += 1
     return y
@@ -227,6 +269,22 @@ def bn_act_pool_fwd(y: Tensor, mean: Tensor, rstd: Tensor, gamma: Tensor,
     return out, arg
 
 
+def bn_act_fwd(y: Tensor, mean: Tensor, rstd: Tensor, gamma: Tensor,
+               beta: Tensor, negative_slope: float = F.LEAKY_SLOPE) -> Tensor:
+    """K2's pool-free mode: normalize, affine and leaky-ReLU."""
+    if _on_cpu(y):
+        return F.bn_act_fwd(y, mean, rstd, gamma, beta, negative_slope)
+    name = "bn_act_fwd"
+    _check_bn_args(name, y, dict(mean=mean, rstd=rstd, gamma=gamma,
+                                 beta=beta), y.device)
+    out = torch.empty_like(y)
+    with torch.cuda.device(y.device):
+        bn_act_pool.launch_act_fwd(y, mean, rstd, gamma, beta, out,
+                                   negative_slope)
+    LAUNCHES[name] += 1
+    return out
+
+
 def bn_act_pool_bwd(dpooled: Tensor, argmax: Tensor, y: Tensor, mean: Tensor,
                     rstd: Tensor, gamma: Tensor, beta: Tensor,
                     negative_slope: float = F.LEAKY_SLOPE
@@ -246,6 +304,29 @@ def bn_act_pool_bwd(dpooled: Tensor, argmax: Tensor, y: Tensor, mean: Tensor,
     with torch.cuda.device(y.device):
         bn_act_pool.launch_bwd(dpooled, argmax, y, mean, rstd, gamma, beta,
                                part, dy, negative_slope)
+    LAUNCHES[name] += 1
+    sums = part.sum(dim=1)
+    return dy, sums[:, 1], sums[:, 0]
+
+
+def bn_act_bwd(da: Tensor, y: Tensor, mean: Tensor, rstd: Tensor,
+               gamma: Tensor, beta: Tensor,
+               negative_slope: float = F.LEAKY_SLOPE
+               ) -> Tuple[Tensor, Tensor, Tensor]:
+    """K3's pool-free mode: the backward of ``bn_act_fwd``; returns
+    ``(dy, dgamma, dbeta)``."""
+    if _on_cpu(y):
+        return F.bn_act_bwd(da, y, mean, rstd, gamma, beta, negative_slope)
+    name = "bn_act_bwd"
+    _check_bn_args(name, y, dict(mean=mean, rstd=rstd, gamma=gamma,
+                                 beta=beta), y.device)
+    _check(name, "da", da, y.shape, y.device)
+    T, _, _, _, C = y.shape
+    part = torch.empty((T, bn_act_pool.SPLITS, 2, C), device=y.device)
+    dy = torch.empty_like(y)
+    with torch.cuda.device(y.device):
+        bn_act_pool.launch_act_bwd(da, y, mean, rstd, gamma, beta, part, dy,
+                                   negative_slope)
     LAUNCHES[name] += 1
     sums = part.sum(dim=1)
     return dy, sums[:, 1], sums[:, 0]
@@ -281,36 +362,76 @@ def bn_act_pool_bwd_bwd(a: Tensor, ggamma: Tensor, gbeta: Tensor,
     return g_dpooled, g_y, g_gamma
 
 
+def bn_act_bwd_bwd(a: Tensor, ggamma: Tensor, gbeta: Tensor, da: Tensor,
+                   y: Tensor, mean: Tensor, rstd: Tensor, gamma: Tensor,
+                   beta: Tensor, negative_slope: float = F.LEAKY_SLOPE
+                   ) -> Tuple[Tensor, Tensor, Tensor]:
+    """K5's pool-free mode, the backward of ``bn_act_bwd``: the gradients
+    with respect to ``da``, ``y`` and ``gamma`` (beta's is zero)."""
+    if _on_cpu(y):
+        return F.bn_act_bwd_bwd(a, ggamma, gbeta, da, y, mean, rstd, gamma,
+                                beta, negative_slope)
+    name = "bn_act_bwd_bwd"
+    _check_bn_args(name, y, dict(mean=mean, rstd=rstd, gamma=gamma,
+                                 beta=beta, ggamma=ggamma, gbeta=gbeta),
+                   y.device)
+    _check(name, "a", a, y.shape, y.device)
+    _check(name, "da", da, y.shape, y.device)
+    T, _, _, _, C = y.shape
+    part = torch.empty((T, bn_act_pool.SPLITS, 5, C), device=y.device)
+    g_da = torch.empty_like(y)
+    g_y = torch.empty_like(y)
+    g_gamma = torch.empty((T, C), device=y.device)
+    with torch.cuda.device(y.device):
+        bn_act_pool.launch_act_bwd_bwd(a, ggamma, gbeta, da, y, mean, rstd,
+                                       gamma, beta, part, g_da, g_y, g_gamma,
+                                       negative_slope)
+    LAUNCHES[name] += 1
+    return g_da, g_y, g_gamma
+
+
 # -- K4 -----------------------------------------------------------------------
 
 
-def conv3x3_dgrad(dy: Tensor, w: Tensor) -> Tensor:
-    """The input gradient of the 3x3 stride-1 pad-1 conv."""
+def conv3x3_dgrad(dy: Tensor, w: Tensor, stride: int = 1,
+                  in_hw: Optional[Tuple[int, int]] = None) -> Tensor:
+    """The input gradient of the 3x3 pad-1 conv at ``stride``; ``in_hw``
+    is the input's (H, W), required at stride 2 (dy's size does not
+    determine it), and dy's own at stride 1."""
+    if stride == 1 and in_hw is None:
+        in_hw = tuple(dy.shape[2:4])
     if _on_cpu(dy):
-        return F.conv3x3_dgrad(dy, w)
-    name = "conv3x3_dgrad"
-    T, N, H, W, cout = _check_act(name, dy)
+        return F.conv3x3_dgrad(dy, w, stride=stride, in_hw=in_hw)
+    name = _conv_name("conv3x3_dgrad", stride)
+    T, N, Ho, Wo, cout = _check_act(name, dy)
+    if in_hw is None or F.conv_out_hw(*in_hw, stride) != (Ho, Wo):
+        raise ValueError(f"{name}: the input size {in_hw} does not give "
+                         f"dy's {Ho}x{Wo} at stride {stride}")
+    H, W = in_hw
     cin = w.shape[-2]
     _check(name, "w", w, (T, 3, 3, cin, cout), dy.device)
     dx = torch.empty((T, N, H, W, cin), device=dy.device)
-    fn = build.function("conv3x3_bwd", name, (_P,) * 3 + (_I,) * 6 + (_P,))
+    fn = build.function("conv3x3_bwd", "conv3x3_dgrad",
+                        (_P,) * 3 + (_I,) * 7 + (_P,))
     with torch.cuda.device(dy.device):
-        rc = fn(_ptr(dy), _ptr(w), _ptr(dx), T, N, H, W, cin, cout,
+        rc = fn(_ptr(dy), _ptr(w), _ptr(dx), T, N, H, W, stride, cin, cout,
                 _stream(dy.device))
     build.check(rc, name)
     LAUNCHES[name] += 1
     return dx
 
 
-def conv3x3_wgrad(x: Tensor, dy: Tensor) -> Tuple[Tensor, Tensor]:
-    """The weight (HWIO) and bias gradients of the 3x3 conv."""
+def conv3x3_wgrad(x: Tensor, dy: Tensor, stride: int = 1
+                  ) -> Tuple[Tensor, Tensor]:
+    """The weight (HWIO) and bias gradients of the 3x3 conv at ``stride``."""
     if _on_cpu(x):
-        return F.conv3x3_wgrad(x, dy)
-    name = "conv3x3_wgrad"
+        return F.conv3x3_wgrad(x, dy, stride=stride)
+    name = _conv_name("conv3x3_wgrad", stride)
     T, N, H, W, cin = _check_act(name, x)
     cout = dy.shape[-1]
-    _check(name, "dy", dy, (T, N, H, W, cout), x.device)
-    M = N * H * W
+    Ho, Wo = F.conv_out_hw(H, W, stride)
+    _check(name, "dy", dy, (T, N, Ho, Wo, cout), x.device)
+    M = N * Ho * Wo
     # blocks per split: (K tiles of 64) x (channel tiles of 16) x tenants
     blocks = -(-9 * cin // 64) * -(-cout // 16) * T
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
@@ -320,175 +441,279 @@ def conv3x3_wgrad(x: Tensor, dy: Tensor) -> Tuple[Tensor, Tensor]:
     part_b = torch.empty((T, splits, cout), device=x.device)
     dw = torch.empty((T, 3, 3, cin, cout), device=x.device)
     db = torch.empty((T, cout), device=x.device)
-    fn = build.function("conv3x3_bwd", name, (_P,) * 6 + (_I,) * 7 + (_P,))
+    fn = build.function("conv3x3_bwd", "conv3x3_wgrad",
+                        (_P,) * 6 + (_I,) * 8 + (_P,))
     with torch.cuda.device(x.device):
         rc = fn(_ptr(x), _ptr(dy), _ptr(part_w), _ptr(part_b), _ptr(dw),
-                _ptr(db), T, N, H, W, cin, cout, splits, _stream(x.device))
+                _ptr(db), T, N, H, W, stride, cin, cout, splits,
+                _stream(x.device))
     build.check(rc, name)
     LAUNCHES[name] += 1
     return dw, db
+
+
+# -- global average pool --------------------------------------------------------
+
+
+def global_avg_pool2d_fwd(x: Tensor) -> Tensor:
+    """The mean over H and W: ``(T, N, H, W, C) -> (T, N, C)``."""
+    if _on_cpu(x):
+        return F.global_avg_pool2d(x)
+    name = "global_avg_pool2d_fwd"
+    T, N, _, _, C = _check_act(name, x)
+    out = torch.empty((T, N, C), device=x.device)
+    with torch.cuda.device(x.device):
+        global_avg_pool.launch_fwd(x, out)
+    LAUNCHES[name] += 1
+    return out
+
+
+def global_avg_pool2d_bwd(dpool: Tensor, h: int, w: int) -> Tensor:
+    """The GAP's backward: ``(T, N, C) -> (T, N, h, w, C)``, each pixel
+    ``dpool / (h * w)``."""
+    if _on_cpu(dpool):
+        return F.global_avg_pool2d_bwd(dpool, h, w)
+    name = "global_avg_pool2d_bwd"
+    if dpool.device.type != "cuda" or dpool.dim() != 3:
+        raise ValueError(f"{name}: expected a (T, N, C) CUDA tensor, got "
+                         f"{tuple(dpool.shape)} on {dpool.device}")
+    _check(name, "dpool", dpool, dpool.shape, dpool.device)
+    T, N, C = dpool.shape
+    dx = torch.empty((T, N, h, w, C), device=dpool.device)
+    with torch.cuda.device(dpool.device):
+        global_avg_pool.launch_bwd(dpool, dx)
+    LAUNCHES[name] += 1
+    return dx
 
 
 # -- the block ------------------------------------------------------------------
 
 
 class Conv3x3(torch.autograd.Function):
-    """``y = conv3x3(x, w) (+ b)``. With ``with_stats`` (K1) it also returns
-    y's batch ``(mean, var, rstd)``, not differentiable (BN's dependence on
-    them is inside K3 and K5, and the running stats take no gradient);
-    without, K1's stats-free mode and ``y`` alone."""
+    """``y = conv3x3(x, w) (+ b)`` at ``stride``. With ``with_stats`` (K1)
+    it also returns y's batch ``(mean, var, rstd)``, not differentiable
+    (BN's dependence on them is inside K3 and K5, and the running stats
+    take no gradient); without, K1's stats-free mode and ``y`` alone."""
 
     @staticmethod
-    def forward(ctx, x, w, b, with_stats):
+    def forward(ctx, x, w, b, with_stats, stride=1):
         ctx.save_for_backward(x, w)
+        ctx.stride = stride
         if not with_stats:
-            return conv3x3_fwd(x, w, b)
-        y, mean, var, rstd = conv3x3_fwd_stats(x, w, b)
+            return conv3x3_fwd(x, w, b, stride)
+        y, mean, var, rstd = conv3x3_fwd_stats(x, w, b, stride=stride)
         ctx.mark_non_differentiable(mean, var, rstd)
         return y, mean, var, rstd
 
     @staticmethod
     def backward(ctx, dy, *_stats):
         x, w = ctx.saved_tensors
-        need_x, need_w, need_b, _ = ctx.needs_input_grad
+        need_x, need_w, need_b = ctx.needs_input_grad[:3]
         dy = dy.contiguous()
-        dx = Dgrad.apply(dy, w) if need_x else None
+        dx = (Dgrad.apply(dy, w, ctx.stride, tuple(x.shape[2:4])) if need_x
+              else None)
         dw = db = None
         if need_w or need_b:
-            dw, db = Wgrad.apply(x, dy)
-        return dx, dw if need_w else None, db if need_b else None, None
+            dw, db = Wgrad.apply(x, dy, ctx.stride)
+        return (dx, dw if need_w else None, db if need_b else None, None,
+                None)
 
 
 class Dgrad(torch.autograd.Function):
-    """K4 dgrad: ``dx`` of the conv with weights ``w`` from ``dy``."""
+    """K4 dgrad: ``dx`` (of size ``in_hw``) of the conv at ``stride`` with
+    weights ``w`` from ``dy``."""
 
     @staticmethod
-    def forward(ctx, dy, w):
+    def forward(ctx, dy, w, stride=1, in_hw=None):
         ctx.save_for_backward(dy, w)
-        return conv3x3_dgrad(dy, w)
+        ctx.stride = stride
+        return conv3x3_dgrad(dy, w, stride, in_hw)
 
     @staticmethod
     def backward(ctx, g_dx):
         dy, w = ctx.saved_tensors
-        need_dy, need_w = ctx.needs_input_grad
+        need_dy, need_w = ctx.needs_input_grad[:2]
         g_dx = g_dx.contiguous()
-        g_dy = Conv3x3.apply(g_dx, w, None, False) if need_dy else None
-        g_w = Wgrad.apply(g_dx, dy)[0] if need_w else None
-        return g_dy, g_w
+        g_dy = (Conv3x3.apply(g_dx, w, None, False, ctx.stride) if need_dy
+                else None)
+        g_w = Wgrad.apply(g_dx, dy, ctx.stride)[0] if need_w else None
+        return g_dy, g_w, None, None
 
 
 class Wgrad(torch.autograd.Function):
-    """K4 wgrad: ``(dw, db)`` of the conv from its input ``x`` and ``dy``."""
+    """K4 wgrad: ``(dw, db)`` of the conv at ``stride`` from its input
+    ``x`` and ``dy``."""
 
     @staticmethod
-    def forward(ctx, x, dy):
+    def forward(ctx, x, dy, stride=1):
         ctx.save_for_backward(x, dy)
-        return conv3x3_wgrad(x, dy)
+        ctx.stride = stride
+        return conv3x3_wgrad(x, dy, stride)
 
     @staticmethod
     def backward(ctx, g_dw, g_db):
         x, dy = ctx.saved_tensors
-        need_x, need_dy = ctx.needs_input_grad
+        need_x, need_dy = ctx.needs_input_grad[:2]
         g_dw = g_dw.contiguous()
-        g_x = Dgrad.apply(dy, g_dw) if need_x else None
-        g_dy = (Conv3x3.apply(x, g_dw, g_db.contiguous(), False) if need_dy
-                else None)
-        return g_x, g_dy
+        g_x = (Dgrad.apply(dy, g_dw, ctx.stride, tuple(x.shape[2:4]))
+               if need_x else None)
+        g_dy = (Conv3x3.apply(x, g_dw, g_db.contiguous(), False, ctx.stride)
+                if need_dy else None)
+        return g_x, g_dy, None
 
 
 class BnActPool(torch.autograd.Function):
     """K2 on ``(y, gamma, beta)`` with K1's ``mean`` and ``rstd`` of y as
-    non-differentiable companions; returns ``(pooled, argmax)``."""
+    non-differentiable companions; returns ``(pooled, argmax)``, or with
+    ``pool=False`` (K2's pool-free mode) the activation alone."""
 
     @staticmethod
-    def forward(ctx, y, gamma, beta, mean, rstd):
-        pooled, arg = bn_act_pool_fwd(y, mean, rstd, gamma, beta)
-        ctx.mark_non_differentiable(arg)
+    def forward(ctx, y, gamma, beta, mean, rstd, pool=True):
+        if pool:
+            out, arg = bn_act_pool_fwd(y, mean, rstd, gamma, beta)
+            ctx.mark_non_differentiable(arg)
+        else:
+            out, arg = bn_act_fwd(y, mean, rstd, gamma, beta), None
         ctx.save_for_backward(y, gamma, beta, mean, rstd, arg)
-        return pooled, arg
+        return (out, arg) if pool else out
 
     @staticmethod
-    def backward(ctx, dpooled, _darg):
+    def backward(ctx, dout, *_darg):
         y, gamma, beta, mean, rstd, arg = ctx.saved_tensors
-        dy, dgamma, dbeta = BnActPoolBwd.apply(dpooled.contiguous(), arg, y,
+        dy, dgamma, dbeta = BnActPoolBwd.apply(dout.contiguous(), arg, y,
                                                mean, rstd, gamma, beta)
-        return dy, dgamma, dbeta, None, None
+        return dy, dgamma, dbeta, None, None, None
+
+
+def _bn_bwd(dout, arg, y, mean, rstd, gamma, beta):
+    """K3, pooled when there is a window argmax, else pool-free."""
+    if arg is None:
+        return bn_act_bwd(dout, y, mean, rstd, gamma, beta)
+    return bn_act_pool_bwd(dout, arg, y, mean, rstd, gamma, beta)
+
+
+def _bn_bwd_bwd(a, ggamma, gbeta, dout, arg, y, mean, rstd, gamma, beta):
+    """K5 (through its wrapper), pooled or pool-free as ``_bn_bwd``."""
+    if arg is None:
+        return bn_act_bwd_bwd(a, ggamma, gbeta, dout, y, mean, rstd, gamma,
+                              beta)
+    return bn_act_pool_bwd_bwd(a, ggamma, gbeta, dout, arg, y, mean, rstd,
+                               gamma, beta)
 
 
 class BnActPoolBwd(torch.autograd.Function):
     """K3: ``(dy, dgamma, dbeta)`` through batch norm with batch
-    statistics; its backward is K5."""
+    statistics, from the pooled gradient and the window argmax, or with
+    ``arg=None`` (pool-free) from the activation's gradient; its backward
+    is K5 in the same mode."""
 
     @staticmethod
-    def forward(ctx, dpooled, arg, y, mean, rstd, gamma, beta):
-        ctx.save_for_backward(dpooled, arg, y, mean, rstd, gamma, beta)
-        return bn_act_pool_bwd(dpooled, arg, y, mean, rstd, gamma, beta)
+    def forward(ctx, dout, arg, y, mean, rstd, gamma, beta):
+        ctx.save_for_backward(dout, arg, y, mean, rstd, gamma, beta)
+        return _bn_bwd(dout, arg, y, mean, rstd, gamma, beta)
 
     @staticmethod
     def backward(ctx, g_dy, g_dgamma, g_dbeta):
-        dpooled, arg, y, mean, rstd, gamma, beta = ctx.saved_tensors
+        dout, arg, y, mean, rstd, gamma, beta = ctx.saved_tensors
         if _on_cpu(y):
             # the twin is plain ops that autograd differentiates once more;
             # statistics recomputed from y carry their dependence on y into
             # that further derivative
             mean, _, rstd = F.bn_stats(y)
-            second = F.bn_act_pool_bwd_bwd
+            second = _bn_bwd_bwd
         else:
             second = BnActPoolBwdBwd.apply
-        g_dp, g_y, g_gamma = second(
+        g_dout, g_y, g_gamma = second(
             g_dy.contiguous(), g_dgamma.contiguous(), g_dbeta.contiguous(),
-            dpooled, arg, y, mean, rstd, gamma, beta)
-        return g_dp, None, g_y, None, None, g_gamma, None
+            dout, arg, y, mean, rstd, gamma, beta)
+        return g_dout, None, g_y, None, None, g_gamma, None
 
 
 class BnActPoolBwdBwd(torch.autograd.Function):
-    """K5 as a graph node on the card, so that a further derivative (the
-    block's third, which no path takes) raises instead of treating K5's
-    outputs as constants."""
+    """K5 (pooled or pool-free) as a graph node on the card, so that a
+    further derivative (the block's third, which no path takes) raises
+    instead of treating K5's outputs as constants."""
 
     @staticmethod
     def forward(ctx, *args):
-        return bn_act_pool_bwd_bwd(*args)
+        return _bn_bwd_bwd(*args)
 
     @staticmethod
     def backward(ctx, *grads):
         raise NotImplementedError(
-            "the derivative of bn_act_pool_bwd_bwd (K5), the block's third "
-            "derivative, is not written"
+            "the derivative of bn_act_pool_bwd_bwd / bn_act_bwd_bwd (K5), "
+            "the block's third derivative, is not written"
         )
 
 
+class Gap(torch.autograd.Function):
+    """The global average pool ``(T, N, H, W, C) -> (T, N, C)``; its
+    backward is ``GapBwd``."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.hw = tuple(x.shape[2:4])
+        return global_avg_pool2d_fwd(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return GapBwd.apply(g.contiguous(), *ctx.hw)
+
+
+class GapBwd(torch.autograd.Function):
+    """The GAP's backward, ``(T, N, C) -> (T, N, h, w, C)``; linear, and
+    its backward is ``Gap``."""
+
+    @staticmethod
+    def forward(ctx, g, h, w):
+        return global_avg_pool2d_bwd(g, h, w)
+
+    @staticmethod
+    def backward(ctx, gg):
+        return Gap.apply(gg.contiguous()), None, None
+
+
 def function_block(x: Tensor, w: Tensor, b: Tensor, gamma: Tensor,
-                   beta: Tensor, stats_impl: str = "twopass"
+                   beta: Tensor, stats_impl: str = "twopass",
+                   stride: int = 1, pool: bool = True, gap: bool = False
                    ) -> Tuple[Tensor, Tensor, Tensor]:
-    """The block as the chain of Functions: K1 then K2 forward, every
-    derivative on K3-K5 and the conv kernels. On CPU tensors each wrapper
-    takes its twin, which is how the CPU tests drive this structure;
-    ``stats_impl`` is accepted for the block signature and not read (the
-    statistics are K1's)."""
+    """The block as the chain of Functions: K1 (at ``stride``) then K2
+    (pooled, or pool-free with ``pool=False``) and, with ``gap``, the
+    global average pool; every derivative on K3-K5, the conv kernels and
+    the GAP kernels. On CPU tensors each wrapper takes its twin, which is
+    how the CPU tests drive this structure; ``stats_impl`` is accepted for
+    the block signature and not read (the statistics are K1's)."""
     T, cout = x.shape[0], w.shape[-1]
     gamma = gamma.expand(T, cout).contiguous()
     beta = beta.expand(T, cout).contiguous()
     y, mean, var, rstd = Conv3x3.apply(x.contiguous(), w.contiguous(),
-                                       b.contiguous(), True)
-    pooled, _ = BnActPool.apply(y, gamma, beta, mean, rstd)
-    return pooled, mean, var
+                                       b.contiguous(), True, stride)
+    out = BnActPool.apply(y, gamma, beta, mean, rstd, pool)
+    if pool:
+        out = out[0]
+    if gap:
+        out = Gap.apply(out)
+    return out, mean, var
 
 
 def conv_bn_act_pool(x: Tensor, w: Tensor, b: Tensor, gamma: Tensor,
-                     beta: Tensor, stats_impl: str = "twopass"
+                     beta: Tensor, stats_impl: str = "twopass",
+                     stride: int = 1, pool: bool = True, gap: bool = False
                      ) -> Tuple[Tensor, Tensor, Tensor]:
     """The block, as the model calls it: the plain PyTorch composition
     (``ops.functional.conv_bn_act_pool``, differentiable by autograd) for
     CPU tensors, ``function_block`` on the kernels for CUDA tensors.
 
     ``x`` (T, N, H, W, cin), ``w`` (T, 3, 3, cin, cout), ``b`` (T, cout),
-    ``gamma``/``beta`` (cout,) or (T, cout). Returns ``(pooled,
-    batch_mean, batch_var)``. ``stats_impl`` selects the plain statistics
-    pass; the kernels' Chan merge stays within tolerance of both.
+    ``gamma``/``beta`` (cout,) or (T, cout); the conv at ``stride``, then
+    the max pool when ``pool`` and the global average pool when ``gap``.
+    Returns ``(out, batch_mean, batch_var)``. ``stats_impl`` selects the
+    plain statistics pass; the kernels' Chan merge stays within tolerance
+    of both.
     """
     if _on_cpu(x):
-        return F.conv_bn_act_pool(x, w, b, gamma, beta, stats_impl)
+        return F.conv_bn_act_pool(x, w, b, gamma, beta, stats_impl,
+                                  stride=stride, pool=pool, gap=gap)
     if x.dtype != torch.float32:
         raise NotImplementedError(
             f"conv_bn_act_pool kernels are f32 only; compute_dtype "
@@ -499,4 +724,5 @@ def conv_bn_act_pool(x: Tensor, w: Tensor, b: Tensor, gamma: Tensor,
             f"conv_bn_act_pool on CUDA takes (T, N, H, W, C), got "
             f"{tuple(x.shape)}"
         )
-    return function_block(x, w, b, gamma, beta)
+    return function_block(x, w, b, gamma, beta, stride=stride, pool=pool,
+                          gap=gap)

@@ -17,6 +17,18 @@
 //   blocks per tenant into partial buffers, reduced by a second launch in a
 //   fixed order — deterministic, no atomics. Patches are again gathered from
 //   x on the fly.
+//
+// Stride 2 (the strided model): wgrad reduces over the N*Ho*Wo output
+// pixels with the forward's tap arithmetic, x at (2*oh - 1 + kh, 2*ow - 1 +
+// kw); at Omniglot's layer 4 (2x2 outputs, 80 pixels a tenant) the split
+// rule gives one split, 288 blocks at T = 8. dgrad is one implicit GEMM
+// over the INPUT pixels with all 9 taps masked by the parity of
+// ih + 1 - kh and iw + 1 - kw (conv3x3_tile.cuh): the simpler of the two
+// designs (the other: four sub-GEMMs, one per (ih % 2, iw % 2) class, each
+// with only its live taps). It spends about 4x the useful FMAs (9 taps
+// against 2.25 live on average) and reads dy of a quarter of dx's pixels,
+// so its bound is FLOPs at layers 2-4, like the forward's, and the masked
+// design sits at least 4x above it.
 
 #include <cuda_runtime.h>
 
@@ -24,10 +36,11 @@
 
 namespace maml {
 
+template <int kStride>
 __global__ void __launch_bounds__(kThreads)
 conv3x3_dgrad_kernel(const float* __restrict__ dy, const float* __restrict__ w,
-                     float* __restrict__ dx, int N, int H, int W, int cin_fwd,
-                     int cout_fwd) {
+                     float* __restrict__ dx, int N, int H, int W, int Ho,
+                     int Wo, int cin_fwd, int cout_fwd) {
   __shared__ ConvTileSmem s;
   const int tid = threadIdx.x;
   const int t = blockIdx.z;
@@ -35,11 +48,11 @@ conv3x3_dgrad_kernel(const float* __restrict__ dy, const float* __restrict__ w,
   const int m0 = blockIdx.x * kBM;
   const int M = N * H * W;
   float acc[kTM][kTN];
-  // the transposed conv reads dy (cout_fwd channels) and writes dx
-  // (cin_fwd channels)
-  conv3x3_tile<true>(dy + (size_t)t * M * cout_fwd,
-                     w + (size_t)t * 9 * cin_fwd * cout_fwd, H, W, M,
-                     cout_fwd, cin_fwd, m0, n0, s, acc);
+  // the transposed conv reads dy (Ho x Wo, cout_fwd channels) and writes
+  // dx (H x W, cin_fwd channels)
+  conv3x3_tile<kStride, true>(dy + (size_t)t * N * Ho * Wo * cout_fwd,
+                              w + (size_t)t * 9 * cin_fwd * cout_fwd, Ho, Wo,
+                              H, W, M, cout_fwd, cin_fwd, m0, n0, s, acc);
   const int cg = tid % 4;
   const int rg = tid / 4;
   float* dxt = dx + (size_t)t * M * cin_fwd;
@@ -60,26 +73,28 @@ constexpr int kWM = 32;  // pixels per shared-memory stage
 
 // Block (k tile, channel tile, tenant * S + split). Thread (kg = tid % 16,
 // cp = tid / 16) owns dW rows k0 + kg*4 .. +3 and channels n0 + cp*2, +1.
+// The reduction runs over the M = N*Ho*Wo output pixels; x is H x W.
+template <int kStride>
 __global__ void __launch_bounds__(kThreads)
 conv3x3_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ dy,
                      float* __restrict__ part_w, float* __restrict__ part_b,
-                     int N, int H, int W, int cin, int cout, int S,
-                     int chunk) {
+                     int N, int H, int W, int Ho, int Wo, int cin, int cout,
+                     int S, int chunk) {
   __shared__ __align__(16) float ps[kWM][kWK];
   __shared__ __align__(16) float ds[kWM][kWN];
   __shared__ int k_dh[kWK], k_dw[kWK], k_delta[kWK];
-  __shared__ int row_h[kWM], row_w[kWM];
+  __shared__ int row_h[kWM], row_w[kWM], row_base[kWM];
   const int tid = threadIdx.x;
   const int k0 = blockIdx.x * kWK;
   const int n0 = blockIdx.y * kWN;
   const int t = blockIdx.z / S;
   const int split = blockIdx.z % S;
-  const int M = N * H * W;
-  const int HW = H * W;
+  const int M = N * Ho * Wo;
+  const int HWo = Ho * Wo;
   const int K = 9 * cin;
   const int mb = split * chunk;
   const int me = min(M, mb + chunk);
-  const float* xt = x + (size_t)t * M * cin;
+  const float* xt = x + (size_t)t * N * H * W * cin;
   const float* dyt = dy + (size_t)t * M * cout;
 
   if (tid < kWK) {
@@ -108,12 +123,17 @@ conv3x3_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ dy,
     if (tid < kWM) {
       const int m = mc + tid;
       if (m < me) {
-        const int hw = m % HW;
-        row_h[tid] = hw / W;
-        row_w[tid] = hw % W;
+        const int img = m / HWo;
+        const int hw = m - img * HWo;
+        const int h = kStride * (hw / Wo);
+        const int ww = kStride * (hw % Wo);
+        row_h[tid] = h;
+        row_w[tid] = ww;
+        row_base[tid] = ((img * H + h) * W + ww) * cin;
       } else {
         row_h[tid] = kOutOfImage;
         row_w[tid] = 0;
+        row_base[tid] = 0;
       }
     }
     __syncthreads();
@@ -127,7 +147,7 @@ conv3x3_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ dy,
         const int ww = row_w[mm] + dw;
         float v = 0.f;
         if (h >= 0 && h < H && ww >= 0 && ww < W)
-          v = xt[(long long)(mc + mm) * cin + delta];
+          v = xt[row_base[mm] + delta];
         ps[mm][kk] = v;
       }
     }
@@ -209,37 +229,54 @@ __global__ void conv3x3_wgrad_reduce_kernel(const float* __restrict__ part_w,
 
 extern "C" {
 
-// dx (T, N, H, W, cin_fwd) = dgrad of the forward conv with weights
-// w (T, 3, 3, cin_fwd, cout_fwd), from dy (T, N, H, W, cout_fwd).
+// dx (T, N, H, W, cin_fwd) = dgrad of the forward conv at `stride` (1 or
+// 2, pad 1) with weights w (T, 3, 3, cin_fwd, cout_fwd), from dy (T, N, Ho,
+// Wo, cout_fwd), Ho = (H - 1) / stride + 1 (Wo likewise).
 int conv3x3_dgrad(const float* dy, const float* w, float* dx, int T, int N,
-                  int H, int W, int cin_fwd, int cout_fwd, void* stream) {
+                  int H, int W, int stride, int cin_fwd, int cout_fwd,
+                  void* stream) {
+  if (stride != 1 && stride != 2) return (int)cudaErrorInvalidValue;
+  const int Ho = (H - 1) / stride + 1;
+  const int Wo = (W - 1) / stride + 1;
   const int M = N * H * W;
-  if (T < 1 || M < 1 || cin_fwd < 1 || cout_fwd < 1)
+  if (T < 1 || H < 1 || W < 1 || M < 1 || cin_fwd < 1 || cout_fwd < 1)
     return (int)cudaErrorInvalidValue;
   dim3 grid(maml::ceil_div(M, maml::kBM), maml::ceil_div(cin_fwd, maml::kBN),
             T);
-  maml::conv3x3_dgrad_kernel<<<grid, maml::kThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-      dy, w, dx, N, H, W, cin_fwd, cout_fwd);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (stride == 1)
+    maml::conv3x3_dgrad_kernel<1><<<grid, maml::kThreads, 0, st>>>(
+        dy, w, dx, N, H, W, Ho, Wo, cin_fwd, cout_fwd);
+  else
+    maml::conv3x3_dgrad_kernel<2><<<grid, maml::kThreads, 0, st>>>(
+        dy, w, dx, N, H, W, Ho, Wo, cin_fwd, cout_fwd);
   return (int)cudaGetLastError();
 }
 
-// dw (T, 3, 3, cin, cout) and db (T, cout) from x (T, N, H, W, cin) and
-// dy (T, N, H, W, cout); part_w (T, S, 9*cin*cout) and part_b (T, S, cout)
-// are scratch. Two launches on `stream`.
+// dw (T, 3, 3, cin, cout) and db (T, cout) of the conv at `stride` from
+// x (T, N, H, W, cin) and dy (T, N, Ho, Wo, cout); part_w (T, S,
+// 9*cin*cout) and part_b (T, S, cout) are scratch. Two launches on
+// `stream`.
 int conv3x3_wgrad(const float* x, const float* dy, float* part_w,
                   float* part_b, float* dw, float* db, int T, int N, int H,
-                  int W, int cin, int cout, int S, void* stream) {
-  const int M = N * H * W;
-  if (T < 1 || M < 1 || cin < 1 || cout < 1 || S < 1 || S > M ||
-      T * S > 65535)
+                  int W, int stride, int cin, int cout, int S, void* stream) {
+  if (stride != 1 && stride != 2) return (int)cudaErrorInvalidValue;
+  const int Ho = (H - 1) / stride + 1;
+  const int Wo = (W - 1) / stride + 1;
+  const int M = N * Ho * Wo;
+  if (T < 1 || H < 1 || W < 1 || M < 1 || cin < 1 || cout < 1 || S < 1 ||
+      S > M || T * S > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int chunk = maml::ceil_div(M, S);
   dim3 grid(maml::ceil_div(9 * cin, maml::kWK), maml::ceil_div(cout, maml::kWN),
             T * S);
-  maml::conv3x3_wgrad_kernel<<<grid, maml::kThreads, 0, st>>>(
-      x, dy, part_w, part_b, N, H, W, cin, cout, S, chunk);
+  if (stride == 1)
+    maml::conv3x3_wgrad_kernel<1><<<grid, maml::kThreads, 0, st>>>(
+        x, dy, part_w, part_b, N, H, W, Ho, Wo, cin, cout, S, chunk);
+  else
+    maml::conv3x3_wgrad_kernel<2><<<grid, maml::kThreads, 0, st>>>(
+        x, dy, part_w, part_b, N, H, W, Ho, Wo, cin, cout, S, chunk);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int KC = 9 * cin * cout;

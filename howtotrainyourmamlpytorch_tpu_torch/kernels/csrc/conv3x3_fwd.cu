@@ -20,6 +20,15 @@
 // The variance is within tolerance of both of the JAX package's
 // `bn_stats_impl` modes ('twopass' and 'fused').
 //
+// Stride 2 (the strided model, `max_pooling=False`: 28 -> 14 -> 7 -> 4 ->
+// 2 at Omniglot's width) runs the same tile with the row origin at
+// (2*oh - 1, 2*ow - 1) of an input of another size (conv3x3_tile.cuh);
+// the statistics run over the N*Ho*Wo output pixels, unchanged. Its bound
+// is that of the stride-1 conv on a quarter of the pixels: FLOPs at
+// layers 2-4 of the strided Omniglot model (e.g. 578 MFLOP against 11 MB
+// at layer 2, T = 8, N = 20), bytes at layer 1 (cin = 1). A template
+// argument, so the stride-1 instantiation is the code it was, bit for bit.
+//
 // Stats-free mode (`conv3x3_fwd`): y = conv3x3(x, w) (+ b when b is given),
 // the same tile, no statistics and no merge launch. The second-order
 // backward of the block needs this conv twice per block and inner step:
@@ -57,28 +66,31 @@ __device__ __forceinline__ void add_bias_and_store(float acc[kTM][kTN],
   }
 }
 
+template <int kStride>
 __global__ void __launch_bounds__(kThreads)
 conv3x3_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
                    const float* bias, float* __restrict__ y, int N, int H,
-                   int W, int cin, int cout) {
+                   int W, int Ho, int Wo, int cin, int cout) {
   __shared__ ConvTileSmem s;
   const int t = blockIdx.z;
   const int m0 = blockIdx.x * kBM;
   const int n0 = blockIdx.y * kBN;
-  const int M = N * H * W;
+  const int M = N * Ho * Wo;
   float acc[kTM][kTN];
-  conv3x3_tile<false>(x + (size_t)t * M * cin, w + (size_t)t * 9 * cin * cout,
-                      H, W, M, cin, cout, m0, n0, s, acc);
+  conv3x3_tile<kStride, false>(x + (size_t)t * N * H * W * cin,
+                               w + (size_t)t * 9 * cin * cout, H, W, Ho, Wo,
+                               M, cin, cout, m0, n0, s, acc);
   add_bias_and_store(acc, bias == nullptr ? nullptr : bias + t * cout,
                      y + (size_t)t * M * cout, M, cout, m0, n0);
 }
 
+template <int kStride>
 __global__ void __launch_bounds__(kThreads)
 conv3x3_fwd_stats_kernel(const float* __restrict__ x,
                          const float* __restrict__ w,
                          const float* __restrict__ bias, float* __restrict__ y,
                          float* __restrict__ part, int N, int H, int W,
-                         int cin, int cout, int mtiles) {
+                         int Ho, int Wo, int cin, int cout, int mtiles) {
   __shared__ ConvTileSmem s;
   __shared__ float red[32][kBN + 1];
   __shared__ float col_mean[kBN];
@@ -87,10 +99,11 @@ conv3x3_fwd_stats_kernel(const float* __restrict__ x,
   const int mt = blockIdx.x;
   const int n0 = blockIdx.y * kBN;
   const int m0 = mt * kBM;
-  const int M = N * H * W;
+  const int M = N * Ho * Wo;
   float acc[kTM][kTN];
-  conv3x3_tile<false>(x + (size_t)t * M * cin, w + (size_t)t * 9 * cin * cout,
-                      H, W, M, cin, cout, m0, n0, s, acc);
+  conv3x3_tile<kStride, false>(x + (size_t)t * N * H * W * cin,
+                               w + (size_t)t * 9 * cin * cout, H, W, Ho, Wo,
+                               M, cin, cout, m0, n0, s, acc);
 
   const int cg = tid % 4;
   const int rg = tid / 4;
@@ -200,23 +213,32 @@ bn_stats_merge_kernel(const float* __restrict__ part, float* __restrict__ mean,
 
 extern "C" {
 
-// y = conv3x3(x, w) + b and y's per-(tenant, channel) mean / biased var /
-// rstd. x (T, N, H, W, cin), w (T, 3, 3, cin, cout), b (T, cout), y
-// (T, N, H, W, cout), part scratch (T, mtiles, 3, cout) with
-// mtiles = ceil(N*H*W / 256); mean, var, rstd (T, cout). Two launches on
+// y = conv3x3(x, w) + b at `stride` (1 or 2, pad 1) and y's per-(tenant,
+// channel) mean / biased var / rstd. x (T, N, H, W, cin), w (T, 3, 3, cin,
+// cout), b (T, cout), y (T, N, Ho, Wo, cout) with Ho = (H - 1) / stride + 1
+// (Wo likewise), part scratch (T, mtiles, 3, cout) with
+// mtiles = ceil(N*Ho*Wo / 256); mean, var, rstd (T, cout). Two launches on
 // `stream`; returns the first CUDA error, 0 on success.
 int conv3x3_fwd_stats(const float* x, const float* w, const float* b,
                       float* y, float* part, float* mean, float* var,
-                      float* rstd, int T, int N, int H, int W, int cin,
-                      int cout, int mtiles, float eps, void* stream) {
-  const int M = N * H * W;
-  if (T < 1 || M < 1 || cin < 1 || cout < 1 ||
+                      float* rstd, int T, int N, int H, int W, int stride,
+                      int cin, int cout, int mtiles, float eps,
+                      void* stream) {
+  if (stride != 1 && stride != 2) return (int)cudaErrorInvalidValue;
+  const int Ho = (H - 1) / stride + 1;
+  const int Wo = (W - 1) / stride + 1;
+  const int M = N * Ho * Wo;
+  if (T < 1 || H < 1 || W < 1 || M < 1 || cin < 1 || cout < 1 ||
       mtiles != maml::ceil_div(M, maml::kBM))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   dim3 grid(mtiles, maml::ceil_div(cout, maml::kBN), T);
-  maml::conv3x3_fwd_stats_kernel<<<grid, maml::kThreads, 0, st>>>(
-      x, w, b, y, part, N, H, W, cin, cout, mtiles);
+  if (stride == 1)
+    maml::conv3x3_fwd_stats_kernel<1><<<grid, maml::kThreads, 0, st>>>(
+        x, w, b, y, part, N, H, W, Ho, Wo, cin, cout, mtiles);
+  else
+    maml::conv3x3_fwd_stats_kernel<2><<<grid, maml::kThreads, 0, st>>>(
+        x, w, b, y, part, N, H, W, Ho, Wo, cin, cout, mtiles);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   maml::bn_stats_merge_kernel<<<dim3(cout, T), maml::kMergeThreads, 0, st>>>(
@@ -224,18 +246,26 @@ int conv3x3_fwd_stats(const float* x, const float* w, const float* b,
   return (int)cudaGetLastError();
 }
 
-// y = conv3x3(x, w) (+ b): the stats-free mode. x (T, N, H, W, cin), w
-// (T, 3, 3, cin, cout), b (T, cout) or null, y (T, N, H, W, cout). One
-// launch on `stream`; returns its CUDA error, 0 on success.
+// y = conv3x3(x, w) (+ b) at `stride`: the stats-free mode. x (T, N, H, W,
+// cin), w (T, 3, 3, cin, cout), b (T, cout) or null, y (T, N, Ho, Wo,
+// cout). One launch on `stream`; returns its CUDA error, 0 on success.
 int conv3x3_fwd(const float* x, const float* w, const float* b, float* y,
-                int T, int N, int H, int W, int cin, int cout, void* stream) {
-  const int M = N * H * W;
-  if (T < 1 || M < 1 || cin < 1 || cout < 1)
+                int T, int N, int H, int W, int stride, int cin, int cout,
+                void* stream) {
+  if (stride != 1 && stride != 2) return (int)cudaErrorInvalidValue;
+  const int Ho = (H - 1) / stride + 1;
+  const int Wo = (W - 1) / stride + 1;
+  const int M = N * Ho * Wo;
+  if (T < 1 || H < 1 || W < 1 || M < 1 || cin < 1 || cout < 1)
     return (int)cudaErrorInvalidValue;
   dim3 grid(maml::ceil_div(M, maml::kBM), maml::ceil_div(cout, maml::kBN), T);
-  maml::conv3x3_fwd_kernel<<<grid, maml::kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      x, w, b, y, N, H, W, cin, cout);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (stride == 1)
+    maml::conv3x3_fwd_kernel<1><<<grid, maml::kThreads, 0, st>>>(
+        x, w, b, y, N, H, W, Ho, Wo, cin, cout);
+  else
+    maml::conv3x3_fwd_kernel<2><<<grid, maml::kThreads, 0, st>>>(
+        x, w, b, y, N, H, W, Ho, Wo, cin, cout);
   return (int)cudaGetLastError();
 }
 

@@ -1,13 +1,27 @@
-// Shared main loop of the task-batched 3x3 implicit GEMM (stride 1, pad 1,
-// NHWC activations, HWIO weights), used by K1's forward (conv3x3_fwd.cu)
-// and K4's dgrad (conv3x3_bwd.cu).
+// Shared main loop of the task-batched 3x3 implicit GEMM (pad 1, stride 1
+// or 2, NHWC activations, HWIO weights), used by K1's forward
+// (conv3x3_fwd.cu) and K4's dgrad (conv3x3_bwd.cu).
 //
 // Per tenant t the conv is the GEMM  out[M, cout] = patches[M, K] x W[K, cout]
-// with M = N*H*W output pixels and K = 9*cin in the order (kh, kw, cin) —
+// with M = N*Ho*Wo output pixels and K = 9*cin in the order (kh, kw, cin) —
 // the order of the JAX package's `_im2col` concatenation and of the HWIO
 // weight reshape (ops/functional.py in both packages). The patch matrix is
 // never written to memory: each block loads its A tile straight from x,
 // zero-padding the halo by a bounds check.
+//
+// Geometry: the GEMM's rows are the pixels of an Hr x Wr grid; A reads a
+// source grid of Hs x Ws pixels. The forward (kFlipW = false) at stride s:
+// row (oh, ow) is an output pixel, Hs x Ws the input, and tap (kh, kw)
+// reads input (s*oh - 1 + kh, s*ow - 1 + kw) — at stride 2 an input of
+// another size than the output (28 -> 14, 7 -> 4: the bottom pad row of an
+// odd input is read, and the bounds check zeroes it). The dgrad
+// (kFlipW = true): row (ih, iw) is an input pixel, the source is dy, and
+// the weights are read flipped in space and transposed in channels; at
+// stride 1 tap (kh', kw') reads dy at (ih - 1 + kh', iw - 1 + kw'), at
+// stride 2 it reads dy at ((ih - 1 + kh') / 2, (iw - 1 + kw') / 2) where
+// both are even and inside dy, and nothing otherwise: all 9 taps are
+// masked by parity (1, 2, 2 or 4 live, by the parity of (ih, iw)), the
+// simple design, which spends about 4x the useful FMAs.
 //
 // Tile: 256 pixels x 16 channels per block of 128 threads; K in stages of 16
 // through shared memory. Thread (rg = tid / 4, cg = tid % 4) owns rows
@@ -32,34 +46,55 @@ constexpr int kOutOfImage = -1000000;  // a row or tap that never lands in bound
 struct __align__(16) ConvTileSmem {
   float a[kBK][kBM + kPadM];  // A tile, transposed: a[k][pixel]
   float b[kBK][kBN];          // B tile: b[k][channel]
-  int row_h[kBM];             // output pixel (h, w) of each tile row
-  int row_w[kBM];
+  int row_h[kBM];             // the source coordinates of tap (1, 1)
+  int row_w[kBM];             // of each tile row
+  int row_base[kBM];          // element offset of that pixel (dgrad at
+                              // stride 2: of its image) in the source
   int k_dh[kBK];              // tap offsets of each k in the stage
   int k_dw[kBK];
   int k_delta[kBK];           // element offset of the tap from the pixel
+                              // (dgrad at stride 2: its channel)
 };
 
 // acc[i][j] accumulates out[m0 + rg + 32*i][n0 + cg*4 + j].
-// x, w: this tenant's input (M*cin) and weights. kFlipW selects the dgrad
-// weight view: w then holds the FORWARD weights (3, 3, cout, cin) and the
-// kernel reads w'[kh][kw][ci][co] = w[2-kh][2-kw][co][ci], the transposed
-// conv that maps dy to dx.
-template <bool kFlipW>
+// x, w: this tenant's source (N*Hs*Ws*cin) and weights; the rows are the
+// M = N*Hr*Wr pixels of the Hr x Wr grid. kFlipW selects the dgrad weight
+// view: w then holds the FORWARD weights (3, 3, cout, cin) and the kernel
+// reads w'[kh][kw][ci][co] = w[2-kh][2-kw][co][ci], the transposed conv
+// that maps dy to dx. At kStride = 1, Hr = Hs and Wr = Ws.
+template <int kStride, bool kFlipW>
 __device__ __forceinline__ void conv3x3_tile(
-    const float* __restrict__ x, const float* __restrict__ w, int H, int W,
-    int M, int cin, int cout, int m0, int n0, ConvTileSmem& s,
-    float acc[kTM][kTN]) {
+    const float* __restrict__ x, const float* __restrict__ w, int Hs, int Ws,
+    int Hr, int Wr, int M, int cin, int cout, int m0, int n0,
+    ConvTileSmem& s, float acc[kTM][kTN]) {
+  static_assert(kStride == 1 || kStride == 2, "stride 1 or 2");
+  // the dgrad at stride 2 gathers dy by parity; every other mode reads the
+  // source at a fixed offset from the row's pixel
+  constexpr bool kParity = kFlipW && kStride == 2;
   const int tid = threadIdx.x;
-  const int HW = H * W;
+  const int HWr = Hr * Wr;
   for (int r = tid; r < kBM; r += kThreads) {
     const int m = m0 + r;
     if (m < M) {
-      const int hw = m % HW;
-      s.row_h[r] = hw / W;
-      s.row_w[r] = hw % W;
+      const int img = m / HWr;
+      const int hw = m - img * HWr;
+      const int ph = hw / Wr;
+      const int pw = hw - ph * Wr;
+      if (kParity) {
+        s.row_h[r] = ph;
+        s.row_w[r] = pw;
+        s.row_base[r] = img * Hs * Ws * cin;
+      } else {
+        const int h = (kFlipW ? 1 : kStride) * ph;
+        const int ww = (kFlipW ? 1 : kStride) * pw;
+        s.row_h[r] = h;
+        s.row_w[r] = ww;
+        s.row_base[r] = ((img * Hs + h) * Ws + ww) * cin;
+      }
     } else {
       s.row_h[r] = kOutOfImage;
       s.row_w[r] = 0;
+      s.row_base[r] = 0;
     }
   }
 #pragma unroll
@@ -83,7 +118,7 @@ __device__ __forceinline__ void conv3x3_tile(
         const int dw = kpos % 3 - 1;
         s.k_dh[tid] = dh;
         s.k_dw[tid] = dw;
-        s.k_delta[tid] = (dh * W + dw) * cin + ci;
+        s.k_delta[tid] = kParity ? ci : (dh * Ws + dw) * cin + ci;
       } else {
         s.k_dh[tid] = kOutOfImage;
         s.k_dw[tid] = 0;
@@ -117,8 +152,14 @@ __device__ __forceinline__ void conv3x3_tile(
       const int h = s.row_h[r] + dh;
       const int ww = s.row_w[r] + dw;
       float v = 0.f;
-      if (h >= 0 && h < H && ww >= 0 && ww < W)
-        v = x[(long long)(m0 + r) * cin + delta];
+      if (kParity) {
+        // dy pixel (h / 2, ww / 2), where h and ww are even
+        if (h >= 0 && ww >= 0 && ((h | ww) & 1) == 0 && (h >> 1) < Hs &&
+            (ww >> 1) < Ws)
+          v = x[s.row_base[r] + ((h >> 1) * Ws + (ww >> 1)) * cin + delta];
+      } else if (h >= 0 && h < Hs && ww >= 0 && ww < Ws) {
+        v = x[s.row_base[r] + delta];
+      }
       s.a[kk_ld][r] = v;
     }
     __syncthreads();

@@ -13,12 +13,18 @@ carries a leading ``T`` axis (each tenant adapts its own copy) while frozen
 parameters are shared, and the returned BN state is per tenant
 ``(T, steps, f)``.
 
-The port covers the model the serving and training paths run:
-``block_order='conv_norm_relu'``, ``norm_layer='batch_norm'``,
-``max_pooling=True`` with padded convs. Each block is one
+The port covers ``block_order='conv_norm_relu'`` with
+``norm_layer='batch_norm'`` and padded convs, in both geometries: with
+``max_pooling=True`` each stage is a stride-1 conv followed by a 2x2 max
+pool; with ``max_pooling=False`` (the strided model, the JAX package's
+default) each stage is a stride-2 conv with no pool, and the features are
+the global average pool of the last stage (``models/vgg.py`` :200, :301,
+:304-305 of the JAX package). Each block is one
 ``kernels.conv_block.conv_bn_act_pool`` call (plain ops on the CPU, the
-hand-written kernels on the card, differentiable twice). Other
-configurations raise ``NotImplementedError`` naming the missing kernel.
+hand-written kernels on the card, differentiable twice); in the strided
+model the last block also takes the global average pool, so that the
+block given to ``apply`` decides how it is computed. Other configurations
+raise ``NotImplementedError`` naming the missing kernel.
 """
 
 from __future__ import annotations
@@ -35,7 +41,8 @@ from ..ops import functional as F
 
 Params = Dict[str, torch.Tensor]
 BNState = Dict[str, torch.Tensor]
-#: ``block(x, w, b, gamma, beta, stats_impl) -> (pooled, mean, var)``
+#: ``block(x, w, b, gamma, beta, stats_impl, stride=, pool=, gap=) ->
+#: (out, mean, var)``
 BlockFn = Callable[..., Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
 
 
@@ -48,9 +55,6 @@ def check_supported(cfg: MAMLConfig) -> None:
     if cfg.norm_layer != "batch_norm":
         missing.append("norm_layer='layer_norm' (layer-norm kernel, ROADMAP "
                        "Queue B5)")
-    if not cfg.max_pooling:
-        missing.append("max_pooling=False (stride-2 conv and global average "
-                       "pool kernels, ROADMAP Queue B5)")
     if not cfg.conv_padding:
         missing.append("conv_padding=False (unpadded 3x3 conv kernel)")
     if missing:
@@ -170,6 +174,7 @@ def apply(cfg: MAMLConfig, params: Params, bn_state: BNState,
     per_step_affine = (cfg.per_step_bn_statistics
                        and not cfg.enable_inner_loop_optimizable_bn_params)
     stats_impl = cfg.resolved_bn_stats_impl(x.device)
+    stride = 1 if cfg.max_pooling else 2
     n_tenants = x.shape[0]
     out = x.to(dtype)
     new_bn: BNState = {}
@@ -178,10 +183,14 @@ def apply(cfg: MAMLConfig, params: Params, bn_state: BNState,
         beta = params[f"conv{i}.norm.beta"]
         if per_step_affine:
             gamma, beta = gamma[step], beta[step]
-        conv_n = out.shape[1] * out.shape[2] * out.shape[3]
+        # the batch statistics' count: the conv output's pixels
+        conv_n = out.shape[1] * math.prod(
+            F.conv_out_hw(out.shape[2], out.shape[3], stride))
         out, mean, var = block(
             out, params[f"conv{i}.conv.weight"].to(dtype),
             params[f"conv{i}.conv.bias"].to(dtype), gamma, beta, stats_impl,
+            stride=stride, pool=cfg.max_pooling,
+            gap=not cfg.max_pooling and i == cfg.num_stages - 1,
         )
         mean_key, var_key = f"conv{i}.norm.mean", f"conv{i}.norm.var"
         if mean_key not in bn_state:

@@ -203,25 +203,38 @@ def accuracy(logits: Tensor, labels: Tensor) -> Tensor:
     return (torch.argmax(logits, dim=-1) == labels.long()).float()
 
 
+def global_avg_pool2d(x: Tensor) -> Tensor:
+    """Mean over H and W of an NHWC activation: ``(..., N, H, W, C) ->
+    (..., N, C)``, the JAX package's ``global_avg_pool2d`` (``(N, 1, 1,
+    C)``) reshaped to its features as ``vgg.apply`` does."""
+    return x.mean(dim=(-3, -2))
+
+
 def conv_bn_act_pool(x: Tensor, w: Tensor, b: Tensor, gamma: Tensor,
                      beta: Tensor, stats_impl: str = "twopass",
                      eps: float = BN_EPS,
-                     negative_slope: float = LEAKY_SLOPE
+                     negative_slope: float = LEAKY_SLOPE, stride: int = 1,
+                     pool: bool = True, gap: bool = False
                      ) -> Tuple[Tensor, Tensor, Tensor]:
-    """The slice's block in plain ops, differentiable by autograd: 3x3 conv
-    (stride 1, pad 1) + bias -> batch norm -> leaky-ReLU -> 2x2 max pool.
+    """The model's block in plain ops, differentiable by autograd: 3x3 conv
+    (``stride``, pad 1) + bias -> batch norm -> leaky-ReLU, then the 2x2
+    max pool when ``pool`` (the max-pooling model) and the global average
+    pool when ``gap`` (the last block of the strided model).
 
-    Returns ``(pooled, batch_mean, batch_var)``; the statistics are
-    detached (they only feed the running-stat update, which no gradient
-    reads)."""
-    y = conv2d(x, w, b, 1, 1)
+    Returns ``(out, batch_mean, batch_var)``; the statistics are detached
+    (they only feed the running-stat update, which no gradient reads)."""
+    y = conv2d(x, w, b, stride, 1)
     mean, var = batch_stats(y, stats_impl)
     inv = torch.rsqrt(var + eps).to(y.dtype)
     z = (y - _per_channel(mean, y)) * _per_channel(inv, y)
     z = z * _per_channel(gamma.to(y.dtype), y) + _per_channel(
         beta.to(y.dtype), y)
-    pooled = max_pool2d(leaky_relu(z, negative_slope))
-    return pooled, mean.detach(), var.detach()
+    out = leaky_relu(z, negative_slope)
+    if pool:
+        out = max_pool2d(out)
+    if gap:
+        out = global_avg_pool2d(out)
+    return out, mean.detach(), var.detach()
 
 
 # -- plain twins of the hand-written kernels ----------------------------------
@@ -237,17 +250,20 @@ def bn_stats(y: Tensor, eps: float = BN_EPS) -> Tuple[Tensor, Tensor, Tensor]:
     return mean, var, 1.0 / torch.sqrt(var + eps)
 
 
-def conv3x3_fwd_stats(x: Tensor, w: Tensor, b: Tensor, eps: float = BN_EPS
+def conv3x3_fwd_stats(x: Tensor, w: Tensor, b: Tensor, eps: float = BN_EPS,
+                      stride: int = 1
                       ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
-    """Twin of K1: ``y = conv3x3(x, w) + b`` and y's per-(tenant, channel)
-    batch mean, biased variance and ``rstd = 1 / sqrt(var + eps)``."""
-    y = conv2d(x, w, b, 1, 1)
+    """Twin of K1: ``y = conv3x3(x, w) + b`` (``stride``, pad 1) and y's
+    per-(tenant, channel) batch mean, biased variance and
+    ``rstd = 1 / sqrt(var + eps)``."""
+    y = conv2d(x, w, b, stride, 1)
     return (y, *bn_stats(y, eps))
 
 
-def conv3x3(x: Tensor, w: Tensor, b: Optional[Tensor] = None) -> Tensor:
+def conv3x3(x: Tensor, w: Tensor, b: Optional[Tensor] = None,
+            stride: int = 1) -> Tensor:
     """Twin of K1's stats-free mode: ``y = conv3x3(x, w) (+ b)``."""
-    return conv2d(x, w, b, 1, 1)
+    return conv2d(x, w, b, stride, 1)
 
 
 def _windows(a: Tensor) -> Tensor:
@@ -267,14 +283,20 @@ def _affine_act(y: Tensor, mean: Tensor, rstd: Tensor, gamma: Tensor,
     return xhat, xhat * _per_channel(gamma, y) + _per_channel(beta, y)
 
 
+def bn_act_fwd(y: Tensor, mean: Tensor, rstd: Tensor, gamma: Tensor,
+               beta: Tensor, negative_slope: float = LEAKY_SLOPE) -> Tensor:
+    """Twin of K2's pool-free mode: normalize, affine and leaky-ReLU."""
+    _, z = _affine_act(y, mean, rstd, gamma, beta)
+    return leaky_relu(z, negative_slope)
+
+
 def bn_act_pool_fwd(y: Tensor, mean: Tensor, rstd: Tensor, gamma: Tensor,
                     beta: Tensor, negative_slope: float = LEAKY_SLOPE
                     ) -> Tuple[Tensor, Tensor]:
     """Twin of K2: normalize, affine, leaky-ReLU and 2x2 max pool; returns
     the pooled activation and each pooled element's window argmax (uint8,
     ``2 * dh + dw``, the first maximum on ties)."""
-    _, z = _affine_act(y, mean, rstd, gamma, beta)
-    win = _windows(leaky_relu(z, negative_slope))
+    win = _windows(bn_act_fwd(y, mean, rstd, gamma, beta, negative_slope))
     arg = torch.argmax(win, dim=-1, keepdim=True)
     pooled = torch.gather(win, -1, arg).squeeze(-1)
     return pooled, arg.squeeze(-1).to(torch.uint8)
@@ -291,20 +313,19 @@ def _unpool(pooled: Tensor, argmax: Tensor, h: int, w: int) -> Tensor:
     return tF.pad(dense, (0, 0, 0, w - 2 * wo, 0, h - 2 * ho))
 
 
-def bn_act_pool_bwd(dpooled: Tensor, argmax: Tensor, y: Tensor, mean: Tensor,
-                    rstd: Tensor, gamma: Tensor, beta: Tensor,
-                    negative_slope: float = LEAKY_SLOPE
-                    ) -> Tuple[Tensor, Tensor, Tensor]:
-    """Twin of K3: the backward of ``bn_act_pool_fwd`` through batch norm
-    with batch statistics. Routes dL/dpooled to each window's argmax (a
-    dropped odd row or column receives no dz), through the leaky slope, then
+def bn_act_bwd(da: Tensor, y: Tensor, mean: Tensor, rstd: Tensor,
+               gamma: Tensor, beta: Tensor,
+               negative_slope: float = LEAKY_SLOPE
+               ) -> Tuple[Tensor, Tensor, Tensor]:
+    """Twin of K3's pool-free mode: the backward of ``bn_act_fwd`` through
+    batch norm with batch statistics. dL/da through the leaky slope gives
+    dz, then, over the m = N*H*W positions of each (tenant, channel),
 
         dy = gamma * rstd * (dz - mean(dz) - xhat * mean(dz * xhat)).
 
     Returns ``(dy, dgamma, dbeta)`` with ``dgamma = sum(dz * xhat)`` and
     ``dbeta = sum(dz)`` per (tenant, channel)."""
-    t, n, h, w, c = y.shape
-    da = _unpool(dpooled, argmax, h, w)
+    _, n, h, w, _ = y.shape
     xhat, z = _affine_act(y, mean, rstd, gamma, beta)
     dz = torch.where(z >= 0, da, negative_slope * da)
     dbeta = dz.sum((1, 2, 3))
@@ -317,19 +338,30 @@ def bn_act_pool_bwd(dpooled: Tensor, argmax: Tensor, y: Tensor, mean: Tensor,
     return dy, dgamma, dbeta
 
 
-def bn_act_pool_bwd_bwd(a: Tensor, ggamma: Tensor, gbeta: Tensor,
-                        dpooled: Tensor, argmax: Tensor, y: Tensor,
-                        mean: Tensor, rstd: Tensor, gamma: Tensor,
-                        beta: Tensor, negative_slope: float = LEAKY_SLOPE
-                        ) -> Tuple[Tensor, Tensor, Tensor]:
-    """Twin of K5: the backward of ``bn_act_pool_bwd``, written out as
-    formulas (``kernels/bn_act_pool.py`` derives them).
+def bn_act_pool_bwd(dpooled: Tensor, argmax: Tensor, y: Tensor, mean: Tensor,
+                    rstd: Tensor, gamma: Tensor, beta: Tensor,
+                    negative_slope: float = LEAKY_SLOPE
+                    ) -> Tuple[Tensor, Tensor, Tensor]:
+    """Twin of K3: the backward of ``bn_act_pool_fwd``. Routes dL/dpooled
+    to each window's argmax (a dropped odd row or column receives no dz),
+    then ``bn_act_bwd``."""
+    _, _, h, w, _ = y.shape
+    return bn_act_bwd(_unpool(dpooled, argmax, h, w), y, mean, rstd, gamma,
+                      beta, negative_slope)
+
+
+def bn_act_bwd_bwd(a: Tensor, ggamma: Tensor, gbeta: Tensor, da: Tensor,
+                   y: Tensor, mean: Tensor, rstd: Tensor, gamma: Tensor,
+                   beta: Tensor, negative_slope: float = LEAKY_SLOPE
+                   ) -> Tuple[Tensor, Tensor, Tensor]:
+    """Twin of K5's pool-free mode: the backward of ``bn_act_bwd``, written
+    out as formulas (``kernels/bn_act_pool.py`` derives them).
 
     ``a``, ``ggamma``, ``gbeta`` are the cotangents of K3's ``dy``,
     ``dgamma`` and ``dbeta``. Returns the gradients with respect to
-    ``dpooled``, ``y`` (through the statistics too: ``mean`` and ``rstd``
-    are functions of y) and ``gamma``; beta's is zero (it enters only
-    through the masks)."""
+    ``da``, ``y`` (through the statistics too: ``mean`` and ``rstd`` are
+    functions of y) and ``gamma``; beta's is zero (it enters only through
+    the masks)."""
     _, n, h, w, _ = y.shape
     m = n * h * w
     dims = (1, 2, 3)
@@ -341,35 +373,81 @@ def bn_act_pool_bwd_bwd(a: Tensor, ggamma: Tensor, gbeta: Tensor,
         return torch.where(z >= 0, v, negative_slope * v)
 
     xhat, z = _affine_act(y, mean, rstd, gamma, beta)
-    dz = masked(_unpool(dpooled, argmax, h, w))
+    dz = masked(da)
     m_a, m_ax = a.mean(dims), (a * xhat).mean(dims)
     m_dz, m_dzx = dz.mean(dims), (dz * xhat).mean(dims)
     cross = (a * dz).sum(dims) - m * (m_a * m_dz + m_ax * m_dzx)
     grs = gamma * rstd
-    g_dz = masked(pc(grs) * (a - pc(m_a) - xhat * pc(m_ax))
+    g_da = masked(pc(grs) * (a - pc(m_a) - xhat * pc(m_ax))
                   + pc(ggamma) * xhat + pc(gbeta))
-    g_dpooled = torch.gather(_windows(g_dz), -1,
-                             argmax.long().unsqueeze(-1)).squeeze(-1)
     big_g = -pc(grs) * (pc(m_dzx) * a + pc(m_ax) * dz) + pc(ggamma) * dz
     mean_g = -grs * (m_dzx * m_a + m_ax * m_dz) + ggamma * m_dz
     mean_gx = -2.0 * grs * m_ax * m_dzx + ggamma * m_dzx
     g_y = (pc(rstd) * (big_g - pc(mean_g) - xhat * pc(mean_gx))
            - xhat * pc(rstd * rstd * gamma * cross / m))
-    return g_dpooled, g_y, rstd * cross
+    return g_da, g_y, rstd * cross
 
 
-def conv3x3_dgrad(dy: Tensor, w: Tensor) -> Tensor:
-    """Twin of K4's dgrad: the input gradient of a 3x3 stride-1 pad-1
-    conv, i.e. the conv of ``dy`` with each tenant's weights flipped in
-    space and transposed in channels."""
-    return conv2d(dy, w.flip(1, 2).transpose(-1, -2), None, 1, 1)
+def bn_act_pool_bwd_bwd(a: Tensor, ggamma: Tensor, gbeta: Tensor,
+                        dpooled: Tensor, argmax: Tensor, y: Tensor,
+                        mean: Tensor, rstd: Tensor, gamma: Tensor,
+                        beta: Tensor, negative_slope: float = LEAKY_SLOPE
+                        ) -> Tuple[Tensor, Tensor, Tensor]:
+    """Twin of K5: the backward of ``bn_act_pool_bwd`` — ``bn_act_bwd_bwd``
+    on the unpooled gradient, its ``da`` gradient gathered at each
+    window's argmax. Returns the gradients with respect to ``dpooled``,
+    ``y`` and ``gamma``."""
+    _, _, h, w, _ = y.shape
+    g_da, g_y, g_gamma = bn_act_bwd_bwd(
+        a, ggamma, gbeta, _unpool(dpooled, argmax, h, w), y, mean, rstd,
+        gamma, beta, negative_slope)
+    g_dpooled = torch.gather(_windows(g_da), -1,
+                             argmax.long().unsqueeze(-1)).squeeze(-1)
+    return g_dpooled, g_y, g_gamma
 
 
-def conv3x3_wgrad(x: Tensor, dy: Tensor) -> Tuple[Tensor, Tensor]:
-    """Twin of K4's wgrad: ``dW[t] = patches(x[t])^T @ dy[t]`` in HWIO and
-    ``db[t] = sum(dy[t])`` over (N, H, W)."""
+def conv_out_hw(h: int, w: int, stride: int) -> Tuple[int, int]:
+    """The output size of a 3x3 pad-1 conv at ``stride``."""
+    return (h - 1) // stride + 1, (w - 1) // stride + 1
+
+
+def conv3x3_dgrad(dy: Tensor, w: Tensor, stride: int = 1,
+                  in_hw: Optional[Tuple[int, int]] = None) -> Tensor:
+    """Twin of K4's dgrad: the input gradient of a 3x3 pad-1 conv. At
+    stride 1 the conv of ``dy`` with each tenant's weights flipped in
+    space and transposed in channels; at stride 2 the same conv of ``dy``
+    dilated by 2 (zeros between its pixels), cut to the input size
+    ``in_hw`` (which ``dy`` does not determine: 7 and 8 rows both give
+    4)."""
+    if stride == 1:
+        return conv2d(dy, w.flip(1, 2).transpose(-1, -2), None, 1, 1)
+    h, wd = in_hw
+    t, n, ho, wo, c = dy.shape
+    if conv_out_hw(h, wd, stride) != (ho, wo):
+        raise ValueError(f"conv3x3_dgrad: dy {ho}x{wo} is not the stride-"
+                         f"{stride} output of a {h}x{wd} input")
+    # input pixel i reads dy at (i + 1 - k) / stride: the dilated dy,
+    # padded so that position i + 1 - k of it sits at i + (2 - k)
+    dil = dy.new_zeros(t, n, h + 2, wd + 2, c)
+    dil[:, :, 1:1 + stride * ho:stride, 1:1 + stride * wo:stride] = dy
+    return conv2d(dil, w.flip(1, 2).transpose(-1, -2), None, 1, 0)
+
+
+def conv3x3_wgrad(x: Tensor, dy: Tensor, stride: int = 1
+                  ) -> Tuple[Tensor, Tensor]:
+    """Twin of K4's wgrad: ``dW[t] = patches(x[t])^T @ dy[t]`` in HWIO
+    (the patches of the ``stride`` conv) and ``db[t] = sum(dy[t])`` over
+    (N, Ho, Wo)."""
     t, _, _, _, cin = x.shape
     cout = dy.shape[-1]
-    patches = im2col(x, 3, 3, 1, 1).reshape(t, -1, 9 * cin)
+    patches = im2col(x, 3, 3, stride, 1).reshape(t, -1, 9 * cin)
     dw = torch.matmul(patches.transpose(1, 2), dy.reshape(t, -1, cout))
     return dw.reshape(t, 3, 3, cin, cout), dy.sum((1, 2, 3))
+
+
+def global_avg_pool2d_bwd(dpool: Tensor, h: int, w: int) -> Tensor:
+    """Twin of the GAP backward: ``(T, N, C) -> (T, N, h, w, C)``, each
+    pixel ``dpool / (h * w)``."""
+    t, n, c = dpool.shape
+    return (dpool / (h * w))[:, :, None, None, :].expand(
+        t, n, h, w, c).contiguous()

@@ -7,8 +7,13 @@ through ``ServingEngine`` after a warmup over every (bucket, shots) shape.
 Each group waits for the previous one. ``--ingest`` picks what a request
 carries: float32 pixels (``f32``), raw uint8 pixels decoded on the card
 (``uint8``), or rows of a synthetic uint8 store of ``--store-rows`` rows
-registered with the engine and uploaded once (``index``; 12,000 rows by
-default, the size of the mini-ImageNet test split, 20 classes x 600).
+registered with the engine and uploaded once (``index``; by default the
+size of the dataset's test split: Omniglot ``int(split[2] * 1623)``
+classes x 20 images of {0, 1} pixels, 422 x 20 = 8,440 rows at the
+shipped split; otherwise the mini-ImageNet test split, 20 classes x 600
+= 12,000 rows of any byte). ``--max_pooling true|false`` overrides the
+config's field, as the JAX package's command line overrides any field
+(``false`` serves the strided model).
 
 Prints ONE JSON line: adapt latency p50/p95, ``tenants_per_sec``,
 dispatches, tenants, the ``ingest`` and ``h2d_bytes_per_dispatch`` (the
@@ -25,6 +30,9 @@ ported yet.
     python -m howtotrainyourmamlpytorch_tpu_torch.cli serve-bench \\
         --config experiment_config/mini-imagenet_maml++-mini-imagenet_5_5_2_0.01_48_0.json \\
         --requests 32 --seed 0 --ingest index
+    python -m howtotrainyourmamlpytorch_tpu_torch.cli serve-bench \\
+        --config "experiment_config/omniglot_maml++-omniglot_1_20_8_0.1_64_0.json" \\
+        --max_pooling false --requests 16 --ingest index
 """
 
 from __future__ import annotations
@@ -37,7 +45,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 from .. import kernels
-from ..config import MAMLConfig
+from ..config import MAMLConfig, _coerce_bool
 from ..device import device_name, resolve_device
 from ..state import init_state
 from .batcher import AdaptRequest, IndexRequest, serve_requests
@@ -46,15 +54,37 @@ from .engine import ServingEngine
 INGESTS = ("f32", "uint8", "index")
 #: the mini-ImageNet test split: 20 classes x 600 images
 STORE_ROWS = 12000
+#: Omniglot's character count and images per character
+OMNIGLOT_CLASSES, OMNIGLOT_PER_CLASS = 1623, 20
+
+
+def bool_arg(value: str) -> bool:
+    """A command-line boolean as the JAX package's config overrides take
+    it: ``true`` / ``false`` (any case)."""
+    coerced = _coerce_bool(value)
+    if not isinstance(coerced, bool):
+        raise argparse.ArgumentTypeError(
+            f"expects 'true' or 'false', got {value!r}")
+    return coerced
+
+
+def serving_store_rows(cfg: MAMLConfig) -> int:
+    """Rows of the dataset's test split: Omniglot ``int(split[2] * 1623)``
+    classes (the JAX package's ``split_classes`` arithmetic) x 20 images;
+    otherwise the mini-ImageNet test split's 12,000."""
+    if "omniglot" in cfg.dataset_name:
+        return (int(cfg.train_val_test_split[2] * OMNIGLOT_CLASSES)
+                * OMNIGLOT_PER_CLASS)
+    return STORE_ROWS
 
 
 def _bench_cfg(args) -> MAMLConfig:
     """The generator's config: the user's JSON when given, else a small
     deterministic serving config (``--fast`` shrinks it further)."""
     if args.config:
-        return MAMLConfig.from_json_file(args.config)
-    if args.fast:
-        return MAMLConfig(
+        cfg = MAMLConfig.from_json_file(args.config)
+    elif args.fast:
+        cfg = MAMLConfig(
             dataset_name="omniglot_dataset",
             image_height=10, image_width=10, image_channels=1,
             num_classes_per_set=3, num_samples_per_class=1,
@@ -65,15 +95,19 @@ def _bench_cfg(args) -> MAMLConfig:
             serving_bucket_ladder=[1, 2],
             serving_max_tenants_per_dispatch=2,
         )
-    return MAMLConfig(
-        dataset_name="omniglot_dataset",
-        image_height=28, image_width=28, image_channels=1,
-        num_classes_per_set=5, num_samples_per_class=1,
-        num_target_samples=5, batch_size=8, cnn_num_filters=32,
-        num_stages=4, max_pooling=True, per_step_bn_statistics=True,
-        number_of_training_steps_per_iter=3,
-        number_of_evaluation_steps_per_iter=3,
-    )
+    else:
+        cfg = MAMLConfig(
+            dataset_name="omniglot_dataset",
+            image_height=28, image_width=28, image_channels=1,
+            num_classes_per_set=5, num_samples_per_class=1,
+            num_target_samples=5, batch_size=8, cnn_num_filters=32,
+            num_stages=4, max_pooling=True, per_step_bn_statistics=True,
+            number_of_training_steps_per_iter=3,
+            number_of_evaluation_steps_per_iter=3,
+        )
+    if args.max_pooling is not None:
+        cfg = cfg.replace(max_pooling=args.max_pooling)
+    return cfg
 
 
 def bench_shots_buckets(cfg: MAMLConfig) -> List[int]:
@@ -85,11 +119,13 @@ def _synth_store(cfg: MAMLConfig, rows: int = STORE_ROWS,
                  seed: int = 7) -> np.ndarray:
     """A deterministic (rows, h, w, c) uint8 store for the index ingest,
     made from ``seed`` with numpy (raw bytes: no int64 temporary at
-    store size)."""
+    store size); Omniglot's pixels in {0, 1}, as its 1-bit sources
+    decode."""
     rng = np.random.RandomState(seed)
     h, w, c = cfg.im_shape
-    return np.frombuffer(rng.bytes(rows * h * w * c), np.uint8).reshape(
-        rows, h, w, c).copy()
+    data = np.frombuffer(rng.bytes(rows * h * w * c), np.uint8).reshape(
+        rows, h, w, c)
+    return data & 1 if "omniglot" in cfg.dataset_name else data.copy()
 
 
 def _synth_request(cfg: MAMLConfig, rng, shots: int, tenant_id: str,
@@ -161,8 +197,12 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--ingest", choices=INGESTS, default="f32",
                         help="what a request carries: f32 pixels, uint8 "
                              "pixels, or rows of a registered store")
-    parser.add_argument("--store-rows", type=int, default=STORE_ROWS,
-                        help="rows of the synthetic store of --ingest index")
+    parser.add_argument("--store-rows", type=int, default=None,
+                        help="rows of the synthetic store of --ingest index "
+                             "(default: the dataset's test split)")
+    parser.add_argument("--max_pooling", type=bool_arg, default=None,
+                        help="override the config's max_pooling (true or "
+                             "false), as the JAX command line does")
     parser.add_argument("--device", default=None,
                         help="torch device (default cuda:0; 'cpu' runs the "
                              "plain PyTorch ops)")
@@ -177,7 +217,9 @@ def run(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     n_requests = args.requests or (8 if args.fast else 64)
     shots_buckets = bench_shots_buckets(cfg)
     state = init_state(cfg, device=device)
-    store_rows = args.store_rows if args.ingest == "index" else 0
+    store_rows = 0
+    if args.ingest == "index":
+        store_rows = args.store_rows or serving_store_rows(cfg)
     engine = ServingEngine(
         cfg, state, shots_buckets=shots_buckets, device=device,
         ingest=args.ingest,
@@ -217,6 +259,7 @@ def run(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         "device": str(device),
         "device_name": device_name(device),
         "dtype": cfg.compute_dtype,
+        "max_pooling": cfg.max_pooling,
         "kernel_launches": {k: after[k] - before[k] for k in after},
         "kernel_launches_per_dispatch": per_dispatch,
         "per_dispatch": dispatches,

@@ -1,8 +1,10 @@
 """The port's hand-written kernels held to their plain twins on an NVIDIA
 card, at small and ragged shapes (odd image sizes, channel counts that do
 not fill a tile), and the block's first and second derivatives on them
-against autograd of the plain block; and the ingest kernel
-``episode_expand`` equal to its twin bit for bit (it is a pure lookup).
+against autograd of the plain block — for the max-pooling model and for
+the strided one (stride-2 convs, the pool-free K2/K3/K5, the global
+average pool); and the ingest kernel ``episode_expand`` equal to its twin
+bit for bit (it is a pure lookup).
 These need the card: marked ``cuda``, they skip where
 ``torch.cuda.is_available()`` is false. On the card (``--noconftest``:
 the suite's conftest imports jax, which the port never needs):
@@ -98,8 +100,99 @@ def test_kernels_match_their_twins(shape, device):
     for a, c in zip(cb.bn_act_pool_bwd_bwd(*args),
                     F.bn_act_pool_bwd_bwd(*args)):
         _close(a, c)
-    assert cb.launches() == {**{k: 1 for k in cb.KERNELS}, "conv3x3_fwd": 2,
+    pooled = ("conv3x3_fwd_stats", "bn_act_pool_fwd", "bn_act_pool_bwd",
+              "conv3x3_dgrad", "conv3x3_wgrad")
+    assert cb.launches() == {**{k: 0 for k in cb.KERNELS},
+                             **{k: 1 for k in pooled}, "conv3x3_fwd": 2,
                              "bn_act_pool_bwd_bwd": 2}
+
+
+STRIDED_SHAPES = [
+    # T, N, H, W, cin, cout: 5 -> 3, 7 -> 4 / 8 -> 4 (odd and even), the
+    # image layer (cin 1), Omniglot's last layer (4 -> 2), 1x1 -> 1x1
+    (1, 1, 5, 5, 1, 4),
+    (2, 3, 7, 8, 3, 20),
+    (2, 4, 14, 14, 1, 64),
+    (3, 2, 4, 4, 64, 64),
+    (2, 5, 1, 1, 17, 33),
+]
+
+
+@pytest.mark.parametrize("shape", STRIDED_SHAPES, ids=str)
+def test_strided_kernels_match_their_twins(shape, device):
+    """K1 (both modes), dgrad and wgrad at stride 2, the pool-free K2, K3
+    and K5 on the conv's output, and the GAP forward and backward: each
+    against its twin, one launch per call on its own counter."""
+    x, w, b, gamma, beta = _inputs(shape, device)
+    H, W = shape[2:4]
+    cb.reset_launches()
+    got = cb.conv3x3_fwd_stats(x, w, b, stride=2)
+    want = F.conv3x3_fwd_stats(x, w, b, stride=2)
+    for a, c in zip(got, want):
+        _close(a, c)
+    _close(cb.conv3x3_fwd(x, w, b, 2), F.conv3x3(x, w, b, stride=2))
+    _close(cb.conv3x3_fwd(x, w, None, 2), F.conv3x3(x, w, stride=2))
+    y, mean, _, rstd = want
+    bn = (y, mean, rstd, gamma, beta)
+    _close(cb.bn_act_fwd(*bn), F.bn_act_fwd(*bn))
+    da = torch.randn(y.shape, device=device)
+    for a, c in zip(cb.bn_act_bwd(da, *bn), F.bn_act_bwd(da, *bn)):
+        _close(a, c)
+    dy = F.bn_act_bwd(da, *bn)[0]
+    _close(cb.conv3x3_dgrad(dy, w, 2, (H, W)),
+           F.conv3x3_dgrad(dy, w, 2, (H, W)))
+    for a, c in zip(cb.conv3x3_wgrad(x, dy, 2), F.conv3x3_wgrad(x, dy, 2)):
+        _close(a, c)
+    args = (torch.randn(y.shape, device=device), torch.randn_like(gamma),
+            torch.randn_like(beta), da, *bn)
+    for a, c in zip(cb.bn_act_bwd_bwd(*args), F.bn_act_bwd_bwd(*args)):
+        _close(a, c)
+    act = F.bn_act_fwd(*bn)
+    _close(cb.global_avg_pool2d_fwd(act), F.global_avg_pool2d(act))
+    g = torch.randn(act.shape[0], act.shape[1], act.shape[-1],
+                    device=device)
+    _close(cb.global_avg_pool2d_bwd(g, *act.shape[2:4]),
+           F.global_avg_pool2d_bwd(g, *act.shape[2:4]))
+    strided = ("conv3x3_s2_fwd_stats", "bn_act_fwd", "bn_act_bwd",
+               "conv3x3_s2_dgrad", "conv3x3_s2_wgrad", "bn_act_bwd_bwd",
+               "global_avg_pool2d_fwd", "global_avg_pool2d_bwd")
+    assert cb.launches() == {**{k: 0 for k in cb.KERNELS},
+                             **{k: 1 for k in strided}, "conv3x3_s2_fwd": 2}
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("gap", [False, True], ids=["no_gap", "gap"])
+def test_strided_block_derivatives_match_plain_autograd(gap, device):
+    """The strided block (stride 2, no pool, with and without the global
+    average pool): first derivatives, then a scalar of them differentiated
+    again, on the kernels against autograd of the plain block; the conv
+    bias's second derivative held to the largest entry of all (it is
+    round-off around 0)."""
+    x, w, b, gamma, beta = _inputs((2, 3, 9, 8, 8, 12), device, seed=4)
+    kw = dict(stride=2, pool=False, gap=gap)
+    firsts, seconds = [], []
+    for fn in (cb.conv_bn_act_pool, F.conv_bn_act_pool):
+        leaves = [t.clone().requires_grad_(True) for t in (x, w, b, gamma,
+                                                          beta)]
+        out, _, _ = fn(*leaves, **kw)
+        rng = np.random.RandomState(5)
+        ct = torch.from_numpy(
+            rng.randn(*out.shape).astype(np.float32)).to(device)
+        first = torch.autograd.grad((out * ct).sum(), leaves,
+                                    create_graph=True)
+        firsts.append([f.detach() for f in first])
+        scalar = sum((g * torch.from_numpy(
+            rng.randn(*g.shape).astype(np.float32)).to(device)).sum()
+            for g in first[:4])
+        seconds.append(torch.autograd.grad(scalar, leaves[:4]))
+    for a, c in zip(*firsts):
+        _close(a, c)
+    got, want = seconds
+    for i in (0, 1, 3):  # x, w, gamma
+        _close(got[i], want[i])
+    scale = max(c.abs().max().item() for c in want)
+    err = (got[2].double() - want[2].double()).abs().max().item()
+    assert err <= 1e-5 + 1e-4 * scale, ("b", err, scale)
 
 
 def test_block_gradients_match_plain_autograd(device):
@@ -148,13 +241,42 @@ def test_block_second_derivative_matches_plain_autograd(device):
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(device):
-    x, w, b, _, _ = _inputs((1, 2, 6, 6, 3, 4), device)
+    x, w, b, gamma, beta = _inputs((1, 2, 6, 6, 3, 4), device)
     with pytest.raises(TypeError, match="float32"):
         cb.conv3x3_fwd_stats(x.double(), w, b)
     with pytest.raises(ValueError, match="contiguous"):
         cb.conv3x3_fwd_stats(x.transpose(2, 3), w, b)
     with pytest.raises(ValueError, match="shape"):
         cb.conv3x3_fwd_stats(x, w[:, :, :, :2], b)
+    # the strided model's kernels: stride 3, views, f64
+    cb.reset_launches()
+    with pytest.raises(ValueError, match="stride 1 or 2"):
+        cb.conv3x3_fwd_stats(x, w, b, stride=3)
+    with pytest.raises(ValueError, match="stride 1 or 2"):
+        cb.conv3x3_fwd(x, w, b, 3)
+    with pytest.raises(ValueError, match="stride 1 or 2"):
+        cb.conv3x3_wgrad(x, torch.zeros(1, 2, 2, 2, 4, device=device), 3)
+    dy = torch.zeros(1, 2, 3, 3, 4, device=device)
+    with pytest.raises(ValueError, match="input size"):
+        cb.conv3x3_dgrad(dy, w, 2, (8, 8))
+    with pytest.raises(ValueError, match="contiguous"):
+        cb.conv3x3_wgrad(x, dy.transpose(2, 3), 2)
+    with pytest.raises(TypeError, match="float32"):
+        cb.conv3x3_dgrad(dy.double(), w, 2, (6, 6))
+    y = torch.zeros(1, 2, 3, 3, 4, device=device)
+    stats = (y.new_zeros(1, 4), y.new_ones(1, 4), gamma, beta)
+    with pytest.raises(TypeError, match="float32"):
+        cb.bn_act_fwd(y.double(), *stats)
+    with pytest.raises(ValueError, match="contiguous"):
+        cb.bn_act_bwd(y.transpose(2, 3), y, *stats)
+    with pytest.raises(ValueError, match="shape"):
+        cb.bn_act_bwd_bwd(y, *stats[2:], y[:, :1], y, *stats)
+    with pytest.raises(TypeError, match="float32"):
+        cb.global_avg_pool2d_fwd(y.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        cb.global_avg_pool2d_bwd(
+            torch.zeros(1, 4, 2, device=device).transpose(1, 2), 3, 3)
+    assert set(cb.launches().values()) == {0}
 
 
 # (rows in the store, H = W, C, tasks, classes, columns, support columns)

@@ -2,7 +2,9 @@
 logits, the returned BN state and the first gradient of the logits, for
 every step index including the clamp past ``bn_num_steps``, with and
 without the tenant axis, both ``bn_stats_impl`` modes, and an odd image
-size (11 -> conv 11 -> pool 5 -> pool 2 drops a row and a column).
+size (11 -> conv 11 -> pool 5 -> pool 2 drops a row and a column); and
+the strided model (``max_pooling=False``: 10 -> 5 -> 3 and 11 -> 6 -> 3,
+then the global average pool).
 
 Tolerances: logits and BN state 1e-5 and gradients 1e-4 of their scale
 (f32, sums in another order).
@@ -70,12 +72,14 @@ def _state(jcfg, seed=0):
 
 
 @pytest.mark.parametrize("stats_impl", ["twopass", "fused"])
-@pytest.mark.parametrize("hw", [10, 11])
+@pytest.mark.parametrize("hw,max_pooling", [
+    (10, True), (11, True), (10, False), (11, False)],
+    ids=["10", "11", "10-strided", "11-strided"])
 @pytest.mark.parametrize("step", [0, 1, 3])
-def test_apply_matches_jax(stats_impl, hw, step):
+def test_apply_matches_jax(stats_impl, hw, max_pooling, step):
     """Logits, new BN state and d(logits . ct)/dparams; step 3 is past
     bn_num_steps = 2 and clamps to the last step."""
-    jcfg, cfg = _cfgs(hw, stats_impl)
+    jcfg, cfg = _cfgs(hw, stats_impl, max_pooling=max_pooling)
     net, bn = _state(jcfg)
     rng = np.random.RandomState(hw + step)
     x = rng.randn(5, hw, hw, 3).astype(np.float32)
@@ -153,19 +157,22 @@ def test_apply_eval_returns_bn_state_unchanged():
 
 
 def test_init_and_feature_dim_match_jax():
-    jcfg, cfg = _cfgs(11, "twopass")
-    assert vgg.feature_dim(cfg) == jax_vgg.feature_dim(jcfg)
-    assert list(vgg._stage_dims(cfg)) == list(jax_vgg._stage_dims(jcfg))
-    params, bn = vgg.init(cfg, torch.Generator().manual_seed(0))
-    jparams, jbn = jax_vgg.init(jcfg, jax.random.PRNGKey(0))
-    assert {k: tuple(v.shape) for k, v in params.items()} == {
-        k: tuple(v.shape) for k, v in jparams.items()}
-    assert {k: tuple(v.shape) for k, v in bn.items()} == {
-        k: tuple(v.shape) for k, v in jbn.items()}
+    """Both geometries: pooled (11 -> 5 -> 2, 2x2x6 features) and strided
+    (11 -> 6 -> 3, pooled to 6 features)."""
+    for max_pooling in (True, False):
+        jcfg, cfg = _cfgs(11, "twopass", max_pooling=max_pooling)
+        assert vgg.feature_dim(cfg) == jax_vgg.feature_dim(jcfg)
+        assert list(vgg._stage_dims(cfg)) == list(jax_vgg._stage_dims(jcfg))
+        params, bn = vgg.init(cfg, torch.Generator().manual_seed(0))
+        jparams, jbn = jax_vgg.init(jcfg, jax.random.PRNGKey(0))
+        assert {k: tuple(v.shape) for k, v in params.items()} == {
+            k: tuple(v.shape) for k, v in jparams.items()}
+        assert {k: tuple(v.shape) for k, v in bn.items()} == {
+            k: tuple(v.shape) for k, v in jbn.items()}
 
 
 @pytest.mark.parametrize("change", [
-    dict(max_pooling=False), dict(norm_layer="layer_norm"),
+    dict(conv_padding=False), dict(norm_layer="layer_norm"),
     dict(block_order="norm_conv_relu"),
 ])
 def test_uncovered_models_raise(change):

@@ -328,16 +328,66 @@ def _chip_smoke():
     return module
 
 
-# kernel wrapper -> the twin it takes on the CPU
+# the twin -> the kernel whose wrapper takes it on the CPU; the conv twins
+# serve both strides, and the stride they are called with picks the
+# counter (``conv_block._conv_name``)
 TWINS = {
     "conv3x3_fwd_stats": "conv3x3_fwd_stats",
     "bn_act_pool_fwd": "bn_act_pool_fwd",
     "bn_act_pool_bwd": "bn_act_pool_bwd",
     "conv3x3_dgrad": "conv3x3_dgrad",
     "conv3x3_wgrad": "conv3x3_wgrad",
-    "conv3x3_fwd": "conv3x3",
+    "conv3x3": "conv3x3_fwd",
     "bn_act_pool_bwd_bwd": "bn_act_pool_bwd_bwd",
+    "bn_act_fwd": "bn_act_fwd",
+    "bn_act_bwd": "bn_act_bwd",
+    "bn_act_bwd_bwd": "bn_act_bwd_bwd",
+    "global_avg_pool2d": "global_avg_pool2d_fwd",
+    "global_avg_pool2d_bwd": "global_avg_pool2d_bwd",
 }
+
+
+def _count_function_path(monkeypatch, cfg, second_order, serve=False):
+    """Every kernel call of one train step (with ``serve``, one serve
+    dispatch) on the Function path, counted at the twins the wrappers take
+    on the CPU (a twin that calls another twin counts once, as its one
+    kernel)."""
+    calls = collections.Counter()
+    depth = [0]
+    for twin, kernel in TWINS.items():
+        def counted(*a, _f=getattr(F, twin), _k=kernel, **kw):
+            if depth[0] == 0:
+                calls[conv_block._conv_name(_k, kw.get("stride", 1))
+                      if _k.startswith("conv3x3") else _k] += 1
+            depth[0] += 1
+            try:
+                return _f(*a, **kw)
+            finally:
+                depth[0] -= 1
+        monkeypatch.setattr(F, twin, counted)
+    state = state_lib.init_state(cfg, device="cpu", with_opt=True)
+    batch = bench.synth_batch(cfg, 0, torch.device("cpu"))
+    steps = cfg.number_of_training_steps_per_iter
+    if serve:
+        maml.make_serve_step(cfg, block=conv_block.function_block)(
+            state, *batch, torch.ones(cfg.batch_size))
+    else:
+        maml.make_train_step(cfg, second_order,
+                             block=conv_block.function_block)(
+            state, *batch, np.ones(steps, np.float32) / steps, 1e-3)
+    return {k: calls[k] for k in conv_block.KERNELS}
+
+
+def _formula_cfg(stages, steps, accum, max_pooling):
+    return MAMLConfig(
+        dataset_name="omniglot_dataset", image_height=12, image_width=12,
+        image_channels=1, num_classes_per_set=2, num_samples_per_class=1,
+        num_target_samples=1, batch_size=2, cnn_num_filters=3,
+        num_stages=stages, max_pooling=max_pooling,
+        per_step_bn_statistics=True,
+        learnable_per_layer_per_step_inner_loop_learning_rate=True,
+        number_of_training_steps_per_iter=steps,
+        number_of_evaluation_steps_per_iter=steps, meta_accum_steps=accum)
 
 
 @pytest.mark.parametrize("second_order,stages,steps,accum", [
@@ -347,27 +397,36 @@ def test_chip_smoke_launch_formula_counts_the_function_path(
     """Every kernel call of a train step on the Function path, counted at
     the twins the wrappers take on the CPU, equals the per-step formula
     ``chip_smoke.py`` holds the card's launch counters to."""
-    assert set(TWINS) == set(conv_block.KERNELS)
-    calls = collections.Counter()
-    for kernel, twin in TWINS.items():
-        def counted(*a, _f=getattr(F, twin), _k=kernel, **kw):
-            calls[_k] += 1
-            return _f(*a, **kw)
-        monkeypatch.setattr(F, twin, counted)
-    cfg = MAMLConfig(
-        dataset_name="omniglot_dataset", image_height=12, image_width=12,
-        image_channels=1, num_classes_per_set=2, num_samples_per_class=1,
-        num_target_samples=1, batch_size=2, cnn_num_filters=3,
-        num_stages=stages, max_pooling=True, per_step_bn_statistics=True,
-        learnable_per_layer_per_step_inner_loop_learning_rate=True,
-        number_of_training_steps_per_iter=steps,
-        number_of_evaluation_steps_per_iter=steps, meta_accum_steps=accum)
-    state = state_lib.init_state(cfg, device="cpu", with_opt=True)
-    batch = bench.synth_batch(cfg, 0, torch.device("cpu"))
-    maml.make_train_step(cfg, second_order, block=conv_block.function_block)(
-        state, *batch, np.ones(steps, np.float32) / steps, 1e-3)
+    assert set(TWINS.values()) | {
+        conv_block._conv_name(k, 2) for k in TWINS.values()
+        if k.startswith("conv3x3")} == set(conv_block.KERNELS)
+    cfg = _formula_cfg(stages, steps, accum, max_pooling=True)
     want = _chip_smoke().expected_train_launches(cfg, second_order)
-    assert {k: calls[k] for k in conv_block.KERNELS} == want
+    assert _count_function_path(monkeypatch, cfg, second_order) == want
+
+
+@pytest.mark.parametrize("second_order,stages,steps,accum", [
+    (True, 2, 2, 1), (True, 3, 3, 2), (False, 3, 2, 1), (False, 2, 3, 2)])
+def test_chip_smoke_launch_formula_counts_the_strided_function_path(
+        monkeypatch, second_order, stages, steps, accum):
+    """The same for the strided model (``max_pooling=False``): the
+    stride-2 conv kernels, the pool-free K2/K3/K5 and the global average
+    pool's forward and backward."""
+    cfg = _formula_cfg(stages, steps, accum, max_pooling=False)
+    want = _chip_smoke().expected_train_launches(cfg, second_order)
+    assert want["global_avg_pool2d_fwd"] > 0
+    assert _count_function_path(monkeypatch, cfg, second_order) == want
+
+
+@pytest.mark.parametrize("max_pooling", [True, False],
+                         ids=["pooled", "strided"])
+def test_chip_smoke_serve_launch_formula_counts_the_function_path(
+        monkeypatch, max_pooling):
+    """One serve dispatch on the Function path, counted at the twins,
+    equals ``chip_smoke.expected_launches``, for both models."""
+    cfg = _formula_cfg(3, 2, 1, max_pooling)
+    want = _chip_smoke().expected_launches(cfg)
+    assert _count_function_path(monkeypatch, cfg, False, serve=True) == want
 
 
 def test_train_bench_fast_prints_one_line():
