@@ -51,7 +51,28 @@ Phases, in order; any failure raises and the exit code is non-zero:
    f64 step replaying each f32 run's pool argmaxes and leaky-ReLU signs
    (the smooth rounding error alone), then against f64's own path (twopass
    and fused statistics, each the median over five orders of the images).
-6. Print one ``{"kernels": [...]}`` line (launches summed over all the
+6. The norm-first model (``block_order='norm_conv_relu'``, the same
+   mini-ImageNet config with only that field overridden): its kernels at
+   the four stages (``bn_input_stats`` on the image at C = 3, K2/K3/K5 at
+   slope 1 as ``batch_norm_*``, the leaky-ReLU + pool kernels, K1
+   stats-free with bias at cin 3 and dgrad back to it; the pool-free
+   ``act_*`` and the stride-2 dgrad at cin 1 at the strided Omniglot
+   layers) against their twins, the norm-first block's first and second
+   derivatives (pooled, and strided with GAP; the plain block replays
+   the kernels' pool argmaxes and signs, and in the serve-step and
+   meta-gradient checks the recording kernel block is held bit for bit
+   to the model's own block); ``serve-bench --block_order
+   norm_conv_relu`` with the f32 and index ingests (16
+   requests, launches per dispatch as ``expected_launches`` says), the
+   serve step against the plain one (small and full width), the index
+   dispatch bit-identical to f32, a profiled bucket-8 dispatch;
+   ``train-bench`` second order at batch 2 (launches per step as
+   ``expected_train_launches`` says), the 10-step learning check, a
+   profiled step, the small meta-gradient check and the replayed-path
+   gate on ``--norm-first-grad-seeds``; then 4 f32 requests of the
+   strided norm-first Omniglot model and its small serve-step check.
+   Every kernel must have been launched by some main path.
+7. Print one ``{"kernels": [...]}`` line (launches summed over all the
    main paths), then the result line ``{"ok": true, "device": {...}}``
    last.
 
@@ -90,6 +111,13 @@ OMNIGLOT_IMAGES = 20
 STRIDED_LAYERS = (("layer1", 28, 1), ("layer2", 14, 64), ("layer3", 7, 64),
                   ("layer4", 4, 64))
 STRIDED_ARGS = ("--max_pooling", "false")
+# the norm-first model (the same configs with block_order='norm_conv_relu',
+# the override the JAX command line takes): batch norm of each block's
+# input (3 channels at stage 0, then 48), conv + bias, leaky-ReLU, pool;
+# (label, H = W, channels) of each stage's input
+NORM_FIRST_ARGS = ("--block_order", "norm_conv_relu")
+NORM_FIRST_STAGES = (("stage0", 84, 3), ("stage1", 42, 48),
+                     ("stage2", 21, 48), ("stage3", 10, 48))
 # the index ingest's store: the mini-ImageNet test split, 20 x 600 rows
 STORE_ROWS = 12000
 # episode_expand launches per serve dispatch / train step of each ingest
@@ -156,6 +184,16 @@ REPLACES = {
         "howtotrainyourmamlpytorch_tpu/ops/functional.py:357",
     "global_avg_pool2d_bwd":
         "howtotrainyourmamlpytorch_tpu/ops/functional.py:357",
+    "bn_input_stats": "howtotrainyourmamlpytorch_tpu/ops/functional.py:368",
+    "batch_norm_fwd": "howtotrainyourmamlpytorch_tpu/ops/functional.py:368",
+    "batch_norm_bwd": "howtotrainyourmamlpytorch_tpu/ops/functional.py:368",
+    "batch_norm_bwd_bwd":
+        "howtotrainyourmamlpytorch_tpu/ops/functional.py:368",
+    "act_pool_fwd": "howtotrainyourmamlpytorch_tpu/ops/functional.py:325",
+    "act_pool_bwd": "howtotrainyourmamlpytorch_tpu/ops/functional.py:325",
+    "act_pool_gather": "howtotrainyourmamlpytorch_tpu/ops/functional.py:325",
+    "act_fwd": "howtotrainyourmamlpytorch_tpu/ops/functional.py:363",
+    "act_bwd": "howtotrainyourmamlpytorch_tpu/ops/functional.py:363",
 }
 SOURCES = {
     "conv3x3_fwd_stats": (
@@ -197,7 +235,16 @@ SOURCES.update({
     "global_avg_pool2d_bwd": (
         "triton", "howtotrainyourmamlpytorch_tpu_torch/kernels/"
                   "global_avg_pool.py"),
+    "bn_input_stats": (
+        "triton", "howtotrainyourmamlpytorch_tpu_torch/kernels/bn_stats.py"),
+    "batch_norm_fwd": SOURCES["bn_act_pool_fwd"],
+    "batch_norm_bwd": SOURCES["bn_act_pool_bwd"],
+    "batch_norm_bwd_bwd": SOURCES["bn_act_pool_bwd_bwd"],
 })
+SOURCES.update({
+    k: ("triton", "howtotrainyourmamlpytorch_tpu_torch/kernels/act_pool.py")
+    for k in ("act_pool_fwd", "act_pool_bwd", "act_pool_gather", "act_fwd",
+              "act_bwd")})
 # the shape each kernel's line reports (a key of its records)
 REPORT_AT = {
     "conv3x3_fwd_stats": "T=8 layer1 N=75",
@@ -217,6 +264,15 @@ REPORT_AT = {
     "bn_act_bwd_bwd": "strided T=8 layer1 N=20",
     "global_avg_pool2d_fwd": "strided T=8 layer4 N=20",
     "global_avg_pool2d_bwd": "strided T=8 layer4 N=20",
+    "bn_input_stats": "norm-first T=8 stage0 N=75",
+    "batch_norm_fwd": "norm-first T=8 stage0 N=75",
+    "batch_norm_bwd": "norm-first T=8 stage0 N=25",
+    "batch_norm_bwd_bwd": "norm-first T=8 stage0 N=25",
+    "act_pool_fwd": "norm-first T=8 stage0 N=75",
+    "act_pool_bwd": "norm-first T=8 stage0 N=25",
+    "act_pool_gather": "norm-first T=8 stage0 N=25",
+    "act_fwd": "strided norm-first T=8 layer1 N=20",
+    "act_bwd": "strided norm-first T=8 layer1 N=20",
 }
 TRAIN_TASKS = (2, 8)  # the config's batch, and bench.py's per-chip default
 DEVICE = "cuda:0"
@@ -629,6 +685,218 @@ def check_strided_kernels(cb, F, records, T=T_TENANTS, n=OMNIGLOT_IMAGES,
         torch.cuda.empty_cache()
 
 
+def check_norm_first_kernels(cb, F, records, T=T_TENANTS):
+    """Phase 3, the norm-first block's kernels at the mini-ImageNet model's
+    four stages (T = 8 tasks; the forward kernels at N = 75 images, the
+    backward ones at N = 25): ``bn_input_stats`` and ``batch_norm_fwd`` on
+    the block input (pixels in [0, 1] at stage 0, 3 channels), K1
+    stats-free with bias on the normalized input (the new shape: cin 3 at
+    84x84), ``act_pool_fwd`` on the conv output (48 channels);
+    ``batch_norm_bwd`` / ``batch_norm_bwd_bwd`` (K3/K5 at slope 1),
+    ``act_pool_bwd`` / ``act_pool_gather`` and dgrad back to the input
+    (cin 3 at stage 0). Each against its twin, timed beside it and beside
+    one PyTorch call where one computes the same function:
+    ``torch.var_mean`` for the statistics, ``F.batch_norm`` with the given
+    statistics for the normalize, ``aten.native_batch_norm_backward``
+    (train) for its backward, grouped ``conv2d`` / ``conv2d_input``; none
+    for the act-pool kernels and the double backward. Then
+    ``F.batch_norm(training=True)`` beside the two forward kernels
+    together."""
+    rec = records.add
+    randn = _randn(torch.Generator(device="cuda").manual_seed(21))
+    nnf = torch.nn.functional
+    C = COUT
+    for stage, hw, cin in NORM_FIRST_STAGES:
+        for n in IMAGES:
+            label = f"norm-first T={T} {stage} N={n}"
+            H = W = hw
+            M = n * H * W
+            x = (torch.rand(T, n, H, W, cin, device="cuda") if cin == 3
+                 else randn(T, n, H, W, cin))
+            gamma = 1.0 + randn(T, cin, scale=0.1)
+            beta = randn(T, cin, scale=0.1)
+            mean, var, rstd = F.bn_input_stats(x)
+            bn = (x, mean, rstd, gamma, beta)
+            w = randn(T, 3, 3, cin, C, scale=math.sqrt(2.0 / (9 * cin)))
+            b = randn(T, C, scale=0.1)
+            y = F.conv3x3(F.batch_norm_fwd(*bn), w, b)
+            xl = _nchw_tenants(x)
+            if n == max(IMAGES):
+                # the forward: support and target, the target's N here
+                err = _bn_errs("bn_input_stats", cb.bn_input_stats(x),
+                               (mean, var, rstd), ("mean", "var", "rstd"),
+                               label)
+                rec("bn_input_stats", label, err,
+                    lambda: cb.bn_input_stats(x),
+                    lambda: F.bn_input_stats(x),
+                    lambda: torch.var_mean(x, dim=(1, 2, 3), correction=0),
+                    4 * x.numel(), 4 * (x.numel() + 3 * T * cin))
+                err = max_err("batch_norm_fwd", cb.batch_norm_fwd(*bn),
+                              F.batch_norm_fwd(*bn))
+                args = (mean.reshape(-1), var.reshape(-1),
+                        gamma.reshape(-1), beta.reshape(-1))
+                rec("batch_norm_fwd", label, err,
+                    lambda: cb.batch_norm_fwd(*bn),
+                    lambda: F.batch_norm_fwd(*bn),
+                    lambda: nnf.batch_norm(xl, *args, training=False,
+                                           eps=F.BN_EPS),
+                    4 * x.numel(), 4 * (2 * x.numel() + 4 * T * cin))
+                both = time_ms(lambda: cb.batch_norm_fwd(
+                    x, *cb.bn_input_stats(x)[::2], gamma, beta))
+                lib = time_ms(lambda: nnf.batch_norm(
+                    xl, None, None, args[2], args[3], training=True,
+                    eps=F.BN_EPS))
+                print(f"  B5b forward @ {label}: bn_input_stats + "
+                      f"batch_norm_fwd {both:.4f} ms, F.batch_norm("
+                      f"training=True) {lib:.4f} ms", flush=True)
+                if cin == 3:
+                    z = F.batch_norm_fwd(*bn)
+                    wl = w.permute(0, 4, 3, 1, 2).reshape(T * C, cin, 3, 3)
+                    wl, zl = wl.contiguous(), _nchw_tenants(z)
+                    err = max_err("conv3x3_fwd", cb.conv3x3_fwd(z, w, b), y)
+                    rec("conv3x3_fwd", label, err,
+                        lambda: cb.conv3x3_fwd(z, w, b),
+                        lambda: F.conv3x3(z, w, b),
+                        lambda: nnf.conv2d(zl, wl, b.reshape(-1), padding=1,
+                                           groups=T),
+                        2 * T * M * 9 * cin * C + T * M * C,
+                        4 * (z.numel() + w.numel() + b.numel() + y.numel()))
+                    del z, zl
+                pooled, arg = cb.act_pool_fwd(y)
+                pooled_p, arg_p = F.act_pool_fwd(y)
+                err = max_err("act_pool_fwd", pooled, pooled_p)
+                if not torch.equal(arg, arg_p):
+                    raise AssertionError("act_pool_fwd argmax differs from "
+                                         "its twin's")
+                rec("act_pool_fwd", label, err, lambda: cb.act_pool_fwd(y),
+                    lambda: F.act_pool_fwd(y), None,
+                    3 * y.numel(),
+                    4 * (y.numel() + pooled.numel()) + arg.numel())
+                del pooled, pooled_p, arg, arg_p
+            else:
+                # the backward, on the support (N = 25)
+                dz = randn(*x.shape, scale=1.0 / math.sqrt(x.numel()))
+                err = _bn_errs("batch_norm_bwd", cb.batch_norm_bwd(dz, *bn),
+                               F.batch_norm_bwd(dz, *bn),
+                               ("dx", "dgamma", "dbeta"), label)
+                dzl = _nchw_tenants(dz)
+                saved = (gamma.reshape(-1), None, None, mean.reshape(-1),
+                         rstd.reshape(-1), True, F.BN_EPS, [True] * 3)
+                rec("batch_norm_bwd", label, err,
+                    lambda: cb.batch_norm_bwd(dz, *bn),
+                    lambda: F.batch_norm_bwd(dz, *bn),
+                    lambda: torch.ops.aten.native_batch_norm_backward(
+                        dzl, xl, *saved),
+                    16 * x.numel(), 4 * (3 * x.numel() + 6 * T * cin))
+                a = randn(*x.shape)
+                args = (a, randn(T, cin), randn(T, cin), randn(*x.shape),
+                        *bn)
+                zero = torch.zeros(T, cin, device="cuda")
+                err = max(
+                    _bn_errs(f"batch_norm_bwd_bwd{case}",
+                             cb.batch_norm_bwd_bwd(*case_args),
+                             F.batch_norm_bwd_bwd(*case_args),
+                             ("g_dz", "g_x", "g_gamma"), label,
+                             scaled_atol=True)
+                    for case, case_args in (
+                        ("", args),
+                        (" (g_gamma = g_beta = 0)", (a, zero, zero)
+                         + args[3:])))
+                rec("batch_norm_bwd_bwd", label, err,
+                    lambda: cb.batch_norm_bwd_bwd(*args),
+                    lambda: F.batch_norm_bwd_bwd(*args), None,
+                    42 * x.numel(), 4 * (5 * x.numel() + 7 * T * cin))
+                _, arg = F.act_pool_fwd(y)
+                P = arg.numel()
+                dp = randn(*arg.shape, scale=1.0 / math.sqrt(P))
+                dy = cb.act_pool_bwd(dp, arg, y)
+                err = max_err("act_pool_bwd", dy, F.act_pool_bwd(dp, arg, y))
+                # reads dpooled, the argmax and y at it; writes dy densely
+                rec("act_pool_bwd", label, err,
+                    lambda: cb.act_pool_bwd(dp, arg, y),
+                    lambda: F.act_pool_bwd(dp, arg, y), None,
+                    2 * P, 4 * (2 * P + y.numel()) + P)
+                g_dy = randn(*y.shape)
+                err = max_err("act_pool_gather",
+                              cb.act_pool_gather(g_dy, arg, y),
+                              F.act_pool_gather(g_dy, arg, y))
+                rec("act_pool_gather", label, err,
+                    lambda: cb.act_pool_gather(g_dy, arg, y),
+                    lambda: F.act_pool_gather(g_dy, arg, y), None,
+                    2 * P, 4 * 3 * P + P)
+                if cin == 3:
+                    # dgrad back to the normalized image: 3 of dgrad's 16
+                    # channel lanes live
+                    wl = w.permute(0, 4, 3, 1, 2).reshape(T * C, cin, 3, 3)
+                    wl, dyl = wl.contiguous(), _nchw_tenants(dy)
+                    err = max_err("conv3x3_dgrad", cb.conv3x3_dgrad(dy, w),
+                                  F.conv3x3_dgrad(dy, w))
+                    rec("conv3x3_dgrad", label, err,
+                        lambda: cb.conv3x3_dgrad(dy, w),
+                        lambda: F.conv3x3_dgrad(dy, w),
+                        lambda: torch.nn.grad.conv2d_input(
+                            xl.shape, wl, dyl, padding=1, groups=T),
+                        2 * T * M * 9 * cin * C,
+                        4 * (dy.numel() + w.numel() + x.numel()))
+                    del dyl
+                del dz, dzl, a, args, dp, dy, g_dy, arg
+            del x, xl, y, bn
+            torch.cuda.empty_cache()
+
+
+def check_strided_norm_first_kernels(cb, F, records, T=T_TENANTS,
+                                     n=OMNIGLOT_IMAGES, C=OMNIGLOT_COUT):
+    """Phase 3, what the strided norm-first model (Omniglot, stride 2, no
+    pool) adds: ``act_fwd`` / ``act_bwd`` (the pool-free leaky-ReLU and its
+    backward, flat elementwise passes, beside ``leaky_relu`` and
+    ``aten.leaky_relu_backward``) on the conv output of each of its
+    four layers (14x14, 7x7, 4x4, 2x2, 64 channels), and at layer 1 the
+    statistics of the image (C = 1) and the stride-2 dgrad back to it
+    (cin 1)."""
+    rec = records.add
+    randn = _randn(torch.Generator(device="cuda").manual_seed(23))
+    for layer, hw, cin in STRIDED_LAYERS:
+        label = f"strided norm-first T={T} {layer} N={n}"
+        Ho = Wo = (hw - 1) // 2 + 1
+        y = randn(T, n, Ho, Wo, C)
+        da = randn(*y.shape)
+        err = max_err("act_fwd", cb.act_fwd(y), F.act_fwd(y))
+        rec("act_fwd", label, err, lambda: cb.act_fwd(y),
+            lambda: F.act_fwd(y),
+            lambda: torch.nn.functional.leaky_relu(y, F.LEAKY_SLOPE),
+            2 * y.numel(), 8 * y.numel())
+        err = max_err("act_bwd", cb.act_bwd(da, y), F.act_bwd(da, y))
+        rec("act_bwd", label, err, lambda: cb.act_bwd(da, y),
+            lambda: F.act_bwd(da, y),
+            lambda: torch.ops.aten.leaky_relu_backward(da, y, F.LEAKY_SLOPE,
+                                                       False),
+            2 * y.numel(), 12 * y.numel())
+        if cin == 1:
+            x = torch.rand(T, n, hw, hw, cin, device="cuda")
+            err = _bn_errs("bn_input_stats", cb.bn_input_stats(x),
+                           F.bn_input_stats(x), ("mean", "var", "rstd"),
+                           label)
+            rec("bn_input_stats", label, err, lambda: cb.bn_input_stats(x),
+                lambda: F.bn_input_stats(x),
+                lambda: torch.var_mean(x, dim=(1, 2, 3), correction=0),
+                4 * x.numel(), 4 * (x.numel() + 3 * T * cin))
+            w = randn(T, 3, 3, cin, C, scale=math.sqrt(2.0 / (9 * cin)))
+            wl = w.permute(0, 4, 3, 1, 2).reshape(T * C, cin, 3, 3)
+            wl, dyl = wl.contiguous(), _nchw_tenants(da)
+            err = max_err("conv3x3_s2_dgrad",
+                          cb.conv3x3_dgrad(da, w, 2, (hw, hw)),
+                          F.conv3x3_dgrad(da, w, 2, (hw, hw)))
+            rec("conv3x3_s2_dgrad", label, err,
+                lambda: cb.conv3x3_dgrad(da, w, 2, (hw, hw)),
+                lambda: F.conv3x3_dgrad(da, w, 2, (hw, hw)),
+                lambda: torch.nn.grad.conv2d_input(
+                    (n, T * cin, hw, hw), wl, dyl, stride=2, padding=1,
+                    groups=T),
+                2 * T * n * Ho * Wo * 9 * cin * C,
+                4 * (da.numel() + w.numel() + x.numel()))
+        torch.cuda.empty_cache()
+
+
 def _expand_inputs(cfg, rows_shape, store_rows, gen, rotate=False):
     """A store of ``store_rows`` random bytes, ``rows_shape`` int32 rows in
     it, and (when rotating) rot90 draws with all four k present, on the
@@ -772,7 +1040,8 @@ def _block_errs(what, got, want, names):
 def _block_inputs(seed, x_shape=(T_TENANTS, 25, 42, 42, COUT), cout=COUT):
     """Block inputs, by default at layer 2 of the main path's support
     shape (8 tasks, 5-shot support): x, w, b, gamma, beta, and the
-    generator."""
+    generator. The checks take cout = cin, so gamma and beta fit either
+    block order (the conv output's channels, or the input's)."""
     randn = _randn(torch.Generator(device="cuda").manual_seed(seed))
     T, cin = x_shape[0], x_shape[-1]
     return randn, [
@@ -794,15 +1063,30 @@ def _strided_block_cases():
             ("strided layer 4 + GAP", x4, {**kw, "gap": True}))
 
 
-def check_block_autograd(cb, F, x_shape=(T_TENANTS, 25, 42, 42, COUT),
+def _replayed_blocks(cb, F):
+    """The norm-first block on the kernels, recording its pool argmaxes
+    and leaky-ReLU signs, then the plain block replaying them. The
+    normalize before the conv rounds differently in the two (Chan-merged
+    statistics against two passes, another order of operations), so the
+    conv outputs differ by ~1e-6 of their scale and at full width a few
+    near-tie decisions of the millions of windows and signs flip, each
+    moving a gradient by O(1); replayed, what is left is the kernels'
+    rounding."""
+    log = []
+    return (_recording_kernel_block(cb, log, norm_first=True),
+            _plain_block(F, log, replay=True, norm_first=True))
+
+
+def check_block_autograd(blocks, x_shape=(T_TENANTS, 25, 42, 42, COUT),
                          kw=None, what="block"):
-    """The block's first derivative on the kernels (K3, K4; with ``kw``
-    the strided block's modes) against autograd of the plain block, by
-    default at layer-2 shapes, against a unit-scale random cotangent."""
+    """The first derivative of ``blocks[0]`` on the kernels (K3, K4; with
+    ``kw`` the strided block's modes; the norm-first block's kernels for
+    its pair) against autograd of the plain block ``blocks[1]``, by default
+    at layer-2 shapes, against a unit-scale random cotangent."""
     kw = kw or {}
     randn, inputs = _block_inputs(1, x_shape, x_shape[-1])
     ct, grads = None, []
-    for fn in (cb.conv_bn_act_pool, F.conv_bn_act_pool):
+    for fn in blocks:
         leaves = [t.clone().requires_grad_(True) for t in inputs]
         out, _, _ = fn(*leaves, **kw)
         if ct is None:
@@ -812,30 +1096,38 @@ def check_block_autograd(cb, F, x_shape=(T_TENANTS, 25, 42, 42, COUT),
                 ("x", "w", "b", "gamma", "beta"))
 
 
-def check_block_double_backward(cb, F,
+def check_block_double_backward(blocks,
                                 x_shape=(T_TENANTS, 25, 42, 42, COUT),
                                 kw=None, what="block"):
     """The block's second derivative on the card: a scalar function of the
     block's first gradients (each against a unit-scale random cotangent),
-    differentiated again, on the kernels (K3's backward K5, the conv
-    closure on K1 stats-free and K4; with ``kw`` the strided block's
-    modes) against autograd of the plain block, by default at layer-2
-    shapes (8 tasks, 5-shot support)."""
+    differentiated again, on the kernels (``blocks[0]``: K3's backward K5,
+    the conv closure on K1 stats-free and K4; with ``kw`` the strided
+    block's modes; the norm-first block's K5 at slope 1 and the act-pool
+    gather) against autograd of the plain block ``blocks[1]``, by default
+    at layer-2 shapes (8 tasks, 5-shot support). In x, w, b and gamma; for
+    the norm-first block x, w, gamma and beta (its conv bias enters only
+    through piecewise-constant masks: its second derivative is 0)."""
     kw = kw or {}
+    norm_first = blocks[0].block_order == "norm_conv_relu"
     randn, inputs = _block_inputs(5, x_shape, x_shape[-1])
+    names = ("x", "w", "gamma", "beta") if norm_first else (
+        "x", "w", "b", "gamma")
+    wrt = [("x", "w", "b", "gamma", "beta").index(n) for n in names]
     ct, results = None, []
-    for fn in (cb.conv_bn_act_pool, F.conv_bn_act_pool):
+    for fn in blocks:
         leaves = [t.clone().requires_grad_(True) for t in inputs]
         out, _, _ = fn(*leaves, **kw)
         if ct is None:
             ct = randn(*out.shape)
-            cts = [randn(*t.shape) for t in leaves[:4]]
-        first = torch.autograd.grad((out * ct).sum(), leaves[:4],
+            cts = [randn(*leaves[i].shape) for i in wrt]
+        first = torch.autograd.grad((out * ct).sum(),
+                                    [leaves[i] for i in wrt],
                                     create_graph=True)
         scalar = sum((g * c).sum() for g, c in zip(first, cts))
-        results.append(torch.autograd.grad(scalar, leaves[:4]))
-    _block_errs(f"{what} second derivative", *results,
-                ("x", "w", "b", "gamma"))
+        results.append(torch.autograd.grad(scalar,
+                                           [leaves[i] for i in wrt]))
+    _block_errs(f"{what} second derivative", *results, names)
 
 
 # role -> (the max-pooling model's kernel, the strided model's)
@@ -847,6 +1139,15 @@ ROLE_KERNELS = {
     "wgrad": ("conv3x3_wgrad", "conv3x3_s2_wgrad"),
     "fwd": ("conv3x3_fwd", "conv3x3_s2_fwd"),
     "act_bwd_bwd": ("bn_act_pool_bwd_bwd", "bn_act_bwd_bwd"),
+    # the norm-first block: the standalone batch norm (K2/K3/K5 at slope
+    # 1) and the standalone leaky-ReLU + pool (B2), pool-free when strided
+    "in_stats": ("bn_input_stats", "bn_input_stats"),
+    "bn_fwd": ("batch_norm_fwd", "batch_norm_fwd"),
+    "bn_bwd": ("batch_norm_bwd", "batch_norm_bwd"),
+    "bn_bwd_bwd": ("batch_norm_bwd_bwd", "batch_norm_bwd_bwd"),
+    "pool_fwd": ("act_pool_fwd", "act_fwd"),
+    "pool_bwd": ("act_pool_bwd", "act_bwd"),
+    "pool_gather": ("act_pool_gather", "act_bwd"),
 }
 GAP_KERNELS = ("global_avg_pool2d_fwd", "global_avg_pool2d_bwd")
 
@@ -854,12 +1155,13 @@ GAP_KERNELS = ("global_avg_pool2d_fwd", "global_avg_pool2d_bwd")
 def _by_kernel(cfg, per_role, gap_fwd, gap_bwd):
     """Launches per kernel name of the block kernels, from launches per
     role: the max-pooling model's kernels, or the strided model's
-    (``conv3x3_s2_*``, the pool-free ``bn_act_*``) with its global
-    average pool; every other kernel 0."""
+    (``conv3x3_s2_*``, the pool-free ``bn_act_*`` / ``act_*``) with its
+    global average pool; every other kernel 0. Pool-free, the pool's
+    gather is ``act_bwd`` again (its own adjoint), so roles add up."""
     strided = not cfg.max_pooling
     out = {name: 0 for pair in ROLE_KERNELS.values() for name in pair}
     for role, n in per_role.items():
-        out[ROLE_KERNELS[role][strided]] = n
+        out[ROLE_KERNELS[role][strided]] += n
     out[GAP_KERNELS[0]] = gap_fwd if strided else 0
     out[GAP_KERNELS[1]] = gap_bwd if strided else 0
     return out
@@ -867,19 +1169,32 @@ def _by_kernel(cfg, per_role, gap_fwd, gap_bwd):
 
 def expected_launches(cfg):
     """Block-kernel launches of one serve dispatch (first order, the eval
-    steps S, B blocks), either model. The strided model adds the global
-    average pool: forward once per support and target forward, backward
-    once per support backward."""
-    steps, stages = cfg.number_of_evaluation_steps_per_iter, cfg.num_stages
+    steps S, B blocks), either model, either block order. The strided
+    model adds the global average pool: forward once per support and
+    target forward, backward once per support backward.
+
+    The norm-first block (``block_order='norm_conv_relu'``) runs per
+    forward ``bn_input_stats``, ``batch_norm_fwd``, K1 stats-free with bias
+    and ``act_pool_fwd``; the support backward runs ``act_pool_bwd`` and
+    wgrad at every block, and dgrad and ``batch_norm_bwd`` at every block
+    but the first (serving adapts no norm parameter, so nothing needs the
+    gradient of the normalized images)."""
+    s, b = cfg.number_of_evaluation_steps_per_iter, cfg.num_stages
+    if cfg.block_order == "norm_conv_relu":
+        return _by_kernel(cfg, {
+            "in_stats": 2 * s * b, "bn_fwd": 2 * s * b, "fwd": 2 * s * b,
+            "pool_fwd": 2 * s * b, "pool_bwd": s * b, "wgrad": s * b,
+            "dgrad": s * (b - 1), "bn_bwd": s * (b - 1),
+        }, gap_fwd=2 * s, gap_bwd=s)
     return _by_kernel(cfg, {
-        "fwd_stats": 2 * steps * stages,  # support + target forward
-        "act_fwd": 2 * steps * stages,
-        "act_bwd": steps * stages,        # support backward only
-        "dgrad": steps * (stages - 1),    # not for the images
-        "wgrad": steps * stages,
-        "fwd": 0,                         # second order only
+        "fwd_stats": 2 * s * b,  # support + target forward
+        "act_fwd": 2 * s * b,
+        "act_bwd": s * b,        # support backward only
+        "dgrad": s * (b - 1),    # not for the images
+        "wgrad": s * b,
+        "fwd": 0,                # second order only
         "act_bwd_bwd": 0,
-    }, gap_fwd=2 * steps, gap_bwd=steps)
+    }, gap_fwd=2 * s, gap_bwd=s)
 
 
 def expected_serve_launches(cfg, ingest):
@@ -927,10 +1242,56 @@ def expected_train_launches(cfg, second_order):
     backward of the inner ``GapBwd`` node, which is ``Gap`` (forward 1
     more) — forward 3, backward 3.
 
-    ``tests/test_torch_train.py`` counts the same calls on the CPU through
-    the twins and holds them to this formula."""
+    The norm-first block (``block_order='norm_conv_relu'``; the norm
+    parameters are meta-trained, so the normalized images need a gradient
+    in the outer pass). Per inner step and block:
+
+    * forward (support, target): ``bn_input_stats``, ``batch_norm_fwd``,
+      K1 stats-free with bias and ``act_pool_fwd``, twice each;
+    * inner backward: ``act_pool_bwd``, wgrad and dgrad once (dgrad at
+      block 1 too: its input, the normalized images, requires a gradient,
+      and ``Conv3x3`` cannot know that this pass discards it), and
+      ``batch_norm_bwd`` except at block 1 (not on the path to the adapted
+      weights);
+    * first order adds the outer backward of the target forward:
+      ``act_pool_bwd``, wgrad, dgrad and ``batch_norm_bwd`` once each —
+      totals 2, 2, 2 and 2 (1 at block 1);
+    * second order adds the outer backward of both forwards (2 each of
+      ``act_pool_bwd``, wgrad, dgrad, ``batch_norm_bwd``) and of the inner
+      backward's nodes: ``ActPoolBwd`` -> ``act_pool_gather`` once;
+      ``Wgrad`` -> K1 stats-free with bias and dgrad once; ``Dgrad`` -> K1
+      stats-free and wgrad, except at block 1 (its inner dx reached no
+      loss); ``BatchNormBwd`` -> ``batch_norm_bwd_bwd`` except at block 1.
+      Totals: ``act_pool_bwd`` 3, gather 1, dgrad 4, wgrad 4 (3 at block
+      1), K1 stats-free 4 (3 at block 1), ``batch_norm_bwd`` 3 (2 at block
+      1), ``batch_norm_bwd_bwd`` 1 (0 at block 1).
+
+    Pool-free (the strided norm-first model) the same counts fall on
+    ``act_fwd`` / ``act_bwd`` (the gather's count on ``act_bwd`` too) and
+    the stride-2 conv kernels, and the global average pool adds what it
+    adds to the strided model.
+
+    ``tests/test_torch_train.py`` and ``tests/test_torch_norm_first.py``
+    count the same calls on the CPU through the twins and hold them to
+    this formula."""
     s, b = cfg.number_of_training_steps_per_iter, cfg.num_stages
-    if second_order:
+    if cfg.block_order == "norm_conv_relu":
+        per_role = {"in_stats": 2 * s * b, "bn_fwd": 2 * s * b,
+                    "pool_fwd": 2 * s * b}
+        if second_order:
+            per_role.update({
+                "fwd": s * (4 * b - 1), "pool_bwd": 3 * s * b,
+                "pool_gather": s * b, "dgrad": 4 * s * b,
+                "wgrad": s * (4 * b - 1), "bn_bwd": s * (3 * b - 1),
+                "bn_bwd_bwd": s * (b - 1)})
+            gap = 3 * s
+        else:
+            per_role.update({
+                "fwd": 2 * s * b, "pool_bwd": 2 * s * b, "dgrad": 2 * s * b,
+                "wgrad": 2 * s * b, "bn_bwd": s * (2 * b - 1)})
+            gap = 2 * s
+        per_step = _by_kernel(cfg, per_role, gap_fwd=gap, gap_bwd=gap)
+    elif second_order:
         per_step = _by_kernel(cfg, {
             "fwd_stats": 2 * s * b,
             "act_fwd": 2 * s * b,
@@ -953,10 +1314,46 @@ def expected_train_launches(cfg, second_order):
     return {k: v * cfg.meta_accum_steps for k, v in per_step.items()}
 
 
-def check_small_against_plain(cfg, F):
+def _block_pair(cfg, cb, F):
+    """The kernel side and the plain side of a kernels-vs-plain check of
+    ``cfg``'s model: for the conv-first block the default block (None: the
+    kernels) and the plain block, which take the same pool and sign
+    decisions (the conv kernels equal the plain conv bit for bit, and the
+    normalize after it is monotone in it); for the norm-first block
+    ``_replayed_blocks``' pair (kernels recording, plain replaying). The
+    recorder re-composes the Functions of ``norm_function_block``, so each
+    check that takes it also runs the model's own block (None) and holds
+    the two equal bit for bit (``_same_as_own``): the same kernels in the
+    same order, deterministic, no atomics."""
+    if cfg.block_order == "norm_conv_relu":
+        return _replayed_blocks(cb, F)
+    return None, _plain(cfg)
+
+
+def _same_as_own(what, recorder, own):
+    """The recording block's results (served ``DispatchResult`` or a (loss,
+    meta-gradients) pair) against the model's own block's: exactly
+    equal."""
+    import numpy as np
+
+    if isinstance(recorder, tuple):
+        same = recorder[0] == own[0] and all(
+            torch.equal(v, own[1][k]) for k, v in recorder[1].items())
+    else:
+        same = all(np.array_equal(a.preds, b.preds) and a.loss == b.loss
+                   for a, b in zip(recorder.results, own.results))
+    if not same:
+        raise AssertionError(f"{what}: the recording block differs from the "
+                             "model's own block")
+    print(f"  {what}: the recording block equals the model's own block bit "
+          "for bit", flush=True)
+
+
+def check_small_against_plain(cfg, F, cb):
     """Phase 5a: the serve step on a SMALL input — 2 stages, 8 filters,
     20x20 images, 2 inner steps — kernels vs plain ops on the card, at
-    the CPU parity tests' tolerances (preds atol 1e-4, loss rtol 1e-4)."""
+    the CPU parity tests' tolerances (preds atol 1e-4, loss rtol 1e-4)
+    (``_block_pair``)."""
     import numpy as np
 
     from howtotrainyourmamlpytorch_tpu_torch.serving import bench
@@ -970,25 +1367,35 @@ def check_small_against_plain(cfg, F):
                         number_of_evaluation_steps_per_iter=2)
     group = bench._synth_groups(small, [5], 6, 3, 1)[-1]  # 3 tenants
     state = init_state(small, device="cuda:0")
+    blocks = _block_pair(small, cb, F)
+    if blocks[0] is not None:
+        blocks += (None,)
     out = [
         ServingEngine(small, state, [5], device="cuda:0",
                       block=block).serve_group(group)
-        for block in (None, F.conv_bn_act_pool)
+        for block in blocks
     ]
-    preds = max(float(np.abs(a.preds - b.preds).max())
-                for a, b in zip(out[0].results, out[1].results))
-    loss = max(abs(a.loss - b.loss) / abs(b.loss)
-               for a, b in zip(out[0].results, out[1].results))
+
+    def spread(a, b):
+        return (max(float(np.abs(ra.preds - rb.preds).max())
+                    for ra, rb in zip(a.results, b.results)),
+                max(abs(ra.loss - rb.loss) / abs(rb.loss)
+                    for ra, rb in zip(a.results, b.results)))
+
+    preds, loss = spread(out[0], out[1])
     print(f"  small serve step ({len(group)} tenants, bucket "
           f"{out[0].bucket}), kernels vs plain on the card: preds max err "
           f"{preds:.3e}, loss max rel err {loss:.3e}", flush=True)
+    if len(out) > 2:
+        _same_as_own("small serve step", out[0], out[2])
     if preds > 1e-4 or loss > 1e-4:
         raise AssertionError("small serve step: kernels disagree with plain")
 
 
-def check_against_plain(cfg, F):
+def check_against_plain(cfg, F, cb):
     """Phase 5b: one bucket-8 dispatch at full width, kernels vs plain ops
-    on the card, beside the CPU-vs-card spread of the plain ops."""
+    on the card (``_block_pair``), beside the CPU-vs-card spread of the
+    plain ops."""
     import numpy as np
 
     from howtotrainyourmamlpytorch_tpu_torch.serving import bench
@@ -1004,14 +1411,17 @@ def check_against_plain(cfg, F):
     groups = bench._synth_groups(cfg, shots_buckets, 32, 8, 0)
     group = max(groups, key=len)  # 7 tenants -> bucket 8, 1 pad tenant
     state = init_state(cfg, device="cuda:0")
+    blocks = _block_pair(cfg, cb, F)
     engines = (
         ("kernels", ServingEngine(cfg, state, shots_buckets,
-                                  device="cuda:0"), 3),
+                                  device="cuda:0", block=blocks[0]), 3),
         ("plain", ServingEngine(cfg, state, shots_buckets, device="cuda:0",
-                                block=F.conv_bn_act_pool), 3),
+                                block=blocks[1]), 3),
         ("plain on the CPU", ServingEngine(cfg, state, shots_buckets,
                                            device="cpu"), 1),
-    )
+    ) + ((("the model's own block", ServingEngine(
+        cfg, state, shots_buckets, device="cuda:0"), 1),)
+        if blocks[0] is not None else ())
     results = {}
     for name, engine, reps in engines:
         drs = [engine.serve_group(group) for _ in range(reps)]
@@ -1047,6 +1457,9 @@ def check_against_plain(cfg, F):
     print(f"  serve step, plain on the CPU vs plain on the card (the f32 "
           f"summation-order spread): preds {base_p:.3e}, loss {base_l:.3e}",
           flush=True)
+    if "the model's own block" in results:
+        _same_as_own("bucket-8 serve step", results["kernels"],
+                     results["the model's own block"])
     if worst_p > PREDS_ATOL or worst_l > LOSS_RTOL:
         raise AssertionError(
             f"serve step vs plain: preds max err {worst_p:.3e} (atol "
@@ -1131,7 +1544,8 @@ def run_train_bench(ks, cfg, batch_size, config=FLAGSHIP, name="mini-ImageNet "
     expected = expected_step_launches(cfg.replace(batch_size=batch_size),
                                       placement)
     if (not line["second_order"] or line["batch_size"] != batch_size
-            or line["max_pooling"] != cfg.max_pooling):
+            or line["max_pooling"] != cfg.max_pooling
+            or line["block_order"] != cfg.block_order):
         raise AssertionError(f"train-bench ran {line}")
     for i, got in enumerate(line["kernel_launches_per_step"]):
         if got != expected:
@@ -1180,6 +1594,13 @@ def _image_order(batch, order):
     return tuple(out)
 
 
+def _plain(cfg):
+    """The plain block of ``cfg``'s block order (``vgg.blocks_for``)."""
+    from howtotrainyourmamlpytorch_tpu_torch.models import vgg
+
+    return vgg.blocks_for(cfg)[1]
+
+
 def _grads(cfg, block, batch, dtype=None):
     """(loss, meta-gradients) of one second-order step from the config's
     seeded state on ``batch``, on the card, in ``dtype`` (f32 unless named:
@@ -1203,18 +1624,23 @@ def _grads(cfg, block, batch, dtype=None):
                          for k, v in part.items()}
 
 
-def check_grads_small(cfg, F):
+def check_grads_small(cfg, F, cb):
     """Phase 5: second-order meta-gradients on a SMALL input — 2 stages, 8
     filters, 20x20 images, 2 inner steps, batch 2 — kernels vs plain ops
-    on the card, at the CPU parity tests' tolerance (each leaf within
-    1e-6 + 1e-4 * its largest entry; loss rtol 1e-4)."""
+    on the card (``_block_pair``), at the CPU parity tests' tolerance
+    (each leaf within 1e-6 + 1e-4 * its largest entry; loss rtol
+    1e-4)."""
     small = cfg.replace(image_height=20, image_width=20, cnn_num_filters=8,
                         num_stages=2, number_of_training_steps_per_iter=2,
                         number_of_evaluation_steps_per_iter=2,
                         bn_stats_impl="twopass", batch_size=2)
     batch = _batch(small, 0)
-    loss_k, grads_k = _grads(small, None, batch)
-    loss_p, grads_p = _grads(small, F.conv_bn_act_pool, batch)
+    kernel_block, plain_block = _block_pair(small, cb, F)
+    loss_k, grads_k = _grads(small, kernel_block, batch)
+    loss_p, grads_p = _grads(small, plain_block, batch)
+    if kernel_block is not None:
+        _same_as_own("small second-order step", (loss_k, grads_k),
+                     _grads(small, None, batch))
     worst = 0.0
     for key, want in grads_p.items():
         err = (grads_k[key] - want).abs().max().item()
@@ -1279,14 +1705,14 @@ def check_grads_full_width(cfg, F, seeds):
 
     cfg = cfg.replace(batch_size=2)
     twopass = cfg.replace(bn_stats_impl="twopass")
-    runs = (("kernels", cfg, None), ("twopass", twopass, F.conv_bn_act_pool),
-            ("fused", cfg.replace(bn_stats_impl="fused"), F.conv_bn_act_pool))
+    plain_block = _plain(cfg)
+    runs = (("kernels", cfg, None), ("twopass", twopass, plain_block),
+            ("fused", cfg.replace(bn_stats_impl="fused"), plain_block))
     start = time.perf_counter()
     rows, failures, ratios, null = {}, [], [], []
     for seed in seeds:
         batch = _batch(cfg, seed)
-        ref_loss, ref = _grads(twopass, F.conv_bn_act_pool, batch,
-                               torch.float64)
+        ref_loss, ref = _grads(twopass, plain_block, batch, torch.float64)
         scale = max(v.abs().max().item() for v in ref.values())
         loss_errs = {name: [] for name, _, _ in runs}
         errs = {name: {key: [] for key in ref} for name, _, _ in runs}
@@ -1353,46 +1779,62 @@ def check_grads_full_width(cfg, F, seeds):
                              + ", ".join(failures))
 
 
-def _recording_kernel_block(cb, log):
-    """``conv_block.function_block`` that also appends each call's
+def _recording_kernel_block(cb, log, norm_first=False):
+    """The kernels' block (``conv_block.function_block``, or with
+    ``norm_first`` ``norm_function_block``) that also appends each call's
     discrete decisions to ``log``: with the max pool, the window argmax of
-    every pooled element (K2's output) and whether the pooled value (the
-    leaky-ReLU output at that argmax) is >= 0; pool-free (the strided
-    model), no argmax (None) and the sign of every activation."""
+    every pooled element (K2's or ``act_pool_fwd``'s output) and whether
+    the pooled value (the leaky-ReLU output at that argmax) is >= 0;
+    pool-free (the strided model), no argmax (None) and the sign of every
+    activation."""
     def block(x, w, b, gamma, beta, stats_impl="twopass", stride=1,
               pool=True, gap=False):
-        T, cout = x.shape[0], w.shape[-1]
-        y, mean, var, rstd = cb.Conv3x3.apply(
-            x.contiguous(), w.contiguous(), b.contiguous(), True, stride)
-        out = cb.BnActPool.apply(
-            y, gamma.expand(T, cout).contiguous(),
-            beta.expand(T, cout).contiguous(), mean, rstd, pool)
+        T, c = x.shape[0], (x if norm_first else w).shape[-1]
+        gamma = gamma.expand(T, c).contiguous()
+        beta = beta.expand(T, c).contiguous()
+        if norm_first:
+            z, mean, var, _ = cb.BatchNorm.apply(x.contiguous(), gamma, beta)
+            out = cb.ActPool.apply(cb.Conv3x3.apply(
+                z, w.contiguous(), b.contiguous(), False, stride), pool)
+        else:
+            y, mean, var, rstd = cb.Conv3x3.apply(
+                x.contiguous(), w.contiguous(), b.contiguous(), True, stride)
+            out = cb.BnActPool.apply(y, gamma, beta, mean, rstd, pool)
         out, arg = out if pool else (out, None)
         log.append((arg, out.detach() >= 0))
         if gap:
             out = cb.Gap.apply(out)
         return out, mean, var
+    block.block_order = "norm_conv_relu" if norm_first else "conv_norm_relu"
     return block
 
 
-def _plain_block(F, log, replay=False):
-    """The block in plain ops, differentiable by autograd. Recording
-    (``replay=False``): the pool takes each window's first maximum and
-    appends the decisions to ``log`` as ``_recording_kernel_block`` does.
-    Replaying: the pool takes the argmax, and the leaky-ReLU the sign, that
-    the next entry of ``log`` recorded, whatever this run's own values say,
-    so the run follows the recorded run's piecewise-linear path. Pool-free
-    (the strided model) the signs alone."""
+def _plain_block(F, log, replay=False, norm_first=False):
+    """The block in plain ops, differentiable by autograd (with
+    ``norm_first`` the norm-first block). Recording (``replay=False``):
+    the pool takes each window's first maximum and appends the decisions
+    to ``log`` as ``_recording_kernel_block`` does. Replaying: the pool
+    takes the argmax, and the leaky-ReLU the sign, that the next entry of
+    ``log`` recorded, whatever this run's own values say, so the run
+    follows the recorded run's piecewise-linear path. Pool-free (the
+    strided model) the signs alone."""
     entries = iter(log)
+
+    def affine(t, mean, var, gamma, beta):
+        inv = torch.rsqrt(var + F.BN_EPS).to(t.dtype)
+        t = (t - F._per_channel(mean, t)) * F._per_channel(inv, t)
+        return t * F._per_channel(gamma.to(t.dtype), t) + F._per_channel(
+            beta.to(t.dtype), t)
 
     def block(x, w, b, gamma, beta, stats_impl="twopass", stride=1,
               pool=True, gap=False):
-        y = F.conv2d(x, w, b, stride, 1)
-        mean, var = F.batch_stats(y, stats_impl)
-        inv = torch.rsqrt(var + F.BN_EPS).to(y.dtype)
-        z = (y - F._per_channel(mean, y)) * F._per_channel(inv, y)
-        z = z * F._per_channel(gamma.to(y.dtype), y) + F._per_channel(
-            beta.to(y.dtype), y)
+        if norm_first:
+            mean, var = F.batch_stats(x, stats_impl)
+            z = F.conv2d(affine(x, mean, var, gamma, beta), w, b, stride, 1)
+        else:
+            y = F.conv2d(x, w, b, stride, 1)
+            mean, var = F.batch_stats(y, stats_impl)
+            z = affine(y, mean, var, gamma, beta)
         if not pool:
             if replay:
                 _, positive = next(entries)
@@ -1414,6 +1856,7 @@ def _plain_block(F, log, replay=False):
             log.append((arg.to(torch.uint8), positive))
         pooled = torch.where(positive, z_at, F.LEAKY_SLOPE * z_at)
         return pooled, mean.detach(), var.detach()
+    block.block_order = "norm_conv_relu" if norm_first else "conv_norm_relu"
     return block
 
 
@@ -1440,8 +1883,10 @@ def _decision_flips(cfg, cb, F, batch):
                if partition.is_inner_adapted(cfg, k) else v
                for k, v in state.net.items()}
         log = []
-        block = (_recording_kernel_block(cb, log) if name == "kernels"
-                 else _plain_block(F, log))
+        norm_first = cfg.block_order == "norm_conv_relu"
+        block = (_recording_kernel_block(cb, log, norm_first)
+                 if name == "kernels" else _plain_block(F, log,
+                                                       norm_first=norm_first))
         with torch.no_grad():
             vgg.apply(cfg, net, state.bn, x if dtype is None
                       else x.to(dtype), 0, block=block)
@@ -1466,9 +1911,11 @@ def check_grads_replayed(cfg, cb, F, seeds):
     GRAD_ORDERS orders of the images. Per leaf and seed, each run's error
     is the median over the orders of max |run - its reference|; the
     kernels' must stay within REPLAY_FACTOR times the larger plain median,
-    plus GRADS_FLOOR times the tree's largest entry. Also printed, per
-    seed: how many decisions of the first support forward the kernels and
-    the plain f32 ops take otherwise than f64.
+    plus GRADS_FLOOR times the tree's largest entry. The kernels' run of
+    the first order is also held bit for bit to the step on the model's
+    own block (``_same_as_own``). Also printed, per seed: how many
+    decisions of the first support forward the kernels and the plain f32
+    ops take otherwise than f64.
 
     REPLAY_FACTOR comes from the null ratios this phase prints (each plain
     median over the larger of the other two runs'), over the data seeds
@@ -1478,10 +1925,15 @@ def check_grads_replayed(cfg, cb, F, seeds):
     reading: 4 if the null max stayed under 3.2, else the smallest integer
     at or above 1.25 times it, hence 5. In that run the kernels' ratio had
     median 0.225 and max 1.003 on mini-ImageNet, median 0.682 and max
-    3.434 on Omniglot. The default seeds are other seeds."""
+    3.434 on Omniglot. The norm-first model's own null over its seeds 0-9
+    (``--norm-first-grad-seeds 0,...,9``; 560 ratios, same card) has max
+    2.640, under 4 (1.25 x 2.640 <= 5), so the same factor holds for it;
+    the kernels' ratio there had median 0.854 and max 2.369. The default
+    seeds are other seeds."""
     import statistics
 
     cfg = cfg.replace(batch_size=2)
+    norm_first = cfg.block_order == "norm_conv_relu"
     twopass = cfg.replace(bn_stats_impl="twopass")
     runs = (("kernels", twopass, True), ("twopass", twopass, False),
             ("fused", cfg.replace(bn_stats_impl="fused"), False))
@@ -1495,11 +1947,16 @@ def check_grads_replayed(cfg, cb, F, seeds):
             permuted = _image_order(batch, order)
             for name, c, kernels in runs:
                 log = []
-                block = (_recording_kernel_block(cb, log) if kernels
-                         else _plain_block(F, log))
-                _, got = _grads(c, block, permuted)
-                _, ref = _grads(twopass, _plain_block(F, log, replay=True),
-                                permuted, torch.float64)
+                block = (_recording_kernel_block(cb, log, norm_first)
+                         if kernels else _plain_block(F, log,
+                                                      norm_first=norm_first))
+                loss, got = _grads(c, block, permuted)
+                if kernels and order == 0:
+                    _same_as_own(f"seed {seed} step", (loss, got),
+                                 _grads(c, None, permuted))
+                _, ref = _grads(twopass, _plain_block(
+                    F, log, replay=True, norm_first=norm_first), permuted,
+                    torch.float64)
                 for k, v in ref.items():
                     errs[name].setdefault(k, []).append(
                         (got[k].double() - v).abs().max().item())
@@ -1609,19 +2066,19 @@ def profile_train_step(cfg, batch_size=2, placement=None):
 
 def run_serve_bench(ks, cfg, ingest, config=FLAGSHIP,
                     name="mini-ImageNet 5-way 5-shot",
-                    extra=("--store-rows", str(STORE_ROWS))):
+                    extra=("--store-rows", str(STORE_ROWS)), requests=16):
     """Phase 4, a serving main path: ``serve-bench`` at ``config`` (with
-    the ``extra`` arguments) with ``ingest``, 16 requests; every
+    the ``extra`` arguments) with ``ingest``, ``requests`` requests; every
     dispatch's launches equal ``expected_serve_launches`` of ``cfg`` and
     the run's totals (warmup included) equal it times the dispatches.
     Returns (JSON line, launch counts)."""
     from howtotrainyourmamlpytorch_tpu_torch.serving import bench
 
-    print(f"[serve] serve-bench --config {name} --requests 16 --seed 0 "
-          f"--ingest {ingest} {' '.join(extra)}", flush=True)
+    print(f"[serve] serve-bench --config {name} --requests {requests} "
+          f"--seed 0 --ingest {ingest} {' '.join(extra)}", flush=True)
     ks.reset_launches()
-    line = bench.run(["--config", config, "--requests", "16", "--seed",
-                      "0", "--device", DEVICE, "--ingest", ingest]
+    line = bench.run(["--config", config, "--requests", str(requests),
+                      "--seed", "0", "--device", DEVICE, "--ingest", ingest]
                      + list(extra))
     counts = ks.launches()
     print(json.dumps(line), flush=True)
@@ -1639,9 +2096,10 @@ def run_serve_bench(ks, cfg, ingest, config=FLAGSHIP,
                 f"expected {per_dispatch} x {dispatches} dispatches"
             )
     tps = line["tenants_per_sec"]
-    if not (line["tenants"] == 16 and tps and math.isfinite(tps)
+    if not (line["tenants"] == requests and tps and math.isfinite(tps)
             and line["ingest"] == ingest
-            and line["max_pooling"] == cfg.max_pooling):
+            and line["max_pooling"] == cfg.max_pooling
+            and line["block_order"] == cfg.block_order):
         raise AssertionError(f"serve-bench line is incomplete: {line}")
     print(f"[serve] {name} {ingest}: tenants_per_sec {tps}  adapt_ms p50 "
           f"{line['adaptation_latency_ms_p50']}  p95 "
@@ -1738,12 +2196,18 @@ def main() -> int:
         "--strided-grad-seeds", default=",".join(map(str, GRAD_SEEDS)),
         help="data seeds of the replayed-path meta-gradient check of the "
              "strided Omniglot model")
+    parser.add_argument(
+        "--norm-first-grad-seeds", default=",".join(map(str, GRAD_SEEDS)),
+        help="data seeds of the replayed-path meta-gradient check of the "
+             "norm-first mini-ImageNet model")
     args = parser.parse_args()
     seeds = tuple(int(v) for v in args.grad_seeds.split(","))
     omniglot_seeds = tuple(int(v) for v in
                            args.omniglot_grad_seeds.split(","))
     strided_seeds = tuple(int(v) for v in
                           args.strided_grad_seeds.split(","))
+    norm_first_seeds = tuple(int(v) for v in
+                             args.norm_first_grad_seeds.split(","))
     card = card_line()
     print(card, flush=True)
     if not torch.cuda.is_available():
@@ -1763,6 +2227,7 @@ def main() -> int:
     from howtotrainyourmamlpytorch_tpu_torch.kernels import (
         episode_expand as ee,
     )
+    from howtotrainyourmamlpytorch_tpu_torch.models import vgg
     from howtotrainyourmamlpytorch_tpu_torch.ops import device_pipeline as dp
     from howtotrainyourmamlpytorch_tpu_torch.ops import functional as F
     from howtotrainyourmamlpytorch_tpu_torch.serving import (
@@ -1780,6 +2245,8 @@ def main() -> int:
     cfg = MAMLConfig.from_json_file(FLAGSHIP)
     omniglot = MAMLConfig.from_json_file(OMNIGLOT)
     strided = omniglot.replace(max_pooling=False)
+    norm_first = cfg.replace(block_order="norm_conv_relu")
+    strided_norm_first = strided.replace(block_order="norm_conv_relu")
     all_kernels = cb.KERNELS + ee.KERNELS
     print("[kernels] each kernel vs its plain twin on the card", flush=True)
     t0 = time.perf_counter()
@@ -1793,14 +2260,30 @@ def main() -> int:
                         OMNIGLOT_IMAGES, OMNIGLOT_COUT, "omniglot ")
     print("[kernels] episode_expand vs its twin (exact)", flush=True)
     check_episode_expand(ee, dp, records, cfg, omniglot)
-    check_block_autograd(cb, F)
-    check_block_double_backward(cb, F)
+    check_block_autograd(vgg.blocks_for(cfg))
+    check_block_double_backward(vgg.blocks_for(cfg))
     print("[kernels] the strided model's kernels (stride-2 K1/K4, "
           "pool-free K2/K3/K5, GAP) at its four layers", flush=True)
     check_strided_kernels(cb, F, records)
     for what, x_shape, kw in _strided_block_cases():
-        check_block_autograd(cb, F, x_shape, kw, what)
-        check_block_double_backward(cb, F, x_shape, kw, what)
+        check_block_autograd(vgg.blocks_for(strided), x_shape, kw, what)
+        check_block_double_backward(vgg.blocks_for(strided), x_shape, kw,
+                                    what)
+    print("[kernels] the norm-first block's kernels (bn_input_stats, K2/K3/"
+          "K5 at slope 1, act-pool, K1 stats-free and dgrad at cin 3) at "
+          "its four stages; the pool-free act kernels at the strided "
+          "layers", flush=True)
+    check_norm_first_kernels(cb, F, records)
+    check_strided_norm_first_kernels(cb, F, records)
+    check_block_autograd(_replayed_blocks(cb, F),
+                         what="norm-first stage 1")
+    check_block_double_backward(_replayed_blocks(cb, F),
+                                what="norm-first stage 1")
+    for what, x_shape, kw in _strided_block_cases():
+        check_block_autograd(_replayed_blocks(cb, F), x_shape, kw,
+                             f"norm-first {what}")
+        check_block_double_backward(_replayed_blocks(cb, F), x_shape, kw,
+                                    f"norm-first {what}")
     print(f"[kernels] {time.perf_counter() - t0:.1f} s", flush=True)
 
     main_counts = {k: 0 for k in all_kernels}
@@ -1818,8 +2301,8 @@ def main() -> int:
               f"{line['tenants_per_sec']}", flush=True)
 
     print("[serve] the serve step vs the plain serve step", flush=True)
-    check_small_against_plain(cfg, F)
-    check_against_plain(cfg, F)
+    check_small_against_plain(cfg, F, cb)
+    check_against_plain(cfg, F, cb)
     print("[serve] index ingest vs f32 ingest on the same pixels", flush=True)
     check_index_bit_identical(cfg)
     print("[profile] one bucket-8 and one bucket-1 f32 dispatch, one "
@@ -1847,7 +2330,7 @@ def main() -> int:
     profile_train_step(omniglot, omniglot.batch_size, "device")
     torch.cuda.empty_cache()
     print("[train] meta-gradients, kernels vs plain on the card", flush=True)
-    check_grads_small(cfg, F)
+    check_grads_small(cfg, F, cb)
     check_grads_replayed(cfg, cb, F, seeds)
     check_grads_full_width(cfg, F, seeds)
     print(f"[train] {omniglot_name} full-width meta-gradients", flush=True)
@@ -1866,8 +2349,8 @@ def main() -> int:
         torch.cuda.empty_cache()
     print("[serve] strided: the serve step vs the plain serve step; index "
           "vs f32 on the same pixels", flush=True)
-    check_small_against_plain(strided, F)
-    check_against_plain(strided, F)
+    check_small_against_plain(strided, F, cb)
+    check_against_plain(strided, F, cb)
     check_index_bit_identical(strided, store_rows)
     profile_dispatch(strided, "index", small=False, store_rows=store_rows)
     _, counts = run_train_bench(ks, strided, strided.batch_size, OMNIGLOT,
@@ -1879,9 +2362,51 @@ def main() -> int:
           flush=True)
     check_learning(OMNIGLOT, strided.batch_size, STRIDED_ARGS)
     profile_train_step(strided, strided.batch_size, "device")
-    check_grads_small(strided, F)
+    check_grads_small(strided, F, cb)
     check_grads_replayed(strided, cb, F, strided_seeds)
     print(f"[strided] {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # the norm-first model (block_order='norm_conv_relu'): serving and
+    # training at mini-ImageNet width; the strided norm-first model served
+    t0 = time.perf_counter()
+    nf_name = "mini-ImageNet 5-way 5-shot norm-first"
+    for ingest in ("f32", "index"):
+        _, counts = run_serve_bench(
+            ks, norm_first, ingest, FLAGSHIP, nf_name,
+            ("--store-rows", str(STORE_ROWS)) + NORM_FIRST_ARGS)
+        for k, v in counts.items():
+            main_counts[k] += v
+        torch.cuda.empty_cache()
+    print("[serve] norm-first: the serve step vs the plain serve step; "
+          "index vs f32 on the same pixels", flush=True)
+    check_small_against_plain(norm_first, F, cb)
+    check_against_plain(norm_first, F, cb)
+    check_index_bit_identical(norm_first)
+    profile_dispatch(norm_first, small=False)
+    torch.cuda.empty_cache()
+    _, counts = run_train_bench(ks, norm_first, norm_first.batch_size,
+                                FLAGSHIP, nf_name, None, NORM_FIRST_ARGS)
+    for k, v in counts.items():
+        main_counts[k] += v
+    torch.cuda.empty_cache()
+    print("[train] norm-first: learning check, profile, meta-gradients",
+          flush=True)
+    check_learning(FLAGSHIP, norm_first.batch_size, NORM_FIRST_ARGS)
+    profile_train_step(norm_first)
+    check_grads_small(norm_first, F, cb)
+    check_grads_replayed(norm_first, cb, F, norm_first_seeds)
+    snf_name = f"{omniglot_name} strided norm-first"
+    _, counts = run_serve_bench(ks, strided_norm_first, "f32", OMNIGLOT,
+                                snf_name, STRIDED_ARGS + NORM_FIRST_ARGS,
+                                requests=4)
+    for k, v in counts.items():
+        main_counts[k] += v
+    check_small_against_plain(strided_norm_first, F, cb)
+    print(f"[norm-first] {time.perf_counter() - t0:.1f} s", flush=True)
+
+    idle = [k for k in all_kernels if not main_counts[k]]
+    if idle:
+        raise AssertionError(f"kernels no main path launched: {idle}")
 
     kernels = []
     for k in all_kernels:

@@ -25,7 +25,8 @@ so the three tiers draw the same tasks:
 
 ``--max_pooling true|false`` overrides the config's field, as the JAX
 package's command line overrides any field (``false``: the strided
-model).
+model); ``--block_order conv_norm_relu|norm_conv_relu`` likewise
+(``norm_conv_relu``: the norm-first block).
 
 The config's ``use_mmap_cache`` and ``data_placement`` are set to match
 (the port's config requires the first for any tier but host). A tier's
@@ -54,6 +55,8 @@ tests).
     python -m howtotrainyourmamlpytorch_tpu_torch.cli train-bench \\
         --config "experiment_config/omniglot_maml++-omniglot_1_20_8_0.1_64_0.json" \\
         --max_pooling false --data-placement device
+    python -m howtotrainyourmamlpytorch_tpu_torch.cli train-bench \\
+        --block_order norm_conv_relu
 """
 
 from __future__ import annotations
@@ -74,7 +77,12 @@ from .core import maml
 from .data import loader
 from .data.preprocess import FlatStore
 from .device import device_name, peak_rates, resolve_device, synchronize
-from .serving.bench import OMNIGLOT_CLASSES, OMNIGLOT_PER_CLASS, bool_arg
+from .serving.bench import (
+    BLOCK_ORDERS,
+    OMNIGLOT_CLASSES,
+    OMNIGLOT_PER_CLASS,
+    bool_arg,
+)
 from .state import init_state
 
 PLACEMENTS = ("host", "uint8_stream", "device")
@@ -136,6 +144,8 @@ def _bench_cfg(args) -> MAMLConfig:
         cfg = cfg.replace(batch_size=args.batch_size)
     if args.max_pooling is not None:
         cfg = cfg.replace(max_pooling=args.max_pooling)
+    if args.block_order is not None:
+        cfg = cfg.replace(block_order=args.block_order)
     return cfg
 
 
@@ -238,6 +248,9 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--max_pooling", type=bool_arg, default=None,
                         help="override the config's max_pooling (true or "
                              "false), as the JAX command line does")
+    parser.add_argument("--block_order", choices=BLOCK_ORDERS, default=None,
+                        help="override the config's block_order, as the "
+                             "JAX command line does")
     parser.add_argument("--epoch", type=int, default=0,
                         help="epoch fed to the schedule (LR, MSL weights, "
                              "order)")
@@ -322,6 +335,7 @@ def run(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         "second_order": second_order,
         "batch_size": cfg.batch_size,
         "max_pooling": cfg.max_pooling,
+        "block_order": cfg.block_order,
         "meta_accum_steps": cfg.meta_accum_steps,
         "epoch": args.epoch,
         "lr": lr,

@@ -1,0 +1,191 @@
+"""Triton kernels of the standalone leaky-ReLU + 2x2 max pool (B2) and its
+derivatives, for the norm-first block (``block_order='norm_conv_relu'``),
+whose activation follows the conv with no batch norm between:
+
+* ``act_pool_fwd``: leaky-ReLU, then the 2x2/2 max pool (VALID: an odd
+  trailing row or column is dropped) and each pooled element's window
+  argmax, uint8 ``2 * dh + dw``, taken over the activated values, the
+  first maximum on ties (``upd = a > best``, as K2);
+* ``act_pool_bwd``: each pooled gradient to its argmax times
+  ``leaky_relu'(y)`` (1 where y >= 0, else the slope), zero elsewhere;
+* ``act_pool_gather``: the adjoint of ``act_pool_bwd`` in its gradient,
+  ``g_dy * leaky_relu'(y)`` gathered at the argmax;
+* ``act_fwd`` / ``act_bwd``: the pool-free mode (the strided norm-first
+  model): the leaky-ReLU, and ``da * leaky_relu'(y)``, its own adjoint.
+
+Replace (JAX package) ``howtotrainyourmamlpytorch_tpu/ops/functional.py::
+max_pool2d`` :325 and ``leaky_relu`` :363 as ``models/vgg.py`` :300-302
+calls them after the conv, and the gradients XLA derives for them. Ties
+follow the JAX package's accelerator lowering (``reduce_window``: the whole
+gradient to the first maximum), whatever ``pool_impl`` says; its CPU
+lowering (``reshape``) splits it among the tied maxima.
+
+Bound on an H100: bytes. Every pass is elementwise or a 2x2 window with
+no reduction across programs and one compare or select per element. The
+forward reads y once and writes the pooled quarter plus a one-byte argmax;
+the backward reads the pooled gradient and the argmax and writes dy once
+(y only where a window routes its gradient); the gather reads the pooled
+argmax and, at it, g_dy and y, and writes the pooled quarter. The
+pool-free passes are flat: one program per 4,096 elements, no channel
+structure. Each is one launch.
+
+Tiles are ``bn_stats.tile(C)``: ``(BLOCK_P pixels, BLOCK_C)`` with
+``BLOCK_C`` the power of two at or above C and ``BLOCK_P * BLOCK_C = 4096``
+(C = 48: 3 of 4 lanes).
+
+``triton`` is imported at the first launch, never at import (see
+``bn_act_pool.py``).
+"""
+
+from __future__ import annotations
+
+import functools
+from types import SimpleNamespace
+
+from .bn_stats import TILE, cdiv, tile
+
+tl = None  # bound to ``triton.language`` by ``_jit()`` at the first launch
+
+
+def _act_pool_fwd_kernel(y_ptr, out_ptr, arg_ptr, P, HoWo, Wo, H, W, C,
+                         slope, BLOCK_P: "tl.constexpr",
+                         BLOCK_C: "tl.constexpr"):
+    p = tl.program_id(0).to(tl.int64) * BLOCK_P + tl.arange(0, BLOCK_P)
+    c = tl.arange(0, BLOCK_C)
+    mask = (p < P)[:, None] & (c < C)[None, :]
+    img = p // HoWo
+    r = p % HoWo
+    ho = r // Wo
+    wo = r % Wo
+    base = ((img * H + 2 * ho) * W + 2 * wo) * C
+    best = tl.full([BLOCK_P, BLOCK_C], float("-inf"), tl.float32)
+    arg = tl.zeros([BLOCK_P, BLOCK_C], dtype=tl.int32)
+    for k in tl.static_range(4):
+        off = base + ((k // 2) * W + (k % 2)) * C
+        v = tl.load(y_ptr + off[:, None] + c[None, :], mask=mask, other=0.0)
+        a = tl.where(v >= 0, v, v * slope)
+        upd = a > best
+        best = tl.where(upd, a, best)
+        arg = tl.where(upd, k, arg)
+    out = p[:, None] * C + c[None, :]
+    tl.store(out_ptr + out, best, mask=mask)
+    tl.store(arg_ptr + out, arg.to(tl.uint8), mask=mask)
+
+
+def _act_pool_bwd_kernel(dp_ptr, arg_ptr, y_ptr, dy_ptr, NP, HW, W, Ho, Wo,
+                         C, slope, BLOCK_P: "tl.constexpr",
+                         BLOCK_C: "tl.constexpr"):
+    q = tl.program_id(0).to(tl.int64) * BLOCK_P + tl.arange(0, BLOCK_P)
+    c = tl.arange(0, BLOCK_C)
+    mask = (q < NP)[:, None] & (c < C)[None, :]
+    img = q // HW
+    r = q % HW
+    h = r // W
+    w = r % W
+    ho = h // 2
+    wo = w // 2
+    pmask = mask & ((ho < Ho) & (wo < Wo))[:, None]
+    poff = ((img * Ho + ho) * Wo + wo)[:, None] * C + c[None, :]
+    k = tl.load(arg_ptr + poff, mask=pmask, other=255).to(tl.int32)
+    sel = pmask & (k == ((h % 2) * 2 + (w % 2))[:, None])
+    d = tl.load(dp_ptr + poff, mask=sel, other=0.0)
+    off = q[:, None] * C + c[None, :]
+    v = tl.load(y_ptr + off, mask=sel, other=0.0)
+    tl.store(dy_ptr + off, tl.where(v >= 0, d, d * slope), mask=mask)
+
+
+def _act_pool_gather_kernel(g_ptr, arg_ptr, y_ptr, out_ptr, P, HoWo, Wo, H,
+                            W, C, slope, BLOCK_P: "tl.constexpr",
+                            BLOCK_C: "tl.constexpr"):
+    p = tl.program_id(0).to(tl.int64) * BLOCK_P + tl.arange(0, BLOCK_P)
+    c = tl.arange(0, BLOCK_C)
+    mask = (p < P)[:, None] & (c < C)[None, :]
+    img = p // HoWo
+    r = p % HoWo
+    ho = r // Wo
+    wo = r % Wo
+    out = p[:, None] * C + c[None, :]
+    k = tl.load(arg_ptr + out, mask=mask, other=0).to(tl.int32)
+    off = (((img * H + 2 * ho)[:, None] + k // 2) * W
+           + 2 * wo[:, None] + k % 2) * C + c[None, :]
+    g = tl.load(g_ptr + off, mask=mask, other=0.0)
+    v = tl.load(y_ptr + off, mask=mask, other=0.0)
+    tl.store(out_ptr + out, tl.where(v >= 0, g, g * slope), mask=mask)
+
+
+def _act_fwd_kernel(y_ptr, out_ptr, numel, slope, BLOCK: "tl.constexpr"):
+    i = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
+    m = i < numel
+    v = tl.load(y_ptr + i, mask=m, other=0.0)
+    tl.store(out_ptr + i, tl.where(v >= 0, v, v * slope), mask=m)
+
+
+def _act_bwd_kernel(da_ptr, y_ptr, dy_ptr, numel, slope,
+                    BLOCK: "tl.constexpr"):
+    i = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
+    m = i < numel
+    d = tl.load(da_ptr + i, mask=m, other=0.0)
+    v = tl.load(y_ptr + i, mask=m, other=0.0)
+    tl.store(dy_ptr + i, tl.where(v >= 0, d, d * slope), mask=m)
+
+
+@functools.lru_cache(maxsize=None)
+def _jit() -> SimpleNamespace:
+    import triton
+    import triton.language
+
+    global tl
+    tl = triton.language
+    return SimpleNamespace(
+        pool_fwd=triton.jit(_act_pool_fwd_kernel),
+        pool_bwd=triton.jit(_act_pool_bwd_kernel),
+        pool_gather=triton.jit(_act_pool_gather_kernel),
+        fwd=triton.jit(_act_fwd_kernel),
+        bwd=triton.jit(_act_bwd_kernel),
+    )
+
+
+def launch_pool_fwd(y, out, arg, slope: float) -> None:
+    """``act_pool_fwd`` on a validated contiguous f32 CUDA ``y`` (T, N, H,
+    W, C) into ``out`` and the uint8 ``arg`` (T, N, H//2, W//2, C)."""
+    T, N, H, W, C = y.shape
+    Ho, Wo = H // 2, W // 2
+    P = T * N * Ho * Wo
+    bp, bc = tile(C)
+    _jit().pool_fwd[(cdiv(P, bp),)](y, out, arg, P, Ho * Wo, Wo, H, W, C,
+                                    slope, BLOCK_P=bp, BLOCK_C=bc)
+
+
+def launch_pool_bwd(dpooled, arg, y, dy, slope: float) -> None:
+    """``act_pool_bwd``: ``dy`` (the shape of y) from the pooled gradient
+    and the argmax."""
+    T, N, H, W, C = y.shape
+    NP = T * N * H * W
+    bp, bc = tile(C)
+    _jit().pool_bwd[(cdiv(NP, bp),)](dpooled, arg, y, dy, NP, H * W, W,
+                                     H // 2, W // 2, C, slope, BLOCK_P=bp,
+                                     BLOCK_C=bc)
+
+
+def launch_pool_gather(g_dy, arg, y, out, slope: float) -> None:
+    """``act_pool_gather``: the pooled ``out`` from ``g_dy`` (the shape of
+    y) at the argmax."""
+    T, N, H, W, C = y.shape
+    Ho, Wo = H // 2, W // 2
+    P = T * N * Ho * Wo
+    bp, bc = tile(C)
+    _jit().pool_gather[(cdiv(P, bp),)](g_dy, arg, y, out, P, Ho * Wo, Wo,
+                                       H, W, C, slope, BLOCK_P=bp,
+                                       BLOCK_C=bc)
+
+
+def launch_fwd(y, out, slope: float) -> None:
+    """``act_fwd``, flat over y's elements."""
+    n = y.numel()
+    _jit().fwd[(cdiv(n, TILE),)](y, out, n, slope, BLOCK=TILE)
+
+
+def launch_bwd(da, y, dy, slope: float) -> None:
+    """``act_bwd``, flat over y's elements."""
+    n = y.numel()
+    _jit().bwd[(cdiv(n, TILE),)](da, y, dy, n, slope, BLOCK=TILE)

@@ -1,7 +1,9 @@
 """Wrappers of the port's kernels, their launch counters, and the
-``autograd.Function``s that join them into the model's block, conv ->
-batch-norm -> leaky-ReLU -> (2x2 max pool | nothing) -> (global average
-pool), differentiable twice.
+``autograd.Function``s that join them into the model's two blocks,
+differentiable twice: conv -> batch-norm -> leaky-ReLU -> (2x2 max pool |
+nothing) -> (global average pool), and the norm-first block
+(``block_order='norm_conv_relu'``), batch-norm of the input -> conv ->
+leaky-ReLU -> (2x2 max pool | nothing) -> (global average pool).
 
 ==========================  ======  ========================  ==================
 kernel                      route   source                    launches/call
@@ -19,11 +21,25 @@ kernel                      route   source                    launches/call
 ``bn_act_bwd_bwd``          Triton  bn_act_pool.py (K5)       2 (pool-free)
 ``global_avg_pool2d_fwd``   Triton  global_avg_pool.py        1
 ``global_avg_pool2d_bwd``   Triton  global_avg_pool.py        1
+``bn_input_stats``          Triton  bn_stats.py               partial + merge: 2
+``batch_norm_fwd``          Triton  bn_act_pool.py (K2)       1 (slope 1)
+``batch_norm_bwd``          Triton  bn_act_pool.py (K3)       2 (slope 1)
+``batch_norm_bwd_bwd``      Triton  bn_act_pool.py (K5)       2 (slope 1)
+``act_pool_fwd``            Triton  act_pool.py               1
+``act_pool_bwd``            Triton  act_pool.py               1
+``act_pool_gather``         Triton  act_pool.py               1
+``act_fwd``                 Triton  act_pool.py               1 (pool-free)
+``act_bwd``                 Triton  act_pool.py               1 (pool-free)
 ==========================  ======  ========================  ==================
 
 The ``conv3x3_s2_*`` names are the four conv kernels at stride 2 (the
 strided model, ``max_pooling=False``), counted apart from stride 1; the
-``bn_act_*`` names are K2, K3 and K5 without the pool.
+``bn_act_*`` names are K2, K3 and K5 without the pool. The
+``batch_norm_*`` names are the same pool-free K2, K3 and K5 at
+``negative_slope = 1.0`` (``z * 1.0 == z`` in f32, so the leaky-ReLU is
+the identity and they compute batch norm, its backward through the batch
+statistics and its double backward): the norm-first block's standalone
+batch norm, counted apart from the activation use.
 
 Each wrapper takes its plain twin (``ops.functional``) for a tensor on the
 CPU, and for a CUDA tensor launches its kernel or raises: it checks
@@ -49,12 +65,20 @@ second-order MAML does):
 * ``BnActPool``: K2 -> ``BnActPoolBwd``, pooled or pool-free;
 * ``BnActPoolBwd``: K3 -> K5, pooled or pool-free;
 * ``Gap``: the GAP forward -> ``GapBwd``; ``GapBwd``: the GAP backward ->
-  ``Gap``. Both are linear, so every derivative order closes.
+  ``Gap``. Both are linear, so every derivative order closes;
+* ``BatchNorm``: ``bn_input_stats`` + ``batch_norm_fwd`` ->
+  ``BatchNormBwd`` (``batch_norm_bwd``) -> ``batch_norm_bwd_bwd``;
+* ``ActPool``: ``act_pool_fwd`` (or ``act_fwd``) -> ``ActPoolBwd``
+  (``act_pool_bwd`` / ``act_bwd``) -> ``ActPoolGather``
+  (``act_pool_gather``; pool-free, ``ActPoolBwd`` itself) -> ``ActPoolBwd``.
+  Linear in the cotangent, so every order closes; the derivative in y is
+  zero almost everywhere (the argmax and the sign are piecewise
+  constant).
 
 K5's own derivative (the block's third) is taken by no path: on the card
 asking for it raises; on the CPU the twin's formulas are plain ops that
 autograd differentiates, which the f64 ``gradgradcheck`` of
-``BnActPoolBwd`` uses.
+``BnActPoolBwd`` and ``BatchNormBwd`` uses.
 """
 
 from __future__ import annotations
@@ -65,7 +89,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..ops import functional as F
-from . import bn_act_pool, build, global_avg_pool
+from . import act_pool, bn_act_pool, bn_stats, build, global_avg_pool
 
 Tensor = torch.Tensor
 
@@ -86,6 +110,15 @@ KERNELS = (
     "bn_act_bwd_bwd",
     "global_avg_pool2d_fwd",
     "global_avg_pool2d_bwd",
+    "bn_input_stats",
+    "batch_norm_fwd",
+    "batch_norm_bwd",
+    "batch_norm_bwd_bwd",
+    "act_pool_fwd",
+    "act_pool_bwd",
+    "act_pool_gather",
+    "act_fwd",
+    "act_bwd",
 )
 #: the conv strides the kernels take
 STRIDES = (1, 2)
@@ -269,20 +302,24 @@ def bn_act_pool_fwd(y: Tensor, mean: Tensor, rstd: Tensor, gamma: Tensor,
     return out, arg
 
 
+def _launch_act_fwd(name, y, mean, rstd, gamma, beta, slope) -> Tensor:
+    """K2's pool-free mode on the card, counted on ``name``."""
+    _check_bn_args(name, y, dict(mean=mean, rstd=rstd, gamma=gamma,
+                                 beta=beta), y.device)
+    out = torch.empty_like(y)
+    with torch.cuda.device(y.device):
+        bn_act_pool.launch_act_fwd(y, mean, rstd, gamma, beta, out, slope)
+    LAUNCHES[name] += 1
+    return out
+
+
 def bn_act_fwd(y: Tensor, mean: Tensor, rstd: Tensor, gamma: Tensor,
                beta: Tensor, negative_slope: float = F.LEAKY_SLOPE) -> Tensor:
     """K2's pool-free mode: normalize, affine and leaky-ReLU."""
     if _on_cpu(y):
         return F.bn_act_fwd(y, mean, rstd, gamma, beta, negative_slope)
-    name = "bn_act_fwd"
-    _check_bn_args(name, y, dict(mean=mean, rstd=rstd, gamma=gamma,
-                                 beta=beta), y.device)
-    out = torch.empty_like(y)
-    with torch.cuda.device(y.device):
-        bn_act_pool.launch_act_fwd(y, mean, rstd, gamma, beta, out,
-                                   negative_slope)
-    LAUNCHES[name] += 1
-    return out
+    return _launch_act_fwd("bn_act_fwd", y, mean, rstd, gamma, beta,
+                           negative_slope)
 
 
 def bn_act_pool_bwd(dpooled: Tensor, argmax: Tensor, y: Tensor, mean: Tensor,
@@ -317,7 +354,13 @@ def bn_act_bwd(da: Tensor, y: Tensor, mean: Tensor, rstd: Tensor,
     ``(dy, dgamma, dbeta)``."""
     if _on_cpu(y):
         return F.bn_act_bwd(da, y, mean, rstd, gamma, beta, negative_slope)
-    name = "bn_act_bwd"
+    return _launch_act_bwd("bn_act_bwd", da, y, mean, rstd, gamma, beta,
+                           negative_slope)
+
+
+def _launch_act_bwd(name, da, y, mean, rstd, gamma, beta, slope
+                    ) -> Tuple[Tensor, Tensor, Tensor]:
+    """K3's pool-free mode on the card, counted on ``name``."""
     _check_bn_args(name, y, dict(mean=mean, rstd=rstd, gamma=gamma,
                                  beta=beta), y.device)
     _check(name, "da", da, y.shape, y.device)
@@ -326,7 +369,7 @@ def bn_act_bwd(da: Tensor, y: Tensor, mean: Tensor, rstd: Tensor,
     dy = torch.empty_like(y)
     with torch.cuda.device(y.device):
         bn_act_pool.launch_act_bwd(da, y, mean, rstd, gamma, beta, part, dy,
-                                   negative_slope)
+                                   slope)
     LAUNCHES[name] += 1
     sums = part.sum(dim=1)
     return dy, sums[:, 1], sums[:, 0]
@@ -371,7 +414,13 @@ def bn_act_bwd_bwd(a: Tensor, ggamma: Tensor, gbeta: Tensor, da: Tensor,
     if _on_cpu(y):
         return F.bn_act_bwd_bwd(a, ggamma, gbeta, da, y, mean, rstd, gamma,
                                 beta, negative_slope)
-    name = "bn_act_bwd_bwd"
+    return _launch_act_bwd_bwd("bn_act_bwd_bwd", a, ggamma, gbeta, da, y,
+                               mean, rstd, gamma, beta, negative_slope)
+
+
+def _launch_act_bwd_bwd(name, a, ggamma, gbeta, da, y, mean, rstd, gamma,
+                        beta, slope) -> Tuple[Tensor, Tensor, Tensor]:
+    """K5's pool-free mode on the card, counted on ``name``."""
     _check_bn_args(name, y, dict(mean=mean, rstd=rstd, gamma=gamma,
                                  beta=beta, ggamma=ggamma, gbeta=gbeta),
                    y.device)
@@ -385,9 +434,145 @@ def bn_act_bwd_bwd(a: Tensor, ggamma: Tensor, gbeta: Tensor, da: Tensor,
     with torch.cuda.device(y.device):
         bn_act_pool.launch_act_bwd_bwd(a, ggamma, gbeta, da, y, mean, rstd,
                                        gamma, beta, part, g_da, g_y, g_gamma,
-                                       negative_slope)
+                                       slope)
     LAUNCHES[name] += 1
     return g_da, g_y, g_gamma
+
+
+# -- the norm-first block's kernels: standalone batch norm (B5b) ----------------
+
+
+def bn_input_stats(x: Tensor, eps: float = F.BN_EPS
+                   ) -> Tuple[Tensor, Tensor, Tensor]:
+    """The block input's per-(tenant, channel) batch mean, biased variance
+    and rstd (``bn_stats.py``)."""
+    if _on_cpu(x):
+        return F.bn_input_stats(x, eps)
+    name = "bn_input_stats"
+    T, N, H, W, C = _check_act(name, x)
+    plan = bn_stats.plan(T, N * H * W, C)
+    part = torch.empty((T, plan.splits, 3, C), device=x.device)
+    mean, var, rstd = (torch.empty((T, C), device=x.device)
+                       for _ in range(3))
+    with torch.cuda.device(x.device):
+        bn_stats.launch(x, part, mean, var, rstd, eps)
+    LAUNCHES[name] += 1
+    return mean, var, rstd
+
+
+def batch_norm_fwd(x: Tensor, mean: Tensor, rstd: Tensor, gamma: Tensor,
+                   beta: Tensor) -> Tensor:
+    """Batch norm with the given statistics: K2's pool-free mode at slope
+    1."""
+    if _on_cpu(x):
+        return F.batch_norm_fwd(x, mean, rstd, gamma, beta)
+    return _launch_act_fwd("batch_norm_fwd", x, mean, rstd, gamma, beta, 1.0)
+
+
+def batch_norm_bwd(dz: Tensor, x: Tensor, mean: Tensor, rstd: Tensor,
+                   gamma: Tensor, beta: Tensor
+                   ) -> Tuple[Tensor, Tensor, Tensor]:
+    """The backward of batch norm through the batch statistics, ``(dx,
+    dgamma, dbeta)``: K3's pool-free mode at slope 1."""
+    if _on_cpu(x):
+        return F.batch_norm_bwd(dz, x, mean, rstd, gamma, beta)
+    return _launch_act_bwd("batch_norm_bwd", dz, x, mean, rstd, gamma, beta,
+                           1.0)
+
+
+def batch_norm_bwd_bwd(a: Tensor, ggamma: Tensor, gbeta: Tensor, dz: Tensor,
+                       x: Tensor, mean: Tensor, rstd: Tensor, gamma: Tensor,
+                       beta: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    """The backward of ``batch_norm_bwd``: the gradients with respect to
+    ``dz``, ``x`` and ``gamma`` (beta's is zero): K5's pool-free mode at
+    slope 1."""
+    if _on_cpu(x):
+        return F.batch_norm_bwd_bwd(a, ggamma, gbeta, dz, x, mean, rstd,
+                                    gamma, beta)
+    return _launch_act_bwd_bwd("batch_norm_bwd_bwd", a, ggamma, gbeta, dz, x,
+                               mean, rstd, gamma, beta, 1.0)
+
+
+# -- the norm-first block's kernels: leaky-ReLU + max pool (B2) ------------------
+
+
+def act_pool_fwd(y: Tensor, negative_slope: float = F.LEAKY_SLOPE
+                 ) -> Tuple[Tensor, Tensor]:
+    """Leaky-ReLU and the 2x2 max pool; returns the pooled activation and
+    the uint8 window argmax (``act_pool.py``)."""
+    if _on_cpu(y):
+        return F.act_pool_fwd(y, negative_slope)
+    name = "act_pool_fwd"
+    T, N, H, W, C = _check_act(name, y)
+    out = torch.empty((T, N, H // 2, W // 2, C), device=y.device)
+    arg = torch.empty((T, N, H // 2, W // 2, C), device=y.device,
+                      dtype=torch.uint8)
+    with torch.cuda.device(y.device):
+        act_pool.launch_pool_fwd(y, out, arg, negative_slope)
+    LAUNCHES[name] += 1
+    return out, arg
+
+
+def act_pool_bwd(dpooled: Tensor, argmax: Tensor, y: Tensor,
+                 negative_slope: float = F.LEAKY_SLOPE) -> Tensor:
+    """The backward of ``act_pool_fwd``: ``dy`` from the pooled gradient
+    and the window argmax."""
+    if _on_cpu(y):
+        return F.act_pool_bwd(dpooled, argmax, y, negative_slope)
+    name = "act_pool_bwd"
+    _check_act(name, y)
+    _check_pooled(name, dpooled, argmax, y)
+    dy = torch.empty_like(y)
+    with torch.cuda.device(y.device):
+        act_pool.launch_pool_bwd(dpooled, argmax, y, dy, negative_slope)
+    LAUNCHES[name] += 1
+    return dy
+
+
+def act_pool_gather(g_dy: Tensor, argmax: Tensor, y: Tensor,
+                    negative_slope: float = F.LEAKY_SLOPE) -> Tensor:
+    """The adjoint of ``act_pool_bwd`` in its gradient: ``g_dy *
+    leaky_relu'(y)`` at each window's argmax."""
+    if _on_cpu(y):
+        return F.act_pool_gather(g_dy, argmax, y, negative_slope)
+    name = "act_pool_gather"
+    _check_act(name, y)
+    _check(name, "g_dy", g_dy, y.shape, y.device)
+    T, N, H, W, C = y.shape
+    out = torch.empty((T, N, H // 2, W // 2, C), device=y.device)
+    _check_pooled(name, out, argmax, y)
+    with torch.cuda.device(y.device):
+        act_pool.launch_pool_gather(g_dy, argmax, y, out, negative_slope)
+    LAUNCHES[name] += 1
+    return out
+
+
+def act_fwd(y: Tensor, negative_slope: float = F.LEAKY_SLOPE) -> Tensor:
+    """The leaky-ReLU alone (the pool-free mode)."""
+    if _on_cpu(y):
+        return F.act_fwd(y, negative_slope)
+    name = "act_fwd"
+    _check_act(name, y)
+    out = torch.empty_like(y)
+    with torch.cuda.device(y.device):
+        act_pool.launch_fwd(y, out, negative_slope)
+    LAUNCHES[name] += 1
+    return out
+
+
+def act_bwd(da: Tensor, y: Tensor, negative_slope: float = F.LEAKY_SLOPE
+            ) -> Tensor:
+    """``da * leaky_relu'(y)`` (the pool-free mode; its own adjoint)."""
+    if _on_cpu(y):
+        return F.act_bwd(da, y, negative_slope)
+    name = "act_bwd"
+    _check_act(name, y)
+    _check(name, "da", da, y.shape, y.device)
+    dy = torch.empty_like(y)
+    with torch.cuda.device(y.device):
+        act_pool.launch_bwd(da, y, dy, negative_slope)
+    LAUNCHES[name] += 1
+    return dy
 
 
 # -- K4 -----------------------------------------------------------------------
@@ -714,15 +899,188 @@ def conv_bn_act_pool(x: Tensor, w: Tensor, b: Tensor, gamma: Tensor,
     if _on_cpu(x):
         return F.conv_bn_act_pool(x, w, b, gamma, beta, stats_impl,
                                   stride=stride, pool=pool, gap=gap)
+    _check_block_input("conv_bn_act_pool", x)
+    return function_block(x, w, b, gamma, beta, stride=stride, pool=pool,
+                          gap=gap)
+
+
+def _check_block_input(name: str, x: Tensor) -> None:
     if x.dtype != torch.float32:
         raise NotImplementedError(
-            f"conv_bn_act_pool kernels are f32 only; compute_dtype "
+            f"{name} kernels are f32 only; compute_dtype "
             f"{x.dtype} (the bf16 kernels) is not ported yet"
         )
     if x.dim() != 5:
         raise ValueError(
-            f"conv_bn_act_pool on CUDA takes (T, N, H, W, C), got "
-            f"{tuple(x.shape)}"
+            f"{name} on CUDA takes (T, N, H, W, C), got {tuple(x.shape)}"
         )
-    return function_block(x, w, b, gamma, beta, stride=stride, pool=pool,
-                          gap=gap)
+
+
+# -- the norm-first block ---------------------------------------------------------
+
+
+class BatchNorm(torch.autograd.Function):
+    """Batch norm of the block input with its batch statistics:
+    ``bn_input_stats`` then ``batch_norm_fwd``. Returns ``(z, mean, var,
+    rstd)``; the statistics are not differentiable (batch norm's dependence
+    on them is inside ``batch_norm_bwd`` and ``batch_norm_bwd_bwd``, and
+    the running stats take no gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta):
+        mean, var, rstd = bn_input_stats(x)
+        z = batch_norm_fwd(x, mean, rstd, gamma, beta)
+        ctx.mark_non_differentiable(mean, var, rstd)
+        ctx.save_for_backward(x, gamma, beta, mean, rstd)
+        return z, mean, var, rstd
+
+    @staticmethod
+    def backward(ctx, dz, *_stats):
+        x, gamma, beta, mean, rstd = ctx.saved_tensors
+        return BatchNormBwd.apply(dz.contiguous(), x, mean, rstd, gamma,
+                                  beta)
+
+
+class BatchNormBwd(torch.autograd.Function):
+    """``batch_norm_bwd``: ``(dx, dgamma, dbeta)`` from ``dz``; its
+    backward is ``batch_norm_bwd_bwd``."""
+
+    @staticmethod
+    def forward(ctx, dz, x, mean, rstd, gamma, beta):
+        ctx.save_for_backward(dz, x, mean, rstd, gamma, beta)
+        return batch_norm_bwd(dz, x, mean, rstd, gamma, beta)
+
+    @staticmethod
+    def backward(ctx, g_dx, g_dgamma, g_dbeta):
+        dz, x, mean, rstd, gamma, beta = ctx.saved_tensors
+        if _on_cpu(x):
+            # as BnActPoolBwd: statistics recomputed from x carry their
+            # dependence on x into a further derivative of the twin
+            mean, _, rstd = F.bn_stats(x)
+            second = batch_norm_bwd_bwd
+        else:
+            second = BatchNormBwdBwd.apply
+        g_dz, g_x, g_gamma = second(
+            g_dx.contiguous(), g_dgamma.contiguous(), g_dbeta.contiguous(),
+            dz, x, mean, rstd, gamma, beta)
+        return g_dz, g_x, None, None, g_gamma, None
+
+
+class BatchNormBwdBwd(torch.autograd.Function):
+    """``batch_norm_bwd_bwd`` as a graph node on the card, so that a
+    further derivative (the norm-first block's third) raises."""
+
+    @staticmethod
+    def forward(ctx, *args):
+        return batch_norm_bwd_bwd(*args)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError(
+            "the derivative of batch_norm_bwd_bwd (K5 at slope 1), the "
+            "norm-first block's third derivative, is not written"
+        )
+
+
+class ActPool(torch.autograd.Function):
+    """``act_pool_fwd`` on the conv output y; returns ``(pooled, argmax)``,
+    or with ``pool=False`` (``act_fwd``) the activation alone."""
+
+    @staticmethod
+    def forward(ctx, y, pool=True):
+        if pool:
+            out, arg = act_pool_fwd(y)
+            ctx.mark_non_differentiable(arg)
+        else:
+            out, arg = act_fwd(y), None
+        ctx.save_for_backward(y, arg)
+        return (out, arg) if pool else out
+
+    @staticmethod
+    def backward(ctx, dout, *_darg):
+        y, arg = ctx.saved_tensors
+        return ActPoolBwd.apply(dout.contiguous(), arg, y), None
+
+
+class ActPoolBwd(torch.autograd.Function):
+    """``act_pool_bwd`` (``act_bwd`` with ``arg=None``): dy from the pooled
+    (or the activation's) gradient. Linear in it; its derivative in y is
+    zero almost everywhere."""
+
+    @staticmethod
+    def forward(ctx, dout, arg, y):
+        ctx.save_for_backward(arg, y)
+        if arg is None:
+            return act_bwd(dout, y)
+        return act_pool_bwd(dout, arg, y)
+
+    @staticmethod
+    def backward(ctx, g_dy):
+        arg, y = ctx.saved_tensors
+        g_dy = g_dy.contiguous()
+        if arg is None:
+            return ActPoolBwd.apply(g_dy, None, y), None, None
+        return ActPoolGather.apply(g_dy, arg, y), None, None
+
+
+class ActPoolGather(torch.autograd.Function):
+    """``act_pool_gather``, the adjoint of ``act_pool_bwd``; its backward
+    is ``ActPoolBwd``."""
+
+    @staticmethod
+    def forward(ctx, g_dy, arg, y):
+        ctx.save_for_backward(arg, y)
+        return act_pool_gather(g_dy, arg, y)
+
+    @staticmethod
+    def backward(ctx, g):
+        arg, y = ctx.saved_tensors
+        return ActPoolBwd.apply(g.contiguous(), arg, y), None, None
+
+
+def norm_function_block(x: Tensor, w: Tensor, b: Tensor, gamma: Tensor,
+                        beta: Tensor, stats_impl: str = "twopass",
+                        stride: int = 1, pool: bool = True, gap: bool = False
+                        ) -> Tuple[Tensor, Tensor, Tensor]:
+    """The norm-first block as the chain of Functions: ``BatchNorm`` of the
+    input, K1's stats-free mode with bias (at ``stride``), ``ActPool``
+    (pooled, or pool-free with ``pool=False``) and, with ``gap``, the
+    global average pool. On CPU tensors each wrapper takes its twin;
+    ``stats_impl`` is accepted for the block signature and not read (the
+    statistics are ``bn_input_stats``')."""
+    T, cin = x.shape[0], x.shape[-1]
+    gamma = gamma.expand(T, cin).contiguous()
+    beta = beta.expand(T, cin).contiguous()
+    z, mean, var, _ = BatchNorm.apply(x.contiguous(), gamma, beta)
+    out = ActPool.apply(
+        Conv3x3.apply(z, w.contiguous(), b.contiguous(), False, stride), pool)
+    if pool:
+        out = out[0]
+    if gap:
+        out = Gap.apply(out)
+    return out, mean, var
+
+
+def norm_conv_act_pool(x: Tensor, w: Tensor, b: Tensor, gamma: Tensor,
+                       beta: Tensor, stats_impl: str = "twopass",
+                       stride: int = 1, pool: bool = True, gap: bool = False
+                       ) -> Tuple[Tensor, Tensor, Tensor]:
+    """The norm-first block as the model calls it: the plain composition
+    (``ops.functional.norm_conv_act_pool``) for CPU tensors,
+    ``norm_function_block`` on the kernels for CUDA tensors. ``gamma`` and
+    ``beta`` are sized to the input's channels; returns ``(out,
+    batch_mean, batch_var)`` of the block input."""
+    if _on_cpu(x):
+        return F.norm_conv_act_pool(x, w, b, gamma, beta, stats_impl,
+                                    stride=stride, pool=pool, gap=gap)
+    _check_block_input("norm_conv_act_pool", x)
+    return norm_function_block(x, w, b, gamma, beta, stride=stride,
+                               pool=pool, gap=gap)
+
+
+# the order of the layers each block computes (``MAMLConfig.block_order``)
+for _block in (function_block, conv_bn_act_pool):
+    _block.block_order = "conv_norm_relu"
+for _block in (norm_function_block, norm_conv_act_pool):
+    _block.block_order = "norm_conv_relu"
+del _block

@@ -13,18 +13,22 @@ carries a leading ``T`` axis (each tenant adapts its own copy) while frozen
 parameters are shared, and the returned BN state is per tenant
 ``(T, steps, f)``.
 
-The port covers ``block_order='conv_norm_relu'`` with
-``norm_layer='batch_norm'`` and padded convs, in both geometries: with
-``max_pooling=True`` each stage is a stride-1 conv followed by a 2x2 max
-pool; with ``max_pooling=False`` (the strided model, the JAX package's
-default) each stage is a stride-2 conv with no pool, and the features are
-the global average pool of the last stage (``models/vgg.py`` :200, :301,
-:304-305 of the JAX package). Each block is one
-``kernels.conv_block.conv_bn_act_pool`` call (plain ops on the CPU, the
-hand-written kernels on the card, differentiable twice); in the strided
-model the last block also takes the global average pool, so that the
-block given to ``apply`` decides how it is computed. Other configurations
-raise ``NotImplementedError`` naming the missing kernel.
+The port covers ``norm_layer='batch_norm'`` with padded convs, both block
+orders and both geometries. ``block_order='conv_norm_relu'`` (the
+reference's block) normalizes the conv output; ``'norm_conv_relu'``
+normalizes the block INPUT (gamma, beta and the running statistics sized
+to its channels, JAX ``models/vgg.py`` :110, :271), then conv + bias and
+leaky-ReLU. With ``max_pooling=True`` each stage is a stride-1 conv
+followed by a 2x2 max pool; with ``max_pooling=False`` (the strided model,
+the JAX package's default) each stage is a stride-2 conv with no pool, and
+the features are the global average pool of the last stage (JAX
+``models/vgg.py`` :200, :301, :304-305). Each stage is one call of a block
+that computes the config's order (``blocks_for``: plain ops on the CPU,
+the hand-written kernels on the card, differentiable twice); in the
+strided model the last block also takes the global average pool, so that
+the block given to ``apply`` decides how it is computed. A block of the
+other order raises. Other configurations raise ``NotImplementedError``
+naming the missing kernel.
 """
 
 from __future__ import annotations
@@ -42,16 +46,24 @@ from ..ops import functional as F
 Params = Dict[str, torch.Tensor]
 BNState = Dict[str, torch.Tensor]
 #: ``block(x, w, b, gamma, beta, stats_impl, stride=, pool=, gap=) ->
-#: (out, mean, var)``
+#: (out, mean, var)``, with a ``block_order`` attribute naming the order of
+#: the layers it computes (``conv_norm_relu`` or ``norm_conv_relu``)
 BlockFn = Callable[..., Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
+
+
+def blocks_for(cfg: MAMLConfig) -> Tuple[BlockFn, BlockFn]:
+    """``(kernel_block, plain_block)`` of the config's block order: the
+    block that takes the kernels for CUDA tensors (and its twin for CPU
+    ones), and the plain composition differentiable by autograd (the
+    reference on the card)."""
+    if cfg.block_order == "norm_conv_relu":
+        return conv_block.norm_conv_act_pool, F.norm_conv_act_pool
+    return conv_block.conv_bn_act_pool, F.conv_bn_act_pool
 
 
 def check_supported(cfg: MAMLConfig) -> None:
     """Raise ``NotImplementedError`` for a model outside this slice."""
     missing = []
-    if cfg.block_order != "conv_norm_relu":
-        missing.append("block_order='norm_conv_relu' (standalone batch-norm "
-                       "and conv kernels, ROADMAP Queue B5)")
     if cfg.norm_layer != "batch_norm":
         missing.append("norm_layer='layer_norm' (layer-norm kernel, ROADMAP "
                        "Queue B5)")
@@ -117,17 +129,22 @@ def init(cfg: MAMLConfig, gen: torch.Generator,
             gen, (3, 3, c_in, f), c_in * 9, f * 9, device
         )
         params[f"conv{i}.conv.bias"] = torch.zeros(f, device=device)
+        # the norm's features: the conv output's, or the block input's
+        # when the block normalizes its input first
+        nf = c_in if cfg.block_order == "norm_conv_relu" else f
         if (cfg.per_step_bn_statistics
                 and not cfg.enable_inner_loop_optimizable_bn_params):
-            params[f"conv{i}.norm.gamma"] = torch.ones(steps, f, device=device)
-            params[f"conv{i}.norm.beta"] = torch.zeros(steps, f, device=device)
+            params[f"conv{i}.norm.gamma"] = torch.ones(steps, nf,
+                                                       device=device)
+            params[f"conv{i}.norm.beta"] = torch.zeros(steps, nf,
+                                                       device=device)
         else:
-            params[f"conv{i}.norm.gamma"] = torch.ones(f, device=device)
-            params[f"conv{i}.norm.beta"] = torch.zeros(f, device=device)
+            params[f"conv{i}.norm.gamma"] = torch.ones(nf, device=device)
+            params[f"conv{i}.norm.beta"] = torch.zeros(nf, device=device)
         if cfg.per_step_bn_statistics:
-            bn_state[f"conv{i}.norm.mean"] = torch.zeros(steps, f,
+            bn_state[f"conv{i}.norm.mean"] = torch.zeros(steps, nf,
                                                          device=device)
-            bn_state[f"conv{i}.norm.var"] = torch.ones(steps, f,
+            bn_state[f"conv{i}.norm.var"] = torch.ones(steps, nf,
                                                        device=device)
         c_in = f
     feat = feature_dim(cfg)
@@ -150,16 +167,24 @@ def apply(cfg: MAMLConfig, params: Params, bn_state: BNState,
         statistics, clamped to the stored step count.
     :param training: whether the updated running statistics are returned
         (normalization always uses batch statistics).
-    :param block: the block implementation; default
-        ``kernels.conv_block.conv_bn_act_pool`` (plain ops for CPU tensors,
-        the kernels for CUDA tensors). A caller that wants the plain ops on
-        the card passes ``ops.functional.conv_bn_act_pool``.
+    :param block: the block implementation, of the config's
+        ``block_order`` (another raises ``ValueError``); default the kernel
+        block of ``blocks_for(cfg)`` (plain ops for CPU tensors, the
+        kernels for CUDA tensors). A caller that wants the plain ops on the
+        card passes ``blocks_for(cfg)[1]``.
     :return: ``(logits, new_bn_state)``; logits f32 (f64 for f64 images)
         ``(batch, way)`` or
         ``(T, batch, way)``.
     """
     check_supported(cfg)
-    block = conv_block.conv_bn_act_pool if block is None else block
+    block = blocks_for(cfg)[0] if block is None else block
+    order = getattr(block, "block_order", None)
+    if order != cfg.block_order:
+        raise ValueError(
+            f"the block computes block_order={order!r}; the config's is "
+            f"{cfg.block_order!r}"
+        )
+    norm_first = cfg.block_order == "norm_conv_relu"
     tenant = x.dim() == 5
     if not tenant:
         x = x.unsqueeze(0)
@@ -183,9 +208,11 @@ def apply(cfg: MAMLConfig, params: Params, bn_state: BNState,
         beta = params[f"conv{i}.norm.beta"]
         if per_step_affine:
             gamma, beta = gamma[step], beta[step]
-        # the batch statistics' count: the conv output's pixels
-        conv_n = out.shape[1] * math.prod(
-            F.conv_out_hw(out.shape[2], out.shape[3], stride))
+        # the batch statistics' count: the pixels of the normalized
+        # tensor, the block input or the conv output
+        hw = out.shape[2:4] if norm_first else F.conv_out_hw(
+            out.shape[2], out.shape[3], stride)
+        stats_n = out.shape[1] * math.prod(hw)
         out, mean, var = block(
             out, params[f"conv{i}.conv.weight"].to(dtype),
             params[f"conv{i}.conv.bias"].to(dtype), gamma, beta, stats_impl,
@@ -200,7 +227,7 @@ def apply(cfg: MAMLConfig, params: Params, bn_state: BNState,
             new_bn[mean_key], new_bn[var_key] = rm, rv
             continue
         nm, nv = F.running_update(rm[..., step, :], rv[..., step, :],
-                                  mean, var, conv_n)
+                                  mean, var, stats_n)
         for key, old, new in ((mean_key, rm, nm), (var_key, rv, nv)):
             full = old.expand(n_tenants, *old.shape[-2:]).clone()
             full[:, step] = new

@@ -237,6 +237,39 @@ def conv_bn_act_pool(x: Tensor, w: Tensor, b: Tensor, gamma: Tensor,
     return out, mean.detach(), var.detach()
 
 
+def norm_conv_act_pool(x: Tensor, w: Tensor, b: Tensor, gamma: Tensor,
+                       beta: Tensor, stats_impl: str = "twopass",
+                       eps: float = BN_EPS,
+                       negative_slope: float = LEAKY_SLOPE, stride: int = 1,
+                       pool: bool = True, gap: bool = False
+                       ) -> Tuple[Tensor, Tensor, Tensor]:
+    """The norm-first block (``block_order='norm_conv_relu'``) in plain
+    ops, differentiable by autograd: batch norm of the block INPUT (gamma
+    and beta sized to its channels) -> 3x3 conv (``stride``, pad 1) + bias
+    -> leaky-ReLU, then the 2x2 max pool when ``pool`` and the global
+    average pool when ``gap`` (the JAX package's ``models/vgg.py`` :271,
+    :288, :300, :302, :304-305).
+
+    Returns ``(out, batch_mean, batch_var)`` of the block input, detached,
+    as ``conv_bn_act_pool`` returns the conv output's."""
+    mean, var = batch_stats(x, stats_impl)
+    inv = torch.rsqrt(var + eps).to(x.dtype)
+    z = (x - _per_channel(mean, x)) * _per_channel(inv, x)
+    z = z * _per_channel(gamma.to(x.dtype), x) + _per_channel(
+        beta.to(x.dtype), x)
+    out = leaky_relu(conv2d(z, w, b, stride, 1), negative_slope)
+    if pool:
+        out = max_pool2d(out)
+    if gap:
+        out = global_avg_pool2d(out)
+    return out, mean.detach(), var.detach()
+
+
+# the order of the layers each block computes (``MAMLConfig.block_order``)
+conv_bn_act_pool.block_order = "conv_norm_relu"
+norm_conv_act_pool.block_order = "norm_conv_relu"
+
+
 # -- plain twins of the hand-written kernels ----------------------------------
 #
 # All take the tenant axis: x/y (T, N, H, W, C) f32, w (T, 3, 3, cin, cout),
@@ -451,3 +484,89 @@ def global_avg_pool2d_bwd(dpool: Tensor, h: int, w: int) -> Tensor:
     t, n, c = dpool.shape
     return (dpool / (h * w))[:, :, None, None, :].expand(
         t, n, h, w, c).contiguous()
+
+
+# -- the norm-first block's kernels: standalone batch norm (B5b) and
+# leaky-ReLU + max pool (B2) --------------------------------------------------
+
+
+def bn_input_stats(x: Tensor, eps: float = BN_EPS
+                   ) -> Tuple[Tensor, Tensor, Tensor]:
+    """Twin of ``bn_input_stats``: the block input's per-(tenant, channel)
+    batch mean, biased variance (two passes) and
+    ``rstd = 1 / sqrt(var + eps)``."""
+    return bn_stats(x, eps)
+
+
+def batch_norm_fwd(x: Tensor, mean: Tensor, rstd: Tensor, gamma: Tensor,
+                   beta: Tensor) -> Tensor:
+    """Twin of ``batch_norm_fwd``: ``(x - mean) * rstd * gamma + beta``,
+    K2's pool-free mode at slope 1 (leaky-ReLU the identity)."""
+    return bn_act_fwd(x, mean, rstd, gamma, beta, 1.0)
+
+
+def batch_norm_bwd(dz: Tensor, x: Tensor, mean: Tensor, rstd: Tensor,
+                   gamma: Tensor, beta: Tensor
+                   ) -> Tuple[Tensor, Tensor, Tensor]:
+    """Twin of ``batch_norm_bwd``: the backward of batch norm with batch
+    statistics, ``(dx, dgamma, dbeta)`` from ``dz`` (K3's pool-free mode
+    at slope 1)."""
+    return bn_act_bwd(dz, x, mean, rstd, gamma, beta, 1.0)
+
+
+def batch_norm_bwd_bwd(a: Tensor, ggamma: Tensor, gbeta: Tensor, dz: Tensor,
+                       x: Tensor, mean: Tensor, rstd: Tensor, gamma: Tensor,
+                       beta: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    """Twin of ``batch_norm_bwd_bwd``: the backward of ``batch_norm_bwd``,
+    the gradients with respect to ``dz``, ``x`` and ``gamma`` (K5's
+    pool-free mode at slope 1; beta's is zero)."""
+    return bn_act_bwd_bwd(a, ggamma, gbeta, dz, x, mean, rstd, gamma, beta,
+                          1.0)
+
+
+def _leaky_masked(v: Tensor, y: Tensor, negative_slope: float) -> Tensor:
+    """``v * leaky_relu'(y)``: ``v`` where ``y >= 0``, else
+    ``negative_slope * v``."""
+    return torch.where(y >= 0, v, negative_slope * v)
+
+
+def act_fwd(y: Tensor, negative_slope: float = LEAKY_SLOPE) -> Tensor:
+    """Twin of ``act_fwd``: the leaky-ReLU."""
+    return leaky_relu(y, negative_slope)
+
+
+def act_bwd(da: Tensor, y: Tensor, negative_slope: float = LEAKY_SLOPE
+            ) -> Tensor:
+    """Twin of ``act_bwd``: ``da * leaky_relu'(y)``; linear in ``da`` and
+    its own adjoint."""
+    return _leaky_masked(da, y, negative_slope)
+
+
+def act_pool_fwd(y: Tensor, negative_slope: float = LEAKY_SLOPE
+                 ) -> Tuple[Tensor, Tensor]:
+    """Twin of ``act_pool_fwd``: leaky-ReLU then the 2x2 max pool; returns
+    the pooled activation and each pooled element's window argmax over the
+    ACTIVATED values (uint8, ``2 * dh + dw``, the first maximum on ties:
+    the JAX package's ``reduce_window`` lowering)."""
+    win = _windows(leaky_relu(y, negative_slope))
+    arg = torch.argmax(win, dim=-1, keepdim=True)
+    return (torch.gather(win, -1, arg).squeeze(-1),
+            arg.squeeze(-1).to(torch.uint8))
+
+
+def act_pool_bwd(dpooled: Tensor, argmax: Tensor, y: Tensor,
+                 negative_slope: float = LEAKY_SLOPE) -> Tensor:
+    """Twin of ``act_pool_bwd``: each pooled gradient at its window's
+    argmax times ``leaky_relu'(y)`` there, zero elsewhere (a dropped odd
+    row or column too)."""
+    _, _, h, w, _ = y.shape
+    return _leaky_masked(_unpool(dpooled, argmax, h, w), y, negative_slope)
+
+
+def act_pool_gather(g_dy: Tensor, argmax: Tensor, y: Tensor,
+                    negative_slope: float = LEAKY_SLOPE) -> Tensor:
+    """Twin of ``act_pool_gather``: the adjoint of ``act_pool_bwd`` in its
+    gradient, ``g_dy * leaky_relu'(y)`` gathered at each window's
+    argmax."""
+    g = _windows(_leaky_masked(g_dy, y, negative_slope))
+    return torch.gather(g, -1, argmax.long().unsqueeze(-1)).squeeze(-1)

@@ -13,7 +13,9 @@ classes x 20 images of {0, 1} pixels, 422 x 20 = 8,440 rows at the
 shipped split; otherwise the mini-ImageNet test split, 20 classes x 600
 = 12,000 rows of any byte). ``--max_pooling true|false`` overrides the
 config's field, as the JAX package's command line overrides any field
-(``false`` serves the strided model).
+(``false`` serves the strided model); ``--block_order
+conv_norm_relu|norm_conv_relu`` likewise (``norm_conv_relu``: the
+norm-first block).
 
 Prints ONE JSON line: adapt latency p50/p95, ``tenants_per_sec``,
 dispatches, tenants, the ``ingest`` and ``h2d_bytes_per_dispatch`` (the
@@ -33,6 +35,9 @@ ported yet.
     python -m howtotrainyourmamlpytorch_tpu_torch.cli serve-bench \\
         --config "experiment_config/omniglot_maml++-omniglot_1_20_8_0.1_64_0.json" \\
         --max_pooling false --requests 16 --ingest index
+    python -m howtotrainyourmamlpytorch_tpu_torch.cli serve-bench \\
+        --config experiment_config/mini-imagenet_maml++-mini-imagenet_5_5_2_0.01_48_0.json \\
+        --block_order norm_conv_relu --requests 16
 """
 
 from __future__ import annotations
@@ -45,7 +50,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 from .. import kernels
-from ..config import MAMLConfig, _coerce_bool
+from ..config import _CHOICES, MAMLConfig, _coerce_bool
 from ..device import device_name, resolve_device
 from ..state import init_state
 from .batcher import AdaptRequest, IndexRequest, serve_requests
@@ -56,6 +61,10 @@ INGESTS = ("f32", "uint8", "index")
 STORE_ROWS = 12000
 #: Omniglot's character count and images per character
 OMNIGLOT_CLASSES, OMNIGLOT_PER_CLASS = 1623, 20
+
+
+#: the block orders ``--block_order`` takes
+BLOCK_ORDERS = _CHOICES["block_order"]
 
 
 def bool_arg(value: str) -> bool:
@@ -107,6 +116,8 @@ def _bench_cfg(args) -> MAMLConfig:
         )
     if args.max_pooling is not None:
         cfg = cfg.replace(max_pooling=args.max_pooling)
+    if args.block_order is not None:
+        cfg = cfg.replace(block_order=args.block_order)
     return cfg
 
 
@@ -203,6 +214,9 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--max_pooling", type=bool_arg, default=None,
                         help="override the config's max_pooling (true or "
                              "false), as the JAX command line does")
+    parser.add_argument("--block_order", choices=BLOCK_ORDERS, default=None,
+                        help="override the config's block_order, as the "
+                             "JAX command line does")
     parser.add_argument("--device", default=None,
                         help="torch device (default cuda:0; 'cpu' runs the "
                              "plain PyTorch ops)")
@@ -260,6 +274,7 @@ def run(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         "device_name": device_name(device),
         "dtype": cfg.compute_dtype,
         "max_pooling": cfg.max_pooling,
+        "block_order": cfg.block_order,
         "kernel_launches": {k: after[k] - before[k] for k in after},
         "kernel_launches_per_dispatch": per_dispatch,
         "per_dispatch": dispatches,

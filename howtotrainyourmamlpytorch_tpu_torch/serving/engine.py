@@ -97,9 +97,10 @@ class ServingEngine:
     :param shots_buckets: support-shot counts to serve (default: the
         config's ``num_samples_per_class``).
     :param device: ``cuda:0`` unless named (``'cpu'`` runs the plain ops).
-    :param block: the block implementation handed to ``vgg.apply``;
-        default the kernel-dispatching ``conv_bn_act_pool``. A reference
-        engine on the card passes ``ops.functional.conv_bn_act_pool``.
+    :param block: the block implementation handed to ``vgg.apply``, of
+        the config's block order; default the kernel-dispatching block of
+        ``vgg.blocks_for(cfg)``. A reference engine on the card passes the
+        plain one, ``vgg.blocks_for(cfg)[1]``.
     :param ingest: ``'f32'``, ``'uint8'`` or ``'index'`` (default
         ``cfg.serving_ingest``).
     :param store: for ``ingest='index'`` only, and required there: a

@@ -126,6 +126,19 @@ def test_wrappers_never_take_the_plain_path_off_the_cpu():
             y, v, v, v, v),
         lambda: conv_block.conv3x3_dgrad(y, w),
         lambda: conv_block.conv3x3_wgrad(x, y),
+        # the norm-first block's kernels
+        lambda: conv_block.bn_input_stats(x),
+        lambda: conv_block.batch_norm_fwd(y, v, v, v, v),
+        lambda: conv_block.batch_norm_bwd(y, y, v, v, v, v),
+        lambda: conv_block.batch_norm_bwd_bwd(y, v, v, y, y, v, v, v, v),
+        lambda: conv_block.act_pool_fwd(y),
+        lambda: conv_block.act_pool_bwd(
+            _meta(1, 2, 3, 3, 4), _meta(1, 2, 3, 3, 4, dtype=torch.uint8),
+            y),
+        lambda: conv_block.act_pool_gather(
+            y, _meta(1, 2, 3, 3, 4, dtype=torch.uint8), y),
+        lambda: conv_block.act_fwd(y),
+        lambda: conv_block.act_bwd(y, y),
     ]
     for call in calls:
         with pytest.raises(ValueError, match="CUDA"):
@@ -133,6 +146,9 @@ def test_wrappers_never_take_the_plain_path_off_the_cpu():
     assert conv_block.launches() == {k: 0 for k in conv_block.KERNELS}
     with pytest.raises(NotImplementedError, match="f32 only"):
         conv_block.conv_bn_act_pool(
+            _meta(1, 2, 6, 6, 3, dtype=torch.bfloat16), w, b, v, v)
+    with pytest.raises(NotImplementedError, match="f32 only"):
+        conv_block.norm_conv_act_pool(
             _meta(1, 2, 6, 6, 3, dtype=torch.bfloat16), w, b, v, v)
 
 

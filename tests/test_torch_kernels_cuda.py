@@ -1,10 +1,12 @@
 """The port's hand-written kernels held to their plain twins on an NVIDIA
 card, at small and ragged shapes (odd image sizes, channel counts that do
 not fill a tile), and the block's first and second derivatives on them
-against autograd of the plain block — for the max-pooling model and for
-the strided one (stride-2 convs, the pool-free K2/K3/K5, the global
-average pool); and the ingest kernel ``episode_expand`` equal to its twin
-bit for bit (it is a pure lookup).
+against autograd of the plain block — for the max-pooling model, the
+strided one (stride-2 convs, the pool-free K2/K3/K5, the global average
+pool) and the norm-first block (``bn_input_stats``, K2/K3/K5 at slope 1,
+the leaky-ReLU + pool kernels, K1 stats-free and dgrad at cin 1 and 3);
+and the ingest kernel ``episode_expand`` equal to its twin bit for bit (it
+is a pure lookup).
 These need the card: marked ``cuda``, they skip where
 ``torch.cuda.is_available()`` is false. On the card (``--noconftest``:
 the suite's conftest imports jax, which the port never needs):
@@ -277,6 +279,116 @@ def test_wrappers_reject_what_the_kernels_do_not_take(device):
         cb.global_avg_pool2d_bwd(
             torch.zeros(1, 4, 2, device=device).transpose(1, 2), 3, 3)
     assert set(cb.launches().values()) == {0}
+
+
+NORM_FIRST_SHAPES = [
+    # T, N, H, W, C: the image layers (C = 1, 3), an odd map (21 -> 10),
+    # both filter counts, a channel count that fills no tile
+    (1, 1, 5, 5, 1),
+    (2, 3, 11, 9, 3),
+    (3, 2, 21, 21, 48),
+    (2, 5, 10, 10, 64),
+    (2, 4, 7, 6, 17),
+]
+
+
+@pytest.mark.parametrize("shape", NORM_FIRST_SHAPES, ids=str)
+def test_norm_first_kernels_match_their_twins(shape, device):
+    """``bn_input_stats`` on pixels in [0, 1] (mean ~0.5: a sum-of-squares
+    variance would cancel), ``batch_norm_fwd/bwd/bwd_bwd`` (K2/K3/K5 at
+    slope 1) on its statistics, and the leaky-ReLU + pool kernels on an
+    input full of exact ties (values on a grid of 0.25): the argmax equal
+    to the twin's (the first maximum), one launch per call."""
+    T, N, H, W, C = shape
+    g = torch.Generator().manual_seed(sum(shape))
+
+    def r(*s, scale=1.0):
+        return (torch.randn(*s, generator=g) * scale).to(device)
+
+    x = torch.rand(T, N, H, W, C, generator=g).to(device)
+    gamma, beta = 1 + r(T, C, scale=0.1), r(T, C, scale=0.1)
+    cb.reset_launches()
+    for a, c in zip(cb.bn_input_stats(x), F.bn_input_stats(x)):
+        _close(a, c)
+    mean, _, rstd = F.bn_input_stats(x)
+    bn = (x, mean, rstd, gamma, beta)
+    _close(cb.batch_norm_fwd(*bn), F.batch_norm_fwd(*bn))
+    dz = r(T, N, H, W, C)
+    for a, c in zip(cb.batch_norm_bwd(dz, *bn), F.batch_norm_bwd(dz, *bn)):
+        _close(a, c)
+    args = (r(T, N, H, W, C), r(T, C), r(T, C), dz, *bn)
+    for a, c in zip(cb.batch_norm_bwd_bwd(*args),
+                    F.batch_norm_bwd_bwd(*args)):
+        _close(a, c)
+    y = (torch.randint(-4, 5, (T, N, H, W, C), generator=g) * 0.25).to(device)
+    pooled, arg = cb.act_pool_fwd(y)
+    pooled_p, arg_p = F.act_pool_fwd(y)
+    _close(pooled, pooled_p)
+    assert torch.equal(arg, arg_p)
+    dp = r(*pooled.shape)
+    _close(cb.act_pool_bwd(dp, arg, y), F.act_pool_bwd(dp, arg, y))
+    g_dy = r(T, N, H, W, C)
+    _close(cb.act_pool_gather(g_dy, arg, y), F.act_pool_gather(g_dy, arg, y))
+    _close(cb.act_fwd(y), F.act_fwd(y))
+    _close(cb.act_bwd(g_dy, y), F.act_bwd(g_dy, y))
+    assert cb.launches() == {**{k: 0 for k in cb.KERNELS},
+                             **{k: 1 for k in (
+                                 "bn_input_stats", "batch_norm_fwd",
+                                 "batch_norm_bwd", "batch_norm_bwd_bwd",
+                                 "act_pool_fwd", "act_pool_bwd",
+                                 "act_pool_gather", "act_fwd", "act_bwd")}}
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 21, 21, 3, 48),
+                                   (2, 2, 28, 28, 1, 64)], ids=str)
+def test_norm_first_conv_shapes(shape, device):
+    """The shapes the norm-first block first gives the conv kernels: K1
+    stats-free with bias on the normalized image (cin 3 or 1), and dgrad
+    back to it (3 or 1 of dgrad's 16 channel lanes live)."""
+    x, w, b, _, _ = _inputs(shape, device, seed=9)
+    _close(cb.conv3x3_fwd(x, w, b), F.conv3x3(x, w, b))
+    dy = torch.randn(*x.shape[:4], w.shape[-1], device=device)
+    _close(cb.conv3x3_dgrad(dy, w), F.conv3x3_dgrad(dy, w))
+
+
+@pytest.mark.parametrize("kw", [{}, dict(stride=2, pool=False, gap=True)],
+                         ids=["pooled", "strided_gap"])
+def test_norm_block_derivatives_match_plain_autograd(kw, device):
+    """The norm-first block: first derivatives, then a scalar of them
+    differentiated again, on the kernels against autograd of the plain
+    block (pooled, and strided with the global average pool)."""
+    T, N, H, W, cin, cout = 2, 3, 11, 9, 8, 8
+    g = torch.Generator().manual_seed(6)
+
+    def r(*s, scale=1.0):
+        return (torch.randn(*s, generator=g) * scale).to(device)
+
+    inputs = (r(T, N, H, W, cin), r(T, 3, 3, cin, cout, scale=0.3),
+              r(T, cout, scale=0.1), 1 + r(T, cin, scale=0.1),
+              r(T, cin, scale=0.1))
+    firsts, seconds = [], []
+    for fn in (cb.norm_conv_act_pool, F.norm_conv_act_pool):
+        leaves = [t.clone().requires_grad_(True) for t in inputs]
+        out, _, _ = fn(*leaves, **kw)
+        rng = np.random.RandomState(5)
+        ct = torch.from_numpy(
+            rng.randn(*out.shape).astype(np.float32)).to(device)
+        first = torch.autograd.grad((out * ct).sum(), leaves,
+                                    create_graph=True)
+        firsts.append([f.detach() for f in first])
+        scalar = sum((gr * torch.from_numpy(
+            rng.randn(*gr.shape).astype(np.float32)).to(device)).sum()
+            for gr in first)
+        seconds.append(torch.autograd.grad(scalar, leaves,
+                                           allow_unused=True))
+    for a, c in zip(*firsts):
+        _close(a, c)
+    # the conv bias enters only through the piecewise-constant masks, so
+    # its second derivative is 0 (None where autograd finds no path)
+    for a, c, leaf in zip(*seconds, inputs):
+        _close(torch.zeros_like(leaf) if a is None else a,
+               torch.zeros_like(leaf) if c is None else c)
 
 
 # (rows in the store, H = W, C, tasks, classes, columns, support columns)

@@ -173,7 +173,7 @@ def test_init_and_feature_dim_match_jax():
 
 @pytest.mark.parametrize("change", [
     dict(conv_padding=False), dict(norm_layer="layer_norm"),
-    dict(block_order="norm_conv_relu"),
+    dict(block_order="norm_conv_relu", norm_layer="layer_norm"),
 ])
 def test_uncovered_models_raise(change):
     """A model outside the slice raises, naming what is missing."""

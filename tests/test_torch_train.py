@@ -344,14 +344,23 @@ TWINS = {
     "bn_act_bwd_bwd": "bn_act_bwd_bwd",
     "global_avg_pool2d": "global_avg_pool2d_fwd",
     "global_avg_pool2d_bwd": "global_avg_pool2d_bwd",
+    "bn_input_stats": "bn_input_stats",
+    "batch_norm_fwd": "batch_norm_fwd",
+    "batch_norm_bwd": "batch_norm_bwd",
+    "batch_norm_bwd_bwd": "batch_norm_bwd_bwd",
+    "act_pool_fwd": "act_pool_fwd",
+    "act_pool_bwd": "act_pool_bwd",
+    "act_pool_gather": "act_pool_gather",
+    "act_fwd": "act_fwd",
+    "act_bwd": "act_bwd",
 }
 
 
 def _count_function_path(monkeypatch, cfg, second_order, serve=False):
     """Every kernel call of one train step (with ``serve``, one serve
-    dispatch) on the Function path, counted at the twins the wrappers take
-    on the CPU (a twin that calls another twin counts once, as its one
-    kernel)."""
+    dispatch) on the Function path of the config's block order, counted at
+    the twins the wrappers take on the CPU (a twin that calls another twin
+    counts once, as its one kernel)."""
     calls = collections.Counter()
     depth = [0]
     for twin, kernel in TWINS.items():
@@ -368,17 +377,20 @@ def _count_function_path(monkeypatch, cfg, second_order, serve=False):
     state = state_lib.init_state(cfg, device="cpu", with_opt=True)
     batch = bench.synth_batch(cfg, 0, torch.device("cpu"))
     steps = cfg.number_of_training_steps_per_iter
+    block = (conv_block.norm_function_block
+             if cfg.block_order == "norm_conv_relu"
+             else conv_block.function_block)
     if serve:
-        maml.make_serve_step(cfg, block=conv_block.function_block)(
+        maml.make_serve_step(cfg, block=block)(
             state, *batch, torch.ones(cfg.batch_size))
     else:
-        maml.make_train_step(cfg, second_order,
-                             block=conv_block.function_block)(
+        maml.make_train_step(cfg, second_order, block=block)(
             state, *batch, np.ones(steps, np.float32) / steps, 1e-3)
     return {k: calls[k] for k in conv_block.KERNELS}
 
 
-def _formula_cfg(stages, steps, accum, max_pooling):
+def _formula_cfg(stages, steps, accum, max_pooling,
+                 block_order="conv_norm_relu"):
     return MAMLConfig(
         dataset_name="omniglot_dataset", image_height=12, image_width=12,
         image_channels=1, num_classes_per_set=2, num_samples_per_class=1,
@@ -387,7 +399,8 @@ def _formula_cfg(stages, steps, accum, max_pooling):
         per_step_bn_statistics=True,
         learnable_per_layer_per_step_inner_loop_learning_rate=True,
         number_of_training_steps_per_iter=steps,
-        number_of_evaluation_steps_per_iter=steps, meta_accum_steps=accum)
+        number_of_evaluation_steps_per_iter=steps, meta_accum_steps=accum,
+        block_order=block_order)
 
 
 @pytest.mark.parametrize("second_order,stages,steps,accum", [
