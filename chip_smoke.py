@@ -71,8 +71,23 @@ Phases, in order; any failure raises and the exit code is non-zero:
    profiled step, the small meta-gradient check and the replayed-path
    gate on ``--norm-first-grad-seeds``; then 4 f32 requests of the
    strided norm-first Omniglot model and its small serve-step check.
-   Every kernel must have been launched by some main path.
-7. Print one ``{"kernels": [...]}`` line (launches summed over all the
+7. The layer-norm model (``norm_layer='layer_norm'``, the mini-ImageNet
+   config with only that field overridden): the layer norm's kernels
+   (``layer_norm_stats/fwd/bwd/bwd_bwd``) at every tensor the layer-norm
+   models normalize (both orders' mini-ImageNet stages, the strided
+   Omniglot layers) against their twins, both layer-norm blocks' first and
+   second derivatives (pooled, and strided with GAP; the plain block
+   replays the kernels' decisions); ``serve-bench --norm_layer
+   layer_norm`` with the f32 and index ingests (16 requests), the serve
+   step against the plain one (small and full width), the index dispatch
+   bit-identical to f32, a profiled bucket-8 dispatch; ``train-bench``
+   second order at batch 2, the learning check, a profiled step, the
+   small meta-gradient check and the replayed-path gate on
+   ``--layer-norm-grad-seeds``; then 4 f32 requests each of the
+   norm-first layer-norm model and of the strided layer-norm Omniglot
+   model, each with its small serve-step check. Every kernel must have
+   been launched by some main path.
+8. Print one ``{"kernels": [...]}`` line (launches summed over all the
    main paths), then the result line ``{"ok": true, "device": {...}}``
    last.
 
@@ -118,6 +133,21 @@ STRIDED_ARGS = ("--max_pooling", "false")
 NORM_FIRST_ARGS = ("--block_order", "norm_conv_relu")
 NORM_FIRST_STAGES = (("stage0", 84, 3), ("stage1", 42, 48),
                      ("stage2", 21, 48), ("stage3", 10, 48))
+# the layer-norm models (the same configs with norm_layer='layer_norm'):
+# a layer norm over each image's (H, W, C) in place of the batch norm;
+# (label, H = W, C) of each normalized tensor: conv first, the conv
+# output (48 channels from stage 0), norm first, the block input (the
+# image at stage 0); stages 1-3 are the same shapes in both orders
+LAYER_NORM_ARGS = ("--norm_layer", "layer_norm")
+LAYER_NORM_STAGES = (("conv-first stage0", 84, 48), ("norm-first stage0", 84, 3),
+                     ("stage1", 42, 48), ("stage2", 21, 48),
+                     ("stage3", 10, 48))
+# the strided layer-norm Omniglot model: the conv outputs 14 -> 2 (64
+# channels) conv first, and the 28x28x1 image the norm-first model's first
+# block normalizes
+LAYER_NORM_STRIDED = (("strided layer1", 14, 64), ("strided layer2", 7, 64),
+                      ("strided layer3", 4, 64), ("strided layer4", 2, 64),
+                      ("strided norm-first layer1", 28, 1))
 # the index ingest's store: the mini-ImageNet test split, 20 x 600 rows
 STORE_ROWS = 12000
 # episode_expand launches per serve dispatch / train step of each ingest
@@ -194,6 +224,11 @@ REPLACES = {
     "act_pool_gather": "howtotrainyourmamlpytorch_tpu/ops/functional.py:325",
     "act_fwd": "howtotrainyourmamlpytorch_tpu/ops/functional.py:363",
     "act_bwd": "howtotrainyourmamlpytorch_tpu/ops/functional.py:363",
+    "layer_norm_stats": "howtotrainyourmamlpytorch_tpu/ops/functional.py:447",
+    "layer_norm_fwd": "howtotrainyourmamlpytorch_tpu/ops/functional.py:447",
+    "layer_norm_bwd": "howtotrainyourmamlpytorch_tpu/ops/functional.py:447",
+    "layer_norm_bwd_bwd":
+        "howtotrainyourmamlpytorch_tpu/ops/functional.py:447",
 }
 SOURCES = {
     "conv3x3_fwd_stats": (
@@ -245,6 +280,10 @@ SOURCES.update({
     k: ("triton", "howtotrainyourmamlpytorch_tpu_torch/kernels/act_pool.py")
     for k in ("act_pool_fwd", "act_pool_bwd", "act_pool_gather", "act_fwd",
               "act_bwd")})
+SOURCES.update({
+    k: ("triton", "howtotrainyourmamlpytorch_tpu_torch/kernels/layer_norm.py")
+    for k in ("layer_norm_stats", "layer_norm_fwd", "layer_norm_bwd",
+              "layer_norm_bwd_bwd")})
 # the shape each kernel's line reports (a key of its records)
 REPORT_AT = {
     "conv3x3_fwd_stats": "T=8 layer1 N=75",
@@ -273,6 +312,10 @@ REPORT_AT = {
     "act_pool_gather": "norm-first T=8 stage0 N=25",
     "act_fwd": "strided norm-first T=8 layer1 N=20",
     "act_bwd": "strided norm-first T=8 layer1 N=20",
+    "layer_norm_stats": "layer-norm T=8 conv-first stage0 N=75",
+    "layer_norm_fwd": "layer-norm T=8 conv-first stage0 N=75",
+    "layer_norm_bwd": "layer-norm T=8 conv-first stage0 N=25",
+    "layer_norm_bwd_bwd": "layer-norm T=8 conv-first stage0 N=25",
 }
 TRAIN_TASKS = (2, 8)  # the config's batch, and bench.py's per-chip default
 DEVICE = "cuda:0"
@@ -897,6 +940,91 @@ def check_strided_norm_first_kernels(cb, F, records, T=T_TENANTS,
         torch.cuda.empty_cache()
 
 
+def check_layer_norm_kernels(cb, F, records, T=T_TENANTS):
+    """Phase 3, the layer norm's kernels (B5c) on every tensor the
+    layer-norm models normalize: at the mini-ImageNet stages of both orders
+    (``LAYER_NORM_STAGES``; the statistics and the forward at N = 75, the
+    backward and double backward at N = 25) and at the strided Omniglot
+    layers (``LAYER_NORM_STRIDED``, N = 20, all four). T = 8; gamma and
+    beta shared ``(H, W, C)`` (the frozen gamma and the meta-trained beta
+    of serving), given to the kernels as the blocks give them, expanded to
+    ``(T, H, W, C)``. Each against its twin, timed beside it and beside one
+    PyTorch call where one computes the same function:
+    ``torch.var_mean`` for the statistics, ``F.layer_norm`` for the
+    forward (statistics and normalize in one call), and
+    ``aten.native_layer_norm_backward`` for the backward; none for the
+    double backward."""
+    rec = records.add
+    randn = _randn(torch.Generator(device="cuda").manual_seed(31))
+    nnf = torch.nn.functional
+    cases = [(f"layer-norm T={T} {label} N={n}", hw, c, n)
+             for label, hw, c in LAYER_NORM_STAGES for n in IMAGES]
+    cases += [(f"layer-norm T={T} {label} N={OMNIGLOT_IMAGES}", hw, c,
+               OMNIGLOT_IMAGES) for label, hw, c in LAYER_NORM_STRIDED]
+    for label, hw, c, n in cases:
+        shape = (hw, hw, c)
+        x = (torch.rand(T, n, *shape, device="cuda") if c <= 3
+             else randn(T, n, *shape))
+        gamma_s = 1.0 + randn(*shape, scale=0.1)
+        beta_s = randn(*shape, scale=0.1)
+        gamma = gamma_s.expand(T, *shape).contiguous()
+        beta = beta_s.expand(T, *shape).contiguous()
+        mean, var, rstd = F.layer_norm_stats(x)
+        numel, tm, rows = x.numel(), gamma.numel(), T * n
+        forward = n != min(IMAGES)
+        if forward:
+            err = _bn_errs("layer_norm_stats", cb.layer_norm_stats(x),
+                           (mean, var, rstd), ("mean", "var", "rstd"), label)
+            rec("layer_norm_stats", label, err,
+                lambda: cb.layer_norm_stats(x),
+                lambda: F.layer_norm_stats(x),
+                lambda: torch.var_mean(x, dim=(2, 3, 4), correction=0),
+                4 * numel, 4 * (numel + 3 * rows))
+            ln = (x, mean, rstd, gamma, beta)
+            err = max_err("layer_norm_fwd", cb.layer_norm_fwd(*ln),
+                          F.layer_norm_fwd(*ln))
+            rec("layer_norm_fwd", label, err,
+                lambda: cb.layer_norm_fwd(*ln),
+                lambda: F.layer_norm_fwd(*ln),
+                lambda: nnf.layer_norm(x, shape, gamma_s, beta_s, F.LN_EPS),
+                4 * numel, 4 * (2 * numel + 2 * tm + 2 * rows))
+            del ln
+        if not forward or n == OMNIGLOT_IMAGES:
+            dz = randn(*x.shape, scale=1.0 / math.sqrt(numel))
+            ln = (x, mean, rstd, gamma)
+            err = _bn_errs("layer_norm_bwd", cb.layer_norm_bwd(dz, *ln),
+                           F.layer_norm_bwd(dz, *ln),
+                           ("dx", "dgamma", "dbeta"), label)
+            saved = (mean.reshape(T, n, 1, 1, 1), rstd.reshape(T, n, 1, 1, 1),
+                     gamma_s, beta_s, [True] * 3)
+            rec("layer_norm_bwd", label, err,
+                lambda: cb.layer_norm_bwd(dz, *ln),
+                lambda: F.layer_norm_bwd(dz, *ln),
+                lambda: torch.ops.aten.native_layer_norm_backward(
+                    dz, x, list(shape), *saved),
+                12 * numel, 4 * (3 * numel + 3 * tm + 2 * rows))
+            a = randn(*x.shape)
+            args = (a, randn(T, *shape), randn(T, *shape), randn(*x.shape),
+                    *ln)
+            zero = torch.zeros(T, *shape, device="cuda")
+            err = max(
+                _bn_errs(f"layer_norm_bwd_bwd{case}",
+                         cb.layer_norm_bwd_bwd(*case_args),
+                         F.layer_norm_bwd_bwd(*case_args),
+                         ("g_dz", "g_x", "g_gamma"), label,
+                         scaled_atol=True)
+                for case, case_args in (
+                    ("", args),
+                    (" (g_gamma = g_beta = 0)", (a, zero, zero) + args[3:])))
+            rec("layer_norm_bwd_bwd", label, err,
+                lambda: cb.layer_norm_bwd_bwd(*args),
+                lambda: F.layer_norm_bwd_bwd(*args), None,
+                40 * numel, 4 * (5 * numel + 4 * tm + 2 * rows))
+            del dz, ln, a, args, zero
+        del x, mean, var, rstd
+        torch.cuda.empty_cache()
+
+
 def _expand_inputs(cfg, rows_shape, store_rows, gen, rotate=False):
     """A store of ``store_rows`` random bytes, ``rows_shape`` int32 rows in
     it, and (when rotating) rot90 draws with all four k present, on the
@@ -1037,20 +1165,38 @@ def _block_errs(what, got, want, names):
           + f" (largest entry {scale:.3e})", flush=True)
 
 
-def _block_inputs(seed, x_shape=(T_TENANTS, 25, 42, 42, COUT), cout=COUT):
+def _block_inputs(seed, x_shape=(T_TENANTS, 25, 42, 42, COUT), cout=COUT,
+                  norm_shape=None):
     """Block inputs, by default at layer 2 of the main path's support
     shape (8 tasks, 5-shot support): x, w, b, gamma, beta, and the
     generator. The checks take cout = cin, so gamma and beta fit either
-    block order (the conv output's channels, or the input's)."""
+    block order (the conv output's channels, or the input's); a layer
+    norm's are a shared ``norm_shape`` gamma and a per-tenant beta (an
+    adapted one's shape)."""
     randn = _randn(torch.Generator(device="cuda").manual_seed(seed))
     T, cin = x_shape[0], x_shape[-1]
     return randn, [
         randn(*x_shape),
         randn(T, 3, 3, cin, cout, scale=math.sqrt(2.0 / (9 * cin))),
         randn(T, cout, scale=0.1),
-        1.0 + randn(cout, scale=0.1),
-        randn(cout, scale=0.1),
+        1.0 + randn(*(norm_shape or (cout,)), scale=0.1),
+        (randn(T, *norm_shape, scale=0.1) if norm_shape
+         else randn(cout, scale=0.1)),
     ]
+
+
+def _norm_shape(block, x_shape, kw):
+    """The (H, W, C) a layer-norm block normalizes (its block input, or
+    the conv output at the stride in ``kw``; cout = cin here), None for a
+    batch-norm block."""
+    from howtotrainyourmamlpytorch_tpu_torch.ops import functional as F
+
+    if block.norm_layer != "layer_norm":
+        return None
+    _, _, h, w, c = x_shape
+    if block.block_order == "norm_conv_relu":
+        return (h, w, c)
+    return (*F.conv_out_hw(h, w, kw.get("stride", 1)), c)
 
 
 def _strided_block_cases():
@@ -1063,18 +1209,28 @@ def _strided_block_cases():
             ("strided layer 4 + GAP", x4, {**kw, "gap": True}))
 
 
-def _replayed_blocks(cb, F):
-    """The norm-first block on the kernels, recording its pool argmaxes
-    and leaky-ReLU signs, then the plain block replaying them. The
-    normalize before the conv rounds differently in the two (Chan-merged
-    statistics against two passes, another order of operations), so the
-    conv outputs differ by ~1e-6 of their scale and at full width a few
-    near-tie decisions of the millions of windows and signs flip, each
-    moving a gradient by O(1); replayed, what is left is the kernels'
-    rounding."""
+def _replayed_blocks(cb, F, norm_first=True, layer_norm=False):
+    """The block on the kernels (by default the norm-first batch-norm
+    block), recording its pool argmaxes and leaky-ReLU signs, then the
+    plain block replaying them. The normalize before the conv rounds
+    differently in the two (Chan-merged statistics against two passes,
+    another order of operations), so the conv outputs differ by ~1e-6 of
+    their scale and at full width a few near-tie decisions of the millions
+    of windows and signs flip, each moving a gradient by O(1); replayed,
+    what is left is the kernels' rounding. A layer norm after the conv
+    flips decisions too: its gamma and beta vary over (h, w), so it is not
+    monotone within a pool window, and its rounding moves the values the
+    pool compares."""
     log = []
-    return (_recording_kernel_block(cb, log, norm_first=True),
-            _plain_block(F, log, replay=True, norm_first=True))
+    return (_recording_kernel_block(cb, log, norm_first, layer_norm),
+            _plain_block(F, log, replay=True, norm_first=norm_first,
+                         layer_norm=layer_norm))
+
+
+def _replayed_pair(cfg, cb, F):
+    """``_replayed_blocks`` of ``cfg``'s block order and norm layer."""
+    return _replayed_blocks(cb, F, cfg.block_order == "norm_conv_relu",
+                            cfg.norm_layer == "layer_norm")
 
 
 def check_block_autograd(blocks, x_shape=(T_TENANTS, 25, 42, 42, COUT),
@@ -1084,7 +1240,8 @@ def check_block_autograd(blocks, x_shape=(T_TENANTS, 25, 42, 42, COUT),
     its pair) against autograd of the plain block ``blocks[1]``, by default
     at layer-2 shapes, against a unit-scale random cotangent."""
     kw = kw or {}
-    randn, inputs = _block_inputs(1, x_shape, x_shape[-1])
+    randn, inputs = _block_inputs(1, x_shape, x_shape[-1],
+                                  _norm_shape(blocks[0], x_shape, kw))
     ct, grads = None, []
     for fn in blocks:
         leaves = [t.clone().requires_grad_(True) for t in inputs]
@@ -1104,13 +1261,16 @@ def check_block_double_backward(blocks,
     differentiated again, on the kernels (``blocks[0]``: K3's backward K5,
     the conv closure on K1 stats-free and K4; with ``kw`` the strided
     block's modes; the norm-first block's K5 at slope 1 and the act-pool
-    gather) against autograd of the plain block ``blocks[1]``, by default
-    at layer-2 shapes (8 tasks, 5-shot support). In x, w, b and gamma; for
-    the norm-first block x, w, gamma and beta (its conv bias enters only
-    through piecewise-constant masks: its second derivative is 0)."""
+    gather; the layer-norm blocks' ``layer_norm_bwd_bwd``) against
+    autograd of the plain block ``blocks[1]``, by default at layer-2
+    shapes (8 tasks, 5-shot support). In x, w, b and gamma; for the
+    norm-first blocks x, w, gamma and beta (its conv bias enters only
+    through piecewise-constant masks: its second derivative is 0; so does
+    beta's after the norm, conv first)."""
     kw = kw or {}
     norm_first = blocks[0].block_order == "norm_conv_relu"
-    randn, inputs = _block_inputs(5, x_shape, x_shape[-1])
+    randn, inputs = _block_inputs(5, x_shape, x_shape[-1],
+                                  _norm_shape(blocks[0], x_shape, kw))
     names = ("x", "w", "gamma", "beta") if norm_first else (
         "x", "w", "b", "gamma")
     wrt = [("x", "w", "b", "gamma", "beta").index(n) for n in names]
@@ -1148,20 +1308,45 @@ ROLE_KERNELS = {
     "pool_fwd": ("act_pool_fwd", "act_fwd"),
     "pool_bwd": ("act_pool_bwd", "act_bwd"),
     "pool_gather": ("act_pool_gather", "act_bwd"),
+    # the layer norm (B5c), pooled or not
+    "ln_stats": ("layer_norm_stats", "layer_norm_stats"),
+    "ln_fwd": ("layer_norm_fwd", "layer_norm_fwd"),
+    "ln_bwd": ("layer_norm_bwd", "layer_norm_bwd"),
+    "ln_bwd_bwd": ("layer_norm_bwd_bwd", "layer_norm_bwd_bwd"),
 }
 GAP_KERNELS = ("global_avg_pool2d_fwd", "global_avg_pool2d_bwd")
+# a layer norm in place of the batch norm (norm_layer='layer_norm'): each
+# batch-norm role of a block order becomes the roles that take its place.
+# Conv first, K1 with statistics is K1 stats-free + the layer norm's
+# statistics, K2 the layer norm + act_pool_fwd, K3 act_pool_bwd + the
+# layer norm's backward, K5 the gather + its double backward: the same
+# graph with each fused node split in two. Norm first, the standalone
+# batch norm's kernels become the layer norm's one for one.
+LAYER_NORM_ROLES = {
+    "conv_norm_relu": {"fwd_stats": ("fwd", "ln_stats"),
+                       "act_fwd": ("ln_fwd", "pool_fwd"),
+                       "act_bwd": ("pool_bwd", "ln_bwd"),
+                       "act_bwd_bwd": ("pool_gather", "ln_bwd_bwd")},
+    "norm_conv_relu": {"in_stats": ("ln_stats",), "bn_fwd": ("ln_fwd",),
+                       "bn_bwd": ("ln_bwd",), "bn_bwd_bwd": ("ln_bwd_bwd",)},
+}
 
 
 def _by_kernel(cfg, per_role, gap_fwd, gap_bwd):
     """Launches per kernel name of the block kernels, from launches per
-    role: the max-pooling model's kernels, or the strided model's
-    (``conv3x3_s2_*``, the pool-free ``bn_act_*`` / ``act_*``) with its
-    global average pool; every other kernel 0. Pool-free, the pool's
-    gather is ``act_bwd`` again (its own adjoint), so roles add up."""
+    role of the batch-norm model of ``cfg``'s block order (mapped through
+    ``LAYER_NORM_ROLES`` for a layer norm): the max-pooling model's
+    kernels, or the strided model's (``conv3x3_s2_*``, the pool-free
+    ``bn_act_*`` / ``act_*``) with its global average pool; every other
+    kernel 0. Pool-free, the pool's gather is ``act_bwd`` again (its own
+    adjoint), so roles add up."""
     strided = not cfg.max_pooling
     out = {name: 0 for pair in ROLE_KERNELS.values() for name in pair}
+    swap = (LAYER_NORM_ROLES[cfg.block_order]
+            if cfg.norm_layer == "layer_norm" else {})
     for role, n in per_role.items():
-        out[ROLE_KERNELS[role][strided]] += n
+        for r in swap.get(role, (role,)):
+            out[ROLE_KERNELS[r][strided]] += n
     out[GAP_KERNELS[0]] = gap_fwd if strided else 0
     out[GAP_KERNELS[1]] = gap_bwd if strided else 0
     return out
@@ -1316,17 +1501,19 @@ def expected_train_launches(cfg, second_order):
 
 def _block_pair(cfg, cb, F):
     """The kernel side and the plain side of a kernels-vs-plain check of
-    ``cfg``'s model: for the conv-first block the default block (None: the
-    kernels) and the plain block, which take the same pool and sign
-    decisions (the conv kernels equal the plain conv bit for bit, and the
-    normalize after it is monotone in it); for the norm-first block
-    ``_replayed_blocks``' pair (kernels recording, plain replaying). The
-    recorder re-composes the Functions of ``norm_function_block``, so each
-    check that takes it also runs the model's own block (None) and holds
-    the two equal bit for bit (``_same_as_own``): the same kernels in the
-    same order, deterministic, no atomics."""
-    if cfg.block_order == "norm_conv_relu":
-        return _replayed_blocks(cb, F)
+    ``cfg``'s model: for the conv-first batch-norm block the default block
+    (None: the kernels) and the plain block, which take the same pool and
+    sign decisions (the conv kernels equal the plain conv bit for bit, and
+    the normalize after it is monotone in it); for the norm-first block
+    and the layer-norm blocks ``_replayed_pair`` (kernels recording, plain
+    replaying). The recorder re-composes the Functions of the model's
+    block (``norm_function_block``, ``conv_ln_function_block``,
+    ``ln_conv_function_block``), so each check that takes it also runs the
+    model's own block (None) and holds the two equal bit for bit
+    (``_same_as_own``): the same kernels in the same order,
+    deterministic, no atomics."""
+    if cfg.block_order == "norm_conv_relu" or cfg.norm_layer == "layer_norm":
+        return _replayed_pair(cfg, cb, F)
     return None, _plain(cfg)
 
 
@@ -1545,7 +1732,8 @@ def run_train_bench(ks, cfg, batch_size, config=FLAGSHIP, name="mini-ImageNet "
                                       placement)
     if (not line["second_order"] or line["batch_size"] != batch_size
             or line["max_pooling"] != cfg.max_pooling
-            or line["block_order"] != cfg.block_order):
+            or line["block_order"] != cfg.block_order
+            or line["norm_layer"] != cfg.norm_layer):
         raise AssertionError(f"train-bench ran {line}")
     for i, got in enumerate(line["kernel_launches_per_step"]):
         if got != expected:
@@ -1779,45 +1967,64 @@ def check_grads_full_width(cfg, F, seeds):
                              + ", ".join(failures))
 
 
-def _recording_kernel_block(cb, log, norm_first=False):
-    """The kernels' block (``conv_block.function_block``, or with
-    ``norm_first`` ``norm_function_block``) that also appends each call's
-    discrete decisions to ``log``: with the max pool, the window argmax of
-    every pooled element (K2's or ``act_pool_fwd``'s output) and whether
-    the pooled value (the leaky-ReLU output at that argmax) is >= 0;
-    pool-free (the strided model), no argmax (None) and the sign of every
-    activation."""
+def _recording_kernel_block(cb, log, norm_first=False, layer_norm=False):
+    """The kernels' block (``conv_block.function_block``, with
+    ``norm_first`` ``norm_function_block``, with ``layer_norm``
+    ``conv_ln_function_block`` or ``ln_conv_function_block``) that also
+    appends each call's discrete decisions to ``log``: with the max pool,
+    the window argmax of every pooled element (K2's or ``act_pool_fwd``'s
+    output) and whether the pooled value (the leaky-ReLU output at that
+    argmax) is >= 0; pool-free (the strided model), no argmax (None) and
+    the sign of every activation."""
     def block(x, w, b, gamma, beta, stats_impl="twopass", stride=1,
               pool=True, gap=False):
-        T, c = x.shape[0], (x if norm_first else w).shape[-1]
-        gamma = gamma.expand(T, c).contiguous()
-        beta = beta.expand(T, c).contiguous()
-        if norm_first:
-            z, mean, var, _ = cb.BatchNorm.apply(x.contiguous(), gamma, beta)
-            out = cb.ActPool.apply(cb.Conv3x3.apply(
-                z, w.contiguous(), b.contiguous(), False, stride), pool)
+        x, w, b = x.contiguous(), w.contiguous(), b.contiguous()
+        mean = var = None
+        if layer_norm and norm_first:
+            z = cb.LayerNorm.apply(x, *cb._ln_params(gamma, beta, x))
+            out = cb.ActPool.apply(cb.Conv3x3.apply(z, w, b, False, stride),
+                                   pool)
+        elif layer_norm:
+            y = cb.Conv3x3.apply(x, w, b, False, stride)
+            out = cb.ActPool.apply(
+                cb.LayerNorm.apply(y, *cb._ln_params(gamma, beta, y)), pool)
         else:
-            y, mean, var, rstd = cb.Conv3x3.apply(
-                x.contiguous(), w.contiguous(), b.contiguous(), True, stride)
-            out = cb.BnActPool.apply(y, gamma, beta, mean, rstd, pool)
+            T, c = x.shape[0], (x if norm_first else w).shape[-1]
+            gamma = gamma.expand(T, c).contiguous()
+            beta = beta.expand(T, c).contiguous()
+            if norm_first:
+                z, mean, var, _ = cb.BatchNorm.apply(x, gamma, beta)
+                out = cb.ActPool.apply(cb.Conv3x3.apply(
+                    z, w, b, False, stride), pool)
+            else:
+                y, mean, var, rstd = cb.Conv3x3.apply(x, w, b, True, stride)
+                out = cb.BnActPool.apply(y, gamma, beta, mean, rstd, pool)
         out, arg = out if pool else (out, None)
         log.append((arg, out.detach() >= 0))
         if gap:
             out = cb.Gap.apply(out)
         return out, mean, var
     block.block_order = "norm_conv_relu" if norm_first else "conv_norm_relu"
+    block.norm_layer = "layer_norm" if layer_norm else "batch_norm"
     return block
 
 
-def _plain_block(F, log, replay=False, norm_first=False):
+def _plain_block(F, log, replay=False, norm_first=False, layer_norm=False):
     """The block in plain ops, differentiable by autograd (with
-    ``norm_first`` the norm-first block). Recording (``replay=False``):
-    the pool takes each window's first maximum and appends the decisions
-    to ``log`` as ``_recording_kernel_block`` does. Replaying: the pool
-    takes the argmax, and the leaky-ReLU the sign, that the next entry of
+    ``norm_first`` the norm-first block, with ``layer_norm`` the
+    layer-norm block of that order). Recording (``replay=False``): the
+    pool takes each window's first maximum and appends the decisions to
+    ``log`` as ``_recording_kernel_block`` does. Replaying: the pool takes
+    the argmax, and the leaky-ReLU the sign, that the next entry of
     ``log`` recorded, whatever this run's own values say, so the run
     follows the recorded run's piecewise-linear path. Pool-free (the
-    strided model) the signs alone."""
+    strided model) the signs alone.
+
+    The layer norm is ``F.layer_norm`` (two passes, as the JAX package's,
+    which has no other statistics mode); with ``stats_impl='fused'`` its
+    statistics come from ``torch.var_mean`` instead (one pass): another
+    f32 summation order of the same function, the second plain run of the
+    meta-gradient checks' null ratios."""
     entries = iter(log)
 
     def affine(t, mean, var, gamma, beta):
@@ -1826,15 +2033,31 @@ def _plain_block(F, log, replay=False, norm_first=False):
         return t * F._per_channel(gamma.to(t.dtype), t) + F._per_channel(
             beta.to(t.dtype), t)
 
+    def norm(t, gamma, beta, stats_impl):
+        if stats_impl != "fused":
+            return F.layer_norm(t, gamma, beta)
+        var, mean = torch.var_mean(t, dim=(-3, -2, -1), correction=0,
+                                   keepdim=True)
+        t = (t - mean) * torch.rsqrt(var + F.LN_EPS)
+        return (t * F._ln_param(gamma.to(t.dtype), t)
+                + F._ln_param(beta.to(t.dtype), t))
+
     def block(x, w, b, gamma, beta, stats_impl="twopass", stride=1,
               pool=True, gap=False):
-        if norm_first:
+        stats = (None, None)
+        if layer_norm and norm_first:
+            z = F.conv2d(norm(x, gamma, beta, stats_impl), w, b, stride, 1)
+        elif layer_norm:
+            z = norm(F.conv2d(x, w, b, stride, 1), gamma, beta, stats_impl)
+        elif norm_first:
             mean, var = F.batch_stats(x, stats_impl)
             z = F.conv2d(affine(x, mean, var, gamma, beta), w, b, stride, 1)
+            stats = (mean.detach(), var.detach())
         else:
             y = F.conv2d(x, w, b, stride, 1)
             mean, var = F.batch_stats(y, stats_impl)
             z = affine(y, mean, var, gamma, beta)
+            stats = (mean.detach(), var.detach())
         if not pool:
             if replay:
                 _, positive = next(entries)
@@ -1844,7 +2067,7 @@ def _plain_block(F, log, replay=False, norm_first=False):
             out = torch.where(positive, z, F.LEAKY_SLOPE * z)
             if gap:
                 out = F.global_avg_pool2d(out)
-            return out, mean.detach(), var.detach()
+            return (out, *stats)
         win = F._windows(z)
         if replay:
             arg, positive = next(entries)
@@ -1855,8 +2078,9 @@ def _plain_block(F, log, replay=False, norm_first=False):
             positive = z_at >= 0
             log.append((arg.to(torch.uint8), positive))
         pooled = torch.where(positive, z_at, F.LEAKY_SLOPE * z_at)
-        return pooled, mean.detach(), var.detach()
+        return (pooled, *stats)
     block.block_order = "norm_conv_relu" if norm_first else "conv_norm_relu"
+    block.norm_layer = "layer_norm" if layer_norm else "batch_norm"
     return block
 
 
@@ -1883,10 +2107,10 @@ def _decision_flips(cfg, cb, F, batch):
                if partition.is_inner_adapted(cfg, k) else v
                for k, v in state.net.items()}
         log = []
-        norm_first = cfg.block_order == "norm_conv_relu"
-        block = (_recording_kernel_block(cb, log, norm_first)
-                 if name == "kernels" else _plain_block(F, log,
-                                                       norm_first=norm_first))
+        orders = dict(norm_first=cfg.block_order == "norm_conv_relu",
+                      layer_norm=cfg.norm_layer == "layer_norm")
+        block = (_recording_kernel_block(cb, log, **orders)
+                 if name == "kernels" else _plain_block(F, log, **orders))
         with torch.no_grad():
             vgg.apply(cfg, net, state.bn, x if dtype is None
                       else x.to(dtype), 0, block=block)
@@ -1928,12 +2152,18 @@ def check_grads_replayed(cfg, cb, F, seeds):
     3.434 on Omniglot. The norm-first model's own null over its seeds 0-9
     (``--norm-first-grad-seeds 0,...,9``; 560 ratios, same card) has max
     2.640, under 4 (1.25 x 2.640 <= 5), so the same factor holds for it;
-    the kernels' ratio there had median 0.854 and max 2.369. The default
-    seeds are other seeds."""
+    the kernels' ratio there had median 0.854 and max 2.369. The
+    layer-norm model's own null over its seeds 0-9
+    (``--layer-norm-grad-seeds 0,...,9``; 560 ratios, same card; its
+    second plain run takes the layer norm's statistics from
+    ``torch.var_mean``, see ``_plain_block``) has max 2.119: 1.25 x 2.119
+    <= 5, so the factor holds for it too; the kernels' ratio there had
+    median 0.328 and max 1.678. The default seeds are other seeds."""
     import statistics
 
     cfg = cfg.replace(batch_size=2)
-    norm_first = cfg.block_order == "norm_conv_relu"
+    orders = dict(norm_first=cfg.block_order == "norm_conv_relu",
+                  layer_norm=cfg.norm_layer == "layer_norm")
     twopass = cfg.replace(bn_stats_impl="twopass")
     runs = (("kernels", twopass, True), ("twopass", twopass, False),
             ("fused", cfg.replace(bn_stats_impl="fused"), False))
@@ -1947,15 +2177,14 @@ def check_grads_replayed(cfg, cb, F, seeds):
             permuted = _image_order(batch, order)
             for name, c, kernels in runs:
                 log = []
-                block = (_recording_kernel_block(cb, log, norm_first)
-                         if kernels else _plain_block(F, log,
-                                                      norm_first=norm_first))
+                block = (_recording_kernel_block(cb, log, **orders)
+                         if kernels else _plain_block(F, log, **orders))
                 loss, got = _grads(c, block, permuted)
                 if kernels and order == 0:
                     _same_as_own(f"seed {seed} step", (loss, got),
                                  _grads(c, None, permuted))
                 _, ref = _grads(twopass, _plain_block(
-                    F, log, replay=True, norm_first=norm_first), permuted,
+                    F, log, replay=True, **orders), permuted,
                     torch.float64)
                 for k, v in ref.items():
                     errs[name].setdefault(k, []).append(
@@ -2099,7 +2328,8 @@ def run_serve_bench(ks, cfg, ingest, config=FLAGSHIP,
     if not (line["tenants"] == requests and tps and math.isfinite(tps)
             and line["ingest"] == ingest
             and line["max_pooling"] == cfg.max_pooling
-            and line["block_order"] == cfg.block_order):
+            and line["block_order"] == cfg.block_order
+            and line["norm_layer"] == cfg.norm_layer):
         raise AssertionError(f"serve-bench line is incomplete: {line}")
     print(f"[serve] {name} {ingest}: tenants_per_sec {tps}  adapt_ms p50 "
           f"{line['adaptation_latency_ms_p50']}  p95 "
@@ -2200,6 +2430,10 @@ def main() -> int:
         "--norm-first-grad-seeds", default=",".join(map(str, GRAD_SEEDS)),
         help="data seeds of the replayed-path meta-gradient check of the "
              "norm-first mini-ImageNet model")
+    parser.add_argument(
+        "--layer-norm-grad-seeds", default=",".join(map(str, GRAD_SEEDS)),
+        help="data seeds of the replayed-path meta-gradient check of the "
+             "layer-norm mini-ImageNet model")
     args = parser.parse_args()
     seeds = tuple(int(v) for v in args.grad_seeds.split(","))
     omniglot_seeds = tuple(int(v) for v in
@@ -2208,6 +2442,8 @@ def main() -> int:
                           args.strided_grad_seeds.split(","))
     norm_first_seeds = tuple(int(v) for v in
                              args.norm_first_grad_seeds.split(","))
+    layer_norm_seeds = tuple(int(v) for v in
+                             args.layer_norm_grad_seeds.split(","))
     card = card_line()
     print(card, flush=True)
     if not torch.cuda.is_available():
@@ -2247,6 +2483,9 @@ def main() -> int:
     strided = omniglot.replace(max_pooling=False)
     norm_first = cfg.replace(block_order="norm_conv_relu")
     strided_norm_first = strided.replace(block_order="norm_conv_relu")
+    layer_norm = cfg.replace(norm_layer="layer_norm")
+    ln_norm_first = norm_first.replace(norm_layer="layer_norm")
+    strided_ln = strided.replace(norm_layer="layer_norm")
     all_kernels = cb.KERNELS + ee.KERNELS
     print("[kernels] each kernel vs its plain twin on the card", flush=True)
     t0 = time.perf_counter()
@@ -2284,6 +2523,23 @@ def main() -> int:
                              f"norm-first {what}")
         check_block_double_backward(_replayed_blocks(cb, F), x_shape, kw,
                                     f"norm-first {what}")
+    print("[kernels] the layer norm's kernels (stats, forward, backward, "
+          "double backward) at the mini-ImageNet stages of both orders and "
+          "the strided layers; the layer-norm blocks' derivatives",
+          flush=True)
+    check_layer_norm_kernels(cb, F, records)
+    for nf in (False, True):
+        order = "norm-first " if nf else "conv-first "
+        check_block_autograd(_replayed_blocks(cb, F, nf, True),
+                             what=f"layer-norm {order}stage 1")
+        check_block_double_backward(_replayed_blocks(cb, F, nf, True),
+                                    what=f"layer-norm {order}stage 1")
+        for what, x_shape, kw in _strided_block_cases():
+            check_block_autograd(_replayed_blocks(cb, F, nf, True), x_shape,
+                                 kw, f"layer-norm {order}{what}")
+            check_block_double_backward(_replayed_blocks(cb, F, nf, True),
+                                        x_shape, kw,
+                                        f"layer-norm {order}{what}")
     print(f"[kernels] {time.perf_counter() - t0:.1f} s", flush=True)
 
     main_counts = {k: 0 for k in all_kernels}
@@ -2403,6 +2659,49 @@ def main() -> int:
         main_counts[k] += v
     check_small_against_plain(strided_norm_first, F, cb)
     print(f"[norm-first] {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # the layer-norm model (norm_layer='layer_norm'): serving and training
+    # at mini-ImageNet width; the norm-first and the strided layer-norm
+    # models served
+    t0 = time.perf_counter()
+    ln_name = "mini-ImageNet 5-way 5-shot layer-norm"
+    for ingest in ("f32", "index"):
+        _, counts = run_serve_bench(
+            ks, layer_norm, ingest, FLAGSHIP, ln_name,
+            ("--store-rows", str(STORE_ROWS)) + LAYER_NORM_ARGS)
+        for k, v in counts.items():
+            main_counts[k] += v
+        torch.cuda.empty_cache()
+    print("[serve] layer-norm: the serve step vs the plain serve step; "
+          "index vs f32 on the same pixels", flush=True)
+    check_small_against_plain(layer_norm, F, cb)
+    check_against_plain(layer_norm, F, cb)
+    check_index_bit_identical(layer_norm)
+    profile_dispatch(layer_norm, small=False)
+    torch.cuda.empty_cache()
+    _, counts = run_train_bench(ks, layer_norm, layer_norm.batch_size,
+                                FLAGSHIP, ln_name, None, LAYER_NORM_ARGS)
+    for k, v in counts.items():
+        main_counts[k] += v
+    torch.cuda.empty_cache()
+    print("[train] layer-norm: learning check, profile, meta-gradients",
+          flush=True)
+    check_learning(FLAGSHIP, layer_norm.batch_size, LAYER_NORM_ARGS)
+    profile_train_step(layer_norm)
+    check_grads_small(layer_norm, F, cb)
+    check_grads_replayed(layer_norm, cb, F, layer_norm_seeds)
+    for c, config, name, extra in (
+            (ln_norm_first, FLAGSHIP, f"{ln_name} norm-first",
+             ("--store-rows", str(STORE_ROWS)) + NORM_FIRST_ARGS),
+            (strided_ln, OMNIGLOT, f"{omniglot_name} strided layer-norm",
+             STRIDED_ARGS)):
+        _, counts = run_serve_bench(ks, c, "f32", config, name,
+                                    extra + LAYER_NORM_ARGS, requests=4)
+        for k, v in counts.items():
+            main_counts[k] += v
+        check_small_against_plain(c, F, cb)
+        torch.cuda.empty_cache()
+    print(f"[layer-norm] {time.perf_counter() - t0:.1f} s", flush=True)
 
     idle = [k for k in all_kernels if not main_counts[k]]
     if idle:

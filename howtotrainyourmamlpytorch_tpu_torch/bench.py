@@ -26,7 +26,10 @@ so the three tiers draw the same tasks:
 ``--max_pooling true|false`` overrides the config's field, as the JAX
 package's command line overrides any field (``false``: the strided
 model); ``--block_order conv_norm_relu|norm_conv_relu`` likewise
-(``norm_conv_relu``: the norm-first block).
+(``norm_conv_relu``: the norm-first block), and ``--norm_layer
+batch_norm|layer_norm`` (``layer_norm``: a layer norm over each image's
+(H, W, C), gamma frozen at 1 and beta meta-trained, no running
+statistics).
 
 The config's ``use_mmap_cache`` and ``data_placement`` are set to match
 (the port's config requires the first for any tier but host). A tier's
@@ -57,6 +60,8 @@ tests).
         --max_pooling false --data-placement device
     python -m howtotrainyourmamlpytorch_tpu_torch.cli train-bench \\
         --block_order norm_conv_relu
+    python -m howtotrainyourmamlpytorch_tpu_torch.cli train-bench \\
+        --norm_layer layer_norm
 """
 
 from __future__ import annotations
@@ -79,6 +84,7 @@ from .data.preprocess import FlatStore
 from .device import device_name, peak_rates, resolve_device, synchronize
 from .serving.bench import (
     BLOCK_ORDERS,
+    NORM_LAYERS,
     OMNIGLOT_CLASSES,
     OMNIGLOT_PER_CLASS,
     bool_arg,
@@ -146,6 +152,8 @@ def _bench_cfg(args) -> MAMLConfig:
         cfg = cfg.replace(max_pooling=args.max_pooling)
     if args.block_order is not None:
         cfg = cfg.replace(block_order=args.block_order)
+    if args.norm_layer is not None:
+        cfg = cfg.replace(norm_layer=args.norm_layer)
     return cfg
 
 
@@ -251,6 +259,9 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--block_order", choices=BLOCK_ORDERS, default=None,
                         help="override the config's block_order, as the "
                              "JAX command line does")
+    parser.add_argument("--norm_layer", choices=NORM_LAYERS, default=None,
+                        help="override the config's norm_layer, as the JAX "
+                             "command line does")
     parser.add_argument("--epoch", type=int, default=0,
                         help="epoch fed to the schedule (LR, MSL weights, "
                              "order)")
@@ -336,6 +347,7 @@ def run(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         "batch_size": cfg.batch_size,
         "max_pooling": cfg.max_pooling,
         "block_order": cfg.block_order,
+        "norm_layer": cfg.norm_layer,
         "meta_accum_steps": cfg.meta_accum_steps,
         "epoch": args.epoch,
         "lr": lr,

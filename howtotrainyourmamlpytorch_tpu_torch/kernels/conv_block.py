@@ -1,9 +1,11 @@
 """Wrappers of the port's kernels, their launch counters, and the
-``autograd.Function``s that join them into the model's two blocks,
+``autograd.Function``s that join them into the model's blocks,
 differentiable twice: conv -> batch-norm -> leaky-ReLU -> (2x2 max pool |
-nothing) -> (global average pool), and the norm-first block
+nothing) -> (global average pool), the norm-first block
 (``block_order='norm_conv_relu'``), batch-norm of the input -> conv ->
-leaky-ReLU -> (2x2 max pool | nothing) -> (global average pool).
+leaky-ReLU -> (2x2 max pool | nothing) -> (global average pool), and the
+same two orders with a layer norm over each image's (H, W, C) in place of
+the batch norm (``norm_layer='layer_norm'``).
 
 ==========================  ======  ========================  ==================
 kernel                      route   source                    launches/call
@@ -30,6 +32,10 @@ kernel                      route   source                    launches/call
 ``act_pool_gather``         Triton  act_pool.py               1
 ``act_fwd``                 Triton  act_pool.py               1 (pool-free)
 ``act_bwd``                 Triton  act_pool.py               1 (pool-free)
+``layer_norm_stats``        Triton  layer_norm.py             partial + merge: 2
+``layer_norm_fwd``          Triton  layer_norm.py             1
+``layer_norm_bwd``          Triton  layer_norm.py             reduce + sums + dx: 3
+``layer_norm_bwd_bwd``      Triton  layer_norm.py             reduce + sums + out: 3
 ==========================  ======  ========================  ==================
 
 The ``conv3x3_s2_*`` names are the four conv kernels at stride 2 (the
@@ -73,12 +79,19 @@ second-order MAML does):
   (``act_pool_gather``; pool-free, ``ActPoolBwd`` itself) -> ``ActPoolBwd``.
   Linear in the cotangent, so every order closes; the derivative in y is
   zero almost everywhere (the argmax and the sign are piecewise
-  constant).
+  constant);
+* ``LayerNorm``: ``layer_norm_stats`` + ``layer_norm_fwd`` ->
+  ``LayerNormBwd`` (``layer_norm_bwd``) -> ``layer_norm_bwd_bwd``. The
+  layer-norm blocks are K1 stats-free with bias -> ``LayerNorm`` ->
+  ``ActPool`` (conv first) and ``LayerNorm`` -> K1 stats-free ->
+  ``ActPool`` (norm first), with ``Gap`` in the strided model's last
+  block.
 
 K5's own derivative (the block's third) is taken by no path: on the card
 asking for it raises; on the CPU the twin's formulas are plain ops that
 autograd differentiates, which the f64 ``gradgradcheck`` of
-``BnActPoolBwd`` and ``BatchNormBwd`` uses.
+``BnActPoolBwd``, ``BatchNormBwd`` and ``LayerNormBwd`` uses; the same
+holds for ``layer_norm_bwd_bwd``.
 """
 
 from __future__ import annotations
@@ -89,7 +102,14 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..ops import functional as F
-from . import act_pool, bn_act_pool, bn_stats, build, global_avg_pool
+from . import (
+    act_pool,
+    bn_act_pool,
+    bn_stats,
+    build,
+    global_avg_pool,
+    layer_norm,
+)
 
 Tensor = torch.Tensor
 
@@ -119,6 +139,10 @@ KERNELS = (
     "act_pool_gather",
     "act_fwd",
     "act_bwd",
+    "layer_norm_stats",
+    "layer_norm_fwd",
+    "layer_norm_bwd",
+    "layer_norm_bwd_bwd",
 )
 #: the conv strides the kernels take
 STRIDES = (1, 2)
@@ -573,6 +597,112 @@ def act_bwd(da: Tensor, y: Tensor, negative_slope: float = F.LEAKY_SLOPE
         act_pool.launch_bwd(da, y, dy, negative_slope)
     LAUNCHES[name] += 1
     return dy
+
+
+# -- the layer norm (B5c) ------------------------------------------------------
+
+
+def _check_ln_rows(name: str, x: Tensor) -> Tuple[int, int, int, int, int]:
+    """Check a layer norm's activation, whose T * N images are rows of the
+    launch grid's second axis; returns its shape."""
+    T, N, H, W, C = _check_act(name, x)
+    if T * N >= 65536:
+        raise ValueError(f"{name}: T * N = {T * N} images exceed the launch "
+                         "grid's 65,535 rows")
+    return T, N, H, W, C
+
+
+def _check_ln_args(name: str, x: Tensor, mean: Tensor, rstd: Tensor,
+                   params: Dict[str, Tensor]) -> Tuple[int, int, int, int,
+                                                       int]:
+    """Check a layer norm's activation, its (T, N) statistics and its (T,
+    H, W, C) parameters; returns x's shape."""
+    T, N, H, W, C = _check_ln_rows(name, x)
+    _check(name, "mean", mean, (T, N), x.device)
+    _check(name, "rstd", rstd, (T, N), x.device)
+    for what, t in params.items():
+        _check(name, what, t, (T, H, W, C), x.device)
+    return T, N, H, W, C
+
+
+def layer_norm_stats(x: Tensor, eps: float = F.LN_EPS
+                     ) -> Tuple[Tensor, Tensor, Tensor]:
+    """Each image's mean, population variance and rstd over its (H, W, C),
+    ``(T, N)`` each (``layer_norm.py``)."""
+    if _on_cpu(x):
+        return F.layer_norm_stats(x, eps)
+    name = "layer_norm_stats"
+    T, N, H, W, C = _check_ln_rows(name, x)
+    plan = layer_norm.stats_plan(T * N, H * W * C)
+    part = torch.empty((T, plan.splits, 3, N), device=x.device)
+    mean, var, rstd = (torch.empty((T, N), device=x.device)
+                       for _ in range(3))
+    with torch.cuda.device(x.device):
+        layer_norm.launch_stats(x, part, mean, var, rstd, eps)
+    LAUNCHES[name] += 1
+    return mean, var, rstd
+
+
+def layer_norm_fwd(x: Tensor, mean: Tensor, rstd: Tensor, gamma: Tensor,
+                   beta: Tensor) -> Tensor:
+    """Layer norm with the given per-image statistics: ``(x - mean) * rstd
+    * gamma + beta``."""
+    if _on_cpu(x):
+        return F.layer_norm_fwd(x, mean, rstd, gamma, beta)
+    name = "layer_norm_fwd"
+    _check_ln_args(name, x, mean, rstd, dict(gamma=gamma, beta=beta))
+    z = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        layer_norm.launch_fwd(x, mean, rstd, gamma, beta, z)
+    LAUNCHES[name] += 1
+    return z
+
+
+def layer_norm_bwd(dz: Tensor, x: Tensor, mean: Tensor, rstd: Tensor,
+                   gamma: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    """The backward of layer norm through its statistics: ``(dx, dgamma,
+    dbeta)``, the parameters' gradients per tenant ``(T, H, W, C)``."""
+    if _on_cpu(x):
+        return F.layer_norm_bwd(dz, x, mean, rstd, gamma)
+    name = "layer_norm_bwd"
+    T, N, H, W, C = _check_ln_args(name, x, mean, rstd, dict(gamma=gamma))
+    _check(name, "dz", dz, x.shape, x.device)
+    J = layer_norm.column_tiles(H * W * C)
+    part = torch.empty((J, layer_norm.BWD_SUMS, T * N), device=x.device)
+    sums = torch.empty((layer_norm.BWD_SUMS, T * N), device=x.device)
+    dx = torch.empty_like(x)
+    dgamma, dbeta = torch.empty_like(gamma), torch.empty_like(gamma)
+    with torch.cuda.device(x.device):
+        layer_norm.launch_bwd(dz, x, mean, rstd, gamma, part, sums, dx,
+                              dgamma, dbeta)
+    LAUNCHES[name] += 1
+    return dx, dgamma, dbeta
+
+
+def layer_norm_bwd_bwd(a: Tensor, ggamma: Tensor, gbeta: Tensor, dz: Tensor,
+                       x: Tensor, mean: Tensor, rstd: Tensor, gamma: Tensor
+                       ) -> Tuple[Tensor, Tensor, Tensor]:
+    """The backward of ``layer_norm_bwd``: from the cotangents of its
+    ``(dx, dgamma, dbeta)``, the gradients with respect to ``dz``, ``x``
+    and ``gamma``."""
+    if _on_cpu(x):
+        return F.layer_norm_bwd_bwd(a, ggamma, gbeta, dz, x, mean, rstd,
+                                    gamma)
+    name = "layer_norm_bwd_bwd"
+    T, N, H, W, C = _check_ln_args(name, x, mean, rstd, dict(
+        ggamma=ggamma, gbeta=gbeta, gamma=gamma))
+    _check(name, "a", a, x.shape, x.device)
+    _check(name, "dz", dz, x.shape, x.device)
+    J = layer_norm.column_tiles(H * W * C)
+    part = torch.empty((J, layer_norm.BWD_BWD_SUMS, T * N), device=x.device)
+    sums = torch.empty((layer_norm.BWD_BWD_SUMS, T * N), device=x.device)
+    g_dz, g_x = torch.empty_like(x), torch.empty_like(x)
+    g_gamma = torch.empty_like(gamma)
+    with torch.cuda.device(x.device):
+        layer_norm.launch_bwd_bwd(a, ggamma, gbeta, dz, x, mean, rstd, gamma,
+                                  part, sums, g_dz, g_x, g_gamma)
+    LAUNCHES[name] += 1
+    return g_dz, g_x, g_gamma
 
 
 # -- K4 -----------------------------------------------------------------------
@@ -1038,6 +1168,17 @@ class ActPoolGather(torch.autograd.Function):
         return ActPoolBwd.apply(g.contiguous(), arg, y), None, None
 
 
+def _act_pool_gap(y: Tensor, pool: bool, gap: bool) -> Tensor:
+    """``ActPool`` (pooled, or pool-free with ``pool=False``) and, with
+    ``gap``, the global average pool."""
+    out = ActPool.apply(y, pool)
+    if pool:
+        out = out[0]
+    if gap:
+        out = Gap.apply(out)
+    return out
+
+
 def norm_function_block(x: Tensor, w: Tensor, b: Tensor, gamma: Tensor,
                         beta: Tensor, stats_impl: str = "twopass",
                         stride: int = 1, pool: bool = True, gap: bool = False
@@ -1052,13 +1193,8 @@ def norm_function_block(x: Tensor, w: Tensor, b: Tensor, gamma: Tensor,
     gamma = gamma.expand(T, cin).contiguous()
     beta = beta.expand(T, cin).contiguous()
     z, mean, var, _ = BatchNorm.apply(x.contiguous(), gamma, beta)
-    out = ActPool.apply(
-        Conv3x3.apply(z, w.contiguous(), b.contiguous(), False, stride), pool)
-    if pool:
-        out = out[0]
-    if gap:
-        out = Gap.apply(out)
-    return out, mean, var
+    y = Conv3x3.apply(z, w.contiguous(), b.contiguous(), False, stride)
+    return _act_pool_gap(y, pool, gap), mean, var
 
 
 def norm_conv_act_pool(x: Tensor, w: Tensor, b: Tensor, gamma: Tensor,
@@ -1078,9 +1214,146 @@ def norm_conv_act_pool(x: Tensor, w: Tensor, b: Tensor, gamma: Tensor,
                                pool=pool, gap=gap)
 
 
+# -- the layer-norm blocks ----------------------------------------------------------
+
+
+class LayerNorm(torch.autograd.Function):
+    """Layer norm over each image's (H, W, C): ``layer_norm_stats`` then
+    ``layer_norm_fwd``, gamma and beta ``(T, H, W, C)``. Returns ``z``; its
+    backward is ``LayerNormBwd`` (the statistics' dependence on x is
+    inside ``layer_norm_bwd`` and ``layer_norm_bwd_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta):
+        mean, _, rstd = layer_norm_stats(x)
+        ctx.save_for_backward(x, gamma, mean, rstd)
+        return layer_norm_fwd(x, mean, rstd, gamma, beta)
+
+    @staticmethod
+    def backward(ctx, dz):
+        x, gamma, mean, rstd = ctx.saved_tensors
+        return LayerNormBwd.apply(dz.contiguous(), x, mean, rstd, gamma)
+
+
+class LayerNormBwd(torch.autograd.Function):
+    """``layer_norm_bwd``: ``(dx, dgamma, dbeta)`` from ``dz``; its backward
+    is ``layer_norm_bwd_bwd``."""
+
+    @staticmethod
+    def forward(ctx, dz, x, mean, rstd, gamma):
+        ctx.save_for_backward(dz, x, mean, rstd, gamma)
+        return layer_norm_bwd(dz, x, mean, rstd, gamma)
+
+    @staticmethod
+    def backward(ctx, g_dx, g_dgamma, g_dbeta):
+        dz, x, mean, rstd, gamma = ctx.saved_tensors
+        if _on_cpu(x):
+            # as BnActPoolBwd: statistics recomputed from x carry their
+            # dependence on x into a further derivative of the twin
+            mean, _, rstd = F.image_stats(x)
+            second = layer_norm_bwd_bwd
+        else:
+            second = LayerNormBwdBwd.apply
+        g_dz, g_x, g_gamma = second(
+            g_dx.contiguous(), g_dgamma.contiguous(), g_dbeta.contiguous(),
+            dz, x, mean, rstd, gamma)
+        return g_dz, g_x, None, None, g_gamma
+
+
+class LayerNormBwdBwd(torch.autograd.Function):
+    """``layer_norm_bwd_bwd`` as a graph node on the card, so that a
+    further derivative (the layer-norm block's third) raises."""
+
+    @staticmethod
+    def forward(ctx, *args):
+        return layer_norm_bwd_bwd(*args)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError(
+            "the derivative of layer_norm_bwd_bwd, the layer-norm block's "
+            "third derivative, is not written"
+        )
+
+
+def _ln_params(gamma: Tensor, beta: Tensor, x: Tensor
+               ) -> Tuple[Tensor, Tensor]:
+    """gamma and beta (``(H, W, C)`` shared, or ``(T, H, W, C)``) as the
+    kernels' contiguous ``(T, H, W, C)``."""
+    shape = (x.shape[0], *x.shape[2:])
+    return gamma.expand(shape).contiguous(), beta.expand(shape).contiguous()
+
+
+def conv_ln_function_block(x: Tensor, w: Tensor, b: Tensor, gamma: Tensor,
+                           beta: Tensor, stats_impl: str = "twopass",
+                           stride: int = 1, pool: bool = True,
+                           gap: bool = False) -> Tuple[Tensor, None, None]:
+    """The layer-norm block (conv first) as the chain of Functions: K1's
+    stats-free mode with bias (at ``stride``), ``LayerNorm`` of the conv
+    output (gamma and beta of its (H, W, C)), ``ActPool`` (pooled, or
+    pool-free with ``pool=False``) and, with ``gap``, the global average
+    pool. On CPU tensors each wrapper takes its twin. Returns ``(out,
+    None, None)``: no running statistics."""
+    y = Conv3x3.apply(x.contiguous(), w.contiguous(), b.contiguous(), False,
+                      stride)
+    z = LayerNorm.apply(y, *_ln_params(gamma, beta, y))
+    return _act_pool_gap(z, pool, gap), None, None
+
+
+def ln_conv_function_block(x: Tensor, w: Tensor, b: Tensor, gamma: Tensor,
+                           beta: Tensor, stats_impl: str = "twopass",
+                           stride: int = 1, pool: bool = True,
+                           gap: bool = False) -> Tuple[Tensor, None, None]:
+    """The norm-first layer-norm block as the chain of Functions:
+    ``LayerNorm`` of the input (gamma and beta of its (H, W, C)), K1's
+    stats-free mode with bias, ``ActPool`` and, with ``gap``, the global
+    average pool. Returns ``(out, None, None)``."""
+    x = x.contiguous()
+    z = LayerNorm.apply(x, *_ln_params(gamma, beta, x))
+    y = Conv3x3.apply(z, w.contiguous(), b.contiguous(), False, stride)
+    return _act_pool_gap(y, pool, gap), None, None
+
+
+def conv_ln_act_pool(x: Tensor, w: Tensor, b: Tensor, gamma: Tensor,
+                     beta: Tensor, stats_impl: str = "twopass",
+                     stride: int = 1, pool: bool = True, gap: bool = False
+                     ) -> Tuple[Tensor, None, None]:
+    """The layer-norm block (conv first) as the model calls it: the plain
+    composition (``ops.functional.conv_ln_act_pool``) for CPU tensors,
+    ``conv_ln_function_block`` on the kernels for CUDA tensors."""
+    if _on_cpu(x):
+        return F.conv_ln_act_pool(x, w, b, gamma, beta, stats_impl,
+                                  stride=stride, pool=pool, gap=gap)
+    _check_block_input("conv_ln_act_pool", x)
+    return conv_ln_function_block(x, w, b, gamma, beta, stride=stride,
+                                  pool=pool, gap=gap)
+
+
+def ln_conv_act_pool(x: Tensor, w: Tensor, b: Tensor, gamma: Tensor,
+                     beta: Tensor, stats_impl: str = "twopass",
+                     stride: int = 1, pool: bool = True, gap: bool = False
+                     ) -> Tuple[Tensor, None, None]:
+    """The norm-first layer-norm block as the model calls it: the plain
+    composition (``ops.functional.ln_conv_act_pool``) for CPU tensors,
+    ``ln_conv_function_block`` on the kernels for CUDA tensors."""
+    if _on_cpu(x):
+        return F.ln_conv_act_pool(x, w, b, gamma, beta, stats_impl,
+                                  stride=stride, pool=pool, gap=gap)
+    _check_block_input("ln_conv_act_pool", x)
+    return ln_conv_function_block(x, w, b, gamma, beta, stride=stride,
+                                  pool=pool, gap=gap)
+
+
 # the order of the layers each block computes (``MAMLConfig.block_order``)
-for _block in (function_block, conv_bn_act_pool):
-    _block.block_order = "conv_norm_relu"
-for _block in (norm_function_block, norm_conv_act_pool):
-    _block.block_order = "norm_conv_relu"
-del _block
+# and its normalization (``MAMLConfig.norm_layer``)
+for _blocks, _order, _norm in (
+        ((function_block, conv_bn_act_pool), "conv_norm_relu", "batch_norm"),
+        ((norm_function_block, norm_conv_act_pool), "norm_conv_relu",
+         "batch_norm"),
+        ((conv_ln_function_block, conv_ln_act_pool), "conv_norm_relu",
+         "layer_norm"),
+        ((ln_conv_function_block, ln_conv_act_pool), "norm_conv_relu",
+         "layer_norm")):
+    for _block in _blocks:
+        _block.block_order, _block.norm_layer = _order, _norm
+del _blocks, _block, _order, _norm

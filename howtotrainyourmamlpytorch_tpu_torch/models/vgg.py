@@ -13,12 +13,16 @@ carries a leading ``T`` axis (each tenant adapts its own copy) while frozen
 parameters are shared, and the returned BN state is per tenant
 ``(T, steps, f)``.
 
-The port covers ``norm_layer='batch_norm'`` with padded convs, both block
-orders and both geometries. ``block_order='conv_norm_relu'`` (the
-reference's block) normalizes the conv output; ``'norm_conv_relu'``
-normalizes the block INPUT (gamma, beta and the running statistics sized
-to its channels, JAX ``models/vgg.py`` :110, :271), then conv + bias and
-leaky-ReLU. With ``max_pooling=True`` each stage is a stride-1 conv
+The port covers padded convs, both norm layers, both block orders and
+both geometries. ``block_order='conv_norm_relu'`` (the reference's block)
+normalizes the conv output; ``'norm_conv_relu'`` normalizes the block
+INPUT (gamma, beta and the running statistics sized to its channels, JAX
+``models/vgg.py`` :110, :271), then conv + bias and leaky-ReLU. With
+``norm_layer='layer_norm'`` the norm is a layer norm over each image's
+(H, W, C): its gamma and beta are ``(H, W, C)`` of the normalized tensor
+(the conv output's, or the block input's), never per step, and there are
+no running statistics (an empty BN state; JAX ``models/vgg.py``
+:124-130). With ``max_pooling=True`` each stage is a stride-1 conv
 followed by a 2x2 max pool; with ``max_pooling=False`` (the strided model,
 the JAX package's default) each stage is a stride-2 conv with no pool, and
 the features are the global average pool of the last stage (JAX
@@ -27,8 +31,8 @@ that computes the config's order (``blocks_for``: plain ops on the CPU,
 the hand-written kernels on the card, differentiable twice); in the
 strided model the last block also takes the global average pool, so that
 the block given to ``apply`` decides how it is computed. A block of the
-other order raises. Other configurations raise ``NotImplementedError``
-naming the missing kernel.
+other order or the other norm raises. Unpadded convs raise
+``NotImplementedError`` naming the missing kernel.
 """
 
 from __future__ import annotations
@@ -46,32 +50,38 @@ from ..ops import functional as F
 Params = Dict[str, torch.Tensor]
 BNState = Dict[str, torch.Tensor]
 #: ``block(x, w, b, gamma, beta, stats_impl, stride=, pool=, gap=) ->
-#: (out, mean, var)``, with a ``block_order`` attribute naming the order of
-#: the layers it computes (``conv_norm_relu`` or ``norm_conv_relu``)
-BlockFn = Callable[..., Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
+#: (out, mean, var)`` (``(out, None, None)`` for a layer norm), with a
+#: ``block_order`` attribute naming the order of the layers it computes
+#: (``conv_norm_relu`` or ``norm_conv_relu``) and a ``norm_layer``
+#: attribute naming its norm (``batch_norm`` or ``layer_norm``)
+BlockFn = Callable[..., Tuple[torch.Tensor, Optional[torch.Tensor],
+                              Optional[torch.Tensor]]]
+
+_BLOCKS = {
+    ("conv_norm_relu", "batch_norm"): (conv_block.conv_bn_act_pool,
+                                       F.conv_bn_act_pool),
+    ("norm_conv_relu", "batch_norm"): (conv_block.norm_conv_act_pool,
+                                       F.norm_conv_act_pool),
+    ("conv_norm_relu", "layer_norm"): (conv_block.conv_ln_act_pool,
+                                       F.conv_ln_act_pool),
+    ("norm_conv_relu", "layer_norm"): (conv_block.ln_conv_act_pool,
+                                       F.ln_conv_act_pool),
+}
 
 
 def blocks_for(cfg: MAMLConfig) -> Tuple[BlockFn, BlockFn]:
-    """``(kernel_block, plain_block)`` of the config's block order: the
-    block that takes the kernels for CUDA tensors (and its twin for CPU
-    ones), and the plain composition differentiable by autograd (the
-    reference on the card)."""
-    if cfg.block_order == "norm_conv_relu":
-        return conv_block.norm_conv_act_pool, F.norm_conv_act_pool
-    return conv_block.conv_bn_act_pool, F.conv_bn_act_pool
+    """``(kernel_block, plain_block)`` of the config's block order and norm
+    layer: the block that takes the kernels for CUDA tensors (and its twin
+    for CPU ones), and the plain composition differentiable by autograd
+    (the reference on the card)."""
+    return _BLOCKS[(cfg.block_order, cfg.norm_layer)]
 
 
 def check_supported(cfg: MAMLConfig) -> None:
-    """Raise ``NotImplementedError`` for a model outside this slice."""
-    missing = []
-    if cfg.norm_layer != "batch_norm":
-        missing.append("norm_layer='layer_norm' (layer-norm kernel, ROADMAP "
-                       "Queue B5)")
+    """Raise ``NotImplementedError`` for a model outside the port."""
     if not cfg.conv_padding:
-        missing.append("conv_padding=False (unpadded 3x3 conv kernel)")
-    if missing:
         raise NotImplementedError(
-            "not ported yet: " + "; ".join(missing)
+            "not ported yet: conv_padding=False (unpadded 3x3 conv kernel)"
         )
 
 
@@ -124,15 +134,22 @@ def init(cfg: MAMLConfig, gen: torch.Generator,
     steps = cfg.bn_num_steps
     c_in = cfg.image_channels
     f = cfg.cnn_num_filters
-    for i, _ in enumerate(_stage_dims(cfg)):
+    conv_first = cfg.block_order == "conv_norm_relu"
+    for i, (h, w, ch, cw, _, _) in enumerate(_stage_dims(cfg)):
         params[f"conv{i}.conv.weight"] = _xavier_uniform(
             gen, (3, 3, c_in, f), c_in * 9, f * 9, device
         )
         params[f"conv{i}.conv.bias"] = torch.zeros(f, device=device)
         # the norm's features: the conv output's, or the block input's
         # when the block normalizes its input first
-        nf = c_in if cfg.block_order == "norm_conv_relu" else f
-        if (cfg.per_step_bn_statistics
+        nf = f if conv_first else c_in
+        if cfg.norm_layer == "layer_norm":
+            # over the normalized tensor's whole (H, W, C); no running
+            # statistics
+            shape = (ch, cw, nf) if conv_first else (h, w, nf)
+            params[f"conv{i}.norm.gamma"] = torch.ones(shape, device=device)
+            params[f"conv{i}.norm.beta"] = torch.zeros(shape, device=device)
+        elif (cfg.per_step_bn_statistics
                 and not cfg.enable_inner_loop_optimizable_bn_params):
             params[f"conv{i}.norm.gamma"] = torch.ones(steps, nf,
                                                        device=device)
@@ -141,7 +158,7 @@ def init(cfg: MAMLConfig, gen: torch.Generator,
         else:
             params[f"conv{i}.norm.gamma"] = torch.ones(nf, device=device)
             params[f"conv{i}.norm.beta"] = torch.zeros(nf, device=device)
-        if cfg.per_step_bn_statistics:
+        if cfg.per_step_bn_statistics and cfg.norm_layer == "batch_norm":
             bn_state[f"conv{i}.norm.mean"] = torch.zeros(steps, nf,
                                                          device=device)
             bn_state[f"conv{i}.norm.var"] = torch.ones(steps, nf,
@@ -168,7 +185,8 @@ def apply(cfg: MAMLConfig, params: Params, bn_state: BNState,
     :param training: whether the updated running statistics are returned
         (normalization always uses batch statistics).
     :param block: the block implementation, of the config's
-        ``block_order`` (another raises ``ValueError``); default the kernel
+        ``block_order`` and ``norm_layer`` (another raises
+        ``ValueError``); default the kernel
         block of ``blocks_for(cfg)`` (plain ops for CPU tensors, the
         kernels for CUDA tensors). A caller that wants the plain ops on the
         card passes ``blocks_for(cfg)[1]``.
@@ -178,12 +196,11 @@ def apply(cfg: MAMLConfig, params: Params, bn_state: BNState,
     """
     check_supported(cfg)
     block = blocks_for(cfg)[0] if block is None else block
-    order = getattr(block, "block_order", None)
-    if order != cfg.block_order:
-        raise ValueError(
-            f"the block computes block_order={order!r}; the config's is "
-            f"{cfg.block_order!r}"
-        )
+    for field in ("block_order", "norm_layer"):
+        got, want = getattr(block, field, None), getattr(cfg, field)
+        if got != want:
+            raise ValueError(f"the block computes {field}={got!r}; the "
+                             f"config's is {want!r}")
     norm_first = cfg.block_order == "norm_conv_relu"
     tenant = x.dim() == 5
     if not tenant:
@@ -196,7 +213,10 @@ def apply(cfg: MAMLConfig, params: Params, bn_state: BNState,
     dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
              else torch.promote_types(x.dtype, torch.float32))
     step = min(max(int(num_step), 0), cfg.bn_num_steps - 1)
-    per_step_affine = (cfg.per_step_bn_statistics
+    # per-step (steps, f) batch-norm gamma/beta; a layer norm's are never
+    # per step (JAX ``models/vgg.py`` :216 decides by ``gamma.ndim == 2``)
+    per_step_affine = (cfg.norm_layer == "batch_norm"
+                       and cfg.per_step_bn_statistics
                        and not cfg.enable_inner_loop_optimizable_bn_params)
     stats_impl = cfg.resolved_bn_stats_impl(x.device)
     stride = 1 if cfg.max_pooling else 2

@@ -24,6 +24,7 @@ import torch.nn.functional as tF
 Tensor = torch.Tensor
 
 BN_EPS = 1e-5
+LN_EPS = 1e-5
 LEAKY_SLOPE = 0.01
 
 
@@ -146,6 +147,30 @@ def batch_norm(x: Tensor, gamma: Tensor, beta: Tensor,
     return y, new_mean, new_var
 
 
+def _ln_param(v: Tensor, x: Tensor) -> Tensor:
+    """Broadcast a layer-norm parameter against an NHWC activation: ``(H, W,
+    C)`` as is, a per-tenant ``(T, H, W, C)`` against a 5-D ``x`` as
+    ``(T, 1, H, W, C)``."""
+    if v.dim() == 4 and x.dim() == 5:
+        return v.unsqueeze(1)
+    return v
+
+
+def layer_norm(x: Tensor, gamma: Tensor, beta: Tensor, eps: float = LN_EPS
+               ) -> Tensor:
+    """Layer norm over each image's (H, W, C), the JAX package's
+    ``layer_norm``: the mean and the population variance (two passes, as
+    ``jnp.var``) per sample, ``(x - mean) * rsqrt(var + eps)``, times
+    ``gamma`` plus ``beta``, both elementwise ``(H, W, C)`` (or per tenant
+    ``(T, H, W, C)``)."""
+    dims = (-3, -2, -1)
+    mean = x.mean(dims, keepdim=True)
+    var = ((x - mean) ** 2).mean(dims, keepdim=True)
+    y = (x - mean) * torch.rsqrt(var + eps)
+    return (y * _ln_param(gamma.to(x.dtype), x)
+            + _ln_param(beta.to(x.dtype), x))
+
+
 def leaky_relu(x: Tensor, negative_slope: float = LEAKY_SLOPE) -> Tensor:
     """``where(x >= 0, x, slope * x)``, as ``jax.nn.leaky_relu``."""
     return torch.where(x >= 0, x, negative_slope * x)
@@ -210,6 +235,18 @@ def global_avg_pool2d(x: Tensor) -> Tensor:
     return x.mean(dim=(-3, -2))
 
 
+def _act_pool_gap(y: Tensor, negative_slope: float, pool: bool, gap: bool
+                  ) -> Tensor:
+    """The block's tail: leaky-ReLU, then the 2x2 max pool when ``pool``
+    and the global average pool when ``gap``."""
+    out = leaky_relu(y, negative_slope)
+    if pool:
+        out = max_pool2d(out)
+    if gap:
+        out = global_avg_pool2d(out)
+    return out
+
+
 def conv_bn_act_pool(x: Tensor, w: Tensor, b: Tensor, gamma: Tensor,
                      beta: Tensor, stats_impl: str = "twopass",
                      eps: float = BN_EPS,
@@ -229,11 +266,7 @@ def conv_bn_act_pool(x: Tensor, w: Tensor, b: Tensor, gamma: Tensor,
     z = (y - _per_channel(mean, y)) * _per_channel(inv, y)
     z = z * _per_channel(gamma.to(y.dtype), y) + _per_channel(
         beta.to(y.dtype), y)
-    out = leaky_relu(z, negative_slope)
-    if pool:
-        out = max_pool2d(out)
-    if gap:
-        out = global_avg_pool2d(out)
+    out = _act_pool_gap(z, negative_slope, pool, gap)
     return out, mean.detach(), var.detach()
 
 
@@ -257,17 +290,55 @@ def norm_conv_act_pool(x: Tensor, w: Tensor, b: Tensor, gamma: Tensor,
     z = (x - _per_channel(mean, x)) * _per_channel(inv, x)
     z = z * _per_channel(gamma.to(x.dtype), x) + _per_channel(
         beta.to(x.dtype), x)
-    out = leaky_relu(conv2d(z, w, b, stride, 1), negative_slope)
-    if pool:
-        out = max_pool2d(out)
-    if gap:
-        out = global_avg_pool2d(out)
+    out = _act_pool_gap(conv2d(z, w, b, stride, 1), negative_slope, pool,
+                        gap)
     return out, mean.detach(), var.detach()
 
 
+def conv_ln_act_pool(x: Tensor, w: Tensor, b: Tensor, gamma: Tensor,
+                     beta: Tensor, stats_impl: str = "twopass",
+                     eps: float = LN_EPS,
+                     negative_slope: float = LEAKY_SLOPE, stride: int = 1,
+                     pool: bool = True, gap: bool = False
+                     ) -> Tuple[Tensor, None, None]:
+    """The layer-norm block (``norm_layer='layer_norm'``, conv first) in
+    plain ops, differentiable by autograd: 3x3 conv (``stride``, pad 1) +
+    bias -> layer norm over each image's (H, W, C) of the conv output
+    (gamma and beta ``(H, W, C)`` of that shape) -> leaky-ReLU, then the
+    2x2 max pool when ``pool`` and the global average pool when ``gap``
+    (the JAX package's ``models/vgg.py`` :255-262, :300-305).
+
+    Returns ``(out, None, None)``: layer norm keeps no running statistics
+    (``stats_impl`` is accepted for the block signature and not read)."""
+    y = layer_norm(conv2d(x, w, b, stride, 1), gamma, beta, eps)
+    return _act_pool_gap(y, negative_slope, pool, gap), None, None
+
+
+def ln_conv_act_pool(x: Tensor, w: Tensor, b: Tensor, gamma: Tensor,
+                     beta: Tensor, stats_impl: str = "twopass",
+                     eps: float = LN_EPS,
+                     negative_slope: float = LEAKY_SLOPE, stride: int = 1,
+                     pool: bool = True, gap: bool = False
+                     ) -> Tuple[Tensor, None, None]:
+    """The norm-first layer-norm block (``block_order='norm_conv_relu'``,
+    ``norm_layer='layer_norm'``) in plain ops: layer norm of the block
+    INPUT (gamma and beta of its (H, W, C)) -> 3x3 conv + bias ->
+    leaky-ReLU -> (2x2 max pool) -> (global average pool) (JAX
+    ``models/vgg.py`` :271, :288, :300-305). Returns ``(out, None,
+    None)``."""
+    y = conv2d(layer_norm(x, gamma, beta, eps), w, b, stride, 1)
+    return _act_pool_gap(y, negative_slope, pool, gap), None, None
+
+
 # the order of the layers each block computes (``MAMLConfig.block_order``)
-conv_bn_act_pool.block_order = "conv_norm_relu"
-norm_conv_act_pool.block_order = "norm_conv_relu"
+# and its normalization (``MAMLConfig.norm_layer``)
+for _block, _order, _norm in (
+        (conv_bn_act_pool, "conv_norm_relu", "batch_norm"),
+        (norm_conv_act_pool, "norm_conv_relu", "batch_norm"),
+        (conv_ln_act_pool, "conv_norm_relu", "layer_norm"),
+        (ln_conv_act_pool, "norm_conv_relu", "layer_norm")):
+    _block.block_order, _block.norm_layer = _order, _norm
+del _block, _order, _norm
 
 
 # -- plain twins of the hand-written kernels ----------------------------------
@@ -570,3 +641,96 @@ def act_pool_gather(g_dy: Tensor, argmax: Tensor, y: Tensor,
     argmax."""
     g = _windows(_leaky_masked(g_dy, y, negative_slope))
     return torch.gather(g, -1, argmax.long().unsqueeze(-1)).squeeze(-1)
+
+
+# -- the layer norm's kernels (B5c) ----------------------------------------------
+#
+# x (T, N, H, W, C) f32; the per-image statistics (T, N); gamma and beta per
+# tenant (T, H, W, C). Per image the reduction runs over its M = H*W*C
+# values; xhat = (x - mean) * rstd.
+
+
+def _rows(v: Tensor) -> Tensor:
+    """A per-image ``(T, N)`` tensor against ``(T, N, H, W, C)``."""
+    return v[:, :, None, None, None]
+
+
+def _row_mean(v: Tensor) -> Tensor:
+    return v.mean((2, 3, 4))
+
+
+def image_stats(x: Tensor, eps: float = LN_EPS
+                ) -> Tuple[Tensor, Tensor, Tensor]:
+    """Each image's mean, population variance (two passes) and ``rstd = 1
+    / sqrt(var + eps)`` over its (H, W, C), ``(T, N)`` each."""
+    mean = _row_mean(x)
+    var = _row_mean((x - _rows(mean)) ** 2)
+    return mean, var, 1.0 / torch.sqrt(var + eps)
+
+
+def layer_norm_stats(x: Tensor, eps: float = LN_EPS
+                     ) -> Tuple[Tensor, Tensor, Tensor]:
+    """Twin of ``layer_norm_stats``: ``image_stats``."""
+    return image_stats(x, eps)
+
+
+def layer_norm_fwd(x: Tensor, mean: Tensor, rstd: Tensor, gamma: Tensor,
+                   beta: Tensor) -> Tensor:
+    """Twin of ``layer_norm_fwd``: ``(x - mean) * rstd * gamma + beta``,
+    the statistics per image, gamma and beta per (tenant, h, w, c)."""
+    return ((x - _rows(mean)) * _rows(rstd) * gamma.unsqueeze(1)
+            + beta.unsqueeze(1))
+
+
+def layer_norm_bwd(dz: Tensor, x: Tensor, mean: Tensor, rstd: Tensor,
+                   gamma: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    """Twin of ``layer_norm_bwd``: the backward of layer norm through its
+    statistics. With ``g = dz * gamma``, per image over its M values,
+
+        dx = rstd * (g - mean(g) - xhat * mean(g * xhat)),
+
+    and per (tenant, h, w, c), summed over the N images, ``dgamma =
+    sum(dz * xhat)`` and ``dbeta = sum(dz)``. Returns ``(dx, dgamma,
+    dbeta)``."""
+    xhat = (x - _rows(mean)) * _rows(rstd)
+    g = dz * gamma.unsqueeze(1)
+    dx = _rows(rstd) * (g - _rows(_row_mean(g))
+                        - xhat * _rows(_row_mean(g * xhat)))
+    return dx, (dz * xhat).sum(1), dz.sum(1)
+
+
+def layer_norm_bwd_bwd(a: Tensor, ggamma: Tensor, gbeta: Tensor, dz: Tensor,
+                       x: Tensor, mean: Tensor, rstd: Tensor, gamma: Tensor
+                       ) -> Tuple[Tensor, Tensor, Tensor]:
+    """Twin of ``layer_norm_bwd_bwd``: the backward of ``layer_norm_bwd``.
+
+    ``a``, ``ggamma``, ``gbeta`` are the cotangents of its ``dx``,
+    ``dgamma`` and ``dbeta``. With ``r = rstd``, ``g = dz * gamma`` and
+    the self-adjoint projection ``P(u) = u - mean(u) - xhat * mean(u *
+    xhat)`` per image (so ``dx = r * P(g)``):
+
+        g_dz    = gamma * r * P(a) + ggamma * xhat + gbeta
+        g_gamma = sum over the images of dz * r * P(a)
+        G       = -r * (a * mean(g xhat) + g * mean(a xhat)) + ggamma * dz
+        g_x     = r * (G - mean(G) - xhat * mean(G xhat))
+                  - xhat * r^2 * (mean(a g) - mean(a) mean(g)
+                                  - mean(a xhat) mean(g xhat))
+
+    ``G`` is the gradient with respect to xhat at fixed r; the last term
+    is the one through r (``sum(a * P(g))`` times ``dr/dx``). Returns
+    ``(g_dz, g_x, g_gamma)``."""
+    r = _rows(rstd)
+    gam = gamma.unsqueeze(1)
+    xhat = (x - _rows(mean)) * r
+    g = dz * gam
+    m_a, m_ax = _row_mean(a), _row_mean(a * xhat)
+    m_g, m_gx = _row_mean(g), _row_mean(g * xhat)
+    p_a = a - _rows(m_a) - xhat * _rows(m_ax)
+    g_dz = gam * r * p_a + ggamma.unsqueeze(1) * xhat + gbeta.unsqueeze(1)
+    big_g = (-r * (a * _rows(m_gx) + g * _rows(m_ax))
+             + ggamma.unsqueeze(1) * dz)
+    cross = _row_mean(a * g) - m_a * m_g - m_ax * m_gx
+    g_x = (r * (big_g - _rows(_row_mean(big_g))
+                - xhat * _rows(_row_mean(big_g * xhat)))
+           - xhat * _rows(rstd * rstd * cross))
+    return g_dz, g_x, (dz * r * p_a).sum(1)

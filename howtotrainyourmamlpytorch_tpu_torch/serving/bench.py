@@ -15,7 +15,9 @@ shipped split; otherwise the mini-ImageNet test split, 20 classes x 600
 config's field, as the JAX package's command line overrides any field
 (``false`` serves the strided model); ``--block_order
 conv_norm_relu|norm_conv_relu`` likewise (``norm_conv_relu``: the
-norm-first block).
+norm-first block), and ``--norm_layer batch_norm|layer_norm``
+(``layer_norm``: a layer norm over each image's (H, W, C) in place of the
+batch norm, in either block order).
 
 Prints ONE JSON line: adapt latency p50/p95, ``tenants_per_sec``,
 dispatches, tenants, the ``ingest`` and ``h2d_bytes_per_dispatch`` (the
@@ -38,6 +40,9 @@ ported yet.
     python -m howtotrainyourmamlpytorch_tpu_torch.cli serve-bench \\
         --config experiment_config/mini-imagenet_maml++-mini-imagenet_5_5_2_0.01_48_0.json \\
         --block_order norm_conv_relu --requests 16
+    python -m howtotrainyourmamlpytorch_tpu_torch.cli serve-bench \\
+        --config experiment_config/mini-imagenet_maml++-mini-imagenet_5_5_2_0.01_48_0.json \\
+        --norm_layer layer_norm --requests 16 --ingest index
 """
 
 from __future__ import annotations
@@ -65,6 +70,8 @@ OMNIGLOT_CLASSES, OMNIGLOT_PER_CLASS = 1623, 20
 
 #: the block orders ``--block_order`` takes
 BLOCK_ORDERS = _CHOICES["block_order"]
+#: the norm layers ``--norm_layer`` takes
+NORM_LAYERS = _CHOICES["norm_layer"]
 
 
 def bool_arg(value: str) -> bool:
@@ -118,6 +125,8 @@ def _bench_cfg(args) -> MAMLConfig:
         cfg = cfg.replace(max_pooling=args.max_pooling)
     if args.block_order is not None:
         cfg = cfg.replace(block_order=args.block_order)
+    if args.norm_layer is not None:
+        cfg = cfg.replace(norm_layer=args.norm_layer)
     return cfg
 
 
@@ -217,6 +226,9 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--block_order", choices=BLOCK_ORDERS, default=None,
                         help="override the config's block_order, as the "
                              "JAX command line does")
+    parser.add_argument("--norm_layer", choices=NORM_LAYERS, default=None,
+                        help="override the config's norm_layer, as the JAX "
+                             "command line does")
     parser.add_argument("--device", default=None,
                         help="torch device (default cuda:0; 'cpu' runs the "
                              "plain PyTorch ops)")
@@ -275,6 +287,7 @@ def run(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         "dtype": cfg.compute_dtype,
         "max_pooling": cfg.max_pooling,
         "block_order": cfg.block_order,
+        "norm_layer": cfg.norm_layer,
         "kernel_launches": {k: after[k] - before[k] for k in after},
         "kernel_launches_per_dispatch": per_dispatch,
         "per_dispatch": dispatches,

@@ -117,6 +117,7 @@ def test_wrappers_never_take_the_plain_path_off_the_cpu():
     b = _meta(1, 4)
     y = _meta(1, 2, 6, 6, 4)
     v = _meta(1, 4)
+    s, p = _meta(1, 2), _meta(1, 6, 6, 4)  # layer-norm statistics, params
     conv_block.reset_launches()
     calls = [
         lambda: conv_block.conv3x3_fwd_stats(x, w, b),
@@ -139,6 +140,11 @@ def test_wrappers_never_take_the_plain_path_off_the_cpu():
             y, _meta(1, 2, 3, 3, 4, dtype=torch.uint8), y),
         lambda: conv_block.act_fwd(y),
         lambda: conv_block.act_bwd(y, y),
+        # the layer norm's kernels
+        lambda: conv_block.layer_norm_stats(y),
+        lambda: conv_block.layer_norm_fwd(y, s, s, p, p),
+        lambda: conv_block.layer_norm_bwd(y, y, s, s, p),
+        lambda: conv_block.layer_norm_bwd_bwd(y, p, p, y, y, s, s, p),
     ]
     for call in calls:
         with pytest.raises(ValueError, match="CUDA"):
@@ -150,6 +156,9 @@ def test_wrappers_never_take_the_plain_path_off_the_cpu():
     with pytest.raises(NotImplementedError, match="f32 only"):
         conv_block.norm_conv_act_pool(
             _meta(1, 2, 6, 6, 3, dtype=torch.bfloat16), w, b, v, v)
+    for block in (conv_block.conv_ln_act_pool, conv_block.ln_conv_act_pool):
+        with pytest.raises(NotImplementedError, match="f32 only"):
+            block(_meta(1, 2, 6, 6, 3, dtype=torch.bfloat16), w, b, p, p)
 
 
 def test_second_order_through_the_block_is_differentiable():

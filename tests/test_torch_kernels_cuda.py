@@ -4,9 +4,10 @@ not fill a tile), and the block's first and second derivatives on them
 against autograd of the plain block — for the max-pooling model, the
 strided one (stride-2 convs, the pool-free K2/K3/K5, the global average
 pool) and the norm-first block (``bn_input_stats``, K2/K3/K5 at slope 1,
-the leaky-ReLU + pool kernels, K1 stats-free and dgrad at cin 1 and 3);
-and the ingest kernel ``episode_expand`` equal to its twin bit for bit (it
-is a pure lookup).
+the leaky-ReLU + pool kernels, K1 stats-free and dgrad at cin 1 and 3),
+and the layer-norm blocks (``layer_norm_stats/fwd/bwd/bwd_bwd``, both
+orders, pooled and strided); and the ingest kernel ``episode_expand``
+equal to its twin bit for bit (it is a pure lookup).
 These need the card: marked ``cuda``, they skip where
 ``torch.cuda.is_available()`` is false. On the card (``--noconftest``:
 the suite's conftest imports jax, which the port never needs):
@@ -278,6 +279,14 @@ def test_wrappers_reject_what_the_kernels_do_not_take(device):
     with pytest.raises(ValueError, match="contiguous"):
         cb.global_avg_pool2d_bwd(
             torch.zeros(1, 4, 2, device=device).transpose(1, 2), 3, 3)
+    # the layer norm's: f64, a parameter of another shape, a view
+    ln_stats, ln_param = (y.new_zeros(1, 2), y.new_ones(1, 2)), y[:1, 0] + 1
+    with pytest.raises(TypeError, match="float32"):
+        cb.layer_norm_stats(y.double())
+    with pytest.raises(ValueError, match="shape"):
+        cb.layer_norm_fwd(y, *ln_stats, ln_param[..., :2], ln_param)
+    with pytest.raises(ValueError, match="contiguous"):
+        cb.layer_norm_bwd(y.transpose(2, 3), y, *ln_stats, ln_param)
     assert set(cb.launches().values()) == {0}
 
 
@@ -389,6 +398,99 @@ def test_norm_block_derivatives_match_plain_autograd(kw, device):
     for a, c, leaf in zip(*seconds, inputs):
         _close(torch.zeros_like(leaf) if a is None else a,
                torch.zeros_like(leaf) if c is None else c)
+
+
+LAYER_NORM_SHAPES = [
+    # T, N, H, W, C: one value per row tile and less, a row of several
+    # column tiles with a ragged end (11*9*20 = 1,980), rows of several
+    # statistics splits (42*42*3 = 5,292; 21*21*48 = 21,168), the strided
+    # model's smallest map (2*2*64)
+    (1, 1, 2, 2, 3),
+    (2, 3, 11, 9, 20),
+    (3, 5, 42, 42, 3),
+    (2, 2, 21, 21, 48),
+    (8, 7, 2, 2, 64),
+]
+
+
+@pytest.mark.parametrize("shape", LAYER_NORM_SHAPES, ids=str)
+def test_layer_norm_kernels_match_their_twins(shape, device):
+    """``layer_norm_stats`` on pixels in [0, 1] with an offset (a
+    sum-of-squares variance would cancel), ``layer_norm_fwd/bwd/bwd_bwd``
+    on its statistics with per-tenant gamma and beta, each against its
+    twin; one launch per call on each counter."""
+    T, N, H, W, C = shape
+    g = torch.Generator().manual_seed(sum(shape))
+
+    def r(*s, scale=1.0):
+        return (torch.randn(*s, generator=g) * scale).to(device)
+
+    x = (3.0 + torch.rand(T, N, H, W, C, generator=g)).to(device)
+    gamma, beta = 1 + r(T, H, W, C, scale=0.3), r(T, H, W, C, scale=0.1)
+    cb.reset_launches()
+    for a, c in zip(cb.layer_norm_stats(x), F.layer_norm_stats(x)):
+        _close(a, c)
+    mean, _, rstd = F.layer_norm_stats(x)
+    _close(cb.layer_norm_fwd(x, mean, rstd, gamma, beta),
+           F.layer_norm_fwd(x, mean, rstd, gamma, beta))
+    dz = r(T, N, H, W, C)
+    ln = (x, mean, rstd, gamma)
+    for a, c in zip(cb.layer_norm_bwd(dz, *ln), F.layer_norm_bwd(dz, *ln)):
+        _close(a, c)
+    args = (r(T, N, H, W, C), r(T, H, W, C), r(T, H, W, C), dz, *ln)
+    for a, c in zip(cb.layer_norm_bwd_bwd(*args),
+                    F.layer_norm_bwd_bwd(*args)):
+        _close(a, c)
+    assert cb.launches() == {**{k: 0 for k in cb.KERNELS},
+                             **{k: 1 for k in (
+                                 "layer_norm_stats", "layer_norm_fwd",
+                                 "layer_norm_bwd", "layer_norm_bwd_bwd")}}
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("kw", [{}, dict(stride=2, pool=False, gap=True)],
+                         ids=["pooled", "strided_gap"])
+@pytest.mark.parametrize("order", ["conv_first", "norm_first"])
+def test_layer_norm_block_derivatives_match_plain_autograd(order, kw,
+                                                           device):
+    """The layer-norm blocks: first derivatives, then a scalar of them
+    differentiated again, on the kernels against autograd of the plain
+    block, gamma shared ``(H, W, C)`` and beta per tenant."""
+    T, N, H, W, cin, cout = 2, 3, 11, 9, 8, 8
+    g = torch.Generator().manual_seed(7)
+
+    def r(*s, scale=1.0):
+        return (torch.randn(*s, generator=g) * scale).to(device)
+
+    blocks = ((cb.conv_ln_act_pool, F.conv_ln_act_pool)
+              if order == "conv_first"
+              else (cb.ln_conv_act_pool, F.ln_conv_act_pool))
+    ho, wo = ((H, W) if not kw else F.conv_out_hw(H, W, 2))
+    hw = (ho, wo) if order == "conv_first" else (H, W)
+    c = cout if order == "conv_first" else cin
+    inputs = (r(T, N, H, W, cin), r(T, 3, 3, cin, cout, scale=0.3),
+              r(T, cout, scale=0.1), 1 + r(*hw, c, scale=0.1),
+              r(T, *hw, c, scale=0.1))
+    firsts, seconds = [], []
+    for fn in blocks:
+        leaves = [t.clone().requires_grad_(True) for t in inputs]
+        out, _, _ = fn(*leaves, **kw)
+        rng = np.random.RandomState(5)
+        ct = torch.from_numpy(
+            rng.randn(*out.shape).astype(np.float32)).to(device)
+        first = torch.autograd.grad((out * ct).sum(), leaves,
+                                    create_graph=True)
+        firsts.append([f.detach() for f in first])
+        scalar = sum((gr * torch.from_numpy(
+            rng.randn(*gr.shape).astype(np.float32)).to(device)).sum()
+            for gr in first)
+        seconds.append(torch.autograd.grad(scalar, leaves,
+                                           allow_unused=True))
+    for a, c_ in zip(*firsts):
+        _close(a, c_)
+    for a, c_, leaf in zip(*seconds, inputs):
+        _close(torch.zeros_like(leaf) if a is None else a,
+               torch.zeros_like(leaf) if c_ is None else c_)
 
 
 # (rows in the store, H = W, C, tasks, classes, columns, support columns)

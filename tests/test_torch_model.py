@@ -172,8 +172,8 @@ def test_init_and_feature_dim_match_jax():
 
 
 @pytest.mark.parametrize("change", [
-    dict(conv_padding=False), dict(norm_layer="layer_norm"),
-    dict(block_order="norm_conv_relu", norm_layer="layer_norm"),
+    dict(conv_padding=False), dict(conv_padding=False, max_pooling=False),
+    dict(block_order="norm_conv_relu", conv_padding=False),
 ])
 def test_uncovered_models_raise(change):
     """A model outside the slice raises, naming what is missing."""

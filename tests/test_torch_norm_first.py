@@ -548,7 +548,7 @@ def test_a_block_of_the_other_order_raises():
 
 
 @pytest.mark.parametrize("change", [
-    dict(norm_layer="layer_norm"), dict(conv_padding=False)])
+    dict(conv_padding=False, max_pooling=False), dict(conv_padding=False)])
 def test_the_rest_of_the_norm_first_models_still_raise(change):
     _, cfg = _cfgs(**change)
     with pytest.raises(NotImplementedError, match="not ported yet"):

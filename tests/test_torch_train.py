@@ -353,12 +353,25 @@ TWINS = {
     "act_pool_gather": "act_pool_gather",
     "act_fwd": "act_fwd",
     "act_bwd": "act_bwd",
+    "layer_norm_stats": "layer_norm_stats",
+    "layer_norm_fwd": "layer_norm_fwd",
+    "layer_norm_bwd": "layer_norm_bwd",
+    "layer_norm_bwd_bwd": "layer_norm_bwd_bwd",
+}
+
+# the Function block of each (block_order, norm_layer)
+FUNCTION_BLOCKS = {
+    ("conv_norm_relu", "batch_norm"): conv_block.function_block,
+    ("norm_conv_relu", "batch_norm"): conv_block.norm_function_block,
+    ("conv_norm_relu", "layer_norm"): conv_block.conv_ln_function_block,
+    ("norm_conv_relu", "layer_norm"): conv_block.ln_conv_function_block,
 }
 
 
 def _count_function_path(monkeypatch, cfg, second_order, serve=False):
     """Every kernel call of one train step (with ``serve``, one serve
-    dispatch) on the Function path of the config's block order, counted at
+    dispatch) on the Function path of the config's block order and norm
+    layer, counted at
     the twins the wrappers take on the CPU (a twin that calls another twin
     counts once, as its one kernel)."""
     calls = collections.Counter()
@@ -377,9 +390,7 @@ def _count_function_path(monkeypatch, cfg, second_order, serve=False):
     state = state_lib.init_state(cfg, device="cpu", with_opt=True)
     batch = bench.synth_batch(cfg, 0, torch.device("cpu"))
     steps = cfg.number_of_training_steps_per_iter
-    block = (conv_block.norm_function_block
-             if cfg.block_order == "norm_conv_relu"
-             else conv_block.function_block)
+    block = FUNCTION_BLOCKS[(cfg.block_order, cfg.norm_layer)]
     if serve:
         maml.make_serve_step(cfg, block=block)(
             state, *batch, torch.ones(cfg.batch_size))
@@ -390,7 +401,7 @@ def _count_function_path(monkeypatch, cfg, second_order, serve=False):
 
 
 def _formula_cfg(stages, steps, accum, max_pooling,
-                 block_order="conv_norm_relu"):
+                 block_order="conv_norm_relu", norm_layer="batch_norm"):
     return MAMLConfig(
         dataset_name="omniglot_dataset", image_height=12, image_width=12,
         image_channels=1, num_classes_per_set=2, num_samples_per_class=1,
@@ -400,7 +411,7 @@ def _formula_cfg(stages, steps, accum, max_pooling,
         learnable_per_layer_per_step_inner_loop_learning_rate=True,
         number_of_training_steps_per_iter=steps,
         number_of_evaluation_steps_per_iter=steps, meta_accum_steps=accum,
-        block_order=block_order)
+        block_order=block_order, norm_layer=norm_layer)
 
 
 @pytest.mark.parametrize("second_order,stages,steps,accum", [
