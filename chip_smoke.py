@@ -85,9 +85,30 @@ Phases, in order; any failure raises and the exit code is non-zero:
    small meta-gradient check and the replayed-path gate on
    ``--layer-norm-grad-seeds``; then 4 f32 requests each of the
    norm-first layer-norm model and of the strided layer-norm Omniglot
-   model, each with its small serve-step check. Every kernel must have
-   been launched by some main path.
-8. Print one ``{"kernels": [...]}`` line (launches summed over all the
+   model, each with its small serve-step check.
+8. The unpadded models (``conv_padding=False``, the mini-ImageNet config
+   with only that field overridden: every 3x3 conv a valid window): the
+   conv kernels at pad 0 (K1 with statistics and stats-free, dgrad,
+   wgrad; ``conv3x3_p0_*`` and, strided, ``conv3x3_s2_p0_*``) at the four
+   stages of the pooled and the strided unpadded model (dgrad back to cin
+   3 at the pooled stage 0) against their twins, K2/K3 on the odd conv
+   outputs, and the unpadded block's first and second derivatives
+   (pooled, strided, strided with GAP); ``serve-bench --conv_padding
+   false`` with the f32 and index ingests (16 requests), the serve step
+   against the plain one (small and full width), the index dispatch
+   bit-identical to f32, a profiled bucket-8 dispatch; ``train-bench``
+   second order at batch 2, the learning check, a profiled step, the
+   small meta-gradient check and the replayed-path gate on
+   ``--unpadded-grad-seeds``; 4 f32 requests each of the strided, the
+   norm-first and the layer-norm unpadded models, each with its small
+   serve-step check, and 2 second-order train steps of the strided one
+   (its backward is the only path to the stride-2 pad-0 stats-free
+   conv). Then the MAML (not ++) mini-ImageNet config as
+   shipped (shared batch-norm parameters, no running statistics, no MSL,
+   a fixed inner learning rate): 4 f32 requests, the small serve-step
+   check and 2 second-order train steps. Every kernel must have been
+   launched by some main path.
+9. Print one ``{"kernels": [...]}`` line (launches summed over all the
    main paths), then the result line ``{"ok": true, "device": {...}}``
    last.
 
@@ -148,6 +169,20 @@ LAYER_NORM_STAGES = (("conv-first stage0", 84, 48), ("norm-first stage0", 84, 3)
 LAYER_NORM_STRIDED = (("strided layer1", 14, 64), ("strided layer2", 7, 64),
                       ("strided layer3", 4, 64), ("strided layer4", 2, 64),
                       ("strided norm-first layer1", 28, 1))
+# the unpadded models (the mini-ImageNet config with conv_padding=False,
+# the override the JAX command line takes): every 3x3 conv a valid window;
+# (label, H = W, cin) of each stage's input, pooled (84 -> 82/41 -> 39/19
+# -> 17/8 -> 6/3, a (432, 5) head) and strided (84 -> 41 -> 20 -> 9 -> 4,
+# the global average pool into a (48, 5) head)
+UNPADDED_ARGS = ("--conv_padding", "false")
+UNPADDED_STAGES = (("stage0", 84, 3), ("stage1", 41, 48),
+                   ("stage2", 19, 48), ("stage3", 8, 48))
+UNPADDED_STRIDED_STAGES = (("stage0", 84, 3), ("stage1", 41, 48),
+                           ("stage2", 20, 48), ("stage3", 9, 48))
+# the MAML (not ++) mini-ImageNet config, unmodified: shared batch-norm
+# gamma and beta, no running statistics, no MSL, a fixed inner LR
+MAML_JSON = ("experiment_config/"
+             "mini-imagenet_maml-mini-imagenet_5_5_2_0.01_48_0.json")
 # the index ingest's store: the mini-ImageNet test split, 20 x 600 rows
 STORE_ROWS = 12000
 # episode_expand launches per serve dispatch / train step of each ingest
@@ -230,6 +265,12 @@ REPLACES = {
     "layer_norm_bwd_bwd":
         "howtotrainyourmamlpytorch_tpu/ops/functional.py:447",
 }
+# the pad-0 conv kernels replace the same ops at padding=0 (``_im2col`` :85
+# with a valid window)
+REPLACES.update({
+    f"conv3x3{tag}_{k}": REPLACES[f"conv3x3_{k}"]
+    for tag in ("_p0", "_s2_p0")
+    for k in ("fwd_stats", "dgrad", "wgrad", "fwd")})
 SOURCES = {
     "conv3x3_fwd_stats": (
         "cuda", "howtotrainyourmamlpytorch_tpu_torch/kernels/csrc/"
@@ -284,6 +325,10 @@ SOURCES.update({
     k: ("triton", "howtotrainyourmamlpytorch_tpu_torch/kernels/layer_norm.py")
     for k in ("layer_norm_stats", "layer_norm_fwd", "layer_norm_bwd",
               "layer_norm_bwd_bwd")})
+SOURCES.update({
+    f"conv3x3{tag}_{k}": SOURCES[f"conv3x3_{k}"]
+    for tag in ("_p0", "_s2_p0")
+    for k in ("fwd_stats", "dgrad", "wgrad", "fwd")})
 # the shape each kernel's line reports (a key of its records)
 REPORT_AT = {
     "conv3x3_fwd_stats": "T=8 layer1 N=75",
@@ -316,6 +361,14 @@ REPORT_AT = {
     "layer_norm_fwd": "layer-norm T=8 conv-first stage0 N=75",
     "layer_norm_bwd": "layer-norm T=8 conv-first stage0 N=25",
     "layer_norm_bwd_bwd": "layer-norm T=8 conv-first stage0 N=25",
+    "conv3x3_p0_fwd_stats": "unpadded T=8 stage0 N=75",
+    "conv3x3_p0_fwd": "unpadded T=8 stage1 N=25",
+    "conv3x3_p0_dgrad": "unpadded T=8 stage1 N=25",
+    "conv3x3_p0_wgrad": "unpadded T=8 stage0 N=25",
+    "conv3x3_s2_p0_fwd_stats": "unpadded strided T=8 stage1 N=75",
+    "conv3x3_s2_p0_fwd": "unpadded strided T=8 stage1 N=25",
+    "conv3x3_s2_p0_dgrad": "unpadded strided T=8 stage1 N=25",
+    "conv3x3_s2_p0_wgrad": "unpadded strided T=8 stage1 N=25",
 }
 TRAIN_TASKS = (2, 8)  # the config's batch, and bench.py's per-chip default
 DEVICE = "cuda:0"
@@ -1025,6 +1078,168 @@ def check_layer_norm_kernels(cb, F, records, T=T_TENANTS):
         torch.cuda.empty_cache()
 
 
+def check_unpadded_kernels(cb, F, records, T=T_TENANTS, C=COUT):
+    """Phase 3, the conv kernels at pad 0 (the unpadded models,
+    ``conv_padding=False``) at the mini-ImageNet unpadded models' four
+    stages, pooled (stride 1: 84 -> 82, 41 -> 39, 19 -> 17, 8 -> 6) and
+    strided (84 -> 41, 41 -> 20, 20 -> 9, 9 -> 4; the last row of an even
+    input is read by no output), T = 8: K1 with statistics at N = 75 (the
+    targets); K1 stats-free (with and without bias), dgrad and wgrad at N
+    = 25 (the support); dgrad at the pooled stage 0 too, back to cin 3 (the
+    norm-first model's). Each against its twin, timed beside it and beside
+    grouped ``conv2d`` / ``conv2d_input`` / ``conv2d_weight`` at
+    ``padding=0``. On the pooled stages' odd conv outputs (39 -> 19, 17 ->
+    8), K2 and K3 are held to their twins as well (the pool drops the last
+    row and column)."""
+    rec = records.add
+    randn = _randn(torch.Generator(device="cuda").manual_seed(41))
+    nn = torch.nn
+    for strided, stages in ((False, UNPADDED_STAGES),
+                            (True, UNPADDED_STRIDED_STAGES)):
+        s = 2 if strided else 1
+        kw = dict(stride=s, padding=0)
+        for stage, hw, cin in stages:
+            for n in IMAGES:
+                label = (f"unpadded{' strided' if strided else ''} T={T} "
+                         f"{stage} N={n}")
+                Ho, Wo = F.conv_out_hw(hw, hw, s, 0)
+                M = n * Ho * Wo
+                x = randn(T, n, hw, hw, cin)
+                w = randn(T, 3, 3, cin, C, scale=math.sqrt(2.0 / (9 * cin)))
+                b = randn(T, C, scale=0.1)
+                xl = _nchw_tenants(x)
+                wl = w.permute(0, 4, 3, 1, 2).reshape(T * C, cin, 3, 3)
+                wl, bl = wl.contiguous(), b.reshape(-1).contiguous()
+                conv_flops = 2 * T * M * 9 * cin * C
+                y_bytes = 4 * T * M * C
+                if n == max(IMAGES):
+                    name = cb._conv_name("conv3x3_fwd_stats", s, 0)
+                    want = F.conv3x3_fwd_stats(x, w, b, **kw)
+                    err = _bn_errs(name, cb.conv3x3_fwd_stats(x, w, b, **kw),
+                                   want, ("y", "mean", "var", "rstd"), label)
+                    rec(name, label, err,
+                        lambda: cb.conv3x3_fwd_stats(x, w, b, **kw),
+                        lambda: F.conv3x3_fwd_stats(x, w, b, **kw),
+                        lambda: nn.functional.conv2d(xl, wl, bl, stride=s,
+                                                     padding=0, groups=T),
+                        conv_flops + T * M * C,
+                        4 * (x.numel() + w.numel() + b.numel() + 3 * T * C)
+                        + y_bytes)
+                    del want
+                else:
+                    name = cb._conv_name("conv3x3_fwd", s, 0)
+                    err = max(max_err(name, cb.conv3x3_fwd(x, w, b, s, 0),
+                                      F.conv3x3(x, w, b, **kw)),
+                              max_err(f"{name} (no bias)",
+                                      cb.conv3x3_fwd(x, w, None, s, 0),
+                                      F.conv3x3(x, w, **kw)))
+                    rec(name, label, err,
+                        lambda: cb.conv3x3_fwd(x, w, b, s, 0),
+                        lambda: F.conv3x3(x, w, b, **kw),
+                        lambda: nn.functional.conv2d(xl, wl, bl, stride=s,
+                                                     padding=0, groups=T),
+                        conv_flops,
+                        4 * (x.numel() + w.numel() + b.numel()) + y_bytes)
+                    if not strided and Ho % 2:
+                        _check_odd_map_bn_kernels(cb, F, randn, x, w, b,
+                                                  label)
+                    dy = randn(T, n, Ho, Wo, C, scale=1.0 / math.sqrt(M * T))
+                    dyl = _nchw_tenants(dy)
+                    if not (strided and cin != C):
+                        name = cb._conv_name("conv3x3_dgrad", s, 0)
+                        dx = cb.conv3x3_dgrad(dy, w, s, (hw, hw), 0)
+                        err = max_err(name, dx, F.conv3x3_dgrad(
+                            dy, w, s, (hw, hw), 0))
+                        if strided and hw % 2 == 0 and (
+                                dx[:, :, -1].any() or dx[:, :, :, -1].any()):
+                            raise AssertionError(f"{name}: the unread last "
+                                                 "row has a gradient")
+                        rec(name, label, err,
+                            lambda: cb.conv3x3_dgrad(dy, w, s, (hw, hw), 0),
+                            lambda: F.conv3x3_dgrad(dy, w, s, (hw, hw), 0),
+                            lambda: nn.grad.conv2d_input(
+                                xl.shape, wl, dyl, stride=s, padding=0,
+                                groups=T),
+                            conv_flops,
+                            4 * (dy.numel() + w.numel() + x.numel()))
+                        del dx
+                    name = cb._conv_name("conv3x3_wgrad", s, 0)
+                    err = _bn_errs(name, cb.conv3x3_wgrad(x, dy, s, 0),
+                                   F.conv3x3_wgrad(x, dy, **kw),
+                                   ("dw", "db"), label)
+                    rec(name, label, err,
+                        lambda: cb.conv3x3_wgrad(x, dy, s, 0),
+                        lambda: F.conv3x3_wgrad(x, dy, **kw),
+                        lambda: nn.grad.conv2d_weight(
+                            xl, wl.shape, dyl, stride=s, padding=0,
+                            groups=T),
+                        conv_flops + T * M * C,
+                        4 * (x.numel() + dy.numel() + w.numel() + T * C))
+                    del dy, dyl
+                del x, xl
+                torch.cuda.empty_cache()
+
+
+def _check_odd_map_bn_kernels(cb, F, randn, x, w, b, label):
+    """K2, K3 and K5 on an odd pad-0 conv output (39 -> 19, 17 -> 8: the
+    pool drops the last row and column, which K3 and K5 still give a
+    gradient through the batch statistics), each against its twin."""
+    T, C = w.shape[0], w.shape[-1]
+    y, mean, _, rstd = F.conv3x3_fwd_stats(x, w, b, padding=0)
+    bn = (y, mean, rstd, 1.0 + randn(T, C, scale=0.1), randn(T, C, scale=0.1))
+    pooled, arg = cb.bn_act_pool_fwd(*bn)
+    pooled_p, arg_p = F.bn_act_pool_fwd(*bn)
+    errs = [max_err("bn_act_pool_fwd (odd map)", pooled, pooled_p)]
+    if not torch.equal(arg, arg_p):
+        raise AssertionError("bn_act_pool_fwd argmax differs on an odd map")
+    dp = randn(*pooled.shape)
+    errs.append(_bn_errs("bn_act_pool_bwd (odd map)",
+                         cb.bn_act_pool_bwd(dp, arg, *bn),
+                         F.bn_act_pool_bwd(dp, arg, *bn),
+                         ("dy", "dgamma", "dbeta"), label))
+    args = (randn(*y.shape), randn(T, C), randn(T, C), dp, arg, *bn)
+    errs.append(_bn_errs("bn_act_pool_bwd_bwd (odd map)",
+                         cb.bn_act_pool_bwd_bwd(*args),
+                         F.bn_act_pool_bwd_bwd(*args),
+                         ("g_dpooled", "g_y", "g_gamma"), label,
+                         scaled_atol=True))
+    print(f"  K2, K3, K5 on the {y.shape[2]}x{y.shape[3]} conv output @ "
+          f"{label}: max err {max(errs):.3e}", flush=True)
+
+
+def _block_decisions_apart(cb, F, x_shape, kw, seed):
+    """On ``_block_inputs(seed, x_shape)``: how many max-pool argmaxes and
+    leaky-ReLU signs the conv-first batch-norm block on the kernels and
+    the plain block take differently, each on its own values, and how
+    many pool windows of the plain block hold an exact tie at their
+    maximum (the normalize can round two conv outputs to one value; the
+    plain max pool then splits the gradient among them, where the kernels
+    give it all to the first: the documented divergence of ROADMAP Queue
+    C). Where either count is not 0, a derivative check of the two blocks
+    on their own decisions compares two piecewise-linear functions on
+    different pieces."""
+    _, inputs = _block_inputs(seed, x_shape, x_shape[-1])
+    logs, ties = ([], []), []
+    with torch.no_grad():
+        _recording_kernel_block(cb, logs[0])(*inputs, **kw)
+        _plain_block(F, logs[1], ties=ties)(*inputs, **kw)
+    return sum((0 if a is None else int((a != a_p).sum()))
+               + int((p != p_p).sum())
+               for (a, p), (a_p, p_p) in zip(*logs)), sum(ties)
+
+
+def _unpadded_block_cases():
+    """The unpadded blocks' derivative checks: stage 1 (41 -> 39, pooled)
+    and strided stage 1 (41 -> 20, pool-free) and stage 3 (9 -> 4) with
+    the global average pool, 8 tasks, 5-shot support."""
+    x1 = (T_TENANTS, 25, 41, 41, COUT)
+    x3 = (T_TENANTS, 25, 9, 9, COUT)
+    kw = dict(stride=2, pool=False, padding=0)
+    return (("unpadded stage 1", x1, dict(padding=0)),
+            ("unpadded strided stage 1", x1, kw),
+            ("unpadded strided stage 3 + GAP", x3, {**kw, "gap": True}))
+
+
 def _expand_inputs(cfg, rows_shape, store_rows, gen, rotate=False):
     """A store of ``store_rows`` random bytes, ``rows_shape`` int32 rows in
     it, and (when rotating) rot90 draws with all four k present, on the
@@ -1187,8 +1402,8 @@ def _block_inputs(seed, x_shape=(T_TENANTS, 25, 42, 42, COUT), cout=COUT,
 
 def _norm_shape(block, x_shape, kw):
     """The (H, W, C) a layer-norm block normalizes (its block input, or
-    the conv output at the stride in ``kw``; cout = cin here), None for a
-    batch-norm block."""
+    the conv output at the stride and pad in ``kw``; cout = cin here),
+    None for a batch-norm block."""
     from howtotrainyourmamlpytorch_tpu_torch.ops import functional as F
 
     if block.norm_layer != "layer_norm":
@@ -1196,7 +1411,8 @@ def _norm_shape(block, x_shape, kw):
     _, _, h, w, c = x_shape
     if block.block_order == "norm_conv_relu":
         return (h, w, c)
-    return (*F.conv_out_hw(h, w, kw.get("stride", 1)), c)
+    return (*F.conv_out_hw(h, w, kw.get("stride", 1), kw.get("padding", 1)),
+            c)
 
 
 def _strided_block_cases():
@@ -1290,14 +1506,14 @@ def check_block_double_backward(blocks,
     _block_errs(f"{what} second derivative", *results, names)
 
 
-# role -> (the max-pooling model's kernel, the strided model's)
+# conv role -> the conv kernel at stride 1 and pad 1 (``_by_kernel``
+# names it at the model's stride and pad with ``conv_block._conv_name``)
+CONV_ROLES = {"fwd_stats": "conv3x3_fwd_stats", "dgrad": "conv3x3_dgrad",
+              "wgrad": "conv3x3_wgrad", "fwd": "conv3x3_fwd"}
+# every other role -> (the max-pooling model's kernel, the strided model's)
 ROLE_KERNELS = {
-    "fwd_stats": ("conv3x3_fwd_stats", "conv3x3_s2_fwd_stats"),
     "act_fwd": ("bn_act_pool_fwd", "bn_act_fwd"),
     "act_bwd": ("bn_act_pool_bwd", "bn_act_bwd"),
-    "dgrad": ("conv3x3_dgrad", "conv3x3_s2_dgrad"),
-    "wgrad": ("conv3x3_wgrad", "conv3x3_s2_wgrad"),
-    "fwd": ("conv3x3_fwd", "conv3x3_s2_fwd"),
     "act_bwd_bwd": ("bn_act_pool_bwd_bwd", "bn_act_bwd_bwd"),
     # the norm-first block: the standalone batch norm (K2/K3/K5 at slope
     # 1) and the standalone leaky-ReLU + pool (B2), pool-free when strided
@@ -1337,16 +1553,24 @@ def _by_kernel(cfg, per_role, gap_fwd, gap_bwd):
     role of the batch-norm model of ``cfg``'s block order (mapped through
     ``LAYER_NORM_ROLES`` for a layer norm): the max-pooling model's
     kernels, or the strided model's (``conv3x3_s2_*``, the pool-free
-    ``bn_act_*`` / ``act_*``) with its global average pool; every other
-    kernel 0. Pool-free, the pool's gather is ``act_bwd`` again (its own
-    adjoint), so roles add up."""
+    ``bn_act_*`` / ``act_*``) with its global average pool, the conv
+    kernels at the model's pad (``conv3x3_p0_*`` / ``conv3x3_s2_p0_*``
+    unpadded); every other kernel 0. Pool-free, the pool's gather is
+    ``act_bwd`` again (its own adjoint), so roles add up."""
+    from howtotrainyourmamlpytorch_tpu_torch.kernels import conv_block as cb
+
     strided = not cfg.max_pooling
+    stride, pad = (2 if strided else 1), (1 if cfg.conv_padding else 0)
     out = {name: 0 for pair in ROLE_KERNELS.values() for name in pair}
+    out.update({name: 0 for name in cb.KERNELS
+                if name.startswith("conv3x3")})
     swap = (LAYER_NORM_ROLES[cfg.block_order]
             if cfg.norm_layer == "layer_norm" else {})
     for role, n in per_role.items():
         for r in swap.get(role, (role,)):
-            out[ROLE_KERNELS[r][strided]] += n
+            name = (cb._conv_name(CONV_ROLES[r], stride, pad)
+                    if r in CONV_ROLES else ROLE_KERNELS[r][strided])
+            out[name] += n
     out[GAP_KERNELS[0]] = gap_fwd if strided else 0
     out[GAP_KERNELS[1]] = gap_bwd if strided else 0
     return out
@@ -1707,16 +1931,17 @@ def _profile_report(prof, wall_ms, what):
 
 
 def run_train_bench(ks, cfg, batch_size, config=FLAGSHIP, name="mini-ImageNet "
-                    "5-way 5-shot", placement=None, extra=()):
+                    "5-way 5-shot", placement=None, extra=(), warmup=2,
+                    steps=5):
     """Phase 5, a training main path: ``train-bench`` at ``config`` (with
     the ``extra`` arguments: a config override), second order from epoch
     0, its batches through the data tier ``placement`` (None: one fixed
-    batch); every timed step's launches equal ``expected_step_launches``
-    of ``cfg`` and the run's totals equal it times the steps. Returns
-    (JSON line, launch counts over the run)."""
+    batch), ``warmup`` then ``steps`` timed steps; every timed step's
+    launches equal ``expected_step_launches`` of ``cfg`` and the run's
+    totals equal it times the steps. Returns (JSON line, launch counts
+    over the run)."""
     from howtotrainyourmamlpytorch_tpu_torch import bench as train_bench
 
-    warmup, steps = 2, 5
     tier = [] if placement is None else ["--data-placement", placement]
     print(f"[train] train-bench --config {name} --batch-size {batch_size} "
           f"--epoch 0 --warmup {warmup} --steps {steps} "
@@ -1733,7 +1958,8 @@ def run_train_bench(ks, cfg, batch_size, config=FLAGSHIP, name="mini-ImageNet "
     if (not line["second_order"] or line["batch_size"] != batch_size
             or line["max_pooling"] != cfg.max_pooling
             or line["block_order"] != cfg.block_order
-            or line["norm_layer"] != cfg.norm_layer):
+            or line["norm_layer"] != cfg.norm_layer
+            or line["conv_padding"] != cfg.conv_padding):
         raise AssertionError(f"train-bench ran {line}")
     for i, got in enumerate(line["kernel_launches_per_step"]):
         if got != expected:
@@ -1977,15 +2203,16 @@ def _recording_kernel_block(cb, log, norm_first=False, layer_norm=False):
     argmax) is >= 0; pool-free (the strided model), no argmax (None) and
     the sign of every activation."""
     def block(x, w, b, gamma, beta, stats_impl="twopass", stride=1,
-              pool=True, gap=False):
+              pool=True, gap=False, padding=1):
         x, w, b = x.contiguous(), w.contiguous(), b.contiguous()
         mean = var = None
+        conv = (stride, padding)
         if layer_norm and norm_first:
             z = cb.LayerNorm.apply(x, *cb._ln_params(gamma, beta, x))
-            out = cb.ActPool.apply(cb.Conv3x3.apply(z, w, b, False, stride),
+            out = cb.ActPool.apply(cb.Conv3x3.apply(z, w, b, False, *conv),
                                    pool)
         elif layer_norm:
-            y = cb.Conv3x3.apply(x, w, b, False, stride)
+            y = cb.Conv3x3.apply(x, w, b, False, *conv)
             out = cb.ActPool.apply(
                 cb.LayerNorm.apply(y, *cb._ln_params(gamma, beta, y)), pool)
         else:
@@ -1995,9 +2222,9 @@ def _recording_kernel_block(cb, log, norm_first=False, layer_norm=False):
             if norm_first:
                 z, mean, var, _ = cb.BatchNorm.apply(x, gamma, beta)
                 out = cb.ActPool.apply(cb.Conv3x3.apply(
-                    z, w, b, False, stride), pool)
+                    z, w, b, False, *conv), pool)
             else:
-                y, mean, var, rstd = cb.Conv3x3.apply(x, w, b, True, stride)
+                y, mean, var, rstd = cb.Conv3x3.apply(x, w, b, True, *conv)
                 out = cb.BnActPool.apply(y, gamma, beta, mean, rstd, pool)
         out, arg = out if pool else (out, None)
         log.append((arg, out.detach() >= 0))
@@ -2009,7 +2236,8 @@ def _recording_kernel_block(cb, log, norm_first=False, layer_norm=False):
     return block
 
 
-def _plain_block(F, log, replay=False, norm_first=False, layer_norm=False):
+def _plain_block(F, log, replay=False, norm_first=False, layer_norm=False,
+                 ties=None):
     """The block in plain ops, differentiable by autograd (with
     ``norm_first`` the norm-first block, with ``layer_norm`` the
     layer-norm block of that order). Recording (``replay=False``): the
@@ -2018,7 +2246,9 @@ def _plain_block(F, log, replay=False, norm_first=False, layer_norm=False):
     the argmax, and the leaky-ReLU the sign, that the next entry of
     ``log`` recorded, whatever this run's own values say, so the run
     follows the recorded run's piecewise-linear path. Pool-free (the
-    strided model) the signs alone.
+    strided model) the signs alone. Recording with a ``ties`` list, each
+    call also appends how many pool windows hold an exact tie at their
+    maximum.
 
     The layer norm is ``F.layer_norm`` (two passes, as the JAX package's,
     which has no other statistics mode); with ``stats_impl='fused'`` its
@@ -2043,18 +2273,21 @@ def _plain_block(F, log, replay=False, norm_first=False, layer_norm=False):
                 + F._ln_param(beta.to(t.dtype), t))
 
     def block(x, w, b, gamma, beta, stats_impl="twopass", stride=1,
-              pool=True, gap=False):
+              pool=True, gap=False, padding=1):
         stats = (None, None)
         if layer_norm and norm_first:
-            z = F.conv2d(norm(x, gamma, beta, stats_impl), w, b, stride, 1)
+            z = F.conv2d(norm(x, gamma, beta, stats_impl), w, b, stride,
+                         padding)
         elif layer_norm:
-            z = norm(F.conv2d(x, w, b, stride, 1), gamma, beta, stats_impl)
+            z = norm(F.conv2d(x, w, b, stride, padding), gamma, beta,
+                     stats_impl)
         elif norm_first:
             mean, var = F.batch_stats(x, stats_impl)
-            z = F.conv2d(affine(x, mean, var, gamma, beta), w, b, stride, 1)
+            z = F.conv2d(affine(x, mean, var, gamma, beta), w, b, stride,
+                         padding)
             stats = (mean.detach(), var.detach())
         else:
-            y = F.conv2d(x, w, b, stride, 1)
+            y = F.conv2d(x, w, b, stride, padding)
             mean, var = F.batch_stats(y, stats_impl)
             z = affine(y, mean, var, gamma, beta)
             stats = (mean.detach(), var.detach())
@@ -2072,7 +2305,11 @@ def _plain_block(F, log, replay=False, norm_first=False, layer_norm=False):
         if replay:
             arg, positive = next(entries)
         else:
-            arg = torch.argmax(F._windows(F.leaky_relu(z)), dim=-1)
+            act = F._windows(F.leaky_relu(z))
+            arg = torch.argmax(act, dim=-1)
+            if ties is not None:
+                top = act.topk(2, dim=-1).values
+                ties.append(int((top[..., 0] == top[..., 1]).sum()))
         z_at = torch.gather(win, -1, arg.long().unsqueeze(-1)).squeeze(-1)
         if not replay:
             positive = z_at >= 0
@@ -2158,7 +2395,11 @@ def check_grads_replayed(cfg, cb, F, seeds):
     second plain run takes the layer norm's statistics from
     ``torch.var_mean``, see ``_plain_block``) has max 2.119: 1.25 x 2.119
     <= 5, so the factor holds for it too; the kernels' ratio there had
-    median 0.328 and max 1.678. The default seeds are other seeds."""
+    median 0.328 and max 1.678. The unpadded model's own null over its
+    seeds 0-9 (``--unpadded-grad-seeds 0,...,9``; 400 ratios, same card)
+    has max 3.386: 1.25 x 3.386 = 4.23 <= 5, so the factor holds for it
+    as well; the kernels' ratio there had median 0.218 and max 2.286. The
+    default seeds are other seeds."""
     import statistics
 
     cfg = cfg.replace(batch_size=2)
@@ -2329,7 +2570,8 @@ def run_serve_bench(ks, cfg, ingest, config=FLAGSHIP,
             and line["ingest"] == ingest
             and line["max_pooling"] == cfg.max_pooling
             and line["block_order"] == cfg.block_order
-            and line["norm_layer"] == cfg.norm_layer):
+            and line["norm_layer"] == cfg.norm_layer
+            and line["conv_padding"] == cfg.conv_padding):
         raise AssertionError(f"serve-bench line is incomplete: {line}")
     print(f"[serve] {name} {ingest}: tenants_per_sec {tps}  adapt_ms p50 "
           f"{line['adaptation_latency_ms_p50']}  p95 "
@@ -2434,6 +2676,10 @@ def main() -> int:
         "--layer-norm-grad-seeds", default=",".join(map(str, GRAD_SEEDS)),
         help="data seeds of the replayed-path meta-gradient check of the "
              "layer-norm mini-ImageNet model")
+    parser.add_argument(
+        "--unpadded-grad-seeds", default=",".join(map(str, GRAD_SEEDS)),
+        help="data seeds of the replayed-path meta-gradient check of the "
+             "unpadded mini-ImageNet model")
     args = parser.parse_args()
     seeds = tuple(int(v) for v in args.grad_seeds.split(","))
     omniglot_seeds = tuple(int(v) for v in
@@ -2444,6 +2690,8 @@ def main() -> int:
                              args.norm_first_grad_seeds.split(","))
     layer_norm_seeds = tuple(int(v) for v in
                              args.layer_norm_grad_seeds.split(","))
+    unpadded_seeds = tuple(int(v) for v in
+                           args.unpadded_grad_seeds.split(","))
     card = card_line()
     print(card, flush=True)
     if not torch.cuda.is_available():
@@ -2486,6 +2734,8 @@ def main() -> int:
     layer_norm = cfg.replace(norm_layer="layer_norm")
     ln_norm_first = norm_first.replace(norm_layer="layer_norm")
     strided_ln = strided.replace(norm_layer="layer_norm")
+    unpadded = cfg.replace(conv_padding=False)
+    maml_cfg = MAMLConfig.from_json_file(MAML_JSON)
     all_kernels = cb.KERNELS + ee.KERNELS
     print("[kernels] each kernel vs its plain twin on the card", flush=True)
     t0 = time.perf_counter()
@@ -2540,6 +2790,20 @@ def main() -> int:
             check_block_double_backward(_replayed_blocks(cb, F, nf, True),
                                         x_shape, kw,
                                         f"layer-norm {order}{what}")
+    print("[kernels] the conv kernels at pad 0 (K1 both modes, dgrad, "
+          "wgrad) at the unpadded models' stages, pooled and strided; the "
+          "unpadded blocks' derivatives", flush=True)
+    check_unpadded_kernels(cb, F, records)
+    for what, x_shape, kw in _unpadded_block_cases():
+        for check, seed in ((check_block_autograd, 1),
+                            (check_block_double_backward, 5)):
+            apart, ties = _block_decisions_apart(cb, F, x_shape, kw, seed)
+            print(f"  {what} (inputs of seed {seed}): the kernels' block and "
+                  f"the plain block take {apart} pool/sign decisions apart "
+                  f"on their own values, and {ties} pool windows hold an "
+                  "exact tie at their maximum; held on the kernels' "
+                  "decisions", flush=True)
+            check(_replayed_blocks(cb, F, False), x_shape, kw, what)
     print(f"[kernels] {time.perf_counter() - t0:.1f} s", flush=True)
 
     main_counts = {k: 0 for k in all_kernels}
@@ -2702,6 +2966,72 @@ def main() -> int:
         check_small_against_plain(c, F, cb)
         torch.cuda.empty_cache()
     print(f"[layer-norm] {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # the unpadded model (conv_padding=False): serving and training at
+    # mini-ImageNet width; the strided, norm-first and layer-norm unpadded
+    # models served; then the MAML (not ++) config, served and trained
+    t0 = time.perf_counter()
+    up_name = "mini-ImageNet 5-way 5-shot unpadded"
+    store = ("--store-rows", str(STORE_ROWS))
+    for ingest in ("f32", "index"):
+        _, counts = run_serve_bench(ks, unpadded, ingest, FLAGSHIP, up_name,
+                                    store + UNPADDED_ARGS)
+        for k, v in counts.items():
+            main_counts[k] += v
+        torch.cuda.empty_cache()
+    print("[serve] unpadded: the serve step vs the plain serve step; index "
+          "vs f32 on the same pixels", flush=True)
+    check_small_against_plain(unpadded, F, cb)
+    check_against_plain(unpadded, F, cb)
+    check_index_bit_identical(unpadded)
+    profile_dispatch(unpadded, small=False)
+    torch.cuda.empty_cache()
+    _, counts = run_train_bench(ks, unpadded, unpadded.batch_size, FLAGSHIP,
+                                up_name, None, UNPADDED_ARGS)
+    for k, v in counts.items():
+        main_counts[k] += v
+    torch.cuda.empty_cache()
+    print("[train] unpadded: learning check, profile, meta-gradients",
+          flush=True)
+    check_learning(FLAGSHIP, unpadded.batch_size, UNPADDED_ARGS)
+    profile_train_step(unpadded)
+    check_grads_small(unpadded, F, cb)
+    check_grads_replayed(unpadded, cb, F, unpadded_seeds)
+    up_strided = unpadded.replace(max_pooling=False)
+    for c, name, extra in (
+            (up_strided, f"{up_name} strided", STRIDED_ARGS),
+            (unpadded.replace(block_order="norm_conv_relu"),
+             f"{up_name} norm-first", NORM_FIRST_ARGS),
+            (unpadded.replace(norm_layer="layer_norm"),
+             f"{up_name} layer-norm", LAYER_NORM_ARGS)):
+        _, counts = run_serve_bench(ks, c, "f32", FLAGSHIP, name,
+                                    store + UNPADDED_ARGS + extra,
+                                    requests=4)
+        for k, v in counts.items():
+            main_counts[k] += v
+        check_small_against_plain(c, F, cb)
+        torch.cuda.empty_cache()
+    # the stride-2 pad-0 conv's stats-free mode runs in the strided
+    # unpadded model's second-order backward only: 2 train steps
+    _, counts = run_train_bench(ks, up_strided, up_strided.batch_size,
+                                FLAGSHIP, f"{up_name} strided", None,
+                                UNPADDED_ARGS + STRIDED_ARGS, warmup=1,
+                                steps=2)
+    for k, v in counts.items():
+        main_counts[k] += v
+    torch.cuda.empty_cache()
+    maml_name = "mini-ImageNet MAML 5-way 5-shot"
+    _, counts = run_serve_bench(ks, maml_cfg, "f32", MAML_JSON, maml_name,
+                                store, requests=4)
+    for k, v in counts.items():
+        main_counts[k] += v
+    check_small_against_plain(maml_cfg, F, cb)
+    _, counts = run_train_bench(ks, maml_cfg, maml_cfg.batch_size, MAML_JSON,
+                                maml_name, warmup=1, steps=2)
+    for k, v in counts.items():
+        main_counts[k] += v
+    torch.cuda.empty_cache()
+    print(f"[unpadded] {time.perf_counter() - t0:.1f} s", flush=True)
 
     idle = [k for k in all_kernels if not main_counts[k]]
     if idle:

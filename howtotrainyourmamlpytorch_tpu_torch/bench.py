@@ -29,7 +29,8 @@ model); ``--block_order conv_norm_relu|norm_conv_relu`` likewise
 (``norm_conv_relu``: the norm-first block), and ``--norm_layer
 batch_norm|layer_norm`` (``layer_norm``: a layer norm over each image's
 (H, W, C), gamma frozen at 1 and beta meta-trained, no running
-statistics).
+statistics), and ``--conv_padding true|false`` (``false``: the unpadded
+model, every 3x3 conv a valid window, 84 -> 82 at stage 0).
 
 The config's ``use_mmap_cache`` and ``data_placement`` are set to match
 (the port's config requires the first for any tier but host). A tier's
@@ -62,6 +63,8 @@ tests).
         --block_order norm_conv_relu
     python -m howtotrainyourmamlpytorch_tpu_torch.cli train-bench \\
         --norm_layer layer_norm
+    python -m howtotrainyourmamlpytorch_tpu_torch.cli train-bench \\
+        --conv_padding false
 """
 
 from __future__ import annotations
@@ -102,17 +105,19 @@ FLAGSHIP = (Path(__file__).resolve().parent.parent / "experiment_config"
 def forward_flops_per_image(cfg: MAMLConfig) -> float:
     """Analytic forward FLOPs (2 x MACs) of one image through the backbone:
     ``num_stages`` 3x3 convs (stride 1 and a 2x2 pool with max pooling,
-    else stride 2), then the linear head. A copy of the root bench's."""
+    else stride 2; pad 1, or 0 with ``conv_padding=False``), then the
+    linear head. The root bench's count, which takes pad 1."""
     h, w = cfg.image_height, cfg.image_width
     cin = cfg.image_channels
+    stride = 1 if cfg.max_pooling else 2
+    pad = 1 if cfg.conv_padding else 0
     flops = 0.0
     for _ in range(cfg.num_stages):
+        h = (h + 2 * pad - 3) // stride + 1
+        w = (w + 2 * pad - 3) // stride + 1
+        flops += 2.0 * h * w * 9 * cin * cfg.cnn_num_filters
         if cfg.max_pooling:
-            flops += 2.0 * h * w * 9 * cin * cfg.cnn_num_filters
             h, w = h // 2, w // 2
-        else:
-            h, w = (h + 1) // 2, (w + 1) // 2
-            flops += 2.0 * h * w * 9 * cin * cfg.cnn_num_filters
         cin = cfg.cnn_num_filters
     feat = (h * w * cfg.cnn_num_filters if cfg.max_pooling
             else cfg.cnn_num_filters)
@@ -154,6 +159,8 @@ def _bench_cfg(args) -> MAMLConfig:
         cfg = cfg.replace(block_order=args.block_order)
     if args.norm_layer is not None:
         cfg = cfg.replace(norm_layer=args.norm_layer)
+    if args.conv_padding is not None:
+        cfg = cfg.replace(conv_padding=args.conv_padding)
     return cfg
 
 
@@ -262,6 +269,9 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--norm_layer", choices=NORM_LAYERS, default=None,
                         help="override the config's norm_layer, as the JAX "
                              "command line does")
+    parser.add_argument("--conv_padding", type=bool_arg, default=None,
+                        help="override the config's conv_padding (true or "
+                             "false), as the JAX command line does")
     parser.add_argument("--epoch", type=int, default=0,
                         help="epoch fed to the schedule (LR, MSL weights, "
                              "order)")
@@ -348,6 +358,7 @@ def run(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         "max_pooling": cfg.max_pooling,
         "block_order": cfg.block_order,
         "norm_layer": cfg.norm_layer,
+        "conv_padding": cfg.conv_padding,
         "meta_accum_steps": cfg.meta_accum_steps,
         "epoch": args.epoch,
         "lr": lr,

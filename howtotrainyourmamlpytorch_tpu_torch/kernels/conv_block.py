@@ -18,6 +18,8 @@ kernel                      route   source                    launches/call
 ``conv3x3_wgrad``           CUDA    csrc/conv3x3_bwd.cu (K4)  wgrad + reduce: 2
 ``bn_act_pool_bwd_bwd``     Triton  bn_act_pool.py (K5)       reduce + out: 2
 ``conv3x3_s2_*``            CUDA    the same sources          as at stride 1
+``conv3x3_p0_*``            CUDA    the same sources          as at pad 1
+``conv3x3_s2_p0_*``         CUDA    the same sources          as at pad 1
 ``bn_act_fwd``              Triton  bn_act_pool.py (K2)       1 (pool-free)
 ``bn_act_bwd``              Triton  bn_act_pool.py (K3)       2 (pool-free)
 ``bn_act_bwd_bwd``          Triton  bn_act_pool.py (K5)       2 (pool-free)
@@ -39,8 +41,10 @@ kernel                      route   source                    launches/call
 ==========================  ======  ========================  ==================
 
 The ``conv3x3_s2_*`` names are the four conv kernels at stride 2 (the
-strided model, ``max_pooling=False``), counted apart from stride 1; the
-``bn_act_*`` names are K2, K3 and K5 without the pool. The
+strided model, ``max_pooling=False``), counted apart from stride 1, and
+the ``conv3x3_p0_*`` / ``conv3x3_s2_p0_*`` names the same kernels at pad
+0 (the unpadded models, ``conv_padding=False``), counted apart from pad
+1; the ``bn_act_*`` names are K2, K3 and K5 without the pool. The
 ``batch_norm_*`` names are the same pool-free K2, K3 and K5 at
 ``negative_slope = 1.0`` (``z * 1.0 == z`` in f32, so the leaky-ReLU is
 the identity and they compute batch norm, its backward through the batch
@@ -67,7 +71,7 @@ second-order MAML does):
 * ``Dgrad``: K4 dgrad -> ``Conv3x3`` stats-free for dy, ``Wgrad`` for w;
 * ``Wgrad``: K4 wgrad -> ``Conv3x3`` stats-free with bias for dy,
   ``Dgrad`` for x. The three convs are bilinear, so they are closed under
-  differentiation, at either stride (each carries its stride);
+  differentiation, at either stride and pad (each carries both);
 * ``BnActPool``: K2 -> ``BnActPoolBwd``, pooled or pool-free;
 * ``BnActPoolBwd``: K3 -> K5, pooled or pool-free;
 * ``Gap``: the GAP forward -> ``GapBwd``; ``GapBwd``: the GAP backward ->
@@ -143,9 +147,18 @@ KERNELS = (
     "layer_norm_fwd",
     "layer_norm_bwd",
     "layer_norm_bwd_bwd",
+    "conv3x3_p0_fwd_stats",
+    "conv3x3_p0_dgrad",
+    "conv3x3_p0_wgrad",
+    "conv3x3_p0_fwd",
+    "conv3x3_s2_p0_fwd_stats",
+    "conv3x3_s2_p0_dgrad",
+    "conv3x3_s2_p0_wgrad",
+    "conv3x3_s2_p0_fwd",
 )
-#: the conv strides the kernels take
+#: the conv strides and pads the kernels take
 STRIDES = (1, 2)
+PADDINGS = (1, 0)
 
 #: launches per kernel since the last ``reset_launches()`` (CUDA only)
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -216,66 +229,81 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _conv_name(name: str, stride: int) -> str:
-    """The counter of conv kernel ``name`` at ``stride``: its own name at
-    stride 1, ``conv3x3_s2_*`` at stride 2; raises for a stride the
-    kernels do not take."""
-    if stride not in STRIDES:
-        raise ValueError(f"{name}: the conv kernels take stride 1 or 2, got "
-                         f"{stride}")
-    return name if stride == 1 else name.replace("conv3x3_", "conv3x3_s2_")
+def _conv_name(name: str, stride: int, padding: int = 1) -> str:
+    """The counter of conv kernel ``name`` at ``stride`` and ``padding``:
+    its own name at stride 1 and pad 1, ``conv3x3_s2_*`` at stride 2,
+    ``conv3x3_p0_*`` / ``conv3x3_s2_p0_*`` at pad 0; raises for a stride
+    or a pad the kernels do not take."""
+    if stride not in STRIDES or padding not in PADDINGS:
+        raise ValueError(f"{name}: the conv kernels take stride 1 or 2 and "
+                         f"pad 1 or 0, got stride {stride}, pad {padding}")
+    tag = ("_s2" if stride == 2 else "") + ("_p0" if padding == 0 else "")
+    return name.replace("conv3x3_", f"conv3x3{tag}_")
+
+
+def _conv_out(name: str, H: int, W: int, stride: int, padding: int
+              ) -> Tuple[int, int]:
+    """The conv's output size; raises where it vanishes (an unpadded conv
+    of an input under 3 pixels)."""
+    Ho, Wo = F.conv_out_hw(H, W, stride, padding)
+    if Ho < 1 or Wo < 1:
+        raise ValueError(f"{name}: a {H}x{W} input has no pad-{padding} "
+                         "3x3 conv output")
+    return Ho, Wo
 
 
 # -- K1 -----------------------------------------------------------------------
 
 
 def conv3x3_fwd_stats(x: Tensor, w: Tensor, b: Tensor,
-                      eps: float = F.BN_EPS, stride: int = 1
+                      eps: float = F.BN_EPS, stride: int = 1,
+                      padding: int = 1
                       ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
-    """``y = conv3x3(x, w) + b`` (``stride``, pad 1) and y's per-(tenant,
-    channel) batch mean, biased variance and rstd."""
+    """``y = conv3x3(x, w) + b`` (``stride``, ``padding``) and y's
+    per-(tenant, channel) batch mean, biased variance and rstd."""
     if _on_cpu(x):
-        return F.conv3x3_fwd_stats(x, w, b, eps, stride=stride)
-    name = _conv_name("conv3x3_fwd_stats", stride)
+        return F.conv3x3_fwd_stats(x, w, b, eps, stride=stride,
+                                   padding=padding)
+    name = _conv_name("conv3x3_fwd_stats", stride, padding)
     T, N, H, W, cin = _check_act(name, x)
     cout = w.shape[-1]
     _check(name, "w", w, (T, 3, 3, cin, cout), x.device)
     _check(name, "b", b, (T, cout), x.device)
-    Ho, Wo = F.conv_out_hw(H, W, stride)
+    Ho, Wo = _conv_out(name, H, W, stride, padding)
     mtiles = -(-(N * Ho * Wo) // CONV_TILE_ROWS)
     y = torch.empty((T, N, Ho, Wo, cout), device=x.device)
     part = torch.empty((T, mtiles, 3, cout), device=x.device)
     mean, var, rstd = (torch.empty((T, cout), device=x.device)
                        for _ in range(3))
     fn = build.function("conv3x3_fwd", "conv3x3_fwd_stats",
-                        (_P,) * 8 + (_I,) * 8 + (_F, _P))
+                        (_P,) * 8 + (_I,) * 9 + (_F, _P))
     with torch.cuda.device(x.device):
         rc = fn(_ptr(x), _ptr(w), _ptr(b), _ptr(y), _ptr(part), _ptr(mean),
-                _ptr(var), _ptr(rstd), T, N, H, W, stride, cin, cout, mtiles,
-                eps, _stream(x.device))
+                _ptr(var), _ptr(rstd), T, N, H, W, stride, padding, cin, cout,
+                mtiles, eps, _stream(x.device))
     build.check(rc, name)
     LAUNCHES[name] += 1
     return y, mean, var, rstd
 
 
 def conv3x3_fwd(x: Tensor, w: Tensor, b: Optional[Tensor] = None,
-                stride: int = 1) -> Tensor:
+                stride: int = 1, padding: int = 1) -> Tensor:
     """K1's stats-free mode: ``y = conv3x3(x, w) (+ b)``, one launch."""
     if _on_cpu(x):
-        return F.conv3x3(x, w, b, stride=stride)
-    name = _conv_name("conv3x3_fwd", stride)
+        return F.conv3x3(x, w, b, stride=stride, padding=padding)
+    name = _conv_name("conv3x3_fwd", stride, padding)
     T, N, H, W, cin = _check_act(name, x)
     cout = w.shape[-1]
     _check(name, "w", w, (T, 3, 3, cin, cout), x.device)
     if b is not None:
         _check(name, "b", b, (T, cout), x.device)
-    y = torch.empty((T, N, *F.conv_out_hw(H, W, stride), cout),
+    y = torch.empty((T, N, *_conv_out(name, H, W, stride, padding), cout),
                     device=x.device)
     fn = build.function("conv3x3_fwd", "conv3x3_fwd",
-                        (_P,) * 4 + (_I,) * 7 + (_P,))
+                        (_P,) * 4 + (_I,) * 8 + (_P,))
     with torch.cuda.device(x.device):
         rc = fn(_ptr(x), _ptr(w), None if b is None else _ptr(b), _ptr(y),
-                T, N, H, W, stride, cin, cout, _stream(x.device))
+                T, N, H, W, stride, padding, cin, cout, _stream(x.device))
     build.check(rc, name)
     LAUNCHES[name] += 1
     return y
@@ -709,42 +737,50 @@ def layer_norm_bwd_bwd(a: Tensor, ggamma: Tensor, gbeta: Tensor, dz: Tensor,
 
 
 def conv3x3_dgrad(dy: Tensor, w: Tensor, stride: int = 1,
-                  in_hw: Optional[Tuple[int, int]] = None) -> Tensor:
-    """The input gradient of the 3x3 pad-1 conv at ``stride``; ``in_hw``
-    is the input's (H, W), required at stride 2 (dy's size does not
-    determine it), and dy's own at stride 1."""
-    if stride == 1 and in_hw is None:
+                  in_hw: Optional[Tuple[int, int]] = None,
+                  padding: int = 1) -> Tensor:
+    """The input gradient of the 3x3 conv at ``stride`` and ``padding``;
+    ``in_hw`` is the input's (H, W), required at stride 2 and at pad 0
+    (dy's size does not determine it, or not as dy's own), and dy's own at
+    stride 1, pad 1."""
+    name = _conv_name("conv3x3_dgrad", stride, padding)
+    if in_hw is None:
+        if stride != 1 or padding != 1:
+            raise ValueError(f"{name}: in_hw is required at stride {stride}, "
+                             f"pad {padding}")
         in_hw = tuple(dy.shape[2:4])
     if _on_cpu(dy):
-        return F.conv3x3_dgrad(dy, w, stride=stride, in_hw=in_hw)
-    name = _conv_name("conv3x3_dgrad", stride)
+        return F.conv3x3_dgrad(dy, w, stride=stride, in_hw=in_hw,
+                               padding=padding)
     T, N, Ho, Wo, cout = _check_act(name, dy)
-    if in_hw is None or F.conv_out_hw(*in_hw, stride) != (Ho, Wo):
+    if F.conv_out_hw(*in_hw, stride, padding) != (Ho, Wo):
         raise ValueError(f"{name}: the input size {in_hw} does not give "
-                         f"dy's {Ho}x{Wo} at stride {stride}")
+                         f"dy's {Ho}x{Wo} at stride {stride}, pad "
+                         f"{padding}")
     H, W = in_hw
     cin = w.shape[-2]
     _check(name, "w", w, (T, 3, 3, cin, cout), dy.device)
     dx = torch.empty((T, N, H, W, cin), device=dy.device)
     fn = build.function("conv3x3_bwd", "conv3x3_dgrad",
-                        (_P,) * 3 + (_I,) * 7 + (_P,))
+                        (_P,) * 3 + (_I,) * 8 + (_P,))
     with torch.cuda.device(dy.device):
-        rc = fn(_ptr(dy), _ptr(w), _ptr(dx), T, N, H, W, stride, cin, cout,
-                _stream(dy.device))
+        rc = fn(_ptr(dy), _ptr(w), _ptr(dx), T, N, H, W, stride, padding,
+                cin, cout, _stream(dy.device))
     build.check(rc, name)
     LAUNCHES[name] += 1
     return dx
 
 
-def conv3x3_wgrad(x: Tensor, dy: Tensor, stride: int = 1
+def conv3x3_wgrad(x: Tensor, dy: Tensor, stride: int = 1, padding: int = 1
                   ) -> Tuple[Tensor, Tensor]:
-    """The weight (HWIO) and bias gradients of the 3x3 conv at ``stride``."""
+    """The weight (HWIO) and bias gradients of the 3x3 conv at ``stride``
+    and ``padding``."""
     if _on_cpu(x):
-        return F.conv3x3_wgrad(x, dy, stride=stride)
-    name = _conv_name("conv3x3_wgrad", stride)
+        return F.conv3x3_wgrad(x, dy, stride=stride, padding=padding)
+    name = _conv_name("conv3x3_wgrad", stride, padding)
     T, N, H, W, cin = _check_act(name, x)
     cout = dy.shape[-1]
-    Ho, Wo = F.conv_out_hw(H, W, stride)
+    Ho, Wo = _conv_out(name, H, W, stride, padding)
     _check(name, "dy", dy, (T, N, Ho, Wo, cout), x.device)
     M = N * Ho * Wo
     # blocks per split: (K tiles of 64) x (channel tiles of 16) x tenants
@@ -757,10 +793,10 @@ def conv3x3_wgrad(x: Tensor, dy: Tensor, stride: int = 1
     dw = torch.empty((T, 3, 3, cin, cout), device=x.device)
     db = torch.empty((T, cout), device=x.device)
     fn = build.function("conv3x3_bwd", "conv3x3_wgrad",
-                        (_P,) * 6 + (_I,) * 8 + (_P,))
+                        (_P,) * 6 + (_I,) * 9 + (_P,))
     with torch.cuda.device(x.device):
         rc = fn(_ptr(x), _ptr(dy), _ptr(part_w), _ptr(part_b), _ptr(dw),
-                _ptr(db), T, N, H, W, stride, cin, cout, splits,
+                _ptr(db), T, N, H, W, stride, padding, cin, cout, splits,
                 _stream(x.device))
     build.check(rc, name)
     LAUNCHES[name] += 1
@@ -805,18 +841,20 @@ def global_avg_pool2d_bwd(dpool: Tensor, h: int, w: int) -> Tensor:
 
 
 class Conv3x3(torch.autograd.Function):
-    """``y = conv3x3(x, w) (+ b)`` at ``stride``. With ``with_stats`` (K1)
-    it also returns y's batch ``(mean, var, rstd)``, not differentiable
-    (BN's dependence on them is inside K3 and K5, and the running stats
-    take no gradient); without, K1's stats-free mode and ``y`` alone."""
+    """``y = conv3x3(x, w) (+ b)`` at ``stride`` and ``padding``. With
+    ``with_stats`` (K1) it also returns y's batch ``(mean, var, rstd)``,
+    not differentiable (BN's dependence on them is inside K3 and K5, and
+    the running stats take no gradient); without, K1's stats-free mode and
+    ``y`` alone."""
 
     @staticmethod
-    def forward(ctx, x, w, b, with_stats, stride=1):
+    def forward(ctx, x, w, b, with_stats, stride=1, padding=1):
         ctx.save_for_backward(x, w)
-        ctx.stride = stride
+        ctx.stride, ctx.padding = stride, padding
         if not with_stats:
-            return conv3x3_fwd(x, w, b, stride)
-        y, mean, var, rstd = conv3x3_fwd_stats(x, w, b, stride=stride)
+            return conv3x3_fwd(x, w, b, stride, padding)
+        y, mean, var, rstd = conv3x3_fwd_stats(x, w, b, stride=stride,
+                                               padding=padding)
         ctx.mark_non_differentiable(mean, var, rstd)
         return y, mean, var, rstd
 
@@ -825,56 +863,57 @@ class Conv3x3(torch.autograd.Function):
         x, w = ctx.saved_tensors
         need_x, need_w, need_b = ctx.needs_input_grad[:3]
         dy = dy.contiguous()
-        dx = (Dgrad.apply(dy, w, ctx.stride, tuple(x.shape[2:4])) if need_x
-              else None)
+        dx = (Dgrad.apply(dy, w, ctx.stride, tuple(x.shape[2:4]),
+                          ctx.padding) if need_x else None)
         dw = db = None
         if need_w or need_b:
-            dw, db = Wgrad.apply(x, dy, ctx.stride)
+            dw, db = Wgrad.apply(x, dy, ctx.stride, ctx.padding)
         return (dx, dw if need_w else None, db if need_b else None, None,
-                None)
+                None, None)
 
 
 class Dgrad(torch.autograd.Function):
-    """K4 dgrad: ``dx`` (of size ``in_hw``) of the conv at ``stride`` with
-    weights ``w`` from ``dy``."""
+    """K4 dgrad: ``dx`` (of size ``in_hw``) of the conv at ``stride`` and
+    ``padding`` with weights ``w`` from ``dy``."""
 
     @staticmethod
-    def forward(ctx, dy, w, stride=1, in_hw=None):
+    def forward(ctx, dy, w, stride=1, in_hw=None, padding=1):
         ctx.save_for_backward(dy, w)
-        ctx.stride = stride
-        return conv3x3_dgrad(dy, w, stride, in_hw)
+        ctx.stride, ctx.padding = stride, padding
+        return conv3x3_dgrad(dy, w, stride, in_hw, padding)
 
     @staticmethod
     def backward(ctx, g_dx):
         dy, w = ctx.saved_tensors
         need_dy, need_w = ctx.needs_input_grad[:2]
         g_dx = g_dx.contiguous()
-        g_dy = (Conv3x3.apply(g_dx, w, None, False, ctx.stride) if need_dy
-                else None)
-        g_w = Wgrad.apply(g_dx, dy, ctx.stride)[0] if need_w else None
-        return g_dy, g_w, None, None
+        g_dy = (Conv3x3.apply(g_dx, w, None, False, ctx.stride, ctx.padding)
+                if need_dy else None)
+        g_w = (Wgrad.apply(g_dx, dy, ctx.stride, ctx.padding)[0] if need_w
+               else None)
+        return g_dy, g_w, None, None, None
 
 
 class Wgrad(torch.autograd.Function):
-    """K4 wgrad: ``(dw, db)`` of the conv at ``stride`` from its input
-    ``x`` and ``dy``."""
+    """K4 wgrad: ``(dw, db)`` of the conv at ``stride`` and ``padding``
+    from its input ``x`` and ``dy``."""
 
     @staticmethod
-    def forward(ctx, x, dy, stride=1):
+    def forward(ctx, x, dy, stride=1, padding=1):
         ctx.save_for_backward(x, dy)
-        ctx.stride = stride
-        return conv3x3_wgrad(x, dy, stride)
+        ctx.stride, ctx.padding = stride, padding
+        return conv3x3_wgrad(x, dy, stride, padding)
 
     @staticmethod
     def backward(ctx, g_dw, g_db):
         x, dy = ctx.saved_tensors
         need_x, need_dy = ctx.needs_input_grad[:2]
         g_dw = g_dw.contiguous()
-        g_x = (Dgrad.apply(dy, g_dw, ctx.stride, tuple(x.shape[2:4]))
-               if need_x else None)
-        g_dy = (Conv3x3.apply(x, g_dw, g_db.contiguous(), False, ctx.stride)
-                if need_dy else None)
-        return g_x, g_dy, None
+        g_x = (Dgrad.apply(dy, g_dw, ctx.stride, tuple(x.shape[2:4]),
+                           ctx.padding) if need_x else None)
+        g_dy = (Conv3x3.apply(x, g_dw, g_db.contiguous(), False, ctx.stride,
+                              ctx.padding) if need_dy else None)
+        return g_x, g_dy, None, None
 
 
 class BnActPool(torch.autograd.Function):
@@ -990,9 +1029,11 @@ class GapBwd(torch.autograd.Function):
 
 def function_block(x: Tensor, w: Tensor, b: Tensor, gamma: Tensor,
                    beta: Tensor, stats_impl: str = "twopass",
-                   stride: int = 1, pool: bool = True, gap: bool = False
+                   stride: int = 1, pool: bool = True, gap: bool = False,
+                   padding: int = 1
                    ) -> Tuple[Tensor, Tensor, Tensor]:
-    """The block as the chain of Functions: K1 (at ``stride``) then K2
+    """The block as the chain of Functions: K1 (at ``stride`` and
+    ``padding``: 1, or 0 for ``conv_padding=False``) then K2
     (pooled, or pool-free with ``pool=False``) and, with ``gap``, the
     global average pool; every derivative on K3-K5, the conv kernels and
     the GAP kernels. On CPU tensors each wrapper takes its twin, which is
@@ -1002,7 +1043,7 @@ def function_block(x: Tensor, w: Tensor, b: Tensor, gamma: Tensor,
     gamma = gamma.expand(T, cout).contiguous()
     beta = beta.expand(T, cout).contiguous()
     y, mean, var, rstd = Conv3x3.apply(x.contiguous(), w.contiguous(),
-                                       b.contiguous(), True, stride)
+                                       b.contiguous(), True, stride, padding)
     out = BnActPool.apply(y, gamma, beta, mean, rstd, pool)
     if pool:
         out = out[0]
@@ -1013,25 +1054,28 @@ def function_block(x: Tensor, w: Tensor, b: Tensor, gamma: Tensor,
 
 def conv_bn_act_pool(x: Tensor, w: Tensor, b: Tensor, gamma: Tensor,
                      beta: Tensor, stats_impl: str = "twopass",
-                     stride: int = 1, pool: bool = True, gap: bool = False
+                     stride: int = 1, pool: bool = True, gap: bool = False,
+                     padding: int = 1
                      ) -> Tuple[Tensor, Tensor, Tensor]:
     """The block, as the model calls it: the plain PyTorch composition
     (``ops.functional.conv_bn_act_pool``, differentiable by autograd) for
     CPU tensors, ``function_block`` on the kernels for CUDA tensors.
 
     ``x`` (T, N, H, W, cin), ``w`` (T, 3, 3, cin, cout), ``b`` (T, cout),
-    ``gamma``/``beta`` (cout,) or (T, cout); the conv at ``stride``, then
-    the max pool when ``pool`` and the global average pool when ``gap``.
+    ``gamma``/``beta`` (cout,) or (T, cout); the conv at ``stride`` and
+    ``padding``, then the max pool when ``pool`` and the global average
+    pool when ``gap``.
     Returns ``(out, batch_mean, batch_var)``. ``stats_impl`` selects the
     plain statistics pass; the kernels' Chan merge stays within tolerance
     of both.
     """
     if _on_cpu(x):
         return F.conv_bn_act_pool(x, w, b, gamma, beta, stats_impl,
-                                  stride=stride, pool=pool, gap=gap)
+                                  stride=stride, pool=pool, gap=gap,
+                                  padding=padding)
     _check_block_input("conv_bn_act_pool", x)
     return function_block(x, w, b, gamma, beta, stride=stride, pool=pool,
-                          gap=gap)
+                          gap=gap, padding=padding)
 
 
 def _check_block_input(name: str, x: Tensor) -> None:
@@ -1181,7 +1225,8 @@ def _act_pool_gap(y: Tensor, pool: bool, gap: bool) -> Tensor:
 
 def norm_function_block(x: Tensor, w: Tensor, b: Tensor, gamma: Tensor,
                         beta: Tensor, stats_impl: str = "twopass",
-                        stride: int = 1, pool: bool = True, gap: bool = False
+                        stride: int = 1, pool: bool = True, gap: bool = False,
+                        padding: int = 1
                         ) -> Tuple[Tensor, Tensor, Tensor]:
     """The norm-first block as the chain of Functions: ``BatchNorm`` of the
     input, K1's stats-free mode with bias (at ``stride``), ``ActPool``
@@ -1193,13 +1238,15 @@ def norm_function_block(x: Tensor, w: Tensor, b: Tensor, gamma: Tensor,
     gamma = gamma.expand(T, cin).contiguous()
     beta = beta.expand(T, cin).contiguous()
     z, mean, var, _ = BatchNorm.apply(x.contiguous(), gamma, beta)
-    y = Conv3x3.apply(z, w.contiguous(), b.contiguous(), False, stride)
+    y = Conv3x3.apply(z, w.contiguous(), b.contiguous(), False, stride,
+                      padding)
     return _act_pool_gap(y, pool, gap), mean, var
 
 
 def norm_conv_act_pool(x: Tensor, w: Tensor, b: Tensor, gamma: Tensor,
                        beta: Tensor, stats_impl: str = "twopass",
-                       stride: int = 1, pool: bool = True, gap: bool = False
+                       stride: int = 1, pool: bool = True, gap: bool = False,
+                       padding: int = 1
                        ) -> Tuple[Tensor, Tensor, Tensor]:
     """The norm-first block as the model calls it: the plain composition
     (``ops.functional.norm_conv_act_pool``) for CPU tensors,
@@ -1208,10 +1255,11 @@ def norm_conv_act_pool(x: Tensor, w: Tensor, b: Tensor, gamma: Tensor,
     batch_mean, batch_var)`` of the block input."""
     if _on_cpu(x):
         return F.norm_conv_act_pool(x, w, b, gamma, beta, stats_impl,
-                                    stride=stride, pool=pool, gap=gap)
+                                    stride=stride, pool=pool, gap=gap,
+                                    padding=padding)
     _check_block_input("norm_conv_act_pool", x)
     return norm_function_block(x, w, b, gamma, beta, stride=stride,
-                               pool=pool, gap=gap)
+                               pool=pool, gap=gap, padding=padding)
 
 
 # -- the layer-norm blocks ----------------------------------------------------------
@@ -1287,7 +1335,8 @@ def _ln_params(gamma: Tensor, beta: Tensor, x: Tensor
 def conv_ln_function_block(x: Tensor, w: Tensor, b: Tensor, gamma: Tensor,
                            beta: Tensor, stats_impl: str = "twopass",
                            stride: int = 1, pool: bool = True,
-                           gap: bool = False) -> Tuple[Tensor, None, None]:
+                           gap: bool = False, padding: int = 1
+                           ) -> Tuple[Tensor, None, None]:
     """The layer-norm block (conv first) as the chain of Functions: K1's
     stats-free mode with bias (at ``stride``), ``LayerNorm`` of the conv
     output (gamma and beta of its (H, W, C)), ``ActPool`` (pooled, or
@@ -1295,7 +1344,7 @@ def conv_ln_function_block(x: Tensor, w: Tensor, b: Tensor, gamma: Tensor,
     pool. On CPU tensors each wrapper takes its twin. Returns ``(out,
     None, None)``: no running statistics."""
     y = Conv3x3.apply(x.contiguous(), w.contiguous(), b.contiguous(), False,
-                      stride)
+                      stride, padding)
     z = LayerNorm.apply(y, *_ln_params(gamma, beta, y))
     return _act_pool_gap(z, pool, gap), None, None
 
@@ -1303,45 +1352,51 @@ def conv_ln_function_block(x: Tensor, w: Tensor, b: Tensor, gamma: Tensor,
 def ln_conv_function_block(x: Tensor, w: Tensor, b: Tensor, gamma: Tensor,
                            beta: Tensor, stats_impl: str = "twopass",
                            stride: int = 1, pool: bool = True,
-                           gap: bool = False) -> Tuple[Tensor, None, None]:
+                           gap: bool = False, padding: int = 1
+                           ) -> Tuple[Tensor, None, None]:
     """The norm-first layer-norm block as the chain of Functions:
     ``LayerNorm`` of the input (gamma and beta of its (H, W, C)), K1's
     stats-free mode with bias, ``ActPool`` and, with ``gap``, the global
     average pool. Returns ``(out, None, None)``."""
     x = x.contiguous()
     z = LayerNorm.apply(x, *_ln_params(gamma, beta, x))
-    y = Conv3x3.apply(z, w.contiguous(), b.contiguous(), False, stride)
+    y = Conv3x3.apply(z, w.contiguous(), b.contiguous(), False, stride,
+                      padding)
     return _act_pool_gap(y, pool, gap), None, None
 
 
 def conv_ln_act_pool(x: Tensor, w: Tensor, b: Tensor, gamma: Tensor,
                      beta: Tensor, stats_impl: str = "twopass",
-                     stride: int = 1, pool: bool = True, gap: bool = False
+                     stride: int = 1, pool: bool = True, gap: bool = False,
+                     padding: int = 1
                      ) -> Tuple[Tensor, None, None]:
     """The layer-norm block (conv first) as the model calls it: the plain
     composition (``ops.functional.conv_ln_act_pool``) for CPU tensors,
     ``conv_ln_function_block`` on the kernels for CUDA tensors."""
     if _on_cpu(x):
         return F.conv_ln_act_pool(x, w, b, gamma, beta, stats_impl,
-                                  stride=stride, pool=pool, gap=gap)
+                                  stride=stride, pool=pool, gap=gap,
+                                  padding=padding)
     _check_block_input("conv_ln_act_pool", x)
     return conv_ln_function_block(x, w, b, gamma, beta, stride=stride,
-                                  pool=pool, gap=gap)
+                                  pool=pool, gap=gap, padding=padding)
 
 
 def ln_conv_act_pool(x: Tensor, w: Tensor, b: Tensor, gamma: Tensor,
                      beta: Tensor, stats_impl: str = "twopass",
-                     stride: int = 1, pool: bool = True, gap: bool = False
+                     stride: int = 1, pool: bool = True, gap: bool = False,
+                     padding: int = 1
                      ) -> Tuple[Tensor, None, None]:
     """The norm-first layer-norm block as the model calls it: the plain
     composition (``ops.functional.ln_conv_act_pool``) for CPU tensors,
     ``ln_conv_function_block`` on the kernels for CUDA tensors."""
     if _on_cpu(x):
         return F.ln_conv_act_pool(x, w, b, gamma, beta, stats_impl,
-                                  stride=stride, pool=pool, gap=gap)
+                                  stride=stride, pool=pool, gap=gap,
+                                  padding=padding)
     _check_block_input("ln_conv_act_pool", x)
     return ln_conv_function_block(x, w, b, gamma, beta, stride=stride,
-                                  pool=pool, gap=gap)
+                                  pool=pool, gap=gap, padding=padding)
 
 
 # the order of the layers each block computes (``MAMLConfig.block_order``)

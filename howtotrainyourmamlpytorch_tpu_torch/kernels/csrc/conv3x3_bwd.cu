@@ -29,6 +29,15 @@
 // against 2.25 live on average) and reads dy of a quarter of dx's pixels,
 // so its bound is FLOPs at layers 2-4, like the forward's, and the masked
 // design sits at least 4x above it.
+//
+// Pad 0 (the unpadded model): a runtime argument that moves the taps'
+// origin, as in the forward. wgrad reads x at (s*oh - pad + kh); dgrad's
+// rows are the H x W input pixels and its source the smaller dy (82 x 82
+// against 84 x 84 at stride 1: the "full" correlation, tap origin 2 - pad,
+// the halo zeroed by the bounds check), at stride 2 dy at (ih - (2 - pad)
+// + kh') / 2 where that is even and inside dy — so an input row that no
+// output reads (the last of 84 -> 41, 20 -> 9) gets a zero gradient. Pad 1
+// is the code it was, bit for bit.
 
 #include <cuda_runtime.h>
 
@@ -40,7 +49,7 @@ template <int kStride>
 __global__ void __launch_bounds__(kThreads)
 conv3x3_dgrad_kernel(const float* __restrict__ dy, const float* __restrict__ w,
                      float* __restrict__ dx, int N, int H, int W, int Ho,
-                     int Wo, int cin_fwd, int cout_fwd) {
+                     int Wo, int cin_fwd, int cout_fwd, int pad) {
   __shared__ ConvTileSmem s;
   const int tid = threadIdx.x;
   const int t = blockIdx.z;
@@ -52,7 +61,8 @@ conv3x3_dgrad_kernel(const float* __restrict__ dy, const float* __restrict__ w,
   // dx (H x W, cin_fwd channels)
   conv3x3_tile<kStride, true>(dy + (size_t)t * N * Ho * Wo * cout_fwd,
                               w + (size_t)t * 9 * cin_fwd * cout_fwd, Ho, Wo,
-                              H, W, M, cout_fwd, cin_fwd, m0, n0, s, acc);
+                              H, W, M, cout_fwd, cin_fwd, 2 - pad, m0, n0, s,
+                              acc);
   const int cg = tid % 4;
   const int rg = tid / 4;
   float* dxt = dx + (size_t)t * M * cin_fwd;
@@ -79,7 +89,7 @@ __global__ void __launch_bounds__(kThreads)
 conv3x3_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ dy,
                      float* __restrict__ part_w, float* __restrict__ part_b,
                      int N, int H, int W, int Ho, int Wo, int cin, int cout,
-                     int S, int chunk) {
+                     int pad, int S, int chunk) {
   __shared__ __align__(16) float ps[kWM][kWK];
   __shared__ __align__(16) float ds[kWM][kWN];
   __shared__ int k_dh[kWK], k_dw[kWK], k_delta[kWK];
@@ -102,8 +112,8 @@ conv3x3_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ dy,
     if (k < K) {
       const int kpos = k / cin;
       const int ci = k - kpos * cin;
-      const int dh = kpos / 3 - 1;
-      const int dw = kpos % 3 - 1;
+      const int dh = kpos / 3 - pad;
+      const int dw = kpos % 3 - pad;
       k_dh[tid] = dh;
       k_dw[tid] = dw;
       k_delta[tid] = (dh * W + dw) * cin + ci;
@@ -230,14 +240,17 @@ __global__ void conv3x3_wgrad_reduce_kernel(const float* __restrict__ part_w,
 extern "C" {
 
 // dx (T, N, H, W, cin_fwd) = dgrad of the forward conv at `stride` (1 or
-// 2, pad 1) with weights w (T, 3, 3, cin_fwd, cout_fwd), from dy (T, N, Ho,
-// Wo, cout_fwd), Ho = (H - 1) / stride + 1 (Wo likewise).
+// 2) and `pad` (1 or 0) with weights w (T, 3, 3, cin_fwd, cout_fwd), from
+// dy (T, N, Ho, Wo, cout_fwd), Ho = (H + 2*pad - 3) / stride + 1 (Wo
+// likewise).
 int conv3x3_dgrad(const float* dy, const float* w, float* dx, int T, int N,
-                  int H, int W, int stride, int cin_fwd, int cout_fwd,
-                  void* stream) {
-  if (stride != 1 && stride != 2) return (int)cudaErrorInvalidValue;
-  const int Ho = (H - 1) / stride + 1;
-  const int Wo = (W - 1) / stride + 1;
+                  int H, int W, int stride, int pad, int cin_fwd,
+                  int cout_fwd, void* stream) {
+  if ((stride != 1 && stride != 2) || (pad != 0 && pad != 1) ||
+      H + 2 * pad < 3 || W + 2 * pad < 3)
+    return (int)cudaErrorInvalidValue;
+  const int Ho = (H + 2 * pad - 3) / stride + 1;
+  const int Wo = (W + 2 * pad - 3) / stride + 1;
   const int M = N * H * W;
   if (T < 1 || H < 1 || W < 1 || M < 1 || cin_fwd < 1 || cout_fwd < 1)
     return (int)cudaErrorInvalidValue;
@@ -246,23 +259,26 @@ int conv3x3_dgrad(const float* dy, const float* w, float* dx, int T, int N,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (stride == 1)
     maml::conv3x3_dgrad_kernel<1><<<grid, maml::kThreads, 0, st>>>(
-        dy, w, dx, N, H, W, Ho, Wo, cin_fwd, cout_fwd);
+        dy, w, dx, N, H, W, Ho, Wo, cin_fwd, cout_fwd, pad);
   else
     maml::conv3x3_dgrad_kernel<2><<<grid, maml::kThreads, 0, st>>>(
-        dy, w, dx, N, H, W, Ho, Wo, cin_fwd, cout_fwd);
+        dy, w, dx, N, H, W, Ho, Wo, cin_fwd, cout_fwd, pad);
   return (int)cudaGetLastError();
 }
 
-// dw (T, 3, 3, cin, cout) and db (T, cout) of the conv at `stride` from
-// x (T, N, H, W, cin) and dy (T, N, Ho, Wo, cout); part_w (T, S,
+// dw (T, 3, 3, cin, cout) and db (T, cout) of the conv at `stride` and
+// `pad` from x (T, N, H, W, cin) and dy (T, N, Ho, Wo, cout); part_w (T, S,
 // 9*cin*cout) and part_b (T, S, cout) are scratch. Two launches on
 // `stream`.
 int conv3x3_wgrad(const float* x, const float* dy, float* part_w,
                   float* part_b, float* dw, float* db, int T, int N, int H,
-                  int W, int stride, int cin, int cout, int S, void* stream) {
-  if (stride != 1 && stride != 2) return (int)cudaErrorInvalidValue;
-  const int Ho = (H - 1) / stride + 1;
-  const int Wo = (W - 1) / stride + 1;
+                  int W, int stride, int pad, int cin, int cout, int S,
+                  void* stream) {
+  if ((stride != 1 && stride != 2) || (pad != 0 && pad != 1) ||
+      H + 2 * pad < 3 || W + 2 * pad < 3)
+    return (int)cudaErrorInvalidValue;
+  const int Ho = (H + 2 * pad - 3) / stride + 1;
+  const int Wo = (W + 2 * pad - 3) / stride + 1;
   const int M = N * Ho * Wo;
   if (T < 1 || H < 1 || W < 1 || M < 1 || cin < 1 || cout < 1 || S < 1 ||
       S > M || T * S > 65535)
@@ -273,10 +289,10 @@ int conv3x3_wgrad(const float* x, const float* dy, float* part_w,
             T * S);
   if (stride == 1)
     maml::conv3x3_wgrad_kernel<1><<<grid, maml::kThreads, 0, st>>>(
-        x, dy, part_w, part_b, N, H, W, Ho, Wo, cin, cout, S, chunk);
+        x, dy, part_w, part_b, N, H, W, Ho, Wo, cin, cout, pad, S, chunk);
   else
     maml::conv3x3_wgrad_kernel<2><<<grid, maml::kThreads, 0, st>>>(
-        x, dy, part_w, part_b, N, H, W, Ho, Wo, cin, cout, S, chunk);
+        x, dy, part_w, part_b, N, H, W, Ho, Wo, cin, cout, pad, S, chunk);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int KC = 9 * cin * cout;

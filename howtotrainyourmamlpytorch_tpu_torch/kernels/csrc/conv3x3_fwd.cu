@@ -29,6 +29,14 @@
 // at layer 2, T = 8, N = 20), bytes at layer 1 (cin = 1). A template
 // argument, so the stride-1 instantiation is the code it was, bit for bit.
 //
+// Pad 0 (the unpadded model, `conv_padding=False`: 84 -> 82 -> 41 -> 39
+// ... at mini-ImageNet's width, or 84 -> 41 -> 20 -> 9 -> 4 strided) is a
+// runtime argument: the taps' origin moves from -1 to 0 and the host sizes
+// the output (H + 2*pad - 3) / stride + 1; the tile, its loads and its FMA
+// order are unchanged, so pad 1 computes what it computed, bit for bit.
+// The valid conv reads no halo, so at stage 0 (cin 3) the bytes still
+// bind (the 48-channel output) and at stages 1-3 the FLOPs.
+//
 // Stats-free mode (`conv3x3_fwd`): y = conv3x3(x, w) (+ b when b is given),
 // the same tile, no statistics and no merge launch. The second-order
 // backward of the block needs this conv twice per block and inner step:
@@ -70,7 +78,7 @@ template <int kStride>
 __global__ void __launch_bounds__(kThreads)
 conv3x3_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
                    const float* bias, float* __restrict__ y, int N, int H,
-                   int W, int Ho, int Wo, int cin, int cout) {
+                   int W, int Ho, int Wo, int cin, int cout, int pad) {
   __shared__ ConvTileSmem s;
   const int t = blockIdx.z;
   const int m0 = blockIdx.x * kBM;
@@ -79,7 +87,7 @@ conv3x3_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
   float acc[kTM][kTN];
   conv3x3_tile<kStride, false>(x + (size_t)t * N * H * W * cin,
                                w + (size_t)t * 9 * cin * cout, H, W, Ho, Wo,
-                               M, cin, cout, m0, n0, s, acc);
+                               M, cin, cout, pad, m0, n0, s, acc);
   add_bias_and_store(acc, bias == nullptr ? nullptr : bias + t * cout,
                      y + (size_t)t * M * cout, M, cout, m0, n0);
 }
@@ -90,7 +98,8 @@ conv3x3_fwd_stats_kernel(const float* __restrict__ x,
                          const float* __restrict__ w,
                          const float* __restrict__ bias, float* __restrict__ y,
                          float* __restrict__ part, int N, int H, int W,
-                         int Ho, int Wo, int cin, int cout, int mtiles) {
+                         int Ho, int Wo, int cin, int cout, int pad,
+                         int mtiles) {
   __shared__ ConvTileSmem s;
   __shared__ float red[32][kBN + 1];
   __shared__ float col_mean[kBN];
@@ -103,7 +112,7 @@ conv3x3_fwd_stats_kernel(const float* __restrict__ x,
   float acc[kTM][kTN];
   conv3x3_tile<kStride, false>(x + (size_t)t * N * H * W * cin,
                                w + (size_t)t * 9 * cin * cout, H, W, Ho, Wo,
-                               M, cin, cout, m0, n0, s, acc);
+                               M, cin, cout, pad, m0, n0, s, acc);
 
   const int cg = tid % 4;
   const int rg = tid / 4;
@@ -213,20 +222,22 @@ bn_stats_merge_kernel(const float* __restrict__ part, float* __restrict__ mean,
 
 extern "C" {
 
-// y = conv3x3(x, w) + b at `stride` (1 or 2, pad 1) and y's per-(tenant,
-// channel) mean / biased var / rstd. x (T, N, H, W, cin), w (T, 3, 3, cin,
-// cout), b (T, cout), y (T, N, Ho, Wo, cout) with Ho = (H - 1) / stride + 1
-// (Wo likewise), part scratch (T, mtiles, 3, cout) with
-// mtiles = ceil(N*Ho*Wo / 256); mean, var, rstd (T, cout). Two launches on
-// `stream`; returns the first CUDA error, 0 on success.
+// y = conv3x3(x, w) + b at `stride` (1 or 2) and `pad` (1 or 0) and y's
+// per-(tenant, channel) mean / biased var / rstd. x (T, N, H, W, cin), w
+// (T, 3, 3, cin, cout), b (T, cout), y (T, N, Ho, Wo, cout) with Ho =
+// (H + 2*pad - 3) / stride + 1 (Wo likewise), part scratch (T, mtiles, 3,
+// cout) with mtiles = ceil(N*Ho*Wo / 256); mean, var, rstd (T, cout). Two
+// launches on `stream`; returns the first CUDA error, 0 on success.
 int conv3x3_fwd_stats(const float* x, const float* w, const float* b,
                       float* y, float* part, float* mean, float* var,
                       float* rstd, int T, int N, int H, int W, int stride,
-                      int cin, int cout, int mtiles, float eps,
+                      int pad, int cin, int cout, int mtiles, float eps,
                       void* stream) {
-  if (stride != 1 && stride != 2) return (int)cudaErrorInvalidValue;
-  const int Ho = (H - 1) / stride + 1;
-  const int Wo = (W - 1) / stride + 1;
+  if ((stride != 1 && stride != 2) || (pad != 0 && pad != 1) ||
+      H + 2 * pad < 3 || W + 2 * pad < 3)
+    return (int)cudaErrorInvalidValue;
+  const int Ho = (H + 2 * pad - 3) / stride + 1;
+  const int Wo = (W + 2 * pad - 3) / stride + 1;
   const int M = N * Ho * Wo;
   if (T < 1 || H < 1 || W < 1 || M < 1 || cin < 1 || cout < 1 ||
       mtiles != maml::ceil_div(M, maml::kBM))
@@ -235,10 +246,10 @@ int conv3x3_fwd_stats(const float* x, const float* w, const float* b,
   dim3 grid(mtiles, maml::ceil_div(cout, maml::kBN), T);
   if (stride == 1)
     maml::conv3x3_fwd_stats_kernel<1><<<grid, maml::kThreads, 0, st>>>(
-        x, w, b, y, part, N, H, W, Ho, Wo, cin, cout, mtiles);
+        x, w, b, y, part, N, H, W, Ho, Wo, cin, cout, pad, mtiles);
   else
     maml::conv3x3_fwd_stats_kernel<2><<<grid, maml::kThreads, 0, st>>>(
-        x, w, b, y, part, N, H, W, Ho, Wo, cin, cout, mtiles);
+        x, w, b, y, part, N, H, W, Ho, Wo, cin, cout, pad, mtiles);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   maml::bn_stats_merge_kernel<<<dim3(cout, T), maml::kMergeThreads, 0, st>>>(
@@ -246,15 +257,18 @@ int conv3x3_fwd_stats(const float* x, const float* w, const float* b,
   return (int)cudaGetLastError();
 }
 
-// y = conv3x3(x, w) (+ b) at `stride`: the stats-free mode. x (T, N, H, W,
-// cin), w (T, 3, 3, cin, cout), b (T, cout) or null, y (T, N, Ho, Wo,
-// cout). One launch on `stream`; returns its CUDA error, 0 on success.
+// y = conv3x3(x, w) (+ b) at `stride` and `pad`: the stats-free mode. x
+// (T, N, H, W, cin), w (T, 3, 3, cin, cout), b (T, cout) or null, y (T, N,
+// Ho, Wo, cout). One launch on `stream`; returns its CUDA error, 0 on
+// success.
 int conv3x3_fwd(const float* x, const float* w, const float* b, float* y,
-                int T, int N, int H, int W, int stride, int cin, int cout,
-                void* stream) {
-  if (stride != 1 && stride != 2) return (int)cudaErrorInvalidValue;
-  const int Ho = (H - 1) / stride + 1;
-  const int Wo = (W - 1) / stride + 1;
+                int T, int N, int H, int W, int stride, int pad, int cin,
+                int cout, void* stream) {
+  if ((stride != 1 && stride != 2) || (pad != 0 && pad != 1) ||
+      H + 2 * pad < 3 || W + 2 * pad < 3)
+    return (int)cudaErrorInvalidValue;
+  const int Ho = (H + 2 * pad - 3) / stride + 1;
+  const int Wo = (W + 2 * pad - 3) / stride + 1;
   const int M = N * Ho * Wo;
   if (T < 1 || H < 1 || W < 1 || M < 1 || cin < 1 || cout < 1)
     return (int)cudaErrorInvalidValue;
@@ -262,10 +276,10 @@ int conv3x3_fwd(const float* x, const float* w, const float* b, float* y,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (stride == 1)
     maml::conv3x3_fwd_kernel<1><<<grid, maml::kThreads, 0, st>>>(
-        x, w, b, y, N, H, W, Ho, Wo, cin, cout);
+        x, w, b, y, N, H, W, Ho, Wo, cin, cout, pad);
   else
     maml::conv3x3_fwd_kernel<2><<<grid, maml::kThreads, 0, st>>>(
-        x, w, b, y, N, H, W, Ho, Wo, cin, cout);
+        x, w, b, y, N, H, W, Ho, Wo, cin, cout, pad);
   return (int)cudaGetLastError();
 }
 

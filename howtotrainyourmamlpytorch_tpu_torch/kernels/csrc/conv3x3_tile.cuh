@@ -1,5 +1,5 @@
-// Shared main loop of the task-batched 3x3 implicit GEMM (pad 1, stride 1
-// or 2, NHWC activations, HWIO weights), used by K1's forward
+// Shared main loop of the task-batched 3x3 implicit GEMM (pad 1 or 0,
+// stride 1 or 2, NHWC activations, HWIO weights), used by K1's forward
 // (conv3x3_fwd.cu) and K4's dgrad (conv3x3_bwd.cu).
 //
 // Per tenant t the conv is the GEMM  out[M, cout] = patches[M, K] x W[K, cout]
@@ -10,18 +10,24 @@
 // zero-padding the halo by a bounds check.
 //
 // Geometry: the GEMM's rows are the pixels of an Hr x Wr grid; A reads a
-// source grid of Hs x Ws pixels. The forward (kFlipW = false) at stride s:
-// row (oh, ow) is an output pixel, Hs x Ws the input, and tap (kh, kw)
-// reads input (s*oh - 1 + kh, s*ow - 1 + kw) — at stride 2 an input of
-// another size than the output (28 -> 14, 7 -> 4: the bottom pad row of an
-// odd input is read, and the bounds check zeroes it). The dgrad
-// (kFlipW = true): row (ih, iw) is an input pixel, the source is dy, and
-// the weights are read flipped in space and transposed in channels; at
-// stride 1 tap (kh', kw') reads dy at (ih - 1 + kh', iw - 1 + kw'), at
-// stride 2 it reads dy at ((ih - 1 + kh') / 2, (iw - 1 + kw') / 2) where
-// both are even and inside dy, and nothing otherwise: all 9 taps are
-// masked by parity (1, 2, 2 or 4 live, by the parity of (ih, iw)), the
-// simple design, which spends about 4x the useful FMAs.
+// source grid of Hs x Ws pixels, tap (kh, kw) at offset (kh - org, kw -
+// org) from the row's source pixel. The forward (kFlipW = false) at stride
+// s and pad p (org = p): row (oh, ow) is an output pixel, Hs x Ws the
+// input, and tap (kh, kw) reads input (s*oh - p + kh, s*ow - p + kw) — at
+// stride 2 an input of another size than the output (28 -> 14, 7 -> 4 at
+// pad 1: the bottom pad row of an odd input is read, and the bounds check
+// zeroes it; 84 -> 41 at pad 0: the last row is read by no output). The
+// dgrad (kFlipW = true, org = 2 - p): row (ih, iw) is an input pixel, the
+// source is dy, and the weights are read flipped in space and transposed
+// in channels; at stride 1 tap (kh', kw') reads dy at (ih - org + kh',
+// iw - org + kw') — at pad 0 dy is the smaller grid (82 x 82 against the
+// 84 x 84 rows: the "full" correlation, its halo zeroed by the bounds
+// check) — and at stride 2 it reads dy at ((ih - org + kh') / 2, (iw - org
+// + kw') / 2) where both are even and inside dy, and nothing otherwise:
+// all 9 taps are masked by parity (1, 2, 2 or 4 live, by the parity of
+// (ih, iw)), the simple design, which spends about 4x the useful FMAs.
+// The pad moves the taps' origin only: the loop, its loads and its FMA
+// order are those of pad 1.
 //
 // Tile: 256 pixels x 16 channels per block of 128 threads; K in stages of 16
 // through shared memory. Thread (rg = tid / 4, cg = tid % 4) owns rows
@@ -51,6 +57,7 @@ struct __align__(16) ConvTileSmem {
   int row_base[kBM];          // element offset of that pixel (dgrad at
                               // stride 2: of its image) in the source
   int k_dh[kBK];              // tap offsets of each k in the stage
+                              // (kh - org, kw - org)
   int k_dw[kBK];
   int k_delta[kBK];           // element offset of the tap from the pixel
                               // (dgrad at stride 2: its channel)
@@ -61,11 +68,13 @@ struct __align__(16) ConvTileSmem {
 // M = N*Hr*Wr pixels of the Hr x Wr grid. kFlipW selects the dgrad weight
 // view: w then holds the FORWARD weights (3, 3, cout, cin) and the kernel
 // reads w'[kh][kw][ci][co] = w[2-kh][2-kw][co][ci], the transposed conv
-// that maps dy to dx. At kStride = 1, Hr = Hs and Wr = Ws.
+// that maps dy to dx. org is the taps' origin: the pad for the forward,
+// 2 - pad for the dgrad. At kStride = 1 and pad 1, Hr = Hs and Wr = Ws; at
+// pad 0 the forward's rows are the smaller grid, the dgrad's the larger.
 template <int kStride, bool kFlipW>
 __device__ __forceinline__ void conv3x3_tile(
     const float* __restrict__ x, const float* __restrict__ w, int Hs, int Ws,
-    int Hr, int Wr, int M, int cin, int cout, int m0, int n0,
+    int Hr, int Wr, int M, int cin, int cout, int org, int m0, int n0,
     ConvTileSmem& s, float acc[kTM][kTN]) {
   static_assert(kStride == 1 || kStride == 2, "stride 1 or 2");
   // the dgrad at stride 2 gathers dy by parity; every other mode reads the
@@ -114,8 +123,8 @@ __device__ __forceinline__ void conv3x3_tile(
       if (k < K) {
         const int kpos = k / cin;
         const int ci = k - kpos * cin;
-        const int dh = kpos / 3 - 1;
-        const int dw = kpos % 3 - 1;
+        const int dh = kpos / 3 - org;
+        const int dw = kpos % 3 - org;
         s.k_dh[tid] = dh;
         s.k_dw[tid] = dw;
         s.k_delta[tid] = kParity ? ci : (dh * Ws + dw) * cin + ci;

@@ -13,9 +13,11 @@ carries a leading ``T`` axis (each tenant adapts its own copy) while frozen
 parameters are shared, and the returned BN state is per tenant
 ``(T, steps, f)``.
 
-The port covers padded convs, both norm layers, both block orders and
-both geometries. ``block_order='conv_norm_relu'`` (the reference's block)
-normalizes the conv output; ``'norm_conv_relu'`` normalizes the block
+The port covers padded and unpadded convs (``conv_padding``: pad 1, or a
+valid 3x3 window, 84 -> 82 at mini-ImageNet's stage 0), both norm
+layers, both block orders and both geometries.
+``block_order='conv_norm_relu'`` (the reference's block) normalizes the
+conv output; ``'norm_conv_relu'`` normalizes the block
 INPUT (gamma, beta and the running statistics sized to its channels, JAX
 ``models/vgg.py`` :110, :271), then conv + bias and leaky-ReLU. With
 ``norm_layer='layer_norm'`` the norm is a layer norm over each image's
@@ -31,8 +33,10 @@ that computes the config's order (``blocks_for``: plain ops on the CPU,
 the hand-written kernels on the card, differentiable twice); in the
 strided model the last block also takes the global average pool, so that
 the block given to ``apply`` decides how it is computed. A block of the
-other order or the other norm raises. Unpadded convs raise
-``NotImplementedError`` naming the missing kernel.
+other order or the other norm raises. A strided unpadded geometry whose
+conv output vanishes (Omniglot's 28 -> 13 -> 6 -> 2 -> 0) raises
+``ValueError`` naming the stage; the config already refuses a pooled
+one.
 """
 
 from __future__ import annotations
@@ -49,7 +53,8 @@ from ..ops import functional as F
 
 Params = Dict[str, torch.Tensor]
 BNState = Dict[str, torch.Tensor]
-#: ``block(x, w, b, gamma, beta, stats_impl, stride=, pool=, gap=) ->
+#: ``block(x, w, b, gamma, beta, stats_impl, stride=, pool=, gap=,
+#: padding=) ->
 #: (out, mean, var)`` (``(out, None, None)`` for a layer norm), with a
 #: ``block_order`` attribute naming the order of the layers it computes
 #: (``conv_norm_relu`` or ``norm_conv_relu``) and a ``norm_layer``
@@ -78,11 +83,16 @@ def blocks_for(cfg: MAMLConfig) -> Tuple[BlockFn, BlockFn]:
 
 
 def check_supported(cfg: MAMLConfig) -> None:
-    """Raise ``NotImplementedError`` for a model outside the port."""
-    if not cfg.conv_padding:
-        raise NotImplementedError(
-            "not ported yet: conv_padding=False (unpadded 3x3 conv kernel)"
-        )
+    """Raise ``ValueError`` for a geometry with no conv output: an unpadded
+    strided stage whose input is under 3 pixels (the JAX package fails on
+    it at trace time; ``MAMLConfig`` refuses the pooled case itself)."""
+    for stage, (h, w, ch, cw, _, _) in enumerate(_stage_dims(cfg)):
+        if ch < 1 or cw < 1:
+            raise ValueError(
+                f"the strided unpadded geometry vanishes at stage {stage}: "
+                f"the 3x3 conv of its {h}x{w} input has no output "
+                f"({cfg.image_height}x{cfg.image_width}, "
+                f"num_stages={cfg.num_stages})")
 
 
 def _stage_dims(cfg: MAMLConfig):
@@ -220,6 +230,7 @@ def apply(cfg: MAMLConfig, params: Params, bn_state: BNState,
                        and not cfg.enable_inner_loop_optimizable_bn_params)
     stats_impl = cfg.resolved_bn_stats_impl(x.device)
     stride = 1 if cfg.max_pooling else 2
+    pad = 1 if cfg.conv_padding else 0
     n_tenants = x.shape[0]
     out = x.to(dtype)
     new_bn: BNState = {}
@@ -229,15 +240,15 @@ def apply(cfg: MAMLConfig, params: Params, bn_state: BNState,
         if per_step_affine:
             gamma, beta = gamma[step], beta[step]
         # the batch statistics' count: the pixels of the normalized
-        # tensor, the block input or the conv output
+        # tensor, the block input or the conv output (at the conv's pad)
         hw = out.shape[2:4] if norm_first else F.conv_out_hw(
-            out.shape[2], out.shape[3], stride)
+            out.shape[2], out.shape[3], stride, pad)
         stats_n = out.shape[1] * math.prod(hw)
         out, mean, var = block(
             out, params[f"conv{i}.conv.weight"].to(dtype),
             params[f"conv{i}.conv.bias"].to(dtype), gamma, beta, stats_impl,
             stride=stride, pool=cfg.max_pooling,
-            gap=not cfg.max_pooling and i == cfg.num_stages - 1,
+            gap=not cfg.max_pooling and i == cfg.num_stages - 1, padding=pad,
         )
         mean_key, var_key = f"conv{i}.norm.mean", f"conv{i}.norm.var"
         if mean_key not in bn_state:

@@ -251,16 +251,17 @@ def conv_bn_act_pool(x: Tensor, w: Tensor, b: Tensor, gamma: Tensor,
                      beta: Tensor, stats_impl: str = "twopass",
                      eps: float = BN_EPS,
                      negative_slope: float = LEAKY_SLOPE, stride: int = 1,
-                     pool: bool = True, gap: bool = False
+                     pool: bool = True, gap: bool = False, padding: int = 1
                      ) -> Tuple[Tensor, Tensor, Tensor]:
     """The model's block in plain ops, differentiable by autograd: 3x3 conv
-    (``stride``, pad 1) + bias -> batch norm -> leaky-ReLU, then the 2x2
-    max pool when ``pool`` (the max-pooling model) and the global average
-    pool when ``gap`` (the last block of the strided model).
+    (``stride``, ``padding``: 1, or 0 for ``conv_padding=False``) + bias
+    -> batch norm -> leaky-ReLU, then the 2x2 max pool when ``pool`` (the
+    max-pooling model) and the global average pool when ``gap`` (the last
+    block of the strided model).
 
     Returns ``(out, batch_mean, batch_var)``; the statistics are detached
     (they only feed the running-stat update, which no gradient reads)."""
-    y = conv2d(x, w, b, stride, 1)
+    y = conv2d(x, w, b, stride, padding)
     mean, var = batch_stats(y, stats_impl)
     inv = torch.rsqrt(var + eps).to(y.dtype)
     z = (y - _per_channel(mean, y)) * _per_channel(inv, y)
@@ -274,11 +275,12 @@ def norm_conv_act_pool(x: Tensor, w: Tensor, b: Tensor, gamma: Tensor,
                        beta: Tensor, stats_impl: str = "twopass",
                        eps: float = BN_EPS,
                        negative_slope: float = LEAKY_SLOPE, stride: int = 1,
-                       pool: bool = True, gap: bool = False
+                       pool: bool = True, gap: bool = False, padding: int = 1
                        ) -> Tuple[Tensor, Tensor, Tensor]:
     """The norm-first block (``block_order='norm_conv_relu'``) in plain
     ops, differentiable by autograd: batch norm of the block INPUT (gamma
-    and beta sized to its channels) -> 3x3 conv (``stride``, pad 1) + bias
+    and beta sized to its channels) -> 3x3 conv (``stride``, ``padding``)
+    + bias
     -> leaky-ReLU, then the 2x2 max pool when ``pool`` and the global
     average pool when ``gap`` (the JAX package's ``models/vgg.py`` :271,
     :288, :300, :302, :304-305).
@@ -290,8 +292,8 @@ def norm_conv_act_pool(x: Tensor, w: Tensor, b: Tensor, gamma: Tensor,
     z = (x - _per_channel(mean, x)) * _per_channel(inv, x)
     z = z * _per_channel(gamma.to(x.dtype), x) + _per_channel(
         beta.to(x.dtype), x)
-    out = _act_pool_gap(conv2d(z, w, b, stride, 1), negative_slope, pool,
-                        gap)
+    out = _act_pool_gap(conv2d(z, w, b, stride, padding), negative_slope,
+                        pool, gap)
     return out, mean.detach(), var.detach()
 
 
@@ -299,10 +301,11 @@ def conv_ln_act_pool(x: Tensor, w: Tensor, b: Tensor, gamma: Tensor,
                      beta: Tensor, stats_impl: str = "twopass",
                      eps: float = LN_EPS,
                      negative_slope: float = LEAKY_SLOPE, stride: int = 1,
-                     pool: bool = True, gap: bool = False
+                     pool: bool = True, gap: bool = False, padding: int = 1
                      ) -> Tuple[Tensor, None, None]:
     """The layer-norm block (``norm_layer='layer_norm'``, conv first) in
-    plain ops, differentiable by autograd: 3x3 conv (``stride``, pad 1) +
+    plain ops, differentiable by autograd: 3x3 conv (``stride``,
+    ``padding``) +
     bias -> layer norm over each image's (H, W, C) of the conv output
     (gamma and beta ``(H, W, C)`` of that shape) -> leaky-ReLU, then the
     2x2 max pool when ``pool`` and the global average pool when ``gap``
@@ -310,7 +313,7 @@ def conv_ln_act_pool(x: Tensor, w: Tensor, b: Tensor, gamma: Tensor,
 
     Returns ``(out, None, None)``: layer norm keeps no running statistics
     (``stats_impl`` is accepted for the block signature and not read)."""
-    y = layer_norm(conv2d(x, w, b, stride, 1), gamma, beta, eps)
+    y = layer_norm(conv2d(x, w, b, stride, padding), gamma, beta, eps)
     return _act_pool_gap(y, negative_slope, pool, gap), None, None
 
 
@@ -318,15 +321,16 @@ def ln_conv_act_pool(x: Tensor, w: Tensor, b: Tensor, gamma: Tensor,
                      beta: Tensor, stats_impl: str = "twopass",
                      eps: float = LN_EPS,
                      negative_slope: float = LEAKY_SLOPE, stride: int = 1,
-                     pool: bool = True, gap: bool = False
+                     pool: bool = True, gap: bool = False, padding: int = 1
                      ) -> Tuple[Tensor, None, None]:
     """The norm-first layer-norm block (``block_order='norm_conv_relu'``,
     ``norm_layer='layer_norm'``) in plain ops: layer norm of the block
-    INPUT (gamma and beta of its (H, W, C)) -> 3x3 conv + bias ->
+    INPUT (gamma and beta of its (H, W, C)) -> 3x3 conv (``stride``,
+    ``padding``) + bias ->
     leaky-ReLU -> (2x2 max pool) -> (global average pool) (JAX
     ``models/vgg.py`` :271, :288, :300-305). Returns ``(out, None,
     None)``."""
-    y = conv2d(layer_norm(x, gamma, beta, eps), w, b, stride, 1)
+    y = conv2d(layer_norm(x, gamma, beta, eps), w, b, stride, padding)
     return _act_pool_gap(y, negative_slope, pool, gap), None, None
 
 
@@ -355,19 +359,19 @@ def bn_stats(y: Tensor, eps: float = BN_EPS) -> Tuple[Tensor, Tensor, Tensor]:
 
 
 def conv3x3_fwd_stats(x: Tensor, w: Tensor, b: Tensor, eps: float = BN_EPS,
-                      stride: int = 1
+                      stride: int = 1, padding: int = 1
                       ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
-    """Twin of K1: ``y = conv3x3(x, w) + b`` (``stride``, pad 1) and y's
-    per-(tenant, channel) batch mean, biased variance and
+    """Twin of K1: ``y = conv3x3(x, w) + b`` (``stride``, ``padding``) and
+    y's per-(tenant, channel) batch mean, biased variance and
     ``rstd = 1 / sqrt(var + eps)``."""
-    y = conv2d(x, w, b, stride, 1)
+    y = conv2d(x, w, b, stride, padding)
     return (y, *bn_stats(y, eps))
 
 
 def conv3x3(x: Tensor, w: Tensor, b: Optional[Tensor] = None,
-            stride: int = 1) -> Tensor:
+            stride: int = 1, padding: int = 1) -> Tensor:
     """Twin of K1's stats-free mode: ``y = conv3x3(x, w) (+ b)``."""
-    return conv2d(x, w, b, stride, 1)
+    return conv2d(x, w, b, stride, padding)
 
 
 def _windows(a: Tensor) -> Tensor:
@@ -510,41 +514,54 @@ def bn_act_pool_bwd_bwd(a: Tensor, ggamma: Tensor, gbeta: Tensor,
     return g_dpooled, g_y, g_gamma
 
 
-def conv_out_hw(h: int, w: int, stride: int) -> Tuple[int, int]:
-    """The output size of a 3x3 pad-1 conv at ``stride``."""
-    return (h - 1) // stride + 1, (w - 1) // stride + 1
+def conv_out_hw(h: int, w: int, stride: int, padding: int = 1
+                ) -> Tuple[int, int]:
+    """The output size of a 3x3 conv at ``stride`` and ``padding``."""
+    return ((h + 2 * padding - 3) // stride + 1,
+            (w + 2 * padding - 3) // stride + 1)
 
 
 def conv3x3_dgrad(dy: Tensor, w: Tensor, stride: int = 1,
-                  in_hw: Optional[Tuple[int, int]] = None) -> Tensor:
-    """Twin of K4's dgrad: the input gradient of a 3x3 pad-1 conv. At
-    stride 1 the conv of ``dy`` with each tenant's weights flipped in
-    space and transposed in channels; at stride 2 the same conv of ``dy``
-    dilated by 2 (zeros between its pixels), cut to the input size
-    ``in_hw`` (which ``dy`` does not determine: 7 and 8 rows both give
-    4)."""
-    if stride == 1:
-        return conv2d(dy, w.flip(1, 2).transpose(-1, -2), None, 1, 1)
-    h, wd = in_hw
+                  in_hw: Optional[Tuple[int, int]] = None,
+                  padding: int = 1) -> Tensor:
+    """Twin of K4's dgrad: the input gradient of a 3x3 conv at ``stride``
+    and ``padding``, the transposed conv. At stride 1 the conv of ``dy``
+    with each tenant's weights flipped in space and transposed in channels
+    at pad ``2 - padding`` (pad 0: the "full" correlation, 82 -> 84); at
+    stride 2 the same conv of ``dy`` dilated by 2 (zeros between its
+    pixels), cut to the input size ``in_hw`` (which ``dy`` does not
+    determine: 7 and 8 rows both give 4). ``in_hw`` is required at stride
+    2 and at pad 0, and is dy's own at stride 1, pad 1."""
     t, n, ho, wo, c = dy.shape
-    if conv_out_hw(h, wd, stride) != (ho, wo):
+    if in_hw is None:
+        if stride != 1 or padding != 1:
+            raise ValueError("conv3x3_dgrad: in_hw is required at stride "
+                             f"{stride}, pad {padding}")
+        in_hw = (ho, wo)
+    h, wd = in_hw
+    if conv_out_hw(h, wd, stride, padding) != (ho, wo):
         raise ValueError(f"conv3x3_dgrad: dy {ho}x{wo} is not the stride-"
-                         f"{stride} output of a {h}x{wd} input")
-    # input pixel i reads dy at (i + 1 - k) / stride: the dilated dy,
-    # padded so that position i + 1 - k of it sits at i + (2 - k)
+                         f"{stride} output of a {h}x{wd} input at pad "
+                         f"{padding}")
+    w_t = w.flip(1, 2).transpose(-1, -2)
+    if stride == 1:
+        return conv2d(dy, w_t, None, 1, 2 - padding)
+    # input pixel i reads dy at (i + padding - k) / stride: the dilated dy,
+    # padded so that position i + padding - k of it sits at i + (2 - k)
+    off = 2 - padding
     dil = dy.new_zeros(t, n, h + 2, wd + 2, c)
-    dil[:, :, 1:1 + stride * ho:stride, 1:1 + stride * wo:stride] = dy
-    return conv2d(dil, w.flip(1, 2).transpose(-1, -2), None, 1, 0)
+    dil[:, :, off:off + stride * ho:stride, off:off + stride * wo:stride] = dy
+    return conv2d(dil, w_t, None, 1, 0)
 
 
-def conv3x3_wgrad(x: Tensor, dy: Tensor, stride: int = 1
+def conv3x3_wgrad(x: Tensor, dy: Tensor, stride: int = 1, padding: int = 1
                   ) -> Tuple[Tensor, Tensor]:
     """Twin of K4's wgrad: ``dW[t] = patches(x[t])^T @ dy[t]`` in HWIO
-    (the patches of the ``stride`` conv) and ``db[t] = sum(dy[t])`` over
-    (N, Ho, Wo)."""
+    (the patches of the ``stride``, ``padding`` conv) and ``db[t] =
+    sum(dy[t])`` over (N, Ho, Wo)."""
     t, _, _, _, cin = x.shape
     cout = dy.shape[-1]
-    patches = im2col(x, 3, 3, stride, 1).reshape(t, -1, 9 * cin)
+    patches = im2col(x, 3, 3, stride, padding).reshape(t, -1, 9 * cin)
     dw = torch.matmul(patches.transpose(1, 2), dy.reshape(t, -1, cout))
     return dw.reshape(t, 3, 3, cin, cout), dy.sum((1, 2, 3))
 

@@ -17,7 +17,8 @@ config's field, as the JAX package's command line overrides any field
 conv_norm_relu|norm_conv_relu`` likewise (``norm_conv_relu``: the
 norm-first block), and ``--norm_layer batch_norm|layer_norm``
 (``layer_norm``: a layer norm over each image's (H, W, C) in place of the
-batch norm, in either block order).
+batch norm, in either block order), and ``--conv_padding true|false``
+(``false``: the unpadded model, every 3x3 conv a valid window).
 
 Prints ONE JSON line: adapt latency p50/p95, ``tenants_per_sec``,
 dispatches, tenants, the ``ingest`` and ``h2d_bytes_per_dispatch`` (the
@@ -43,6 +44,9 @@ ported yet.
     python -m howtotrainyourmamlpytorch_tpu_torch.cli serve-bench \\
         --config experiment_config/mini-imagenet_maml++-mini-imagenet_5_5_2_0.01_48_0.json \\
         --norm_layer layer_norm --requests 16 --ingest index
+    python -m howtotrainyourmamlpytorch_tpu_torch.cli serve-bench \\
+        --config experiment_config/mini-imagenet_maml++-mini-imagenet_5_5_2_0.01_48_0.json \\
+        --conv_padding false --requests 16 --ingest index
 """
 
 from __future__ import annotations
@@ -127,6 +131,8 @@ def _bench_cfg(args) -> MAMLConfig:
         cfg = cfg.replace(block_order=args.block_order)
     if args.norm_layer is not None:
         cfg = cfg.replace(norm_layer=args.norm_layer)
+    if args.conv_padding is not None:
+        cfg = cfg.replace(conv_padding=args.conv_padding)
     return cfg
 
 
@@ -229,6 +235,9 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--norm_layer", choices=NORM_LAYERS, default=None,
                         help="override the config's norm_layer, as the JAX "
                              "command line does")
+    parser.add_argument("--conv_padding", type=bool_arg, default=None,
+                        help="override the config's conv_padding (true or "
+                             "false), as the JAX command line does")
     parser.add_argument("--device", default=None,
                         help="torch device (default cuda:0; 'cpu' runs the "
                              "plain PyTorch ops)")
@@ -288,6 +297,7 @@ def run(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         "max_pooling": cfg.max_pooling,
         "block_order": cfg.block_order,
         "norm_layer": cfg.norm_layer,
+        "conv_padding": cfg.conv_padding,
         "kernel_launches": {k: after[k] - before[k] for k in after},
         "kernel_launches_per_dispatch": per_dispatch,
         "per_dispatch": dispatches,

@@ -6,7 +6,9 @@ strided one (stride-2 convs, the pool-free K2/K3/K5, the global average
 pool) and the norm-first block (``bn_input_stats``, K2/K3/K5 at slope 1,
 the leaky-ReLU + pool kernels, K1 stats-free and dgrad at cin 1 and 3),
 and the layer-norm blocks (``layer_norm_stats/fwd/bwd/bwd_bwd``, both
-orders, pooled and strided); and the ingest kernel ``episode_expand``
+orders, pooled and strided); the conv kernels at pad 0 (the unpadded
+models, ``conv_padding=False``) and the unpadded blocks' derivatives;
+and the ingest kernel ``episode_expand``
 equal to its twin bit for bit (it is a pure lookup).
 These need the card: marked ``cuda``, they skip where
 ``torch.cuda.is_available()`` is false. On the card (``--noconftest``:
@@ -491,6 +493,128 @@ def test_layer_norm_block_derivatives_match_plain_autograd(order, kw,
     for a, c_, leaf in zip(*seconds, inputs):
         _close(torch.zeros_like(leaf) if a is None else a,
                torch.zeros_like(leaf) if c_ is None else c_)
+
+
+UNPADDED_SHAPES = [
+    # (T, N, H, W, cin, cout, stride): the valid 3x3 conv (pad 0) at the
+    # mini-ImageNet unpadded models' stage inputs, pooled (84 -> 82, 41 ->
+    # 39, 19 -> 17, 8 -> 6) and strided (84 -> 41, 41 -> 20, 20 -> 9, 9
+    # -> 4; the last row of an even input is read by no output), then
+    # ragged ones: odd by even, a 3x3 input (one output pixel), channel
+    # counts that fill no tile
+    (2, 3, 84, 84, 3, 48, 1), (2, 3, 41, 41, 48, 48, 1),
+    (2, 3, 19, 19, 48, 48, 1), (2, 3, 8, 8, 48, 48, 1),
+    (2, 3, 84, 84, 3, 48, 2), (2, 3, 41, 41, 48, 48, 2),
+    (2, 3, 20, 20, 48, 48, 2), (2, 3, 9, 9, 48, 48, 2),
+    (2, 4, 7, 8, 3, 20, 1), (2, 4, 7, 8, 3, 20, 2),
+    (1, 2, 3, 3, 17, 33, 1), (1, 2, 3, 3, 17, 33, 2),
+]
+
+
+@pytest.mark.parametrize("shape", UNPADDED_SHAPES, ids=str)
+def test_unpadded_conv_kernels_match_their_twins(shape, device):
+    """K1 with statistics and stats-free (with and without bias), dgrad
+    (back to cin 3 at the image layer, as the norm-first model's stage 0
+    takes it) and wgrad at pad 0, each against its twin, one launch per
+    call on the pad-0 counters; dgrad needs ``in_hw`` at pad 0."""
+    *dims, stride = shape
+    x, w, b, _, _ = _inputs(tuple(dims), device, seed=sum(shape))
+    H, W = dims[2:4]
+    kw = dict(stride=stride, padding=0)
+    cb.reset_launches()
+    got = cb.conv3x3_fwd_stats(x, w, b, **kw)
+    want = F.conv3x3_fwd_stats(x, w, b, **kw)
+    assert want[0].shape[2:4] == F.conv_out_hw(H, W, stride, 0)
+    for a, c in zip(got, want):
+        _close(a, c)
+    _close(cb.conv3x3_fwd(x, w, b, **kw), F.conv3x3(x, w, b, **kw))
+    _close(cb.conv3x3_fwd(x, w, None, **kw), F.conv3x3(x, w, **kw))
+    dy = torch.randn(want[0].shape, device=device)
+    dx = cb.conv3x3_dgrad(dy, w, stride, (H, W), 0)
+    _close(dx, F.conv3x3_dgrad(dy, w, stride, (H, W), 0))
+    if stride == 2 and H % 2 == 0:  # the unread last row and column
+        assert not dx[:, :, -1].any() and not dx[:, :, :, -1].any()
+    for a, c in zip(cb.conv3x3_wgrad(x, dy, **kw),
+                    F.conv3x3_wgrad(x, dy, **kw)):
+        _close(a, c)
+    with pytest.raises(ValueError, match="in_hw is required"):
+        cb.conv3x3_dgrad(dy, w, stride, None, 0)
+    tag = "s2_p0" if stride == 2 else "p0"
+    assert cb.launches() == {
+        **{k: 0 for k in cb.KERNELS},
+        **{f"conv3x3_{tag}_{k}": 1 for k in ("fwd_stats", "dgrad", "wgrad")},
+        f"conv3x3_{tag}_fwd": 2}
+    torch.cuda.synchronize()
+
+
+def test_unpadded_wrappers_reject_a_vanishing_output(device):
+    """A 2x2 input has no valid 3x3 conv output: the wrappers raise before
+    any launch; so does a pad the kernels do not take."""
+    x, w, b, _, _ = _inputs((1, 2, 2, 2, 4, 4), device)
+    cb.reset_launches()
+    for stride in (1, 2):
+        with pytest.raises(ValueError, match="no pad-0"):
+            cb.conv3x3_fwd_stats(x, w, b, stride=stride, padding=0)
+        with pytest.raises(ValueError, match="no pad-0"):
+            cb.conv3x3_fwd(x, w, b, stride, 0)
+    with pytest.raises(ValueError, match="pad 1 or 0"):
+        cb.conv3x3_fwd(x, w, b, 1, 2)
+    assert set(cb.launches().values()) == {0}
+
+
+@pytest.mark.parametrize("block", [
+    "conv_bn", "conv_bn_strided_gap", "norm_first", "conv_ln", "ln_conv"])
+def test_unpadded_block_derivatives_match_plain_autograd(block, device):
+    """The unpadded blocks (pad 0): first derivatives, then a scalar of
+    them differentiated again, on the kernels against autograd of the
+    plain block; a second derivative that is 0 (the conv bias through
+    batch norm, or where autograd finds no path) is held to the largest
+    entry of all."""
+    T, N, H, W, cin, cout = 2, 3, 12, 11, 8, 8
+    kw = dict(padding=0)
+    if block == "conv_bn_strided_gap":
+        kw.update(stride=2, pool=False, gap=True)
+    pair = {"conv_bn": (cb.conv_bn_act_pool, F.conv_bn_act_pool),
+            "conv_bn_strided_gap": (cb.conv_bn_act_pool, F.conv_bn_act_pool),
+            "norm_first": (cb.norm_conv_act_pool, F.norm_conv_act_pool),
+            "conv_ln": (cb.conv_ln_act_pool, F.conv_ln_act_pool),
+            "ln_conv": (cb.ln_conv_act_pool, F.ln_conv_act_pool)}[block]
+    g = torch.Generator().manual_seed(8)
+
+    def r(*s, scale=1.0):
+        return (torch.randn(*s, generator=g) * scale).to(device)
+
+    conv_hw = F.conv_out_hw(H, W, kw.get("stride", 1), 0)
+    norm = {"conv_bn": (cout,), "conv_bn_strided_gap": (cout,),
+            "norm_first": (cin,), "conv_ln": (*conv_hw, cout),
+            "ln_conv": (H, W, cin)}[block]
+    inputs = (r(T, N, H, W, cin), r(T, 3, 3, cin, cout, scale=0.3),
+              r(T, cout, scale=0.1), 1 + r(*norm, scale=0.1),
+              r(T, *norm, scale=0.1))
+    firsts, seconds = [], []
+    for fn in pair:
+        leaves = [t.clone().requires_grad_(True) for t in inputs]
+        out, _, _ = fn(*leaves, **kw)
+        rng = np.random.RandomState(5)
+        ct = torch.from_numpy(
+            rng.randn(*out.shape).astype(np.float32)).to(device)
+        first = torch.autograd.grad((out * ct).sum(), leaves,
+                                    create_graph=True)
+        firsts.append([f.detach() for f in first])
+        scalar = sum((gr * torch.from_numpy(
+            rng.randn(*gr.shape).astype(np.float32)).to(device)).sum()
+            for gr in first)
+        seconds.append(torch.autograd.grad(scalar, leaves,
+                                           allow_unused=True))
+    for a, c in zip(*firsts):
+        _close(a, c)
+    scale = max(c.abs().max().item() for c in seconds[1] if c is not None)
+    for a, c, leaf in zip(*seconds, inputs):
+        a = torch.zeros_like(leaf) if a is None else a
+        c = torch.zeros_like(leaf) if c is None else c
+        err = (a.double() - c.double()).abs().max().item()
+        own = c.double().abs().max().item()
+        assert err <= 1e-5 + 1e-4 * (own if own > 1e-3 * scale else scale)
 
 
 # (rows in the store, H = W, C, tasks, classes, columns, support columns)

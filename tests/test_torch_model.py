@@ -171,15 +171,48 @@ def test_init_and_feature_dim_match_jax():
             k: tuple(v.shape) for k, v in jbn.items()}
 
 
+def _unpadded_matches_jax(change, hw=10):
+    """``vgg.init`` shapes and ``vgg.apply`` logits and new BN state of
+    the model ``change`` describes against the JAX package's."""
+    jcfg, cfg = _cfgs(hw, "twopass", **change)
+    params, bn = vgg.init(cfg, torch.Generator().manual_seed(0))
+    jparams, jbn = jax_vgg.init(jcfg, jax.random.PRNGKey(0))
+    assert {k: tuple(v.shape) for k, v in params.items()} == {
+        k: tuple(v.shape) for k, v in jparams.items()}
+    assert {k: tuple(v.shape) for k, v in bn.items()} == {
+        k: tuple(v.shape) for k, v in jbn.items()}
+    net, bn = _state(jcfg)
+    x = np.random.RandomState(1).rand(3, hw, hw, 3).astype(np.float32)
+    jlogits, jnew = jax_vgg.apply(
+        jcfg, {k: jnp.asarray(v) for k, v in net.items()},
+        {k: jnp.asarray(v) for k, v in bn.items()}, jnp.asarray(x), 1)
+    logits, new = vgg.apply(cfg, {k: torch.from_numpy(v)
+                                  for k, v in net.items()},
+                            {k: torch.from_numpy(v) for k, v in bn.items()},
+                            torch.from_numpy(x), 1)
+    _close(logits, jlogits, VALUE_TOL, "logits")
+    for k, v in jnew.items():
+        _close(new[k], v, VALUE_TOL, k)
+
+
 @pytest.mark.parametrize("change", [
     dict(conv_padding=False), dict(conv_padding=False, max_pooling=False),
     dict(block_order="norm_conv_relu", conv_padding=False),
 ])
 def test_uncovered_models_raise(change):
-    """A model outside the slice raises, naming what is missing."""
-    _, cfg = _cfgs(10, "twopass", **change)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        vgg.init(cfg, torch.Generator().manual_seed(0))
-    state = state_lib.init_state(_cfgs(10, "twopass")[1], device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        vgg.apply(cfg, state.net, state.bn, torch.zeros(1, 10, 10, 3), 0)
+    """The unpadded models (``conv_padding=False``: 10 -> 8/4 -> 2/1
+    pooled, 10 -> 4 -> 1 strided), which raised before the port took
+    them: ``vgg.init`` shapes and ``vgg.apply`` against the JAX package.
+    What still raises is a geometry with no conv output: the unpadded
+    strided 28x28 Omniglot model (28 -> 13 -> 6 -> 2 -> 0), with
+    ``ValueError``."""
+    _unpadded_matches_jax(change)
+    if not change.get("max_pooling", True):
+        _, cfg = _cfgs(28, "twopass", image_channels=1, num_stages=4,
+                       **change)
+        with pytest.raises(ValueError, match="vanishes at stage 3"):
+            vgg.init(cfg, torch.Generator().manual_seed(0))
+        state = state_lib.init_state(_cfgs(10, "twopass")[1], device="cpu")
+        with pytest.raises(ValueError, match="vanishes at stage 3"):
+            vgg.apply(cfg, state.net, state.bn, torch.zeros(1, 28, 28, 1),
+                      0)

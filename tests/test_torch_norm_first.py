@@ -550,9 +550,28 @@ def test_a_block_of_the_other_order_raises():
 @pytest.mark.parametrize("change", [
     dict(conv_padding=False, max_pooling=False), dict(conv_padding=False)])
 def test_the_rest_of_the_norm_first_models_still_raise(change):
-    _, cfg = _cfgs(**change)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        vgg.init(cfg, torch.Generator().manual_seed(0))
+    """The unpadded norm-first models, which raised before the port took
+    them (11 -> 5 -> 2 strided, 11 -> 9/4 -> 2/1 pooled): ``vgg.init``
+    shapes and ``vgg.apply`` logits and BN state against the JAX
+    package."""
+    jcfg, cfg = _cfgs(**change)
+    params, bn = vgg.init(cfg, torch.Generator().manual_seed(0))
+    jparams, jbn = jax_vgg.init(jcfg, jax.random.PRNGKey(0))
+    assert {k: tuple(v.shape) for k, v in params.items()} == {
+        k: tuple(v.shape) for k, v in jparams.items()}
+    assert {k: tuple(v.shape) for k, v in bn.items()} == {
+        k: tuple(v.shape) for k, v in jbn.items()}
+    host = jax.device_get(jax_maml.init_state(jcfg, seed=0))
+    x = np.random.RandomState(2).rand(3, *cfg.im_shape).astype(np.float32)
+    jlogits, jnew = jax_vgg.apply(
+        jcfg, {k: jnp.asarray(v) for k, v in host.net.items()},
+        {k: jnp.asarray(v) for k, v in host.bn.items()}, jnp.asarray(x), 1)
+    logits, new = vgg.apply(
+        cfg, {k: _t(np.asarray(v)) for k, v in host.net.items()},
+        {k: _t(np.asarray(v)) for k, v in host.bn.items()}, _t(x), 1)
+    _close(logits, jlogits, VALUE_TOL, "logits")
+    for k, v in jnew.items():
+        _close(new[k], v, VALUE_TOL, k)
 
 
 # -- the steps -------------------------------------------------------------------------

@@ -379,7 +379,8 @@ def _count_function_path(monkeypatch, cfg, second_order, serve=False):
     for twin, kernel in TWINS.items():
         def counted(*a, _f=getattr(F, twin), _k=kernel, **kw):
             if depth[0] == 0:
-                calls[conv_block._conv_name(_k, kw.get("stride", 1))
+                calls[conv_block._conv_name(_k, kw.get("stride", 1),
+                                            kw.get("padding", 1))
                       if _k.startswith("conv3x3") else _k] += 1
             depth[0] += 1
             try:
@@ -422,8 +423,9 @@ def test_chip_smoke_launch_formula_counts_the_function_path(
     the twins the wrappers take on the CPU, equals the per-step formula
     ``chip_smoke.py`` holds the card's launch counters to."""
     assert set(TWINS.values()) | {
-        conv_block._conv_name(k, 2) for k in TWINS.values()
-        if k.startswith("conv3x3")} == set(conv_block.KERNELS)
+        conv_block._conv_name(k, s, p) for k in TWINS.values()
+        if k.startswith("conv3x3") for s in conv_block.STRIDES
+        for p in conv_block.PADDINGS} == set(conv_block.KERNELS)
     cfg = _formula_cfg(stages, steps, accum, max_pooling=True)
     want = _chip_smoke().expected_train_launches(cfg, second_order)
     assert _count_function_path(monkeypatch, cfg, second_order) == want
