@@ -106,9 +106,29 @@ Phases, in order; any failure raises and the exit code is non-zero:
    conv). Then the MAML (not ++) mini-ImageNet config as
    shipped (shared batch-norm parameters, no running statistics, no MSL,
    a fixed inner learning rate): 4 f32 requests, the small serve-step
-   check and 2 second-order train steps. Every kernel must have been
-   launched by some main path.
-9. Print one ``{"kernels": [...]}`` line (launches summed over all the
+   check and 2 second-order train steps.
+9. bf16 serving (``compute_dtype='bfloat16'``, the mini-ImageNet config
+   with only that field overridden): the bf16 kernels (K1 with
+   statistics, K2/K3 pooled, K4 dgrad and wgrad; ``*_bf16``) at the four
+   stages (N = 75 forward, 25 backward, T = 8) against their bf16 twins —
+   K2 equal bit for bit (pooled values and argmax), K1 (y, mean, var,
+   rstd), K3 (dy, dgamma, dbeta), dgrad and wgrad within one bf16 ulp
+   elementwise (y: one of the conv's sum and one of the bias add) or 1e-4
+   of the output's scale — timed beside the twin and the library calls
+   (grouped ``F.conv2d``, ``conv2d_input``, ``conv2d_weight`` and
+   ``F.batch_norm`` given statistics, in bf16; the convs' bounds at the
+   bf16 tensor-core rate); ``serve-bench --compute_dtype bfloat16`` with
+   the f32 and index ingests (16 requests, the bf16 launches per
+   dispatch), a bucket-8 dispatch on the kernels against the plain block
+   in bf16 (its pool's gradient to the first maximum, as the kernels')
+   within 2x that block's bf16-vs-f32 spread (preds and loss), the pool
+   ties of stage 1 and the
+   accuracy gap to f32, the index dispatch bit-identical to f32, a
+   profiled bucket-8 dispatch; and ``train-bench --compute_dtype
+   bfloat16``, which must raise ``NotImplementedError`` naming K1
+   stats-free or K5 (second order has no bf16 kernels yet). Every kernel
+   must have been launched by some main path.
+10. Print one ``{"kernels": [...]}`` line (launches summed over all the
    main paths), then the result line ``{"ok": true, "device": {...}}``
    last.
 
@@ -183,6 +203,11 @@ UNPADDED_STRIDED_STAGES = (("stage0", 84, 3), ("stage1", 41, 48),
 # gamma and beta, no running statistics, no MSL, a fixed inner LR
 MAML_JSON = ("experiment_config/"
              "mini-imagenet_maml-mini-imagenet_5_5_2_0.01_48_0.json")
+# bf16 serving: the mini-ImageNet config with only compute_dtype overridden,
+# its stages (84 -> 42 -> 21 -> 10, the pooled model at pad 1)
+BF16_ARGS = ("--compute_dtype", "bfloat16")
+BF16_STAGES = (("stage0", 84, 3), ("stage1", 42, 48), ("stage2", 21, 48),
+               ("stage3", 10, 48))
 # the index ingest's store: the mini-ImageNet test split, 20 x 600 rows
 STORE_ROWS = 12000
 # episode_expand launches per serve dispatch / train step of each ingest
@@ -271,6 +296,10 @@ REPLACES.update({
     f"conv3x3{tag}_{k}": REPLACES[f"conv3x3_{k}"]
     for tag in ("_p0", "_s2_p0")
     for k in ("fwd_stats", "dgrad", "wgrad", "fwd")})
+# the bf16 kernels replace the same ops at compute_dtype='bfloat16'
+BF16_KERNELS = ("conv3x3_fwd_stats", "bn_act_pool_fwd", "bn_act_pool_bwd",
+                "conv3x3_dgrad", "conv3x3_wgrad")
+REPLACES.update({f"{k}_bf16": REPLACES[k] for k in BF16_KERNELS})
 SOURCES = {
     "conv3x3_fwd_stats": (
         "cuda", "howtotrainyourmamlpytorch_tpu_torch/kernels/csrc/"
@@ -329,6 +358,7 @@ SOURCES.update({
     f"conv3x3{tag}_{k}": SOURCES[f"conv3x3_{k}"]
     for tag in ("_p0", "_s2_p0")
     for k in ("fwd_stats", "dgrad", "wgrad", "fwd")})
+SOURCES.update({f"{k}_bf16": SOURCES[k] for k in BF16_KERNELS})
 # the shape each kernel's line reports (a key of its records)
 REPORT_AT = {
     "conv3x3_fwd_stats": "T=8 layer1 N=75",
@@ -369,6 +399,11 @@ REPORT_AT = {
     "conv3x3_s2_p0_fwd": "unpadded strided T=8 stage1 N=25",
     "conv3x3_s2_p0_dgrad": "unpadded strided T=8 stage1 N=25",
     "conv3x3_s2_p0_wgrad": "unpadded strided T=8 stage1 N=25",
+    "conv3x3_fwd_stats_bf16": "bf16 T=8 stage0 N=75",
+    "bn_act_pool_fwd_bf16": "bf16 T=8 stage0 N=75",
+    "bn_act_pool_bwd_bf16": "bf16 T=8 stage0 N=25",
+    "conv3x3_dgrad_bf16": "bf16 T=8 stage1 N=25",
+    "conv3x3_wgrad_bf16": "bf16 T=8 stage0 N=25",
 }
 TRAIN_TASKS = (2, 8)  # the config's batch, and bench.py's per-chip default
 DEVICE = "cuda:0"
@@ -426,15 +461,20 @@ def _nchw_tenants(a):
 
 class Records:
     """{kernel: {shape label: record}} of the kernel phase: max error,
-    kernel / plain / library ms (CUDA events) and the bound."""
+    kernel / plain / library ms (CUDA events) and the bound. ``peaks`` is
+    the card's (f32 FLOP/s, bytes/s), ``tensor_core_flops`` its dense bf16
+    tensor-core rate: the peak for the products of a bf16 conv
+    (``add(..., tensor_cores=True)``), whatever units its kernel uses."""
 
-    def __init__(self, kernels, peaks):
+    def __init__(self, kernels, peaks, tensor_core_flops):
         self.by_kernel = {k: {} for k in kernels}
         self.peak_flops, self.peak_bw = peaks
+        self.tensor_core_flops = tensor_core_flops
 
     def add(self, kernel, label, err, kernel_fn, plain_fn, library_fn, flops,
-            nbytes):
-        t_ops = flops / self.peak_flops * 1e3
+            nbytes, tensor_cores=False):
+        peak = self.tensor_core_flops if tensor_cores else self.peak_flops
+        t_ops = flops / peak * 1e3
         t_bytes = nbytes / self.peak_bw * 1e3
         by = "operations" if t_ops > t_bytes else "bytes"
         r = {
@@ -1555,22 +1595,23 @@ def _by_kernel(cfg, per_role, gap_fwd, gap_bwd):
     kernels, or the strided model's (``conv3x3_s2_*``, the pool-free
     ``bn_act_*`` / ``act_*``) with its global average pool, the conv
     kernels at the model's pad (``conv3x3_p0_*`` / ``conv3x3_s2_p0_*``
-    unpadded); every other kernel 0. Pool-free, the pool's gather is
-    ``act_bwd`` again (its own adjoint), so roles add up."""
+    unpadded), each on its ``_bf16`` counter in bf16; every other kernel
+    0. Pool-free, the pool's gather is ``act_bwd`` again (its own
+    adjoint), so roles add up."""
     from howtotrainyourmamlpytorch_tpu_torch.kernels import conv_block as cb
 
     strided = not cfg.max_pooling
     stride, pad = (2 if strided else 1), (1 if cfg.conv_padding else 0)
-    out = {name: 0 for pair in ROLE_KERNELS.values() for name in pair}
-    out.update({name: 0 for name in cb.KERNELS
-                if name.startswith("conv3x3")})
+    tag = "_bf16" if cfg.compute_dtype == "bfloat16" else ""
+    out = {name: 0 for name in cb.KERNELS}
     swap = (LAYER_NORM_ROLES[cfg.block_order]
             if cfg.norm_layer == "layer_norm" else {})
     for role, n in per_role.items():
         for r in swap.get(role, (role,)):
             name = (cb._conv_name(CONV_ROLES[r], stride, pad)
                     if r in CONV_ROLES else ROLE_KERNELS[r][strided])
-            out[name] += n
+            if n:
+                out[name + tag] += n
     out[GAP_KERNELS[0]] = gap_fwd if strided else 0
     out[GAP_KERNELS[1]] = gap_bwd if strided else 0
     return out
@@ -1906,9 +1947,11 @@ def profile_dispatch(cfg, ingest="f32", small=True, store_rows=STORE_ROWS):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             dr = engine.serve_group(group)
+        model = (" of the bf16 model" if cfg.compute_dtype == "bfloat16"
+                 else "")
         _profile_report(prof, dr.adapt_ms,
-                        f"profiled {ingest} bucket-{dr.bucket} dispatch "
-                        f"({dr.tenants} tenants, {dr.shots} shots, "
+                        f"profiled {ingest} bucket-{dr.bucket} dispatch"
+                        f"{model} ({dr.tenants} tenants, {dr.shots} shots, "
                         f"{dr.ingest_bytes} B uploaded)")
 
 
@@ -2258,7 +2301,7 @@ def _plain_block(F, log, replay=False, norm_first=False, layer_norm=False,
     entries = iter(log)
 
     def affine(t, mean, var, gamma, beta):
-        inv = torch.rsqrt(var + F.BN_EPS).to(t.dtype)
+        inv = F.rsqrt_eps(var, F.BN_EPS)
         t = (t - F._per_channel(mean, t)) * F._per_channel(inv, t)
         return t * F._per_channel(gamma.to(t.dtype), t) + F._per_channel(
             beta.to(t.dtype), t)
@@ -2297,7 +2340,8 @@ def _plain_block(F, log, replay=False, norm_first=False, layer_norm=False,
             else:
                 positive = z >= 0
                 log.append((None, positive))
-            out = torch.where(positive, z, F.LEAKY_SLOPE * z)
+            out = torch.where(positive, z, F.scalar_like(F.LEAKY_SLOPE, z)
+                              * z)
             if gap:
                 out = F.global_avg_pool2d(out)
             return (out, *stats)
@@ -2314,7 +2358,8 @@ def _plain_block(F, log, replay=False, norm_first=False, layer_norm=False,
         if not replay:
             positive = z_at >= 0
             log.append((arg.to(torch.uint8), positive))
-        pooled = torch.where(positive, z_at, F.LEAKY_SLOPE * z_at)
+        pooled = torch.where(positive, z_at,
+                             F.scalar_like(F.LEAKY_SLOPE, z_at) * z_at)
         return (pooled, *stats)
     block.block_order = "norm_conv_relu" if norm_first else "conv_norm_relu"
     block.norm_layer = "layer_norm" if layer_norm else "batch_norm"
@@ -2571,7 +2616,8 @@ def run_serve_bench(ks, cfg, ingest, config=FLAGSHIP,
             and line["max_pooling"] == cfg.max_pooling
             and line["block_order"] == cfg.block_order
             and line["norm_layer"] == cfg.norm_layer
-            and line["conv_padding"] == cfg.conv_padding):
+            and line["conv_padding"] == cfg.conv_padding
+            and line["dtype"] == cfg.compute_dtype):
         raise AssertionError(f"serve-bench line is incomplete: {line}")
     print(f"[serve] {name} {ingest}: tenants_per_sec {tps}  adapt_ms p50 "
           f"{line['adaptation_latency_ms_p50']}  p95 "
@@ -2653,6 +2699,276 @@ def check_index_bit_identical(cfg, store_rows=STORE_ROWS):
     if index.bucket != 8 or not same:
         raise AssertionError("index-ingest dispatch differs from the f32 "
                              "dispatch on the same pixels")
+
+# -- bf16 serving -------------------------------------------------------------
+
+
+def bf16_ulp(v):
+    """The spacing of bf16 at each |v| (8 significant bits)."""
+    _, e = torch.frexp(v.double().abs().clamp_min(2.0 ** -126))
+    return torch.ldexp(torch.ones_like(v, dtype=torch.float64), e - 8)
+
+
+def within_ulp(name, got, want, ulps=None):
+    """Phase 9's gate of the bf16 kernels that round f32 sums to bf16 (K1,
+    K3, K4): |got - want| within ``ulps``
+    (default one bf16 ulp of want) elementwise, or 1e-4 of max |want|
+    where that is larger; returns max |got - want|."""
+    if got.dtype != torch.bfloat16 or got.shape != want.shape:
+        raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)}, "
+                             f"expected bf16 {tuple(want.shape)}")
+    diff = (got.double() - want.double()).abs()
+    tol = bf16_ulp(want) if ulps is None else ulps
+    tol = torch.clamp_min(tol, 1e-4 * want.double().abs().max().item())
+    bad = int((diff > tol).sum())
+    if bad or not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: {bad} elements beyond one bf16 ulp "
+                             f"(max |kernel - twin| {diff.max().item():.3e})")
+    return diff.max().item()
+
+
+def check_bf16_kernels(cb, F, records, T=T_TENANTS, C=COUT):
+    """Phase 9, the bf16 kernels at the bf16 model's four stages: K1 and
+    K2 at N = 75 (the target forward), K3, dgrad (stages 1-3) and wgrad at
+    N = 25 (the support backward), against their bf16 twins; timed beside
+    the twin and the library call in bf16 (K4 on a random dy). Bound:
+    2-byte elements, and the convs' products at the bf16 tensor-core rate
+    (the least time the card needs for a bf16 product, though the kernels
+    multiply on FFMA)."""
+    randn = _randn(torch.Generator(device="cuda").manual_seed(9))
+    bf = torch.bfloat16
+    nn = torch.nn.functional
+    for stage, hw, cin in BF16_STAGES:
+        for n in (75, 25):
+            label = f"bf16 T={T} {stage} N={n}"
+            M = n * hw * hw
+            x = randn(T, n, hw, hw, cin).to(bf)
+            w = randn(T, 3, 3, cin, C, scale=math.sqrt(2.0 / (9 * cin)))
+            w = w.to(bf)
+            b = randn(T, C, scale=0.1).to(bf)
+            gamma = (1.0 + randn(T, C, scale=0.1)).to(bf)
+            beta = randn(T, C, scale=0.1).to(bf)
+            y, mean, var, rstd = cb.conv3x3_fwd_stats(x, w, b)
+            want = F.conv3x3_fwd_stats(x, w, b)
+            y_ulps = bf16_ulp(want[0]) + bf16_ulp(F.conv3x3(x, w))
+            err = max([within_ulp("conv3x3_fwd_stats_bf16 y", y, want[0],
+                                  y_ulps)]
+                      + [within_ulp(f"conv3x3_fwd_stats_bf16 {what}", a, c)
+                         for what, a, c in zip(("mean", "var", "rstd"),
+                                               (mean, var, rstd), want[1:])])
+            del y_ulps
+            y, mean, _, rstd = want
+            pooled, arg = cb.bn_act_pool_fwd(y, mean, rstd, gamma, beta)
+            pooled_p, arg_p = F.bn_act_pool_fwd(y, mean, rstd, gamma, beta)
+            if not (torch.equal(pooled, pooled_p)
+                    and torch.equal(arg, arg_p)):
+                raise AssertionError(f"bn_act_pool_fwd_bf16 @ {label}: not "
+                                     "bit for bit its twin")
+            xl = _nchw_tenants(x)
+            wl = w.permute(0, 4, 3, 1, 2).reshape(T * C, cin, 3, 3)
+            wl = wl.contiguous()
+            if n == 75:
+                yl = _nchw_tenants(y)
+                flat = [v.reshape(-1).float() for v in (mean, var, gamma,
+                                                        beta)]
+                records.add(
+                    "conv3x3_fwd_stats_bf16", label, err,
+                    lambda: cb.conv3x3_fwd_stats(x, w, b),
+                    lambda: F.conv3x3_fwd_stats(x, w, b),
+                    lambda: nn.conv2d(xl, wl, b.reshape(-1), padding=1,
+                                      groups=T),
+                    2 * T * M * 9 * cin * C + T * M * C,
+                    2 * (x.numel() + w.numel() + b.numel() + y.numel()
+                         + 3 * T * C),
+                    tensor_cores=True)
+                records.add(
+                    "bn_act_pool_fwd_bf16", label, 0.0,
+                    lambda: cb.bn_act_pool_fwd(y, mean, rstd, gamma, beta),
+                    lambda: F.bn_act_pool_fwd(y, mean, rstd, gamma, beta),
+                    lambda: nn.batch_norm(yl, flat[0], flat[1], flat[2],
+                                          flat[3], False, 0.0, F.BN_EPS),
+                    6 * y.numel() + 3 * pooled.numel(),
+                    2 * (y.numel() + 4 * T * C) + 3 * pooled.numel())
+                print(f"  bf16 {stage} N=75: K2 equal to its twin bit for "
+                      f"bit; {_window_ties(F, y, mean, rstd, gamma, beta)} "
+                      "pool windows hold an exact tie at their maximum",
+                      flush=True)
+                del yl
+                continue
+            dp = randn(*pooled.shape, scale=1.0 / math.sqrt(pooled.numel()))
+            args = (dp.to(bf), arg, y, mean, rstd, gamma, beta)
+            got = cb.bn_act_pool_bwd(*args)
+            want = F.bn_act_pool_bwd(*args)
+            # dy, dgamma and dbeta: f32 in both, each rounded once
+            err = max(within_ulp(f"bn_act_pool_bwd_bf16 {what}", a, c)
+                      for what, a, c in zip(("dy", "dgamma", "dbeta"),
+                                            got, want))
+            records.add(
+                "bn_act_pool_bwd_bf16", label, err,
+                lambda: cb.bn_act_pool_bwd(*args),
+                lambda: F.bn_act_pool_bwd(*args), None,
+                10 * y.numel() + 6 * pooled.numel(),
+                2 * (dp.numel() + 2 * y.numel() + 4 * T * C) + arg.numel())
+            # K4 takes a random dy: K3's sums to zero over each channel
+            # (batch norm's backward), so its db would be rounding noise,
+            # which no gate relative to the output can judge
+            dy = randn(*y.shape).to(bf)
+            dyl = _nchw_tenants(dy)
+            if cin == C:
+                err = within_ulp("conv3x3_dgrad_bf16",
+                                 cb.conv3x3_dgrad(dy, w),
+                                 F.conv3x3_dgrad(dy, w))
+                records.add(
+                    "conv3x3_dgrad_bf16", label, err,
+                    lambda: cb.conv3x3_dgrad(dy, w),
+                    lambda: F.conv3x3_dgrad(dy, w),
+                    lambda: torch.nn.grad.conv2d_input(
+                        xl.shape, wl, dyl, padding=1, groups=T),
+                    2 * T * M * 9 * cin * C,
+                    2 * (dy.numel() + w.numel() + x.numel()),
+                    tensor_cores=True)
+            dw, db = cb.conv3x3_wgrad(x, dy)
+            dw_p, db_p = F.conv3x3_wgrad(x, dy)
+            err = max(within_ulp("conv3x3_wgrad_bf16 dw", dw, dw_p),
+                      within_ulp("conv3x3_wgrad_bf16 db", db, db_p))
+            records.add(
+                "conv3x3_wgrad_bf16", label, err,
+                lambda: cb.conv3x3_wgrad(x, dy),
+                lambda: F.conv3x3_wgrad(x, dy),
+                lambda: torch.nn.grad.conv2d_weight(
+                    xl, wl.shape, dyl, padding=1, groups=T),
+                2 * T * M * 9 * cin * C + T * M * C,
+                2 * (x.numel() + dy.numel() + dw.numel() + db.numel()),
+                tensor_cores=True)
+            del x, y, pooled, pooled_p, dy, dyl, xl, got, want
+            torch.cuda.empty_cache()
+
+
+def _window_ties(F, y, mean, rstd, gamma, beta):
+    """Pool windows whose maximum activation occurs twice or more (K2's
+    activation of y)."""
+    win = F._windows(F.bn_act_fwd(y, mean, rstd, gamma, beta))
+    return int(((win == win.amax(-1, keepdim=True)).sum(-1) > 1).sum())
+
+
+class _Unkept(list):
+    """A decision log for ``_plain_block`` that keeps nothing."""
+
+    def append(self, _):
+        pass
+
+
+def check_bf16_serve(cfg, F, cb):
+    """Phase 9: one bucket-8 dispatch at full width of the bf16 model on
+    the kernels against the plain block in bf16 on the card, within 2x the
+    plain block's own bf16-vs-f32 spread (preds max |diff|, loss max
+    relative diff over the tenants); the accuracy gap between the bf16 and
+    the f32 kernels; and the pool-window ties of stage 1 on the dispatch's
+    support images in bf16 and f32 (the same weights). The plain block is
+    ``_plain_block``, whose pool gives each window's gradient to its first
+    maximum as K2/K3 do (the model's plain block, ``amax``, splits it among
+    tied maxima, and bf16 ties thousands of windows)."""
+    import numpy as np
+
+    from howtotrainyourmamlpytorch_tpu_torch.serving import bench
+    from howtotrainyourmamlpytorch_tpu_torch.serving.engine import (
+        ServingEngine,
+    )
+    from howtotrainyourmamlpytorch_tpu_torch.state import init_state
+
+    cfg32 = cfg.replace(bn_stats_impl="twopass", compute_dtype="float32")
+    cfg16 = cfg32.replace(compute_dtype="bfloat16")
+    shots_buckets = bench.bench_shots_buckets(cfg32)
+    group = max(bench._synth_groups(cfg32, shots_buckets, 32, 8, 0), key=len)
+    state = init_state(cfg32, device=DEVICE)
+    results = {}
+    plain = _plain_block(F, _Unkept())
+    for name, c, block in (
+            ("bf16 kernels", cfg16, None),
+            ("bf16 plain", cfg16, plain),
+            ("f32 plain", cfg32, plain),
+            ("f32 kernels", cfg32, None)):
+        engine = ServingEngine(c, state, shots_buckets, device=DEVICE,
+                               block=block)
+        drs = [engine.serve_group(group) for _ in range(2)]
+        results[name] = drs[-1]
+        print(f"  bucket-{drs[-1].bucket} dispatch ({len(group)} tenants) "
+              f"with the {name}: adapt_ms "
+              f"{[round(d.adapt_ms, 3) for d in drs]}", flush=True)
+
+    def spread(a, b):
+        preds = loss = 0.0
+        for ra, rb in zip(results[a].results, results[b].results):
+            if not np.isfinite(ra.preds).all():
+                raise AssertionError(f"{a}: non-finite preds")
+            preds = max(preds, float(np.abs(ra.preds - rb.preds).max()))
+            loss = max(loss, abs(ra.loss - rb.loss) / abs(rb.loss))
+        return preds, loss
+
+    kp, kl = spread("bf16 kernels", "bf16 plain")
+    pp, pl = spread("bf16 plain", "f32 plain")
+    print(f"  bf16 serve step, kernels vs plain on the card: preds max err "
+          f"{kp:.3e}, loss max rel err {kl:.3e}; plain bf16 vs plain f32: "
+          f"preds {pp:.3e}, loss {pl:.3e}", flush=True)
+    if kp > 2 * pp or kl > 2 * pl:
+        raise AssertionError("bf16 serve step: the kernels are further from "
+                             "the plain ops than 2x the plain bf16-vs-f32 "
+                             "spread")
+
+    def accuracy(name):
+        return float(np.mean([r.accuracy for r in results[name].results]))
+
+    print(f"  accuracy of the bucket-8 dispatch: bf16 kernels "
+          f"{accuracy('bf16 kernels'):.4f}, f32 kernels "
+          f"{accuracy('f32 kernels'):.4f} (gap "
+          f"{accuracy('bf16 kernels') - accuracy('f32 kernels'):+.4f})",
+          flush=True)
+    # stage 1's pool windows on the support images, at stage 0's output
+    h, w, c = cfg32.im_shape
+    x = torch.from_numpy(np.stack([r.support_x for r in group])).to(DEVICE)
+    x = x.reshape(len(group), -1, h, w, c)
+    net, step = state.net, 0
+    for dtype in (torch.bfloat16, torch.float32):
+        def stage(i, inp):
+            T = inp.shape[0]
+            wt = net[f"conv{i}.conv.weight"].to(dtype).expand(
+                T, *net[f"conv{i}.conv.weight"].shape).contiguous()
+            bt = net[f"conv{i}.conv.bias"].to(dtype).expand(T, -1)
+            g = net[f"conv{i}.norm.gamma"][step].to(dtype).expand(T, -1)
+            be = net[f"conv{i}.norm.beta"][step].to(dtype).expand(T, -1)
+            y, mean, _, rstd = cb.conv3x3_fwd_stats(inp, wt, bt.contiguous())
+            return y, mean, rstd, g.contiguous(), be.contiguous()
+
+        y, mean, rstd, g, be = stage(0, x.to(dtype).contiguous())
+        x1, _ = cb.bn_act_pool_fwd(y, mean, rstd, g, be)
+        ties = _window_ties(F, *stage(1, x1))
+        print(f"  stage 1 of the dispatch's support images in "
+              f"{str(dtype)[6:]}: {ties} pool windows hold an exact tie at "
+              "their maximum", flush=True)
+
+
+def check_bf16_training_raises():
+    """Phase 9: ``train-bench --compute_dtype bfloat16`` on the card raises
+    ``NotImplementedError`` naming K1 stats-free or K5, the bf16 kernels
+    second order needs and this slice does not have."""
+    from howtotrainyourmamlpytorch_tpu_torch import bench as train_bench
+
+    print("[train] train-bench --compute_dtype bfloat16 (must raise)",
+          flush=True)
+    try:
+        train_bench.run(["--config", FLAGSHIP, "--device", DEVICE,
+                         "--warmup", "0", "--steps", "1", *BF16_ARGS])
+    except NotImplementedError as e:
+        named = ("conv3x3_fwd (K1 stats-free)" in str(e)
+                 or "bn_act_pool_bwd_bwd (K5)" in str(e))
+        print(f"  raised NotImplementedError: {e}", flush=True)
+        if not named:
+            raise AssertionError("the error names neither K1 stats-free "
+                                 "nor K5") from e
+    else:
+        raise AssertionError("bf16 second-order training ran with no bf16 "
+                             "K1 stats-free or K5 kernel")
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -2739,7 +3055,8 @@ def main() -> int:
     all_kernels = cb.KERNELS + ee.KERNELS
     print("[kernels] each kernel vs its plain twin on the card", flush=True)
     t0 = time.perf_counter()
-    records = Records(all_kernels, peak_rates(kind))
+    records = Records(all_kernels, peak_rates(kind),
+                      peak_rates(kind, bf16_tensor_cores=True)[0])
     check_kernels(cb, F, records)
     check_train_kernels(cb, F, records)
     print("[kernels] K1-K5 at the Omniglot 20-way 1-shot layers", flush=True)
@@ -3032,6 +3349,30 @@ def main() -> int:
         main_counts[k] += v
     torch.cuda.empty_cache()
     print(f"[unpadded] {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # bf16 serving (compute_dtype='bfloat16'): its kernels, serve-bench with
+    # the f32 and index ingests, the serve step against the plain ops, and
+    # the second-order step that must raise
+    t0 = time.perf_counter()
+    print("[kernels] the bf16 kernels (K1 with statistics, K2/K3 pooled, "
+          "K4) at the mini-ImageNet stages", flush=True)
+    check_bf16_kernels(cb, F, records)
+    bf16 = cfg.replace(compute_dtype="bfloat16")
+    bf16_name = "mini-ImageNet 5-way 5-shot bf16"
+    for ingest in ("f32", "index"):
+        _, counts = run_serve_bench(ks, bf16, ingest, FLAGSHIP, bf16_name,
+                                    store + BF16_ARGS)
+        for k, v in counts.items():
+            main_counts[k] += v
+        torch.cuda.empty_cache()
+    print("[serve] bf16: the serve step vs the plain serve step; index vs "
+          "f32 on the same pixels", flush=True)
+    check_bf16_serve(cfg, F, cb)
+    check_index_bit_identical(bf16)
+    profile_dispatch(bf16, small=False)
+    torch.cuda.empty_cache()
+    check_bf16_training_raises()
+    print(f"[bf16] {time.perf_counter() - t0:.1f} s", flush=True)
 
     idle = [k for k in all_kernels if not main_counts[k]]
     if idle:

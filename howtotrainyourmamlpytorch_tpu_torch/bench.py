@@ -30,7 +30,11 @@ model); ``--block_order conv_norm_relu|norm_conv_relu`` likewise
 batch_norm|layer_norm`` (``layer_norm``: a layer norm over each image's
 (H, W, C), gamma frozen at 1 and beta meta-trained, no running
 statistics), and ``--conv_padding true|false`` (``false``: the unpadded
-model, every 3x3 conv a valid window, 84 -> 82 at stage 0).
+model, every 3x3 conv a valid window, 84 -> 82 at stage 0), and
+``--compute_dtype float32|bfloat16``. In bf16 the card has the kernels of
+first-order serving only: a second-order step raises
+``NotImplementedError`` at its first K1 stats-free or K5 launch, naming
+the kernel.
 
 The config's ``use_mmap_cache`` and ``data_placement`` are set to match
 (the port's config requires the first for any tier but host). A tier's
@@ -87,6 +91,7 @@ from .data.preprocess import FlatStore
 from .device import device_name, peak_rates, resolve_device, synchronize
 from .serving.bench import (
     BLOCK_ORDERS,
+    COMPUTE_DTYPES,
     NORM_LAYERS,
     OMNIGLOT_CLASSES,
     OMNIGLOT_PER_CLASS,
@@ -161,6 +166,8 @@ def _bench_cfg(args) -> MAMLConfig:
         cfg = cfg.replace(norm_layer=args.norm_layer)
     if args.conv_padding is not None:
         cfg = cfg.replace(conv_padding=args.conv_padding)
+    if args.compute_dtype is not None:
+        cfg = cfg.replace(compute_dtype=args.compute_dtype)
     return cfg
 
 
@@ -272,6 +279,10 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--conv_padding", type=bool_arg, default=None,
                         help="override the config's conv_padding (true or "
                              "false), as the JAX command line does")
+    parser.add_argument("--compute_dtype", choices=COMPUTE_DTYPES,
+                        default=None,
+                        help="override the config's compute_dtype, as the "
+                             "JAX command line does")
     parser.add_argument("--epoch", type=int, default=0,
                         help="epoch fed to the schedule (LR, MSL weights, "
                              "order)")

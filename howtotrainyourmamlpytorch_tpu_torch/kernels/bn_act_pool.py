@@ -53,6 +53,18 @@ K2 reads y and writes the activation once; K3 reads da and y twice
 g_da and g_y. The masked block loads cover the ragged maps (7x7, 4x4 and
 2x2 at Omniglot's width); the partial sums keep their fixed order.
 
+bf16 (``compute_dtype='bfloat16'``): K2 and K3 pooled take a ``BF16``
+constexpr (the f32 instantiations are unchanged). They load bf16 y,
+statistics, gamma, beta and pooled gradient and work in f32. K2 rounds to
+bf16 after every op of the JAX package's bf16 chain — ``y - mean``,
+``* rstd``, ``* gamma``, ``+ beta``, then ``z * slope`` on the negative
+side (the slope the bf16 value of 0.01) — so its pooled values and argmax
+equal its twin's bit for bit; the window compare runs on those bf16
+values, the first maximum winning ties. K3 takes its leaky-ReLU masks from
+the same rounded chain (K2's decisions), xhat in f32 from the bf16
+inputs, its per-channel sums in f32, and stores dy rounded once to bf16.
+Bound: bytes, half of f32's.
+
 ``triton`` is imported at the first launch, never at import: the kernel
 bodies below are plain functions until ``_jit()`` compiles them, and they
 resolve ``tl`` in this module's namespace, which ``_jit()`` binds.
@@ -70,10 +82,31 @@ BLOCK_C = 64   # channels per program (power of two >= C; C = 48 here)
 SPLITS = 32    # K3a programs per tenant
 
 
+def _rne_bf16(x):
+    """An f32 value rounded to the nearest bf16 (ties to even), kept in
+    f32, by integer ops on its bits (finite values only). The chain below
+    needs every rounding: written as ``.to(tl.bfloat16).to(tl.float32)``
+    round trips, K2 missed its twin by an ulp at places on the card."""
+    bits = x.to(tl.int32, bitcast=True)
+    bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & -65536
+    return bits.to(tl.float32, bitcast=True)
+
+
+def _bf16_chain(v, mu, rs, g, b, slope):
+    """K2's bf16 chain on f32 values of bf16 operands: ``(z, act)``, each
+    op rounded to bf16 (``_rne_bf16``)."""
+    z = _rne_bf16(v - mu)
+    z = _rne_bf16(z * rs)
+    z = _rne_bf16(z * g)
+    z = _rne_bf16(z + b)
+    return z, tl.where(z >= 0, z, _rne_bf16(z * slope))
+
+
 def _bn_act_pool_fwd_kernel(y_ptr, mean_ptr, rstd_ptr, gamma_ptr, beta_ptr,
                             out_ptr, arg_ptr, P, NHoWo, HoWo, Wo, H, W, C,
                             slope, BLOCK_P: "tl.constexpr",
-                            BLOCK_C: "tl.constexpr"):
+                            BLOCK_C: "tl.constexpr",
+                            BF16: "tl.constexpr"):
     p = tl.program_id(0).to(tl.int64) * BLOCK_P + tl.arange(0, BLOCK_P)
     c = tl.arange(0, BLOCK_C)
     mask = (p < P)[:, None] & (c < C)[None, :]
@@ -83,23 +116,27 @@ def _bn_act_pool_fwd_kernel(y_ptr, mean_ptr, rstd_ptr, gamma_ptr, beta_ptr,
     ho = r // Wo
     wo = r % Wo
     tc = t[:, None] * C + c[None, :]
-    mu = tl.load(mean_ptr + tc, mask=mask, other=0.0)
-    rs = tl.load(rstd_ptr + tc, mask=mask, other=0.0)
-    g = tl.load(gamma_ptr + tc, mask=mask, other=0.0)
-    b = tl.load(beta_ptr + tc, mask=mask, other=0.0)
+    mu = tl.load(mean_ptr + tc, mask=mask, other=0.0).to(tl.float32)
+    rs = tl.load(rstd_ptr + tc, mask=mask, other=0.0).to(tl.float32)
+    g = tl.load(gamma_ptr + tc, mask=mask, other=0.0).to(tl.float32)
+    b = tl.load(beta_ptr + tc, mask=mask, other=0.0).to(tl.float32)
     base = ((img * H + 2 * ho) * W + 2 * wo) * C
     best = tl.full([BLOCK_P, BLOCK_C], float("-inf"), tl.float32)
     arg = tl.zeros([BLOCK_P, BLOCK_C], dtype=tl.int32)
     for k in tl.static_range(4):
         off = base + ((k // 2) * W + (k % 2)) * C
-        v = tl.load(y_ptr + off[:, None] + c[None, :], mask=mask, other=0.0)
-        z = (v - mu) * rs * g + b
-        a = tl.where(z >= 0, z, z * slope)
+        v = tl.load(y_ptr + off[:, None] + c[None, :], mask=mask,
+                    other=0.0).to(tl.float32)
+        if BF16:
+            _, a = _bf16_chain(v, mu, rs, g, b, slope)
+        else:
+            z = (v - mu) * rs * g + b
+            a = tl.where(z >= 0, z, z * slope)
         upd = a > best
         best = tl.where(upd, a, best)
         arg = tl.where(upd, k, arg)
     out = p[:, None] * C + c[None, :]
-    tl.store(out_ptr + out, best, mask=mask)
+    tl.store(out_ptr + out, best.to(out_ptr.dtype.element_ty), mask=mask)
     tl.store(arg_ptr + out, arg.to(tl.uint8), mask=mask)
 
 
@@ -107,15 +144,20 @@ def _bn_act_pool_bwd_reduce_kernel(dp_ptr, arg_ptr, y_ptr, mean_ptr,
                                    rstd_ptr, gamma_ptr, beta_ptr, part_ptr,
                                    PT, HoWo, Wo, H, W, C, S, CHUNK, slope,
                                    BLOCK_P: "tl.constexpr",
-                                   BLOCK_C: "tl.constexpr"):
+                                   BLOCK_C: "tl.constexpr",
+                                   BF16: "tl.constexpr"):
     t = tl.program_id(0)
     s = tl.program_id(1)
     c = tl.arange(0, BLOCK_C)
     cmask = c < C
-    mu = tl.load(mean_ptr + t * C + c, mask=cmask, other=0.0)[None, :]
-    rs = tl.load(rstd_ptr + t * C + c, mask=cmask, other=0.0)[None, :]
-    g = tl.load(gamma_ptr + t * C + c, mask=cmask, other=0.0)[None, :]
-    b = tl.load(beta_ptr + t * C + c, mask=cmask, other=0.0)[None, :]
+    mu = tl.load(mean_ptr + t * C + c, mask=cmask,
+                 other=0.0).to(tl.float32)[None, :]
+    rs = tl.load(rstd_ptr + t * C + c, mask=cmask,
+                 other=0.0).to(tl.float32)[None, :]
+    g = tl.load(gamma_ptr + t * C + c, mask=cmask,
+                other=0.0).to(tl.float32)[None, :]
+    b = tl.load(beta_ptr + t * C + c, mask=cmask,
+                other=0.0).to(tl.float32)[None, :]
     acc_dz = tl.zeros([BLOCK_P, BLOCK_C], tl.float32)
     acc_dzx = tl.zeros([BLOCK_P, BLOCK_C], tl.float32)
     start = s * CHUNK
@@ -132,10 +174,13 @@ def _bn_act_pool_bwd_reduce_kernel(dp_ptr, arg_ptr, y_ptr, mean_ptr,
         k = tl.load(arg_ptr + poff, mask=mask, other=0).to(tl.int32)
         yoff = ((img[:, None] * H + 2 * ho[:, None] + k // 2) * W
                 + 2 * wo[:, None] + k % 2) * C + c[None, :]
-        v = tl.load(y_ptr + yoff, mask=mask, other=0.0)
+        v = tl.load(y_ptr + yoff, mask=mask, other=0.0).to(tl.float32)
         xh = (v - mu) * rs
-        z = xh * g + b
-        d = tl.load(dp_ptr + poff, mask=mask, other=0.0)
+        if BF16:
+            z, _ = _bf16_chain(v, mu, rs, g, b, slope)
+        else:
+            z = xh * g + b
+        d = tl.load(dp_ptr + poff, mask=mask, other=0.0).to(tl.float32)
         dz = tl.where(z >= 0, d, d * slope)
         dz = tl.where(mask, dz, 0.0)
         acc_dz += dz
@@ -149,7 +194,8 @@ def _bn_act_pool_bwd_dy_kernel(dp_ptr, arg_ptr, y_ptr, mean_ptr, rstd_ptr,
                                gamma_ptr, beta_ptr, part_ptr, dy_ptr, NHW,
                                HW, Ho, Wo, W, C, S, inv_m, slope,
                                BLOCK_P: "tl.constexpr",
-                               BLOCK_C: "tl.constexpr"):
+                               BLOCK_C: "tl.constexpr",
+                               BF16: "tl.constexpr"):
     t = tl.program_id(1)
     q = tl.program_id(0) * BLOCK_P + tl.arange(0, BLOCK_P)
     c = tl.arange(0, BLOCK_C)
@@ -161,10 +207,10 @@ def _bn_act_pool_bwd_dy_kernel(dp_ptr, arg_ptr, y_ptr, mean_ptr, rstd_ptr,
         base = (t * S + s) * 2 * C
         sum_dz += tl.load(part_ptr + base + c, mask=cmask, other=0.0)
         sum_dzx += tl.load(part_ptr + base + C + c, mask=cmask, other=0.0)
-    mu = tl.load(mean_ptr + t * C + c, mask=cmask, other=0.0)
-    rs = tl.load(rstd_ptr + t * C + c, mask=cmask, other=0.0)
-    g = tl.load(gamma_ptr + t * C + c, mask=cmask, other=0.0)
-    b = tl.load(beta_ptr + t * C + c, mask=cmask, other=0.0)
+    mu = tl.load(mean_ptr + t * C + c, mask=cmask, other=0.0).to(tl.float32)
+    rs = tl.load(rstd_ptr + t * C + c, mask=cmask, other=0.0).to(tl.float32)
+    g = tl.load(gamma_ptr + t * C + c, mask=cmask, other=0.0).to(tl.float32)
+    b = tl.load(beta_ptr + t * C + c, mask=cmask, other=0.0).to(tl.float32)
     pos = t.to(tl.int64) * NHW + q
     img = pos // HW
     r = q % HW
@@ -178,15 +224,19 @@ def _bn_act_pool_bwd_dy_kernel(dp_ptr, arg_ptr, y_ptr, mean_ptr, rstd_ptr,
     poff = pidx[:, None] * C + c[None, :]
     k = tl.load(arg_ptr + poff, mask=pmask, other=255).to(tl.int32)
     sel = pmask & (k == ((h % 2) * 2 + (w % 2))[:, None])
-    d = tl.load(dp_ptr + poff, mask=sel, other=0.0)
+    d = tl.load(dp_ptr + poff, mask=sel, other=0.0).to(tl.float32)
     yoff = pos[:, None] * C + c[None, :]
-    v = tl.load(y_ptr + yoff, mask=mask, other=0.0)
+    v = tl.load(y_ptr + yoff, mask=mask, other=0.0).to(tl.float32)
     xh = (v - mu[None, :]) * rs[None, :]
-    z = xh * g[None, :] + b[None, :]
+    if BF16:
+        z, _ = _bf16_chain(v, mu[None, :], rs[None, :], g[None, :],
+                           b[None, :], slope)
+    else:
+        z = xh * g[None, :] + b[None, :]
     dz = tl.where(z >= 0, d, d * slope)
     dy = (g * rs)[None, :] * (dz - (sum_dz * inv_m)[None, :]
                               - xh * (sum_dzx * inv_m)[None, :])
-    tl.store(dy_ptr + yoff, dy, mask=mask)
+    tl.store(dy_ptr + yoff, dy.to(dy_ptr.dtype.element_ty), mask=mask)
 
 
 def _bn_act_pool_bwd_bwd_reduce_kernel(a_ptr, dp_ptr, arg_ptr, y_ptr,
@@ -502,8 +552,12 @@ def _jit() -> SimpleNamespace:
     import triton
     import triton.language
 
-    global tl
+    global tl, _rne_bf16, _bf16_chain
     tl = triton.language
+    # the kernels call the helpers by their global names: the jitted
+    # functions
+    _rne_bf16 = triton.jit(_rne_bf16)
+    _bf16_chain = triton.jit(_bf16_chain)
     return SimpleNamespace(
         fwd=triton.jit(_bn_act_pool_fwd_kernel),
         bwd_reduce=triton.jit(_bn_act_pool_bwd_reduce_kernel),
@@ -523,7 +577,7 @@ def _cdiv(a: int, b: int) -> int:
 
 
 def launch_fwd(y, mean, rstd, gamma, beta, out, arg, slope: float) -> None:
-    """K2 on validated contiguous f32 CUDA tensors (see
+    """K2 on validated contiguous CUDA tensors, all f32 or all bf16 (see
     ``conv_block.bn_act_pool_fwd``)."""
     T, N, H, W, C = y.shape
     Ho, Wo = H // 2, W // 2
@@ -535,14 +589,20 @@ def launch_fwd(y, mean, rstd, gamma, beta, out, arg, slope: float) -> None:
     _jit().fwd[(_cdiv(P, BLOCK_P),)](
         y, mean, rstd, gamma, beta, out, arg, P, N * Ho * Wo, Ho * Wo, Wo,
         H, W, C, slope, BLOCK_P=BLOCK_P, BLOCK_C=BLOCK_C,
+        BF16=_is_bf16(y),
     )
+
+
+def _is_bf16(y) -> bool:
+    return str(y.dtype) == "torch.bfloat16"
 
 
 def launch_bwd(dpooled, arg, y, mean, rstd, gamma, beta, part, dy,
                slope: float) -> None:
-    """K3a then K3b on validated contiguous f32 CUDA tensors; ``part`` is
-    ``(T, SPLITS, 2, C)`` scratch that K3a fills with the partial
-    ``sum(dz)`` and ``sum(dz * xhat)`` (see ``conv_block.bn_act_pool_bwd``)."""
+    """K3a then K3b on validated contiguous CUDA tensors, all f32 or all
+    bf16 but the f32 ``part``, ``(T, SPLITS, 2, C)`` scratch that K3a fills
+    with the partial ``sum(dz)`` and ``sum(dz * xhat)`` (see
+    ``conv_block.bn_act_pool_bwd``)."""
     T, N, H, W, C = y.shape
     Ho, Wo = H // 2, W // 2
     PT = N * Ho * Wo
@@ -552,14 +612,17 @@ def launch_bwd(dpooled, arg, y, mean, rstd, gamma, beta, part, dy,
         )
     chunk = _cdiv(_cdiv(PT, SPLITS), BLOCK_P) * BLOCK_P
     kern = _jit()
+    bf16 = _is_bf16(y)
     kern.bwd_reduce[(T, SPLITS)](
         dpooled, arg, y, mean, rstd, gamma, beta, part, PT, Ho * Wo, Wo, H,
         W, C, SPLITS, chunk, slope, BLOCK_P=BLOCK_P, BLOCK_C=BLOCK_C,
+        BF16=bf16,
     )
     NHW = N * H * W
     kern.bwd_dy[(_cdiv(NHW, BLOCK_P), T)](
         dpooled, arg, y, mean, rstd, gamma, beta, part, dy, NHW, H * W, Ho,
         Wo, W, C, SPLITS, 1.0 / NHW, slope, BLOCK_P=BLOCK_P, BLOCK_C=BLOCK_C,
+        BF16=bf16,
     )
 
 

@@ -38,6 +38,7 @@ kernel                      route   source                    launches/call
 ``layer_norm_fwd``          Triton  layer_norm.py             1
 ``layer_norm_bwd``          Triton  layer_norm.py             reduce + sums + dx: 3
 ``layer_norm_bwd_bwd``      Triton  layer_norm.py             reduce + sums + out: 3
+``*_bf16``                  as f32  the same sources          as in f32
 ==========================  ======  ========================  ==================
 
 The ``conv3x3_s2_*`` names are the four conv kernels at stride 2 (the
@@ -57,6 +58,16 @@ device, dtype, shape, stride and contiguity, launches on the current
 stream, allocates outputs and scratch with ``torch.empty`` and adds one to
 its counter per call that launched. The kernels work in f32 with FFMA
 only.
+
+bf16 (``compute_dtype='bfloat16'``, first-order serving): K1 with
+statistics, K2 and K3 pooled, K4 dgrad and wgrad take bf16 tensors at
+stride 1 and pad 1 (``BF16_KERNELS``), counted on ``<name>_bf16``; they
+load bf16, compute in f32 and store bf16 in the JAX package's cast points
+(each kernel's source says where it rounds). Every other kernel, and
+these at stride 2 or pad 0, raises ``NotImplementedError`` naming itself
+for a bf16 tensor on the card (``kernel_dtype``): no bf16 path falls back
+to f32. Second-order bf16 training therefore raises at its first step, at
+K1 stats-free or K5.
 
 All tensors carry the tenant axis: activations ``(T, N, H, W, C)``
 (NHWC), weights ``(T, 3, 3, cin, cout)`` (HWIO), per-channel tensors
@@ -156,6 +167,16 @@ KERNELS = (
     "conv3x3_s2_p0_wgrad",
     "conv3x3_s2_p0_fwd",
 )
+#: the kernels with a bf16 instantiation (at stride 1 and pad 1), counted on
+#: ``<name>_bf16``
+BF16_KERNELS = ("conv3x3_fwd_stats", "bn_act_pool_fwd", "bn_act_pool_bwd",
+                "conv3x3_dgrad", "conv3x3_wgrad")
+KERNELS += tuple(f"{name}_bf16" for name in BF16_KERNELS)
+#: the block kernels' roles, for the messages of the bf16 guard
+ROLES = {"conv3x3_fwd_stats": "K1", "conv3x3_fwd": "K1 stats-free",
+         "bn_act_pool_fwd": "K2", "bn_act_pool_bwd": "K3",
+         "bn_act_pool_bwd_bwd": "K5", "conv3x3_dgrad": "K4 dgrad",
+         "conv3x3_wgrad": "K4 wgrad"}
 #: the conv strides and pads the kernels take
 STRIDES = (1, 2)
 PADDINGS = (1, 0)
@@ -189,14 +210,38 @@ def _on_cpu(x: Tensor) -> bool:
     return x.device.type == "cpu"
 
 
-def _check(name: str, what: str, t: Tensor, shape, device) -> None:
+def kernel_dtype(name: str, x: Tensor) -> torch.dtype:
+    """The dtype kernel ``name`` (a counter name: ``conv3x3_s2_dgrad`` is
+    the stride-2 dgrad) runs in for the activation ``x``: float32, or
+    bfloat16 where ``name`` is one of ``BF16_KERNELS``. Raises
+    ``NotImplementedError`` naming the kernel for a bf16 ``x`` it has no
+    bf16 version for, ``TypeError`` for any other dtype."""
+    if x.dtype == torch.float32:
+        return x.dtype
+    if x.dtype == torch.bfloat16:
+        if name in BF16_KERNELS:
+            return x.dtype
+        base = name.replace("_s2", "").replace("_p0", "")
+        role = f" ({ROLES[base]})" if base in ROLES else ""
+        raise NotImplementedError(
+            f"{name}{role} has no bf16 kernel yet: compute_dtype='bfloat16' "
+            f"runs {', '.join(BF16_KERNELS)} at stride 1 and pad 1 "
+            "(first-order serving of the conv-first batch-norm model)")
+    raise TypeError(f"{name}: the kernels take float32 or bfloat16, got "
+                    f"{x.dtype}")
+
+
+def _counter(name: str, x: Tensor) -> str:
+    """The launch counter of kernel ``name`` on ``x``'s dtype."""
+    return f"{name}_bf16" if x.dtype == torch.bfloat16 else name
+
+
+def _check(name: str, what: str, t: Tensor, shape, device,
+           dtype: torch.dtype = torch.float32) -> None:
     if t.device != device:
         raise ValueError(f"{name}: {what} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(
-            f"{name}: {what} must be float32 (the kernels are f32 only), "
-            f"got {t.dtype}"
-        )
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: {what} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(
             f"{name}: {what} must have shape {tuple(shape)}, got "
@@ -214,7 +259,8 @@ def _check_act(name: str, x: Tensor) -> Tuple[int, int, int, int, int]:
             f"{name}: expected a (T, N, H, W, C) activation, got "
             f"{tuple(x.shape)}"
         )
-    _check(name, "the activation", x, x.shape, x.device)
+    _check(name, "the activation", x, x.shape, x.device,
+           kernel_dtype(name, x))
     if x[0].numel() >= 2 ** 31:
         raise ValueError(f"{name}: one tenant's activation must hold fewer "
                          "than 2**31 elements (32-bit offsets)")
@@ -267,22 +313,23 @@ def conv3x3_fwd_stats(x: Tensor, w: Tensor, b: Tensor,
     name = _conv_name("conv3x3_fwd_stats", stride, padding)
     T, N, H, W, cin = _check_act(name, x)
     cout = w.shape[-1]
-    _check(name, "w", w, (T, 3, 3, cin, cout), x.device)
-    _check(name, "b", b, (T, cout), x.device)
+    _check(name, "w", w, (T, 3, 3, cin, cout), x.device, x.dtype)
+    _check(name, "b", b, (T, cout), x.device, x.dtype)
     Ho, Wo = _conv_out(name, H, W, stride, padding)
     mtiles = -(-(N * Ho * Wo) // CONV_TILE_ROWS)
-    y = torch.empty((T, N, Ho, Wo, cout), device=x.device)
+    y = torch.empty((T, N, Ho, Wo, cout), device=x.device, dtype=x.dtype)
     part = torch.empty((T, mtiles, 3, cout), device=x.device)
-    mean, var, rstd = (torch.empty((T, cout), device=x.device)
-                       for _ in range(3))
-    fn = build.function("conv3x3_fwd", "conv3x3_fwd_stats",
+    mean, var, rstd = (torch.empty((T, cout), device=x.device,
+                                   dtype=x.dtype) for _ in range(3))
+    counter = _counter(name, x)
+    fn = build.function("conv3x3_fwd", _counter("conv3x3_fwd_stats", x),
                         (_P,) * 8 + (_I,) * 9 + (_F, _P))
     with torch.cuda.device(x.device):
         rc = fn(_ptr(x), _ptr(w), _ptr(b), _ptr(y), _ptr(part), _ptr(mean),
                 _ptr(var), _ptr(rstd), T, N, H, W, stride, padding, cin, cout,
-                mtiles, eps, _stream(x.device))
-    build.check(rc, name)
-    LAUNCHES[name] += 1
+                mtiles, F.scalar_like(eps, x), _stream(x.device))
+    build.check(rc, counter)
+    LAUNCHES[counter] += 1
     return y, mean, var, rstd
 
 
@@ -315,7 +362,7 @@ def conv3x3_fwd(x: Tensor, w: Tensor, b: Optional[Tensor] = None,
 def _check_bn_args(name, y, tensors, device):
     T, _, _, _, C = _check_act(name, y)
     for what, t in tensors.items():
-        _check(name, what, t, (T, C), device)
+        _check(name, what, t, (T, C), device, y.dtype)
 
 
 def _check_pooled(name, dpooled, argmax, y):
@@ -323,7 +370,7 @@ def _check_pooled(name, dpooled, argmax, y):
     pooled shape."""
     T, N, H, W, C = y.shape
     pooled_shape = (T, N, H // 2, W // 2, C)
-    _check(name, "dpooled", dpooled, pooled_shape, y.device)
+    _check(name, "dpooled", dpooled, pooled_shape, y.device, y.dtype)
     if argmax.dtype != torch.uint8 or tuple(argmax.shape) != pooled_shape \
             or not argmax.is_contiguous() or argmax.device != y.device:
         raise ValueError(
@@ -344,13 +391,14 @@ def bn_act_pool_fwd(y: Tensor, mean: Tensor, rstd: Tensor, gamma: Tensor,
     _check_bn_args(name, y, dict(mean=mean, rstd=rstd, gamma=gamma,
                                  beta=beta), y.device)
     T, N, H, W, C = y.shape
-    out = torch.empty((T, N, H // 2, W // 2, C), device=y.device)
+    out = torch.empty((T, N, H // 2, W // 2, C), device=y.device,
+                      dtype=y.dtype)
     arg = torch.empty((T, N, H // 2, W // 2, C), device=y.device,
                       dtype=torch.uint8)
     with torch.cuda.device(y.device):
         bn_act_pool.launch_fwd(y, mean, rstd, gamma, beta, out, arg,
-                               negative_slope)
-    LAUNCHES[name] += 1
+                               F.scalar_like(negative_slope, y))
+    LAUNCHES[_counter(name, y)] += 1
     return out, arg
 
 
@@ -392,9 +440,10 @@ def bn_act_pool_bwd(dpooled: Tensor, argmax: Tensor, y: Tensor, mean: Tensor,
     dy = torch.empty_like(y)
     with torch.cuda.device(y.device):
         bn_act_pool.launch_bwd(dpooled, argmax, y, mean, rstd, gamma, beta,
-                               part, dy, negative_slope)
-    LAUNCHES[name] += 1
-    sums = part.sum(dim=1)
+                               part, dy, F.scalar_like(negative_slope, y))
+    LAUNCHES[_counter(name, y)] += 1
+    # the f32 partial sums, rounded once to y's dtype
+    sums = part.sum(dim=1).to(y.dtype)
     return dy, sums[:, 1], sums[:, 0]
 
 
@@ -759,15 +808,16 @@ def conv3x3_dgrad(dy: Tensor, w: Tensor, stride: int = 1,
                          f"{padding}")
     H, W = in_hw
     cin = w.shape[-2]
-    _check(name, "w", w, (T, 3, 3, cin, cout), dy.device)
-    dx = torch.empty((T, N, H, W, cin), device=dy.device)
-    fn = build.function("conv3x3_bwd", "conv3x3_dgrad",
+    _check(name, "w", w, (T, 3, 3, cin, cout), dy.device, dy.dtype)
+    dx = torch.empty((T, N, H, W, cin), device=dy.device, dtype=dy.dtype)
+    counter = _counter(name, dy)
+    fn = build.function("conv3x3_bwd", _counter("conv3x3_dgrad", dy),
                         (_P,) * 3 + (_I,) * 8 + (_P,))
     with torch.cuda.device(dy.device):
         rc = fn(_ptr(dy), _ptr(w), _ptr(dx), T, N, H, W, stride, padding,
                 cin, cout, _stream(dy.device))
-    build.check(rc, name)
-    LAUNCHES[name] += 1
+    build.check(rc, counter)
+    LAUNCHES[counter] += 1
     return dx
 
 
@@ -781,7 +831,7 @@ def conv3x3_wgrad(x: Tensor, dy: Tensor, stride: int = 1, padding: int = 1
     T, N, H, W, cin = _check_act(name, x)
     cout = dy.shape[-1]
     Ho, Wo = _conv_out(name, H, W, stride, padding)
-    _check(name, "dy", dy, (T, N, Ho, Wo, cout), x.device)
+    _check(name, "dy", dy, (T, N, Ho, Wo, cout), x.device, x.dtype)
     M = N * Ho * Wo
     # blocks per split: (K tiles of 64) x (channel tiles of 16) x tenants
     blocks = -(-9 * cin // 64) * -(-cout // 16) * T
@@ -790,16 +840,17 @@ def conv3x3_wgrad(x: Tensor, dy: Tensor, stride: int = 1, padding: int = 1
                         M // WGRAD_MIN_SPLIT_PIXELS, 65535 // T))
     part_w = torch.empty((T, splits, 9 * cin * cout), device=x.device)
     part_b = torch.empty((T, splits, cout), device=x.device)
-    dw = torch.empty((T, 3, 3, cin, cout), device=x.device)
-    db = torch.empty((T, cout), device=x.device)
-    fn = build.function("conv3x3_bwd", "conv3x3_wgrad",
+    dw = torch.empty((T, 3, 3, cin, cout), device=x.device, dtype=x.dtype)
+    db = torch.empty((T, cout), device=x.device, dtype=x.dtype)
+    counter = _counter(name, x)
+    fn = build.function("conv3x3_bwd", _counter("conv3x3_wgrad", x),
                         (_P,) * 6 + (_I,) * 9 + (_P,))
     with torch.cuda.device(x.device):
         rc = fn(_ptr(x), _ptr(dy), _ptr(part_w), _ptr(part_b), _ptr(dw),
                 _ptr(db), T, N, H, W, stride, padding, cin, cout, splits,
                 _stream(x.device))
-    build.check(rc, name)
-    LAUNCHES[name] += 1
+    build.check(rc, counter)
+    LAUNCHES[counter] += 1
     return dw, db
 
 
@@ -828,7 +879,8 @@ def global_avg_pool2d_bwd(dpool: Tensor, h: int, w: int) -> Tensor:
     if dpool.device.type != "cuda" or dpool.dim() != 3:
         raise ValueError(f"{name}: expected a (T, N, C) CUDA tensor, got "
                          f"{tuple(dpool.shape)} on {dpool.device}")
-    _check(name, "dpool", dpool, dpool.shape, dpool.device)
+    _check(name, "dpool", dpool, dpool.shape, dpool.device,
+           kernel_dtype(name, dpool))
     T, N, C = dpool.shape
     dx = torch.empty((T, N, h, w, C), device=dpool.device)
     with torch.cuda.device(dpool.device):
@@ -1040,8 +1092,9 @@ def function_block(x: Tensor, w: Tensor, b: Tensor, gamma: Tensor,
     how the CPU tests drive this structure; ``stats_impl`` is accepted for
     the block signature and not read (the statistics are K1's)."""
     T, cout = x.shape[0], w.shape[-1]
-    gamma = gamma.expand(T, cout).contiguous()
-    beta = beta.expand(T, cout).contiguous()
+    # gamma and beta in the activation's dtype (JAX ``batch_norm`` :430)
+    gamma = gamma.to(x.dtype).expand(T, cout).contiguous()
+    beta = beta.to(x.dtype).expand(T, cout).contiguous()
     y, mean, var, rstd = Conv3x3.apply(x.contiguous(), w.contiguous(),
                                        b.contiguous(), True, stride, padding)
     out = BnActPool.apply(y, gamma, beta, mean, rstd, pool)
@@ -1073,20 +1126,35 @@ def conv_bn_act_pool(x: Tensor, w: Tensor, b: Tensor, gamma: Tensor,
         return F.conv_bn_act_pool(x, w, b, gamma, beta, stats_impl,
                                   stride=stride, pool=pool, gap=gap,
                                   padding=padding)
-    _check_block_input("conv_bn_act_pool", x)
+    _check_block_input("conv_bn_act_pool", x, (
+        "conv3x3_fwd_stats", "bn_act_pool_fwd" if pool else "bn_act_fwd",
+        "bn_act_pool_bwd" if pool else "bn_act_bwd", "conv3x3_dgrad",
+        "conv3x3_wgrad"), stride, padding, gap)
     return function_block(x, w, b, gamma, beta, stride=stride, pool=pool,
                           gap=gap, padding=padding)
 
 
-def _check_block_input(name: str, x: Tensor) -> None:
-    if x.dtype != torch.float32:
-        raise NotImplementedError(
-            f"{name} kernels are f32 only; compute_dtype "
-            f"{x.dtype} (the bf16 kernels) is not ported yet"
-        )
+def _check_block_input(name: str, x: Tensor, kernels, stride: int,
+                       padding: int, gap: bool) -> None:
+    """A block's input on the card: ``(T, N, H, W, C)``, and in a dtype
+    that every kernel of its forward and first backward takes (``kernels``,
+    the conv ones at ``stride`` and ``padding``, plus the global average
+    pool with ``gap``); raises ``NotImplementedError`` naming the kernels
+    that are f32 only."""
     if x.dim() != 5:
         raise ValueError(
             f"{name} on CUDA takes (T, N, H, W, C), got {tuple(x.shape)}"
+        )
+    names = [_conv_name(k, stride, padding) if k.startswith("conv3x3")
+             else k for k in kernels]
+    names += ["global_avg_pool2d_fwd", "global_avg_pool2d_bwd"] if gap else []
+    ok = BF16_KERNELS if x.dtype == torch.bfloat16 else ()
+    missing = [k for k in names if k not in ok]
+    if x.dtype != torch.float32 and missing:
+        raise NotImplementedError(
+            f"{name} kernels are f32 only for compute_dtype {x.dtype}: "
+            f"{', '.join(missing)} have no {x.dtype} kernel yet (bf16: "
+            f"{', '.join(BF16_KERNELS)} at stride 1 and pad 1)"
         )
 
 
@@ -1235,8 +1303,8 @@ def norm_function_block(x: Tensor, w: Tensor, b: Tensor, gamma: Tensor,
     ``stats_impl`` is accepted for the block signature and not read (the
     statistics are ``bn_input_stats``')."""
     T, cin = x.shape[0], x.shape[-1]
-    gamma = gamma.expand(T, cin).contiguous()
-    beta = beta.expand(T, cin).contiguous()
+    gamma = gamma.to(x.dtype).expand(T, cin).contiguous()
+    beta = beta.to(x.dtype).expand(T, cin).contiguous()
     z, mean, var, _ = BatchNorm.apply(x.contiguous(), gamma, beta)
     y = Conv3x3.apply(z, w.contiguous(), b.contiguous(), False, stride,
                       padding)
@@ -1257,7 +1325,11 @@ def norm_conv_act_pool(x: Tensor, w: Tensor, b: Tensor, gamma: Tensor,
         return F.norm_conv_act_pool(x, w, b, gamma, beta, stats_impl,
                                     stride=stride, pool=pool, gap=gap,
                                     padding=padding)
-    _check_block_input("norm_conv_act_pool", x)
+    _check_block_input("norm_conv_act_pool", x, (
+        "bn_input_stats", "batch_norm_fwd", "batch_norm_bwd", "conv3x3_fwd",
+        "act_pool_fwd" if pool else "act_fwd",
+        "act_pool_bwd" if pool else "act_bwd", "conv3x3_dgrad",
+        "conv3x3_wgrad"), stride, padding, gap)
     return norm_function_block(x, w, b, gamma, beta, stride=stride,
                                pool=pool, gap=gap, padding=padding)
 
@@ -1327,9 +1399,10 @@ class LayerNormBwdBwd(torch.autograd.Function):
 def _ln_params(gamma: Tensor, beta: Tensor, x: Tensor
                ) -> Tuple[Tensor, Tensor]:
     """gamma and beta (``(H, W, C)`` shared, or ``(T, H, W, C)``) as the
-    kernels' contiguous ``(T, H, W, C)``."""
+    kernels' contiguous ``(T, H, W, C)``, in x's dtype."""
     shape = (x.shape[0], *x.shape[2:])
-    return gamma.expand(shape).contiguous(), beta.expand(shape).contiguous()
+    return (gamma.to(x.dtype).expand(shape).contiguous(),
+            beta.to(x.dtype).expand(shape).contiguous())
 
 
 def conv_ln_function_block(x: Tensor, w: Tensor, b: Tensor, gamma: Tensor,
@@ -1365,6 +1438,15 @@ def ln_conv_function_block(x: Tensor, w: Tensor, b: Tensor, gamma: Tensor,
     return _act_pool_gap(y, pool, gap), None, None
 
 
+#: the kernels of a layer-norm block's forward and first backward, pooled
+#: (True) or pool-free
+_LN_BLOCK_KERNELS = {
+    pool: ("conv3x3_fwd", "layer_norm_stats", "layer_norm_fwd",
+           "layer_norm_bwd", "act_pool_fwd" if pool else "act_fwd",
+           "act_pool_bwd" if pool else "act_bwd", "conv3x3_dgrad",
+           "conv3x3_wgrad") for pool in (True, False)}
+
+
 def conv_ln_act_pool(x: Tensor, w: Tensor, b: Tensor, gamma: Tensor,
                      beta: Tensor, stats_impl: str = "twopass",
                      stride: int = 1, pool: bool = True, gap: bool = False,
@@ -1377,7 +1459,8 @@ def conv_ln_act_pool(x: Tensor, w: Tensor, b: Tensor, gamma: Tensor,
         return F.conv_ln_act_pool(x, w, b, gamma, beta, stats_impl,
                                   stride=stride, pool=pool, gap=gap,
                                   padding=padding)
-    _check_block_input("conv_ln_act_pool", x)
+    _check_block_input("conv_ln_act_pool", x, _LN_BLOCK_KERNELS[pool],
+                       stride, padding, gap)
     return conv_ln_function_block(x, w, b, gamma, beta, stride=stride,
                                   pool=pool, gap=gap, padding=padding)
 
@@ -1394,7 +1477,8 @@ def ln_conv_act_pool(x: Tensor, w: Tensor, b: Tensor, gamma: Tensor,
         return F.ln_conv_act_pool(x, w, b, gamma, beta, stats_impl,
                                   stride=stride, pool=pool, gap=gap,
                                   padding=padding)
-    _check_block_input("ln_conv_act_pool", x)
+    _check_block_input("ln_conv_act_pool", x, _LN_BLOCK_KERNELS[pool],
+                       stride, padding, gap)
     return ln_conv_function_block(x, w, b, gamma, beta, stride=stride,
                                   pool=pool, gap=gap, padding=padding)
 

@@ -38,6 +38,14 @@
 // + kh') / 2 where that is even and inside dy — so an input row that no
 // output reads (the last of 84 -> 41, 20 -> 9) gets a zero gradient. Pad 1
 // is the code it was, bit for bit.
+//
+// bf16 (conv3x3_dgrad_bf16, conv3x3_wgrad_bf16): bf16 dy, w and x, widened
+// to f32 as they load (conv3x3_tile.cuh); every sum accumulates in f32
+// (dgrad's 9*cout-deep dot, wgrad's pixel reduction and its split
+// partials) and is rounded once to bf16 at the store: dx, dw and db come
+// out bf16 (the caller hands dw and db to the f32 leaves as f32). The
+// float instantiation is the code it was, bit for bit. Bound as in f32
+// (FFMA, the same FLOPs), with half the bytes.
 
 #include <cuda_runtime.h>
 
@@ -45,10 +53,10 @@
 
 namespace maml {
 
-template <int kStride>
+template <typename T, int kStride>
 __global__ void __launch_bounds__(kThreads)
-conv3x3_dgrad_kernel(const float* __restrict__ dy, const float* __restrict__ w,
-                     float* __restrict__ dx, int N, int H, int W, int Ho,
+conv3x3_dgrad_kernel(const T* __restrict__ dy, const T* __restrict__ w,
+                     T* __restrict__ dx, int N, int H, int W, int Ho,
                      int Wo, int cin_fwd, int cout_fwd, int pad) {
   __shared__ ConvTileSmem s;
   const int tid = threadIdx.x;
@@ -59,20 +67,21 @@ conv3x3_dgrad_kernel(const float* __restrict__ dy, const float* __restrict__ w,
   float acc[kTM][kTN];
   // the transposed conv reads dy (Ho x Wo, cout_fwd channels) and writes
   // dx (H x W, cin_fwd channels)
-  conv3x3_tile<kStride, true>(dy + (size_t)t * N * Ho * Wo * cout_fwd,
-                              w + (size_t)t * 9 * cin_fwd * cout_fwd, Ho, Wo,
-                              H, W, M, cout_fwd, cin_fwd, 2 - pad, m0, n0, s,
-                              acc);
+  conv3x3_tile<T, kStride, true>(dy + (size_t)t * N * Ho * Wo * cout_fwd,
+                                 w + (size_t)t * 9 * cin_fwd * cout_fwd, Ho,
+                                 Wo, H, W, M, cout_fwd, cin_fwd, 2 - pad, m0,
+                                 n0, s, acc);
   const int cg = tid % 4;
   const int rg = tid / 4;
-  float* dxt = dx + (size_t)t * M * cin_fwd;
+  T* dxt = dx + (size_t)t * M * cin_fwd;
 #pragma unroll
   for (int j = 0; j < kTN; ++j) {
     const int n = n0 + cg * 4 + j;
 #pragma unroll
     for (int i = 0; i < kTM; ++i) {
       const int m = m0 + rg + 32 * i;
-      if (m < M && n < cin_fwd) dxt[(size_t)m * cin_fwd + n] = acc[i][j];
+      if (m < M && n < cin_fwd)
+        dxt[(size_t)m * cin_fwd + n] = from_f32<T>(acc[i][j]);
     }
   }
 }
@@ -84,9 +93,9 @@ constexpr int kWM = 32;  // pixels per shared-memory stage
 // Block (k tile, channel tile, tenant * S + split). Thread (kg = tid % 16,
 // cp = tid / 16) owns dW rows k0 + kg*4 .. +3 and channels n0 + cp*2, +1.
 // The reduction runs over the M = N*Ho*Wo output pixels; x is H x W.
-template <int kStride>
+template <typename T, int kStride>
 __global__ void __launch_bounds__(kThreads)
-conv3x3_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ dy,
+conv3x3_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ dy,
                      float* __restrict__ part_w, float* __restrict__ part_b,
                      int N, int H, int W, int Ho, int Wo, int cin, int cout,
                      int pad, int S, int chunk) {
@@ -104,8 +113,8 @@ conv3x3_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ dy,
   const int K = 9 * cin;
   const int mb = split * chunk;
   const int me = min(M, mb + chunk);
-  const float* xt = x + (size_t)t * N * H * W * cin;
-  const float* dyt = dy + (size_t)t * M * cout;
+  const T* xt = x + (size_t)t * N * H * W * cin;
+  const T* dyt = dy + (size_t)t * M * cout;
 
   if (tid < kWK) {
     const int k = k0 + tid;
@@ -157,7 +166,7 @@ conv3x3_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ dy,
         const int ww = row_w[mm] + dw;
         float v = 0.f;
         if (h >= 0 && h < H && ww >= 0 && ww < W)
-          v = xt[row_base[mm] + delta];
+          v = to_f32(xt[row_base[mm] + delta]);
         ps[mm][kk] = v;
       }
     }
@@ -168,7 +177,8 @@ conv3x3_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ dy,
       for (int j = 0; j < kWM / 8; ++j) {
         const int mm = tid / kWN + 8 * j;
         const int m = mc + mm;
-        ds[mm][nn] = (m < me && n < cout) ? dyt[(size_t)m * cout + n] : 0.f;
+        ds[mm][nn] =
+            (m < me && n < cout) ? to_f32(dyt[(size_t)m * cout + n]) : 0.f;
       }
     }
     __syncthreads();
@@ -213,11 +223,12 @@ conv3x3_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ dy,
 }
 
 // dw[t][e] = sum_s part_w[t][s][e] and db[t][c] = sum_s part_b[t][s][c], in
-// split order.
+// split order, rounded once to the element type at the store.
+template <typename E>
 __global__ void conv3x3_wgrad_reduce_kernel(const float* __restrict__ part_w,
                                             const float* __restrict__ part_b,
-                                            float* __restrict__ dw,
-                                            float* __restrict__ db, int T,
+                                            E* __restrict__ dw,
+                                            E* __restrict__ db, int T,
                                             int S, int KC, int cout) {
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const int per = KC + cout;
@@ -227,12 +238,67 @@ __global__ void conv3x3_wgrad_reduce_kernel(const float* __restrict__ part_w,
   float sum = 0.f;
   if (e < KC) {
     for (int s = 0; s < S; ++s) sum += part_w[((size_t)t * S + s) * KC + e];
-    dw[(size_t)t * KC + e] = sum;
+    dw[(size_t)t * KC + e] = from_f32<E>(sum);
   } else {
     const int c = e - KC;
     for (int s = 0; s < S; ++s) sum += part_b[((size_t)t * S + s) * cout + c];
-    db[t * cout + c] = sum;
+    db[t * cout + c] = from_f32<E>(sum);
   }
+}
+
+template <typename T>
+int dgrad(const T* dy, const T* w, T* dx, int T_, int N, int H, int W,
+          int stride, int pad, int cin_fwd, int cout_fwd, void* stream) {
+  if ((stride != 1 && stride != 2) || (pad != 0 && pad != 1) ||
+      H + 2 * pad < 3 || W + 2 * pad < 3)
+    return (int)cudaErrorInvalidValue;
+  const int Ho = (H + 2 * pad - 3) / stride + 1;
+  const int Wo = (W + 2 * pad - 3) / stride + 1;
+  const int M = N * H * W;
+  if (T_ < 1 || H < 1 || W < 1 || M < 1 || cin_fwd < 1 || cout_fwd < 1)
+    return (int)cudaErrorInvalidValue;
+  dim3 grid(ceil_div(M, kBM), ceil_div(cin_fwd, kBN), T_);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (stride == 1)
+    conv3x3_dgrad_kernel<T, 1><<<grid, kThreads, 0, st>>>(
+        dy, w, dx, N, H, W, Ho, Wo, cin_fwd, cout_fwd, pad);
+  else
+    conv3x3_dgrad_kernel<T, 2><<<grid, kThreads, 0, st>>>(
+        dy, w, dx, N, H, W, Ho, Wo, cin_fwd, cout_fwd, pad);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int wgrad(const T* x, const T* dy, float* part_w, float* part_b, T* dw,
+          T* db, int T_, int N, int H, int W, int stride, int pad, int cin,
+          int cout, int S, void* stream) {
+  if ((stride != 1 && stride != 2) || (pad != 0 && pad != 1) ||
+      H + 2 * pad < 3 || W + 2 * pad < 3)
+    return (int)cudaErrorInvalidValue;
+  const int Ho = (H + 2 * pad - 3) / stride + 1;
+  const int Wo = (W + 2 * pad - 3) / stride + 1;
+  const int M = N * Ho * Wo;
+  if (T_ < 1 || H < 1 || W < 1 || M < 1 || cin < 1 || cout < 1 || S < 1 ||
+      S > M || T_ * S > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int chunk = ceil_div(M, S);
+  dim3 grid(ceil_div(9 * cin, kWK), ceil_div(cout, kWN), T_ * S);
+  if (stride == 1)
+    conv3x3_wgrad_kernel<T, 1><<<grid, kThreads, 0, st>>>(
+        x, dy, part_w, part_b, N, H, W, Ho, Wo, cin, cout, pad, S, chunk);
+  else
+    conv3x3_wgrad_kernel<T, 2><<<grid, kThreads, 0, st>>>(
+        x, dy, part_w, part_b, N, H, W, Ho, Wo, cin, cout, pad, S, chunk);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int KC = 9 * cin * cout;
+  const long long total = (long long)T_ * (KC + cout);
+  const int threads = 256;
+  conv3x3_wgrad_reduce_kernel<T>
+      <<<(unsigned)((total + threads - 1) / threads), threads, 0, st>>>(
+          part_w, part_b, dw, db, T_, S, KC, cout);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace maml
@@ -246,24 +312,17 @@ extern "C" {
 int conv3x3_dgrad(const float* dy, const float* w, float* dx, int T, int N,
                   int H, int W, int stride, int pad, int cin_fwd,
                   int cout_fwd, void* stream) {
-  if ((stride != 1 && stride != 2) || (pad != 0 && pad != 1) ||
-      H + 2 * pad < 3 || W + 2 * pad < 3)
-    return (int)cudaErrorInvalidValue;
-  const int Ho = (H + 2 * pad - 3) / stride + 1;
-  const int Wo = (W + 2 * pad - 3) / stride + 1;
-  const int M = N * H * W;
-  if (T < 1 || H < 1 || W < 1 || M < 1 || cin_fwd < 1 || cout_fwd < 1)
-    return (int)cudaErrorInvalidValue;
-  dim3 grid(maml::ceil_div(M, maml::kBM), maml::ceil_div(cin_fwd, maml::kBN),
-            T);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (stride == 1)
-    maml::conv3x3_dgrad_kernel<1><<<grid, maml::kThreads, 0, st>>>(
-        dy, w, dx, N, H, W, Ho, Wo, cin_fwd, cout_fwd, pad);
-  else
-    maml::conv3x3_dgrad_kernel<2><<<grid, maml::kThreads, 0, st>>>(
-        dy, w, dx, N, H, W, Ho, Wo, cin_fwd, cout_fwd, pad);
-  return (int)cudaGetLastError();
+  return maml::dgrad<float>(dy, w, dx, T, N, H, W, stride, pad, cin_fwd,
+                            cout_fwd, stream);
+}
+
+// The same in bf16: dy, w and dx bf16.
+int conv3x3_dgrad_bf16(const __nv_bfloat16* dy, const __nv_bfloat16* w,
+                       __nv_bfloat16* dx, int T, int N, int H, int W,
+                       int stride, int pad, int cin_fwd, int cout_fwd,
+                       void* stream) {
+  return maml::dgrad<__nv_bfloat16>(dy, w, dx, T, N, H, W, stride, pad,
+                                    cin_fwd, cout_fwd, stream);
 }
 
 // dw (T, 3, 3, cin, cout) and db (T, cout) of the conv at `stride` and
@@ -274,34 +333,18 @@ int conv3x3_wgrad(const float* x, const float* dy, float* part_w,
                   float* part_b, float* dw, float* db, int T, int N, int H,
                   int W, int stride, int pad, int cin, int cout, int S,
                   void* stream) {
-  if ((stride != 1 && stride != 2) || (pad != 0 && pad != 1) ||
-      H + 2 * pad < 3 || W + 2 * pad < 3)
-    return (int)cudaErrorInvalidValue;
-  const int Ho = (H + 2 * pad - 3) / stride + 1;
-  const int Wo = (W + 2 * pad - 3) / stride + 1;
-  const int M = N * Ho * Wo;
-  if (T < 1 || H < 1 || W < 1 || M < 1 || cin < 1 || cout < 1 || S < 1 ||
-      S > M || T * S > 65535)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int chunk = maml::ceil_div(M, S);
-  dim3 grid(maml::ceil_div(9 * cin, maml::kWK), maml::ceil_div(cout, maml::kWN),
-            T * S);
-  if (stride == 1)
-    maml::conv3x3_wgrad_kernel<1><<<grid, maml::kThreads, 0, st>>>(
-        x, dy, part_w, part_b, N, H, W, Ho, Wo, cin, cout, pad, S, chunk);
-  else
-    maml::conv3x3_wgrad_kernel<2><<<grid, maml::kThreads, 0, st>>>(
-        x, dy, part_w, part_b, N, H, W, Ho, Wo, cin, cout, pad, S, chunk);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int KC = 9 * cin * cout;
-  const long long total = (long long)T * (KC + cout);
-  const int threads = 256;
-  maml::conv3x3_wgrad_reduce_kernel<<<(unsigned)((total + threads - 1) / threads),
-                                      threads, 0, st>>>(part_w, part_b, dw, db,
-                                                        T, S, KC, cout);
-  return (int)cudaGetLastError();
+  return maml::wgrad<float>(x, dy, part_w, part_b, dw, db, T, N, H, W,
+                            stride, pad, cin, cout, S, stream);
+}
+
+// The same in bf16: x, dy, dw and db bf16 (part_w and part_b f32 scratch).
+int conv3x3_wgrad_bf16(const __nv_bfloat16* x, const __nv_bfloat16* dy,
+                       float* part_w, float* part_b, __nv_bfloat16* dw,
+                       __nv_bfloat16* db, int T, int N, int H, int W,
+                       int stride, int pad, int cin, int cout, int S,
+                       void* stream) {
+  return maml::wgrad<__nv_bfloat16>(x, dy, part_w, part_b, dw, db, T, N, H,
+                                    W, stride, pad, cin, cout, S, stream);
 }
 
 }  // extern "C"

@@ -46,6 +46,18 @@
 // -2): that would materialise a flipped copy of every tenant's weights and
 // read them flipped twice over. Same bound as the forward: bytes at layer 1,
 // FLOPs at layers 2-4.
+//
+// bf16 (compute_dtype='bfloat16', conv3x3_fwd_stats_bf16): the same tile on
+// bf16 x, w and bias (conv3x3_tile.cuh widens them to f32 as they load), in
+// the JAX package's cast points: the f32 sum of the bf16 products is
+// rounded once to bf16 (XLA's bf16 conv), the bias add rounds again, and
+// the statistics are those of the ROUNDED y — the epilogue rounds its
+// accumulators before the tile's sums, so the statistics never see the f32
+// values y was rounded from. mean and var come out of the f32 merge
+// rounded once (jnp.mean / jnp.var on bf16: f32 sums), and rstd is the f32
+// rsqrt of the bf16 sum var + eps (eps rounded to bf16 by the host),
+// rounded once (lax.rsqrt). y, mean, var and rstd are stored in bf16.
+// Bound as in f32 (FFMA, the same FLOPs) with half the bytes.
 
 #include <cuda_runtime.h>
 
@@ -54,9 +66,13 @@
 namespace maml {
 
 // acc += bias (when given) and the tile's valid rows and columns -> yt.
+// For a bf16 T the product is rounded to bf16 before the bias add and the
+// sum again after it, and acc keeps the stored (rounded) values; for float
+// both roundings are the identity.
+template <typename T>
 __device__ __forceinline__ void add_bias_and_store(float acc[kTM][kTN],
-                                                   const float* bias,
-                                                   float* __restrict__ yt,
+                                                   const T* bias,
+                                                   T* __restrict__ yt,
                                                    int M, int cout, int m0,
                                                    int n0) {
   const int cg = threadIdx.x % 4;
@@ -64,20 +80,21 @@ __device__ __forceinline__ void add_bias_and_store(float acc[kTM][kTN],
 #pragma unroll
   for (int j = 0; j < kTN; ++j) {
     const int n = n0 + cg * 4 + j;
-    const float b = (bias != nullptr && n < cout) ? bias[n] : 0.f;
+    const float b = (bias != nullptr && n < cout) ? to_f32(bias[n]) : 0.f;
 #pragma unroll
     for (int i = 0; i < kTM; ++i) {
-      acc[i][j] += b;
+      acc[i][j] = round_to<T>(round_to<T>(acc[i][j]) + b);
       const int m = m0 + rg + 32 * i;
-      if (m < M && n < cout) yt[(size_t)m * cout + n] = acc[i][j];
+      if (m < M && n < cout)
+        yt[(size_t)m * cout + n] = from_f32<T>(acc[i][j]);
     }
   }
 }
 
-template <int kStride>
+template <typename T, int kStride>
 __global__ void __launch_bounds__(kThreads)
-conv3x3_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                   const float* bias, float* __restrict__ y, int N, int H,
+conv3x3_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                   const T* bias, T* __restrict__ y, int N, int H,
                    int W, int Ho, int Wo, int cin, int cout, int pad) {
   __shared__ ConvTileSmem s;
   const int t = blockIdx.z;
@@ -85,18 +102,17 @@ conv3x3_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const int n0 = blockIdx.y * kBN;
   const int M = N * Ho * Wo;
   float acc[kTM][kTN];
-  conv3x3_tile<kStride, false>(x + (size_t)t * N * H * W * cin,
-                               w + (size_t)t * 9 * cin * cout, H, W, Ho, Wo,
-                               M, cin, cout, pad, m0, n0, s, acc);
-  add_bias_and_store(acc, bias == nullptr ? nullptr : bias + t * cout,
-                     y + (size_t)t * M * cout, M, cout, m0, n0);
+  conv3x3_tile<T, kStride, false>(x + (size_t)t * N * H * W * cin,
+                                  w + (size_t)t * 9 * cin * cout, H, W, Ho,
+                                  Wo, M, cin, cout, pad, m0, n0, s, acc);
+  add_bias_and_store<T>(acc, bias == nullptr ? nullptr : bias + t * cout,
+                        y + (size_t)t * M * cout, M, cout, m0, n0);
 }
 
-template <int kStride>
+template <typename T, int kStride>
 __global__ void __launch_bounds__(kThreads)
-conv3x3_fwd_stats_kernel(const float* __restrict__ x,
-                         const float* __restrict__ w,
-                         const float* __restrict__ bias, float* __restrict__ y,
+conv3x3_fwd_stats_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                         const T* __restrict__ bias, T* __restrict__ y,
                          float* __restrict__ part, int N, int H, int W,
                          int Ho, int Wo, int cin, int cout, int pad,
                          int mtiles) {
@@ -110,14 +126,14 @@ conv3x3_fwd_stats_kernel(const float* __restrict__ x,
   const int m0 = mt * kBM;
   const int M = N * Ho * Wo;
   float acc[kTM][kTN];
-  conv3x3_tile<kStride, false>(x + (size_t)t * N * H * W * cin,
-                               w + (size_t)t * 9 * cin * cout, H, W, Ho, Wo,
-                               M, cin, cout, pad, m0, n0, s, acc);
+  conv3x3_tile<T, kStride, false>(x + (size_t)t * N * H * W * cin,
+                                  w + (size_t)t * 9 * cin * cout, H, W, Ho,
+                                  Wo, M, cin, cout, pad, m0, n0, s, acc);
 
   const int cg = tid % 4;
   const int rg = tid / 4;
-  add_bias_and_store(acc, bias + t * cout, y + (size_t)t * M * cout, M, cout,
-                     m0, n0);
+  add_bias_and_store<T>(acc, bias + t * cout, y + (size_t)t * M * cout, M,
+                        cout, m0, n0);
 
   // per-tile statistics: column sum -> tile mean -> sum of squared
   // deviations from the tile mean (M2), both over the valid rows only
@@ -178,11 +194,32 @@ __device__ __forceinline__ void chan_merge(float& n, float& mean, float& m2,
   n = nn;
 }
 
+// The merged statistics stored: f32 as they are, with rstd = 1 / sqrt(var
+// + eps); bf16 each rounded once, rstd the f32 rsqrt of the bf16 sum var +
+// eps (eps bf16 already), rounded once.
+__device__ __forceinline__ void store_stats(float* mean, float* var,
+                                            float* rstd, float mu, float v,
+                                            float eps) {
+  *mean = mu;
+  *var = v;
+  *rstd = 1.f / sqrtf(v + eps);
+}
+__device__ __forceinline__ void store_stats(__nv_bfloat16* mean,
+                                            __nv_bfloat16* var,
+                                            __nv_bfloat16* rstd, float mu,
+                                            float v, float eps) {
+  const float vb = round_to<__nv_bfloat16>(v);
+  *mean = __float2bfloat16_rn(mu);
+  *var = __float2bfloat16_rn(vb);
+  *rstd = __float2bfloat16_rn(1.f / sqrtf(round_to<__nv_bfloat16>(vb + eps)));
+}
+
 constexpr int kMergeThreads = 256;
 
+template <typename T>
 __global__ void __launch_bounds__(kMergeThreads)
-bn_stats_merge_kernel(const float* __restrict__ part, float* __restrict__ mean,
-                      float* __restrict__ var, float* __restrict__ rstd,
+bn_stats_merge_kernel(const float* __restrict__ part, T* __restrict__ mean,
+                      T* __restrict__ var, T* __restrict__ rstd,
                       int mtiles, int cout, float eps) {
   __shared__ float sn[kMergeThreads];
   __shared__ float sm[kMergeThreads];
@@ -210,12 +247,38 @@ bn_stats_merge_kernel(const float* __restrict__ part, float* __restrict__ mean,
     }
     __syncthreads();
   }
-  if (tid == 0) {
-    const float v = sq[0] / sn[0];
-    mean[t * cout + c] = sm[0];
-    var[t * cout + c] = v;
-    rstd[t * cout + c] = 1.f / sqrtf(v + eps);
-  }
+  if (tid == 0)
+    store_stats(mean + t * cout + c, var + t * cout + c, rstd + t * cout + c,
+                sm[0], sq[0] / sn[0], eps);
+}
+
+template <typename T>
+int fwd_stats(const T* x, const T* w, const T* b, T* y, float* part, T* mean,
+              T* var, T* rstd, int T_, int N, int H, int W, int stride,
+              int pad, int cin, int cout, int mtiles, float eps,
+              void* stream) {
+  if ((stride != 1 && stride != 2) || (pad != 0 && pad != 1) ||
+      H + 2 * pad < 3 || W + 2 * pad < 3)
+    return (int)cudaErrorInvalidValue;
+  const int Ho = (H + 2 * pad - 3) / stride + 1;
+  const int Wo = (W + 2 * pad - 3) / stride + 1;
+  const int M = N * Ho * Wo;
+  if (T_ < 1 || H < 1 || W < 1 || M < 1 || cin < 1 || cout < 1 ||
+      mtiles != ceil_div(M, kBM))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  dim3 grid(mtiles, ceil_div(cout, kBN), T_);
+  if (stride == 1)
+    conv3x3_fwd_stats_kernel<T, 1><<<grid, kThreads, 0, st>>>(
+        x, w, b, y, part, N, H, W, Ho, Wo, cin, cout, pad, mtiles);
+  else
+    conv3x3_fwd_stats_kernel<T, 2><<<grid, kThreads, 0, st>>>(
+        x, w, b, y, part, N, H, W, Ho, Wo, cin, cout, pad, mtiles);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  bn_stats_merge_kernel<T><<<dim3(cout, T_), kMergeThreads, 0, st>>>(
+      part, mean, var, rstd, mtiles, cout, eps);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace maml
@@ -233,28 +296,22 @@ int conv3x3_fwd_stats(const float* x, const float* w, const float* b,
                       float* rstd, int T, int N, int H, int W, int stride,
                       int pad, int cin, int cout, int mtiles, float eps,
                       void* stream) {
-  if ((stride != 1 && stride != 2) || (pad != 0 && pad != 1) ||
-      H + 2 * pad < 3 || W + 2 * pad < 3)
-    return (int)cudaErrorInvalidValue;
-  const int Ho = (H + 2 * pad - 3) / stride + 1;
-  const int Wo = (W + 2 * pad - 3) / stride + 1;
-  const int M = N * Ho * Wo;
-  if (T < 1 || H < 1 || W < 1 || M < 1 || cin < 1 || cout < 1 ||
-      mtiles != maml::ceil_div(M, maml::kBM))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 grid(mtiles, maml::ceil_div(cout, maml::kBN), T);
-  if (stride == 1)
-    maml::conv3x3_fwd_stats_kernel<1><<<grid, maml::kThreads, 0, st>>>(
-        x, w, b, y, part, N, H, W, Ho, Wo, cin, cout, pad, mtiles);
-  else
-    maml::conv3x3_fwd_stats_kernel<2><<<grid, maml::kThreads, 0, st>>>(
-        x, w, b, y, part, N, H, W, Ho, Wo, cin, cout, pad, mtiles);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  maml::bn_stats_merge_kernel<<<dim3(cout, T), maml::kMergeThreads, 0, st>>>(
-      part, mean, var, rstd, mtiles, cout, eps);
-  return (int)cudaGetLastError();
+  return maml::fwd_stats<float>(x, w, b, y, part, mean, var, rstd, T, N, H,
+                                W, stride, pad, cin, cout, mtiles, eps,
+                                stream);
+}
+
+// The same in bf16: x, w, b, y, mean, var and rstd bf16 (part f32 scratch),
+// eps the bf16 value of the batch norm's eps.
+int conv3x3_fwd_stats_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
+                           const __nv_bfloat16* b, __nv_bfloat16* y,
+                           float* part, __nv_bfloat16* mean,
+                           __nv_bfloat16* var, __nv_bfloat16* rstd, int T,
+                           int N, int H, int W, int stride, int pad, int cin,
+                           int cout, int mtiles, float eps, void* stream) {
+  return maml::fwd_stats<__nv_bfloat16>(x, w, b, y, part, mean, var, rstd, T,
+                                        N, H, W, stride, pad, cin, cout,
+                                        mtiles, eps, stream);
 }
 
 // y = conv3x3(x, w) (+ b) at `stride` and `pad`: the stats-free mode. x
@@ -275,10 +332,10 @@ int conv3x3_fwd(const float* x, const float* w, const float* b, float* y,
   dim3 grid(maml::ceil_div(M, maml::kBM), maml::ceil_div(cout, maml::kBN), T);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (stride == 1)
-    maml::conv3x3_fwd_kernel<1><<<grid, maml::kThreads, 0, st>>>(
+    maml::conv3x3_fwd_kernel<float, 1><<<grid, maml::kThreads, 0, st>>>(
         x, w, b, y, N, H, W, Ho, Wo, cin, cout, pad);
   else
-    maml::conv3x3_fwd_kernel<2><<<grid, maml::kThreads, 0, st>>>(
+    maml::conv3x3_fwd_kernel<float, 2><<<grid, maml::kThreads, 0, st>>>(
         x, w, b, y, N, H, W, Ho, Wo, cin, cout, pad);
   return (int)cudaGetLastError();
 }

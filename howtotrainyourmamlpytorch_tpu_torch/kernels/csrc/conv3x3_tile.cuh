@@ -34,11 +34,43 @@
 // rg + 32*i (i < 8) and the 4 contiguous columns cg*4 .. cg*4+3, so each
 // shared-memory step feeds 32 FFMAs from 8 scalar A reads and one float4 B
 // read. f32 FFMA only: the JAX package multiplies f32 in true f32.
+//
+// The element type T of x and w is a template argument: float, or
+// __nv_bfloat16 for compute_dtype='bfloat16'. A bf16 element is widened to
+// f32 as it is loaded into shared memory, so the tiles, the FMA loop and
+// its order are the f32 ones: a bf16 x bf16 product is exact in f32 and the
+// sum accumulates in f32, as XLA's bf16 conv does (one rounding, at the
+// caller's store). The float instantiation is the code it was, bit for
+// bit. (FFMA on bf16 loads; the tensor cores, mma.sync or wgmma with f32
+// accumulation, are a later speed step.)
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace maml {
+
+// An element widened to f32, and an f32 value rounded to the element type
+// (round to nearest even; the identity for float).
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+// v rounded to T and widened back: what a T store would hold
+template <typename T>
+__device__ __forceinline__ float round_to(float v) {
+  return to_f32(from_f32<T>(v));
+}
 
 constexpr int kThreads = 128;
 constexpr int kBM = 256;  // output pixels per block
@@ -71,9 +103,9 @@ struct __align__(16) ConvTileSmem {
 // that maps dy to dx. org is the taps' origin: the pad for the forward,
 // 2 - pad for the dgrad. At kStride = 1 and pad 1, Hr = Hs and Wr = Ws; at
 // pad 0 the forward's rows are the smaller grid, the dgrad's the larger.
-template <int kStride, bool kFlipW>
+template <typename T, int kStride, bool kFlipW>
 __device__ __forceinline__ void conv3x3_tile(
-    const float* __restrict__ x, const float* __restrict__ w, int Hs, int Ws,
+    const T* __restrict__ x, const T* __restrict__ w, int Hs, int Ws,
     int Hr, int Wr, int M, int cin, int cout, int org, int m0, int n0,
     ConvTileSmem& s, float acc[kTM][kTN]) {
   static_assert(kStride == 1 || kStride == 2, "stride 1 or 2");
@@ -142,11 +174,11 @@ __device__ __forceinline__ void conv3x3_tile(
       float v = 0.f;
       if (k < K && n < cout) {
         if (!kFlipW) {
-          v = w[k * cout + n];
+          v = to_f32(w[k * cout + n]);
         } else {
           const int kpos = k / cin;
           const int ci = k - kpos * cin;
-          v = w[((8 - kpos) * cout + n) * cin + ci];
+          v = to_f32(w[((8 - kpos) * cout + n) * cin + ci]);
         }
       }
       s.b[kk][nn] = v;
@@ -165,9 +197,10 @@ __device__ __forceinline__ void conv3x3_tile(
         // dy pixel (h / 2, ww / 2), where h and ww are even
         if (h >= 0 && ww >= 0 && ((h | ww) & 1) == 0 && (h >> 1) < Hs &&
             (ww >> 1) < Ws)
-          v = x[s.row_base[r] + ((h >> 1) * Ws + (ww >> 1)) * cin + delta];
+          v = to_f32(
+              x[s.row_base[r] + ((h >> 1) * Ws + (ww >> 1)) * cin + delta]);
       } else if (h >= 0 && h < Hs && ww >= 0 && ww < Ws) {
-        v = x[s.row_base[r] + delta];
+        v = to_f32(x[s.row_base[r] + delta]);
       }
       s.a[kk_ld][r] = v;
     }

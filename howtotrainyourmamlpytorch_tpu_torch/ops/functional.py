@@ -16,6 +16,7 @@ tensors, and the card run compares each kernel with its twin.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -28,13 +29,24 @@ LN_EPS = 1e-5
 LEAKY_SLOPE = 0.01
 
 
+def bcast(v: Tensor, x: Tensor) -> Tensor:
+    """``v``, an operand that a differentiated op broadcasts against ``x``
+    (a bias, gamma, beta, a batch or layer mean or rstd): returned as it
+    is, so its gradient is PyTorch's f32-accumulated sum over the broadcast
+    axes, on every device, as XLA sums it on an accelerator and as the
+    kernels do. The one seam where such a sum is taken: the CPU parity
+    tests against the JAX package swap in XLA:CPU's bf16 sum here."""
+    del x
+    return v
+
+
 def _per_channel(v: Tensor, x: Tensor) -> Tensor:
     """Broadcast a per-channel vector against an NHWC activation: ``(C,)``
     as is, a per-tenant ``(T, C)`` against a 5-D ``x`` as
-    ``(T, 1, 1, 1, C)``."""
+    ``(T, 1, 1, 1, C)`` (``bcast``)."""
     if v.dim() == 2:
-        return v.reshape(v.shape[0], *([1] * (x.dim() - 2)), v.shape[1])
-    return v
+        v = v.reshape(v.shape[0], *([1] * (x.dim() - 2)), v.shape[1])
+    return bcast(v, x)
 
 
 def _stat_dims(x: Tensor) -> Tuple[int, ...]:
@@ -47,6 +59,49 @@ def at_least_f32(x: Tensor) -> Tensor:
     """``x`` in f32, or as it is when it is wider: an f64 reference run
     stays f64 end to end."""
     return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+@functools.lru_cache(maxsize=None)
+def _rounded(v: float, dtype: torch.dtype) -> float:
+    return torch.tensor(v, dtype=dtype).item()
+
+
+def scalar_like(v: float, x: Tensor) -> float:
+    """The Python scalar ``v`` rounded to ``x``'s dtype, as a weakly typed
+    scalar meets an array in JAX: ``0.01 * x`` on a bf16 ``x`` multiplies by
+    bf16(0.01) = 0.010009765625, and ``var + 1e-5`` adds bf16(1e-5). PyTorch
+    would carry the scalar in f32 into a bf16 op; in f32 and f64 the value
+    is what PyTorch uses anyway."""
+    return _rounded(float(v), x.dtype)
+
+
+class _Bf16Rsqrt(torch.autograd.Function):
+    """``lax.rsqrt`` of a bf16 tensor: the f32 rsqrt, rounded once
+    (PyTorch's own bf16 rsqrt on the CPU is off by an ulp at times); its
+    derivative JAX's, in bf16 ops: ``g * (-0.5 * (r / v))``."""
+
+    @staticmethod
+    def forward(ctx, v):
+        r = torch.rsqrt(v.float()).to(v.dtype)
+        ctx.save_for_backward(v, r)
+        return r
+
+    @staticmethod
+    def backward(ctx, g):
+        v, r = ctx.saved_tensors
+        return g * (-0.5 * (r / v))
+
+
+def rsqrt_eps(var: Tensor, eps: float, kernel_form: bool = False
+              ) -> Tensor:
+    """``rsqrt(var + eps)`` in var's dtype. In bf16 ``lax.rsqrt`` of the
+    bf16 sum (``eps`` rounded to bf16, ``_Bf16Rsqrt``). In f32 and f64
+    ``torch.rsqrt``, or with ``kernel_form`` ``1 / sqrt``, the kernels'
+    form."""
+    v = var + scalar_like(eps, var)
+    if var.dtype == torch.bfloat16:
+        return _Bf16Rsqrt.apply(v)
+    return 1.0 / torch.sqrt(v) if kernel_form else torch.rsqrt(v)
 
 
 def im2col(x: Tensor, kh: int, kw: int, stride: int, padding: int) -> Tensor:
@@ -88,8 +143,11 @@ def batch_stats(x: Tensor, stats_impl: str = "twopass"
                 ) -> Tuple[Tensor, Tensor]:
     """Batch mean and biased variance over (N, H, W) per channel.
 
-    ``'twopass'``: mean, then the mean of squared deviations. ``'fused'``:
-    sum and sum of squares in f32, ``var = E[x^2] - E[x]^2`` clamped at 0.
+    ``'twopass'``: mean, then the mean of squared deviations from it, as
+    ``jnp.mean`` and ``jnp.var``: in f32 (f64 stays f64) about the f32
+    mean, each rounded once to x's dtype (a bf16 ``x``'s variance is not
+    the bf16-centred one). ``'fused'``: sum and sum of squares in f32,
+    ``var = E[x^2] - E[x]^2`` clamped at 0.
     """
     dims = _stat_dims(x)
     if stats_impl == "fused":
@@ -105,17 +163,22 @@ def batch_stats(x: Tensor, stats_impl: str = "twopass"
         raise ValueError(
             f"stats_impl must be 'twopass' or 'fused', got {stats_impl!r}"
         )
-    mean = x.mean(dims)
-    var = ((x - _per_channel(mean, x)) ** 2).mean(dims)
-    return mean, var
+    # each statistic converts x itself, and the variance centres on its
+    # own f32 mean, as jnp.mean and jnp.var do: in bf16 their gradients
+    # reach x as two bf16 cotangents
+    mean = at_least_f32(x).mean(dims).to(x.dtype)
+    x32 = at_least_f32(x)
+    var = ((x32 - x32.mean(dims, keepdim=True)) ** 2).mean(dims)
+    return mean, var.to(x.dtype)
 
 
 def running_update(running_mean: Tensor, running_var: Tensor, mean: Tensor,
                    var: Tensor, n: int, momentum: float = 0.1
                    ) -> Tuple[Tensor, Tensor]:
     """torch's running-stat rule: ``new = (1 - m) * old + m * batch``, with
-    the UNBIASED batch variance feeding the running variance."""
-    unbiased = var * (n / max(n - 1, 1))
+    the UNBIASED batch variance feeding the running variance (the factor
+    rounded to var's dtype: 1.0 in bf16 for n above ~256, as in JAX)."""
+    unbiased = var * scalar_like(n / max(n - 1, 1), var)
     new_mean = (1.0 - momentum) * running_mean + momentum * mean.to(
         running_mean.dtype)
     new_var = (1.0 - momentum) * running_var + momentum * unbiased.to(
@@ -132,7 +195,7 @@ def batch_norm(x: Tensor, gamma: Tensor, beta: Tensor,
     ``training=True`` call); the running stats are updated but never
     normalize anything. Returns ``(y, new_mean, new_var)``."""
     mean, var = batch_stats(x, stats_impl)
-    inv = torch.rsqrt(var + eps).to(x.dtype)
+    inv = rsqrt_eps(var, eps)
     y = (x - _per_channel(mean, x)) * _per_channel(inv, x)
     y = y * _per_channel(gamma.to(x.dtype), x) + _per_channel(
         beta.to(x.dtype), x)
@@ -160,20 +223,24 @@ def layer_norm(x: Tensor, gamma: Tensor, beta: Tensor, eps: float = LN_EPS
                ) -> Tensor:
     """Layer norm over each image's (H, W, C), the JAX package's
     ``layer_norm``: the mean and the population variance (two passes, as
-    ``jnp.var``) per sample, ``(x - mean) * rsqrt(var + eps)``, times
-    ``gamma`` plus ``beta``, both elementwise ``(H, W, C)`` (or per tenant
-    ``(T, H, W, C)``)."""
+    ``jnp.mean`` and ``jnp.var``: in f32, each rounded once to x's dtype)
+    per sample, ``(x - mean) * rsqrt(var + eps)``, times ``gamma`` plus
+    ``beta``, both elementwise ``(H, W, C)`` (or per tenant ``(T, H, W,
+    C)``)."""
     dims = (-3, -2, -1)
-    mean = x.mean(dims, keepdim=True)
-    var = ((x - mean) ** 2).mean(dims, keepdim=True)
-    y = (x - mean) * torch.rsqrt(var + eps)
-    return (y * _ln_param(gamma.to(x.dtype), x)
-            + _ln_param(beta.to(x.dtype), x))
+    mean = at_least_f32(x).mean(dims, keepdim=True).to(x.dtype)
+    x32 = at_least_f32(x)
+    var = ((x32 - x32.mean(dims, keepdim=True)) ** 2).mean(
+        dims, keepdim=True).to(x.dtype)
+    y = (x - bcast(mean, x)) * bcast(rsqrt_eps(var, eps), x)
+    return (y * bcast(_ln_param(gamma.to(x.dtype), x), x)
+            + bcast(_ln_param(beta.to(x.dtype), x), x))
 
 
 def leaky_relu(x: Tensor, negative_slope: float = LEAKY_SLOPE) -> Tensor:
-    """``where(x >= 0, x, slope * x)``, as ``jax.nn.leaky_relu``."""
-    return torch.where(x >= 0, x, negative_slope * x)
+    """``where(x >= 0, x, slope * x)``, as ``jax.nn.leaky_relu`` (the slope
+    rounded to x's dtype)."""
+    return torch.where(x >= 0, x, scalar_like(negative_slope, x) * x)
 
 
 def conv_bn_act(x: Tensor, w: Tensor, b: Optional[Tensor], gamma: Tensor,
@@ -210,7 +277,7 @@ def linear(x: Tensor, w: Tensor, b: Optional[Tensor]) -> Tensor:
     out = torch.matmul(x, w.to(x.dtype))
     if b is not None:
         b = b.to(out.dtype)
-        out = out + (b[:, None, :] if b.dim() == 2 else b)
+        out = out + bcast(b[:, None, :] if b.dim() == 2 else b, out)
     return out
 
 
@@ -263,7 +330,7 @@ def conv_bn_act_pool(x: Tensor, w: Tensor, b: Tensor, gamma: Tensor,
     (they only feed the running-stat update, which no gradient reads)."""
     y = conv2d(x, w, b, stride, padding)
     mean, var = batch_stats(y, stats_impl)
-    inv = torch.rsqrt(var + eps).to(y.dtype)
+    inv = rsqrt_eps(var, eps)
     z = (y - _per_channel(mean, y)) * _per_channel(inv, y)
     z = z * _per_channel(gamma.to(y.dtype), y) + _per_channel(
         beta.to(y.dtype), y)
@@ -288,7 +355,7 @@ def norm_conv_act_pool(x: Tensor, w: Tensor, b: Tensor, gamma: Tensor,
     Returns ``(out, batch_mean, batch_var)`` of the block input, detached,
     as ``conv_bn_act_pool`` returns the conv output's."""
     mean, var = batch_stats(x, stats_impl)
-    inv = torch.rsqrt(var + eps).to(x.dtype)
+    inv = rsqrt_eps(var, eps)
     z = (x - _per_channel(mean, x)) * _per_channel(inv, x)
     z = z * _per_channel(gamma.to(x.dtype), x) + _per_channel(
         beta.to(x.dtype), x)
@@ -347,15 +414,20 @@ del _block, _order, _norm
 
 # -- plain twins of the hand-written kernels ----------------------------------
 #
-# All take the tenant axis: x/y (T, N, H, W, C) f32, w (T, 3, 3, cin, cout),
-# per-channel tensors (T, C).
+# All take the tenant axis: x/y (T, N, H, W, C) f32 or bf16, w (T, 3, 3,
+# cin, cout), per-channel tensors (T, C). In bf16 (``compute_dtype=
+# 'bfloat16'``) the forwards round to bf16 after every op, as the JAX
+# package's bf16 graph does (gamma and beta cast to the activation's dtype,
+# the statistics ``batch_stats``', the slope and eps rounded to bf16); the
+# backwards compute in f32 from the bf16 inputs, the masks taken from the
+# bf16 forward's values, and round each output once.
 
 
 def bn_stats(y: Tensor, eps: float = BN_EPS) -> Tuple[Tensor, Tensor, Tensor]:
     """y's per-(tenant, channel) batch mean, biased variance (two passes)
-    and ``rstd = 1 / sqrt(var + eps)``."""
+    and ``rstd = rsqrt(var + eps)`` (``rsqrt_eps``)."""
     mean, var = batch_stats(y, "twopass")
-    return mean, var, 1.0 / torch.sqrt(var + eps)
+    return mean, var, rsqrt_eps(var, eps, kernel_form=True)
 
 
 def conv3x3_fwd_stats(x: Tensor, w: Tensor, b: Tensor, eps: float = BN_EPS,
@@ -386,9 +458,17 @@ def _windows(a: Tensor) -> Tensor:
 def _affine_act(y: Tensor, mean: Tensor, rstd: Tensor, gamma: Tensor,
                 beta: Tensor) -> Tuple[Tensor, Tensor]:
     """``(xhat, z)`` with ``xhat = (y - mean) * rstd`` and
-    ``z = xhat * gamma + beta``."""
-    xhat = (y - _per_channel(mean, y)) * _per_channel(rstd, y)
-    return xhat, xhat * _per_channel(gamma, y) + _per_channel(beta, y)
+    ``z = xhat * gamma + beta``, every operand in y's dtype."""
+
+    def pc(v):
+        return _per_channel(v.to(y.dtype), y)
+
+    xhat = (y - pc(mean)) * pc(rstd)
+    return xhat, xhat * pc(gamma) + pc(beta)
+
+
+def _f32(*tensors: Tensor) -> Tuple[Tensor, ...]:
+    return tuple(at_least_f32(t) for t in tensors)
 
 
 def bn_act_fwd(y: Tensor, mean: Tensor, rstd: Tensor, gamma: Tensor,
@@ -434,16 +514,18 @@ def bn_act_bwd(da: Tensor, y: Tensor, mean: Tensor, rstd: Tensor,
     Returns ``(dy, dgamma, dbeta)`` with ``dgamma = sum(dz * xhat)`` and
     ``dbeta = sum(dz)`` per (tenant, channel)."""
     _, n, h, w, _ = y.shape
-    xhat, z = _affine_act(y, mean, rstd, gamma, beta)
-    dz = torch.where(z >= 0, da, negative_slope * da)
+    _, z = _affine_act(y, mean, rstd, gamma, beta)
+    y32, mean32, rstd32, gamma32, da32 = _f32(y, mean, rstd, gamma, da)
+    xhat = (y32 - _per_channel(mean32, y)) * _per_channel(rstd32, y)
+    dz = _leaky_masked(da32, z, scalar_like(negative_slope, y))
     dbeta = dz.sum((1, 2, 3))
     dgamma = (dz * xhat).sum((1, 2, 3))
     inv_m = 1.0 / (n * h * w)
-    dy = _per_channel(gamma * rstd, y) * (
+    dy = _per_channel(gamma32 * rstd32, y) * (
         dz - _per_channel(dbeta * inv_m, y)
         - xhat * _per_channel(dgamma * inv_m, y)
     )
-    return dy, dgamma, dbeta
+    return dy.to(y.dtype), dgamma.to(y.dtype), dbeta.to(y.dtype)
 
 
 def bn_act_pool_bwd(dpooled: Tensor, argmax: Tensor, y: Tensor, mean: Tensor,
@@ -473,14 +555,19 @@ def bn_act_bwd_bwd(a: Tensor, ggamma: Tensor, gbeta: Tensor, da: Tensor,
     _, n, h, w, _ = y.shape
     m = n * h * w
     dims = (1, 2, 3)
+    out_dtype = y.dtype
+    slope = scalar_like(negative_slope, y)
 
     def pc(v):
         return _per_channel(v, y)
 
     def masked(v):
-        return torch.where(z >= 0, v, negative_slope * v)
+        return _leaky_masked(v, z, slope)
 
-    xhat, z = _affine_act(y, mean, rstd, gamma, beta)
+    _, z = _affine_act(y, mean, rstd, gamma, beta)
+    a, ggamma, gbeta, da, y, mean, rstd, gamma = _f32(
+        a, ggamma, gbeta, da, y, mean, rstd, gamma)
+    xhat = (y - pc(mean)) * pc(rstd)
     dz = masked(da)
     m_a, m_ax = a.mean(dims), (a * xhat).mean(dims)
     m_dz, m_dzx = dz.mean(dims), (dz * xhat).mean(dims)
@@ -493,7 +580,8 @@ def bn_act_bwd_bwd(a: Tensor, ggamma: Tensor, gbeta: Tensor, da: Tensor,
     mean_gx = -2.0 * grs * m_ax * m_dzx + ggamma * m_dzx
     g_y = (pc(rstd) * (big_g - pc(mean_g) - xhat * pc(mean_gx))
            - xhat * pc(rstd * rstd * gamma * cross / m))
-    return g_da, g_y, rstd * cross
+    return (g_da.to(out_dtype), g_y.to(out_dtype),
+            (rstd * cross).to(out_dtype))
 
 
 def bn_act_pool_bwd_bwd(a: Tensor, ggamma: Tensor, gbeta: Tensor,
@@ -614,8 +702,8 @@ def batch_norm_bwd_bwd(a: Tensor, ggamma: Tensor, gbeta: Tensor, dz: Tensor,
 
 def _leaky_masked(v: Tensor, y: Tensor, negative_slope: float) -> Tensor:
     """``v * leaky_relu'(y)``: ``v`` where ``y >= 0``, else
-    ``negative_slope * v``."""
-    return torch.where(y >= 0, v, negative_slope * v)
+    ``negative_slope * v`` (the slope rounded to v's dtype)."""
+    return torch.where(y >= 0, v, scalar_like(negative_slope, v) * v)
 
 
 def act_fwd(y: Tensor, negative_slope: float = LEAKY_SLOPE) -> Tensor:
@@ -678,11 +766,14 @@ def _row_mean(v: Tensor) -> Tensor:
 
 def image_stats(x: Tensor, eps: float = LN_EPS
                 ) -> Tuple[Tensor, Tensor, Tensor]:
-    """Each image's mean, population variance (two passes) and ``rstd = 1
-    / sqrt(var + eps)`` over its (H, W, C), ``(T, N)`` each."""
-    mean = _row_mean(x)
-    var = _row_mean((x - _rows(mean)) ** 2)
-    return mean, var, 1.0 / torch.sqrt(var + eps)
+    """Each image's mean, population variance (two passes, in f32, each
+    rounded once to x's dtype, as ``jnp.mean`` / ``jnp.var``) and ``rstd =
+    rsqrt(var + eps)`` (``rsqrt_eps``) over its (H, W, C), ``(T, N)``
+    each."""
+    x32 = at_least_f32(x)
+    mean = _row_mean(x32)
+    var = _row_mean((x32 - _rows(mean)) ** 2).to(x.dtype)
+    return mean.to(x.dtype), var, rsqrt_eps(var, eps, kernel_form=True)
 
 
 def layer_norm_stats(x: Tensor, eps: float = LN_EPS
@@ -694,7 +785,10 @@ def layer_norm_stats(x: Tensor, eps: float = LN_EPS
 def layer_norm_fwd(x: Tensor, mean: Tensor, rstd: Tensor, gamma: Tensor,
                    beta: Tensor) -> Tensor:
     """Twin of ``layer_norm_fwd``: ``(x - mean) * rstd * gamma + beta``,
-    the statistics per image, gamma and beta per (tenant, h, w, c)."""
+    the statistics per image, gamma and beta per (tenant, h, w, c), every
+    operand in x's dtype."""
+    mean, rstd, gamma, beta = (v.to(x.dtype) for v in (mean, rstd, gamma,
+                                                      beta))
     return ((x - _rows(mean)) * _rows(rstd) * gamma.unsqueeze(1)
             + beta.unsqueeze(1))
 
@@ -708,12 +802,15 @@ def layer_norm_bwd(dz: Tensor, x: Tensor, mean: Tensor, rstd: Tensor,
 
     and per (tenant, h, w, c), summed over the N images, ``dgamma =
     sum(dz * xhat)`` and ``dbeta = sum(dz)``. Returns ``(dx, dgamma,
-    dbeta)``."""
+    dbeta)``, computed in f32 (f64 stays f64) and rounded to x's dtype."""
+    out_dtype = x.dtype
+    dz, x, mean, rstd, gamma = _f32(dz, x, mean, rstd, gamma)
     xhat = (x - _rows(mean)) * _rows(rstd)
     g = dz * gamma.unsqueeze(1)
     dx = _rows(rstd) * (g - _rows(_row_mean(g))
                         - xhat * _rows(_row_mean(g * xhat)))
-    return dx, (dz * xhat).sum(1), dz.sum(1)
+    return tuple(v.to(out_dtype) for v in (dx, (dz * xhat).sum(1),
+                                           dz.sum(1)))
 
 
 def layer_norm_bwd_bwd(a: Tensor, ggamma: Tensor, gbeta: Tensor, dz: Tensor,
@@ -735,7 +832,11 @@ def layer_norm_bwd_bwd(a: Tensor, ggamma: Tensor, gbeta: Tensor, dz: Tensor,
 
     ``G`` is the gradient with respect to xhat at fixed r; the last term
     is the one through r (``sum(a * P(g))`` times ``dr/dx``). Returns
-    ``(g_dz, g_x, g_gamma)``."""
+    ``(g_dz, g_x, g_gamma)``, computed in f32 (f64 stays f64) and rounded
+    to x's dtype."""
+    out_dtype = x.dtype
+    a, ggamma, gbeta, dz, x, mean, rstd, gamma = _f32(
+        a, ggamma, gbeta, dz, x, mean, rstd, gamma)
     r = _rows(rstd)
     gam = gamma.unsqueeze(1)
     xhat = (x - _rows(mean)) * r
@@ -750,4 +851,4 @@ def layer_norm_bwd_bwd(a: Tensor, ggamma: Tensor, gbeta: Tensor, dz: Tensor,
     g_x = (r * (big_g - _rows(_row_mean(big_g))
                 - xhat * _rows(_row_mean(big_g * xhat)))
            - xhat * _rows(rstd * rstd * cross))
-    return g_dz, g_x, (dz * r * p_a).sum(1)
+    return tuple(v.to(out_dtype) for v in (g_dz, g_x, (dz * r * p_a).sum(1)))

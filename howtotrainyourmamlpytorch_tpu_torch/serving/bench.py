@@ -18,7 +18,12 @@ conv_norm_relu|norm_conv_relu`` likewise (``norm_conv_relu``: the
 norm-first block), and ``--norm_layer batch_norm|layer_norm``
 (``layer_norm``: a layer norm over each image's (H, W, C) in place of the
 batch norm, in either block order), and ``--conv_padding true|false``
-(``false``: the unpadded model, every 3x3 conv a valid window).
+(``false``: the unpadded model, every 3x3 conv a valid window), and
+``--compute_dtype float32|bfloat16`` (``bfloat16``: activations, the conv
+and the head in bf16 with f32 accumulation, the JAX package's bf16 cast
+points; on the card the conv-first batch-norm model at stride 1 and pad 1,
+whose serving kernels have bf16 versions — any other model raises
+``NotImplementedError`` naming the kernels that do not).
 
 Prints ONE JSON line: adapt latency p50/p95, ``tenants_per_sec``,
 dispatches, tenants, the ``ingest`` and ``h2d_bytes_per_dispatch`` (the
@@ -47,6 +52,9 @@ ported yet.
     python -m howtotrainyourmamlpytorch_tpu_torch.cli serve-bench \\
         --config experiment_config/mini-imagenet_maml++-mini-imagenet_5_5_2_0.01_48_0.json \\
         --conv_padding false --requests 16 --ingest index
+    python -m howtotrainyourmamlpytorch_tpu_torch.cli serve-bench \\
+        --config experiment_config/mini-imagenet_maml++-mini-imagenet_5_5_2_0.01_48_0.json \\
+        --compute_dtype bfloat16 --requests 16 --ingest index
 """
 
 from __future__ import annotations
@@ -76,6 +84,8 @@ OMNIGLOT_CLASSES, OMNIGLOT_PER_CLASS = 1623, 20
 BLOCK_ORDERS = _CHOICES["block_order"]
 #: the norm layers ``--norm_layer`` takes
 NORM_LAYERS = _CHOICES["norm_layer"]
+#: the compute dtypes ``--compute_dtype`` takes
+COMPUTE_DTYPES = _CHOICES["compute_dtype"]
 
 
 def bool_arg(value: str) -> bool:
@@ -133,6 +143,8 @@ def _bench_cfg(args) -> MAMLConfig:
         cfg = cfg.replace(norm_layer=args.norm_layer)
     if args.conv_padding is not None:
         cfg = cfg.replace(conv_padding=args.conv_padding)
+    if args.compute_dtype is not None:
+        cfg = cfg.replace(compute_dtype=args.compute_dtype)
     return cfg
 
 
@@ -238,6 +250,10 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--conv_padding", type=bool_arg, default=None,
                         help="override the config's conv_padding (true or "
                              "false), as the JAX command line does")
+    parser.add_argument("--compute_dtype", choices=COMPUTE_DTYPES,
+                        default=None,
+                        help="override the config's compute_dtype, as the "
+                             "JAX command line does")
     parser.add_argument("--device", default=None,
                         help="torch device (default cuda:0; 'cpu' runs the "
                              "plain PyTorch ops)")

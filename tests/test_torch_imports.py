@@ -150,9 +150,15 @@ def test_wrappers_never_take_the_plain_path_off_the_cpu():
         with pytest.raises(ValueError, match="CUDA"):
             call()
     assert conv_block.launches() == {k: 0 for k in conv_block.KERNELS}
-    with pytest.raises(NotImplementedError, match="f32 only"):
+    # bf16 has kernels for the conv-first batch-norm block at stride 1 and
+    # pad 1: past the dtype guard, the device check refuses the meta tensor
+    with pytest.raises(ValueError, match="CUDA"):
         conv_block.conv_bn_act_pool(
             _meta(1, 2, 6, 6, 3, dtype=torch.bfloat16), w, b, v, v)
+    with pytest.raises(NotImplementedError, match="f32 only"):
+        conv_block.conv_bn_act_pool(
+            _meta(1, 2, 6, 6, 3, dtype=torch.bfloat16), w, b, v, v,
+            stride=2, pool=False)
     with pytest.raises(NotImplementedError, match="f32 only"):
         conv_block.norm_conv_act_pool(
             _meta(1, 2, 6, 6, 3, dtype=torch.bfloat16), w, b, v, v)

@@ -8,8 +8,11 @@ the leaky-ReLU + pool kernels, K1 stats-free and dgrad at cin 1 and 3),
 and the layer-norm blocks (``layer_norm_stats/fwd/bwd/bwd_bwd``, both
 orders, pooled and strided); the conv kernels at pad 0 (the unpadded
 models, ``conv_padding=False``) and the unpadded blocks' derivatives;
-and the ingest kernel ``episode_expand``
-equal to its twin bit for bit (it is a pure lookup).
+the bf16 kernels (``compute_dtype='bfloat16'``: K1 with statistics,
+K2/K3 pooled, K4) against their bf16 twins, the bf16 block, and the
+NotImplementedError of every kernel with no bf16 version; and the ingest
+kernel ``episode_expand`` equal to its twin bit for bit (it is a pure
+lookup).
 These need the card: marked ``cuda``, they skip where
 ``torch.cuda.is_available()`` is false. On the card (``--noconftest``:
 the suite's conftest imports jax, which the port never needs):
@@ -17,7 +20,7 @@ the suite's conftest imports jax, which the port never needs):
     python -m pytest tests/test_torch_kernels_cuda.py -q --noconftest
 
 Tolerance: ``max |kernel - twin| <= 1e-5 + 1e-4 * max |twin|`` (f32, sums
-in another order).
+in another order); the bf16 gates are stated above their tests.
 """
 
 import numpy as np
@@ -668,3 +671,132 @@ def test_episode_expand_rejects_what_it_does_not_take(device):
         ee.gather_decode(store, rows, None, lut[:, :0], 1)
     with pytest.raises(ValueError, match="uint8"):
         ee.decode(store.float(), lut)
+
+
+# -- bf16 (compute_dtype='bfloat16'): K1 with statistics, K2/K3 pooled, K4 --
+#
+# Gates (the kernels load bf16, compute in f32 and round where the JAX
+# package's bf16 graph rounds, as their twins do):
+# * K2 equals its twin bit for bit (pooled values and argmax): the same
+#   bf16 chain of single-rounded ops on the same inputs;
+# * K1 (y, mean, var, rstd), K3 (dy, dgamma, dbeta), dgrad and wgrad
+#   within one bf16 ulp of the twin elementwise, or 1e-4 of the output's
+#   scale where that is larger: both round one f32 value, computed in
+#   another order, so a value near a rounding boundary may round the other
+#   way. y rounds twice (the conv's sum, then the bias add), so its bound
+#   is one ulp of each.
+
+BF16_SHAPES = [
+    # T, N, H, W, cin, cout: the image layer, an odd map (21 -> 10), a
+    # 48-channel map, channel counts that fill no tile
+    (1, 1, 5, 5, 1, 4),
+    (2, 3, 11, 9, 3, 20),
+    (3, 2, 21, 21, 48, 48),
+    (2, 5, 10, 10, 17, 33),
+]
+
+
+def bf16_ulp(v):
+    """The spacing of bf16 at each |v| (8 significant bits)."""
+    _, e = torch.frexp(v.double().abs().clamp_min(2.0 ** -126))
+    return torch.ldexp(torch.ones_like(v, dtype=torch.float64), e - 8)
+
+
+def within_ulp(got, want, what, ulps=None):
+    """|got - want| <= max(ulps (default: one ulp of want), 1e-4 * max
+    |want|) elementwise."""
+    assert got.dtype == want.dtype == torch.bfloat16, (what, got.dtype)
+    diff = (got.double() - want.double()).abs()
+    tol = bf16_ulp(want) if ulps is None else ulps
+    tol = torch.maximum(tol, torch.full_like(
+        tol, 1e-4 * want.double().abs().max().item()))
+    bad = int((diff > tol).sum())
+    assert bad == 0, (what, bad, diff.max().item())
+
+
+def bf16_inputs(shape, device, seed=0):
+    return tuple(t.bfloat16() for t in _inputs(shape, device, seed))
+
+
+@pytest.mark.parametrize("shape", BF16_SHAPES, ids=str)
+def test_bf16_kernels_match_their_twins(shape, device):
+    x, w, b, gamma, beta = bf16_inputs(shape, device)
+    cb.reset_launches()
+    got = cb.conv3x3_fwd_stats(x, w, b)
+    want = F.conv3x3_fwd_stats(x, w, b)
+    y_ulps = bf16_ulp(want[0]) + bf16_ulp(F.conv3x3(x, w))
+    within_ulp(got[0], want[0], "K1 y", y_ulps)
+    for a, c, what in zip(got[1:], want[1:], ("mean", "var", "rstd")):
+        within_ulp(a, c, f"K1 {what}")
+    y, mean, _, rstd = want
+    pooled, arg = cb.bn_act_pool_fwd(y, mean, rstd, gamma, beta)
+    pooled_p, arg_p = F.bn_act_pool_fwd(y, mean, rstd, gamma, beta)
+    assert pooled.dtype == torch.bfloat16
+    assert torch.equal(pooled, pooled_p) and torch.equal(arg, arg_p)
+    dp = torch.randn(pooled.shape, device=device).bfloat16()
+    args = (dp, arg, y, mean, rstd, gamma, beta)
+    # K3: dy, dgamma and dbeta summed in f32 and rounded once, as its twin
+    for a, c, what in zip(cb.bn_act_pool_bwd(*args), F.bn_act_pool_bwd(*args),
+                          ("dy", "dgamma", "dbeta")):
+        within_ulp(a, c, f"K3 {what}")
+    # K4 on a random dy: K3's sums to zero over each channel (batch norm's
+    # backward), so its db would be rounding noise
+    dy = torch.randn(y.shape, device=device).bfloat16()
+    within_ulp(cb.conv3x3_dgrad(dy, w), F.conv3x3_dgrad(dy, w), "dgrad")
+    for a, c, what in zip(cb.conv3x3_wgrad(x, dy), F.conv3x3_wgrad(x, dy),
+                          ("dw", "db")):
+        within_ulp(a, c, f"wgrad {what}")
+    assert cb.launches() == {**{k: 0 for k in cb.KERNELS},
+                             **{f"{k}_bf16": 1 for k in cb.BF16_KERNELS}}
+
+
+def test_bf16_stops_where_no_bf16_kernel_is(device):
+    """On the card a bf16 tensor reaches a kernel with a bf16 version or
+    raises NotImplementedError naming the kernel: K1 stats-free and K5
+    (second order), the stride-2 and pad-0 convs, the pool-free and
+    norm-first kernels; nothing falls back to f32."""
+    x, w, b, gamma, beta = bf16_inputs((1, 2, 6, 6, 3, 4), device)
+    y = torch.zeros(1, 2, 6, 6, 4, device=device).bfloat16()
+    v = torch.ones(1, 4, device=device).bfloat16()
+    cb.reset_launches()
+    for match, call in (
+            ("conv3x3_fwd .K1 stats-free", lambda: cb.conv3x3_fwd(x, w, b)),
+            ("conv3x3_s2_fwd_stats", lambda: cb.conv3x3_fwd_stats(
+                x, w, b, stride=2)),
+            ("conv3x3_p0_dgrad", lambda: cb.conv3x3_dgrad(
+                y[:, :, :4, :4], w, 1, (6, 6), 0)),
+            ("bn_act_fwd", lambda: cb.bn_act_fwd(y, v, v, v, v)),
+            ("bn_act_pool_bwd_bwd .K5", lambda: cb.bn_act_pool_bwd_bwd(
+                y, v, v, y[:, :, :3, :3],
+                torch.zeros(1, 2, 3, 3, 4, dtype=torch.uint8,
+                            device=device), y, v, v, v, v)),
+            ("bn_input_stats", lambda: cb.bn_input_stats(y)),
+            ("act_pool_fwd", lambda: cb.act_pool_fwd(y)),
+            ("layer_norm_stats", lambda: cb.layer_norm_stats(y)),
+            ("f32 only", lambda: cb.norm_conv_act_pool(x, w, b, v[0, :3],
+                                                      v[0, :3]))):
+        with pytest.raises(NotImplementedError, match=match):
+            call()
+    assert set(cb.launches().values()) == {0}
+
+
+def test_bf16_block_runs_on_the_bf16_kernels(device):
+    """The conv-first batch-norm block in bf16 at stride 1 and pad 1: its
+    forward and first backward launch the bf16 kernels only, every output
+    and gradient is finite, the activation stays bf16 and the f32 leaves'
+    gradients come back f32."""
+    x, w, b, _, _ = bf16_inputs((2, 3, 12, 12, 3, 8), device)
+    w32 = w.float().requires_grad_(True)
+    b32 = b.float().requires_grad_(True)
+    gamma = torch.ones(8, device=device)
+    beta = torch.zeros(8, device=device)
+    cb.reset_launches()
+    out, mean, var = cb.conv_bn_act_pool(x, w32.bfloat16(), b32.bfloat16(),
+                                         gamma, beta)
+    assert out.dtype == mean.dtype == var.dtype == torch.bfloat16
+    gw, gb = torch.autograd.grad(out.float().square().sum(), [w32, b32])
+    assert gw.dtype == gb.dtype == torch.float32
+    assert torch.isfinite(gw).all() and torch.isfinite(gb).all()
+    launched = {k for k, n in cb.launches().items() if n}
+    assert launched == {"conv3x3_fwd_stats_bf16", "bn_act_pool_fwd_bf16",
+                        "bn_act_pool_bwd_bf16", "conv3x3_wgrad_bf16"}

@@ -425,7 +425,9 @@ def test_chip_smoke_launch_formula_counts_the_function_path(
     assert set(TWINS.values()) | {
         conv_block._conv_name(k, s, p) for k in TWINS.values()
         if k.startswith("conv3x3") for s in conv_block.STRIDES
-        for p in conv_block.PADDINGS} == set(conv_block.KERNELS)
+        for p in conv_block.PADDINGS} | {
+        f"{k}_bf16" for k in conv_block.BF16_KERNELS} == set(
+            conv_block.KERNELS)
     cfg = _formula_cfg(stages, steps, accum, max_pooling=True)
     want = _chip_smoke().expected_train_launches(cfg, second_order)
     assert _count_function_path(monkeypatch, cfg, second_order) == want
