@@ -107,26 +107,40 @@ Phases, in order; any failure raises and the exit code is non-zero:
    shipped (shared batch-norm parameters, no running statistics, no MSL,
    a fixed inner learning rate): 4 f32 requests, the small serve-step
    check and 2 second-order train steps.
-9. bf16 serving (``compute_dtype='bfloat16'``, the mini-ImageNet config
-   with only that field overridden): the bf16 kernels (K1 with
-   statistics, K2/K3 pooled, K4 dgrad and wgrad; ``*_bf16``) at the four
-   stages (N = 75 forward, 25 backward, T = 8) against their bf16 twins —
-   K2 equal bit for bit (pooled values and argmax), K1 (y, mean, var,
-   rstd), K3 (dy, dgamma, dbeta), dgrad and wgrad within one bf16 ulp
-   elementwise (y: one of the conv's sum and one of the bias add) or 1e-4
-   of the output's scale — timed beside the twin and the library calls
+9. bf16 (``compute_dtype='bfloat16'``, the configs with only that field
+   overridden): the bf16 kernels (K1 with statistics, K2/K3 pooled, K4
+   dgrad and wgrad; ``*_bf16``) at the four mini-ImageNet stages (N = 75
+   forward, 25 backward, T = 8) against their bf16 twins — K2 equal bit
+   for bit (pooled values and argmax), K1 (y, mean, var, rstd), K3 (dy,
+   dgamma, dbeta), dgrad and wgrad within one bf16 ulp elementwise (y:
+   one of the conv's sum and one of the bias add) or 1e-4 of the output's
+   scale — and the kernels second order adds, held the same way: K1
+   stats-free (with and without bias) at the four stages and the four
+   Omniglot layers, K5 at the same stages and layers on random
+   cotangents, and the unpadded model's pad-0 convs (``conv3x3_p0_*_bf16``)
+   at its four stages; each timed beside the twin and the library calls
    (grouped ``F.conv2d``, ``conv2d_input``, ``conv2d_weight`` and
    ``F.batch_norm`` given statistics, in bf16; the convs' bounds at the
-   bf16 tensor-core rate); ``serve-bench --compute_dtype bfloat16`` with
+   bf16 tensor-core rate). ``serve-bench --compute_dtype bfloat16`` with
    the f32 and index ingests (16 requests, the bf16 launches per
    dispatch), a bucket-8 dispatch on the kernels against the plain block
    in bf16 (its pool's gradient to the first maximum, as the kernels')
    within 2x that block's bf16-vs-f32 spread (preds and loss), the pool
-   ties of stage 1 and the
-   accuracy gap to f32, the index dispatch bit-identical to f32, a
-   profiled bucket-8 dispatch; and ``train-bench --compute_dtype
-   bfloat16``, which must raise ``NotImplementedError`` naming K1
-   stats-free or K5 (second order has no bf16 kernels yet). Every kernel
+   ties of stage 1 and the accuracy gap to f32, the index dispatch
+   bit-identical to f32, a profiled bucket-8 dispatch. Second-order
+   ``train-bench --compute_dtype bfloat16`` at batch 2 and 8 of the
+   mini-ImageNet config, each beside the f32 run of its batch, at batch 2
+   of the unpadded model and at batch 8 of the Omniglot model through the
+   device tier (every step's launches the f32 formula on the ``*_bf16``
+   names); the 10-step learning check in bf16 and its accuracy gap to
+   f32's; a profiled bf16 step (with its copy kernels: the casts); the
+   replayed-path meta-gradient gate in bf16 (``--bf16-grad-seeds``) on
+   the padded and the unpadded model. The unpadded bf16 model served
+   (f32 and index ingests), its serve step against the plain block and
+   its index dispatch bit-identical to f32. Last, ``serve-bench
+   --compute_dtype bfloat16 --max_pooling false`` must raise
+   ``NotImplementedError`` naming ``conv3x3_s2_fwd_stats`` before any
+   launch (the strided model has no bf16 kernels yet). Every kernel
    must have been launched by some main path.
 10. Print one ``{"kernels": [...]}`` line (launches summed over all the
    main paths), then the result line ``{"ok": true, "device": {...}}``
@@ -203,8 +217,10 @@ UNPADDED_STRIDED_STAGES = (("stage0", 84, 3), ("stage1", 41, 48),
 # gamma and beta, no running statistics, no MSL, a fixed inner LR
 MAML_JSON = ("experiment_config/"
              "mini-imagenet_maml-mini-imagenet_5_5_2_0.01_48_0.json")
-# bf16 serving: the mini-ImageNet config with only compute_dtype overridden,
-# its stages (84 -> 42 -> 21 -> 10, the pooled model at pad 1)
+# bf16: the mini-ImageNet config with only compute_dtype overridden, its
+# stages (84 -> 42 -> 21 -> 10, the pooled model at pad 1); the unpadded
+# bf16 model's are UNPADDED_STAGES, the Omniglot bf16 model's
+# OMNIGLOT_LAYERS
 BF16_ARGS = ("--compute_dtype", "bfloat16")
 BF16_STAGES = (("stage0", 84, 3), ("stage1", 42, 48), ("stage2", 21, 48),
                ("stage3", 10, 48))
@@ -250,6 +266,11 @@ GRAD_SEEDS = (10, 11, 12)
 # GRADS_FLOOR times the tree's largest entry. How REPLAY_FACTOR was
 # derived is in check_grads_replayed's docstring.
 REPLAY_FACTOR = 5.0
+# the same gate for the bf16 models' meta-gradients (check_grads_replayed on
+# a bf16 config: the kernels and the plain ops in bf16, each run's f64
+# reference replaying its own decisions); derived by the same rule from the
+# bf16 null ratios, see check_grads_replayed's docstring
+BF16_REPLAY_FACTOR = 10.0
 
 REPLACES = {
     "conv3x3_fwd_stats": "howtotrainyourmamlpytorch_tpu/ops/functional.py:249",
@@ -298,7 +319,9 @@ REPLACES.update({
     for k in ("fwd_stats", "dgrad", "wgrad", "fwd")})
 # the bf16 kernels replace the same ops at compute_dtype='bfloat16'
 BF16_KERNELS = ("conv3x3_fwd_stats", "bn_act_pool_fwd", "bn_act_pool_bwd",
-                "conv3x3_dgrad", "conv3x3_wgrad")
+                "conv3x3_dgrad", "conv3x3_wgrad", "conv3x3_fwd",
+                "bn_act_pool_bwd_bwd", "conv3x3_p0_fwd_stats",
+                "conv3x3_p0_dgrad", "conv3x3_p0_wgrad", "conv3x3_p0_fwd")
 REPLACES.update({f"{k}_bf16": REPLACES[k] for k in BF16_KERNELS})
 SOURCES = {
     "conv3x3_fwd_stats": (
@@ -404,6 +427,12 @@ REPORT_AT = {
     "bn_act_pool_bwd_bf16": "bf16 T=8 stage0 N=25",
     "conv3x3_dgrad_bf16": "bf16 T=8 stage1 N=25",
     "conv3x3_wgrad_bf16": "bf16 T=8 stage0 N=25",
+    "conv3x3_fwd_bf16": "bf16 T=8 stage1 N=25 bias",
+    "bn_act_pool_bwd_bwd_bf16": "bf16 T=8 stage0 N=25",
+    "conv3x3_p0_fwd_stats_bf16": "bf16 unpadded T=8 stage0 N=75",
+    "conv3x3_p0_fwd_bf16": "bf16 unpadded T=8 stage1 N=25",
+    "conv3x3_p0_dgrad_bf16": "bf16 unpadded T=8 stage1 N=25",
+    "conv3x3_p0_wgrad_bf16": "bf16 unpadded T=8 stage0 N=25",
 }
 TRAIN_TASKS = (2, 8)  # the config's batch, and bench.py's per-chip default
 DEVICE = "cuda:0"
@@ -1971,6 +2000,10 @@ def _profile_report(prof, wall_ms, what):
     for e in sorted(events, key=lambda e: -e.device_time_total)[:12]:
         print(f"    {e.device_time_total / 1e3:9.3f} ms  x{e.count:<4d} "
               f"{e.key[:90]}", flush=True)
+    casts = [e for e in events if "copy_kernel" in e.key]
+    print(f"  {what}: copy kernels (dtype casts and copies) "
+          f"{sum(e.device_time_total for e in casts) / 1e3:.3f} ms over "
+          f"{sum(e.count for e in casts)} launches", flush=True)
 
 
 def run_train_bench(ks, cfg, batch_size, config=FLAGSHIP, name="mini-ImageNet "
@@ -2002,7 +2035,8 @@ def run_train_bench(ks, cfg, batch_size, config=FLAGSHIP, name="mini-ImageNet "
             or line["max_pooling"] != cfg.max_pooling
             or line["block_order"] != cfg.block_order
             or line["norm_layer"] != cfg.norm_layer
-            or line["conv_padding"] != cfg.conv_padding):
+            or line["conv_padding"] != cfg.conv_padding
+            or line["dtype"] != cfg.compute_dtype):
         raise AssertionError(f"train-bench ran {line}")
     for i, got in enumerate(line["kernel_launches_per_step"]):
         if got != expected:
@@ -2023,7 +2057,7 @@ def run_train_bench(ks, cfg, batch_size, config=FLAGSHIP, name="mini-ImageNet "
           f"ffma_peak_share {line['ffma_peak_share']}  h2d_bytes_per_step "
           f"{line['h2d_bytes_per_step']}  host_assembly_ms_per_step "
           f"{line['host_assembly_ms_per_step']}  launches per step "
-          f"{expected}", flush=True)
+          f"{ {k: v for k, v in expected.items() if v} }", flush=True)
     return line, counts
 
 
@@ -2260,8 +2294,8 @@ def _recording_kernel_block(cb, log, norm_first=False, layer_norm=False):
                 cb.LayerNorm.apply(y, *cb._ln_params(gamma, beta, y)), pool)
         else:
             T, c = x.shape[0], (x if norm_first else w).shape[-1]
-            gamma = gamma.expand(T, c).contiguous()
-            beta = beta.expand(T, c).contiguous()
+            gamma = gamma.to(x.dtype).expand(T, c).contiguous()
+            beta = beta.to(x.dtype).expand(T, c).contiguous()
             if norm_first:
                 z, mean, var, _ = cb.BatchNorm.apply(x, gamma, beta)
                 out = cb.ActPool.apply(cb.Conv3x3.apply(
@@ -2368,8 +2402,9 @@ def _plain_block(F, log, replay=False, norm_first=False, layer_norm=False,
 
 def _decision_flips(cfg, cb, F, batch):
     """The first support forward (inner step 0) of the kernels, the plain
-    ops in f32 and the plain ops in f64 on ``batch``: per implementation,
-    how many of its pool argmax and sign decisions differ from f64's."""
+    ops in the config's dtype (f32 or bf16) and the plain ops in f64 on
+    ``batch``: per implementation, how many of its pool argmax and sign
+    decisions differ from f64's."""
     from howtotrainyourmamlpytorch_tpu_torch.core import partition
     from howtotrainyourmamlpytorch_tpu_torch.models import vgg
     from howtotrainyourmamlpytorch_tpu_torch.state import (
@@ -2394,8 +2429,11 @@ def _decision_flips(cfg, cb, F, batch):
         block = (_recording_kernel_block(cb, log, **orders)
                  if name == "kernels" else _plain_block(F, log, **orders))
         with torch.no_grad():
-            vgg.apply(cfg, net, state.bn, x if dtype is None
-                      else x.to(dtype), 0, block=block)
+            if dtype is None:
+                vgg.apply(cfg, net, state.bn, x, 0, block=block)
+            else:
+                vgg.apply(cfg.replace(compute_dtype="float32"), net,
+                          state.bn, x.to(dtype), 0, block=block)
         logs[name] = log
     return {name: sum((0 if a is None else int((a != a64).sum()))
                       + int((p != p64).sum())
@@ -2444,13 +2482,30 @@ def check_grads_replayed(cfg, cb, F, seeds):
     seeds 0-9 (``--unpadded-grad-seeds 0,...,9``; 400 ratios, same card)
     has max 3.386: 1.25 x 3.386 = 4.23 <= 5, so the factor holds for it
     as well; the kernels' ratio there had median 0.218 and max 2.286. The
-    default seeds are other seeds."""
+    default seeds are other seeds.
+
+    On a bf16 config the three runs compute in bf16 and each reference
+    stays f64 (f32 compute of f64 inputs), held to BF16_REPLAY_FACTOR.
+    Its reading (``--bf16-grad-seeds 0,...,9`` on the mini-ImageNet bf16
+    model, padded and unpadded; 800 null ratios on an NVIDIA H100 80GB
+    HBM3 at 700 W): null max 7.989 padded (seed 5
+    lslr/conv0.conv.weight; p99 6.929, median 0.954) and 4.408 unpadded.
+    By the rule above, fixed before that reading, the smallest integer at
+    or above 1.25 x 7.989 = 9.99: 10. The plain bf16 runs are that far
+    apart because each rounds after every op of the second derivative
+    (a plain run's worst leaf reached 3.6x its reference's largest entry,
+    seed 8); the kernels' ratio had median 0.293 and max 1.763 padded,
+    median 0.512 and max 1.848 unpadded."""
     import statistics
 
     cfg = cfg.replace(batch_size=2)
     orders = dict(norm_first=cfg.block_order == "norm_conv_relu",
                   layer_norm=cfg.norm_layer == "layer_norm")
     twopass = cfg.replace(bn_stats_impl="twopass")
+    # the f64 reference computes in f64 whatever the runs' dtype
+    reference = twopass.replace(compute_dtype="float32")
+    factor = (BF16_REPLAY_FACTOR if cfg.compute_dtype == "bfloat16"
+              else REPLAY_FACTOR)
     runs = (("kernels", twopass, True), ("twopass", twopass, False),
             ("fused", cfg.replace(bn_stats_impl="fused"), False))
     start = time.perf_counter()
@@ -2469,7 +2524,7 @@ def check_grads_replayed(cfg, cb, F, seeds):
                 if kernels and order == 0:
                     _same_as_own(f"seed {seed} step", (loss, got),
                                  _grads(c, None, permuted))
-                _, ref = _grads(twopass, _plain_block(
+                _, ref = _grads(reference, _plain_block(
                     F, log, replay=True, **orders), permuted,
                     torch.float64)
                 for k, v in ref.items():
@@ -2499,7 +2554,7 @@ def check_grads_replayed(cfg, cb, F, seeds):
                     den = max(med[o][key] for o in others)
                     null.append((med[n][key] / den if den else 0.0, seed,
                                  key))
-            if k_err > REPLAY_FACTOR * plain + GRADS_FLOOR * scale:
+            if k_err > factor * plain + GRADS_FLOOR * scale:
                 failures.append(f"seed {seed} {key}")
     print("  per leaf, the worst kernels / larger plain median over the "
           "seeds: " + ", ".join(f"{k} {v:.2f}" for k, v in worst.items()),
@@ -2512,7 +2567,7 @@ def check_grads_replayed(cfg, cb, F, seeds):
           f"runs', over {len(null)}: {_quantiles([r for r, _, _ in null])}; "
           "worst " + ", ".join(f"{r:.2f} (seed {s} {k})"
                                for r, s, k in sorted(null)[-3:])
-          + f" (gate {REPLAY_FACTOR:g}x + {GRADS_FLOOR:g} of the largest "
+          + f" (gate {factor:g}x + {GRADS_FLOOR:g} of the largest "
           f"entry; {time.perf_counter() - start:.1f} s)", flush=True)
     if failures:
         raise AssertionError("replayed-path meta-gradients: kernels further "
@@ -2523,7 +2578,7 @@ def check_grads_replayed(cfg, cb, F, seeds):
 def check_learning(config=FLAGSHIP, batch_size=2, extra=()):
     """Phase 5: 10 second-order steps on one fixed full-width batch at the
     config's meta LR (``extra``: a config override); the loss of the last
-    step is below the first's."""
+    step is below the first's. Returns train-bench's line."""
     from howtotrainyourmamlpytorch_tpu_torch import bench as train_bench
 
     line = train_bench.run([
@@ -2534,9 +2589,11 @@ def check_learning(config=FLAGSHIP, batch_size=2, extra=()):
     print(f"  {config.split('/')[-1]} {' '.join(extra)}: 10 steps on one "
           f"batch of "
           f"{batch_size} at lr {line['lr']}: loss "
-          f"{[round(v, 5) for v in losses]}", flush=True)
+          f"{[round(v, 5) for v in losses]}, accuracy "
+          f"{[round(v, 4) for v in line['accuracy']]}", flush=True)
     if not losses[-1] < losses[0]:
         raise AssertionError("the loss did not fall over 10 steps")
+    return line
 
 
 def profile_train_step(cfg, batch_size=2, placement=None):
@@ -2844,6 +2901,162 @@ def check_bf16_kernels(cb, F, records, T=T_TENANTS, C=COUT):
             torch.cuda.empty_cache()
 
 
+def _bf16_conv_lib(x, w, b, T, cin, C, padding):
+    """The grouped ``F.conv2d`` of the tenants' convs in x's dtype (the
+    library call beside K1), on its NCHW copies."""
+    xl = _nchw_tenants(x)
+    wl = w.permute(0, 4, 3, 1, 2).reshape(T * C, cin, 3, 3).contiguous()
+    bl = None if b is None else b.reshape(-1).contiguous()
+    return xl, wl, lambda: torch.nn.functional.conv2d(
+        xl, wl, bl, padding=padding, groups=T)
+
+
+def check_bf16_train_kernels(cb, F, records, T=T_TENANTS, C=COUT):
+    """Phase 9, the bf16 kernels second-order training adds: K1's
+    stats-free mode (``conv3x3_fwd_bf16``; Dgrad's backward without a
+    bias, Wgrad's with one) at the four bf16 stages, N = 25, and at the
+    four Omniglot layers (cin 1 at layer 1, 64 filters, N = 20); K5
+    (``bn_act_pool_bwd_bwd_bf16``) at the same stages and layers, on
+    random bf16 cotangents (K3's own dy sums to zero per channel, so the
+    path's would leave the g_gamma term rounding noise); and the
+    unpadded bf16 model's convs at pad 0 (``conv3x3_p0_*_bf16``: K1 with
+    statistics at N = 75, stats-free, dgrad at stages 1-3 and wgrad at N =
+    25) at ``UNPADDED_STAGES``. Each within one bf16 ulp of its bf16 twin
+    elementwise (y of a conv with a bias: one ulp of the sum and one of
+    the bias add), or 1e-4 of the output's scale (``within_ulp``); timed
+    beside the twin and the library call (grouped ``F.conv2d``,
+    ``conv2d_input``, ``conv2d_weight`` in bf16; K5 has none). Bound:
+    2-byte elements, the convs' products at the bf16 tensor-core rate."""
+    randn = _randn(torch.Generator(device="cuda").manual_seed(19))
+    bf = torch.bfloat16
+    grad = torch.nn.grad
+    models = (("", BF16_STAGES, 25, C),
+              ("omniglot ", OMNIGLOT_LAYERS, OMNIGLOT_IMAGES, OMNIGLOT_COUT))
+    for prefix, stages, n, cout in models:
+        for stage, hw, cin in stages:
+            label = f"bf16 {prefix}T={T} {stage} N={n}"
+            M = n * hw * hw
+            x = randn(T, n, hw, hw, cin).to(bf)
+            w = randn(T, 3, 3, cin, cout,
+                      scale=math.sqrt(2.0 / (9 * cin))).to(bf)
+            b = randn(T, cout, scale=0.1).to(bf)
+            plain = F.conv3x3(x, w)
+            for bias in (None, b):
+                want = F.conv3x3(x, w, bias)
+                ulps = (bf16_ulp(want) if bias is None
+                        else bf16_ulp(want) + bf16_ulp(plain))
+                err = within_ulp("conv3x3_fwd_bf16",
+                                 cb.conv3x3_fwd(x, w, bias), want, ulps)
+                _, _, lib = _bf16_conv_lib(x, w, bias, T, cin, cout, 1)
+                records.add(
+                    "conv3x3_fwd_bf16",
+                    label + ("" if bias is None else " bias"), err,
+                    lambda: cb.conv3x3_fwd(x, w, bias),
+                    lambda: F.conv3x3(x, w, bias), lib,
+                    2 * T * M * 9 * cin * cout
+                    + (0 if bias is None else T * M * cout),
+                    2 * (x.numel() + w.numel() + want.numel()
+                         + (0 if bias is None else b.numel())),
+                    tensor_cores=True)
+                del want, ulps
+            # K5 at the K2 decisions of this conv's output
+            gamma = (1.0 + randn(T, cout, scale=0.1)).to(bf)
+            beta = randn(T, cout, scale=0.1).to(bf)
+            y, mean, _, rstd = F.conv3x3_fwd_stats(x, w, b)
+            pooled, arg = F.bn_act_pool_fwd(y, mean, rstd, gamma, beta)
+            args = (randn(*y.shape).to(bf), randn(T, cout).to(bf),
+                    randn(T, cout).to(bf), randn(*pooled.shape).to(bf), arg,
+                    y, mean, rstd, gamma, beta)
+            err = max(within_ulp(f"bn_act_pool_bwd_bwd_bf16 {what}", g, p)
+                      for what, g, p in zip(
+                          ("g_dpooled", "g_y", "g_gamma"),
+                          cb.bn_act_pool_bwd_bwd(*args),
+                          F.bn_act_pool_bwd_bwd(*args)))
+            # as f32's K5: ~42 FLOPs per element of y, each input read and
+            # each output written once, in 2-byte elements
+            records.add(
+                "bn_act_pool_bwd_bwd_bf16", label, err,
+                lambda: cb.bn_act_pool_bwd_bwd(*args),
+                lambda: F.bn_act_pool_bwd_bwd(*args), None,
+                42 * y.numel(),
+                2 * (3 * y.numel() + 2 * pooled.numel() + 7 * T * cout)
+                + arg.numel())
+            del x, y, pooled, arg, args, plain
+            torch.cuda.empty_cache()
+    # the unpadded bf16 model's convs at pad 0
+    for stage, hw, cin in UNPADDED_STAGES:
+        x75 = randn(T, 75, hw, hw, cin).to(bf)
+        w = randn(T, 3, 3, cin, C, scale=math.sqrt(2.0 / (9 * cin))).to(bf)
+        b = randn(T, C, scale=0.1).to(bf)
+        label = f"bf16 unpadded T={T} {stage} N=75"
+        ho = hw - 2
+        want = F.conv3x3_fwd_stats(x75, w, b, padding=0)
+        got = cb.conv3x3_fwd_stats(x75, w, b, padding=0)
+        y_ulps = bf16_ulp(want[0]) + bf16_ulp(F.conv3x3(x75, w, padding=0))
+        err = max([within_ulp("conv3x3_p0_fwd_stats_bf16 y", got[0], want[0],
+                              y_ulps)]
+                  + [within_ulp(f"conv3x3_p0_fwd_stats_bf16 {what}", a, c)
+                     for what, a, c in zip(("mean", "var", "rstd"), got[1:],
+                                           want[1:])])
+        del got, want, y_ulps
+        _, _, lib = _bf16_conv_lib(x75, w, b, T, cin, C, 0)
+        M = 75 * ho * ho
+        records.add(
+            "conv3x3_p0_fwd_stats_bf16", label, err,
+            lambda: cb.conv3x3_fwd_stats(x75, w, b, padding=0),
+            lambda: F.conv3x3_fwd_stats(x75, w, b, padding=0), lib,
+            2 * T * M * 9 * cin * C + T * M * C,
+            2 * (x75.numel() + w.numel() + b.numel() + T * M * C + 3 * T * C),
+            tensor_cores=True)
+        del x75, lib
+        torch.cuda.empty_cache()
+        x = randn(T, 25, hw, hw, cin).to(bf)
+        label = f"bf16 unpadded T={T} {stage} N=25"
+        M = 25 * ho * ho
+        want = F.conv3x3(x, w, padding=0)
+        err = within_ulp("conv3x3_p0_fwd_bf16", cb.conv3x3_fwd(x, w,
+                                                               padding=0),
+                         want)
+        xl, wl, lib = _bf16_conv_lib(x, w, None, T, cin, C, 0)
+        records.add(
+            "conv3x3_p0_fwd_bf16", label, err,
+            lambda: cb.conv3x3_fwd(x, w, padding=0),
+            lambda: F.conv3x3(x, w, padding=0), lib,
+            2 * T * M * 9 * cin * C,
+            2 * (x.numel() + w.numel() + want.numel()), tensor_cores=True)
+        # K4 on a random dy
+        dy = randn(*want.shape).to(bf)
+        dyl = _nchw_tenants(dy)
+        hw2 = (hw, hw)
+        if cin == C:
+            err = within_ulp("conv3x3_p0_dgrad_bf16",
+                             cb.conv3x3_dgrad(dy, w, 1, hw2, 0),
+                             F.conv3x3_dgrad(dy, w, 1, hw2, 0))
+            records.add(
+                "conv3x3_p0_dgrad_bf16", label, err,
+                lambda: cb.conv3x3_dgrad(dy, w, 1, hw2, 0),
+                lambda: F.conv3x3_dgrad(dy, w, 1, hw2, 0),
+                lambda: grad.conv2d_input(xl.shape, wl, dyl, padding=0,
+                                          groups=T),
+                2 * T * M * 9 * cin * C,
+                2 * (dy.numel() + w.numel() + x.numel()), tensor_cores=True)
+        dw, db = cb.conv3x3_wgrad(x, dy, padding=0)
+        dw_p, db_p = F.conv3x3_wgrad(x, dy, padding=0)
+        err = max(within_ulp("conv3x3_p0_wgrad_bf16 dw", dw, dw_p),
+                  within_ulp("conv3x3_p0_wgrad_bf16 db", db, db_p))
+        records.add(
+            "conv3x3_p0_wgrad_bf16", label, err,
+            lambda: cb.conv3x3_wgrad(x, dy, padding=0),
+            lambda: F.conv3x3_wgrad(x, dy, padding=0),
+            lambda: grad.conv2d_weight(xl, wl.shape, dyl, padding=0,
+                                       groups=T),
+            2 * T * M * 9 * cin * C + T * M * C,
+            2 * (x.numel() + dy.numel() + dw.numel() + db.numel()),
+            tensor_cores=True)
+        del x, want, dy, dyl, xl, dw, db, dw_p, db_p
+        torch.cuda.empty_cache()
+
+
 def _window_ties(F, y, mean, rstd, gamma, beta):
     """Pool windows whose maximum activation occurs twice or more (K2's
     activation of y)."""
@@ -2859,7 +3072,8 @@ class _Unkept(list):
 
 
 def check_bf16_serve(cfg, F, cb):
-    """Phase 9: one bucket-8 dispatch at full width of the bf16 model on
+    """Phase 9: one bucket-8 dispatch at full width of the bf16 model
+    (``cfg``'s, padded or unpadded) on
     the kernels against the plain block in bf16 on the card, within 2x the
     plain block's own bf16-vs-f32 spread (preds max |diff|, loss max
     relative diff over the tenants); the accuracy gap between the bf16 and
@@ -2936,7 +3150,8 @@ def check_bf16_serve(cfg, F, cb):
             bt = net[f"conv{i}.conv.bias"].to(dtype).expand(T, -1)
             g = net[f"conv{i}.norm.gamma"][step].to(dtype).expand(T, -1)
             be = net[f"conv{i}.norm.beta"][step].to(dtype).expand(T, -1)
-            y, mean, _, rstd = cb.conv3x3_fwd_stats(inp, wt, bt.contiguous())
+            y, mean, _, rstd = cb.conv3x3_fwd_stats(
+                inp, wt, bt.contiguous(), padding=1 if cfg.conv_padding else 0)
             return y, mean, rstd, g.contiguous(), be.contiguous()
 
         y, mean, rstd, g, be = stage(0, x.to(dtype).contiguous())
@@ -2947,27 +3162,31 @@ def check_bf16_serve(cfg, F, cb):
               "their maximum", flush=True)
 
 
-def check_bf16_training_raises():
-    """Phase 9: ``train-bench --compute_dtype bfloat16`` on the card raises
-    ``NotImplementedError`` naming K1 stats-free or K5, the bf16 kernels
-    second order needs and this slice does not have."""
-    from howtotrainyourmamlpytorch_tpu_torch import bench as train_bench
+def check_bf16_strided_raises():
+    """Phase 9: ``serve-bench --compute_dtype bfloat16 --max_pooling false``
+    (the strided mini-ImageNet model, whose stride-2 convs, pool-free
+    K2/K3/K5 and global average pool have no bf16 kernels yet) raises
+    ``NotImplementedError`` naming ``conv3x3_s2_fwd_stats`` before any
+    launch."""
+    from howtotrainyourmamlpytorch_tpu_torch.kernels import conv_block as cb
+    from howtotrainyourmamlpytorch_tpu_torch.serving import bench
 
-    print("[train] train-bench --compute_dtype bfloat16 (must raise)",
-          flush=True)
+    print("[serve] serve-bench --compute_dtype bfloat16 --max_pooling false "
+          "(must raise)", flush=True)
+    cb.reset_launches()
     try:
-        train_bench.run(["--config", FLAGSHIP, "--device", DEVICE,
-                         "--warmup", "0", "--steps", "1", *BF16_ARGS])
+        bench.run(["--config", FLAGSHIP, "--device", DEVICE, "--requests",
+                   "1", *BF16_ARGS, *STRIDED_ARGS])
     except NotImplementedError as e:
-        named = ("conv3x3_fwd (K1 stats-free)" in str(e)
-                 or "bn_act_pool_bwd_bwd (K5)" in str(e))
         print(f"  raised NotImplementedError: {e}", flush=True)
-        if not named:
-            raise AssertionError("the error names neither K1 stats-free "
-                                 "nor K5") from e
+        if "conv3x3_s2_fwd_stats" not in str(e):
+            raise AssertionError("the error does not name "
+                                 "conv3x3_s2_fwd_stats") from e
     else:
-        raise AssertionError("bf16 second-order training ran with no bf16 "
-                             "K1 stats-free or K5 kernel")
+        raise AssertionError("the strided bf16 model served with no bf16 "
+                             "stride-2 kernel")
+    if any(cb.launches().values()):
+        raise AssertionError(f"launches before the raise: {cb.launches()}")
     torch.cuda.empty_cache()
 
 
@@ -2996,6 +3215,10 @@ def main() -> int:
         "--unpadded-grad-seeds", default=",".join(map(str, GRAD_SEEDS)),
         help="data seeds of the replayed-path meta-gradient check of the "
              "unpadded mini-ImageNet model")
+    parser.add_argument(
+        "--bf16-grad-seeds", default=",".join(map(str, GRAD_SEEDS)),
+        help="data seeds of the replayed-path meta-gradient check of the "
+             "bf16 mini-ImageNet models, padded and unpadded")
     args = parser.parse_args()
     seeds = tuple(int(v) for v in args.grad_seeds.split(","))
     omniglot_seeds = tuple(int(v) for v in
@@ -3008,6 +3231,7 @@ def main() -> int:
                              args.layer_norm_grad_seeds.split(","))
     unpadded_seeds = tuple(int(v) for v in
                            args.unpadded_grad_seeds.split(","))
+    bf16_seeds = tuple(int(v) for v in args.bf16_grad_seeds.split(","))
     card = card_line()
     print(card, flush=True)
     if not torch.cuda.is_available():
@@ -3161,7 +3385,7 @@ def main() -> int:
             main_counts[k] += v
         torch.cuda.empty_cache()
     print("[train] learning checks and profiles", flush=True)
-    check_learning()
+    learning32 = check_learning()
     check_learning(OMNIGLOT, omniglot.batch_size)
     profile_train_step(cfg)
     profile_train_step(omniglot, omniglot.batch_size, "device")
@@ -3350,13 +3574,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"[unpadded] {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # bf16 serving (compute_dtype='bfloat16'): its kernels, serve-bench with
-    # the f32 and index ingests, the serve step against the plain ops, and
-    # the second-order step that must raise
+    # bf16 (compute_dtype='bfloat16'): its kernels; the padded model served
+    # (f32 and index ingests) and the serve step against the plain ops; the
+    # padded, unpadded and Omniglot models trained second order, the
+    # learning check, a profile and the replayed meta-gradient gate; the
+    # unpadded model served; the strided model, which must raise
     t0 = time.perf_counter()
-    print("[kernels] the bf16 kernels (K1 with statistics, K2/K3 pooled, "
-          "K4) at the mini-ImageNet stages", flush=True)
+    print("[kernels] the bf16 kernels (K1 with statistics and stats-free, "
+          "K2/K3/K5 pooled, K4; the pad-0 convs) at the mini-ImageNet "
+          "stages, the Omniglot layers and the unpadded stages", flush=True)
     check_bf16_kernels(cb, F, records)
+    check_bf16_train_kernels(cb, F, records)
     bf16 = cfg.replace(compute_dtype="bfloat16")
     bf16_name = "mini-ImageNet 5-way 5-shot bf16"
     for ingest in ("f32", "index"):
@@ -3371,7 +3599,52 @@ def main() -> int:
     check_index_bit_identical(bf16)
     profile_dispatch(bf16, small=False)
     torch.cuda.empty_cache()
-    check_bf16_training_raises()
+    # second-order training in bf16, each beside the f32 run of its batch
+    for batch_size in TRAIN_TASKS:
+        for c, name, extra in ((bf16, bf16_name, BF16_ARGS),
+                               (cfg, "mini-ImageNet 5-way 5-shot", ())):
+            _, counts = run_train_bench(ks, c, batch_size, FLAGSHIP, name,
+                                        None, extra)
+            for k, v in counts.items():
+                main_counts[k] += v
+            torch.cuda.empty_cache()
+    up16 = unpadded.replace(compute_dtype="bfloat16")
+    up16_name = f"{up_name} bf16"
+    omniglot16 = omniglot.replace(compute_dtype="bfloat16")
+    for c, config, name, placement, extra in (
+            (up16, FLAGSHIP, up16_name, None, UNPADDED_ARGS + BF16_ARGS),
+            (omniglot16, OMNIGLOT, f"{omniglot_name} bf16", "device",
+             BF16_ARGS)):
+        _, counts = run_train_bench(ks, c, c.batch_size, config, name,
+                                    placement, extra)
+        for k, v in counts.items():
+            main_counts[k] += v
+        torch.cuda.empty_cache()
+    print("[train] bf16: learning check, profile, meta-gradients",
+          flush=True)
+    learning16 = check_learning(FLAGSHIP, bf16.batch_size, BF16_ARGS)
+    print(f"  accuracy after the 10 steps: bf16 "
+          f"{learning16['accuracy'][-1]:.4f}, f32 "
+          f"{learning32['accuracy'][-1]:.4f} (gap "
+          f"{learning16['accuracy'][-1] - learning32['accuracy'][-1]:+.4f}"
+          ")", flush=True)
+    profile_train_step(bf16)
+    torch.cuda.empty_cache()
+    check_grads_replayed(bf16, cb, F, bf16_seeds)
+    check_grads_replayed(up16, cb, F, bf16_seeds)
+    torch.cuda.empty_cache()
+    # the unpadded bf16 model served
+    for ingest in ("f32", "index"):
+        _, counts = run_serve_bench(ks, up16, ingest, FLAGSHIP, up16_name,
+                                    store + UNPADDED_ARGS + BF16_ARGS)
+        for k, v in counts.items():
+            main_counts[k] += v
+        torch.cuda.empty_cache()
+    print("[serve] unpadded bf16: the serve step vs the plain serve step; "
+          "index vs f32 on the same pixels", flush=True)
+    check_bf16_serve(unpadded, F, cb)
+    check_index_bit_identical(up16)
+    check_bf16_strided_raises()
     print(f"[bf16] {time.perf_counter() - t0:.1f} s", flush=True)
 
     idle = [k for k in all_kernels if not main_counts[k]]

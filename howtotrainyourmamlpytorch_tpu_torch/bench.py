@@ -31,10 +31,12 @@ batch_norm|layer_norm`` (``layer_norm``: a layer norm over each image's
 (H, W, C), gamma frozen at 1 and beta meta-trained, no running
 statistics), and ``--conv_padding true|false`` (``false``: the unpadded
 model, every 3x3 conv a valid window, 84 -> 82 at stage 0), and
-``--compute_dtype float32|bfloat16``. In bf16 the card has the kernels of
-first-order serving only: a second-order step raises
-``NotImplementedError`` at its first K1 stats-free or K5 launch, naming
-the kernel.
+``--compute_dtype float32|bfloat16``. In bf16 the card trains the
+pooled conv-first batch-norm model second order, padded or not
+(``--conv_padding false``), on the ``*_bf16`` kernels, with f32 master
+parameters and Adam moments; the strided, norm-first and layer-norm
+models have no bf16 kernels yet and raise ``NotImplementedError`` naming
+them before any launch.
 
 The config's ``use_mmap_cache`` and ``data_placement`` are set to match
 (the port's config requires the first for any tier but host). A tier's

@@ -63,7 +63,13 @@ equal its twin's bit for bit; the window compare runs on those bf16
 values, the first maximum winning ties. K3 takes its leaky-ReLU masks from
 the same rounded chain (K2's decisions), xhat in f32 from the bf16
 inputs, its per-channel sums in f32, and stores dy rounded once to bf16.
-Bound: bytes, half of f32's.
+Bound: bytes, half of f32's. K5 pooled (second-order training) takes the
+same constexpr: it loads bf16 a, y, statistics, gamma, beta, pooled
+gradient and cotangents, takes its leaky-ReLU masks from K2's bf16 chain
+(``_bf16_chain``, as K3 does: a mask decided on the f32 ``xhat * gamma +
+beta`` would flip wherever the chain rounds across zero), keeps xhat and
+its five partial sums in f32, and rounds ``g_dpooled``, ``g_y`` and
+``g_gamma`` once each to bf16, as its twin does.
 
 ``triton`` is imported at the first launch, never at import: the kernel
 bodies below are plain functions until ``_jit()`` compiles them, and they
@@ -244,15 +250,20 @@ def _bn_act_pool_bwd_bwd_reduce_kernel(a_ptr, dp_ptr, arg_ptr, y_ptr,
                                        beta_ptr, part_ptr, NHW, HW, Ho, Wo,
                                        W, C, S, CHUNK, slope,
                                        BLOCK_P: "tl.constexpr",
-                                       BLOCK_C: "tl.constexpr"):
+                                       BLOCK_C: "tl.constexpr",
+                                       BF16: "tl.constexpr"):
     t = tl.program_id(0)
     s = tl.program_id(1)
     c = tl.arange(0, BLOCK_C)
     cmask = c < C
-    mu = tl.load(mean_ptr + t * C + c, mask=cmask, other=0.0)[None, :]
-    rs = tl.load(rstd_ptr + t * C + c, mask=cmask, other=0.0)[None, :]
-    g = tl.load(gamma_ptr + t * C + c, mask=cmask, other=0.0)[None, :]
-    b = tl.load(beta_ptr + t * C + c, mask=cmask, other=0.0)[None, :]
+    mu = tl.load(mean_ptr + t * C + c, mask=cmask,
+                 other=0.0).to(tl.float32)[None, :]
+    rs = tl.load(rstd_ptr + t * C + c, mask=cmask,
+                 other=0.0).to(tl.float32)[None, :]
+    g = tl.load(gamma_ptr + t * C + c, mask=cmask,
+                other=0.0).to(tl.float32)[None, :]
+    b = tl.load(beta_ptr + t * C + c, mask=cmask,
+                other=0.0).to(tl.float32)[None, :]
     acc_a = tl.zeros([BLOCK_P, BLOCK_C], tl.float32)
     acc_ax = tl.zeros([BLOCK_P, BLOCK_C], tl.float32)
     acc_dz = tl.zeros([BLOCK_P, BLOCK_C], tl.float32)
@@ -274,12 +285,15 @@ def _bn_act_pool_bwd_bwd_reduce_kernel(a_ptr, dp_ptr, arg_ptr, y_ptr,
         poff = ((img * Ho + ho) * Wo + wo)[:, None] * C + c[None, :]
         k = tl.load(arg_ptr + poff, mask=pmask, other=255).to(tl.int32)
         sel = pmask & (k == ((h % 2) * 2 + (w % 2))[:, None])
-        d = tl.load(dp_ptr + poff, mask=sel, other=0.0)
+        d = tl.load(dp_ptr + poff, mask=sel, other=0.0).to(tl.float32)
         yoff = pos[:, None] * C + c[None, :]
-        v = tl.load(y_ptr + yoff, mask=mask, other=0.0)
-        av = tl.load(a_ptr + yoff, mask=mask, other=0.0)
+        v = tl.load(y_ptr + yoff, mask=mask, other=0.0).to(tl.float32)
+        av = tl.load(a_ptr + yoff, mask=mask, other=0.0).to(tl.float32)
         xh = tl.where(mask, (v - mu) * rs, 0.0)
-        z = xh * g + b
+        if BF16:
+            z, _ = _bf16_chain(v, mu, rs, g, b, slope)
+        else:
+            z = xh * g + b
         dz = tl.where(z >= 0, d, d * slope)
         acc_a += av
         acc_ax += av * xh
@@ -300,7 +314,8 @@ def _bn_act_pool_bwd_bwd_out_kernel(a_ptr, ggamma_ptr, gbeta_ptr, dp_ptr,
                                     gy_ptr, ggam_out_ptr, NHW, HW, Ho, Wo, W,
                                     C, S, inv_m, slope,
                                     BLOCK_P: "tl.constexpr",
-                                    BLOCK_C: "tl.constexpr"):
+                                    BLOCK_C: "tl.constexpr",
+                                    BF16: "tl.constexpr"):
     t = tl.program_id(1)
     q = tl.program_id(0) * BLOCK_P + tl.arange(0, BLOCK_P)
     c = tl.arange(0, BLOCK_C)
@@ -318,12 +333,13 @@ def _bn_act_pool_bwd_bwd_out_kernel(a_ptr, ggamma_ptr, gbeta_ptr, dp_ptr,
         s_dz += tl.load(part_ptr + base + 2 * C + c, mask=cmask, other=0.0)
         s_dzx += tl.load(part_ptr + base + 3 * C + c, mask=cmask, other=0.0)
         s_adz += tl.load(part_ptr + base + 4 * C + c, mask=cmask, other=0.0)
-    mu = tl.load(mean_ptr + t * C + c, mask=cmask, other=0.0)
-    rs = tl.load(rstd_ptr + t * C + c, mask=cmask, other=0.0)
-    g = tl.load(gamma_ptr + t * C + c, mask=cmask, other=0.0)
-    b = tl.load(beta_ptr + t * C + c, mask=cmask, other=0.0)
-    gg = tl.load(ggamma_ptr + t * C + c, mask=cmask, other=0.0)
-    gb = tl.load(gbeta_ptr + t * C + c, mask=cmask, other=0.0)
+    mu = tl.load(mean_ptr + t * C + c, mask=cmask, other=0.0).to(tl.float32)
+    rs = tl.load(rstd_ptr + t * C + c, mask=cmask, other=0.0).to(tl.float32)
+    g = tl.load(gamma_ptr + t * C + c, mask=cmask, other=0.0).to(tl.float32)
+    b = tl.load(beta_ptr + t * C + c, mask=cmask, other=0.0).to(tl.float32)
+    gg = tl.load(ggamma_ptr + t * C + c, mask=cmask,
+                 other=0.0).to(tl.float32)
+    gb = tl.load(gbeta_ptr + t * C + c, mask=cmask, other=0.0).to(tl.float32)
     m_a = s_a * inv_m
     m_ax = s_ax * inv_m
     m_dz = s_dz * inv_m
@@ -335,7 +351,8 @@ def _bn_act_pool_bwd_bwd_out_kernel(a_ptr, ggamma_ptr, gbeta_ptr, dp_ptr,
     mean_gx = -2.0 * grs * m_ax * m_dzx + gg * m_dzx
     lr_coef = rs * rs * inv_m * g * cross
     if tl.program_id(0) == 0:
-        tl.store(ggam_out_ptr + t * C + c, rs * cross, mask=cmask)
+        tl.store(ggam_out_ptr + t * C + c,
+                 (rs * cross).to(ggam_out_ptr.dtype.element_ty), mask=cmask)
 
     pos = t.to(tl.int64) * NHW + q
     img = pos // HW
@@ -348,24 +365,29 @@ def _bn_act_pool_bwd_bwd_out_kernel(a_ptr, ggamma_ptr, gbeta_ptr, dp_ptr,
     poff = ((img * Ho + ho) * Wo + wo)[:, None] * C + c[None, :]
     k = tl.load(arg_ptr + poff, mask=pmask, other=255).to(tl.int32)
     sel = pmask & (k == ((h % 2) * 2 + (w % 2))[:, None])
-    d = tl.load(dp_ptr + poff, mask=sel, other=0.0)
+    d = tl.load(dp_ptr + poff, mask=sel, other=0.0).to(tl.float32)
     yoff = pos[:, None] * C + c[None, :]
-    v = tl.load(y_ptr + yoff, mask=mask, other=0.0)
-    av = tl.load(a_ptr + yoff, mask=mask, other=0.0)
+    v = tl.load(y_ptr + yoff, mask=mask, other=0.0).to(tl.float32)
+    av = tl.load(a_ptr + yoff, mask=mask, other=0.0).to(tl.float32)
     xh = (v - mu[None, :]) * rs[None, :]
-    z = xh * g[None, :] + b[None, :]
+    if BF16:
+        z, _ = _bf16_chain(v, mu[None, :], rs[None, :], g[None, :],
+                           b[None, :], slope)
+    else:
+        z = xh * g[None, :] + b[None, :]
     pos_side = z >= 0
     dz = tl.where(pos_side, d, d * slope)
     # g_dpooled: the slope-masked g_dz at each window's argmax
     pa = av - m_a[None, :] - xh * m_ax[None, :]
     gdz = grs[None, :] * pa + gg[None, :] * xh + gb[None, :]
-    tl.store(gdp_ptr + poff, tl.where(pos_side, gdz, gdz * slope), mask=sel)
+    gdz = tl.where(pos_side, gdz, gdz * slope)
+    tl.store(gdp_ptr + poff, gdz.to(gdp_ptr.dtype.element_ty), mask=sel)
     # g_y: the batch-norm backward of G, plus the rstd term
     big_g = (-grs[None, :] * (m_dzx[None, :] * av + m_ax[None, :] * dz)
              + gg[None, :] * dz)
     gy = (rs[None, :] * (big_g - mean_g[None, :] - xh * mean_gx[None, :])
           - xh * lr_coef[None, :])
-    tl.store(gy_ptr + yoff, gy, mask=mask)
+    tl.store(gy_ptr + yoff, gy.to(gy_ptr.dtype.element_ty), mask=mask)
 
 
 def _bn_act_fwd_kernel(y_ptr, mean_ptr, rstd_ptr, gamma_ptr, beta_ptr,
@@ -628,9 +650,9 @@ def launch_bwd(dpooled, arg, y, mean, rstd, gamma, beta, part, dy,
 
 def launch_bwd_bwd(a, ggamma, gbeta, dpooled, arg, y, mean, rstd, gamma,
                    beta, part, g_dpooled, g_y, g_gamma, slope: float) -> None:
-    """K5a then K5b on validated contiguous f32 CUDA tensors; ``part`` is
-    ``(T, SPLITS, 5, C)`` scratch for the five partial sums (see
-    ``conv_block.bn_act_pool_bwd_bwd``)."""
+    """K5a then K5b on validated contiguous CUDA tensors, all f32 or all
+    bf16 but the f32 ``part``, ``(T, SPLITS, 5, C)`` scratch for the five
+    partial sums (see ``conv_block.bn_act_pool_bwd_bwd``)."""
     T, N, H, W, C = y.shape
     Ho, Wo = H // 2, W // 2
     if C > BLOCK_C:
@@ -640,14 +662,16 @@ def launch_bwd_bwd(a, ggamma, gbeta, dpooled, arg, y, mean, rstd, gamma,
     NHW = N * H * W
     chunk = _cdiv(_cdiv(NHW, SPLITS), BLOCK_P) * BLOCK_P
     kern = _jit()
+    bf16 = _is_bf16(y)
     kern.bwd_bwd_reduce[(T, SPLITS)](
         a, dpooled, arg, y, mean, rstd, gamma, beta, part, NHW, H * W, Ho,
         Wo, W, C, SPLITS, chunk, slope, BLOCK_P=BLOCK_P, BLOCK_C=BLOCK_C,
+        BF16=bf16,
     )
     kern.bwd_bwd_out[(_cdiv(NHW, BLOCK_P), T)](
         a, ggamma, gbeta, dpooled, arg, y, mean, rstd, gamma, beta, part,
         g_dpooled, g_y, g_gamma, NHW, H * W, Ho, Wo, W, C, SPLITS, 1.0 / NHW,
-        slope, BLOCK_P=BLOCK_P, BLOCK_C=BLOCK_C,
+        slope, BLOCK_P=BLOCK_P, BLOCK_C=BLOCK_C, BF16=bf16,
     )
 
 

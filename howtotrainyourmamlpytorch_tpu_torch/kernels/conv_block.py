@@ -59,15 +59,18 @@ stream, allocates outputs and scratch with ``torch.empty`` and adds one to
 its counter per call that launched. The kernels work in f32 with FFMA
 only.
 
-bf16 (``compute_dtype='bfloat16'``, first-order serving): K1 with
-statistics, K2 and K3 pooled, K4 dgrad and wgrad take bf16 tensors at
-stride 1 and pad 1 (``BF16_KERNELS``), counted on ``<name>_bf16``; they
-load bf16, compute in f32 and store bf16 in the JAX package's cast points
-(each kernel's source says where it rounds). Every other kernel, and
-these at stride 2 or pad 0, raises ``NotImplementedError`` naming itself
-for a bf16 tensor on the card (``kernel_dtype``): no bf16 path falls back
-to f32. Second-order bf16 training therefore raises at its first step, at
-K1 stats-free or K5.
+bf16 (``compute_dtype='bfloat16'``): every kernel of the pooled conv-first
+batch-norm block, served and trained second order — K1 with statistics
+and stats-free, K2, K3 and K5 pooled, K4 dgrad and wgrad, the convs at
+stride 1 and pad 1 or 0 — takes bf16 tensors (``BF16_KERNELS``), counted
+on ``<name>_bf16``; they load bf16, compute in f32 and store bf16 in the
+JAX package's cast points (each kernel's source says where it rounds),
+with f32 scratch. Every other kernel, and these at stride 2, raises
+``NotImplementedError`` naming itself for a bf16 tensor on the card
+(``kernel_dtype``), and a block whose kernels are not all bf16 raises
+before its first launch (``_check_block_input``): no bf16 path falls back
+to f32. The strided, norm-first and layer-norm models therefore raise in
+bf16.
 
 All tensors carry the tenant axis: activations ``(T, N, H, W, C)``
 (NHWC), weights ``(T, 3, 3, cin, cout)`` (HWIO), per-channel tensors
@@ -167,16 +170,28 @@ KERNELS = (
     "conv3x3_s2_p0_wgrad",
     "conv3x3_s2_p0_fwd",
 )
-#: the kernels with a bf16 instantiation (at stride 1 and pad 1), counted on
-#: ``<name>_bf16``
+#: the kernels with a bf16 instantiation, counted on ``<name>_bf16``: the
+#: pooled conv-first batch-norm block's, every one its second-order training
+#: runs, the convs at stride 1 and pad 1 or 0
 BF16_KERNELS = ("conv3x3_fwd_stats", "bn_act_pool_fwd", "bn_act_pool_bwd",
-                "conv3x3_dgrad", "conv3x3_wgrad")
+                "conv3x3_dgrad", "conv3x3_wgrad", "conv3x3_fwd",
+                "bn_act_pool_bwd_bwd", "conv3x3_p0_fwd_stats",
+                "conv3x3_p0_dgrad", "conv3x3_p0_wgrad", "conv3x3_p0_fwd")
 KERNELS += tuple(f"{name}_bf16" for name in BF16_KERNELS)
-#: the block kernels' roles, for the messages of the bf16 guard
+#: the kernels' roles, for the messages of the bf16 guard
 ROLES = {"conv3x3_fwd_stats": "K1", "conv3x3_fwd": "K1 stats-free",
          "bn_act_pool_fwd": "K2", "bn_act_pool_bwd": "K3",
          "bn_act_pool_bwd_bwd": "K5", "conv3x3_dgrad": "K4 dgrad",
-         "conv3x3_wgrad": "K4 wgrad"}
+         "conv3x3_wgrad": "K4 wgrad", "bn_act_fwd": "K2 pool-free",
+         "bn_act_bwd": "K3 pool-free", "bn_act_bwd_bwd": "K5 pool-free",
+         "global_avg_pool2d_fwd": "B5a GAP",
+         "global_avg_pool2d_bwd": "B5a GAP"}
+ROLES.update({k: "B5b" for k in ("bn_input_stats", "batch_norm_fwd",
+                                 "batch_norm_bwd", "batch_norm_bwd_bwd")})
+ROLES.update({k: "B2" for k in ("act_pool_fwd", "act_pool_bwd",
+                                "act_pool_gather", "act_fwd", "act_bwd")})
+ROLES.update({k: "B5c" for k in ("layer_norm_stats", "layer_norm_fwd",
+                                 "layer_norm_bwd", "layer_norm_bwd_bwd")})
 #: the conv strides and pads the kernels take
 STRIDES = (1, 2)
 PADDINGS = (1, 0)
@@ -214,8 +229,9 @@ def kernel_dtype(name: str, x: Tensor) -> torch.dtype:
     """The dtype kernel ``name`` (a counter name: ``conv3x3_s2_dgrad`` is
     the stride-2 dgrad) runs in for the activation ``x``: float32, or
     bfloat16 where ``name`` is one of ``BF16_KERNELS``. Raises
-    ``NotImplementedError`` naming the kernel for a bf16 ``x`` it has no
-    bf16 version for, ``TypeError`` for any other dtype."""
+    ``NotImplementedError`` naming the kernel (and its role) for a bf16
+    ``x`` it has no bf16 version for, ``TypeError`` for any other
+    dtype."""
     if x.dtype == torch.float32:
         return x.dtype
     if x.dtype == torch.bfloat16:
@@ -225,8 +241,8 @@ def kernel_dtype(name: str, x: Tensor) -> torch.dtype:
         role = f" ({ROLES[base]})" if base in ROLES else ""
         raise NotImplementedError(
             f"{name}{role} has no bf16 kernel yet: compute_dtype='bfloat16' "
-            f"runs {', '.join(BF16_KERNELS)} at stride 1 and pad 1 "
-            "(first-order serving of the conv-first batch-norm model)")
+            f"runs {', '.join(BF16_KERNELS)} (the pooled conv-first "
+            "batch-norm model, served and trained second order)")
     raise TypeError(f"{name}: the kernels take float32 or bfloat16, got "
                     f"{x.dtype}")
 
@@ -341,18 +357,19 @@ def conv3x3_fwd(x: Tensor, w: Tensor, b: Optional[Tensor] = None,
     name = _conv_name("conv3x3_fwd", stride, padding)
     T, N, H, W, cin = _check_act(name, x)
     cout = w.shape[-1]
-    _check(name, "w", w, (T, 3, 3, cin, cout), x.device)
+    _check(name, "w", w, (T, 3, 3, cin, cout), x.device, x.dtype)
     if b is not None:
-        _check(name, "b", b, (T, cout), x.device)
+        _check(name, "b", b, (T, cout), x.device, x.dtype)
     y = torch.empty((T, N, *_conv_out(name, H, W, stride, padding), cout),
-                    device=x.device)
-    fn = build.function("conv3x3_fwd", "conv3x3_fwd",
+                    device=x.device, dtype=x.dtype)
+    counter = _counter(name, x)
+    fn = build.function("conv3x3_fwd", _counter("conv3x3_fwd", x),
                         (_P,) * 4 + (_I,) * 8 + (_P,))
     with torch.cuda.device(x.device):
         rc = fn(_ptr(x), _ptr(w), None if b is None else _ptr(b), _ptr(y),
                 T, N, H, W, stride, padding, cin, cout, _stream(x.device))
-    build.check(rc, name)
-    LAUNCHES[name] += 1
+    build.check(rc, counter)
+    LAUNCHES[counter] += 1
     return y
 
 
@@ -491,18 +508,19 @@ def bn_act_pool_bwd_bwd(a: Tensor, ggamma: Tensor, gbeta: Tensor,
     _check_bn_args(name, y, dict(mean=mean, rstd=rstd, gamma=gamma,
                                  beta=beta, ggamma=ggamma, gbeta=gbeta),
                    y.device)
-    _check(name, "a", a, y.shape, y.device)
+    _check(name, "a", a, y.shape, y.device, y.dtype)
     pooled_shape = _check_pooled(name, dpooled, argmax, y)
     T, _, _, _, C = y.shape
+    # the outputs in y's dtype, the five partial sums f32
     part = torch.empty((T, bn_act_pool.SPLITS, 5, C), device=y.device)
-    g_dpooled = torch.empty(pooled_shape, device=y.device)
+    g_dpooled = torch.empty(pooled_shape, device=y.device, dtype=y.dtype)
     g_y = torch.empty_like(y)
-    g_gamma = torch.empty((T, C), device=y.device)
+    g_gamma = torch.empty((T, C), device=y.device, dtype=y.dtype)
     with torch.cuda.device(y.device):
         bn_act_pool.launch_bwd_bwd(a, ggamma, gbeta, dpooled, argmax, y, mean,
                                    rstd, gamma, beta, part, g_dpooled, g_y,
-                                   g_gamma, negative_slope)
-    LAUNCHES[name] += 1
+                                   g_gamma, F.scalar_like(negative_slope, y))
+    LAUNCHES[_counter(name, y)] += 1
     return g_dpooled, g_y, g_gamma
 
 
@@ -1129,7 +1147,9 @@ def conv_bn_act_pool(x: Tensor, w: Tensor, b: Tensor, gamma: Tensor,
     _check_block_input("conv_bn_act_pool", x, (
         "conv3x3_fwd_stats", "bn_act_pool_fwd" if pool else "bn_act_fwd",
         "bn_act_pool_bwd" if pool else "bn_act_bwd", "conv3x3_dgrad",
-        "conv3x3_wgrad"), stride, padding, gap)
+        "conv3x3_wgrad", "conv3x3_fwd",
+        "bn_act_pool_bwd_bwd" if pool else "bn_act_bwd_bwd"),
+        stride, padding, gap)
     return function_block(x, w, b, gamma, beta, stride=stride, pool=pool,
                           gap=gap, padding=padding)
 
@@ -1137,10 +1157,10 @@ def conv_bn_act_pool(x: Tensor, w: Tensor, b: Tensor, gamma: Tensor,
 def _check_block_input(name: str, x: Tensor, kernels, stride: int,
                        padding: int, gap: bool) -> None:
     """A block's input on the card: ``(T, N, H, W, C)``, and in a dtype
-    that every kernel of its forward and first backward takes (``kernels``,
-    the conv ones at ``stride`` and ``padding``, plus the global average
-    pool with ``gap``); raises ``NotImplementedError`` naming the kernels
-    that are f32 only."""
+    that every kernel of its forward and its first and second backward
+    takes (``kernels``, the conv ones at ``stride`` and ``padding``, plus
+    the global average pool with ``gap``); raises ``NotImplementedError``
+    naming the kernels that are f32 only, before any launch."""
     if x.dim() != 5:
         raise ValueError(
             f"{name} on CUDA takes (T, N, H, W, C), got {tuple(x.shape)}"
@@ -1154,7 +1174,7 @@ def _check_block_input(name: str, x: Tensor, kernels, stride: int,
         raise NotImplementedError(
             f"{name} kernels are f32 only for compute_dtype {x.dtype}: "
             f"{', '.join(missing)} have no {x.dtype} kernel yet (bf16: "
-            f"{', '.join(BF16_KERNELS)} at stride 1 and pad 1)"
+            f"{', '.join(BF16_KERNELS)})"
         )
 
 
@@ -1329,7 +1349,8 @@ def norm_conv_act_pool(x: Tensor, w: Tensor, b: Tensor, gamma: Tensor,
         "bn_input_stats", "batch_norm_fwd", "batch_norm_bwd", "conv3x3_fwd",
         "act_pool_fwd" if pool else "act_fwd",
         "act_pool_bwd" if pool else "act_bwd", "conv3x3_dgrad",
-        "conv3x3_wgrad"), stride, padding, gap)
+        "conv3x3_wgrad", "batch_norm_bwd_bwd",
+        "act_pool_gather" if pool else "act_bwd"), stride, padding, gap)
     return norm_function_block(x, w, b, gamma, beta, stride=stride,
                                pool=pool, gap=gap, padding=padding)
 
@@ -1438,13 +1459,14 @@ def ln_conv_function_block(x: Tensor, w: Tensor, b: Tensor, gamma: Tensor,
     return _act_pool_gap(y, pool, gap), None, None
 
 
-#: the kernels of a layer-norm block's forward and first backward, pooled
-#: (True) or pool-free
+#: the kernels of a layer-norm block's forward and first and second
+#: backward, pooled (True) or pool-free
 _LN_BLOCK_KERNELS = {
     pool: ("conv3x3_fwd", "layer_norm_stats", "layer_norm_fwd",
            "layer_norm_bwd", "act_pool_fwd" if pool else "act_fwd",
            "act_pool_bwd" if pool else "act_bwd", "conv3x3_dgrad",
-           "conv3x3_wgrad") for pool in (True, False)}
+           "conv3x3_wgrad", "layer_norm_bwd_bwd",
+           "act_pool_gather" if pool else "act_bwd") for pool in (True, False)}
 
 
 def conv_ln_act_pool(x: Tensor, w: Tensor, b: Tensor, gamma: Tensor,

@@ -57,7 +57,12 @@
 // rounded once (jnp.mean / jnp.var on bf16: f32 sums), and rstd is the f32
 // rsqrt of the bf16 sum var + eps (eps rounded to bf16 by the host),
 // rounded once (lax.rsqrt). y, mean, var and rstd are stored in bf16.
-// Bound as in f32 (FFMA, the same FLOPs) with half the bytes.
+// Bound as in f32 (FFMA, the same FLOPs) with half the bytes. The
+// stats-free mode in bf16 (conv3x3_fwd_bf16, second-order training) is the
+// same epilogue without the statistics: the f32 sum rounded once, and with
+// a bias (Wgrad's backward: conv3x3(x, ddw) + ddb) the bias add rounded
+// again, as the plain twin's conv then bias add round. Pad 1 and pad 0,
+// as in f32.
 
 #include <cuda_runtime.h>
 
@@ -281,6 +286,28 @@ int fwd_stats(const T* x, const T* w, const T* b, T* y, float* part, T* mean,
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int fwd(const T* x, const T* w, const T* b, T* y, int T_, int N, int H,
+        int W, int stride, int pad, int cin, int cout, void* stream) {
+  if ((stride != 1 && stride != 2) || (pad != 0 && pad != 1) ||
+      H + 2 * pad < 3 || W + 2 * pad < 3)
+    return (int)cudaErrorInvalidValue;
+  const int Ho = (H + 2 * pad - 3) / stride + 1;
+  const int Wo = (W + 2 * pad - 3) / stride + 1;
+  const int M = N * Ho * Wo;
+  if (T_ < 1 || H < 1 || W < 1 || M < 1 || cin < 1 || cout < 1)
+    return (int)cudaErrorInvalidValue;
+  dim3 grid(ceil_div(M, kBM), ceil_div(cout, kBN), T_);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (stride == 1)
+    conv3x3_fwd_kernel<T, 1><<<grid, kThreads, 0, st>>>(
+        x, w, b, y, N, H, W, Ho, Wo, cin, cout, pad);
+  else
+    conv3x3_fwd_kernel<T, 2><<<grid, kThreads, 0, st>>>(
+        x, w, b, y, N, H, W, Ho, Wo, cin, cout, pad);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace maml
 
 extern "C" {
@@ -321,23 +348,18 @@ int conv3x3_fwd_stats_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
 int conv3x3_fwd(const float* x, const float* w, const float* b, float* y,
                 int T, int N, int H, int W, int stride, int pad, int cin,
                 int cout, void* stream) {
-  if ((stride != 1 && stride != 2) || (pad != 0 && pad != 1) ||
-      H + 2 * pad < 3 || W + 2 * pad < 3)
-    return (int)cudaErrorInvalidValue;
-  const int Ho = (H + 2 * pad - 3) / stride + 1;
-  const int Wo = (W + 2 * pad - 3) / stride + 1;
-  const int M = N * Ho * Wo;
-  if (T < 1 || H < 1 || W < 1 || M < 1 || cin < 1 || cout < 1)
-    return (int)cudaErrorInvalidValue;
-  dim3 grid(maml::ceil_div(M, maml::kBM), maml::ceil_div(cout, maml::kBN), T);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (stride == 1)
-    maml::conv3x3_fwd_kernel<float, 1><<<grid, maml::kThreads, 0, st>>>(
-        x, w, b, y, N, H, W, Ho, Wo, cin, cout, pad);
-  else
-    maml::conv3x3_fwd_kernel<float, 2><<<grid, maml::kThreads, 0, st>>>(
-        x, w, b, y, N, H, W, Ho, Wo, cin, cout, pad);
-  return (int)cudaGetLastError();
+  return maml::fwd<float>(x, w, b, y, T, N, H, W, stride, pad, cin, cout,
+                          stream);
+}
+
+// The same in bf16: x, w, b and y bf16; y the f32 sum rounded once, and
+// with b the bias add rounded again.
+int conv3x3_fwd_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
+                     const __nv_bfloat16* b, __nv_bfloat16* y, int T, int N,
+                     int H, int W, int stride, int pad, int cin, int cout,
+                     void* stream) {
+  return maml::fwd<__nv_bfloat16>(x, w, b, y, T, N, H, W, stride, pad, cin,
+                                  cout, stream);
 }
 
 const char* maml_cuda_error_string(int code) {

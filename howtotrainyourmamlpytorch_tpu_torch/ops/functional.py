@@ -75,10 +75,30 @@ def scalar_like(v: float, x: Tensor) -> float:
     return _rounded(float(v), x.dtype)
 
 
+class _Bf16Div(torch.autograd.Function):
+    """``x / y`` of bf16 tensors whose gradient is JAX's in bf16 ops, the
+    transpose of its ``div`` rule: ``g / y`` for x and ``-((g * (1 / (y *
+    y))) * x)`` for y (``integer_pow(y, -2)``, each op rounded). PyTorch's
+    own rule for y, ``-g * ((x / y) / y)``, rounds otherwise, and
+    second-order MAML differentiates the quotient in ``_Bf16Rsqrt``'s
+    derivative."""
+
+    @staticmethod
+    def forward(ctx, x, y):
+        ctx.save_for_backward(x, y)
+        return x / y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        return g / y, -((g * (1 / (y * y))) * x)
+
+
 class _Bf16Rsqrt(torch.autograd.Function):
     """``lax.rsqrt`` of a bf16 tensor: the f32 rsqrt, rounded once
     (PyTorch's own bf16 rsqrt on the CPU is off by an ulp at times); its
-    derivative JAX's, in bf16 ops: ``g * (-0.5 * (r / v))``."""
+    derivative JAX's, in bf16 ops: ``g * (-0.5 * (r / v))``, the quotient
+    differentiated by JAX's rule too (``_Bf16Div``)."""
 
     @staticmethod
     def forward(ctx, v):
@@ -89,7 +109,7 @@ class _Bf16Rsqrt(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         v, r = ctx.saved_tensors
-        return g * (-0.5 * (r / v))
+        return g * (-0.5 * _Bf16Div.apply(r, v))
 
 
 def rsqrt_eps(var: Tensor, eps: float, kernel_form: bool = False

@@ -21,8 +21,8 @@ batch norm, in either block order), and ``--conv_padding true|false``
 (``false``: the unpadded model, every 3x3 conv a valid window), and
 ``--compute_dtype float32|bfloat16`` (``bfloat16``: activations, the conv
 and the head in bf16 with f32 accumulation, the JAX package's bf16 cast
-points; on the card the conv-first batch-norm model at stride 1 and pad 1,
-whose serving kernels have bf16 versions — any other model raises
+points; on the card the pooled conv-first batch-norm model at pad 1 or
+0, whose kernels have bf16 versions — any other model raises
 ``NotImplementedError`` naming the kernels that do not).
 
 Prints ONE JSON line: adapt latency p50/p95, ``tenants_per_sec``,

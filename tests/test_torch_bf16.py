@@ -330,17 +330,19 @@ def test_bf16_reductions_follow_each_form():
 
 def test_bf16_guards_name_the_missing_kernel():
     """On the card a bf16 tensor reaches only the kernels with a bf16
-    version (K1 with statistics, K2/K3 pooled, K4 dgrad and wgrad at
-    stride 1 and pad 1); every other kernel raises NotImplementedError
-    naming itself, and so does a block whose kernels are not all bf16."""
+    version (the pooled conv-first batch-norm block's: K1 with statistics
+    and stats-free, K2, K3 and K5 pooled, K4 dgrad and wgrad, the convs at
+    stride 1 and pad 1 or 0); every other kernel raises
+    NotImplementedError naming itself and its role, and so does a block
+    whose kernels are not all bf16."""
     x = torch.zeros(1, 2, 6, 6, 3, dtype=BF16)
     for name in cb.BF16_KERNELS:
         assert cb.kernel_dtype(name, x) == BF16
         assert cb.kernel_dtype(name, x.float()) == torch.float32
-    for name, role in (("conv3x3_fwd", "K1 stats-free"),
-                       ("bn_act_pool_bwd_bwd", "K5"),
-                       ("conv3x3_s2_fwd_stats", "K1"),
-                       ("conv3x3_p0_wgrad", "K4 wgrad")):
+    for name, role in (("conv3x3_s2_fwd", "K1 stats-free"),
+                       ("bn_act_bwd_bwd", "K5 pool-free"),
+                       ("conv3x3_s2_p0_wgrad", "K4 wgrad"),
+                       ("global_avg_pool2d_fwd", "B5a GAP")):
         with pytest.raises(NotImplementedError,
                            match=f"{name} \\({role}\\) has no bf16 kernel"):
             cb.kernel_dtype(name, x)
@@ -352,16 +354,18 @@ def test_bf16_guards_name_the_missing_kernel():
             cb.kernel_dtype(name, x)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         cb.kernel_dtype("conv3x3_fwd_stats", x.double())
-    cb._check_block_input("conv_bn_act_pool", x, (
-        "conv3x3_fwd_stats", "bn_act_pool_fwd", "bn_act_pool_bwd",
-        "conv3x3_dgrad", "conv3x3_wgrad"), 1, 1, False)
+    kernels = ("conv3x3_fwd_stats", "bn_act_pool_fwd", "bn_act_pool_bwd",
+               "conv3x3_dgrad", "conv3x3_wgrad", "conv3x3_fwd",
+               "bn_act_pool_bwd_bwd")
+    for padding in (1, 0):
+        cb._check_block_input("conv_bn_act_pool", x, kernels, 1, padding,
+                              False)
     for stride, padding, gap, missing in (
             (2, 1, True, "conv3x3_s2_fwd_stats"),
-            (1, 0, False, "conv3x3_p0_fwd_stats")):
+            (2, 0, True, "conv3x3_s2_p0_fwd_stats")):
         with pytest.raises(NotImplementedError, match=missing):
-            cb._check_block_input("conv_bn_act_pool", x, (
-                "conv3x3_fwd_stats", "bn_act_pool_fwd", "bn_act_pool_bwd",
-                "conv3x3_dgrad", "conv3x3_wgrad"), stride, padding, gap)
+            cb._check_block_input("conv_bn_act_pool", x, kernels, stride,
+                                  padding, gap)
 
 
 @pytest.mark.parametrize("entry", ["serve", "train"])

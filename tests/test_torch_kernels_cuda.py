@@ -8,8 +8,9 @@ the leaky-ReLU + pool kernels, K1 stats-free and dgrad at cin 1 and 3),
 and the layer-norm blocks (``layer_norm_stats/fwd/bwd/bwd_bwd``, both
 orders, pooled and strided); the conv kernels at pad 0 (the unpadded
 models, ``conv_padding=False``) and the unpadded blocks' derivatives;
-the bf16 kernels (``compute_dtype='bfloat16'``: K1 with statistics,
-K2/K3 pooled, K4) against their bf16 twins, the bf16 block, and the
+the bf16 kernels (``compute_dtype='bfloat16'``: K1 with statistics and
+stats-free, K2/K3/K5 pooled, K4, the convs at pad 1 and 0) against their
+bf16 twins, the bf16 block's first and second derivatives, and the
 NotImplementedError of every kernel with no bf16 version; and the ingest
 kernel ``episode_expand`` equal to its twin bit for bit (it is a pure
 lookup).
@@ -91,6 +92,10 @@ def test_kernels_match_their_twins(shape, device):
         _close(a, c)
     dy = want[0]
     _close(cb.conv3x3_dgrad(dy, w), F.conv3x3_dgrad(dy, w))
+    # wgrad on a random dy: K3's sums to zero over each channel (batch
+    # norm's backward), so its db would be rounding noise at the size of
+    # the absolute tolerance, which no gate relative to the output judges
+    dy = torch.randn(dy.shape, device=device)
     for a, c in zip(cb.conv3x3_wgrad(x, dy), F.conv3x3_wgrad(x, dy)):
         _close(a, c)
     # the kernels second order adds: K1 stats-free (with and without a
@@ -149,6 +154,9 @@ def test_strided_kernels_match_their_twins(shape, device):
     dy = F.bn_act_bwd(da, *bn)[0]
     _close(cb.conv3x3_dgrad(dy, w, 2, (H, W)),
            F.conv3x3_dgrad(dy, w, 2, (H, W)))
+    # wgrad on a random dy, as in test_kernels_match_their_twins (K3's db
+    # is rounding noise: 1.05e-5 against the 1e-5 floor once on the card)
+    dy = torch.randn(dy.shape, device=device)
     for a, c in zip(cb.conv3x3_wgrad(x, dy, 2), F.conv3x3_wgrad(x, dy, 2)):
         _close(a, c)
     args = (torch.randn(y.shape, device=device), torch.randn_like(gamma),
@@ -673,7 +681,7 @@ def test_episode_expand_rejects_what_it_does_not_take(device):
         ee.decode(store.float(), lut)
 
 
-# -- bf16 (compute_dtype='bfloat16'): K1 with statistics, K2/K3 pooled, K4 --
+# -- bf16 (compute_dtype='bfloat16'): K1, K2/K3/K5 pooled, K4, pad 1 and 0 ---
 #
 # Gates (the kernels load bf16, compute in f32 and round where the JAX
 # package's bf16 graph rounds, as their twins do):
@@ -684,7 +692,10 @@ def test_episode_expand_rejects_what_it_does_not_take(device):
 #   scale where that is larger: both round one f32 value, computed in
 #   another order, so a value near a rounding boundary may round the other
 #   way. y rounds twice (the conv's sum, then the bias add), so its bound
-#   is one ulp of each.
+#   is one ulp of each; so does K1 stats-free's with a bias;
+# * K5 (g_dpooled, g_y, g_gamma) within one bf16 ulp, or 1e-4 of scale:
+#   f32 formulas on the bf16 inputs with K2's bf16-chain masks, each
+#   output rounded once, as its twin.
 
 BF16_SHAPES = [
     # T, N, H, W, cin, cout: the image layer, an odd map (21 -> 10), a
@@ -747,29 +758,99 @@ def test_bf16_kernels_match_their_twins(shape, device):
                           ("dw", "db")):
         within_ulp(a, c, f"wgrad {what}")
     assert cb.launches() == {**{k: 0 for k in cb.KERNELS},
-                             **{f"{k}_bf16": 1 for k in cb.BF16_KERNELS}}
+                             **{f"{k}_bf16": 1 for k in (
+                                 "conv3x3_fwd_stats", "bn_act_pool_fwd",
+                                 "bn_act_pool_bwd", "conv3x3_dgrad",
+                                 "conv3x3_wgrad")}}
+
+
+@pytest.mark.parametrize("padding", [1, 0])
+@pytest.mark.parametrize("shape", BF16_SHAPES, ids=str)
+def test_bf16_stats_free_conv_matches_its_twin(shape, padding, device):
+    """K1's stats-free mode in bf16 (second order: Dgrad's and Wgrad's
+    backward) at pad 1 and 0, with the bias (one ulp of the sum and one
+    of the bias add) and without (one ulp)."""
+    x, w, b, _, _ = bf16_inputs(shape, device)
+    if padding == 0 and min(x.shape[2:4]) < 3:
+        pytest.skip("no pad-0 output")
+    cb.reset_launches()
+    plain = F.conv3x3(x, w, padding=padding)
+    within_ulp(cb.conv3x3_fwd(x, w, padding=padding), plain, "K1 stats-free")
+    want = F.conv3x3(x, w, b, padding=padding)
+    within_ulp(cb.conv3x3_fwd(x, w, b, padding=padding), want,
+               "K1 stats-free with bias", bf16_ulp(want) + bf16_ulp(plain))
+    name = "conv3x3_fwd_bf16" if padding else "conv3x3_p0_fwd_bf16"
+    assert {k: n for k, n in cb.launches().items() if n} == {name: 2}
+
+
+@pytest.mark.parametrize("shape", BF16_SHAPES, ids=str)
+def test_bf16_k5_matches_its_twin(shape, device):
+    """K5 in bf16 on random cotangents (K3's own sum to zero per channel)
+    at the pooled K2 decisions of a bf16 y, odd maps included."""
+    x, w, b, gamma, beta = bf16_inputs(shape, device)
+    y, mean, _, rstd = F.conv3x3_fwd_stats(x, w, b)
+    _, arg = F.bn_act_pool_fwd(y, mean, rstd, gamma, beta)
+    g = torch.Generator(device=device).manual_seed(1)
+
+    def r(*s):
+        return torch.randn(*s, device=device, generator=g).bfloat16()
+
+    T, C = gamma.shape
+    args = (r(*y.shape), r(T, C), r(T, C), r(*arg.shape), arg, y, mean,
+            rstd, gamma, beta)
+    cb.reset_launches()
+    for a, c, what in zip(cb.bn_act_pool_bwd_bwd(*args),
+                          F.bn_act_pool_bwd_bwd(*args),
+                          ("g_dpooled", "g_y", "g_gamma")):
+        within_ulp(a, c, f"K5 {what}")
+    assert {k: n for k, n in cb.launches().items() if n} == {
+        "bn_act_pool_bwd_bwd_bf16": 1}
+
+
+@pytest.mark.parametrize("shape", BF16_SHAPES[1:], ids=str)
+def test_bf16_pad0_convs_match_their_twins(shape, device):
+    """K1 with statistics, dgrad and wgrad in bf16 at pad 0 (the unpadded
+    bf16 model), within the gates above, on the ``conv3x3_p0_*_bf16``
+    counters."""
+    x, w, b, _, _ = bf16_inputs(shape, device)
+    cb.reset_launches()
+    got = cb.conv3x3_fwd_stats(x, w, b, padding=0)
+    want = F.conv3x3_fwd_stats(x, w, b, padding=0)
+    within_ulp(got[0], want[0], "K1 p0 y",
+               bf16_ulp(want[0]) + bf16_ulp(F.conv3x3(x, w, padding=0)))
+    for a, c, what in zip(got[1:], want[1:], ("mean", "var", "rstd")):
+        within_ulp(a, c, f"K1 p0 {what}")
+    dy = torch.randn(want[0].shape, device=device).bfloat16()
+    hw = tuple(x.shape[2:4])
+    within_ulp(cb.conv3x3_dgrad(dy, w, 1, hw, 0),
+               F.conv3x3_dgrad(dy, w, 1, hw, 0), "dgrad p0")
+    for a, c, what in zip(cb.conv3x3_wgrad(x, dy, padding=0),
+                          F.conv3x3_wgrad(x, dy, padding=0), ("dw", "db")):
+        within_ulp(a, c, f"wgrad p0 {what}")
+    assert {k: n for k, n in cb.launches().items() if n} == {
+        "conv3x3_p0_fwd_stats_bf16": 1, "conv3x3_p0_dgrad_bf16": 1,
+        "conv3x3_p0_wgrad_bf16": 1}
 
 
 def test_bf16_stops_where_no_bf16_kernel_is(device):
     """On the card a bf16 tensor reaches a kernel with a bf16 version or
-    raises NotImplementedError naming the kernel: K1 stats-free and K5
-    (second order), the stride-2 and pad-0 convs, the pool-free and
-    norm-first kernels; nothing falls back to f32."""
+    raises NotImplementedError naming the kernel: the stride-2 convs (at
+    pad 1 and 0), the pool-free K2 and K5, the norm-first and layer-norm
+    kernels; nothing falls back to f32."""
     x, w, b, gamma, beta = bf16_inputs((1, 2, 6, 6, 3, 4), device)
     y = torch.zeros(1, 2, 6, 6, 4, device=device).bfloat16()
     v = torch.ones(1, 4, device=device).bfloat16()
     cb.reset_launches()
     for match, call in (
-            ("conv3x3_fwd .K1 stats-free", lambda: cb.conv3x3_fwd(x, w, b)),
+            ("conv3x3_s2_fwd .K1 stats-free", lambda: cb.conv3x3_fwd(
+                x, w, b, stride=2)),
             ("conv3x3_s2_fwd_stats", lambda: cb.conv3x3_fwd_stats(
                 x, w, b, stride=2)),
-            ("conv3x3_p0_dgrad", lambda: cb.conv3x3_dgrad(
-                y[:, :, :4, :4], w, 1, (6, 6), 0)),
+            ("conv3x3_s2_p0_dgrad", lambda: cb.conv3x3_dgrad(
+                y[:, :, :2, :2], w, 2, (6, 6), 0)),
             ("bn_act_fwd", lambda: cb.bn_act_fwd(y, v, v, v, v)),
-            ("bn_act_pool_bwd_bwd .K5", lambda: cb.bn_act_pool_bwd_bwd(
-                y, v, v, y[:, :, :3, :3],
-                torch.zeros(1, 2, 3, 3, 4, dtype=torch.uint8,
-                            device=device), y, v, v, v, v)),
+            ("bn_act_bwd_bwd .K5 pool-free", lambda: cb.bn_act_bwd_bwd(
+                y, v, v, y, y, v, v, v, v)),
             ("bn_input_stats", lambda: cb.bn_input_stats(y)),
             ("act_pool_fwd", lambda: cb.act_pool_fwd(y)),
             ("layer_norm_stats", lambda: cb.layer_norm_stats(y)),
@@ -800,3 +881,40 @@ def test_bf16_block_runs_on_the_bf16_kernels(device):
     launched = {k for k, n in cb.launches().items() if n}
     assert launched == {"conv3x3_fwd_stats_bf16", "bn_act_pool_fwd_bf16",
                         "bn_act_pool_bwd_bf16", "conv3x3_wgrad_bf16"}
+
+
+@pytest.mark.parametrize("padding", [1, 0])
+def test_bf16_block_second_order_runs_on_the_bf16_kernels(padding, device):
+    """The conv-first batch-norm block's second derivative in bf16 (the
+    training path: the gradient of ``<v, d loss / d w>``) at pad 1 and 0
+    launches bf16 kernels only, K1 stats-free and K5 among them; the f32
+    leaf's gradient comes back f32 and finite, and within 2x the bf16-vs-f32
+    spread of the same block on the twins (the CPU, bf16 and f32) from
+    the twins' bf16 result (phase 9's serve gate)."""
+    x, w, b, _, _ = bf16_inputs((2, 3, 12, 12, 3, 8), device)
+    gamma = torch.ones(8)
+    beta = torch.zeros(8)
+    v = torch.randn(w.shape, generator=torch.Generator().manual_seed(2))
+    results = {}
+    for name, dev, dtype in (("kernels", device, torch.bfloat16),
+                             ("twins bf16", "cpu", torch.bfloat16),
+                             ("twins f32", "cpu", torch.float32)):
+        w32 = w.float().to(dev).requires_grad_(True)
+        b32 = b.float().to(dev).requires_grad_(True)
+        cb.reset_launches()
+        out, _, _ = cb.function_block(
+            x.to(dev, dtype), w32.to(dtype), b32.to(dtype), gamma.to(dev),
+            beta.to(dev), padding=padding)
+        gw, = torch.autograd.grad(out.float().square().sum(), [w32],
+                                  create_graph=True)
+        results[name] = torch.autograd.grad((gw * v.to(dev)).sum(),
+                                            [w32])[0].cpu()
+        if name == "kernels":
+            launched = {k for k, n in cb.launches().items() if n}
+    got = results["kernels"]
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    tag = "" if padding else "_p0"
+    assert {f"conv3x3{tag}_fwd_bf16", "bn_act_pool_bwd_bwd_bf16"} <= launched
+    assert all(k.endswith("_bf16") for k in launched), launched
+    spread = (results["twins bf16"] - results["twins f32"]).abs().max()
+    assert (got - results["twins bf16"]).abs().max() <= 2 * spread
