@@ -32,9 +32,10 @@ batch_norm|layer_norm`` (``layer_norm``: a layer norm over each image's
 statistics), and ``--conv_padding true|false`` (``false``: the unpadded
 model, every 3x3 conv a valid window, 84 -> 82 at stage 0), and
 ``--compute_dtype float32|bfloat16``. In bf16 the card trains the
-pooled conv-first batch-norm model second order, padded or not
-(``--conv_padding false``), on the ``*_bf16`` kernels, with f32 master
-parameters and Adam moments; the strided, norm-first and layer-norm
+batch-norm models second order — conv first or norm first
+(``--block_order norm_conv_relu``), pooled or strided (``--max_pooling
+false``), padded or not (``--conv_padding false``) — on the ``*_bf16``
+kernels, with f32 master parameters and Adam moments; the layer-norm
 models have no bf16 kernels yet and raise ``NotImplementedError`` naming
 them before any launch.
 
@@ -71,6 +72,9 @@ tests).
         --norm_layer layer_norm
     python -m howtotrainyourmamlpytorch_tpu_torch.cli train-bench \\
         --conv_padding false
+    python -m howtotrainyourmamlpytorch_tpu_torch.cli train-bench \\
+        --config "experiment_config/omniglot_maml++-omniglot_1_20_8_0.1_64_0.json" \\
+        --max_pooling false --compute_dtype bfloat16 --data-placement device
 """
 
 from __future__ import annotations

@@ -33,6 +33,19 @@ Tiles are ``bn_stats.tile(C)``: ``(BLOCK_P pixels, BLOCK_C)`` with
 ``BLOCK_C`` the power of two at or above C and ``BLOCK_P * BLOCK_C = 4096``
 (C = 48: 3 of 4 lanes).
 
+bf16 (``compute_dtype='bfloat16'``): every kernel loads bf16, works in
+f32 and stores bf16, with the slope the bf16 value of 0.01 (the
+wrappers round it). The JAX package's bf16 leaky-ReLU and its gradient
+are ``select(y >= 0, y, bf16(slope * y))`` and ``select(y >= 0, g,
+bf16(slope * g))``: a product of two bf16 values is exact in f32, so one
+rounding at the store gives the twin's bits in ``act_fwd``, ``act_bwd``,
+``act_pool_bwd`` and ``act_pool_gather`` with no constexpr (their f32
+instantiations are unchanged). ``act_pool_fwd`` takes a ``BF16``
+constexpr: it rounds the negative side to bf16 before the window compare
+(``_rne_bf16``), so that exact bf16 ties, far more frequent than in f32,
+go to the first maximum as ``reduce_window``'s do, and its pooled values
+and argmax equal the twin's bit for bit.
+
 ``triton`` is imported at the first launch, never at import (see
 ``bn_act_pool.py``).
 """
@@ -42,14 +55,16 @@ from __future__ import annotations
 import functools
 from types import SimpleNamespace
 
+from . import bn_act_pool
 from .bn_stats import TILE, cdiv, tile
 
 tl = None  # bound to ``triton.language`` by ``_jit()`` at the first launch
+_rne_bf16 = None  # bound to ``bn_act_pool``'s jitted rounding by ``_jit()``
 
 
 def _act_pool_fwd_kernel(y_ptr, out_ptr, arg_ptr, P, HoWo, Wo, H, W, C,
                          slope, BLOCK_P: "tl.constexpr",
-                         BLOCK_C: "tl.constexpr"):
+                         BLOCK_C: "tl.constexpr", BF16: "tl.constexpr"):
     p = tl.program_id(0).to(tl.int64) * BLOCK_P + tl.arange(0, BLOCK_P)
     c = tl.arange(0, BLOCK_C)
     mask = (p < P)[:, None] & (c < C)[None, :]
@@ -62,13 +77,19 @@ def _act_pool_fwd_kernel(y_ptr, out_ptr, arg_ptr, P, HoWo, Wo, H, W, C,
     arg = tl.zeros([BLOCK_P, BLOCK_C], dtype=tl.int32)
     for k in tl.static_range(4):
         off = base + ((k // 2) * W + (k % 2)) * C
-        v = tl.load(y_ptr + off[:, None] + c[None, :], mask=mask, other=0.0)
-        a = tl.where(v >= 0, v, v * slope)
+        v = tl.load(y_ptr + off[:, None] + c[None, :], mask=mask,
+                    other=0.0).to(tl.float32)
+        if BF16:
+            # the negative side rounded to bf16 before the compare, so
+            # that ties fall as they do in bf16
+            a = tl.where(v >= 0, v, _rne_bf16(v * slope))
+        else:
+            a = tl.where(v >= 0, v, v * slope)
         upd = a > best
         best = tl.where(upd, a, best)
         arg = tl.where(upd, k, arg)
     out = p[:, None] * C + c[None, :]
-    tl.store(out_ptr + out, best, mask=mask)
+    tl.store(out_ptr + out, best.to(out_ptr.dtype.element_ty), mask=mask)
     tl.store(arg_ptr + out, arg.to(tl.uint8), mask=mask)
 
 
@@ -88,10 +109,11 @@ def _act_pool_bwd_kernel(dp_ptr, arg_ptr, y_ptr, dy_ptr, NP, HW, W, Ho, Wo,
     poff = ((img * Ho + ho) * Wo + wo)[:, None] * C + c[None, :]
     k = tl.load(arg_ptr + poff, mask=pmask, other=255).to(tl.int32)
     sel = pmask & (k == ((h % 2) * 2 + (w % 2))[:, None])
-    d = tl.load(dp_ptr + poff, mask=sel, other=0.0)
+    d = tl.load(dp_ptr + poff, mask=sel, other=0.0).to(tl.float32)
     off = q[:, None] * C + c[None, :]
-    v = tl.load(y_ptr + off, mask=sel, other=0.0)
-    tl.store(dy_ptr + off, tl.where(v >= 0, d, d * slope), mask=mask)
+    v = tl.load(y_ptr + off, mask=sel, other=0.0).to(tl.float32)
+    dy = tl.where(v >= 0, d, d * slope)
+    tl.store(dy_ptr + off, dy.to(dy_ptr.dtype.element_ty), mask=mask)
 
 
 def _act_pool_gather_kernel(g_ptr, arg_ptr, y_ptr, out_ptr, P, HoWo, Wo, H,
@@ -108,25 +130,28 @@ def _act_pool_gather_kernel(g_ptr, arg_ptr, y_ptr, out_ptr, P, HoWo, Wo, H,
     k = tl.load(arg_ptr + out, mask=mask, other=0).to(tl.int32)
     off = (((img * H + 2 * ho)[:, None] + k // 2) * W
            + 2 * wo[:, None] + k % 2) * C + c[None, :]
-    g = tl.load(g_ptr + off, mask=mask, other=0.0)
-    v = tl.load(y_ptr + off, mask=mask, other=0.0)
-    tl.store(out_ptr + out, tl.where(v >= 0, g, g * slope), mask=mask)
+    g = tl.load(g_ptr + off, mask=mask, other=0.0).to(tl.float32)
+    v = tl.load(y_ptr + off, mask=mask, other=0.0).to(tl.float32)
+    a = tl.where(v >= 0, g, g * slope)
+    tl.store(out_ptr + out, a.to(out_ptr.dtype.element_ty), mask=mask)
 
 
 def _act_fwd_kernel(y_ptr, out_ptr, numel, slope, BLOCK: "tl.constexpr"):
     i = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
     m = i < numel
-    v = tl.load(y_ptr + i, mask=m, other=0.0)
-    tl.store(out_ptr + i, tl.where(v >= 0, v, v * slope), mask=m)
+    v = tl.load(y_ptr + i, mask=m, other=0.0).to(tl.float32)
+    a = tl.where(v >= 0, v, v * slope)
+    tl.store(out_ptr + i, a.to(out_ptr.dtype.element_ty), mask=m)
 
 
 def _act_bwd_kernel(da_ptr, y_ptr, dy_ptr, numel, slope,
                     BLOCK: "tl.constexpr"):
     i = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
     m = i < numel
-    d = tl.load(da_ptr + i, mask=m, other=0.0)
-    v = tl.load(y_ptr + i, mask=m, other=0.0)
-    tl.store(dy_ptr + i, tl.where(v >= 0, d, d * slope), mask=m)
+    d = tl.load(da_ptr + i, mask=m, other=0.0).to(tl.float32)
+    v = tl.load(y_ptr + i, mask=m, other=0.0).to(tl.float32)
+    dy = tl.where(v >= 0, d, d * slope)
+    tl.store(dy_ptr + i, dy.to(dy_ptr.dtype.element_ty), mask=m)
 
 
 @functools.lru_cache(maxsize=None)
@@ -134,8 +159,10 @@ def _jit() -> SimpleNamespace:
     import triton
     import triton.language
 
-    global tl
+    global tl, _rne_bf16
     tl = triton.language
+    # the pool's forward calls bn_act_pool's jitted rounding by this name
+    _rne_bf16 = bn_act_pool._jit().rne_bf16
     return SimpleNamespace(
         pool_fwd=triton.jit(_act_pool_fwd_kernel),
         pool_bwd=triton.jit(_act_pool_bwd_kernel),
@@ -146,14 +173,16 @@ def _jit() -> SimpleNamespace:
 
 
 def launch_pool_fwd(y, out, arg, slope: float) -> None:
-    """``act_pool_fwd`` on a validated contiguous f32 CUDA ``y`` (T, N, H,
-    W, C) into ``out`` and the uint8 ``arg`` (T, N, H//2, W//2, C)."""
+    """``act_pool_fwd`` on a validated contiguous f32 or bf16 CUDA ``y`` (T,
+    N, H, W, C) into ``out`` of its dtype and the uint8 ``arg`` (T, N,
+    H//2, W//2, C)."""
     T, N, H, W, C = y.shape
     Ho, Wo = H // 2, W // 2
     P = T * N * Ho * Wo
     bp, bc = tile(C)
     _jit().pool_fwd[(cdiv(P, bp),)](y, out, arg, P, Ho * Wo, Wo, H, W, C,
-                                    slope, BLOCK_P=bp, BLOCK_C=bc)
+                                    slope, BLOCK_P=bp, BLOCK_C=bc,
+                                    BF16=bn_act_pool.is_bf16(y))
 
 
 def launch_pool_bwd(dpooled, arg, y, dy, slope: float) -> None:

@@ -69,7 +69,12 @@ gradient and cotangents, takes its leaky-ReLU masks from K2's bf16 chain
 (``_bf16_chain``, as K3 does: a mask decided on the f32 ``xhat * gamma +
 beta`` would flip wherever the chain rounds across zero), keeps xhat and
 its five partial sums in f32, and rounds ``g_dpooled``, ``g_y`` and
-``g_gamma`` once each to bf16, as its twin does.
+``g_gamma`` once each to bf16, as its twin does. The pool-free K2, K3 and
+K5 (the strided model's ``bn_act_*``, and at slope 1 the norm-first
+block's standalone ``batch_norm_*``) take the same constexpr and round at
+the same points: K2 after every op of the chain (at slope 1 the chain's
+activation is ``z`` itself, ``z * 1.0`` exact), K3 and K5 their masks
+from the chain, xhat and the sums in f32, each output rounded once.
 
 ``triton`` is imported at the first launch, never at import: the kernel
 bodies below are plain functions until ``_jit()`` compiles them, and they
@@ -392,33 +397,42 @@ def _bn_act_pool_bwd_bwd_out_kernel(a_ptr, ggamma_ptr, gbeta_ptr, dp_ptr,
 
 def _bn_act_fwd_kernel(y_ptr, mean_ptr, rstd_ptr, gamma_ptr, beta_ptr,
                        out_ptr, P, NHW, C, slope, BLOCK_P: "tl.constexpr",
-                       BLOCK_C: "tl.constexpr"):
+                       BLOCK_C: "tl.constexpr", BF16: "tl.constexpr"):
     p = tl.program_id(0).to(tl.int64) * BLOCK_P + tl.arange(0, BLOCK_P)
     c = tl.arange(0, BLOCK_C)
     mask = (p < P)[:, None] & (c < C)[None, :]
     tc = (p // NHW)[:, None] * C + c[None, :]
-    mu = tl.load(mean_ptr + tc, mask=mask, other=0.0)
-    rs = tl.load(rstd_ptr + tc, mask=mask, other=0.0)
-    g = tl.load(gamma_ptr + tc, mask=mask, other=0.0)
-    b = tl.load(beta_ptr + tc, mask=mask, other=0.0)
+    mu = tl.load(mean_ptr + tc, mask=mask, other=0.0).to(tl.float32)
+    rs = tl.load(rstd_ptr + tc, mask=mask, other=0.0).to(tl.float32)
+    g = tl.load(gamma_ptr + tc, mask=mask, other=0.0).to(tl.float32)
+    b = tl.load(beta_ptr + tc, mask=mask, other=0.0).to(tl.float32)
     off = p[:, None] * C + c[None, :]
-    v = tl.load(y_ptr + off, mask=mask, other=0.0)
-    z = (v - mu) * rs * g + b
-    tl.store(out_ptr + off, tl.where(z >= 0, z, z * slope), mask=mask)
+    v = tl.load(y_ptr + off, mask=mask, other=0.0).to(tl.float32)
+    if BF16:
+        _, a = _bf16_chain(v, mu, rs, g, b, slope)
+    else:
+        z = (v - mu) * rs * g + b
+        a = tl.where(z >= 0, z, z * slope)
+    tl.store(out_ptr + off, a.to(out_ptr.dtype.element_ty), mask=mask)
 
 
 def _bn_act_bwd_reduce_kernel(da_ptr, y_ptr, mean_ptr, rstd_ptr, gamma_ptr,
                               beta_ptr, part_ptr, NHW, C, S, CHUNK, slope,
                               BLOCK_P: "tl.constexpr",
-                              BLOCK_C: "tl.constexpr"):
+                              BLOCK_C: "tl.constexpr",
+                              BF16: "tl.constexpr"):
     t = tl.program_id(0)
     s = tl.program_id(1)
     c = tl.arange(0, BLOCK_C)
     cmask = c < C
-    mu = tl.load(mean_ptr + t * C + c, mask=cmask, other=0.0)[None, :]
-    rs = tl.load(rstd_ptr + t * C + c, mask=cmask, other=0.0)[None, :]
-    g = tl.load(gamma_ptr + t * C + c, mask=cmask, other=0.0)[None, :]
-    b = tl.load(beta_ptr + t * C + c, mask=cmask, other=0.0)[None, :]
+    mu = tl.load(mean_ptr + t * C + c, mask=cmask,
+                 other=0.0).to(tl.float32)[None, :]
+    rs = tl.load(rstd_ptr + t * C + c, mask=cmask,
+                 other=0.0).to(tl.float32)[None, :]
+    g = tl.load(gamma_ptr + t * C + c, mask=cmask,
+                other=0.0).to(tl.float32)[None, :]
+    b = tl.load(beta_ptr + t * C + c, mask=cmask,
+                other=0.0).to(tl.float32)[None, :]
     acc_dz = tl.zeros([BLOCK_P, BLOCK_C], tl.float32)
     acc_dzx = tl.zeros([BLOCK_P, BLOCK_C], tl.float32)
     start = s * CHUNK
@@ -427,10 +441,13 @@ def _bn_act_bwd_reduce_kernel(da_ptr, y_ptr, mean_ptr, rstd_ptr, gamma_ptr,
         q = i + tl.arange(0, BLOCK_P)
         mask = (q < end)[:, None] & cmask[None, :]
         off = (t.to(tl.int64) * NHW + q)[:, None] * C + c[None, :]
-        v = tl.load(y_ptr + off, mask=mask, other=0.0)
-        d = tl.load(da_ptr + off, mask=mask, other=0.0)
+        v = tl.load(y_ptr + off, mask=mask, other=0.0).to(tl.float32)
+        d = tl.load(da_ptr + off, mask=mask, other=0.0).to(tl.float32)
         xh = tl.where(mask, (v - mu) * rs, 0.0)
-        z = xh * g + b
+        if BF16:
+            z, _ = _bf16_chain(v, mu, rs, g, b, slope)
+        else:
+            z = xh * g + b
         dz = tl.where(z >= 0, d, d * slope)
         acc_dz += dz
         acc_dzx += dz * xh
@@ -442,7 +459,7 @@ def _bn_act_bwd_reduce_kernel(da_ptr, y_ptr, mean_ptr, rstd_ptr, gamma_ptr,
 def _bn_act_bwd_dy_kernel(da_ptr, y_ptr, mean_ptr, rstd_ptr, gamma_ptr,
                           beta_ptr, part_ptr, dy_ptr, NHW, C, S, inv_m,
                           slope, BLOCK_P: "tl.constexpr",
-                          BLOCK_C: "tl.constexpr"):
+                          BLOCK_C: "tl.constexpr", BF16: "tl.constexpr"):
     t = tl.program_id(1)
     q = tl.program_id(0) * BLOCK_P + tl.arange(0, BLOCK_P)
     c = tl.arange(0, BLOCK_C)
@@ -454,33 +471,42 @@ def _bn_act_bwd_dy_kernel(da_ptr, y_ptr, mean_ptr, rstd_ptr, gamma_ptr,
         base = (t * S + s) * 2 * C
         sum_dz += tl.load(part_ptr + base + c, mask=cmask, other=0.0)
         sum_dzx += tl.load(part_ptr + base + C + c, mask=cmask, other=0.0)
-    mu = tl.load(mean_ptr + t * C + c, mask=cmask, other=0.0)
-    rs = tl.load(rstd_ptr + t * C + c, mask=cmask, other=0.0)
-    g = tl.load(gamma_ptr + t * C + c, mask=cmask, other=0.0)
-    b = tl.load(beta_ptr + t * C + c, mask=cmask, other=0.0)
+    mu = tl.load(mean_ptr + t * C + c, mask=cmask, other=0.0).to(tl.float32)
+    rs = tl.load(rstd_ptr + t * C + c, mask=cmask, other=0.0).to(tl.float32)
+    g = tl.load(gamma_ptr + t * C + c, mask=cmask, other=0.0).to(tl.float32)
+    b = tl.load(beta_ptr + t * C + c, mask=cmask, other=0.0).to(tl.float32)
     off = (t.to(tl.int64) * NHW + q)[:, None] * C + c[None, :]
-    v = tl.load(y_ptr + off, mask=mask, other=0.0)
-    d = tl.load(da_ptr + off, mask=mask, other=0.0)
+    v = tl.load(y_ptr + off, mask=mask, other=0.0).to(tl.float32)
+    d = tl.load(da_ptr + off, mask=mask, other=0.0).to(tl.float32)
     xh = (v - mu[None, :]) * rs[None, :]
-    z = xh * g[None, :] + b[None, :]
+    if BF16:
+        z, _ = _bf16_chain(v, mu[None, :], rs[None, :], g[None, :],
+                           b[None, :], slope)
+    else:
+        z = xh * g[None, :] + b[None, :]
     dz = tl.where(z >= 0, d, d * slope)
     dy = (g * rs)[None, :] * (dz - (sum_dz * inv_m)[None, :]
                               - xh * (sum_dzx * inv_m)[None, :])
-    tl.store(dy_ptr + off, dy, mask=mask)
+    tl.store(dy_ptr + off, dy.to(dy_ptr.dtype.element_ty), mask=mask)
 
 
 def _bn_act_bwd_bwd_reduce_kernel(a_ptr, da_ptr, y_ptr, mean_ptr, rstd_ptr,
                                   gamma_ptr, beta_ptr, part_ptr, NHW, C, S,
                                   CHUNK, slope, BLOCK_P: "tl.constexpr",
-                                  BLOCK_C: "tl.constexpr"):
+                                  BLOCK_C: "tl.constexpr",
+                                  BF16: "tl.constexpr"):
     t = tl.program_id(0)
     s = tl.program_id(1)
     c = tl.arange(0, BLOCK_C)
     cmask = c < C
-    mu = tl.load(mean_ptr + t * C + c, mask=cmask, other=0.0)[None, :]
-    rs = tl.load(rstd_ptr + t * C + c, mask=cmask, other=0.0)[None, :]
-    g = tl.load(gamma_ptr + t * C + c, mask=cmask, other=0.0)[None, :]
-    b = tl.load(beta_ptr + t * C + c, mask=cmask, other=0.0)[None, :]
+    mu = tl.load(mean_ptr + t * C + c, mask=cmask,
+                 other=0.0).to(tl.float32)[None, :]
+    rs = tl.load(rstd_ptr + t * C + c, mask=cmask,
+                 other=0.0).to(tl.float32)[None, :]
+    g = tl.load(gamma_ptr + t * C + c, mask=cmask,
+                other=0.0).to(tl.float32)[None, :]
+    b = tl.load(beta_ptr + t * C + c, mask=cmask,
+                other=0.0).to(tl.float32)[None, :]
     acc_a = tl.zeros([BLOCK_P, BLOCK_C], tl.float32)
     acc_ax = tl.zeros([BLOCK_P, BLOCK_C], tl.float32)
     acc_dz = tl.zeros([BLOCK_P, BLOCK_C], tl.float32)
@@ -492,11 +518,14 @@ def _bn_act_bwd_bwd_reduce_kernel(a_ptr, da_ptr, y_ptr, mean_ptr, rstd_ptr,
         q = i + tl.arange(0, BLOCK_P)
         mask = (q < end)[:, None] & cmask[None, :]
         off = (t.to(tl.int64) * NHW + q)[:, None] * C + c[None, :]
-        v = tl.load(y_ptr + off, mask=mask, other=0.0)
-        d = tl.load(da_ptr + off, mask=mask, other=0.0)
-        av = tl.load(a_ptr + off, mask=mask, other=0.0)
+        v = tl.load(y_ptr + off, mask=mask, other=0.0).to(tl.float32)
+        d = tl.load(da_ptr + off, mask=mask, other=0.0).to(tl.float32)
+        av = tl.load(a_ptr + off, mask=mask, other=0.0).to(tl.float32)
         xh = tl.where(mask, (v - mu) * rs, 0.0)
-        z = xh * g + b
+        if BF16:
+            z, _ = _bf16_chain(v, mu, rs, g, b, slope)
+        else:
+            z = xh * g + b
         dz = tl.where(z >= 0, d, d * slope)
         acc_a += av
         acc_ax += av * xh
@@ -515,7 +544,7 @@ def _bn_act_bwd_bwd_out_kernel(a_ptr, ggamma_ptr, gbeta_ptr, da_ptr, y_ptr,
                                mean_ptr, rstd_ptr, gamma_ptr, beta_ptr,
                                part_ptr, gda_ptr, gy_ptr, ggam_out_ptr, NHW,
                                C, S, inv_m, slope, BLOCK_P: "tl.constexpr",
-                               BLOCK_C: "tl.constexpr"):
+                               BLOCK_C: "tl.constexpr", BF16: "tl.constexpr"):
     t = tl.program_id(1)
     q = tl.program_id(0) * BLOCK_P + tl.arange(0, BLOCK_P)
     c = tl.arange(0, BLOCK_C)
@@ -533,12 +562,13 @@ def _bn_act_bwd_bwd_out_kernel(a_ptr, ggamma_ptr, gbeta_ptr, da_ptr, y_ptr,
         s_dz += tl.load(part_ptr + base + 2 * C + c, mask=cmask, other=0.0)
         s_dzx += tl.load(part_ptr + base + 3 * C + c, mask=cmask, other=0.0)
         s_adz += tl.load(part_ptr + base + 4 * C + c, mask=cmask, other=0.0)
-    mu = tl.load(mean_ptr + t * C + c, mask=cmask, other=0.0)
-    rs = tl.load(rstd_ptr + t * C + c, mask=cmask, other=0.0)
-    g = tl.load(gamma_ptr + t * C + c, mask=cmask, other=0.0)
-    b = tl.load(beta_ptr + t * C + c, mask=cmask, other=0.0)
-    gg = tl.load(ggamma_ptr + t * C + c, mask=cmask, other=0.0)
-    gb = tl.load(gbeta_ptr + t * C + c, mask=cmask, other=0.0)
+    mu = tl.load(mean_ptr + t * C + c, mask=cmask, other=0.0).to(tl.float32)
+    rs = tl.load(rstd_ptr + t * C + c, mask=cmask, other=0.0).to(tl.float32)
+    g = tl.load(gamma_ptr + t * C + c, mask=cmask, other=0.0).to(tl.float32)
+    b = tl.load(beta_ptr + t * C + c, mask=cmask, other=0.0).to(tl.float32)
+    gg = tl.load(ggamma_ptr + t * C + c, mask=cmask,
+                 other=0.0).to(tl.float32)
+    gb = tl.load(gbeta_ptr + t * C + c, mask=cmask, other=0.0).to(tl.float32)
     m_a = s_a * inv_m
     m_ax = s_ax * inv_m
     m_dz = s_dz * inv_m
@@ -549,24 +579,30 @@ def _bn_act_bwd_bwd_out_kernel(a_ptr, ggamma_ptr, gbeta_ptr, da_ptr, y_ptr,
     mean_gx = -2.0 * grs * m_ax * m_dzx + gg * m_dzx
     lr_coef = rs * rs * inv_m * g * cross
     if tl.program_id(0) == 0:
-        tl.store(ggam_out_ptr + t * C + c, rs * cross, mask=cmask)
+        tl.store(ggam_out_ptr + t * C + c,
+                 (rs * cross).to(ggam_out_ptr.dtype.element_ty), mask=cmask)
 
     off = (t.to(tl.int64) * NHW + q)[:, None] * C + c[None, :]
-    v = tl.load(y_ptr + off, mask=mask, other=0.0)
-    d = tl.load(da_ptr + off, mask=mask, other=0.0)
-    av = tl.load(a_ptr + off, mask=mask, other=0.0)
+    v = tl.load(y_ptr + off, mask=mask, other=0.0).to(tl.float32)
+    d = tl.load(da_ptr + off, mask=mask, other=0.0).to(tl.float32)
+    av = tl.load(a_ptr + off, mask=mask, other=0.0).to(tl.float32)
     xh = (v - mu[None, :]) * rs[None, :]
-    z = xh * g[None, :] + b[None, :]
+    if BF16:
+        z, _ = _bf16_chain(v, mu[None, :], rs[None, :], g[None, :],
+                           b[None, :], slope)
+    else:
+        z = xh * g[None, :] + b[None, :]
     pos_side = z >= 0
     dz = tl.where(pos_side, d, d * slope)
     pa = av - m_a[None, :] - xh * m_ax[None, :]
     gdz = grs[None, :] * pa + gg[None, :] * xh + gb[None, :]
-    tl.store(gda_ptr + off, tl.where(pos_side, gdz, gdz * slope), mask=mask)
+    gda = tl.where(pos_side, gdz, gdz * slope)
+    tl.store(gda_ptr + off, gda.to(gda_ptr.dtype.element_ty), mask=mask)
     big_g = (-grs[None, :] * (m_dzx[None, :] * av + m_ax[None, :] * dz)
              + gg[None, :] * dz)
     gy = (rs[None, :] * (big_g - mean_g[None, :] - xh * mean_gx[None, :])
           - xh * lr_coef[None, :])
-    tl.store(gy_ptr + off, gy, mask=mask)
+    tl.store(gy_ptr + off, gy.to(gy_ptr.dtype.element_ty), mask=mask)
 
 
 @functools.lru_cache(maxsize=None)
@@ -581,6 +617,7 @@ def _jit() -> SimpleNamespace:
     _rne_bf16 = triton.jit(_rne_bf16)
     _bf16_chain = triton.jit(_bf16_chain)
     return SimpleNamespace(
+        rne_bf16=_rne_bf16,
         fwd=triton.jit(_bn_act_pool_fwd_kernel),
         bwd_reduce=triton.jit(_bn_act_pool_bwd_reduce_kernel),
         bwd_dy=triton.jit(_bn_act_pool_bwd_dy_kernel),
@@ -611,12 +648,13 @@ def launch_fwd(y, mean, rstd, gamma, beta, out, arg, slope: float) -> None:
     _jit().fwd[(_cdiv(P, BLOCK_P),)](
         y, mean, rstd, gamma, beta, out, arg, P, N * Ho * Wo, Ho * Wo, Wo,
         H, W, C, slope, BLOCK_P=BLOCK_P, BLOCK_C=BLOCK_C,
-        BF16=_is_bf16(y),
+        BF16=is_bf16(y),
     )
 
 
-def _is_bf16(y) -> bool:
-    return str(y.dtype) == "torch.bfloat16"
+def is_bf16(t) -> bool:
+    """Whether ``t`` is bf16: the ``BF16`` constexpr of a launch."""
+    return str(t.dtype) == "torch.bfloat16"
 
 
 def launch_bwd(dpooled, arg, y, mean, rstd, gamma, beta, part, dy,
@@ -634,7 +672,7 @@ def launch_bwd(dpooled, arg, y, mean, rstd, gamma, beta, part, dy,
         )
     chunk = _cdiv(_cdiv(PT, SPLITS), BLOCK_P) * BLOCK_P
     kern = _jit()
-    bf16 = _is_bf16(y)
+    bf16 = is_bf16(y)
     kern.bwd_reduce[(T, SPLITS)](
         dpooled, arg, y, mean, rstd, gamma, beta, part, PT, Ho * Wo, Wo, H,
         W, C, SPLITS, chunk, slope, BLOCK_P=BLOCK_P, BLOCK_C=BLOCK_C,
@@ -662,7 +700,7 @@ def launch_bwd_bwd(a, ggamma, gbeta, dpooled, arg, y, mean, rstd, gamma,
     NHW = N * H * W
     chunk = _cdiv(_cdiv(NHW, SPLITS), BLOCK_P) * BLOCK_P
     kern = _jit()
-    bf16 = _is_bf16(y)
+    bf16 = is_bf16(y)
     kern.bwd_bwd_reduce[(T, SPLITS)](
         a, dpooled, arg, y, mean, rstd, gamma, beta, part, NHW, H * W, Ho,
         Wo, W, C, SPLITS, chunk, slope, BLOCK_P=BLOCK_P, BLOCK_C=BLOCK_C,
@@ -689,51 +727,53 @@ def _chunk(positions: int) -> int:
 
 
 def launch_act_fwd(y, mean, rstd, gamma, beta, out, slope: float) -> None:
-    """K2's pool-free mode on validated contiguous f32 CUDA tensors (see
-    ``conv_block.bn_act_fwd``)."""
+    """K2's pool-free mode on validated contiguous CUDA tensors, all f32 or
+    all bf16 (see ``conv_block.bn_act_fwd``)."""
     T, N, H, W, C = y.shape
     _check_channels("bn_act_fwd", C)
     P = T * N * H * W
     _jit().act_fwd[(_cdiv(P, BLOCK_P),)](
         y, mean, rstd, gamma, beta, out, P, N * H * W, C, slope,
-        BLOCK_P=BLOCK_P, BLOCK_C=BLOCK_C,
+        BLOCK_P=BLOCK_P, BLOCK_C=BLOCK_C, BF16=is_bf16(y),
     )
 
 
 def launch_act_bwd(da, y, mean, rstd, gamma, beta, part, dy,
                    slope: float) -> None:
-    """K3a then K3b, pool-free, on validated contiguous f32 CUDA tensors;
-    ``part`` is ``(T, SPLITS, 2, C)`` scratch (see
+    """K3a then K3b, pool-free, on validated contiguous CUDA tensors, all f32
+    or all bf16 but the f32 ``part``, ``(T, SPLITS, 2, C)`` scratch (see
     ``conv_block.bn_act_bwd``)."""
     T, N, H, W, C = y.shape
     _check_channels("bn_act_bwd", C)
     NHW = N * H * W
     kern = _jit()
+    bf16 = is_bf16(y)
     kern.act_bwd_reduce[(T, SPLITS)](
         da, y, mean, rstd, gamma, beta, part, NHW, C, SPLITS, _chunk(NHW),
-        slope, BLOCK_P=BLOCK_P, BLOCK_C=BLOCK_C,
+        slope, BLOCK_P=BLOCK_P, BLOCK_C=BLOCK_C, BF16=bf16,
     )
     kern.act_bwd_dy[(_cdiv(NHW, BLOCK_P), T)](
         da, y, mean, rstd, gamma, beta, part, dy, NHW, C, SPLITS, 1.0 / NHW,
-        slope, BLOCK_P=BLOCK_P, BLOCK_C=BLOCK_C,
+        slope, BLOCK_P=BLOCK_P, BLOCK_C=BLOCK_C, BF16=bf16,
     )
 
 
 def launch_act_bwd_bwd(a, ggamma, gbeta, da, y, mean, rstd, gamma, beta,
                        part, g_da, g_y, g_gamma, slope: float) -> None:
-    """K5a then K5b, pool-free, on validated contiguous f32 CUDA tensors;
-    ``part`` is ``(T, SPLITS, 5, C)`` scratch (see
+    """K5a then K5b, pool-free, on validated contiguous CUDA tensors, all f32
+    or all bf16 but the f32 ``part``, ``(T, SPLITS, 5, C)`` scratch (see
     ``conv_block.bn_act_bwd_bwd``)."""
     T, N, H, W, C = y.shape
     _check_channels("bn_act_bwd_bwd", C)
     NHW = N * H * W
     kern = _jit()
+    bf16 = is_bf16(y)
     kern.act_bwd_bwd_reduce[(T, SPLITS)](
         a, da, y, mean, rstd, gamma, beta, part, NHW, C, SPLITS, _chunk(NHW),
-        slope, BLOCK_P=BLOCK_P, BLOCK_C=BLOCK_C,
+        slope, BLOCK_P=BLOCK_P, BLOCK_C=BLOCK_C, BF16=bf16,
     )
     kern.act_bwd_bwd_out[(_cdiv(NHW, BLOCK_P), T)](
         a, ggamma, gbeta, da, y, mean, rstd, gamma, beta, part, g_da, g_y,
         g_gamma, NHW, C, SPLITS, 1.0 / NHW, slope, BLOCK_P=BLOCK_P,
-        BLOCK_C=BLOCK_C,
+        BLOCK_C=BLOCK_C, BF16=bf16,
     )

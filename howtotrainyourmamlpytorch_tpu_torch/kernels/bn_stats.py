@@ -29,6 +29,17 @@ Design. Two launches, no atomics, a fixed order:
 Chan's merge never forms ``E[x^2] - E[x]^2``, which cancels on pixels in
 [0, 1] with a mean near 0.45.
 
+bf16 (``compute_dtype='bfloat16'``): the partials load bf16 and keep
+(count, mean, M2) in f32 as in f32; the merge takes a ``BF16`` constexpr
+(the f32 instantiation is unchanged) and rounds where ``jnp.mean`` /
+``jnp.var`` and ``lax.rsqrt`` of the JAX package's bf16 ``batch_norm``
+(:409-428) do, as K1's ``store_stats`` (``csrc/conv3x3_fwd.cu``): the f32
+mean and variance each rounded once to bf16, and ``rstd`` the f32 rsqrt
+of ``bf16(bf16(var) + bf16(eps))`` (a correctly rounded sqrt and
+division), rounded once. The Chan merge sums in another order than the
+twin's two passes, so mean and var may differ from it by one bf16 ulp at a
+rounding boundary, and rstd with them.
+
 Channels. A tile is ``(BLOCK_P, BLOCK_C)``, ``BLOCK_C`` the power of two at
 or above C (at least 2) and ``BLOCK_P * BLOCK_C = 4096``: at C = 3, 48 and
 64 (mini-ImageNet's image and the two filter counts) 3 of every 4 lanes or
@@ -46,7 +57,10 @@ from __future__ import annotations
 import functools
 from types import SimpleNamespace
 
+from . import bn_act_pool
+
 tl = None  # bound to ``triton.language`` by ``_jit()`` at the first launch
+_rne_bf16 = None  # bound to ``bn_act_pool``'s jitted rounding by ``_jit()``
 
 TILE = 4096          # elements per tile: BLOCK_P x BLOCK_C
 TARGET_PROGRAMS = 512  # partial programs over all tenants, about
@@ -67,7 +81,7 @@ def _stats_partial_kernel(x_ptr, part_ptr, P, C, S, CHUNK,
         q = i + tl.arange(0, BLOCK_P)
         mask = (q < end)[:, None] & cmask[None, :]
         off = (t.to(tl.int64) * P + q)[:, None] * C + c[None, :]
-        v = tl.load(x_ptr + off, mask=mask, other=0.0)
+        v = tl.load(x_ptr + off, mask=mask, other=0.0).to(tl.float32)
         nb = tl.minimum(end - i, BLOCK_P).to(tl.float32)
         mb = tl.sum(v, axis=0) / nb
         d = tl.where(mask, v - mb[None, :], 0.0)
@@ -84,7 +98,7 @@ def _stats_partial_kernel(x_ptr, part_ptr, P, C, S, CHUNK,
 
 
 def _stats_merge_kernel(part_ptr, mean_ptr, var_ptr, rstd_ptr, C, S, eps,
-                        BLOCK_C: "tl.constexpr"):
+                        BLOCK_C: "tl.constexpr", BF16: "tl.constexpr"):
     t = tl.program_id(0)
     c = tl.arange(0, BLOCK_C)
     cmask = c < C
@@ -104,9 +118,19 @@ def _stats_merge_kernel(part_ptr, mean_ptr, var_ptr, rstd_ptr, C, S, eps,
         m2 += m2b + delta * delta * n * w
         n = tot
     var = m2 / tl.maximum(n, 1.0)
-    tl.store(mean_ptr + t * C + c, mean, mask=cmask)
-    tl.store(var_ptr + t * C + c, var, mask=cmask)
-    tl.store(rstd_ptr + t * C + c, 1.0 / tl.sqrt(var + eps), mask=cmask)
+    if BF16:
+        # var rounded to bf16, plus bf16(eps) rounded again, then the f32
+        # rsqrt (a correctly rounded sqrt and division) rounded by the store
+        var = _rne_bf16(var)
+        rstd = tl.math.div_rn(1.0, tl.sqrt_rn(_rne_bf16(var + eps)))
+    else:
+        rstd = 1.0 / tl.sqrt(var + eps)
+    tl.store(mean_ptr + t * C + c, mean.to(mean_ptr.dtype.element_ty),
+             mask=cmask)
+    tl.store(var_ptr + t * C + c, var.to(var_ptr.dtype.element_ty),
+             mask=cmask)
+    tl.store(rstd_ptr + t * C + c, rstd.to(rstd_ptr.dtype.element_ty),
+             mask=cmask)
 
 
 @functools.lru_cache(maxsize=None)
@@ -114,8 +138,10 @@ def _jit() -> SimpleNamespace:
     import triton
     import triton.language
 
-    global tl
+    global tl, _rne_bf16
     tl = triton.language
+    # the merge calls bn_act_pool's jitted rounding by this global name
+    _rne_bf16 = bn_act_pool._jit().rne_bf16
     return SimpleNamespace(
         partial=triton.jit(_stats_partial_kernel),
         merge=triton.jit(_stats_merge_kernel),
@@ -146,8 +172,9 @@ def plan(T: int, P: int, C: int) -> SimpleNamespace:
 
 
 def launch(x, part, mean, var, rstd, eps: float) -> None:
-    """Both launches on a validated contiguous f32 CUDA ``x`` (T, N, H, W,
-    C); ``part`` is ``(T, plan(...).splits, 3, C)`` scratch (see
+    """Both launches on a validated contiguous f32 or bf16 CUDA ``x`` (T,
+    N, H, W, C) into statistics of its dtype; ``part`` is ``(T,
+    plan(...).splits, 3, C)`` f32 scratch (see
     ``conv_block.bn_input_stats``)."""
     T, N, H, W, C = x.shape
     P = N * H * W
@@ -156,4 +183,4 @@ def launch(x, part, mean, var, rstd, eps: float) -> None:
     kern.partial[(T, p.splits)](x, part, P, C, p.splits, p.chunk,
                                 BLOCK_P=p.block_p, BLOCK_C=p.block_c)
     kern.merge[(T,)](part, mean, var, rstd, C, p.splits, eps,
-                     BLOCK_C=p.block_c)
+                     BLOCK_C=p.block_c, BF16=bn_act_pool.is_bf16(x))

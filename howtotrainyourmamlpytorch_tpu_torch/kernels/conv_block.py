@@ -59,18 +59,20 @@ stream, allocates outputs and scratch with ``torch.empty`` and adds one to
 its counter per call that launched. The kernels work in f32 with FFMA
 only.
 
-bf16 (``compute_dtype='bfloat16'``): every kernel of the pooled conv-first
-batch-norm block, served and trained second order — K1 with statistics
-and stats-free, K2, K3 and K5 pooled, K4 dgrad and wgrad, the convs at
-stride 1 and pad 1 or 0 — takes bf16 tensors (``BF16_KERNELS``), counted
-on ``<name>_bf16``; they load bf16, compute in f32 and store bf16 in the
-JAX package's cast points (each kernel's source says where it rounds),
-with f32 scratch. Every other kernel, and these at stride 2, raises
-``NotImplementedError`` naming itself for a bf16 tensor on the card
-(``kernel_dtype``), and a block whose kernels are not all bf16 raises
-before its first launch (``_check_block_input``): no bf16 path falls back
-to f32. The strided, norm-first and layer-norm models therefore raise in
-bf16.
+bf16 (``compute_dtype='bfloat16'``): every kernel of the batch-norm
+models, served and trained second order — K1 with statistics and
+stats-free, K2, K3 and K5 pooled and pool-free, K4 dgrad and wgrad, the
+convs at stride 1 or 2 and pad 1 or 0, the global average pool, the
+norm-first block's ``bn_input_stats`` and ``batch_norm_*``, and the
+act-pool kernels — takes bf16 tensors (``BF16_KERNELS``), counted on
+``<name>_bf16``; they load bf16, compute in f32 and store bf16 in the JAX
+package's cast points (each kernel's source says where it rounds), with
+f32 scratch. The layer norm's four kernels raise ``NotImplementedError``
+naming themselves for a bf16 tensor on the card (``kernel_dtype``), and a
+block whose kernels are not all bf16 raises before its first launch
+(``_check_block_input``): no bf16 path falls back to f32. The conv-first
+and norm-first batch-norm models therefore run in bf16, pooled or
+strided, padded or not; the layer-norm models raise.
 
 All tensors carry the tenant axis: activations ``(T, N, H, W, C)``
 (NHWC), weights ``(T, 3, 3, cin, cout)`` (HWIO), per-channel tensors
@@ -170,13 +172,11 @@ KERNELS = (
     "conv3x3_s2_p0_wgrad",
     "conv3x3_s2_p0_fwd",
 )
-#: the kernels with a bf16 instantiation, counted on ``<name>_bf16``: the
-#: pooled conv-first batch-norm block's, every one its second-order training
-#: runs, the convs at stride 1 and pad 1 or 0
-BF16_KERNELS = ("conv3x3_fwd_stats", "bn_act_pool_fwd", "bn_act_pool_bwd",
-                "conv3x3_dgrad", "conv3x3_wgrad", "conv3x3_fwd",
-                "bn_act_pool_bwd_bwd", "conv3x3_p0_fwd_stats",
-                "conv3x3_p0_dgrad", "conv3x3_p0_wgrad", "conv3x3_p0_fwd")
+#: the kernels with a bf16 instantiation, counted on ``<name>_bf16``: every
+#: kernel of the batch-norm models (conv first and norm first, pooled and
+#: strided, pad 1 and 0) that serving and second-order training run; the
+#: layer norm's are f32 only
+BF16_KERNELS = tuple(k for k in KERNELS if not k.startswith("layer_norm"))
 KERNELS += tuple(f"{name}_bf16" for name in BF16_KERNELS)
 #: the kernels' roles, for the messages of the bf16 guard
 ROLES = {"conv3x3_fwd_stats": "K1", "conv3x3_fwd": "K1 stats-free",
@@ -241,8 +241,9 @@ def kernel_dtype(name: str, x: Tensor) -> torch.dtype:
         role = f" ({ROLES[base]})" if base in ROLES else ""
         raise NotImplementedError(
             f"{name}{role} has no bf16 kernel yet: compute_dtype='bfloat16' "
-            f"runs {', '.join(BF16_KERNELS)} (the pooled conv-first "
-            "batch-norm model, served and trained second order)")
+            "runs the batch-norm models' kernels (conv first and norm "
+            "first, pooled and strided, pad 1 and 0), not the layer "
+            "norm's")
     raise TypeError(f"{name}: the kernels take float32 or bfloat16, got "
                     f"{x.dtype}")
 
@@ -420,13 +421,15 @@ def bn_act_pool_fwd(y: Tensor, mean: Tensor, rstd: Tensor, gamma: Tensor,
 
 
 def _launch_act_fwd(name, y, mean, rstd, gamma, beta, slope) -> Tensor:
-    """K2's pool-free mode on the card, counted on ``name``."""
+    """K2's pool-free mode on the card, counted on ``name`` (on
+    ``<name>_bf16`` in bf16)."""
     _check_bn_args(name, y, dict(mean=mean, rstd=rstd, gamma=gamma,
                                  beta=beta), y.device)
     out = torch.empty_like(y)
     with torch.cuda.device(y.device):
-        bn_act_pool.launch_act_fwd(y, mean, rstd, gamma, beta, out, slope)
-    LAUNCHES[name] += 1
+        bn_act_pool.launch_act_fwd(y, mean, rstd, gamma, beta, out,
+                                   F.scalar_like(slope, y))
+    LAUNCHES[_counter(name, y)] += 1
     return out
 
 
@@ -478,18 +481,20 @@ def bn_act_bwd(da: Tensor, y: Tensor, mean: Tensor, rstd: Tensor,
 
 def _launch_act_bwd(name, da, y, mean, rstd, gamma, beta, slope
                     ) -> Tuple[Tensor, Tensor, Tensor]:
-    """K3's pool-free mode on the card, counted on ``name``."""
+    """K3's pool-free mode on the card, counted on ``name`` (on
+    ``<name>_bf16`` in bf16)."""
     _check_bn_args(name, y, dict(mean=mean, rstd=rstd, gamma=gamma,
                                  beta=beta), y.device)
-    _check(name, "da", da, y.shape, y.device)
+    _check(name, "da", da, y.shape, y.device, y.dtype)
     T, _, _, _, C = y.shape
     part = torch.empty((T, bn_act_pool.SPLITS, 2, C), device=y.device)
     dy = torch.empty_like(y)
     with torch.cuda.device(y.device):
         bn_act_pool.launch_act_bwd(da, y, mean, rstd, gamma, beta, part, dy,
-                                   slope)
-    LAUNCHES[name] += 1
-    sums = part.sum(dim=1)
+                                   F.scalar_like(slope, y))
+    LAUNCHES[_counter(name, y)] += 1
+    # the f32 partial sums, rounded once to y's dtype
+    sums = part.sum(dim=1).to(y.dtype)
     return dy, sums[:, 1], sums[:, 0]
 
 
@@ -539,22 +544,24 @@ def bn_act_bwd_bwd(a: Tensor, ggamma: Tensor, gbeta: Tensor, da: Tensor,
 
 def _launch_act_bwd_bwd(name, a, ggamma, gbeta, da, y, mean, rstd, gamma,
                         beta, slope) -> Tuple[Tensor, Tensor, Tensor]:
-    """K5's pool-free mode on the card, counted on ``name``."""
+    """K5's pool-free mode on the card, counted on ``name`` (on
+    ``<name>_bf16`` in bf16)."""
     _check_bn_args(name, y, dict(mean=mean, rstd=rstd, gamma=gamma,
                                  beta=beta, ggamma=ggamma, gbeta=gbeta),
                    y.device)
-    _check(name, "a", a, y.shape, y.device)
-    _check(name, "da", da, y.shape, y.device)
+    _check(name, "a", a, y.shape, y.device, y.dtype)
+    _check(name, "da", da, y.shape, y.device, y.dtype)
     T, _, _, _, C = y.shape
+    # the outputs in y's dtype, the five partial sums f32
     part = torch.empty((T, bn_act_pool.SPLITS, 5, C), device=y.device)
     g_da = torch.empty_like(y)
     g_y = torch.empty_like(y)
-    g_gamma = torch.empty((T, C), device=y.device)
+    g_gamma = torch.empty((T, C), device=y.device, dtype=y.dtype)
     with torch.cuda.device(y.device):
         bn_act_pool.launch_act_bwd_bwd(a, ggamma, gbeta, da, y, mean, rstd,
                                        gamma, beta, part, g_da, g_y, g_gamma,
-                                       slope)
-    LAUNCHES[name] += 1
+                                       F.scalar_like(slope, y))
+    LAUNCHES[_counter(name, y)] += 1
     return g_da, g_y, g_gamma
 
 
@@ -571,11 +578,11 @@ def bn_input_stats(x: Tensor, eps: float = F.BN_EPS
     T, N, H, W, C = _check_act(name, x)
     plan = bn_stats.plan(T, N * H * W, C)
     part = torch.empty((T, plan.splits, 3, C), device=x.device)
-    mean, var, rstd = (torch.empty((T, C), device=x.device)
+    mean, var, rstd = (torch.empty((T, C), device=x.device, dtype=x.dtype)
                        for _ in range(3))
     with torch.cuda.device(x.device):
-        bn_stats.launch(x, part, mean, var, rstd, eps)
-    LAUNCHES[name] += 1
+        bn_stats.launch(x, part, mean, var, rstd, F.scalar_like(eps, x))
+    LAUNCHES[_counter(name, x)] += 1
     return mean, var, rstd
 
 
@@ -623,12 +630,14 @@ def act_pool_fwd(y: Tensor, negative_slope: float = F.LEAKY_SLOPE
         return F.act_pool_fwd(y, negative_slope)
     name = "act_pool_fwd"
     T, N, H, W, C = _check_act(name, y)
-    out = torch.empty((T, N, H // 2, W // 2, C), device=y.device)
+    out = torch.empty((T, N, H // 2, W // 2, C), device=y.device,
+                      dtype=y.dtype)
     arg = torch.empty((T, N, H // 2, W // 2, C), device=y.device,
                       dtype=torch.uint8)
     with torch.cuda.device(y.device):
-        act_pool.launch_pool_fwd(y, out, arg, negative_slope)
-    LAUNCHES[name] += 1
+        act_pool.launch_pool_fwd(y, out, arg,
+                                 F.scalar_like(negative_slope, y))
+    LAUNCHES[_counter(name, y)] += 1
     return out, arg
 
 
@@ -643,8 +652,9 @@ def act_pool_bwd(dpooled: Tensor, argmax: Tensor, y: Tensor,
     _check_pooled(name, dpooled, argmax, y)
     dy = torch.empty_like(y)
     with torch.cuda.device(y.device):
-        act_pool.launch_pool_bwd(dpooled, argmax, y, dy, negative_slope)
-    LAUNCHES[name] += 1
+        act_pool.launch_pool_bwd(dpooled, argmax, y, dy,
+                                 F.scalar_like(negative_slope, y))
+    LAUNCHES[_counter(name, y)] += 1
     return dy
 
 
@@ -656,13 +666,15 @@ def act_pool_gather(g_dy: Tensor, argmax: Tensor, y: Tensor,
         return F.act_pool_gather(g_dy, argmax, y, negative_slope)
     name = "act_pool_gather"
     _check_act(name, y)
-    _check(name, "g_dy", g_dy, y.shape, y.device)
+    _check(name, "g_dy", g_dy, y.shape, y.device, y.dtype)
     T, N, H, W, C = y.shape
-    out = torch.empty((T, N, H // 2, W // 2, C), device=y.device)
+    out = torch.empty((T, N, H // 2, W // 2, C), device=y.device,
+                      dtype=y.dtype)
     _check_pooled(name, out, argmax, y)
     with torch.cuda.device(y.device):
-        act_pool.launch_pool_gather(g_dy, argmax, y, out, negative_slope)
-    LAUNCHES[name] += 1
+        act_pool.launch_pool_gather(g_dy, argmax, y, out,
+                                    F.scalar_like(negative_slope, y))
+    LAUNCHES[_counter(name, y)] += 1
     return out
 
 
@@ -674,8 +686,8 @@ def act_fwd(y: Tensor, negative_slope: float = F.LEAKY_SLOPE) -> Tensor:
     _check_act(name, y)
     out = torch.empty_like(y)
     with torch.cuda.device(y.device):
-        act_pool.launch_fwd(y, out, negative_slope)
-    LAUNCHES[name] += 1
+        act_pool.launch_fwd(y, out, F.scalar_like(negative_slope, y))
+    LAUNCHES[_counter(name, y)] += 1
     return out
 
 
@@ -686,11 +698,11 @@ def act_bwd(da: Tensor, y: Tensor, negative_slope: float = F.LEAKY_SLOPE
         return F.act_bwd(da, y, negative_slope)
     name = "act_bwd"
     _check_act(name, y)
-    _check(name, "da", da, y.shape, y.device)
+    _check(name, "da", da, y.shape, y.device, y.dtype)
     dy = torch.empty_like(y)
     with torch.cuda.device(y.device):
-        act_pool.launch_bwd(da, y, dy, negative_slope)
-    LAUNCHES[name] += 1
+        act_pool.launch_bwd(da, y, dy, F.scalar_like(negative_slope, y))
+    LAUNCHES[_counter(name, y)] += 1
     return dy
 
 
@@ -881,10 +893,10 @@ def global_avg_pool2d_fwd(x: Tensor) -> Tensor:
         return F.global_avg_pool2d(x)
     name = "global_avg_pool2d_fwd"
     T, N, _, _, C = _check_act(name, x)
-    out = torch.empty((T, N, C), device=x.device)
+    out = torch.empty((T, N, C), device=x.device, dtype=x.dtype)
     with torch.cuda.device(x.device):
         global_avg_pool.launch_fwd(x, out)
-    LAUNCHES[name] += 1
+    LAUNCHES[_counter(name, x)] += 1
     return out
 
 
@@ -900,10 +912,10 @@ def global_avg_pool2d_bwd(dpool: Tensor, h: int, w: int) -> Tensor:
     _check(name, "dpool", dpool, dpool.shape, dpool.device,
            kernel_dtype(name, dpool))
     T, N, C = dpool.shape
-    dx = torch.empty((T, N, h, w, C), device=dpool.device)
+    dx = torch.empty((T, N, h, w, C), device=dpool.device, dtype=dpool.dtype)
     with torch.cuda.device(dpool.device):
         global_avg_pool.launch_bwd(dpool, dx)
-    LAUNCHES[name] += 1
+    LAUNCHES[_counter(name, dpool)] += 1
     return dx
 
 

@@ -61,8 +61,8 @@
 // stats-free mode in bf16 (conv3x3_fwd_bf16, second-order training) is the
 // same epilogue without the statistics: the f32 sum rounded once, and with
 // a bias (Wgrad's backward: conv3x3(x, ddw) + ddb) the bias add rounded
-// again, as the plain twin's conv then bias add round. Pad 1 and pad 0,
-// as in f32.
+// again, as the plain twin's conv then bias add round. Stride 1 and 2,
+// pad 1 and 0, as in f32.
 
 #include <cuda_runtime.h>
 

@@ -313,7 +313,7 @@ def launch_stats(x, part, mean, var, rstd, eps: float) -> None:
     kern.stats_partial[(p.splits, T * N)](x, part, M, N, p.splits, p.chunk,
                                           BLOCK=p.block)
     bn_stats._jit().merge[(T,)](part, mean, var, rstd, N, p.splits, eps,
-                                BLOCK_C=bn_stats.tile(N)[1])
+                                BLOCK_C=bn_stats.tile(N)[1], BF16=False)
 
 
 def launch_fwd(x, mean, rstd, gamma, beta, z) -> None:

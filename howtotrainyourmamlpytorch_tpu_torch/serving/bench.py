@@ -21,9 +21,10 @@ batch norm, in either block order), and ``--conv_padding true|false``
 (``false``: the unpadded model, every 3x3 conv a valid window), and
 ``--compute_dtype float32|bfloat16`` (``bfloat16``: activations, the conv
 and the head in bf16 with f32 accumulation, the JAX package's bf16 cast
-points; on the card the pooled conv-first batch-norm model at pad 1 or
-0, whose kernels have bf16 versions — any other model raises
-``NotImplementedError`` naming the kernels that do not).
+points; on the card the batch-norm models, conv first or norm first,
+pooled or strided, at pad 1 or 0, whose kernels have bf16 versions — a
+layer-norm model raises ``NotImplementedError`` naming the kernels that
+do not).
 
 Prints ONE JSON line: adapt latency p50/p95, ``tenants_per_sec``,
 dispatches, tenants, the ``ingest`` and ``h2d_bytes_per_dispatch`` (the
@@ -55,6 +56,9 @@ ported yet.
     python -m howtotrainyourmamlpytorch_tpu_torch.cli serve-bench \\
         --config experiment_config/mini-imagenet_maml++-mini-imagenet_5_5_2_0.01_48_0.json \\
         --compute_dtype bfloat16 --requests 16 --ingest index
+    python -m howtotrainyourmamlpytorch_tpu_torch.cli serve-bench \\
+        --config "experiment_config/omniglot_maml++-omniglot_1_20_8_0.1_64_0.json" \\
+        --max_pooling false --compute_dtype bfloat16 --requests 16
 """
 
 from __future__ import annotations

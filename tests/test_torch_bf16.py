@@ -330,42 +330,51 @@ def test_bf16_reductions_follow_each_form():
 
 def test_bf16_guards_name_the_missing_kernel():
     """On the card a bf16 tensor reaches only the kernels with a bf16
-    version (the pooled conv-first batch-norm block's: K1 with statistics
-    and stats-free, K2, K3 and K5 pooled, K4 dgrad and wgrad, the convs at
-    stride 1 and pad 1 or 0); every other kernel raises
-    NotImplementedError naming itself and its role, and so does a block
-    whose kernels are not all bf16."""
+    version (every kernel of the batch-norm models: conv first and norm
+    first, pooled and strided, the convs at stride 1 and 2 and pad 1 and
+    0, the pool-free K2/K3/K5, the global average pool, ``bn_input_stats``,
+    ``batch_norm_*`` and the act-pool kernels); the layer norm's kernels
+    raise NotImplementedError naming themselves and their role, and so
+    does a block whose kernels are not all bf16."""
     x = torch.zeros(1, 2, 6, 6, 3, dtype=BF16)
     for name in cb.BF16_KERNELS:
         assert cb.kernel_dtype(name, x) == BF16
         assert cb.kernel_dtype(name, x.float()) == torch.float32
-    for name, role in (("conv3x3_s2_fwd", "K1 stats-free"),
-                       ("bn_act_bwd_bwd", "K5 pool-free"),
-                       ("conv3x3_s2_p0_wgrad", "K4 wgrad"),
-                       ("global_avg_pool2d_fwd", "B5a GAP")):
-        with pytest.raises(NotImplementedError,
-                           match=f"{name} \\({role}\\) has no bf16 kernel"):
-            cb.kernel_dtype(name, x)
+    for name in ("conv3x3_s2_fwd", "bn_act_bwd_bwd", "conv3x3_s2_p0_wgrad",
+                 "global_avg_pool2d_fwd", "bn_input_stats", "batch_norm_bwd",
+                 "act_pool_gather", "act_fwd"):
+        assert name in cb.BF16_KERNELS
     others = [k for k in cb.KERNELS if not k.endswith("_bf16")
               and k not in cb.BF16_KERNELS]
-    assert others
+    assert others == ["layer_norm_stats", "layer_norm_fwd", "layer_norm_bwd",
+                      "layer_norm_bwd_bwd"]
     for name in others:
-        with pytest.raises(NotImplementedError, match=f"^{name}"):
+        with pytest.raises(NotImplementedError,
+                           match=f"^{name} \\(B5c\\) has no bf16 kernel"):
             cb.kernel_dtype(name, x)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         cb.kernel_dtype("conv3x3_fwd_stats", x.double())
     kernels = ("conv3x3_fwd_stats", "bn_act_pool_fwd", "bn_act_pool_bwd",
                "conv3x3_dgrad", "conv3x3_wgrad", "conv3x3_fwd",
                "bn_act_pool_bwd_bwd")
+    pool_free = ("conv3x3_fwd_stats", "bn_act_fwd", "bn_act_bwd",
+                 "conv3x3_dgrad", "conv3x3_wgrad", "conv3x3_fwd",
+                 "bn_act_bwd_bwd")
+    norm_first = ("bn_input_stats", "batch_norm_fwd", "batch_norm_bwd",
+                  "conv3x3_fwd", "act_pool_fwd", "act_pool_bwd",
+                  "conv3x3_dgrad", "conv3x3_wgrad", "batch_norm_bwd_bwd",
+                  "act_pool_gather", "act_fwd", "act_bwd")
     for padding in (1, 0):
         cb._check_block_input("conv_bn_act_pool", x, kernels, 1, padding,
                               False)
-    for stride, padding, gap, missing in (
-            (2, 1, True, "conv3x3_s2_fwd_stats"),
-            (2, 0, True, "conv3x3_s2_p0_fwd_stats")):
-        with pytest.raises(NotImplementedError, match=missing):
-            cb._check_block_input("conv_bn_act_pool", x, kernels, stride,
-                                  padding, gap)
+        cb._check_block_input("conv_bn_act_pool", x, pool_free, 2, padding,
+                              True)
+        cb._check_block_input("norm_conv_act_pool", x, norm_first, 2,
+                              padding, True)
+    for pool in (True, False):
+        with pytest.raises(NotImplementedError, match="layer_norm_stats"):
+            cb._check_block_input("conv_ln_act_pool", x,
+                                  cb._LN_BLOCK_KERNELS[pool], 1, 1, False)
 
 
 @pytest.mark.parametrize("entry", ["serve", "train"])

@@ -78,7 +78,15 @@ from howtotrainyourmamlpytorch_tpu_torch.kernels import conv_block as cb
 from howtotrainyourmamlpytorch_tpu_torch.ops import functional as F
 from howtotrainyourmamlpytorch_tpu_torch.serving import bench as serve_bench
 from test_torch_bf16 import BOUND, _from_jax, xla_cpu_sums  # noqa: F401
-from test_torch_train import TWINS, WEIGHTS, _batch, _cfgs, _jax, _torch
+from test_torch_train import (
+    FUNCTION_BLOCKS,
+    TWINS,
+    WEIGHTS,
+    _batch,
+    _cfgs,
+    _jax,
+    _torch,
+)
 
 torch.set_num_threads(2)
 
@@ -428,8 +436,9 @@ def _chip_smoke():
 
 def _count_bf16_function_path(monkeypatch, cfg, serve=False):
     """Every kernel call of one second-order train step (with ``serve``,
-    one serve dispatch) on the bf16 Function path, counted at the twins
-    the wrappers take on the CPU, on ``<name>_bf16`` for a bf16 call."""
+    one serve dispatch) on the bf16 Function path of the config's block
+    order, counted at the twins the wrappers take on the CPU (a twin that
+    calls another counts once), on ``<name>_bf16`` for a bf16 call."""
     calls = collections.Counter()
     depth = [0]
     for twin, kernel in TWINS.items():
@@ -450,11 +459,12 @@ def _count_bf16_function_path(monkeypatch, cfg, serve=False):
     state = state_lib.init_state(cfg, device="cpu", with_opt=True)
     batch = bench.synth_batch(cfg, 0, torch.device("cpu"))
     steps = cfg.number_of_training_steps_per_iter
+    block = FUNCTION_BLOCKS[(cfg.block_order, cfg.norm_layer)]
     if serve:
-        maml.make_serve_step(cfg, block=cb.function_block)(
+        maml.make_serve_step(cfg, block=block)(
             state, *batch, torch.ones(cfg.batch_size))
     else:
-        maml.make_train_step(cfg, True, block=cb.function_block)(
+        maml.make_train_step(cfg, True, block=block)(
             state, *batch, np.ones(steps, np.float32) / steps, 1e-3)
     return {k: calls[k] for k in cb.KERNELS}
 

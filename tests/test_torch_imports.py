@@ -150,18 +150,20 @@ def test_wrappers_never_take_the_plain_path_off_the_cpu():
         with pytest.raises(ValueError, match="CUDA"):
             call()
     assert conv_block.launches() == {k: 0 for k in conv_block.KERNELS}
-    # bf16 has kernels for the conv-first batch-norm block at stride 1 and
-    # pad 1: past the dtype guard, the device check refuses the meta tensor
-    with pytest.raises(ValueError, match="CUDA"):
-        conv_block.conv_bn_act_pool(
-            _meta(1, 2, 6, 6, 3, dtype=torch.bfloat16), w, b, v, v)
-    with pytest.raises(NotImplementedError, match="f32 only"):
-        conv_block.conv_bn_act_pool(
-            _meta(1, 2, 6, 6, 3, dtype=torch.bfloat16), w, b, v, v,
-            stride=2, pool=False)
-    with pytest.raises(NotImplementedError, match="f32 only"):
-        conv_block.norm_conv_act_pool(
-            _meta(1, 2, 6, 6, 3, dtype=torch.bfloat16), w, b, v, v)
+    # bf16 has kernels for the batch-norm blocks, conv first and norm
+    # first, pooled and strided: past the dtype guard, the device check
+    # refuses the meta tensor; the layer-norm blocks have none
+    v3 = _meta(3)  # the norm-first block's gamma and beta: the input's
+    for block, norm, kw in (
+            (conv_block.conv_bn_act_pool, v, {}),
+            (conv_block.conv_bn_act_pool, v,
+             dict(stride=2, pool=False, gap=True)),
+            (conv_block.norm_conv_act_pool, v3, {}),
+            (conv_block.norm_conv_act_pool, v3,
+             dict(stride=2, pool=False, gap=True))):
+        with pytest.raises(ValueError, match="CUDA"):
+            block(_meta(1, 2, 6, 6, 3, dtype=torch.bfloat16), w, b, norm,
+                  norm, **kw)
     for block in (conv_block.conv_ln_act_pool, conv_block.ln_conv_act_pool):
         with pytest.raises(NotImplementedError, match="f32 only"):
             block(_meta(1, 2, 6, 6, 3, dtype=torch.bfloat16), w, b, p, p)

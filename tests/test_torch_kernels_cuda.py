@@ -834,28 +834,26 @@ def test_bf16_pad0_convs_match_their_twins(shape, device):
 
 def test_bf16_stops_where_no_bf16_kernel_is(device):
     """On the card a bf16 tensor reaches a kernel with a bf16 version or
-    raises NotImplementedError naming the kernel: the stride-2 convs (at
-    pad 1 and 0), the pool-free K2 and K5, the norm-first and layer-norm
-    kernels; nothing falls back to f32."""
-    x, w, b, gamma, beta = bf16_inputs((1, 2, 6, 6, 3, 4), device)
+    raises NotImplementedError naming the kernel: the layer norm's four
+    kernels, and a layer-norm block before its first launch; nothing falls
+    back to f32."""
+    x, w, b, _, _ = bf16_inputs((1, 2, 6, 6, 3, 4), device)
     y = torch.zeros(1, 2, 6, 6, 4, device=device).bfloat16()
-    v = torch.ones(1, 4, device=device).bfloat16()
+    s = torch.ones(1, 2, device=device)
+    p = torch.ones(1, 6, 6, 4, device=device)
     cb.reset_launches()
     for match, call in (
-            ("conv3x3_s2_fwd .K1 stats-free", lambda: cb.conv3x3_fwd(
-                x, w, b, stride=2)),
-            ("conv3x3_s2_fwd_stats", lambda: cb.conv3x3_fwd_stats(
-                x, w, b, stride=2)),
-            ("conv3x3_s2_p0_dgrad", lambda: cb.conv3x3_dgrad(
-                y[:, :, :2, :2], w, 2, (6, 6), 0)),
-            ("bn_act_fwd", lambda: cb.bn_act_fwd(y, v, v, v, v)),
-            ("bn_act_bwd_bwd .K5 pool-free", lambda: cb.bn_act_bwd_bwd(
-                y, v, v, y, y, v, v, v, v)),
-            ("bn_input_stats", lambda: cb.bn_input_stats(y)),
-            ("act_pool_fwd", lambda: cb.act_pool_fwd(y)),
-            ("layer_norm_stats", lambda: cb.layer_norm_stats(y)),
-            ("f32 only", lambda: cb.norm_conv_act_pool(x, w, b, v[0, :3],
-                                                      v[0, :3]))):
+            ("layer_norm_stats .B5c.", lambda: cb.layer_norm_stats(y)),
+            ("layer_norm_fwd .B5c.", lambda: cb.layer_norm_fwd(
+                y, s, s, p, p)),
+            ("layer_norm_bwd .B5c.", lambda: cb.layer_norm_bwd(
+                y, y, s, s, p)),
+            ("layer_norm_bwd_bwd .B5c.", lambda: cb.layer_norm_bwd_bwd(
+                y, p, p, y, y, s, s, p)),
+            ("f32 only.*layer_norm_stats", lambda: cb.conv_ln_act_pool(
+                x, w, b, p[0], p[0])),
+            ("f32 only.*layer_norm_stats", lambda: cb.ln_conv_act_pool(
+                x, w, b, p[0, :, :, :3], p[0, :, :, :3]))):
         with pytest.raises(NotImplementedError, match=match):
             call()
     assert set(cb.launches().values()) == {0}
@@ -916,5 +914,179 @@ def test_bf16_block_second_order_runs_on_the_bf16_kernels(padding, device):
     tag = "" if padding else "_p0"
     assert {f"conv3x3{tag}_fwd_bf16", "bn_act_pool_bwd_bwd_bf16"} <= launched
     assert all(k.endswith("_bf16") for k in launched), launched
+    spread = (results["twins bf16"] - results["twins f32"]).abs().max()
+    assert (got - results["twins bf16"]).abs().max() <= 2 * spread
+
+
+# The strided and the norm-first models' kernels in bf16, against their bf16
+# twins:
+# * the stride-2 convs (pad 1 and 0; dgrad at cin 1 too), the pool-free K3
+#   and K5, ``bn_input_stats`` and ``batch_norm_bwd/bwd_bwd``: within one
+#   bf16 ulp elementwise, or 1e-4 of the output's scale (f32 sums rounded
+#   once, in another order than the twin's);
+# * the pool-free K2, ``batch_norm_fwd``, the GAP forward and backward and
+#   the act-pool kernels: bit for bit (the same rounded chain, or one
+#   rounding of an exact f32 value; the GAP's f32 sums of a few bf16 values
+#   are exact).
+
+BF16_STRIDED_SHAPES = [
+    # T, N, H, W, cin, cout: the image layer (cin 1, 28 -> 14), odd maps
+    # (7 -> 4 with pad 1, 9 -> 4 with pad 0), Omniglot's last layer (4 -> 2)
+    (2, 4, 28, 28, 1, 64),
+    (2, 3, 7, 7, 64, 64),
+    (3, 2, 4, 4, 64, 64),
+    (2, 3, 9, 9, 48, 48),
+]
+
+
+@pytest.mark.parametrize("padding", [1, 0])
+@pytest.mark.parametrize("shape", BF16_STRIDED_SHAPES, ids=str)
+def test_bf16_strided_kernels_match_their_twins(shape, padding, device):
+    """The strided model's kernels in bf16: K1 at stride 2 (both modes),
+    dgrad (at cin 1 too) and wgrad at stride 2, the pool-free K2 (bit for
+    bit), K3 on a random da and K5 on random cotangents, and the GAP's
+    forward and backward (bit for bit), each on its ``*_bf16`` counter."""
+    x, w, b, gamma, beta = bf16_inputs(shape, device)
+    if padding == 0 and min(x.shape[2:4]) < 3:
+        pytest.skip("no pad-0 output")
+    H, W = shape[2:4]
+    cb.reset_launches()
+    got = cb.conv3x3_fwd_stats(x, w, b, stride=2, padding=padding)
+    want = F.conv3x3_fwd_stats(x, w, b, stride=2, padding=padding)
+    plain = F.conv3x3(x, w, stride=2, padding=padding)
+    within_ulp(got[0], want[0], "K1 s2 y", bf16_ulp(want[0])
+               + bf16_ulp(plain))
+    for a, c, what in zip(got[1:], want[1:], ("mean", "var", "rstd")):
+        within_ulp(a, c, f"K1 s2 {what}")
+    within_ulp(cb.conv3x3_fwd(x, w, None, 2, padding), plain, "K1 s2 free")
+    y, mean, _, rstd = want
+    bn = (y, mean, rstd, gamma, beta)
+    act = cb.bn_act_fwd(*bn)
+    assert torch.equal(act, F.bn_act_fwd(*bn))
+    gen = torch.Generator(device=device).manual_seed(3)
+
+    def r(*s):
+        return torch.randn(*s, device=device, generator=gen).bfloat16()
+
+    T, C = gamma.shape
+    da = r(*y.shape)
+    for a, c, what in zip(cb.bn_act_bwd(da, *bn), F.bn_act_bwd(da, *bn),
+                          ("dy", "dgamma", "dbeta")):
+        within_ulp(a, c, f"K3 pool-free {what}")
+    args = (r(*y.shape), r(T, C), r(T, C), da, *bn)
+    for a, c, what in zip(cb.bn_act_bwd_bwd(*args), F.bn_act_bwd_bwd(*args),
+                          ("g_da", "g_y", "g_gamma")):
+        within_ulp(a, c, f"K5 pool-free {what}")
+    dy = r(*y.shape)
+    within_ulp(cb.conv3x3_dgrad(dy, w, 2, (H, W), padding),
+               F.conv3x3_dgrad(dy, w, 2, (H, W), padding), "dgrad s2")
+    for a, c, what in zip(cb.conv3x3_wgrad(x, dy, 2, padding),
+                          F.conv3x3_wgrad(x, dy, 2, padding), ("dw", "db")):
+        within_ulp(a, c, f"wgrad s2 {what}")
+    assert torch.equal(cb.global_avg_pool2d_fwd(act),
+                       F.global_avg_pool2d(act))
+    g = r(T, act.shape[1], C)
+    assert torch.equal(cb.global_avg_pool2d_bwd(g, *act.shape[2:4]),
+                       F.global_avg_pool2d_bwd(g, *act.shape[2:4]))
+    tag = "_s2" if padding else "_s2_p0"
+    launched = {f"conv3x3{tag}_{k}_bf16": 1 for k in (
+        "fwd_stats", "fwd", "dgrad", "wgrad")}
+    launched.update({f"{k}_bf16": 1 for k in (
+        "bn_act_fwd", "bn_act_bwd", "bn_act_bwd_bwd",
+        "global_avg_pool2d_fwd", "global_avg_pool2d_bwd")})
+    assert {k: n for k, n in cb.launches().items() if n} == launched
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("shape", NORM_FIRST_SHAPES, ids=str)
+def test_bf16_norm_first_kernels_match_their_twins(shape, device):
+    """The norm-first block's kernels in bf16: ``bn_input_stats`` on pixels
+    in [0, 1], ``batch_norm_fwd`` (bit for bit), ``batch_norm_bwd`` and
+    ``batch_norm_bwd_bwd`` on random cotangents, and the leaky-ReLU + pool
+    kernels and their pool-free mode (bit for bit) on an input full of
+    exact ties, each on its ``*_bf16`` counter."""
+    T, N, H, W, C = shape
+    g = torch.Generator().manual_seed(sum(shape))
+
+    def r(*s, scale=1.0):
+        return (torch.randn(*s, generator=g) * scale).to(device).bfloat16()
+
+    x = torch.rand(T, N, H, W, C, generator=g).to(device).bfloat16()
+    gamma, beta = (1 + r(T, C, scale=0.1)).bfloat16(), r(T, C, scale=0.1)
+    cb.reset_launches()
+    for a, c, what in zip(cb.bn_input_stats(x), F.bn_input_stats(x),
+                          ("mean", "var", "rstd")):
+        within_ulp(a, c, f"bn_input_stats {what}")
+    mean, _, rstd = F.bn_input_stats(x)
+    bn = (x, mean, rstd, gamma, beta)
+    assert torch.equal(cb.batch_norm_fwd(*bn), F.batch_norm_fwd(*bn))
+    dz = r(T, N, H, W, C)
+    for a, c, what in zip(cb.batch_norm_bwd(dz, *bn),
+                          F.batch_norm_bwd(dz, *bn), ("dx", "dgamma",
+                                                      "dbeta")):
+        within_ulp(a, c, f"batch_norm_bwd {what}")
+    args = (r(T, N, H, W, C), r(T, C), r(T, C), dz, *bn)
+    for a, c, what in zip(cb.batch_norm_bwd_bwd(*args),
+                          F.batch_norm_bwd_bwd(*args),
+                          ("g_dz", "g_x", "g_gamma")):
+        within_ulp(a, c, f"batch_norm_bwd_bwd {what}")
+    y = (torch.randint(-4, 5, (T, N, H, W, C), generator=g)
+         * 0.25).to(device).bfloat16()
+    pooled, arg = cb.act_pool_fwd(y)
+    pooled_p, arg_p = F.act_pool_fwd(y)
+    assert torch.equal(pooled, pooled_p) and torch.equal(arg, arg_p)
+    dp = r(*pooled.shape)
+    assert torch.equal(cb.act_pool_bwd(dp, arg, y),
+                       F.act_pool_bwd(dp, arg, y))
+    g_dy = r(T, N, H, W, C)
+    assert torch.equal(cb.act_pool_gather(g_dy, arg, y),
+                       F.act_pool_gather(g_dy, arg, y))
+    assert torch.equal(cb.act_fwd(y), F.act_fwd(y))
+    assert torch.equal(cb.act_bwd(g_dy, y), F.act_bwd(g_dy, y))
+    assert {k: n for k, n in cb.launches().items() if n} == {
+        f"{k}_bf16": 1 for k in (
+            "bn_input_stats", "batch_norm_fwd", "batch_norm_bwd",
+            "batch_norm_bwd_bwd", "act_pool_fwd", "act_pool_bwd",
+            "act_pool_gather", "act_fwd", "act_bwd")}
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("block,kw", [
+    ("conv_bn_act_pool", dict(stride=2, pool=False, gap=True)),
+    ("conv_bn_act_pool", dict(stride=2, pool=False, gap=True, padding=0)),
+    ("norm_conv_act_pool", {}),
+    ("norm_conv_act_pool", dict(stride=2, pool=False, gap=True))],
+    ids=["strided", "strided_pad0", "norm_first", "strided_norm_first"])
+def test_bf16_model_blocks_second_order_run_on_the_bf16_kernels(block, kw,
+                                                               device):
+    """The strided and the norm-first blocks' second derivative in bf16
+    (the gradient of ``<v, d loss / d w>``) launches bf16 kernels only;
+    the f32 leaf's gradient comes back f32 and finite, within 2x the
+    bf16-vs-f32 spread of the same block on the twins (the CPU, bf16 and
+    f32) from the twins' bf16 result."""
+    cin = 8 if block == "norm_conv_act_pool" else 3
+    x, w, b, _, _ = bf16_inputs((2, 3, 12, 12, cin, 8), device)
+    c = cin if block == "norm_conv_act_pool" else 8
+    gamma, beta = torch.ones(c), torch.zeros(c)
+    v = torch.randn(w.shape, generator=torch.Generator().manual_seed(2))
+    fn = {"conv_bn_act_pool": cb.function_block,
+          "norm_conv_act_pool": cb.norm_function_block}[block]
+    results = {}
+    for name, dev, dtype in (("kernels", device, torch.bfloat16),
+                             ("twins bf16", "cpu", torch.bfloat16),
+                             ("twins f32", "cpu", torch.float32)):
+        w32 = w.float().to(dev).requires_grad_(True)
+        cb.reset_launches()
+        out, _, _ = fn(x.to(dev, dtype), w32.to(dtype), b.to(dev, dtype),
+                       gamma.to(dev), beta.to(dev), **kw)
+        gw, = torch.autograd.grad(out.float().square().sum(), [w32],
+                                  create_graph=True)
+        results[name] = torch.autograd.grad((gw * v.to(dev)).sum(),
+                                            [w32])[0].cpu()
+        if name == "kernels":
+            launched = {k for k, n in cb.launches().items() if n}
+    got = results["kernels"]
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    assert launched and all(k.endswith("_bf16") for k in launched), launched
     spread = (results["twins bf16"] - results["twins f32"]).abs().max()
     assert (got - results["twins bf16"]).abs().max() <= 2 * spread
