@@ -31,13 +31,12 @@ batch_norm|layer_norm`` (``layer_norm``: a layer norm over each image's
 (H, W, C), gamma frozen at 1 and beta meta-trained, no running
 statistics), and ``--conv_padding true|false`` (``false``: the unpadded
 model, every 3x3 conv a valid window, 84 -> 82 at stage 0), and
-``--compute_dtype float32|bfloat16``. In bf16 the card trains the
-batch-norm models second order — conv first or norm first
-(``--block_order norm_conv_relu``), pooled or strided (``--max_pooling
-false``), padded or not (``--conv_padding false``) — on the ``*_bf16``
-kernels, with f32 master parameters and Adam moments; the layer-norm
-models have no bf16 kernels yet and raise ``NotImplementedError`` naming
-them before any launch.
+``--compute_dtype float32|bfloat16``. In bf16 the card trains every
+model second order — batch norm or layer norm (``--norm_layer
+layer_norm``), conv first or norm first (``--block_order
+norm_conv_relu``), pooled or strided (``--max_pooling false``), padded or
+not (``--conv_padding false``) — on the ``*_bf16`` kernels, with f32
+master parameters and Adam moments.
 
 The config's ``use_mmap_cache`` and ``data_placement`` are set to match
 (the port's config requires the first for any tier but host). A tier's

@@ -13,6 +13,16 @@ live in the JAX package; only what differs in the port is noted here:
   ``matmul_precision`` are XLA lowering hints. They are validated and
   otherwise ignored: the port always multiplies f32 in true f32
   (``device.py``).
+* ``use_remat``, ``remat_policy`` and ``task_axis_mode`` are validated
+  and otherwise ignored too: none changes the numbers in the JAX package.
+  ``use_remat`` (with ``remat_policy``) wraps the inner step in
+  ``jax.checkpoint`` there, which only bounds memory; the port keeps every
+  activation, and the card has room (the f32 conv-first mini-ImageNet
+  step at batch 8 peaks at 12.36 GB of an H100's 80 GB). ``task_axis_mode``
+  picks ``vmap`` or ``lax.map`` over the tasks, numerically equivalent;
+  the port always carries the task axis as the tenant axis of its
+  kernels. ``tests/test_torch_config_fields.py`` holds the port's
+  meta-gradients to the JAX package's under each setting.
 * Nothing here imports jax; the fault-spec grammar check of the JAX
   package (its ``resilience`` module) is not repeated.
 """

@@ -59,20 +59,19 @@ stream, allocates outputs and scratch with ``torch.empty`` and adds one to
 its counter per call that launched. The kernels work in f32 with FFMA
 only.
 
-bf16 (``compute_dtype='bfloat16'``): every kernel of the batch-norm
-models, served and trained second order — K1 with statistics and
-stats-free, K2, K3 and K5 pooled and pool-free, K4 dgrad and wgrad, the
-convs at stride 1 or 2 and pad 1 or 0, the global average pool, the
-norm-first block's ``bn_input_stats`` and ``batch_norm_*``, and the
-act-pool kernels — takes bf16 tensors (``BF16_KERNELS``), counted on
+bf16 (``compute_dtype='bfloat16'``): every kernel of every model, served
+and trained second order — K1 with statistics and stats-free, K2, K3 and
+K5 pooled and pool-free, K4 dgrad and wgrad, the convs at stride 1 or 2
+and pad 1 or 0, the global average pool, the norm-first block's
+``bn_input_stats`` and ``batch_norm_*``, the act-pool kernels and the
+layer norm's four — takes bf16 tensors (``BF16_KERNELS``), counted on
 ``<name>_bf16``; they load bf16, compute in f32 and store bf16 in the JAX
 package's cast points (each kernel's source says where it rounds), with
-f32 scratch. The layer norm's four kernels raise ``NotImplementedError``
-naming themselves for a bf16 tensor on the card (``kernel_dtype``), and a
-block whose kernels are not all bf16 raises before its first launch
-(``_check_block_input``): no bf16 path falls back to f32. The conv-first
-and norm-first batch-norm models therefore run in bf16, pooled or
-strided, padded or not; the layer-norm models raise.
+f32 scratch. Any other dtype raises ``TypeError`` at the wrapper
+(``kernel_dtype``), and a block raises before its first launch
+(``_check_block_input``): no bf16 path falls back to f32. Every model
+therefore runs in bf16 on the card: batch norm or layer norm, conv first
+or norm first, pooled or strided, padded or not.
 
 All tensors carry the tenant axis: activations ``(T, N, H, W, C)``
 (NHWC), weights ``(T, 3, 3, cin, cout)`` (HWIO), per-channel tensors
@@ -173,25 +172,9 @@ KERNELS = (
     "conv3x3_s2_p0_fwd",
 )
 #: the kernels with a bf16 instantiation, counted on ``<name>_bf16``: every
-#: kernel of the batch-norm models (conv first and norm first, pooled and
-#: strided, pad 1 and 0) that serving and second-order training run; the
-#: layer norm's are f32 only
-BF16_KERNELS = tuple(k for k in KERNELS if not k.startswith("layer_norm"))
+#: kernel, of every model that serving and second-order training run
+BF16_KERNELS = KERNELS
 KERNELS += tuple(f"{name}_bf16" for name in BF16_KERNELS)
-#: the kernels' roles, for the messages of the bf16 guard
-ROLES = {"conv3x3_fwd_stats": "K1", "conv3x3_fwd": "K1 stats-free",
-         "bn_act_pool_fwd": "K2", "bn_act_pool_bwd": "K3",
-         "bn_act_pool_bwd_bwd": "K5", "conv3x3_dgrad": "K4 dgrad",
-         "conv3x3_wgrad": "K4 wgrad", "bn_act_fwd": "K2 pool-free",
-         "bn_act_bwd": "K3 pool-free", "bn_act_bwd_bwd": "K5 pool-free",
-         "global_avg_pool2d_fwd": "B5a GAP",
-         "global_avg_pool2d_bwd": "B5a GAP"}
-ROLES.update({k: "B5b" for k in ("bn_input_stats", "batch_norm_fwd",
-                                 "batch_norm_bwd", "batch_norm_bwd_bwd")})
-ROLES.update({k: "B2" for k in ("act_pool_fwd", "act_pool_bwd",
-                                "act_pool_gather", "act_fwd", "act_bwd")})
-ROLES.update({k: "B5c" for k in ("layer_norm_stats", "layer_norm_fwd",
-                                 "layer_norm_bwd", "layer_norm_bwd_bwd")})
 #: the conv strides and pads the kernels take
 STRIDES = (1, 2)
 PADDINGS = (1, 0)
@@ -228,22 +211,10 @@ def _on_cpu(x: Tensor) -> bool:
 def kernel_dtype(name: str, x: Tensor) -> torch.dtype:
     """The dtype kernel ``name`` (a counter name: ``conv3x3_s2_dgrad`` is
     the stride-2 dgrad) runs in for the activation ``x``: float32, or
-    bfloat16 where ``name`` is one of ``BF16_KERNELS``. Raises
-    ``NotImplementedError`` naming the kernel (and its role) for a bf16
-    ``x`` it has no bf16 version for, ``TypeError`` for any other
-    dtype."""
-    if x.dtype == torch.float32:
+    bfloat16 (every kernel has both, ``BF16_KERNELS``). Raises
+    ``TypeError`` for any other dtype."""
+    if x.dtype in (torch.float32, torch.bfloat16):
         return x.dtype
-    if x.dtype == torch.bfloat16:
-        if name in BF16_KERNELS:
-            return x.dtype
-        base = name.replace("_s2", "").replace("_p0", "")
-        role = f" ({ROLES[base]})" if base in ROLES else ""
-        raise NotImplementedError(
-            f"{name}{role} has no bf16 kernel yet: compute_dtype='bfloat16' "
-            "runs the batch-norm models' kernels (conv first and norm "
-            "first, pooled and strided, pad 1 and 0), not the layer "
-            "norm's")
     raise TypeError(f"{name}: the kernels take float32 or bfloat16, got "
                     f"{x.dtype}")
 
@@ -725,28 +696,29 @@ def _check_ln_args(name: str, x: Tensor, mean: Tensor, rstd: Tensor,
     """Check a layer norm's activation, its (T, N) statistics and its (T,
     H, W, C) parameters; returns x's shape."""
     T, N, H, W, C = _check_ln_rows(name, x)
-    _check(name, "mean", mean, (T, N), x.device)
-    _check(name, "rstd", rstd, (T, N), x.device)
+    _check(name, "mean", mean, (T, N), x.device, x.dtype)
+    _check(name, "rstd", rstd, (T, N), x.device, x.dtype)
     for what, t in params.items():
-        _check(name, what, t, (T, H, W, C), x.device)
+        _check(name, what, t, (T, H, W, C), x.device, x.dtype)
     return T, N, H, W, C
 
 
 def layer_norm_stats(x: Tensor, eps: float = F.LN_EPS
                      ) -> Tuple[Tensor, Tensor, Tensor]:
     """Each image's mean, population variance and rstd over its (H, W, C),
-    ``(T, N)`` each (``layer_norm.py``)."""
+    ``(T, N)`` each, in x's dtype (``layer_norm.py``)."""
     if _on_cpu(x):
         return F.layer_norm_stats(x, eps)
     name = "layer_norm_stats"
     T, N, H, W, C = _check_ln_rows(name, x)
     plan = layer_norm.stats_plan(T * N, H * W * C)
     part = torch.empty((T, plan.splits, 3, N), device=x.device)
-    mean, var, rstd = (torch.empty((T, N), device=x.device)
+    mean, var, rstd = (torch.empty((T, N), device=x.device, dtype=x.dtype)
                        for _ in range(3))
     with torch.cuda.device(x.device):
-        layer_norm.launch_stats(x, part, mean, var, rstd, eps)
-    LAUNCHES[name] += 1
+        layer_norm.launch_stats(x, part, mean, var, rstd,
+                                F.scalar_like(eps, x))
+    LAUNCHES[_counter(name, x)] += 1
     return mean, var, rstd
 
 
@@ -761,7 +733,7 @@ def layer_norm_fwd(x: Tensor, mean: Tensor, rstd: Tensor, gamma: Tensor,
     z = torch.empty_like(x)
     with torch.cuda.device(x.device):
         layer_norm.launch_fwd(x, mean, rstd, gamma, beta, z)
-    LAUNCHES[name] += 1
+    LAUNCHES[_counter(name, x)] += 1
     return z
 
 
@@ -773,7 +745,7 @@ def layer_norm_bwd(dz: Tensor, x: Tensor, mean: Tensor, rstd: Tensor,
         return F.layer_norm_bwd(dz, x, mean, rstd, gamma)
     name = "layer_norm_bwd"
     T, N, H, W, C = _check_ln_args(name, x, mean, rstd, dict(gamma=gamma))
-    _check(name, "dz", dz, x.shape, x.device)
+    _check(name, "dz", dz, x.shape, x.device, x.dtype)
     J = layer_norm.column_tiles(H * W * C)
     part = torch.empty((J, layer_norm.BWD_SUMS, T * N), device=x.device)
     sums = torch.empty((layer_norm.BWD_SUMS, T * N), device=x.device)
@@ -782,7 +754,7 @@ def layer_norm_bwd(dz: Tensor, x: Tensor, mean: Tensor, rstd: Tensor,
     with torch.cuda.device(x.device):
         layer_norm.launch_bwd(dz, x, mean, rstd, gamma, part, sums, dx,
                               dgamma, dbeta)
-    LAUNCHES[name] += 1
+    LAUNCHES[_counter(name, x)] += 1
     return dx, dgamma, dbeta
 
 
@@ -798,8 +770,8 @@ def layer_norm_bwd_bwd(a: Tensor, ggamma: Tensor, gbeta: Tensor, dz: Tensor,
     name = "layer_norm_bwd_bwd"
     T, N, H, W, C = _check_ln_args(name, x, mean, rstd, dict(
         ggamma=ggamma, gbeta=gbeta, gamma=gamma))
-    _check(name, "a", a, x.shape, x.device)
-    _check(name, "dz", dz, x.shape, x.device)
+    _check(name, "a", a, x.shape, x.device, x.dtype)
+    _check(name, "dz", dz, x.shape, x.device, x.dtype)
     J = layer_norm.column_tiles(H * W * C)
     part = torch.empty((J, layer_norm.BWD_BWD_SUMS, T * N), device=x.device)
     sums = torch.empty((layer_norm.BWD_BWD_SUMS, T * N), device=x.device)
@@ -808,7 +780,7 @@ def layer_norm_bwd_bwd(a: Tensor, ggamma: Tensor, gbeta: Tensor, dz: Tensor,
     with torch.cuda.device(x.device):
         layer_norm.launch_bwd_bwd(a, ggamma, gbeta, dz, x, mean, rstd, gamma,
                                   part, sums, g_dz, g_x, g_gamma)
-    LAUNCHES[name] += 1
+    LAUNCHES[_counter(name, x)] += 1
     return g_dz, g_x, g_gamma
 
 

@@ -52,6 +52,31 @@ fixed order, so a run is deterministic. Tiles are 1-D and contiguous
 so the small maps of the strided model (M = 256 at 2x2x64) keep their
 lanes.
 
+bf16 (``compute_dtype='bfloat16'``): every kernel loads bf16 and
+converts each load to f32 before any arithmetic; partials, row sums and
+column sums are f32 scratch, as in f32, and each output is rounded once
+where the JAX package's bf16 ``layer_norm`` (:447-464) and its
+derivatives round, as the twins in ``ops/functional.py`` do:
+
+* ``layer_norm_stats``: the f32 Chan partials of the bf16 loads, merged by
+  ``bn_stats.py``'s merge with its ``BF16`` constexpr: mean and var each
+  rounded once (``jnp.mean`` / ``jnp.var``), ``rstd`` the f32 rsqrt of
+  ``bf16(var + bf16(eps))``, rounded once (``lax.rsqrt`` in bf16). The
+  merge sums in another order than the twin's two passes, so a value at a
+  rounding boundary may land one bf16 ulp away;
+* ``layer_norm_fwd`` takes a ``BF16`` constexpr (the f32 instantiation is
+  unchanged): the chain ``(x - mean)``, ``* rstd``, ``* gamma``, ``+
+  beta``, each op rounded to bf16 (``bn_act_pool._bf16_chain`` at slope
+  1, whose activation is the identity), so it equals its twin bit for
+  bit;
+* ``layer_norm_bwd`` and ``layer_norm_bwd_bwd``: ``xhat = (x - mean) *
+  rstd`` in f32 from the bf16 mean and rstd (not the forward's rounded
+  chain), every partial and sum in f32, and dx, dgamma, dbeta (g_dz, g_x,
+  g_gamma) each rounded once by the store.
+
+Bound: bytes, as in f32, at 2 bytes an element of the activations,
+gamma and beta.
+
 ``triton`` is imported at the first launch, never at import (see
 ``bn_act_pool.py``).
 """
@@ -61,10 +86,11 @@ from __future__ import annotations
 import functools
 from types import SimpleNamespace
 
-from . import bn_stats
+from . import bn_act_pool, bn_stats
 from .bn_stats import cdiv
 
 tl = None  # bound to ``triton.language`` by ``_jit()`` at the first launch
+_bf16_chain = None  # bound to ``bn_act_pool``'s jitted chain by ``_jit()``
 
 STATS_TILE = bn_stats.TILE  # values per statistics tile (cap)
 TILE = 1024                 # values per column tile (cap)
@@ -89,7 +115,7 @@ def _stats_partial_kernel(x_ptr, part_ptr, M, N, S, CHUNK,
     for i in range(start, end, BLOCK):
         q = i + tl.arange(0, BLOCK)
         mask = q < end
-        v = tl.load(x_ptr + row + q, mask=mask, other=0.0)
+        v = tl.load(x_ptr + row + q, mask=mask, other=0.0).to(tl.float32)
         nb = tl.minimum(end - i, BLOCK).to(tl.float32)
         mb = tl.sum(v, axis=0) / nb
         d = tl.where(mask, v - mb, 0.0)
@@ -107,20 +133,25 @@ def _stats_partial_kernel(x_ptr, part_ptr, M, N, S, CHUNK,
 
 
 def _fwd_kernel(x_ptr, mean_ptr, rstd_ptr, gamma_ptr, beta_ptr, z_ptr, M, N,
-                BLOCK: "tl.constexpr"):
+                BLOCK: "tl.constexpr", BF16: "tl.constexpr"):
     j = tl.program_id(0)
     r = tl.program_id(1)
     t = r // N
     q = j * BLOCK + tl.arange(0, BLOCK)
     mask = q < M
-    mu = tl.load(mean_ptr + r)
-    rs = tl.load(rstd_ptr + r)
+    mu = tl.load(mean_ptr + r).to(tl.float32)
+    rs = tl.load(rstd_ptr + r).to(tl.float32)
     off = r.to(tl.int64) * M + q
     toff = t.to(tl.int64) * M + q
-    v = tl.load(x_ptr + off, mask=mask, other=0.0)
-    g = tl.load(gamma_ptr + toff, mask=mask, other=0.0)
-    b = tl.load(beta_ptr + toff, mask=mask, other=0.0)
-    tl.store(z_ptr + off, (v - mu) * rs * g + b, mask=mask)
+    v = tl.load(x_ptr + off, mask=mask, other=0.0).to(tl.float32)
+    g = tl.load(gamma_ptr + toff, mask=mask, other=0.0).to(tl.float32)
+    b = tl.load(beta_ptr + toff, mask=mask, other=0.0).to(tl.float32)
+    if BF16:
+        # every op rounded to bf16: the chain at slope 1
+        z, _ = _bf16_chain(v, mu, rs, g, b, 1.0)
+    else:
+        z = (v - mu) * rs * g + b
+    tl.store(z_ptr + off, z.to(z_ptr.dtype.element_ty), mask=mask)
 
 
 def _bwd_reduce_kernel(dz_ptr, x_ptr, mean_ptr, rstd_ptr, gamma_ptr,
@@ -131,16 +162,16 @@ def _bwd_reduce_kernel(dz_ptr, x_ptr, mean_ptr, rstd_ptr, gamma_ptr,
     q = j * BLOCK + tl.arange(0, BLOCK)
     mask = q < M
     toff = t.to(tl.int64) * M + q
-    g = tl.load(gamma_ptr + toff, mask=mask, other=0.0)
+    g = tl.load(gamma_ptr + toff, mask=mask, other=0.0).to(tl.float32)
     acc_b = tl.zeros([BLOCK], tl.float32)
     acc_g = tl.zeros([BLOCK], tl.float32)
     for n in range(0, N):
         r = t * N + n
-        mu = tl.load(mean_ptr + r)
-        rs = tl.load(rstd_ptr + r)
+        mu = tl.load(mean_ptr + r).to(tl.float32)
+        rs = tl.load(rstd_ptr + r).to(tl.float32)
         off = r.to(tl.int64) * M + q
-        d = tl.load(dz_ptr + off, mask=mask, other=0.0)
-        v = tl.load(x_ptr + off, mask=mask, other=0.0)
+        d = tl.load(dz_ptr + off, mask=mask, other=0.0).to(tl.float32)
+        v = tl.load(x_ptr + off, mask=mask, other=0.0).to(tl.float32)
         xh = (v - mu) * rs
         gh = d * g
         acc_b += d
@@ -149,8 +180,10 @@ def _bwd_reduce_kernel(dz_ptr, x_ptr, mean_ptr, rstd_ptr, gamma_ptr,
         pbase = j * 2 * R + r
         tl.store(part_ptr + pbase, tl.sum(gh, axis=0))
         tl.store(part_ptr + pbase + R, tl.sum(gh * xh, axis=0))
-    tl.store(dbeta_ptr + toff, acc_b, mask=mask)
-    tl.store(dgamma_ptr + toff, acc_g, mask=mask)
+    tl.store(dbeta_ptr + toff, acc_b.to(dbeta_ptr.dtype.element_ty),
+             mask=mask)
+    tl.store(dgamma_ptr + toff, acc_g.to(dgamma_ptr.dtype.element_ty),
+             mask=mask)
 
 
 def _row_sums_kernel(part_ptr, out_ptr, R, J, K: "tl.constexpr",
@@ -172,17 +205,18 @@ def _bwd_dx_kernel(dz_ptr, x_ptr, mean_ptr, rstd_ptr, gamma_ptr, sums_ptr,
     t = r // N
     q = j * BLOCK + tl.arange(0, BLOCK)
     mask = q < M
-    mu = tl.load(mean_ptr + r)
-    rs = tl.load(rstd_ptr + r)
+    mu = tl.load(mean_ptr + r).to(tl.float32)
+    rs = tl.load(rstd_ptr + r).to(tl.float32)
     m_g = tl.load(sums_ptr + r) * inv_m
     m_gx = tl.load(sums_ptr + R + r) * inv_m
     off = r.to(tl.int64) * M + q
     toff = t.to(tl.int64) * M + q
-    d = tl.load(dz_ptr + off, mask=mask, other=0.0)
-    v = tl.load(x_ptr + off, mask=mask, other=0.0)
-    g = tl.load(gamma_ptr + toff, mask=mask, other=0.0)
+    d = tl.load(dz_ptr + off, mask=mask, other=0.0).to(tl.float32)
+    v = tl.load(x_ptr + off, mask=mask, other=0.0).to(tl.float32)
+    g = tl.load(gamma_ptr + toff, mask=mask, other=0.0).to(tl.float32)
     xh = (v - mu) * rs
-    tl.store(dx_ptr + off, rs * (d * g - m_g - xh * m_gx), mask=mask)
+    dx = rs * (d * g - m_g - xh * m_gx)
+    tl.store(dx_ptr + off, dx.to(dx_ptr.dtype.element_ty), mask=mask)
 
 
 def _bwd_bwd_reduce_kernel(a_ptr, gg_ptr, dz_ptr, x_ptr, mean_ptr, rstd_ptr,
@@ -193,16 +227,16 @@ def _bwd_bwd_reduce_kernel(a_ptr, gg_ptr, dz_ptr, x_ptr, mean_ptr, rstd_ptr,
     q = j * BLOCK + tl.arange(0, BLOCK)
     mask = q < M
     toff = t.to(tl.int64) * M + q
-    g = tl.load(gamma_ptr + toff, mask=mask, other=0.0)
-    gg = tl.load(gg_ptr + toff, mask=mask, other=0.0)
+    g = tl.load(gamma_ptr + toff, mask=mask, other=0.0).to(tl.float32)
+    gg = tl.load(gg_ptr + toff, mask=mask, other=0.0).to(tl.float32)
     for n in range(0, N):
         r = t * N + n
-        mu = tl.load(mean_ptr + r)
-        rs = tl.load(rstd_ptr + r)
+        mu = tl.load(mean_ptr + r).to(tl.float32)
+        rs = tl.load(rstd_ptr + r).to(tl.float32)
         off = r.to(tl.int64) * M + q
-        a = tl.load(a_ptr + off, mask=mask, other=0.0)
-        d = tl.load(dz_ptr + off, mask=mask, other=0.0)
-        v = tl.load(x_ptr + off, mask=mask, other=0.0)
+        a = tl.load(a_ptr + off, mask=mask, other=0.0).to(tl.float32)
+        d = tl.load(dz_ptr + off, mask=mask, other=0.0).to(tl.float32)
+        v = tl.load(x_ptr + off, mask=mask, other=0.0).to(tl.float32)
         xh = (v - mu) * rs
         gh = d * g
         ggd = gg * d
@@ -225,14 +259,14 @@ def _bwd_bwd_out_kernel(a_ptr, gg_ptr, gb_ptr, dz_ptr, x_ptr, mean_ptr,
     q = j * BLOCK + tl.arange(0, BLOCK)
     mask = q < M
     toff = t.to(tl.int64) * M + q
-    g = tl.load(gamma_ptr + toff, mask=mask, other=0.0)
-    gg = tl.load(gg_ptr + toff, mask=mask, other=0.0)
-    gb = tl.load(gb_ptr + toff, mask=mask, other=0.0)
+    g = tl.load(gamma_ptr + toff, mask=mask, other=0.0).to(tl.float32)
+    gg = tl.load(gg_ptr + toff, mask=mask, other=0.0).to(tl.float32)
+    gb = tl.load(gb_ptr + toff, mask=mask, other=0.0).to(tl.float32)
     acc = tl.zeros([BLOCK], tl.float32)
     for n in range(0, N):
         r = t * N + n
-        mu = tl.load(mean_ptr + r)
-        rs = tl.load(rstd_ptr + r)
+        mu = tl.load(mean_ptr + r).to(tl.float32)
+        rs = tl.load(rstd_ptr + r).to(tl.float32)
         m_a = tl.load(sums_ptr + r) * inv_m
         m_ax = tl.load(sums_ptr + R + r) * inv_m
         m_g = tl.load(sums_ptr + 2 * R + r) * inv_m
@@ -241,20 +275,23 @@ def _bwd_bwd_out_kernel(a_ptr, gg_ptr, gb_ptr, dz_ptr, x_ptr, mean_ptr,
         m_ggd = tl.load(sums_ptr + 5 * R + r) * inv_m
         m_ggdx = tl.load(sums_ptr + 6 * R + r) * inv_m
         off = r.to(tl.int64) * M + q
-        a = tl.load(a_ptr + off, mask=mask, other=0.0)
-        d = tl.load(dz_ptr + off, mask=mask, other=0.0)
-        v = tl.load(x_ptr + off, mask=mask, other=0.0)
+        a = tl.load(a_ptr + off, mask=mask, other=0.0).to(tl.float32)
+        d = tl.load(dz_ptr + off, mask=mask, other=0.0).to(tl.float32)
+        v = tl.load(x_ptr + off, mask=mask, other=0.0).to(tl.float32)
         xh = (v - mu) * rs
         p_a = a - m_a - xh * m_ax
-        tl.store(g_dz_ptr + off, g * rs * p_a + gg * xh + gb, mask=mask)
+        g_dz = g * rs * p_a + gg * xh + gb
+        tl.store(g_dz_ptr + off, g_dz.to(g_dz_ptr.dtype.element_ty),
+                 mask=mask)
         acc += d * rs * p_a
         big_g = -rs * (a * m_gx + d * g * m_ax) + gg * d
         mean_g = -rs * (m_a * m_gx + m_g * m_ax) + m_ggd
         mean_gx = -2.0 * rs * m_ax * m_gx + m_ggdx
         cross = m_ag - m_a * m_g - m_ax * m_gx
         g_x = rs * (big_g - mean_g - xh * mean_gx) - xh * rs * rs * cross
-        tl.store(g_x_ptr + off, g_x, mask=mask)
-    tl.store(g_gamma_ptr + toff, acc, mask=mask)
+        tl.store(g_x_ptr + off, g_x.to(g_x_ptr.dtype.element_ty), mask=mask)
+    tl.store(g_gamma_ptr + toff, acc.to(g_gamma_ptr.dtype.element_ty),
+             mask=mask)
 
 
 @functools.lru_cache(maxsize=None)
@@ -262,8 +299,11 @@ def _jit() -> SimpleNamespace:
     import triton
     import triton.language
 
-    global tl
+    global tl, _bf16_chain
     tl = triton.language
+    # the forward calls bn_act_pool's jitted chain by this global name
+    bn_act_pool._jit()
+    _bf16_chain = bn_act_pool._bf16_chain
     return SimpleNamespace(
         stats_partial=triton.jit(_stats_partial_kernel),
         fwd=triton.jit(_fwd_kernel),
@@ -303,9 +343,10 @@ def column_tiles(M: int) -> int:
 
 
 def launch_stats(x, part, mean, var, rstd, eps: float) -> None:
-    """Both launches on a validated contiguous f32 CUDA ``x`` (T, N, H, W,
-    C) into the (T, N) ``mean``, ``var`` and ``rstd``; ``part`` is ``(T,
-    stats_plan(...).splits, 3, N)`` scratch."""
+    """Both launches on a validated contiguous f32 or bf16 CUDA ``x`` (T,
+    N, H, W, C) into the (T, N) ``mean``, ``var`` and ``rstd`` of its
+    dtype; ``part`` is ``(T, stats_plan(...).splits, 3, N)`` f32 scratch
+    (see ``conv_block.layer_norm_stats``)."""
     T, N, H, W, C = x.shape
     M = H * W * C
     p = stats_plan(T * N, M)
@@ -313,23 +354,26 @@ def launch_stats(x, part, mean, var, rstd, eps: float) -> None:
     kern.stats_partial[(p.splits, T * N)](x, part, M, N, p.splits, p.chunk,
                                           BLOCK=p.block)
     bn_stats._jit().merge[(T,)](part, mean, var, rstd, N, p.splits, eps,
-                                BLOCK_C=bn_stats.tile(N)[1], BF16=False)
+                                BLOCK_C=bn_stats.tile(N)[1],
+                                BF16=bn_act_pool.is_bf16(x))
 
 
 def launch_fwd(x, mean, rstd, gamma, beta, z) -> None:
     """``z`` (the shape of x) from x, the (T, N) statistics and the (T, H,
-    W, C) gamma and beta."""
+    W, C) gamma and beta, all f32 or all bf16."""
     T, N, H, W, C = x.shape
     M = H * W * C
     block = tile(M)
     _jit().fwd[(cdiv(M, block), T * N)](x, mean, rstd, gamma, beta, z, M, N,
-                                       BLOCK=block)
+                                       BLOCK=block,
+                                       BF16=bn_act_pool.is_bf16(x))
 
 
 def launch_bwd(dz, x, mean, rstd, gamma, part, sums, dx, dgamma,
                dbeta) -> None:
     """The three launches of ``layer_norm_bwd``: ``part`` is ``(J, 2, T*N)``
-    and ``sums`` ``(2, T*N)`` scratch (``column_tiles``)."""
+    and ``sums`` ``(2, T*N)`` f32 scratch (``column_tiles``); every other
+    tensor f32, or every other bf16."""
     T, N, H, W, C = x.shape
     M, R = H * W * C, T * N
     block, J = tile(M), column_tiles(M)
@@ -345,7 +389,8 @@ def launch_bwd(dz, x, mean, rstd, gamma, part, sums, dx, dgamma,
 def launch_bwd_bwd(a, ggamma, gbeta, dz, x, mean, rstd, gamma, part, sums,
                    g_dz, g_x, g_gamma) -> None:
     """The three launches of ``layer_norm_bwd_bwd``: ``part`` is ``(J, 7,
-    T*N)`` and ``sums`` ``(7, T*N)`` scratch."""
+    T*N)`` and ``sums`` ``(7, T*N)`` f32 scratch; every other tensor f32,
+    or every other bf16."""
     T, N, H, W, C = x.shape
     M, R = H * W * C, T * N
     block, J = tile(M), column_tiles(M)

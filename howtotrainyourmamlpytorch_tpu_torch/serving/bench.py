@@ -21,10 +21,9 @@ batch norm, in either block order), and ``--conv_padding true|false``
 (``false``: the unpadded model, every 3x3 conv a valid window), and
 ``--compute_dtype float32|bfloat16`` (``bfloat16``: activations, the conv
 and the head in bf16 with f32 accumulation, the JAX package's bf16 cast
-points; on the card the batch-norm models, conv first or norm first,
-pooled or strided, at pad 1 or 0, whose kernels have bf16 versions — a
-layer-norm model raises ``NotImplementedError`` naming the kernels that
-do not).
+points; on the card every model, batch norm or layer norm, conv first
+or norm first, pooled or strided, at pad 1 or 0, on the ``*_bf16``
+kernels).
 
 Prints ONE JSON line: adapt latency p50/p95, ``tenants_per_sec``,
 dispatches, tenants, the ``ingest`` and ``h2d_bytes_per_dispatch`` (the

@@ -329,31 +329,29 @@ def test_bf16_reductions_follow_each_form():
 
 
 def test_bf16_guards_name_the_missing_kernel():
-    """On the card a bf16 tensor reaches only the kernels with a bf16
-    version (every kernel of the batch-norm models: conv first and norm
-    first, pooled and strided, the convs at stride 1 and 2 and pad 1 and
-    0, the pool-free K2/K3/K5, the global average pool, ``bn_input_stats``,
-    ``batch_norm_*`` and the act-pool kernels); the layer norm's kernels
-    raise NotImplementedError naming themselves and their role, and so
-    does a block whose kernels are not all bf16."""
+    """On the card a bf16 tensor reaches every kernel (each has a bf16
+    version: the batch-norm models' and, since the layer-norm models run
+    in bf16 too, the layer norm's four); any other dtype raises
+    ``TypeError`` naming the kernel, and ``_check_block_input`` passes
+    every block in bf16, the layer-norm blocks among them, pooled and
+    strided, and refuses a block in another dtype, naming its kernels."""
     x = torch.zeros(1, 2, 6, 6, 3, dtype=BF16)
+    assert cb.BF16_KERNELS == tuple(k for k in cb.KERNELS
+                                    if not k.endswith("_bf16"))
     for name in cb.BF16_KERNELS:
+        assert f"{name}_bf16" in cb.KERNELS
         assert cb.kernel_dtype(name, x) == BF16
         assert cb.kernel_dtype(name, x.float()) == torch.float32
     for name in ("conv3x3_s2_fwd", "bn_act_bwd_bwd", "conv3x3_s2_p0_wgrad",
                  "global_avg_pool2d_fwd", "bn_input_stats", "batch_norm_bwd",
-                 "act_pool_gather", "act_fwd"):
+                 "act_pool_gather", "act_fwd", "layer_norm_stats",
+                 "layer_norm_fwd", "layer_norm_bwd", "layer_norm_bwd_bwd"):
         assert name in cb.BF16_KERNELS
-    others = [k for k in cb.KERNELS if not k.endswith("_bf16")
-              and k not in cb.BF16_KERNELS]
-    assert others == ["layer_norm_stats", "layer_norm_fwd", "layer_norm_bwd",
-                      "layer_norm_bwd_bwd"]
-    for name in others:
-        with pytest.raises(NotImplementedError,
-                           match=f"^{name} \\(B5c\\) has no bf16 kernel"):
-            cb.kernel_dtype(name, x)
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
-        cb.kernel_dtype("conv3x3_fwd_stats", x.double())
+    for dtype in (torch.float64, torch.float16):
+        for name in ("conv3x3_fwd_stats", "layer_norm_stats"):
+            with pytest.raises(TypeError,
+                               match=f"^{name}: .*float32 or bfloat16"):
+                cb.kernel_dtype(name, x.to(dtype))
     kernels = ("conv3x3_fwd_stats", "bn_act_pool_fwd", "bn_act_pool_bwd",
                "conv3x3_dgrad", "conv3x3_wgrad", "conv3x3_fwd",
                "bn_act_pool_bwd_bwd")
@@ -371,9 +369,14 @@ def test_bf16_guards_name_the_missing_kernel():
                               True)
         cb._check_block_input("norm_conv_act_pool", x, norm_first, 2,
                               padding, True)
+        for name in ("conv_ln_act_pool", "ln_conv_act_pool"):
+            cb._check_block_input(name, x, cb._LN_BLOCK_KERNELS[True], 1,
+                                  padding, False)
+            cb._check_block_input(name, x, cb._LN_BLOCK_KERNELS[False], 2,
+                                  padding, True)
     for pool in (True, False):
         with pytest.raises(NotImplementedError, match="layer_norm_stats"):
-            cb._check_block_input("conv_ln_act_pool", x,
+            cb._check_block_input("conv_ln_act_pool", x.half(),
                                   cb._LN_BLOCK_KERNELS[pool], 1, 1, False)
 
 

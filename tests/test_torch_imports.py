@@ -150,23 +150,24 @@ def test_wrappers_never_take_the_plain_path_off_the_cpu():
         with pytest.raises(ValueError, match="CUDA"):
             call()
     assert conv_block.launches() == {k: 0 for k in conv_block.KERNELS}
-    # bf16 has kernels for the batch-norm blocks, conv first and norm
-    # first, pooled and strided: past the dtype guard, the device check
-    # refuses the meta tensor; the layer-norm blocks have none
+    # bf16 has kernels for every block, batch norm and layer norm, conv
+    # first and norm first, pooled and strided: past the dtype guard, the
+    # device check refuses the meta tensor
     v3 = _meta(3)  # the norm-first block's gamma and beta: the input's
+    p3 = _meta(6, 6, 3)  # the norm-first layer norm's: the input's (H, W, C)
     for block, norm, kw in (
             (conv_block.conv_bn_act_pool, v, {}),
             (conv_block.conv_bn_act_pool, v,
              dict(stride=2, pool=False, gap=True)),
             (conv_block.norm_conv_act_pool, v3, {}),
             (conv_block.norm_conv_act_pool, v3,
-             dict(stride=2, pool=False, gap=True))):
+             dict(stride=2, pool=False, gap=True)),
+            (conv_block.conv_ln_act_pool, p[0], {}),
+            (conv_block.ln_conv_act_pool, p3, {})):
         with pytest.raises(ValueError, match="CUDA"):
             block(_meta(1, 2, 6, 6, 3, dtype=torch.bfloat16), w, b, norm,
                   norm, **kw)
-    for block in (conv_block.conv_ln_act_pool, conv_block.ln_conv_act_pool):
-        with pytest.raises(NotImplementedError, match="f32 only"):
-            block(_meta(1, 2, 6, 6, 3, dtype=torch.bfloat16), w, b, p, p)
+    assert conv_block.launches() == {k: 0 for k in conv_block.KERNELS}
 
 
 def test_second_order_through_the_block_is_differentiable():

@@ -11,7 +11,9 @@ models, ``conv_padding=False``) and the unpadded blocks' derivatives;
 the bf16 kernels (``compute_dtype='bfloat16'``: K1 with statistics and
 stats-free, K2/K3/K5 pooled, K4, the convs at pad 1 and 0) against their
 bf16 twins, the bf16 block's first and second derivatives, and the
-NotImplementedError of every kernel with no bf16 version; and the ingest
+TypeError of every dtype but f32 and bf16; the layer norm's four kernels
+in bf16 and the layer-norm blocks' second derivative on them; and the
+ingest
 kernel ``episode_expand`` equal to its twin bit for bit (it is a pure
 lookup).
 These need the card: marked ``cuda``, they skip where
@@ -833,28 +835,33 @@ def test_bf16_pad0_convs_match_their_twins(shape, device):
 
 
 def test_bf16_stops_where_no_bf16_kernel_is(device):
-    """On the card a bf16 tensor reaches a kernel with a bf16 version or
-    raises NotImplementedError naming the kernel: the layer norm's four
-    kernels, and a layer-norm block before its first launch; nothing falls
-    back to f32."""
+    """On the card every kernel has a bf16 version, the layer norm's four
+    included; a tensor in any other dtype raises ``TypeError`` at the
+    layer norm's wrappers, and a layer-norm block in it raises
+    ``NotImplementedError`` naming its kernels, before any launch: nothing
+    falls back to another dtype."""
     x, w, b, _, _ = bf16_inputs((1, 2, 6, 6, 3, 4), device)
-    y = torch.zeros(1, 2, 6, 6, 4, device=device).bfloat16()
-    s = torch.ones(1, 2, device=device)
-    p = torch.ones(1, 6, 6, 4, device=device)
+    x, w, b = x.half(), w.half(), b.half()
+    y = torch.zeros(1, 2, 6, 6, 4, device=device).half()
+    s = torch.ones(1, 2, device=device).half()
+    p = torch.ones(1, 6, 6, 4, device=device).half()
     cb.reset_launches()
     for match, call in (
-            ("layer_norm_stats .B5c.", lambda: cb.layer_norm_stats(y)),
-            ("layer_norm_fwd .B5c.", lambda: cb.layer_norm_fwd(
-                y, s, s, p, p)),
-            ("layer_norm_bwd .B5c.", lambda: cb.layer_norm_bwd(
-                y, y, s, s, p)),
-            ("layer_norm_bwd_bwd .B5c.", lambda: cb.layer_norm_bwd_bwd(
-                y, p, p, y, y, s, s, p)),
-            ("f32 only.*layer_norm_stats", lambda: cb.conv_ln_act_pool(
-                x, w, b, p[0], p[0])),
-            ("f32 only.*layer_norm_stats", lambda: cb.ln_conv_act_pool(
-                x, w, b, p[0, :, :, :3], p[0, :, :, :3]))):
-        with pytest.raises(NotImplementedError, match=match):
+            ("^layer_norm_stats: .*float32 or bfloat16",
+             lambda: cb.layer_norm_stats(y)),
+            ("^layer_norm_fwd: .*float32 or bfloat16",
+             lambda: cb.layer_norm_fwd(y, s, s, p, p)),
+            ("^layer_norm_bwd: .*float32 or bfloat16",
+             lambda: cb.layer_norm_bwd(y, y, s, s, p)),
+            ("^layer_norm_bwd_bwd: .*float32 or bfloat16",
+             lambda: cb.layer_norm_bwd_bwd(y, p, p, y, y, s, s, p))):
+        with pytest.raises(TypeError, match=match):
+            call()
+    for call in (lambda: cb.conv_ln_act_pool(x, w, b, p[0], p[0]),
+                 lambda: cb.ln_conv_act_pool(x, w, b, p[0, :, :, :3],
+                                             p[0, :, :, :3])):
+        with pytest.raises(NotImplementedError,
+                           match="f32 only.*layer_norm_stats"):
             call()
     assert set(cb.launches().values()) == {0}
 
@@ -1088,5 +1095,100 @@ def test_bf16_model_blocks_second_order_run_on_the_bf16_kernels(block, kw,
     got = results["kernels"]
     assert got.dtype == torch.float32 and torch.isfinite(got).all()
     assert launched and all(k.endswith("_bf16") for k in launched), launched
+    spread = (results["twins bf16"] - results["twins f32"]).abs().max()
+    assert (got - results["twins bf16"]).abs().max() <= 2 * spread
+
+
+# -- bf16 layer norm (B5c): layer_norm_stats/fwd/bwd/bwd_bwd ----------------------
+#
+# Gates: ``layer_norm_fwd`` equals its twin bit for bit (the same chain of
+# single-rounded ops on the twin's statistics); the statistics (mean, var,
+# rstd: a Chan merge against the twin's two passes), ``layer_norm_bwd``
+# (dx, dgamma, dbeta) and ``layer_norm_bwd_bwd`` (g_dz, g_x, g_gamma), f32
+# sums rounded once, within one bf16 ulp of the twin or 1e-4 of scale.
+
+
+@pytest.mark.parametrize("shape", LAYER_NORM_SHAPES, ids=str)
+def test_bf16_layer_norm_kernels_match_their_twins(shape, device):
+    """The layer norm's four kernels in bf16 at ragged rows, rows of several
+    statistics splits and the strided model's 2x2x64 map: the statistics
+    on pixels in [0, 1] with an offset, the forward on the twin's
+    statistics with per-tenant gamma and beta, the backward and double
+    backward on random cotangents, each on its ``*_bf16`` counter."""
+    T, N, H, W, C = shape
+    g = torch.Generator().manual_seed(sum(shape))
+
+    def r(*s, scale=1.0):
+        return (torch.randn(*s, generator=g) * scale).to(device).bfloat16()
+
+    x = (3.0 + torch.rand(T, N, H, W, C, generator=g)).to(device).bfloat16()
+    gamma, beta = 1 + r(T, H, W, C, scale=0.3), r(T, H, W, C, scale=0.1)
+    cb.reset_launches()
+    for a, c, what in zip(cb.layer_norm_stats(x), F.layer_norm_stats(x),
+                          ("mean", "var", "rstd")):
+        within_ulp(a, c, f"layer_norm_stats {what}")
+    mean, _, rstd = F.layer_norm_stats(x)
+    z = cb.layer_norm_fwd(x, mean, rstd, gamma, beta)
+    assert z.dtype == torch.bfloat16
+    assert torch.equal(z, F.layer_norm_fwd(x, mean, rstd, gamma, beta))
+    dz = r(T, N, H, W, C)
+    ln = (x, mean, rstd, gamma)
+    for a, c, what in zip(cb.layer_norm_bwd(dz, *ln),
+                          F.layer_norm_bwd(dz, *ln),
+                          ("dx", "dgamma", "dbeta")):
+        within_ulp(a, c, f"layer_norm_bwd {what}")
+    args = (r(T, N, H, W, C), r(T, H, W, C), r(T, H, W, C), dz, *ln)
+    for a, c, what in zip(cb.layer_norm_bwd_bwd(*args),
+                          F.layer_norm_bwd_bwd(*args),
+                          ("g_dz", "g_x", "g_gamma")):
+        within_ulp(a, c, f"layer_norm_bwd_bwd {what}")
+    assert {k: n for k, n in cb.launches().items() if n} == {
+        f"{k}_bf16": 1 for k in ("layer_norm_stats", "layer_norm_fwd",
+                                 "layer_norm_bwd", "layer_norm_bwd_bwd")}
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("kw", [{}, dict(stride=2, pool=False, gap=True)],
+                         ids=["pooled", "strided_gap"])
+@pytest.mark.parametrize("order", ["conv_first", "norm_first"])
+def test_bf16_layer_norm_blocks_second_order_run_on_the_bf16_kernels(
+        order, kw, device):
+    """The layer-norm blocks' second derivative in bf16 (the gradient of
+    ``<v, d loss / d w>``) launches bf16 kernels only — conv first, the
+    layer norm's double backward among them (norm first, the layer norm
+    precedes the conv and only its forward is on this path); the f32
+    leaf's gradient comes back f32 and finite, within 2x the bf16-vs-f32
+    spread of the same block on the twins (the CPU, bf16 and f32) from the
+    twins' bf16 result."""
+    x, w, b, _, _ = bf16_inputs((2, 3, 12, 12, 3, 8), device)
+    if order == "norm_first":
+        fn, norm_shape = cb.ln_conv_function_block, (12, 12, 3)
+    else:
+        fn = cb.conv_ln_function_block
+        hw = F.conv_out_hw(12, 12, kw.get("stride", 1), 1)
+        norm_shape = (*hw, 8)
+    gen = torch.Generator().manual_seed(3)
+    gamma = 1 + 0.1 * torch.randn(norm_shape, generator=gen)
+    beta = 0.1 * torch.randn(norm_shape, generator=gen)
+    v = torch.randn(w.shape, generator=torch.Generator().manual_seed(2))
+    results = {}
+    for name, dev, dtype in (("kernels", device, torch.bfloat16),
+                             ("twins bf16", "cpu", torch.bfloat16),
+                             ("twins f32", "cpu", torch.float32)):
+        w32 = w.float().to(dev).requires_grad_(True)
+        cb.reset_launches()
+        out, _, _ = fn(x.to(dev, dtype), w32.to(dtype), b.to(dev, dtype),
+                       gamma.to(dev), beta.to(dev), **kw)
+        gw, = torch.autograd.grad(out.float().square().sum(), [w32],
+                                  create_graph=True)
+        results[name] = torch.autograd.grad((gw * v.to(dev)).sum(),
+                                            [w32])[0].cpu()
+        if name == "kernels":
+            launched = {k for k, n in cb.launches().items() if n}
+    got = results["kernels"]
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    assert ("layer_norm_fwd_bf16" if order == "norm_first"
+            else "layer_norm_bwd_bwd_bf16") in launched
+    assert all(k.endswith("_bf16") for k in launched), launched
     spread = (results["twins bf16"] - results["twins f32"]).abs().max()
     assert (got - results["twins bf16"]).abs().max() <= 2 * spread
