@@ -13,7 +13,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
    main paths' shapes — the serving kernels K1-K4 at T = 8 tenants, N = 25
    and 75 images; the training kernels K1 stats-free and K5 at T = 2 and 8
    tasks, N = 25 — at layer-1 and layer-2 geometry of the mini-ImageNet
-   model; K1-K5 again at the four layers of the Omniglot 20-way 1-shot
+   model, K4 also at its stages 2-3 (21 and 10 pixels; K4 held twice,
+   bit for bit, here and at pad 0, and its rows printed with their
+   library ratio and bound share as ``[K4]`` lines); K1-K5
+   again at the four layers of the Omniglot 20-way 1-shot
    model (28/14/7/3, cin 1 and 64, cout 64, T = 8, N = 20); and the ingest
    kernel ``episode_expand`` at the Omniglot device-tier train batch, a
    mini-ImageNet serve bucket of 8 (also with ``reverse_channels``) and the
@@ -207,6 +210,8 @@ T_TENANTS = 8
 COUT = 48
 # (label, H = W, cin) of the layers whose shapes the kernels are held at
 LAYERS = (("layer1", 84, 3), ("layer2", 42, 48))
+# the mini-ImageNet model's stages 2-3, where K4 also runs (check_k4_stages)
+K4_STAGES = (("layer3", 21, 48), ("layer4", 10, 48))
 IMAGES = (25, 75)  # 5-shot support, 15-target query (5-way)
 # the Omniglot 20-way 1-shot model: 64 filters, pooling 28 -> 14 -> 7 -> 3
 # -> 1; 20 support and 20 target images per task
@@ -679,31 +684,90 @@ def check_kernels(cb, F, records, layers=LAYERS, images=IMAGES, C=COUT,
                 10 * y.numel() + 6 * pooled.numel(),
                 4 * (dp.numel() + y.numel() + dy.numel() + 4 * T * C)
                 + arg.numel())
-            dyl = _nchw_tenants(dy)
-            # K4 dgrad: layers 2-4 only (layer 1's input is the images)
-            if cin == C:
-                dx = cb.conv3x3_dgrad(dy, w)
-                err = max_err("conv3x3_dgrad", dx, F.conv3x3_dgrad(dy, w))
-                rec("conv3x3_dgrad", label, err,
-                    lambda: cb.conv3x3_dgrad(dy, w),
-                    lambda: F.conv3x3_dgrad(dy, w),
-                    lambda: torch.nn.grad.conv2d_input(
-                        xl.shape, wl, dyl, padding=1, groups=T),
-                    2 * T * M * 9 * cin * C,
-                    4 * (dy.numel() + w.numel() + dx.numel()))
-            # K4 wgrad
-            dw, db = cb.conv3x3_wgrad(x, dy)
-            dw_p, db_p = F.conv3x3_wgrad(x, dy)
-            err = max(max_err("conv3x3_wgrad dw", dw, dw_p),
-                      max_err("conv3x3_wgrad db", db, db_p))
-            rec("conv3x3_wgrad", label, err,
-                lambda: cb.conv3x3_wgrad(x, dy),
-                lambda: F.conv3x3_wgrad(x, dy),
-                lambda: torch.nn.grad.conv2d_weight(
-                    xl, wl.shape, dyl, padding=1, groups=T),
-                2 * T * M * 9 * cin * C + T * M * C,
-                4 * (x.numel() + dy.numel() + dw.numel() + db.numel()))
-            del x, y, y_p, pooled, pooled_p, dy, dy_p, dyl, xl
+            # K4: dgrad at layers 2-4 only (layer 1's input is the images)
+            _check_k4(cb, F, records, label, x, w, dy, dgrad=cin == C)
+            del x, y, y_p, pooled, pooled_p, dy, dy_p, xl
+            torch.cuda.empty_cache()
+
+
+def _same_bits(name, fn, want):
+    """A second launch on the same inputs gives the same bits (no atomics,
+    every sum in a fixed order)."""
+    got = fn()
+    for a, b in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name}: two launches on the same inputs "
+                                 "differ")
+
+
+def _check_k4(cb, F, records, label, x, w, dy, dgrad=True):
+    """K4 dgrad (with ``dgrad``) and wgrad at pad 1, stride 1 on (x, w, dy)
+    against their twins, a second launch bit for bit the first, each timed
+    beside its twin and the library call (``conv2d_input`` /
+    ``conv2d_weight``, grouped by tenant)."""
+    rec = records.add
+    T, N, H, W, cin = x.shape
+    C = w.shape[-1]
+    M = N * H * W
+    xl = _nchw_tenants(x)
+    wl = w.permute(0, 4, 3, 1, 2).reshape(T * C, cin, 3, 3).contiguous()
+    dyl = _nchw_tenants(dy)
+    if dgrad:
+        dx = cb.conv3x3_dgrad(dy, w)
+        err = max_err("conv3x3_dgrad", dx, F.conv3x3_dgrad(dy, w))
+        _same_bits("conv3x3_dgrad", lambda: cb.conv3x3_dgrad(dy, w), dx)
+        rec("conv3x3_dgrad", label, err,
+            lambda: cb.conv3x3_dgrad(dy, w),
+            lambda: F.conv3x3_dgrad(dy, w),
+            lambda: torch.nn.grad.conv2d_input(
+                xl.shape, wl, dyl, padding=1, groups=T),
+            2 * T * M * 9 * cin * C,
+            4 * (dy.numel() + w.numel() + dx.numel()))
+    dw, db = cb.conv3x3_wgrad(x, dy)
+    dw_p, db_p = F.conv3x3_wgrad(x, dy)
+    err = max(max_err("conv3x3_wgrad dw", dw, dw_p),
+              max_err("conv3x3_wgrad db", db, db_p))
+    _same_bits("conv3x3_wgrad", lambda: cb.conv3x3_wgrad(x, dy), (dw, db))
+    rec("conv3x3_wgrad", label, err,
+        lambda: cb.conv3x3_wgrad(x, dy),
+        lambda: F.conv3x3_wgrad(x, dy),
+        lambda: torch.nn.grad.conv2d_weight(
+            xl, wl.shape, dyl, padding=1, groups=T),
+        2 * T * M * 9 * cin * C + T * M * C,
+        4 * (x.numel() + dy.numel() + dw.numel() + db.numel()))
+
+
+def print_k4_rows(records):
+    """K4's f32 rows at every timed shape of the kernel phase: ms, the
+    library call's, the bound and the bound's share of the kernel's time."""
+    for kernel in ("conv3x3_wgrad", "conv3x3_dgrad", "conv3x3_p0_wgrad",
+                   "conv3x3_p0_dgrad"):
+        for label, r in records.by_kernel[kernel].items():
+            lib = r["library_ms"]
+            vs = ("no library call" if lib is None else
+                  "library %.4f ms (%.2fx)" % (lib, r["ms"] / lib))
+            print(f"[K4] {kernel} @ {label}: {r['ms']:.4f} ms, {vs}, bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}), "
+                  f"{100 * r['bound_ms'] / r['ms']:.1f}% of the kernel's "
+                  "time", flush=True)
+
+
+def check_k4_stages(cb, F, records, stages=K4_STAGES, images=IMAGES,
+                    C=COUT):
+    """Phase 3, K4 at the mini-ImageNet model's stages 2-3 (21 and 10
+    pixels, 48 channels; N = 25 and 75, T = 8), the rest of K4's f32
+    main-path shapes: dgrad and wgrad on a random dy against their twins,
+    twice (bit for bit), timed beside the twins and the library calls."""
+    randn = _randn(torch.Generator(device="cuda").manual_seed(12))
+    T = T_TENANTS
+    for layer, hw, cin in stages:
+        for n in images:
+            x = randn(T, n, hw, hw, cin)
+            w = randn(T, 3, 3, cin, C, scale=math.sqrt(2.0 / (9 * cin)))
+            dy = randn(T, n, hw, hw, C, scale=1.0 / math.sqrt(n * hw * hw))
+            _check_k4(cb, F, records, f"T={T} {layer} N={n}", x, w, dy)
+            del x, dy
             torch.cuda.empty_cache()
 
 
@@ -1304,6 +1368,8 @@ def check_unpadded_kernels(cb, F, records, T=T_TENANTS, C=COUT):
                                 dx[:, :, -1].any() or dx[:, :, :, -1].any()):
                             raise AssertionError(f"{name}: the unread last "
                                                  "row has a gradient")
+                        _same_bits(name, lambda: cb.conv3x3_dgrad(
+                            dy, w, s, (hw, hw), 0), dx)
                         rec(name, label, err,
                             lambda: cb.conv3x3_dgrad(dy, w, s, (hw, hw), 0),
                             lambda: F.conv3x3_dgrad(dy, w, s, (hw, hw), 0),
@@ -1314,9 +1380,12 @@ def check_unpadded_kernels(cb, F, records, T=T_TENANTS, C=COUT):
                             4 * (dy.numel() + w.numel() + x.numel()))
                         del dx
                     name = cb._conv_name("conv3x3_wgrad", s, 0)
-                    err = _bn_errs(name, cb.conv3x3_wgrad(x, dy, s, 0),
-                                   F.conv3x3_wgrad(x, dy, **kw),
+                    got = cb.conv3x3_wgrad(x, dy, s, 0)
+                    err = _bn_errs(name, got, F.conv3x3_wgrad(x, dy, **kw),
                                    ("dw", "db"), label)
+                    _same_bits(name, lambda: cb.conv3x3_wgrad(x, dy, s, 0),
+                               got)
+                    del got
                     rec(name, label, err,
                         lambda: cb.conv3x3_wgrad(x, dy, s, 0),
                         lambda: F.conv3x3_wgrad(x, dy, **kw),
@@ -4000,6 +4069,8 @@ def main() -> int:
     records = Records(all_kernels, peak_rates(kind),
                       peak_rates(kind, bf16_tensor_cores=True)[0])
     check_kernels(cb, F, records)
+    print("[kernels] K4 at the mini-ImageNet stages 2-3", flush=True)
+    check_k4_stages(cb, F, records)
     check_train_kernels(cb, F, records)
     print("[kernels] K1-K5 at the Omniglot 20-way 1-shot layers", flush=True)
     check_kernels(cb, F, records, OMNIGLOT_LAYERS, (OMNIGLOT_IMAGES,),
@@ -4064,6 +4135,7 @@ def main() -> int:
                   "decisions", flush=True)
             check(_replayed_blocks(cb, F, False), x_shape, kw, what)
     print(f"[kernels] {time.perf_counter() - t0:.1f} s", flush=True)
+    print_k4_rows(records)
 
     main_counts = {k: 0 for k in all_kernels}
     t0 = time.perf_counter()

@@ -14,10 +14,10 @@ kernel                      route   source                    launches/call
 ``conv3x3_fwd``             CUDA    csrc/conv3x3_fwd.cu (K1)  1 (stats-free)
 ``bn_act_pool_fwd``         Triton  bn_act_pool.py (K2)       1
 ``bn_act_pool_bwd``         Triton  bn_act_pool.py (K3)       reduce + dy: 2
-``conv3x3_dgrad``           CUDA    csrc/conv3x3_bwd.cu (K4)  1
-``conv3x3_wgrad``           CUDA    csrc/conv3x3_bwd.cu (K4)  wgrad + reduce: 2
+``conv3x3_dgrad``           CUDA    csrc/conv3x3_bwd_s1.cu    1
+``conv3x3_wgrad``           CUDA    csrc/conv3x3_bwd_s1.cu    wgrad + reduce: 2
 ``bn_act_pool_bwd_bwd``     Triton  bn_act_pool.py (K5)       reduce + out: 2
-``conv3x3_s2_*``            CUDA    the same sources          as at stride 1
+``conv3x3_s2_*``            CUDA    K1: fwd.cu, K4: bwd.cu    as at stride 1
 ``conv3x3_p0_*``            CUDA    the same sources          as at pad 1
 ``conv3x3_s2_p0_*``         CUDA    the same sources          as at pad 1
 ``bn_act_fwd``              Triton  bn_act_pool.py (K2)       1 (pool-free)
@@ -38,8 +38,15 @@ kernel                      route   source                    launches/call
 ``layer_norm_fwd``          Triton  layer_norm.py             1
 ``layer_norm_bwd``          Triton  layer_norm.py             reduce + sums + dx: 3
 ``layer_norm_bwd_bwd``      Triton  layer_norm.py             reduce + sums + out: 3
-``*_bf16``                  as f32  the same sources          as in f32
+``*_bf16``                  as f32  K4: bwd.cu                as in f32
 ==========================  ======  ========================  ==================
+
+K4 (dgrad and wgrad) runs two designs: in f32 at stride 1 (every
+shipped config) the band kernels of ``csrc/conv3x3_bwd_s1.cu``, which
+stage a band of rows with its halo in shared memory once; in bf16 and at
+stride 2 the tile kernels of ``csrc/conv3x3_bwd.cu``. ``dgrad_plan`` and
+``wgrad_plan`` give each launch (grid, bands, splits, shared memory,
+scratch) as a pure function of the shape.
 
 The ``conv3x3_s2_*`` names are the four conv kernels at stride 2 (the
 strided model, ``max_pooling=False``), counted apart from stride 1, and
@@ -116,7 +123,8 @@ holds for ``layer_norm_bwd_bwd``.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+import functools
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -184,11 +192,25 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 #: output pixels per K1 tile (``kBM`` in csrc/conv3x3_tile.cuh)
 CONV_TILE_ROWS = 256
-#: K4 wgrad cuts each tenant's pixel axis into splits, each reduced by its
-#: own blocks, so that about this many blocks per SM are in flight ...
-WGRAD_BLOCKS_PER_SM = 16
-#: ... while every split keeps at least this many pixels
-WGRAD_MIN_SPLIT_PIXELS = 512
+#: the K4 band kernels (csrc/conv3x3_bwd_s1.cu, f32 at stride 1): most
+#: threads a block — for wgrad the FFMA threads, beside its db warp: 8
+#: warps, two blocks a SM within 128 registers a thread (a SM
+#: sub-partition's 16K registers); for dgrad 4 warps, one warp a
+#: sub-partition, so that shared memory sets its blocks a SM — and the
+#: dynamic shared memory a block may take on sm_90
+WGRAD_MAX_THREADS = 224
+DGRAD_MAX_THREADS = 128
+BAND_LAUNCH_BOUND = 256  # their ``__launch_bounds__``: no block is larger
+BLOCK_SMEM = 232448
+#: the bytes a wgrad block's two-band ring and a dgrad block's band and
+#: weight ring may take: three blocks fit a SM's 228 KB
+WGRAD_RING_BYTES = 75 * 1024
+DGRAD_SMEM_BYTES = 75 * 1024
+#: a wgrad band's pixels, as rows of the output allow
+WGRAD_BAND_PIXELS = 128
+#: blocks a SM the band kernels' plans give the card (where the shape has
+#: that many bands)
+BAND_BLOCKS_PER_SM = 2
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -787,13 +809,202 @@ def layer_norm_bwd_bwd(a: Tensor, ggamma: Tensor, gbeta: Tensor, dz: Tensor,
 # -- K4 -----------------------------------------------------------------------
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _round4(a: int) -> int:
+    return _cdiv(a, 4) * 4
+
+
+class WgradPlan(NamedTuple):
+    """The launch of K4 wgrad at one shape. ``kernel`` is ``"band"`` (f32
+    at stride 1, csrc/conv3x3_bwd_s1.cu) or ``"tile"`` (bf16 or stride 2,
+    csrc/conv3x3_bwd.cu); ``grid`` is the first launch's (the second sums
+    the ``splits`` partials of each tenant in split order). Band fields:
+    ``band_rows`` output rows of one image a band, ``bands`` a image,
+    ``kernel_rows`` (3 or 1) a block, ``groups`` 8-channel groups a block,
+    ``replicas`` of the output tile a block; ``smem`` is the dynamic shared
+    memory (0: the tile kernel's is static); ``scratch`` the shapes of the
+    partials ``part_w`` and ``part_b``."""
+
+    kernel: str
+    grid: Tuple[int, int, int]
+    threads: int
+    smem: int
+    splits: int
+    band_rows: int
+    bands: int
+    kernel_rows: int
+    groups: int
+    replicas: int
+    scratch: Tuple[Tuple[int, int, int], Tuple[int, int, int]]
+
+    def split_bands(self, split: int, images: int) -> range:
+        """The bands (image * ``bands`` + band) that ``split`` of a tenant
+        of ``images`` images sums, in the band kernel's order."""
+        total = images * self.bands
+        return range(total * split // self.splits,
+                     total * (split + 1) // self.splits)
+
+
+def _tile_wgrad_splits(T: int, M: int, cin: int, cout: int, sms: int) -> int:
+    """The tile kernel's split of each tenant's M output pixels (bf16 and
+    stride 2): about 16 blocks a SM, at least 512 pixels a split. Kept as
+    it was, so that those instantiations keep their bits."""
+    blocks = _cdiv(9 * cin, 64) * _cdiv(cout, 16) * T
+    return max(1, min(_cdiv(16 * sms, blocks), M // 512, 65535 // T))
+
+
+@functools.lru_cache(maxsize=None)
+def wgrad_plan(T: int, N: int, H: int, W: int, cin: int, cout: int,
+               stride: int = 1, pad: int = 1, sms: int = 132,
+               bf16: bool = False) -> WgradPlan:
+    """K4 wgrad's launch for x ``(T, N, H, W, cin)`` and ``cout`` output
+    channels on a card of ``sms`` SMs. A pure function of the shape: the
+    wrapper calls it, and so do the CPU tests.
+
+    The band kernel (f32, stride 1): a thread holds TK x 8 accumulators (TK
+    = 9, a whole kernel row, at cin <= 3, else 8); a block takes all three
+    kernel rows where that is at most ``WGRAD_MAX_THREADS`` threads, else
+    one (three slices in ``grid[1]``), and ``replicas`` copies of its tile
+    up to that many threads;
+    bands of about ``WGRAD_BAND_PIXELS`` output pixels, fewer rows while
+    the two-band ring exceeds ``WGRAD_RING_BYTES`` or the bands are too few
+    for ``BAND_BLOCKS_PER_SM`` blocks a SM (at most a replica a pixel of a
+    band); and enough splits of each tenant's bands for that many blocks,
+    as far as the bands go. A row whose band of one row needs more than
+    ``BLOCK_SMEM`` raises (at cin and cout 64, rows over about 220
+    pixels)."""
+    Ho, Wo = F.conv_out_hw(H, W, stride, pad)
+    if min(T, N, Ho, Wo, cin, cout) < 1 or T > 65535:
+        raise ValueError(f"wgrad_plan: no conv3x3 wgrad of a {H}x{W} input "
+                         f"at stride {stride}, pad {pad} (T={T}, N={N}, "
+                         f"cin={cin}, cout={cout})")
+    if stride != 1 or bf16:
+        S = _tile_wgrad_splits(T, N * Ho * Wo, cin, cout, sms)
+        return WgradPlan(
+            "tile", (_cdiv(9 * cin, 64), _cdiv(cout, 16), T * S), 128, 0, S,
+            0, 0, 0, 0, 0, ((T, S, 9 * cin * cout), (T, S, cout)))
+    TK = 9 if cin <= 3 else 8
+    KGR = _cdiv(3 * cin, TK)
+    NG = _cdiv(cout, 8)
+    if 3 * KGR * NG <= WGRAD_MAX_THREADS:
+        KH, NGB = 3, NG
+    else:
+        KH, NGB = 1, min(NG, WGRAD_MAX_THREADS // KGR)
+        if NGB < 1:
+            raise ValueError(f"wgrad_plan: cin {cin} needs more than "
+                             f"{WGRAD_MAX_THREADS} threads a kernel row")
+    TPR = KH * KGR * NGB
+    off = (4 - pad * cin % 4) % 4
+    RS = _round4(off + (Wo + 2) * cin)
+
+    def ring(CR):
+        return 2 * (_round4((CR + KH - 1) * RS + TK) + CR * Wo * 8 * NG) * 4
+
+    ky = 3 // KH * _cdiv(NG, NGB)
+    target = BAND_BLOCKS_PER_SM * sms
+    CR = min(Ho, _cdiv(WGRAD_BAND_PIXELS, Wo))
+    while CR > 1 and (ring(CR) > WGRAD_RING_BYTES
+                      or T * ky * N * _cdiv(Ho, CR) < target):
+        CR -= 1
+    nb = _cdiv(Ho, CR)
+    CR = _cdiv(Ho, nb)
+    R = max(1, min(WGRAD_MAX_THREADS // TPR, CR * Wo))
+    # the ring, or the replicas' tree where larger, then db's running sums
+    smem = max(ring(CR), (R // 2) * TK * 8 * TPR * 4) + 8 * NG * 4
+    if smem > BLOCK_SMEM:
+        raise ValueError(f"wgrad_plan: a band of {Wo} pixels at cin {cin}, "
+                         f"cout {cout} needs {smem} B of shared memory")
+    S = max(1, min(_cdiv(target, T * ky), N * nb))
+    threads = _cdiv(R * TPR, 32) * 32 + 32  # and a warp for db
+    return WgradPlan("band", (S, ky, T), threads, smem, S, CR, nb, KH, NGB,
+                     R, ((T, S, 9 * cin * cout), (T, S, cout)))
+
+
+class DgradPlan(NamedTuple):
+    """The launch of K4 dgrad at one shape: ``kernel`` ``"band"`` (f32 at
+    stride 1) or ``"tile"`` (bf16 or stride 2); a band kernel's block takes
+    ``band_rows`` input rows of one image and all input channels,
+    ``bands`` a image, its threads in ``splits`` groups that split the sum
+    over cout; ``smem`` its dynamic shared memory (the band with its halo
+    and the two-tap weight ring, or the groups' tree where larger)."""
+
+    kernel: str
+    grid: Tuple[int, int, int]
+    threads: int
+    smem: int
+    band_rows: int
+    bands: int
+    splits: int
+
+
+@functools.lru_cache(maxsize=None)
+def dgrad_plan(T: int, N: int, H: int, W: int, cin: int, cout: int,
+               stride: int = 1, pad: int = 1, sms: int = 132,
+               bf16: bool = False) -> DgradPlan:
+    """K4 dgrad's launch for dx ``(T, N, H, W, cin)`` from a dy of ``cout``
+    channels. The band kernel (f32, stride 1): 8 pixels x 8 channels a
+    thread (8 x 4 at cin <= 4); the most rows a band that keep a block at
+    most ``DGRAD_MAX_THREADS`` threads and ``DGRAD_SMEM_BYTES`` of shared
+    memory and the grid at ``BAND_BLOCKS_PER_SM`` blocks a SM, balanced
+    over the image; then as many groups splitting the sum over cout as
+    keep the block within ``DGRAD_MAX_THREADS`` threads. A row that no
+    block of ``BAND_LAUNCH_BOUND`` threads and ``BLOCK_SMEM`` holds raises
+    (at cin and cout 64, rows over about 220 pixels)."""
+    Ho, Wo = F.conv_out_hw(H, W, stride, pad)
+    if min(T, N, Ho, Wo, cin, cout) < 1 or T > 65535:
+        raise ValueError(f"dgrad_plan: no conv3x3 dgrad of a {H}x{W} input "
+                         f"at stride {stride}, pad {pad} (T={T}, N={N}, "
+                         f"cin={cin}, cout={cout})")
+    if stride != 1 or bf16:
+        return DgradPlan("tile", (_cdiv(N * H * W, CONV_TILE_ROWS),
+                                  _cdiv(cin, 16), T), 128, 0, 0, 0, 1)
+    TN = 4 if cin <= 4 else 8
+    CG = _cdiv(cin, TN)
+    CP = _round4(cout)
+    CP += 4 if CP // 4 % 2 == 0 else 0
+
+    def threads(CR):
+        return _cdiv(CR * W, 8) * CG
+
+    def smem(CR):
+        return ((CR + 2) * (W + 2) * CP + 2 * CG * TN * CP) * 4
+
+    CR = 1
+    for rows in range(2, H + 1):
+        if (threads(rows) > DGRAD_MAX_THREADS
+                or smem(rows) > DGRAD_SMEM_BYTES
+                or T * N * _cdiv(H, rows) < BAND_BLOCKS_PER_SM * sms):
+            break
+        CR = rows
+    nb = _cdiv(H, CR)
+    CR = _cdiv(H, nb)
+    if threads(CR) > BAND_LAUNCH_BOUND or smem(CR) > BLOCK_SMEM:
+        raise ValueError(f"dgrad_plan: a {W}-pixel row at cin {cin}, cout "
+                         f"{cout} does not fit a block")
+    # groups splitting the sum over cout, up to the most threads (a row
+    # wider than DGRAD_MAX_THREADS takes one group, up to the bound)
+    KS = max(1, min(DGRAD_MAX_THREADS // threads(CR), _round4(cout) // 4))
+    tree = (KS // 2) * 8 * TN * threads(CR) * 4
+    return DgradPlan("band", (N * nb, 1, T), KS * threads(CR),
+                     max(smem(CR), tree), CR, nb, KS)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def conv3x3_dgrad(dy: Tensor, w: Tensor, stride: int = 1,
                   in_hw: Optional[Tuple[int, int]] = None,
                   padding: int = 1) -> Tensor:
     """The input gradient of the 3x3 conv at ``stride`` and ``padding``;
     ``in_hw`` is the input's (H, W), required at stride 2 and at pad 0
     (dy's size does not determine it, or not as dy's own), and dy's own at
-    stride 1, pad 1."""
+    stride 1, pad 1. f32 at stride 1 runs the band kernel, bf16 and stride
+    2 the tile kernel (``dgrad_plan``)."""
     name = _conv_name("conv3x3_dgrad", stride, padding)
     if in_hw is None:
         if stride != 1 or padding != 1:
@@ -811,13 +1022,22 @@ def conv3x3_dgrad(dy: Tensor, w: Tensor, stride: int = 1,
     H, W = in_hw
     cin = w.shape[-2]
     _check(name, "w", w, (T, 3, 3, cin, cout), dy.device, dy.dtype)
+    plan = dgrad_plan(T, N, H, W, cin, cout, stride, padding,
+                      _sms(dy.device), dy.dtype == torch.bfloat16)
     dx = torch.empty((T, N, H, W, cin), device=dy.device, dtype=dy.dtype)
     counter = _counter(name, dy)
-    fn = build.function("conv3x3_bwd", _counter("conv3x3_dgrad", dy),
-                        (_P,) * 3 + (_I,) * 8 + (_P,))
     with torch.cuda.device(dy.device):
-        rc = fn(_ptr(dy), _ptr(w), _ptr(dx), T, N, H, W, stride, padding,
-                cin, cout, _stream(dy.device))
+        if plan.kernel == "band":
+            fn = build.function("conv3x3_bwd_s1", "conv3x3_dgrad_band",
+                                (_P,) * 3 + (_I,) * 11 + (_P,))
+            rc = fn(_ptr(dy), _ptr(w), _ptr(dx), T, N, H, W, padding, cin,
+                    cout, plan.band_rows, plan.splits, plan.threads,
+                    plan.smem, _stream(dy.device))
+        else:
+            fn = build.function("conv3x3_bwd", _counter("conv3x3_dgrad", dy),
+                                (_P,) * 3 + (_I,) * 8 + (_P,))
+            rc = fn(_ptr(dy), _ptr(w), _ptr(dx), T, N, H, W, stride,
+                    padding, cin, cout, _stream(dy.device))
     build.check(rc, counter)
     LAUNCHES[counter] += 1
     return dx
@@ -826,7 +1046,9 @@ def conv3x3_dgrad(dy: Tensor, w: Tensor, stride: int = 1,
 def conv3x3_wgrad(x: Tensor, dy: Tensor, stride: int = 1, padding: int = 1
                   ) -> Tuple[Tensor, Tensor]:
     """The weight (HWIO) and bias gradients of the 3x3 conv at ``stride``
-    and ``padding``."""
+    and ``padding``. f32 at stride 1 runs the band kernel, bf16 and stride
+    2 the tile kernel (``wgrad_plan``); each sums its split partials in a
+    second launch."""
     if _on_cpu(x):
         return F.conv3x3_wgrad(x, dy, stride=stride, padding=padding)
     name = _conv_name("conv3x3_wgrad", stride, padding)
@@ -834,23 +1056,28 @@ def conv3x3_wgrad(x: Tensor, dy: Tensor, stride: int = 1, padding: int = 1
     cout = dy.shape[-1]
     Ho, Wo = _conv_out(name, H, W, stride, padding)
     _check(name, "dy", dy, (T, N, Ho, Wo, cout), x.device, x.dtype)
-    M = N * Ho * Wo
-    # blocks per split: (K tiles of 64) x (channel tiles of 16) x tenants
-    blocks = -(-9 * cin // 64) * -(-cout // 16) * T
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    splits = max(1, min(-(-WGRAD_BLOCKS_PER_SM * sms // blocks),
-                        M // WGRAD_MIN_SPLIT_PIXELS, 65535 // T))
-    part_w = torch.empty((T, splits, 9 * cin * cout), device=x.device)
-    part_b = torch.empty((T, splits, cout), device=x.device)
+    plan = wgrad_plan(T, N, H, W, cin, cout, stride, padding,
+                      _sms(x.device), x.dtype == torch.bfloat16)
+    part_w = torch.empty(plan.scratch[0], device=x.device)
+    part_b = torch.empty(plan.scratch[1], device=x.device)
     dw = torch.empty((T, 3, 3, cin, cout), device=x.device, dtype=x.dtype)
     db = torch.empty((T, cout), device=x.device, dtype=x.dtype)
     counter = _counter(name, x)
-    fn = build.function("conv3x3_bwd", _counter("conv3x3_wgrad", x),
-                        (_P,) * 6 + (_I,) * 9 + (_P,))
     with torch.cuda.device(x.device):
-        rc = fn(_ptr(x), _ptr(dy), _ptr(part_w), _ptr(part_b), _ptr(dw),
-                _ptr(db), T, N, H, W, stride, padding, cin, cout, splits,
-                _stream(x.device))
+        if plan.kernel == "band":
+            fn = build.function("conv3x3_bwd_s1", "conv3x3_wgrad_band",
+                                (_P,) * 6 + (_I,) * 14 + (_P,))
+            rc = fn(_ptr(x), _ptr(dy), _ptr(part_w), _ptr(part_b), _ptr(dw),
+                    _ptr(db), T, N, H, W, padding, cin, cout, plan.splits,
+                    plan.band_rows, plan.kernel_rows, plan.groups,
+                    plan.replicas, plan.threads, plan.smem,
+                    _stream(x.device))
+        else:
+            fn = build.function("conv3x3_bwd", _counter("conv3x3_wgrad", x),
+                                (_P,) * 6 + (_I,) * 9 + (_P,))
+            rc = fn(_ptr(x), _ptr(dy), _ptr(part_w), _ptr(part_b), _ptr(dw),
+                    _ptr(db), T, N, H, W, stride, padding, cin, cout,
+                    plan.splits, _stream(x.device))
     build.check(rc, counter)
     LAUNCHES[counter] += 1
     return dw, db

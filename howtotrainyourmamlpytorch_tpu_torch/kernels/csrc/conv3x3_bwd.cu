@@ -1,5 +1,8 @@
-// K4 conv3x3_bwd: the first backward of the slice's 3x3 conv, two entry
-// points.
+// K4 conv3x3_bwd: the first backward of the slice's 3x3 conv on the tile
+// kernels, two entry points each for f32 and bf16 — the bf16 convs at
+// stride 1 or 2 and the f32 convs at stride 2. The f32 convs at stride 1
+// (every shipped config) run the band kernels of conv3x3_bwd_s1.cu: the
+// float entries here refuse stride 1.
 //
 // Replaces (JAX package) the gradient XLA derives for
 // howtotrainyourmamlpytorch_tpu/ops/functional.py::_conv2d_raw :199 in the
@@ -8,15 +11,17 @@
 //
 // * conv3x3_dgrad: dx = the transposed 3x3 conv of dy with each tenant's
 //   weights — K1's implicit-GEMM tile (conv3x3_tile.cuh) reading the weights
-//   flipped in space and transposed in channels. FLOP-bound at the slice's
-//   layers 2-4 (the only layers that need it: layer 1's input is the raw
-//   image), exactly like the forward.
+//   flipped in space and transposed in channels. FLOP-bound at the
+//   slice's layers 2-4, exactly like the forward.
 // * conv3x3_wgrad: dW[t] = patches(x[t])^T dy[t] and db[t] = sum dy[t]: a
-//   GEMM whose reduction runs over the M = N*H*W pixels. FLOP-bound at
+//   GEMM whose reduction runs over the M = N*Ho*Wo pixels. FLOP-bound at
 //   layers 2-4, byte-bound at layer 1. The pixel axis is split over S
 //   blocks per tenant into partial buffers, reduced by a second launch in a
-//   fixed order — deterministic, no atomics. Patches are again gathered from
-//   x on the fly.
+//   fixed order — deterministic, no atomics. Patches are gathered from x
+//   on the fly. (The band kernels' redesign — x and dy staged once per
+//   band through a cp.async ring, whole channel rows a block, larger
+//   register tiles — is queued for these instantiations: mma.sync/wgmma in
+//   bf16, per-parity sub-GEMMs at stride 2.)
 //
 // Stride 2 (the strided model): wgrad reduces over the N*Ho*Wo output
 // pixels with the forward's tap arithmetic, x at (2*oh - 1 + kh, 2*ow - 1 +
@@ -32,22 +37,22 @@
 //
 // Pad 0 (the unpadded model): a runtime argument that moves the taps'
 // origin, as in the forward. wgrad reads x at (s*oh - pad + kh); dgrad's
-// rows are the H x W input pixels and its source the smaller dy (82 x 82
-// against 84 x 84 at stride 1: the "full" correlation, tap origin 2 - pad,
-// the halo zeroed by the bounds check), at stride 2 dy at (ih - (2 - pad)
-// + kh') / 2 where that is even and inside dy — so an input row that no
-// output reads (the last of 84 -> 41, 20 -> 9) gets a zero gradient. Pad 1
-// is the code it was, bit for bit.
+// rows are the H x W input pixels and its source the smaller dy, at stride
+// 2 dy at (ih - (2 - pad) + kh') / 2 where that is even and inside dy — so
+// an input row that no output reads (the last of 84 -> 41, 20 -> 9) gets a
+// zero gradient.
 //
 // bf16 (conv3x3_dgrad_bf16, conv3x3_wgrad_bf16): bf16 dy, w and x, widened
 // to f32 as they load (conv3x3_tile.cuh); every sum accumulates in f32
 // (dgrad's 9*cout-deep dot, wgrad's pixel reduction and its split
 // partials) and is rounded once to bf16 at the store: dx, dw and db come
-// out bf16 (the caller hands dw and db to the f32 leaves as f32). The
-// float instantiation is the code it was, bit for bit. Bound as in f32
-// (FFMA, the same FLOPs), with half the bytes.
+// out bf16 (the caller hands dw and db to the f32 leaves as f32). Bound as
+// in f32 (FFMA, the same FLOPs), with half the bytes. These and the f32
+// stride-2 instantiations are the code they were, bit for bit.
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "conv3x3_tile.cuh"
 
@@ -259,12 +264,15 @@ int dgrad(const T* dy, const T* w, T* dx, int T_, int N, int H, int W,
     return (int)cudaErrorInvalidValue;
   dim3 grid(ceil_div(M, kBM), ceil_div(cin_fwd, kBN), T_);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (stride == 1)
+  if constexpr (std::is_same<T, float>::value) {  // f32 at stride 1: _s1.cu
+    if (stride == 1) return (int)cudaErrorInvalidValue;
+  } else if (stride == 1) {
     conv3x3_dgrad_kernel<T, 1><<<grid, kThreads, 0, st>>>(
         dy, w, dx, N, H, W, Ho, Wo, cin_fwd, cout_fwd, pad);
-  else
-    conv3x3_dgrad_kernel<T, 2><<<grid, kThreads, 0, st>>>(
-        dy, w, dx, N, H, W, Ho, Wo, cin_fwd, cout_fwd, pad);
+    return (int)cudaGetLastError();
+  }
+  conv3x3_dgrad_kernel<T, 2><<<grid, kThreads, 0, st>>>(
+      dy, w, dx, N, H, W, Ho, Wo, cin_fwd, cout_fwd, pad);
   return (int)cudaGetLastError();
 }
 
@@ -284,10 +292,13 @@ int wgrad(const T* x, const T* dy, float* part_w, float* part_b, T* dw,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int chunk = ceil_div(M, S);
   dim3 grid(ceil_div(9 * cin, kWK), ceil_div(cout, kWN), T_ * S);
-  if (stride == 1)
+  if constexpr (std::is_same<T, float>::value) {  // f32 at stride 1: _s1.cu
+    if (stride == 1) return (int)cudaErrorInvalidValue;
+  } else if (stride == 1) {
     conv3x3_wgrad_kernel<T, 1><<<grid, kThreads, 0, st>>>(
         x, dy, part_w, part_b, N, H, W, Ho, Wo, cin, cout, pad, S, chunk);
-  else
+  }
+  if (stride == 2)
     conv3x3_wgrad_kernel<T, 2><<<grid, kThreads, 0, st>>>(
         x, dy, part_w, part_b, N, H, W, Ho, Wo, cin, cout, pad, S, chunk);
   cudaError_t err = cudaGetLastError();
@@ -305,10 +316,10 @@ int wgrad(const T* x, const T* dy, float* part_w, float* part_b, T* dw,
 
 extern "C" {
 
-// dx (T, N, H, W, cin_fwd) = dgrad of the forward conv at `stride` (1 or
-// 2) and `pad` (1 or 0) with weights w (T, 3, 3, cin_fwd, cout_fwd), from
-// dy (T, N, Ho, Wo, cout_fwd), Ho = (H + 2*pad - 3) / stride + 1 (Wo
-// likewise).
+// dx (T, N, H, W, cin_fwd) = dgrad of the forward conv at `stride` (2 in
+// f32, 1 or 2 in bf16) and `pad` (1 or 0) with weights w (T, 3, 3,
+// cin_fwd, cout_fwd), from dy (T, N, Ho, Wo, cout_fwd), Ho = (H + 2*pad -
+// 3) / stride + 1 (Wo likewise).
 int conv3x3_dgrad(const float* dy, const float* w, float* dx, int T, int N,
                   int H, int W, int stride, int pad, int cin_fwd,
                   int cout_fwd, void* stream) {
@@ -325,10 +336,10 @@ int conv3x3_dgrad_bf16(const __nv_bfloat16* dy, const __nv_bfloat16* w,
                                     cin_fwd, cout_fwd, stream);
 }
 
-// dw (T, 3, 3, cin, cout) and db (T, cout) of the conv at `stride` and
-// `pad` from x (T, N, H, W, cin) and dy (T, N, Ho, Wo, cout); part_w (T, S,
-// 9*cin*cout) and part_b (T, S, cout) are scratch. Two launches on
-// `stream`.
+// dw (T, 3, 3, cin, cout) and db (T, cout) of the conv at `stride` (2 in
+// f32, 1 or 2 in bf16) and `pad` from x (T, N, H, W, cin) and dy (T, N,
+// Ho, Wo, cout); part_w (T, S, 9*cin*cout) and part_b (T, S, cout) are
+// scratch. Two launches on `stream`.
 int conv3x3_wgrad(const float* x, const float* dy, float* part_w,
                   float* part_b, float* dw, float* db, int T, int N, int H,
                   int W, int stride, int pad, int cin, int cout, int S,

@@ -1,17 +1,21 @@
-"""Save, or compare bit for bit, the pad-1 conv kernels' outputs on fixed
-inputs: the check that giving the CUDA conv kernels a pad argument left
-pad 1 what it was.
+"""Save, or compare bit for bit, the conv kernels' outputs on fixed inputs:
+the check that a change to some conv kernels left the others what they
+were.
 
     PYTHONPATH=<parent checkout> python3 <this file> save bits.pt
     PYTHONPATH=<this checkout> python3 <this file> compare bits.pt
 
 Run by path, so that ``PYTHONPATH`` picks the package whose kernels are
 built and launched; each tree builds its own kernels into its own
-``_build/``. The inputs come from numpy seeds; each kernel runs at stride
-1 and 2 on the card (K1 with statistics and stats-free, with and without
-bias; K4 dgrad and wgrad), called as both trees' wrappers take it (no pad
-argument: pad 1). ``compare`` prints one line per output and exits 1 if
-any differs (``torch.equal``). Needs one card.
+``_build/``. The inputs come from numpy seeds; each kernel runs in f32 and
+in bf16, at stride 1 and 2 and at pad 1 and 0 on the card (K1 with
+statistics and stats-free, with and without bias; K4 dgrad and wgrad).
+
+``compare`` prints one line per output and exits 1 unless every output is
+``torch.equal`` to the saved one — except K4's f32 outputs at stride 1,
+which the band kernels (``csrc/conv3x3_bwd_s1.cu``) compute in another
+order than the tile kernels before them: those may differ, and must then
+lie within ``1e-5 + 1e-4 * scale`` of their plain twins. Needs one card.
 """
 
 from __future__ import annotations
@@ -25,33 +29,66 @@ import torch
 # map, an odd map at stride 2 (7 -> 4), Omniglot's image layer (cin 1)
 SHAPES = ((2, 5, 84, 84, 3, 48), (2, 5, 21, 21, 48, 48),
           (2, 4, 7, 8, 3, 20), (2, 4, 14, 14, 1, 64))
+DTYPES = (torch.float32, torch.bfloat16)
+ATOL, RTOL = 1e-5, 1e-4
 
 
-def outputs():
+def _inputs(i, shape):
+    T, N, H, W, cin, cout = shape
+    rng = np.random.RandomState(i)
+
+    def r(*dims, scale=1.0):
+        return torch.from_numpy(
+            (rng.randn(*dims) * scale).astype(np.float32)).cuda()
+
+    return (r(T, N, H, W, cin),
+            r(T, 3, 3, cin, cout, scale=(2.0 / (9 * cin)) ** 0.5),
+            r(T, cout, scale=0.1), rng)
+
+
+def band_output(key: str) -> bool:
+    """The outputs the band kernels compute: K4 in f32 at stride 1."""
+    return (key.startswith("float32") and " stride 1 " in key
+            and (" dgrad" in key or " wgrad" in key))
+
+
+def outputs(twins: bool = False):
+    """{key: output} of every kernel call; with ``twins``, the plain twins'
+    outputs of the band kernels' calls instead."""
     from howtotrainyourmamlpytorch_tpu_torch.kernels import conv_block as cb
+    from howtotrainyourmamlpytorch_tpu_torch.ops import functional as F
 
     out = {}
-    for i, (T, N, H, W, cin, cout) in enumerate(SHAPES):
-        rng = np.random.RandomState(i)
-
-        def r(*shape, scale=1.0):
-            return torch.from_numpy(
-                (rng.randn(*shape) * scale).astype(np.float32)).cuda()
-
-        x = r(T, N, H, W, cin)
-        w = r(T, 3, 3, cin, cout, scale=(2.0 / (9 * cin)) ** 0.5)
-        b = r(T, cout, scale=0.1)
-        for s in (1, 2):
-            key = f"{(T, N, H, W, cin, cout)} stride {s}"
-            y, mean, var, rstd = cb.conv3x3_fwd_stats(x, w, b, stride=s)
-            out.update({f"{key} fwd_stats {n}": v for n, v in (
-                ("y", y), ("mean", mean), ("var", var), ("rstd", rstd))})
-            out[f"{key} fwd"] = cb.conv3x3_fwd(x, w, b, s)
-            out[f"{key} fwd (no bias)"] = cb.conv3x3_fwd(x, w, None, s)
-            dy = r(*y.shape)
-            out[f"{key} dgrad"] = cb.conv3x3_dgrad(dy, w, s, (H, W))
-            dw, db = cb.conv3x3_wgrad(x, dy, s)
-            out[f"{key} wgrad dw"], out[f"{key} wgrad db"] = dw, db
+    for i, shape in enumerate(SHAPES):
+        x32, w32, b32, rng = _inputs(i, shape)
+        H, W = shape[2:4]
+        for dtype in DTYPES:
+            x, w, b = (t.to(dtype) for t in (x32, w32, b32))
+            for s in (1, 2):
+                for p in (1, 0):
+                    key = (f"{str(dtype)[6:]} {shape} stride {s} pad {p}")
+                    y = cb.conv3x3_fwd(x, w, b, s, p)
+                    dy = torch.from_numpy(
+                        rng.randn(*y.shape).astype(np.float32)).cuda()
+                    dy = dy.to(dtype)
+                    if twins:
+                        if dtype == torch.float32 and s == 1:
+                            out[f"{key} dgrad"] = F.conv3x3_dgrad(
+                                dy, w, s, (H, W), p)
+                            out[f"{key} wgrad dw"], out[f"{key} wgrad db"] = (
+                                F.conv3x3_wgrad(x, dy, s, p))
+                        continue
+                    stats = cb.conv3x3_fwd_stats(x, w, b, stride=s,
+                                                 padding=p)
+                    out.update({f"{key} fwd_stats {n}": v for n, v in zip(
+                        ("y", "mean", "var", "rstd"), stats)})
+                    out[f"{key} fwd"] = y
+                    out[f"{key} fwd (no bias)"] = cb.conv3x3_fwd(x, w, None,
+                                                                 s, p)
+                    out[f"{key} dgrad"] = cb.conv3x3_dgrad(dy, w, s, (H, W),
+                                                           p)
+                    dw, db = cb.conv3x3_wgrad(x, dy, s, p)
+                    out[f"{key} wgrad dw"], out[f"{key} wgrad db"] = dw, db
     torch.cuda.synchronize()
     return {k: v.cpu() for k, v in out.items()}
 
@@ -61,22 +98,42 @@ def main(argv) -> int:
         raise SystemExit(__doc__)
     if not torch.cuda.is_available():
         raise SystemExit("conv_pad1_bits: needs a CUDA card")
+    from howtotrainyourmamlpytorch_tpu_torch.device import resolve_device
+
+    resolve_device("cuda:0")  # TF32 off for the twins
     got = outputs()
     if argv[0] == "save":
         torch.save(got, argv[1])
         print(f"saved {len(got)} outputs to {argv[1]}")
         return 0
     want = torch.load(argv[1])
-    same = 0
+    twins = outputs(twins=True)
+    same = differ = bad = 0
     for k, v in want.items():
         equal = torch.equal(got[k], v)
         same += equal
-        print(f"{'equal' if equal else 'DIFFERS'}  {k}"
-              + ("" if equal else
-                 f"  max |diff| {(got[k] - v).abs().max().item():.3e}"))
-    print(f"{same} of {len(want)} pad-1 outputs bit-identical to the saved "
-          "build's", flush=True)
-    return 0 if same == len(want) and len(got) == len(want) else 1
+        line = f"{'equal' if equal else 'DIFFERS'}  {k}"
+        if not equal:
+            diff = (got[k].float() - v.float()).abs().max().item()
+            line += f"  max |diff| {diff:.3e}"
+            if band_output(k):
+                differ += 1
+                err = (got[k] - twins[k]).abs().max().item()
+                scale = twins[k].abs().max().item()
+                ok = err <= ATOL + RTOL * scale
+                bad += not ok
+                line += (f"  (band kernel; vs twin {err:.3e}, gate "
+                         f"{ATOL + RTOL * scale:.3e}: "
+                         f"{'within' if ok else 'OUTSIDE'})")
+            else:
+                bad += 1
+        print(line, flush=True)
+    n_band = sum(band_output(k) for k in want)
+    print(f"{same} of {len(want)} outputs bit-identical to the saved "
+          f"build's; {differ} of the {n_band} band-kernel outputs differ "
+          f"(f32 K4 at stride 1), every one within its twin gate: "
+          f"{bad == 0}", flush=True)
+    return 0 if bad == 0 and len(got) == len(want) else 1
 
 
 if __name__ == "__main__":

@@ -1192,3 +1192,102 @@ def test_bf16_layer_norm_blocks_second_order_run_on_the_bf16_kernels(
     assert all(k.endswith("_bf16") for k in launched), launched
     spread = (results["twins bf16"] - results["twins f32"]).abs().max()
     assert (got - results["twins bf16"]).abs().max() <= 2 * spread
+
+
+# K4 in f32 at stride 1: the band kernels (csrc/conv3x3_bwd_s1.cu). Every
+# shape the shipped configs run — mini-ImageNet stages 0-3 (84/42/21/10,
+# cin 3 then 48, cout 48) at N 25 and 75, T 2 and 8; Omniglot's layers 1-4
+# (28/14/7/3, cin 1 then 64, cout 64) at N 20, T 8; the unpadded stages
+# (84/41/19/8) — and edge shapes: a band or a split that ends inside an
+# image, rows of other lengths than a band's, T = 1, cin 1, 2 and 3, channel
+# counts that fill no tile (an odd cin, cout 33 and 130: two channel tiles
+# of wgrad), pad 0 and 1. dgrad at stage 0 is the norm-first model's (back
+# to the normalized image, cin 3).
+K4_MAIN_SHAPES = (
+    [(T, n, hw, cin, 48, 1) for T in (2, 8) for n in (25, 75)
+     for hw, cin in ((84, 3), (42, 48), (21, 48), (10, 48))]
+    + [(8, 20, hw, cin, 64, 1)
+       for hw, cin in ((28, 1), (14, 64), (7, 64), (3, 64))]
+    + [(T, 25, hw, cin, 48, 0) for T in (2, 8)
+       for hw, cin in ((84, 3), (41, 48), (19, 48), (8, 48))]
+)
+K4_EDGE_SHAPES = [
+    # T, N, H, W, cin, cout, pad
+    (1, 1, 5, 5, 1, 4, 1),
+    (1, 1, 5, 5, 1, 4, 0),
+    (1, 3, 9, 7, 3, 20, 1),
+    (2, 3, 11, 9, 3, 20, 0),
+    (1, 2, 9, 11, 2, 16, 1),
+    (1, 2, 13, 6, 17, 33, 1),
+    (2, 5, 10, 10, 17, 33, 0),
+    (2, 4, 6, 30, 5, 12, 1),
+    (1, 7, 12, 12, 64, 64, 0),
+    (1, 2, 8, 8, 48, 130, 1),
+    (1, 3, 4, 9, 100, 16, 1),
+]
+
+
+def _k4_inputs(T, N, H, W, cin, cout, pad, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    Ho, Wo = F.conv_out_hw(H, W, 1, pad)
+    x = torch.randn(T, N, H, W, cin, device="cuda", generator=g)
+    dy = torch.randn(T, N, Ho, Wo, cout, device="cuda", generator=g)
+    w = torch.randn(T, 3, 3, cin, cout, device="cuda", generator=g)
+    return x, dy, w * (2.0 / (9 * cin)) ** 0.5
+
+
+def _check_k4_band(T, N, H, W, cin, cout, pad, seed):
+    """dgrad and wgrad against their twins, one launch each on the f32
+    stride-1 counters, and a second launch on the same inputs bit for bit
+    the first."""
+    x, dy, w = _k4_inputs(T, N, H, W, cin, cout, pad, seed)
+    cb.reset_launches()
+    dx = cb.conv3x3_dgrad(dy, w, 1, (H, W), pad)
+    _close(dx, F.conv3x3_dgrad(dy, w, 1, (H, W), pad))
+    dw, db = cb.conv3x3_wgrad(x, dy, padding=pad)
+    want = F.conv3x3_wgrad(x, dy, padding=pad)
+    _close(dw, want[0])
+    _close(db, want[1])
+    tag = "_p0" if pad == 0 else ""
+    assert cb.launches() == {**{k: 0 for k in cb.KERNELS},
+                             f"conv3x3{tag}_dgrad": 1,
+                             f"conv3x3{tag}_wgrad": 1}
+    assert torch.equal(cb.conv3x3_dgrad(dy, w, 1, (H, W), pad), dx)
+    again = cb.conv3x3_wgrad(x, dy, padding=pad)
+    assert torch.equal(again[0], dw) and torch.equal(again[1], db)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("shape", K4_MAIN_SHAPES, ids=str)
+def test_k4_band_kernels_match_their_twins_at_main_path_shapes(shape,
+                                                               device):
+    T, N, hw, cin, cout, pad = shape
+    _check_k4_band(T, N, hw, hw, cin, cout, pad, seed=hw + cin + N + T)
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("shape", K4_EDGE_SHAPES, ids=str)
+def test_k4_band_kernels_match_their_twins_at_edge_shapes(shape, device):
+    _check_k4_band(*shape, seed=sum(shape))
+
+
+@pytest.mark.parametrize("pad", (1, 0))
+def test_k4_band_kernels_take_tensors_off_16_byte_alignment(pad, device):
+    """Views 4 bytes into their storage (contiguous, so the wrappers take
+    them): the band kernels copy them by 4-byte cp.async."""
+    T, N, H, W, cin, cout = 2, 3, 12, 12, 48, 48
+    x, dy, w = _k4_inputs(T, N, H, W, cin, cout, pad, seed=7)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, device=t.device)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16 != 0
+        return view
+
+    xs, dys, ws = shifted(x), shifted(dy), shifted(w)
+    _close(cb.conv3x3_dgrad(dys, ws, 1, (H, W), pad),
+           F.conv3x3_dgrad(dy, w, 1, (H, W), pad))
+    for a, c in zip(cb.conv3x3_wgrad(xs, dys, padding=pad),
+                    F.conv3x3_wgrad(x, dy, padding=pad)):
+        _close(a, c)
