@@ -13,9 +13,11 @@ Phases, in order; any failure raises and the exit code is non-zero:
    main paths' shapes — the serving kernels K1-K4 at T = 8 tenants, N = 25
    and 75 images; the training kernels K1 stats-free and K5 at T = 2 and 8
    tasks, N = 25 — at layer-1 and layer-2 geometry of the mini-ImageNet
-   model, K4 also at its stages 2-3 (21 and 10 pixels; K4 held twice,
-   bit for bit, here and at pad 0, and its rows printed with their
-   library ratio and bound share as ``[K4]`` lines); K1-K5
+   model, K1 (both modes) and K4 also at its stages 2-3 (21 and 10
+   pixels; the f32 stride-1 K1 and K4 held twice, bit for bit, here, at
+   the Omniglot layers and at pad 0, and their rows printed with their
+   library ratio and bound share as ``[K1]`` lines, with each K1 row's
+   device time from the profiler, and ``[K4]`` lines); K1-K5
    again at the four layers of the Omniglot 20-way 1-shot
    model (28/14/7/3, cin 1 and 64, cout 64, T = 8, N = 20); and the ingest
    kernel ``episode_expand`` at the Omniglot device-tier train batch, a
@@ -210,8 +212,9 @@ T_TENANTS = 8
 COUT = 48
 # (label, H = W, cin) of the layers whose shapes the kernels are held at
 LAYERS = (("layer1", 84, 3), ("layer2", 42, 48))
-# the mini-ImageNet model's stages 2-3, where K4 also runs (check_k4_stages)
-K4_STAGES = (("layer3", 21, 48), ("layer4", 10, 48))
+# the mini-ImageNet model's stages 2-3, where K1 and K4 also run
+# (check_conv_stages)
+CONV_STAGES = (("layer3", 21, 48), ("layer4", 10, 48))
 IMAGES = (25, 75)  # 5-shot support, 15-target query (5-way)
 # the Omniglot 20-way 1-shot model: 64 filters, pooling 28 -> 14 -> 7 -> 3
 # -> 1; 20 support and 20 target images per task
@@ -379,10 +382,14 @@ REPLACES.update({
 # kernel but episode_expand (which outputs f32)
 BF16_KERNELS = tuple(k for k in REPLACES if k != "episode_expand")
 REPLACES.update({f"{k}_bf16": REPLACES[k] for k in BF16_KERNELS})
+FWD_TILE = ("cuda", "howtotrainyourmamlpytorch_tpu_torch/kernels/csrc/"
+                    "conv3x3_fwd.cu")
+BWD_TILE = ("cuda", "howtotrainyourmamlpytorch_tpu_torch/kernels/csrc/"
+                    "conv3x3_bwd.cu")
 SOURCES = {
     "conv3x3_fwd_stats": (
         "cuda", "howtotrainyourmamlpytorch_tpu_torch/kernels/csrc/"
-                "conv3x3_fwd.cu"),
+                "conv3x3_fwd_s1.cu"),
     "bn_act_pool_fwd": (
         "triton", "howtotrainyourmamlpytorch_tpu_torch/kernels/"
                   "bn_act_pool.py"),
@@ -391,13 +398,13 @@ SOURCES = {
                   "bn_act_pool.py"),
     "conv3x3_dgrad": (
         "cuda", "howtotrainyourmamlpytorch_tpu_torch/kernels/csrc/"
-                "conv3x3_bwd.cu"),
+                "conv3x3_bwd_s1.cu"),
     "conv3x3_wgrad": (
         "cuda", "howtotrainyourmamlpytorch_tpu_torch/kernels/csrc/"
-                "conv3x3_bwd.cu"),
+                "conv3x3_bwd_s1.cu"),
     "conv3x3_fwd": (
         "cuda", "howtotrainyourmamlpytorch_tpu_torch/kernels/csrc/"
-                "conv3x3_fwd.cu"),
+                "conv3x3_fwd_s1.cu"),
     "bn_act_pool_bwd_bwd": (
         "triton", "howtotrainyourmamlpytorch_tpu_torch/kernels/"
                   "bn_act_pool.py"),
@@ -406,10 +413,10 @@ SOURCES = {
                 "episode_expand.cu"),
 }
 SOURCES.update({
-    "conv3x3_s2_fwd_stats": SOURCES["conv3x3_fwd_stats"],
-    "conv3x3_s2_fwd": SOURCES["conv3x3_fwd"],
-    "conv3x3_s2_dgrad": SOURCES["conv3x3_dgrad"],
-    "conv3x3_s2_wgrad": SOURCES["conv3x3_wgrad"],
+    "conv3x3_s2_fwd_stats": FWD_TILE,
+    "conv3x3_s2_fwd": FWD_TILE,
+    "conv3x3_s2_dgrad": BWD_TILE,
+    "conv3x3_s2_wgrad": BWD_TILE,
     "bn_act_fwd": SOURCES["bn_act_pool_fwd"],
     "bn_act_bwd": SOURCES["bn_act_pool_bwd"],
     "bn_act_bwd_bwd": SOURCES["bn_act_pool_bwd_bwd"],
@@ -433,11 +440,15 @@ SOURCES.update({
     k: ("triton", "howtotrainyourmamlpytorch_tpu_torch/kernels/layer_norm.py")
     for k in ("layer_norm_stats", "layer_norm_fwd", "layer_norm_bwd",
               "layer_norm_bwd_bwd")})
-SOURCES.update({
-    f"conv3x3{tag}_{k}": SOURCES[f"conv3x3_{k}"]
-    for tag in ("_p0", "_s2_p0")
-    for k in ("fwd_stats", "dgrad", "wgrad", "fwd")})
-SOURCES.update({f"{k}_bf16": SOURCES[k] for k in BF16_KERNELS})
+# the f32 convs at stride 1 (pad 1 and 0) run the band kernels; at stride 2,
+# and in bf16 at either stride, the tiles
+SOURCES.update({f"conv3x3_p0_{k}": SOURCES[f"conv3x3_{k}"]
+                for k in ("fwd_stats", "dgrad", "wgrad", "fwd")})
+SOURCES.update({f"conv3x3_s2_p0_{k}": SOURCES[f"conv3x3_s2_{k}"]
+                for k in ("fwd_stats", "dgrad", "wgrad", "fwd")})
+SOURCES.update({f"{k}_bf16": (FWD_TILE if "_fwd" in k else BWD_TILE)
+                if k.startswith("conv3x3_") else SOURCES[k]
+                for k in BF16_KERNELS})
 # the shape each kernel's line reports (a key of its records)
 REPORT_AT = {
     "conv3x3_fwd_stats": "T=8 layer1 N=75",
@@ -583,9 +594,11 @@ class Records:
         self.tensor_core_flops = tensor_core_flops
 
     def add(self, kernel, label, err, kernel_fn, plain_fn, library_fn, flops,
-            nbytes, tensor_cores=False, f32_fn=None):
+            nbytes, tensor_cores=False, f32_fn=None, device=None):
         """One record; ``f32_fn`` (a bf16 kernel's f32 version at the same
-        shape) is timed beside it as ``f32_ms``."""
+        shape) is timed beside it as ``f32_ms``; with ``device`` (the
+        kernels' names, as ``device_ms`` takes them) the device time of
+        ``kernel_fn``'s launches, from the profiler, as ``device_ms``."""
         peak = self.tensor_core_flops if tensor_cores else self.peak_flops
         t_ops = flops / peak * 1e3
         t_bytes = nbytes / self.peak_bw * 1e3
@@ -597,6 +610,8 @@ class Records:
             "library_ms": (time_ms(library_fn) if library_fn is not None
                            else None),
             "f32_ms": time_ms(f32_fn) if f32_fn is not None else None,
+            "device_ms": (device_ms(kernel_fn, device) if device is not None
+                          else None),
             "bound_ms": max(t_ops, t_bytes), "bound_by": by,
             "flops": flops, "bytes": nbytes,
         }
@@ -606,6 +621,11 @@ class Records:
               f"{r['ms']:.4f} ms{f32}  plain {r['plain_ms']:.4f} ms  library "
               f"{r['library_ms']} ms  bound {r['bound_ms']:.4f} ms ({by})",
               flush=True)
+
+
+# the f32 stride-1 K1 kernels on the device (csrc/conv3x3_fwd_s1.cu: the
+# conv, and with statistics the merge of their partials)
+K1_DEVICE = ("conv3x3_fwd_band_kernel", "bn_stats_merge_kernel")
 
 
 def _randn(gen):
@@ -638,6 +658,9 @@ def check_kernels(cb, F, records, layers=LAYERS, images=IMAGES, C=COUT,
                       max_err("conv3x3_fwd_stats mean", mean, mean_p),
                       max_err("conv3x3_fwd_stats var", var, var_p),
                       max_err("conv3x3_fwd_stats rstd", rstd, rstd_p))
+            _same_bits("conv3x3_fwd_stats",
+                       lambda: cb.conv3x3_fwd_stats(x, w, b),
+                       (y, mean, var, rstd))
             xl = _nchw_tenants(x)
             wl = w.permute(0, 4, 3, 1, 2).reshape(T * C, cin, 3, 3)
             wl = wl.contiguous()
@@ -649,7 +672,7 @@ def check_kernels(cb, F, records, layers=LAYERS, images=IMAGES, C=COUT,
                                                    groups=T),
                 2 * T * M * 9 * cin * C + T * M * C,
                 4 * (x.numel() + w.numel() + b.numel() + y.numel()
-                     + 3 * T * C))
+                     + 3 * T * C), device=K1_DEVICE)
             # K2 on K1's outputs
             pooled, arg = cb.bn_act_pool_fwd(y, mean, rstd, gamma, beta)
             pooled_p, arg_p = F.bn_act_pool_fwd(y, mean, rstd, gamma, beta)
@@ -753,20 +776,75 @@ def print_k4_rows(records):
                   "time", flush=True)
 
 
-def check_k4_stages(cb, F, records, stages=K4_STAGES, images=IMAGES,
-                    C=COUT):
-    """Phase 3, K4 at the mini-ImageNet model's stages 2-3 (21 and 10
-    pixels, 48 channels; N = 25 and 75, T = 8), the rest of K4's f32
-    main-path shapes: dgrad and wgrad on a random dy against their twins,
-    twice (bit for bit), timed beside the twins and the library calls."""
+def print_k1_rows(records):
+    """K1's f32 stride-1 rows at every timed shape of the kernel phase (with
+    statistics and stats-free, pad 1 and 0): ms by events, the device time
+    of its launches, the library call's ms, the bound and the bound's share
+    of the kernel's time."""
+    for kernel in ("conv3x3_fwd_stats", "conv3x3_fwd",
+                   "conv3x3_p0_fwd_stats", "conv3x3_p0_fwd"):
+        for label, r in records.by_kernel[kernel].items():
+            lib = r["library_ms"]
+            vs = ("no library call" if lib is None else
+                  "library %.4f ms (%.2fx)" % (lib, r["ms"] / lib))
+            dev = r["device_ms"]
+            dev = "not measured" if dev is None else "%.4f ms" % dev
+            print(f"[K1] {kernel} @ {label}: {r['ms']:.4f} ms (device "
+                  f"{dev}), {vs}, bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']}), {100 * r['bound_ms'] / r['ms']:.1f}% "
+                  "of the kernel's time", flush=True)
+
+
+def check_conv_stages(cb, F, records, stages=CONV_STAGES, images=IMAGES,
+                      C=COUT):
+    """Phase 3, K1 and K4 at the mini-ImageNet model's stages 2-3 (21 and
+    10 pixels, 48 channels; N = 25 and 75, T = 8), the rest of their f32
+    main-path shapes: K1 with statistics (N = 25 and 75) and stats-free
+    with bias (N = 25) on random x, dgrad and wgrad on a random dy, each
+    against its twin, twice (bit for bit), timed beside the twin and the
+    library call (grouped ``conv2d``, ``conv2d_input``,
+    ``conv2d_weight``)."""
     randn = _randn(torch.Generator(device="cuda").manual_seed(12))
     T = T_TENANTS
+    conv2d = torch.nn.functional.conv2d
     for layer, hw, cin in stages:
         for n in images:
+            label = f"T={T} {layer} N={n}"
+            M = n * hw * hw
             x = randn(T, n, hw, hw, cin)
             w = randn(T, 3, 3, cin, C, scale=math.sqrt(2.0 / (9 * cin)))
+            b = randn(T, C, scale=0.1)
+            xl = _nchw_tenants(x)
+            wl = w.permute(0, 4, 3, 1, 2).reshape(T * C, cin, 3, 3)
+            wl, bl = wl.contiguous(), b.reshape(-1).contiguous()
+            flops = 2 * T * M * 9 * cin * C + T * M * C
+            nbytes = 4 * (x.numel() + w.numel() + b.numel() + T * M * C)
+            got = cb.conv3x3_fwd_stats(x, w, b)
+            err = _bn_errs("conv3x3_fwd_stats", got,
+                           F.conv3x3_fwd_stats(x, w, b),
+                           ("y", "mean", "var", "rstd"), label)
+            _same_bits("conv3x3_fwd_stats",
+                       lambda: cb.conv3x3_fwd_stats(x, w, b), got)
+            records.add("conv3x3_fwd_stats", label, err,
+                        lambda: cb.conv3x3_fwd_stats(x, w, b),
+                        lambda: F.conv3x3_fwd_stats(x, w, b),
+                        lambda: conv2d(xl, wl, bl, padding=1, groups=T),
+                        flops, nbytes + 4 * 3 * T * C, device=K1_DEVICE)
+            if n == min(images):
+                got = cb.conv3x3_fwd(x, w, b)
+                err = max(max_err("conv3x3_fwd", got, F.conv3x3(x, w, b)),
+                          max_err("conv3x3_fwd (no bias)",
+                                  cb.conv3x3_fwd(x, w), F.conv3x3(x, w)))
+                _same_bits("conv3x3_fwd", lambda: cb.conv3x3_fwd(x, w, b),
+                           got)
+                records.add("conv3x3_fwd", label, err,
+                            lambda: cb.conv3x3_fwd(x, w, b),
+                            lambda: F.conv3x3(x, w, b),
+                            lambda: conv2d(xl, wl, bl, padding=1, groups=T),
+                            flops, nbytes, device=K1_DEVICE)
+            del got, xl
             dy = randn(T, n, hw, hw, C, scale=1.0 / math.sqrt(n * hw * hw))
-            _check_k4(cb, F, records, f"T={T} {layer} N={n}", x, w, dy)
+            _check_k4(cb, F, records, label, x, w, dy)
             del x, dy
             torch.cuda.empty_cache()
 
@@ -791,6 +869,7 @@ def check_train_kernels(cb, F, records, tasks=TRAIN_TASKS, layers=LAYERS,
             err = max(max_err("conv3x3_fwd", y, F.conv3x3(x, w, b)),
                       max_err("conv3x3_fwd (no bias)", cb.conv3x3_fwd(x, w),
                               F.conv3x3(x, w)))
+            _same_bits("conv3x3_fwd", lambda: cb.conv3x3_fwd(x, w, b), y)
             xl = _nchw_tenants(x)
             wl = w.permute(0, 4, 3, 1, 2).reshape(T * C, cin, 3, 3)
             wl = wl.contiguous()
@@ -801,7 +880,8 @@ def check_train_kernels(cb, F, records, tasks=TRAIN_TASKS, layers=LAYERS,
                 lambda: torch.nn.functional.conv2d(xl, wl, bl, padding=1,
                                                    groups=T),
                 2 * T * M * 9 * cin * C + T * M * C,
-                4 * (x.numel() + w.numel() + b.numel() + y.numel()))
+                4 * (x.numel() + w.numel() + b.numel() + y.numel()),
+                device=K1_DEVICE)
             # K5 on the statistics, pooling and argmax of that conv output.
             # Every cotangent at unit scale, so that each term of g_dz, G
             # and L_r is of the same order; each output gated on its own
@@ -1063,14 +1143,19 @@ def check_norm_first_kernels(cb, F, records, T=T_TENANTS):
                     z = F.batch_norm_fwd(*bn)
                     wl = w.permute(0, 4, 3, 1, 2).reshape(T * C, cin, 3, 3)
                     wl, zl = wl.contiguous(), _nchw_tenants(z)
-                    err = max_err("conv3x3_fwd", cb.conv3x3_fwd(z, w, b), y)
+                    got = cb.conv3x3_fwd(z, w, b)
+                    err = max_err("conv3x3_fwd", got, y)
+                    _same_bits("conv3x3_fwd", lambda: cb.conv3x3_fwd(z, w, b),
+                               got)
                     rec("conv3x3_fwd", label, err,
                         lambda: cb.conv3x3_fwd(z, w, b),
                         lambda: F.conv3x3(z, w, b),
                         lambda: nnf.conv2d(zl, wl, b.reshape(-1), padding=1,
                                            groups=T),
                         2 * T * M * 9 * cin * C + T * M * C,
-                        4 * (z.numel() + w.numel() + b.numel() + y.numel()))
+                        4 * (z.numel() + w.numel() + b.numel() + y.numel()),
+                        device=K1_DEVICE)
+                    del got
                     del z, zl
                 pooled, arg = cb.act_pool_fwd(y)
                 pooled_p, arg_p = F.act_pool_fwd(y)
@@ -1329,8 +1414,12 @@ def check_unpadded_kernels(cb, F, records, T=T_TENANTS, C=COUT):
                 if n == max(IMAGES):
                     name = cb._conv_name("conv3x3_fwd_stats", s, 0)
                     want = F.conv3x3_fwd_stats(x, w, b, **kw)
-                    err = _bn_errs(name, cb.conv3x3_fwd_stats(x, w, b, **kw),
-                                   want, ("y", "mean", "var", "rstd"), label)
+                    got = cb.conv3x3_fwd_stats(x, w, b, **kw)
+                    err = _bn_errs(name, got, want,
+                                   ("y", "mean", "var", "rstd"), label)
+                    if not strided:
+                        _same_bits(name, lambda: cb.conv3x3_fwd_stats(
+                            x, w, b, **kw), got)
                     rec(name, label, err,
                         lambda: cb.conv3x3_fwd_stats(x, w, b, **kw),
                         lambda: F.conv3x3_fwd_stats(x, w, b, **kw),
@@ -1338,22 +1427,27 @@ def check_unpadded_kernels(cb, F, records, T=T_TENANTS, C=COUT):
                                                      padding=0, groups=T),
                         conv_flops + T * M * C,
                         4 * (x.numel() + w.numel() + b.numel() + 3 * T * C)
-                        + y_bytes)
-                    del want
+                        + y_bytes, device=None if strided else K1_DEVICE)
+                    del want, got
                 else:
                     name = cb._conv_name("conv3x3_fwd", s, 0)
-                    err = max(max_err(name, cb.conv3x3_fwd(x, w, b, s, 0),
-                                      F.conv3x3(x, w, b, **kw)),
+                    got = cb.conv3x3_fwd(x, w, b, s, 0)
+                    err = max(max_err(name, got, F.conv3x3(x, w, b, **kw)),
                               max_err(f"{name} (no bias)",
                                       cb.conv3x3_fwd(x, w, None, s, 0),
                                       F.conv3x3(x, w, **kw)))
+                    if not strided:
+                        _same_bits(name, lambda: cb.conv3x3_fwd(
+                            x, w, b, s, 0), got)
+                    del got
                     rec(name, label, err,
                         lambda: cb.conv3x3_fwd(x, w, b, s, 0),
                         lambda: F.conv3x3(x, w, b, **kw),
                         lambda: nn.functional.conv2d(xl, wl, bl, stride=s,
                                                      padding=0, groups=T),
                         conv_flops,
-                        4 * (x.numel() + w.numel() + b.numel()) + y_bytes)
+                        4 * (x.numel() + w.numel() + b.numel()) + y_bytes,
+                        device=None if strided else K1_DEVICE)
                     if not strided and Ho % 2:
                         _check_odd_map_bn_kernels(cb, F, randn, x, w, b,
                                                   label)
@@ -1500,9 +1594,9 @@ def _expand_exact(what, got, want):
 
 
 def device_ms(fn, kernel, reps=10):
-    """Device time of ``kernel`` (a substring of its name) per call of
-    ``fn``, from ``torch.profiler`` over ``reps`` calls: the kernel's own
-    time, without the host time a launch costs."""
+    """Device time of ``kernel`` (a substring of its name, or a tuple of
+    them) per call of ``fn``, from ``torch.profiler`` over ``reps`` calls:
+    the kernels' own time, without the host time a launch costs."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1511,8 +1605,9 @@ def device_ms(fn, kernel, reps=10):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    names = (kernel,) if isinstance(kernel, str) else kernel
     total = sum(e.device_time_total for e in prof.key_averages()
-                if kernel in e.key)
+                if any(k in e.key for k in names))
     return total / 1e3 / reps if total else None
 
 
@@ -4069,8 +4164,8 @@ def main() -> int:
     records = Records(all_kernels, peak_rates(kind),
                       peak_rates(kind, bf16_tensor_cores=True)[0])
     check_kernels(cb, F, records)
-    print("[kernels] K4 at the mini-ImageNet stages 2-3", flush=True)
-    check_k4_stages(cb, F, records)
+    print("[kernels] K1 and K4 at the mini-ImageNet stages 2-3", flush=True)
+    check_conv_stages(cb, F, records)
     check_train_kernels(cb, F, records)
     print("[kernels] K1-K5 at the Omniglot 20-way 1-shot layers", flush=True)
     check_kernels(cb, F, records, OMNIGLOT_LAYERS, (OMNIGLOT_IMAGES,),
@@ -4135,6 +4230,7 @@ def main() -> int:
                   "decisions", flush=True)
             check(_replayed_blocks(cb, F, False), x_shape, kw, what)
     print(f"[kernels] {time.perf_counter() - t0:.1f} s", flush=True)
+    print_k1_rows(records)
     print_k4_rows(records)
 
     main_counts = {k: 0 for k in all_kernels}

@@ -10,8 +10,8 @@ the batch norm (``norm_layer='layer_norm'``).
 ==========================  ======  ========================  ==================
 kernel                      route   source                    launches/call
 ==========================  ======  ========================  ==================
-``conv3x3_fwd_stats``       CUDA    csrc/conv3x3_fwd.cu (K1)  conv + merge: 2
-``conv3x3_fwd``             CUDA    csrc/conv3x3_fwd.cu (K1)  1 (stats-free)
+``conv3x3_fwd_stats``       CUDA    csrc/conv3x3_fwd_s1.cu    conv + merge: 2
+``conv3x3_fwd``             CUDA    csrc/conv3x3_fwd_s1.cu    1 (stats-free)
 ``bn_act_pool_fwd``         Triton  bn_act_pool.py (K2)       1
 ``bn_act_pool_bwd``         Triton  bn_act_pool.py (K3)       reduce + dy: 2
 ``conv3x3_dgrad``           CUDA    csrc/conv3x3_bwd_s1.cu    1
@@ -38,15 +38,16 @@ kernel                      route   source                    launches/call
 ``layer_norm_fwd``          Triton  layer_norm.py             1
 ``layer_norm_bwd``          Triton  layer_norm.py             reduce + sums + dx: 3
 ``layer_norm_bwd_bwd``      Triton  layer_norm.py             reduce + sums + out: 3
-``*_bf16``                  as f32  K4: bwd.cu                as in f32
+``*_bf16``                  as f32  K1: fwd.cu, K4: bwd.cu    as in f32
 ==========================  ======  ========================  ==================
 
-K4 (dgrad and wgrad) runs two designs: in f32 at stride 1 (every
-shipped config) the band kernels of ``csrc/conv3x3_bwd_s1.cu``, which
-stage a band of rows with its halo in shared memory once; in bf16 and at
-stride 2 the tile kernels of ``csrc/conv3x3_bwd.cu``. ``dgrad_plan`` and
-``wgrad_plan`` give each launch (grid, bands, splits, shared memory,
-scratch) as a pure function of the shape.
+K1 (both modes) and K4 (dgrad and wgrad) run two designs each: in f32 at
+stride 1 (every shipped config) the band kernels of
+``csrc/conv3x3_fwd_s1.cu`` and ``csrc/conv3x3_bwd_s1.cu``, which stage a
+band of rows with its halo in shared memory once; in bf16 and at stride 2
+the tile kernels of ``csrc/conv3x3_fwd.cu`` and ``csrc/conv3x3_bwd.cu``.
+``fwd_plan``, ``dgrad_plan`` and ``wgrad_plan`` give each launch (grid,
+bands, splits, shared memory, scratch) as a pure function of the shape.
 
 The ``conv3x3_s2_*`` names are the four conv kernels at stride 2 (the
 strided model, ``max_pooling=False``), counted apart from stride 1, and
@@ -122,8 +123,10 @@ holds for ``layer_norm_bwd_bwd``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
+import math
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -190,8 +193,18 @@ PADDINGS = (1, 0)
 #: launches per kernel since the last ``reset_launches()`` (CUDA only)
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
-#: output pixels per K1 tile (``kBM`` in csrc/conv3x3_tile.cuh)
+#: output pixels per tile (``kBM`` in csrc/conv3x3_tile.cuh): K1 and K4
+#: dgrad in bf16 and at stride 2
 CONV_TILE_ROWS = 256
+#: the K1 band kernels (csrc/conv3x3_fwd_s1.cu, f32 at stride 1): most
+#: threads a block (8 warps: two blocks a SM within 128 registers a
+#: thread), the shared memory a block's band and weight ring may take (two
+#: blocks a SM), the band pixels past its last row that a last run reads,
+#: and the threads a SM below which a thread takes 4 channels, not 8
+FWD_MAX_THREADS = 256
+FWD_SMEM_BYTES = 100 * 1024
+FWD_SLACK = 8
+FWD_FILL_THREADS = 256
 #: the K4 band kernels (csrc/conv3x3_bwd_s1.cu, f32 at stride 1): most
 #: threads a block — for wgrad the FFMA threads, beside its db warp: 8
 #: warps, two blocks a SM within 128 registers a thread (a SM
@@ -271,7 +284,7 @@ def _check_act(name: str, x: Tensor) -> Tuple[int, int, int, int, int]:
         )
     _check(name, "the activation", x, x.shape, x.device,
            kernel_dtype(name, x))
-    if x[0].numel() >= 2 ** 31:
+    if math.prod(x.shape[1:]) >= 2 ** 31:
         raise ValueError(f"{name}: one tenant's activation must hold fewer "
                          "than 2**31 elements (32-bit offsets)")
     return tuple(x.shape)
@@ -283,6 +296,14 @@ def _ptr(t: Tensor) -> int:
 
 def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def _device(device):
+    """A context that makes ``device`` current: none where it already is
+    (the K1 wrappers' host time, where a small conv is host-bound)."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def _conv_name(name: str, stride: int, padding: int = 1) -> str:
@@ -308,7 +329,111 @@ def _conv_out(name: str, H: int, W: int, stride: int, padding: int
     return Ho, Wo
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _round4(a: int) -> int:
+    return _cdiv(a, 4) * 4
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 # -- K1 -----------------------------------------------------------------------
+
+
+class FwdPlan(NamedTuple):
+    """The launch of K1 at one shape, both modes: ``kernel`` ``"band"``
+    (f32 at stride 1, csrc/conv3x3_fwd_s1.cu) or ``"tile"`` (bf16 or
+    stride 2, csrc/conv3x3_fwd.cu). A band kernel's block takes
+    ``band_rows`` output rows of one image and all output channels,
+    ``bands`` a image, ``channels`` (8 or 4) a thread; ``smem`` its dynamic
+    shared memory (0: the tile's is static); ``scratch`` the shape of the
+    statistics' partials, ``(T, blocks a tenant, 3, cout)``."""
+
+    kernel: str
+    grid: Tuple[int, int, int]
+    threads: int
+    smem: int
+    band_rows: int
+    bands: int
+    channels: int
+    scratch: Tuple[int, int, int, int]
+
+
+@functools.lru_cache(maxsize=None)
+def fwd_plan(T: int, N: int, H: int, W: int, cin: int, cout: int,
+             stride: int = 1, pad: int = 1, sms: int = 132,
+             bf16: bool = False) -> FwdPlan:
+    """K1's launch for x ``(T, N, H, W, cin)`` and ``cout`` output
+    channels on a card of ``sms`` SMs. A pure function of the shape: the
+    wrappers call it, and so do the CPU tests.
+
+    The band kernel (f32, stride 1): a thread holds a run of 8 consecutive
+    pixels of the band's ``Wo + 2``-wide grid x 8 channels (4 where 8 would
+    leave the card fewer than ``FWD_FILL_THREADS`` threads a SM: the small
+    maps), a block every run of its band x every channel group; the most
+    rows a band that
+    keep a block at most ``FWD_MAX_THREADS`` threads and its band (``CR +
+    2`` input rows and ``FWD_SLACK`` pixels, each pixel cin rounded up to
+    4 floats, and 4 more every 8 pixels) and two-stage weight ring (a
+    stage: one tap, or all nine at cin <= 4, x cin x cout rounded up to 8)
+    within ``FWD_SMEM_BYTES``, and the grid at ``BAND_BLOCKS_PER_SM``
+    blocks a SM, balanced over the image. No block splits an output's sum
+    (its order is the plain conv's). A row that no block of
+    ``BAND_LAUNCH_BOUND`` threads and ``BLOCK_SMEM`` holds raises (at cin
+    and cout 64, output rows over about 250 pixels)."""
+    Ho, Wo = F.conv_out_hw(H, W, stride, pad)
+    if min(T, N, Ho, Wo, cin, cout) < 1 or T > 65535:
+        raise ValueError(f"fwd_plan: no conv3x3 forward of a {H}x{W} input "
+                         f"at stride {stride}, pad {pad} (T={T}, N={N}, "
+                         f"cin={cin}, cout={cout})")
+    if stride != 1 or bf16:
+        mtiles = _cdiv(N * Ho * Wo, CONV_TILE_ROWS)
+        return FwdPlan("tile", (mtiles, _cdiv(cout, 16), T), 128, 0, 0, 0,
+                       0, (T, mtiles, 3, cout))
+    plan = _band_plan(T, N, Ho, Wo, cin, cout, sms, 8)
+    if (cout > 4 and plan.grid[0] * T * plan.threads
+            < FWD_FILL_THREADS * sms):
+        plan = _band_plan(T, N, Ho, Wo, cin, cout, sms, 4)
+    return plan
+
+
+def _band_plan(T, N, Ho, Wo, cin, cout, sms, channels) -> FwdPlan:
+    """``fwd_plan``'s band kernel with ``channels`` (8 or 4) a thread."""
+    Wp = Wo + 2
+    G = _cdiv(cout, channels)
+    CS = _round4(cin)
+    taps = 9 if cin <= 4 else 1  # a weight stage's
+
+    def threads(CR):  # a run of 8 pixels x a channel group each
+        return _cdiv((CR - 1) * Wp + Wo, 8) * G
+
+    def stage(CR):  # floats: the band (4 more every 8 pixels), the ring
+        pixels = (CR + 2) * Wp + FWD_SLACK
+        return (_round4(pixels * CS + pixels // 8 * 4)
+                + 2 * taps * cin * channels * G)
+
+    CR = 1
+    for rows in range(2, Ho + 1):
+        if (threads(rows) > FWD_MAX_THREADS
+                or 4 * stage(rows) > FWD_SMEM_BYTES
+                or T * N * _cdiv(Ho, rows) < BAND_BLOCKS_PER_SM * sms):
+            break
+        CR = rows
+    nb = _cdiv(Ho, CR)
+    CR = _cdiv(Ho, nb)
+    if threads(CR) > BAND_LAUNCH_BOUND or 4 * stage(CR) > BLOCK_SMEM:
+        raise ValueError(f"fwd_plan: a {Wo}-pixel output row at cin {cin}, "
+                         f"cout {cout} does not fit a block")
+    # the stages, or the statistics' warp sums and means where larger
+    sums = (_cdiv(threads(CR), 32) + 1) * channels * G
+    return FwdPlan("band", (N * nb, 1, T), threads(CR),
+                   4 * max(stage(CR), sums), CR, nb, channels,
+                   (T, N * nb, 3, cout))
 
 
 def conv3x3_fwd_stats(x: Tensor, w: Tensor, b: Tensor,
@@ -316,7 +441,10 @@ def conv3x3_fwd_stats(x: Tensor, w: Tensor, b: Tensor,
                       padding: int = 1
                       ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """``y = conv3x3(x, w) + b`` (``stride``, ``padding``) and y's
-    per-(tenant, channel) batch mean, biased variance and rstd."""
+    per-(tenant, channel) batch mean, biased variance and rstd. f32 at
+    stride 1 runs the band kernel, bf16 and stride 2 the tile
+    (``fwd_plan``); each merges its statistics' partials in a second
+    launch."""
     if _on_cpu(x):
         return F.conv3x3_fwd_stats(x, w, b, eps, stride=stride,
                                    padding=padding)
@@ -326,18 +454,29 @@ def conv3x3_fwd_stats(x: Tensor, w: Tensor, b: Tensor,
     _check(name, "w", w, (T, 3, 3, cin, cout), x.device, x.dtype)
     _check(name, "b", b, (T, cout), x.device, x.dtype)
     Ho, Wo = _conv_out(name, H, W, stride, padding)
-    mtiles = -(-(N * Ho * Wo) // CONV_TILE_ROWS)
+    plan = fwd_plan(T, N, H, W, cin, cout, stride, padding, _sms(x.device),
+                    x.dtype == torch.bfloat16)
     y = torch.empty((T, N, Ho, Wo, cout), device=x.device, dtype=x.dtype)
-    part = torch.empty((T, mtiles, 3, cout), device=x.device)
-    mean, var, rstd = (torch.empty((T, cout), device=x.device,
-                                   dtype=x.dtype) for _ in range(3))
+    part = torch.empty(plan.scratch, device=x.device)
+    mean, var, rstd = torch.empty((3, T, cout), device=x.device,
+                                  dtype=x.dtype).unbind(0)
     counter = _counter(name, x)
-    fn = build.function("conv3x3_fwd", _counter("conv3x3_fwd_stats", x),
-                        (_P,) * 8 + (_I,) * 9 + (_F, _P))
-    with torch.cuda.device(x.device):
-        rc = fn(_ptr(x), _ptr(w), _ptr(b), _ptr(y), _ptr(part), _ptr(mean),
-                _ptr(var), _ptr(rstd), T, N, H, W, stride, padding, cin, cout,
-                mtiles, F.scalar_like(eps, x), _stream(x.device))
+    ptrs = (_ptr(x), _ptr(w), _ptr(b), _ptr(y), _ptr(part), _ptr(mean),
+            _ptr(var), _ptr(rstd))
+    eps = F.scalar_like(eps, x)
+    with _device(x.device):
+        if plan.kernel == "band":
+            fn = build.function("conv3x3_fwd_s1", "conv3x3_fwd_stats_band",
+                                (_P,) * 8 + (_I,) * 11 + (_F, _P))
+            rc = fn(*ptrs, T, N, H, W, padding, cin, cout, plan.band_rows,
+                    plan.channels, plan.threads, plan.smem, eps,
+                    _stream(x.device))
+        else:
+            fn = build.function("conv3x3_fwd",
+                                _counter("conv3x3_fwd_stats", x),
+                                (_P,) * 8 + (_I,) * 9 + (_F, _P))
+            rc = fn(*ptrs, T, N, H, W, stride, padding, cin, cout,
+                    plan.grid[0], eps, _stream(x.device))
     build.check(rc, counter)
     LAUNCHES[counter] += 1
     return y, mean, var, rstd
@@ -356,12 +495,22 @@ def conv3x3_fwd(x: Tensor, w: Tensor, b: Optional[Tensor] = None,
         _check(name, "b", b, (T, cout), x.device, x.dtype)
     y = torch.empty((T, N, *_conv_out(name, H, W, stride, padding), cout),
                     device=x.device, dtype=x.dtype)
+    plan = fwd_plan(T, N, H, W, cin, cout, stride, padding, _sms(x.device),
+                    x.dtype == torch.bfloat16)
     counter = _counter(name, x)
-    fn = build.function("conv3x3_fwd", _counter("conv3x3_fwd", x),
-                        (_P,) * 4 + (_I,) * 8 + (_P,))
-    with torch.cuda.device(x.device):
-        rc = fn(_ptr(x), _ptr(w), None if b is None else _ptr(b), _ptr(y),
-                T, N, H, W, stride, padding, cin, cout, _stream(x.device))
+    ptrs = (_ptr(x), _ptr(w), None if b is None else _ptr(b), _ptr(y))
+    with _device(x.device):
+        if plan.kernel == "band":
+            fn = build.function("conv3x3_fwd_s1", "conv3x3_fwd_band",
+                                (_P,) * 4 + (_I,) * 11 + (_P,))
+            rc = fn(*ptrs, T, N, H, W, padding, cin, cout, plan.band_rows,
+                    plan.channels, plan.threads, plan.smem,
+                    _stream(x.device))
+        else:
+            fn = build.function("conv3x3_fwd", _counter("conv3x3_fwd", x),
+                                (_P,) * 4 + (_I,) * 8 + (_P,))
+            rc = fn(*ptrs, T, N, H, W, stride, padding, cin, cout,
+                    _stream(x.device))
     build.check(rc, counter)
     LAUNCHES[counter] += 1
     return y
@@ -809,14 +958,6 @@ def layer_norm_bwd_bwd(a: Tensor, ggamma: Tensor, gbeta: Tensor, dz: Tensor,
 # -- K4 -----------------------------------------------------------------------
 
 
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
-
-
-def _round4(a: int) -> int:
-    return _cdiv(a, 4) * 4
-
-
 class WgradPlan(NamedTuple):
     """The launch of K4 wgrad at one shape. ``kernel`` is ``"band"`` (f32
     at stride 1, csrc/conv3x3_bwd_s1.cu) or ``"tile"`` (bf16 or stride 2,
@@ -990,11 +1131,6 @@ def dgrad_plan(T: int, N: int, H: int, W: int, cin: int, cout: int,
     tree = (KS // 2) * 8 * TN * threads(CR) * 4
     return DgradPlan("band", (N * nb, 1, T), KS * threads(CR),
                      max(smem(CR), tree), CR, nb, KS)
-
-
-@functools.lru_cache(maxsize=None)
-def _sms(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def conv3x3_dgrad(dy: Tensor, w: Tensor, stride: int = 1,

@@ -1,5 +1,8 @@
 // K1 conv3x3_fwd_stats: the forward 3x3 conv + bias of the slice's block,
-// with the batch-norm statistics of its output.
+// with the batch-norm statistics of its output, on the implicit-GEMM tile
+// (conv3x3_tile.cuh): in bf16 at stride 1 or 2 and in f32 at stride 2.
+// The f32 convs at stride 1 (every shipped config) run the band kernels of
+// conv3x3_fwd_s1.cu; the float entries here refuse stride 1.
 //
 // Replaces (JAX package) howtotrainyourmamlpytorch_tpu/ops/functional.py
 // ::conv_bn_act :249 — its `_conv2d_raw` :199 (`_im2col` :85 + one GEMM per
@@ -14,9 +17,10 @@
 // normalize pass (K2) is the only re-read of y.
 //
 // Statistics: each block writes (count, mean, M2) of its 256-row tile per
-// channel; a second launch merges the partials of one (tenant, channel)
-// with Chan's formula into the mean and the BIASED variance, plus
-// rstd = 1 / sqrt(var + eps). No atomics, so results are deterministic.
+// channel; a second launch (bn_stats_merge.cuh) merges the partials of one
+// (tenant, channel) with Chan's formula into the mean and the BIASED
+// variance, plus rstd = 1 / sqrt(var + eps). No atomics, so results are
+// deterministic.
 // The variance is within tolerance of both of the JAX package's
 // `bn_stats_impl` modes ('twopass' and 'fused').
 //
@@ -66,6 +70,9 @@
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
+#include "bn_stats_merge.cuh"
 #include "conv3x3_tile.cuh"
 
 namespace maml {
@@ -182,81 +189,6 @@ conv3x3_fwd_stats_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
-// (n, mean, m2) <- the union of itself and (nb, meanb, m2b) (Chan et al.)
-__device__ __forceinline__ void chan_merge(float& n, float& mean, float& m2,
-                                           float nb, float meanb, float m2b) {
-  if (nb == 0.f) return;
-  if (n == 0.f) {
-    n = nb;
-    mean = meanb;
-    m2 = m2b;
-    return;
-  }
-  const float nn = n + nb;
-  const float d = meanb - mean;
-  mean += d * (nb / nn);
-  m2 += m2b + d * d * (n * nb / nn);
-  n = nn;
-}
-
-// The merged statistics stored: f32 as they are, with rstd = 1 / sqrt(var
-// + eps); bf16 each rounded once, rstd the f32 rsqrt of the bf16 sum var +
-// eps (eps bf16 already), rounded once.
-__device__ __forceinline__ void store_stats(float* mean, float* var,
-                                            float* rstd, float mu, float v,
-                                            float eps) {
-  *mean = mu;
-  *var = v;
-  *rstd = 1.f / sqrtf(v + eps);
-}
-__device__ __forceinline__ void store_stats(__nv_bfloat16* mean,
-                                            __nv_bfloat16* var,
-                                            __nv_bfloat16* rstd, float mu,
-                                            float v, float eps) {
-  const float vb = round_to<__nv_bfloat16>(v);
-  *mean = __float2bfloat16_rn(mu);
-  *var = __float2bfloat16_rn(vb);
-  *rstd = __float2bfloat16_rn(1.f / sqrtf(round_to<__nv_bfloat16>(vb + eps)));
-}
-
-constexpr int kMergeThreads = 256;
-
-template <typename T>
-__global__ void __launch_bounds__(kMergeThreads)
-bn_stats_merge_kernel(const float* __restrict__ part, T* __restrict__ mean,
-                      T* __restrict__ var, T* __restrict__ rstd,
-                      int mtiles, int cout, float eps) {
-  __shared__ float sn[kMergeThreads];
-  __shared__ float sm[kMergeThreads];
-  __shared__ float sq[kMergeThreads];
-  const int c = blockIdx.x;
-  const int t = blockIdx.y;
-  const int tid = threadIdx.x;
-  float n = 0.f, mu = 0.f, m2 = 0.f;
-  for (int i = tid; i < mtiles; i += kMergeThreads) {
-    const float* p = part + ((size_t)t * mtiles + i) * 3 * cout + c;
-    chan_merge(n, mu, m2, p[0], p[cout], p[2 * cout]);
-  }
-  sn[tid] = n;
-  sm[tid] = mu;
-  sq[tid] = m2;
-  __syncthreads();
-  for (int stride = kMergeThreads / 2; stride > 0; stride >>= 1) {
-    if (tid < stride) {
-      float a = sn[tid], b = sm[tid], q = sq[tid];
-      chan_merge(a, b, q, sn[tid + stride], sm[tid + stride],
-                 sq[tid + stride]);
-      sn[tid] = a;
-      sm[tid] = b;
-      sq[tid] = q;
-    }
-    __syncthreads();
-  }
-  if (tid == 0)
-    store_stats(mean + t * cout + c, var + t * cout + c, rstd + t * cout + c,
-                sm[0], sq[0] / sn[0], eps);
-}
-
 template <typename T>
 int fwd_stats(const T* x, const T* w, const T* b, T* y, float* part, T* mean,
               T* var, T* rstd, int T_, int N, int H, int W, int stride,
@@ -273,10 +205,13 @@ int fwd_stats(const T* x, const T* w, const T* b, T* y, float* part, T* mean,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   dim3 grid(mtiles, ceil_div(cout, kBN), T_);
-  if (stride == 1)
+  if constexpr (std::is_same<T, float>::value) {  // f32 at stride 1: _s1.cu
+    if (stride == 1) return (int)cudaErrorInvalidValue;
+  } else if (stride == 1) {
     conv3x3_fwd_stats_kernel<T, 1><<<grid, kThreads, 0, st>>>(
         x, w, b, y, part, N, H, W, Ho, Wo, cin, cout, pad, mtiles);
-  else
+  }
+  if (stride == 2)
     conv3x3_fwd_stats_kernel<T, 2><<<grid, kThreads, 0, st>>>(
         x, w, b, y, part, N, H, W, Ho, Wo, cin, cout, pad, mtiles);
   cudaError_t err = cudaGetLastError();
@@ -299,10 +234,13 @@ int fwd(const T* x, const T* w, const T* b, T* y, int T_, int N, int H,
     return (int)cudaErrorInvalidValue;
   dim3 grid(ceil_div(M, kBM), ceil_div(cout, kBN), T_);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (stride == 1)
+  if constexpr (std::is_same<T, float>::value) {  // f32 at stride 1: _s1.cu
+    if (stride == 1) return (int)cudaErrorInvalidValue;
+  } else if (stride == 1) {
     conv3x3_fwd_kernel<T, 1><<<grid, kThreads, 0, st>>>(
         x, w, b, y, N, H, W, Ho, Wo, cin, cout, pad);
-  else
+  }
+  if (stride == 2)
     conv3x3_fwd_kernel<T, 2><<<grid, kThreads, 0, st>>>(
         x, w, b, y, N, H, W, Ho, Wo, cin, cout, pad);
   return (int)cudaGetLastError();
@@ -312,8 +250,8 @@ int fwd(const T* x, const T* w, const T* b, T* y, int T_, int N, int H,
 
 extern "C" {
 
-// y = conv3x3(x, w) + b at `stride` (1 or 2) and `pad` (1 or 0) and y's
-// per-(tenant, channel) mean / biased var / rstd. x (T, N, H, W, cin), w
+// y = conv3x3(x, w) + b at `stride` (2 in f32, 1 or 2 in bf16) and `pad`
+// (1 or 0) and y's per-(tenant, channel) mean / biased var / rstd. x (T, N, H, W, cin), w
 // (T, 3, 3, cin, cout), b (T, cout), y (T, N, Ho, Wo, cout) with Ho =
 // (H + 2*pad - 3) / stride + 1 (Wo likewise), part scratch (T, mtiles, 3,
 // cout) with mtiles = ceil(N*Ho*Wo / 256); mean, var, rstd (T, cout). Two
@@ -341,10 +279,10 @@ int conv3x3_fwd_stats_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
                                         mtiles, eps, stream);
 }
 
-// y = conv3x3(x, w) (+ b) at `stride` and `pad`: the stats-free mode. x
-// (T, N, H, W, cin), w (T, 3, 3, cin, cout), b (T, cout) or null, y (T, N,
-// Ho, Wo, cout). One launch on `stream`; returns its CUDA error, 0 on
-// success.
+// y = conv3x3(x, w) (+ b) at `stride` (2 in f32, 1 or 2 in bf16) and
+// `pad`: the stats-free mode. x (T, N, H, W, cin), w (T, 3, 3, cin, cout),
+// b (T, cout) or null, y (T, N, Ho, Wo, cout). One launch on `stream`;
+// returns its CUDA error, 0 on success.
 int conv3x3_fwd(const float* x, const float* w, const float* b, float* y,
                 int T, int N, int H, int W, int stride, int pad, int cin,
                 int cout, void* stream) {

@@ -12,10 +12,13 @@ in bf16, at stride 1 and 2 and at pad 1 and 0 on the card (K1 with
 statistics and stats-free, with and without bias; K4 dgrad and wgrad).
 
 ``compare`` prints one line per output and exits 1 unless every output is
-``torch.equal`` to the saved one — except K4's f32 outputs at stride 1,
-which the band kernels (``csrc/conv3x3_bwd_s1.cu``) compute in another
-order than the tile kernels before them: those may differ, and must then
-lie within ``1e-5 + 1e-4 * scale`` of their plain twins. Needs one card.
+``torch.equal`` to the saved one — except K1's f32 outputs at stride 1
+(with statistics and stats-free), which the band kernels
+(``csrc/conv3x3_fwd_s1.cu``) compute in another order than the tile before
+them: those may differ, and must then lie within ``1e-5 + 1e-4 * scale``
+of their plain twins. Every bf16, stride-2 and K4 output must be equal
+(K4's f32 stride-1 band kernels, ``csrc/conv3x3_bwd_s1.cu``, came before
+this build's parent). Needs one card.
 """
 
 from __future__ import annotations
@@ -47,9 +50,9 @@ def _inputs(i, shape):
 
 
 def band_output(key: str) -> bool:
-    """The outputs the band kernels compute: K4 in f32 at stride 1."""
+    """The outputs the new band kernels compute: K1 in f32 at stride 1."""
     return (key.startswith("float32") and " stride 1 " in key
-            and (" dgrad" in key or " wgrad" in key))
+            and " fwd" in key)
 
 
 def outputs(twins: bool = False):
@@ -73,10 +76,14 @@ def outputs(twins: bool = False):
                     dy = dy.to(dtype)
                     if twins:
                         if dtype == torch.float32 and s == 1:
-                            out[f"{key} dgrad"] = F.conv3x3_dgrad(
-                                dy, w, s, (H, W), p)
-                            out[f"{key} wgrad dw"], out[f"{key} wgrad db"] = (
-                                F.conv3x3_wgrad(x, dy, s, p))
+                            out.update({
+                                f"{key} fwd_stats {n}": v for n, v in zip(
+                                    ("y", "mean", "var", "rstd"),
+                                    F.conv3x3_fwd_stats(x, w, b, stride=s,
+                                                        padding=p))})
+                            out[f"{key} fwd"] = F.conv3x3(x, w, b, s, p)
+                            out[f"{key} fwd (no bias)"] = F.conv3x3(
+                                x, w, None, s, p)
                         continue
                     stats = cb.conv3x3_fwd_stats(x, w, b, stride=s,
                                                  padding=p)
@@ -131,8 +138,8 @@ def main(argv) -> int:
     n_band = sum(band_output(k) for k in want)
     print(f"{same} of {len(want)} outputs bit-identical to the saved "
           f"build's; {differ} of the {n_band} band-kernel outputs differ "
-          f"(f32 K4 at stride 1), every one within its twin gate: "
-          f"{bad == 0}", flush=True)
+          f"(f32 K1 at stride 1), every one within its twin gate, and "
+          f"every other output equal: {bad == 0}", flush=True)
     return 0 if bad == 0 and len(got) == len(want) else 1
 
 

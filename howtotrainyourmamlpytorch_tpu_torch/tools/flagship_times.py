@@ -1,0 +1,130 @@
+"""The f32 flagship's end-to-end times on one build: the check that a change
+to some kernels moved the whole path, compared in one process run after
+another on one card.
+
+    PYTHONPATH=<checkout> python3 <this file> [--label NAME]
+
+Run by path, so that ``PYTHONPATH`` picks the package whose kernels are
+built and launched; it uses only entry points every build has. At the
+mini-ImageNet MAML++ 5-way 5-shot configuration
+(``experiment_config/mini-imagenet_maml++-mini-imagenet_5_5_2_0.01_48_0.json``,
+read from the checkout it runs in), weights from the config's seed:
+
+* ``train-bench`` second order at batch 2 (the config's) and 8, one fixed
+  batch, 2 warmup and 5 timed steps: step_ms p50 and p95;
+* ``torch.profiler`` over one warm train step at batch 2 and 8, and over
+  one warm bucket-8 f32 serve dispatch (8 tenants, 6 shots): the device's
+  busy time against the wall time, the K1 kernels' device time (every
+  kernel whose name holds ``conv3x3_fwd``, and the statistics' merge) and
+  the largest kernels by device time.
+
+Prints one line per measurement with the card's ``nvidia-smi`` line first.
+Needs one card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import sys
+import time
+
+import torch
+
+CONFIG = ("experiment_config/"
+          "mini-imagenet_maml++-mini-imagenet_5_5_2_0.01_48_0.json")
+K1_NAMES = ("conv3x3_fwd", "bn_stats_merge")
+
+
+def report(label, what, prof, wall_ms):
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_time_total", 0) > 0
+              and e.device_type.name == "CUDA"]
+    busy = sum(e.device_time_total for e in events) / 1e3
+    k1 = [e for e in events if any(k in e.key for k in K1_NAMES)]
+    k1_ms = sum(e.device_time_total for e in k1) / 1e3
+    print(f"[e2e {label}] {what}: device busy {busy:.3f} ms of "
+          f"{wall_ms:.3f} ms wall, {sum(e.count for e in events)} device "
+          f"activities; K1 {k1_ms:.3f} ms over "
+          f"{sum(e.count for e in k1)} launches", flush=True)
+    for e in sorted(events, key=lambda e: -e.device_time_total)[:8]:
+        print(f"[e2e {label}]     {e.device_time_total / 1e3:9.3f} ms  "
+              f"x{e.count:<4d} {e.key[:80]}", flush=True)
+
+
+def train_steps(label, cfg, batch_size):
+    from torch.profiler import ProfilerActivity, profile
+
+    from howtotrainyourmamlpytorch_tpu_torch import bench as train_bench
+    from howtotrainyourmamlpytorch_tpu_torch.core import maml
+    from howtotrainyourmamlpytorch_tpu_torch.state import init_state
+
+    line = train_bench.run([
+        "--config", CONFIG, "--batch-size", str(batch_size), "--epoch", "0",
+        "--warmup", "2", "--steps", "5", "--seed", "0", "--device",
+        "cuda:0"])
+    print(f"[e2e {label}] train-bench batch {batch_size}: step_ms p50 "
+          f"{line['step_ms_p50']}  p95 {line['step_ms_p95']}", flush=True)
+    cfg = cfg.replace(batch_size=batch_size)
+    device = torch.device("cuda:0")
+    state = init_state(cfg, device=device, with_opt=True)
+    lr, weights, _ = maml.epoch_schedule(cfg, 0)
+    batch = train_bench.synth_batch(cfg, 0, device)
+    step = maml.make_train_step(cfg, True)
+    state, _ = step(state, *batch, weights, lr)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        state, _ = step(state, *batch, weights, lr)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - start) * 1e3
+    report(label, f"profiled batch-{batch_size} train step", prof, wall_ms)
+
+
+def serve_dispatch(label, cfg):
+    from torch.profiler import ProfilerActivity, profile
+
+    from howtotrainyourmamlpytorch_tpu_torch.serving import bench
+    from howtotrainyourmamlpytorch_tpu_torch.serving.engine import (
+        ServingEngine,
+    )
+    from howtotrainyourmamlpytorch_tpu_torch.state import init_state
+
+    shots_buckets = bench.bench_shots_buckets(cfg)
+    groups = bench._synth_groups(cfg, shots_buckets, 36, 8, 0, "f32", 0)
+    engine = ServingEngine(cfg, init_state(cfg, device="cuda:0"),
+                           shots_buckets, device="cuda:0", ingest="f32")
+    engine.serve_group(groups[-1])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        dr = engine.serve_group(groups[-1])
+    report(label, f"profiled f32 bucket-{dr.bucket} dispatch ({dr.tenants} "
+           f"tenants, {dr.shots} shots)", prof, dr.adapt_ms)
+
+
+def main(argv) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--label", default="this build")
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("flagship_times: needs a CUDA card")
+    from howtotrainyourmamlpytorch_tpu_torch.config import MAMLConfig
+    from howtotrainyourmamlpytorch_tpu_torch.device import resolve_device
+
+    resolve_device("cuda:0")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    print(f"[e2e {args.label}] {card}", flush=True)
+    cfg = MAMLConfig.from_json_file(CONFIG)
+    for batch_size in (2, 8):
+        train_steps(args.label, cfg, batch_size)
+        torch.cuda.empty_cache()
+    serve_dispatch(args.label, cfg)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -1291,3 +1291,202 @@ def test_k4_band_kernels_take_tensors_off_16_byte_alignment(pad, device):
     for a, c in zip(cb.conv3x3_wgrad(xs, dys, padding=pad),
                     F.conv3x3_wgrad(x, dy, padding=pad)):
         _close(a, c)
+
+
+# K1 in f32 at stride 1: the band kernels (csrc/conv3x3_fwd_s1.cu), both
+# modes. Every shape the shipped configs run — mini-ImageNet stages 0-3
+# (84/42/21/10, cin 3 then 48, cout 48) at N 25 and 75, T 2 and 8;
+# Omniglot's layers 1-4 (28/14/7/3, cin 1 then 64, cout 64) at N 20, T 8;
+# the unpadded stages (84/41/19/8 -> 82/39/17/6) — and edge shapes: rows
+# that the band rows do not divide, bands of one row (the small maps), T =
+# 1, cin 1, 2, 3 and 17, channel counts that fill no 8-channel group (cout
+# 4, 20, 33) or more than 8 groups (130), pad 0 and 1.
+K1_MAIN_SHAPES = (
+    [(T, n, hw, cin, 48, 1) for T in (2, 8) for n in (25, 75)
+     for hw, cin in ((84, 3), (42, 48), (21, 48), (10, 48))]
+    + [(8, 20, hw, cin, 64, 1)
+       for hw, cin in ((28, 1), (14, 64), (7, 64), (3, 64))]
+    + [(T, n, hw, cin, 48, 0) for T in (2, 8) for n in (25, 75)
+       for hw, cin in ((84, 3), (41, 48), (19, 48), (8, 48))]
+)
+K1_EDGE_SHAPES = [
+    # T, N, H, W, cin, cout, pad
+    (1, 1, 5, 5, 1, 4, 1),
+    (1, 1, 5, 5, 1, 4, 0),
+    (1, 3, 9, 7, 3, 20, 1),
+    (2, 3, 11, 9, 3, 20, 0),
+    (1, 2, 9, 11, 2, 16, 1),
+    (1, 2, 13, 6, 17, 33, 1),
+    (2, 5, 10, 10, 17, 33, 0),
+    (2, 4, 6, 30, 5, 12, 1),
+    (1, 7, 12, 12, 64, 64, 0),
+    (1, 2, 8, 8, 48, 130, 1),
+    (3, 8, 23, 23, 48, 48, 1),
+    (2, 2, 7, 7, 64, 64, 1),
+    (1, 3, 3, 3, 64, 64, 1),
+]
+
+
+def _k1_inputs(T, N, H, W, cin, cout, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(T, N, H, W, cin, device="cuda", generator=g)
+    w = torch.randn(T, 3, 3, cin, cout, device="cuda", generator=g)
+    b = 0.1 * torch.randn(T, cout, device="cuda", generator=g)
+    return x, w * (2.0 / (9 * cin)) ** 0.5, b
+
+
+def _check_k1_band(T, N, H, W, cin, cout, pad, seed):
+    """K1 with statistics and stats-free (with and without bias) against
+    their twins on the f32 stride-1 counters, each launch of the band
+    plan, and a second launch on the same inputs bit for bit the first."""
+    x, w, b = _k1_inputs(T, N, H, W, cin, cout, seed)
+    assert cb.fwd_plan(T, N, H, W, cin, cout, 1, pad,
+                       cb._sms(x.device)).kernel == "band"
+    cb.reset_launches()
+    got = cb.conv3x3_fwd_stats(x, w, b, padding=pad)
+    for a, c in zip(got, F.conv3x3_fwd_stats(x, w, b, padding=pad)):
+        _close(a, c)
+    y = cb.conv3x3_fwd(x, w, b, padding=pad)
+    _close(y, F.conv3x3(x, w, b, padding=pad))
+    y0 = cb.conv3x3_fwd(x, w, None, padding=pad)
+    _close(y0, F.conv3x3(x, w, None, padding=pad))
+    tag = "_p0" if pad == 0 else ""
+    assert cb.launches() == {**{k: 0 for k in cb.KERNELS},
+                             f"conv3x3{tag}_fwd_stats": 1,
+                             f"conv3x3{tag}_fwd": 2}
+    # the stats-free mode with bias is the stats mode's y, bit for bit
+    assert torch.equal(y, got[0])
+    again = cb.conv3x3_fwd_stats(x, w, b, padding=pad)
+    assert all(torch.equal(a, c) for a, c in zip(again, got))
+    assert torch.equal(cb.conv3x3_fwd(x, w, None, padding=pad), y0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("shape", K1_MAIN_SHAPES, ids=str)
+def test_k1_band_kernels_match_their_twins_at_main_path_shapes(shape,
+                                                               device):
+    T, N, hw, cin, cout, pad = shape
+    _check_k1_band(T, N, hw, hw, cin, cout, pad, seed=hw + cin + N + T)
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("shape", K1_EDGE_SHAPES, ids=str)
+def test_k1_band_kernels_match_their_twins_at_edge_shapes(shape, device):
+    T, N, H, W, cin, cout, pad = shape
+    plan = cb.fwd_plan(T, N, H, W, cin, cout, 1, pad, cb._sms(device))
+    if shape in ((2, 2, 7, 7, 64, 64, 1), (1, 3, 3, 3, 64, 64, 1)):
+        # the small maps: bands of one row, 4 channels a thread
+        assert plan.band_rows == 1 and plan.channels == 4
+    if shape == (3, 8, 23, 23, 48, 48, 1):
+        assert 23 % plan.band_rows  # a last band shorter than the others
+    _check_k1_band(*shape, seed=sum(shape))
+
+
+@pytest.mark.parametrize("pad", (1, 0))
+def test_k1_band_kernels_take_tensors_off_16_byte_alignment(pad, device):
+    """Views 4 bytes into their storage (contiguous, so the wrappers take
+    them): the band kernels copy the weights by 4-byte cp.async and store y
+    a float at a time."""
+    T, N, H, W, cin, cout = 2, 3, 12, 12, 48, 48
+    x, w, b = _k1_inputs(T, N, H, W, cin, cout, seed=9)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, device=t.device)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16 != 0
+        return view
+
+    xs, ws, bs = shifted(x), shifted(w), shifted(b)
+    for a, c in zip(cb.conv3x3_fwd_stats(xs, ws, bs, padding=pad),
+                    F.conv3x3_fwd_stats(x, w, b, padding=pad)):
+        _close(a, c)
+    _close(cb.conv3x3_fwd(xs, ws, bs, padding=pad),
+           F.conv3x3(x, w, b, padding=pad))
+
+
+def _tile_fwd_stats(x, w, b, stride, pad):
+    """K1 with statistics launched on the tile entry of csrc/conv3x3_fwd.cu
+    directly; returns (rc, y, mean, var, rstd)."""
+    import ctypes
+
+    from howtotrainyourmamlpytorch_tpu_torch.kernels import build
+
+    T, N, H, W, cin = x.shape
+    cout = w.shape[-1]
+    Ho, Wo = F.conv_out_hw(H, W, stride, pad)
+    mtiles = -(-N * Ho * Wo // 256)
+    y = torch.empty((T, N, Ho, Wo, cout), device=x.device, dtype=x.dtype)
+    part = torch.empty((T, mtiles, 3, cout), device=x.device)
+    stats = [torch.empty((T, cout), device=x.device, dtype=x.dtype)
+             for _ in range(3)]
+    name = ("conv3x3_fwd_stats_bf16" if x.dtype == torch.bfloat16
+            else "conv3x3_fwd_stats")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn = build.function("conv3x3_fwd", name,
+                        (P,) * 8 + (I,) * 9 + (ctypes.c_float, P))
+    rc = fn(*(t.data_ptr() for t in (x, w, b, y, part, *stats)), T, N, H, W,
+            stride, pad, cin, cout, mtiles, F.scalar_like(F.BN_EPS, x),
+            torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    return (rc, y, *stats)
+
+
+@pytest.mark.parametrize("pad", (1, 0))
+def test_bf16_and_stride_2_k1_still_take_the_tile(pad, device):
+    """The bf16 K1 (stride 1 and 2) and the f32 K1 at stride 2 plan the
+    tile, and the wrapper's outputs are the tile entry's bit for bit; the
+    tile's f32 entry refuses stride 1."""
+    T, N, H, W, cin, cout = 2, 3, 14, 14, 48, 48
+    x, w, b = _k1_inputs(T, N, H, W, cin, cout, seed=11)
+    sms = cb._sms(device)
+    for dtype, stride in ((torch.bfloat16, 1), (torch.bfloat16, 2),
+                          (torch.float32, 2)):
+        xd, wd, bd = (t.to(dtype) for t in (x, w, b))
+        assert cb.fwd_plan(T, N, H, W, cin, cout, stride, pad, sms,
+                           dtype == torch.bfloat16).kernel == "tile"
+        got = cb.conv3x3_fwd_stats(xd, wd, bd, stride=stride, padding=pad)
+        rc, *want = _tile_fwd_stats(xd, wd, bd, stride, pad)
+        assert rc == 0
+        assert all(torch.equal(a, c) for a, c in zip(got, want))
+    assert _tile_fwd_stats(x, w, b, 1, pad)[0] != 0
+
+
+def test_k1_band_entries_refuse_a_plan_that_does_not_match(device):
+    """The entries check the plan's threads and shared memory against the
+    geometry they follow from, and launch nothing otherwise."""
+    import ctypes
+
+    from howtotrainyourmamlpytorch_tpu_torch.kernels import build
+
+    T, N, H, W, cin, cout, pad = 2, 3, 21, 21, 48, 48, 1
+    x, w, b = _k1_inputs(T, N, H, W, cin, cout, seed=13)
+    plan = cb.fwd_plan(T, N, H, W, cin, cout, 1, pad, cb._sms(device))
+    y = torch.full((T, N, H, W, cout), 7.0, device=device)
+    part = torch.empty(plan.scratch, device=device)
+    stats = [torch.empty((T, cout), device=device) for _ in range(3)]
+    P, I = ctypes.c_void_p, ctypes.c_int
+    plain = build.function("conv3x3_fwd_s1", "conv3x3_fwd_band",
+                           (P,) * 4 + (I,) * 11 + (P,))
+    with_stats = build.function("conv3x3_fwd_s1", "conv3x3_fwd_stats_band",
+                                (P,) * 8 + (I,) * 11 + (ctypes.c_float, P))
+    stream = torch.cuda.current_stream().cuda_stream
+    geometry = (T, N, H, W, pad, cin, cout, plan.band_rows)
+    other = 12 - plan.channels  # the other thread width, 4 or 8
+    for channels, threads, smem in (
+            (plan.channels, plan.threads + 32, plan.smem),
+            (plan.channels, plan.threads, plan.smem + 16),
+            (plan.channels, plan.threads, plan.smem - 16),
+            (other, plan.threads, plan.smem), (6, plan.threads, plan.smem)):
+        assert plain(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
+                     *geometry, channels, threads, smem, stream) != 0
+        assert with_stats(*(t.data_ptr() for t in (x, w, b, y, part,
+                                                    *stats)),
+                          *geometry, channels, threads, smem, F.BN_EPS,
+                          stream) != 0
+    torch.cuda.synchronize()
+    assert bool((y == 7.0).all())
+    assert plain(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
+                 *geometry, plan.channels, plan.threads, plan.smem,
+                 stream) == 0
+    _close(y, F.conv3x3(x, w, b, padding=pad))
