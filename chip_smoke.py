@@ -17,8 +17,12 @@ Phases, in order; any failure raises and the exit code is non-zero:
    pixels; the f32 stride-1 K1 and K4 held twice, bit for bit, here, at
    the Omniglot layers and at pad 0, and their rows printed with their
    library ratio and bound share as ``[K1]`` lines, with each K1 row's
-   device time from the profiler, and ``[K4]`` lines); K1-K5
-   again at the four layers of the Omniglot 20-way 1-shot
+   device time from the profiler, and ``[K4]`` lines); K3 and K5 in f32
+   (the cooperative kernels of ``csrc/bn_act_pool_bwd.cu``) also at the
+   stages 2-3 and K3 at T = 2 at every stage (N = 25), every f32 pooled
+   K3 and K5 call held twice, bit for bit, and their rows printed as
+   ``[K3]`` and ``[K5]`` lines with their device time and bound share;
+   K1-K5 again at the four layers of the Omniglot 20-way 1-shot
    model (28/14/7/3, cin 1 and 64, cout 64, T = 8, N = 20); and the ingest
    kernel ``episode_expand`` at the Omniglot device-tier train batch, a
    mini-ImageNet serve bucket of 8 (also with ``reverse_channels``) and the
@@ -394,8 +398,8 @@ SOURCES = {
         "triton", "howtotrainyourmamlpytorch_tpu_torch/kernels/"
                   "bn_act_pool.py"),
     "bn_act_pool_bwd": (
-        "triton", "howtotrainyourmamlpytorch_tpu_torch/kernels/"
-                  "bn_act_pool.py"),
+        "cuda", "howtotrainyourmamlpytorch_tpu_torch/kernels/csrc/"
+                "bn_act_pool_bwd.cu"),
     "conv3x3_dgrad": (
         "cuda", "howtotrainyourmamlpytorch_tpu_torch/kernels/csrc/"
                 "conv3x3_bwd_s1.cu"),
@@ -406,8 +410,8 @@ SOURCES = {
         "cuda", "howtotrainyourmamlpytorch_tpu_torch/kernels/csrc/"
                 "conv3x3_fwd_s1.cu"),
     "bn_act_pool_bwd_bwd": (
-        "triton", "howtotrainyourmamlpytorch_tpu_torch/kernels/"
-                  "bn_act_pool.py"),
+        "cuda", "howtotrainyourmamlpytorch_tpu_torch/kernels/csrc/"
+                "bn_act_pool_bwd.cu"),
     "episode_expand": (
         "cuda", "howtotrainyourmamlpytorch_tpu_torch/kernels/csrc/"
                 "episode_expand.cu"),
@@ -418,8 +422,8 @@ SOURCES.update({
     "conv3x3_s2_dgrad": BWD_TILE,
     "conv3x3_s2_wgrad": BWD_TILE,
     "bn_act_fwd": SOURCES["bn_act_pool_fwd"],
-    "bn_act_bwd": SOURCES["bn_act_pool_bwd"],
-    "bn_act_bwd_bwd": SOURCES["bn_act_pool_bwd_bwd"],
+    "bn_act_bwd": SOURCES["bn_act_pool_fwd"],
+    "bn_act_bwd_bwd": SOURCES["bn_act_pool_fwd"],
     "global_avg_pool2d_fwd": (
         "triton", "howtotrainyourmamlpytorch_tpu_torch/kernels/"
                   "global_avg_pool.py"),
@@ -429,8 +433,8 @@ SOURCES.update({
     "bn_input_stats": (
         "triton", "howtotrainyourmamlpytorch_tpu_torch/kernels/bn_stats.py"),
     "batch_norm_fwd": SOURCES["bn_act_pool_fwd"],
-    "batch_norm_bwd": SOURCES["bn_act_pool_bwd"],
-    "batch_norm_bwd_bwd": SOURCES["bn_act_pool_bwd_bwd"],
+    "batch_norm_bwd": SOURCES["bn_act_pool_fwd"],
+    "batch_norm_bwd_bwd": SOURCES["bn_act_pool_fwd"],
 })
 SOURCES.update({
     k: ("triton", "howtotrainyourmamlpytorch_tpu_torch/kernels/act_pool.py")
@@ -446,9 +450,13 @@ SOURCES.update({f"conv3x3_p0_{k}": SOURCES[f"conv3x3_{k}"]
                 for k in ("fwd_stats", "dgrad", "wgrad", "fwd")})
 SOURCES.update({f"conv3x3_s2_p0_{k}": SOURCES[f"conv3x3_s2_{k}"]
                 for k in ("fwd_stats", "dgrad", "wgrad", "fwd")})
+# in bf16, K3 and K5 pooled run the Triton kernels (bn_act_pool.py), as
+# every pool-free mode does; in f32, csrc/bn_act_pool_bwd.cu
 SOURCES.update({f"{k}_bf16": (FWD_TILE if "_fwd" in k else BWD_TILE)
                 if k.startswith("conv3x3_") else SOURCES[k]
                 for k in BF16_KERNELS})
+SOURCES.update({f"{k}_bf16": SOURCES["bn_act_pool_fwd"]
+                for k in ("bn_act_pool_bwd", "bn_act_pool_bwd_bwd")})
 # the shape each kernel's line reports (a key of its records)
 REPORT_AT = {
     "conv3x3_fwd_stats": "T=8 layer1 N=75",
@@ -626,6 +634,10 @@ class Records:
 # the f32 stride-1 K1 kernels on the device (csrc/conv3x3_fwd_s1.cu: the
 # conv, and with statistics the merge of their partials)
 K1_DEVICE = ("conv3x3_fwd_band_kernel", "bn_stats_merge_kernel")
+# K3 and K5 in f32, pooled, on the device (csrc/bn_act_pool_bwd.cu: one
+# cooperative kernel a call)
+K3_DEVICE = "bn_act_pool_bwd_kernel"
+K5_DEVICE = "bn_act_pool_bwd_bwd_kernel"
 
 
 def _randn(gen):
@@ -674,21 +686,8 @@ def check_kernels(cb, F, records, layers=LAYERS, images=IMAGES, C=COUT,
                 4 * (x.numel() + w.numel() + b.numel() + y.numel()
                      + 3 * T * C), device=K1_DEVICE)
             # K2 on K1's outputs
-            pooled, arg = cb.bn_act_pool_fwd(y, mean, rstd, gamma, beta)
-            pooled_p, arg_p = F.bn_act_pool_fwd(y, mean, rstd, gamma, beta)
-            err = max_err("bn_act_pool_fwd pooled", pooled, pooled_p)
-            mismatch = (arg != arg_p).float().mean().item()
-            if mismatch > 1e-6:
-                raise AssertionError(
-                    f"bn_act_pool_fwd argmax differs at {mismatch:.2e} of "
-                    "the pooled elements"
-                )
-            rec("bn_act_pool_fwd", label, err,
-                lambda: cb.bn_act_pool_fwd(y, mean, rstd, gamma, beta),
-                lambda: F.bn_act_pool_fwd(y, mean, rstd, gamma, beta),
-                None,
-                6 * y.numel() + 3 * pooled.numel(),
-                4 * (y.numel() + 4 * T * C) + 5 * pooled.numel())
+            pooled, pooled_p, arg = _check_k2(cb, F, records, label, y, mean,
+                                              rstd, gamma, beta)
             # K3
             dp = randn(*pooled.shape, scale=1.0 / math.sqrt(pooled.numel()))
             dy, dg, dbeta = cb.bn_act_pool_bwd(dp, arg, y, mean, rstd, gamma,
@@ -698,19 +697,43 @@ def check_kernels(cb, F, records, layers=LAYERS, images=IMAGES, C=COUT,
             err = max(max_err("bn_act_pool_bwd dy", dy, dy_p),
                       max_err("bn_act_pool_bwd dgamma", dg, dg_p),
                       max_err("bn_act_pool_bwd dbeta", dbeta, dbeta_p))
+            _same_bits("bn_act_pool_bwd",
+                       lambda: cb.bn_act_pool_bwd(dp, arg, y, mean, rstd,
+                                                  gamma, beta),
+                       (dy, dg, dbeta))
             rec("bn_act_pool_bwd", label, err,
                 lambda: cb.bn_act_pool_bwd(dp, arg, y, mean, rstd, gamma,
                                            beta),
                 lambda: F.bn_act_pool_bwd(dp, arg, y, mean, rstd, gamma,
                                           beta),
-                None,
-                10 * y.numel() + 6 * pooled.numel(),
-                4 * (dp.numel() + y.numel() + dy.numel() + 4 * T * C)
-                + arg.numel())
+                None, *_k3_cost(y, dp, arg), device=K3_DEVICE)
             # K4: dgrad at layers 2-4 only (layer 1's input is the images)
             _check_k4(cb, F, records, label, x, w, dy, dgrad=cin == C)
             del x, y, y_p, pooled, pooled_p, dy, dy_p, xl
             torch.cuda.empty_cache()
+
+
+def _check_k2(cb, F, records, label, y, mean, rstd, gamma, beta):
+    """K2 against its twin (the argmax equal but for a near-tie in a
+    million), timed beside it; returns the kernel's and the twin's pooled
+    values and the kernel's argmax."""
+    T, C = y.shape[0], y.shape[-1]
+    pooled, arg = cb.bn_act_pool_fwd(y, mean, rstd, gamma, beta)
+    pooled_p, arg_p = F.bn_act_pool_fwd(y, mean, rstd, gamma, beta)
+    err = max_err("bn_act_pool_fwd pooled", pooled, pooled_p)
+    mismatch = (arg != arg_p).float().mean().item()
+    if mismatch > 1e-6:
+        raise AssertionError(
+            f"bn_act_pool_fwd argmax differs at {mismatch:.2e} of the "
+            "pooled elements"
+        )
+    records.add("bn_act_pool_fwd", label, err,
+                lambda: cb.bn_act_pool_fwd(y, mean, rstd, gamma, beta),
+                lambda: F.bn_act_pool_fwd(y, mean, rstd, gamma, beta),
+                None,
+                6 * y.numel() + 3 * pooled.numel(),
+                4 * (y.numel() + 4 * T * C) + 5 * pooled.numel())
+    return pooled, pooled_p, arg
 
 
 def _same_bits(name, fn, want):
@@ -901,6 +924,8 @@ def check_train_kernels(cb, F, records, tasks=TRAIN_TASKS, layers=LAYERS,
                                                  (a, zero, zero) + args[3:])):
                 got = cb.bn_act_pool_bwd_bwd(*case_args)
                 want = F.bn_act_pool_bwd_bwd(*case_args)
+                _same_bits("bn_act_pool_bwd_bwd",
+                           lambda: cb.bn_act_pool_bwd_bwd(*case_args), got)
                 outs = ("g_dpooled", "g_y", "g_gamma")
                 case_errs = [
                     max_err(f"bn_act_pool_bwd_bwd {what}{case}", g, p,
@@ -914,19 +939,100 @@ def check_train_kernels(cb, F, records, tasks=TRAIN_TASKS, layers=LAYERS,
                           for what, e, p in zip(outs, case_errs, want)),
                       flush=True)
             err = max(errs)
-            # reads a, y, dpooled, argmax and six (T, C) vectors once,
-            # writes g_y, g_dpooled, g_gamma; ~42 FLOPs per element of y
-            # over its two passes (normalise, mask, five products/sums;
-            # then the g_dz, G and g_y formulas)
             rec("bn_act_pool_bwd_bwd", label, err,
                 lambda: cb.bn_act_pool_bwd_bwd(*args),
                 lambda: F.bn_act_pool_bwd_bwd(*args),
-                None,
-                42 * y.numel(),
-                4 * (3 * y.numel() + 2 * pooled.numel() + 7 * T * C)
-                + arg.numel())
+                None, *_k5_cost(y, pooled, arg), device=K5_DEVICE)
             del x, y, pooled, arg, args, case_args, got, want, xl, a, dp
             torch.cuda.empty_cache()
+
+
+def _k3_cost(y, dp, arg):
+    """K3's (FLOPs, bytes): it reads dpooled, argmax, y and four (T, C)
+    vectors once and writes dy, dgamma and dbeta; ~10 FLOPs an element of
+    y, 6 a pooled one."""
+    T, C = y.shape[0], y.shape[-1]
+    return (10 * y.numel() + 6 * dp.numel(),
+            4 * (dp.numel() + 2 * y.numel() + 6 * T * C) + arg.numel())
+
+
+def _k5_cost(y, pooled, arg):
+    """K5's (FLOPs, bytes): it reads a, y, dpooled, argmax and six (T, C)
+    vectors once and writes g_y, g_dpooled, g_gamma; ~42 FLOPs per element
+    of y over its two passes (normalise, mask, five products and sums; then
+    the g_dz, G and g_y formulas)."""
+    T, C = y.shape[0], y.shape[-1]
+    return (42 * y.numel(),
+            4 * (3 * y.numel() + 2 * pooled.numel() + 7 * T * C)
+            + arg.numel())
+
+
+def check_bn_bwd_stages(cb, F, records, tasks=TRAIN_TASKS, n=25, C=COUT):
+    """Phase 3, the rest of K3's and K5's f32 main-path shapes: both at the
+    mini-ImageNet model's stages 2-3 (21 and 10 pixels) and K3 also at
+    stages 0-1 at T = 2 (``check_kernels`` takes T = 8 there), the support
+    set (N = 25), on the statistics and argmax of a random y: each against
+    its twin, twice (bit for bit), timed beside the twin with its device
+    time. K2 at the stages 2-3 too (T = 8, N = 75, the target forward's
+    shape, as ``check_kernels`` takes it at stages 0-1)."""
+    randn = _randn(torch.Generator(device="cuda").manual_seed(16))
+    for layer, hw, _ in CONV_STAGES:
+        y = 2.0 * randn(T_TENANTS, max(IMAGES), hw, hw, C) + 0.3
+        mean, _, rstd = F.bn_stats(y)
+        _check_k2(cb, F, records, f"T={T_TENANTS} {layer} N={max(IMAGES)}",
+                  y, mean, rstd, 1.0 + randn(T_TENANTS, C, scale=0.1),
+                  randn(T_TENANTS, C, scale=0.1))
+        del y
+    for T in tasks:
+        for layer, hw, _ in LAYERS + CONV_STAGES:
+            label = f"T={T} {layer} N={n}"
+            y = 2.0 * randn(T, n, hw, hw, C) + 0.3
+            mean, _, rstd = F.bn_stats(y)
+            gamma, beta = 1.0 + randn(T, C, scale=0.1), randn(T, C, scale=0.1)
+            pooled, arg = F.bn_act_pool_fwd(y, mean, rstd, gamma, beta)
+            dp = randn(*pooled.shape, scale=1.0 / math.sqrt(pooled.numel()))
+            k3 = (dp, arg, y, mean, rstd, gamma, beta)
+            if label not in records.by_kernel["bn_act_pool_bwd"]:
+                got = cb.bn_act_pool_bwd(*k3)
+                err = _bn_errs("bn_act_pool_bwd", got, F.bn_act_pool_bwd(*k3),
+                               ("dy", "dgamma", "dbeta"), label)
+                _same_bits("bn_act_pool_bwd",
+                           lambda: cb.bn_act_pool_bwd(*k3), got)
+                records.add("bn_act_pool_bwd", label, err,
+                            lambda: cb.bn_act_pool_bwd(*k3),
+                            lambda: F.bn_act_pool_bwd(*k3), None,
+                            *_k3_cost(y, dp, arg), device=K3_DEVICE)
+            if label not in records.by_kernel["bn_act_pool_bwd_bwd"]:
+                k5 = (randn(*y.shape), randn(T, C), randn(T, C)) + k3
+                got = cb.bn_act_pool_bwd_bwd(*k5)
+                err = _bn_errs("bn_act_pool_bwd_bwd", got,
+                               F.bn_act_pool_bwd_bwd(*k5),
+                               ("g_dpooled", "g_y", "g_gamma"), label,
+                               scaled_atol=True)
+                _same_bits("bn_act_pool_bwd_bwd",
+                           lambda: cb.bn_act_pool_bwd_bwd(*k5), got)
+                records.add("bn_act_pool_bwd_bwd", label, err,
+                            lambda: cb.bn_act_pool_bwd_bwd(*k5),
+                            lambda: F.bn_act_pool_bwd_bwd(*k5), None,
+                            *_k5_cost(y, pooled, arg), device=K5_DEVICE)
+            del y, pooled, arg, dp, k3
+            torch.cuda.empty_cache()
+
+
+def print_k35_rows(records):
+    """K3's and K5's f32 pooled rows at every timed shape of the kernel
+    phase: ms by events, the device time of their launches, the bound and
+    the bound's share of the kernel's time."""
+    for kernel in ("bn_act_pool_bwd", "bn_act_pool_bwd_bwd"):
+        tag = "K3" if kernel == "bn_act_pool_bwd" else "K5"
+        for label, r in records.by_kernel[kernel].items():
+            dev = r["device_ms"]
+            dev = "not measured" if dev is None else "%.4f ms" % dev
+            print(f"[{tag}] {kernel} @ {label}: {r['ms']:.4f} ms (device "
+                  f"{dev}), plain {r['plain_ms']:.4f} ms, bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}), "
+                  f"{100 * r['bound_ms'] / r['ms']:.1f}% of the kernel's "
+                  "time", flush=True)
 
 
 def _bn_errs(what, got, want, outs, label, scaled_atol=False):
@@ -1506,16 +1612,20 @@ def _check_odd_map_bn_kernels(cb, F, randn, x, w, b, label):
     if not torch.equal(arg, arg_p):
         raise AssertionError("bn_act_pool_fwd argmax differs on an odd map")
     dp = randn(*pooled.shape)
-    errs.append(_bn_errs("bn_act_pool_bwd (odd map)",
-                         cb.bn_act_pool_bwd(dp, arg, *bn),
+    got = cb.bn_act_pool_bwd(dp, arg, *bn)
+    errs.append(_bn_errs("bn_act_pool_bwd (odd map)", got,
                          F.bn_act_pool_bwd(dp, arg, *bn),
                          ("dy", "dgamma", "dbeta"), label))
+    _same_bits("bn_act_pool_bwd (odd map)",
+               lambda: cb.bn_act_pool_bwd(dp, arg, *bn), got)
     args = (randn(*y.shape), randn(T, C), randn(T, C), dp, arg, *bn)
-    errs.append(_bn_errs("bn_act_pool_bwd_bwd (odd map)",
-                         cb.bn_act_pool_bwd_bwd(*args),
+    got = cb.bn_act_pool_bwd_bwd(*args)
+    errs.append(_bn_errs("bn_act_pool_bwd_bwd (odd map)", got,
                          F.bn_act_pool_bwd_bwd(*args),
                          ("g_dpooled", "g_y", "g_gamma"), label,
                          scaled_atol=True))
+    _same_bits("bn_act_pool_bwd_bwd (odd map)",
+               lambda: cb.bn_act_pool_bwd_bwd(*args), got)
     print(f"  K2, K3, K5 on the {y.shape[2]}x{y.shape[3]} conv output @ "
           f"{label}: max err {max(errs):.3e}", flush=True)
 
@@ -4167,6 +4277,9 @@ def main() -> int:
     print("[kernels] K1 and K4 at the mini-ImageNet stages 2-3", flush=True)
     check_conv_stages(cb, F, records)
     check_train_kernels(cb, F, records)
+    print("[kernels] K3 and K5 at the mini-ImageNet stages 2-3 (and K3 at "
+          "T = 2)", flush=True)
+    check_bn_bwd_stages(cb, F, records)
     print("[kernels] K1-K5 at the Omniglot 20-way 1-shot layers", flush=True)
     check_kernels(cb, F, records, OMNIGLOT_LAYERS, (OMNIGLOT_IMAGES,),
                   OMNIGLOT_COUT, "omniglot ")
@@ -4232,6 +4345,7 @@ def main() -> int:
     print(f"[kernels] {time.perf_counter() - t0:.1f} s", flush=True)
     print_k1_rows(records)
     print_k4_rows(records)
+    print_k35_rows(records)
 
     main_counts = {k: 0 for k in all_kernels}
     t0 = time.perf_counter()

@@ -1,6 +1,9 @@
 """Triton kernels K2, K3 and K5: batch-norm normalize + affine + leaky-ReLU +
 2x2 max pool, its backward, and the backward of that backward; and their
-pool-free mode, for the strided model (``max_pooling=False``).
+pool-free mode, for the strided model (``max_pooling=False``). K3 and K5
+pooled in f32 (every shipped config's) run the cooperative CUDA kernels
+of ``csrc/bn_act_pool_bwd.cu`` instead (``conv_block.bn_bwd_plan``); the
+pooled K3 and K5 here serve bf16, the pool-free ones both dtypes.
 
 Replace (JAX package) ``howtotrainyourmamlpytorch_tpu/ops/functional.py``:
 the normalize/affine tail of ``batch_norm`` :368 inside ``conv_bn_act``
@@ -659,8 +662,9 @@ def is_bf16(t) -> bool:
 
 def launch_bwd(dpooled, arg, y, mean, rstd, gamma, beta, part, dy,
                slope: float) -> None:
-    """K3a then K3b on validated contiguous CUDA tensors, all f32 or all
-    bf16 but the f32 ``part``, ``(T, SPLITS, 2, C)`` scratch that K3a fills
+    """K3a then K3b on validated contiguous CUDA tensors, all bf16 (the
+    wrapper's route; f32 takes csrc/bn_act_pool_bwd.cu) or all f32 but
+    the f32 ``part``, ``(T, SPLITS, 2, C)`` scratch that K3a fills
     with the partial ``sum(dz)`` and ``sum(dz * xhat)`` (see
     ``conv_block.bn_act_pool_bwd``)."""
     T, N, H, W, C = y.shape
@@ -688,9 +692,10 @@ def launch_bwd(dpooled, arg, y, mean, rstd, gamma, beta, part, dy,
 
 def launch_bwd_bwd(a, ggamma, gbeta, dpooled, arg, y, mean, rstd, gamma,
                    beta, part, g_dpooled, g_y, g_gamma, slope: float) -> None:
-    """K5a then K5b on validated contiguous CUDA tensors, all f32 or all
-    bf16 but the f32 ``part``, ``(T, SPLITS, 5, C)`` scratch for the five
-    partial sums (see ``conv_block.bn_act_pool_bwd_bwd``)."""
+    """K5a then K5b on validated contiguous CUDA tensors, all bf16 (the
+    wrapper's route; f32 takes csrc/bn_act_pool_bwd.cu) or all f32 but
+    the f32 ``part``, ``(T, SPLITS, 5, C)`` scratch for the five partial
+    sums (see ``conv_block.bn_act_pool_bwd_bwd``)."""
     T, N, H, W, C = y.shape
     Ho, Wo = H // 2, W // 2
     if C > BLOCK_C:

@@ -13,10 +13,10 @@ kernel                      route   source                    launches/call
 ``conv3x3_fwd_stats``       CUDA    csrc/conv3x3_fwd_s1.cu    conv + merge: 2
 ``conv3x3_fwd``             CUDA    csrc/conv3x3_fwd_s1.cu    1 (stats-free)
 ``bn_act_pool_fwd``         Triton  bn_act_pool.py (K2)       1
-``bn_act_pool_bwd``         Triton  bn_act_pool.py (K3)       reduce + dy: 2
+``bn_act_pool_bwd``         CUDA    csrc/bn_act_pool_bwd.cu   1 (cooperative)
 ``conv3x3_dgrad``           CUDA    csrc/conv3x3_bwd_s1.cu    1
 ``conv3x3_wgrad``           CUDA    csrc/conv3x3_bwd_s1.cu    wgrad + reduce: 2
-``bn_act_pool_bwd_bwd``     Triton  bn_act_pool.py (K5)       reduce + out: 2
+``bn_act_pool_bwd_bwd``     CUDA    csrc/bn_act_pool_bwd.cu   1 (cooperative)
 ``conv3x3_s2_*``            CUDA    K1: fwd.cu, K4: bwd.cu    as at stride 1
 ``conv3x3_p0_*``            CUDA    the same sources          as at pad 1
 ``conv3x3_s2_p0_*``         CUDA    the same sources          as at pad 1
@@ -38,7 +38,8 @@ kernel                      route   source                    launches/call
 ``layer_norm_fwd``          Triton  layer_norm.py             1
 ``layer_norm_bwd``          Triton  layer_norm.py             reduce + sums + dx: 3
 ``layer_norm_bwd_bwd``      Triton  layer_norm.py             reduce + sums + out: 3
-``*_bf16``                  as f32  K1: fwd.cu, K4: bwd.cu    as in f32
+``*_bf16``                  as f32  K1: fwd.cu, K4: bwd.cu;   as in f32; K3, K5
+                                    K3, K5: bn_act_pool.py    2 each
 ==========================  ======  ========================  ==================
 
 K1 (both modes) and K4 (dgrad and wgrad) run two designs each: in f32 at
@@ -48,6 +49,11 @@ band of rows with its halo in shared memory once; in bf16 and at stride 2
 the tile kernels of ``csrc/conv3x3_fwd.cu`` and ``csrc/conv3x3_bwd.cu``.
 ``fwd_plan``, ``dgrad_plan`` and ``wgrad_plan`` give each launch (grid,
 bands, splits, shared memory, scratch) as a pure function of the shape.
+K3 and K5 pooled in f32 run the cooperative kernels of
+``csrc/bn_act_pool_bwd.cu`` (reduce, grid barrier, merge, barrier, apply
+in one launch, on the grid ``bn_bwd_plan`` sizes from the occupancy
+query); in bf16, and pool-free, the Triton kernels of ``bn_act_pool.py``
+(a reduce and an apply launch).
 
 The ``conv3x3_s2_*`` names are the four conv kernels at stride 2 (the
 strided model, ``max_pooling=False``), counted apart from stride 1, and
@@ -224,6 +230,14 @@ WGRAD_BAND_PIXELS = 128
 #: blocks a SM the band kernels' plans give the card (where the shape has
 #: that many bands)
 BAND_BLOCKS_PER_SM = 2
+
+#: K3 and K5 in f32, pooled (csrc/bn_act_pool_bwd.cu, one cooperative
+#: launch a call): a block's threads (``kThreads`` there), the most
+#: channels they take (the Triton kernels' ``BLOCK_C``), and the partial
+#: sums a (tenant, channel) of each
+BN_BWD_THREADS = 256
+BN_BWD_MAX_C = 64
+BN_BWD_SUMS = {"bn_act_pool_bwd": 2, "bn_act_pool_bwd_bwd": 5}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -584,12 +598,140 @@ def bn_act_fwd(y: Tensor, mean: Tensor, rstd: Tensor, gamma: Tensor,
                            negative_slope)
 
 
+class BnBwdPlan(NamedTuple):
+    """The launch of K3 or K5 pooled at one shape: ``kernel`` ``"cuda"``
+    (f32, csrc/bn_act_pool_bwd.cu) or ``"triton"`` (bf16:
+    kernels/bn_act_pool.py, on its own grid; the other fields 0). A CUDA
+    block of ``threads`` takes ``slots`` windows at a time x ``groups``
+    groups of 4 channels, ``chunk`` consecutive windows of one tenant in
+    all; ``grid`` is (blocks a tenant, T); a tenant has ``windows``
+    windows."""
+
+    kernel: str
+    grid: Tuple[int, int]
+    threads: int
+    groups: int
+    slots: int
+    chunk: int
+    windows: int
+
+
+@functools.lru_cache(maxsize=None)
+def bn_bwd_plan(T: int, N: int, H: int, W: int, C: int, sms: int = 132,
+                blocks_per_sm: int = 2, bf16: bool = False) -> BnBwdPlan:
+    """K3's and K5's launch for y ``(T, N, H, W, C)`` on a card of ``sms``
+    SMs that holds ``blocks_per_sm`` of their blocks at once (the
+    occupancy query). A pure function of the shape: the wrappers call it,
+    and so do the CPU tests.
+
+    f32 pooled, the CUDA kernels: each tenant's map in windows of 2 x 2
+    positions (an odd map's last row or column in windows of one row or
+    column), ceil(H / 2) x ceil(W / 2) an image; a block ``BN_BWD_THREADS``
+    threads, ``slots`` = threads // groups windows at a time; each
+    tenant's windows over as many blocks as the card holds at once (but no
+    block without a window for each of its slots), in chunks of whole
+    ``slots`` windows; no chunk spans two tenants. Raises where the card
+    cannot hold a block a tenant at once (the cooperative launch needs
+    every block resident). bf16: the Triton kernels, on their own grid.
+    The pool-free modes have wrappers of their own (``bn_act_bwd``,
+    ``batch_norm_bwd`` and their derivatives), on the Triton kernels."""
+    if bf16:
+        return BnBwdPlan("triton", (0, 0), 0, 0, 0, 0, 0)
+    if min(T, N, C) < 1 or H < 2 or W < 2 or C > BN_BWD_MAX_C:
+        raise ValueError(f"bn_bwd_plan: no pooled K3/K5 of a (T={T}, N={N}, "
+                         f"{H}x{W}, C={C}) map")
+    resident = sms * blocks_per_sm
+    if T > resident:
+        raise ValueError(f"bn_bwd_plan: {T} tenants need a block each at "
+                         f"once; the card holds {resident}")
+    groups = _cdiv(C, 4)
+    slots = BN_BWD_THREADS // groups
+    windows = N * _cdiv(H, 2) * _cdiv(W, 2)
+    blocks = min(resident // T, _cdiv(windows, slots))
+    chunk = _cdiv(_cdiv(windows, blocks), slots) * slots
+    return BnBwdPlan("cuda", (_cdiv(windows, chunk), T), BN_BWD_THREADS,
+                     groups, slots, chunk, windows)
+
+
+def _bn_bwd_vec(C: int, ptrs) -> bool:
+    """The CUDA K3/K5's 16-byte loads, for the pointers ``ptrs`` of their
+    input tensors (the uint8 argmax sixth from the end): C % 4 == 0, every
+    f32 tensor 16-byte aligned, the argmax 4-byte; else a float at a
+    time."""
+    arg = len(ptrs) - 6
+    return C % 4 == 0 and ptrs[arg] % 4 == 0 and all(
+        p % 16 == 0 for i, p in enumerate(ptrs) if i != arg)
+
+
+@functools.lru_cache(maxsize=None)
+def _bn_bwd_blocks_per_sm(device, sums: int, vec: bool) -> int:
+    """The occupancy query of the cooperative K3 (2 sums) or K5 (5)."""
+    fn = build.function("bn_act_pool_bwd", "bn_act_pool_bwd_blocks_per_sm",
+                        (_I, _I, ctypes.POINTER(ctypes.c_int)))
+    out = ctypes.c_int(0)
+    with _device(device):
+        rc = fn(sums, int(vec), ctypes.byref(out))
+    build.check(rc, "bn_act_pool_bwd_blocks_per_sm")
+    return out.value
+
+
+def _bn_bwd_route(name: str, y: Tensor, vec: bool) -> BnBwdPlan:
+    """``bn_bwd_plan`` of K3 (``name`` ``bn_act_pool_bwd``) or K5 at y's
+    shape and dtype on y's card; bf16 asks no occupancy."""
+    T, N, H, W, C = y.shape
+    if y.dtype == torch.bfloat16:
+        return bn_bwd_plan(T, N, H, W, C, bf16=True)
+    return bn_bwd_plan(T, N, H, W, C, _sms(y.device),
+                       _bn_bwd_blocks_per_sm(y.device, BN_BWD_SUMS[name],
+                                             vec))
+
+
+_BN_BWD_ENTRIES = {
+    "bn_act_pool_bwd": ("bn_act_pool_bwd_f32",
+                        (_P,) * 12 + (_I,) * 10 + (_F, _F, _P)),
+    "bn_act_pool_bwd_bwd": ("bn_act_pool_bwd_bwd_f32",
+                            (_P,) * 15 + (_I,) * 10 + (_F, _F, _P)),
+}
+
+
+def _bn_bwd_cuda(name: str, plan: BnBwdPlan, vec: bool, tensors, ptrs,
+                 slope: float) -> Tuple[Tensor, Tensor, Tensor]:
+    """The f32 CUDA K3 (``name`` ``bn_act_pool_bwd``: ``tensors`` dpooled,
+    argmax, y, mean, rstd, gamma, beta; returns dy, dgamma, dbeta) or K5
+    (``bn_act_pool_bwd_bwd``: a, ggamma, gbeta and K3's; returns
+    g_dpooled, g_y, g_gamma) on validated tensors at ``ptrs``, launched by
+    ``plan``. The (T, C) outputs and the f32 scratch (the blocks' partial
+    sums, the merged sums) share one allocation: a call's host time
+    counts at the small maps."""
+    y, dpooled = tensors[-5], tensors[-7]
+    T, N, H, W, C = y.shape
+    sums, vecs = BN_BWD_SUMS[name], 2 if name == "bn_act_pool_bwd" else 1
+    big = ((torch.empty_like(y),) if vecs == 2
+           else (torch.empty_like(dpooled), torch.empty_like(y)))
+    TC = T * C
+    small = torch.empty(vecs * TC + sums * TC * (plan.grid[0] + 1),
+                        device=y.device)
+    base = small.data_ptr()
+    part = base + 4 * vecs * TC
+    entry, argtypes = _BN_BWD_ENTRIES[name]
+    with _device(y.device):
+        rc = build.function("bn_act_pool_bwd", entry, argtypes)(
+            *ptrs, *(t.data_ptr() for t in big),
+            *(base + 4 * k * TC for k in range(vecs)), part,
+            part + 4 * sums * TC * plan.grid[0], T, N, H, W, C,
+            plan.grid[0], plan.chunk, plan.slots, plan.threads, int(vec),
+            slope, 1.0 / (N * H * W), _stream(y.device))
+    build.check(rc, name)
+    return (*big, *small[:vecs * TC].view(vecs, T, C).unbind(0))
+
+
 def bn_act_pool_bwd(dpooled: Tensor, argmax: Tensor, y: Tensor, mean: Tensor,
                     rstd: Tensor, gamma: Tensor, beta: Tensor,
                     negative_slope: float = F.LEAKY_SLOPE
                     ) -> Tuple[Tensor, Tensor, Tensor]:
     """The backward of ``bn_act_pool_fwd`` through batch norm with batch
-    statistics; returns ``(dy, dgamma, dbeta)``."""
+    statistics; returns ``(dy, dgamma, dbeta)``. f32: one launch of the
+    CUDA kernel (``bn_bwd_plan``); bf16: the Triton kernels."""
     if _on_cpu(y):
         return F.bn_act_pool_bwd(dpooled, argmax, y, mean, rstd, gamma, beta,
                                  negative_slope)
@@ -598,15 +740,23 @@ def bn_act_pool_bwd(dpooled: Tensor, argmax: Tensor, y: Tensor, mean: Tensor,
                                  beta=beta), y.device)
     _check_pooled(name, dpooled, argmax, y)
     T, _, _, _, C = y.shape
-    part = torch.empty((T, bn_act_pool.SPLITS, 2, C), device=y.device)
-    dy = torch.empty_like(y)
-    with torch.cuda.device(y.device):
-        bn_act_pool.launch_bwd(dpooled, argmax, y, mean, rstd, gamma, beta,
-                               part, dy, F.scalar_like(negative_slope, y))
+    slope = F.scalar_like(negative_slope, y)
+    tensors = (dpooled, argmax, y, mean, rstd, gamma, beta)
+    ptrs = [t.data_ptr() for t in tensors]
+    vec = _bn_bwd_vec(C, ptrs)
+    plan = _bn_bwd_route(name, y, vec)
+    if plan.kernel == "cuda":
+        out = _bn_bwd_cuda(name, plan, vec, tensors, ptrs, slope)
+    else:
+        part = torch.empty((T, bn_act_pool.SPLITS, 2, C), device=y.device)
+        dy = torch.empty_like(y)
+        with torch.cuda.device(y.device):
+            bn_act_pool.launch_bwd(*tensors, part, dy, slope)
+        # the f32 partial sums, rounded once to y's dtype
+        sums = part.sum(dim=1).to(y.dtype)
+        out = dy, sums[:, 1], sums[:, 0]
     LAUNCHES[_counter(name, y)] += 1
-    # the f32 partial sums, rounded once to y's dtype
-    sums = part.sum(dim=1).to(y.dtype)
-    return dy, sums[:, 1], sums[:, 0]
+    return out
 
 
 def bn_act_bwd(da: Tensor, y: Tensor, mean: Tensor, rstd: Tensor,
@@ -658,17 +808,25 @@ def bn_act_pool_bwd_bwd(a: Tensor, ggamma: Tensor, gbeta: Tensor,
     _check(name, "a", a, y.shape, y.device, y.dtype)
     pooled_shape = _check_pooled(name, dpooled, argmax, y)
     T, _, _, _, C = y.shape
-    # the outputs in y's dtype, the five partial sums f32
-    part = torch.empty((T, bn_act_pool.SPLITS, 5, C), device=y.device)
-    g_dpooled = torch.empty(pooled_shape, device=y.device, dtype=y.dtype)
-    g_y = torch.empty_like(y)
-    g_gamma = torch.empty((T, C), device=y.device, dtype=y.dtype)
-    with torch.cuda.device(y.device):
-        bn_act_pool.launch_bwd_bwd(a, ggamma, gbeta, dpooled, argmax, y, mean,
-                                   rstd, gamma, beta, part, g_dpooled, g_y,
-                                   g_gamma, F.scalar_like(negative_slope, y))
+    slope = F.scalar_like(negative_slope, y)
+    tensors = (a, ggamma, gbeta, dpooled, argmax, y, mean, rstd, gamma, beta)
+    ptrs = [t.data_ptr() for t in tensors]
+    vec = _bn_bwd_vec(C, ptrs)
+    plan = _bn_bwd_route(name, y, vec)
+    if plan.kernel == "cuda":
+        out = _bn_bwd_cuda(name, plan, vec, tensors, ptrs, slope)
+    else:
+        # the outputs in y's dtype, the five partial sums f32
+        part = torch.empty((T, bn_act_pool.SPLITS, 5, C), device=y.device)
+        g_dpooled = torch.empty(pooled_shape, device=y.device, dtype=y.dtype)
+        g_y = torch.empty_like(y)
+        g_gamma = torch.empty((T, C), device=y.device, dtype=y.dtype)
+        with torch.cuda.device(y.device):
+            bn_act_pool.launch_bwd_bwd(*tensors, part, g_dpooled, g_y,
+                                       g_gamma, slope)
+        out = g_dpooled, g_y, g_gamma
     LAUNCHES[_counter(name, y)] += 1
-    return g_dpooled, g_y, g_gamma
+    return out
 
 
 def bn_act_bwd_bwd(a: Tensor, ggamma: Tensor, gbeta: Tensor, da: Tensor,

@@ -1,6 +1,6 @@
-"""Save, or compare bit for bit, the conv kernels' outputs on fixed inputs:
-the check that a change to some conv kernels left the others what they
-were.
+"""Save, or compare bit for bit, the conv kernels' and the batch-norm
+kernels' outputs on fixed inputs: the check that a change to some kernels
+left the others what they were.
 
     PYTHONPATH=<parent checkout> python3 <this file> save bits.pt
     PYTHONPATH=<this checkout> python3 <this file> compare bits.pt
@@ -8,17 +8,21 @@ were.
 Run by path, so that ``PYTHONPATH`` picks the package whose kernels are
 built and launched; each tree builds its own kernels into its own
 ``_build/``. The inputs come from numpy seeds; each kernel runs in f32 and
-in bf16, at stride 1 and 2 and at pad 1 and 0 on the card (K1 with
-statistics and stats-free, with and without bias; K4 dgrad and wgrad).
+in bf16 on the card: the convs at stride 1 and 2 and at pad 1 and 0 (K1
+with statistics and stats-free, with and without bias; K4 dgrad and
+wgrad), and on each stride-1 conv output K2 (``bn_act_pool_fwd``), K3 and
+K5 pooled (``bn_act_pool_bwd``, ``bn_act_pool_bwd_bwd``) and pool-free
+(``bn_act_*``, and at slope 1 ``batch_norm_*``).
 
 ``compare`` prints one line per output and exits 1 unless every output is
-``torch.equal`` to the saved one — except K1's f32 outputs at stride 1
-(with statistics and stats-free), which the band kernels
-(``csrc/conv3x3_fwd_s1.cu``) compute in another order than the tile before
-them: those may differ, and must then lie within ``1e-5 + 1e-4 * scale``
-of their plain twins. Every bf16, stride-2 and K4 output must be equal
-(K4's f32 stride-1 band kernels, ``csrc/conv3x3_bwd_s1.cu``, came before
-this build's parent). Needs one card.
+``torch.equal`` to the saved one — except K3's and K5's f32 pooled
+outputs, which the cooperative kernels (``csrc/bn_act_pool_bwd.cu``) sum
+in another order than the Triton kernels before them: those may differ,
+and must then lie within ``1e-5 + 1e-4 * scale`` of their plain twins.
+Every conv output (the f32 stride-1 band kernels of
+``csrc/conv3x3_fwd_s1.cu`` and ``csrc/conv3x3_bwd_s1.cu`` came before
+this build's parent), K2, the bf16 K3 and K5 and every pool-free output
+must be equal. Needs one card.
 """
 
 from __future__ import annotations
@@ -49,17 +53,56 @@ def _inputs(i, shape):
             r(T, cout, scale=0.1), rng)
 
 
-def band_output(key: str) -> bool:
-    """The outputs the new band kernels compute: K1 in f32 at stride 1."""
-    return (key.startswith("float32") and " stride 1 " in key
-            and " fwd" in key)
+def new_output(key: str) -> bool:
+    """The outputs the new kernels compute: K3 and K5 in f32, pooled."""
+    return key.startswith("float32") and " bn_act_pool_bwd" in key
+
+
+def bn_outputs(key, y, mean, rstd, rng, twins):
+    """{key: output} of K2, K3 and K5 on the conv output ``y`` with its
+    statistics: pooled, and pool-free at the leaky slope and at slope 1;
+    with ``twins``, the plain twins of the f32 pooled K3 and K5 alone."""
+    from howtotrainyourmamlpytorch_tpu_torch.kernels import conv_block as cb
+    from howtotrainyourmamlpytorch_tpu_torch.ops import functional as F
+
+    T, N, H, W, C = y.shape
+
+    def r(*dims):
+        return torch.from_numpy(
+            rng.randn(*dims).astype(np.float32)).cuda().to(y.dtype)
+
+    gamma, beta = 1.0 + 0.1 * r(T, C), 0.1 * r(T, C)
+    pooled, arg = cb.bn_act_pool_fwd(y, mean, rstd, gamma, beta)
+    dp, a, da = r(*pooled.shape), r(*y.shape), r(*y.shape)
+    k3 = (dp, arg, y, mean, rstd, gamma, beta)
+    k5 = (a, r(T, C), r(T, C)) + k3
+    if twins:
+        if y.dtype != torch.float32:
+            return {}
+        got = F.bn_act_pool_bwd(*k3) + F.bn_act_pool_bwd_bwd(*k5)
+    else:
+        got = (cb.bn_act_pool_bwd(*k3) + cb.bn_act_pool_bwd_bwd(*k5)
+               + (pooled, arg))
+        free = (da, y, mean, rstd, gamma, beta)
+        for slope in (F.LEAKY_SLOPE, 1.0):
+            got += cb.bn_act_bwd(*free, slope) + cb.bn_act_bwd_bwd(
+                a, k5[1], k5[2], *free, slope)
+    names = [f"bn_act_pool_bwd {n}" for n in ("dy", "dgamma", "dbeta")]
+    names += [f"bn_act_pool_bwd_bwd {n}"
+              for n in ("g_dpooled", "g_y", "g_gamma")]
+    names += ["bn_act_pool_fwd pooled", "bn_act_pool_fwd argmax"]
+    for slope in ("leaky", "1"):
+        names += [f"pool-free K3 (slope {slope}) {n}"
+                  for n in ("dy", "dgamma", "dbeta")]
+        names += [f"pool-free K5 (slope {slope}) {n}"
+                  for n in ("g_da", "g_y", "g_gamma")]
+    return {f"{key} {n}": v for n, v in zip(names, got)}
 
 
 def outputs(twins: bool = False):
     """{key: output} of every kernel call; with ``twins``, the plain twins'
-    outputs of the band kernels' calls instead."""
+    outputs of the new kernels' calls instead."""
     from howtotrainyourmamlpytorch_tpu_torch.kernels import conv_block as cb
-    from howtotrainyourmamlpytorch_tpu_torch.ops import functional as F
 
     out = {}
     for i, shape in enumerate(SHAPES):
@@ -74,19 +117,13 @@ def outputs(twins: bool = False):
                     dy = torch.from_numpy(
                         rng.randn(*y.shape).astype(np.float32)).cuda()
                     dy = dy.to(dtype)
-                    if twins:
-                        if dtype == torch.float32 and s == 1:
-                            out.update({
-                                f"{key} fwd_stats {n}": v for n, v in zip(
-                                    ("y", "mean", "var", "rstd"),
-                                    F.conv3x3_fwd_stats(x, w, b, stride=s,
-                                                        padding=p))})
-                            out[f"{key} fwd"] = F.conv3x3(x, w, b, s, p)
-                            out[f"{key} fwd (no bias)"] = F.conv3x3(
-                                x, w, None, s, p)
-                        continue
                     stats = cb.conv3x3_fwd_stats(x, w, b, stride=s,
                                                  padding=p)
+                    if s == 1:
+                        out.update(bn_outputs(key, stats[0], stats[1],
+                                              stats[3], rng, twins))
+                    if twins:
+                        continue
                     out.update({f"{key} fwd_stats {n}": v for n, v in zip(
                         ("y", "mean", "var", "rstd"), stats)})
                     out[f"{key} fwd"] = y
@@ -123,22 +160,22 @@ def main(argv) -> int:
         if not equal:
             diff = (got[k].float() - v.float()).abs().max().item()
             line += f"  max |diff| {diff:.3e}"
-            if band_output(k):
+            if new_output(k):
                 differ += 1
                 err = (got[k] - twins[k]).abs().max().item()
                 scale = twins[k].abs().max().item()
                 ok = err <= ATOL + RTOL * scale
                 bad += not ok
-                line += (f"  (band kernel; vs twin {err:.3e}, gate "
+                line += (f"  (new kernel; vs twin {err:.3e}, gate "
                          f"{ATOL + RTOL * scale:.3e}: "
                          f"{'within' if ok else 'OUTSIDE'})")
             else:
                 bad += 1
         print(line, flush=True)
-    n_band = sum(band_output(k) for k in want)
+    n_new = sum(new_output(k) for k in want)
     print(f"{same} of {len(want)} outputs bit-identical to the saved "
-          f"build's; {differ} of the {n_band} band-kernel outputs differ "
-          f"(f32 K1 at stride 1), every one within its twin gate, and "
+          f"build's; {differ} of the {n_new} new-kernel outputs differ "
+          f"(f32 pooled K3 and K5), every one within its twin gate, and "
           f"every other output equal: {bad == 0}", flush=True)
     return 0 if bad == 0 and len(got) == len(want) else 1
 

@@ -15,8 +15,11 @@ read from the checkout it runs in), weights from the config's seed:
 * ``torch.profiler`` over one warm train step at batch 2 and 8, and over
   one warm bucket-8 f32 serve dispatch (8 tenants, 6 shots): the device's
   busy time against the wall time, the K1 kernels' device time (every
-  kernel whose name holds ``conv3x3_fwd``, and the statistics' merge) and
-  the largest kernels by device time.
+  kernel whose name holds ``conv3x3_fwd``, and the statistics' merge), K3's
+  and K5's (every kernel whose name holds ``bn_act_pool_bwd``, and
+  ``bn_act_pool_bwd_bwd`` for K5: the Triton passes or the one CUDA
+  kernel; a Triton K3's sum of its partials is a PyTorch reduction, not
+  counted here) and the largest kernels by device time.
 
 Prints one line per measurement with the card's ``nvidia-smi`` line first.
 Needs one card.
@@ -36,17 +39,30 @@ CONFIG = ("experiment_config/"
 K1_NAMES = ("conv3x3_fwd", "bn_stats_merge")
 
 
+def _is_k5(key):
+    return "bn_act_pool_bwd_bwd" in key
+
+
+def _is_k3(key):
+    return "bn_act_pool_bwd" in key and not _is_k5(key)
+
+
 def report(label, what, prof, wall_ms):
     events = [e for e in prof.key_averages()
               if getattr(e, "device_time_total", 0) > 0
               and e.device_type.name == "CUDA"]
     busy = sum(e.device_time_total for e in events) / 1e3
-    k1 = [e for e in events if any(k in e.key for k in K1_NAMES)]
-    k1_ms = sum(e.device_time_total for e in k1) / 1e3
+    parts = []
+    for name, match in (
+            ("K1", lambda k: any(n in k for n in K1_NAMES)),
+            ("K3", _is_k3), ("K5", _is_k5)):
+        mine = [e for e in events if match(e.key)]
+        ms = sum(e.device_time_total for e in mine) / 1e3
+        parts.append(f"{name} {ms:.3f} ms over "
+                     f"{sum(e.count for e in mine)} launches")
     print(f"[e2e {label}] {what}: device busy {busy:.3f} ms of "
           f"{wall_ms:.3f} ms wall, {sum(e.count for e in events)} device "
-          f"activities; K1 {k1_ms:.3f} ms over "
-          f"{sum(e.count for e in k1)} launches", flush=True)
+          f"activities; " + "; ".join(parts), flush=True)
     for e in sorted(events, key=lambda e: -e.device_time_total)[:8]:
         print(f"[e2e {label}]     {e.device_time_total / 1e3:9.3f} ms  "
               f"x{e.count:<4d} {e.key[:80]}", flush=True)

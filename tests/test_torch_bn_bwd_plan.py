@@ -1,0 +1,333 @@
+"""The launch plan of K3 and K5 in f32, pooled (``conv_block.bn_bwd_plan``,
+the cooperative kernels of ``kernels/csrc/bn_act_pool_bwd.cu``), on the
+CPU: a pure function of the shape, checked at every shape the shipped
+configs give K3 and K5 — the mini-ImageNet conv outputs (84/42/21/10, and
+the unpadded 82/39/17/6; 48 channels) and Omniglot's (28/14/7/3, 64
+channels), at the configs' task batches (2, 8 and the large-batch
+config's 256) and image counts — and emulated in plain PyTorch: each
+thread's windows summed in order, each block's slots in order, each
+column's blocks merged over 32 lane-strided runs and a shuffle tree, then
+the apply pass on the merged sums, against the twins
+(``ops/functional.py::bn_act_pool_bwd``, ``::bn_act_pool_bwd_bwd``)
+within f32 round-off; and at one small odd map against the JAX package's
+``batch_norm`` :368 -> ``leaky_relu`` :363 -> ``max_pool2d`` :325,
+differentiated once and twice by ``jax.vjp`` (run eagerly on the CPU).
+
+The kernels themselves run only on the card
+(``tests/test_torch_kernels_cuda.py``).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from howtotrainyourmamlpytorch_tpu.ops import functional as JF
+from howtotrainyourmamlpytorch_tpu_torch.kernels import conv_block as cb
+from howtotrainyourmamlpytorch_tpu_torch.ops import functional as F
+
+SMS = 132  # an H100 SXM's SMs
+# (H = W, C) of each pooled conv output: mini-ImageNet pad 1 and pad 0,
+# Omniglot
+MINI = ((84, 48), (42, 48), (21, 48), (10, 48))
+UNPADDED = ((82, 48), (39, 48), (17, 48), (6, 48))
+OMNIGLOT = ((28, 64), (14, 64), (7, 64), (3, 64))
+# (T, N, H = W, C): mini-ImageNet 5-way 1- and 5-shot (support 5 / 25,
+# target 75) at batch 2, 8 and 256; Omniglot 20-way 1-shot (20 images) and
+# 5-way (5, 25) at batch 2, 8 and 256
+MAIN_SHAPES = (
+    [(T, n, hw, C) for T in (2, 8, 256) for n in (5, 25, 75)
+     for hw, C in MINI + UNPADDED]
+    + [(T, n, hw, C) for T in (2, 8, 256) for n in (5, 20, 25)
+       for hw, C in OMNIGLOT]
+)
+# the blocks a SM the occupancy query gives the kernels on an H100 (K3 3
+# with 16-byte loads, 2 without; K5 2), and one more
+BLOCKS_PER_SM = (2, 3, 4)
+RTOL, ATOL = 1e-4, 1e-5  # the card's twin gate
+
+
+def _window_positions(H, W):
+    """Each window's positions, ``(windows an image, 4)`` pixel indices in
+    the order 2 * dh + dw, -1 where an odd map's window has none."""
+    Hc, Wc = -(-H // 2), -(-W // 2)
+    hw, ww = np.meshgrid(np.arange(Hc), np.arange(Wc), indexing="ij")
+    out = np.full((Hc * Wc, 4), -1)
+    for q in range(4):
+        h, w = 2 * hw + q // 2, 2 * ww + q % 2
+        ok = (h < H) & (w < W)
+        out[:, q] = np.where(ok, h * W + w, -1).reshape(-1)
+    return out
+
+
+@pytest.mark.parametrize("bps", BLOCKS_PER_SM)
+@pytest.mark.parametrize("shape", MAIN_SHAPES, ids=str)
+def test_plan_covers_each_position_once_and_fits_the_card(shape, bps):
+    T, N, hw, C = shape
+    plan = cb.bn_bwd_plan(T, N, hw, hw, C, SMS, bps)
+    assert plan == cb.bn_bwd_plan(T, N, hw, hw, C, SMS, bps)  # pure
+    assert plan.kernel == "cuda"
+    blocks, grid_t = plan.grid
+    assert grid_t == T
+    # a block of 256 threads: slots windows x ceil(C / 4) channel groups
+    assert plan.threads == cb.BN_BWD_THREADS == 256
+    assert plan.groups == -(-C // 4)
+    assert plan.slots == 256 // plan.groups
+    assert plan.slots * plan.groups <= plan.threads
+    # the windows tile each image: every position in exactly one window,
+    # the pooled 2 x 2 windows whole
+    Hc = -(-hw // 2)
+    assert plan.windows == N * Hc * Hc
+    pos = _window_positions(hw, hw)
+    got = np.sort(pos[pos >= 0])
+    assert np.array_equal(got, np.arange(hw * hw))
+    full = (pos >= 0).all(axis=1)
+    assert full.sum() == (hw // 2) ** 2
+    # the chunks, of whole slots of windows, tile each tenant's windows;
+    # no chunk spans two tenants (each block is one tenant's, grid y)
+    assert plan.chunk % plan.slots == 0 and plan.chunk >= plan.slots
+    assert (blocks - 1) * plan.chunk < plan.windows <= blocks * plan.chunk
+    # every block co-resident (the cooperative launch needs it)
+    assert blocks * T <= SMS * bps
+    # the chunks as short as the co-resident blocks allow: one slots of
+    # windows shorter would take more blocks a tenant than the card holds
+    if plan.chunk > plan.slots:
+        assert -(-plan.windows // (plan.chunk - plan.slots)) > SMS * bps // T
+    # so every SM gets a block where the windows allow (at T = 2, every
+    # map but the smallest)
+    assert blocks * T >= min(SMS, T * -(-plan.windows // plan.slots))
+
+
+def test_the_flagship_plans_fill_the_card_at_batch_2():
+    """The design's shapes: at T = 2 the mini-ImageNet maps of 84 and 42
+    pixels (82 and 39 unpadded) spread each tenant over more than half the
+    SMs, so every SM gets a block, and over more than half the card's
+    co-resident blocks; 21 windows x 12 groups of 4 channels a block."""
+    for hw in (84, 42, 82, 39):
+        for bps in (2, 3):
+            plan = cb.bn_bwd_plan(2, 25, hw, hw, 48, SMS, bps)
+            assert plan.grid[0] > SMS // 2 and plan.grid[0] > SMS * bps // 4
+            assert plan.slots == 21 and plan.groups == 12
+
+
+@pytest.mark.parametrize("shape", [(2, 25, 84, 84, 48), (8, 20, 7, 7, 64),
+                                   (2, 3, 11, 9, 17)], ids=str)
+def test_bf16_and_pool_free_keep_the_triton_kernels(shape):
+    """The dtype alone decides the pooled route: bf16 plans the Triton
+    kernels, f32 the CUDA ones. The pool-free modes never plan: their
+    wrappers (``bn_act_bwd``, ``batch_norm_bwd`` and their derivatives)
+    launch the Triton kernels, bit for bit the parent's on the card
+    (``tests/test_torch_kernels_cuda.py``)."""
+    assert cb.bn_bwd_plan(*shape, SMS, 2, bf16=True).kernel == "triton"
+    assert cb.bn_bwd_plan(*shape, SMS, 2).kernel == "cuda"
+
+
+def test_bn_bwd_plan_refuses_what_the_card_cannot_hold():
+    with pytest.raises(ValueError, match="tenants need a block"):
+        cb.bn_bwd_plan(265, 25, 84, 84, 48, SMS, 2)
+    for bad in ((2, 3, 1, 8, 48), (2, 3, 8, 8, 65), (2, 3, 8, 8, 0)):
+        with pytest.raises(ValueError, match="no pooled K3/K5"):
+            cb.bn_bwd_plan(*bad, SMS, 2)
+
+
+# -- the kernels' order, emulated ---------------------------------------------
+
+
+def _windows(v):
+    """(T, N, H, W, C) -> (T, windows, 4, C): each window's positions in
+    the order 2 * dh + dw, zero where an odd map's window has none."""
+    T, N, H, W, C = v.shape
+    Hc, Wc = -(-H // 2), -(-W // 2)
+    p = v.new_zeros(T, N, 2 * Hc, 2 * Wc, C)
+    p[:, :, :H, :W] = v
+    p = p.reshape(T, N, Hc, 2, Wc, 2, C).permute(0, 1, 2, 4, 3, 5, 6)
+    return p.reshape(T, N * Hc * Wc, 4, C)
+
+
+def _emulated_sum(plan, terms):
+    """The kernels' per-(tenant, channel) sum of ``terms`` ``(T, windows,
+    4, C)``: a thread (block b, slot s) adds window b * chunk + s + k *
+    slots, k = 0, 1, ..., position by position into its running sum; a
+    block adds its slots in order; a warp merges a column's blocks, lane l
+    the blocks l, l + 32, ... in order, then a tree of strides 16 to 1 into
+    lane 0."""
+    T, _, _, C = terms.shape
+    B, chunk, slots = plan.grid[0], plan.chunk, plan.slots
+    pad = terms.new_zeros(T, B * chunk - plan.windows, 4, C)
+    w = torch.cat([terms, pad], 1).reshape(T, B, chunk // slots, slots, 4, C)
+    acc = terms.new_zeros(T, B, slots, C)
+    for k in range(chunk // slots):
+        for q in range(4):
+            acc = acc + w[:, :, k, :, q]
+    block = terms.new_zeros(T, B, C)
+    for s in range(slots):
+        block = block + acc[:, :, s]
+    lanes = terms.new_zeros(T, 32, C)
+    for b in range(B):
+        lanes[:, b % 32] = lanes[:, b % 32] + block[:, b]
+    off = 16
+    while off:
+        lanes[:, :off] = lanes[:, :off] + lanes[:, off:2 * off]
+        off //= 2
+    return lanes[:, 0]
+
+
+def _pc(v):
+    return v[:, None, None, None, :]
+
+
+def _emulated_k3(plan, dp, arg, y, mean, rstd, gamma, beta, slope):
+    """K3 as the kernel orders it: the sums of dz and dz xhat (dz nonzero
+    at each pooled window's argmax only), then dy from them."""
+    H, W = y.shape[2:4]
+    xhat = (y - _pc(mean)) * _pc(rstd)
+    z = xhat * _pc(gamma) + _pc(beta)
+    dz = F._unpool(dp, arg, H, W)
+    dz = torch.where(z >= 0, dz, dz * slope)
+    s_dz = _emulated_sum(plan, _windows(dz))
+    s_dzx = _emulated_sum(plan, _windows(dz * xhat))
+    inv_m = 1.0 / (y.shape[1] * H * W)
+    dy = _pc(gamma * rstd) * (dz - _pc(s_dz * inv_m)
+                              - xhat * _pc(s_dzx * inv_m))
+    return dy, s_dzx, s_dz
+
+
+def _emulated_k5(plan, a, ggamma, gbeta, dp, arg, y, mean, rstd, gamma,
+                 beta, slope):
+    """K5 as the kernel orders it: the five sums, the per-channel values
+    of the apply pass, then g_dpooled, g_y, g_gamma."""
+    H, W = y.shape[2:4]
+    xhat = (y - _pc(mean)) * _pc(rstd)
+    z = xhat * _pc(gamma) + _pc(beta)
+    pos = z >= 0
+    dz = F._unpool(dp, arg, H, W)
+    dz = torch.where(pos, dz, dz * slope)
+    s_a, s_ax, s_dz, s_dzx, s_adz = (
+        _emulated_sum(plan, _windows(v))
+        for v in (a, a * xhat, dz, dz * xhat, a * dz))
+    inv_m = 1.0 / (y.shape[1] * H * W)
+    m_a, m_ax = s_a * inv_m, s_ax * inv_m
+    m_dz, m_dzx = s_dz * inv_m, s_dzx * inv_m
+    cross = s_adz - (m_a * s_dz + m_ax * s_dzx)
+    grs = gamma * rstd
+    mean_g = -grs * (m_dzx * m_a + m_ax * m_dz) + ggamma * m_dz
+    mean_gx = -2.0 * grs * m_ax * m_dzx + ggamma * m_dzx
+    lr = rstd * rstd * inv_m * gamma * cross
+    big_g = -_pc(grs) * (_pc(m_dzx) * a + _pc(m_ax) * dz) + _pc(ggamma) * dz
+    g_y = (_pc(rstd) * (big_g - _pc(mean_g) - xhat * _pc(mean_gx))
+           - xhat * _pc(lr))
+    gdz = (_pc(grs) * (a - _pc(m_a) - xhat * _pc(m_ax))
+           + _pc(ggamma) * xhat + _pc(gbeta))
+    gdz = torch.where(pos, gdz, gdz * slope)
+    g_dp = torch.gather(F._windows(gdz), -1,
+                        arg.long().unsqueeze(-1)).squeeze(-1)
+    return g_dp, g_y, rstd * cross
+
+
+def _inputs(T, N, H, W, C, seed):
+    """y, its statistics, gamma, beta, K2's argmax (the twin's), a pooled
+    gradient, and K5's cotangents, from a numpy seed."""
+    rng = np.random.RandomState(seed)
+
+    def r(*s, scale=1.0):
+        return torch.from_numpy((rng.randn(*s) * scale).astype(np.float32))
+
+    y = 2.0 * r(T, N, H, W, C) + 0.3
+    mean, _, rstd = F.bn_stats(y)
+    gamma, beta = 1.0 + r(T, C, scale=0.1), r(T, C, scale=0.1)
+    _, arg = F.bn_act_pool_fwd(y, mean, rstd, gamma, beta)
+    dp = r(T, N, H // 2, W // 2, C)
+    k3 = (dp, arg, y, mean, rstd, gamma, beta)
+    return k3, (r(T, N, H, W, C), r(T, C), r(T, C)) + k3
+
+
+def _close(got, want, what):
+    err = (got.double() - want.double()).abs().max().item()
+    scale = want.double().abs().max().item()
+    assert err <= ATOL + RTOL * scale, (what, err, scale)
+
+
+# small shapes whose plans cut a tenant over several blocks (sms and
+# blocks a SM chosen for that), odd maps (the dropped row and column), C
+# not a multiple of 4, one window a thread and several, more than 32 blocks
+# a tenant (the merge's lanes take several each)
+EMULATED = [
+    # T, N, H, W, C, sms, blocks a SM
+    (2, 3, 9, 7, 20, 4, 2),
+    (2, 3, 11, 9, 17, 8, 1),
+    (1, 1, 5, 5, 3, 1, 1),
+    (2, 4, 11, 11, 64, 8, 2),
+    (3, 2, 21, 21, 48, 16, 3),
+    (1, 20, 14, 14, 64, 64, 1),
+    (2, 4, 6, 30, 5, 3, 2),
+    (2, 5, 10, 10, 48, 2, 2),
+]
+
+
+@pytest.mark.parametrize("shape", EMULATED, ids=str)
+def test_emulated_k3_equals_the_twin(shape):
+    T, N, H, W, C, sms, bps = shape
+    plan = cb.bn_bwd_plan(T, N, H, W, C, sms, bps)
+    assert plan.kernel == "cuda"
+    k3, _ = _inputs(T, N, H, W, C, sum(shape))
+    slope = F.scalar_like(F.LEAKY_SLOPE, k3[2])
+    for got, want, what in zip(_emulated_k3(plan, *k3, slope),
+                               F.bn_act_pool_bwd(*k3),
+                               ("dy", "dgamma", "dbeta")):
+        _close(got, want, what)
+
+
+@pytest.mark.parametrize("shape", EMULATED, ids=str)
+def test_emulated_k5_equals_the_twin(shape):
+    T, N, H, W, C, sms, bps = shape
+    plan = cb.bn_bwd_plan(T, N, H, W, C, sms, bps)
+    _, k5 = _inputs(T, N, H, W, C, 2 * sum(shape))
+    slope = F.scalar_like(F.LEAKY_SLOPE, k5[5])
+    for got, want, what in zip(_emulated_k5(plan, *k5, slope),
+                               F.bn_act_pool_bwd_bwd(*k5),
+                               ("g_dpooled", "g_y", "g_gamma")):
+        _close(got, want, what)
+
+
+def _jax_block(y, gamma, beta):
+    """The JAX package's batch norm (batch statistics) -> leaky-ReLU ->
+    2 x 2 max pool of one tenant's conv output."""
+    z, _, _ = JF.batch_norm(y, gamma, beta, None, None, eps=F.BN_EPS)
+    return JF.max_pool2d(JF.leaky_relu(z, F.LEAKY_SLOPE), impl="reshape")
+
+
+def _jax_k3(dp, y, gamma, beta):
+    _, vjp = jax.vjp(_jax_block, y, gamma, beta)
+    return vjp(dp)
+
+
+def test_emulated_k3_and_k5_equal_the_jax_vjp_once_and_twice():
+    """At a small odd map (9 x 7: the pool drops a row and a column, which
+    still get a gradient through the batch statistics) cut over several
+    blocks: the emulated K3 against ``jax.vjp`` of the JAX block, and the
+    emulated K5 against ``jax.vjp`` of that vjp (the derivative
+    second-order MAML takes), per tenant."""
+    T, N, H, W, C, sms, bps = shape = (2, 3, 9, 7, 20, 4, 2)
+    plan = cb.bn_bwd_plan(T, N, H, W, C, sms, bps)
+    assert plan.grid[0] > 1
+    k3, k5 = _inputs(T, N, H, W, C, 11)
+    slope = F.scalar_like(F.LEAKY_SLOPE, k3[2])
+    dp, _, y, _, _, gamma, beta = k3
+    a, ggamma, gbeta = k5[:3]
+    got3 = _emulated_k3(plan, *k3, slope)
+    got5 = _emulated_k5(plan, *k5, slope)
+    for t in range(T):
+        j = [jnp.asarray(v[t].numpy()) for v in (dp, y, gamma, beta)]
+        want3 = _jax_k3(*j)
+        _, vjp2 = jax.vjp(_jax_k3, *j)
+        want5 = vjp2(tuple(jnp.asarray(v[t].numpy())
+                           for v in (a, ggamma, gbeta)))
+        for got, want, what in zip((g[t] for g in got3), want3,
+                                   ("dy", "dgamma", "dbeta")):
+            _close(got, torch.from_numpy(np.array(want)), what)
+        for got, want, what in zip((g[t] for g in got5), want5[:3],
+                                   ("g_dpooled", "g_y", "g_gamma")):
+            _close(got, torch.from_numpy(np.array(want)), what)
+        # beta enters only through the piecewise-constant masks
+        assert float(jnp.abs(want5[3]).max()) == 0.0

@@ -12,8 +12,12 @@ the bf16 kernels (``compute_dtype='bfloat16'``: K1 with statistics and
 stats-free, K2/K3/K5 pooled, K4, the convs at pad 1 and 0) against their
 bf16 twins, the bf16 block's first and second derivatives, and the
 TypeError of every dtype but f32 and bf16; the layer norm's four kernels
-in bf16 and the layer-norm blocks' second derivative on them; and the
-ingest
+in bf16 and the layer-norm blocks' second derivative on them; K3 and K5
+in f32, pooled, on their cooperative kernels (``csrc/bn_act_pool_bwd.cu``)
+at every main-path shape and at edge shapes, a second launch bit for bit
+the first, the two-launch variant, the refusal of a shape the plan cannot
+fit, and the bf16 and pool-free K3/K5 still the Triton kernels' bits; and
+the ingest
 kernel ``episode_expand`` equal to its twin bit for bit (it is a pure
 lookup).
 These need the card: marked ``cuda``, they skip where
@@ -1490,3 +1494,180 @@ def test_k1_band_entries_refuse_a_plan_that_does_not_match(device):
                  *geometry, plan.channels, plan.threads, plan.smem,
                  stream) == 0
     _close(y, F.conv3x3(x, w, b, padding=pad))
+
+
+# K3 and K5 in f32, pooled: the cooperative kernels of
+# csrc/bn_act_pool_bwd.cu. Every shape the shipped configs run —
+# mini-ImageNet's conv outputs (84/42/21/10, 48 channels) at N 25, T 2 and
+# 8, and at N 75 (the target set's backward in training) at T 2;
+# Omniglot's (28/14/7/3, 64 channels) at N 20, T 8; the unpadded model's
+# (82/39/17/6) at N 25, T 2 and 8; the large-batch config's T 256 (a
+# block a tenant) at stage 1 — and edge shapes: T = 1, odd maps (the
+# pool drops the last row and column, which still get a gradient), C not
+# a multiple of 4 (a float at a time), one window a tenant, tensors off
+# 16-byte alignment.
+K35_MAIN_SHAPES = (
+    [(T, 25, hw, 48) for T in (2, 8) for hw in (84, 42, 21, 10)]
+    + [(2, 75, hw, 48) for hw in (84, 42, 21, 10)]
+    + [(8, 20, hw, 64) for hw in (28, 14, 7, 3)]
+    + [(T, 25, hw, 48) for T in (2, 8) for hw in (82, 39, 17, 6)]
+    + [(256, 25, 42, 48)]
+)
+K35_EDGE_SHAPES = [
+    # T, N, H, W, C
+    (1, 1, 5, 5, 3),
+    (1, 2, 9, 7, 20),
+    (2, 3, 11, 9, 17),
+    (3, 2, 21, 21, 48),
+    (2, 5, 10, 10, 33),
+    (1, 3, 3, 3, 64),
+    (2, 4, 6, 30, 5),
+    (2, 3, 2, 2, 64),
+    (1, 1, 7, 7, 1),
+]
+
+
+def _k35_inputs(T, N, H, W, C, seed, device="cuda"):
+    """K3's and K5's inputs: y, its statistics, gamma, beta, the twin K2's
+    argmax, a pooled gradient, and K5's cotangents."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def r(*s, scale=1.0):
+        return torch.randn(*s, device="cuda", generator=g) * scale
+
+    y = 2.0 * r(T, N, H, W, C) + 0.3
+    mean, _, rstd = F.bn_stats(y)
+    gamma, beta = 1.0 + r(T, C, scale=0.1), r(T, C, scale=0.1)
+    _, arg = F.bn_act_pool_fwd(y, mean, rstd, gamma, beta)
+    k3 = (r(T, N, H // 2, W // 2, C), arg, y, mean, rstd, gamma, beta)
+    return k3, (r(T, N, H, W, C), r(T, C), r(T, C)) + k3
+
+
+def _check_k35(k3, k5):
+    """K3 and K5 against their twins, one launch each on their counters,
+    and a second launch of each bit for bit the first."""
+    cb.reset_launches()
+    got3 = cb.bn_act_pool_bwd(*k3)
+    got5 = cb.bn_act_pool_bwd_bwd(*k5)
+    assert cb.launches() == {**{k: 0 for k in cb.KERNELS},
+                             "bn_act_pool_bwd": 1, "bn_act_pool_bwd_bwd": 1}
+    for a, c in zip(got3 + got5,
+                    F.bn_act_pool_bwd(*k3) + F.bn_act_pool_bwd_bwd(*k5)):
+        assert a.is_contiguous() and torch.isfinite(a).all()
+        _close(a, c)
+    assert all(torch.equal(a, c) for a, c in zip(cb.bn_act_pool_bwd(*k3),
+                                                 got3))
+    assert all(torch.equal(a, c)
+               for a, c in zip(cb.bn_act_pool_bwd_bwd(*k5), got5))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("shape", K35_MAIN_SHAPES, ids=str)
+def test_k3_k5_kernels_match_their_twins_at_main_path_shapes(shape, device):
+    T, N, hw, C = shape
+    k3, k5 = _k35_inputs(T, N, hw, hw, C, seed=hw + C + N + T)
+    plan = cb._bn_bwd_route("bn_act_pool_bwd", k3[2], True)
+    assert plan.kernel == "cuda"
+    _check_k35(k3, k5)
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("shape", K35_EDGE_SHAPES, ids=str)
+def test_k3_k5_kernels_match_their_twins_at_edge_shapes(shape, device):
+    _check_k35(*_k35_inputs(*shape, seed=sum(shape)))
+
+
+def test_k3_k5_kernels_take_tensors_off_16_byte_alignment(device):
+    """Views 4 bytes into their storage (contiguous, so the wrappers take
+    them): the kernels load and store a float at a time."""
+    k3, k5 = _k35_inputs(2, 3, 11, 9, 20, seed=17)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, device=t.device, dtype=t.dtype)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    a, gg, gb, dp, arg, y, mean, rstd, gamma, beta = k5
+    ys, dps, as_ = shifted(y), shifted(dp), shifted(a)
+    assert ys.data_ptr() % 16 != 0
+    assert not cb._bn_bwd_vec(20, [t.data_ptr() for t in (dps, arg, ys)
+                                   + k3[3:]])
+    for got, want in zip(
+            cb.bn_act_pool_bwd(dps, arg, ys, mean, rstd, gamma, beta)
+            + cb.bn_act_pool_bwd_bwd(as_, gg, gb, dps, arg, ys, mean, rstd,
+                                     gamma, beta),
+            F.bn_act_pool_bwd(*k3) + F.bn_act_pool_bwd_bwd(*k5)):
+        _close(got, want)
+
+
+def test_bf16_and_pool_free_k3_k5_keep_the_triton_kernels(device):
+    """bf16 K3/K5 pooled plan the Triton kernels, and the pool-free modes
+    (``bn_act_*``, ``batch_norm_*``) launch them without a plan; both give
+    their bits: the wrappers' outputs equal the Triton launches'
+    (kernels/bn_act_pool.py) called directly."""
+    from howtotrainyourmamlpytorch_tpu_torch.kernels import bn_act_pool
+
+    k3, k5 = _k35_inputs(2, 3, 14, 14, 48, seed=19)
+    k3 = tuple(t if t.dtype == torch.uint8 else t.bfloat16() for t in k3)
+    k5 = tuple(t if t.dtype == torch.uint8 else t.bfloat16() for t in k5)
+    y = k3[2]
+    T, C = y.shape[0], y.shape[-1]
+    assert cb._bn_bwd_route("bn_act_pool_bwd", y, True).kernel == "triton"
+    slope = F.scalar_like(F.LEAKY_SLOPE, y)
+    part = torch.empty((T, bn_act_pool.SPLITS, 2, C), device=device)
+    dy = torch.empty_like(y)
+    bn_act_pool.launch_bwd(*k3, part, dy, slope)
+    sums = part.sum(dim=1).to(y.dtype)
+    cb.reset_launches()
+    got = cb.bn_act_pool_bwd(*k3)
+    assert all(torch.equal(a, c) for a, c in zip(got, (dy, sums[:, 1],
+                                                       sums[:, 0])))
+    part = torch.empty((T, bn_act_pool.SPLITS, 5, C), device=device)
+    want = (torch.empty_like(k3[0]), torch.empty_like(y),
+            torch.empty((T, C), device=device, dtype=y.dtype))
+    bn_act_pool.launch_bwd_bwd(*k5, part, *want, slope)
+    got = cb.bn_act_pool_bwd_bwd(*k5)
+    assert all(torch.equal(a, c) for a, c in zip(got, want))
+    assert cb.launches()["bn_act_pool_bwd_bf16"] == 1
+    assert cb.launches()["bn_act_pool_bwd_bwd_bf16"] == 1
+    # the pool-free modes: K3/K5 as bn_act_* and at slope 1 as batch_norm_*
+    _, k5 = _k35_inputs(2, 3, 14, 14, 48, seed=23)
+    a, gg, gb, _, _, y, mean, rstd, gamma, beta = k5
+    da = torch.randn_like(y)
+    for s in (F.LEAKY_SLOPE, 1.0):
+        part = torch.empty((T, bn_act_pool.SPLITS, 2, C), device=device)
+        dy = torch.empty_like(y)
+        bn_act_pool.launch_act_bwd(da, y, mean, rstd, gamma, beta, part, dy,
+                                   s)
+        got = cb._launch_act_bwd("bn_act_bwd", da, y, mean, rstd, gamma,
+                                 beta, s)
+        sums = part.sum(dim=1)
+        assert all(torch.equal(p, q) for p, q in zip(got, (dy, sums[:, 1],
+                                                           sums[:, 0])))
+        part = torch.empty((T, bn_act_pool.SPLITS, 5, C), device=device)
+        want = (torch.empty_like(y), torch.empty_like(y),
+                torch.empty((T, C), device=device))
+        bn_act_pool.launch_act_bwd_bwd(a, gg, gb, da, y, mean, rstd, gamma,
+                                       beta, part, *want, s)
+        got = cb._launch_act_bwd_bwd("bn_act_bwd_bwd", a, gg, gb, da, y,
+                                     mean, rstd, gamma, beta, s)
+        assert all(torch.equal(p, q) for p, q in zip(got, want))
+
+
+def test_k3_k5_refuse_a_shape_the_plan_cannot_fit(device):
+    """More tenants than the card holds blocks at once (the cooperative
+    launch needs them all resident), or more than 64 channels: the wrapper
+    raises and launches nothing."""
+    resident = cb._sms(device) * max(
+        cb._bn_bwd_blocks_per_sm(device, s, v) for s in (2, 5)
+        for v in (False, True))
+    for T, C in ((resident + 1, 4), (1, 65)):
+        k3, k5 = _k35_inputs(T, 1, 2, 2, C, seed=29)
+        cb.reset_launches()
+        with pytest.raises(ValueError, match="bn_bwd_plan"):
+            cb.bn_act_pool_bwd(*k3)
+        with pytest.raises(ValueError, match="bn_bwd_plan"):
+            cb.bn_act_pool_bwd_bwd(*k5)
+        assert cb.launches()["bn_act_pool_bwd"] == 0
+        assert cb.launches()["bn_act_pool_bwd_bwd"] == 0
