@@ -22,6 +22,11 @@ Phases, in order; any failure raises and the exit code is non-zero:
    stages 2-3 and K3 at T = 2 at every stage (N = 25), every f32 pooled
    K3 and K5 call held twice, bit for bit, and their rows printed as
    ``[K3]`` and ``[K5]`` lines with their device time and bound share;
+   K2 (``csrc/bn_act_fwd.cu``, pooled and pool-free, f32 and bf16) at
+   every shape this phase and the later kernel phases hold it — the
+   pooled rows, ``bn_act_fwd``, ``batch_norm_fwd`` and their ``_bf16``
+   forms — each call held twice, bit for bit, its rows printed as
+   ``[K2]`` lines with their device time, bound share and library ratio;
    K1-K5 again at the four layers of the Omniglot 20-way 1-shot
    model (28/14/7/3, cin 1 and 64, cout 64, T = 8, N = 20); and the ingest
    kernel ``episode_expand`` at the Omniglot device-tier train batch, a
@@ -395,8 +400,8 @@ SOURCES = {
         "cuda", "howtotrainyourmamlpytorch_tpu_torch/kernels/csrc/"
                 "conv3x3_fwd_s1.cu"),
     "bn_act_pool_fwd": (
-        "triton", "howtotrainyourmamlpytorch_tpu_torch/kernels/"
-                  "bn_act_pool.py"),
+        "cuda", "howtotrainyourmamlpytorch_tpu_torch/kernels/csrc/"
+                "bn_act_fwd.cu"),
     "bn_act_pool_bwd": (
         "cuda", "howtotrainyourmamlpytorch_tpu_torch/kernels/csrc/"
                 "bn_act_pool_bwd.cu"),
@@ -416,14 +421,17 @@ SOURCES = {
         "cuda", "howtotrainyourmamlpytorch_tpu_torch/kernels/csrc/"
                 "episode_expand.cu"),
 }
+# K3 and K5 pool-free, and in bf16 pooled (the Triton kernels)
+BN_TRITON = ("triton",
+             "howtotrainyourmamlpytorch_tpu_torch/kernels/bn_act_pool.py")
 SOURCES.update({
     "conv3x3_s2_fwd_stats": FWD_TILE,
     "conv3x3_s2_fwd": FWD_TILE,
     "conv3x3_s2_dgrad": BWD_TILE,
     "conv3x3_s2_wgrad": BWD_TILE,
     "bn_act_fwd": SOURCES["bn_act_pool_fwd"],
-    "bn_act_bwd": SOURCES["bn_act_pool_fwd"],
-    "bn_act_bwd_bwd": SOURCES["bn_act_pool_fwd"],
+    "bn_act_bwd": BN_TRITON,
+    "bn_act_bwd_bwd": BN_TRITON,
     "global_avg_pool2d_fwd": (
         "triton", "howtotrainyourmamlpytorch_tpu_torch/kernels/"
                   "global_avg_pool.py"),
@@ -433,8 +441,8 @@ SOURCES.update({
     "bn_input_stats": (
         "triton", "howtotrainyourmamlpytorch_tpu_torch/kernels/bn_stats.py"),
     "batch_norm_fwd": SOURCES["bn_act_pool_fwd"],
-    "batch_norm_bwd": SOURCES["bn_act_pool_fwd"],
-    "batch_norm_bwd_bwd": SOURCES["bn_act_pool_fwd"],
+    "batch_norm_bwd": BN_TRITON,
+    "batch_norm_bwd_bwd": BN_TRITON,
 })
 SOURCES.update({
     k: ("triton", "howtotrainyourmamlpytorch_tpu_torch/kernels/act_pool.py")
@@ -451,11 +459,12 @@ SOURCES.update({f"conv3x3_p0_{k}": SOURCES[f"conv3x3_{k}"]
 SOURCES.update({f"conv3x3_s2_p0_{k}": SOURCES[f"conv3x3_s2_{k}"]
                 for k in ("fwd_stats", "dgrad", "wgrad", "fwd")})
 # in bf16, K3 and K5 pooled run the Triton kernels (bn_act_pool.py), as
-# every pool-free mode does; in f32, csrc/bn_act_pool_bwd.cu
+# every pool-free K3 and K5 does; in f32, csrc/bn_act_pool_bwd.cu; K2 runs
+# csrc/bn_act_fwd.cu in both dtypes
 SOURCES.update({f"{k}_bf16": (FWD_TILE if "_fwd" in k else BWD_TILE)
                 if k.startswith("conv3x3_") else SOURCES[k]
                 for k in BF16_KERNELS})
-SOURCES.update({f"{k}_bf16": SOURCES["bn_act_pool_fwd"]
+SOURCES.update({f"{k}_bf16": BN_TRITON
                 for k in ("bn_act_pool_bwd", "bn_act_pool_bwd_bwd")})
 # the shape each kernel's line reports (a key of its records)
 REPORT_AT = {
@@ -638,6 +647,10 @@ K1_DEVICE = ("conv3x3_fwd_band_kernel", "bn_stats_merge_kernel")
 # cooperative kernel a call)
 K3_DEVICE = "bn_act_pool_bwd_kernel"
 K5_DEVICE = "bn_act_pool_bwd_bwd_kernel"
+# K2 on the device (csrc/bn_act_fwd.cu): pooled, and pool-free (also
+# ``batch_norm_fwd``), in either dtype
+K2_DEVICE = "bn_act_pool_fwd_kernel"
+K2_FREE_DEVICE = "bn_act_fwd_kernel"
 
 
 def _randn(gen):
@@ -715,7 +728,8 @@ def check_kernels(cb, F, records, layers=LAYERS, images=IMAGES, C=COUT,
 
 def _check_k2(cb, F, records, label, y, mean, rstd, gamma, beta):
     """K2 against its twin (the argmax equal but for a near-tie in a
-    million), timed beside it; returns the kernel's and the twin's pooled
+    million), a second launch bit for bit the first, timed beside the twin
+    with its device time; returns the kernel's and the twin's pooled
     values and the kernel's argmax."""
     T, C = y.shape[0], y.shape[-1]
     pooled, arg = cb.bn_act_pool_fwd(y, mean, rstd, gamma, beta)
@@ -727,12 +741,16 @@ def _check_k2(cb, F, records, label, y, mean, rstd, gamma, beta):
             f"bn_act_pool_fwd argmax differs at {mismatch:.2e} of the "
             "pooled elements"
         )
+    _same_bits("bn_act_pool_fwd",
+               lambda: cb.bn_act_pool_fwd(y, mean, rstd, gamma, beta),
+               (pooled, arg))
     records.add("bn_act_pool_fwd", label, err,
                 lambda: cb.bn_act_pool_fwd(y, mean, rstd, gamma, beta),
                 lambda: F.bn_act_pool_fwd(y, mean, rstd, gamma, beta),
                 None,
                 6 * y.numel() + 3 * pooled.numel(),
-                4 * (y.numel() + 4 * T * C) + 5 * pooled.numel())
+                4 * (y.numel() + 4 * T * C) + 5 * pooled.numel(),
+                device=K2_DEVICE)
     return pooled, pooled_p, arg
 
 
@@ -1019,6 +1037,27 @@ def check_bn_bwd_stages(cb, F, records, tasks=TRAIN_TASKS, n=25, C=COUT):
             torch.cuda.empty_cache()
 
 
+def print_k2_rows(records):
+    """K2's rows at every timed shape of the kernel phases, pooled and
+    pool-free (``bn_act_fwd``, ``batch_norm_fwd``), f32 and bf16: ms by
+    events, the device time of its launches, the bound and the bound's
+    share of the kernel's time, and the library call's ms and ratio where
+    one exists."""
+    for kernel in ("bn_act_pool_fwd", "bn_act_fwd", "batch_norm_fwd"):
+        for name in (kernel, f"{kernel}_bf16"):
+            for label, r in records.by_kernel[name].items():
+                lib = r["library_ms"]
+                vs = ("no library call" if lib is None else
+                      "library %.4f ms (%.2fx)" % (lib, r["ms"] / lib))
+                dev = r["device_ms"]
+                dev = "not measured" if dev is None else "%.4f ms" % dev
+                print(f"[K2] {name} @ {label}: {r['ms']:.4f} ms (device "
+                      f"{dev}), {vs}, bound {r['bound_ms']:.4f} ms "
+                      f"({r['bound_by']}), "
+                      f"{100 * r['bound_ms'] / r['ms']:.1f}% of the "
+                      "kernel's time", flush=True)
+
+
 def print_k35_rows(records):
     """K3's and K5's f32 pooled rows at every timed shape of the kernel
     phase: ms by events, the device time of their launches, the bound and
@@ -1099,10 +1138,12 @@ def check_strided_kernels(cb, F, records, T=T_TENANTS, n=OMNIGLOT_IMAGES,
             conv_flops, 4 * (x.numel() + w.numel() + b.numel() + y.numel()))
         # the pool-free K2, K3, K5 on K1's output
         bn = (y, mean, rstd, gamma, beta)
-        err = max_err("bn_act_fwd", cb.bn_act_fwd(*bn), F.bn_act_fwd(*bn))
+        act = cb.bn_act_fwd(*bn)
+        err = max_err("bn_act_fwd", act, F.bn_act_fwd(*bn))
+        _same_bits("bn_act_fwd", lambda: cb.bn_act_fwd(*bn), act)
         rec("bn_act_fwd", label, err, lambda: cb.bn_act_fwd(*bn),
             lambda: F.bn_act_fwd(*bn), None, 6 * y.numel(),
-            4 * (2 * y.numel() + 4 * T * C))
+            4 * (2 * y.numel() + 4 * T * C), device=K2_FREE_DEVICE)
         da = randn(*y.shape, scale=1.0 / math.sqrt(y.numel()))
         err = _bn_errs("bn_act_bwd", cb.bn_act_bwd(da, *bn),
                        F.bn_act_bwd(da, *bn), ("dy", "dgamma", "dbeta"),
@@ -1227,8 +1268,10 @@ def check_norm_first_kernels(cb, F, records, T=T_TENANTS):
                     lambda: F.bn_input_stats(x),
                     lambda: torch.var_mean(x, dim=(1, 2, 3), correction=0),
                     4 * x.numel(), 4 * (x.numel() + 3 * T * cin))
-                err = max_err("batch_norm_fwd", cb.batch_norm_fwd(*bn),
-                              F.batch_norm_fwd(*bn))
+                z = cb.batch_norm_fwd(*bn)
+                err = max_err("batch_norm_fwd", z, F.batch_norm_fwd(*bn))
+                _same_bits("batch_norm_fwd", lambda: cb.batch_norm_fwd(*bn),
+                           z)
                 args = (mean.reshape(-1), var.reshape(-1),
                         gamma.reshape(-1), beta.reshape(-1))
                 rec("batch_norm_fwd", label, err,
@@ -1236,7 +1279,8 @@ def check_norm_first_kernels(cb, F, records, T=T_TENANTS):
                     lambda: F.batch_norm_fwd(*bn),
                     lambda: nnf.batch_norm(xl, *args, training=False,
                                            eps=F.BN_EPS),
-                    4 * x.numel(), 4 * (2 * x.numel() + 4 * T * cin))
+                    4 * x.numel(), 4 * (2 * x.numel() + 4 * T * cin),
+                    device=K2_FREE_DEVICE)
                 both = time_ms(lambda: cb.batch_norm_fwd(
                     x, *cb.bn_input_stats(x)[::2], gamma, beta))
                 lib = time_ms(lambda: nnf.batch_norm(
@@ -1611,6 +1655,8 @@ def _check_odd_map_bn_kernels(cb, F, randn, x, w, b, label):
     errs = [max_err("bn_act_pool_fwd (odd map)", pooled, pooled_p)]
     if not torch.equal(arg, arg_p):
         raise AssertionError("bn_act_pool_fwd argmax differs on an odd map")
+    _same_bits("bn_act_pool_fwd (odd map)",
+               lambda: cb.bn_act_pool_fwd(*bn), (pooled, arg))
     dp = randn(*pooled.shape)
     got = cb.bn_act_pool_bwd(dp, arg, *bn)
     errs.append(_bn_errs("bn_act_pool_bwd (odd map)", got,
@@ -1705,20 +1751,30 @@ def _expand_exact(what, got, want):
 
 def device_ms(fn, kernel, reps=10):
     """Device time of ``kernel`` (a substring of its name, or a tuple of
-    them) per call of ``fn``, from ``torch.profiler`` over ``reps`` calls:
-    the kernels' own time, without the host time a launch costs."""
-    from torch.profiler import ProfilerActivity, profile
+    them: kernels ``fn`` launches once a call each) per call of ``fn``,
+    from ``torch.profiler`` over ``reps`` calls after a profiled warmup of
+    as many, each kernel's time over the launches the profile recorded
+    (late in the run a profile records only some of them): the kernels'
+    own time, without the host time a launch costs."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
+    active = []
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: active.append(p.key_averages())
+                 ) as prof:
+        for _ in range(2):
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
     names = (kernel,) if isinstance(kernel, str) else kernel
-    total = sum(e.device_time_total for e in prof.key_averages()
-                if any(k in e.key for k in names))
-    return total / 1e3 / reps if total else None
+    per_call = sum(e.device_time_total / e.count
+                   for e in (active[0] if active else [])
+                   if e.count and any(k in e.key for k in names))
+    return per_call / 1e3 if per_call else None
 
 
 def check_episode_expand(ee, dp, records, mini, omniglot):
@@ -3209,6 +3265,8 @@ def check_bf16_kernels(cb, F, records, T=T_TENANTS, C=COUT):
                     and torch.equal(arg, arg_p)):
                 raise AssertionError(f"bn_act_pool_fwd_bf16 @ {label}: not "
                                      "bit for bit its twin")
+            _same_bits("bn_act_pool_fwd_bf16", lambda: cb.bn_act_pool_fwd(
+                y, mean, rstd, gamma, beta), (pooled, arg))
             xl = _nchw_tenants(x)
             wl = w.permute(0, 4, 3, 1, 2).reshape(T * C, cin, 3, 3)
             wl = wl.contiguous()
@@ -3233,7 +3291,8 @@ def check_bf16_kernels(cb, F, records, T=T_TENANTS, C=COUT):
                     lambda: nn.batch_norm(yl, flat[0], flat[1], flat[2],
                                           flat[3], False, 0.0, F.BN_EPS),
                     6 * y.numel() + 3 * pooled.numel(),
-                    2 * (y.numel() + 4 * T * C) + 3 * pooled.numel())
+                    2 * (y.numel() + 4 * T * C) + 3 * pooled.numel(),
+                    device=K2_DEVICE)
                 print(f"  bf16 {stage} N=75: K2 equal to its twin bit for "
                       f"bit; {_window_ties(F, y, mean, rstd, gamma, beta)} "
                       "pool windows hold an exact tie at their maximum",
@@ -3603,6 +3662,7 @@ def check_bf16_strided_kernels(cb, F, records, T=T_TENANTS,
         bn = (y, mean, rstd, gamma, beta)
         bn32 = _f32(*bn)
         act = cb.bn_act_fwd(*bn)
+        _same_bits("bn_act_fwd_bf16", lambda: cb.bn_act_fwd(*bn), act)
         yl = _nchw_tenants(y)
         flat = [v.reshape(-1).float() for v in (mean, var, gamma, beta)]
         rec("bn_act_fwd_bf16", label,
@@ -3612,7 +3672,7 @@ def check_bf16_strided_kernels(cb, F, records, T=T_TENANTS,
                 yl, flat[0], flat[1], flat[2], flat[3], False, 0.0,
                 F.BN_EPS),
             6 * y.numel(), 2 * (2 * y.numel() + 4 * T * C),
-            f32_fn=lambda: cb.bn_act_fwd(*bn32))
+            f32_fn=lambda: cb.bn_act_fwd(*bn32), device=K2_FREE_DEVICE)
         da = randn(*y.shape).to(bf)
         da32 = da.float()
         err = max(within_ulp(f"bn_act_bwd_bf16 {what}", a, c)
@@ -3713,15 +3773,18 @@ def check_bf16_norm_first_kernels(cb, F, records, T=T_TENANTS):
                     f32_fn=lambda: cb.bn_input_stats(x32))
                 flat = [v.reshape(-1).float() for v in (mean, var, gamma,
                                                         beta)]
+                z = cb.batch_norm_fwd(*bn)
+                _same_bits("batch_norm_fwd_bf16",
+                           lambda: cb.batch_norm_fwd(*bn), z)
                 rec("batch_norm_fwd_bf16", label,
-                    _equal("batch_norm_fwd_bf16", cb.batch_norm_fwd(*bn),
-                           F.batch_norm_fwd(*bn)),
+                    _equal("batch_norm_fwd_bf16", z, F.batch_norm_fwd(*bn)),
                     lambda: cb.batch_norm_fwd(*bn),
                     lambda: F.batch_norm_fwd(*bn),
                     lambda: nnf.batch_norm(xl, *flat, training=False,
                                            eps=F.BN_EPS),
                     4 * x.numel(), 2 * (2 * x.numel() + 4 * T * cin),
-                    f32_fn=lambda: cb.batch_norm_fwd(*bn32))
+                    f32_fn=lambda: cb.batch_norm_fwd(*bn32),
+                    device=K2_FREE_DEVICE)
                 rec("act_pool_fwd_bf16", label,
                     _equal("act_pool_fwd_bf16", cb.act_pool_fwd(y),
                            F.act_pool_fwd(y)),
@@ -4831,6 +4894,7 @@ def main() -> int:
     idle = [k for k in all_kernels if not main_counts[k]]
     if idle:
         raise AssertionError(f"kernels no main path launched: {idle}")
+    print_k2_rows(records)
 
     kernels = []
     for k in all_kernels:

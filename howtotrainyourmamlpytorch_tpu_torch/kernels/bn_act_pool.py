@@ -1,23 +1,22 @@
-"""Triton kernels K2, K3 and K5: batch-norm normalize + affine + leaky-ReLU +
-2x2 max pool, its backward, and the backward of that backward; and their
-pool-free mode, for the strided model (``max_pooling=False``). K3 and K5
-pooled in f32 (every shipped config's) run the cooperative CUDA kernels
-of ``csrc/bn_act_pool_bwd.cu`` instead (``conv_block.bn_bwd_plan``); the
-pooled K3 and K5 here serve bf16, the pool-free ones both dtypes.
+"""Triton kernels K3 and K5: the backward of batch-norm normalize + affine +
+leaky-ReLU + 2x2 max pool through the batch statistics, and the backward
+of that backward; and their pool-free mode, for the strided model
+(``max_pooling=False``). K3 and K5 pooled in f32 (every shipped config's)
+run the cooperative CUDA kernels of ``csrc/bn_act_pool_bwd.cu`` instead
+(``conv_block.bn_bwd_plan``); the pooled K3 and K5 here serve bf16, the
+pool-free ones both dtypes. Their forward, K2, is CUDA in both modes and
+dtypes (``csrc/bn_act_fwd.cu``), and rounds as ``_bf16_chain`` below.
 
 Replace (JAX package) ``howtotrainyourmamlpytorch_tpu/ops/functional.py``:
-the normalize/affine tail of ``batch_norm`` :368 inside ``conv_bn_act``
-:249, ``leaky_relu`` and ``max_pool2d`` :325 (VALID; a trailing odd row or
-column is dropped), and the gradient XLA derives for them.
+the gradient XLA derives for the normalize/affine tail of ``batch_norm``
+:368 inside ``conv_bn_act`` :249, ``leaky_relu`` and ``max_pool2d`` :325
+(VALID; a trailing odd row or column is dropped).
 
-Bound on an H100: bytes. Both are elementwise passes with a 2x2 window and
-per-channel broadcasts — a handful of FLOPs per element, no reduction
-across blocks in the forward, no tensor-core work — so the least time is
-the bytes over 3.35 TB/s. The design reads y once and writes only the
-pooled quarter plus a one-byte window argmax (K2); the backward reads the
-pooled gradient, the argmax and y, and writes dy once (K3b), after a
-reduction pass (K3a) over the POOLED positions only (every other position
-has dz = 0). Triton's masked block loads handle the ragged 21 -> 10 edge.
+Bound on an H100: bytes. The backward reads the pooled gradient, the
+argmax and y, and writes dy once (K3b), after a reduction pass (K3a) over
+the POOLED positions only (every other position has dz = 0) — a handful
+of FLOPs per element, no tensor-core work. Triton's masked block loads
+handle the ragged 21 -> 10 edge.
 
 K3a writes per-(tenant, split) partial sums, which K3b adds in a fixed
 order: deterministic, no atomics.
@@ -46,38 +45,31 @@ pooled positions only (each pooled element by the one thread that sits on
 its argmax), plus g_gamma (program 0 of each tenant). Two launches,
 partial sums in a fixed order, no atomics.
 
-The pool-free mode (``bn_act_fwd``, ``bn_act_bwd``, ``bn_act_bwd_bwd``:
-sibling kernels, so the pooled ones stay as they were) is the same
-arithmetic with no window: K2 writes the activation densely and no argmax,
-K3a and K5a reduce over every position (dz = the slope-masked da
+The pool-free mode (``bn_act_bwd``, ``bn_act_bwd_bwd``: sibling kernels,
+so the pooled ones stay as they were) is the same arithmetic with no
+window: K3a and K5a reduce over every position (dz = the slope-masked da
 everywhere), and K5b writes ``g_da`` densely. Bound: bytes, as pooled —
-K2 reads y and writes the activation once; K3 reads da and y twice
-(reduce, then dy) and writes dy; K5 reads a, da and y twice and writes
-g_da and g_y. The masked block loads cover the ragged maps (7x7, 4x4 and
-2x2 at Omniglot's width); the partial sums keep their fixed order.
+K3 reads da and y twice (reduce, then dy) and writes dy; K5 reads a, da
+and y twice and writes g_da and g_y. The masked block loads cover the
+ragged maps (7x7, 4x4 and 2x2 at Omniglot's width); the partial sums keep
+their fixed order.
 
-bf16 (``compute_dtype='bfloat16'``): K2 and K3 pooled take a ``BF16``
-constexpr (the f32 instantiations are unchanged). They load bf16 y,
-statistics, gamma, beta and pooled gradient and work in f32. K2 rounds to
-bf16 after every op of the JAX package's bf16 chain — ``y - mean``,
-``* rstd``, ``* gamma``, ``+ beta``, then ``z * slope`` on the negative
-side (the slope the bf16 value of 0.01) — so its pooled values and argmax
-equal its twin's bit for bit; the window compare runs on those bf16
-values, the first maximum winning ties. K3 takes its leaky-ReLU masks from
-the same rounded chain (K2's decisions), xhat in f32 from the bf16
-inputs, its per-channel sums in f32, and stores dy rounded once to bf16.
-Bound: bytes, half of f32's. K5 pooled (second-order training) takes the
-same constexpr: it loads bf16 a, y, statistics, gamma, beta, pooled
-gradient and cotangents, takes its leaky-ReLU masks from K2's bf16 chain
-(``_bf16_chain``, as K3 does: a mask decided on the f32 ``xhat * gamma +
-beta`` would flip wherever the chain rounds across zero), keeps xhat and
-its five partial sums in f32, and rounds ``g_dpooled``, ``g_y`` and
-``g_gamma`` once each to bf16, as its twin does. The pool-free K2, K3 and
-K5 (the strided model's ``bn_act_*``, and at slope 1 the norm-first
-block's standalone ``batch_norm_*``) take the same constexpr and round at
-the same points: K2 after every op of the chain (at slope 1 the chain's
-activation is ``z`` itself, ``z * 1.0`` exact), K3 and K5 their masks
-from the chain, xhat and the sums in f32, each output rounded once.
+bf16 (``compute_dtype='bfloat16'``): every kernel here takes a ``BF16``
+constexpr (the f32 instantiations are unchanged). K3 takes its leaky-ReLU
+masks from K2's bf16 chain (``_bf16_chain``: bf16 after every op of the
+JAX package's chain — ``y - mean``, ``* rstd``, ``* gamma``, ``+ beta``,
+then ``z * slope`` on the negative side, the slope the bf16 value of 0.01
+— so the masks are K2's decisions), xhat in f32 from the bf16 inputs, its
+per-channel sums in f32, and stores dy rounded once to bf16. Bound: bytes,
+half of f32's. K5 pooled (second-order training) loads bf16 a, y,
+statistics, gamma, beta, pooled gradient and cotangents, takes its masks
+from the same chain (a mask decided on the f32 ``xhat * gamma + beta``
+would flip wherever the chain rounds across zero), keeps xhat and its
+five partial sums in f32, and rounds ``g_dpooled``, ``g_y`` and
+``g_gamma`` once each to bf16, as its twin does. The pool-free K3 and K5
+(the strided model's ``bn_act_*``, and at slope 1 the norm-first block's
+standalone ``batch_norm_*``) round at the same points: their masks from
+the chain, xhat and the sums in f32, each output rounded once.
 
 ``triton`` is imported at the first launch, never at import: the kernel
 bodies below are plain functions until ``_jit()`` compiles them, and they
@@ -100,58 +92,21 @@ def _rne_bf16(x):
     """An f32 value rounded to the nearest bf16 (ties to even), kept in
     f32, by integer ops on its bits (finite values only). The chain below
     needs every rounding: written as ``.to(tl.bfloat16).to(tl.float32)``
-    round trips, K2 missed its twin by an ulp at places on the card."""
+    round trips, a Triton kernel missed its twin by an ulp at places on the
+    card."""
     bits = x.to(tl.int32, bitcast=True)
     bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & -65536
     return bits.to(tl.float32, bitcast=True)
 
 
 def _bf16_chain(v, mu, rs, g, b, slope):
-    """K2's bf16 chain on f32 values of bf16 operands: ``(z, act)``, each
-    op rounded to bf16 (``_rne_bf16``)."""
+    """K2's bf16 chain (csrc/bn_act_fwd.cu) on f32 values of bf16 operands:
+    ``(z, act)``, each op rounded to bf16 (``_rne_bf16``)."""
     z = _rne_bf16(v - mu)
     z = _rne_bf16(z * rs)
     z = _rne_bf16(z * g)
     z = _rne_bf16(z + b)
     return z, tl.where(z >= 0, z, _rne_bf16(z * slope))
-
-
-def _bn_act_pool_fwd_kernel(y_ptr, mean_ptr, rstd_ptr, gamma_ptr, beta_ptr,
-                            out_ptr, arg_ptr, P, NHoWo, HoWo, Wo, H, W, C,
-                            slope, BLOCK_P: "tl.constexpr",
-                            BLOCK_C: "tl.constexpr",
-                            BF16: "tl.constexpr"):
-    p = tl.program_id(0).to(tl.int64) * BLOCK_P + tl.arange(0, BLOCK_P)
-    c = tl.arange(0, BLOCK_C)
-    mask = (p < P)[:, None] & (c < C)[None, :]
-    t = p // NHoWo
-    img = p // HoWo
-    r = p % HoWo
-    ho = r // Wo
-    wo = r % Wo
-    tc = t[:, None] * C + c[None, :]
-    mu = tl.load(mean_ptr + tc, mask=mask, other=0.0).to(tl.float32)
-    rs = tl.load(rstd_ptr + tc, mask=mask, other=0.0).to(tl.float32)
-    g = tl.load(gamma_ptr + tc, mask=mask, other=0.0).to(tl.float32)
-    b = tl.load(beta_ptr + tc, mask=mask, other=0.0).to(tl.float32)
-    base = ((img * H + 2 * ho) * W + 2 * wo) * C
-    best = tl.full([BLOCK_P, BLOCK_C], float("-inf"), tl.float32)
-    arg = tl.zeros([BLOCK_P, BLOCK_C], dtype=tl.int32)
-    for k in tl.static_range(4):
-        off = base + ((k // 2) * W + (k % 2)) * C
-        v = tl.load(y_ptr + off[:, None] + c[None, :], mask=mask,
-                    other=0.0).to(tl.float32)
-        if BF16:
-            _, a = _bf16_chain(v, mu, rs, g, b, slope)
-        else:
-            z = (v - mu) * rs * g + b
-            a = tl.where(z >= 0, z, z * slope)
-        upd = a > best
-        best = tl.where(upd, a, best)
-        arg = tl.where(upd, k, arg)
-    out = p[:, None] * C + c[None, :]
-    tl.store(out_ptr + out, best.to(out_ptr.dtype.element_ty), mask=mask)
-    tl.store(arg_ptr + out, arg.to(tl.uint8), mask=mask)
 
 
 def _bn_act_pool_bwd_reduce_kernel(dp_ptr, arg_ptr, y_ptr, mean_ptr,
@@ -398,27 +353,6 @@ def _bn_act_pool_bwd_bwd_out_kernel(a_ptr, ggamma_ptr, gbeta_ptr, dp_ptr,
     tl.store(gy_ptr + yoff, gy.to(gy_ptr.dtype.element_ty), mask=mask)
 
 
-def _bn_act_fwd_kernel(y_ptr, mean_ptr, rstd_ptr, gamma_ptr, beta_ptr,
-                       out_ptr, P, NHW, C, slope, BLOCK_P: "tl.constexpr",
-                       BLOCK_C: "tl.constexpr", BF16: "tl.constexpr"):
-    p = tl.program_id(0).to(tl.int64) * BLOCK_P + tl.arange(0, BLOCK_P)
-    c = tl.arange(0, BLOCK_C)
-    mask = (p < P)[:, None] & (c < C)[None, :]
-    tc = (p // NHW)[:, None] * C + c[None, :]
-    mu = tl.load(mean_ptr + tc, mask=mask, other=0.0).to(tl.float32)
-    rs = tl.load(rstd_ptr + tc, mask=mask, other=0.0).to(tl.float32)
-    g = tl.load(gamma_ptr + tc, mask=mask, other=0.0).to(tl.float32)
-    b = tl.load(beta_ptr + tc, mask=mask, other=0.0).to(tl.float32)
-    off = p[:, None] * C + c[None, :]
-    v = tl.load(y_ptr + off, mask=mask, other=0.0).to(tl.float32)
-    if BF16:
-        _, a = _bf16_chain(v, mu, rs, g, b, slope)
-    else:
-        z = (v - mu) * rs * g + b
-        a = tl.where(z >= 0, z, z * slope)
-    tl.store(out_ptr + off, a.to(out_ptr.dtype.element_ty), mask=mask)
-
-
 def _bn_act_bwd_reduce_kernel(da_ptr, y_ptr, mean_ptr, rstd_ptr, gamma_ptr,
                               beta_ptr, part_ptr, NHW, C, S, CHUNK, slope,
                               BLOCK_P: "tl.constexpr",
@@ -621,12 +555,10 @@ def _jit() -> SimpleNamespace:
     _bf16_chain = triton.jit(_bf16_chain)
     return SimpleNamespace(
         rne_bf16=_rne_bf16,
-        fwd=triton.jit(_bn_act_pool_fwd_kernel),
         bwd_reduce=triton.jit(_bn_act_pool_bwd_reduce_kernel),
         bwd_dy=triton.jit(_bn_act_pool_bwd_dy_kernel),
         bwd_bwd_reduce=triton.jit(_bn_act_pool_bwd_bwd_reduce_kernel),
         bwd_bwd_out=triton.jit(_bn_act_pool_bwd_bwd_out_kernel),
-        act_fwd=triton.jit(_bn_act_fwd_kernel),
         act_bwd_reduce=triton.jit(_bn_act_bwd_reduce_kernel),
         act_bwd_dy=triton.jit(_bn_act_bwd_dy_kernel),
         act_bwd_bwd_reduce=triton.jit(_bn_act_bwd_bwd_reduce_kernel),
@@ -636,23 +568,6 @@ def _jit() -> SimpleNamespace:
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
-
-
-def launch_fwd(y, mean, rstd, gamma, beta, out, arg, slope: float) -> None:
-    """K2 on validated contiguous CUDA tensors, all f32 or all bf16 (see
-    ``conv_block.bn_act_pool_fwd``)."""
-    T, N, H, W, C = y.shape
-    Ho, Wo = H // 2, W // 2
-    P = T * N * Ho * Wo
-    if C > BLOCK_C:
-        raise NotImplementedError(
-            f"bn_act_pool_fwd takes at most {BLOCK_C} channels, got {C}"
-        )
-    _jit().fwd[(_cdiv(P, BLOCK_P),)](
-        y, mean, rstd, gamma, beta, out, arg, P, N * Ho * Wo, Ho * Wo, Wo,
-        H, W, C, slope, BLOCK_P=BLOCK_P, BLOCK_C=BLOCK_C,
-        BF16=is_bf16(y),
-    )
 
 
 def is_bf16(t) -> bool:
@@ -729,18 +644,6 @@ def _chunk(positions: int) -> int:
     """Positions per reduction program: the tenant's positions over SPLITS
     programs, in whole blocks."""
     return _cdiv(_cdiv(positions, SPLITS), BLOCK_P) * BLOCK_P
-
-
-def launch_act_fwd(y, mean, rstd, gamma, beta, out, slope: float) -> None:
-    """K2's pool-free mode on validated contiguous CUDA tensors, all f32 or
-    all bf16 (see ``conv_block.bn_act_fwd``)."""
-    T, N, H, W, C = y.shape
-    _check_channels("bn_act_fwd", C)
-    P = T * N * H * W
-    _jit().act_fwd[(_cdiv(P, BLOCK_P),)](
-        y, mean, rstd, gamma, beta, out, P, N * H * W, C, slope,
-        BLOCK_P=BLOCK_P, BLOCK_C=BLOCK_C, BF16=is_bf16(y),
-    )
 
 
 def launch_act_bwd(da, y, mean, rstd, gamma, beta, part, dy,

@@ -12,7 +12,7 @@ kernel                      route   source                    launches/call
 ==========================  ======  ========================  ==================
 ``conv3x3_fwd_stats``       CUDA    csrc/conv3x3_fwd_s1.cu    conv + merge: 2
 ``conv3x3_fwd``             CUDA    csrc/conv3x3_fwd_s1.cu    1 (stats-free)
-``bn_act_pool_fwd``         Triton  bn_act_pool.py (K2)       1
+``bn_act_pool_fwd``         CUDA    csrc/bn_act_fwd.cu        1
 ``bn_act_pool_bwd``         CUDA    csrc/bn_act_pool_bwd.cu   1 (cooperative)
 ``conv3x3_dgrad``           CUDA    csrc/conv3x3_bwd_s1.cu    1
 ``conv3x3_wgrad``           CUDA    csrc/conv3x3_bwd_s1.cu    wgrad + reduce: 2
@@ -20,13 +20,13 @@ kernel                      route   source                    launches/call
 ``conv3x3_s2_*``            CUDA    K1: fwd.cu, K4: bwd.cu    as at stride 1
 ``conv3x3_p0_*``            CUDA    the same sources          as at pad 1
 ``conv3x3_s2_p0_*``         CUDA    the same sources          as at pad 1
-``bn_act_fwd``              Triton  bn_act_pool.py (K2)       1 (pool-free)
+``bn_act_fwd``              CUDA    csrc/bn_act_fwd.cu        1 (pool-free)
 ``bn_act_bwd``              Triton  bn_act_pool.py (K3)       2 (pool-free)
 ``bn_act_bwd_bwd``          Triton  bn_act_pool.py (K5)       2 (pool-free)
 ``global_avg_pool2d_fwd``   Triton  global_avg_pool.py        1
 ``global_avg_pool2d_bwd``   Triton  global_avg_pool.py        1
 ``bn_input_stats``          Triton  bn_stats.py               partial + merge: 2
-``batch_norm_fwd``          Triton  bn_act_pool.py (K2)       1 (slope 1)
+``batch_norm_fwd``          CUDA    csrc/bn_act_fwd.cu        1 (slope 1)
 ``batch_norm_bwd``          Triton  bn_act_pool.py (K3)       2 (slope 1)
 ``batch_norm_bwd_bwd``      Triton  bn_act_pool.py (K5)       2 (slope 1)
 ``act_pool_fwd``            Triton  act_pool.py               1
@@ -39,7 +39,8 @@ kernel                      route   source                    launches/call
 ``layer_norm_bwd``          Triton  layer_norm.py             reduce + sums + dx: 3
 ``layer_norm_bwd_bwd``      Triton  layer_norm.py             reduce + sums + out: 3
 ``*_bf16``                  as f32  K1: fwd.cu, K4: bwd.cu;   as in f32; K3, K5
-                                    K3, K5: bn_act_pool.py    2 each
+                                    K2: bn_act_fwd.cu;        2 each
+                                    K3, K5: bn_act_pool.py
 ==========================  ======  ========================  ==================
 
 K1 (both modes) and K4 (dgrad and wgrad) run two designs each: in f32 at
@@ -53,7 +54,10 @@ K3 and K5 pooled in f32 run the cooperative kernels of
 ``csrc/bn_act_pool_bwd.cu`` (reduce, grid barrier, merge, barrier, apply
 in one launch, on the grid ``bn_bwd_plan`` sizes from the occupancy
 query); in bf16, and pool-free, the Triton kernels of ``bn_act_pool.py``
-(a reduce and an apply launch).
+(a reduce and an apply launch). K2 runs ``csrc/bn_act_fwd.cu`` in both
+modes and both dtypes (one kernel each, templated on the element type;
+``bn_fwd_plan`` gives its launch): pooled a thread a pooled pixel x 4
+channels, pool-free 16 bytes of the flat tensor a thread.
 
 The ``conv3x3_s2_*`` names are the four conv kernels at stride 2 (the
 strided model, ``max_pooling=False``), counted apart from stride 1, and
@@ -238,6 +242,10 @@ BAND_BLOCKS_PER_SM = 2
 BN_BWD_THREADS = 256
 BN_BWD_MAX_C = 64
 BN_BWD_SUMS = {"bn_act_pool_bwd": 2, "bn_act_pool_bwd_bwd": 5}
+#: K2 in both modes and dtypes (csrc/bn_act_fwd.cu): a block's threads
+#: (``kThreads`` there) and the most channels it takes
+BN_FWD_THREADS = 256
+BN_FWD_MAX_C = 64
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -309,7 +317,10 @@ def _ptr(t: Tensor) -> int:
 
 
 def _stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """PyTorch's current stream on ``device``, as the kernels take it: the
+    raw handle (``torch.cuda.current_stream`` builds a Stream object, ~5 us
+    of host time a call on the H100's host, PERF.md §6)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def _device(device):
@@ -554,38 +565,109 @@ def _check_pooled(name, dpooled, argmax, y):
     return pooled_shape
 
 
+class BnFwdPlan(NamedTuple):
+    """The launch of K2 at one shape (csrc/bn_act_fwd.cu): ``grid`` (blocks,
+    T) pooled, (blocks, 1) pool-free, of ``threads``. Pooled, a thread
+    takes ``items`` consecutive channels (4, or 1 without vectors) of one
+    pooled pixel, ``groups`` = ceil(C / items) threads a pooled pixel, and
+    a tenant has ``work`` such threads; pool-free, a thread takes ``items``
+    consecutive elements of the flat tensor (16 bytes: 4 in f32, 8 in
+    bf16; 1 without vectors), ``work`` threads in all (groups 0)."""
+
+    grid: Tuple[int, int]
+    threads: int
+    items: int
+    groups: int
+    work: int
+
+
+@functools.lru_cache(maxsize=None)
+def bn_fwd_plan(T: int, N: int, H: int, W: int, C: int, pool: bool,
+                bf16: bool = False, vec: bool = True) -> BnFwdPlan:
+    """K2's launch for y ``(T, N, H, W, C)``, pooled (``pool``) or
+    pool-free, in f32 or bf16, with vector loads (``vec``: pooled, C % 4
+    == 0 and every tensor aligned to a vector; pool-free, y and the output
+    aligned to 16 bytes) or an element at a time. A pure function of the
+    shape: the wrappers call it, and so do the CPU tests. Raises for a
+    shape the kernels do not take."""
+    if (min(T, N, H, W, C) < 1 or C > BN_FWD_MAX_C
+            or N * H * W * C >= 2 ** 31
+            or pool and (H < 2 or W < 2 or T > 65535 or vec and C % 4)):
+        raise ValueError(f"bn_fwd_plan: no {'pooled' if pool else 'pool-free'}"
+                         f" K2 of a (T={T}, N={N}, {H}x{W}, C={C}) map"
+                         f"{' with vectors' if vec else ''}")
+    if pool:
+        items = 4 if vec else 1
+        groups = _cdiv(C, items)
+        work = N * (H // 2) * (W // 2) * groups
+        return BnFwdPlan((_cdiv(work, BN_FWD_THREADS), T), BN_FWD_THREADS,
+                         items, groups, work)
+    items = (8 if bf16 else 4) if vec else 1
+    work = _cdiv(T * N * H * W * C, items)
+    return BnFwdPlan((_cdiv(work, BN_FWD_THREADS), 1), BN_FWD_THREADS,
+                     items, 0, work)
+
+
+def _check_bn_fwd(name, y, mean, rstd, gamma, beta):
+    _check_bn_args(name, y, dict(mean=mean, rstd=rstd, gamma=gamma,
+                                 beta=beta), y.device)
+    if y.shape[-1] > BN_FWD_MAX_C:
+        raise NotImplementedError(f"{name} takes at most {BN_FWD_MAX_C} "
+                                  f"channels, got {y.shape[-1]}")
+
+
 def bn_act_pool_fwd(y: Tensor, mean: Tensor, rstd: Tensor, gamma: Tensor,
                     beta: Tensor, negative_slope: float = F.LEAKY_SLOPE
                     ) -> Tuple[Tensor, Tensor]:
     """Normalize, affine, leaky-ReLU and 2x2 max pool; returns the pooled
-    activation and the uint8 window argmax."""
+    activation and the uint8 window argmax. One launch of
+    csrc/bn_act_fwd.cu (``bn_fwd_plan``)."""
     if _on_cpu(y):
         return F.bn_act_pool_fwd(y, mean, rstd, gamma, beta, negative_slope)
     name = "bn_act_pool_fwd"
-    _check_bn_args(name, y, dict(mean=mean, rstd=rstd, gamma=gamma,
-                                 beta=beta), y.device)
+    _check_bn_fwd(name, y, mean, rstd, gamma, beta)
     T, N, H, W, C = y.shape
-    out = torch.empty((T, N, H // 2, W // 2, C), device=y.device,
-                      dtype=y.dtype)
-    arg = torch.empty((T, N, H // 2, W // 2, C), device=y.device,
-                      dtype=torch.uint8)
-    with torch.cuda.device(y.device):
-        bn_act_pool.launch_fwd(y, mean, rstd, gamma, beta, out, arg,
-                               F.scalar_like(negative_slope, y))
-    LAUNCHES[_counter(name, y)] += 1
+    # two allocations: one shared by two views took longer on the host
+    # (PERF.md §6), where a call at the small maps is host-bound
+    shape = (T, N, H // 2, W // 2, C)
+    out = torch.empty(shape, device=y.device, dtype=y.dtype)
+    arg = torch.empty(shape, device=y.device, dtype=torch.uint8)
+    ptrs = [t.data_ptr() for t in (y, mean, rstd, gamma, beta, out, arg)]
+    v = 4 * y.element_size()
+    vec = C % 4 == 0 and ptrs[-1] % 4 == 0 and all(
+        q % v == 0 for q in ptrs[:-1])
+    bf16 = y.dtype == torch.bfloat16
+    plan = bn_fwd_plan(T, N, H, W, C, True, bf16, vec)
+    counter = _counter(name, y)
+    with _device(y.device):
+        rc = build.function("bn_act_fwd", "bn_act_pool_fwd",
+                            (_P,) * 7 + (_I,) * 9 + (_F, _P))(
+            *ptrs, T, N, H, W, C, int(bf16), int(vec), plan.grid[0],
+            plan.threads, F.scalar_like(negative_slope, y),
+            _stream(y.device))
+    build.check(rc, counter)
+    LAUNCHES[counter] += 1
     return out, arg
 
 
 def _launch_act_fwd(name, y, mean, rstd, gamma, beta, slope) -> Tensor:
-    """K2's pool-free mode on the card, counted on ``name`` (on
-    ``<name>_bf16`` in bf16)."""
-    _check_bn_args(name, y, dict(mean=mean, rstd=rstd, gamma=gamma,
-                                 beta=beta), y.device)
+    """K2's pool-free mode on the card (csrc/bn_act_fwd.cu), counted on
+    ``name`` (on ``<name>_bf16`` in bf16)."""
+    _check_bn_fwd(name, y, mean, rstd, gamma, beta)
+    T, N, H, W, C = y.shape
     out = torch.empty_like(y)
-    with torch.cuda.device(y.device):
-        bn_act_pool.launch_act_fwd(y, mean, rstd, gamma, beta, out,
-                                   F.scalar_like(slope, y))
-    LAUNCHES[_counter(name, y)] += 1
+    ptrs = [t.data_ptr() for t in (y, mean, rstd, gamma, beta, out)]
+    vec = ptrs[0] % 16 == 0 and ptrs[-1] % 16 == 0
+    bf16 = y.dtype == torch.bfloat16
+    plan = bn_fwd_plan(T, N, H, W, C, False, bf16, vec)
+    counter = _counter(name, y)
+    with _device(y.device):
+        rc = build.function("bn_act_fwd", "bn_act_fwd",
+                            (_P,) * 6 + (_I,) * 9 + (_F, _P))(
+            *ptrs, T, N, H, W, C, int(bf16), int(vec), plan.grid[0],
+            plan.threads, F.scalar_like(slope, y), _stream(y.device))
+    build.check(rc, counter)
+    LAUNCHES[counter] += 1
     return out
 
 

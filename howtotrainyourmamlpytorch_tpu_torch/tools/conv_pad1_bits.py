@@ -15,14 +15,11 @@ K5 pooled (``bn_act_pool_bwd``, ``bn_act_pool_bwd_bwd``) and pool-free
 (``bn_act_*``, and at slope 1 ``batch_norm_*``).
 
 ``compare`` prints one line per output and exits 1 unless every output is
-``torch.equal`` to the saved one — except K3's and K5's f32 pooled
-outputs, which the cooperative kernels (``csrc/bn_act_pool_bwd.cu``) sum
-in another order than the Triton kernels before them: those may differ,
-and must then lie within ``1e-5 + 1e-4 * scale`` of their plain twins.
-Every conv output (the f32 stride-1 band kernels of
-``csrc/conv3x3_fwd_s1.cu`` and ``csrc/conv3x3_bwd_s1.cu`` came before
-this build's parent), K2, the bf16 K3 and K5 and every pool-free output
-must be equal. Needs one card.
+``torch.equal`` to the saved one: every conv output, K2 pooled and
+pool-free in both dtypes (``csrc/bn_act_fwd.cu`` rounds as the Triton
+kernels before it did), and K3 and K5 pooled and pool-free in both
+dtypes. An output that differs is a fault to explain, not an exception
+to allow. Needs one card.
 """
 
 from __future__ import annotations
@@ -37,7 +34,6 @@ import torch
 SHAPES = ((2, 5, 84, 84, 3, 48), (2, 5, 21, 21, 48, 48),
           (2, 4, 7, 8, 3, 20), (2, 4, 14, 14, 1, 64))
 DTYPES = (torch.float32, torch.bfloat16)
-ATOL, RTOL = 1e-5, 1e-4
 
 
 def _inputs(i, shape):
@@ -53,15 +49,9 @@ def _inputs(i, shape):
             r(T, cout, scale=0.1), rng)
 
 
-def new_output(key: str) -> bool:
-    """The outputs the new kernels compute: K3 and K5 in f32, pooled."""
-    return key.startswith("float32") and " bn_act_pool_bwd" in key
-
-
-def bn_outputs(key, y, mean, rstd, rng, twins):
+def bn_outputs(key, y, mean, rstd, rng):
     """{key: output} of K2, K3 and K5 on the conv output ``y`` with its
-    statistics: pooled, and pool-free at the leaky slope and at slope 1;
-    with ``twins``, the plain twins of the f32 pooled K3 and K5 alone."""
+    statistics: pooled, and pool-free at the leaky slope and at slope 1."""
     from howtotrainyourmamlpytorch_tpu_torch.kernels import conv_block as cb
     from howtotrainyourmamlpytorch_tpu_torch.ops import functional as F
 
@@ -76,22 +66,19 @@ def bn_outputs(key, y, mean, rstd, rng, twins):
     dp, a, da = r(*pooled.shape), r(*y.shape), r(*y.shape)
     k3 = (dp, arg, y, mean, rstd, gamma, beta)
     k5 = (a, r(T, C), r(T, C)) + k3
-    if twins:
-        if y.dtype != torch.float32:
-            return {}
-        got = F.bn_act_pool_bwd(*k3) + F.bn_act_pool_bwd_bwd(*k5)
-    else:
-        got = (cb.bn_act_pool_bwd(*k3) + cb.bn_act_pool_bwd_bwd(*k5)
-               + (pooled, arg))
-        free = (da, y, mean, rstd, gamma, beta)
-        for slope in (F.LEAKY_SLOPE, 1.0):
-            got += cb.bn_act_bwd(*free, slope) + cb.bn_act_bwd_bwd(
-                a, k5[1], k5[2], *free, slope)
+    got = (cb.bn_act_pool_bwd(*k3) + cb.bn_act_pool_bwd_bwd(*k5)
+           + (pooled, arg))
+    free = (da, y, mean, rstd, gamma, beta)
+    for slope in (F.LEAKY_SLOPE, 1.0):
+        got += (cb.bn_act_fwd(*free[1:], slope),) + cb.bn_act_bwd(
+            *free, slope) + cb.bn_act_bwd_bwd(a, k5[1], k5[2], *free,
+                                              slope)
     names = [f"bn_act_pool_bwd {n}" for n in ("dy", "dgamma", "dbeta")]
     names += [f"bn_act_pool_bwd_bwd {n}"
               for n in ("g_dpooled", "g_y", "g_gamma")]
     names += ["bn_act_pool_fwd pooled", "bn_act_pool_fwd argmax"]
     for slope in ("leaky", "1"):
+        names += [f"pool-free K2 (slope {slope}) activation"]
         names += [f"pool-free K3 (slope {slope}) {n}"
                   for n in ("dy", "dgamma", "dbeta")]
         names += [f"pool-free K5 (slope {slope}) {n}"
@@ -99,9 +86,8 @@ def bn_outputs(key, y, mean, rstd, rng, twins):
     return {f"{key} {n}": v for n, v in zip(names, got)}
 
 
-def outputs(twins: bool = False):
-    """{key: output} of every kernel call; with ``twins``, the plain twins'
-    outputs of the new kernels' calls instead."""
+def outputs():
+    """{key: output} of every kernel call."""
     from howtotrainyourmamlpytorch_tpu_torch.kernels import conv_block as cb
 
     out = {}
@@ -121,9 +107,7 @@ def outputs(twins: bool = False):
                                                  padding=p)
                     if s == 1:
                         out.update(bn_outputs(key, stats[0], stats[1],
-                                              stats[3], rng, twins))
-                    if twins:
-                        continue
+                                              stats[3], rng))
                     out.update({f"{key} fwd_stats {n}": v for n, v in zip(
                         ("y", "mean", "var", "rstd"), stats)})
                     out[f"{key} fwd"] = y
@@ -144,40 +128,30 @@ def main(argv) -> int:
         raise SystemExit("conv_pad1_bits: needs a CUDA card")
     from howtotrainyourmamlpytorch_tpu_torch.device import resolve_device
 
-    resolve_device("cuda:0")  # TF32 off for the twins
+    resolve_device("cuda:0")
     got = outputs()
     if argv[0] == "save":
         torch.save(got, argv[1])
         print(f"saved {len(got)} outputs to {argv[1]}")
         return 0
     want = torch.load(argv[1])
-    twins = outputs(twins=True)
-    same = differ = bad = 0
+    same = 0
     for k, v in want.items():
-        equal = torch.equal(got[k], v)
+        equal = k in got and torch.equal(got[k], v)
         same += equal
         line = f"{'equal' if equal else 'DIFFERS'}  {k}"
-        if not equal:
+        if k in got and not equal:
             diff = (got[k].float() - v.float()).abs().max().item()
             line += f"  max |diff| {diff:.3e}"
-            if new_output(k):
-                differ += 1
-                err = (got[k] - twins[k]).abs().max().item()
-                scale = twins[k].abs().max().item()
-                ok = err <= ATOL + RTOL * scale
-                bad += not ok
-                line += (f"  (new kernel; vs twin {err:.3e}, gate "
-                         f"{ATOL + RTOL * scale:.3e}: "
-                         f"{'within' if ok else 'OUTSIDE'})")
-            else:
-                bad += 1
         print(line, flush=True)
-    n_new = sum(new_output(k) for k in want)
-    print(f"{same} of {len(want)} outputs bit-identical to the saved "
-          f"build's; {differ} of the {n_new} new-kernel outputs differ "
-          f"(f32 pooled K3 and K5), every one within its twin gate, and "
-          f"every other output equal: {bad == 0}", flush=True)
-    return 0 if bad == 0 and len(got) == len(want) else 1
+    new = sorted(set(got) - set(want))
+    for k in new:
+        print(f"not saved  {k}", flush=True)
+    print(f"{same} of {len(want)} saved outputs bit-identical to this "
+          f"build's; {len(new)} outputs this build computes that the saved "
+          f"build did not: every output equal: "
+          f"{same == len(want) and not new}", flush=True)
+    return 0 if same == len(want) and not new else 1
 
 
 if __name__ == "__main__":

@@ -13,13 +13,17 @@ read from the checkout it runs in), weights from the config's seed:
 * ``train-bench`` second order at batch 2 (the config's) and 8, one fixed
   batch, 2 warmup and 5 timed steps: step_ms p50 and p95;
 * ``torch.profiler`` over one warm train step at batch 2 and 8, and over
-  one warm bucket-8 f32 serve dispatch (8 tenants, 6 shots): the device's
-  busy time against the wall time, the K1 kernels' device time (every
-  kernel whose name holds ``conv3x3_fwd``, and the statistics' merge), K3's
-  and K5's (every kernel whose name holds ``bn_act_pool_bwd``, and
-  ``bn_act_pool_bwd_bwd`` for K5: the Triton passes or the one CUDA
-  kernel; a Triton K3's sum of its partials is a PyTorch reduction, not
-  counted here) and the largest kernels by device time.
+  one warm bucket-8 f32 serve dispatch (8 tenants, 6 shots), of the
+  config and of its norm-first model (``block_order='norm_conv_relu'``)
+  in f32 and bf16: the device's busy time against the wall time, the K1
+  kernels' device time (every kernel whose name holds ``conv3x3_fwd``,
+  and the statistics' merge), K2's (``bn_act_pool_fwd``; pool-free, the
+  norm-first block's ``batch_norm_fwd``, every kernel whose name holds
+  ``bn_act_fwd``), K3's and K5's (every kernel whose name holds
+  ``bn_act_pool_bwd``, and ``bn_act_pool_bwd_bwd`` for K5: the Triton
+  passes or the one CUDA kernel; a Triton K3's sum of its partials is a
+  PyTorch reduction, not counted here) and the largest kernels by device
+  time.
 
 Prints one line per measurement with the card's ``nvidia-smi`` line first.
 Needs one card.
@@ -55,6 +59,8 @@ def report(label, what, prof, wall_ms):
     parts = []
     for name, match in (
             ("K1", lambda k: any(n in k for n in K1_NAMES)),
+            ("K2", lambda k: "bn_act_pool_fwd" in k),
+            ("K2 pool-free", lambda k: "bn_act_fwd" in k),
             ("K3", _is_k3), ("K5", _is_k5)):
         mine = [e for e in events if match(e.key)]
         ms = sum(e.device_time_total for e in mine) / 1e3
@@ -98,7 +104,7 @@ def train_steps(label, cfg, batch_size):
     report(label, f"profiled batch-{batch_size} train step", prof, wall_ms)
 
 
-def serve_dispatch(label, cfg):
+def serve_dispatch(label, cfg, what="f32"):
     from torch.profiler import ProfilerActivity, profile
 
     from howtotrainyourmamlpytorch_tpu_torch.serving import bench
@@ -115,8 +121,8 @@ def serve_dispatch(label, cfg):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         dr = engine.serve_group(groups[-1])
-    report(label, f"profiled f32 bucket-{dr.bucket} dispatch ({dr.tenants} "
-           f"tenants, {dr.shots} shots)", prof, dr.adapt_ms)
+    report(label, f"profiled {what} bucket-{dr.bucket} dispatch "
+           f"({dr.tenants} tenants, {dr.shots} shots)", prof, dr.adapt_ms)
 
 
 def main(argv) -> int:
@@ -139,6 +145,12 @@ def main(argv) -> int:
         train_steps(args.label, cfg, batch_size)
         torch.cuda.empty_cache()
     serve_dispatch(args.label, cfg)
+    norm_first = cfg.replace(block_order="norm_conv_relu")
+    torch.cuda.empty_cache()
+    serve_dispatch(args.label, norm_first, "norm-first f32")
+    torch.cuda.empty_cache()
+    serve_dispatch(args.label, norm_first.replace(compute_dtype="bfloat16"),
+                   "norm-first bf16")
     return 0
 
 

@@ -16,10 +16,12 @@ in bf16 and the layer-norm blocks' second derivative on them; K3 and K5
 in f32, pooled, on their cooperative kernels (``csrc/bn_act_pool_bwd.cu``)
 at every main-path shape and at edge shapes, a second launch bit for bit
 the first, the two-launch variant, the refusal of a shape the plan cannot
-fit, and the bf16 and pool-free K3/K5 still the Triton kernels' bits; and
-the ingest
-kernel ``episode_expand`` equal to its twin bit for bit (it is a pure
-lookup).
+fit, and the bf16 and pool-free K3/K5 still the Triton kernels' bits; K2
+(``csrc/bn_act_fwd.cu``) pooled and pool-free, f32 and bf16, at every
+main-path shape and at edge shapes, off vector alignment, a second launch
+bit for bit the first, its entries' refusals, and no K2 wrapper reaching
+a Triton kernel; and the ingest kernel ``episode_expand`` equal to its
+twin bit for bit (it is a pure lookup).
 These need the card: marked ``cuda``, they skip where
 ``torch.cuda.is_available()`` is false. On the card (``--noconftest``:
 the suite's conftest imports jax, which the port never needs):
@@ -1671,3 +1673,229 @@ def test_k3_k5_refuse_a_shape_the_plan_cannot_fit(device):
             cb.bn_act_pool_bwd_bwd(*k5)
         assert cb.launches()["bn_act_pool_bwd"] == 0
         assert cb.launches()["bn_act_pool_bwd_bwd"] == 0
+
+
+# K2 in both modes and dtypes: csrc/bn_act_fwd.cu. Every shape the shipped
+# configs give it — pooled: mini-ImageNet's conv outputs (84/42/21/10, 48
+# channels) at N 25 and 75, T 8, and at T 2 (training's support), the
+# large-batch config's T 256 at stage 1, Omniglot's (28/14/7/3, 64
+# channels) at N 20, the unpadded model's (82/39/17/6); pool-free: the
+# strided Omniglot model's conv outputs (14/7/4/2, 64 channels), the
+# norm-first models' block inputs (the image at C 3, then 48 channels) and
+# the strided norm-first image (C 1) — and edge shapes: T = 1, odd maps,
+# C = 1, 3 and others not a multiple of 4, tenants whose element count is
+# no multiple of a vector, a partial last vector. f32 within the twin gate
+# (the argmax differing at no more than 1e-6 of the pooled elements, a
+# near-tie that one FMA against the twin's two roundings can flip), bf16
+# bit for bit.
+K2_POOLED_MAIN = (
+    [(8, n, hw, 48) for n in (25, 75) for hw in (84, 42, 21, 10)]
+    + [(2, 25, hw, 48) for hw in (84, 42)]
+    + [(8, 20, hw, 64) for hw in (28, 14, 7, 3)]
+    + [(8, 25, hw, 48) for hw in (82, 39, 17, 6)]
+    + [(256, 25, 42, 48)]
+)
+K2_FREE_MAIN = (
+    [(8, 20, hw, 64) for hw in (14, 7, 4, 2)]
+    + [(8, 75, 84, 3)] + [(8, 75, hw, 48) for hw in (42, 21, 10)]
+    + [(8, 20, 28, 1)]
+)
+K2_EDGE = [
+    # T, N, H, W, C
+    (1, 1, 5, 5, 3),
+    (1, 2, 9, 7, 20),
+    (2, 3, 11, 9, 17),
+    (2, 3, 7, 7, 1),
+    (3, 1, 3, 5, 5),
+    (2, 4, 6, 30, 8),
+    (1, 3, 3, 3, 64),
+]
+K2_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def _k2_inputs(T, N, H, W, C, dtype, seed):
+    """y, its batch statistics, gamma and beta in ``dtype``."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def r(*s, scale=1.0):
+        return torch.randn(*s, device="cuda", generator=g) * scale
+
+    y = (2.0 * r(T, N, H, W, C) + 0.3).to(dtype)
+    mean, _, rstd = F.bn_stats(y)
+    return (y, mean, rstd, (1.0 + r(T, C, scale=0.1)).to(dtype),
+            r(T, C, scale=0.1).to(dtype))
+
+
+def _k2_calls(pool, slope):
+    """K2's wrapper, twin and counter name in one mode: pooled, pool-free
+    (``bn_act_fwd``) or, at slope 1, ``batch_norm_fwd``."""
+    if pool:
+        return (lambda *bn: cb.bn_act_pool_fwd(*bn, slope),
+                lambda *bn: F.bn_act_pool_fwd(*bn, slope), "bn_act_pool_fwd")
+    if slope == 1.0:
+        return (lambda *bn: (cb.batch_norm_fwd(*bn),),
+                lambda *bn: (F.batch_norm_fwd(*bn),), "batch_norm_fwd")
+    return (lambda *bn: (cb.bn_act_fwd(*bn, slope),),
+            lambda *bn: (F.bn_act_fwd(*bn, slope),), "bn_act_fwd")
+
+
+def _check_k2(bn, pool, slope=F.LEAKY_SLOPE):
+    """K2 against its twin, one launch on its counter, and a second launch
+    bit for bit the first."""
+    kernel, twin, name = _k2_calls(pool, slope)
+    bf16 = bn[0].dtype == torch.bfloat16
+    cb.reset_launches()
+    got = kernel(*bn)
+    assert {k: n for k, n in cb.launches().items() if n} == {
+        name + ("_bf16" if bf16 else ""): 1}
+    for a, c in zip(got, twin(*bn)):
+        assert a.dtype == c.dtype and a.shape == c.shape
+        assert a.is_contiguous()
+        if bf16:
+            assert torch.equal(a, c)
+        elif a.dtype == torch.uint8:
+            assert (a != c).float().mean().item() <= 1e-6
+        else:
+            assert torch.isfinite(a).all()
+            _close(a, c)
+    assert all(torch.equal(a, c) for a, c in zip(kernel(*bn), got))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", list(K2_DTYPES))
+@pytest.mark.parametrize("shape", K2_POOLED_MAIN, ids=str)
+def test_k2_pooled_matches_its_twin_at_main_path_shapes(shape, dtype,
+                                                        device):
+    T, N, hw, C = shape
+    _check_k2(_k2_inputs(T, N, hw, hw, C, K2_DTYPES[dtype], hw + N + T),
+              pool=True)
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("slope", [F.LEAKY_SLOPE, 1.0])
+@pytest.mark.parametrize("dtype", list(K2_DTYPES))
+@pytest.mark.parametrize("shape", K2_FREE_MAIN, ids=str)
+def test_k2_pool_free_matches_its_twin_at_main_path_shapes(shape, dtype,
+                                                           slope, device):
+    """At the leaky slope ``bn_act_fwd``, at slope 1 ``batch_norm_fwd``."""
+    T, N, hw, C = shape
+    _check_k2(_k2_inputs(T, N, hw, hw, C, K2_DTYPES[dtype], hw + C + T),
+              pool=False, slope=slope)
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("pool", [True, False])
+@pytest.mark.parametrize("dtype", list(K2_DTYPES))
+@pytest.mark.parametrize("shape", K2_EDGE, ids=str)
+def test_k2_matches_its_twin_at_edge_shapes(shape, dtype, pool, device):
+    bn = _k2_inputs(*shape, K2_DTYPES[dtype], sum(shape))
+    for slope in (F.LEAKY_SLOPE, 1.0):
+        _check_k2(bn, pool, slope)
+
+
+@pytest.mark.parametrize("dtype", list(K2_DTYPES))
+def test_k2_takes_tensors_off_vector_alignment(dtype, device, monkeypatch):
+    """Views one element into their storage (contiguous, so the wrappers
+    take them): y off its vector alignment takes the scalar path of either
+    mode (the plan asked without vectors); gamma alone off it takes one
+    channel a thread pooled, and vectors of y with the tables an element
+    at a time pool-free. Each equal to the twin as aligned inputs are."""
+    asked = []
+    plan = cb.bn_fwd_plan
+    monkeypatch.setattr(cb, "bn_fwd_plan",
+                        lambda *a: asked.append(a[-1]) or plan(*a))
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, device=t.device, dtype=t.dtype)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    y, mean, rstd, gamma, beta = _k2_inputs(2, 3, 10, 10, 48,
+                                            K2_DTYPES[dtype], 31)
+    ys, gs = shifted(y), shifted(gamma)
+    assert ys.data_ptr() % 8 != 0 and gs.data_ptr() % 8 != 0
+    for pool in (True, False):
+        for bn, vec in (((ys, mean, rstd, gamma, beta), False),
+                        ((y, mean, rstd, gs, beta), not pool),
+                        ((y, mean, rstd, gamma, beta), True)):
+            _check_k2(bn, pool)
+            assert asked[-1] is vec
+
+
+def test_k2_entries_refuse_a_plan_or_vectors_that_do_not_hold(device):
+    """The entries check the plan's grid and threads against the shape and
+    the vector mode against the pointers, and launch nothing otherwise."""
+    import ctypes
+
+    from howtotrainyourmamlpytorch_tpu_torch.kernels import build
+
+    T, N, H, W, C = 2, 3, 10, 10, 48
+    y, mean, rstd, gamma, beta = _k2_inputs(T, N, H, W, C, torch.float32, 37)
+    P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    pooled = build.function("bn_act_fwd", "bn_act_pool_fwd",
+                            (P,) * 7 + (I,) * 9 + (Fl, P))
+    free = build.function("bn_act_fwd", "bn_act_fwd",
+                          (P,) * 6 + (I,) * 9 + (Fl, P))
+    out = torch.full((T, N, H // 2, W // 2, C), 7.0, device=device)
+    arg = torch.zeros(out.shape, device=device, dtype=torch.uint8)
+    dense = torch.full(y.shape, 7.0, device=device)
+    off = torch.empty(dense.numel() + 1, device=device)[1:]
+    ptrs = [t.data_ptr() for t in (y, mean, rstd, gamma, beta)]
+    stream = torch.cuda.current_stream().cuda_stream
+    pp = cb.bn_fwd_plan(T, N, H, W, C, True)
+    fp = cb.bn_fwd_plan(T, N, H, W, C, False)
+    for vec, blocks, threads in (
+            (1, pp.grid[0] + 1, pp.threads), (1, pp.grid[0], 128),
+            (0, pp.grid[0], pp.threads)):  # not the scalar plan's grid
+        assert pooled(*ptrs, out.data_ptr(), arg.data_ptr(), T, N, H, W, C,
+                      0, vec, blocks, threads, 0.01, stream) != 0
+    for vec, blocks, o in ((1, fp.grid[0] - 1, dense), (0, fp.grid[0], dense),
+                           (1, fp.grid[0], off)):
+        assert free(*ptrs, o.data_ptr(), T, N, H, W, C, 0, vec, blocks,
+                    fp.threads, 0.01, stream) != 0
+    assert pooled(*ptrs, out.data_ptr(), arg.data_ptr(), T, N, H, W, 65, 0,
+                  1, pp.grid[0], pp.threads, 0.01, stream) != 0
+    torch.cuda.synchronize()
+    assert bool((out == 7.0).all()) and bool((dense == 7.0).all())
+    assert pooled(*ptrs, out.data_ptr(), arg.data_ptr(), T, N, H, W, C, 0, 1,
+                  pp.grid[0], pp.threads, 0.01, stream) == 0
+    _close(out, F.bn_act_pool_fwd(y, mean, rstd, gamma, beta)[0])
+
+
+def test_k2_wrappers_reject_what_the_kernels_do_not_take(device):
+    """f16 raises ``TypeError``, 65 channels ``NotImplementedError``, in
+    every K2 wrapper, before any launch."""
+    bn = _k2_inputs(1, 2, 6, 6, 4, torch.float16, 41)
+    wide = _k2_inputs(1, 2, 6, 6, 65, torch.float32, 43)
+    cb.reset_launches()
+    for pool, slope in ((True, F.LEAKY_SLOPE), (False, F.LEAKY_SLOPE),
+                        (False, 1.0)):
+        kernel, _, name = _k2_calls(pool, slope)
+        with pytest.raises(TypeError, match=f"^{name}: .*float32 or "
+                                            "bfloat16"):
+            kernel(*bn)
+        with pytest.raises(NotImplementedError, match="at most 64"):
+            kernel(*wide)
+    assert set(cb.launches().values()) == {0}
+
+
+def test_no_k2_name_reaches_a_triton_kernel(device, monkeypatch):
+    """The Triton K2 kernels are gone from kernels/bn_act_pool.py, and every
+    K2 wrapper runs with Triton's compile step made to fail: pooled and
+    pool-free, ``batch_norm_fwd``, f32 and bf16."""
+    from howtotrainyourmamlpytorch_tpu_torch.kernels import bn_act_pool
+
+    for gone in ("launch_fwd", "launch_act_fwd", "_bn_act_pool_fwd_kernel",
+                 "_bn_act_fwd_kernel"):
+        assert not hasattr(bn_act_pool, gone)
+
+    def no_triton():
+        raise AssertionError("a K2 wrapper reached the Triton kernels")
+
+    monkeypatch.setattr(bn_act_pool, "_jit", no_triton)
+    for dtype in K2_DTYPES.values():
+        bn = _k2_inputs(2, 3, 8, 8, 48, dtype, 47)
+        for pool, slope in ((True, F.LEAKY_SLOPE), (False, F.LEAKY_SLOPE),
+                            (False, 1.0)):
+            _check_k2(bn, pool, slope)
