@@ -136,7 +136,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
    at its four stages; each timed beside the twin and the library calls
    (grouped ``F.conv2d``, ``conv2d_input``, ``conv2d_weight`` and
    ``F.batch_norm`` given statistics, in bf16; the convs' bounds at the
-   bf16 tensor-core rate). ``serve-bench --compute_dtype bfloat16`` with
+   bf16 tensor-core rate; K1 and dgrad at stride 1, which run on the tensor
+   cores, also held to a second launch bit for bit and printed at the end
+   as ``[K1]`` / ``[K4]`` lines with their device time).
+   ``serve-bench --compute_dtype bfloat16`` with
    the f32 and index ingests (16 requests, the bf16 launches per
    dispatch), a bucket-8 dispatch on the kernels against the plain block
    in bf16 (its pool's gradient to the first maximum, as the kernels')
@@ -453,7 +456,8 @@ SOURCES.update({
     for k in ("layer_norm_stats", "layer_norm_fwd", "layer_norm_bwd",
               "layer_norm_bwd_bwd")})
 # the f32 convs at stride 1 (pad 1 and 0) run the band kernels; at stride 2,
-# and in bf16 at either stride, the tiles
+# and bf16 wgrad at either stride, the tiles; bf16 K1 and dgrad at stride 1
+# the tensor-core kernel (below)
 SOURCES.update({f"conv3x3_p0_{k}": SOURCES[f"conv3x3_{k}"]
                 for k in ("fwd_stats", "dgrad", "wgrad", "fwd")})
 SOURCES.update({f"conv3x3_s2_p0_{k}": SOURCES[f"conv3x3_s2_{k}"]
@@ -466,6 +470,13 @@ SOURCES.update({f"{k}_bf16": (FWD_TILE if "_fwd" in k else BWD_TILE)
                 for k in BF16_KERNELS})
 SOURCES.update({f"{k}_bf16": BN_TRITON
                 for k in ("bn_act_pool_bwd", "bn_act_pool_bwd_bwd")})
+# K1 (both modes) and dgrad in bf16 at stride 1, pad 1 and 0: one
+# mma.sync implicit GEMM
+MMA_SOURCE = ("cuda", "howtotrainyourmamlpytorch_tpu_torch/kernels/csrc/"
+                      "conv3x3_s1_bf16.cu")
+SOURCES.update({f"conv3x3{tag}_{k}_bf16": MMA_SOURCE
+                for tag in ("", "_p0")
+                for k in ("fwd_stats", "fwd", "dgrad")})
 # the shape each kernel's line reports (a key of its records)
 REPORT_AT = {
     "conv3x3_fwd_stats": "T=8 layer1 N=75",
@@ -651,6 +662,10 @@ K5_DEVICE = "bn_act_pool_bwd_bwd_kernel"
 # ``batch_norm_fwd``), in either dtype
 K2_DEVICE = "bn_act_pool_fwd_kernel"
 K2_FREE_DEVICE = "bn_act_fwd_kernel"
+# K1 and dgrad in bf16 at stride 1 on the device (csrc/conv3x3_s1_bf16.cu:
+# the conv, and with statistics the merge)
+MMA_DEVICE = "conv3x3_s1_mma_kernel"
+MMA_STATS_DEVICE = (MMA_DEVICE, "bn_stats_merge_kernel")
 
 
 def _randn(gen):
@@ -817,23 +832,29 @@ def print_k4_rows(records):
                   "time", flush=True)
 
 
-def print_k1_rows(records):
-    """K1's f32 stride-1 rows at every timed shape of the kernel phase (with
-    statistics and stats-free, pad 1 and 0): ms by events, the device time
-    of its launches, the library call's ms, the bound and the bound's share
-    of the kernel's time."""
-    for kernel in ("conv3x3_fwd_stats", "conv3x3_fwd",
-                   "conv3x3_p0_fwd_stats", "conv3x3_p0_fwd"):
+def print_k1_rows(records, tag="K1",
+                  kernels=("conv3x3_fwd_stats", "conv3x3_fwd",
+                           "conv3x3_p0_fwd_stats", "conv3x3_p0_fwd")):
+    """The rows of ``kernels`` (by default K1's f32 stride-1 ones, with
+    statistics and stats-free, pad 1 and 0) at every timed shape: ms by
+    events, the device time of their launches, the library call's ms, the
+    bound and its share of the kernel's time, by events and, where
+    measured, by device time."""
+    for kernel in kernels:
         for label, r in records.by_kernel[kernel].items():
             lib = r["library_ms"]
             vs = ("no library call" if lib is None else
                   "library %.4f ms (%.2fx)" % (lib, r["ms"] / lib))
             dev = r["device_ms"]
+            share = (f"{100 * r['bound_ms'] / r['ms']:.1f}% of the kernel's "
+                     "time")
+            if dev is not None:
+                share += (f", {100 * r['bound_ms'] / dev:.1f}% of its device "
+                          "time")
             dev = "not measured" if dev is None else "%.4f ms" % dev
-            print(f"[K1] {kernel} @ {label}: {r['ms']:.4f} ms (device "
+            print(f"[{tag}] {kernel} @ {label}: {r['ms']:.4f} ms (device "
                   f"{dev}), {vs}, bound {r['bound_ms']:.4f} ms "
-                  f"({r['bound_by']}), {100 * r['bound_ms'] / r['ms']:.1f}% "
-                  "of the kernel's time", flush=True)
+                  f"({r['bound_by']}), {share}", flush=True)
 
 
 def check_conv_stages(cb, F, records, stages=CONV_STAGES, images=IMAGES,
@@ -3234,8 +3255,9 @@ def check_bf16_kernels(cb, F, records, T=T_TENANTS, C=COUT):
     N = 25 (the support backward), against their bf16 twins; timed beside
     the twin and the library call in bf16 (K4 on a random dy). Bound:
     2-byte elements, and the convs' products at the bf16 tensor-core rate
-    (the least time the card needs for a bf16 product, though the kernels
-    multiply on FFMA)."""
+    (the least time the card needs for a bf16 product: K1 and dgrad
+    multiply on the tensor cores, wgrad on FFMA). K1 and dgrad are held to
+    a second launch bit for bit, timed with their device time."""
     randn = _randn(torch.Generator(device="cuda").manual_seed(9))
     bf = torch.bfloat16
     nn = torch.nn.functional
@@ -3249,7 +3271,11 @@ def check_bf16_kernels(cb, F, records, T=T_TENANTS, C=COUT):
             b = randn(T, C, scale=0.1).to(bf)
             gamma = (1.0 + randn(T, C, scale=0.1)).to(bf)
             beta = randn(T, C, scale=0.1).to(bf)
-            y, mean, var, rstd = cb.conv3x3_fwd_stats(x, w, b)
+            got = cb.conv3x3_fwd_stats(x, w, b)
+            _same_bits("conv3x3_fwd_stats_bf16",
+                       lambda: cb.conv3x3_fwd_stats(x, w, b), got)
+            y, mean, var, rstd = got
+            del got
             want = F.conv3x3_fwd_stats(x, w, b)
             y_ulps = bf16_ulp(want[0]) + bf16_ulp(F.conv3x3(x, w))
             err = max([within_ulp("conv3x3_fwd_stats_bf16 y", y, want[0],
@@ -3283,7 +3309,7 @@ def check_bf16_kernels(cb, F, records, T=T_TENANTS, C=COUT):
                     2 * T * M * 9 * cin * C + T * M * C,
                     2 * (x.numel() + w.numel() + b.numel() + y.numel()
                          + 3 * T * C),
-                    tensor_cores=True)
+                    tensor_cores=True, device=MMA_STATS_DEVICE)
                 records.add(
                     "bn_act_pool_fwd_bf16", label, 0.0,
                     lambda: cb.bn_act_pool_fwd(y, mean, rstd, gamma, beta),
@@ -3319,9 +3345,12 @@ def check_bf16_kernels(cb, F, records, T=T_TENANTS, C=COUT):
             dy = randn(*y.shape).to(bf)
             dyl = _nchw_tenants(dy)
             if cin == C:
-                err = within_ulp("conv3x3_dgrad_bf16",
-                                 cb.conv3x3_dgrad(dy, w),
+                dx = cb.conv3x3_dgrad(dy, w)
+                err = within_ulp("conv3x3_dgrad_bf16", dx,
                                  F.conv3x3_dgrad(dy, w))
+                _same_bits("conv3x3_dgrad_bf16",
+                           lambda: cb.conv3x3_dgrad(dy, w), dx)
+                del dx
                 records.add(
                     "conv3x3_dgrad_bf16", label, err,
                     lambda: cb.conv3x3_dgrad(dy, w),
@@ -3330,7 +3359,7 @@ def check_bf16_kernels(cb, F, records, T=T_TENANTS, C=COUT):
                         xl.shape, wl, dyl, padding=1, groups=T),
                     2 * T * M * 9 * cin * C,
                     2 * (dy.numel() + w.numel() + x.numel()),
-                    tensor_cores=True)
+                    tensor_cores=True, device=MMA_DEVICE)
             dw, db = cb.conv3x3_wgrad(x, dy)
             dw_p, db_p = F.conv3x3_wgrad(x, dy)
             err = max(within_ulp("conv3x3_wgrad_bf16 dw", dw, dw_p),
@@ -3392,8 +3421,11 @@ def check_bf16_train_kernels(cb, F, records, T=T_TENANTS, C=COUT):
                 want = F.conv3x3(x, w, bias)
                 ulps = (bf16_ulp(want) if bias is None
                         else bf16_ulp(want) + bf16_ulp(plain))
-                err = within_ulp("conv3x3_fwd_bf16",
-                                 cb.conv3x3_fwd(x, w, bias), want, ulps)
+                got = cb.conv3x3_fwd(x, w, bias)
+                err = within_ulp("conv3x3_fwd_bf16", got, want, ulps)
+                _same_bits("conv3x3_fwd_bf16",
+                           lambda: cb.conv3x3_fwd(x, w, bias), got)
+                del got
                 _, _, lib = _bf16_conv_lib(x, w, bias, T, cin, cout, 1)
                 records.add(
                     "conv3x3_fwd_bf16",
@@ -3404,7 +3436,7 @@ def check_bf16_train_kernels(cb, F, records, T=T_TENANTS, C=COUT):
                     + (0 if bias is None else T * M * cout),
                     2 * (x.numel() + w.numel() + want.numel()
                          + (0 if bias is None else b.numel())),
-                    tensor_cores=True)
+                    tensor_cores=True, device=MMA_DEVICE)
                 del want, ulps
             # K5 at the K2 decisions of this conv's output
             gamma = (1.0 + randn(T, cout, scale=0.1)).to(bf)
@@ -3439,6 +3471,8 @@ def check_bf16_train_kernels(cb, F, records, T=T_TENANTS, C=COUT):
         ho = hw - 2
         want = F.conv3x3_fwd_stats(x75, w, b, padding=0)
         got = cb.conv3x3_fwd_stats(x75, w, b, padding=0)
+        _same_bits("conv3x3_p0_fwd_stats_bf16",
+                   lambda: cb.conv3x3_fwd_stats(x75, w, b, padding=0), got)
         y_ulps = bf16_ulp(want[0]) + bf16_ulp(F.conv3x3(x75, w, padding=0))
         err = max([within_ulp("conv3x3_p0_fwd_stats_bf16 y", got[0], want[0],
                               y_ulps)]
@@ -3454,31 +3488,37 @@ def check_bf16_train_kernels(cb, F, records, T=T_TENANTS, C=COUT):
             lambda: F.conv3x3_fwd_stats(x75, w, b, padding=0), lib,
             2 * T * M * 9 * cin * C + T * M * C,
             2 * (x75.numel() + w.numel() + b.numel() + T * M * C + 3 * T * C),
-            tensor_cores=True)
+            tensor_cores=True, device=MMA_STATS_DEVICE)
         del x75, lib
         torch.cuda.empty_cache()
         x = randn(T, 25, hw, hw, cin).to(bf)
         label = f"bf16 unpadded T={T} {stage} N=25"
         M = 25 * ho * ho
         want = F.conv3x3(x, w, padding=0)
-        err = within_ulp("conv3x3_p0_fwd_bf16", cb.conv3x3_fwd(x, w,
-                                                               padding=0),
-                         want)
+        got = cb.conv3x3_fwd(x, w, padding=0)
+        err = within_ulp("conv3x3_p0_fwd_bf16", got, want)
+        _same_bits("conv3x3_p0_fwd_bf16",
+                   lambda: cb.conv3x3_fwd(x, w, padding=0), got)
+        del got
         xl, wl, lib = _bf16_conv_lib(x, w, None, T, cin, C, 0)
         records.add(
             "conv3x3_p0_fwd_bf16", label, err,
             lambda: cb.conv3x3_fwd(x, w, padding=0),
             lambda: F.conv3x3(x, w, padding=0), lib,
             2 * T * M * 9 * cin * C,
-            2 * (x.numel() + w.numel() + want.numel()), tensor_cores=True)
+            2 * (x.numel() + w.numel() + want.numel()), tensor_cores=True,
+            device=MMA_DEVICE)
         # K4 on a random dy
         dy = randn(*want.shape).to(bf)
         dyl = _nchw_tenants(dy)
         hw2 = (hw, hw)
         if cin == C:
-            err = within_ulp("conv3x3_p0_dgrad_bf16",
-                             cb.conv3x3_dgrad(dy, w, 1, hw2, 0),
+            dx = cb.conv3x3_dgrad(dy, w, 1, hw2, 0)
+            err = within_ulp("conv3x3_p0_dgrad_bf16", dx,
                              F.conv3x3_dgrad(dy, w, 1, hw2, 0))
+            _same_bits("conv3x3_p0_dgrad_bf16",
+                       lambda: cb.conv3x3_dgrad(dy, w, 1, hw2, 0), dx)
+            del dx
             records.add(
                 "conv3x3_p0_dgrad_bf16", label, err,
                 lambda: cb.conv3x3_dgrad(dy, w, 1, hw2, 0),
@@ -3486,7 +3526,8 @@ def check_bf16_train_kernels(cb, F, records, T=T_TENANTS, C=COUT):
                 lambda: grad.conv2d_input(xl.shape, wl, dyl, padding=0,
                                           groups=T),
                 2 * T * M * 9 * cin * C,
-                2 * (dy.numel() + w.numel() + x.numel()), tensor_cores=True)
+                2 * (dy.numel() + w.numel() + x.numel()), tensor_cores=True,
+                device=MMA_DEVICE)
         dw, db = cb.conv3x3_wgrad(x, dy, padding=0)
         dw_p, db_p = F.conv3x3_wgrad(x, dy, padding=0)
         err = max(within_ulp("conv3x3_p0_wgrad_bf16 dw", dw, dw_p),
@@ -3807,11 +3848,18 @@ def check_bf16_norm_first_kernels(cb, F, records, T=T_TENANTS):
                               ("dx", "dgamma", "dbeta"),
                               cb.batch_norm_bwd(dz, *bn),
                               F.batch_norm_bwd(dz, *bn)))
+                dzl = _nchw_tenants(dz)
+                saved = (gamma.reshape(-1).float(), None, None,
+                         mean.reshape(-1).float(), rstd.reshape(-1).float(),
+                         True, F.BN_EPS, [True] * 3)
                 rec("batch_norm_bwd_bf16", label, err,
                     lambda: cb.batch_norm_bwd(dz, *bn),
-                    lambda: F.batch_norm_bwd(dz, *bn), None,
+                    lambda: F.batch_norm_bwd(dz, *bn),
+                    lambda: torch.ops.aten.native_batch_norm_backward(
+                        dzl, xl, *saved),
                     16 * x.numel(), 2 * (3 * x.numel() + 6 * T * cin),
                     f32_fn=lambda: cb.batch_norm_bwd(dz32, *bn32))
+                del dzl
                 args = (randn(*x.shape).to(bf), randn(T, cin).to(bf),
                         randn(T, cin).to(bf), dz, *bn)
                 args32 = _f32(*args)
@@ -3852,9 +3900,12 @@ def check_bf16_norm_first_kernels(cb, F, records, T=T_TENANTS):
                     dy32, w32 = dy.float(), w.float()
                     wl = w.permute(0, 4, 3, 1, 2).reshape(T * C, cin, 3, 3)
                     wl, dyl = wl.contiguous(), _nchw_tenants(dy)
-                    err = within_ulp("conv3x3_dgrad_bf16",
-                                     cb.conv3x3_dgrad(dy, w),
+                    dx = cb.conv3x3_dgrad(dy, w)
+                    err = within_ulp("conv3x3_dgrad_bf16", dx,
                                      F.conv3x3_dgrad(dy, w))
+                    _same_bits("conv3x3_dgrad_bf16",
+                               lambda: cb.conv3x3_dgrad(dy, w), dx)
+                    del dx
                     rec("conv3x3_dgrad_bf16", label, err,
                         lambda: cb.conv3x3_dgrad(dy, w),
                         lambda: F.conv3x3_dgrad(dy, w),
@@ -3863,7 +3914,8 @@ def check_bf16_norm_first_kernels(cb, F, records, T=T_TENANTS):
                         2 * T * n * hw * hw * 9 * cin * C,
                         2 * (dy.numel() + w.numel() + x.numel()),
                         tensor_cores=True,
-                        f32_fn=lambda: cb.conv3x3_dgrad(dy32, w32))
+                        f32_fn=lambda: cb.conv3x3_dgrad(dy32, w32),
+                        device=MMA_DEVICE)
                     del dy, dyl
                 del dz, args, args32, dp, g_dy, arg
             del x, xl, y, y32, bn, bn32
@@ -4895,6 +4947,13 @@ def main() -> int:
     if idle:
         raise AssertionError(f"kernels no main path launched: {idle}")
     print_k2_rows(records)
+    # the bf16 stride-1 convs on the tensor cores (bound at their rate)
+    print_k1_rows(records, "K1", ("conv3x3_fwd_stats_bf16",
+                                  "conv3x3_fwd_bf16",
+                                  "conv3x3_p0_fwd_stats_bf16",
+                                  "conv3x3_p0_fwd_bf16"))
+    print_k1_rows(records, "K4", ("conv3x3_dgrad_bf16",
+                                  "conv3x3_p0_dgrad_bf16"))
 
     kernels = []
     for k in all_kernels:

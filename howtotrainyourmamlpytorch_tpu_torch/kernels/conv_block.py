@@ -38,18 +38,24 @@ kernel                      route   source                    launches/call
 ``layer_norm_fwd``          Triton  layer_norm.py             1
 ``layer_norm_bwd``          Triton  layer_norm.py             reduce + sums + dx: 3
 ``layer_norm_bwd_bwd``      Triton  layer_norm.py             reduce + sums + out: 3
-``*_bf16``                  as f32  K1: fwd.cu, K4: bwd.cu;   as in f32; K3, K5
-                                    K2: bn_act_fwd.cu;        2 each
+``*_bf16``                  as f32  K1, dgrad at stride 1:    as in f32; K3, K5
+                                    csrc/conv3x3_s1_bf16.cu;  2 each
+                                    wgrad, stride 2: fwd.cu,
+                                    bwd.cu; K2: bn_act_fwd.cu;
                                     K3, K5: bn_act_pool.py
 ==========================  ======  ========================  ==================
 
-K1 (both modes) and K4 (dgrad and wgrad) run two designs each: in f32 at
-stride 1 (every shipped config) the band kernels of
+K1 (both modes) and K4 dgrad run three designs, K4 wgrad two: at stride 1
+in f32 (every shipped config) the band kernels of
 ``csrc/conv3x3_fwd_s1.cu`` and ``csrc/conv3x3_bwd_s1.cu``, which stage a
-band of rows with its halo in shared memory once; in bf16 and at stride 2
-the tile kernels of ``csrc/conv3x3_fwd.cu`` and ``csrc/conv3x3_bwd.cu``.
-``fwd_plan``, ``dgrad_plan`` and ``wgrad_plan`` give each launch (grid,
-bands, splits, shared memory, scratch) as a pure function of the shape.
+band of rows with its halo in shared memory once and multiply on FFMA; at
+stride 1 in bf16 K1 and dgrad run ``csrc/conv3x3_s1_bf16.cu``, the same
+band staging with the products on the tensor cores (``mma.sync``, f32
+sums); bf16 wgrad and every conv at stride 2 run the tile kernels of
+``csrc/conv3x3_fwd.cu`` and ``csrc/conv3x3_bwd.cu``. ``fwd_plan``,
+``dgrad_plan`` (both through ``mma_plan`` in bf16 at stride 1) and
+``wgrad_plan`` give each launch (grid, bands, splits, shared memory,
+scratch) as a pure function of the shape.
 K3 and K5 pooled in f32 run the cooperative kernels of
 ``csrc/bn_act_pool_bwd.cu`` (reduce, grid barrier, merge, barrier, apply
 in one launch, on the grid ``bn_bwd_plan`` sizes from the occupancy
@@ -74,8 +80,9 @@ Each wrapper takes its plain twin (``ops.functional``) for a tensor on the
 CPU, and for a CUDA tensor launches its kernel or raises: it checks
 device, dtype, shape, stride and contiguity, launches on the current
 stream, allocates outputs and scratch with ``torch.empty`` and adds one to
-its counter per call that launched. The kernels work in f32 with FFMA
-only.
+its counter per call that launched. The f32 kernels multiply on FFMA
+only (no TF32); the bf16 K1 and dgrad at stride 1 multiply bf16 on the
+tensor cores and sum in f32, as XLA's bf16 conv does.
 
 bf16 (``compute_dtype='bfloat16'``): every kernel of every model, served
 and trained second order — K1 with statistics and stats-free, K2, K3 and
@@ -204,8 +211,22 @@ PADDINGS = (1, 0)
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 #: output pixels per tile (``kBM`` in csrc/conv3x3_tile.cuh): K1 and K4
-#: dgrad in bf16 and at stride 2
+#: dgrad at stride 2
 CONV_TILE_ROWS = 256
+#: K1 and K4 dgrad in bf16 at stride 1 (csrc/conv3x3_s1_bf16.cu, mma.sync):
+#: most threads a block (8 warps of 32 band pixels each: two blocks a SM
+#: within 128 registers a thread), the shared memory a block may take where
+#: a band of one row allows (two blocks fit a SM's 228 KB, 1 KB reserved
+#: each), the most output channels a block (more: chunks on grid.y), the
+#: n8 tiles a warp may hold, a SM's shared memory and the blocks a SM the
+#: plan sizes its grid for
+MMA_MAX_THREADS = 256
+MMA_WARP_PIXELS = 32
+MMA_SMEM_BYTES = 113 * 1024
+MMA_MAX_CHANNELS = 64
+MMA_TILES = (1, 2, 4, 6, 8)
+SM_SMEM = 228 * 1024
+MMA_BLOCKS_PER_SM = 2
 #: the K1 band kernels (csrc/conv3x3_fwd_s1.cu, f32 at stride 1): most
 #: threads a block (8 warps: two blocks a SM within 128 registers a
 #: thread), the shared memory a block's band and weight ring may take (two
@@ -372,12 +393,15 @@ def _sms(device) -> int:
 
 class FwdPlan(NamedTuple):
     """The launch of K1 at one shape, both modes: ``kernel`` ``"band"``
-    (f32 at stride 1, csrc/conv3x3_fwd_s1.cu) or ``"tile"`` (bf16 or
-    stride 2, csrc/conv3x3_fwd.cu). A band kernel's block takes
-    ``band_rows`` output rows of one image and all output channels,
-    ``bands`` a image, ``channels`` (8 or 4) a thread; ``smem`` its dynamic
-    shared memory (0: the tile's is static); ``scratch`` the shape of the
-    statistics' partials, ``(T, blocks a tenant, 3, cout)``."""
+    (f32 at stride 1, csrc/conv3x3_fwd_s1.cu), ``"mma"`` (bf16 at stride
+    1, csrc/conv3x3_s1_bf16.cu) or ``"tile"`` (stride 2,
+    csrc/conv3x3_fwd.cu). A band kernel's block takes ``band_rows`` output
+    rows of one image and all output channels, ``bands`` a image,
+    ``channels`` (8 or 4) a thread; an mma block walks ``grid[0]``'s share
+    of a tenant's bands of ``band_rows`` rows, ``channels`` output channels
+    at a time (``grid[1]`` chunks); ``smem`` its dynamic shared memory (0:
+    the tile's is static); ``scratch`` the shape of the statistics'
+    partials, ``(T, blocks or bands a tenant, 3, cout)``."""
 
     kernel: str
     grid: Tuple[int, int, int]
@@ -395,7 +419,8 @@ def fwd_plan(T: int, N: int, H: int, W: int, cin: int, cout: int,
              bf16: bool = False) -> FwdPlan:
     """K1's launch for x ``(T, N, H, W, cin)`` and ``cout`` output
     channels on a card of ``sms`` SMs. A pure function of the shape: the
-    wrappers call it, and so do the CPU tests.
+    wrappers call it, and so do the CPU tests. bf16 at stride 1 runs the
+    mma kernel (``mma_plan``), stride 2 the tile in both dtypes.
 
     The band kernel (f32, stride 1): a thread holds a run of 8 consecutive
     pixels of the band's ``Wo + 2``-wide grid x 8 channels (4 where 8 would
@@ -416,7 +441,11 @@ def fwd_plan(T: int, N: int, H: int, W: int, cin: int, cout: int,
         raise ValueError(f"fwd_plan: no conv3x3 forward of a {H}x{W} input "
                          f"at stride {stride}, pad {pad} (T={T}, N={N}, "
                          f"cin={cin}, cout={cout})")
-    if stride != 1 or bf16:
+    if stride == 1 and bf16:
+        m = mma_plan(T, N, W, Ho, Wo, cin, cout, False, sms)
+        return FwdPlan("mma", m.grid, m.threads, m.smem, m.band_rows,
+                       m.bands, m.channels, (T, N * m.bands, 3, cout))
+    if stride != 1:
         mtiles = _cdiv(N * Ho * Wo, CONV_TILE_ROWS)
         return FwdPlan("tile", (mtiles, _cdiv(cout, 16), T), 128, 0, 0, 0,
                        0, (T, mtiles, 3, cout))
@@ -461,13 +490,110 @@ def _band_plan(T, N, Ho, Wo, cin, cout, sms, channels) -> FwdPlan:
                    (T, N * nb, 3, cout))
 
 
+class MmaPlan(NamedTuple):
+    """The launch of csrc/conv3x3_s1_bf16.cu at one shape (K1 or dgrad in
+    bf16 at stride 1): ``grid`` (blocks a tenant's channel chunk, chunks,
+    T), ``threads`` (a warp every 32 band pixels), ``smem`` its dynamic
+    shared memory; a block walks ``per`` consecutive bands of
+    ``band_rows`` output rows, ``bands`` an image, ``channels`` output
+    channels (8 x n8 tiles a warp)."""
+
+    grid: Tuple[int, int, int]
+    threads: int
+    smem: int
+    band_rows: int
+    bands: int
+    channels: int
+    per: int
+
+
+def mma_smem(dgrad: bool, Ws: int, Wo: int, Cs: int, band_rows: int,
+             channels: int) -> Tuple[int, int]:
+    """(threads, shared memory) of an mma block whose bands have
+    ``band_rows`` rows of ``Wo`` output pixels, from a source ``Ws`` pixels
+    wide of ``Cs`` channels (x's cin, or dy's cout at dgrad) to
+    ``channels`` output channels: the geometry of ``mma_geom`` in
+    csrc/conv3x3_s1_bf16.cu. The band on the ``Wo + 2``-wide grid with its
+    halo and the rows the last warp's taps read past it, each pixel
+    round16(K) + 8 bf16, or the warps' staged outputs where larger; forward
+    at cin <= 3 instead two slots of the band's source rows as they lie in
+    memory (the next band's in flight while this one computes) and a
+    region of its own for the patch matrix (9 cin values a pixel packed
+    into 16 or 32) or the staged outputs. Then the weights (forward: the
+    taps' K rows of ``channels`` (+ 8 where the tiles are even) bf16;
+    dgrad: 9 x ``channels`` rows of round16(Cs) + 8) and, forward, each
+    warp's (count, sum, M2) of each channel."""
+    Wp = Wo + 2
+    warps = _cdiv((band_rows - 1) * Wp + Wo, MMA_WARP_PIXELS)
+    packed = not dgrad and Cs <= 3
+    KC = _cdiv(9 * Cs if packed else Cs, 16) * 16
+    SA = KC + 8
+    OS = channels if channels // 8 % 2 else channels + 8
+    WS = KC + 8 if dgrad else OS
+    rows_px = MMA_WARP_PIXELS * warps
+    band_px = rows_px if packed else max((band_rows + 2) * Wp,
+                                         rows_px + 2 * Wp + 2)
+    band = _cdiv(max(2 * band_px * SA, 2 * rows_px * OS), 16) * 16
+    raw = _cdiv(2 * _cdiv((band_rows + 2) * Ws * Cs, 2) * 2, 16) * 16
+    a, slots = (band, 2 * raw) if packed else (0, band)
+    w = 2 * 9 * channels * WS if dgrad else 2 * (1 if packed else 9) * KC * WS
+    stats = 0 if dgrad else 4 * 3 * warps * channels
+    return MMA_WARP_PIXELS * warps, a + slots + w + stats
+
+
+@functools.lru_cache(maxsize=None)
+def mma_plan(T: int, N: int, Ws: int, Ho: int, Wo: int, Cs: int, Co: int,
+             dgrad: bool, sms: int = 132) -> MmaPlan:
+    """The mma kernel's launch for a source ``Ws`` pixels wide of ``Cs``
+    channels (x, or dy at dgrad) and an output ``(T, N, Ho, Wo, Co)`` (y,
+    or dx). A pure
+    function of the shape: ``fwd_plan`` and ``dgrad_plan`` call it, and so
+    do the CPU tests.
+
+    The output channels in the fewest chunks of at most
+    ``MMA_MAX_CHANNELS``, each rounded up to 8 x an n8 tile count of
+    ``MMA_TILES`` (48 at 48 channels, 64 at 64, 8 at dgrad to cin 3); the
+    most rows a band that keep a block at most ``MMA_MAX_THREADS`` threads
+    and ``MMA_SMEM_BYTES`` of shared memory and the grid at
+    ``MMA_BLOCKS_PER_SM`` blocks a SM, balanced over the image; then as
+    many blocks as the card holds at once (two a SM where the shared
+    memory allows, else one), each walking ``per`` consecutive bands of
+    its tenant, so each block loads its tenant's weights once. Every sum
+    runs over (tap, k16 step) in order in one warp: no block splits an
+    output's sum. A row that no block of ``MMA_MAX_THREADS`` threads and
+    ``BLOCK_SMEM`` holds raises (at 64 channels, rows over about 220
+    pixels)."""
+    chunks = _cdiv(Co, MMA_MAX_CHANNELS)
+    need = _cdiv(_cdiv(Co, chunks), 8)
+    channels = 8 * min(nt for nt in MMA_TILES if nt >= need)
+    target = MMA_BLOCKS_PER_SM * sms
+    CR = 1
+    for rows in range(2, Ho + 1):
+        threads, smem = mma_smem(dgrad, Ws, Wo, Cs, rows, channels)
+        if (threads > MMA_MAX_THREADS or smem > MMA_SMEM_BYTES
+                or T * chunks * N * _cdiv(Ho, rows) < target):
+            break
+        CR = rows
+    nb = _cdiv(Ho, CR)
+    CR = _cdiv(Ho, nb)
+    threads, smem = mma_smem(dgrad, Ws, Wo, Cs, CR, channels)
+    if threads > MMA_MAX_THREADS or smem > BLOCK_SMEM:
+        raise ValueError(f"mma_plan: a {Wo}-pixel output row from {Cs} to "
+                         f"{Co} channels does not fit a block")
+    resident = max(1, min(MMA_BLOCKS_PER_SM, SM_SMEM // (smem + 1024))) * sms
+    per = _cdiv(T * chunks * N * nb, resident)
+    blocks = _cdiv(N * nb, per)
+    return MmaPlan((blocks, chunks, T), threads, smem, CR, nb, channels,
+                   _cdiv(N * nb, blocks))
+
+
 def conv3x3_fwd_stats(x: Tensor, w: Tensor, b: Tensor,
                       eps: float = F.BN_EPS, stride: int = 1,
                       padding: int = 1
                       ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """``y = conv3x3(x, w) + b`` (``stride``, ``padding``) and y's
-    per-(tenant, channel) batch mean, biased variance and rstd. f32 at
-    stride 1 runs the band kernel, bf16 and stride 2 the tile
+    per-(tenant, channel) batch mean, biased variance and rstd. At stride 1
+    f32 runs the band kernel and bf16 the mma kernel, at stride 2 the tile
     (``fwd_plan``); each merges its statistics' partials in a second
     launch."""
     if _on_cpu(x):
@@ -496,6 +622,12 @@ def conv3x3_fwd_stats(x: Tensor, w: Tensor, b: Tensor,
             rc = fn(*ptrs, T, N, H, W, padding, cin, cout, plan.band_rows,
                     plan.channels, plan.threads, plan.smem, eps,
                     _stream(x.device))
+        elif plan.kernel == "mma":
+            fn = build.function("conv3x3_s1_bf16", "conv3x3_fwd_stats_mma",
+                                (_P,) * 8 + (_I,) * 12 + (_F, _P))
+            rc = fn(*ptrs, T, N, H, W, padding, cin, cout, plan.band_rows,
+                    plan.channels, plan.grid[0], plan.threads, plan.smem,
+                    eps, _stream(x.device))
         else:
             fn = build.function("conv3x3_fwd",
                                 _counter("conv3x3_fwd_stats", x),
@@ -509,7 +641,8 @@ def conv3x3_fwd_stats(x: Tensor, w: Tensor, b: Tensor,
 
 def conv3x3_fwd(x: Tensor, w: Tensor, b: Optional[Tensor] = None,
                 stride: int = 1, padding: int = 1) -> Tensor:
-    """K1's stats-free mode: ``y = conv3x3(x, w) (+ b)``, one launch."""
+    """K1's stats-free mode: ``y = conv3x3(x, w) (+ b)``, one launch of
+    the kernel ``fwd_plan`` names."""
     if _on_cpu(x):
         return F.conv3x3(x, w, b, stride=stride, padding=padding)
     name = _conv_name("conv3x3_fwd", stride, padding)
@@ -530,6 +663,12 @@ def conv3x3_fwd(x: Tensor, w: Tensor, b: Optional[Tensor] = None,
                                 (_P,) * 4 + (_I,) * 11 + (_P,))
             rc = fn(*ptrs, T, N, H, W, padding, cin, cout, plan.band_rows,
                     plan.channels, plan.threads, plan.smem,
+                    _stream(x.device))
+        elif plan.kernel == "mma":
+            fn = build.function("conv3x3_s1_bf16", "conv3x3_fwd_mma",
+                                (_P,) * 4 + (_I,) * 12 + (_P,))
+            rc = fn(*ptrs, T, N, H, W, padding, cin, cout, plan.band_rows,
+                    plan.channels, plan.grid[0], plan.threads, plan.smem,
                     _stream(x.device))
         else:
             fn = build.function("conv3x3_fwd", _counter("conv3x3_fwd", x),
@@ -1306,11 +1445,13 @@ def wgrad_plan(T: int, N: int, H: int, W: int, cin: int, cout: int,
 
 class DgradPlan(NamedTuple):
     """The launch of K4 dgrad at one shape: ``kernel`` ``"band"`` (f32 at
-    stride 1) or ``"tile"`` (bf16 or stride 2); a band kernel's block takes
-    ``band_rows`` input rows of one image and all input channels,
-    ``bands`` a image, its threads in ``splits`` groups that split the sum
-    over cout; ``smem`` its dynamic shared memory (the band with its halo
-    and the two-tap weight ring, or the groups' tree where larger)."""
+    stride 1), ``"mma"`` (bf16 at stride 1) or ``"tile"`` (stride 2); a
+    band kernel's block takes ``band_rows`` input rows of one image and all
+    input channels, ``bands`` a image, its threads in ``splits`` groups
+    that split the sum over cout; ``smem`` its dynamic shared memory (the
+    band with its halo and the two-tap weight ring, or the groups' tree
+    where larger). An mma block walks ``grid[0]``'s share of a tenant's
+    bands, ``channels`` input channels at a time (``mma_plan``)."""
 
     kernel: str
     grid: Tuple[int, int, int]
@@ -1319,6 +1460,7 @@ class DgradPlan(NamedTuple):
     band_rows: int
     bands: int
     splits: int
+    channels: int = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -1326,7 +1468,9 @@ def dgrad_plan(T: int, N: int, H: int, W: int, cin: int, cout: int,
                stride: int = 1, pad: int = 1, sms: int = 132,
                bf16: bool = False) -> DgradPlan:
     """K4 dgrad's launch for dx ``(T, N, H, W, cin)`` from a dy of ``cout``
-    channels. The band kernel (f32, stride 1): 8 pixels x 8 channels a
+    channels. bf16 at stride 1 runs the mma kernel (``mma_plan``: dy the
+    source, dx the output), stride 2 the tile in both dtypes. The band
+    kernel (f32, stride 1): 8 pixels x 8 channels a
     thread (8 x 4 at cin <= 4); the most rows a band that keep a block at
     most ``DGRAD_MAX_THREADS`` threads and ``DGRAD_SMEM_BYTES`` of shared
     memory and the grid at ``BAND_BLOCKS_PER_SM`` blocks a SM, balanced
@@ -1339,7 +1483,11 @@ def dgrad_plan(T: int, N: int, H: int, W: int, cin: int, cout: int,
         raise ValueError(f"dgrad_plan: no conv3x3 dgrad of a {H}x{W} input "
                          f"at stride {stride}, pad {pad} (T={T}, N={N}, "
                          f"cin={cin}, cout={cout})")
-    if stride != 1 or bf16:
+    if stride == 1 and bf16:
+        m = mma_plan(T, N, Wo, H, W, cout, cin, True, sms)
+        return DgradPlan("mma", m.grid, m.threads, m.smem, m.band_rows,
+                         m.bands, 1, m.channels)
+    if stride != 1:
         return DgradPlan("tile", (_cdiv(N * H * W, CONV_TILE_ROWS),
                                   _cdiv(cin, 16), T), 128, 0, 0, 0, 1)
     TN = 4 if cin <= 4 else 8
@@ -1379,8 +1527,8 @@ def conv3x3_dgrad(dy: Tensor, w: Tensor, stride: int = 1,
     """The input gradient of the 3x3 conv at ``stride`` and ``padding``;
     ``in_hw`` is the input's (H, W), required at stride 2 and at pad 0
     (dy's size does not determine it, or not as dy's own), and dy's own at
-    stride 1, pad 1. f32 at stride 1 runs the band kernel, bf16 and stride
-    2 the tile kernel (``dgrad_plan``)."""
+    stride 1, pad 1. At stride 1 f32 runs the band kernel and bf16 the mma
+    kernel, at stride 2 the tile kernel (``dgrad_plan``)."""
     name = _conv_name("conv3x3_dgrad", stride, padding)
     if in_hw is None:
         if stride != 1 or padding != 1:
@@ -1409,6 +1557,12 @@ def conv3x3_dgrad(dy: Tensor, w: Tensor, stride: int = 1,
             rc = fn(_ptr(dy), _ptr(w), _ptr(dx), T, N, H, W, padding, cin,
                     cout, plan.band_rows, plan.splits, plan.threads,
                     plan.smem, _stream(dy.device))
+        elif plan.kernel == "mma":
+            fn = build.function("conv3x3_s1_bf16", "conv3x3_dgrad_mma",
+                                (_P,) * 3 + (_I,) * 12 + (_P,))
+            rc = fn(_ptr(dy), _ptr(w), _ptr(dx), T, N, H, W, padding, cin,
+                    cout, plan.band_rows, plan.channels, plan.grid[0],
+                    plan.threads, plan.smem, _stream(dy.device))
         else:
             fn = build.function("conv3x3_bwd", _counter("conv3x3_dgrad", dy),
                                 (_P,) * 3 + (_I,) * 8 + (_P,))

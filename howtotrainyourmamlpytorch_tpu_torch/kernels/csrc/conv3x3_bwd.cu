@@ -1,8 +1,10 @@
 // K4 conv3x3_bwd: the first backward of the slice's 3x3 conv on the tile
-// kernels, two entry points each for f32 and bf16 — the bf16 convs at
-// stride 1 or 2 and the f32 convs at stride 2. The f32 convs at stride 1
-// (every shipped config) run the band kernels of conv3x3_bwd_s1.cu: the
-// float entries here refuse stride 1.
+// kernels, two entry points each for f32 and bf16 — wgrad in bf16 at
+// stride 1 or 2 and in f32 at stride 2, dgrad at stride 2 in both dtypes.
+// The f32 convs at stride 1 (every shipped config) run the band kernels of
+// conv3x3_bwd_s1.cu, the bf16 dgrad at stride 1 the tensor-core kernel of
+// conv3x3_s1_bf16.cu: the float entries here refuse stride 1, the bf16
+// dgrad entry too, and the dgrad tile has no stride-1 instantiation.
 //
 // Replaces (JAX package) the gradient XLA derives for
 // howtotrainyourmamlpytorch_tpu/ops/functional.py::_conv2d_raw :199 in the
@@ -42,13 +44,14 @@
 // an input row that no output reads (the last of 84 -> 41, 20 -> 9) gets a
 // zero gradient.
 //
-// bf16 (conv3x3_dgrad_bf16, conv3x3_wgrad_bf16): bf16 dy, w and x, widened
-// to f32 as they load (conv3x3_tile.cuh); every sum accumulates in f32
-// (dgrad's 9*cout-deep dot, wgrad's pixel reduction and its split
-// partials) and is rounded once to bf16 at the store: dx, dw and db come
-// out bf16 (the caller hands dw and db to the f32 leaves as f32). Bound as
-// in f32 (FFMA, the same FLOPs), with half the bytes. These and the f32
-// stride-2 instantiations are the code they were, bit for bit.
+// bf16 (conv3x3_wgrad_bf16 at stride 1 and 2, conv3x3_dgrad_bf16 at
+// stride 2): bf16 dy, w and x, widened to f32 as they load
+// (conv3x3_tile.cuh); every sum accumulates in f32 (dgrad's 9*cout-deep
+// dot, wgrad's pixel reduction and its split partials) and is rounded once
+// to bf16 at the store: dx, dw and db come out bf16 (the caller hands dw
+// and db to the f32 leaves as f32). Bound as in f32 (FFMA, the same FLOPs),
+// with half the bytes. These and the f32 stride-2 instantiations are the
+// code they were, bit for bit.
 
 #include <cuda_runtime.h>
 
@@ -264,13 +267,8 @@ int dgrad(const T* dy, const T* w, T* dx, int T_, int N, int H, int W,
     return (int)cudaErrorInvalidValue;
   dim3 grid(ceil_div(M, kBM), ceil_div(cin_fwd, kBN), T_);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if constexpr (std::is_same<T, float>::value) {  // f32 at stride 1: _s1.cu
-    if (stride == 1) return (int)cudaErrorInvalidValue;
-  } else if (stride == 1) {
-    conv3x3_dgrad_kernel<T, 1><<<grid, kThreads, 0, st>>>(
-        dy, w, dx, N, H, W, Ho, Wo, cin_fwd, cout_fwd, pad);
-    return (int)cudaGetLastError();
-  }
+  // stride 1: conv3x3_bwd_s1.cu (f32), conv3x3_s1_bf16.cu (bf16)
+  if (stride == 1) return (int)cudaErrorInvalidValue;
   conv3x3_dgrad_kernel<T, 2><<<grid, kThreads, 0, st>>>(
       dy, w, dx, N, H, W, Ho, Wo, cin_fwd, cout_fwd, pad);
   return (int)cudaGetLastError();
@@ -316,8 +314,8 @@ int wgrad(const T* x, const T* dy, float* part_w, float* part_b, T* dw,
 
 extern "C" {
 
-// dx (T, N, H, W, cin_fwd) = dgrad of the forward conv at `stride` (2 in
-// f32, 1 or 2 in bf16) and `pad` (1 or 0) with weights w (T, 3, 3,
+// dx (T, N, H, W, cin_fwd) = dgrad of the forward conv at `stride` (2:
+// stride 1 returns an error) and `pad` (1 or 0) with weights w (T, 3, 3,
 // cin_fwd, cout_fwd), from dy (T, N, Ho, Wo, cout_fwd), Ho = (H + 2*pad -
 // 3) / stride + 1 (Wo likewise).
 int conv3x3_dgrad(const float* dy, const float* w, float* dx, int T, int N,

@@ -1,8 +1,10 @@
 // K1 conv3x3_fwd_stats: the forward 3x3 conv + bias of the slice's block,
 // with the batch-norm statistics of its output, on the implicit-GEMM tile
-// (conv3x3_tile.cuh): in bf16 at stride 1 or 2 and in f32 at stride 2.
-// The f32 convs at stride 1 (every shipped config) run the band kernels of
-// conv3x3_fwd_s1.cu; the float entries here refuse stride 1.
+// (conv3x3_tile.cuh): at stride 2, in f32 and bf16. The convs at stride 1
+// run the band kernels of conv3x3_fwd_s1.cu (f32, every shipped config)
+// and the tensor-core kernel of conv3x3_s1_bf16.cu (bf16): the entries here
+// refuse stride 1 in both dtypes, and no stride-1 instantiation of the tile
+// is compiled.
 //
 // Replaces (JAX package) howtotrainyourmamlpytorch_tpu/ops/functional.py
 // ::conv_bn_act :249 — its `_conv2d_raw` :199 (`_im2col` :85 + one GEMM per
@@ -51,7 +53,9 @@
 // read them flipped twice over. Same bound as the forward: bytes at layer 1,
 // FLOPs at layers 2-4.
 //
-// bf16 (compute_dtype='bfloat16', conv3x3_fwd_stats_bf16): the same tile on
+// bf16 (compute_dtype='bfloat16', conv3x3_s2_fwd_stats_bf16 and its pad-0
+// and stats-free kin; at stride 1 the tensor-core kernel of
+// conv3x3_s1_bf16.cu, which rounds at the same points): the same tile on
 // bf16 x, w and bias (conv3x3_tile.cuh widens them to f32 as they load), in
 // the JAX package's cast points: the f32 sum of the bf16 products is
 // rounded once to bf16 (XLA's bf16 conv), the bias add rounds again, and
@@ -65,12 +69,10 @@
 // stats-free mode in bf16 (conv3x3_fwd_bf16, second-order training) is the
 // same epilogue without the statistics: the f32 sum rounded once, and with
 // a bias (Wgrad's backward: conv3x3(x, ddw) + ddb) the bias add rounded
-// again, as the plain twin's conv then bias add round. Stride 1 and 2,
-// pad 1 and 0, as in f32.
+// again, as the plain twin's conv then bias add round. Stride 2, pad 1 and
+// 0, as in f32.
 
 #include <cuda_runtime.h>
-
-#include <type_traits>
 
 #include "bn_stats_merge.cuh"
 #include "conv3x3_tile.cuh"
@@ -205,15 +207,10 @@ int fwd_stats(const T* x, const T* w, const T* b, T* y, float* part, T* mean,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   dim3 grid(mtiles, ceil_div(cout, kBN), T_);
-  if constexpr (std::is_same<T, float>::value) {  // f32 at stride 1: _s1.cu
-    if (stride == 1) return (int)cudaErrorInvalidValue;
-  } else if (stride == 1) {
-    conv3x3_fwd_stats_kernel<T, 1><<<grid, kThreads, 0, st>>>(
-        x, w, b, y, part, N, H, W, Ho, Wo, cin, cout, pad, mtiles);
-  }
-  if (stride == 2)
-    conv3x3_fwd_stats_kernel<T, 2><<<grid, kThreads, 0, st>>>(
-        x, w, b, y, part, N, H, W, Ho, Wo, cin, cout, pad, mtiles);
+  // stride 1: conv3x3_fwd_s1.cu (f32), conv3x3_s1_bf16.cu (bf16)
+  if (stride == 1) return (int)cudaErrorInvalidValue;
+  conv3x3_fwd_stats_kernel<T, 2><<<grid, kThreads, 0, st>>>(
+      x, w, b, y, part, N, H, W, Ho, Wo, cin, cout, pad, mtiles);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   bn_stats_merge_kernel<T><<<dim3(cout, T_), kMergeThreads, 0, st>>>(
@@ -234,15 +231,10 @@ int fwd(const T* x, const T* w, const T* b, T* y, int T_, int N, int H,
     return (int)cudaErrorInvalidValue;
   dim3 grid(ceil_div(M, kBM), ceil_div(cout, kBN), T_);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if constexpr (std::is_same<T, float>::value) {  // f32 at stride 1: _s1.cu
-    if (stride == 1) return (int)cudaErrorInvalidValue;
-  } else if (stride == 1) {
-    conv3x3_fwd_kernel<T, 1><<<grid, kThreads, 0, st>>>(
-        x, w, b, y, N, H, W, Ho, Wo, cin, cout, pad);
-  }
-  if (stride == 2)
-    conv3x3_fwd_kernel<T, 2><<<grid, kThreads, 0, st>>>(
-        x, w, b, y, N, H, W, Ho, Wo, cin, cout, pad);
+  // stride 1: conv3x3_fwd_s1.cu (f32), conv3x3_s1_bf16.cu (bf16)
+  if (stride == 1) return (int)cudaErrorInvalidValue;
+  conv3x3_fwd_kernel<T, 2><<<grid, kThreads, 0, st>>>(
+      x, w, b, y, N, H, W, Ho, Wo, cin, cout, pad);
   return (int)cudaGetLastError();
 }
 
@@ -250,12 +242,13 @@ int fwd(const T* x, const T* w, const T* b, T* y, int T_, int N, int H,
 
 extern "C" {
 
-// y = conv3x3(x, w) + b at `stride` (2 in f32, 1 or 2 in bf16) and `pad`
-// (1 or 0) and y's per-(tenant, channel) mean / biased var / rstd. x (T, N, H, W, cin), w
-// (T, 3, 3, cin, cout), b (T, cout), y (T, N, Ho, Wo, cout) with Ho =
-// (H + 2*pad - 3) / stride + 1 (Wo likewise), part scratch (T, mtiles, 3,
-// cout) with mtiles = ceil(N*Ho*Wo / 256); mean, var, rstd (T, cout). Two
-// launches on `stream`; returns the first CUDA error, 0 on success.
+// y = conv3x3(x, w) + b at `stride` (2: stride 1 returns an error) and
+// `pad` (1 or 0) and y's per-(tenant, channel) mean / biased var / rstd.
+// x (T, N, H, W, cin), w (T, 3, 3, cin, cout), b (T, cout), y (T, N, Ho,
+// Wo, cout) with Ho = (H + 2*pad - 3) / stride + 1 (Wo likewise), part
+// scratch (T, mtiles, 3, cout) with mtiles = ceil(N*Ho*Wo / 256); mean,
+// var, rstd (T, cout). Two launches on `stream`; returns the first CUDA
+// error, 0 on success.
 int conv3x3_fwd_stats(const float* x, const float* w, const float* b,
                       float* y, float* part, float* mean, float* var,
                       float* rstd, int T, int N, int H, int W, int stride,
@@ -279,7 +272,7 @@ int conv3x3_fwd_stats_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
                                         mtiles, eps, stream);
 }
 
-// y = conv3x3(x, w) (+ b) at `stride` (2 in f32, 1 or 2 in bf16) and
+// y = conv3x3(x, w) (+ b) at `stride` (2: stride 1 returns an error) and
 // `pad`: the stats-free mode. x (T, N, H, W, cin), w (T, 3, 3, cin, cout),
 // b (T, cout) or null, y (T, N, Ho, Wo, cout). One launch on `stream`;
 // returns its CUDA error, 0 on success.

@@ -1,11 +1,10 @@
 // Shared main loop of the task-batched 3x3 implicit GEMM (pad 1 or 0,
-// stride 1 or 2, NHWC activations, HWIO weights), used by K1's forward
-// (conv3x3_fwd.cu) and by K4's dgrad in bf16 and at stride 2
-// (conv3x3_bwd.cu). K4's f32 dgrad at stride 1 has a tile of its own
-// (conv3x3_bwd_s1.cu: a band of dy with its halo staged once, all input
-// channels a block, the weights one tap at a time through a cp.async
-// ring); with one group over cout its sums run over (tap, channel) in the
-// order of this loop.
+// stride 1 or 2, NHWC activations, HWIO weights), used at stride 2 by K1's
+// forward (conv3x3_fwd.cu) and by K4's dgrad (conv3x3_bwd.cu), in f32 and
+// bf16; no entry instantiates it at stride 1 (the band kernels of
+// conv3x3_fwd_s1.cu and conv3x3_bwd_s1.cu take f32 there, the tensor-core
+// kernel of conv3x3_s1_bf16.cu bf16). The f32 dgrad band kernel, with
+// one group over cout, sums over (tap, channel) in the order of this loop.
 //
 // Per tenant t the conv is the GEMM  out[M, cout] = patches[M, K] x W[K, cout]
 // with M = N*Ho*Wo output pixels and K = 9*cin in the order (kh, kw, cin) —
@@ -45,8 +44,8 @@
 // f32 as it is loaded into shared memory, so the tiles, the FMA loop and
 // its order are the f32 ones: a bf16 x bf16 product is exact in f32 and the
 // sum accumulates in f32, as XLA's bf16 conv does (one rounding, at the
-// caller's store). (FFMA on bf16 loads; the tensor cores, mma.sync or
-// wgmma with f32 accumulation, are a later speed step.)
+// caller's store). (FFMA on bf16 loads; at stride 1 the bf16 convs run on
+// the tensor cores, mma.sync with f32 sums, in conv3x3_s1_bf16.cu.)
 #pragma once
 
 #include <cuda_bf16.h>

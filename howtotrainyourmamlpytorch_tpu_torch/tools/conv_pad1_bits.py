@@ -4,6 +4,7 @@ left the others what they were.
 
     PYTHONPATH=<parent checkout> python3 <this file> save bits.pt
     PYTHONPATH=<this checkout> python3 <this file> compare bits.pt
+    PYTHONPATH=<this checkout> python3 <this file> twin
 
 Run by path, so that ``PYTHONPATH`` picks the package whose kernels are
 built and launched; each tree builds its own kernels into its own
@@ -19,7 +20,11 @@ K5 pooled (``bn_act_pool_bwd``, ``bn_act_pool_bwd_bwd``) and pool-free
 pool-free in both dtypes (``csrc/bn_act_fwd.cu`` rounds as the Triton
 kernels before it did), and K3 and K5 pooled and pool-free in both
 dtypes. An output that differs is a fault to explain, not an exception
-to allow. Needs one card.
+to allow; each bf16 output that differs also prints its largest distance
+from the saved one in bf16 ulps (of the larger magnitude). ``twin``
+computes the same outputs with the plain twins (the wrappers' CPU route,
+on the same inputs) and prints each bf16 output's largest distance from
+this build's in bf16 ulps. Needs one card.
 """
 
 from __future__ import annotations
@@ -36,13 +41,13 @@ SHAPES = ((2, 5, 84, 84, 3, 48), (2, 5, 21, 21, 48, 48),
 DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _inputs(i, shape):
+def _inputs(i, shape, device):
     T, N, H, W, cin, cout = shape
     rng = np.random.RandomState(i)
 
     def r(*dims, scale=1.0):
         return torch.from_numpy(
-            (rng.randn(*dims) * scale).astype(np.float32)).cuda()
+            (rng.randn(*dims) * scale).astype(np.float32)).to(device)
 
     return (r(T, N, H, W, cin),
             r(T, 3, 3, cin, cout, scale=(2.0 / (9 * cin)) ** 0.5),
@@ -59,7 +64,7 @@ def bn_outputs(key, y, mean, rstd, rng):
 
     def r(*dims):
         return torch.from_numpy(
-            rng.randn(*dims).astype(np.float32)).cuda().to(y.dtype)
+            rng.randn(*dims).astype(np.float32)).to(y.device).to(y.dtype)
 
     gamma, beta = 1.0 + 0.1 * r(T, C), 0.1 * r(T, C)
     pooled, arg = cb.bn_act_pool_fwd(y, mean, rstd, gamma, beta)
@@ -86,13 +91,14 @@ def bn_outputs(key, y, mean, rstd, rng):
     return {f"{key} {n}": v for n, v in zip(names, got)}
 
 
-def outputs():
-    """{key: output} of every kernel call."""
+def outputs(device="cuda"):
+    """{key: output} of every kernel call: the kernels' on the card, the
+    plain twins' on the CPU."""
     from howtotrainyourmamlpytorch_tpu_torch.kernels import conv_block as cb
 
     out = {}
     for i, shape in enumerate(SHAPES):
-        x32, w32, b32, rng = _inputs(i, shape)
+        x32, w32, b32, rng = _inputs(i, shape, device)
         H, W = shape[2:4]
         for dtype in DTYPES:
             x, w, b = (t.to(dtype) for t in (x32, w32, b32))
@@ -101,7 +107,7 @@ def outputs():
                     key = (f"{str(dtype)[6:]} {shape} stride {s} pad {p}")
                     y = cb.conv3x3_fwd(x, w, b, s, p)
                     dy = torch.from_numpy(
-                        rng.randn(*y.shape).astype(np.float32)).cuda()
+                        rng.randn(*y.shape).astype(np.float32)).to(device)
                     dy = dy.to(dtype)
                     stats = cb.conv3x3_fwd_stats(x, w, b, stride=s,
                                                  padding=p)
@@ -117,11 +123,34 @@ def outputs():
                                                            p)
                     dw, db = cb.conv3x3_wgrad(x, dy, s, p)
                     out[f"{key} wgrad dw"], out[f"{key} wgrad db"] = dw, db
-    torch.cuda.synchronize()
+    if device != "cpu":
+        torch.cuda.synchronize()
     return {k: v.cpu() for k, v in out.items()}
 
 
+def bf16_ulps(got, want):
+    """The largest |got - want| of two bf16 tensors in bf16 ulps of the
+    larger magnitude at each element."""
+    a, b = got.double(), want.double()
+    big = torch.maximum(a.abs(), b.abs()).clamp_min(2.0 ** -126)
+    _, e = torch.frexp(big)
+    return ((a - b).abs() / torch.ldexp(torch.ones_like(big), e - 8)
+            ).max().item()
+
+
 def main(argv) -> int:
+    if argv == ["twin"]:
+        if not torch.cuda.is_available():
+            raise SystemExit("conv_pad1_bits: needs a CUDA card")
+        from howtotrainyourmamlpytorch_tpu_torch.device import resolve_device
+
+        resolve_device("cuda:0")
+        got, twin = outputs(), outputs("cpu")
+        for k, v in got.items():
+            if v.dtype == torch.bfloat16:
+                print(f"{bf16_ulps(v, twin[k]):6.2f} ulps from the twin  {k}",
+                      flush=True)
+        return 0
     if len(argv) != 2 or argv[0] not in ("save", "compare"):
         raise SystemExit(__doc__)
     if not torch.cuda.is_available():
@@ -143,6 +172,8 @@ def main(argv) -> int:
         if k in got and not equal:
             diff = (got[k].float() - v.float()).abs().max().item()
             line += f"  max |diff| {diff:.3e}"
+            if v.dtype == torch.bfloat16:
+                line += f" ({bf16_ulps(got[k], v):.2f} bf16 ulps)"
         print(line, flush=True)
     new = sorted(set(got) - set(want))
     for k in new:

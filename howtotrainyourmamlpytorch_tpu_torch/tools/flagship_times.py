@@ -1,6 +1,6 @@
-"""The f32 flagship's end-to-end times on one build: the check that a change
-to some kernels moved the whole path, compared in one process run after
-another on one card.
+"""The flagship's end-to-end times on one build, in f32 and bf16: the check
+that a change to some kernels moved the whole path, compared in one
+process run after another on one card.
 
     PYTHONPATH=<checkout> python3 <this file> [--label NAME]
 
@@ -11,13 +11,17 @@ mini-ImageNet MAML++ 5-way 5-shot configuration
 read from the checkout it runs in), weights from the config's seed:
 
 * ``train-bench`` second order at batch 2 (the config's) and 8, one fixed
-  batch, 2 warmup and 5 timed steps: step_ms p50 and p95;
-* ``torch.profiler`` over one warm train step at batch 2 and 8, and over
-  one warm bucket-8 f32 serve dispatch (8 tenants, 6 shots), of the
-  config and of its norm-first model (``block_order='norm_conv_relu'``)
-  in f32 and bf16: the device's busy time against the wall time, the K1
-  kernels' device time (every kernel whose name holds ``conv3x3_fwd``,
-  and the statistics' merge), K2's (``bn_act_pool_fwd``; pool-free, the
+  batch, 2 warmup and 5 timed steps: step_ms p50 and p95; and at batch 2
+  in bf16 (``compute_dtype='bfloat16'``);
+* ``torch.profiler`` over one warm train step at batch 2 and 8 (and at
+  batch 2 in bf16), and over one warm bucket-8 f32 serve dispatch (8
+  tenants, 6 shots), of the config in f32 and bf16 and of its norm-first
+  model (``block_order='norm_conv_relu'``) in f32 and bf16: the device's
+  busy time against the wall time, the K1 kernels' device time (every
+  kernel whose name holds ``conv3x3_fwd``, the statistics' merge, and the
+  bf16 stride-1 tensor-core kernel's forward instantiations), K4 dgrad's
+  (every kernel whose name holds ``dgrad``, and that kernel's dgrad
+  instantiations), K2's (``bn_act_pool_fwd``; pool-free, the
   norm-first block's ``batch_norm_fwd``, every kernel whose name holds
   ``bn_act_fwd``), K3's and K5's (every kernel whose name holds
   ``bn_act_pool_bwd``, and ``bn_act_pool_bwd_bwd`` for K5: the Triton
@@ -32,6 +36,7 @@ Needs one card.
 from __future__ import annotations
 
 import argparse
+import re
 import subprocess
 import sys
 import time
@@ -41,6 +46,19 @@ import torch
 CONFIG = ("experiment_config/"
           "mini-imagenet_maml++-mini-imagenet_5_5_2_0.01_48_0.json")
 K1_NAMES = ("conv3x3_fwd", "bn_stats_merge")
+# the bf16 stride-1 tensor-core kernel (csrc/conv3x3_s1_bf16.cu), by its
+# template's last argument (dgrad), demangled or not
+MMA = "conv3x3_s1_mma_kernel"
+MMA_DGRAD = re.compile(MMA + r"(<\d+, \w+, true>|ILi\d+ELb\dELb1E)")
+
+
+def _is_dgrad(key):
+    return "dgrad" in key or bool(MMA_DGRAD.search(key))
+
+
+def _is_k1(key):
+    return (any(n in key for n in K1_NAMES)
+            or MMA in key and not _is_dgrad(key))
 
 
 def _is_k5(key):
@@ -58,7 +76,7 @@ def report(label, what, prof, wall_ms):
     busy = sum(e.device_time_total for e in events) / 1e3
     parts = []
     for name, match in (
-            ("K1", lambda k: any(n in k for n in K1_NAMES)),
+            ("K1", _is_k1), ("K4 dgrad", _is_dgrad),
             ("K2", lambda k: "bn_act_pool_fwd" in k),
             ("K2 pool-free", lambda k: "bn_act_fwd" in k),
             ("K3", _is_k3), ("K5", _is_k5)):
@@ -74,7 +92,7 @@ def report(label, what, prof, wall_ms):
               f"x{e.count:<4d} {e.key[:80]}", flush=True)
 
 
-def train_steps(label, cfg, batch_size):
+def train_steps(label, cfg, batch_size, dtype="float32"):
     from torch.profiler import ProfilerActivity, profile
 
     from howtotrainyourmamlpytorch_tpu_torch import bench as train_bench
@@ -84,10 +102,11 @@ def train_steps(label, cfg, batch_size):
     line = train_bench.run([
         "--config", CONFIG, "--batch-size", str(batch_size), "--epoch", "0",
         "--warmup", "2", "--steps", "5", "--seed", "0", "--device",
-        "cuda:0"])
-    print(f"[e2e {label}] train-bench batch {batch_size}: step_ms p50 "
+        "cuda:0", "--compute_dtype", dtype])
+    what = f"batch {batch_size}" + (" bf16" if dtype == "bfloat16" else "")
+    print(f"[e2e {label}] train-bench {what}: step_ms p50 "
           f"{line['step_ms_p50']}  p95 {line['step_ms_p95']}", flush=True)
-    cfg = cfg.replace(batch_size=batch_size)
+    cfg = cfg.replace(batch_size=batch_size, compute_dtype=dtype)
     device = torch.device("cuda:0")
     state = init_state(cfg, device=device, with_opt=True)
     lr, weights, _ = maml.epoch_schedule(cfg, 0)
@@ -101,7 +120,7 @@ def train_steps(label, cfg, batch_size):
         state, _ = step(state, *batch, weights, lr)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - start) * 1e3
-    report(label, f"profiled batch-{batch_size} train step", prof, wall_ms)
+    report(label, f"profiled {what} train step", prof, wall_ms)
 
 
 def serve_dispatch(label, cfg, what="f32"):
@@ -144,7 +163,11 @@ def main(argv) -> int:
     for batch_size in (2, 8):
         train_steps(args.label, cfg, batch_size)
         torch.cuda.empty_cache()
+    train_steps(args.label, cfg, 2, "bfloat16")
+    torch.cuda.empty_cache()
     serve_dispatch(args.label, cfg)
+    torch.cuda.empty_cache()
+    serve_dispatch(args.label, cfg.replace(compute_dtype="bfloat16"), "bf16")
     norm_first = cfg.replace(block_order="norm_conv_relu")
     torch.cuda.empty_cache()
     serve_dispatch(args.label, norm_first, "norm-first f32")

@@ -34,12 +34,12 @@ MINI = ((84, 48), (42, 48), (21, 48), (10, 48))
 UNPADDED = ((82, 48), (39, 48), (17, 48), (6, 48))
 OMNIGLOT = ((28, 64), (14, 64), (7, 64), (3, 64))
 # (T, N, H = W, C): mini-ImageNet 5-way 1- and 5-shot (support 5 / 25,
-# target 75) at batch 2, 8 and 256; Omniglot 20-way 1-shot (20 images) and
-# 5-way (5, 25) at batch 2, 8 and 256
+# target 75) at batch 2, 8 and 256; Omniglot 20-way 1- and 5-shot (20 and
+# 100 images) and 5-way (5, 25) at batch 2, 8 and 256
 MAIN_SHAPES = (
     [(T, n, hw, C) for T in (2, 8, 256) for n in (5, 25, 75)
      for hw, C in MINI + UNPADDED]
-    + [(T, n, hw, C) for T in (2, 8, 256) for n in (5, 20, 25)
+    + [(T, n, hw, C) for T in (2, 8, 256) for n in (5, 20, 25, 100)
        for hw, C in OMNIGLOT]
 )
 # the blocks a SM the occupancy query gives the kernels on an H100 (K3 3

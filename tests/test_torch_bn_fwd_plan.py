@@ -41,12 +41,16 @@ UNPADDED = (82, 39, 17, 6)
 OMNIGLOT = (28, 14, 7, 3)
 # (T, N, H = W, C) of every pooled K2 call: mini-ImageNet 5-way 5-shot
 # (support 25, target 75) at batch 1 (a serve tenant), 2, 8 and the
-# large-batch config's 256; the unpadded model; Omniglot 20-way 1-shot;
-# and the image channels of no shipped pooled call (scalar loads only)
+# large-batch config's 256, and 5-way 1-shot (support 5); the unpadded
+# model; Omniglot 20-way 1-shot, and 5-way 1-shot and 20-way 5-shot
+# (support 5 and 100); and the image channels of no shipped pooled call
+# (scalar loads only)
 POOLED = (
     [(T, n, hw, 48) for T in (1, 2, 8, 256) for n in (25, 75) for hw in MINI]
+    + [(T, 5, hw, 48) for T in (2, 8) for hw in MINI]
     + [(T, n, hw, 48) for T in (2, 8) for n in (25, 75) for hw in UNPADDED]
     + [(T, 20, hw, 64) for T in (1, 8, 256) for hw in OMNIGLOT]
+    + [(8, n, hw, 64) for n in (5, 100) for hw in OMNIGLOT]
     + [(2, 5, 9, 1), (8, 25, 11, 3)]
 )
 # (T, N, H = W, C) of every pool-free K2 call: the strided Omniglot model's

@@ -122,9 +122,11 @@ def test_the_large_band_plans_are_what_the_design_says(shape):
     (8, 20, 28, 1, 64, 2), (8, 25, 84, 3, 48, 2), (8, 25, 42, 48, 48, 1),
     (2, 25, 41, 48, 48, 1)], ids=str)
 def test_bf16_and_stride_2_keep_the_tile_kernels_split_rule(shape):
-    """bf16 at either stride and f32 at stride 2 run the tile kernels with
-    their split rule as it was (about 16 blocks a SM, at least 512 pixels
-    a split), so their results keep their bits."""
+    """bf16 at either stride and f32 at stride 2 run the wgrad tile kernel
+    with its split rule as it was (about 16 blocks a SM, at least 512
+    pixels a split), so their results keep their bits; so does dgrad at
+    stride 2. bf16 dgrad at stride 1 runs the tensor-core kernel
+    (csrc/conv3x3_s1_bf16.cu) on ``mma_plan``'s grid."""
     T, N, hw, cin, cout, stride = shape
     Ho = (hw - 1) // stride + 1
     M = N * Ho * Ho
@@ -135,6 +137,11 @@ def test_bf16_and_stride_2_keep_the_tile_kernels_split_rule(shape):
         assert plan.kernel == "tile" and plan.splits == want
         assert plan.grid == (-(-9 * cin // 64), -(-cout // 16), T * want)
         d = cb.dgrad_plan(T, N, hw, hw, cin, cout, stride, 1, SMS, bf16)
+        if stride == 1:
+            m = cb.mma_plan(T, N, Ho, hw, hw, cout, cin, True, SMS)
+            assert d.kernel == "mma" and d.grid == m.grid
+            assert d.channels == m.channels and d.smem == m.smem
+            continue
         assert d.kernel == "tile"
         assert d.grid == (-(-N * hw * hw // 256), -(-cin // 16), T)
 

@@ -113,14 +113,22 @@ def test_small_maps_take_bands_of_fewer_rows(shape):
     (8, 20, 28, 1, 64, 2), (8, 25, 84, 3, 48, 2), (8, 25, 42, 48, 48, 1),
     (2, 25, 41, 48, 48, 1)], ids=str)
 def test_bf16_and_stride_2_keep_the_tile(shape):
-    """bf16 at either stride and f32 at stride 2 run the tile kernel on its
-    grid as it was (256 pixels x 16 channels a block), so their results
-    keep their bits; the statistics' partials are the tile's."""
+    """Both dtypes at stride 2 run the tile kernel on its grid as it was
+    (256 pixels x 16 channels a block), so their results keep their bits;
+    the statistics' partials are the tile's. bf16 at stride 1 runs the
+    tensor-core kernel (csrc/conv3x3_s1_bf16.cu) on ``mma_plan``'s grid,
+    its partials a band each."""
     T, N, hw, cin, cout, stride = shape
     Ho = (hw - 1) // stride + 1
     mtiles = -(-N * Ho * Ho // 256)
     for bf16 in ((False, True) if stride == 2 else (True,)):
         plan = cb.fwd_plan(T, N, hw, hw, cin, cout, stride, 1, SMS, bf16)
+        if stride == 1:
+            m = cb.mma_plan(T, N, hw, Ho, Ho, cin, cout, False, SMS)
+            assert plan.kernel == "mma" and plan.channels == m.channels
+            assert plan.grid == m.grid and plan.bands == m.bands
+            assert plan.scratch == (T, N * m.bands, 3, cout)
+            continue
         assert plan.kernel == "tile" and plan.channels == 0
         assert plan.grid == (mtiles, -(-cout // 16), T)
         assert plan.scratch == (T, mtiles, 3, cout)

@@ -1440,22 +1440,24 @@ def _tile_fwd_stats(x, w, b, stride, pad):
 
 @pytest.mark.parametrize("pad", (1, 0))
 def test_bf16_and_stride_2_k1_still_take_the_tile(pad, device):
-    """The bf16 K1 (stride 1 and 2) and the f32 K1 at stride 2 plan the
-    tile, and the wrapper's outputs are the tile entry's bit for bit; the
-    tile's f32 entry refuses stride 1."""
+    """K1 at stride 2 in both dtypes plans the tile, and the wrapper's
+    outputs are the tile entry's bit for bit; at stride 1 bf16 plans the
+    tensor-core kernel, and the tile's entries refuse stride 1 in both
+    dtypes."""
     T, N, H, W, cin, cout = 2, 3, 14, 14, 48, 48
     x, w, b = _k1_inputs(T, N, H, W, cin, cout, seed=11)
     sms = cb._sms(device)
-    for dtype, stride in ((torch.bfloat16, 1), (torch.bfloat16, 2),
-                          (torch.float32, 2)):
+    for dtype in (torch.bfloat16, torch.float32):
         xd, wd, bd = (t.to(dtype) for t in (x, w, b))
-        assert cb.fwd_plan(T, N, H, W, cin, cout, stride, pad, sms,
+        assert cb.fwd_plan(T, N, H, W, cin, cout, 2, pad, sms,
                            dtype == torch.bfloat16).kernel == "tile"
-        got = cb.conv3x3_fwd_stats(xd, wd, bd, stride=stride, padding=pad)
-        rc, *want = _tile_fwd_stats(xd, wd, bd, stride, pad)
+        got = cb.conv3x3_fwd_stats(xd, wd, bd, stride=2, padding=pad)
+        rc, *want = _tile_fwd_stats(xd, wd, bd, 2, pad)
         assert rc == 0
         assert all(torch.equal(a, c) for a, c in zip(got, want))
-    assert _tile_fwd_stats(x, w, b, 1, pad)[0] != 0
+        assert _tile_fwd_stats(xd, wd, bd, 1, pad)[0] != 0
+    assert cb.fwd_plan(T, N, H, W, cin, cout, 1, pad, sms,
+                       True).kernel == "mma"
 
 
 def test_k1_band_entries_refuse_a_plan_that_does_not_match(device):
@@ -1496,6 +1498,196 @@ def test_k1_band_entries_refuse_a_plan_that_does_not_match(device):
                  *geometry, plan.channels, plan.threads, plan.smem,
                  stream) == 0
     _close(y, F.conv3x3(x, w, b, padding=pad))
+
+
+# K1 (both modes) and K4 dgrad in bf16 at stride 1: the tensor-core kernel
+# of csrc/conv3x3_s1_bf16.cu. Every shape the shipped configs run —
+# mini-ImageNet stages 0-3 (84/42/21/10, cin 3 then 48, cout 48) at N 25
+# and 75, T 2 and 8; Omniglot's layers 1-4 (28/14/7/3, cin 1 then 64, cout
+# 64) at N 20, T 8; the unpadded stages (84/41/19/8) — and edge shapes:
+# rows that the band rows do not divide, bands of one row, T = 1, cin 1,
+# 2, 3, 5, 17 and 20 (the patch rows packed at cin <= 3, channels padded to
+# 16 above), cout 1, 3, 4, 12, 20 and 33 (n8 tiles padded and masked), 65
+# and 130 (two and three channel chunks), odd maps, pad 0 and 1. dgrad at
+# stage 0 is the norm-first model's (back to the normalized image, cin 3:
+# one n8 tile, 3 channels live). The gate is ``within_ulp``'s (the tensor
+# cores' f32 sums run in another order than the twin's GEMM): y within one
+# bf16 ulp of the sum and one of the bias add, the rest within one ulp.
+MMA_MAIN_SHAPES = (
+    [(T, n, hw, cin, 48, 1) for T in (2, 8) for n in (25, 75)
+     for hw, cin in ((84, 3), (42, 48), (21, 48), (10, 48))]
+    + [(8, 20, hw, cin, 64, 1)
+       for hw, cin in ((28, 1), (14, 64), (7, 64), (3, 64))]
+    + [(T, n, hw, cin, 48, 0) for T in (2, 8) for n in (25, 75)
+       for hw, cin in ((84, 3), (41, 48), (19, 48), (8, 48))]
+)
+MMA_EDGE_SHAPES = [
+    # T, N, H, W, cin, cout, pad
+    (1, 1, 5, 5, 1, 4, 1),
+    (1, 1, 5, 5, 1, 4, 0),
+    (1, 3, 9, 7, 3, 20, 1),
+    (2, 3, 11, 9, 3, 20, 0),
+    (1, 2, 9, 11, 2, 16, 1),
+    (1, 2, 13, 6, 17, 33, 1),
+    (2, 5, 10, 10, 17, 33, 0),
+    (2, 4, 6, 30, 5, 12, 1),
+    (2, 3, 12, 12, 20, 3, 1),
+    (1, 2, 10, 9, 20, 1, 0),
+    (1, 2, 8, 8, 48, 65, 1),
+    (1, 3, 9, 7, 17, 65, 0),
+    (1, 2, 8, 8, 48, 130, 1),
+    (3, 8, 23, 23, 48, 48, 1),
+    (1, 3, 3, 3, 64, 64, 1),
+]
+
+
+def _check_mma(T, N, H, W, cin, cout, pad, seed):
+    """K1 with statistics and stats-free (with and without bias) and dgrad
+    in bf16 against their twins on the bf16 stride-1 counters, each on the
+    mma plan; the stats-free y with the bias the stats mode's bit for bit;
+    a second launch of each on the same inputs bit for bit the first."""
+    x, w, b = (t.bfloat16() for t in _k1_inputs(T, N, H, W, cin, cout, seed))
+    sms = cb._sms(x.device)
+    assert cb.fwd_plan(T, N, H, W, cin, cout, 1, pad, sms,
+                       True).kernel == "mma"
+    assert cb.dgrad_plan(T, N, H, W, cin, cout, 1, pad, sms,
+                         True).kernel == "mma"
+    cb.reset_launches()
+    got = cb.conv3x3_fwd_stats(x, w, b, padding=pad)
+    want = F.conv3x3_fwd_stats(x, w, b, padding=pad)
+    plain = F.conv3x3(x, w, padding=pad)
+    within_ulp(got[0], want[0], "K1 y", bf16_ulp(want[0]) + bf16_ulp(plain))
+    for a, c, what in zip(got[1:], want[1:], ("mean", "var", "rstd")):
+        within_ulp(a, c, f"K1 {what}")
+    y = cb.conv3x3_fwd(x, w, b, padding=pad)
+    assert torch.equal(y, got[0])
+    y0 = cb.conv3x3_fwd(x, w, None, padding=pad)
+    within_ulp(y0, plain, "K1 stats-free")
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    dy = torch.randn(plain.shape, device="cuda", generator=g).bfloat16()
+    dx = cb.conv3x3_dgrad(dy, w, 1, (H, W), pad)
+    within_ulp(dx, F.conv3x3_dgrad(dy, w, 1, (H, W), pad), "dgrad")
+    tag = "_p0" if pad == 0 else ""
+    assert cb.launches() == {**{k: 0 for k in cb.KERNELS},
+                             f"conv3x3{tag}_fwd_stats_bf16": 1,
+                             f"conv3x3{tag}_fwd_bf16": 2,
+                             f"conv3x3{tag}_dgrad_bf16": 1}
+    again = cb.conv3x3_fwd_stats(x, w, b, padding=pad)
+    assert all(torch.equal(a, c) for a, c in zip(again, got))
+    assert torch.equal(cb.conv3x3_fwd(x, w, None, padding=pad), y0)
+    assert torch.equal(cb.conv3x3_dgrad(dy, w, 1, (H, W), pad), dx)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("shape", MMA_MAIN_SHAPES, ids=str)
+def test_mma_kernels_match_their_twins_at_main_path_shapes(shape, device):
+    T, N, hw, cin, cout, pad = shape
+    _check_mma(T, N, hw, hw, cin, cout, pad, seed=hw + cin + N + T)
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("shape", MMA_EDGE_SHAPES, ids=str)
+def test_mma_kernels_match_their_twins_at_edge_shapes(shape, device):
+    T, N, H, W, cin, cout, pad = shape
+    plan = cb.fwd_plan(T, N, H, W, cin, cout, 1, pad, cb._sms(device), True)
+    if shape == (3, 8, 23, 23, 48, 48, 1):
+        assert 23 % plan.band_rows  # a last band shorter than the others
+    if cout > 64:
+        assert plan.grid[1] > 1  # channel chunks
+    _check_mma(*shape, seed=sum(shape))
+
+
+@pytest.mark.parametrize("pad", (1, 0))
+def test_mma_kernels_take_tensors_off_16_byte_alignment(pad, device):
+    """Views 2 bytes into their storage (contiguous, so the wrappers take
+    them): the kernel stages x, dy and the weights 8 bf16 at a time and
+    stores y and dx an element at a time."""
+    T, N, H, W, cin, cout = 2, 3, 12, 12, 48, 48
+    x, w, b = (t.bfloat16() for t in _k1_inputs(T, N, H, W, cin, cout, 9))
+    dy = torch.randn(T, N, *F.conv_out_hw(H, W, 1, pad), cout,
+                     device=device).bfloat16()
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, device=t.device, dtype=t.dtype)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16 != 0
+        return view
+
+    xs, ws, bs, dys = shifted(x), shifted(w), shifted(b), shifted(dy)
+    want = F.conv3x3_fwd_stats(x, w, b, padding=pad)
+    got = cb.conv3x3_fwd_stats(xs, ws, bs, padding=pad)
+    assert all(torch.equal(a, c) for a, c in zip(
+        got, cb.conv3x3_fwd_stats(x, w, b, padding=pad)))
+    within_ulp(got[0], want[0], "K1 y", bf16_ulp(want[0])
+               + bf16_ulp(F.conv3x3(x, w, padding=pad)))
+    for a, c, what in zip(got[1:], want[1:], ("mean", "var", "rstd")):
+        within_ulp(a, c, f"K1 {what}")
+    dx = cb.conv3x3_dgrad(dys, ws, 1, (H, W), pad)
+    assert torch.equal(dx, cb.conv3x3_dgrad(dy, w, 1, (H, W), pad))
+    within_ulp(dx, F.conv3x3_dgrad(dy, w, 1, (H, W), pad), "dgrad")
+
+
+def test_mma_entries_refuse_a_plan_that_does_not_match(device):
+    """The entries check the plan's channels, blocks, threads and shared
+    memory against the geometry they follow from, and launch nothing
+    otherwise; the tile's bf16 entries refuse stride 1."""
+    import ctypes
+
+    from howtotrainyourmamlpytorch_tpu_torch.kernels import build
+
+    T, N, H, W, cin, cout, pad = 2, 3, 21, 21, 48, 48, 1
+    x, w, b = (t.bfloat16() for t in _k1_inputs(T, N, H, W, cin, cout, 13))
+    plan = cb.fwd_plan(T, N, H, W, cin, cout, 1, pad, cb._sms(device), True)
+    d = cb.dgrad_plan(T, N, H, W, cin, cout, 1, pad, cb._sms(device), True)
+    y = torch.full((T, N, H, W, cout), 7.0, device=device).bfloat16()
+    part = torch.empty(plan.scratch, device=device)
+    stats = [torch.empty((T, cout), device=device).bfloat16()
+             for _ in range(3)]
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fwd = build.function("conv3x3_s1_bf16", "conv3x3_fwd_mma",
+                         (P,) * 4 + (I,) * 12 + (P,))
+    with_stats = build.function("conv3x3_s1_bf16", "conv3x3_fwd_stats_mma",
+                                (P,) * 8 + (I,) * 12 + (ctypes.c_float, P))
+    dgrad = build.function("conv3x3_s1_bf16", "conv3x3_dgrad_mma",
+                           (P,) * 3 + (I,) * 12 + (P,))
+    stream = torch.cuda.current_stream().cuda_stream
+    geometry = (T, N, H, W, pad, cin, cout, plan.band_rows)
+    eps = F.scalar_like(F.BN_EPS, x)
+    for channels, blocks, threads, smem in (
+            (plan.channels, plan.grid[0], plan.threads + 32, plan.smem),
+            (plan.channels, plan.grid[0], plan.threads, plan.smem + 16),
+            (plan.channels, plan.grid[0], plan.threads, plan.smem - 16),
+            (40, plan.grid[0], plan.threads, plan.smem),
+            (plan.channels, 0, plan.threads, plan.smem),
+            (plan.channels, N * plan.bands + 1, plan.threads, plan.smem)):
+        assert fwd(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
+                   *geometry, channels, blocks, threads, smem, stream) != 0
+        assert with_stats(*(t.data_ptr() for t in (x, w, b, y, part,
+                                                    *stats)),
+                          *geometry, channels, blocks, threads, smem, eps,
+                          stream) != 0
+    assert dgrad(y.data_ptr(), w.data_ptr(), x.data_ptr(), T, N, H, W, pad,
+                 cin, cout, d.band_rows, d.channels, d.grid[0],
+                 d.threads + 32, d.smem, stream) != 0
+    torch.cuda.synchronize()
+    assert bool((y == 7.0).all())
+    assert fwd(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
+               *geometry, plan.channels, plan.grid[0], plan.threads,
+               plan.smem, stream) == 0
+    torch.cuda.synchronize()
+    within_ulp(y, F.conv3x3(x, w, b, padding=pad), "K1 stats-free",
+               2 * bf16_ulp(F.conv3x3(x, w, b, padding=pad)))
+    # the tile's bf16 entries at stride 1
+    tile_fwd = build.function("conv3x3_fwd", "conv3x3_fwd_bf16",
+                              (P,) * 4 + (I,) * 8 + (P,))
+    tile_dgrad = build.function("conv3x3_bwd", "conv3x3_dgrad_bf16",
+                                (P,) * 3 + (I,) * 8 + (P,))
+    assert tile_fwd(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
+                    T, N, H, W, 1, pad, cin, cout, stream) != 0
+    assert tile_dgrad(y.data_ptr(), w.data_ptr(), x.data_ptr(), T, N, H, W,
+                      1, pad, cin, cout, stream) != 0
+    assert _tile_fwd_stats(x, w, b, 1, pad)[0] != 0
 
 
 # K3 and K5 in f32, pooled: the cooperative kernels of
