@@ -132,13 +132,14 @@ Phases, in order; any failure raises and the exit code is non-zero:
    scale — and the kernels second order adds, held the same way: K1
    stats-free (with and without bias) at the four stages and the four
    Omniglot layers, K5 at the same stages and layers on random
-   cotangents, and the unpadded model's pad-0 convs (``conv3x3_p0_*_bf16``)
-   at its four stages; each timed beside the twin and the library calls
-   (grouped ``F.conv2d``, ``conv2d_input``, ``conv2d_weight`` and
-   ``F.batch_norm`` given statistics, in bf16; the convs' bounds at the
-   bf16 tensor-core rate; K1 and dgrad at stride 1, which run on the tensor
-   cores, also held to a second launch bit for bit and printed at the end
-   as ``[K1]`` / ``[K4]`` lines with their device time).
+   cotangents, wgrad at the four Omniglot layers, and the unpadded model's
+   pad-0 convs (``conv3x3_p0_*_bf16``) at its four stages; each timed
+   beside the twin and the library calls (grouped ``F.conv2d``,
+   ``conv2d_input``, ``conv2d_weight`` and ``F.batch_norm`` given
+   statistics, in bf16; the convs' bounds at the bf16 tensor-core rate; K1,
+   dgrad and wgrad at stride 1, which run on the tensor cores, also held to
+   a second launch bit for bit and printed at the end as ``[K1]`` /
+   ``[K4]`` lines with their device time).
    ``serve-bench --compute_dtype bfloat16`` with
    the f32 and index ingests (16 requests, the bf16 launches per
    dispatch), a bucket-8 dispatch on the kernels against the plain block
@@ -455,9 +456,8 @@ SOURCES.update({
     k: ("triton", "howtotrainyourmamlpytorch_tpu_torch/kernels/layer_norm.py")
     for k in ("layer_norm_stats", "layer_norm_fwd", "layer_norm_bwd",
               "layer_norm_bwd_bwd")})
-# the f32 convs at stride 1 (pad 1 and 0) run the band kernels; at stride 2,
-# and bf16 wgrad at either stride, the tiles; bf16 K1 and dgrad at stride 1
-# the tensor-core kernel (below)
+# the f32 convs at stride 1 (pad 1 and 0) run the band kernels; at stride 2
+# the tiles; the bf16 convs at stride 1 the tensor-core kernels (below)
 SOURCES.update({f"conv3x3_p0_{k}": SOURCES[f"conv3x3_{k}"]
                 for k in ("fwd_stats", "dgrad", "wgrad", "fwd")})
 SOURCES.update({f"conv3x3_s2_p0_{k}": SOURCES[f"conv3x3_s2_{k}"]
@@ -477,6 +477,12 @@ MMA_SOURCE = ("cuda", "howtotrainyourmamlpytorch_tpu_torch/kernels/csrc/"
 SOURCES.update({f"conv3x3{tag}_{k}_bf16": MMA_SOURCE
                 for tag in ("", "_p0")
                 for k in ("fwd_stats", "fwd", "dgrad")})
+# K4 wgrad in bf16 at stride 1, pad 1 and 0: an mma.sync reduction over
+# staged x and dy bands
+WGRAD_MMA_SOURCE = ("cuda", "howtotrainyourmamlpytorch_tpu_torch/kernels/"
+                            "csrc/conv3x3_wgrad_s1_bf16.cu")
+SOURCES.update({f"conv3x3{tag}_wgrad_bf16": WGRAD_MMA_SOURCE
+                for tag in ("", "_p0")})
 # the shape each kernel's line reports (a key of its records)
 REPORT_AT = {
     "conv3x3_fwd_stats": "T=8 layer1 N=75",
@@ -666,6 +672,10 @@ K2_FREE_DEVICE = "bn_act_fwd_kernel"
 # the conv, and with statistics the merge)
 MMA_DEVICE = "conv3x3_s1_mma_kernel"
 MMA_STATS_DEVICE = (MMA_DEVICE, "bn_stats_merge_kernel")
+# wgrad in bf16 at stride 1 on the device (csrc/conv3x3_wgrad_s1_bf16.cu:
+# the products, taps or packed; csrc/wgrad_reduce.cuh: the reduce of the
+# split partials)
+WGRAD_MMA_DEVICE = ("conv3x3_wgrad_mma", "conv3x3_wgrad_reduce")
 
 
 def _randn(gen):
@@ -1227,8 +1237,9 @@ def check_strided_kernels(cb, F, records, T=T_TENANTS, n=OMNIGLOT_IMAGES,
                           F.global_avg_pool2d_bwd(g, Ho, Wo))
             rec("global_avg_pool2d_bwd", label, err,
                 lambda: cb.global_avg_pool2d_bwd(g, Ho, Wo),
-                lambda: F.global_avg_pool2d_bwd(g, Ho, Wo), None,
-                act.numel(), 4 * (act.numel() + g.numel()))
+                lambda: F.global_avg_pool2d_bwd(g, Ho, Wo),
+                _gap_bwd_library(g, act), act.numel(),
+                4 * (act.numel() + g.numel()))
             # launch-bound: the event times above include the wrapper's
             # host time; the profiler gives the kernels' own
             for kernel, fn in (
@@ -3255,9 +3266,9 @@ def check_bf16_kernels(cb, F, records, T=T_TENANTS, C=COUT):
     N = 25 (the support backward), against their bf16 twins; timed beside
     the twin and the library call in bf16 (K4 on a random dy). Bound:
     2-byte elements, and the convs' products at the bf16 tensor-core rate
-    (the least time the card needs for a bf16 product: K1 and dgrad
-    multiply on the tensor cores, wgrad on FFMA). K1 and dgrad are held to
-    a second launch bit for bit, timed with their device time."""
+    (the least time the card needs for a bf16 product: K1, dgrad and wgrad
+    multiply on the tensor cores). K1, dgrad and wgrad are held to a
+    second launch bit for bit, timed with their device time."""
     randn = _randn(torch.Generator(device="cuda").manual_seed(9))
     bf = torch.bfloat16
     nn = torch.nn.functional
@@ -3364,6 +3375,8 @@ def check_bf16_kernels(cb, F, records, T=T_TENANTS, C=COUT):
             dw_p, db_p = F.conv3x3_wgrad(x, dy)
             err = max(within_ulp("conv3x3_wgrad_bf16 dw", dw, dw_p),
                       within_ulp("conv3x3_wgrad_bf16 db", db, db_p))
+            _same_bits("conv3x3_wgrad_bf16", lambda: cb.conv3x3_wgrad(x, dy),
+                       (dw, db))
             records.add(
                 "conv3x3_wgrad_bf16", label, err,
                 lambda: cb.conv3x3_wgrad(x, dy),
@@ -3372,7 +3385,7 @@ def check_bf16_kernels(cb, F, records, T=T_TENANTS, C=COUT):
                     xl, wl.shape, dyl, padding=1, groups=T),
                 2 * T * M * 9 * cin * C + T * M * C,
                 2 * (x.numel() + dy.numel() + dw.numel() + db.numel()),
-                tensor_cores=True)
+                tensor_cores=True, device=WGRAD_MMA_DEVICE)
             del x, y, pooled, pooled_p, dy, dyl, xl, got, want
             torch.cuda.empty_cache()
 
@@ -3394,7 +3407,8 @@ def check_bf16_train_kernels(cb, F, records, T=T_TENANTS, C=COUT):
     four Omniglot layers (cin 1 at layer 1, 64 filters, N = 20); K5
     (``bn_act_pool_bwd_bwd_bf16``) at the same stages and layers, on
     random bf16 cotangents (K3's own dy sums to zero per channel, so the
-    path's would leave the g_gamma term rounding noise); and the
+    path's would leave the g_gamma term rounding noise); wgrad at the
+    Omniglot layers on a random dy (the mini stages' are phase 9's); and the
     unpadded bf16 model's convs at pad 0 (``conv3x3_p0_*_bf16``: K1 with
     statistics at N = 75, stats-free, dgrad at stages 1-3 and wgrad at N =
     25) at ``UNPADDED_STAGES``. Each within one bf16 ulp of its bf16 twin
@@ -3460,6 +3474,26 @@ def check_bf16_train_kernels(cb, F, records, T=T_TENANTS, C=COUT):
                 42 * y.numel(),
                 2 * (3 * y.numel() + 2 * pooled.numel() + 7 * T * cout)
                 + arg.numel())
+            if prefix:
+                dy = randn(*y.shape).to(bf)
+                dw, db = cb.conv3x3_wgrad(x, dy)
+                dw_p, db_p = F.conv3x3_wgrad(x, dy)
+                err = max(within_ulp("conv3x3_wgrad_bf16 dw", dw, dw_p),
+                          within_ulp("conv3x3_wgrad_bf16 db", db, db_p))
+                _same_bits("conv3x3_wgrad_bf16",
+                           lambda: cb.conv3x3_wgrad(x, dy), (dw, db))
+                xl, wl, _ = _bf16_conv_lib(x, w, None, T, cin, cout, 1)
+                dyl = _nchw_tenants(dy)
+                records.add(
+                    "conv3x3_wgrad_bf16", label, err,
+                    lambda: cb.conv3x3_wgrad(x, dy),
+                    lambda: F.conv3x3_wgrad(x, dy),
+                    lambda: grad.conv2d_weight(xl, wl.shape, dyl, padding=1,
+                                               groups=T),
+                    2 * T * M * 9 * cin * cout + T * M * cout,
+                    2 * (x.numel() + dy.numel() + dw.numel() + db.numel()),
+                    tensor_cores=True, device=WGRAD_MMA_DEVICE)
+                del dy, dyl, xl, wl, dw, db, dw_p, db_p
             del x, y, pooled, arg, args, plain
             torch.cuda.empty_cache()
     # the unpadded bf16 model's convs at pad 0
@@ -3532,6 +3566,8 @@ def check_bf16_train_kernels(cb, F, records, T=T_TENANTS, C=COUT):
         dw_p, db_p = F.conv3x3_wgrad(x, dy, padding=0)
         err = max(within_ulp("conv3x3_p0_wgrad_bf16 dw", dw, dw_p),
                   within_ulp("conv3x3_p0_wgrad_bf16 db", db, db_p))
+        _same_bits("conv3x3_p0_wgrad_bf16",
+                   lambda: cb.conv3x3_wgrad(x, dy, padding=0), (dw, db))
         records.add(
             "conv3x3_p0_wgrad_bf16", label, err,
             lambda: cb.conv3x3_wgrad(x, dy, padding=0),
@@ -3540,7 +3576,7 @@ def check_bf16_train_kernels(cb, F, records, T=T_TENANTS, C=COUT):
                                        groups=T),
             2 * T * M * 9 * cin * C + T * M * C,
             2 * (x.numel() + dy.numel() + dw.numel() + db.numel()),
-            tensor_cores=True)
+            tensor_cores=True, device=WGRAD_MMA_DEVICE)
         del x, want, dy, dyl, xl, dw, db, dw_p, db_p
         torch.cuda.empty_cache()
 
@@ -3641,6 +3677,17 @@ def _bf16_conv_s2(cb, F, records, randn, label, x, w, b, padding):
     return None
 
 
+def _gap_bwd_library(g, act):
+    """One PyTorch call that computes the GAP's backward of the (T, N, C)
+    cotangent ``g`` for ``act`` (T, N, h, w, C):
+    ``aten._adaptive_avg_pool2d_backward`` on the tenants' images as a
+    channels-last (T * N, C, h, w) batch (views, no copy)."""
+    T, n, h, w, C = act.shape
+    view = act.reshape(T * n, h, w, C).permute(0, 3, 1, 2)
+    grad = g.reshape(T * n, C, 1, 1)
+    return lambda: torch.ops.aten._adaptive_avg_pool2d_backward(grad, view)
+
+
 def _bf16_gap(cb, F, records, randn, label, act, record=True):
     """The GAP's forward and backward in bf16 on ``act`` (T, N, h, w, C):
     each equal to its twin bit for bit, timed beside the twin, the f32
@@ -3664,7 +3711,8 @@ def _bf16_gap(cb, F, records, randn, label, act, record=True):
                 f32_fn=lambda: cb.global_avg_pool2d_fwd(act32))
     records.add("global_avg_pool2d_bwd_bf16", label, 0.0,
                 lambda: cb.global_avg_pool2d_bwd(g, h, w),
-                lambda: F.global_avg_pool2d_bwd(g, h, w), None, act.numel(),
+                lambda: F.global_avg_pool2d_bwd(g, h, w),
+                _gap_bwd_library(g, act), act.numel(),
                 2 * (act.numel() + g.numel()),
                 f32_fn=lambda: cb.global_avg_pool2d_bwd(g32, h, w))
 
@@ -4953,7 +5001,9 @@ def main() -> int:
                                   "conv3x3_p0_fwd_stats_bf16",
                                   "conv3x3_p0_fwd_bf16"))
     print_k1_rows(records, "K4", ("conv3x3_dgrad_bf16",
-                                  "conv3x3_p0_dgrad_bf16"))
+                                  "conv3x3_p0_dgrad_bf16",
+                                  "conv3x3_wgrad_bf16",
+                                  "conv3x3_p0_wgrad_bf16"))
 
     kernels = []
     for k in all_kernels:

@@ -40,22 +40,25 @@ kernel                      route   source                    launches/call
 ``layer_norm_bwd_bwd``      Triton  layer_norm.py             reduce + sums + out: 3
 ``*_bf16``                  as f32  K1, dgrad at stride 1:    as in f32; K3, K5
                                     csrc/conv3x3_s1_bf16.cu;  2 each
-                                    wgrad, stride 2: fwd.cu,
-                                    bwd.cu; K2: bn_act_fwd.cu;
+                                    wgrad at stride 1: csrc/
+                                    conv3x3_wgrad_s1_bf16.cu;
+                                    stride 2: fwd.cu, bwd.cu;
+                                    K2: bn_act_fwd.cu;
                                     K3, K5: bn_act_pool.py
 ==========================  ======  ========================  ==================
 
-K1 (both modes) and K4 dgrad run three designs, K4 wgrad two: at stride 1
-in f32 (every shipped config) the band kernels of
+K1 (both modes), K4 dgrad and K4 wgrad each run three designs: at stride
+1 in f32 (every shipped config) the band kernels of
 ``csrc/conv3x3_fwd_s1.cu`` and ``csrc/conv3x3_bwd_s1.cu``, which stage a
 band of rows with its halo in shared memory once and multiply on FFMA; at
-stride 1 in bf16 K1 and dgrad run ``csrc/conv3x3_s1_bf16.cu``, the same
-band staging with the products on the tensor cores (``mma.sync``, f32
-sums); bf16 wgrad and every conv at stride 2 run the tile kernels of
-``csrc/conv3x3_fwd.cu`` and ``csrc/conv3x3_bwd.cu``. ``fwd_plan``,
-``dgrad_plan`` (both through ``mma_plan`` in bf16 at stride 1) and
-``wgrad_plan`` give each launch (grid, bands, splits, shared memory,
-scratch) as a pure function of the shape.
+stride 1 in bf16 the same band staging with the products on the tensor
+cores (``mma.sync``, f32 sums): K1 and dgrad in
+``csrc/conv3x3_s1_bf16.cu``, wgrad in ``csrc/conv3x3_wgrad_s1_bf16.cu``;
+every conv at stride 2 the tile kernels of ``csrc/conv3x3_fwd.cu`` and
+``csrc/conv3x3_bwd.cu``. ``fwd_plan``, ``dgrad_plan`` (both through
+``mma_plan`` in bf16 at stride 1) and ``wgrad_plan`` give each launch
+(grid, bands, splits, shared memory, scratch) as a pure function of the
+shape.
 K3 and K5 pooled in f32 run the cooperative kernels of
 ``csrc/bn_act_pool_bwd.cu`` (reduce, grid barrier, merge, barrier, apply
 in one launch, on the grid ``bn_bwd_plan`` sizes from the occupancy
@@ -81,8 +84,8 @@ CPU, and for a CUDA tensor launches its kernel or raises: it checks
 device, dtype, shape, stride and contiguity, launches on the current
 stream, allocates outputs and scratch with ``torch.empty`` and adds one to
 its counter per call that launched. The f32 kernels multiply on FFMA
-only (no TF32); the bf16 K1 and dgrad at stride 1 multiply bf16 on the
-tensor cores and sum in f32, as XLA's bf16 conv does.
+only (no TF32); the bf16 convs at stride 1 multiply bf16 on the tensor
+cores and sum in f32, as XLA's bf16 conv does.
 
 bf16 (``compute_dtype='bfloat16'``): every kernel of every model, served
 and trained second order — K1 with statistics and stats-free, K2, K3 and
@@ -227,6 +230,22 @@ MMA_MAX_CHANNELS = 64
 MMA_TILES = (1, 2, 4, 6, 8)
 SM_SMEM = 228 * 1024
 MMA_BLOCKS_PER_SM = 2
+#: K4 wgrad in bf16 at stride 1 (csrc/conv3x3_wgrad_s1_bf16.cu, mma.sync):
+#: a warp a tap (9 warps), or 8 warps over the packed kernel's k16 steps
+#: (cin <= 3); the most m16 x n8 accumulator tiles a warp holds (72 f32 a
+#: thread), the most m16 tiles of source channels, and the tiles a warp
+#: from which the taps kernel runs one block a SM (its ``__launch_bounds__``:
+#: two blocks of 288 threads, five warps on some SM sub-partition, leave 96
+#: registers a thread, too few for 64 accumulators and the fragments)
+WGRAD_MMA_TAP_WARPS = 9
+WGRAD_MMA_PACKED_WARPS = 8
+WGRAD_MMA_TILES = 18
+WGRAD_MMA_MAX_MT = 4
+WGRAD_MMA_ONE_BLOCK_TILES = 16
+#: the bands a wgrad mma block walks at most where the splits' partials
+#: would otherwise outweigh x and dy (the small maps: a band there is a few
+#: k16 steps, and a longer walk is a chain of staging latencies)
+WGRAD_MMA_BANDS = 4
 #: the K1 band kernels (csrc/conv3x3_fwd_s1.cu, f32 at stride 1): most
 #: threads a block (8 warps: two blocks a SM within 128 registers a
 #: thread), the shared memory a block's band and weight ring may take (two
@@ -1339,14 +1358,18 @@ def layer_norm_bwd_bwd(a: Tensor, ggamma: Tensor, gbeta: Tensor, dz: Tensor,
 
 class WgradPlan(NamedTuple):
     """The launch of K4 wgrad at one shape. ``kernel`` is ``"band"`` (f32
-    at stride 1, csrc/conv3x3_bwd_s1.cu) or ``"tile"`` (bf16 or stride 2,
+    at stride 1, csrc/conv3x3_bwd_s1.cu), ``"mma"`` (bf16 at stride 1,
+    csrc/conv3x3_wgrad_s1_bf16.cu) or ``"tile"`` (stride 2,
     csrc/conv3x3_bwd.cu); ``grid`` is the first launch's (the second sums
-    the ``splits`` partials of each tenant in split order). Band fields:
-    ``band_rows`` output rows of one image a band, ``bands`` a image,
-    ``kernel_rows`` (3 or 1) a block, ``groups`` 8-channel groups a block,
-    ``replicas`` of the output tile a block; ``smem`` is the dynamic shared
-    memory (0: the tile kernel's is static); ``scratch`` the shapes of the
-    partials ``part_w`` and ``part_b``."""
+    the ``splits`` partials of each tenant in split order). Band and mma
+    fields: ``band_rows`` output rows of one image a band, ``bands`` a
+    image; band: ``kernel_rows`` (3 or 1) a block, ``groups`` 8-channel
+    groups a block, ``replicas`` of the output tile a block; mma:
+    ``m_tiles`` m16 tiles of source channels a block (16 ``m_tiles``
+    channels; packed at cin <= 3, the packed K / 16), ``channels`` output
+    channels a block; ``smem`` is the dynamic shared memory (0: the tile
+    kernel's is static); ``scratch`` the shapes of the partials ``part_w``
+    and ``part_b``."""
 
     kernel: str
     grid: Tuple[int, int, int]
@@ -1359,19 +1382,21 @@ class WgradPlan(NamedTuple):
     groups: int
     replicas: int
     scratch: Tuple[Tuple[int, int, int], Tuple[int, int, int]]
+    m_tiles: int = 0
+    channels: int = 0
 
     def split_bands(self, split: int, images: int) -> range:
         """The bands (image * ``bands`` + band) that ``split`` of a tenant
-        of ``images`` images sums, in the band kernel's order."""
+        of ``images`` images sums, in the band and mma kernels' order."""
         total = images * self.bands
         return range(total * split // self.splits,
                      total * (split + 1) // self.splits)
 
 
 def _tile_wgrad_splits(T: int, M: int, cin: int, cout: int, sms: int) -> int:
-    """The tile kernel's split of each tenant's M output pixels (bf16 and
-    stride 2): about 16 blocks a SM, at least 512 pixels a split. Kept as
-    it was, so that those instantiations keep their bits."""
+    """The tile kernel's split of each tenant's M output pixels (stride 2,
+    both dtypes): about 16 blocks a SM, at least 512 pixels a split. Kept
+    as it was, so that those instantiations keep their bits."""
     blocks = _cdiv(9 * cin, 64) * _cdiv(cout, 16) * T
     return max(1, min(_cdiv(16 * sms, blocks), M // 512, 65535 // T))
 
@@ -1382,7 +1407,8 @@ def wgrad_plan(T: int, N: int, H: int, W: int, cin: int, cout: int,
                bf16: bool = False) -> WgradPlan:
     """K4 wgrad's launch for x ``(T, N, H, W, cin)`` and ``cout`` output
     channels on a card of ``sms`` SMs. A pure function of the shape: the
-    wrapper calls it, and so do the CPU tests.
+    wrapper calls it, and so do the CPU tests. bf16 at stride 1 runs the
+    mma kernel (``_wgrad_mma_plan``), stride 2 the tile in both dtypes.
 
     The band kernel (f32, stride 1): a thread holds TK x 8 accumulators (TK
     = 9, a whole kernel row, at cin <= 3, else 8); a block takes all three
@@ -1401,7 +1427,9 @@ def wgrad_plan(T: int, N: int, H: int, W: int, cin: int, cout: int,
         raise ValueError(f"wgrad_plan: no conv3x3 wgrad of a {H}x{W} input "
                          f"at stride {stride}, pad {pad} (T={T}, N={N}, "
                          f"cin={cin}, cout={cout})")
-    if stride != 1 or bf16:
+    if bf16 and stride == 1:
+        return _wgrad_mma_plan(T, N, H, W, cin, cout, pad, sms)
+    if stride != 1:
         S = _tile_wgrad_splits(T, N * Ho * Wo, cin, cout, sms)
         return WgradPlan(
             "tile", (_cdiv(9 * cin, 64), _cdiv(cout, 16), T * S), 128, 0, S,
@@ -1441,6 +1469,107 @@ def wgrad_plan(T: int, N: int, H: int, W: int, cin: int, cout: int,
     threads = _cdiv(R * TPR, 32) * 32 + 32  # and a warp for db
     return WgradPlan("band", (S, ky, T), threads, smem, S, CR, nb, KH, NGB,
                      R, ((T, S, 9 * cin * cout), (T, S, cout)))
+
+
+def wgrad_mma_smem(W: int, Wo: int, cin: int, band_rows: int, m_tiles: int,
+                   channels: int) -> Tuple[int, int]:
+    """(threads, shared memory) of a bf16 stride-1 wgrad block (the
+    geometry of ``wgrad_mma_geom`` in csrc/conv3x3_wgrad_s1_bf16.cu) whose
+    bands have ``band_rows`` rows of ``Wo`` output pixels on the ``Wo +
+    2``-wide grid, K over ``kpx = round16(band_rows (Wo + 2))`` pixels:
+    two slots, each the band's x (the taps kernel: ``kpx + 2 (Wo + 2) +
+    2`` pixels with the taps' halo, 16 ``m_tiles`` + 8 bf16 each; packed at
+    cin <= 3: its ``band_rows + 2`` source rows of ``W`` x cin bf16 as they
+    lie in memory) and its dy (``kpx`` pixels of ``channels`` bf16, + 8
+    where the n8 tiles are even); the taps kernel then its db warps'
+    running sums (a lane's 4 f32 a warp of each n8 tile); packed, before
+    the slots the band's patch matrix (``kpx`` pixels of K + 8 bf16), and
+    the 8 warps' f32 tiles (K x ``channels``) where larger than all
+    that."""
+    Wp = Wo + 2
+    kpx = _cdiv(band_rows * Wp, 16) * 16
+    KC = 16 * m_tiles
+    SD = channels if channels // 8 % 2 else channels + 8
+    d = _cdiv(2 * kpx * SD, 16) * 16
+    if cin > 3:
+        x = _cdiv(2 * (kpx + 2 * Wp + 2) * (KC + 8), 16) * 16
+        return 32 * WGRAD_MMA_TAP_WARPS, 2 * (x + d) + 512 * channels // 8
+    raw = _cdiv(2 * _cdiv((band_rows + 2) * W * cin, 2) * 2, 16) * 16
+    a = _cdiv(2 * kpx * (KC + 8), 16) * 16
+    tree = 4 * WGRAD_MMA_PACKED_WARPS * KC * channels
+    return 32 * WGRAD_MMA_PACKED_WARPS, max(a + 2 * (raw + d), tree)
+
+
+def _wgrad_mma_tiles(cin: int, cout: int) -> Tuple[int, int, int, int]:
+    """(m_tiles, source chunks, channels, output chunks) of the mma wgrad:
+    the output channels in the fewest chunks of at most
+    ``MMA_MAX_CHANNELS``, each 8 x an n8 tile count of ``MMA_TILES``; the
+    source channels (the taps kernel) in the fewest chunks of at most
+    ``WGRAD_MMA_MAX_MT`` m16 tiles with at most ``WGRAD_MMA_TILES`` tiles a
+    warp (one chunk of 3 at 48 channels; two of 2 at 64), balanced; packed
+    (cin <= 3) the 9 cin patch rows and the row of ones in K = 16 or 32."""
+    co_chunks = _cdiv(cout, MMA_MAX_CHANNELS)
+    need = _cdiv(_cdiv(cout, co_chunks), 8)
+    nt = min(t for t in MMA_TILES if t >= need)
+    if cin <= 3:
+        return _cdiv(9 * cin + 1, 16), 1, 8 * nt, co_chunks
+    m16 = _cdiv(cin, 16)
+    most = min(WGRAD_MMA_MAX_MT, WGRAD_MMA_TILES // nt)
+    mt = _cdiv(m16, _cdiv(m16, most))
+    return mt, _cdiv(cin, 16 * mt), 8 * nt, co_chunks
+
+
+def wgrad_mma_blocks_per_sm(cin: int, m_tiles: int, channels: int) -> int:
+    """The blocks a SM the mma wgrad's ``__launch_bounds__`` give it: one
+    for the taps kernel at ``WGRAD_MMA_ONE_BLOCK_TILES`` or more tiles a
+    warp (48 and 64 channels), else ``MMA_BLOCKS_PER_SM``."""
+    if cin > 3 and m_tiles * channels // 8 >= WGRAD_MMA_ONE_BLOCK_TILES:
+        return 1
+    return MMA_BLOCKS_PER_SM
+
+
+def _wgrad_mma_plan(T, N, H, W, cin, cout, pad, sms) -> WgradPlan:
+    """``wgrad_plan``'s mma kernel (bf16, stride 1): the tiles of
+    ``_wgrad_mma_tiles``; the most rows a band that keep a block's shared
+    memory within its share of a SM (``wgrad_mma_blocks_per_sm`` blocks a
+    SM, 1 KB reserved each: ``MMA_SMEM_BYTES`` at two) and the grid at
+    that many blocks a SM, balanced over the image; then splits of each
+    tenant's bands (``split_bands``) for as many blocks as the card holds
+    at once (one wave: 16 splits a tenant at stage 1, T = 8), but no more
+    than keep a split's f32 partial, (9 cin + 1) x cout, within its share
+    of the tenant's x and dy bytes (the partials are written and read
+    back) unless a block would then walk more than ``WGRAD_MMA_BANDS``
+    bands (the small maps: 5 splits of Omniglot's 20 images at 3 x 3), and
+    no more than the bands. Every sum runs in one warp over its bands in
+    order, k16 step by k16 step; the splits are summed in order by the
+    second launch. A row that no block of ``BLOCK_SMEM`` holds raises."""
+    Ho, Wo = F.conv_out_hw(H, W, 1, pad)
+    mt, ci_chunks, channels, co_chunks = _wgrad_mma_tiles(cin, cout)
+    chunks = ci_chunks * co_chunks
+    bps = wgrad_mma_blocks_per_sm(cin, mt, channels)
+    budget = SM_SMEM // bps - 1024
+    target = bps * sms
+    CR = 1
+    for rows in range(2, Ho + 1):
+        _, smem = wgrad_mma_smem(W, Wo, cin, rows, mt, channels)
+        if (smem > budget
+                or T * chunks * N * _cdiv(Ho, rows) < target):
+            break
+        CR = rows
+    nb = _cdiv(Ho, CR)
+    CR = _cdiv(Ho, nb)
+    threads, smem = wgrad_mma_smem(W, Wo, cin, CR, mt, channels)
+    if smem > BLOCK_SMEM:
+        raise ValueError(f"wgrad_plan: a {Wo}-pixel output row from {cin} "
+                         f"to {cout} channels does not fit a block")
+    resident = max(1, min(bps, SM_SMEM // (smem + 1024))) * sms
+    inputs = 2 * N * (H * W * cin + Ho * Wo * cout)
+    partial = 4 * (9 * cin + 1) * cout
+    S = max(1, min(N * nb, resident // (T * chunks),
+                   max(inputs // partial, _cdiv(N * nb, WGRAD_MMA_BANDS))))
+    return WgradPlan("mma", (S, chunks, T), threads, smem, S, CR, nb, 0, 0,
+                     0, ((T, S, 9 * cin * cout), (T, S, cout)), mt,
+                     channels)
 
 
 class DgradPlan(NamedTuple):
@@ -1576,9 +1705,9 @@ def conv3x3_dgrad(dy: Tensor, w: Tensor, stride: int = 1,
 def conv3x3_wgrad(x: Tensor, dy: Tensor, stride: int = 1, padding: int = 1
                   ) -> Tuple[Tensor, Tensor]:
     """The weight (HWIO) and bias gradients of the 3x3 conv at ``stride``
-    and ``padding``. f32 at stride 1 runs the band kernel, bf16 and stride
-    2 the tile kernel (``wgrad_plan``); each sums its split partials in a
-    second launch."""
+    and ``padding``. At stride 1 f32 runs the band kernel and bf16 the mma
+    kernel, at stride 2 the tile kernel (``wgrad_plan``); each sums its
+    split partials in a second launch."""
     if _on_cpu(x):
         return F.conv3x3_wgrad(x, dy, stride=stride, padding=padding)
     name = _conv_name("conv3x3_wgrad", stride, padding)
@@ -1588,26 +1717,36 @@ def conv3x3_wgrad(x: Tensor, dy: Tensor, stride: int = 1, padding: int = 1
     _check(name, "dy", dy, (T, N, Ho, Wo, cout), x.device, x.dtype)
     plan = wgrad_plan(T, N, H, W, cin, cout, stride, padding,
                       _sms(x.device), x.dtype == torch.bfloat16)
-    part_w = torch.empty(plan.scratch[0], device=x.device)
-    part_b = torch.empty(plan.scratch[1], device=x.device)
+    # the partials part_w and part_b (plan.scratch) in one f32 allocation
+    nw = T * plan.splits * 9 * cin * cout
+    part = torch.empty(nw + T * plan.splits * cout, device=x.device)
+    part_w = _ptr(part)
+    part_b = part_w + 4 * nw
     dw = torch.empty((T, 3, 3, cin, cout), device=x.device, dtype=x.dtype)
     db = torch.empty((T, cout), device=x.device, dtype=x.dtype)
     counter = _counter(name, x)
-    with torch.cuda.device(x.device):
+    with _device(x.device):
         if plan.kernel == "band":
             fn = build.function("conv3x3_bwd_s1", "conv3x3_wgrad_band",
                                 (_P,) * 6 + (_I,) * 14 + (_P,))
-            rc = fn(_ptr(x), _ptr(dy), _ptr(part_w), _ptr(part_b), _ptr(dw),
-                    _ptr(db), T, N, H, W, padding, cin, cout, plan.splits,
+            rc = fn(_ptr(x), _ptr(dy), part_w, part_b, _ptr(dw), _ptr(db),
+                    T, N, H, W, padding, cin, cout, plan.splits,
                     plan.band_rows, plan.kernel_rows, plan.groups,
                     plan.replicas, plan.threads, plan.smem,
                     _stream(x.device))
+        elif plan.kernel == "mma":
+            fn = build.function("conv3x3_wgrad_s1_bf16", "conv3x3_wgrad_mma",
+                                (_P,) * 6 + (_I,) * 13 + (_P,))
+            rc = fn(_ptr(x), _ptr(dy), part_w, part_b, _ptr(dw), _ptr(db),
+                    T, N, H, W, padding, cin, cout, plan.band_rows,
+                    plan.m_tiles, plan.channels, plan.splits, plan.threads,
+                    plan.smem, _stream(x.device))
         else:
             fn = build.function("conv3x3_bwd", _counter("conv3x3_wgrad", x),
                                 (_P,) * 6 + (_I,) * 9 + (_P,))
-            rc = fn(_ptr(x), _ptr(dy), _ptr(part_w), _ptr(part_b), _ptr(dw),
-                    _ptr(db), T, N, H, W, stride, padding, cin, cout,
-                    plan.splits, _stream(x.device))
+            rc = fn(_ptr(x), _ptr(dy), part_w, part_b, _ptr(dw), _ptr(db),
+                    T, N, H, W, stride, padding, cin, cout, plan.splits,
+                    _stream(x.device))
     build.check(rc, counter)
     LAUNCHES[counter] += 1
     return dw, db

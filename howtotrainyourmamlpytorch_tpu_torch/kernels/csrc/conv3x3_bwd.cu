@@ -1,10 +1,9 @@
 // K4 conv3x3_bwd: the first backward of the slice's 3x3 conv on the tile
-// kernels, two entry points each for f32 and bf16 — wgrad in bf16 at
-// stride 1 or 2 and in f32 at stride 2, dgrad at stride 2 in both dtypes.
-// The f32 convs at stride 1 (every shipped config) run the band kernels of
-// conv3x3_bwd_s1.cu, the bf16 dgrad at stride 1 the tensor-core kernel of
-// conv3x3_s1_bf16.cu: the float entries here refuse stride 1, the bf16
-// dgrad entry too, and the dgrad tile has no stride-1 instantiation.
+// kernels at stride 2, two entry points each for f32 and bf16 (wgrad and
+// dgrad). At stride 1 the f32 convs (every shipped config) run the band
+// kernels of conv3x3_bwd_s1.cu, the bf16 ones the tensor-core kernels of
+// conv3x3_s1_bf16.cu (dgrad) and conv3x3_wgrad_s1_bf16.cu (wgrad): every
+// entry here refuses stride 1, and no tile has a stride-1 instantiation.
 //
 // Replaces (JAX package) the gradient XLA derives for
 // howtotrainyourmamlpytorch_tpu/ops/functional.py::_conv2d_raw :199 in the
@@ -20,10 +19,9 @@
 //   layers 2-4, byte-bound at layer 1. The pixel axis is split over S
 //   blocks per tenant into partial buffers, reduced by a second launch in a
 //   fixed order — deterministic, no atomics. Patches are gathered from x
-//   on the fly. (The band kernels' redesign — x and dy staged once per
-//   band through a cp.async ring, whole channel rows a block, larger
-//   register tiles — is queued for these instantiations: mma.sync/wgmma in
-//   bf16, per-parity sub-GEMMs at stride 2.)
+//   on the fly. (The redesign that stride 1 had — x and dy staged once per
+//   band, whole channel rows a block, the tensor cores in bf16 — is queued
+//   here as per-parity sub-GEMMs.)
 //
 // Stride 2 (the strided model): wgrad reduces over the N*Ho*Wo output
 // pixels with the forward's tap arithmetic, x at (2*oh - 1 + kh, 2*ow - 1 +
@@ -38,30 +36,30 @@
 // design sits at least 4x above it.
 //
 // Pad 0 (the unpadded model): a runtime argument that moves the taps'
-// origin, as in the forward. wgrad reads x at (s*oh - pad + kh); dgrad's
-// rows are the H x W input pixels and its source the smaller dy, at stride
-// 2 dy at (ih - (2 - pad) + kh') / 2 where that is even and inside dy — so
+// origin, as in the forward. wgrad reads x at (2*oh - pad + kh); dgrad's
+// rows are the H x W input pixels and its source the smaller dy, read at
+// (ih - (2 - pad) + kh') / 2 where that is even and inside dy — so
 // an input row that no output reads (the last of 84 -> 41, 20 -> 9) gets a
 // zero gradient.
 //
-// bf16 (conv3x3_wgrad_bf16 at stride 1 and 2, conv3x3_dgrad_bf16 at
-// stride 2): bf16 dy, w and x, widened to f32 as they load
+// bf16 (conv3x3_s2_wgrad_bf16, conv3x3_s2_dgrad_bf16 and their pad-0
+// kin): bf16 dy, w and x, widened to f32 as they load
 // (conv3x3_tile.cuh); every sum accumulates in f32 (dgrad's 9*cout-deep
 // dot, wgrad's pixel reduction and its split partials) and is rounded once
 // to bf16 at the store: dx, dw and db come out bf16 (the caller hands dw
 // and db to the f32 leaves as f32). Bound as in f32 (FFMA, the same FLOPs),
-// with half the bytes. These and the f32 stride-2 instantiations are the
-// code they were, bit for bit.
+// with half the bytes. Both dtypes' stride-2 kernels are the code they
+// were, bit for bit (the stride a constant where it was a template
+// argument).
 
 #include <cuda_runtime.h>
 
-#include <type_traits>
-
 #include "conv3x3_tile.cuh"
+#include "wgrad_reduce.cuh"
 
 namespace maml {
 
-template <typename T, int kStride>
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 conv3x3_dgrad_kernel(const T* __restrict__ dy, const T* __restrict__ w,
                      T* __restrict__ dx, int N, int H, int W, int Ho,
@@ -75,7 +73,7 @@ conv3x3_dgrad_kernel(const T* __restrict__ dy, const T* __restrict__ w,
   float acc[kTM][kTN];
   // the transposed conv reads dy (Ho x Wo, cout_fwd channels) and writes
   // dx (H x W, cin_fwd channels)
-  conv3x3_tile<T, kStride, true>(dy + (size_t)t * N * Ho * Wo * cout_fwd,
+  conv3x3_tile<T, true>(dy + (size_t)t * N * Ho * Wo * cout_fwd,
                                  w + (size_t)t * 9 * cin_fwd * cout_fwd, Ho,
                                  Wo, H, W, M, cout_fwd, cin_fwd, 2 - pad, m0,
                                  n0, s, acc);
@@ -101,7 +99,7 @@ constexpr int kWM = 32;  // pixels per shared-memory stage
 // Block (k tile, channel tile, tenant * S + split). Thread (kg = tid % 16,
 // cp = tid / 16) owns dW rows k0 + kg*4 .. +3 and channels n0 + cp*2, +1.
 // The reduction runs over the M = N*Ho*Wo output pixels; x is H x W.
-template <typename T, int kStride>
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 conv3x3_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ dy,
                      float* __restrict__ part_w, float* __restrict__ part_b,
@@ -152,8 +150,8 @@ conv3x3_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ dy,
       if (m < me) {
         const int img = m / HWo;
         const int hw = m - img * HWo;
-        const int h = kStride * (hw / Wo);
-        const int ww = kStride * (hw % Wo);
+        const int h = 2 * (hw / Wo);
+        const int ww = 2 * (hw % Wo);
         row_h[tid] = h;
         row_w[tid] = ww;
         row_base[tid] = ((img * H + h) * W + ww) * cin;
@@ -230,30 +228,6 @@ conv3x3_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ dy,
   }
 }
 
-// dw[t][e] = sum_s part_w[t][s][e] and db[t][c] = sum_s part_b[t][s][c], in
-// split order, rounded once to the element type at the store.
-template <typename E>
-__global__ void conv3x3_wgrad_reduce_kernel(const float* __restrict__ part_w,
-                                            const float* __restrict__ part_b,
-                                            E* __restrict__ dw,
-                                            E* __restrict__ db, int T,
-                                            int S, int KC, int cout) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const int per = KC + cout;
-  if (idx >= (long long)T * per) return;
-  const int t = (int)(idx / per);
-  const int e = (int)(idx % per);
-  float sum = 0.f;
-  if (e < KC) {
-    for (int s = 0; s < S; ++s) sum += part_w[((size_t)t * S + s) * KC + e];
-    dw[(size_t)t * KC + e] = from_f32<E>(sum);
-  } else {
-    const int c = e - KC;
-    for (int s = 0; s < S; ++s) sum += part_b[((size_t)t * S + s) * cout + c];
-    db[t * cout + c] = from_f32<E>(sum);
-  }
-}
-
 template <typename T>
 int dgrad(const T* dy, const T* w, T* dx, int T_, int N, int H, int W,
           int stride, int pad, int cin_fwd, int cout_fwd, void* stream) {
@@ -269,7 +243,7 @@ int dgrad(const T* dy, const T* w, T* dx, int T_, int N, int H, int W,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   // stride 1: conv3x3_bwd_s1.cu (f32), conv3x3_s1_bf16.cu (bf16)
   if (stride == 1) return (int)cudaErrorInvalidValue;
-  conv3x3_dgrad_kernel<T, 2><<<grid, kThreads, 0, st>>>(
+  conv3x3_dgrad_kernel<T><<<grid, kThreads, 0, st>>>(
       dy, w, dx, N, H, W, Ho, Wo, cin_fwd, cout_fwd, pad);
   return (int)cudaGetLastError();
 }
@@ -290,24 +264,14 @@ int wgrad(const T* x, const T* dy, float* part_w, float* part_b, T* dw,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int chunk = ceil_div(M, S);
   dim3 grid(ceil_div(9 * cin, kWK), ceil_div(cout, kWN), T_ * S);
-  if constexpr (std::is_same<T, float>::value) {  // f32 at stride 1: _s1.cu
-    if (stride == 1) return (int)cudaErrorInvalidValue;
-  } else if (stride == 1) {
-    conv3x3_wgrad_kernel<T, 1><<<grid, kThreads, 0, st>>>(
-        x, dy, part_w, part_b, N, H, W, Ho, Wo, cin, cout, pad, S, chunk);
-  }
-  if (stride == 2)
-    conv3x3_wgrad_kernel<T, 2><<<grid, kThreads, 0, st>>>(
-        x, dy, part_w, part_b, N, H, W, Ho, Wo, cin, cout, pad, S, chunk);
+  // stride 1: conv3x3_bwd_s1.cu (f32), conv3x3_wgrad_s1_bf16.cu (bf16)
+  if (stride == 1) return (int)cudaErrorInvalidValue;
+  conv3x3_wgrad_kernel<T><<<grid, kThreads, 0, st>>>(
+      x, dy, part_w, part_b, N, H, W, Ho, Wo, cin, cout, pad, S, chunk);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int KC = 9 * cin * cout;
-  const long long total = (long long)T_ * (KC + cout);
-  const int threads = 256;
-  conv3x3_wgrad_reduce_kernel<T>
-      <<<(unsigned)((total + threads - 1) / threads), threads, 0, st>>>(
-          part_w, part_b, dw, db, T_, S, KC, cout);
-  return (int)cudaGetLastError();
+  return (int)launch_wgrad_reduce<T>(part_w, part_b, dw, db, T_, S,
+                                     9 * cin * cout, cout, st);
 }
 
 }  // namespace maml
@@ -334,9 +298,9 @@ int conv3x3_dgrad_bf16(const __nv_bfloat16* dy, const __nv_bfloat16* w,
                                     cin_fwd, cout_fwd, stream);
 }
 
-// dw (T, 3, 3, cin, cout) and db (T, cout) of the conv at `stride` (2 in
-// f32, 1 or 2 in bf16) and `pad` from x (T, N, H, W, cin) and dy (T, N,
-// Ho, Wo, cout); part_w (T, S, 9*cin*cout) and part_b (T, S, cout) are
+// dw (T, 3, 3, cin, cout) and db (T, cout) of the conv at `stride` (2:
+// stride 1 returns an error) and `pad` from x (T, N, H, W, cin) and dy (T,
+// N, Ho, Wo, cout); part_w (T, S, 9*cin*cout) and part_b (T, S, cout) are
 // scratch. Two launches on `stream`.
 int conv3x3_wgrad(const float* x, const float* dy, float* part_w,
                   float* part_b, float* dw, float* db, int T, int N, int H,

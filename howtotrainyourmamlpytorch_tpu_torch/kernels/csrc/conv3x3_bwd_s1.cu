@@ -78,6 +78,7 @@
 #include <cuda_runtime.h>
 
 #include "band_common.cuh"
+#include "wgrad_reduce.cuh"
 
 namespace maml {
 
@@ -321,28 +322,6 @@ conv3x3_wgrad_band_kernel(const float* __restrict__ x,
       for (int jj = 0; jj < kTN; ++jj)
         if (n0 + jj < g.cout) row[n0 + jj] = acc[i][jj];
     }
-  }
-}
-
-// dw[t][e] = sum_s part_w[t][s][e] and db[t][c] = sum_s part_b[t][s][c], in
-// split order.
-__global__ void conv3x3_wgrad_band_reduce_kernel(
-    const float* __restrict__ part_w, const float* __restrict__ part_b,
-    float* __restrict__ dw, float* __restrict__ db, int T, int S, int KC,
-    int cout) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const int per = KC + cout;
-  if (idx >= (long long)T * per) return;
-  const int t = (int)(idx / per);
-  const int e = (int)(idx % per);
-  float sum = 0.f;
-  if (e < KC) {
-    for (int s = 0; s < S; ++s) sum += part_w[((size_t)t * S + s) * KC + e];
-    dw[(size_t)t * KC + e] = sum;
-  } else {
-    const int c = e - KC;
-    for (int s = 0; s < S; ++s) sum += part_b[((size_t)t * S + s) * cout + c];
-    db[t * cout + c] = sum;
   }
 }
 
@@ -625,12 +604,8 @@ int conv3x3_wgrad_band(const float* x, const float* dy, float* part_w,
     err = launch_wgrad<8, false>(x, dy, part_w, part_b, g, grid, threads,
                                  smem, st);
   if (err != cudaSuccess) return (int)err;
-  const int KC = 9 * cin * cout;
-  const long long total = (long long)T * (KC + cout);
-  conv3x3_wgrad_band_reduce_kernel<<<(unsigned)((total + 255) / 256), 256,
-                                     0, st>>>(part_w, part_b, dw, db, T,
-                                              splits, KC, cout);
-  return (int)cudaGetLastError();
+  return (int)launch_wgrad_reduce<float>(part_w, part_b, dw, db, T, splits,
+                                         9 * cin * cout, cout, st);
 }
 
 // dx (T, N, H, W, cin) = dgrad of the stride-1 conv at `pad` (1 or 0) with

@@ -27,13 +27,12 @@
 // `bn_stats_impl` modes ('twopass' and 'fused').
 //
 // Stride 2 (the strided model, `max_pooling=False`: 28 -> 14 -> 7 -> 4 ->
-// 2 at Omniglot's width) runs the same tile with the row origin at
-// (2*oh - 1, 2*ow - 1) of an input of another size (conv3x3_tile.cuh);
-// the statistics run over the N*Ho*Wo output pixels, unchanged. Its bound
-// is that of the stride-1 conv on a quarter of the pixels: FLOPs at
-// layers 2-4 of the strided Omniglot model (e.g. 578 MFLOP against 11 MB
-// at layer 2, T = 8, N = 20), bytes at layer 1 (cin = 1). A template
-// argument, so the stride-1 instantiation is the code it was, bit for bit.
+// 2 at Omniglot's width): the tile's row origin is (2*oh - 1, 2*ow - 1) of
+// an input of another size (conv3x3_tile.cuh); the statistics run over the
+// N*Ho*Wo output pixels. Its bound is that of the stride-1 conv on a
+// quarter of the pixels: FLOPs at layers 2-4 of the strided Omniglot model
+// (e.g. 578 MFLOP against 11 MB at layer 2, T = 8, N = 20), bytes at
+// layer 1 (cin = 1).
 //
 // Pad 0 (the unpadded model, `conv_padding=False`: 84 -> 82 -> 41 -> 39
 // ... at mini-ImageNet's width, or 84 -> 41 -> 20 -> 9 -> 4 strided) is a
@@ -105,7 +104,7 @@ __device__ __forceinline__ void add_bias_and_store(float acc[kTM][kTN],
   }
 }
 
-template <typename T, int kStride>
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 conv3x3_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
                    const T* bias, T* __restrict__ y, int N, int H,
@@ -116,14 +115,14 @@ conv3x3_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int n0 = blockIdx.y * kBN;
   const int M = N * Ho * Wo;
   float acc[kTM][kTN];
-  conv3x3_tile<T, kStride, false>(x + (size_t)t * N * H * W * cin,
+  conv3x3_tile<T, false>(x + (size_t)t * N * H * W * cin,
                                   w + (size_t)t * 9 * cin * cout, H, W, Ho,
                                   Wo, M, cin, cout, pad, m0, n0, s, acc);
   add_bias_and_store<T>(acc, bias == nullptr ? nullptr : bias + t * cout,
                         y + (size_t)t * M * cout, M, cout, m0, n0);
 }
 
-template <typename T, int kStride>
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 conv3x3_fwd_stats_kernel(const T* __restrict__ x, const T* __restrict__ w,
                          const T* __restrict__ bias, T* __restrict__ y,
@@ -140,7 +139,7 @@ conv3x3_fwd_stats_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int m0 = mt * kBM;
   const int M = N * Ho * Wo;
   float acc[kTM][kTN];
-  conv3x3_tile<T, kStride, false>(x + (size_t)t * N * H * W * cin,
+  conv3x3_tile<T, false>(x + (size_t)t * N * H * W * cin,
                                   w + (size_t)t * 9 * cin * cout, H, W, Ho,
                                   Wo, M, cin, cout, pad, m0, n0, s, acc);
 
@@ -209,7 +208,7 @@ int fwd_stats(const T* x, const T* w, const T* b, T* y, float* part, T* mean,
   dim3 grid(mtiles, ceil_div(cout, kBN), T_);
   // stride 1: conv3x3_fwd_s1.cu (f32), conv3x3_s1_bf16.cu (bf16)
   if (stride == 1) return (int)cudaErrorInvalidValue;
-  conv3x3_fwd_stats_kernel<T, 2><<<grid, kThreads, 0, st>>>(
+  conv3x3_fwd_stats_kernel<T><<<grid, kThreads, 0, st>>>(
       x, w, b, y, part, N, H, W, Ho, Wo, cin, cout, pad, mtiles);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -233,7 +232,7 @@ int fwd(const T* x, const T* w, const T* b, T* y, int T_, int N, int H,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   // stride 1: conv3x3_fwd_s1.cu (f32), conv3x3_s1_bf16.cu (bf16)
   if (stride == 1) return (int)cudaErrorInvalidValue;
-  conv3x3_fwd_kernel<T, 2><<<grid, kThreads, 0, st>>>(
+  conv3x3_fwd_kernel<T><<<grid, kThreads, 0, st>>>(
       x, w, b, y, N, H, W, Ho, Wo, cin, cout, pad);
   return (int)cudaGetLastError();
 }

@@ -1,10 +1,11 @@
-// Shared main loop of the task-batched 3x3 implicit GEMM (pad 1 or 0,
-// stride 1 or 2, NHWC activations, HWIO weights), used at stride 2 by K1's
-// forward (conv3x3_fwd.cu) and by K4's dgrad (conv3x3_bwd.cu), in f32 and
-// bf16; no entry instantiates it at stride 1 (the band kernels of
-// conv3x3_fwd_s1.cu and conv3x3_bwd_s1.cu take f32 there, the tensor-core
-// kernel of conv3x3_s1_bf16.cu bf16). The f32 dgrad band kernel, with
-// one group over cout, sums over (tap, channel) in the order of this loop.
+// Shared main loop of the task-batched 3x3 implicit GEMM at stride 2 (pad 1
+// or 0, NHWC activations, HWIO weights), used by K1's forward
+// (conv3x3_fwd.cu) and by K4's dgrad (conv3x3_bwd.cu), in f32 and bf16. The
+// convs at stride 1 run other kernels: f32 the band kernels of
+// conv3x3_fwd_s1.cu and conv3x3_bwd_s1.cu, bf16 the tensor-core kernels of
+// conv3x3_s1_bf16.cu and conv3x3_wgrad_s1_bf16.cu. The f32 dgrad band
+// kernel, with one group over cout, sums over (tap, channel) in the order
+// of this loop.
 //
 // Per tenant t the conv is the GEMM  out[M, cout] = patches[M, K] x W[K, cout]
 // with M = N*Ho*Wo output pixels and K = 9*cin in the order (kh, kw, cin) —
@@ -14,22 +15,18 @@
 // zero-padding the halo by a bounds check.
 //
 // Geometry: the GEMM's rows are the pixels of an Hr x Wr grid; A reads a
-// source grid of Hs x Ws pixels, tap (kh, kw) at offset (kh - org, kw -
-// org) from the row's source pixel. The forward (kFlipW = false) at stride
-// s and pad p (org = p): row (oh, ow) is an output pixel, Hs x Ws the
-// input, and tap (kh, kw) reads input (s*oh - p + kh, s*ow - p + kw) — at
-// stride 2 an input of another size than the output (28 -> 14, 7 -> 4 at
-// pad 1: the bottom pad row of an odd input is read, and the bounds check
-// zeroes it; 84 -> 41 at pad 0: the last row is read by no output). The
-// dgrad (kFlipW = true, org = 2 - p): row (ih, iw) is an input pixel, the
-// source is dy, and the weights are read flipped in space and transposed
-// in channels; at stride 1 tap (kh', kw') reads dy at (ih - org + kh',
-// iw - org + kw') — at pad 0 dy is the smaller grid (82 x 82 against the
-// 84 x 84 rows: the "full" correlation, its halo zeroed by the bounds
-// check) — and at stride 2 it reads dy at ((ih - org + kh') / 2, (iw - org
-// + kw') / 2) where both are even and inside dy, and nothing otherwise:
-// all 9 taps are masked by parity (1, 2, 2 or 4 live, by the parity of
-// (ih, iw)), the simple design, which spends about 4x the useful FMAs.
+// source grid of Hs x Ws pixels. The forward (kFlipW = false) at pad p (org
+// = p): row (oh, ow) is an output pixel, Hs x Ws the input, and tap (kh,
+// kw) reads input (2*oh - p + kh, 2*ow - p + kw), an input of another size
+// than the output (28 -> 14, 7 -> 4 at pad 1: the bottom pad row of an odd
+// input is read, and the bounds check zeroes it; 84 -> 41 at pad 0: the
+// last row is read by no output). The dgrad (kFlipW = true, org = 2 - p):
+// row (ih, iw) is an input pixel, the source is dy, and the weights are
+// read flipped in space and transposed in channels; tap (kh', kw') reads dy
+// at ((ih - org + kh') / 2, (iw - org + kw') / 2) where both are even and
+// inside dy, and nothing otherwise: all 9 taps are masked by parity (1, 2,
+// 2 or 4 live, by the parity of (ih, iw)), the simple design, which spends
+// about 4x the useful FMAs.
 // The pad moves the taps' origin only: the loop, its loads and its FMA
 // order are those of pad 1.
 //
@@ -45,7 +42,7 @@
 // its order are the f32 ones: a bf16 x bf16 product is exact in f32 and the
 // sum accumulates in f32, as XLA's bf16 conv does (one rounding, at the
 // caller's store). (FFMA on bf16 loads; at stride 1 the bf16 convs run on
-// the tensor cores, mma.sync with f32 sums, in conv3x3_s1_bf16.cu.)
+// the tensor cores, mma.sync with f32 sums.)
 #pragma once
 
 #include <cuda_bf16.h>
@@ -89,13 +86,13 @@ struct __align__(16) ConvTileSmem {
   float b[kBK][kBN];          // B tile: b[k][channel]
   int row_h[kBM];             // the source coordinates of tap (1, 1)
   int row_w[kBM];             // of each tile row
-  int row_base[kBM];          // element offset of that pixel (dgrad at
-                              // stride 2: of its image) in the source
+  int row_base[kBM];          // element offset of that pixel (dgrad: of
+                              // its image) in the source
   int k_dh[kBK];              // tap offsets of each k in the stage
                               // (kh - org, kw - org)
   int k_dw[kBK];
   int k_delta[kBK];           // element offset of the tap from the pixel
-                              // (dgrad at stride 2: its channel)
+                              // (dgrad: its channel)
 };
 
 // acc[i][j] accumulates out[m0 + rg + 32*i][n0 + cg*4 + j].
@@ -104,17 +101,15 @@ struct __align__(16) ConvTileSmem {
 // view: w then holds the FORWARD weights (3, 3, cout, cin) and the kernel
 // reads w'[kh][kw][ci][co] = w[2-kh][2-kw][co][ci], the transposed conv
 // that maps dy to dx. org is the taps' origin: the pad for the forward,
-// 2 - pad for the dgrad. At kStride = 1 and pad 1, Hr = Hs and Wr = Ws; at
-// pad 0 the forward's rows are the smaller grid, the dgrad's the larger.
-template <typename T, int kStride, bool kFlipW>
+// 2 - pad for the dgrad.
+template <typename T, bool kFlipW>
 __device__ __forceinline__ void conv3x3_tile(
     const T* __restrict__ x, const T* __restrict__ w, int Hs, int Ws,
     int Hr, int Wr, int M, int cin, int cout, int org, int m0, int n0,
     ConvTileSmem& s, float acc[kTM][kTN]) {
-  static_assert(kStride == 1 || kStride == 2, "stride 1 or 2");
-  // the dgrad at stride 2 gathers dy by parity; every other mode reads the
-  // source at a fixed offset from the row's pixel
-  constexpr bool kParity = kFlipW && kStride == 2;
+  // the dgrad gathers dy by parity; the forward reads the source at a
+  // fixed offset from the row's pixel
+  constexpr bool kParity = kFlipW;
   const int tid = threadIdx.x;
   const int HWr = Hr * Wr;
   for (int r = tid; r < kBM; r += kThreads) {
@@ -129,8 +124,8 @@ __device__ __forceinline__ void conv3x3_tile(
         s.row_w[r] = pw;
         s.row_base[r] = img * Hs * Ws * cin;
       } else {
-        const int h = (kFlipW ? 1 : kStride) * ph;
-        const int ww = (kFlipW ? 1 : kStride) * pw;
+        const int h = 2 * ph;
+        const int ww = 2 * pw;
         s.row_h[r] = h;
         s.row_w[r] = ww;
         s.row_base[r] = ((img * Hs + h) * Ws + ww) * cin;

@@ -21,10 +21,15 @@ pool-free in both dtypes (``csrc/bn_act_fwd.cu`` rounds as the Triton
 kernels before it did), and K3 and K5 pooled and pool-free in both
 dtypes. An output that differs is a fault to explain, not an exception
 to allow; each bf16 output that differs also prints its largest distance
-from the saved one in bf16 ulps (of the larger magnitude). ``twin``
-computes the same outputs with the plain twins (the wrappers' CPU route,
-on the same inputs) and prints each bf16 output's largest distance from
-this build's in bf16 ulps. Needs one card.
+from the saved one in bf16 ulps (of the larger magnitude) and whether it
+lies within one ulp of the saved value or 1e-4 of its largest magnitude,
+elementwise (``chip_smoke.within_ulp``'s gate). ``twin`` computes the same
+outputs with the plain twins (the wrappers' CPU route, on the same
+inputs) and prints each bf16 output's largest distance from this build's
+in bf16 ulps, and whether it lies within that gate of the twin's (the
+card's gate for a kernel that rounds f32 sums once; K2, K3 and K5 here
+take this build's conv outputs, the twins the twin's, and a y with a bias
+rounds twice). Needs one card.
 """
 
 from __future__ import annotations
@@ -138,6 +143,16 @@ def bf16_ulps(got, want):
             ).max().item()
 
 
+def within_gate(got, want):
+    """|got - want| <= max(one bf16 ulp of want, 1e-4 max |want|)
+    elementwise (``chip_smoke.within_ulp``'s default gate)."""
+    a, b = got.double(), want.double()
+    _, e = torch.frexp(b.abs().clamp_min(2.0 ** -126))
+    tol = torch.clamp_min(torch.ldexp(torch.ones_like(b), e - 8),
+                          1e-4 * b.abs().max().item())
+    return bool(((a - b).abs() <= tol).all())
+
+
 def main(argv) -> int:
     if argv == ["twin"]:
         if not torch.cuda.is_available():
@@ -148,8 +163,9 @@ def main(argv) -> int:
         got, twin = outputs(), outputs("cpu")
         for k, v in got.items():
             if v.dtype == torch.bfloat16:
-                print(f"{bf16_ulps(v, twin[k]):6.2f} ulps from the twin  {k}",
-                      flush=True)
+                gate = "within" if within_gate(v, twin[k]) else "OUTSIDE"
+                print(f"{bf16_ulps(v, twin[k]):6.2f} ulps from the twin, "
+                      f"{gate} the gate  {k}", flush=True)
         return 0
     if len(argv) != 2 or argv[0] not in ("save", "compare"):
         raise SystemExit(__doc__)
@@ -173,7 +189,9 @@ def main(argv) -> int:
             diff = (got[k].float() - v.float()).abs().max().item()
             line += f"  max |diff| {diff:.3e}"
             if v.dtype == torch.bfloat16:
-                line += f" ({bf16_ulps(got[k], v):.2f} bf16 ulps)"
+                gate = "within" if within_gate(got[k], v) else "OUTSIDE"
+                line += (f" ({bf16_ulps(got[k], v):.2f} bf16 ulps, {gate} "
+                         "the gate)")
         print(line, flush=True)
     new = sorted(set(got) - set(want))
     for k in new:

@@ -21,7 +21,9 @@ read from the checkout it runs in), weights from the config's seed:
   kernel whose name holds ``conv3x3_fwd``, the statistics' merge, and the
   bf16 stride-1 tensor-core kernel's forward instantiations), K4 dgrad's
   (every kernel whose name holds ``dgrad``, and that kernel's dgrad
-  instantiations), K2's (``bn_act_pool_fwd``; pool-free, the
+  instantiations), K4 wgrad's (every kernel whose name holds ``wgrad``:
+  the f32 band kernel, the bf16 tensor-core kernel or the tile, and the
+  reduce of their split partials), K2's (``bn_act_pool_fwd``; pool-free, the
   norm-first block's ``batch_norm_fwd``, every kernel whose name holds
   ``bn_act_fwd``), K3's and K5's (every kernel whose name holds
   ``bn_act_pool_bwd``, and ``bn_act_pool_bwd_bwd`` for K5: the Triton
@@ -77,6 +79,7 @@ def report(label, what, prof, wall_ms):
     parts = []
     for name, match in (
             ("K1", _is_k1), ("K4 dgrad", _is_dgrad),
+            ("K4 wgrad", lambda k: "wgrad" in k),
             ("K2", lambda k: "bn_act_pool_fwd" in k),
             ("K2 pool-free", lambda k: "bn_act_fwd" in k),
             ("K3", _is_k3), ("K5", _is_k5)):

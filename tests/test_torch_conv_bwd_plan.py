@@ -122,11 +122,12 @@ def test_the_large_band_plans_are_what_the_design_says(shape):
     (8, 20, 28, 1, 64, 2), (8, 25, 84, 3, 48, 2), (8, 25, 42, 48, 48, 1),
     (2, 25, 41, 48, 48, 1)], ids=str)
 def test_bf16_and_stride_2_keep_the_tile_kernels_split_rule(shape):
-    """bf16 at either stride and f32 at stride 2 run the wgrad tile kernel
-    with its split rule as it was (about 16 blocks a SM, at least 512
-    pixels a split), so their results keep their bits; so does dgrad at
-    stride 2. bf16 dgrad at stride 1 runs the tensor-core kernel
-    (csrc/conv3x3_s1_bf16.cu) on ``mma_plan``'s grid."""
+    """Both dtypes at stride 2 run the wgrad tile kernel with its split
+    rule as it was (about 16 blocks a SM, at least 512 pixels a split), so
+    their results keep their bits; so does dgrad at stride 2. bf16 at
+    stride 1 runs the tensor-core kernels: wgrad on ``wgrad_plan``'s mma
+    grid (csrc/conv3x3_wgrad_s1_bf16.cu), dgrad on ``mma_plan``'s
+    (csrc/conv3x3_s1_bf16.cu)."""
     T, N, hw, cin, cout, stride = shape
     Ho = (hw - 1) // stride + 1
     M = N * Ho * Ho
@@ -134,8 +135,15 @@ def test_bf16_and_stride_2_keep_the_tile_kernels_split_rule(shape):
     want = max(1, min(-(-16 * SMS // blocks), M // 512, 65535 // T))
     for bf16 in ((False, True) if stride == 2 else (True,)):
         plan = cb.wgrad_plan(T, N, hw, hw, cin, cout, stride, 1, SMS, bf16)
-        assert plan.kernel == "tile" and plan.splits == want
-        assert plan.grid == (-(-9 * cin // 64), -(-cout // 16), T * want)
+        if stride == 1:
+            assert plan.kernel == "mma" and plan.grid[2] == T
+            assert plan.grid[0] == plan.splits
+            assert plan.scratch == ((T, plan.splits, 9 * cin * cout),
+                                    (T, plan.splits, cout))
+        else:
+            assert plan.kernel == "tile" and plan.splits == want
+            assert plan.grid == (-(-9 * cin // 64), -(-cout // 16),
+                                 T * want)
         d = cb.dgrad_plan(T, N, hw, hw, cin, cout, stride, 1, SMS, bf16)
         if stride == 1:
             m = cb.mma_plan(T, N, Ho, hw, hw, cout, cin, True, SMS)

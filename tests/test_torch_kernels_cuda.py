@@ -20,8 +20,11 @@ fit, and the bf16 and pool-free K3/K5 still the Triton kernels' bits; K2
 (``csrc/bn_act_fwd.cu``) pooled and pool-free, f32 and bf16, at every
 main-path shape and at edge shapes, off vector alignment, a second launch
 bit for bit the first, its entries' refusals, and no K2 wrapper reaching
-a Triton kernel; and the ingest kernel ``episode_expand`` equal to its
-twin bit for bit (it is a pure lookup).
+a Triton kernel; K4 wgrad in bf16 at stride 1 on its tensor-core kernel
+(``csrc/conv3x3_wgrad_s1_bf16.cu``) at every main-path shape and at edge
+shapes, off alignment, a second launch bit for bit the first, and its
+entry's and the tile's refusals; and the ingest kernel
+``episode_expand`` equal to its twin bit for bit (it is a pure lookup).
 These need the card: marked ``cuda``, they skip where
 ``torch.cuda.is_available()`` is false. On the card (``--noconftest``:
 the suite's conftest imports jax, which the port never needs):
@@ -1688,6 +1691,172 @@ def test_mma_entries_refuse_a_plan_that_does_not_match(device):
     assert tile_dgrad(y.data_ptr(), w.data_ptr(), x.data_ptr(), T, N, H, W,
                       1, pad, cin, cout, stream) != 0
     assert _tile_fwd_stats(x, w, b, 1, pad)[0] != 0
+
+
+# K4 wgrad in bf16 at stride 1: the tensor-core kernel of
+# csrc/conv3x3_wgrad_s1_bf16.cu. Every shape the shipped configs run — the
+# mini-ImageNet stages 0-3 (84/42/21/10, cin 3 then 48, cout 48) at N 25, T
+# 2 and 8; Omniglot's layers 1-4 (28/14/7/3, cin 1 then 64, cout 64) at N
+# 20, T 8; the unpadded stages (84/41/19/8) — and edge shapes: cin 1, 2 and
+# 3 (the packed kernel), 5, 17, 20, 65 and 100 (source chunks of 16 m_tiles
+# channels), cout 1, 3, 4, 12, 20 and 33 (n8 tiles padded and masked), 65
+# and 130 (output chunks), odd maps (Omniglot's 7 x 7 and 3 x 3, a 3 x 3
+# input at pad 0: one output pixel), rows the bands do not divide, a split
+# of one band, pad 0 and 1. dw and db are held to the twin with
+# ``within_ulp``'s rule (the tensor cores' f32 sums run in another order
+# than the twin's GEMM, and the splits are summed apart), and a second
+# launch to the first bit for bit.
+WGRAD_MMA_MAIN_SHAPES = (
+    [(T, 25, hw, cin, 48, 1) for T in (2, 8)
+     for hw, cin in ((84, 3), (42, 48), (21, 48), (10, 48))]
+    + [(8, 20, hw, cin, 64, 1)
+       for hw, cin in ((28, 1), (14, 64), (7, 64), (3, 64))]
+    + [(T, 25, hw, cin, 48, 0) for T in (2, 8)
+       for hw, cin in ((84, 3), (41, 48), (19, 48), (8, 48))]
+)
+WGRAD_MMA_EDGE_SHAPES = [
+    # T, N, H, W, cin, cout, pad
+    (1, 1, 5, 5, 1, 4, 1),
+    (1, 1, 5, 5, 1, 4, 0),
+    (1, 3, 9, 7, 3, 20, 1),
+    (2, 3, 11, 9, 3, 20, 0),
+    (1, 2, 9, 11, 2, 16, 1),
+    (1, 2, 7, 7, 3, 65, 1),
+    (1, 2, 13, 6, 17, 33, 1),
+    (2, 5, 10, 10, 17, 33, 0),
+    (2, 4, 6, 30, 5, 12, 1),
+    (2, 3, 12, 12, 20, 3, 1),
+    (1, 2, 10, 9, 20, 1, 0),
+    (1, 2, 8, 8, 48, 65, 1),
+    (1, 3, 9, 7, 65, 65, 0),
+    (2, 3, 9, 9, 65, 20, 1),
+    (1, 2, 8, 8, 100, 48, 1),
+    (1, 2, 8, 8, 48, 130, 1),
+    (3, 8, 23, 23, 48, 48, 1),
+    (2, 20, 7, 7, 64, 64, 1),
+    (2, 4, 3, 3, 64, 64, 0),
+    (1, 3, 3, 3, 64, 64, 1),
+]
+
+
+def _check_wgrad_mma(T, N, H, W, cin, cout, pad, seed):
+    """dw and db in bf16 on the mma plan against the twin within one bf16
+    ulp (or 1e-4 of scale), one launch on the bf16 stride-1 counter, and a
+    second launch bit for bit the first."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    Ho, Wo = F.conv_out_hw(H, W, 1, pad)
+    x = torch.randn(T, N, H, W, cin, device="cuda", generator=g).bfloat16()
+    dy = torch.randn(T, N, Ho, Wo, cout, device="cuda",
+                     generator=g).bfloat16()
+    plan = cb.wgrad_plan(T, N, H, W, cin, cout, 1, pad, cb._sms(x.device),
+                         True)
+    assert plan.kernel == "mma"
+    cb.reset_launches()
+    dw, db = cb.conv3x3_wgrad(x, dy, padding=pad)
+    want_w, want_b = F.conv3x3_wgrad(x, dy, padding=pad)
+    within_ulp(dw, want_w, "wgrad dw")
+    within_ulp(db, want_b, "wgrad db")
+    tag = "_p0" if pad == 0 else ""
+    assert cb.launches() == {**{k: 0 for k in cb.KERNELS},
+                             f"conv3x3{tag}_wgrad_bf16": 1}
+    again = cb.conv3x3_wgrad(x, dy, padding=pad)
+    assert torch.equal(again[0], dw) and torch.equal(again[1], db)
+    torch.cuda.synchronize()
+    return plan
+
+
+@pytest.mark.parametrize("shape", WGRAD_MMA_MAIN_SHAPES, ids=str)
+def test_wgrad_mma_matches_its_twin_at_main_path_shapes(shape, device):
+    T, N, hw, cin, cout, pad = shape
+    _check_wgrad_mma(T, N, hw, hw, cin, cout, pad, seed=hw + cin + N + T)
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("shape", WGRAD_MMA_EDGE_SHAPES, ids=str)
+def test_wgrad_mma_matches_its_twin_at_edge_shapes(shape, device):
+    plan = _check_wgrad_mma(*shape, seed=sum(shape))
+    T, N, H, W, cin, cout, pad = shape
+    if shape == (3, 8, 23, 23, 48, 48, 1):
+        assert 23 % plan.band_rows and plan.splits > 1
+    if cin > 64 or cout > 64:
+        assert plan.grid[1] > 1  # source or output chunks
+
+
+@pytest.mark.parametrize("pad", (1, 0))
+def test_wgrad_mma_takes_tensors_off_16_byte_alignment(pad, device):
+    """Views 2 bytes into their storage (contiguous, so the wrapper takes
+    them): the kernel stages x and dy 8 bf16 at a time (the packed kernel's
+    source rows an element at a time), with the aligned launch's bits."""
+    for cin in (48, 3):
+        T, N, H, W, cout = 2, 3, 12, 12, 48
+        x = torch.randn(T, N, H, W, cin, device=device).bfloat16()
+        dy = torch.randn(T, N, *F.conv_out_hw(H, W, 1, pad), cout,
+                         device=device).bfloat16()
+
+        def shifted(t):
+            buf = torch.empty(t.numel() + 1, device=t.device, dtype=t.dtype)
+            view = buf[1:].view(t.shape)
+            view.copy_(t)
+            assert view.data_ptr() % 16 != 0
+            return view
+
+        got = cb.conv3x3_wgrad(shifted(x), shifted(dy), padding=pad)
+        want = cb.conv3x3_wgrad(x, dy, padding=pad)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        for a, c, what in zip(got, F.conv3x3_wgrad(x, dy, padding=pad),
+                              ("dw", "db")):
+            within_ulp(a, c, f"wgrad {what}")
+
+
+def test_wgrad_mma_entry_refuses_a_plan_that_does_not_match(device):
+    """The entry checks the plan's band rows, tiles, splits, threads and
+    shared memory against the geometry they follow from and launches
+    nothing otherwise; the tile's bf16 wgrad entry refuses stride 1."""
+    import ctypes
+
+    from howtotrainyourmamlpytorch_tpu_torch.kernels import build
+
+    T, N, H, W, cin, cout, pad = 2, 3, 21, 21, 48, 48, 1
+    x = torch.randn(T, N, H, W, cin, device=device).bfloat16()
+    dy = torch.randn(T, N, H, W, cout, device=device).bfloat16()
+    plan = cb.wgrad_plan(T, N, H, W, cin, cout, 1, pad, cb._sms(device),
+                         True)
+    assert plan.kernel == "mma"
+    part_w = torch.empty(plan.scratch[0], device=device)
+    part_b = torch.empty(plan.scratch[1], device=device)
+    dw = torch.full((T, 3, 3, cin, cout), 7.0, device=device).bfloat16()
+    db = torch.full((T, cout), 7.0, device=device).bfloat16()
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn = build.function("conv3x3_wgrad_s1_bf16", "conv3x3_wgrad_mma",
+                        (P,) * 6 + (I,) * 13 + (P,))
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = [t.data_ptr() for t in (x, dy, part_w, part_b, dw, db)]
+    geometry = (T, N, H, W, pad, cin, cout)
+    good = (plan.band_rows, plan.m_tiles, plan.channels, plan.splits,
+            plan.threads, plan.smem)
+    for i, bad in ((0, plan.band_rows + 1), (1, plan.m_tiles + 1),
+                   (2, 40), (3, 0), (3, N * plan.bands + 1),
+                   (4, plan.threads + 32), (5, plan.smem + 16),
+                   (5, plan.smem - 16)):
+        args = list(good)
+        args[i] = bad
+        assert fn(*ptrs, *geometry, *args, stream) != 0
+    torch.cuda.synchronize()
+    assert bool((dw == 7.0).all()) and bool((db == 7.0).all())
+    assert fn(*ptrs, *geometry, *good, stream) == 0
+    torch.cuda.synchronize()
+    for a, c, what in zip((dw, db), F.conv3x3_wgrad(x, dy, padding=pad),
+                          ("dw", "db")):
+        within_ulp(a, c, f"wgrad {what}")
+    tile = build.function("conv3x3_bwd", "conv3x3_wgrad_bf16",
+                          (P,) * 6 + (I,) * 9 + (P,))
+    S = 4
+    pw = torch.empty((T, S, 9 * cin * cout), device=device)
+    pb = torch.empty((T, S, cout), device=device)
+    assert tile(x.data_ptr(), dy.data_ptr(), pw.data_ptr(), pb.data_ptr(),
+                dw.data_ptr(), db.data_ptr(), T, N, H, W, 1, pad, cin, cout,
+                S, stream) != 0
+    torch.cuda.synchronize()
 
 
 # K3 and K5 in f32, pooled: the cooperative kernels of
