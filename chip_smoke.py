@@ -159,7 +159,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
    its index dispatch bit-identical to f32.
 10. bf16 strided and norm-first: the stride-2 convs in bf16
    (``conv3x3_s2_*_bf16`` at the strided Omniglot layers, dgrad at cin 1
-   too; ``conv3x3_s2_p0_*_bf16`` at the unpadded strided stages), the
+   too; ``conv3x3_s2_p0_*_bf16`` at the unpadded strided stages, dgrad at
+   cin 3 too; K1 and dgrad held twice, bit for bit), the
    pool-free K2/K3/K5 (``bn_act_*_bf16``), the GAP, ``bn_input_stats``,
    ``batch_norm_*`` and the act-pool kernels in bf16 at their paths'
    shapes against their bf16 twins — the pool-free K2, ``batch_norm_fwd``,
@@ -200,9 +201,12 @@ Phases, in order; any failure raises and the exit code is non-zero:
    Omniglot layer-norm bf16 models. On every bf16 path no f32 kernel may
    move (``episode_expand`` outputs f32 and is the one exception). Every
    kernel must have been launched by some main path.
-12. Print one ``{"kernels": [...]}`` line (launches summed over all the
-   main paths), then the result line ``{"ok": true, "device": {...}}``
-   last.
+12. Print the rows of K1 and dgrad at stride 2 (``csrc/conv3x3_s2.cu``,
+   f32 and bf16, pad 1 and 0: every shape phases 3, 8 and 10 hold them at,
+   each held twice bit for bit there) as ``[K1]`` / ``[K4]`` lines with
+   their library ratio and bound share; one ``{"kernels": [...]}`` line
+   (launches summed over all the main paths), then the result line
+   ``{"ok": true, "device": {...}}`` last.
 
 Needs one card. Imports nothing of JAX or of the JAX package.
 """
@@ -395,8 +399,10 @@ REPLACES.update({
 # kernel but episode_expand (which outputs f32)
 BF16_KERNELS = tuple(k for k in REPLACES if k != "episode_expand")
 REPLACES.update({f"{k}_bf16": REPLACES[k] for k in BF16_KERNELS})
-FWD_TILE = ("cuda", "howtotrainyourmamlpytorch_tpu_torch/kernels/csrc/"
-                    "conv3x3_fwd.cu")
+# K1 (both modes) and dgrad at stride 2 in both dtypes: the band kernels of
+# conv3x3_s2.cu; wgrad at stride 2 the tile of conv3x3_bwd.cu
+S2_SOURCE = ("cuda", "howtotrainyourmamlpytorch_tpu_torch/kernels/csrc/"
+                     "conv3x3_s2.cu")
 BWD_TILE = ("cuda", "howtotrainyourmamlpytorch_tpu_torch/kernels/csrc/"
                     "conv3x3_bwd.cu")
 SOURCES = {
@@ -429,9 +435,9 @@ SOURCES = {
 BN_TRITON = ("triton",
              "howtotrainyourmamlpytorch_tpu_torch/kernels/bn_act_pool.py")
 SOURCES.update({
-    "conv3x3_s2_fwd_stats": FWD_TILE,
-    "conv3x3_s2_fwd": FWD_TILE,
-    "conv3x3_s2_dgrad": BWD_TILE,
+    "conv3x3_s2_fwd_stats": S2_SOURCE,
+    "conv3x3_s2_fwd": S2_SOURCE,
+    "conv3x3_s2_dgrad": S2_SOURCE,
     "conv3x3_s2_wgrad": BWD_TILE,
     "bn_act_fwd": SOURCES["bn_act_pool_fwd"],
     "bn_act_bwd": BN_TRITON,
@@ -457,7 +463,8 @@ SOURCES.update({
     for k in ("layer_norm_stats", "layer_norm_fwd", "layer_norm_bwd",
               "layer_norm_bwd_bwd")})
 # the f32 convs at stride 1 (pad 1 and 0) run the band kernels; at stride 2
-# the tiles; the bf16 convs at stride 1 the tensor-core kernels (below)
+# K1 and dgrad conv3x3_s2.cu, wgrad the tile; the bf16 convs the
+# tensor-core kernels (below) but the stride-2 wgrad, the tile
 SOURCES.update({f"conv3x3_p0_{k}": SOURCES[f"conv3x3_{k}"]
                 for k in ("fwd_stats", "dgrad", "wgrad", "fwd")})
 SOURCES.update({f"conv3x3_s2_p0_{k}": SOURCES[f"conv3x3_s2_{k}"]
@@ -465,9 +472,7 @@ SOURCES.update({f"conv3x3_s2_p0_{k}": SOURCES[f"conv3x3_s2_{k}"]
 # in bf16, K3 and K5 pooled run the Triton kernels (bn_act_pool.py), as
 # every pool-free K3 and K5 does; in f32, csrc/bn_act_pool_bwd.cu; K2 runs
 # csrc/bn_act_fwd.cu in both dtypes
-SOURCES.update({f"{k}_bf16": (FWD_TILE if "_fwd" in k else BWD_TILE)
-                if k.startswith("conv3x3_") else SOURCES[k]
-                for k in BF16_KERNELS})
+SOURCES.update({f"{k}_bf16": SOURCES[k] for k in BF16_KERNELS})
 SOURCES.update({f"{k}_bf16": BN_TRITON
                 for k in ("bn_act_pool_bwd", "bn_act_pool_bwd_bwd")})
 # K1 (both modes) and dgrad in bf16 at stride 1, pad 1 and 0: one
@@ -1149,6 +1154,8 @@ def check_strided_kernels(cb, F, records, T=T_TENANTS, n=OMNIGLOT_IMAGES,
         y, mean, _, rstd = want
         err = _bn_errs("conv3x3_s2_fwd_stats", got, want,
                        ("y", "mean", "var", "rstd"), label)
+        _same_bits("conv3x3_s2_fwd_stats",
+                   lambda: cb.conv3x3_fwd_stats(x, w, b, stride=2), got)
         rec("conv3x3_s2_fwd_stats", label, err,
             lambda: cb.conv3x3_fwd_stats(x, w, b, stride=2),
             lambda: F.conv3x3_fwd_stats(x, w, b, stride=2),
@@ -1156,11 +1163,13 @@ def check_strided_kernels(cb, F, records, T=T_TENANTS, n=OMNIGLOT_IMAGES,
                                          groups=T),
             conv_flops + T * M * C,
             4 * (x.numel() + w.numel() + b.numel() + y.numel() + 3 * T * C))
+        got = cb.conv3x3_fwd(x, w, None, 2)
         err = max(max_err("conv3x3_s2_fwd", cb.conv3x3_fwd(x, w, b, 2),
                           F.conv3x3(x, w, b, stride=2)),
-                  max_err("conv3x3_s2_fwd (no bias)",
-                          cb.conv3x3_fwd(x, w, None, 2),
+                  max_err("conv3x3_s2_fwd (no bias)", got,
                           F.conv3x3(x, w, stride=2)))
+        _same_bits("conv3x3_s2_fwd", lambda: cb.conv3x3_fwd(x, w, None, 2),
+                   got)
         rec("conv3x3_s2_fwd", label, err,
             lambda: cb.conv3x3_fwd(x, w, b, 2),
             lambda: F.conv3x3(x, w, b, stride=2),
@@ -1203,9 +1212,11 @@ def check_strided_kernels(cb, F, records, T=T_TENANTS, n=OMNIGLOT_IMAGES,
         # K4 at stride 2: dgrad at layers 2-4 (layer 1's input is the
         # images); bound: the useful FLOPs, the forward's
         if cin == C:
-            err = max_err("conv3x3_s2_dgrad",
-                          cb.conv3x3_dgrad(dy, w, 2, (H, W)),
+            got = cb.conv3x3_dgrad(dy, w, 2, (H, W))
+            err = max_err("conv3x3_s2_dgrad", got,
                           F.conv3x3_dgrad(dy, w, 2, (H, W)))
+            _same_bits("conv3x3_s2_dgrad",
+                       lambda: cb.conv3x3_dgrad(dy, w, 2, (H, W)), got)
             rec("conv3x3_s2_dgrad", label, err,
                 lambda: cb.conv3x3_dgrad(dy, w, 2, (H, W)),
                 lambda: F.conv3x3_dgrad(dy, w, 2, (H, W)),
@@ -1460,9 +1471,11 @@ def check_strided_norm_first_kernels(cb, F, records, T=T_TENANTS,
             w = randn(T, 3, 3, cin, C, scale=math.sqrt(2.0 / (9 * cin)))
             wl = w.permute(0, 4, 3, 1, 2).reshape(T * C, cin, 3, 3)
             wl, dyl = wl.contiguous(), _nchw_tenants(da)
-            err = max_err("conv3x3_s2_dgrad",
-                          cb.conv3x3_dgrad(da, w, 2, (hw, hw)),
+            got = cb.conv3x3_dgrad(da, w, 2, (hw, hw))
+            err = max_err("conv3x3_s2_dgrad", got,
                           F.conv3x3_dgrad(da, w, 2, (hw, hw)))
+            _same_bits("conv3x3_s2_dgrad",
+                       lambda: cb.conv3x3_dgrad(da, w, 2, (hw, hw)), got)
             rec("conv3x3_s2_dgrad", label, err,
                 lambda: cb.conv3x3_dgrad(da, w, 2, (hw, hw)),
                 lambda: F.conv3x3_dgrad(da, w, 2, (hw, hw)),
@@ -1566,8 +1579,9 @@ def check_unpadded_kernels(cb, F, records, T=T_TENANTS, C=COUT):
     strided (84 -> 41, 41 -> 20, 20 -> 9, 9 -> 4; the last row of an even
     input is read by no output), T = 8: K1 with statistics at N = 75 (the
     targets); K1 stats-free (with and without bias), dgrad and wgrad at N
-    = 25 (the support); dgrad at the pooled stage 0 too, back to cin 3 (the
-    norm-first model's). Each against its twin, timed beside it and beside
+    = 25 (the support); dgrad at stage 0 too, back to cin 3 (the
+    norm-first models'); each conv held twice, bit for bit. Each against
+    its twin, timed beside it and beside
     grouped ``conv2d`` / ``conv2d_input`` / ``conv2d_weight`` at
     ``padding=0``. On the pooled stages' odd conv outputs (39 -> 19, 17 ->
     8), K2 and K3 are held to their twins as well (the pool drops the last
@@ -1599,9 +1613,8 @@ def check_unpadded_kernels(cb, F, records, T=T_TENANTS, C=COUT):
                     got = cb.conv3x3_fwd_stats(x, w, b, **kw)
                     err = _bn_errs(name, got, want,
                                    ("y", "mean", "var", "rstd"), label)
-                    if not strided:
-                        _same_bits(name, lambda: cb.conv3x3_fwd_stats(
-                            x, w, b, **kw), got)
+                    _same_bits(name, lambda: cb.conv3x3_fwd_stats(
+                        x, w, b, **kw), got)
                     rec(name, label, err,
                         lambda: cb.conv3x3_fwd_stats(x, w, b, **kw),
                         lambda: F.conv3x3_fwd_stats(x, w, b, **kw),
@@ -1618,9 +1631,8 @@ def check_unpadded_kernels(cb, F, records, T=T_TENANTS, C=COUT):
                               max_err(f"{name} (no bias)",
                                       cb.conv3x3_fwd(x, w, None, s, 0),
                                       F.conv3x3(x, w, **kw)))
-                    if not strided:
-                        _same_bits(name, lambda: cb.conv3x3_fwd(
-                            x, w, b, s, 0), got)
+                    _same_bits(name, lambda: cb.conv3x3_fwd(
+                        x, w, b, s, 0), got)
                     del got
                     rec(name, label, err,
                         lambda: cb.conv3x3_fwd(x, w, b, s, 0),
@@ -1635,26 +1647,25 @@ def check_unpadded_kernels(cb, F, records, T=T_TENANTS, C=COUT):
                                                   label)
                     dy = randn(T, n, Ho, Wo, C, scale=1.0 / math.sqrt(M * T))
                     dyl = _nchw_tenants(dy)
-                    if not (strided and cin != C):
-                        name = cb._conv_name("conv3x3_dgrad", s, 0)
-                        dx = cb.conv3x3_dgrad(dy, w, s, (hw, hw), 0)
-                        err = max_err(name, dx, F.conv3x3_dgrad(
-                            dy, w, s, (hw, hw), 0))
-                        if strided and hw % 2 == 0 and (
-                                dx[:, :, -1].any() or dx[:, :, :, -1].any()):
-                            raise AssertionError(f"{name}: the unread last "
-                                                 "row has a gradient")
-                        _same_bits(name, lambda: cb.conv3x3_dgrad(
-                            dy, w, s, (hw, hw), 0), dx)
-                        rec(name, label, err,
-                            lambda: cb.conv3x3_dgrad(dy, w, s, (hw, hw), 0),
-                            lambda: F.conv3x3_dgrad(dy, w, s, (hw, hw), 0),
-                            lambda: nn.grad.conv2d_input(
-                                xl.shape, wl, dyl, stride=s, padding=0,
-                                groups=T),
-                            conv_flops,
-                            4 * (dy.numel() + w.numel() + x.numel()))
-                        del dx
+                    name = cb._conv_name("conv3x3_dgrad", s, 0)
+                    dx = cb.conv3x3_dgrad(dy, w, s, (hw, hw), 0)
+                    err = max_err(name, dx, F.conv3x3_dgrad(
+                        dy, w, s, (hw, hw), 0))
+                    if strided and hw % 2 == 0 and (
+                            dx[:, :, -1].any() or dx[:, :, :, -1].any()):
+                        raise AssertionError(f"{name}: the unread last "
+                                             "row has a gradient")
+                    _same_bits(name, lambda: cb.conv3x3_dgrad(
+                        dy, w, s, (hw, hw), 0), dx)
+                    rec(name, label, err,
+                        lambda: cb.conv3x3_dgrad(dy, w, s, (hw, hw), 0),
+                        lambda: F.conv3x3_dgrad(dy, w, s, (hw, hw), 0),
+                        lambda: nn.grad.conv2d_input(
+                            xl.shape, wl, dyl, stride=s, padding=0,
+                            groups=T),
+                        conv_flops,
+                        4 * (dy.numel() + w.numel() + x.numel()))
+                    del dx
                     name = cb._conv_name("conv3x3_wgrad", s, 0)
                     got = cb.conv3x3_wgrad(x, dy, s, 0)
                     err = _bn_errs(name, got, F.conv3x3_wgrad(x, dy, **kw),
@@ -3599,9 +3610,11 @@ def _equal(name, got, want):
 def _bf16_conv_s2(cb, F, records, randn, label, x, w, b, padding):
     """The stride-2 conv kernels in bf16 on ``x`` (K1 with statistics when
     ``b`` is given, else the stats-free mode with and without a bias and
-    K4 on a random dy): each within one bf16 ulp of its twin (y: one of
-    the sum and one of the bias add), timed beside the twin, the f32
-    kernel and the bf16 library call."""
+    K4 on a random dy, dgrad back to cin 1 and 3 too: the norm-first
+    models'): each within one bf16 ulp of its twin (y: one of the sum and
+    one of the bias add), K1 and dgrad held twice bit for bit, dx's rows
+    and columns that no output reads zero, each timed beside the twin, the
+    f32 kernel and the bf16 library call."""
     rec, bf, nn = records.add, torch.bfloat16, torch.nn
     T, n, hw, _, cin = x.shape
     C = w.shape[-1]
@@ -3621,6 +3634,8 @@ def _bf16_conv_s2(cb, F, records, randn, label, x, w, b, padding):
                               bf16_ulp(want[0]) + bf16_ulp(plain))]
                   + [within_ulp(f"{name} {what}", a, c) for what, a, c in
                      zip(("mean", "var", "rstd"), got[1:], want[1:])])
+        _same_bits(name, lambda: cb.conv3x3_fwd_stats(
+            x, w, b, stride=2, padding=padding), got)
         rec(name, label, err,
             lambda: cb.conv3x3_fwd_stats(x, w, b, stride=2, padding=padding),
             lambda: F.conv3x3_fwd_stats(x, w, b, stride=2, padding=padding),
@@ -3634,8 +3649,9 @@ def _bf16_conv_s2(cb, F, records, randn, label, x, w, b, padding):
     for bb in (None, bias):
         want = F.conv3x3(x, w, bb, stride=2, padding=padding)
         ulps = bf16_ulp(want) + (0 if bb is None else bf16_ulp(plain))
-        err = within_ulp(name, cb.conv3x3_fwd(x, w, bb, 2, padding), want,
-                         ulps)
+        got = cb.conv3x3_fwd(x, w, bb, 2, padding)
+        err = within_ulp(name, got, want, ulps)
+        _same_bits(name, lambda: cb.conv3x3_fwd(x, w, bb, 2, padding), got)
         bb32 = None if bb is None else bb.float()
         rec(name, label + ("" if bb is None else " bias"), err,
             lambda: cb.conv3x3_fwd(x, w, bb, 2, padding),
@@ -3650,18 +3666,22 @@ def _bf16_conv_s2(cb, F, records, randn, label, x, w, b, padding):
     dy = randn(T, n, ho, ho, C).to(bf)
     dy32, dyl = dy.float(), _nchw_tenants(dy)
     hw2 = (hw, hw)
-    if cin == C:
-        name = f"conv3x3{tag}_dgrad_bf16"
-        err = within_ulp(name, cb.conv3x3_dgrad(dy, w, 2, hw2, padding),
-                         F.conv3x3_dgrad(dy, w, 2, hw2, padding))
-        rec(name, label, err,
-            lambda: cb.conv3x3_dgrad(dy, w, 2, hw2, padding),
-            lambda: F.conv3x3_dgrad(dy, w, 2, hw2, padding),
-            lambda: nn.grad.conv2d_input(xl.shape, wl, dyl, stride=2,
-                                         padding=padding, groups=T),
-            flops, 2 * (dy.numel() + w.numel() + x.numel()),
-            tensor_cores=True,
-            f32_fn=lambda: cb.conv3x3_dgrad(dy32, w32, 2, hw2, padding))
+    name = f"conv3x3{tag}_dgrad_bf16"
+    dx = cb.conv3x3_dgrad(dy, w, 2, hw2, padding)
+    err = within_ulp(name, dx, F.conv3x3_dgrad(dy, w, 2, hw2, padding))
+    _same_bits(name, lambda: cb.conv3x3_dgrad(dy, w, 2, hw2, padding), dx)
+    if padding == 0 and hw % 2 == 0 and (dx[:, :, -1].any()
+                                         or dx[:, :, :, -1].any()):
+        raise AssertionError(f"{name}: the unread last row has a gradient")
+    rec(name, label, err,
+        lambda: cb.conv3x3_dgrad(dy, w, 2, hw2, padding),
+        lambda: F.conv3x3_dgrad(dy, w, 2, hw2, padding),
+        lambda: nn.grad.conv2d_input(xl.shape, wl, dyl, stride=2,
+                                     padding=padding, groups=T),
+        flops, 2 * (dy.numel() + w.numel() + x.numel()),
+        tensor_cores=True,
+        f32_fn=lambda: cb.conv3x3_dgrad(dy32, w32, 2, hw2, padding))
+    del dx
     name = f"conv3x3{tag}_wgrad_bf16"
     got = cb.conv3x3_wgrad(x, dy, 2, padding)
     want = F.conv3x3_wgrad(x, dy, 2, padding)
@@ -5004,6 +5024,12 @@ def main() -> int:
                                   "conv3x3_p0_dgrad_bf16",
                                   "conv3x3_wgrad_bf16",
                                   "conv3x3_p0_wgrad_bf16"))
+    # K1 and dgrad at stride 2 (csrc/conv3x3_s2.cu), f32 and bf16
+    s2 = tuple(f"conv3x3_s2{p}_{k}{d}" for d in ("", "_bf16")
+               for p in ("", "_p0") for k in ("fwd_stats", "fwd"))
+    print_k1_rows(records, "K1", s2)
+    print_k1_rows(records, "K4", tuple(
+        f"conv3x3_s2{p}_dgrad{d}" for d in ("", "_bf16") for p in ("", "_p0")))
 
     kernels = []
     for k in all_kernels:

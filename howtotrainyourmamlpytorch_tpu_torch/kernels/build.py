@@ -128,7 +128,7 @@ def function(stem: str, name: str, argtypes: tuple):
 def check(code: int, what: str) -> None:
     """Raise if a kernel entry point reported a CUDA error."""
     if code != 0:
-        err = library("conv3x3_fwd").maml_cuda_error_string
+        err = library("conv3x3_s2").maml_cuda_error_string
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
         raise RuntimeError(

@@ -17,7 +17,9 @@ kernel                      route   source                    launches/call
 ``conv3x3_dgrad``           CUDA    csrc/conv3x3_bwd_s1.cu    1
 ``conv3x3_wgrad``           CUDA    csrc/conv3x3_bwd_s1.cu    wgrad + reduce: 2
 ``bn_act_pool_bwd_bwd``     CUDA    csrc/bn_act_pool_bwd.cu   1 (cooperative)
-``conv3x3_s2_*``            CUDA    K1: fwd.cu, K4: bwd.cu    as at stride 1
+``conv3x3_s2_*``            CUDA    K1, dgrad: csrc/          as at stride 1
+                                    conv3x3_s2.cu; wgrad:
+                                    csrc/conv3x3_bwd.cu
 ``conv3x3_p0_*``            CUDA    the same sources          as at pad 1
 ``conv3x3_s2_p0_*``         CUDA    the same sources          as at pad 1
 ``bn_act_fwd``              CUDA    csrc/bn_act_fwd.cu        1 (pool-free)
@@ -42,23 +44,27 @@ kernel                      route   source                    launches/call
                                     csrc/conv3x3_s1_bf16.cu;  2 each
                                     wgrad at stride 1: csrc/
                                     conv3x3_wgrad_s1_bf16.cu;
-                                    stride 2: fwd.cu, bwd.cu;
+                                    K1, dgrad at stride 2:
+                                    conv3x3_s2.cu; wgrad at
+                                    stride 2: bwd.cu;
                                     K2: bn_act_fwd.cu;
                                     K3, K5: bn_act_pool.py
 ==========================  ======  ========================  ==================
 
-K1 (both modes), K4 dgrad and K4 wgrad each run three designs: at stride
-1 in f32 (every shipped config) the band kernels of
-``csrc/conv3x3_fwd_s1.cu`` and ``csrc/conv3x3_bwd_s1.cu``, which stage a
-band of rows with its halo in shared memory once and multiply on FFMA; at
-stride 1 in bf16 the same band staging with the products on the tensor
-cores (``mma.sync``, f32 sums): K1 and dgrad in
-``csrc/conv3x3_s1_bf16.cu``, wgrad in ``csrc/conv3x3_wgrad_s1_bf16.cu``;
-every conv at stride 2 the tile kernels of ``csrc/conv3x3_fwd.cu`` and
-``csrc/conv3x3_bwd.cu``. ``fwd_plan``, ``dgrad_plan`` (both through
-``mma_plan`` in bf16 at stride 1) and ``wgrad_plan`` give each launch
-(grid, bands, splits, shared memory, scratch) as a pure function of the
-shape.
+K1 (both modes) and K4 dgrad stage a band of rows with its halo in
+shared memory once and multiply on FFMA in f32, on the tensor cores in
+bf16 (``mma.sync``, f32 sums): at stride 1 the band kernels of
+``csrc/conv3x3_fwd_s1.cu`` and ``csrc/conv3x3_bwd_s1.cu`` (f32) and
+``csrc/conv3x3_s1_bf16.cu`` (bf16); at stride 2 those of
+``csrc/conv3x3_s2.cu`` in both dtypes (K1 on the input split into even and
+odd column planes, dgrad by the four parity classes of
+``s2_dgrad_taps``, each with only its live taps). K4 wgrad runs the f32
+band kernel of ``csrc/conv3x3_bwd_s1.cu`` and the bf16 tensor-core kernel
+of ``csrc/conv3x3_wgrad_s1_bf16.cu`` at stride 1, and the tile kernel of
+``csrc/conv3x3_bwd.cu`` at stride 2. ``fwd_plan``, ``dgrad_plan`` (through
+``mma_plan`` in bf16 at stride 1, ``s2_mma_plan`` in bf16 at stride 2)
+and ``wgrad_plan`` give each launch (grid, bands, splits, shared memory,
+scratch) as a pure function of the shape.
 K3 and K5 pooled in f32 run the cooperative kernels of
 ``csrc/bn_act_pool_bwd.cu`` (reduce, grid barrier, merge, barrier, apply
 in one launch, on the grid ``bn_bwd_plan`` sizes from the occupancy
@@ -84,8 +90,8 @@ CPU, and for a CUDA tensor launches its kernel or raises: it checks
 device, dtype, shape, stride and contiguity, launches on the current
 stream, allocates outputs and scratch with ``torch.empty`` and adds one to
 its counter per call that launched. The f32 kernels multiply on FFMA
-only (no TF32); the bf16 convs at stride 1 multiply bf16 on the tensor
-cores and sum in f32, as XLA's bf16 conv does.
+only (no TF32); the bf16 convs but the stride-2 wgrad multiply bf16 on the
+tensor cores and sum in f32, as XLA's bf16 conv does.
 
 bf16 (``compute_dtype='bfloat16'``): every kernel of every model, served
 and trained second order — K1 with statistics and stats-free, K2, K3 and
@@ -213,9 +219,6 @@ PADDINGS = (1, 0)
 #: launches per kernel since the last ``reset_launches()`` (CUDA only)
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
-#: output pixels per tile (``kBM`` in csrc/conv3x3_tile.cuh): K1 and K4
-#: dgrad at stride 2
-CONV_TILE_ROWS = 256
 #: K1 and K4 dgrad in bf16 at stride 1 (csrc/conv3x3_s1_bf16.cu, mma.sync):
 #: most threads a block (8 warps of 32 band pixels each: two blocks a SM
 #: within 128 registers a thread), the shared memory a block may take where
@@ -228,6 +231,13 @@ MMA_WARP_PIXELS = 32
 MMA_SMEM_BYTES = 113 * 1024
 MMA_MAX_CHANNELS = 64
 MMA_TILES = (1, 2, 4, 6, 8)
+#: the stride-2 mma kernel: the most bytes of a tenant's weights a block
+#: stages; above (64 x 64 channels, Omniglot's layers 2-4) a block takes
+#: 32 output channels, twice the blocks with half the weights each (a
+#: block of one warp staging all 74 KB ran slower; at 48 channels the
+#: chunks did)
+S2_MMA_WEIGHT_BYTES = 64 * 1024
+S2_MMA_CHUNK = 32
 SM_SMEM = 228 * 1024
 MMA_BLOCKS_PER_SM = 2
 #: K4 wgrad in bf16 at stride 1 (csrc/conv3x3_wgrad_s1_bf16.cu, mma.sync):
@@ -413,14 +423,15 @@ def _sms(device) -> int:
 class FwdPlan(NamedTuple):
     """The launch of K1 at one shape, both modes: ``kernel`` ``"band"``
     (f32 at stride 1, csrc/conv3x3_fwd_s1.cu), ``"mma"`` (bf16 at stride
-    1, csrc/conv3x3_s1_bf16.cu) or ``"tile"`` (stride 2,
-    csrc/conv3x3_fwd.cu). A band kernel's block takes ``band_rows`` output
-    rows of one image and all output channels, ``bands`` a image,
-    ``channels`` (8 or 4) a thread; an mma block walks ``grid[0]``'s share
-    of a tenant's bands of ``band_rows`` rows, ``channels`` output channels
-    at a time (``grid[1]`` chunks); ``smem`` its dynamic shared memory (0:
-    the tile's is static); ``scratch`` the shape of the statistics'
-    partials, ``(T, blocks or bands a tenant, 3, cout)``."""
+    1, csrc/conv3x3_s1_bf16.cu), ``"s2"`` (f32 at stride 2) or
+    ``"s2_mma"`` (bf16 at stride 2, both csrc/conv3x3_s2.cu). A band
+    kernel's block (``"band"``, ``"s2"``) takes ``band_rows`` output rows
+    of one image and all output channels, ``bands`` a image, ``channels``
+    (8 or 4) a thread; an mma block walks ``grid[0]``'s share of a
+    tenant's bands of ``band_rows`` rows, ``channels`` output channels at
+    a time (``grid[1]`` chunks); ``smem`` its dynamic shared memory;
+    ``scratch`` the shape of the statistics' partials, ``(T, bands a
+    tenant, 3, cout)``."""
 
     kernel: str
     grid: Tuple[int, int, int]
@@ -438,15 +449,17 @@ def fwd_plan(T: int, N: int, H: int, W: int, cin: int, cout: int,
              bf16: bool = False) -> FwdPlan:
     """K1's launch for x ``(T, N, H, W, cin)`` and ``cout`` output
     channels on a card of ``sms`` SMs. A pure function of the shape: the
-    wrappers call it, and so do the CPU tests. bf16 at stride 1 runs the
-    mma kernel (``mma_plan``), stride 2 the tile in both dtypes.
+    wrappers call it, and so do the CPU tests. bf16 runs the mma kernels
+    (``mma_plan`` at stride 1, ``s2_mma_plan`` at stride 2), f32 at stride
+    2 the band kernel of ``_s2_fwd_plan``.
 
     The band kernel (f32, stride 1): a thread holds a run of 8 consecutive
     pixels of the band's ``Wo + 2``-wide grid x 8 channels (4 where 8 would
     leave the card fewer than ``FWD_FILL_THREADS`` threads a SM: the small
-    maps), a block every run of its band x every channel group; the most
-    rows a band that
-    keep a block at most ``FWD_MAX_THREADS`` threads and its band (``CR +
+    maps; at stride 2 also at cin > 4, where the FLOPs bind and twice the
+    threads ran faster), a block every run of its band x every channel
+    group; the most rows a band that keep a block at most
+    ``FWD_MAX_THREADS`` threads and its band (``CR +
     2`` input rows and ``FWD_SLACK`` pixels, each pixel cin rounded up to
     4 floats, and 4 more every 8 pixels) and two-stage weight ring (a
     stage: one tap, or all nine at cin <= 4, x cin x cout rounded up to 8)
@@ -460,18 +473,23 @@ def fwd_plan(T: int, N: int, H: int, W: int, cin: int, cout: int,
         raise ValueError(f"fwd_plan: no conv3x3 forward of a {H}x{W} input "
                          f"at stride {stride}, pad {pad} (T={T}, N={N}, "
                          f"cin={cin}, cout={cout})")
-    if stride == 1 and bf16:
-        m = mma_plan(T, N, W, Ho, Wo, cin, cout, False, sms)
-        return FwdPlan("mma", m.grid, m.threads, m.smem, m.band_rows,
-                       m.bands, m.channels, (T, N * m.bands, 3, cout))
-    if stride != 1:
-        mtiles = _cdiv(N * Ho * Wo, CONV_TILE_ROWS)
-        return FwdPlan("tile", (mtiles, _cdiv(cout, 16), T), 128, 0, 0, 0,
-                       0, (T, mtiles, 3, cout))
-    plan = _band_plan(T, N, Ho, Wo, cin, cout, sms, 8)
+    if bf16:
+        m = (mma_plan(T, N, W, Ho, Wo, cin, cout, False, sms) if stride == 1
+             else s2_mma_plan(T, N, H, W, cin, cout, pad, False, sms))
+        return FwdPlan("mma" if stride == 1 else "s2_mma", m.grid,
+                       m.threads, m.smem, m.band_rows, m.bands, m.channels,
+                       (T, N * m.bands, 3, cout))
+    if stride == 1:
+        make = functools.partial(_band_plan, T, N, Ho, Wo, cin, cout, sms)
+    else:
+        make = functools.partial(_s2_fwd_plan, T, N, H, W, cin, cout, pad,
+                                 sms)
+        if cin > 4:  # the FLOP-bound layers: twice the threads
+            return make(4)
+    plan = make(8)
     if (cout > 4 and plan.grid[0] * T * plan.threads
             < FWD_FILL_THREADS * sms):
-        plan = _band_plan(T, N, Ho, Wo, cin, cout, sms, 4)
+        plan = make(4)
     return plan
 
 
@@ -505,6 +523,49 @@ def _band_plan(T, N, Ho, Wo, cin, cout, sms, channels) -> FwdPlan:
     # the stages, or the statistics' warp sums and means where larger
     sums = (_cdiv(threads(CR), 32) + 1) * channels * G
     return FwdPlan("band", (N * nb, 1, T), threads(CR),
+                   4 * max(stage(CR), sums), CR, nb, channels,
+                   (T, N * nb, 3, cout))
+
+
+def _s2_fwd_plan(T, N, H, W, cin, cout, pad, sms, channels) -> FwdPlan:
+    """``fwd_plan``'s band kernel at stride 2 (f32, csrc/conv3x3_s2.cu)
+    with ``channels`` (8 or 4) a thread: a thread a run of 8 consecutive
+    output pixels of its band x a channel group, a block every run of its
+    band; the band's ``2 CR + 1`` input rows split into even and odd
+    column planes of ``Wo + 1`` pixels (each pixel cin rounded up to 4
+    floats, and 4 more every 8 pixels) and the two-stage weight ring of
+    the stride-1 band kernel; the most rows a band that keep a block
+    within ``FWD_MAX_THREADS`` threads and ``FWD_SMEM_BYTES`` and the grid
+    at ``BAND_BLOCKS_PER_SM`` blocks a SM, balanced over the image. No
+    block splits an output's sum (its order is the tile's)."""
+    Ho, Wo = F.conv_out_hw(H, W, 2, pad)
+    G = _cdiv(cout, channels)
+    CS = _round4(cin)
+    taps = 9 if cin <= 4 else 1  # a weight stage's
+
+    def threads(CR):  # a run of 8 output pixels x a channel group each
+        return _cdiv(CR * Wo, 8) * G
+
+    def stage(CR):  # floats: the planes (4 more every 8 pixels), the ring
+        pixels = (2 * CR + 1) * 2 * (Wo + 1)
+        return (_round4(pixels * CS + pixels // 8 * 4)
+                + 2 * taps * cin * channels * G)
+
+    CR = 1
+    for rows in range(2, Ho + 1):
+        if (threads(rows) > FWD_MAX_THREADS
+                or 4 * stage(rows) > FWD_SMEM_BYTES
+                or T * N * _cdiv(Ho, rows) < BAND_BLOCKS_PER_SM * sms):
+            break
+        CR = rows
+    nb = _cdiv(Ho, CR)
+    CR = _cdiv(Ho, nb)
+    if threads(CR) > BAND_LAUNCH_BOUND or 4 * stage(CR) > BLOCK_SMEM:
+        raise ValueError(f"fwd_plan: a {Wo}-pixel stride-2 output row at "
+                         f"cin {cin}, cout {cout} does not fit a block")
+    # the stages, or the statistics' warp sums and means where larger
+    sums = (_cdiv(threads(CR), 32) + 1) * channels * G
+    return FwdPlan("s2", (N * nb, 1, T), threads(CR),
                    4 * max(stage(CR), sums), CR, nb, channels,
                    (T, N * nb, 3, cout))
 
@@ -606,13 +667,104 @@ def mma_plan(T: int, N: int, Ws: int, Ho: int, Wo: int, Cs: int, Co: int,
                    _cdiv(N * nb, blocks))
 
 
+def s2_mma_smem(dgrad: bool, H: int, W: int, pad: int, Cs: int,
+                band_rows: int, channels: int) -> Tuple[int, int]:
+    """(threads, shared memory) of a stride-2 mma block (the geometry of
+    ``s2_mma_geom`` in csrc/conv3x3_s2.cu) for the conv of an ``H x W``
+    input at ``pad`` whose source has ``Cs`` channels (x's cin, or dy's
+    cout at dgrad), ``band_rows`` GEMM rows a band and ``channels`` output
+    channels a block. The GEMM rows are output rows of ``Wo`` pixels, or
+    at dgrad quad rows of ``NB = (W + pad + 1) // 2`` quads; a warp every
+    32 of a band's. The band: forward its ``2 band_rows + 1`` input rows
+    as even and odd column planes of ``Wo + 1`` pixels, dgrad its
+    ``band_rows + 1`` dy rows of ``NB + 1`` pixels, each pixel round16(Cs)
+    + 8 bf16, or the forward's staged outputs where larger; forward at cin
+    <= 3 instead its input rows as they lie in memory and a region of its
+    own for the patch matrix (9 cin values a pixel packed into 16 or 32)
+    or the staged outputs. Then the weights (forward: the taps' K rows of
+    ``channels`` (+ 8 where the tiles are even) bf16; dgrad: 9 x
+    ``channels`` rows of round16(Cs) + 8) and, forward, each warp's
+    (count, sum, M2) of each channel."""
+    Ho, Wo = F.conv_out_hw(H, W, 2, pad)
+    if dgrad:
+        Wr = (W + pad + 1) // 2
+        Wq = Wr + 1
+    else:
+        Wr, Wq = Wo, Wo + 1
+    warps = _cdiv(band_rows * Wr, MMA_WARP_PIXELS)
+    packed = not dgrad and Cs <= 3
+    KC = _cdiv(9 * Cs if packed else Cs, 16) * 16
+    SA = KC + 8
+    OS = channels if channels // 8 % 2 else channels + 8
+    WS = KC + 8 if dgrad else OS
+    rows_px = MMA_WARP_PIXELS * warps
+    if packed:
+        band_px = rows_px
+    elif dgrad:
+        band_px = (band_rows + 1) * Wq
+    else:
+        band_px = (2 * band_rows + 1) * 2 * Wq
+    band = _cdiv(2 * band_px * SA if dgrad
+                 else max(2 * band_px * SA, 2 * rows_px * OS), 16) * 16
+    raw = _cdiv(2 * _cdiv((2 * band_rows + 1) * W * Cs, 2) * 2, 16) * 16
+    a, slot = (band, raw) if packed else (0, band)
+    w = 2 * 9 * channels * WS if dgrad else 2 * (1 if packed else 9) * KC * WS
+    stats = 0 if dgrad else 4 * 3 * warps * channels
+    return rows_px, a + slot + w + stats
+
+
+@functools.lru_cache(maxsize=None)
+def s2_mma_plan(T: int, N: int, H: int, W: int, cin: int, cout: int,
+                pad: int, dgrad: bool, sms: int = 132) -> MmaPlan:
+    """The stride-2 mma kernel's launch (K1 or dgrad in bf16,
+    csrc/conv3x3_s2.cu) for the conv of x ``(T, N, H, W, cin)`` to
+    ``cout`` channels at ``pad``: dgrad's source is dy (cout channels),
+    its output dx (cin). ``band_rows`` counts GEMM rows (output rows, or
+    dgrad's quad rows), ``bands`` them an image. The rule of ``mma_plan``:
+    the output channels in the fewest chunks of at most
+    ``MMA_MAX_CHANNELS``; the most rows a band that keep a block within
+    ``MMA_MAX_THREADS`` threads and ``MMA_SMEM_BYTES`` and the grid at
+    ``MMA_BLOCKS_PER_SM`` blocks a SM, balanced over the image; then as
+    many blocks as the card holds at once, each walking ``per``
+    consecutive bands of its tenant (its weights load once). Every sum
+    runs in one warp (no split). Where the tenant's weights exceed
+    ``S2_MMA_WEIGHT_BYTES``, chunks of at most ``S2_MMA_CHUNK``."""
+    Ho, Wo = F.conv_out_hw(H, W, 2, pad)
+    Cs, Co = (cout, cin) if dgrad else (cin, cout)
+    R = (H + pad + 1) // 2 if dgrad else Ho
+    most = (S2_MMA_CHUNK if 2 * 9 * Cs * Co > S2_MMA_WEIGHT_BYTES
+            else MMA_MAX_CHANNELS)
+    chunks = _cdiv(Co, most)
+    need = _cdiv(_cdiv(Co, chunks), 8)
+    channels = 8 * min(nt for nt in MMA_TILES if nt >= need)
+    target = MMA_BLOCKS_PER_SM * sms
+    CR = 1
+    for rows in range(2, R + 1):
+        threads, smem = s2_mma_smem(dgrad, H, W, pad, Cs, rows, channels)
+        if (threads > MMA_MAX_THREADS or smem > MMA_SMEM_BYTES
+                or T * chunks * N * _cdiv(R, rows) < target):
+            break
+        CR = rows
+    nb = _cdiv(R, CR)
+    CR = _cdiv(R, nb)
+    threads, smem = s2_mma_smem(dgrad, H, W, pad, Cs, CR, channels)
+    if threads > MMA_MAX_THREADS or smem > BLOCK_SMEM:
+        raise ValueError(f"s2_mma_plan: a {W}-pixel row from {Cs} to {Co} "
+                         "channels does not fit a block")
+    resident = max(1, min(MMA_BLOCKS_PER_SM, SM_SMEM // (smem + 1024))) * sms
+    per = _cdiv(T * chunks * N * nb, resident)
+    blocks = _cdiv(N * nb, per)
+    return MmaPlan((blocks, chunks, T), threads, smem, CR, nb, channels,
+                   _cdiv(N * nb, blocks))
+
+
 def conv3x3_fwd_stats(x: Tensor, w: Tensor, b: Tensor,
                       eps: float = F.BN_EPS, stride: int = 1,
                       padding: int = 1
                       ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """``y = conv3x3(x, w) + b`` (``stride``, ``padding``) and y's
-    per-(tenant, channel) batch mean, biased variance and rstd. At stride 1
-    f32 runs the band kernel and bf16 the mma kernel, at stride 2 the tile
+    per-(tenant, channel) batch mean, biased variance and rstd: f32 on the
+    band kernels, bf16 on the mma kernels, at stride 1 or 2
     (``fwd_plan``); each merges its statistics' partials in a second
     launch."""
     if _on_cpu(x):
@@ -647,12 +799,18 @@ def conv3x3_fwd_stats(x: Tensor, w: Tensor, b: Tensor,
             rc = fn(*ptrs, T, N, H, W, padding, cin, cout, plan.band_rows,
                     plan.channels, plan.grid[0], plan.threads, plan.smem,
                     eps, _stream(x.device))
+        elif plan.kernel == "s2":
+            fn = build.function("conv3x3_s2", "conv3x3_s2_fwd_stats",
+                                (_P,) * 8 + (_I,) * 11 + (_F, _P))
+            rc = fn(*ptrs, T, N, H, W, padding, cin, cout, plan.band_rows,
+                    plan.channels, plan.threads, plan.smem, eps,
+                    _stream(x.device))
         else:
-            fn = build.function("conv3x3_fwd",
-                                _counter("conv3x3_fwd_stats", x),
-                                (_P,) * 8 + (_I,) * 9 + (_F, _P))
-            rc = fn(*ptrs, T, N, H, W, stride, padding, cin, cout,
-                    plan.grid[0], eps, _stream(x.device))
+            fn = build.function("conv3x3_s2", "conv3x3_s2_fwd_stats_mma",
+                                (_P,) * 8 + (_I,) * 12 + (_F, _P))
+            rc = fn(*ptrs, T, N, H, W, padding, cin, cout, plan.band_rows,
+                    plan.channels, plan.grid[0], plan.threads, plan.smem,
+                    eps, _stream(x.device))
     build.check(rc, counter)
     LAUNCHES[counter] += 1
     return y, mean, var, rstd
@@ -689,10 +847,17 @@ def conv3x3_fwd(x: Tensor, w: Tensor, b: Optional[Tensor] = None,
             rc = fn(*ptrs, T, N, H, W, padding, cin, cout, plan.band_rows,
                     plan.channels, plan.grid[0], plan.threads, plan.smem,
                     _stream(x.device))
+        elif plan.kernel == "s2":
+            fn = build.function("conv3x3_s2", "conv3x3_s2_fwd",
+                                (_P,) * 4 + (_I,) * 11 + (_P,))
+            rc = fn(*ptrs, T, N, H, W, padding, cin, cout, plan.band_rows,
+                    plan.channels, plan.threads, plan.smem,
+                    _stream(x.device))
         else:
-            fn = build.function("conv3x3_fwd", _counter("conv3x3_fwd", x),
-                                (_P,) * 4 + (_I,) * 8 + (_P,))
-            rc = fn(*ptrs, T, N, H, W, stride, padding, cin, cout,
+            fn = build.function("conv3x3_s2", "conv3x3_s2_fwd_mma",
+                                (_P,) * 4 + (_I,) * 12 + (_P,))
+            rc = fn(*ptrs, T, N, H, W, padding, cin, cout, plan.band_rows,
+                    plan.channels, plan.grid[0], plan.threads, plan.smem,
                     _stream(x.device))
     build.check(rc, counter)
     LAUNCHES[counter] += 1
@@ -1574,13 +1739,17 @@ def _wgrad_mma_plan(T, N, H, W, cin, cout, pad, sms) -> WgradPlan:
 
 class DgradPlan(NamedTuple):
     """The launch of K4 dgrad at one shape: ``kernel`` ``"band"`` (f32 at
-    stride 1), ``"mma"`` (bf16 at stride 1) or ``"tile"`` (stride 2); a
-    band kernel's block takes ``band_rows`` input rows of one image and all
-    input channels, ``bands`` a image, its threads in ``splits`` groups
-    that split the sum over cout; ``smem`` its dynamic shared memory (the
-    band with its halo and the two-tap weight ring, or the groups' tree
-    where larger). An mma block walks ``grid[0]``'s share of a tenant's
-    bands, ``channels`` input channels at a time (``mma_plan``)."""
+    stride 1), ``"mma"`` (bf16 at stride 1), ``"s2"`` (f32 at stride 2) or
+    ``"s2_mma"`` (bf16 at stride 2); a band kernel's block takes
+    ``band_rows`` input rows of one image and all input channels, ``bands``
+    a image, its threads in ``splits`` groups that split the sum over
+    cout; ``smem`` its dynamic shared memory (the band with its halo and
+    the two-tap weight ring, or the groups' tree where larger). An ``"s2"``
+    block takes ``band_rows`` quad rows (two input rows each, ``bands`` an
+    image), ``channels`` (4, or 1 at cin 1) input channels a thread, no
+    split. An mma
+    block walks ``grid[0]``'s share of a tenant's bands, ``channels`` input
+    channels at a time (``mma_plan``, ``s2_mma_plan``)."""
 
     kernel: str
     grid: Tuple[int, int, int]
@@ -1597,9 +1766,10 @@ def dgrad_plan(T: int, N: int, H: int, W: int, cin: int, cout: int,
                stride: int = 1, pad: int = 1, sms: int = 132,
                bf16: bool = False) -> DgradPlan:
     """K4 dgrad's launch for dx ``(T, N, H, W, cin)`` from a dy of ``cout``
-    channels. bf16 at stride 1 runs the mma kernel (``mma_plan``: dy the
-    source, dx the output), stride 2 the tile in both dtypes. The band
-    kernel (f32, stride 1): 8 pixels x 8 channels a
+    channels. bf16 runs the mma kernels (``mma_plan`` at stride 1, dy the
+    source and dx the output; ``s2_mma_plan`` at stride 2), f32 at stride 2
+    the band kernel of ``_s2_dgrad_plan``. The band kernel (f32, stride
+    1): 8 pixels x 8 channels a
     thread (8 x 4 at cin <= 4); the most rows a band that keep a block at
     most ``DGRAD_MAX_THREADS`` threads and ``DGRAD_SMEM_BYTES`` of shared
     memory and the grid at ``BAND_BLOCKS_PER_SM`` blocks a SM, balanced
@@ -1612,13 +1782,15 @@ def dgrad_plan(T: int, N: int, H: int, W: int, cin: int, cout: int,
         raise ValueError(f"dgrad_plan: no conv3x3 dgrad of a {H}x{W} input "
                          f"at stride {stride}, pad {pad} (T={T}, N={N}, "
                          f"cin={cin}, cout={cout})")
-    if stride == 1 and bf16:
-        m = mma_plan(T, N, Wo, H, W, cout, cin, True, sms)
-        return DgradPlan("mma", m.grid, m.threads, m.smem, m.band_rows,
-                         m.bands, 1, m.channels)
+    if bf16:
+        m = (mma_plan(T, N, Wo, H, W, cout, cin, True, sms) if stride == 1
+             else s2_mma_plan(T, N, H, W, cin, cout, pad, True, sms))
+        return DgradPlan("mma" if stride == 1 else "s2_mma", m.grid,
+                         m.threads, m.smem, m.band_rows, m.bands, 1,
+                         m.channels)
     if stride != 1:
-        return DgradPlan("tile", (_cdiv(N * H * W, CONV_TILE_ROWS),
-                                  _cdiv(cin, 16), T), 128, 0, 0, 0, 1)
+        return _s2_dgrad_plan(T, N, H, W, cin, cout, pad, sms,
+                              1 if cin == 1 else 4)
     TN = 4 if cin <= 4 else 8
     CG = _cdiv(cin, TN)
     CP = _round4(cout)
@@ -1650,14 +1822,79 @@ def dgrad_plan(T: int, N: int, H: int, W: int, cin: int, cout: int,
                      max(smem(CR), tree), CR, nb, KS)
 
 
+def s2_dgrad_taps(pad: int) -> Dict[Tuple[int, int], Tuple[
+        Tuple[int, int, int, int], ...]]:
+    """The stride-2 dgrad's parity classes at ``pad``: for each class
+    ``(ih % 2, iw % 2)`` of dx pixels, its live taps ``(kh, kw, dh, dw)``:
+    dx pixel (ih, iw) takes ``dy[ih // 2 + dh, iw // 2 + dw] *
+    w[kh, kw]`` (zero where that lies outside dy), in the order the tile
+    summed them — ``(kh, kw)`` descending, its K = (2 - kh, 2 - kw, co) —
+    which csrc/conv3x3_s2.cu keeps (``kS2Taps``, whose classes are those of
+    ``ih + pad``). Input row ih reads dy row (ih + pad - kh) / 2 where that
+    is an integer: kh 0 and 2 where ih + pad is even, kh 1 where it is
+    odd; so the four classes take the 9 taps once between them, 4 + 2 + 2
+    + 1."""
+    if pad not in PADDINGS:
+        raise ValueError(f"s2_dgrad_taps: pad 1 or 0, got {pad}")
+    out = {}
+    for ph in (0, 1):
+        for pw in (0, 1):
+            out[(ph, pw)] = tuple(
+                (kh, kw, (ph + pad - kh) // 2, (pw + pad - kw) // 2)
+                for kh in (2, 1, 0) if (ph + pad - kh) % 2 == 0
+                for kw in (2, 1, 0) if (pw + pad - kw) % 2 == 0)
+    return out
+
+
+def _s2_dgrad_plan(T, N, H, W, cin, cout, pad, sms, channels) -> DgradPlan:
+    """``dgrad_plan``'s band kernel at stride 2 (f32, csrc/conv3x3_s2.cu)
+    with ``channels`` (4, or 1 at cin 1) input channels a thread. dx's pixels in
+    quads (2 x 2, of ``ih + pad`` and ``iw + pad`` even and odd): ``NA =
+    (H + pad + 1) // 2`` quad rows of ``NB = (W + pad + 1) // 2`` quads an
+    image; a band of CR quad rows reads dy rows A0 - 1 .. A0 + CR - 1 with
+    columns -1 .. NB - 1, each pixel's cout floats on a stride of cout
+    (rounded up to 4, + 4 where the float4 reads would conflict); a thread
+    8 quads x a channel group, the four classes one after the other; the
+    two-tap weight ring of the stride-1 kernel. The most quad rows a band
+    that keep a block within ``DGRAD_MAX_THREADS`` threads and
+    ``DGRAD_SMEM_BYTES`` and the grid at ``BAND_BLOCKS_PER_SM`` blocks a
+    SM, balanced over the image. No block splits a sum (its order is the
+    tile's)."""
+    NA, NB = (H + pad + 1) // 2, (W + pad + 1) // 2
+    CG = _cdiv(cin, channels)
+    CP = _round4(cout)
+    CP += 4 if CP // 4 % 2 == 0 else 0
+
+    def threads(CR):
+        return _cdiv(CR * NB, 8) * CG
+
+    def smem(CR):
+        return ((CR + 1) * (NB + 1) * CP + 2 * CG * channels * CP) * 4
+
+    CR = 1
+    for rows in range(2, NA + 1):
+        if (threads(rows) > DGRAD_MAX_THREADS
+                or smem(rows) > DGRAD_SMEM_BYTES
+                or T * N * _cdiv(NA, rows) < BAND_BLOCKS_PER_SM * sms):
+            break
+        CR = rows
+    nb = _cdiv(NA, CR)
+    CR = _cdiv(NA, nb)
+    if threads(CR) > BAND_LAUNCH_BOUND or smem(CR) > BLOCK_SMEM:
+        raise ValueError(f"dgrad_plan: a {W}-pixel stride-2 row at cin "
+                         f"{cin}, cout {cout} does not fit a block")
+    return DgradPlan("s2", (N * nb, 1, T), threads(CR), smem(CR), CR, nb, 1,
+                     channels)
+
+
 def conv3x3_dgrad(dy: Tensor, w: Tensor, stride: int = 1,
                   in_hw: Optional[Tuple[int, int]] = None,
                   padding: int = 1) -> Tensor:
     """The input gradient of the 3x3 conv at ``stride`` and ``padding``;
     ``in_hw`` is the input's (H, W), required at stride 2 and at pad 0
     (dy's size does not determine it, or not as dy's own), and dy's own at
-    stride 1, pad 1. At stride 1 f32 runs the band kernel and bf16 the mma
-    kernel, at stride 2 the tile kernel (``dgrad_plan``)."""
+    stride 1, pad 1. f32 runs the band kernels, bf16 the mma kernels, at
+    stride 1 or 2 (``dgrad_plan``)."""
     name = _conv_name("conv3x3_dgrad", stride, padding)
     if in_hw is None:
         if stride != 1 or padding != 1:
@@ -1692,11 +1929,18 @@ def conv3x3_dgrad(dy: Tensor, w: Tensor, stride: int = 1,
             rc = fn(_ptr(dy), _ptr(w), _ptr(dx), T, N, H, W, padding, cin,
                     cout, plan.band_rows, plan.channels, plan.grid[0],
                     plan.threads, plan.smem, _stream(dy.device))
+        elif plan.kernel == "s2":
+            fn = build.function("conv3x3_s2", "conv3x3_s2_dgrad",
+                                (_P,) * 3 + (_I,) * 11 + (_P,))
+            rc = fn(_ptr(dy), _ptr(w), _ptr(dx), T, N, H, W, padding, cin,
+                    cout, plan.band_rows, plan.channels, plan.threads,
+                    plan.smem, _stream(dy.device))
         else:
-            fn = build.function("conv3x3_bwd", _counter("conv3x3_dgrad", dy),
-                                (_P,) * 3 + (_I,) * 8 + (_P,))
-            rc = fn(_ptr(dy), _ptr(w), _ptr(dx), T, N, H, W, stride,
-                    padding, cin, cout, _stream(dy.device))
+            fn = build.function("conv3x3_s2", "conv3x3_s2_dgrad_mma",
+                                (_P,) * 3 + (_I,) * 12 + (_P,))
+            rc = fn(_ptr(dy), _ptr(w), _ptr(dx), T, N, H, W, padding, cin,
+                    cout, plan.band_rows, plan.channels, plan.grid[0],
+                    plan.threads, plan.smem, _stream(dy.device))
     build.check(rc, counter)
     LAUNCHES[counter] += 1
     return dx

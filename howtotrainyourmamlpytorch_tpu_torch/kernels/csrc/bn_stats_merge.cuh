@@ -1,5 +1,6 @@
-// K1's second launch, shared by both K1 designs (the tile of conv3x3_fwd.cu
-// and the band kernels of conv3x3_fwd_s1.cu): the per-block (count, mean,
+// K1's second launch, shared by every K1 design (the band kernels of
+// conv3x3_fwd_s1.cu and conv3x3_s2.cu, the tensor-core kernels of
+// conv3x3_s1_bf16.cu and conv3x3_s2.cu): the per-block (count, mean,
 // M2) partials of one (tenant, channel) merged with Chan's formula into
 // the mean, the BIASED variance and rstd = 1 / sqrt(var + eps). The
 // partials lie as (T, P, 3, cout); any P. No atomics: the merge order is

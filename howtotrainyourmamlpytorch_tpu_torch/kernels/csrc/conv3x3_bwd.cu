@@ -1,56 +1,32 @@
-// K4 conv3x3_bwd: the first backward of the slice's 3x3 conv on the tile
-// kernels at stride 2, two entry points each for f32 and bf16 (wgrad and
-// dgrad). At stride 1 the f32 convs (every shipped config) run the band
-// kernels of conv3x3_bwd_s1.cu, the bf16 ones the tensor-core kernels of
-// conv3x3_s1_bf16.cu (dgrad) and conv3x3_wgrad_s1_bf16.cu (wgrad): every
-// entry here refuses stride 1, and no tile has a stride-1 instantiation.
+// K4 conv3x3_wgrad at stride 2 (pad 1 or 0), f32 and bf16: the weight and
+// bias gradients of the stride-2 conv on the tile kernel, and the last
+// caller of the tile design (conv3x3_tile.cuh). At stride 1 wgrad runs the
+// f32 band kernel of conv3x3_bwd_s1.cu and the bf16 tensor-core kernel of
+// conv3x3_wgrad_s1_bf16.cu: the entries here refuse stride 1. The stride-2
+// dgrad runs conv3x3_s2.cu's band kernels.
 //
 // Replaces (JAX package) the gradient XLA derives for
-// howtotrainyourmamlpytorch_tpu/ops/functional.py::_conv2d_raw :199 in the
-// inner-loop support gradient (core/maml.py::_task_learner :177-189): the
-// transposed GEMMs of the `gemm`/`im2col` lowering.
+// howtotrainyourmamlpytorch_tpu/ops/functional.py::_conv2d_raw :199 with
+// respect to w and b, in the inner-loop support gradient
+// (core/maml.py::_task_learner :177-189): the transposed GEMM of the
+// `gemm`/`im2col` lowering.
 //
-// * conv3x3_dgrad: dx = the transposed 3x3 conv of dy with each tenant's
-//   weights — K1's implicit-GEMM tile (conv3x3_tile.cuh) reading the weights
-//   flipped in space and transposed in channels. FLOP-bound at the
-//   slice's layers 2-4, exactly like the forward.
-// * conv3x3_wgrad: dW[t] = patches(x[t])^T dy[t] and db[t] = sum dy[t]: a
-//   GEMM whose reduction runs over the M = N*Ho*Wo pixels. FLOP-bound at
-//   layers 2-4, byte-bound at layer 1. The pixel axis is split over S
-//   blocks per tenant into partial buffers, reduced by a second launch in a
-//   fixed order — deterministic, no atomics. Patches are gathered from x
-//   on the fly. (The redesign that stride 1 had — x and dy staged once per
-//   band, whole channel rows a block, the tensor cores in bf16 — is queued
-//   here as per-parity sub-GEMMs.)
+// dW[t] = patches(x[t])^T dy[t] and db[t] = sum dy[t]: a GEMM whose
+// reduction runs over the M = N*Ho*Wo output pixels, x read at (2*oh - pad
+// + kh, 2*ow - pad + kw). FLOP-bound at the strided Omniglot model's layers
+// 2-4, byte-bound at layer 1. The pixel axis is split over S blocks per
+// tenant into partial buffers, reduced by a second launch in a fixed order
+// (wgrad_reduce.cuh) — deterministic, no atomics. Patches are gathered
+// from x on the fly through a bounds check. At Omniglot's layer 4 (2x2
+// outputs, 80 pixels a tenant) the split rule gives one split, 288 blocks
+// at T = 8. (The redesign stride 1 had — x and dy staged once per band,
+// the tensor cores in bf16 — is queued.)
 //
-// Stride 2 (the strided model): wgrad reduces over the N*Ho*Wo output
-// pixels with the forward's tap arithmetic, x at (2*oh - 1 + kh, 2*ow - 1 +
-// kw); at Omniglot's layer 4 (2x2 outputs, 80 pixels a tenant) the split
-// rule gives one split, 288 blocks at T = 8. dgrad is one implicit GEMM
-// over the INPUT pixels with all 9 taps masked by the parity of
-// ih + 1 - kh and iw + 1 - kw (conv3x3_tile.cuh): the simpler of the two
-// designs (the other: four sub-GEMMs, one per (ih % 2, iw % 2) class, each
-// with only its live taps). It spends about 4x the useful FMAs (9 taps
-// against 2.25 live on average) and reads dy of a quarter of dx's pixels,
-// so its bound is FLOPs at layers 2-4, like the forward's, and the masked
-// design sits at least 4x above it.
-//
-// Pad 0 (the unpadded model): a runtime argument that moves the taps'
-// origin, as in the forward. wgrad reads x at (2*oh - pad + kh); dgrad's
-// rows are the H x W input pixels and its source the smaller dy, read at
-// (ih - (2 - pad) + kh') / 2 where that is even and inside dy — so
-// an input row that no output reads (the last of 84 -> 41, 20 -> 9) gets a
-// zero gradient.
-//
-// bf16 (conv3x3_s2_wgrad_bf16, conv3x3_s2_dgrad_bf16 and their pad-0
-// kin): bf16 dy, w and x, widened to f32 as they load
-// (conv3x3_tile.cuh); every sum accumulates in f32 (dgrad's 9*cout-deep
-// dot, wgrad's pixel reduction and its split partials) and is rounded once
-// to bf16 at the store: dx, dw and db come out bf16 (the caller hands dw
-// and db to the f32 leaves as f32). Bound as in f32 (FFMA, the same FLOPs),
-// with half the bytes. Both dtypes' stride-2 kernels are the code they
-// were, bit for bit (the stride a constant where it was a template
-// argument).
+// bf16 (conv3x3_s2_wgrad_bf16 and its pad-0 kin): bf16 x and dy, widened to
+// f32 as they load; the pixel reduction and its split partials accumulate
+// in f32 and are rounded once to bf16 at the store: dw and db come out bf16
+// (the caller hands them to the f32 leaves as f32). Bound as in f32 (FFMA,
+// the same FLOPs), with half the bytes.
 
 #include <cuda_runtime.h>
 
@@ -58,39 +34,6 @@
 #include "wgrad_reduce.cuh"
 
 namespace maml {
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-conv3x3_dgrad_kernel(const T* __restrict__ dy, const T* __restrict__ w,
-                     T* __restrict__ dx, int N, int H, int W, int Ho,
-                     int Wo, int cin_fwd, int cout_fwd, int pad) {
-  __shared__ ConvTileSmem s;
-  const int tid = threadIdx.x;
-  const int t = blockIdx.z;
-  const int n0 = blockIdx.y * kBN;
-  const int m0 = blockIdx.x * kBM;
-  const int M = N * H * W;
-  float acc[kTM][kTN];
-  // the transposed conv reads dy (Ho x Wo, cout_fwd channels) and writes
-  // dx (H x W, cin_fwd channels)
-  conv3x3_tile<T, true>(dy + (size_t)t * N * Ho * Wo * cout_fwd,
-                                 w + (size_t)t * 9 * cin_fwd * cout_fwd, Ho,
-                                 Wo, H, W, M, cout_fwd, cin_fwd, 2 - pad, m0,
-                                 n0, s, acc);
-  const int cg = tid % 4;
-  const int rg = tid / 4;
-  T* dxt = dx + (size_t)t * M * cin_fwd;
-#pragma unroll
-  for (int j = 0; j < kTN; ++j) {
-    const int n = n0 + cg * 4 + j;
-#pragma unroll
-    for (int i = 0; i < kTM; ++i) {
-      const int m = m0 + rg + 32 * i;
-      if (m < M && n < cin_fwd)
-        dxt[(size_t)m * cin_fwd + n] = from_f32<T>(acc[i][j]);
-    }
-  }
-}
 
 constexpr int kWK = 64;  // rows of K (= 9*cin) per block
 constexpr int kWN = 16;  // output channels per block
@@ -229,26 +172,6 @@ conv3x3_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ dy,
 }
 
 template <typename T>
-int dgrad(const T* dy, const T* w, T* dx, int T_, int N, int H, int W,
-          int stride, int pad, int cin_fwd, int cout_fwd, void* stream) {
-  if ((stride != 1 && stride != 2) || (pad != 0 && pad != 1) ||
-      H + 2 * pad < 3 || W + 2 * pad < 3)
-    return (int)cudaErrorInvalidValue;
-  const int Ho = (H + 2 * pad - 3) / stride + 1;
-  const int Wo = (W + 2 * pad - 3) / stride + 1;
-  const int M = N * H * W;
-  if (T_ < 1 || H < 1 || W < 1 || M < 1 || cin_fwd < 1 || cout_fwd < 1)
-    return (int)cudaErrorInvalidValue;
-  dim3 grid(ceil_div(M, kBM), ceil_div(cin_fwd, kBN), T_);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // stride 1: conv3x3_bwd_s1.cu (f32), conv3x3_s1_bf16.cu (bf16)
-  if (stride == 1) return (int)cudaErrorInvalidValue;
-  conv3x3_dgrad_kernel<T><<<grid, kThreads, 0, st>>>(
-      dy, w, dx, N, H, W, Ho, Wo, cin_fwd, cout_fwd, pad);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
 int wgrad(const T* x, const T* dy, float* part_w, float* part_b, T* dw,
           T* db, int T_, int N, int H, int W, int stride, int pad, int cin,
           int cout, int S, void* stream) {
@@ -277,26 +200,6 @@ int wgrad(const T* x, const T* dy, float* part_w, float* part_b, T* dw,
 }  // namespace maml
 
 extern "C" {
-
-// dx (T, N, H, W, cin_fwd) = dgrad of the forward conv at `stride` (2:
-// stride 1 returns an error) and `pad` (1 or 0) with weights w (T, 3, 3,
-// cin_fwd, cout_fwd), from dy (T, N, Ho, Wo, cout_fwd), Ho = (H + 2*pad -
-// 3) / stride + 1 (Wo likewise).
-int conv3x3_dgrad(const float* dy, const float* w, float* dx, int T, int N,
-                  int H, int W, int stride, int pad, int cin_fwd,
-                  int cout_fwd, void* stream) {
-  return maml::dgrad<float>(dy, w, dx, T, N, H, W, stride, pad, cin_fwd,
-                            cout_fwd, stream);
-}
-
-// The same in bf16: dy, w and dx bf16.
-int conv3x3_dgrad_bf16(const __nv_bfloat16* dy, const __nv_bfloat16* w,
-                       __nv_bfloat16* dx, int T, int N, int H, int W,
-                       int stride, int pad, int cin_fwd, int cout_fwd,
-                       void* stream) {
-  return maml::dgrad<__nv_bfloat16>(dy, w, dx, T, N, H, W, stride, pad,
-                                    cin_fwd, cout_fwd, stream);
-}
 
 // dw (T, 3, 3, cin, cout) and db (T, cout) of the conv at `stride` (2:
 // stride 1 returns an error) and `pad` from x (T, N, H, W, cin) and dy (T,

@@ -5,7 +5,9 @@
 // howtotrainyourmamlpytorch_tpu/ops/functional.py::_conv2d_raw :199 in the
 // inner-loop support gradient (core/maml.py::_task_learner :177-189) and in
 // the outer backward: the transposed GEMMs of the `gemm`/`im2col` lowering.
-// The bf16 and the stride-2 instantiations stay on conv3x3_bwd.cu's tiles.
+// bf16 at stride 1 runs conv3x3_s1_bf16.cu (dgrad) and
+// conv3x3_wgrad_s1_bf16.cu (wgrad); at stride 2 dgrad runs conv3x3_s2.cu,
+// wgrad conv3x3_bwd.cu's tile.
 //
 // f32 FFMA only (no TF32, no tensor cores: the JAX package multiplies f32 in
 // true f32). No atomics: every sum is taken in a fixed order, so two

@@ -8,8 +8,8 @@
 // task under vmap) and the statistics pass of `batch_norm` :368 — and, in
 // the stats-free mode, `_conv2d_raw` in XLA's second derivative (the
 // derivative of dgrad in dy, conv3x3(ddx, w), and of wgrad in dy,
-// conv3x3(x, ddw) + ddb). The bf16 and the stride-2 instantiations stay on
-// conv3x3_fwd.cu's tile.
+// conv3x3(x, ddw) + ddb). bf16 at stride 1 runs conv3x3_s1_bf16.cu, both
+// dtypes at stride 2 conv3x3_s2.cu.
 //
 // f32 FFMA only (no TF32, no tensor cores: the JAX package multiplies f32 in
 // true f32). No atomics: every sum is taken in a fixed order, so two

@@ -11,11 +11,12 @@
 // (conv3x3(ddx, w), and conv3x3(x, ddw) + ddb) in conv3x3_fwd_bf16 and
 // conv3x3_p0_fwd_bf16; and the gradient XLA derives for `_conv2d_raw` with
 // respect to x in conv3x3_dgrad_bf16 and conv3x3_p0_dgrad_bf16. These ran on
-// the FFMA tile of conv3x3_fwd.cu / conv3x3_bwd.cu, whose bf16 entries now
-// refuse stride 1. The f32 convs stay on FFMA (conv3x3_fwd_s1.cu,
+// an FFMA tile. The f32 convs stay on FFMA (conv3x3_fwd_s1.cu,
 // conv3x3_bwd_s1.cu: the JAX package multiplies f32 in true f32); bf16
 // wgrad at stride 1 runs conv3x3_wgrad_s1_bf16.cu (the same ldmatrix and
-// mma.sync helpers, mma_common.cuh), every stride-2 conv the tile.
+// mma.sync helpers, mma_common.cuh), K1 and dgrad at stride 2
+// conv3x3_s2.cu (the same design on stride-2 bands), wgrad at stride 2 the
+// tile of conv3x3_bwd.cu.
 //
 // Bound on an H100 (989 TFLOP/s dense bf16; 3.35 TB/s): the bytes, at every
 // main-path shape. At cin <= 3 (mini-ImageNet stage 0, Omniglot layer 1)

@@ -1,5 +1,6 @@
 // What the bf16 tensor-core kernels (conv3x3_s1_bf16.cu: K1 and dgrad;
-// conv3x3_wgrad_s1_bf16.cu: wgrad) share: ldmatrix and the m16n8k16 bf16
+// conv3x3_wgrad_s1_bf16.cu: wgrad; conv3x3_s2.cu: K1 and dgrad at stride
+// 2) share: ldmatrix and the m16n8k16 bf16
 // mma.sync with f32 sums (inline PTX, sm_80 and later), and the copy of 8
 // bf16 of a row into shared memory.
 #pragma once

@@ -112,26 +112,30 @@ def test_small_maps_take_bands_of_fewer_rows(shape):
 @pytest.mark.parametrize("shape", [
     (8, 20, 28, 1, 64, 2), (8, 25, 84, 3, 48, 2), (8, 25, 42, 48, 48, 1),
     (2, 25, 41, 48, 48, 1)], ids=str)
-def test_bf16_and_stride_2_keep_the_tile(shape):
-    """Both dtypes at stride 2 run the tile kernel on its grid as it was
-    (256 pixels x 16 channels a block), so their results keep their bits;
-    the statistics' partials are the tile's. bf16 at stride 1 runs the
-    tensor-core kernel (csrc/conv3x3_s1_bf16.cu) on ``mma_plan``'s grid,
-    its partials a band each."""
+def test_bf16_and_stride_2_take_the_mma_and_s2_kernels(shape):
+    """At stride 2 f32 runs the band kernel of csrc/conv3x3_s2.cu
+    (``"s2"``, a block a band of one image) and bf16 its tensor-core kernel
+    (``"s2_mma"`` on ``s2_mma_plan``'s grid); bf16 at stride 1 runs the
+    tensor-core kernel of csrc/conv3x3_s1_bf16.cu on ``mma_plan``'s grid.
+    Every one's statistics' partials are a band each."""
     T, N, hw, cin, cout, stride = shape
     Ho = (hw - 1) // stride + 1
-    mtiles = -(-N * Ho * Ho // 256)
     for bf16 in ((False, True) if stride == 2 else (True,)):
         plan = cb.fwd_plan(T, N, hw, hw, cin, cout, stride, 1, SMS, bf16)
         if stride == 1:
             m = cb.mma_plan(T, N, hw, Ho, Ho, cin, cout, False, SMS)
-            assert plan.kernel == "mma" and plan.channels == m.channels
+        elif bf16:
+            m = cb.s2_mma_plan(T, N, hw, hw, cin, cout, 1, False, SMS)
+        if bf16:
+            assert plan.kernel == ("mma" if stride == 1 else "s2_mma")
+            assert plan.channels == m.channels and plan.smem == m.smem
             assert plan.grid == m.grid and plan.bands == m.bands
-            assert plan.scratch == (T, N * m.bands, 3, cout)
-            continue
-        assert plan.kernel == "tile" and plan.channels == 0
-        assert plan.grid == (mtiles, -(-cout // 16), T)
-        assert plan.scratch == (T, mtiles, 3, cout)
+        else:
+            assert plan.kernel == "s2" and plan.channels in (8, 4)
+            assert plan.grid == (N * plan.bands, 1, T)
+        assert (plan.bands - 1) * plan.band_rows < Ho
+        assert Ho <= plan.bands * plan.band_rows
+        assert plan.scratch == (T, N * plan.bands, 3, cout)
 
 
 def test_fwd_plan_refuses_rows_no_block_holds():

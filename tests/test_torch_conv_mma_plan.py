@@ -200,10 +200,14 @@ def test_mma_plan_refuses_rows_no_block_holds():
 
 
 def test_stride_2_and_f32_take_no_mma_plan():
-    assert cb.fwd_plan(8, 20, 28, 28, 1, 64, 2, 1, SMS, True).kernel == "tile"
+    """bf16 at stride 2 plans the stride-2 tensor-core kernel
+    (``s2_mma_plan``, csrc/conv3x3_s2.cu), f32 at stride 1 the band
+    kernels: neither takes ``mma_plan``'s."""
+    assert cb.fwd_plan(8, 20, 28, 28, 1, 64, 2, 1, SMS,
+                       True).kernel == "s2_mma"
     assert cb.fwd_plan(8, 25, 42, 42, 48, 48, 1, 1, SMS).kernel == "band"
     assert cb.dgrad_plan(8, 20, 14, 14, 64, 64, 2, 1, SMS,
-                         True).kernel == "tile"
+                         True).kernel == "s2_mma"
     assert cb.dgrad_plan(8, 25, 42, 42, 48, 48, 1, 1, SMS).kernel == "band"
 
 

@@ -23,7 +23,11 @@ bit for bit the first, its entries' refusals, and no K2 wrapper reaching
 a Triton kernel; K4 wgrad in bf16 at stride 1 on its tensor-core kernel
 (``csrc/conv3x3_wgrad_s1_bf16.cu``) at every main-path shape and at edge
 shapes, off alignment, a second launch bit for bit the first, and its
-entry's and the tile's refusals; and the ingest kernel
+entry's and the tile's refusals; K1 (both modes) and K4 dgrad at stride 2
+on the band kernels of ``csrc/conv3x3_s2.cu``, f32 and bf16, at every
+stride-2 main-path shape and at edge shapes, off alignment, dx's rows and
+columns that no output reads an exact zero, a second launch bit for bit
+the first, and their entries' refusals; and the ingest kernel
 ``episode_expand`` equal to its twin bit for bit (it is a pure lookup).
 These need the card: marked ``cuda``, they skip where
 ``torch.cuda.is_available()`` is false. On the card (``--noconftest``:
@@ -1414,53 +1418,228 @@ def test_k1_band_kernels_take_tensors_off_16_byte_alignment(pad, device):
            F.conv3x3(x, w, b, padding=pad))
 
 
-def _tile_fwd_stats(x, w, b, stride, pad):
-    """K1 with statistics launched on the tile entry of csrc/conv3x3_fwd.cu
-    directly; returns (rc, y, mean, var, rstd)."""
+# K1 (both modes) and K4 dgrad at stride 2, f32 and bf16: the band kernels
+# of csrc/conv3x3_s2.cu (f32 on FFMA in the tile's order, bf16 on the
+# tensor cores). Every stride-2 shape the shipped configs run — the strided
+# Omniglot model's layers 1-4 (28/14/7/4, cin 1 then 64, cout 64) at N 20,
+# T 8, pad 1; the unpadded strided model's stages 0-3 (84/41/20/9, cin 3
+# then 48, cout 48) at N 25 and 75, T 8, pad 0; dgrad back to the image
+# (cin 1 and 3: the norm-first models) at each first layer — and edge
+# shapes: odd and non-square maps (7 -> 4 at pad 1, 9 -> 4 at pad 0), T =
+# 1, cin 1, 2, 3, 5, 17 and 20 (the bf16 patch rows packed at cin <= 3),
+# cout 1, 3, 4, 12, 20, 33 and 65 (channel groups and n8 tiles padded and
+# masked; two chunks), pad 0 and 1 (the main shapes' last bands are
+# shorter than the others: 41 -> 6 rows of 7, 21 quad rows -> 10 of 11). f32
+# within 1e-5 + 1e-4 * max |twin|, bf16 ``within_ulp`` (y one ulp of the
+# sum and one of the bias add); dx's last row and column where no output
+# reads them (pad 0, an even map) an exact zero; a second launch of each
+# bit for bit the first.
+S2_MAIN_SHAPES = (
+    [(8, 20, hw, cin, 64, 1)
+     for hw, cin in ((28, 1), (14, 64), (7, 64), (4, 64))]
+    + [(8, n, hw, cin, 48, 0) for n in (25, 75)
+       for hw, cin in ((84, 3), (41, 48), (20, 48), (9, 48))]
+)
+S2_EDGE_SHAPES = [
+    # T, N, H, W, cin, cout, pad
+    (1, 1, 5, 5, 1, 4, 1),
+    (1, 1, 5, 5, 1, 4, 0),
+    (1, 3, 9, 7, 3, 20, 1),
+    (2, 3, 11, 10, 3, 20, 0),
+    (1, 2, 9, 11, 2, 16, 1),
+    (1, 2, 13, 6, 17, 33, 1),
+    (2, 5, 10, 10, 17, 33, 0),
+    (2, 4, 6, 30, 5, 12, 1),
+    (2, 3, 12, 12, 20, 3, 1),
+    (1, 2, 10, 9, 20, 1, 0),
+    (1, 2, 8, 8, 48, 65, 1),
+    (3, 8, 23, 23, 48, 48, 1),
+    (2, 2, 7, 7, 64, 64, 1),
+    (1, 3, 4, 4, 64, 64, 0),
+]
+S2_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check_s2(T, N, H, W, cin, cout, pad, seed, dtype):
+    """K1 with statistics and stats-free (with and without bias) and dgrad
+    at stride 2 against their twins on the stride-2 counters, each on its
+    band plan; the stats-free y with the bias the stats mode's bit for bit;
+    dx's unread last row and column zero; a second launch of each bit for
+    bit the first."""
+    x, w, b = (t.to(dtype) for t in _k1_inputs(T, N, H, W, cin, cout, seed))
+    bf = dtype == torch.bfloat16
+    sms = cb._sms(x.device)
+    kernel = "s2_mma" if bf else "s2"
+    assert cb.fwd_plan(T, N, H, W, cin, cout, 2, pad, sms, bf).kernel == kernel
+    assert cb.dgrad_plan(T, N, H, W, cin, cout, 2, pad, sms,
+                         bf).kernel == kernel
+
+    def hold(got, want, what, ulps=None):
+        if bf:
+            within_ulp(got, want, what, ulps)
+        else:
+            _close(got, want)
+
+    cb.reset_launches()
+    got = cb.conv3x3_fwd_stats(x, w, b, stride=2, padding=pad)
+    want = F.conv3x3_fwd_stats(x, w, b, stride=2, padding=pad)
+    plain = F.conv3x3(x, w, stride=2, padding=pad)
+    hold(got[0], want[0], "K1 y", bf16_ulp(want[0]) + bf16_ulp(plain))
+    for a, c, what in zip(got[1:], want[1:], ("mean", "var", "rstd")):
+        hold(a, c, f"K1 {what}")
+    y = cb.conv3x3_fwd(x, w, b, 2, pad)
+    assert torch.equal(y, got[0])
+    y0 = cb.conv3x3_fwd(x, w, None, 2, pad)
+    hold(y0, plain, "K1 stats-free")
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    dy = torch.randn(plain.shape, device="cuda", generator=g).to(dtype)
+    dx = cb.conv3x3_dgrad(dy, w, 2, (H, W), pad)
+    hold(dx, F.conv3x3_dgrad(dy, w, 2, (H, W), pad), "dgrad")
+    if pad == 0 and H % 2 == 0:
+        assert not dx[:, :, -1].any()
+    if pad == 0 and W % 2 == 0:
+        assert not dx[:, :, :, -1].any()
+    tag = "_s2" + ("_p0" if pad == 0 else "")
+    sfx = "_bf16" if bf else ""
+    assert cb.launches() == {**{k: 0 for k in cb.KERNELS},
+                             f"conv3x3{tag}_fwd_stats{sfx}": 1,
+                             f"conv3x3{tag}_fwd{sfx}": 2,
+                             f"conv3x3{tag}_dgrad{sfx}": 1}
+    again = cb.conv3x3_fwd_stats(x, w, b, stride=2, padding=pad)
+    assert all(torch.equal(a, c) for a, c in zip(again, got))
+    assert torch.equal(cb.conv3x3_fwd(x, w, None, 2, pad), y0)
+    assert torch.equal(cb.conv3x3_dgrad(dy, w, 2, (H, W), pad), dx)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", S2_DTYPES, ids=("f32", "bf16"))
+@pytest.mark.parametrize("shape", S2_MAIN_SHAPES, ids=str)
+def test_s2_kernels_match_their_twins_at_main_path_shapes(shape, dtype,
+                                                          device):
+    T, N, hw, cin, cout, pad = shape
+    _check_s2(T, N, hw, hw, cin, cout, pad, hw + cin + N, dtype)
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("dtype", S2_DTYPES, ids=("f32", "bf16"))
+@pytest.mark.parametrize("shape", S2_EDGE_SHAPES, ids=str)
+def test_s2_kernels_match_their_twins_at_edge_shapes(shape, dtype, device):
+    T, N, H, W, cin, cout, pad = shape
+    bf = dtype == torch.bfloat16
+    plan = cb.fwd_plan(T, N, H, W, cin, cout, 2, pad, cb._sms(device), bf)
+    if cout > 64 and bf:
+        assert plan.grid[1] > 1  # channel chunks
+    _check_s2(*shape, sum(shape), dtype)
+
+
+@pytest.mark.parametrize("dtype", S2_DTYPES, ids=("f32", "bf16"))
+@pytest.mark.parametrize("pad", (1, 0))
+def test_s2_kernels_take_tensors_off_16_byte_alignment(pad, dtype, device):
+    """Views one element into their storage (contiguous, so the wrappers
+    take them): the kernels stage x, dy and the weights an element (f32: 4
+    bytes) at a time and store y and dx an element at a time, with the
+    aligned launch's bits."""
+    T, N, H, W, cin, cout = 2, 3, 14, 13, 48, 48
+    x, w, b = (t.to(dtype) for t in _k1_inputs(T, N, H, W, cin, cout, 9))
+    dy = torch.randn(T, N, *F.conv_out_hw(H, W, 2, pad), cout,
+                     device=device).to(dtype)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, device=t.device, dtype=t.dtype)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16 != 0
+        return view
+
+    xs, ws, bs, dys = shifted(x), shifted(w), shifted(b), shifted(dy)
+    got = cb.conv3x3_fwd_stats(xs, ws, bs, stride=2, padding=pad)
+    assert all(torch.equal(a, c) for a, c in zip(
+        got, cb.conv3x3_fwd_stats(x, w, b, stride=2, padding=pad)))
+    assert torch.equal(cb.conv3x3_fwd(xs, ws, None, 2, pad),
+                       cb.conv3x3_fwd(x, w, None, 2, pad))
+    dx = cb.conv3x3_dgrad(dys, ws, 2, (H, W), pad)
+    assert torch.equal(dx, cb.conv3x3_dgrad(dy, w, 2, (H, W), pad))
+    want = F.conv3x3_dgrad(dy, w, 2, (H, W), pad)
+    if dtype == torch.bfloat16:
+        within_ulp(dx, want, "dgrad")
+    else:
+        _close(dx, want)
+
+
+@pytest.mark.parametrize("dtype", S2_DTYPES, ids=("f32", "bf16"))
+def test_s2_entries_refuse_a_plan_that_does_not_match(dtype, device):
+    """The stride-2 entries check the plan's band rows, channels, blocks,
+    threads and shared memory against the geometry they follow from, and
+    launch nothing otherwise; the plan's own launch gives the wrapper's
+    bits."""
     import ctypes
 
     from howtotrainyourmamlpytorch_tpu_torch.kernels import build
 
-    T, N, H, W, cin = x.shape
-    cout = w.shape[-1]
-    Ho, Wo = F.conv_out_hw(H, W, stride, pad)
-    mtiles = -(-N * Ho * Wo // 256)
-    y = torch.empty((T, N, Ho, Wo, cout), device=x.device, dtype=x.dtype)
-    part = torch.empty((T, mtiles, 3, cout), device=x.device)
-    stats = [torch.empty((T, cout), device=x.device, dtype=x.dtype)
-             for _ in range(3)]
-    name = ("conv3x3_fwd_stats_bf16" if x.dtype == torch.bfloat16
-            else "conv3x3_fwd_stats")
-    P, I = ctypes.c_void_p, ctypes.c_int
-    fn = build.function("conv3x3_fwd", name,
-                        (P,) * 8 + (I,) * 9 + (ctypes.c_float, P))
-    rc = fn(*(t.data_ptr() for t in (x, w, b, y, part, *stats)), T, N, H, W,
-            stride, pad, cin, cout, mtiles, F.scalar_like(F.BN_EPS, x),
-            torch.cuda.current_stream().cuda_stream)
-    torch.cuda.synchronize()
-    return (rc, y, *stats)
-
-
-@pytest.mark.parametrize("pad", (1, 0))
-def test_bf16_and_stride_2_k1_still_take_the_tile(pad, device):
-    """K1 at stride 2 in both dtypes plans the tile, and the wrapper's
-    outputs are the tile entry's bit for bit; at stride 1 bf16 plans the
-    tensor-core kernel, and the tile's entries refuse stride 1 in both
-    dtypes."""
-    T, N, H, W, cin, cout = 2, 3, 14, 14, 48, 48
-    x, w, b = _k1_inputs(T, N, H, W, cin, cout, seed=11)
+    bf = dtype == torch.bfloat16
+    T, N, H, W, cin, cout, pad = 2, 3, 21, 21, 48, 48, 1
+    x, w, b = (t.to(dtype) for t in _k1_inputs(T, N, H, W, cin, cout, 13))
     sms = cb._sms(device)
-    for dtype in (torch.bfloat16, torch.float32):
-        xd, wd, bd = (t.to(dtype) for t in (x, w, b))
-        assert cb.fwd_plan(T, N, H, W, cin, cout, 2, pad, sms,
-                           dtype == torch.bfloat16).kernel == "tile"
-        got = cb.conv3x3_fwd_stats(xd, wd, bd, stride=2, padding=pad)
-        rc, *want = _tile_fwd_stats(xd, wd, bd, 2, pad)
-        assert rc == 0
-        assert all(torch.equal(a, c) for a, c in zip(got, want))
-        assert _tile_fwd_stats(xd, wd, bd, 1, pad)[0] != 0
-    assert cb.fwd_plan(T, N, H, W, cin, cout, 1, pad, sms,
-                       True).kernel == "mma"
+    plan = cb.fwd_plan(T, N, H, W, cin, cout, 2, pad, sms, bf)
+    d = cb.dgrad_plan(T, N, H, W, cin, cout, 2, pad, sms, bf)
+    Ho, Wo = F.conv_out_hw(H, W, 2, pad)
+    y = torch.full((T, N, Ho, Wo, cout), 7.0, device=device).to(dtype)
+    dy = torch.randn(T, N, Ho, Wo, cout, device=device).to(dtype)
+    dx = torch.full((T, N, H, W, cin), 7.0, device=device).to(dtype)
+    part = torch.empty(plan.scratch, device=device)
+    stats = [torch.empty((T, cout), device=device).to(dtype)
+             for _ in range(3)]
+    P, I = ctypes.c_void_p, ctypes.c_int
+    mma = ("_mma",) if bf else ("",)
+    n = 12 if bf else 11
+    fwd = build.function("conv3x3_s2", "conv3x3_s2_fwd" + mma[0],
+                         (P,) * 4 + (I,) * n + (P,))
+    with_stats = build.function("conv3x3_s2",
+                                "conv3x3_s2_fwd_stats" + mma[0],
+                                (P,) * 8 + (I,) * n + (ctypes.c_float, P))
+    dgrad = build.function("conv3x3_s2", "conv3x3_s2_dgrad" + mma[0],
+                           (P,) * 3 + (I,) * n + (P,))
+    stream = torch.cuda.current_stream().cuda_stream
+    geometry = (T, N, H, W, pad, cin, cout)
+    eps = F.scalar_like(F.BN_EPS, x)
+
+    def args(p):
+        mid = (p.grid[0],) if bf else ()
+        return (p.band_rows, p.channels, *mid, p.threads, p.smem)
+
+    def spoiled(p):
+        good = list(args(p))
+        out = []
+        for i, bad in ((0, p.band_rows + 1), (1, 40), (-2, p.threads + 32),
+                       (-1, p.smem + 16), (-1, p.smem - 16)):
+            a = list(good)
+            a[i] = bad
+            out.append(a)
+        if bf:
+            for bad in (0, N * p.bands + 1):
+                a = list(good)
+                a[2] = bad
+                out.append(a)
+        return out
+
+    for a in spoiled(plan):
+        assert fwd(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
+                   *geometry, *a, stream) != 0
+        assert with_stats(*(t.data_ptr() for t in (x, w, b, y, part,
+                                                    *stats)),
+                          *geometry, *a, eps, stream) != 0
+    for a in spoiled(d):
+        assert dgrad(dy.data_ptr(), w.data_ptr(), dx.data_ptr(), *geometry,
+                     *a, stream) != 0
+    torch.cuda.synchronize()
+    assert bool((y == 7.0).all()) and bool((dx == 7.0).all())
+    assert fwd(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
+               *geometry, *args(plan), stream) == 0
+    assert dgrad(dy.data_ptr(), w.data_ptr(), dx.data_ptr(), *geometry,
+                 *args(d), stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(y, cb.conv3x3_fwd(x, w, b, 2, pad))
+    assert torch.equal(dx, cb.conv3x3_dgrad(dy, w, 2, (H, W), pad))
 
 
 def test_k1_band_entries_refuse_a_plan_that_does_not_match(device):
@@ -1634,7 +1813,7 @@ def test_mma_kernels_take_tensors_off_16_byte_alignment(pad, device):
 def test_mma_entries_refuse_a_plan_that_does_not_match(device):
     """The entries check the plan's channels, blocks, threads and shared
     memory against the geometry they follow from, and launch nothing
-    otherwise; the tile's bf16 entries refuse stride 1."""
+    otherwise."""
     import ctypes
 
     from howtotrainyourmamlpytorch_tpu_torch.kernels import build
@@ -1681,16 +1860,6 @@ def test_mma_entries_refuse_a_plan_that_does_not_match(device):
     torch.cuda.synchronize()
     within_ulp(y, F.conv3x3(x, w, b, padding=pad), "K1 stats-free",
                2 * bf16_ulp(F.conv3x3(x, w, b, padding=pad)))
-    # the tile's bf16 entries at stride 1
-    tile_fwd = build.function("conv3x3_fwd", "conv3x3_fwd_bf16",
-                              (P,) * 4 + (I,) * 8 + (P,))
-    tile_dgrad = build.function("conv3x3_bwd", "conv3x3_dgrad_bf16",
-                                (P,) * 3 + (I,) * 8 + (P,))
-    assert tile_fwd(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
-                    T, N, H, W, 1, pad, cin, cout, stream) != 0
-    assert tile_dgrad(y.data_ptr(), w.data_ptr(), x.data_ptr(), T, N, H, W,
-                      1, pad, cin, cout, stream) != 0
-    assert _tile_fwd_stats(x, w, b, 1, pad)[0] != 0
 
 
 # K4 wgrad in bf16 at stride 1: the tensor-core kernel of
