@@ -88,7 +88,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
    strided norm-first Omniglot model and its small serve-step check.
 7. The layer-norm model (``norm_layer='layer_norm'``, the mini-ImageNet
    config with only that field overridden): the layer norm's kernels
-   (``layer_norm_stats/fwd/bwd/bwd_bwd``) at every tensor the layer-norm
+   (``layer_norm_stats/fwd/bwd/bwd_bwd``; the statistics and the backward
+   one launch of ``csrc/layer_norm.cu`` each, a second launch bit for bit
+   the first, here and in bf16) at every tensor the layer-norm
    models normalize (both orders' mini-ImageNet stages, the strided
    Omniglot layers) against their twins, both layer-norm blocks' first and
    second derivatives (pooled, and strided with GAP; the plain block
@@ -458,10 +460,15 @@ SOURCES.update({
     k: ("triton", "howtotrainyourmamlpytorch_tpu_torch/kernels/act_pool.py")
     for k in ("act_pool_fwd", "act_pool_bwd", "act_pool_gather", "act_fwd",
               "act_bwd")})
+# the layer norm: the statistics and the backward one CUDA launch a call
+# (csrc/layer_norm.cu), the forward and the double backward Triton
 SOURCES.update({
     k: ("triton", "howtotrainyourmamlpytorch_tpu_torch/kernels/layer_norm.py")
-    for k in ("layer_norm_stats", "layer_norm_fwd", "layer_norm_bwd",
-              "layer_norm_bwd_bwd")})
+    for k in ("layer_norm_fwd", "layer_norm_bwd_bwd")})
+SOURCES.update({
+    k: ("cuda",
+        "howtotrainyourmamlpytorch_tpu_torch/kernels/csrc/layer_norm.cu")
+    for k in ("layer_norm_stats", "layer_norm_bwd")})
 # the f32 convs at stride 1 (pad 1 and 0) run the band kernels; at stride 2
 # K1 and dgrad conv3x3_s2.cu, wgrad the tile; the bf16 convs the
 # tensor-core kernels (below) but the stride-2 wgrad, the tile
@@ -1520,8 +1527,12 @@ def check_layer_norm_kernels(cb, F, records, T=T_TENANTS):
         numel, tm, rows = x.numel(), gamma.numel(), T * n
         forward = n != min(IMAGES)
         if forward:
-            err = _bn_errs("layer_norm_stats", cb.layer_norm_stats(x),
-                           (mean, var, rstd), ("mean", "var", "rstd"), label)
+            stats = cb.layer_norm_stats(x)
+            err = _bn_errs("layer_norm_stats", stats, (mean, var, rstd),
+                           ("mean", "var", "rstd"), label)
+            _same_bits("layer_norm_stats", lambda: cb.layer_norm_stats(x),
+                       stats)
+            del stats
             rec("layer_norm_stats", label, err,
                 lambda: cb.layer_norm_stats(x),
                 lambda: F.layer_norm_stats(x),
@@ -1539,9 +1550,13 @@ def check_layer_norm_kernels(cb, F, records, T=T_TENANTS):
         if not forward or n == OMNIGLOT_IMAGES:
             dz = randn(*x.shape, scale=1.0 / math.sqrt(numel))
             ln = (x, mean, rstd, gamma)
-            err = _bn_errs("layer_norm_bwd", cb.layer_norm_bwd(dz, *ln),
+            grads = cb.layer_norm_bwd(dz, *ln)
+            err = _bn_errs("layer_norm_bwd", grads,
                            F.layer_norm_bwd(dz, *ln),
                            ("dx", "dgamma", "dbeta"), label)
+            _same_bits("layer_norm_bwd", lambda: cb.layer_norm_bwd(dz, *ln),
+                       grads)
+            del grads
             saved = (mean.reshape(T, n, 1, 1, 1), rstd.reshape(T, n, 1, 1, 1),
                      gamma_s, beta_s, [True] * 3)
             rec("layer_norm_bwd", label, err,
@@ -4080,10 +4095,13 @@ def check_bf16_layer_norm_kernels(cb, F, records, T=T_TENANTS):
         numel, tm, rows = x.numel(), gamma.numel(), T * n
         forward = n != min(IMAGES)
         if forward:
+            stats = cb.layer_norm_stats(x)
             err = max(within_ulp(f"layer_norm_stats_bf16 {what}", a, b)
-                      for what, a, b in zip(("mean", "var", "rstd"),
-                                            cb.layer_norm_stats(x),
+                      for what, a, b in zip(("mean", "var", "rstd"), stats,
                                             (mean, var, rstd)))
+            _same_bits("layer_norm_stats_bf16",
+                       lambda: cb.layer_norm_stats(x), stats)
+            del stats
             rec("layer_norm_stats_bf16", label, err,
                 lambda: cb.layer_norm_stats(x),
                 lambda: F.layer_norm_stats(x),
@@ -4106,10 +4124,14 @@ def check_bf16_layer_norm_kernels(cb, F, records, T=T_TENANTS):
             dz32 = dz.float()
             ln = (x, mean, rstd, gamma)
             ln32 = (x32, mean32, rstd32, gamma32)
+            grads = cb.layer_norm_bwd(dz, *ln)
             err = max(within_ulp(f"layer_norm_bwd_bf16 {what}", a, b)
                       for what, a, b in zip(("dx", "dgamma", "dbeta"),
-                                            cb.layer_norm_bwd(dz, *ln),
+                                            grads,
                                             F.layer_norm_bwd(dz, *ln)))
+            _same_bits("layer_norm_bwd_bf16",
+                       lambda: cb.layer_norm_bwd(dz, *ln), grads)
+            del grads
             saved = (mean32.reshape(T, n, 1, 1, 1),
                      rstd32.reshape(T, n, 1, 1, 1), gamma_s, beta_s,
                      [True] * 3)

@@ -36,9 +36,10 @@ kernel                      route   source                    launches/call
 ``act_pool_gather``         Triton  act_pool.py               1
 ``act_fwd``                 Triton  act_pool.py               1 (pool-free)
 ``act_bwd``                 Triton  act_pool.py               1 (pool-free)
-``layer_norm_stats``        Triton  layer_norm.py             partial + merge: 2
+``layer_norm_stats``        CUDA    csrc/layer_norm.cu        1 (a warp or a
+                                                              cluster a row)
 ``layer_norm_fwd``          Triton  layer_norm.py             1
-``layer_norm_bwd``          Triton  layer_norm.py             reduce + sums + dx: 3
+``layer_norm_bwd``          CUDA    csrc/layer_norm.cu        1 (cooperative)
 ``layer_norm_bwd_bwd``      Triton  layer_norm.py             reduce + sums + out: 3
 ``*_bf16``                  as f32  K1, dgrad at stride 1:    as in f32; K3, K5
                                     csrc/conv3x3_s1_bf16.cu;  2 each
@@ -72,7 +73,12 @@ query); in bf16, and pool-free, the Triton kernels of ``bn_act_pool.py``
 (a reduce and an apply launch). K2 runs ``csrc/bn_act_fwd.cu`` in both
 modes and both dtypes (one kernel each, templated on the element type;
 ``bn_fwd_plan`` gives its launch): pooled a thread a pooled pixel x 4
-channels, pool-free 16 bytes of the flat tensor a thread.
+channels, pool-free 16 bytes of the flat tensor a thread. The layer
+norm's statistics and backward run ``csrc/layer_norm.cu`` in both dtypes,
+one launch a call: ``layer_norm_stats`` a warp a row at the small maps
+and a thread block cluster a row above (``ln_stats_plan``),
+``layer_norm_bwd`` one cooperative launch over (tenant, column tile)
+items (``ln_bwd_plan``, sized from the occupancy query).
 
 The ``conv3x3_s2_*`` names are the four conv kernels at stride 2 (the
 strided model, ``max_pooling=False``), counted apart from stride 1, and
@@ -296,6 +302,14 @@ BN_BWD_SUMS = {"bn_act_pool_bwd": 2, "bn_act_pool_bwd_bwd": 5}
 #: (``kThreads`` there) and the most channels it takes
 BN_FWD_THREADS = 256
 BN_FWD_MAX_C = 64
+#: layer_norm_stats and layer_norm_bwd (csrc/layer_norm.cu, one launch a
+#: call each): a block's threads (``kThreads`` there), the most loads of a
+#: row that one warp takes (``kWarpRowVecs``), the rows of such a block and
+#: the largest cluster a row (``kMaxCluster``)
+LN_THREADS = 256
+LN_WARP_ROW_VECS = 256
+LN_WARP_ROWS = 8
+LN_MAX_CLUSTER = 8
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -1414,14 +1428,31 @@ def act_bwd(da: Tensor, y: Tensor, negative_slope: float = F.LEAKY_SLOPE
 # -- the layer norm (B5c) ------------------------------------------------------
 
 
+_LN_DTYPES = (torch.float32, torch.bfloat16)
+
+
 def _check_ln_rows(name: str, x: Tensor) -> Tuple[int, int, int, int, int]:
     """Check a layer norm's activation, whose T * N images are rows of the
-    launch grid's second axis; returns its shape."""
-    T, N, H, W, C = _check_act(name, x)
+    launch grid's second axis; returns its shape. An activation the kernels
+    take passes in a few host operations (a call's host time counts at the
+    small maps); any other gets ``_check_act``'s error."""
+    if (x.dtype not in _LN_DTYPES or x.dim() != 5 or not x.is_contiguous()
+            or x.device.type != "cuda"
+            or x.numel() >= x.shape[0] << 31):
+        _check_act(name, x)
+    T, N, H, W, C = x.shape
     if T * N >= 65536:
         raise ValueError(f"{name}: T * N = {T * N} images exceed the launch "
                          "grid's 65,535 rows")
     return T, N, H, W, C
+
+
+def _ln_same(name: str, what: str, t: Tensor, shape, x: Tensor) -> None:
+    """``_check`` of ``t`` against x's device and dtype, in a few host
+    operations where it passes."""
+    if (t.dtype is not x.dtype or t.shape != shape or not t.is_contiguous()
+            or t.device != x.device):
+        _check(name, what, t, shape, x.device, x.dtype)
 
 
 def _check_ln_args(name: str, x: Tensor, mean: Tensor, rstd: Tensor,
@@ -1430,30 +1461,97 @@ def _check_ln_args(name: str, x: Tensor, mean: Tensor, rstd: Tensor,
     """Check a layer norm's activation, its (T, N) statistics and its (T,
     H, W, C) parameters; returns x's shape."""
     T, N, H, W, C = _check_ln_rows(name, x)
-    _check(name, "mean", mean, (T, N), x.device, x.dtype)
-    _check(name, "rstd", rstd, (T, N), x.device, x.dtype)
+    _ln_same(name, "mean", mean, (T, N), x)
+    _ln_same(name, "rstd", rstd, (T, N), x)
     for what, t in params.items():
-        _check(name, what, t, (T, H, W, C), x.device, x.dtype)
+        _ln_same(name, what, t, (T, H, W, C), x)
     return T, N, H, W, C
+
+
+class LnStatsPlan(NamedTuple):
+    """The launch of ``layer_norm_stats`` at one shape
+    (csrc/layer_norm.cu): ``route`` ``"warp"`` (a warp a row,
+    ``LN_WARP_ROWS`` rows a block, ``grid`` blocks) or ``"cluster"`` (a
+    thread block cluster of ``cluster`` blocks a row, block r the values
+    [r chunk, (r + 1) chunk) of it; ``grid`` = R x cluster); a load takes
+    ``vec`` values (16 bytes, or one value)."""
+
+    route: str
+    grid: int
+    cluster: int
+    chunk: int
+    vec: int
+
+
+def _pow2_at_most(n: int) -> int:
+    return 1 << (max(1, n).bit_length() - 1)
+
+
+def _ln_load(bf16: bool, vec: bool) -> int:
+    """The values a layer-norm load takes: 16 bytes (4 f32, 8 bf16) with
+    ``vec``, else one."""
+    return (8 if bf16 else 4) if vec else 1
+
+
+@functools.lru_cache(maxsize=None)
+def ln_stats_plan(R: int, M: int, bf16: bool = False, vec: bool = True,
+                  sms: int = 132) -> LnStatsPlan:
+    """``layer_norm_stats``' launch for R rows (images) of M values, in f32
+    or bf16, with 16-byte loads (``vec``: M a multiple of their values and
+    x 16-byte aligned) or a value at a time, on a card of ``sms`` SMs. A
+    pure function of the shape: the wrapper calls it, and so do the CPU
+    tests. Rows of at most ``LN_WARP_ROW_VECS`` loads take a warp each;
+    larger rows a cluster each, of as many blocks (a power of two, at most
+    ``LN_MAX_CLUSTER``) as give the card two blocks a SM, but no block
+    fewer than two loads a thread. Raises for a shape the kernels do not
+    take."""
+    v = _ln_load(bf16, vec)
+    if min(R, M) < 1 or M % v:
+        raise ValueError(f"ln_stats_plan: no statistics of {R} rows of {M} "
+                         f"values{' with vectors' if vec else ''}")
+    loads = M // v
+    if loads <= LN_WARP_ROW_VECS:
+        return LnStatsPlan("warp", _cdiv(R, LN_WARP_ROWS), 1, M, v)
+    cluster = min(LN_MAX_CLUSTER,
+                  layer_norm.pow2_at_least(_cdiv(2 * sms, R)),
+                  _pow2_at_most(loads // (2 * LN_THREADS)))
+    return LnStatsPlan("cluster", R * cluster, cluster,
+                       _cdiv(loads, cluster) * v, v)
+
+
+#: csrc/layer_norm.cu's entries take their arguments packed as 64-bit
+#: integers, in one ctypes argument (a call's host time counts at the
+#: small maps), and one float
+_LN_ENTRY = (ctypes.POINTER(ctypes.c_longlong), _F)
+_LN_STATS_ARGS = ctypes.c_longlong * 14
+_LN_BWD_ARGS = ctypes.c_longlong * 20
 
 
 def layer_norm_stats(x: Tensor, eps: float = F.LN_EPS
                      ) -> Tuple[Tensor, Tensor, Tensor]:
     """Each image's mean, population variance and rstd over its (H, W, C),
-    ``(T, N)`` each, in x's dtype (``layer_norm.py``)."""
+    ``(T, N)`` each, in x's dtype: one launch of csrc/layer_norm.cu
+    (``ln_stats_plan``), the three outputs views of one allocation."""
     if _on_cpu(x):
         return F.layer_norm_stats(x, eps)
     name = "layer_norm_stats"
     T, N, H, W, C = _check_ln_rows(name, x)
-    plan = layer_norm.stats_plan(T * N, H * W * C)
-    part = torch.empty((T, plan.splits, 3, N), device=x.device)
-    mean, var, rstd = (torch.empty((T, N), device=x.device, dtype=x.dtype)
-                       for _ in range(3))
-    with torch.cuda.device(x.device):
-        layer_norm.launch_stats(x, part, mean, var, rstd,
-                                F.scalar_like(eps, x))
-    LAUNCHES[_counter(name, x)] += 1
-    return mean, var, rstd
+    R, M = T * N, H * W * C
+    bf16 = x.dtype is torch.bfloat16
+    xp, device = x.data_ptr(), x.device
+    vec = M % _ln_load(bf16, True) == 0 and xp % 16 == 0
+    plan = ln_stats_plan(R, M, bf16, vec, _sms(device))
+    out = x.new_empty((3, T, N))  # fewer host operations than torch.empty
+    base, step = out.data_ptr(), R * (2 if bf16 else 4)
+    rc = build.function("layer_norm", "layer_norm_stats", _LN_ENTRY)(
+        _LN_STATS_ARGS(xp, base, base + step, base + 2 * step, R, M, bf16,
+                       vec, plan.route == "warp", plan.cluster, plan.chunk,
+                       plan.grid, device.index, _stream(device)),
+        F.scalar_like(eps, x))
+    counter = _counter(name, x)
+    build.check(rc, counter)
+    LAUNCHES[counter] += 1
+    return out.unbind(0)
 
 
 def layer_norm_fwd(x: Tensor, mean: Tensor, rstd: Tensor, gamma: Tensor,
@@ -1471,24 +1569,117 @@ def layer_norm_fwd(x: Tensor, mean: Tensor, rstd: Tensor, gamma: Tensor,
     return z
 
 
+class LnBwdPlan(NamedTuple):
+    """The launch of ``layer_norm_bwd`` at one shape (csrc/layer_norm.cu,
+    one cooperative launch): ``grid`` blocks of ``threads``, block b the
+    (tenant, column tile) items [b I / grid, (b + 1) I / grid) of the I =
+    T x ``tiles`` items; a tile is one load of each of ``tpr`` threads (a
+    row group: ``tpr * vec`` values), and a block's ``groups`` = threads /
+    tpr row groups share an item's rows (row n to group n mod groups)."""
+
+    grid: int
+    threads: int
+    tpr: int
+    groups: int
+    tiles: int
+    vec: int
+
+
+@functools.lru_cache(maxsize=None)
+def ln_bwd_plan(T: int, N: int, M: int, bf16: bool = False, vec: bool = True,
+                sms: int = 132, blocks_per_sm: int = 2) -> LnBwdPlan:
+    """``layer_norm_bwd``'s launch for T tenants of N rows (images) of M
+    values, in f32 or bf16, with 16-byte loads (``vec``) or a value at a
+    time, on a card of ``sms`` SMs that holds ``blocks_per_sm`` of its
+    blocks at once (the occupancy query). A pure function of the shape:
+    the wrapper calls it, and so do the CPU tests. The row group is the
+    power of two of threads at or above a row's loads (32 to
+    ``LN_THREADS``), halved while the card would get fewer items than SMs;
+    the items go in even shares to as many blocks as the card holds at
+    once (every block resident, as the grid barriers need; each SM the
+    same number of blocks where the items allow it). Raises for a shape
+    the kernels do not take."""
+    v = _ln_load(bf16, vec)
+    if min(T, N, M, blocks_per_sm) < 1 or M % v:
+        raise ValueError(f"ln_bwd_plan: no backward of (T={T}, N={N}) rows "
+                         f"of {M} values{' with vectors' if vec else ''}")
+    loads = M // v
+    tpr = max(32, min(LN_THREADS, layer_norm.pow2_at_least(loads)))
+    while tpr > 32 and T * _cdiv(loads, tpr) < sms:
+        tpr //= 2
+    tiles = _cdiv(loads, tpr)
+    return LnBwdPlan(min(T * tiles, sms * blocks_per_sm), LN_THREADS, tpr,
+                     LN_THREADS // tpr, tiles, v)
+
+
+def ln_bwd_smem(vec: int) -> int:
+    """The bytes of shared memory a ``layer_norm_bwd`` block takes (static:
+    ``cols`` there, the row groups' column sums) with loads of ``vec``
+    values."""
+    return 4 * 2 * vec * LN_THREADS
+
+
+@functools.lru_cache(maxsize=None)
+def _ln_bwd_blocks_per_sm(device, bf16: bool, vec: bool) -> int:
+    """The occupancy query of ``layer_norm_bwd``'s kernel."""
+    fn = build.function("layer_norm", "layer_norm_bwd_blocks_per_sm",
+                        (_I, _I, ctypes.POINTER(ctypes.c_int)))
+    out = ctypes.c_int(0)
+    with _device(device):
+        rc = fn(int(bf16), int(vec), ctypes.byref(out))
+    build.check(rc, "layer_norm_bwd_blocks_per_sm")
+    return out.value
+
+
+#: layer_norm_bwd's f32 scratch, one buffer a (device, stream), grown as
+#: needed: a launch writes every value of it that it reads before reading
+#: it, and the launches on one stream run in order
+_LN_SCRATCH: Dict[Tuple[int, int], Tensor] = {}
+
+
+def _ln_scratch(device, stream: int, n: int) -> Tensor:
+    key = (device.index, stream)
+    buf = _LN_SCRATCH.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _LN_SCRATCH[key] = torch.empty(n, device=device)
+    return buf
+
+
 def layer_norm_bwd(dz: Tensor, x: Tensor, mean: Tensor, rstd: Tensor,
                    gamma: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
     """The backward of layer norm through its statistics: ``(dx, dgamma,
-    dbeta)``, the parameters' gradients per tenant ``(T, H, W, C)``."""
+    dbeta)``, the parameters' gradients per tenant ``(T, H, W, C)``. One
+    cooperative launch of csrc/layer_norm.cu (``ln_bwd_plan``), its f32
+    scratch kept a stream (``_ln_scratch``)."""
     if _on_cpu(x):
         return F.layer_norm_bwd(dz, x, mean, rstd, gamma)
     name = "layer_norm_bwd"
     T, N, H, W, C = _check_ln_args(name, x, mean, rstd, dict(gamma=gamma))
-    _check(name, "dz", dz, x.shape, x.device, x.dtype)
-    J = layer_norm.column_tiles(H * W * C)
-    part = torch.empty((J, layer_norm.BWD_SUMS, T * N), device=x.device)
-    sums = torch.empty((layer_norm.BWD_SUMS, T * N), device=x.device)
+    _ln_same(name, "dz", dz, x.shape, x)
+    R, M = T * N, H * W * C
+    bf16 = x.dtype is torch.bfloat16
+    device = x.device
     dx = torch.empty_like(x)
     dgamma, dbeta = torch.empty_like(gamma), torch.empty_like(gamma)
-    with torch.cuda.device(x.device):
-        layer_norm.launch_bwd(dz, x, mean, rstd, gamma, part, sums, dx,
-                              dgamma, dbeta)
-    LAUNCHES[_counter(name, x)] += 1
+    ptrs = [t.data_ptr() for t in (dz, x, mean, rstd, gamma, dx, dgamma,
+                                   dbeta)]
+    # dx, dgamma and dbeta are fresh allocations: aligned
+    vec = M % _ln_load(bf16, True) == 0 and (
+        ptrs[0] | ptrs[1] | ptrs[4]) % 16 == 0
+    plan = ln_bwd_plan(T, N, M, bf16, vec, _sms(device),
+                       _ln_bwd_blocks_per_sm(device, bf16, vec))
+    stream = _stream(device)
+    # a (row, tile, warp)'s two partial sums, then a row's two sums
+    jw = plan.tiles * (plan.tpr // 32)
+    part = _ln_scratch(device, stream, 2 * R * (jw + 1)).data_ptr()
+    rc = build.function("layer_norm", "layer_norm_bwd", _LN_ENTRY)(
+        _LN_BWD_ARGS(*ptrs, part, part + 8 * R * jw, T, N, M, bf16,
+                     vec, plan.tpr, plan.tiles, plan.grid, device.index,
+                     stream),
+        1.0 / M)
+    counter = _counter(name, x)
+    build.check(rc, counter)
+    LAUNCHES[counter] += 1
     return dx, dgamma, dbeta
 
 

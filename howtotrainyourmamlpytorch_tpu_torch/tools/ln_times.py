@@ -1,0 +1,291 @@
+"""Time ``layer_norm_stats`` and ``layer_norm_bwd``, in f32 and bf16, at
+every shape ``chip_smoke.py``'s layer-norm phase gives them, beside their
+bound and one PyTorch call that computes the same function
+(``torch.var_mean``, ``aten.native_layer_norm_backward``); with
+``--e2e``, the layer-norm models' batch-2 train step and bucket-8 serve
+dispatch in f32 and bf16 as well: the check that one build's layer-norm
+kernels are faster than another's, compared in one process run after the
+other on one card (parent, change, change, parent).
+
+    PYTHONPATH=<checkout> python3 <this file> [--label NAME] [--out FILE]
+                                              [--e2e]
+
+Run by path, so that ``PYTHONPATH`` picks the package whose kernels are
+built and launched (each checkout builds its own into its own
+``_build/``); the script uses only the wrappers ``layer_norm_stats`` and
+``layer_norm_bwd`` of ``kernels/conv_block.py``, their twins and the train
+and serve entry points, which every build has. Inputs come from a numpy
+seed, T = 8 tenants: the layer-norm models' normalized tensors — the
+mini-ImageNet conv outputs of the conv-first model (84/42/21/10 x 48) and
+the norm-first model's stage-0 image (84 x 84 x 3), the statistics at N =
+75 images and the backward at N = 25; the strided Omniglot model's conv
+outputs (14/7/4/2 x 64) and its norm-first 28 x 28 x 1 image at N = 20 —
+with gamma shared over the tenants, expanded to ``(T, H, W, C)`` as the
+blocks give it. Per row: the wrapper's time by CUDA events (host time
+included: ``card_timing.time_ms``, every row timed before the first
+profile), the device time of every kernel the call launches and their
+count a call by ``torch.profiler``, the host time a call (events ms less
+device ms), the library call's event time, the error against the twin
+(f32 within 1e-5 + 1e-4 * scale, bf16 within one bf16 ulp or 1e-4 of
+scale), and the bound: max(bytes / 3.35 TB/s, FLOPs / 67 TFLOP/s) on an
+H100 SXM, each input read once and each output written once.
+
+``--e2e`` then profiles one warm second-order train step at batch 2 and
+one warm bucket-8 serve dispatch of the mini-ImageNet MAML++ config
+(``experiment_config/mini-imagenet_maml++-mini-imagenet_5_5_2_0.01_48_0.json``)
+with ``norm_layer='layer_norm'``, conv first and norm first, in f32 and
+bf16: the device's busy time, its activities, and the device time and
+launches of the layer norm's statistics and backward (the CUDA kernels, or
+the Triton passes they replace; the Triton row-sum pass, which the double
+backward shares, apart). Prints one line per row with the card's
+``nvidia-smi`` line first and (with ``--out``) writes every row as JSON.
+Needs one card.
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+
+import numpy as np
+import torch
+
+import card_timing
+from card_timing import device_ms, fmt_ms, time_ms
+
+T = 8
+STAGES = (("conv-first stage0", 84, 48), ("norm-first stage0", 84, 3),
+          ("stage1", 42, 48), ("stage2", 21, 48), ("stage3", 10, 48))
+STRIDED = (("strided layer1", 14, 64), ("strided layer2", 7, 64),
+           ("strided layer3", 4, 64), ("strided layer4", 2, 64),
+           ("strided norm-first layer1", 28, 1))
+# the images each kernel sees: the statistics at serving's 75 targets, the
+# backward at the 25 support images; 20 at Omniglot
+IMAGES = {"layer_norm_stats": 75, "layer_norm_bwd": 25}
+DTYPES = ((torch.float32, "f32"), (torch.bfloat16, "bf16"))
+FLOPS, BW = 67e12, 3.35e12
+ATOL, RTOL = 1e-5, 1e-4
+CONFIG = ("experiment_config/"
+          "mini-imagenet_maml++-mini-imagenet_5_5_2_0.01_48_0.json")
+
+
+def cases():
+    """(dtype, tag, kernel, layer, H = W, C, N) of every row."""
+    for dtype, tag in DTYPES:
+        for kernel, n in IMAGES.items():
+            for layer, hw, c in STAGES:
+                yield dtype, tag, kernel, layer, hw, c, n
+            for layer, hw, c in STRIDED:
+                yield dtype, tag, kernel, layer, hw, c, 20
+
+
+def _gate(got, want):
+    """The largest error over the outputs, within the twin gate."""
+    err = 0.0
+    for g, w in zip(got, want):
+        diff = (g.double() - w.double()).abs()
+        scale = w.double().abs().max().item()
+        if w.dtype == torch.bfloat16:
+            _, e = torch.frexp(w.double().abs().clamp_min(2.0 ** -126))
+            tol = torch.ldexp(torch.ones_like(diff), e - 8).clamp_min(
+                1e-4 * scale)
+            bad = bool((diff > tol).any())
+        else:
+            bad = diff.max().item() > ATOL + RTOL * scale
+        if bad or not torch.isfinite(g).all():
+            raise AssertionError(f"max |kernel - twin| "
+                                 f"{diff.max().item():.3e} at scale "
+                                 f"{scale:.3e}")
+        err = max(err, diff.max().item())
+    return err
+
+
+def calls(cb, F, dtype, kernel, hw, c, n):
+    """(wrapper call, twin call, library call, FLOPs, bytes) at one shape,
+    on inputs from a numpy seed."""
+    rng = np.random.RandomState(hw + c + n)
+
+    def r(*shape, scale=1.0):
+        return torch.from_numpy(
+            (rng.randn(*shape) * scale).astype(np.float32)).cuda()
+
+    shape = (hw, hw, c)
+    x = (torch.from_numpy(rng.rand(T, n, *shape).astype(np.float32)).cuda()
+         if c <= 3 else r(T, n, *shape)).to(dtype)
+    numel, rows, esize = x.numel(), T * n, x.element_size()
+    if kernel == "layer_norm_stats":
+        return (lambda: cb.layer_norm_stats(x),
+                lambda: F.layer_norm_stats(x),
+                lambda: torch.var_mean(x, dim=(2, 3, 4), correction=0),
+                4 * numel, esize * (numel + 3 * rows))
+    mean, _, rstd = F.layer_norm_stats(x)
+    gamma_s = (1.0 + r(*shape, scale=0.1)).to(dtype)
+    beta_s = r(*shape, scale=0.1).to(dtype)
+    gamma = gamma_s.expand(T, *shape).contiguous()
+    dz = r(T, n, *shape, scale=1.0 / numel ** 0.5).to(dtype)
+    ln = (x, mean, rstd, gamma)
+    saved = (mean.float().reshape(T, n, 1, 1, 1),
+             rstd.float().reshape(T, n, 1, 1, 1), gamma_s, beta_s,
+             [True] * 3)
+    return (lambda: cb.layer_norm_bwd(dz, *ln),
+            lambda: F.layer_norm_bwd(dz, *ln),
+            lambda: torch.ops.aten.native_layer_norm_backward(
+                dz, x, list(shape), *saved),
+            12 * numel, esize * (3 * numel + 3 * gamma.numel() + 2 * rows))
+
+
+def rows(label):
+    from howtotrainyourmamlpytorch_tpu_torch.kernels import conv_block as cb
+    from howtotrainyourmamlpytorch_tpu_torch.ops import functional as F
+
+    out = []
+    # every row's event times first, then the profiles
+    for dtype, tag, kernel, layer, hw, c, n in cases():
+        call, twin, lib, flops, nbytes = calls(cb, F, dtype, kernel, hw, c,
+                                               n)
+        t_ops, t_bytes = flops / FLOPS, nbytes / BW
+        out.append({
+            "build": label, "dtype": tag, "kernel": kernel, "layer": layer,
+            "hw": hw, "C": c, "N": n, "T": T,
+            "max_abs_err": _gate(call(), twin()),
+            "ms": time_ms(call), "library_ms": time_ms(lib),
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops > t_bytes else "bytes",
+        })
+        del call, twin, lib
+        torch.cuda.empty_cache()
+    for r, (dtype, tag, kernel, layer, hw, c, n) in zip(out, cases()):
+        call, *_ = calls(cb, F, dtype, kernel, hw, c, n)
+        r["device_ms"], r["kernels_a_call"] = device_ms(call)
+        dev = r["device_ms"]
+        extra = ("" if dev is None else
+                 f", host {r['ms'] - dev:.4f} ms, "
+                 f"{100 * r['bound_ms'] / dev:.1f}% of the bound by device "
+                 "time")
+        print(f"[ln {label}] {tag} {kernel} {layer} N={n}: {r['ms']:.4f} ms "
+              f"(device {fmt_ms(dev)}, {r['kernels_a_call']:g} kernels a "
+              f"call{extra}), library {r['library_ms']:.4f} ms "
+              f"({r['ms'] / r['library_ms']:.2f}x), bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), err "
+              f"{r['max_abs_err']:.2e}", flush=True)
+        del call
+        torch.cuda.empty_cache()
+    return out
+
+
+def _ln_part(key):
+    """Which of the layer norm's statistics and backward a device kernel
+    is: the CUDA kernels, or the Triton passes they replace; the Triton
+    row sums (shared with the double backward) apart; None for the rest."""
+    if "bwd_bwd" in key:
+        return None
+    if "layer_norm_stats" in key or key.startswith(
+            ("_stats_partial_kernel", "_stats_merge_kernel")):
+        return "ln stats"
+    if "layer_norm_bwd" in key or key.startswith(
+            ("_bwd_reduce_kernel", "_bwd_dx_kernel")):
+        return "ln bwd"
+    if key.startswith("_row_sums_kernel"):
+        return "row sums"
+    return None
+
+
+def _report(label, what, prof, wall_ms):
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_time_total", 0) > 0
+              and e.device_type.name == "CUDA"]
+    busy = sum(e.device_time_total for e in events) / 1e3
+    count = sum(e.count for e in events)
+    row = {"build": label, "what": what, "busy_ms": busy,
+           "activities": count, "wall_ms": wall_ms}
+    parts = []
+    for name in ("ln stats", "ln bwd", "row sums"):
+        mine = [e for e in events if _ln_part(e.key) == name]
+        row[name] = sum(e.device_time_total for e in mine) / 1e3
+        row[name + " launches"] = sum(e.count for e in mine)
+        parts.append(f"{name} {row[name]:.3f} ms over "
+                     f"{row[name + ' launches']} launches")
+    print(f"[ln e2e {label}] {what}: device busy {busy:.3f} ms of "
+          f"{wall_ms:.3f} ms wall, {count} device activities; "
+          + "; ".join(parts), flush=True)
+    return row
+
+
+def _train_step(label, cfg, what):
+    from torch.profiler import ProfilerActivity, profile
+
+    from howtotrainyourmamlpytorch_tpu_torch import bench as train_bench
+    from howtotrainyourmamlpytorch_tpu_torch.core import maml
+    from howtotrainyourmamlpytorch_tpu_torch.state import init_state
+
+    device = torch.device("cuda:0")
+    state = init_state(cfg, device=device, with_opt=True)
+    lr, weights, _ = maml.epoch_schedule(cfg, 0)
+    batch = train_bench.synth_batch(cfg, 0, device)
+    step = maml.make_train_step(cfg, True)
+    for _ in range(2):
+        state, _ = step(state, *batch, weights, lr)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        state, _ = step(state, *batch, weights, lr)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - start) * 1e3
+    return _report(label, f"profiled {what} batch-2 train step", prof,
+                   wall_ms)
+
+
+def _dispatch(label, cfg, what):
+    from torch.profiler import ProfilerActivity, profile
+
+    from howtotrainyourmamlpytorch_tpu_torch.serving import bench
+    from howtotrainyourmamlpytorch_tpu_torch.serving.engine import (
+        ServingEngine,
+    )
+    from howtotrainyourmamlpytorch_tpu_torch.state import init_state
+
+    shots_buckets = bench.bench_shots_buckets(cfg)
+    groups = bench._synth_groups(cfg, shots_buckets, 36, 8, 0, "f32", 0)
+    engine = ServingEngine(cfg, init_state(cfg, device="cuda:0"),
+                           shots_buckets, device="cuda:0", ingest="f32")
+    engine.serve_group(groups[-1])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        dr = engine.serve_group(groups[-1])
+    return _report(label, f"profiled {what} bucket-{dr.bucket} dispatch "
+                   f"({dr.tenants} tenants, {dr.shots} shots)", prof,
+                   dr.adapt_ms)
+
+
+def e2e(label):
+    from howtotrainyourmamlpytorch_tpu_torch.config import MAMLConfig
+
+    ln = MAMLConfig.from_json_file(CONFIG).replace(norm_layer="layer_norm",
+                                                   batch_size=2)
+    out = []
+    for order, tag in (("conv_norm_relu", "conv-first"),
+                       ("norm_conv_relu", "norm-first")):
+        for dtype, dt in (("float32", "f32"), ("bfloat16", "bf16")):
+            cfg = ln.replace(block_order=order, compute_dtype=dtype)
+            what = f"layer-norm {tag} {dt}"
+            out.append(_train_step(label, cfg, what))
+            torch.cuda.empty_cache()
+            out.append(_dispatch(label, cfg, what))
+            torch.cuda.empty_cache()
+    return out
+
+
+def main(argv) -> int:
+    e2e_too = "--e2e" in argv
+    argv = [a for a in argv if a != "--e2e"]
+
+    def all_rows(label):
+        out = rows(label)
+        return out + (e2e(label) if e2e_too else [])
+
+    return card_timing.main(argv, "ln", __doc__.split("\n")[0], all_rows)
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

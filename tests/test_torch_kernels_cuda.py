@@ -27,8 +27,12 @@ entry's and the tile's refusals; K1 (both modes) and K4 dgrad at stride 2
 on the band kernels of ``csrc/conv3x3_s2.cu``, f32 and bf16, at every
 stride-2 main-path shape and at edge shapes, off alignment, dx's rows and
 columns that no output reads an exact zero, a second launch bit for bit
-the first, and their entries' refusals; and the ingest kernel
-``episode_expand`` equal to its twin bit for bit (it is a pure lookup).
+the first, and their entries' refusals; ``layer_norm_stats`` and
+``layer_norm_bwd`` on ``csrc/layer_norm.cu`` in f32 and bf16 at every
+layer-norm main-path shape and at edge shapes, off alignment, a second
+launch bit for bit the first, their entries' refusals and no Triton kernel
+reached; and the ingest kernel ``episode_expand`` equal to its twin bit
+for bit (it is a pure lookup).
 These need the card: marked ``cuda``, they skip where
 ``torch.cuda.is_available()`` is false. On the card (``--noconftest``:
 the suite's conftest imports jax, which the port never needs):
@@ -2429,3 +2433,233 @@ def test_no_k2_name_reaches_a_triton_kernel(device, monkeypatch):
         for pool, slope in ((True, F.LEAKY_SLOPE), (False, F.LEAKY_SLOPE),
                             (False, 1.0)):
             _check_k2(bn, pool, slope)
+
+
+# -- layer_norm_stats and layer_norm_bwd on csrc/layer_norm.cu ----------------
+#
+# One launch a call, f32 and bf16: the statistics a warp or a cluster a row
+# (``ln_stats_plan``), the backward one cooperative launch
+# (``ln_bwd_plan``). Gates: f32 within 1e-5 + 1e-4 * scale of the twins,
+# bf16 within one bf16 ulp (or 1e-4 of scale); a second launch bit for bit
+# the first.
+
+# (T, N, H = W, C): the mini-ImageNet layer-norm stages of both orders
+# (statistics at 75 images, backward at 25), the unpadded conv outputs and
+# the strided Omniglot maps with the 28 x 28 x 1 image (20 images), at T =
+# 8; the conv-first stage 0 at the config's batch of 2
+LN_MAIN = (
+    [(8, n, hw, c) for n in (25, 75)
+     for hw, c in ((84, 48), (84, 3), (42, 48), (21, 48), (10, 48))]
+    + [(8, 25, hw, 48) for hw in (82, 39, 17, 6)]
+    + [(8, 20, hw, 64) for hw in (14, 7, 4, 2)] + [(8, 20, 28, 1)]
+    + [(2, 25, 84, 48), (2, 75, 84, 48)]
+)
+# odd M (no 16-byte loads: one value at a time, in either dtype or in bf16
+# alone), a row of one value, rows under a warp's loads and just above,
+# tenants of one image
+LN_EDGE = [
+    # T, N, H, W, C
+    (1, 1, 1, 1, 1),
+    (1, 1, 5, 5, 3),
+    (2, 3, 11, 9, 20),
+    (3, 2, 7, 7, 1),
+    (2, 5, 16, 16, 4),
+    (1, 7, 33, 32, 1),
+    (5, 1, 9, 9, 64),
+    (3, 4, 3, 3, 100),
+]
+LN_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def _ln_inputs(T, N, H, W, C, dtype, seed):
+    """x (with an offset: a sum-of-squares variance would cancel), its
+    twin statistics, gamma and dz, in ``dtype``."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def r(*s, scale=1.0):
+        return torch.randn(*s, device="cuda", generator=g) * scale
+
+    x = (3.0 + r(T, N, H, W, C)).to(dtype)
+    mean, _, rstd = F.layer_norm_stats(x)
+    return (x, mean, rstd, (1.0 + r(T, H, W, C, scale=0.3)).to(dtype),
+            r(T, N, H, W, C, scale=0.1).to(dtype))
+
+
+def _ln_gate(got, want, what):
+    for a, c, o in zip(got, want, what):
+        assert a.dtype == c.dtype and a.shape == c.shape, o
+        assert torch.isfinite(a).all(), o
+        if a.dtype == torch.bfloat16:
+            within_ulp(a, c, o)
+        else:
+            _close(a, c)
+
+
+def _check_ln(x, mean, rstd, gamma, dz):
+    """Both kernels against their twins, one launch each on its counter, a
+    second launch bit for bit the first."""
+    tag = "_bf16" if x.dtype == torch.bfloat16 else ""
+    cb.reset_launches()
+    stats = cb.layer_norm_stats(x)
+    assert {k: n for k, n in cb.launches().items() if n} == {
+        "layer_norm_stats" + tag: 1}
+    _ln_gate(stats, F.layer_norm_stats(x), ("mean", "var", "rstd"))
+    ln = (x, mean, rstd, gamma)
+    cb.reset_launches()
+    grads = cb.layer_norm_bwd(dz, *ln)
+    assert {k: n for k, n in cb.launches().items() if n} == {
+        "layer_norm_bwd" + tag: 1}
+    _ln_gate(grads, F.layer_norm_bwd(dz, *ln), ("dx", "dgamma", "dbeta"))
+    for again, first in ((cb.layer_norm_stats(x), stats),
+                         (cb.layer_norm_bwd(dz, *ln), grads)):
+        assert all(torch.equal(a, c) for a, c in zip(again, first))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", list(LN_DTYPES))
+@pytest.mark.parametrize("shape", LN_MAIN, ids=str)
+def test_ln_kernels_match_their_twins_at_main_path_shapes(shape, dtype,
+                                                          device):
+    T, N, hw, C = shape
+    _check_ln(*_ln_inputs(T, N, hw, hw, C, LN_DTYPES[dtype], hw + C + N))
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("dtype", list(LN_DTYPES))
+@pytest.mark.parametrize("shape", LN_EDGE, ids=str)
+def test_ln_kernels_match_their_twins_at_edge_shapes(shape, dtype, device):
+    _check_ln(*_ln_inputs(*shape, LN_DTYPES[dtype], sum(shape)))
+
+
+@pytest.mark.parametrize("dtype", list(LN_DTYPES))
+def test_ln_kernels_take_tensors_off_16_byte_alignment(dtype, device,
+                                                       monkeypatch):
+    """Contiguous views one element into their storage, which the wrappers
+    take: x off alignment makes the statistics and the backward load one
+    value at a time (the plans asked without vectors), dz alone the
+    backward; each equal to the twins as aligned inputs are."""
+    asked = []
+    plans = {k: getattr(cb, k) for k in ("ln_stats_plan", "ln_bwd_plan")}
+    for k, plan in plans.items():
+        monkeypatch.setattr(cb, k, lambda *a, _p=plan, _k=k:
+                            asked.append((_k, a[4] if _k == "ln_bwd_plan"
+                                          else a[3])) or _p(*a))
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, device=t.device, dtype=t.dtype)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    x, mean, rstd, gamma, dz = _ln_inputs(2, 3, 10, 10, 48, LN_DTYPES[dtype],
+                                          53)
+    xs, dzs = shifted(x), shifted(dz)
+    assert xs.data_ptr() % 16 != 0 and dzs.data_ptr() % 16 != 0
+    for args, vec in (((xs, mean, rstd, gamma, dz), False),
+                      ((x, mean, rstd, gamma, dzs), None),
+                      ((x, mean, rstd, gamma, dz), True)):
+        asked.clear()
+        _check_ln(*args)
+        want = {"ln_stats_plan": vec if vec is not None else True,
+                "ln_bwd_plan": bool(vec)}
+        assert {k: v for k, v in asked} == want, asked
+
+
+def test_ln_wrappers_reject_what_the_kernels_do_not_take(device):
+    """f16 raises ``TypeError``, a non-contiguous x or dz ``ValueError``,
+    before any launch."""
+    x, mean, rstd, gamma, dz = _ln_inputs(2, 3, 6, 6, 8, torch.float32, 59)
+    h = x.half()
+    cb.reset_launches()
+    with pytest.raises(TypeError, match="^layer_norm_stats: .*float32 or "
+                                        "bfloat16"):
+        cb.layer_norm_stats(h)
+    with pytest.raises(TypeError, match="^layer_norm_bwd: .*float32 or "
+                                        "bfloat16"):
+        cb.layer_norm_bwd(dz.half(), h, mean.half(), rstd.half(),
+                          gamma.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        cb.layer_norm_stats(x.transpose(2, 3))
+    with pytest.raises(ValueError, match="contiguous"):
+        cb.layer_norm_bwd(dz.transpose(2, 3), x, mean, rstd, gamma)
+    assert set(cb.launches().values()) == {0}
+
+
+def test_ln_entries_refuse_a_plan_that_does_not_match(device):
+    """The entries check the plan against the shape and the vectors against
+    M and the pointers, and launch nothing otherwise."""
+    from howtotrainyourmamlpytorch_tpu_torch.kernels import build
+
+    T, N, H, W, C = 2, 3, 10, 10, 48
+    R, M = T * N, H * W * C
+    x, mean, rstd, gamma, dz = _ln_inputs(T, N, H, W, C, torch.float32, 61)
+    stats = build.function("layer_norm", "layer_norm_stats", cb._LN_ENTRY)
+    bwd = build.function("layer_norm", "layer_norm_bwd", cb._LN_ENTRY)
+    stream = torch.cuda.current_stream().cuda_stream
+    out = torch.full((3, T, N), 7.0, device=device)
+    o = [out[k].data_ptr() for k in range(3)]
+    sp = cb.ln_stats_plan(R, M, False, True, 4)
+    assert sp.route == "cluster" and sp.cluster > 1
+    off = torch.empty(x.numel() + 1, device=device)[1:]
+
+    def stats_args(xp, warp, cluster, chunk, grid):
+        return cb._LN_STATS_ARGS(xp, *o, R, M, 0, 1, warp, cluster, chunk,
+                                 grid, 0, stream)
+
+    for xp, warp, cluster, chunk, grid in (
+            (x, 0, sp.cluster, sp.chunk, sp.grid + 1),
+            (x, 0, 3, sp.chunk, R * 3),                   # not a power of 2
+            (x, 0, sp.cluster, sp.chunk // 2, sp.grid),   # M uncovered
+            (x, 1, 1, M, -(-R // 8)),                     # too long a row
+            (off, 0, sp.cluster, sp.chunk, sp.grid)):     # x off vectors
+        assert stats(stats_args(xp.data_ptr(), warp, cluster, chunk, grid),
+                     1e-5) != 0
+    bp = cb.ln_bwd_plan(T, N, M, False, True, 132, 2)
+    assert bp.grid == T * bp.tiles
+    dx = torch.full(x.shape, 7.0, device=device)
+    dgb = torch.full((2, T, H, W, C), 7.0, device=device)
+    jw = bp.tiles * (bp.tpr // 32)
+    scratch = torch.empty(2 * R * (jw + 1), device=device)
+    ptrs = [t.data_ptr() for t in (dz, x, mean, rstd, gamma, dx, dgb[0],
+                                   dgb[1])]
+    part = scratch.data_ptr()
+    for tpr, J, blocks, m in (
+            (bp.tpr, bp.tiles + 1, bp.grid, M),
+            (48, bp.tiles, bp.grid, M),
+            (bp.tpr, bp.tiles, T * bp.tiles + 1, M),  # more blocks than items
+            (bp.tpr, bp.tiles, 0, M),
+            (bp.tpr, bp.tiles, bp.grid, M - 2)):      # M off the vectors
+        assert bwd(cb._LN_BWD_ARGS(*ptrs, part, part + 8 * R * jw, T, N, m,
+                                   0, 1, tpr, J, blocks, 0, stream),
+                   1.0 / M) != 0
+    torch.cuda.synchronize()
+    assert bool((out == 7.0).all()) and bool((dx == 7.0).all())
+    assert bool((dgb == 7.0).all())
+    assert stats(stats_args(x.data_ptr(), 0, sp.cluster, sp.chunk, sp.grid),
+                 1e-5) == 0
+    _ln_gate(out.unbind(0), F.layer_norm_stats(x), ("mean", "var", "rstd"))
+
+
+def test_no_ln_stats_or_bwd_call_reaches_a_triton_kernel(device,
+                                                         monkeypatch):
+    """The Triton statistics and backward are gone from
+    kernels/layer_norm.py, and both wrappers run with Triton's compile step
+    made to fail, in f32 and bf16; the forward and the double backward keep
+    their Triton kernels."""
+    from howtotrainyourmamlpytorch_tpu_torch.kernels import bn_stats
+    from howtotrainyourmamlpytorch_tpu_torch.kernels import layer_norm
+
+    for gone in ("launch_stats", "launch_bwd", "stats_plan",
+                 "_stats_partial_kernel", "_bwd_reduce_kernel",
+                 "_bwd_dx_kernel"):
+        assert not hasattr(layer_norm, gone), gone
+    assert hasattr(layer_norm, "launch_fwd")
+    assert hasattr(layer_norm, "launch_bwd_bwd")
+
+    def no_triton():
+        raise AssertionError("a layer-norm wrapper reached Triton")
+
+    monkeypatch.setattr(layer_norm, "_jit", no_triton)
+    monkeypatch.setattr(bn_stats, "_jit", no_triton)
+    for dtype in LN_DTYPES.values():
+        _check_ln(*_ln_inputs(2, 3, 8, 8, 48, dtype, 67))
