@@ -27,6 +27,13 @@ Phases, in order; any failure raises and the exit code is non-zero:
    pooled rows, ``bn_act_fwd``, ``batch_norm_fwd`` and their ``_bf16``
    forms — each call held twice, bit for bit, its rows printed as
    ``[K2]`` lines with their device time, bound share and library ratio;
+   ``bn_input_stats`` (``csrc/bn_input_stats.cu``) and the GAP's forward
+   and backward (``csrc/global_avg_pool.cu``), f32 and bf16, at every
+   shape this phase and the later kernel phases hold them — the
+   norm-first stages and the strided image, the strided Omniglot 2 x 2 x
+   64 map and the unpadded strided 4 x 4 x 48 map at N = 75 — each call
+   held twice, bit for bit, their rows printed at the end as ``[B5]``
+   lines with their device time, bound share and library ratio;
    K1-K5 again at the four layers of the Omniglot 20-way 1-shot
    model (28/14/7/3, cin 1 and 64, cout 64, T = 8, N = 20); and the ingest
    kernel ``episode_expand`` at the Omniglot device-tier train batch, a
@@ -280,6 +287,13 @@ UNPADDED_STAGES = (("stage0", 84, 3), ("stage1", 41, 48),
                    ("stage2", 19, 48), ("stage3", 8, 48))
 UNPADDED_STRIDED_STAGES = (("stage0", 84, 3), ("stage1", 41, 48),
                            ("stage2", 20, 48), ("stage3", 9, 48))
+# the unpadded norm-first models' block inputs past the image (stage 0's
+# 84 x 84 x 3 is NORM_FIRST_STAGES'): pooled 41/19/8 x 48, strided 20/9 x
+# 48 (41 x 41 x 48 both), where bn_input_stats runs at N = 75
+UNPADDED_NORM_FIRST = (
+    tuple((f"unpadded {s}", hw, c) for s, hw, c in UNPADDED_STAGES[1:])
+    + tuple((f"unpadded strided {s}", hw, c)
+            for s, hw, c in UNPADDED_STRIDED_STAGES[2:]))
 # the MAML (not ++) mini-ImageNet config, unmodified: shared batch-norm
 # gamma and beta, no running statistics, no MSL, a fixed inner LR
 MAML_JSON = ("experiment_config/"
@@ -445,13 +459,14 @@ SOURCES.update({
     "bn_act_bwd": BN_TRITON,
     "bn_act_bwd_bwd": BN_TRITON,
     "global_avg_pool2d_fwd": (
-        "triton", "howtotrainyourmamlpytorch_tpu_torch/kernels/"
-                  "global_avg_pool.py"),
+        "cuda", "howtotrainyourmamlpytorch_tpu_torch/kernels/csrc/"
+                "global_avg_pool.cu"),
     "global_avg_pool2d_bwd": (
-        "triton", "howtotrainyourmamlpytorch_tpu_torch/kernels/"
-                  "global_avg_pool.py"),
+        "cuda", "howtotrainyourmamlpytorch_tpu_torch/kernels/csrc/"
+                "global_avg_pool.cu"),
     "bn_input_stats": (
-        "triton", "howtotrainyourmamlpytorch_tpu_torch/kernels/bn_stats.py"),
+        "cuda", "howtotrainyourmamlpytorch_tpu_torch/kernels/csrc/"
+                "bn_input_stats.cu"),
     "batch_norm_fwd": SOURCES["bn_act_pool_fwd"],
     "batch_norm_bwd": BN_TRITON,
     "batch_norm_bwd_bwd": BN_TRITON,
@@ -680,6 +695,12 @@ K5_DEVICE = "bn_act_pool_bwd_bwd_kernel"
 # ``batch_norm_fwd``), in either dtype
 K2_DEVICE = "bn_act_pool_fwd_kernel"
 K2_FREE_DEVICE = "bn_act_fwd_kernel"
+# bn_input_stats and the GAP on the device (csrc/bn_input_stats.cu: one
+# kernel a call, a block a tenant or cooperative; csrc/global_avg_pool.cu:
+# one kernel each way), in either dtype
+STATS_DEVICE = "bn_input_stats_kernel"
+GAP_FWD_DEVICE = "global_avg_pool_fwd_kernel"
+GAP_BWD_DEVICE = "global_avg_pool_bwd_kernel"
 # K1 and dgrad in bf16 at stride 1 on the device (csrc/conv3x3_s1_bf16.cu:
 # the conv, and with statistics the merge)
 MMA_DEVICE = "conv3x3_s1_mma_kernel"
@@ -1080,25 +1101,27 @@ def check_bn_bwd_stages(cb, F, records, tasks=TRAIN_TASKS, n=25, C=COUT):
             torch.cuda.empty_cache()
 
 
-def print_k2_rows(records):
-    """K2's rows at every timed shape of the kernel phases, pooled and
-    pool-free (``bn_act_fwd``, ``batch_norm_fwd``), f32 and bf16: ms by
-    events, the device time of its launches, the bound and the bound's
-    share of the kernel's time, and the library call's ms and ratio where
-    one exists."""
-    for kernel in ("bn_act_pool_fwd", "bn_act_fwd", "batch_norm_fwd"):
+def print_device_rows(records, tag, kernels):
+    """The rows of ``kernels`` and their ``_bf16`` forms at every timed
+    shape of the kernel phases, as ``[tag]`` lines: ms by events, the
+    device time of their launches, the library call's ms and ratio where
+    one exists, the bound and its share of the kernel's time, by events
+    and by device time."""
+    for kernel in kernels:
         for name in (kernel, f"{kernel}_bf16"):
             for label, r in records.by_kernel[name].items():
-                lib = r["library_ms"]
+                lib, dev = r["library_ms"], r["device_ms"]
                 vs = ("no library call" if lib is None else
                       "library %.4f ms (%.2fx)" % (lib, r["ms"] / lib))
-                dev = r["device_ms"]
+                by_dev = ("" if dev is None else
+                          ", %.1f%% by device time"
+                          % (100 * r["bound_ms"] / dev))
                 dev = "not measured" if dev is None else "%.4f ms" % dev
-                print(f"[K2] {name} @ {label}: {r['ms']:.4f} ms (device "
+                print(f"[{tag}] {name} @ {label}: {r['ms']:.4f} ms (device "
                       f"{dev}), {vs}, bound {r['bound_ms']:.4f} ms "
                       f"({r['bound_by']}), "
                       f"{100 * r['bound_ms'] / r['ms']:.1f}% of the "
-                      "kernel's time", flush=True)
+                      f"kernel's time{by_dev}", flush=True)
 
 
 def print_k35_rows(records):
@@ -1240,36 +1263,63 @@ def check_strided_kernels(cb, F, records, T=T_TENANTS, n=OMNIGLOT_IMAGES,
             conv_flops + T * M * C,
             4 * (x.numel() + dy.numel() + w.numel() + T * C))
         if layer == STRIDED_LAYERS[-1][0]:
-            act = F.bn_act_fwd(*bn)
-            err = max_err("global_avg_pool2d_fwd",
-                          cb.global_avg_pool2d_fwd(act),
-                          F.global_avg_pool2d(act))
-            rec("global_avg_pool2d_fwd", label, err,
+            _check_gap(cb, F, records, randn, label, F.bn_act_fwd(*bn))
+        del x, y, dy, a, db_, args, xl, dyl
+        torch.cuda.empty_cache()
+
+
+def _check_gap(cb, F, records, randn, label, act):
+    """The GAP's forward and backward in f32 on ``act`` (T, N, h, w, C)
+    against their twins, each held twice bit for bit, timed beside the
+    twin and the library call (``mean``, ``_gap_bwd_library``), with the
+    device time of their launches: launch-bound, the event times include
+    the wrapper's host time."""
+    T, n, h, w, C = act.shape
+    got = cb.global_avg_pool2d_fwd(act)
+    err = max_err("global_avg_pool2d_fwd", got, F.global_avg_pool2d(act))
+    _same_bits("global_avg_pool2d_fwd",
+               lambda: cb.global_avg_pool2d_fwd(act), got)
+    records.add("global_avg_pool2d_fwd", label, err,
                 lambda: cb.global_avg_pool2d_fwd(act),
                 lambda: F.global_avg_pool2d(act),
                 lambda: act.mean(dim=(-3, -2)), act.numel(),
-                4 * (act.numel() + T * n * C))
-            g = randn(T, n, C)
-            err = max_err("global_avg_pool2d_bwd",
-                          cb.global_avg_pool2d_bwd(g, Ho, Wo),
-                          F.global_avg_pool2d_bwd(g, Ho, Wo))
-            rec("global_avg_pool2d_bwd", label, err,
-                lambda: cb.global_avg_pool2d_bwd(g, Ho, Wo),
-                lambda: F.global_avg_pool2d_bwd(g, Ho, Wo),
+                4 * (act.numel() + T * n * C), device=GAP_FWD_DEVICE)
+    g = randn(T, n, C)
+    got = cb.global_avg_pool2d_bwd(g, h, w)
+    err = max_err("global_avg_pool2d_bwd", got,
+                  F.global_avg_pool2d_bwd(g, h, w))
+    _same_bits("global_avg_pool2d_bwd",
+               lambda: cb.global_avg_pool2d_bwd(g, h, w), got)
+    records.add("global_avg_pool2d_bwd", label, err,
+                lambda: cb.global_avg_pool2d_bwd(g, h, w),
+                lambda: F.global_avg_pool2d_bwd(g, h, w),
                 _gap_bwd_library(g, act), act.numel(),
-                4 * (act.numel() + g.numel()))
-            # launch-bound: the event times above include the wrapper's
-            # host time; the profiler gives the kernels' own
-            for kernel, fn in (
-                    ("_gap_fwd_kernel", lambda: cb.global_avg_pool2d_fwd(act)),
-                    ("_gap_bwd_kernel",
-                     lambda: cb.global_avg_pool2d_bwd(g, Ho, Wo))):
-                ms = device_ms(fn, kernel)
-                print(f"  {kernel} @ {label}: device time "
-                      f"{'not measured' if ms is None else f'{ms:.4f} ms'} "
-                      "per launch (profiler)", flush=True)
-        del x, y, dy, a, db_, args, xl, dyl
-        torch.cuda.empty_cache()
+                4 * (act.numel() + g.numel()), device=GAP_BWD_DEVICE)
+
+
+def _check_stats(cb, F, records, label, x, bf16=False):
+    """``bn_input_stats`` on x against its twin (f32 within the gate, bf16
+    within one bf16 ulp), held twice bit for bit, timed beside the twin,
+    ``torch.var_mean`` and (bf16) the f32 kernel, with the device time of
+    its launches."""
+    got = cb.bn_input_stats(x)
+    want = F.bn_input_stats(x)
+    if bf16:
+        err = max(within_ulp(f"bn_input_stats_bf16 {what}", a, c)
+                  for what, a, c in zip(("mean", "var", "rstd"), got, want))
+        x32 = x.float()
+    else:
+        err = _bn_errs("bn_input_stats", got, want, ("mean", "var", "rstd"),
+                       label)
+    name = "bn_input_stats_bf16" if bf16 else "bn_input_stats"
+    _same_bits(name, lambda: cb.bn_input_stats(x), got)
+    T, C = x.shape[0], x.shape[-1]
+    records.add(name, label, err, lambda: cb.bn_input_stats(x),
+                lambda: F.bn_input_stats(x),
+                lambda: torch.var_mean(x, dim=(1, 2, 3), correction=0),
+                4 * x.numel(), x.element_size() * (x.numel() + 3 * T * C),
+                f32_fn=(lambda: cb.bn_input_stats(x32)) if bf16 else None,
+                device=STATS_DEVICE)
 
 
 def check_norm_first_kernels(cb, F, records, T=T_TENANTS):
@@ -1288,7 +1338,8 @@ def check_norm_first_kernels(cb, F, records, T=T_TENANTS):
     (train) for its backward, grouped ``conv2d`` / ``conv2d_input``; none
     for the act-pool kernels and the double backward. Then
     ``F.batch_norm(training=True)`` beside the two forward kernels
-    together."""
+    together. Last, ``bn_input_stats`` at the unpadded norm-first models'
+    block inputs (``UNPADDED_NORM_FIRST``, N = 75)."""
     rec = records.add
     randn = _randn(torch.Generator(device="cuda").manual_seed(21))
     nnf = torch.nn.functional
@@ -1310,14 +1361,7 @@ def check_norm_first_kernels(cb, F, records, T=T_TENANTS):
             xl = _nchw_tenants(x)
             if n == max(IMAGES):
                 # the forward: support and target, the target's N here
-                err = _bn_errs("bn_input_stats", cb.bn_input_stats(x),
-                               (mean, var, rstd), ("mean", "var", "rstd"),
-                               label)
-                rec("bn_input_stats", label, err,
-                    lambda: cb.bn_input_stats(x),
-                    lambda: F.bn_input_stats(x),
-                    lambda: torch.var_mean(x, dim=(1, 2, 3), correction=0),
-                    4 * x.numel(), 4 * (x.numel() + 3 * T * cin))
+                _check_stats(cb, F, records, label, x)
                 z = cb.batch_norm_fwd(*bn)
                 err = max_err("batch_norm_fwd", z, F.batch_norm_fwd(*bn))
                 _same_bits("batch_norm_fwd", lambda: cb.batch_norm_fwd(*bn),
@@ -1437,6 +1481,12 @@ def check_norm_first_kernels(cb, F, records, T=T_TENANTS):
                 del dz, dzl, a, args, dp, dy, g_dy, arg
             del x, xl, y, bn
             torch.cuda.empty_cache()
+    # the statistics at the unpadded norm-first models' block inputs
+    n = max(IMAGES)
+    for stage, hw, cin in UNPADDED_NORM_FIRST:
+        _check_stats(cb, F, records, f"norm-first T={T} {stage} N={n}",
+                     randn(T, n, hw, hw, cin))
+        torch.cuda.empty_cache()
 
 
 def check_strided_norm_first_kernels(cb, F, records, T=T_TENANTS,
@@ -1445,9 +1495,9 @@ def check_strided_norm_first_kernels(cb, F, records, T=T_TENANTS,
     pool) adds: ``act_fwd`` / ``act_bwd`` (the pool-free leaky-ReLU and its
     backward, flat elementwise passes, beside ``leaky_relu`` and
     ``aten.leaky_relu_backward``) on the conv output of each of its
-    four layers (14x14, 7x7, 4x4, 2x2, 64 channels), and at layer 1 the
-    statistics of the image (C = 1) and the stride-2 dgrad back to it
-    (cin 1)."""
+    four layers (14x14, 7x7, 4x4, 2x2, 64 channels), the statistics of
+    each layer's input (the image, C = 1, at layer 1; 14x14, 7x7, 4x4 x 64
+    after), and at layer 1 the stride-2 dgrad back to the image (cin 1)."""
     rec = records.add
     randn = _randn(torch.Generator(device="cuda").manual_seed(23))
     for layer, hw, cin in STRIDED_LAYERS:
@@ -1466,15 +1516,10 @@ def check_strided_norm_first_kernels(cb, F, records, T=T_TENANTS,
             lambda: torch.ops.aten.leaky_relu_backward(da, y, F.LEAKY_SLOPE,
                                                        False),
             2 * y.numel(), 12 * y.numel())
+        x = (torch.rand(T, n, hw, hw, cin, device="cuda") if cin == 1
+             else randn(T, n, hw, hw, cin))
+        _check_stats(cb, F, records, label, x)
         if cin == 1:
-            x = torch.rand(T, n, hw, hw, cin, device="cuda")
-            err = _bn_errs("bn_input_stats", cb.bn_input_stats(x),
-                           F.bn_input_stats(x), ("mean", "var", "rstd"),
-                           label)
-            rec("bn_input_stats", label, err, lambda: cb.bn_input_stats(x),
-                lambda: F.bn_input_stats(x),
-                lambda: torch.var_mean(x, dim=(1, 2, 3), correction=0),
-                4 * x.numel(), 4 * (x.numel() + 3 * T * cin))
             w = randn(T, 3, 3, cin, C, scale=math.sqrt(2.0 / (9 * cin)))
             wl = w.permute(0, 4, 3, 1, 2).reshape(T * C, cin, 3, 3)
             wl, dyl = wl.contiguous(), _nchw_tenants(da)
@@ -1638,6 +1683,14 @@ def check_unpadded_kernels(cb, F, records, T=T_TENANTS, C=COUT):
                         conv_flops + T * M * C,
                         4 * (x.numel() + w.numel() + b.numel() + 3 * T * C)
                         + y_bytes, device=None if strided else K1_DEVICE)
+                    if strided and stage == stages[-1][0]:
+                        # the unpadded strided model's GAP: 4 x 4 x 48
+                        y, mean, _, rstd = want
+                        ones = torch.ones(T, C, device="cuda")
+                        _check_gap(cb, F, records, randn, label,
+                                   F.bn_act_fwd(y, mean, rstd, ones,
+                                                0 * ones))
+                        del y
                     del want, got
                 else:
                     name = cb._conv_name("conv3x3_fwd", s, 0)
@@ -3730,12 +3783,18 @@ def _bf16_gap(cb, F, records, randn, label, act, record=True):
     T, n, h, w, C = act.shape
     g = randn(T, n, C).to(torch.bfloat16)
     act32, g32 = _f32(act, g)
-    _equal("global_avg_pool2d_fwd_bf16", cb.global_avg_pool2d_fwd(act),
-           F.global_avg_pool2d(act))
-    _equal("global_avg_pool2d_bwd_bf16", cb.global_avg_pool2d_bwd(g, h, w),
-           F.global_avg_pool2d_bwd(g, h, w))
+    for name, fn, twin in (
+            ("global_avg_pool2d_fwd_bf16",
+             lambda: cb.global_avg_pool2d_fwd(act),
+             F.global_avg_pool2d(act)),
+            ("global_avg_pool2d_bwd_bf16",
+             lambda: cb.global_avg_pool2d_bwd(g, h, w),
+             F.global_avg_pool2d_bwd(g, h, w))):
+        got = fn()
+        _equal(name, got, twin)
+        _same_bits(name, fn, got)
     print(f"  GAP bf16 forward and backward @ {label} ({h}x{w}): equal to "
-          "their twins bit for bit", flush=True)
+          "their twins bit for bit, twice", flush=True)
     if not record:
         return
     records.add("global_avg_pool2d_fwd_bf16", label, 0.0,
@@ -3743,13 +3802,15 @@ def _bf16_gap(cb, F, records, randn, label, act, record=True):
                 lambda: F.global_avg_pool2d(act),
                 lambda: act.mean(dim=(-3, -2)), act.numel(),
                 2 * (act.numel() + T * n * C),
-                f32_fn=lambda: cb.global_avg_pool2d_fwd(act32))
+                f32_fn=lambda: cb.global_avg_pool2d_fwd(act32),
+                device=GAP_FWD_DEVICE)
     records.add("global_avg_pool2d_bwd_bf16", label, 0.0,
                 lambda: cb.global_avg_pool2d_bwd(g, h, w),
                 lambda: F.global_avg_pool2d_bwd(g, h, w),
                 _gap_bwd_library(g, act), act.numel(),
                 2 * (act.numel() + g.numel()),
-                f32_fn=lambda: cb.global_avg_pool2d_bwd(g32, h, w))
+                f32_fn=lambda: cb.global_avg_pool2d_bwd(g32, h, w),
+                device=GAP_BWD_DEVICE)
 
 
 def check_bf16_strided_kernels(cb, F, records, T=T_TENANTS,
@@ -3835,8 +3896,7 @@ def check_bf16_strided_kernels(cb, F, records, T=T_TENANTS,
             ones = torch.ones(T, COUT, device="cuda", dtype=bf)
             _bf16_gap(cb, F, records, randn,
                       f"bf16 unpadded strided T={T} {stage} N=75",
-                      F.bn_act_fwd(y, mean, rstd, ones, 0 * ones),
-                      record=False)
+                      F.bn_act_fwd(y, mean, rstd, ones, 0 * ones))
         del x, y
         x = randn(T, 25, hw, hw, cin).to(bf)
         _bf16_conv_s2(cb, F, records, randn,
@@ -3856,8 +3916,10 @@ def check_bf16_norm_first_kernels(cb, F, records, T=T_TENANTS):
     cotangents, ``act_pool_bwd`` / ``act_pool_gather`` (bit for bit) and
     dgrad back to cin 3 on a random dy; then what the strided norm-first
     Omniglot model adds: ``act_fwd`` / ``act_bwd`` (bit for bit) on the
-    conv outputs of its four layers, and at layer 1 the statistics of the
-    image (C = 1) and the stride-2 dgrad back to it (cin 1). Each against
+    conv outputs of its four layers, the statistics of each layer's input
+    (the image, C = 1, then 64 channels), and at layer 1 the stride-2
+    dgrad back to the image (cin 1); and the statistics at the unpadded
+    norm-first models' block inputs (``UNPADDED_NORM_FIRST``). Each against
     its bf16 twin, timed beside the twin, the f32 kernel at the same shape
     and the library call in bf16 where one computes the same function
     (``torch.var_mean``, ``F.batch_norm`` given statistics,
@@ -3877,7 +3939,6 @@ def check_bf16_norm_first_kernels(cb, F, records, T=T_TENANTS):
             mean, var, rstd = F.bn_input_stats(x)
             bn = (x, mean, rstd, gamma, beta)
             bn32 = _f32(*bn)
-            x32 = bn32[0]
             w = randn(T, 3, 3, cin, C,
                       scale=math.sqrt(2.0 / (9 * cin))).to(bf)
             y = F.conv3x3(F.batch_norm_fwd(*bn), w,
@@ -3885,16 +3946,7 @@ def check_bf16_norm_first_kernels(cb, F, records, T=T_TENANTS):
             y32 = y.float()
             xl = _nchw_tenants(x)
             if n == max(IMAGES):
-                err = max(within_ulp(f"bn_input_stats_bf16 {what}", a, c)
-                          for what, a, c in zip(("mean", "var", "rstd"),
-                                                cb.bn_input_stats(x),
-                                                (mean, var, rstd)))
-                rec("bn_input_stats_bf16", label, err,
-                    lambda: cb.bn_input_stats(x),
-                    lambda: F.bn_input_stats(x),
-                    lambda: torch.var_mean(x, dim=(1, 2, 3), correction=0),
-                    4 * x.numel(), 2 * (x.numel() + 3 * T * cin),
-                    f32_fn=lambda: cb.bn_input_stats(x32))
+                _check_stats(cb, F, records, label, x, bf16=True)
                 flat = [v.reshape(-1).float() for v in (mean, var, gamma,
                                                         beta)]
                 z = cb.batch_norm_fwd(*bn)
@@ -4024,18 +4076,10 @@ def check_bf16_norm_first_kernels(cb, F, records, T=T_TENANTS):
                                                        False),
             2 * y.numel(), 6 * y.numel(), f32_fn=lambda: cb.act_bwd(da32,
                                                                     y32))
+        x = (torch.rand(T, n, hw, hw, cin, device="cuda") if cin == 1
+             else randn(T, n, hw, hw, cin)).to(bf)
+        _check_stats(cb, F, records, label, x, bf16=True)
         if cin == 1:
-            x = torch.rand(T, n, hw, hw, cin, device="cuda").to(bf)
-            x32 = x.float()
-            err = max(within_ulp(f"bn_input_stats_bf16 {what}", a, c)
-                      for what, a, c in zip(("mean", "var", "rstd"),
-                                            cb.bn_input_stats(x),
-                                            F.bn_input_stats(x)))
-            rec("bn_input_stats_bf16", label, err,
-                lambda: cb.bn_input_stats(x), lambda: F.bn_input_stats(x),
-                lambda: torch.var_mean(x, dim=(1, 2, 3), correction=0),
-                4 * x.numel(), 2 * (x.numel() + 3 * T * cin),
-                f32_fn=lambda: cb.bn_input_stats(x32))
             w = randn(T, 3, 3, cin, Co,
                       scale=math.sqrt(2.0 / (9 * cin))).to(bf)
             w32 = w.float()
@@ -4054,6 +4098,11 @@ def check_bf16_norm_first_kernels(cb, F, records, T=T_TENANTS):
                 2 * T * n * ho * ho * 9 * cin * Co,
                 2 * (da.numel() + w.numel() + x.numel()), tensor_cores=True,
                 f32_fn=lambda: cb.conv3x3_dgrad(da32, w32, 2, hw2))
+        torch.cuda.empty_cache()
+    n = max(IMAGES)
+    for stage, hw, cin in UNPADDED_NORM_FIRST:
+        _check_stats(cb, F, records, f"bf16 norm-first T={T} {stage} N={n}",
+                     randn(T, n, hw, hw, cin).to(bf), bf16=True)
         torch.cuda.empty_cache()
 
 
@@ -5036,7 +5085,11 @@ def main() -> int:
     idle = [k for k in all_kernels if not main_counts[k]]
     if idle:
         raise AssertionError(f"kernels no main path launched: {idle}")
-    print_k2_rows(records)
+    print_device_rows(records, "K2", ("bn_act_pool_fwd", "bn_act_fwd",
+                                      "batch_norm_fwd"))
+    print_device_rows(records, "B5", ("bn_input_stats",
+                                      "global_avg_pool2d_fwd",
+                                      "global_avg_pool2d_bwd"))
     # the bf16 stride-1 convs on the tensor cores (bound at their rate)
     print_k1_rows(records, "K1", ("conv3x3_fwd_stats_bf16",
                                   "conv3x3_fwd_bf16",

@@ -2,8 +2,7 @@
 
 CUDA C++ sources live in ``csrc/`` and are built at first use by
 ``build.py``; the Triton kernels live in ``bn_act_pool.py``,
-``bn_stats.py``, ``act_pool.py``, ``global_avg_pool.py`` and
-``layer_norm.py``; the wrappers, launch counters and the
+``act_pool.py`` and ``layer_norm.py``; the wrappers, launch counters and the
 ``autograd.Function``s of the blocks live in ``conv_block.py``, those of
 the ingest kernel in ``episode_expand.py``.
 Importing this package imports neither triton nor the CUDA toolkit.

@@ -29,9 +29,9 @@ argmax and, at it, g_dy and y, and writes the pooled quarter. The
 pool-free passes are flat: one program per 4,096 elements, no channel
 structure. Each is one launch.
 
-Tiles are ``bn_stats.tile(C)``: ``(BLOCK_P pixels, BLOCK_C)`` with
-``BLOCK_C`` the power of two at or above C and ``BLOCK_P * BLOCK_C = 4096``
-(C = 48: 3 of 4 lanes).
+Tiles are ``tile(C)``: ``(BLOCK_P pixels, BLOCK_C)`` with ``BLOCK_C``
+the power of two at or above C (at least 2) and ``BLOCK_P * BLOCK_C =
+TILE`` (C = 48: 3 of 4 lanes).
 
 bf16 (``compute_dtype='bfloat16'``): every kernel loads bf16, works in
 f32 and stores bf16, with the slope the bf16 value of 0.01 (the
@@ -56,10 +56,22 @@ import functools
 from types import SimpleNamespace
 
 from . import bn_act_pool
-from .bn_stats import TILE, cdiv, tile
 
 tl = None  # bound to ``triton.language`` by ``_jit()`` at the first launch
 _rne_bf16 = None  # bound to ``bn_act_pool``'s jitted rounding by ``_jit()``
+
+TILE = 4096  # elements per tile: BLOCK_P x BLOCK_C
+
+
+def cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def tile(C: int) -> tuple:
+    """``(block_p, block_c)`` for C channels: ``block_c`` the power of two
+    at or above C (at least 2), ``block_p * block_c = TILE``."""
+    block_c = max(2, 1 << max(0, C - 1).bit_length())
+    return max(1, TILE // block_c), block_c
 
 
 def _act_pool_fwd_kernel(y_ptr, out_ptr, arg_ptr, P, HoWo, Wo, H, W, C,

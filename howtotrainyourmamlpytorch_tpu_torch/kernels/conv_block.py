@@ -25,9 +25,11 @@ kernel                      route   source                    launches/call
 ``bn_act_fwd``              CUDA    csrc/bn_act_fwd.cu        1 (pool-free)
 ``bn_act_bwd``              Triton  bn_act_pool.py (K3)       2 (pool-free)
 ``bn_act_bwd_bwd``          Triton  bn_act_pool.py (K5)       2 (pool-free)
-``global_avg_pool2d_fwd``   Triton  global_avg_pool.py        1
-``global_avg_pool2d_bwd``   Triton  global_avg_pool.py        1
-``bn_input_stats``          Triton  bn_stats.py               partial + merge: 2
+``global_avg_pool2d_fwd``   CUDA    csrc/global_avg_pool.cu   1
+``global_avg_pool2d_bwd``   CUDA    csrc/global_avg_pool.cu   1
+``bn_input_stats``          CUDA    csrc/bn_input_stats.cu    1 (a block a
+                                                              tenant, or
+                                                              cooperative)
 ``batch_norm_fwd``          CUDA    csrc/bn_act_fwd.cu        1 (slope 1)
 ``batch_norm_bwd``          Triton  bn_act_pool.py (K3)       2 (slope 1)
 ``batch_norm_bwd_bwd``      Triton  bn_act_pool.py (K5)       2 (slope 1)
@@ -79,6 +81,11 @@ one launch a call: ``layer_norm_stats`` a warp a row at the small maps
 and a thread block cluster a row above (``ln_stats_plan``),
 ``layer_norm_bwd`` one cooperative launch over (tenant, column tile)
 items (``ln_bwd_plan``, sized from the occupancy query).
+``bn_input_stats`` runs ``csrc/bn_input_stats.cu`` in both dtypes, one
+launch a call (``bn_stats_plan``: a block a tenant at the small maps, else
+one cooperative launch of a few blocks a tenant, their partials merged
+after a grid barrier); the global average pool and its backward run
+``csrc/global_avg_pool.cu``, a plain launch each.
 
 The ``conv3x3_s2_*`` names are the four conv kernels at stride 2 (the
 strided model, ``max_pooling=False``), counted apart from stride 1, and
@@ -164,14 +171,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from ..ops import functional as F
-from . import (
-    act_pool,
-    bn_act_pool,
-    bn_stats,
-    build,
-    global_avg_pool,
-    layer_norm,
-)
+from . import act_pool, bn_act_pool, build, layer_norm
 
 Tensor = torch.Tensor
 
@@ -310,6 +310,20 @@ LN_THREADS = 256
 LN_WARP_ROW_VECS = 256
 LN_WARP_ROWS = 8
 LN_MAX_CLUSTER = 8
+#: bn_input_stats (csrc/bn_input_stats.cu, one launch a call): a block's
+#: threads (``kThreads`` there), the most channels it takes, the loads a
+#: thread of one block a tenant at and under which a tenant takes the
+#: block route, the loads a thread of two waves from which the grid route
+#: takes two (on an H100 each faster there, PERF.md §6), the modes in the
+#: occupancy entry's order (``Mode`` there), and the units a thread folds
+#: a group (one merge) by the loads a unit (``G`` there: 8 of one load, 4
+#: of the three loads at C = 3)
+BN_STATS_THREADS = 256
+BN_STATS_MAX_C = 256
+BN_STATS_BLOCK_LOADS = 20
+BN_STATS_WAVE_LOADS = 16
+BN_STATS_MODES = ("scalar", "lanes", "packed1", "packed3")
+BN_STATS_GROUP = {1: 8, 3: 4}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -393,6 +407,44 @@ def _device(device):
     if device.index == torch.cuda.current_device():
         return contextlib.nullcontext()
     return torch.cuda.device(device)
+
+
+#: the dtypes every kernel takes (``kernel_dtype``)
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check_flat(name: str, x: Tensor) -> Tuple[int, int, int, int, int]:
+    """Check an activation a kernel reads as each tenant's flat run of
+    values; returns its shape. An activation the kernels take passes in a
+    few host operations (a call's host time counts at the small maps); any
+    other gets ``_check_act``'s error."""
+    if (x.dtype not in _DTYPES or x.dim() != 5 or not x.is_contiguous()
+            or x.device.type != "cuda"
+            or x.numel() >= x.shape[0] << 31):
+        _check_act(name, x)
+    return tuple(x.shape)
+
+
+#: the entries of csrc/layer_norm.cu and csrc/bn_input_stats.cu take their
+#: arguments packed as 64-bit integers, in one ctypes argument (a call's
+#: host time counts at the small maps), and one float; those of
+#: csrc/global_avg_pool.cu the packed integers alone
+_PACKED_EPS_ENTRY = (ctypes.POINTER(ctypes.c_longlong), _F)
+_PACKED_ENTRY = (ctypes.POINTER(ctypes.c_longlong),)
+
+#: f32 scratch of the one-launch kernels (layer_norm_bwd, bn_input_stats),
+#: one buffer a (device, stream), grown as needed: a launch writes every
+#: value of it that it reads before reading it, and the launches on one
+#: stream run in order
+_SCRATCH: Dict[Tuple[int, int], Tensor] = {}
+
+
+def _scratch(device, stream: int, n: int) -> Tensor:
+    key = (device.index, stream)
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _SCRATCH[key] = torch.empty(n, device=device)
+    return buf
 
 
 def _conv_name(name: str, stride: int, padding: int = 1) -> str:
@@ -1287,22 +1339,144 @@ def _launch_act_bwd_bwd(name, a, ggamma, gbeta, da, y, mean, rstd, gamma,
 # -- the norm-first block's kernels: standalone batch norm (B5b) ----------------
 
 
+class BnStatsPlan(NamedTuple):
+    """The launch of ``bn_input_stats`` at one shape
+    (csrc/bn_input_stats.cu). A thread takes units of ``unit`` loads of
+    ``vec`` values (16 bytes, or one value) and holds ``chans`` channels:
+    ``mode`` ``"lanes"`` (C a multiple of a load's values: a load is
+    ``vec`` consecutive channels), ``"packed1"`` / ``"packed3"`` (C = 1 or
+    3: a unit is lcm(C, vec) values, value i of channel i mod C) or
+    ``"scalar"`` (a value a unit). A tenant's E values are ``units`` whole
+    units (E a multiple of vec, and 3 coprime to it, make E a multiple of
+    lcm(C, vec)), in chunks of ``chunk`` units (a multiple of ``slots`` =
+    C / chans: a thread's units are all its slot mod slots) to ``splits``
+    blocks of ``threads`` live threads (a multiple of slots); ``grid`` = T
+    x splits. ``route``
+    ``"block"`` (splits 1: a block a tenant, a plain launch) or ``"grid"``
+    (one cooperative launch, its blocks' partials merged after a grid
+    barrier)."""
+
+    route: str
+    mode: str
+    vec: int
+    unit: int
+    chans: int
+    slots: int
+    threads: int
+    units: int
+    chunk: int
+    splits: int
+    grid: int
+
+
+def bn_stats_mode(C: int, E: int, bf16: bool, vec: bool) -> str:
+    """``bn_input_stats``' mode for C channels of E values a tenant, with
+    16-byte loads where ``vec`` (x 16-byte aligned) and E allow them."""
+    v = _ln_load(bf16, True)
+    if not vec or E % v:
+        return "scalar"
+    if C % v == 0:
+        return "lanes"
+    return {1: "packed1", 3: "packed3"}.get(C, "scalar")
+
+
+@functools.lru_cache(maxsize=None)
+def bn_stats_plan(T: int, P: int, C: int, bf16: bool = False,
+                  vec: bool = True, sms: int = 132, blocks_per_sm: int = 2
+                  ) -> BnStatsPlan:
+    """``bn_input_stats``' launch for T tenants of P pixels x C channels in
+    f32 or bf16, with 16-byte loads where ``vec`` (x 16-byte aligned) and
+    the shape allow, on a card of ``sms`` SMs that holds ``blocks_per_sm``
+    of the grid route's blocks at once (the occupancy query). A pure
+    function of the shape: the wrapper calls it, and so do the CPU tests.
+    A tenant of at most ``BN_STATS_BLOCK_LOADS`` loads a thread of one
+    block takes the block route; a larger one S blocks, the grid T x S one
+    wave of a block a SM, or two where the card holds two blocks a SM and
+    each thread gets at least ``BN_STATS_WAVE_LOADS`` loads (every block
+    resident at once, as the grid barrier needs); a block a tenant where T
+    exceeds the SMs. Raises for a shape the kernels do not take."""
+    if min(T, P, C, blocks_per_sm) < 1 or C > BN_STATS_MAX_C:
+        raise ValueError(f"bn_stats_plan: no statistics of (T={T}, P={P}, "
+                         f"C={C}) with {blocks_per_sm} blocks a SM")
+    E = P * C
+    mode = bn_stats_mode(C, E, bf16, vec)
+    v = 1 if mode == "scalar" else _ln_load(bf16, True)
+    unit = 3 if mode == "packed3" else 1
+    chans = {"scalar": 1, "lanes": v, "packed1": 1, "packed3": 3}[mode]
+    slots = C // chans
+    threads = BN_STATS_THREADS // slots * slots
+    units = E // (unit * v)
+    assert units * unit * v == E
+    loads = units * unit
+    splits = 1
+    if loads > threads * BN_STATS_BLOCK_LOADS:
+        splits = max(1, sms // T)
+        if (blocks_per_sm >= 2
+                and 2 * sms // T * threads * BN_STATS_WAVE_LOADS <= loads):
+            splits = 2 * sms // T
+    chunk = _cdiv(_cdiv(units, splits), slots) * slots
+    splits = _cdiv(units, chunk)
+    return BnStatsPlan("grid" if splits > 1 else "block", mode, v, unit,
+                       chans, slots, threads, units, chunk, splits,
+                       T * splits)
+
+
+@functools.lru_cache(maxsize=None)
+def _bn_stats_blocks_per_sm(device, bf16: bool, mode: str) -> int:
+    """The occupancy query of ``bn_input_stats``' grid-route kernel."""
+    fn = build.function("bn_input_stats", "bn_input_stats_blocks_per_sm",
+                        (_I, _I, ctypes.POINTER(ctypes.c_int)))
+    out = ctypes.c_int(0)
+    with _device(device):
+        rc = fn(int(bf16), BN_STATS_MODES.index(mode), ctypes.byref(out))
+    build.check(rc, "bn_input_stats_blocks_per_sm")
+    return out.value
+
+
+@functools.lru_cache(maxsize=None)
+def _bn_stats_route(device, T: int, P: int, C: int, bf16: bool,
+                    vec: bool) -> BnStatsPlan:
+    """``bn_stats_plan`` on ``device``'s SMs and occupancy."""
+    mode = bn_stats_mode(C, P * C, bf16, vec)
+    return bn_stats_plan(T, P, C, bf16, vec, _sms(device),
+                         _bn_stats_blocks_per_sm(device, bf16, mode))
+
+
+#: the packed arguments of csrc/bn_input_stats.cu's entry
+#: (``_PACKED_EPS_ENTRY``)
+_BN_STATS_ARGS = ctypes.c_longlong * 16
+
+
 def bn_input_stats(x: Tensor, eps: float = F.BN_EPS
                    ) -> Tuple[Tensor, Tensor, Tensor]:
     """The block input's per-(tenant, channel) batch mean, biased variance
-    and rstd (``bn_stats.py``)."""
+    and rstd, ``(T, C)`` each in x's dtype: one launch of
+    csrc/bn_input_stats.cu (``bn_stats_plan``), the three outputs views of
+    one allocation, the grid route's f32 scratch kept a stream
+    (``_scratch``)."""
     if _on_cpu(x):
         return F.bn_input_stats(x, eps)
     name = "bn_input_stats"
-    T, N, H, W, C = _check_act(name, x)
-    plan = bn_stats.plan(T, N * H * W, C)
-    part = torch.empty((T, plan.splits, 3, C), device=x.device)
-    mean, var, rstd = (torch.empty((T, C), device=x.device, dtype=x.dtype)
-                       for _ in range(3))
-    with torch.cuda.device(x.device):
-        bn_stats.launch(x, part, mean, var, rstd, F.scalar_like(eps, x))
-    LAUNCHES[_counter(name, x)] += 1
-    return mean, var, rstd
+    T, N, H, W, C = _check_flat(name, x)
+    P = N * H * W
+    bf16 = x.dtype is torch.bfloat16
+    xp, device = x.data_ptr(), x.device
+    plan = _bn_stats_route(device, T, P, C, bf16, xp % 16 == 0)
+    out = x.new_empty((3, T, C))  # fewer host operations than torch.empty
+    base, step = out.data_ptr(), T * C * (2 if bf16 else 4)
+    stream = _stream(device)
+    part = (_scratch(device, stream, plan.grid * 3 * C).data_ptr()
+            if plan.splits > 1 else 0)
+    rc = build.function("bn_input_stats", "bn_input_stats", _PACKED_EPS_ENTRY)(
+        _BN_STATS_ARGS(xp, base, base + step, base + 2 * step, part, T, C,
+                       P * C, bf16, plan.mode != "scalar", plan.threads,
+                       plan.chunk, plan.splits, plan.grid, device.index,
+                       stream),
+        F.scalar_like(eps, x))
+    counter = _counter(name, x)
+    build.check(rc, counter)
+    LAUNCHES[counter] += 1
+    return out.unbind(0)
 
 
 def batch_norm_fwd(x: Tensor, mean: Tensor, rstd: Tensor, gamma: Tensor,
@@ -1428,19 +1602,10 @@ def act_bwd(da: Tensor, y: Tensor, negative_slope: float = F.LEAKY_SLOPE
 # -- the layer norm (B5c) ------------------------------------------------------
 
 
-_LN_DTYPES = (torch.float32, torch.bfloat16)
-
-
 def _check_ln_rows(name: str, x: Tensor) -> Tuple[int, int, int, int, int]:
     """Check a layer norm's activation, whose T * N images are rows of the
-    launch grid's second axis; returns its shape. An activation the kernels
-    take passes in a few host operations (a call's host time counts at the
-    small maps); any other gets ``_check_act``'s error."""
-    if (x.dtype not in _LN_DTYPES or x.dim() != 5 or not x.is_contiguous()
-            or x.device.type != "cuda"
-            or x.numel() >= x.shape[0] << 31):
-        _check_act(name, x)
-    T, N, H, W, C = x.shape
+    launch grid's second axis (``_check_flat``); returns its shape."""
+    T, N, H, W, C = _check_flat(name, x)
     if T * N >= 65536:
         raise ValueError(f"{name}: T * N = {T * N} images exceed the launch "
                          "grid's 65,535 rows")
@@ -1519,10 +1684,7 @@ def ln_stats_plan(R: int, M: int, bf16: bool = False, vec: bool = True,
                        _cdiv(loads, cluster) * v, v)
 
 
-#: csrc/layer_norm.cu's entries take their arguments packed as 64-bit
-#: integers, in one ctypes argument (a call's host time counts at the
-#: small maps), and one float
-_LN_ENTRY = (ctypes.POINTER(ctypes.c_longlong), _F)
+#: the packed arguments of csrc/layer_norm.cu's entries (``_PACKED_EPS_ENTRY``)
 _LN_STATS_ARGS = ctypes.c_longlong * 14
 _LN_BWD_ARGS = ctypes.c_longlong * 20
 
@@ -1543,7 +1705,7 @@ def layer_norm_stats(x: Tensor, eps: float = F.LN_EPS
     plan = ln_stats_plan(R, M, bf16, vec, _sms(device))
     out = x.new_empty((3, T, N))  # fewer host operations than torch.empty
     base, step = out.data_ptr(), R * (2 if bf16 else 4)
-    rc = build.function("layer_norm", "layer_norm_stats", _LN_ENTRY)(
+    rc = build.function("layer_norm", "layer_norm_stats", _PACKED_EPS_ENTRY)(
         _LN_STATS_ARGS(xp, base, base + step, base + 2 * step, R, M, bf16,
                        vec, plan.route == "warp", plan.cluster, plan.chunk,
                        plan.grid, device.index, _stream(device)),
@@ -1631,26 +1793,12 @@ def _ln_bwd_blocks_per_sm(device, bf16: bool, vec: bool) -> int:
     return out.value
 
 
-#: layer_norm_bwd's f32 scratch, one buffer a (device, stream), grown as
-#: needed: a launch writes every value of it that it reads before reading
-#: it, and the launches on one stream run in order
-_LN_SCRATCH: Dict[Tuple[int, int], Tensor] = {}
-
-
-def _ln_scratch(device, stream: int, n: int) -> Tensor:
-    key = (device.index, stream)
-    buf = _LN_SCRATCH.get(key)
-    if buf is None or buf.numel() < n:
-        buf = _LN_SCRATCH[key] = torch.empty(n, device=device)
-    return buf
-
-
 def layer_norm_bwd(dz: Tensor, x: Tensor, mean: Tensor, rstd: Tensor,
                    gamma: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
     """The backward of layer norm through its statistics: ``(dx, dgamma,
     dbeta)``, the parameters' gradients per tenant ``(T, H, W, C)``. One
     cooperative launch of csrc/layer_norm.cu (``ln_bwd_plan``), its f32
-    scratch kept a stream (``_ln_scratch``)."""
+    scratch kept a stream (``_scratch``)."""
     if _on_cpu(x):
         return F.layer_norm_bwd(dz, x, mean, rstd, gamma)
     name = "layer_norm_bwd"
@@ -1671,8 +1819,8 @@ def layer_norm_bwd(dz: Tensor, x: Tensor, mean: Tensor, rstd: Tensor,
     stream = _stream(device)
     # a (row, tile, warp)'s two partial sums, then a row's two sums
     jw = plan.tiles * (plan.tpr // 32)
-    part = _ln_scratch(device, stream, 2 * R * (jw + 1)).data_ptr()
-    rc = build.function("layer_norm", "layer_norm_bwd", _LN_ENTRY)(
+    part = _scratch(device, stream, 2 * R * (jw + 1)).data_ptr()
+    rc = build.function("layer_norm", "layer_norm_bwd", _PACKED_EPS_ENTRY)(
         _LN_BWD_ARGS(*ptrs, part, part + 8 * R * jw, T, N, M, bf16,
                      vec, plan.tpr, plan.tiles, plan.grid, device.index,
                      stream),
@@ -2190,35 +2338,57 @@ def conv3x3_wgrad(x: Tensor, dy: Tensor, stride: int = 1, padding: int = 1
 # -- global average pool --------------------------------------------------------
 
 
+#: the packed arguments of csrc/global_avg_pool.cu's entries
+#: (``_PACKED_ENTRY``)
+_GAP_ARGS = ctypes.c_longlong * 9
+
+
 def global_avg_pool2d_fwd(x: Tensor) -> Tensor:
-    """The mean over H and W: ``(T, N, H, W, C) -> (T, N, C)``."""
+    """The mean over H and W: ``(T, N, H, W, C) -> (T, N, C)``, one launch
+    of csrc/global_avg_pool.cu."""
     if _on_cpu(x):
         return F.global_avg_pool2d(x)
     name = "global_avg_pool2d_fwd"
-    T, N, _, _, C = _check_act(name, x)
-    out = torch.empty((T, N, C), device=x.device, dtype=x.dtype)
-    with torch.cuda.device(x.device):
-        global_avg_pool.launch_fwd(x, out)
-    LAUNCHES[_counter(name, x)] += 1
+    T, N, H, W, C = _check_flat(name, x)
+    bf16 = x.dtype is torch.bfloat16
+    xp, device = x.data_ptr(), x.device
+    out = x.new_empty((T, N, C))  # fresh: aligned
+    vec = C % _ln_load(bf16, True) == 0 and xp % 16 == 0
+    rc = build.function("global_avg_pool", "global_avg_pool_fwd",
+                        _PACKED_ENTRY)(
+        _GAP_ARGS(xp, out.data_ptr(), T * N, H * W, C, bf16, vec,
+                  device.index, _stream(device)))
+    counter = _counter(name, x)
+    build.check(rc, counter)
+    LAUNCHES[counter] += 1
     return out
 
 
 def global_avg_pool2d_bwd(dpool: Tensor, h: int, w: int) -> Tensor:
     """The GAP's backward: ``(T, N, C) -> (T, N, h, w, C)``, each pixel
-    ``dpool / (h * w)``."""
+    ``dpool / (h * w)``, one launch of csrc/global_avg_pool.cu."""
     if _on_cpu(dpool):
         return F.global_avg_pool2d_bwd(dpool, h, w)
     name = "global_avg_pool2d_bwd"
-    if dpool.device.type != "cuda" or dpool.dim() != 3:
-        raise ValueError(f"{name}: expected a (T, N, C) CUDA tensor, got "
-                         f"{tuple(dpool.shape)} on {dpool.device}")
-    _check(name, "dpool", dpool, dpool.shape, dpool.device,
-           kernel_dtype(name, dpool))
+    if (dpool.dtype not in _DTYPES or dpool.dim() != 3
+            or not dpool.is_contiguous() or dpool.device.type != "cuda"):
+        if dpool.device.type != "cuda" or dpool.dim() != 3:
+            raise ValueError(f"{name}: expected a (T, N, C) CUDA tensor, "
+                             f"got {tuple(dpool.shape)} on {dpool.device}")
+        _check(name, "dpool", dpool, dpool.shape, dpool.device,
+               kernel_dtype(name, dpool))
     T, N, C = dpool.shape
-    dx = torch.empty((T, N, h, w, C), device=dpool.device, dtype=dpool.dtype)
-    with torch.cuda.device(dpool.device):
-        global_avg_pool.launch_bwd(dpool, dx)
-    LAUNCHES[_counter(name, dpool)] += 1
+    bf16 = dpool.dtype is torch.bfloat16
+    device = dpool.device
+    dx = dpool.new_empty((T, N, h, w, C))  # fresh: aligned
+    rc = build.function("global_avg_pool", "global_avg_pool_bwd",
+                        _PACKED_ENTRY)(
+        _GAP_ARGS(dpool.data_ptr(), dx.data_ptr(), T * N, h * w, C, bf16,
+                  C % _ln_load(bf16, True) == 0, device.index,
+                  _stream(device)))
+    counter = _counter(name, dpool)
+    build.check(rc, counter)
+    LAUNCHES[counter] += 1
     return dx
 
 

@@ -45,7 +45,6 @@ Needs one card.
 from __future__ import annotations
 
 import sys
-import time
 
 import numpy as np
 import torch
@@ -190,72 +189,7 @@ def _ln_part(key):
     return None
 
 
-def _report(label, what, prof, wall_ms):
-    events = [e for e in prof.key_averages()
-              if getattr(e, "device_time_total", 0) > 0
-              and e.device_type.name == "CUDA"]
-    busy = sum(e.device_time_total for e in events) / 1e3
-    count = sum(e.count for e in events)
-    row = {"build": label, "what": what, "busy_ms": busy,
-           "activities": count, "wall_ms": wall_ms}
-    parts = []
-    for name in ("ln stats", "ln bwd", "row sums"):
-        mine = [e for e in events if _ln_part(e.key) == name]
-        row[name] = sum(e.device_time_total for e in mine) / 1e3
-        row[name + " launches"] = sum(e.count for e in mine)
-        parts.append(f"{name} {row[name]:.3f} ms over "
-                     f"{row[name + ' launches']} launches")
-    print(f"[ln e2e {label}] {what}: device busy {busy:.3f} ms of "
-          f"{wall_ms:.3f} ms wall, {count} device activities; "
-          + "; ".join(parts), flush=True)
-    return row
-
-
-def _train_step(label, cfg, what):
-    from torch.profiler import ProfilerActivity, profile
-
-    from howtotrainyourmamlpytorch_tpu_torch import bench as train_bench
-    from howtotrainyourmamlpytorch_tpu_torch.core import maml
-    from howtotrainyourmamlpytorch_tpu_torch.state import init_state
-
-    device = torch.device("cuda:0")
-    state = init_state(cfg, device=device, with_opt=True)
-    lr, weights, _ = maml.epoch_schedule(cfg, 0)
-    batch = train_bench.synth_batch(cfg, 0, device)
-    step = maml.make_train_step(cfg, True)
-    for _ in range(2):
-        state, _ = step(state, *batch, weights, lr)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        start = time.perf_counter()
-        state, _ = step(state, *batch, weights, lr)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - start) * 1e3
-    return _report(label, f"profiled {what} batch-2 train step", prof,
-                   wall_ms)
-
-
-def _dispatch(label, cfg, what):
-    from torch.profiler import ProfilerActivity, profile
-
-    from howtotrainyourmamlpytorch_tpu_torch.serving import bench
-    from howtotrainyourmamlpytorch_tpu_torch.serving.engine import (
-        ServingEngine,
-    )
-    from howtotrainyourmamlpytorch_tpu_torch.state import init_state
-
-    shots_buckets = bench.bench_shots_buckets(cfg)
-    groups = bench._synth_groups(cfg, shots_buckets, 36, 8, 0, "f32", 0)
-    engine = ServingEngine(cfg, init_state(cfg, device="cuda:0"),
-                           shots_buckets, device="cuda:0", ingest="f32")
-    engine.serve_group(groups[-1])
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        dr = engine.serve_group(groups[-1])
-    return _report(label, f"profiled {what} bucket-{dr.bucket} dispatch "
-                   f"({dr.tenants} tenants, {dr.shots} shots)", prof,
-                   dr.adapt_ms)
+PARTS = card_timing.by_part(_ln_part, ("ln stats", "ln bwd", "row sums"))
 
 
 def e2e(label):
@@ -269,22 +203,16 @@ def e2e(label):
         for dtype, dt in (("float32", "f32"), ("bfloat16", "bf16")):
             cfg = ln.replace(block_order=order, compute_dtype=dtype)
             what = f"layer-norm {tag} {dt}"
-            out.append(_train_step(label, cfg, what))
+            out.append(card_timing.train_step("ln", label, cfg, what,
+                                              PARTS))
             torch.cuda.empty_cache()
-            out.append(_dispatch(label, cfg, what))
+            out.append(card_timing.dispatch("ln", label, cfg, what, PARTS))
             torch.cuda.empty_cache()
     return out
 
 
 def main(argv) -> int:
-    e2e_too = "--e2e" in argv
-    argv = [a for a in argv if a != "--e2e"]
-
-    def all_rows(label):
-        out = rows(label)
-        return out + (e2e(label) if e2e_too else [])
-
-    return card_timing.main(argv, "ln", __doc__.split("\n")[0], all_rows)
+    return card_timing.main(argv, "ln", __doc__.split("\n")[0], rows, e2e)
 
 
 if __name__ == "__main__":

@@ -31,6 +31,13 @@ the first, and their entries' refusals; ``layer_norm_stats`` and
 ``layer_norm_bwd`` on ``csrc/layer_norm.cu`` in f32 and bf16 at every
 layer-norm main-path shape and at edge shapes, off alignment, a second
 launch bit for bit the first, their entries' refusals and no Triton kernel
+reached; ``bn_input_stats`` (``csrc/bn_input_stats.cu``) and the global
+average pool's forward and backward (``csrc/global_avg_pool.cu``) in f32
+and bf16 at every model shape (C = 1, 3, 48, 64) and at edge shapes
+(tenants that are not a whole number of loads, channel counts of the
+scalar mode), off
+alignment, a second launch bit for bit the first, the bf16 GAP equal to
+its twin bit for bit, their entries' refusals and no Triton kernel
 reached; and the ingest kernel ``episode_expand`` equal to its twin bit
 for bit (it is a pure lookup).
 These need the card: marked ``cuda``, they skip where
@@ -2593,8 +2600,8 @@ def test_ln_entries_refuse_a_plan_that_does_not_match(device):
     T, N, H, W, C = 2, 3, 10, 10, 48
     R, M = T * N, H * W * C
     x, mean, rstd, gamma, dz = _ln_inputs(T, N, H, W, C, torch.float32, 61)
-    stats = build.function("layer_norm", "layer_norm_stats", cb._LN_ENTRY)
-    bwd = build.function("layer_norm", "layer_norm_bwd", cb._LN_ENTRY)
+    stats = build.function("layer_norm", "layer_norm_stats", cb._PACKED_EPS_ENTRY)
+    bwd = build.function("layer_norm", "layer_norm_bwd", cb._PACKED_EPS_ENTRY)
     stream = torch.cuda.current_stream().cuda_stream
     out = torch.full((3, T, N), 7.0, device=device)
     o = [out[k].data_ptr() for k in range(3)]
@@ -2646,8 +2653,10 @@ def test_no_ln_stats_or_bwd_call_reaches_a_triton_kernel(device,
     kernels/layer_norm.py, and both wrappers run with Triton's compile step
     made to fail, in f32 and bf16; the forward and the double backward keep
     their Triton kernels."""
-    from howtotrainyourmamlpytorch_tpu_torch.kernels import bn_stats
-    from howtotrainyourmamlpytorch_tpu_torch.kernels import layer_norm
+    from howtotrainyourmamlpytorch_tpu_torch.kernels import (
+        bn_act_pool,
+        layer_norm,
+    )
 
     for gone in ("launch_stats", "launch_bwd", "stats_plan",
                  "_stats_partial_kernel", "_bwd_reduce_kernel",
@@ -2660,6 +2669,277 @@ def test_no_ln_stats_or_bwd_call_reaches_a_triton_kernel(device,
         raise AssertionError("a layer-norm wrapper reached Triton")
 
     monkeypatch.setattr(layer_norm, "_jit", no_triton)
-    monkeypatch.setattr(bn_stats, "_jit", no_triton)
+    monkeypatch.setattr(bn_act_pool, "_jit", no_triton)
     for dtype in LN_DTYPES.values():
         _check_ln(*_ln_inputs(2, 3, 8, 8, 48, dtype, 67))
+
+
+# -- bn_input_stats and the global average pool on CUDA ------------------------
+#
+# One launch a call, f32 and bf16: the statistics a block a tenant or one
+# cooperative launch (``bn_stats_plan``), the GAP's forward and backward a
+# plain launch each. Gates: f32 within 1e-5 + 1e-4 * scale of the twins,
+# the bf16 statistics within one bf16 ulp (or 1e-4 of scale), the bf16 GAP
+# bit for bit (one rounding of an f32 sum that is exact at these maps, or
+# of one division); a second launch bit for bit the first.
+
+# (T, N, H = W, C): every block input the norm-first models normalize — the
+# mini-ImageNet stages (the image, then 48 channels) at N = 75 and 25, the
+# unpadded models' stage inputs (pooled 41/19/8, strided 20/9), the strided
+# Omniglot model's (the 28 x 28 x 1 image, then 14/7/4 x 64) at N = 20 — at
+# T = 8, and the image at the config's batch of 2
+STATS_MAIN = (
+    [(8, n, hw, c) for n in (25, 75)
+     for hw, c in ((84, 3), (42, 48), (21, 48), (10, 48))]
+    + [(8, 75, hw, 48) for hw in (41, 19, 8, 20, 9)]
+    + [(8, 20, 28, 1)] + [(8, 20, hw, 64) for hw in (14, 7, 4)]
+    + [(2, 25, 84, 3), (2, 75, 84, 3)]
+)
+# (T, N, H, W, C): tenants that are not a whole number of loads (C = 1 and
+# 3 in the scalar mode), the scalar mode's channel counts (5, 17, 100 in
+# bf16), lanes of 100 and 256 channels, a tenant of one value, the block
+# route and the grid route at a small map
+STATS_EDGE = [
+    (1, 1, 1, 1, 1),
+    (1, 1, 1, 1, 3),
+    (2, 3, 5, 7, 3),
+    (3, 1, 3, 3, 1),
+    (2, 5, 9, 9, 1),
+    (2, 4, 7, 6, 17),
+    (1, 2, 5, 5, 5),
+    (2, 3, 4, 4, 100),
+    (1, 2, 3, 3, 256),
+    (4, 25, 30, 30, 3),
+    (16, 2, 6, 6, 64),
+]
+# (T, N, H = W, C): the strided models' last maps — Omniglot 2 x 2 x 64 at
+# N = 20, the unpadded mini-ImageNet 4 x 4 x 48 at N = 75 and 25 — and
+# edge maps (odd, C off the loads' values)
+GAP_SHAPES = [(8, 20, 2, 64), (8, 75, 4, 48), (8, 25, 4, 48),
+              (2, 20, 2, 64), (1, 1, 1, 1), (2, 3, 5, 3), (3, 2, 14, 20),
+              (2, 4, 7, 64)]
+STATS_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def _stats_input(T, N, H, W, C, dtype, seed):
+    """Pixels in [0, 1] at C <= 3 (mean ~0.5: a sum-of-squares variance
+    would cancel), else activations with an offset, in ``dtype``."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if C <= 3:
+        x = torch.rand(T, N, H, W, C, device="cuda", generator=g)
+    else:
+        x = 2.0 + torch.randn(T, N, H, W, C, device="cuda", generator=g)
+    return x.to(dtype)
+
+
+def _stats_gate(got, want, what):
+    for a, c, o in zip(got, want, what):
+        assert a.dtype == c.dtype and a.shape == c.shape, o
+        assert torch.isfinite(a).all(), o
+        if a.dtype == torch.bfloat16:
+            within_ulp(a, c, o)
+        else:
+            _close(a, c)
+
+
+def _check_stats(x):
+    """``bn_input_stats`` against its twin, one launch on its counter, a
+    second launch bit for bit the first."""
+    tag = "_bf16" if x.dtype == torch.bfloat16 else ""
+    cb.reset_launches()
+    got = cb.bn_input_stats(x)
+    assert {k: n for k, n in cb.launches().items() if n} == {
+        "bn_input_stats" + tag: 1}
+    _stats_gate(got, F.bn_input_stats(x), ("mean", "var", "rstd"))
+    assert all(torch.equal(a, c) for a, c in zip(cb.bn_input_stats(x), got))
+    torch.cuda.synchronize()
+
+
+def _check_gap(T, N, H, W, C, dtype, seed):
+    """Both GAP kernels against their twins (bf16 bit for bit), one launch
+    each on its counter, a second launch bit for bit the first."""
+    tag = "_bf16" if dtype == torch.bfloat16 else ""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(T, N, H, W, C, device="cuda", generator=gen).to(dtype)
+    g = torch.randn(T, N, C, device="cuda", generator=gen).to(dtype)
+    cb.reset_launches()
+    out = cb.global_avg_pool2d_fwd(x)
+    dx = cb.global_avg_pool2d_bwd(g, H, W)
+    assert {k: n for k, n in cb.launches().items() if n} == {
+        "global_avg_pool2d_fwd" + tag: 1, "global_avg_pool2d_bwd" + tag: 1}
+    for got, want in ((out, F.global_avg_pool2d(x)),
+                      (dx, F.global_avg_pool2d_bwd(g, H, W))):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        if dtype == torch.bfloat16:
+            assert torch.equal(got, want)
+        else:
+            _close(got, want)
+    assert torch.equal(cb.global_avg_pool2d_fwd(x), out)
+    assert torch.equal(cb.global_avg_pool2d_bwd(g, H, W), dx)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", list(STATS_DTYPES))
+@pytest.mark.parametrize("shape", STATS_MAIN, ids=str)
+def test_bn_input_stats_matches_its_twin_at_main_path_shapes(shape, dtype,
+                                                             device):
+    T, N, hw, C = shape
+    _check_stats(_stats_input(T, N, hw, hw, C, STATS_DTYPES[dtype],
+                              hw + C + N))
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("dtype", list(STATS_DTYPES))
+@pytest.mark.parametrize("shape", STATS_EDGE, ids=str)
+def test_bn_input_stats_matches_its_twin_at_edge_shapes(shape, dtype,
+                                                        device):
+    _check_stats(_stats_input(*shape, STATS_DTYPES[dtype], sum(shape)))
+
+
+def test_bn_input_stats_plans_take_every_mode_and_route(device):
+    """The plans of the main-path and edge shapes on this card reach every
+    mode and both routes."""
+    seen = set()
+    for T, N, H, W, C in ([(T, N, hw, hw, C) for T, N, hw, C in STATS_MAIN]
+                          + STATS_EDGE):
+        for bf16 in (False, True):
+            p = cb._bn_stats_route(torch.device("cuda:0"), T, N * H * W, C,
+                                   bf16, True)
+            seen.add((p.mode, p.route))
+    assert {m for m, _ in seen} == set(cb.BN_STATS_MODES)
+    assert {r for _, r in seen} == {"block", "grid"}
+
+
+@pytest.mark.parametrize("dtype", list(STATS_DTYPES))
+def test_bn_input_stats_takes_a_tensor_off_16_byte_alignment(dtype, device,
+                                                             monkeypatch):
+    """A contiguous view one element into its storage, which the wrapper
+    takes: the plan is asked without vectors (the scalar mode), and the
+    statistics equal the twin's as an aligned input's do."""
+    asked = []
+    plan = cb.bn_stats_plan
+    monkeypatch.setattr(cb, "bn_stats_plan",
+                        lambda *a: asked.append(a[4]) or plan(*a))
+    cb._bn_stats_route.cache_clear()
+    for C in (3, 48):
+        x = _stats_input(2, 3, 10, 10, C, STATS_DTYPES[dtype], C)
+        buf = torch.empty(x.numel() + 1, device=x.device, dtype=x.dtype)
+        shifted = buf[1:].view(x.shape)
+        shifted.copy_(x)
+        assert shifted.data_ptr() % 16 != 0
+        asked.clear()
+        _check_stats(shifted)
+        assert asked == [False]
+        asked.clear()
+        _check_stats(x)
+        assert asked == [True]
+    cb._bn_stats_route.cache_clear()
+
+
+@pytest.mark.parametrize("dtype", list(STATS_DTYPES))
+@pytest.mark.parametrize("shape", GAP_SHAPES, ids=str)
+def test_gap_matches_its_twin(shape, dtype, device):
+    T, N, hw, C = shape
+    _check_gap(T, N, hw, hw, C, STATS_DTYPES[dtype], sum(shape))
+
+
+@pytest.mark.parametrize("dtype", list(STATS_DTYPES))
+def test_gap_takes_a_tensor_off_16_byte_alignment(dtype, device):
+    """The forward on a contiguous view one element into its storage (one
+    value a thread) equals the aligned input's output bit for bit."""
+    gen = torch.Generator(device="cuda").manual_seed(71)
+    x = torch.randn(2, 5, 4, 4, 64, device="cuda", generator=gen).to(
+        STATS_DTYPES[dtype])
+    buf = torch.empty(x.numel() + 1, device=x.device, dtype=x.dtype)
+    shifted = buf[1:].view(x.shape)
+    shifted.copy_(x)
+    assert torch.equal(cb.global_avg_pool2d_fwd(shifted),
+                       cb.global_avg_pool2d_fwd(x))
+
+
+def test_stats_and_gap_wrappers_reject_what_the_kernels_do_not_take(device):
+    """f16 raises ``TypeError``, a non-contiguous tensor ``ValueError``, and
+    257 channels ``ValueError``, before any launch."""
+    x = _stats_input(2, 3, 4, 4, 8, torch.float32, 73)
+    cb.reset_launches()
+    for fn in (cb.bn_input_stats, cb.global_avg_pool2d_fwd):
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            fn(x.half())
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(x.transpose(2, 3))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        cb.global_avg_pool2d_bwd(x[:, :, 0, 0].half(), 4, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        cb.global_avg_pool2d_bwd(x[:, :, 0, 0].transpose(1, 2), 4, 4)
+    with pytest.raises(ValueError, match="no statistics"):
+        cb.bn_input_stats(torch.zeros(1, 1, 1, 1, 257, device=device))
+    assert set(cb.launches().values()) == {0}
+
+
+def test_stats_and_gap_entries_refuse_what_does_not_match(device):
+    """The entries check the plan against the shape and the mode that C
+    and the vectors give, and the vectors against the pointers, and launch
+    nothing otherwise."""
+    from howtotrainyourmamlpytorch_tpu_torch.kernels import build
+
+    T, N, H, W, C = 2, 3, 10, 10, 48
+    P = N * H * W
+    x = _stats_input(T, N, H, W, C, torch.float32, 79)
+    entry = build.function("bn_input_stats", "bn_input_stats",
+                           cb._PACKED_EPS_ENTRY)
+    stream = torch.cuda.current_stream().cuda_stream
+    out = torch.full((3, T, C), 7.0, device=device)
+    o = [out[k].data_ptr() for k in range(3)]
+    p = cb.bn_stats_plan(T, P, C, False, True, 132, 1)
+    scratch = torch.empty(p.grid * 3 * C, device=device)
+    off = torch.empty(x.numel() + 1, device=device)[1:]
+    assert p.mode == "lanes"
+
+    def call(xp, vec, threads, chunk, splits, grid):
+        return entry(cb._BN_STATS_ARGS(
+            xp, *o, scratch.data_ptr(), T, C, P * C, 0, vec, threads,
+            chunk, splits, grid, 0, stream), 1e-5)
+
+    good = (x.data_ptr(), 1, p.threads, p.chunk, p.splits, p.grid)
+    for bad in ((off.data_ptr(),) + good[1:],          # x off vectors
+                good[:1] + (0,) + good[2:],            # the scalar mode's
+                good[:2] + (256,) + good[3:],          # not a slot multiple
+                good[:3] + (p.chunk + 1,) + good[4:],  # chunk off the slots
+                good[:3] + (p.chunk // 2,) + good[4:],  # units uncovered
+                good[:5] + (p.grid + 1,)):             # grid != T x splits
+        assert call(*bad) != 0
+    gap = build.function("global_avg_pool", "global_avg_pool_fwd",
+                         cb._PACKED_ENTRY)
+    pooled = torch.full((T, N, C), 7.0, device=device)
+    for xp, c, vec in ((off.data_ptr(), C, 1), (x.data_ptr(), 6, 1),
+                       (x.data_ptr(), 0, 0)):
+        assert gap(cb._GAP_ARGS(xp, pooled.data_ptr(), T * N, H * W, c, 0,
+                                vec, 0, stream)) != 0
+    torch.cuda.synchronize()
+    assert bool((out == 7.0).all()) and bool((pooled == 7.0).all())
+    assert call(*good) == 0
+    _stats_gate(out.unbind(0), F.bn_input_stats(x), ("mean", "var", "rstd"))
+
+
+def test_no_stats_or_gap_call_reaches_a_triton_kernel(device, monkeypatch):
+    """The Triton statistics and GAP modules are gone, and
+    ``bn_input_stats`` and both GAP wrappers run with Triton's compile step
+    made to fail (``bn_act_pool._jit``, whose rounding the Triton
+    statistics' bf16 merge called), in f32 and bf16."""
+    import importlib
+
+    from howtotrainyourmamlpytorch_tpu_torch.kernels import bn_act_pool
+
+    for gone in ("bn_stats", "global_avg_pool"):
+        with pytest.raises(ImportError):
+            importlib.import_module(
+                f"howtotrainyourmamlpytorch_tpu_torch.kernels.{gone}")
+
+    def no_triton():
+        raise AssertionError("a statistics or GAP wrapper reached Triton")
+
+    monkeypatch.setattr(bn_act_pool, "_jit", no_triton)
+    for dtype in STATS_DTYPES.values():
+        _check_stats(_stats_input(2, 3, 8, 8, 3, dtype, 83))
+        _check_stats(_stats_input(2, 3, 8, 8, 48, dtype, 89))
+        _check_gap(2, 3, 4, 4, 48, dtype, 97)
