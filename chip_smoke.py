@@ -33,7 +33,14 @@ Phases, in order; any failure raises and the exit code is non-zero:
    norm-first stages and the strided image, the strided Omniglot 2 x 2 x
    64 map and the unpadded strided 4 x 4 x 48 map at N = 75 — each call
    held twice, bit for bit, their rows printed at the end as ``[B5]``
-   lines with their device time, bound share and library ratio;
+   lines with their device time, bound share and library ratio; the
+   pool-free K3 (``csrc/bn_act_bwd.cu``: ``bn_act_bwd``, and at slope 1
+   ``batch_norm_bwd``) and ``act_bwd`` (``csrc/act.cu``), f32 and bf16, at
+   every shape the models give them (the strided and unpadded strided
+   conv outputs, every norm-first block input; T = 2 and 8), each call
+   held twice, bit for bit (``act_bwd`` also bit for bit its twin), the
+   timed rows printed at the end as ``[K3f]`` lines with their device
+   time, bound share and library ratio;
    K1-K5 again at the four layers of the Omniglot 20-way 1-shot
    model (28/14/7/3, cin 1 and 64, cout 64, T = 8, N = 20); and the ingest
    kernel ``episode_expand`` at the Omniglot device-tier train batch, a
@@ -213,9 +220,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
 12. Print the rows of K1 and dgrad at stride 2 (``csrc/conv3x3_s2.cu``,
    f32 and bf16, pad 1 and 0: every shape phases 3, 8 and 10 hold them at,
    each held twice bit for bit there) as ``[K1]`` / ``[K4]`` lines with
-   their library ratio and bound share; one ``{"kernels": [...]}`` line
-   (launches summed over all the main paths), then the result line
-   ``{"ok": true, "device": {...}}`` last.
+   their library ratio and bound share; the run's total seconds as a
+   ``[total]`` line; one ``{"kernels": [...]}`` line (launches summed over
+   all the main paths), then the result line ``{"ok": true, "device":
+   {...}}`` last.
 
 Needs one card. Imports nothing of JAX or of the JAX package.
 """
@@ -447,16 +455,21 @@ SOURCES = {
         "cuda", "howtotrainyourmamlpytorch_tpu_torch/kernels/csrc/"
                 "episode_expand.cu"),
 }
-# K3 and K5 pool-free, and in bf16 pooled (the Triton kernels)
+# K5 pool-free, and K3 and K5 in bf16 pooled (the Triton kernels); K3
+# pool-free (bn_act_bwd, batch_norm_bwd) and act_bwd one CUDA launch a call
 BN_TRITON = ("triton",
              "howtotrainyourmamlpytorch_tpu_torch/kernels/bn_act_pool.py")
+K3_FREE_SOURCE = ("cuda", "howtotrainyourmamlpytorch_tpu_torch/kernels/csrc/"
+                          "bn_act_bwd.cu")
+ACT_SOURCE = ("cuda",
+              "howtotrainyourmamlpytorch_tpu_torch/kernels/csrc/act.cu")
 SOURCES.update({
     "conv3x3_s2_fwd_stats": S2_SOURCE,
     "conv3x3_s2_fwd": S2_SOURCE,
     "conv3x3_s2_dgrad": S2_SOURCE,
     "conv3x3_s2_wgrad": BWD_TILE,
     "bn_act_fwd": SOURCES["bn_act_pool_fwd"],
-    "bn_act_bwd": BN_TRITON,
+    "bn_act_bwd": K3_FREE_SOURCE,
     "bn_act_bwd_bwd": BN_TRITON,
     "global_avg_pool2d_fwd": (
         "cuda", "howtotrainyourmamlpytorch_tpu_torch/kernels/csrc/"
@@ -468,13 +481,14 @@ SOURCES.update({
         "cuda", "howtotrainyourmamlpytorch_tpu_torch/kernels/csrc/"
                 "bn_input_stats.cu"),
     "batch_norm_fwd": SOURCES["bn_act_pool_fwd"],
-    "batch_norm_bwd": BN_TRITON,
+    "batch_norm_bwd": K3_FREE_SOURCE,
     "batch_norm_bwd_bwd": BN_TRITON,
+    "act_bwd": ACT_SOURCE,
 })
 SOURCES.update({
     k: ("triton", "howtotrainyourmamlpytorch_tpu_torch/kernels/act_pool.py")
-    for k in ("act_pool_fwd", "act_pool_bwd", "act_pool_gather", "act_fwd",
-              "act_bwd")})
+    for k in ("act_pool_fwd", "act_pool_bwd", "act_pool_gather",
+              "act_fwd")})
 # the layer norm: the statistics and the backward one CUDA launch a call
 # (csrc/layer_norm.cu), the forward and the double backward Triton
 SOURCES.update({
@@ -492,8 +506,9 @@ SOURCES.update({f"conv3x3_p0_{k}": SOURCES[f"conv3x3_{k}"]
 SOURCES.update({f"conv3x3_s2_p0_{k}": SOURCES[f"conv3x3_s2_{k}"]
                 for k in ("fwd_stats", "dgrad", "wgrad", "fwd")})
 # in bf16, K3 and K5 pooled run the Triton kernels (bn_act_pool.py), as
-# every pool-free K3 and K5 does; in f32, csrc/bn_act_pool_bwd.cu; K2 runs
-# csrc/bn_act_fwd.cu in both dtypes
+# every pool-free K5 does; in f32, csrc/bn_act_pool_bwd.cu; K2 runs
+# csrc/bn_act_fwd.cu, the pool-free K3 csrc/bn_act_bwd.cu and act_bwd
+# csrc/act.cu in both dtypes
 SOURCES.update({f"{k}_bf16": SOURCES[k] for k in BF16_KERNELS})
 SOURCES.update({f"{k}_bf16": BN_TRITON
                 for k in ("bn_act_pool_bwd", "bn_act_pool_bwd_bwd")})
@@ -701,6 +716,11 @@ K2_FREE_DEVICE = "bn_act_fwd_kernel"
 STATS_DEVICE = "bn_input_stats_kernel"
 GAP_FWD_DEVICE = "global_avg_pool_fwd_kernel"
 GAP_BWD_DEVICE = "global_avg_pool_bwd_kernel"
+# the pool-free K3 (also ``batch_norm_bwd``) and act_bwd on the device
+# (csrc/bn_act_bwd.cu: one kernel a call, a block a tenant or cooperative;
+# csrc/act.cu), in either dtype
+K3_FREE_DEVICE = "bn_act_bwd_kernel"
+ACT_BWD_DEVICE = "act_bwd_kernel"
 # K1 and dgrad in bf16 at stride 1 on the device (csrc/conv3x3_s1_bf16.cu:
 # the conv, and with statistics the merge)
 MMA_DEVICE = "conv3x3_s1_mma_kernel"
@@ -1215,12 +1235,13 @@ def check_strided_kernels(cb, F, records, T=T_TENANTS, n=OMNIGLOT_IMAGES,
             lambda: F.bn_act_fwd(*bn), None, 6 * y.numel(),
             4 * (2 * y.numel() + 4 * T * C), device=K2_FREE_DEVICE)
         da = randn(*y.shape, scale=1.0 / math.sqrt(y.numel()))
-        err = _bn_errs("bn_act_bwd", cb.bn_act_bwd(da, *bn),
-                       F.bn_act_bwd(da, *bn), ("dy", "dgamma", "dbeta"),
-                       label)
+        got = cb.bn_act_bwd(da, *bn)
+        err = _bn_errs("bn_act_bwd", got, F.bn_act_bwd(da, *bn),
+                       ("dy", "dgamma", "dbeta"), label)
+        _same_bits("bn_act_bwd", lambda: cb.bn_act_bwd(da, *bn), got)
         rec("bn_act_bwd", label, err, lambda: cb.bn_act_bwd(da, *bn),
             lambda: F.bn_act_bwd(da, *bn), None, 16 * y.numel(),
-            4 * (3 * y.numel() + 6 * T * C))
+            4 * (3 * y.numel() + 6 * T * C), device=K3_FREE_DEVICE)
         dy = F.bn_act_bwd(da, *bn)[0]
         # K5 with every cotangent at unit scale, then with g_gamma =
         # g_beta = 0 (g_da is then the projection term alone); each output
@@ -1415,9 +1436,13 @@ def check_norm_first_kernels(cb, F, records, T=T_TENANTS):
             else:
                 # the backward, on the support (N = 25)
                 dz = randn(*x.shape, scale=1.0 / math.sqrt(x.numel()))
-                err = _bn_errs("batch_norm_bwd", cb.batch_norm_bwd(dz, *bn),
+                got = cb.batch_norm_bwd(dz, *bn)
+                err = _bn_errs("batch_norm_bwd", got,
                                F.batch_norm_bwd(dz, *bn),
                                ("dx", "dgamma", "dbeta"), label)
+                _same_bits("batch_norm_bwd",
+                           lambda: cb.batch_norm_bwd(dz, *bn), got)
+                del got
                 dzl = _nchw_tenants(dz)
                 saved = (gamma.reshape(-1), None, None, mean.reshape(-1),
                          rstd.reshape(-1), True, F.BN_EPS, [True] * 3)
@@ -1426,7 +1451,8 @@ def check_norm_first_kernels(cb, F, records, T=T_TENANTS):
                     lambda: F.batch_norm_bwd(dz, *bn),
                     lambda: torch.ops.aten.native_batch_norm_backward(
                         dzl, xl, *saved),
-                    16 * x.numel(), 4 * (3 * x.numel() + 6 * T * cin))
+                    16 * x.numel(), 4 * (3 * x.numel() + 6 * T * cin),
+                    device=K3_FREE_DEVICE)
                 a = randn(*x.shape)
                 args = (a, randn(T, cin), randn(T, cin), randn(*x.shape),
                         *bn)
@@ -1510,12 +1536,14 @@ def check_strided_norm_first_kernels(cb, F, records, T=T_TENANTS,
             lambda: F.act_fwd(y),
             lambda: torch.nn.functional.leaky_relu(y, F.LEAKY_SLOPE),
             2 * y.numel(), 8 * y.numel())
-        err = max_err("act_bwd", cb.act_bwd(da, y), F.act_bwd(da, y))
+        got = cb.act_bwd(da, y)
+        err = _equal("act_bwd", got, F.act_bwd(da, y))
+        _same_bits("act_bwd", lambda: cb.act_bwd(da, y), got)
         rec("act_bwd", label, err, lambda: cb.act_bwd(da, y),
             lambda: F.act_bwd(da, y),
             lambda: torch.ops.aten.leaky_relu_backward(da, y, F.LEAKY_SLOPE,
                                                        False),
-            2 * y.numel(), 12 * y.numel())
+            2 * y.numel(), 12 * y.numel(), device=ACT_BWD_DEVICE)
         x = (torch.rand(T, n, hw, hw, cin, device="cuda") if cin == 1
              else randn(T, n, hw, hw, cin))
         _check_stats(cb, F, records, label, x)
@@ -1537,6 +1565,69 @@ def check_strided_norm_first_kernels(cb, F, records, T=T_TENANTS,
                 2 * T * n * Ho * Wo * 9 * cin * C,
                 4 * (da.numel() + w.numel() + x.numel()))
         torch.cuda.empty_cache()
+
+
+# (N, H = W, C) of every tensor the pool-free K3 takes on a main path: the
+# strided Omniglot conv outputs and the unpadded strided mini-ImageNet
+# ones (``bn_act_bwd``), every norm-first block input (``batch_norm_bwd``:
+# the image at N = 25 and 75, pooled 42/21/10, unpadded 41/19/8, the
+# strided model's 28 x 28 x 1 image and 14/7/4 x 64, unpadded strided
+# 20/9); ``act_bwd`` at the strided norm-first conv outputs
+K3_FREE_CONV_OUTPUTS = ((20, 14, 64), (20, 7, 64), (20, 4, 64), (20, 2, 64),
+                        (25, 41, 48), (25, 20, 48), (25, 9, 48), (25, 4, 48))
+K3_FREE_BLOCK_INPUTS = ((25, 84, 3), (75, 84, 3), (25, 42, 48),
+                        (25, 21, 48), (25, 10, 48), (25, 41, 48),
+                        (25, 19, 48), (25, 8, 48), (20, 28, 1),
+                        (20, 14, 64), (20, 7, 64), (20, 4, 64),
+                        (25, 20, 48), (25, 9, 48))
+ACT_BWD_OUTPUTS = ((20, 14, 64), (20, 7, 64), (20, 4, 64), (20, 2, 64))
+
+
+def check_k3_free_shapes(cb, F, tasks=TRAIN_TASKS):
+    """Phase 3, the pool-free K3 (csrc/bn_act_bwd.cu) and ``act_bwd``
+    (csrc/act.cu) at every model shape they take (``K3_FREE_*``,
+    ``ACT_BWD_OUTPUTS``) at T = 2 and 8, in f32 and bf16: ``bn_act_bwd``
+    and ``batch_norm_bwd`` against their twins (f32 within 1e-5 + 1e-4 *
+    scale, bf16 within one bf16 ulp or 1e-4 of scale), ``act_bwd`` bit
+    for bit, each held twice, bit for bit; not timed (the kernel phases
+    time their rows)."""
+    randn = _randn(torch.Generator(device="cuda").manual_seed(37))
+    cases = ([("bn_act_bwd", s) for s in K3_FREE_CONV_OUTPUTS]
+             + [("batch_norm_bwd", s) for s in K3_FREE_BLOCK_INPUTS]
+             + [("act_bwd", s) for s in ACT_BWD_OUTPUTS])
+    held = 0
+    for T in tasks:
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = "_bf16" if dtype == torch.bfloat16 else ""
+            for name, (n, hw, c) in cases:
+                label = f"{name}{tag} T={T} {hw}x{hw}x{c} N={n}"
+                x = (torch.rand(T, n, hw, hw, c, device="cuda") if c <= 3
+                     else 0.5 + 2.0 * randn(T, n, hw, hw, c)).to(dtype)
+                da = randn(*x.shape).to(dtype)
+                if name == "act_bwd":
+                    got = cb.act_bwd(da, x)
+                    _equal(label, got, F.act_bwd(da, x))
+                    _same_bits(label, lambda: cb.act_bwd(da, x), got)
+                else:
+                    mean, _, rstd = F.bn_input_stats(x)
+                    gamma = (1.0 + randn(T, c, scale=0.1)).to(dtype)
+                    beta = randn(T, c, scale=0.1).to(dtype)
+                    bn = (x, mean, rstd, gamma, beta)
+                    fn = getattr(cb, name)
+                    got = fn(da, *bn)
+                    want = getattr(F, name)(da, *bn)
+                    for what, a, p in zip(("dy", "dgamma", "dbeta"), got,
+                                          want):
+                        if tag:
+                            within_ulp(f"{label} {what}", a, p)
+                        else:
+                            max_err(f"{label} {what}", a, p)
+                    _same_bits(label, lambda: fn(da, *bn), got)
+                held += 1
+                del x, da, got
+            torch.cuda.empty_cache()
+    print(f"  the pool-free K3 and act_bwd: {held} shapes x dtypes held to "
+          "their twins and twice bit for bit", flush=True)
 
 
 def check_layer_norm_kernels(cb, F, records, T=T_TENANTS):
@@ -3860,14 +3951,17 @@ def check_bf16_strided_kernels(cb, F, records, T=T_TENANTS,
             f32_fn=lambda: cb.bn_act_fwd(*bn32), device=K2_FREE_DEVICE)
         da = randn(*y.shape).to(bf)
         da32 = da.float()
+        got = cb.bn_act_bwd(da, *bn)
         err = max(within_ulp(f"bn_act_bwd_bf16 {what}", a, c)
-                  for what, a, c in zip(("dy", "dgamma", "dbeta"),
-                                        cb.bn_act_bwd(da, *bn),
+                  for what, a, c in zip(("dy", "dgamma", "dbeta"), got,
                                         F.bn_act_bwd(da, *bn)))
+        _same_bits("bn_act_bwd_bf16", lambda: cb.bn_act_bwd(da, *bn), got)
+        del got
         rec("bn_act_bwd_bf16", label, err, lambda: cb.bn_act_bwd(da, *bn),
             lambda: F.bn_act_bwd(da, *bn), None, 16 * y.numel(),
             2 * (3 * y.numel() + 6 * T * C),
-            f32_fn=lambda: cb.bn_act_bwd(da32, *bn32))
+            f32_fn=lambda: cb.bn_act_bwd(da32, *bn32),
+            device=K3_FREE_DEVICE)
         args = (randn(*y.shape).to(bf), randn(T, C).to(bf),
                 randn(T, C).to(bf), da, *bn)
         args32 = _f32(*args)
@@ -3978,11 +4072,14 @@ def check_bf16_norm_first_kernels(cb, F, records, T=T_TENANTS):
             else:
                 dz = randn(*x.shape).to(bf)
                 dz32 = dz.float()
+                got = cb.batch_norm_bwd(dz, *bn)
                 err = max(within_ulp(f"batch_norm_bwd_bf16 {what}", a, c)
                           for what, a, c in zip(
-                              ("dx", "dgamma", "dbeta"),
-                              cb.batch_norm_bwd(dz, *bn),
+                              ("dx", "dgamma", "dbeta"), got,
                               F.batch_norm_bwd(dz, *bn)))
+                _same_bits("batch_norm_bwd_bf16",
+                           lambda: cb.batch_norm_bwd(dz, *bn), got)
+                del got
                 dzl = _nchw_tenants(dz)
                 saved = (gamma.reshape(-1).float(), None, None,
                          mean.reshape(-1).float(), rstd.reshape(-1).float(),
@@ -3993,7 +4090,8 @@ def check_bf16_norm_first_kernels(cb, F, records, T=T_TENANTS):
                     lambda: torch.ops.aten.native_batch_norm_backward(
                         dzl, xl, *saved),
                     16 * x.numel(), 2 * (3 * x.numel() + 6 * T * cin),
-                    f32_fn=lambda: cb.batch_norm_bwd(dz32, *bn32))
+                    f32_fn=lambda: cb.batch_norm_bwd(dz32, *bn32),
+                    device=K3_FREE_DEVICE)
                 del dzl
                 args = (randn(*x.shape).to(bf), randn(T, cin).to(bf),
                         randn(T, cin).to(bf), dz, *bn)
@@ -4069,13 +4167,15 @@ def check_bf16_norm_first_kernels(cb, F, records, T=T_TENANTS):
             lambda: cb.act_fwd(y), lambda: F.act_fwd(y),
             lambda: nnf.leaky_relu(y, F.LEAKY_SLOPE), 2 * y.numel(),
             4 * y.numel(), f32_fn=lambda: cb.act_fwd(y32))
-        rec("act_bwd_bf16", label,
-            _equal("act_bwd_bf16", cb.act_bwd(da, y), F.act_bwd(da, y)),
+        got = cb.act_bwd(da, y)
+        _same_bits("act_bwd_bf16", lambda: cb.act_bwd(da, y), got)
+        rec("act_bwd_bf16", label, _equal("act_bwd_bf16", got,
+                                          F.act_bwd(da, y)),
             lambda: cb.act_bwd(da, y), lambda: F.act_bwd(da, y),
             lambda: torch.ops.aten.leaky_relu_backward(da, y, F.LEAKY_SLOPE,
                                                        False),
-            2 * y.numel(), 6 * y.numel(), f32_fn=lambda: cb.act_bwd(da32,
-                                                                    y32))
+            2 * y.numel(), 6 * y.numel(),
+            f32_fn=lambda: cb.act_bwd(da32, y32), device=ACT_BWD_DEVICE)
         x = (torch.rand(T, n, hw, hw, cin, device="cuda") if cin == 1
              else randn(T, n, hw, hw, cin)).to(bf)
         _check_stats(cb, F, records, label, x, bf16=True)
@@ -4478,6 +4578,7 @@ def main() -> int:
                        args.norm_first_bf16_grad_seeds.split(","))
     ln16_seeds = tuple(int(v) for v in
                        args.layer_norm_bf16_grad_seeds.split(","))
+    t_start = time.perf_counter()
     card = card_line()
     print(card, flush=True)
     if not torch.cuda.is_available():
@@ -4556,6 +4657,10 @@ def main() -> int:
           "layers", flush=True)
     check_norm_first_kernels(cb, F, records)
     check_strided_norm_first_kernels(cb, F, records)
+    print("[kernels] the pool-free K3 (bn_act_bwd, batch_norm_bwd) and "
+          "act_bwd at every model shape, T = 2 and 8, f32 and bf16",
+          flush=True)
+    check_k3_free_shapes(cb, F)
     check_block_autograd(_replayed_blocks(cb, F),
                          what="norm-first stage 1")
     check_block_double_backward(_replayed_blocks(cb, F),
@@ -5090,6 +5195,8 @@ def main() -> int:
     print_device_rows(records, "B5", ("bn_input_stats",
                                       "global_avg_pool2d_fwd",
                                       "global_avg_pool2d_bwd"))
+    print_device_rows(records, "K3f", ("bn_act_bwd", "batch_norm_bwd",
+                                       "act_bwd"))
     # the bf16 stride-1 convs on the tensor cores (bound at their rate)
     print_k1_rows(records, "K1", ("conv3x3_fwd_stats_bf16",
                                   "conv3x3_fwd_bf16",
@@ -5120,6 +5227,7 @@ def main() -> int:
             "library_ms": r["library_ms"], "f32_ms": r["f32_ms"],
             "shape": REPORT_AT[k],
         })
+    print(f"[total] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

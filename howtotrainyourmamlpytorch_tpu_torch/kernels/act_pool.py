@@ -1,6 +1,8 @@
 """Triton kernels of the standalone leaky-ReLU + 2x2 max pool (B2) and its
 derivatives, for the norm-first block (``block_order='norm_conv_relu'``),
-whose activation follows the conv with no batch norm between:
+whose activation follows the conv with no batch norm between (the
+pool-free backward, ``act_bwd``, is CUDA: ``csrc/act.cu``, launched by
+``conv_block.act_bwd``):
 
 * ``act_pool_fwd``: leaky-ReLU, then the 2x2/2 max pool (VALID: an odd
   trailing row or column is dropped) and each pooled element's window
@@ -10,8 +12,8 @@ whose activation follows the conv with no batch norm between:
   ``leaky_relu'(y)`` (1 where y >= 0, else the slope), zero elsewhere;
 * ``act_pool_gather``: the adjoint of ``act_pool_bwd`` in its gradient,
   ``g_dy * leaky_relu'(y)`` gathered at the argmax;
-* ``act_fwd`` / ``act_bwd``: the pool-free mode (the strided norm-first
-  model): the leaky-ReLU, and ``da * leaky_relu'(y)``, its own adjoint.
+* ``act_fwd``: the pool-free mode (the strided norm-first model): the
+  leaky-ReLU.
 
 Replace (JAX package) ``howtotrainyourmamlpytorch_tpu/ops/functional.py::
 max_pool2d`` :325 and ``leaky_relu`` :363 as ``models/vgg.py`` :300-302
@@ -26,7 +28,7 @@ forward reads y once and writes the pooled quarter plus a one-byte argmax;
 the backward reads the pooled gradient and the argmax and writes dy once
 (y only where a window routes its gradient); the gather reads the pooled
 argmax and, at it, g_dy and y, and writes the pooled quarter. The
-pool-free passes are flat: one program per 4,096 elements, no channel
+pool-free pass is flat: one program per 4,096 elements, no channel
 structure. Each is one launch.
 
 Tiles are ``tile(C)``: ``(BLOCK_P pixels, BLOCK_C)`` with ``BLOCK_C``
@@ -38,7 +40,7 @@ f32 and stores bf16, with the slope the bf16 value of 0.01 (the
 wrappers round it). The JAX package's bf16 leaky-ReLU and its gradient
 are ``select(y >= 0, y, bf16(slope * y))`` and ``select(y >= 0, g,
 bf16(slope * g))``: a product of two bf16 values is exact in f32, so one
-rounding at the store gives the twin's bits in ``act_fwd``, ``act_bwd``,
+rounding at the store gives the twin's bits in ``act_fwd``,
 ``act_pool_bwd`` and ``act_pool_gather`` with no constexpr (their f32
 instantiations are unchanged). ``act_pool_fwd`` takes a ``BF16``
 constexpr: it rounds the negative side to bf16 before the window compare
@@ -156,16 +158,6 @@ def _act_fwd_kernel(y_ptr, out_ptr, numel, slope, BLOCK: "tl.constexpr"):
     tl.store(out_ptr + i, a.to(out_ptr.dtype.element_ty), mask=m)
 
 
-def _act_bwd_kernel(da_ptr, y_ptr, dy_ptr, numel, slope,
-                    BLOCK: "tl.constexpr"):
-    i = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
-    m = i < numel
-    d = tl.load(da_ptr + i, mask=m, other=0.0).to(tl.float32)
-    v = tl.load(y_ptr + i, mask=m, other=0.0).to(tl.float32)
-    dy = tl.where(v >= 0, d, d * slope)
-    tl.store(dy_ptr + i, dy.to(dy_ptr.dtype.element_ty), mask=m)
-
-
 @functools.lru_cache(maxsize=None)
 def _jit() -> SimpleNamespace:
     import triton
@@ -180,7 +172,6 @@ def _jit() -> SimpleNamespace:
         pool_bwd=triton.jit(_act_pool_bwd_kernel),
         pool_gather=triton.jit(_act_pool_gather_kernel),
         fwd=triton.jit(_act_fwd_kernel),
-        bwd=triton.jit(_act_bwd_kernel),
     )
 
 
@@ -224,9 +215,3 @@ def launch_fwd(y, out, slope: float) -> None:
     """``act_fwd``, flat over y's elements."""
     n = y.numel()
     _jit().fwd[(cdiv(n, TILE),)](y, out, n, slope, BLOCK=TILE)
-
-
-def launch_bwd(da, y, dy, slope: float) -> None:
-    """``act_bwd``, flat over y's elements."""
-    n = y.numel()
-    _jit().bwd[(cdiv(n, TILE),)](da, y, dy, n, slope, BLOCK=TILE)

@@ -1,11 +1,13 @@
 """Triton kernels K3 and K5: the backward of batch-norm normalize + affine +
 leaky-ReLU + 2x2 max pool through the batch statistics, and the backward
-of that backward; and their pool-free mode, for the strided model
+of that backward; and K5's pool-free mode, for the strided model
 (``max_pooling=False``). K3 and K5 pooled in f32 (every shipped config's)
 run the cooperative CUDA kernels of ``csrc/bn_act_pool_bwd.cu`` instead
 (``conv_block.bn_bwd_plan``); the pooled K3 and K5 here serve bf16, the
-pool-free ones both dtypes. Their forward, K2, is CUDA in both modes and
-dtypes (``csrc/bn_act_fwd.cu``), and rounds as ``_bf16_chain`` below.
+pool-free K5 both dtypes. K3's pool-free mode is CUDA in both dtypes
+(``csrc/bn_act_bwd.cu``, ``conv_block.bn_act_bwd_plan``), as is their
+forward, K2, in both modes (``csrc/bn_act_fwd.cu``); both round as
+``_bf16_chain`` below (``csrc/bn_act_chain.cuh``).
 
 Replace (JAX package) ``howtotrainyourmamlpytorch_tpu/ops/functional.py``:
 the gradient XLA derives for the normalize/affine tail of ``batch_norm``
@@ -45,14 +47,13 @@ pooled positions only (each pooled element by the one thread that sits on
 its argmax), plus g_gamma (program 0 of each tenant). Two launches,
 partial sums in a fixed order, no atomics.
 
-The pool-free mode (``bn_act_bwd``, ``bn_act_bwd_bwd``: sibling kernels,
-so the pooled ones stay as they were) is the same arithmetic with no
-window: K3a and K5a reduce over every position (dz = the slope-masked da
-everywhere), and K5b writes ``g_da`` densely. Bound: bytes, as pooled —
-K3 reads da and y twice (reduce, then dy) and writes dy; K5 reads a, da
-and y twice and writes g_da and g_y. The masked block loads cover the
-ragged maps (7x7, 4x4 and 2x2 at Omniglot's width); the partial sums keep
-their fixed order.
+K5's pool-free mode (``bn_act_bwd_bwd``: sibling kernels, so the pooled
+ones stay as they were) is the same arithmetic with no window: K5a
+reduces over every position (dz = the slope-masked da everywhere), and
+K5b writes ``g_da`` densely. Bound: bytes, as pooled — K5 reads a, da and
+y twice and writes g_da and g_y. The masked block loads cover the ragged
+maps (7x7, 4x4 and 2x2 at Omniglot's width); the partial sums keep their
+fixed order.
 
 bf16 (``compute_dtype='bfloat16'``): every kernel here takes a ``BF16``
 constexpr (the f32 instantiations are unchanged). K3 takes its leaky-ReLU
@@ -66,10 +67,10 @@ statistics, gamma, beta, pooled gradient and cotangents, takes its masks
 from the same chain (a mask decided on the f32 ``xhat * gamma + beta``
 would flip wherever the chain rounds across zero), keeps xhat and its
 five partial sums in f32, and rounds ``g_dpooled``, ``g_y`` and
-``g_gamma`` once each to bf16, as its twin does. The pool-free K3 and K5
-(the strided model's ``bn_act_*``, and at slope 1 the norm-first block's
-standalone ``batch_norm_*``) round at the same points: their masks from
-the chain, xhat and the sums in f32, each output rounded once.
+``g_gamma`` once each to bf16, as its twin does. The pool-free K5 (the
+strided model's ``bn_act_bwd_bwd``, and at slope 1 the norm-first block's
+standalone ``batch_norm_bwd_bwd``) rounds at the same points: its masks
+from the chain, xhat and the sums in f32, each output rounded once.
 
 ``triton`` is imported at the first launch, never at import: the kernel
 bodies below are plain functions until ``_jit()`` compiles them, and they
@@ -353,80 +354,6 @@ def _bn_act_pool_bwd_bwd_out_kernel(a_ptr, ggamma_ptr, gbeta_ptr, dp_ptr,
     tl.store(gy_ptr + yoff, gy.to(gy_ptr.dtype.element_ty), mask=mask)
 
 
-def _bn_act_bwd_reduce_kernel(da_ptr, y_ptr, mean_ptr, rstd_ptr, gamma_ptr,
-                              beta_ptr, part_ptr, NHW, C, S, CHUNK, slope,
-                              BLOCK_P: "tl.constexpr",
-                              BLOCK_C: "tl.constexpr",
-                              BF16: "tl.constexpr"):
-    t = tl.program_id(0)
-    s = tl.program_id(1)
-    c = tl.arange(0, BLOCK_C)
-    cmask = c < C
-    mu = tl.load(mean_ptr + t * C + c, mask=cmask,
-                 other=0.0).to(tl.float32)[None, :]
-    rs = tl.load(rstd_ptr + t * C + c, mask=cmask,
-                 other=0.0).to(tl.float32)[None, :]
-    g = tl.load(gamma_ptr + t * C + c, mask=cmask,
-                other=0.0).to(tl.float32)[None, :]
-    b = tl.load(beta_ptr + t * C + c, mask=cmask,
-                other=0.0).to(tl.float32)[None, :]
-    acc_dz = tl.zeros([BLOCK_P, BLOCK_C], tl.float32)
-    acc_dzx = tl.zeros([BLOCK_P, BLOCK_C], tl.float32)
-    start = s * CHUNK
-    end = tl.minimum(start + CHUNK, NHW)
-    for i in range(start, end, BLOCK_P):
-        q = i + tl.arange(0, BLOCK_P)
-        mask = (q < end)[:, None] & cmask[None, :]
-        off = (t.to(tl.int64) * NHW + q)[:, None] * C + c[None, :]
-        v = tl.load(y_ptr + off, mask=mask, other=0.0).to(tl.float32)
-        d = tl.load(da_ptr + off, mask=mask, other=0.0).to(tl.float32)
-        xh = tl.where(mask, (v - mu) * rs, 0.0)
-        if BF16:
-            z, _ = _bf16_chain(v, mu, rs, g, b, slope)
-        else:
-            z = xh * g + b
-        dz = tl.where(z >= 0, d, d * slope)
-        acc_dz += dz
-        acc_dzx += dz * xh
-    base = (t * S + s) * 2 * C
-    tl.store(part_ptr + base + c, tl.sum(acc_dz, axis=0), mask=cmask)
-    tl.store(part_ptr + base + C + c, tl.sum(acc_dzx, axis=0), mask=cmask)
-
-
-def _bn_act_bwd_dy_kernel(da_ptr, y_ptr, mean_ptr, rstd_ptr, gamma_ptr,
-                          beta_ptr, part_ptr, dy_ptr, NHW, C, S, inv_m,
-                          slope, BLOCK_P: "tl.constexpr",
-                          BLOCK_C: "tl.constexpr", BF16: "tl.constexpr"):
-    t = tl.program_id(1)
-    q = tl.program_id(0) * BLOCK_P + tl.arange(0, BLOCK_P)
-    c = tl.arange(0, BLOCK_C)
-    cmask = c < C
-    mask = (q < NHW)[:, None] & cmask[None, :]
-    sum_dz = tl.zeros([BLOCK_C], tl.float32)
-    sum_dzx = tl.zeros([BLOCK_C], tl.float32)
-    for s in range(S):
-        base = (t * S + s) * 2 * C
-        sum_dz += tl.load(part_ptr + base + c, mask=cmask, other=0.0)
-        sum_dzx += tl.load(part_ptr + base + C + c, mask=cmask, other=0.0)
-    mu = tl.load(mean_ptr + t * C + c, mask=cmask, other=0.0).to(tl.float32)
-    rs = tl.load(rstd_ptr + t * C + c, mask=cmask, other=0.0).to(tl.float32)
-    g = tl.load(gamma_ptr + t * C + c, mask=cmask, other=0.0).to(tl.float32)
-    b = tl.load(beta_ptr + t * C + c, mask=cmask, other=0.0).to(tl.float32)
-    off = (t.to(tl.int64) * NHW + q)[:, None] * C + c[None, :]
-    v = tl.load(y_ptr + off, mask=mask, other=0.0).to(tl.float32)
-    d = tl.load(da_ptr + off, mask=mask, other=0.0).to(tl.float32)
-    xh = (v - mu[None, :]) * rs[None, :]
-    if BF16:
-        z, _ = _bf16_chain(v, mu[None, :], rs[None, :], g[None, :],
-                           b[None, :], slope)
-    else:
-        z = xh * g[None, :] + b[None, :]
-    dz = tl.where(z >= 0, d, d * slope)
-    dy = (g * rs)[None, :] * (dz - (sum_dz * inv_m)[None, :]
-                              - xh * (sum_dzx * inv_m)[None, :])
-    tl.store(dy_ptr + off, dy.to(dy_ptr.dtype.element_ty), mask=mask)
-
-
 def _bn_act_bwd_bwd_reduce_kernel(a_ptr, da_ptr, y_ptr, mean_ptr, rstd_ptr,
                                   gamma_ptr, beta_ptr, part_ptr, NHW, C, S,
                                   CHUNK, slope, BLOCK_P: "tl.constexpr",
@@ -559,8 +486,6 @@ def _jit() -> SimpleNamespace:
         bwd_dy=triton.jit(_bn_act_pool_bwd_dy_kernel),
         bwd_bwd_reduce=triton.jit(_bn_act_pool_bwd_bwd_reduce_kernel),
         bwd_bwd_out=triton.jit(_bn_act_pool_bwd_bwd_out_kernel),
-        act_bwd_reduce=triton.jit(_bn_act_bwd_reduce_kernel),
-        act_bwd_dy=triton.jit(_bn_act_bwd_dy_kernel),
         act_bwd_bwd_reduce=triton.jit(_bn_act_bwd_bwd_reduce_kernel),
         act_bwd_bwd_out=triton.jit(_bn_act_bwd_bwd_out_kernel),
     )
@@ -644,26 +569,6 @@ def _chunk(positions: int) -> int:
     """Positions per reduction program: the tenant's positions over SPLITS
     programs, in whole blocks."""
     return _cdiv(_cdiv(positions, SPLITS), BLOCK_P) * BLOCK_P
-
-
-def launch_act_bwd(da, y, mean, rstd, gamma, beta, part, dy,
-                   slope: float) -> None:
-    """K3a then K3b, pool-free, on validated contiguous CUDA tensors, all f32
-    or all bf16 but the f32 ``part``, ``(T, SPLITS, 2, C)`` scratch (see
-    ``conv_block.bn_act_bwd``)."""
-    T, N, H, W, C = y.shape
-    _check_channels("bn_act_bwd", C)
-    NHW = N * H * W
-    kern = _jit()
-    bf16 = is_bf16(y)
-    kern.act_bwd_reduce[(T, SPLITS)](
-        da, y, mean, rstd, gamma, beta, part, NHW, C, SPLITS, _chunk(NHW),
-        slope, BLOCK_P=BLOCK_P, BLOCK_C=BLOCK_C, BF16=bf16,
-    )
-    kern.act_bwd_dy[(_cdiv(NHW, BLOCK_P), T)](
-        da, y, mean, rstd, gamma, beta, part, dy, NHW, C, SPLITS, 1.0 / NHW,
-        slope, BLOCK_P=BLOCK_P, BLOCK_C=BLOCK_C, BF16=bf16,
-    )
 
 
 def launch_act_bwd_bwd(a, ggamma, gbeta, da, y, mean, rstd, gamma, beta,

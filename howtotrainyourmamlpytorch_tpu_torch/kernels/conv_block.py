@@ -23,7 +23,9 @@ kernel                      route   source                    launches/call
 ``conv3x3_p0_*``            CUDA    the same sources          as at pad 1
 ``conv3x3_s2_p0_*``         CUDA    the same sources          as at pad 1
 ``bn_act_fwd``              CUDA    csrc/bn_act_fwd.cu        1 (pool-free)
-``bn_act_bwd``              Triton  bn_act_pool.py (K3)       2 (pool-free)
+``bn_act_bwd``              CUDA    csrc/bn_act_bwd.cu        1 (pool-free; a
+                                                              block a tenant,
+                                                              or cooperative)
 ``bn_act_bwd_bwd``          Triton  bn_act_pool.py (K5)       2 (pool-free)
 ``global_avg_pool2d_fwd``   CUDA    csrc/global_avg_pool.cu   1
 ``global_avg_pool2d_bwd``   CUDA    csrc/global_avg_pool.cu   1
@@ -31,27 +33,28 @@ kernel                      route   source                    launches/call
                                                               tenant, or
                                                               cooperative)
 ``batch_norm_fwd``          CUDA    csrc/bn_act_fwd.cu        1 (slope 1)
-``batch_norm_bwd``          Triton  bn_act_pool.py (K3)       2 (slope 1)
+``batch_norm_bwd``          CUDA    csrc/bn_act_bwd.cu        1 (slope 1)
 ``batch_norm_bwd_bwd``      Triton  bn_act_pool.py (K5)       2 (slope 1)
 ``act_pool_fwd``            Triton  act_pool.py               1
 ``act_pool_bwd``            Triton  act_pool.py               1
 ``act_pool_gather``         Triton  act_pool.py               1
 ``act_fwd``                 Triton  act_pool.py               1 (pool-free)
-``act_bwd``                 Triton  act_pool.py               1 (pool-free)
+``act_bwd``                 CUDA    csrc/act.cu               1 (pool-free)
 ``layer_norm_stats``        CUDA    csrc/layer_norm.cu        1 (a warp or a
                                                               cluster a row)
 ``layer_norm_fwd``          Triton  layer_norm.py             1
 ``layer_norm_bwd``          CUDA    csrc/layer_norm.cu        1 (cooperative)
 ``layer_norm_bwd_bwd``      Triton  layer_norm.py             reduce + sums + out: 3
 ``*_bf16``                  as f32  K1, dgrad at stride 1:    as in f32; K3, K5
-                                    csrc/conv3x3_s1_bf16.cu;  2 each
+                                    csrc/conv3x3_s1_bf16.cu;  pooled 2 each
                                     wgrad at stride 1: csrc/
                                     conv3x3_wgrad_s1_bf16.cu;
                                     K1, dgrad at stride 2:
                                     conv3x3_s2.cu; wgrad at
                                     stride 2: bwd.cu;
                                     K2: bn_act_fwd.cu;
-                                    K3, K5: bn_act_pool.py
+                                    K3, K5 pooled:
+                                    bn_act_pool.py
 ==========================  ======  ========================  ==================
 
 K1 (both modes) and K4 dgrad stage a band of rows with its halo in
@@ -71,11 +74,17 @@ scratch) as a pure function of the shape.
 K3 and K5 pooled in f32 run the cooperative kernels of
 ``csrc/bn_act_pool_bwd.cu`` (reduce, grid barrier, merge, barrier, apply
 in one launch, on the grid ``bn_bwd_plan`` sizes from the occupancy
-query); in bf16, and pool-free, the Triton kernels of ``bn_act_pool.py``
-(a reduce and an apply launch). K2 runs ``csrc/bn_act_fwd.cu`` in both
-modes and both dtypes (one kernel each, templated on the element type;
-``bn_fwd_plan`` gives its launch): pooled a thread a pooled pixel x 4
-channels, pool-free 16 bytes of the flat tensor a thread. The layer
+query); in bf16, and K5 pool-free, the Triton kernels of
+``bn_act_pool.py`` (a reduce and an apply launch). K3 pool-free runs
+``csrc/bn_act_bwd.cu`` in both dtypes, one launch a call
+(``bn_act_bwd_plan``: ``bn_input_stats``' units and routes, a block a
+tenant at the small maps, else one cooperative launch, whose blocks keep
+their chunks of da and y in shared memory where they fit), and
+``act_bwd`` ``csrc/act.cu``, 16 bytes of the flat tensor a thread. K2
+runs ``csrc/bn_act_fwd.cu`` in both modes and both dtypes (one kernel
+each, templated on the element type; ``bn_fwd_plan`` gives its launch):
+pooled a thread a pooled pixel x 4 channels, pool-free 16 bytes of the
+flat tensor a thread. The layer
 norm's statistics and backward run ``csrc/layer_norm.cu`` in both dtypes,
 one launch a call: ``layer_norm_stats`` a warp a row at the small maps
 and a thread block cluster a row above (``ln_stats_plan``),
@@ -162,6 +171,7 @@ holds for ``layer_norm_bwd_bwd``.
 
 from __future__ import annotations
 
+import array
 import contextlib
 import ctypes
 import functools
@@ -324,6 +334,23 @@ BN_STATS_BLOCK_LOADS = 20
 BN_STATS_WAVE_LOADS = 16
 BN_STATS_MODES = ("scalar", "lanes", "packed1", "packed3")
 BN_STATS_GROUP = {1: 8, 3: 4}
+#: K3 pool-free (csrc/bn_act_bwd.cu, one launch a call, the layout of
+#: bn_input_stats): a block's threads, the most channels, the loads a
+#: thread of one block a tenant at and under which a tenant takes the
+#: block route, the loads a thread of two waves from which the grid route
+#: takes two, and the units a thread loads at a time by the loads a unit
+#: (``G`` there: 4 of da's and y's one load, 2 of their three at C = 3)
+BN_ACT_BWD_THREADS = 256
+BN_ACT_BWD_MAX_C = 256
+BN_ACT_BWD_BLOCK_LOADS = 20
+BN_ACT_BWD_WAVE_LOADS = 16
+BN_ACT_BWD_GROUP = {1: 4, 3: 2}
+#: the most dynamic shared memory a pool-free K3 block keeps its chunk of
+#: da and y in between the reduce and the apply (the grid route in one
+#: wave; with the static arrays within a block's 227 KB)
+BN_ACT_BWD_STAGE_BYTES = 200 * 1024
+#: act_bwd (csrc/act.cu): a block's threads
+ACT_THREADS = 256
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -428,14 +455,26 @@ def _check_flat(name: str, x: Tensor) -> Tuple[int, int, int, int, int]:
 #: the entries of csrc/layer_norm.cu and csrc/bn_input_stats.cu take their
 #: arguments packed as 64-bit integers, in one ctypes argument (a call's
 #: host time counts at the small maps), and one float; those of
-#: csrc/global_avg_pool.cu the packed integers alone
+#: csrc/global_avg_pool.cu the packed integers alone; csrc/act.cu's and
+#: csrc/bn_act_bwd.cu's the packed integers by address (``_packed``) and
+#: one or two floats
 _PACKED_EPS_ENTRY = (ctypes.POINTER(ctypes.c_longlong), _F)
 _PACKED_ENTRY = (ctypes.POINTER(ctypes.c_longlong),)
+_ADDR_F_ENTRY = (_P, _F)
+_ADDR_2F_ENTRY = (_P, _F, _F)
 
-#: f32 scratch of the one-launch kernels (layer_norm_bwd, bn_input_stats),
-#: one buffer a (device, stream), grown as needed: a launch writes every
-#: value of it that it reads before reading it, and the launches on one
-#: stream run in order
+
+def _packed(*values: int) -> array.array:
+    """64-bit integers packed for an entry that takes them by address
+    (``.buffer_info()[0]``, the array alive for the call): an
+    ``array.array`` builds in about a third of a ctypes array's host
+    time."""
+    return array.array("q", values)
+
+#: f32 scratch of the one-launch kernels (layer_norm_bwd, bn_input_stats,
+#: the pool-free K3), one buffer a (device, stream), grown as needed: a
+#: launch writes every value of it that it reads before reading it, and
+#: the launches on one stream run in order
 _SCRATCH: Dict[Tuple[int, int], Tensor] = {}
 
 
@@ -1104,8 +1143,9 @@ def bn_bwd_plan(T: int, N: int, H: int, W: int, C: int, sms: int = 132,
     ``slots`` windows; no chunk spans two tenants. Raises where the card
     cannot hold a block a tenant at once (the cooperative launch needs
     every block resident). bf16: the Triton kernels, on their own grid.
-    The pool-free modes have wrappers of their own (``bn_act_bwd``,
-    ``batch_norm_bwd`` and their derivatives), on the Triton kernels."""
+    The pool-free modes have wrappers of their own: K3 (``bn_act_bwd``,
+    ``batch_norm_bwd``) on csrc/bn_act_bwd.cu (``bn_act_bwd_plan``), K5
+    (``bn_act_bwd_bwd``, ``batch_norm_bwd_bwd``) on the Triton kernels."""
     if bf16:
         return BnBwdPlan("triton", (0, 0), 0, 0, 0, 0, 0)
     if min(T, N, C) < 1 or H < 2 or W < 2 or C > BN_BWD_MAX_C:
@@ -1235,7 +1275,7 @@ def bn_act_bwd(da: Tensor, y: Tensor, mean: Tensor, rstd: Tensor,
                negative_slope: float = F.LEAKY_SLOPE
                ) -> Tuple[Tensor, Tensor, Tensor]:
     """K3's pool-free mode: the backward of ``bn_act_fwd``; returns
-    ``(dy, dgamma, dbeta)``."""
+    ``(dy, dgamma, dbeta)``. One launch of csrc/bn_act_bwd.cu."""
     if _on_cpu(y):
         return F.bn_act_bwd(da, y, mean, rstd, gamma, beta, negative_slope)
     return _launch_act_bwd("bn_act_bwd", da, y, mean, rstd, gamma, beta,
@@ -1245,20 +1285,70 @@ def bn_act_bwd(da: Tensor, y: Tensor, mean: Tensor, rstd: Tensor,
 def _launch_act_bwd(name, da, y, mean, rstd, gamma, beta, slope
                     ) -> Tuple[Tensor, Tensor, Tensor]:
     """K3's pool-free mode on the card, counted on ``name`` (on
-    ``<name>_bf16`` in bf16)."""
-    _check_bn_args(name, y, dict(mean=mean, rstd=rstd, gamma=gamma,
-                                 beta=beta), y.device)
-    _check(name, "da", da, y.shape, y.device, y.dtype)
-    T, _, _, _, C = y.shape
-    part = torch.empty((T, bn_act_pool.SPLITS, 2, C), device=y.device)
+    ``<name>_bf16`` in bf16): one launch of csrc/bn_act_bwd.cu
+    (``bn_act_bwd_plan``; the kernel writes dy, dgamma and dbeta), dgamma
+    and dbeta views of one allocation, the grid route's f32 scratch kept a
+    stream (``_scratch``)."""
+    T, N, H, W, C = _check_flat(name, y)
+    dtype, device = y.dtype, y.device
+    tc = (T, C)
+    # da and the (T, C) tables checked in a few host operations each
+    ok = (da.dtype is dtype and da.shape == y.shape and da.is_contiguous()
+          and da.device == device)
+    for t in (mean, rstd, gamma, beta):
+        ok = (ok and t.dtype is dtype and t.shape == tc
+              and t.is_contiguous() and t.device == device)
+    if not ok:
+        for what, t in (("mean", mean), ("rstd", rstd), ("gamma", gamma),
+                        ("beta", beta)):
+            _ln_same(name, what, t, tc, y)
+        _ln_same(name, "da", da, y.shape, y)
+    P = N * H * W
+    bf16 = dtype is torch.bfloat16
+    dap, yp = da.data_ptr(), y.data_ptr()
+    # dy is a fresh allocation: aligned
+    plan = _bn_act_bwd_route(device, T, P, C, bf16, (dap | yp) % 16 == 0)
     dy = torch.empty_like(y)
-    with torch.cuda.device(y.device):
-        bn_act_pool.launch_act_bwd(da, y, mean, rstd, gamma, beta, part, dy,
-                                   F.scalar_like(slope, y))
-    LAUNCHES[_counter(name, y)] += 1
-    # the f32 partial sums, rounded once to y's dtype
-    sums = part.sum(dim=1).to(y.dtype)
-    return dy, sums[:, 1], sums[:, 0]
+    sums = y.new_empty((2, T, C))  # dgamma, dbeta
+    base = sums.data_ptr()
+    stream = _stream(device)
+    part = tot = 0
+    if plan.splits > 1:  # (T, S, 2, C) partials, then (T, 2, C) totals
+        part = _scratch(device, stream, 2 * C * (plan.grid + T)).data_ptr()
+        tot = part + 8 * C * plan.grid
+    args = _packed(dap, yp, mean.data_ptr(), rstd.data_ptr(),
+                   gamma.data_ptr(), beta.data_ptr(), dy.data_ptr(), base,
+                   base + T * C * y.element_size(), part, tot, T, C, P * C,
+                   bf16, plan.mode != "scalar", plan.threads, plan.chunk,
+                   plan.splits, plan.grid, device.index, stream,
+                   plan.stage)
+    rc = build.function("bn_act_bwd", "bn_act_bwd", _ADDR_2F_ENTRY)(
+        args.buffer_info()[0], F.scalar_like(slope, y), 1.0 / P)
+    counter = _counter(name, y)
+    build.check(rc, counter)
+    LAUNCHES[counter] += 1
+    return dy, sums[0], sums[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _bn_act_bwd_blocks_per_sm(device, bf16: bool, mode: str) -> int:
+    """The occupancy query of the pool-free K3's grid-route kernel."""
+    fn = build.function("bn_act_bwd", "bn_act_bwd_blocks_per_sm",
+                        (_I, _I, ctypes.POINTER(ctypes.c_int)))
+    out = ctypes.c_int(0)
+    with _device(device):
+        rc = fn(int(bf16), BN_STATS_MODES.index(mode), ctypes.byref(out))
+    build.check(rc, "bn_act_bwd_blocks_per_sm")
+    return out.value
+
+
+@functools.lru_cache(maxsize=None)
+def _bn_act_bwd_route(device, T: int, P: int, C: int, bf16: bool,
+                      vec: bool) -> BnStatsPlan:
+    """``bn_act_bwd_plan`` on ``device``'s SMs and occupancy."""
+    mode = bn_stats_mode(C, P * C, bf16, vec)
+    return bn_act_bwd_plan(T, P, C, bf16, vec, _sms(device),
+                           _bn_act_bwd_blocks_per_sm(device, bf16, mode))
 
 
 def bn_act_pool_bwd_bwd(a: Tensor, ggamma: Tensor, gbeta: Tensor,
@@ -1341,20 +1431,23 @@ def _launch_act_bwd_bwd(name, a, ggamma, gbeta, da, y, mean, rstd, gamma,
 
 class BnStatsPlan(NamedTuple):
     """The launch of ``bn_input_stats`` at one shape
-    (csrc/bn_input_stats.cu). A thread takes units of ``unit`` loads of
-    ``vec`` values (16 bytes, or one value) and holds ``chans`` channels:
-    ``mode`` ``"lanes"`` (C a multiple of a load's values: a load is
-    ``vec`` consecutive channels), ``"packed1"`` / ``"packed3"`` (C = 1 or
-    3: a unit is lcm(C, vec) values, value i of channel i mod C) or
-    ``"scalar"`` (a value a unit). A tenant's E values are ``units`` whole
-    units (E a multiple of vec, and 3 coprime to it, make E a multiple of
-    lcm(C, vec)), in chunks of ``chunk`` units (a multiple of ``slots`` =
-    C / chans: a thread's units are all its slot mod slots) to ``splits``
-    blocks of ``threads`` live threads (a multiple of slots); ``grid`` = T
-    x splits. ``route``
+    (csrc/bn_input_stats.cu), and of the pool-free K3 (csrc/bn_act_bwd.cu,
+    ``bn_act_bwd_plan``: the units of da and y). A thread takes units of
+    ``unit`` loads of ``vec`` values (16 bytes, or one value) and holds
+    ``chans`` channels: ``mode`` ``"lanes"`` (C a multiple of a load's
+    values: a load is ``vec`` consecutive channels), ``"packed1"`` /
+    ``"packed3"`` (C = 1 or 3: a unit is lcm(C, vec) values, value i of
+    channel i mod C) or ``"scalar"`` (a value a unit). A tenant's E values
+    are ``units`` whole units (E a multiple of vec, and 3 coprime to it,
+    make E a multiple of lcm(C, vec)), in chunks of ``chunk`` units (a
+    multiple of ``slots`` = C / chans: a thread's units are all its slot
+    mod slots) to ``splits`` blocks of ``threads`` live threads (a multiple
+    of slots); ``grid`` = T x splits. ``route``
     ``"block"`` (splits 1: a block a tenant, a plain launch) or ``"grid"``
     (one cooperative launch, its blocks' partials merged after a grid
-    barrier)."""
+    barrier). ``stage`` (the pool-free K3 only): the dynamic shared memory
+    a block keeps its packets of da and y in from the reduce to the apply,
+    or 0 (the apply reads them again from L2)."""
 
     route: str
     mode: str
@@ -1367,6 +1460,7 @@ class BnStatsPlan(NamedTuple):
     chunk: int
     splits: int
     grid: int
+    stage: int = 0
 
 
 def bn_stats_mode(C: int, E: int, bf16: bool, vec: bool) -> str:
@@ -1378,6 +1472,44 @@ def bn_stats_mode(C: int, E: int, bf16: bool, vec: bool) -> str:
     if C % v == 0:
         return "lanes"
     return {1: "packed1", 3: "packed3"}.get(C, "scalar")
+
+
+def _flat_plan(what: str, T: int, P: int, C: int, bf16: bool, vec: bool,
+               sms: int, blocks_per_sm: int, block_threads: int,
+               block_loads: int, wave_loads: int, max_c: int
+               ) -> BnStatsPlan:
+    """The launch of a kernel that lays each tenant's P x C values out as
+    ``bn_input_stats`` does (``BnStatsPlan``), in blocks of
+    ``block_threads``: a tenant of at most ``block_loads`` loads a thread
+    of one block takes the block route; a larger one S blocks, the grid T
+    x S one wave of a block a SM, or two where the card holds two blocks a
+    SM and each thread gets at least ``wave_loads`` loads (every block
+    resident at once, as the grid barrier needs); a block a tenant where T
+    exceeds the SMs. Raises for a shape the kernels do not take."""
+    if min(T, P, C, blocks_per_sm) < 1 or C > max_c:
+        raise ValueError(f"{what} (T={T}, P={P}, C={C}) with "
+                         f"{blocks_per_sm} blocks a SM")
+    E = P * C
+    mode = bn_stats_mode(C, E, bf16, vec)
+    v = 1 if mode == "scalar" else _ln_load(bf16, True)
+    unit = 3 if mode == "packed3" else 1
+    chans = {"scalar": 1, "lanes": v, "packed1": 1, "packed3": 3}[mode]
+    slots = C // chans
+    threads = block_threads // slots * slots
+    units = E // (unit * v)
+    assert units * unit * v == E
+    loads = units * unit
+    splits = 1
+    if loads > threads * block_loads:
+        splits = max(1, sms // T)
+        if (blocks_per_sm >= 2
+                and 2 * sms // T * threads * wave_loads <= loads):
+            splits = 2 * sms // T
+    chunk = _cdiv(_cdiv(units, splits), slots) * slots
+    splits = _cdiv(units, chunk)
+    return BnStatsPlan("grid" if splits > 1 else "block", mode, v, unit,
+                       chans, slots, threads, units, chunk, splits,
+                       T * splits)
 
 
 @functools.lru_cache(maxsize=None)
@@ -1395,30 +1527,38 @@ def bn_stats_plan(T: int, P: int, C: int, bf16: bool = False,
     each thread gets at least ``BN_STATS_WAVE_LOADS`` loads (every block
     resident at once, as the grid barrier needs); a block a tenant where T
     exceeds the SMs. Raises for a shape the kernels do not take."""
-    if min(T, P, C, blocks_per_sm) < 1 or C > BN_STATS_MAX_C:
-        raise ValueError(f"bn_stats_plan: no statistics of (T={T}, P={P}, "
-                         f"C={C}) with {blocks_per_sm} blocks a SM")
-    E = P * C
-    mode = bn_stats_mode(C, E, bf16, vec)
-    v = 1 if mode == "scalar" else _ln_load(bf16, True)
-    unit = 3 if mode == "packed3" else 1
-    chans = {"scalar": 1, "lanes": v, "packed1": 1, "packed3": 3}[mode]
-    slots = C // chans
-    threads = BN_STATS_THREADS // slots * slots
-    units = E // (unit * v)
-    assert units * unit * v == E
-    loads = units * unit
-    splits = 1
-    if loads > threads * BN_STATS_BLOCK_LOADS:
-        splits = max(1, sms // T)
-        if (blocks_per_sm >= 2
-                and 2 * sms // T * threads * BN_STATS_WAVE_LOADS <= loads):
-            splits = 2 * sms // T
-    chunk = _cdiv(_cdiv(units, splits), slots) * slots
-    splits = _cdiv(units, chunk)
-    return BnStatsPlan("grid" if splits > 1 else "block", mode, v, unit,
-                       chans, slots, threads, units, chunk, splits,
-                       T * splits)
+    return _flat_plan("bn_stats_plan: no statistics of", T, P, C, bf16, vec,
+                      sms, blocks_per_sm, BN_STATS_THREADS,
+                      BN_STATS_BLOCK_LOADS, BN_STATS_WAVE_LOADS,
+                      BN_STATS_MAX_C)
+
+
+@functools.lru_cache(maxsize=None)
+def bn_act_bwd_plan(T: int, P: int, C: int, bf16: bool = False,
+                    vec: bool = True, sms: int = 132, blocks_per_sm: int = 2
+                    ) -> BnStatsPlan:
+    """The pool-free K3's launch (csrc/bn_act_bwd.cu: ``bn_act_bwd``, and
+    ``batch_norm_bwd`` at slope 1) for T tenants of P pixels x C channels
+    of da and y, in f32 or bf16, with 16-byte loads where ``vec`` (da, y
+    and dy 16-byte aligned) and the shape allow, on a card of ``sms`` SMs
+    that holds ``blocks_per_sm`` of the grid route's blocks at once (the
+    occupancy query): ``bn_input_stats``' units, modes and routes
+    (``bn_stats_plan``) with K3's constants (``BN_ACT_BWD_*``). On the grid
+    route in one wave of a block a SM with 16-byte loads, a block keeps
+    its packets of da and y in ``stage`` bytes of shared memory, where
+    they fit in ``BN_ACT_BWD_STAGE_BYTES`` (each thread's units times their
+    loads, 16 bytes each of da and y). A pure function of the shape: the
+    wrappers call it, and so do the CPU tests. Raises for a shape the
+    kernel does not take."""
+    p = _flat_plan("bn_act_bwd_plan: no pool-free K3 of", T, P, C, bf16,
+                   vec, sms, blocks_per_sm, BN_ACT_BWD_THREADS,
+                   BN_ACT_BWD_BLOCK_LOADS, BN_ACT_BWD_WAVE_LOADS,
+                   BN_ACT_BWD_MAX_C)
+    if p.route == "grid" and p.mode != "scalar" and p.grid <= sms:
+        stage = _cdiv(p.chunk, p.threads) * p.unit * 2 * p.threads * 16
+        if stage <= BN_ACT_BWD_STAGE_BYTES:
+            return p._replace(stage=stage)
+    return p
 
 
 @functools.lru_cache(maxsize=None)
@@ -1586,16 +1726,27 @@ def act_fwd(y: Tensor, negative_slope: float = F.LEAKY_SLOPE) -> Tensor:
 
 def act_bwd(da: Tensor, y: Tensor, negative_slope: float = F.LEAKY_SLOPE
             ) -> Tensor:
-    """``da * leaky_relu'(y)`` (the pool-free mode; its own adjoint)."""
+    """``da * leaky_relu'(y)`` (the pool-free mode; its own adjoint): one
+    launch of csrc/act.cu, flat over the tensor."""
     if _on_cpu(y):
         return F.act_bwd(da, y, negative_slope)
     name = "act_bwd"
-    _check_act(name, y)
-    _check(name, "da", da, y.shape, y.device, y.dtype)
-    dy = torch.empty_like(y)
-    with torch.cuda.device(y.device):
-        act_pool.launch_bwd(da, y, dy, F.scalar_like(negative_slope, y))
-    LAUNCHES[_counter(name, y)] += 1
+    _check_flat(name, y)
+    _ln_same(name, "da", da, y.shape, y)
+    n = y.numel()
+    bf16 = y.dtype is torch.bfloat16
+    device = y.device
+    dy = torch.empty_like(y)  # fresh: aligned
+    dap, yp = da.data_ptr(), y.data_ptr()
+    vec = (dap | yp) % 16 == 0
+    args = _packed(dap, yp, dy.data_ptr(), n, bf16, vec,
+                   _cdiv(_cdiv(n, _ln_load(bf16, vec)), ACT_THREADS),
+                   device.index, _stream(device))
+    rc = build.function("act", "act_bwd", _ADDR_F_ENTRY)(
+        args.buffer_info()[0], F.scalar_like(negative_slope, y))
+    counter = _counter(name, y)
+    build.check(rc, counter)
+    LAUNCHES[counter] += 1
     return dy
 
 

@@ -11,15 +11,17 @@
 // The twins: ops/functional.py::bn_act_pool_fwd, ::bn_act_fwd and
 // ::batch_norm_fwd of the port.
 //
-// Rounding. f32: xhat = (y - mean) * rstd, z = fma(xhat, gamma, beta) (one
-// FMA, as K3's and K5's kernels of bn_act_pool_bwd.cu round it, so that
-// their leaky-ReLU masks are K2's decisions), then z >= 0 ? z : z * slope;
-// spelled with __fsub_rn / __fmul_rn / __fmaf_rn so that no contraction
-// moves it. bf16: every op of the JAX package's bf16 chain rounded to bf16
-// (y - mean, * rstd, * gamma, + beta, and z * slope on the negative side,
-// the slope its bf16 value), each computed in f32 from bf16 values, as the
-// twin computes it; the window compares those rounded values. Pooled, the
-// first maximum of a window wins a tie (argmax 2 * dh + dw).
+// Rounding (bn_act_chain.cuh, shared with the pool-free K3 of
+// bn_act_bwd.cu, so that its leaky-ReLU masks are K2's decisions). f32:
+// xhat = (y - mean) * rstd, z = fma(xhat, gamma, beta) (one FMA, as K3's
+// and K5's kernels of bn_act_pool_bwd.cu round it too), then z >= 0 ? z :
+// z * slope; spelled with __fsub_rn / __fmul_rn / __fmaf_rn so that no
+// contraction moves it. bf16: every op of the JAX package's bf16 chain
+// rounded to bf16 (y - mean, * rstd, * gamma, + beta, and z * slope on the
+// negative side, the slope its bf16 value), each computed in f32 from bf16
+// values, as the twin computes it; the window compares those rounded
+// values. Pooled, the first maximum of a window wins a tie (argmax 2 * dh
+// + dw).
 //
 // Bound on an H100: bytes (3.35 TB/s; a few FLOPs an element, no tensor
 // cores, no reduction). Pooled, K2 must read y and write the pooled values
@@ -56,7 +58,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bn_act_chain.cuh"
+
 namespace {
+
+using maml::rbf;
+using maml::rbf2;
 
 constexpr int kThreads = 256;  // a block
 constexpr int kMaxC = 64;      // the channels the kernels take
@@ -80,17 +87,6 @@ struct FwdArgs {
 
 template <typename T>
 constexpr bool kBf16 = sizeof(T) == 2;
-
-__device__ __forceinline__ float rbf(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// A pair rounded to bf16 (ties to even) in one conversion.
-__device__ __forceinline__ void rbf2(float& a, float& b) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  a = __low2float(h);
-  b = __high2float(h);
-}
 
 __device__ __forceinline__ unsigned short bf_bits(float x) {
   return __bfloat16_as_ushort(__float2bfloat16_rn(x));
@@ -177,28 +173,19 @@ __device__ __forceinline__ void bn_act(float (&v)[kN], const float (&m)[kN],
   if constexpr (!kBf16<T>) {
 #pragma unroll
     for (int j = 0; j < kN; ++j) {
-      const float z = __fmaf_rn(__fmul_rn(__fsub_rn(v[j], m[j]), r[j]), g[j],
-                                b[j]);
+      const float z = maml::bn_z(maml::bn_xhat(v[j], m[j], r[j]), g[j], b[j]);
       v[j] = z >= 0.f ? z : __fmul_rn(z, slope);
     }
   } else if constexpr (kN == 1) {
-    float z = rbf(__fsub_rn(v[0], m[0]));
-    z = rbf(__fmul_rn(z, r[0]));
-    z = rbf(__fmul_rn(z, g[0]));
-    z = rbf(__fadd_rn(z, b[0]));
+    const float z = maml::bn_z_bf16(v[0], m[0], r[0], g[0], b[0]);
     v[0] = z >= 0.f ? z : rbf(__fmul_rn(z, slope));
   } else {
     static_assert(kN % 2 == 0, "bf16 elements go in pairs");
 #pragma unroll
     for (int j = 0; j < kN; j += 2) {
-      float z0 = __fsub_rn(v[j], m[j]), z1 = __fsub_rn(v[j + 1], m[j + 1]);
-      rbf2(z0, z1);
-      z0 = __fmul_rn(z0, r[j]), z1 = __fmul_rn(z1, r[j + 1]);
-      rbf2(z0, z1);
-      z0 = __fmul_rn(z0, g[j]), z1 = __fmul_rn(z1, g[j + 1]);
-      rbf2(z0, z1);
-      z0 = __fadd_rn(z0, b[j]), z1 = __fadd_rn(z1, b[j + 1]);
-      rbf2(z0, z1);
+      float z0 = v[j], z1 = v[j + 1];
+      maml::bn_z_bf16_2(z0, z1, m[j], m[j + 1], r[j], r[j + 1], g[j],
+                        g[j + 1], b[j], b[j + 1]);
       float n0 = __fmul_rn(z0, slope), n1 = __fmul_rn(z1, slope);
       rbf2(n0, n1);
       v[j] = z0 >= 0.f ? z0 : n0;

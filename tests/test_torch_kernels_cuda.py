@@ -2145,10 +2145,12 @@ def test_k3_k5_kernels_take_tensors_off_16_byte_alignment(device):
 
 
 def test_bf16_and_pool_free_k3_k5_keep_the_triton_kernels(device):
-    """bf16 K3/K5 pooled plan the Triton kernels, and the pool-free modes
-    (``bn_act_*``, ``batch_norm_*``) launch them without a plan; both give
-    their bits: the wrappers' outputs equal the Triton launches'
-    (kernels/bn_act_pool.py) called directly."""
+    """bf16 K3/K5 pooled plan the Triton kernels, and K5's pool-free mode
+    (``bn_act_bwd_bwd``, ``batch_norm_bwd_bwd``) launches them without a
+    plan; both give their bits: the wrappers' outputs equal the Triton
+    launches' (kernels/bn_act_pool.py) called directly. K3's pool-free
+    mode (``bn_act_bwd``, ``batch_norm_bwd``) is CUDA now
+    (csrc/bn_act_bwd.cu): held to its twin, its Triton launcher gone."""
     from howtotrainyourmamlpytorch_tpu_torch.kernels import bn_act_pool
 
     k3, k5 = _k35_inputs(2, 3, 14, 14, 48, seed=19)
@@ -2174,20 +2176,20 @@ def test_bf16_and_pool_free_k3_k5_keep_the_triton_kernels(device):
     assert all(torch.equal(a, c) for a, c in zip(got, want))
     assert cb.launches()["bn_act_pool_bwd_bf16"] == 1
     assert cb.launches()["bn_act_pool_bwd_bwd_bf16"] == 1
-    # the pool-free modes: K3/K5 as bn_act_* and at slope 1 as batch_norm_*
+    # the pool-free modes: K5 as bn_act_* and at slope 1 as batch_norm_*
+    # on Triton, K3 on CUDA
+    assert not hasattr(bn_act_pool, "launch_act_bwd")
     _, k5 = _k35_inputs(2, 3, 14, 14, 48, seed=23)
     a, gg, gb, _, _, y, mean, rstd, gamma, beta = k5
     da = torch.randn_like(y)
     for s in (F.LEAKY_SLOPE, 1.0):
-        part = torch.empty((T, bn_act_pool.SPLITS, 2, C), device=device)
-        dy = torch.empty_like(y)
-        bn_act_pool.launch_act_bwd(da, y, mean, rstd, gamma, beta, part, dy,
-                                   s)
+        cb.reset_launches()
         got = cb._launch_act_bwd("bn_act_bwd", da, y, mean, rstd, gamma,
                                  beta, s)
-        sums = part.sum(dim=1)
-        assert all(torch.equal(p, q) for p, q in zip(got, (dy, sums[:, 1],
-                                                           sums[:, 0])))
+        assert cb.launches()["bn_act_bwd"] == 1
+        for p, q in zip(got, F.bn_act_bwd(da, y, mean, rstd, gamma, beta,
+                                          s)):
+            _close(p, q)
         part = torch.empty((T, bn_act_pool.SPLITS, 5, C), device=device)
         want = (torch.empty_like(y), torch.empty_like(y),
                 torch.empty((T, C), device=device))
@@ -2943,3 +2945,374 @@ def test_no_stats_or_gap_call_reaches_a_triton_kernel(device, monkeypatch):
         _check_stats(_stats_input(2, 3, 8, 8, 3, dtype, 83))
         _check_stats(_stats_input(2, 3, 8, 8, 48, dtype, 89))
         _check_gap(2, 3, 4, 4, 48, dtype, 97)
+
+
+# -- K3 pool-free (bn_act_bwd, batch_norm_bwd) and act_bwd on CUDA -------------
+#
+# One launch a call, f32 and bf16: K3 pool-free on csrc/bn_act_bwd.cu (a
+# block a tenant or one cooperative launch, ``bn_act_bwd_plan``), at slope
+# 0.01 (``bn_act_bwd``) and 1 (``batch_norm_bwd``); ``act_bwd`` on
+# csrc/act.cu. Gates: K3 f32 within 1e-5 + 1e-4 * scale of its twin, bf16
+# within one bf16 ulp (or 1e-4 of scale); ``act_bwd`` bit for bit; a
+# second launch bit for bit the first.
+
+# (T, N, H = W, C): the strided Omniglot conv outputs (N = 20), the
+# unpadded strided mini-ImageNet ones (N = 25), and the norm-first block
+# inputs — the image at N = 25 and 75, pooled 42/21/10, unpadded 41/19/8,
+# unpadded strided 20/9 (N = 25), the strided model's 28 x 28 x 1 image
+# (N = 20) — at T = 8, and the large maps at T = 2
+K3_FREE_MAIN = (
+    [(8, 20, hw, 64) for hw in (14, 7, 4, 2)]
+    + [(8, 25, hw, 48) for hw in (41, 20, 9, 4)]
+    + [(8, n, 84, 3) for n in (25, 75)]
+    + [(8, 25, hw, 48) for hw in (42, 21, 10, 19, 8)]
+    + [(8, 20, 28, 1)]
+    + [(2, 20, 14, 64), (2, 25, 41, 48), (2, 25, 84, 3), (2, 75, 84, 3),
+       (2, 25, 42, 48)]
+)
+# (T, N, H, W, C): tenants that are not a whole number of loads (C = 1 and
+# 3 in the scalar mode), the scalar mode's channel counts (5, 17, 100),
+# lanes of 256 channels, a tenant of one value, a grid route of small maps
+K3_FREE_EDGE = [
+    (1, 1, 1, 1, 1),
+    (1, 1, 1, 1, 3),
+    (2, 3, 5, 7, 3),
+    (3, 1, 3, 3, 1),
+    (2, 5, 9, 9, 1),
+    (2, 4, 7, 6, 17),
+    (1, 2, 5, 5, 5),
+    (2, 3, 4, 4, 100),
+    (1, 2, 3, 3, 256),
+    (4, 25, 30, 30, 3),
+    (16, 2, 6, 6, 64),
+]
+K3_FREE_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+K3_FREE_SLOPES = {"leaky": F.LEAKY_SLOPE, "slope1": 1.0}
+
+
+def _k3_free_inputs(T, N, H, W, C, dtype, seed):
+    """da, x and its statistics, gamma, beta, in ``dtype``: pixels in [0,
+    1] at C <= 3, else activations with an offset."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def r(*s):
+        return torch.randn(*s, device="cuda", generator=g)
+
+    x = (torch.rand(T, N, H, W, C, device="cuda", generator=g) if C <= 3
+         else 0.5 + 2.0 * r(T, N, H, W, C)).to(dtype)
+    mean, _, rstd = F.bn_input_stats(x)
+    gamma = (1.0 + 0.1 * r(T, C)).to(dtype)
+    beta = (0.1 * r(T, C)).to(dtype)
+    return r(T, N, H, W, C).to(dtype), x, mean, rstd, gamma, beta
+
+
+def _k3_free_calls(slope):
+    """(kernel wrapper, twin, counter) of K3 pool-free at ``slope``."""
+    if slope == 1.0:
+        return cb.batch_norm_bwd, F.batch_norm_bwd, "batch_norm_bwd"
+    return (lambda *a: cb.bn_act_bwd(*a, slope),
+            lambda *a: F.bn_act_bwd(*a, slope), "bn_act_bwd")
+
+
+def _check_k3_free(args, slope):
+    """K3 pool-free against its twin, one launch on its counter, a second
+    launch bit for bit the first."""
+    kernel, twin, name = _k3_free_calls(slope)
+    tag = "_bf16" if args[1].dtype == torch.bfloat16 else ""
+    cb.reset_launches()
+    got = kernel(*args)
+    assert {k: n for k, n in cb.launches().items() if n} == {name + tag: 1}
+    for a, c, what in zip(got, twin(*args), ("dy", "dgamma", "dbeta")):
+        assert a.dtype == c.dtype and a.shape == c.shape, what
+        assert torch.isfinite(a).all(), what
+        if a.dtype == torch.bfloat16:
+            within_ulp(a, c, what)
+        else:
+            _close(a, c)
+    assert all(torch.equal(a, c) for a, c in zip(kernel(*args), got))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("slope", list(K3_FREE_SLOPES))
+@pytest.mark.parametrize("dtype", list(K3_FREE_DTYPES))
+@pytest.mark.parametrize("shape", K3_FREE_MAIN, ids=str)
+def test_k3_free_matches_its_twin_at_main_path_shapes(shape, dtype, slope,
+                                                      device):
+    T, N, hw, C = shape
+    _check_k3_free(_k3_free_inputs(T, N, hw, hw, C, K3_FREE_DTYPES[dtype],
+                                   hw + C + N + T),
+                   K3_FREE_SLOPES[slope])
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("slope", list(K3_FREE_SLOPES))
+@pytest.mark.parametrize("dtype", list(K3_FREE_DTYPES))
+@pytest.mark.parametrize("shape", K3_FREE_EDGE, ids=str)
+def test_k3_free_matches_its_twin_at_edge_shapes(shape, dtype, slope,
+                                                 device):
+    _check_k3_free(_k3_free_inputs(*shape, K3_FREE_DTYPES[dtype],
+                                   sum(shape)),
+                   K3_FREE_SLOPES[slope])
+
+
+def test_k3_free_plans_take_every_mode_and_route(device):
+    """The plans of the main-path and edge shapes on this card reach every
+    mode, both routes, and the grid route with and without the stage."""
+    seen = set()
+    for T, N, H, W, C in ([(T, N, hw, hw, C) for T, N, hw, C in
+                           K3_FREE_MAIN] + K3_FREE_EDGE):
+        for bf16 in (False, True):
+            p = cb._bn_act_bwd_route(torch.device("cuda:0"), T, N * H * W,
+                                     C, bf16, True)
+            seen.add((p.mode, p.route, bool(p.stage)))
+    assert {m for m, _, _ in seen} == set(cb.BN_STATS_MODES)
+    assert {r for _, r, _ in seen} == {"block", "grid"}
+    assert {("packed3", "grid"), ("lanes", "grid")} <= {
+        (m, r) for m, r, _ in seen}
+    assert {("lanes", "grid", True), ("lanes", "grid", False),
+            ("packed3", "grid", True)} <= seen
+
+
+# (T, N, H = W, C): shapes whose plans keep the chunks in shared memory
+# (strided L1 and L2, the image at T = 2; in bf16 also the image and stage
+# 2 at T = 8)
+K3_FREE_STAGED = [(8, 20, 14, 64), (8, 20, 7, 64), (2, 25, 84, 3),
+                  (8, 25, 84, 3), (8, 25, 21, 48)]
+
+
+@pytest.mark.parametrize("dtype", list(K3_FREE_DTYPES))
+@pytest.mark.parametrize("shape", K3_FREE_STAGED, ids=str)
+def test_k3_free_stage_gives_the_apply_from_l2_bits(shape, dtype, device,
+                                                    monkeypatch):
+    """The staged apply (the block's packets of da and y read back from
+    shared memory) equals the apply that reads them again from L2 bit for
+    bit: the same values in the same order."""
+    T, N, hw, C = shape
+    args = _k3_free_inputs(T, N, hw, hw, C, K3_FREE_DTYPES[dtype], 101)
+    bf16 = dtype == "bf16"
+    dev = torch.device("cuda:0")
+    cb._bn_act_bwd_route.cache_clear()
+    staged = cb._bn_act_bwd_route(dev, T, N * hw * hw, C, bf16, True).stage
+    got = [cb.bn_act_bwd(*args), cb.batch_norm_bwd(*args)]
+    monkeypatch.setattr(cb, "BN_ACT_BWD_STAGE_BYTES", 0)
+    cb.bn_act_bwd_plan.cache_clear()
+    cb._bn_act_bwd_route.cache_clear()
+    assert not cb._bn_act_bwd_route(dev, T, N * hw * hw, C, bf16,
+                                    True).stage
+    want = [cb.bn_act_bwd(*args), cb.batch_norm_bwd(*args)]
+    cb.bn_act_bwd_plan.cache_clear()
+    cb._bn_act_bwd_route.cache_clear()
+    # in f32 the T = 8 image and stage 2 need more than a block's memory
+    assert staged or (not bf16 and shape in ((8, 25, 84, 3),
+                                             (8, 25, 21, 48)))
+    for g, w in zip(got, want):
+        assert all(torch.equal(a, c) for a, c in zip(g, w))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", list(K3_FREE_DTYPES))
+def test_k3_free_takes_tensors_off_16_byte_alignment(dtype, device,
+                                                     monkeypatch):
+    """da and x as contiguous views one element into their storage, which
+    the wrappers take: the plan is asked without vectors (the scalar
+    mode), and the outputs equal the twin's as aligned inputs' do."""
+    asked = []
+    plan = cb.bn_act_bwd_plan
+    monkeypatch.setattr(cb, "bn_act_bwd_plan",
+                        lambda *a: asked.append(a[4]) or plan(*a))
+    cb._bn_act_bwd_route.cache_clear()
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, device=t.device, dtype=t.dtype)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    for C in (3, 48):
+        args = _k3_free_inputs(2, 3, 10, 10, C, K3_FREE_DTYPES[dtype], C)
+        for which in (0, 1):  # da, then x, off alignment
+            off = list(args)
+            off[which] = shifted(args[which])
+            assert off[which].data_ptr() % 16 != 0
+            for slope in K3_FREE_SLOPES.values():
+                asked.clear()
+                cb._bn_act_bwd_route.cache_clear()
+                _check_k3_free(tuple(off), slope)
+                assert asked == [False]
+        asked.clear()
+        cb._bn_act_bwd_route.cache_clear()
+        _check_k3_free(args, F.LEAKY_SLOPE)
+        assert asked == [True]
+    cb._bn_act_bwd_route.cache_clear()
+
+
+# (T, N, H = W, C) of act_bwd: the strided norm-first model's conv outputs
+# (N = 20, 64 channels) at T = 8 and 2, and edge shapes (a tail past the
+# last vector, odd channel counts, one value)
+ACT_SHAPES = ([(8, 20, hw, 64) for hw in (14, 7, 4, 2)] + [(2, 20, 14, 64)]
+              + [(1, 1, 1, 1), (2, 3, 5, 3), (3, 2, 3, 7), (1, 1, 3, 5)])
+
+
+def _act_inputs(T, N, hw, C, dtype, seed):
+    """da and y in ``dtype``, y with exact zeros of both signs."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    y = torch.randn(T, N, hw, hw, C, device="cuda", generator=g)
+    y.view(-1)[::7] = 0.0
+    y.view(-1)[3::11] = -0.0
+    da = torch.randn(T, N, hw, hw, C, device="cuda", generator=g)
+    return da.to(dtype), y.to(dtype)
+
+
+def _check_act_bwd(da, y):
+    """``act_bwd`` equal to its twin bit for bit, one launch on its
+    counter, a second launch bit for bit the first."""
+    tag = "_bf16" if y.dtype == torch.bfloat16 else ""
+    cb.reset_launches()
+    got = cb.act_bwd(da, y)
+    assert {k: n for k, n in cb.launches().items() if n} == {
+        "act_bwd" + tag: 1}
+    want = F.act_bwd(da, y)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got, want)
+    assert torch.equal(cb.act_bwd(da, y), got)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", list(K3_FREE_DTYPES))
+@pytest.mark.parametrize("shape", ACT_SHAPES, ids=str)
+def test_act_bwd_equals_its_twin(shape, dtype, device):
+    _check_act_bwd(*_act_inputs(*shape, K3_FREE_DTYPES[dtype], sum(shape)))
+
+
+@pytest.mark.parametrize("dtype", list(K3_FREE_DTYPES))
+def test_act_bwd_takes_tensors_off_16_byte_alignment(dtype, device):
+    """da, y or both one element into their storage (one element a
+    thread): equal to the twin bit for bit."""
+    da, y = _act_inputs(2, 5, 7, 64, K3_FREE_DTYPES[dtype], 61)
+    for which in ((0,), (1,), (0, 1)):
+        args = [da, y]
+        for i in which:
+            buf = torch.empty(args[i].numel() + 1, device=device,
+                              dtype=args[i].dtype)
+            args[i] = buf[1:].view(y.shape)
+            args[i].copy_((da, y)[i])
+        _check_act_bwd(*args)
+
+
+def test_k3_free_and_act_bwd_reject_what_the_kernels_do_not_take(device):
+    """f16 raises ``TypeError``, a non-contiguous tensor, a table of
+    another shape or 257 channels ``ValueError``, before any launch."""
+    args = _k3_free_inputs(2, 3, 4, 4, 8, torch.float32, 73)
+    da, x, mean, rstd, gamma, beta = args
+    cb.reset_launches()
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        cb.bn_act_bwd(*(t.half() for t in args))
+    with pytest.raises(TypeError, match="must be torch.float32"):
+        cb.bn_act_bwd(da, x, mean.bfloat16(), rstd, gamma, beta)
+    with pytest.raises(ValueError, match="contiguous"):
+        cb.batch_norm_bwd(da.transpose(2, 3), x, mean, rstd, gamma, beta)
+    with pytest.raises(ValueError, match="shape"):
+        cb.bn_act_bwd(da, x, mean[:, :4], rstd, gamma, beta)
+    wide = torch.zeros(1, 1, 1, 1, 257, device=device)
+    ones = torch.ones(1, 257, device=device)
+    with pytest.raises(ValueError, match="no pool-free K3"):
+        cb.bn_act_bwd(wide, wide, ones, ones, ones, ones)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        cb.act_bwd(da.half(), x.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        cb.act_bwd(da, x.transpose(2, 3))
+    with pytest.raises(ValueError, match="shape"):
+        cb.act_bwd(da[:1], x)
+    assert set(cb.launches().values()) == {0}
+
+
+def test_k3_free_and_act_bwd_entries_refuse_what_does_not_match(device):
+    """The entries check the plan against the shape and the mode that C
+    and the vectors give, and the vectors against the pointers, and
+    launch nothing otherwise."""
+    from howtotrainyourmamlpytorch_tpu_torch.kernels import build
+
+    T, N, H, W, C = 2, 6, 12, 12, 48
+    P = N * H * W
+    da, x, mean, rstd, gamma, beta = _k3_free_inputs(T, N, H, W, C,
+                                                     torch.float32, 79)
+    entry = build.function("bn_act_bwd", "bn_act_bwd", cb._ADDR_2F_ENTRY)
+    stream = torch.cuda.current_stream().cuda_stream
+    dy = torch.full_like(x, 7.0)
+    sums = torch.full((2, T, C), 7.0, device=device)
+    p = cb.bn_act_bwd_plan(T, P, C, False, True, 4, 2)
+    assert p.route == "grid" and p.mode == "lanes"
+    scratch = torch.empty(2 * C * (p.grid + T), device=device)
+    off = torch.empty(x.numel() + 1, device=device)[1:]
+
+    def call(dap, vec, threads, chunk, splits, grid, stage):
+        part = scratch.data_ptr()
+        args = cb._packed(
+            dap, x.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+            gamma.data_ptr(), beta.data_ptr(), dy.data_ptr(),
+            sums[0].data_ptr(), sums[1].data_ptr(), part,
+            part + 8 * C * p.grid, T, C, P * C, 0, vec, threads, chunk,
+            splits, grid, 0, stream, stage)
+        return entry(args.buffer_info()[0], F.LEAKY_SLOPE, 1.0 / P)
+
+    assert p.stage
+    good = (da.data_ptr(), 1, p.threads, p.chunk, p.splits, p.grid, p.stage)
+    for bad in ((off.data_ptr(),) + good[1:],          # da off vectors
+                good[:1] + (0,) + good[2:],            # the scalar mode's
+                good[:2] + (256,) + good[3:],          # not a slot multiple
+                good[:3] + (p.chunk + 1,) + good[4:],  # chunk off the slots
+                good[:3] + (p.chunk // 2,) + good[4:],  # units uncovered
+                good[:5] + (p.grid + 1, p.stage),      # grid != T x splits
+                good[:6] + (p.stage - 16,),            # a stage too small
+                good[:6] + (-1,),
+                (da.data_ptr(), 0) + good[2:]):        # staged scalars
+        assert call(*bad) != 0
+    act = build.function("act", "act_bwd", cb._ADDR_F_ENTRY)
+    n = x.numel()
+    for dap, vec, blocks in ((off.data_ptr(), 1, -(-n // 4 // 256)),
+                             (da.data_ptr(), 1, -(-n // 256)),
+                             (da.data_ptr(), 0, -(-n // 4 // 256))):
+        args = cb._packed(dap, x.data_ptr(), dy.data_ptr(), n, 0, vec,
+                          blocks, 0, stream)
+        assert act(args.buffer_info()[0], F.LEAKY_SLOPE) != 0
+    torch.cuda.synchronize()
+    assert bool((dy == 7.0).all()) and bool((sums == 7.0).all())
+    assert call(*good) == 0
+    want = F.bn_act_bwd(da, x, mean, rstd, gamma, beta)
+    for a, c in zip((dy, sums[0], sums[1]), want):
+        _close(a, c)
+    # the same plan without the stage: the same bits
+    staged = (dy.clone(), sums.clone())
+    assert call(*good[:6], 0) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(dy, staged[0]) and torch.equal(sums, staged[1])
+
+
+def test_no_k3_free_or_act_bwd_call_reaches_a_triton_kernel(device,
+                                                            monkeypatch):
+    """The Triton pool-free K3 and ``act_bwd`` are gone from
+    kernels/bn_act_pool.py and kernels/act_pool.py, and ``bn_act_bwd``,
+    ``batch_norm_bwd`` and ``act_bwd`` run with Triton's compile step made
+    to fail, in f32 and bf16."""
+    from howtotrainyourmamlpytorch_tpu_torch.kernels import (
+        act_pool,
+        bn_act_pool,
+    )
+
+    for gone in ("launch_act_bwd", "_bn_act_bwd_reduce_kernel",
+                 "_bn_act_bwd_dy_kernel"):
+        assert not hasattr(bn_act_pool, gone), gone
+    for gone in ("launch_bwd", "_act_bwd_kernel"):
+        assert not hasattr(act_pool, gone), gone
+
+    def no_triton():
+        raise AssertionError("a K3 pool-free or act_bwd call reached "
+                             "Triton")
+
+    monkeypatch.setattr(bn_act_pool, "_jit", no_triton)
+    monkeypatch.setattr(act_pool, "_jit", no_triton)
+    for dtype in K3_FREE_DTYPES.values():
+        for slope in K3_FREE_SLOPES.values():
+            _check_k3_free(_k3_free_inputs(2, 3, 8, 8, 3, dtype, 83), slope)
+            _check_k3_free(_k3_free_inputs(2, 3, 8, 8, 48, dtype, 89), slope)
+        _check_act_bwd(*_act_inputs(2, 3, 8, 64, dtype, 97))
