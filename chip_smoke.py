@@ -40,7 +40,13 @@ Phases, in order; any failure raises and the exit code is non-zero:
    conv outputs, every norm-first block input; T = 2 and 8), each call
    held twice, bit for bit (``act_bwd`` also bit for bit its twin), the
    timed rows printed at the end as ``[K3f]`` lines with their device
-   time, bound share and library ratio;
+   time, bound share and library ratio; ``act_fwd`` (``csrc/act.cu``) and
+   ``layer_norm_fwd`` (``csrc/layer_norm.cu``), f32 and bf16, at every
+   shape the models give them (the strided norm-first conv outputs; every
+   tensor the layer-norm models normalize, T = 2 and 8), each call bit for
+   bit its twin and held twice, bit for bit, the timed rows printed at the
+   end as ``[FWD]`` lines with their device time, bound share and library
+   ratio;
    K1-K5 again at the four layers of the Omniglot 20-way 1-shot
    model (28/14/7/3, cin 1 and 64, cout 64, T = 8, N = 20); and the ingest
    kernel ``episode_expand`` at the Omniglot device-tier train batch, a
@@ -201,7 +207,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
    (``layer_norm_stats/fwd/bwd/bwd_bwd_bf16``) at the conv-first stages
    (84/42/21/10 x 48), the norm-first stage-0 image (84 x 84 x 3) and
    the strided Omniglot 2 x 2 x 64 map against their bf16 twins — the
-   forward bit for bit, the rest within one bf16 ulp or 1e-4 of scale —
+   forward bit for bit (and twice), the rest within one bf16 ulp or 1e-4
+   of scale —
    each timed beside the twin, the f32 kernel at the same shape and the
    bf16 library call; both layer-norm blocks' first and second
    derivatives in bf16 (pooled at stage 1, strided, strided with GAP)
@@ -483,21 +490,20 @@ SOURCES.update({
     "batch_norm_fwd": SOURCES["bn_act_pool_fwd"],
     "batch_norm_bwd": K3_FREE_SOURCE,
     "batch_norm_bwd_bwd": BN_TRITON,
+    "act_fwd": ACT_SOURCE,
     "act_bwd": ACT_SOURCE,
 })
 SOURCES.update({
     k: ("triton", "howtotrainyourmamlpytorch_tpu_torch/kernels/act_pool.py")
-    for k in ("act_pool_fwd", "act_pool_bwd", "act_pool_gather",
-              "act_fwd")})
-# the layer norm: the statistics and the backward one CUDA launch a call
-# (csrc/layer_norm.cu), the forward and the double backward Triton
-SOURCES.update({
-    k: ("triton", "howtotrainyourmamlpytorch_tpu_torch/kernels/layer_norm.py")
-    for k in ("layer_norm_fwd", "layer_norm_bwd_bwd")})
+    for k in ("act_pool_fwd", "act_pool_bwd", "act_pool_gather")})
+# the layer norm: the statistics, the forward and the backward one CUDA
+# launch a call (csrc/layer_norm.cu), the double backward Triton
+SOURCES["layer_norm_bwd_bwd"] = (
+    "triton", "howtotrainyourmamlpytorch_tpu_torch/kernels/layer_norm.py")
 SOURCES.update({
     k: ("cuda",
         "howtotrainyourmamlpytorch_tpu_torch/kernels/csrc/layer_norm.cu")
-    for k in ("layer_norm_stats", "layer_norm_bwd")})
+    for k in ("layer_norm_stats", "layer_norm_fwd", "layer_norm_bwd")})
 # the f32 convs at stride 1 (pad 1 and 0) run the band kernels; at stride 2
 # K1 and dgrad conv3x3_s2.cu, wgrad the tile; the bf16 convs the
 # tensor-core kernels (below) but the stride-2 wgrad, the tile
@@ -507,8 +513,9 @@ SOURCES.update({f"conv3x3_s2_p0_{k}": SOURCES[f"conv3x3_s2_{k}"]
                 for k in ("fwd_stats", "dgrad", "wgrad", "fwd")})
 # in bf16, K3 and K5 pooled run the Triton kernels (bn_act_pool.py), as
 # every pool-free K5 does; in f32, csrc/bn_act_pool_bwd.cu; K2 runs
-# csrc/bn_act_fwd.cu, the pool-free K3 csrc/bn_act_bwd.cu and act_bwd
-# csrc/act.cu in both dtypes
+# csrc/bn_act_fwd.cu, the pool-free K3 csrc/bn_act_bwd.cu, act_fwd and
+# act_bwd csrc/act.cu and the layer norm but its double backward
+# csrc/layer_norm.cu in both dtypes
 SOURCES.update({f"{k}_bf16": SOURCES[k] for k in BF16_KERNELS})
 SOURCES.update({f"{k}_bf16": BN_TRITON
                 for k in ("bn_act_pool_bwd", "bn_act_pool_bwd_bwd")})
@@ -721,6 +728,10 @@ GAP_BWD_DEVICE = "global_avg_pool_bwd_kernel"
 # csrc/act.cu), in either dtype
 K3_FREE_DEVICE = "bn_act_bwd_kernel"
 ACT_BWD_DEVICE = "act_bwd_kernel"
+# act_fwd (csrc/act.cu) and layer_norm_fwd (csrc/layer_norm.cu) on the
+# device, in either dtype
+ACT_FWD_DEVICE = "act_fwd_kernel"
+LN_FWD_DEVICE = "layer_norm_fwd_kernel"
 # K1 and dgrad in bf16 at stride 1 on the device (csrc/conv3x3_s1_bf16.cu:
 # the conv, and with statistics the merge)
 MMA_DEVICE = "conv3x3_s1_mma_kernel"
@@ -1531,11 +1542,13 @@ def check_strided_norm_first_kernels(cb, F, records, T=T_TENANTS,
         Ho = Wo = (hw - 1) // 2 + 1
         y = randn(T, n, Ho, Wo, C)
         da = randn(*y.shape)
-        err = max_err("act_fwd", cb.act_fwd(y), F.act_fwd(y))
+        got = cb.act_fwd(y)
+        err = _equal("act_fwd", got, F.act_fwd(y))
+        _same_bits("act_fwd", lambda: cb.act_fwd(y), got)
         rec("act_fwd", label, err, lambda: cb.act_fwd(y),
             lambda: F.act_fwd(y),
             lambda: torch.nn.functional.leaky_relu(y, F.LEAKY_SLOPE),
-            2 * y.numel(), 8 * y.numel())
+            2 * y.numel(), 8 * y.numel(), device=ACT_FWD_DEVICE)
         got = cb.act_bwd(da, y)
         err = _equal("act_bwd", got, F.act_bwd(da, y))
         _same_bits("act_bwd", lambda: cb.act_bwd(da, y), got)
@@ -1581,20 +1594,31 @@ K3_FREE_BLOCK_INPUTS = ((25, 84, 3), (75, 84, 3), (25, 42, 48),
                         (20, 14, 64), (20, 7, 64), (20, 4, 64),
                         (25, 20, 48), (25, 9, 48))
 ACT_BWD_OUTPUTS = ((20, 14, 64), (20, 7, 64), (20, 4, 64), (20, 2, 64))
+# (N, H = W, C) of every tensor the layer-norm models normalize: the
+# mini-ImageNet conv-first outputs and norm-first image (support 25,
+# targets 75), the unpadded conv outputs, the strided Omniglot conv
+# outputs and its norm-first 28 x 28 x 1 image (20)
+LN_FWD_SHAPES = tuple((n, hw, c) for n in (25, 75) for _, hw, c in
+                      LAYER_NORM_STAGES) \
+    + tuple((n, hw, 48) for n in (25, 75) for hw in (82, 39, 17, 6)) \
+    + tuple((OMNIGLOT_IMAGES, hw, c) for _, hw, c in LAYER_NORM_STRIDED)
 
 
 def check_k3_free_shapes(cb, F, tasks=TRAIN_TASKS):
-    """Phase 3, the pool-free K3 (csrc/bn_act_bwd.cu) and ``act_bwd``
-    (csrc/act.cu) at every model shape they take (``K3_FREE_*``,
-    ``ACT_BWD_OUTPUTS``) at T = 2 and 8, in f32 and bf16: ``bn_act_bwd``
+    """Phase 3, the pool-free K3 (csrc/bn_act_bwd.cu), ``act_fwd`` and
+    ``act_bwd`` (csrc/act.cu) and ``layer_norm_fwd`` (csrc/layer_norm.cu)
+    at every model shape they take (``K3_FREE_*``, ``ACT_BWD_OUTPUTS``,
+    ``LN_FWD_SHAPES``) at T = 2 and 8, in f32 and bf16: ``bn_act_bwd``
     and ``batch_norm_bwd`` against their twins (f32 within 1e-5 + 1e-4 *
-    scale, bf16 within one bf16 ulp or 1e-4 of scale), ``act_bwd`` bit
-    for bit, each held twice, bit for bit; not timed (the kernel phases
-    time their rows)."""
+    scale, bf16 within one bf16 ulp or 1e-4 of scale), ``act_fwd``,
+    ``act_bwd`` and ``layer_norm_fwd`` bit for bit, each held twice, bit
+    for bit; not timed (the kernel phases time their rows)."""
     randn = _randn(torch.Generator(device="cuda").manual_seed(37))
     cases = ([("bn_act_bwd", s) for s in K3_FREE_CONV_OUTPUTS]
              + [("batch_norm_bwd", s) for s in K3_FREE_BLOCK_INPUTS]
-             + [("act_bwd", s) for s in ACT_BWD_OUTPUTS])
+             + [(k, s) for k in ("act_fwd", "act_bwd")
+                for s in ACT_BWD_OUTPUTS]
+             + [("layer_norm_fwd", s) for s in LN_FWD_SHAPES])
     held = 0
     for T in tasks:
         for dtype in (torch.float32, torch.bfloat16):
@@ -1604,10 +1628,22 @@ def check_k3_free_shapes(cb, F, tasks=TRAIN_TASKS):
                 x = (torch.rand(T, n, hw, hw, c, device="cuda") if c <= 3
                      else 0.5 + 2.0 * randn(T, n, hw, hw, c)).to(dtype)
                 da = randn(*x.shape).to(dtype)
-                if name == "act_bwd":
+                if name == "act_fwd":
+                    got = cb.act_fwd(x)
+                    _equal(label, got, F.act_fwd(x))
+                    _same_bits(label, lambda: cb.act_fwd(x), got)
+                elif name == "act_bwd":
                     got = cb.act_bwd(da, x)
                     _equal(label, got, F.act_bwd(da, x))
                     _same_bits(label, lambda: cb.act_bwd(da, x), got)
+                elif name == "layer_norm_fwd":
+                    mean, _, rstd = F.layer_norm_stats(x)
+                    gamma = (1.0 + randn(T, hw, hw, c, scale=0.1)).to(dtype)
+                    ln = (x, mean, rstd, gamma, da[:, 0].contiguous())
+                    got = cb.layer_norm_fwd(*ln)
+                    _equal(label, got, F.layer_norm_fwd(*ln))
+                    _same_bits(label, lambda: cb.layer_norm_fwd(*ln), got)
+                    del ln
                 else:
                     mean, _, rstd = F.bn_input_stats(x)
                     gamma = (1.0 + randn(T, c, scale=0.1)).to(dtype)
@@ -1626,8 +1662,9 @@ def check_k3_free_shapes(cb, F, tasks=TRAIN_TASKS):
                 held += 1
                 del x, da, got
             torch.cuda.empty_cache()
-    print(f"  the pool-free K3 and act_bwd: {held} shapes x dtypes held to "
-          "their twins and twice bit for bit", flush=True)
+    print(f"  the pool-free K3, act_fwd, act_bwd and layer_norm_fwd: {held} "
+          "shapes x dtypes held to their twins and twice bit for bit",
+          flush=True)
 
 
 def check_layer_norm_kernels(cb, F, records, T=T_TENANTS):
@@ -1675,13 +1712,16 @@ def check_layer_norm_kernels(cb, F, records, T=T_TENANTS):
                 lambda: torch.var_mean(x, dim=(2, 3, 4), correction=0),
                 4 * numel, 4 * (numel + 3 * rows))
             ln = (x, mean, rstd, gamma, beta)
-            err = max_err("layer_norm_fwd", cb.layer_norm_fwd(*ln),
-                          F.layer_norm_fwd(*ln))
+            z = cb.layer_norm_fwd(*ln)
+            err = _equal("layer_norm_fwd", z, F.layer_norm_fwd(*ln))
+            _same_bits("layer_norm_fwd", lambda: cb.layer_norm_fwd(*ln), z)
+            del z
             rec("layer_norm_fwd", label, err,
                 lambda: cb.layer_norm_fwd(*ln),
                 lambda: F.layer_norm_fwd(*ln),
                 lambda: nnf.layer_norm(x, shape, gamma_s, beta_s, F.LN_EPS),
-                4 * numel, 4 * (2 * numel + 2 * tm + 2 * rows))
+                4 * numel, 4 * (2 * numel + 2 * tm + 2 * rows),
+                device=LN_FWD_DEVICE)
             del ln
         if not forward or n == OMNIGLOT_IMAGES:
             dz = randn(*x.shape, scale=1.0 / math.sqrt(numel))
@@ -3758,7 +3798,7 @@ def _f32(*tensors):
 
 
 def _equal(name, got, want):
-    """A bf16 kernel that must equal its twin bit for bit; returns 0.0."""
+    """A kernel that must equal its twin bit for bit; returns 0.0."""
     got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
     if not all(g.dtype == p.dtype and torch.equal(g, p)
                for g, p in zip(got, want)):
@@ -4162,11 +4202,13 @@ def check_bf16_norm_first_kernels(cb, F, records, T=T_TENANTS):
         y = randn(T, n, ho, ho, Co).to(bf)
         da = randn(*y.shape).to(bf)
         y32, da32 = _f32(y, da)
-        rec("act_fwd_bf16", label,
-            _equal("act_fwd_bf16", cb.act_fwd(y), F.act_fwd(y)),
+        got = cb.act_fwd(y)
+        _same_bits("act_fwd_bf16", lambda: cb.act_fwd(y), got)
+        rec("act_fwd_bf16", label, _equal("act_fwd_bf16", got, F.act_fwd(y)),
             lambda: cb.act_fwd(y), lambda: F.act_fwd(y),
             lambda: nnf.leaky_relu(y, F.LEAKY_SLOPE), 2 * y.numel(),
-            4 * y.numel(), f32_fn=lambda: cb.act_fwd(y32))
+            4 * y.numel(), f32_fn=lambda: cb.act_fwd(y32),
+            device=ACT_FWD_DEVICE)
         got = cb.act_bwd(da, y)
         _same_bits("act_bwd_bf16", lambda: cb.act_bwd(da, y), got)
         rec("act_bwd_bf16", label, _equal("act_bwd_bf16", got,
@@ -4258,15 +4300,19 @@ def check_bf16_layer_norm_kernels(cb, F, records, T=T_TENANTS):
                 4 * numel, 2 * (numel + 3 * rows),
                 f32_fn=lambda: cb.layer_norm_stats(x32))
             ln = (x, mean, rstd, gamma, beta)
-            rec("layer_norm_fwd_bf16", label,
-                _equal("layer_norm_fwd_bf16", cb.layer_norm_fwd(*ln),
-                       F.layer_norm_fwd(*ln)),
+            z = cb.layer_norm_fwd(*ln)
+            err = _equal("layer_norm_fwd_bf16", z, F.layer_norm_fwd(*ln))
+            _same_bits("layer_norm_fwd_bf16",
+                       lambda: cb.layer_norm_fwd(*ln), z)
+            del z
+            rec("layer_norm_fwd_bf16", label, err,
                 lambda: cb.layer_norm_fwd(*ln),
                 lambda: F.layer_norm_fwd(*ln),
                 lambda: nnf.layer_norm(x, shape, gamma_s, beta_s, F.LN_EPS),
                 4 * numel, 2 * (2 * numel + 2 * tm + 2 * rows),
                 f32_fn=lambda: cb.layer_norm_fwd(x32, mean32, rstd32,
-                                                 gamma32, beta32))
+                                                 gamma32, beta32),
+                device=LN_FWD_DEVICE)
             del ln
         if not forward or n == OMNIGLOT_IMAGES:
             dz = randn(*x.shape, scale=1.0 / math.sqrt(numel)).to(bf)
@@ -5197,6 +5243,7 @@ def main() -> int:
                                       "global_avg_pool2d_bwd"))
     print_device_rows(records, "K3f", ("bn_act_bwd", "batch_norm_bwd",
                                        "act_bwd"))
+    print_device_rows(records, "FWD", ("act_fwd", "layer_norm_fwd"))
     # the bf16 stride-1 convs on the tensor cores (bound at their rate)
     print_k1_rows(records, "K1", ("conv3x3_fwd_stats_bf16",
                                   "conv3x3_fwd_bf16",

@@ -1,8 +1,8 @@
 """Triton kernels of the standalone leaky-ReLU + 2x2 max pool (B2) and its
 derivatives, for the norm-first block (``block_order='norm_conv_relu'``),
 whose activation follows the conv with no batch norm between (the
-pool-free backward, ``act_bwd``, is CUDA: ``csrc/act.cu``, launched by
-``conv_block.act_bwd``):
+pool-free mode, ``act_fwd`` and ``act_bwd``, is CUDA: ``csrc/act.cu``,
+launched by ``conv_block.act_fwd`` / ``act_bwd``):
 
 * ``act_pool_fwd``: leaky-ReLU, then the 2x2/2 max pool (VALID: an odd
   trailing row or column is dropped) and each pooled element's window
@@ -11,9 +11,7 @@ pool-free backward, ``act_bwd``, is CUDA: ``csrc/act.cu``, launched by
 * ``act_pool_bwd``: each pooled gradient to its argmax times
   ``leaky_relu'(y)`` (1 where y >= 0, else the slope), zero elsewhere;
 * ``act_pool_gather``: the adjoint of ``act_pool_bwd`` in its gradient,
-  ``g_dy * leaky_relu'(y)`` gathered at the argmax;
-* ``act_fwd``: the pool-free mode (the strided norm-first model): the
-  leaky-ReLU.
+  ``g_dy * leaky_relu'(y)`` gathered at the argmax.
 
 Replace (JAX package) ``howtotrainyourmamlpytorch_tpu/ops/functional.py::
 max_pool2d`` :325 and ``leaky_relu`` :363 as ``models/vgg.py`` :300-302
@@ -27,9 +25,8 @@ no reduction across programs and one compare or select per element. The
 forward reads y once and writes the pooled quarter plus a one-byte argmax;
 the backward reads the pooled gradient and the argmax and writes dy once
 (y only where a window routes its gradient); the gather reads the pooled
-argmax and, at it, g_dy and y, and writes the pooled quarter. The
-pool-free pass is flat: one program per 4,096 elements, no channel
-structure. Each is one launch.
+argmax and, at it, g_dy and y, and writes the pooled quarter. Each is
+one launch.
 
 Tiles are ``tile(C)``: ``(BLOCK_P pixels, BLOCK_C)`` with ``BLOCK_C``
 the power of two at or above C (at least 2) and ``BLOCK_P * BLOCK_C =
@@ -40,9 +37,9 @@ f32 and stores bf16, with the slope the bf16 value of 0.01 (the
 wrappers round it). The JAX package's bf16 leaky-ReLU and its gradient
 are ``select(y >= 0, y, bf16(slope * y))`` and ``select(y >= 0, g,
 bf16(slope * g))``: a product of two bf16 values is exact in f32, so one
-rounding at the store gives the twin's bits in ``act_fwd``,
-``act_pool_bwd`` and ``act_pool_gather`` with no constexpr (their f32
-instantiations are unchanged). ``act_pool_fwd`` takes a ``BF16``
+rounding at the store gives the twin's bits in ``act_pool_bwd`` and
+``act_pool_gather`` with no constexpr (their f32 instantiations are
+unchanged). ``act_pool_fwd`` takes a ``BF16``
 constexpr: it rounds the negative side to bf16 before the window compare
 (``_rne_bf16``), so that exact bf16 ties, far more frequent than in f32,
 go to the first maximum as ``reduce_window``'s do, and its pooled values
@@ -150,14 +147,6 @@ def _act_pool_gather_kernel(g_ptr, arg_ptr, y_ptr, out_ptr, P, HoWo, Wo, H,
     tl.store(out_ptr + out, a.to(out_ptr.dtype.element_ty), mask=mask)
 
 
-def _act_fwd_kernel(y_ptr, out_ptr, numel, slope, BLOCK: "tl.constexpr"):
-    i = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
-    m = i < numel
-    v = tl.load(y_ptr + i, mask=m, other=0.0).to(tl.float32)
-    a = tl.where(v >= 0, v, v * slope)
-    tl.store(out_ptr + i, a.to(out_ptr.dtype.element_ty), mask=m)
-
-
 @functools.lru_cache(maxsize=None)
 def _jit() -> SimpleNamespace:
     import triton
@@ -171,7 +160,6 @@ def _jit() -> SimpleNamespace:
         pool_fwd=triton.jit(_act_pool_fwd_kernel),
         pool_bwd=triton.jit(_act_pool_bwd_kernel),
         pool_gather=triton.jit(_act_pool_gather_kernel),
-        fwd=triton.jit(_act_fwd_kernel),
     )
 
 
@@ -209,9 +197,3 @@ def launch_pool_gather(g_dy, arg, y, out, slope: float) -> None:
     _jit().pool_gather[(cdiv(P, bp),)](g_dy, arg, y, out, P, Ho * Wo, Wo,
                                        H, W, C, slope, BLOCK_P=bp,
                                        BLOCK_C=bc)
-
-
-def launch_fwd(y, out, slope: float) -> None:
-    """``act_fwd``, flat over y's elements."""
-    n = y.numel()
-    _jit().fwd[(cdiv(n, TILE),)](y, out, n, slope, BLOCK=TILE)

@@ -38,11 +38,11 @@ kernel                      route   source                    launches/call
 ``act_pool_fwd``            Triton  act_pool.py               1
 ``act_pool_bwd``            Triton  act_pool.py               1
 ``act_pool_gather``         Triton  act_pool.py               1
-``act_fwd``                 Triton  act_pool.py               1 (pool-free)
+``act_fwd``                 CUDA    csrc/act.cu               1 (pool-free)
 ``act_bwd``                 CUDA    csrc/act.cu               1 (pool-free)
 ``layer_norm_stats``        CUDA    csrc/layer_norm.cu        1 (a warp or a
                                                               cluster a row)
-``layer_norm_fwd``          Triton  layer_norm.py             1
+``layer_norm_fwd``          CUDA    csrc/layer_norm.cu        1
 ``layer_norm_bwd``          CUDA    csrc/layer_norm.cu        1 (cooperative)
 ``layer_norm_bwd_bwd``      Triton  layer_norm.py             reduce + sums + out: 3
 ``*_bf16``                  as f32  K1, dgrad at stride 1:    as in f32; K3, K5
@@ -80,16 +80,18 @@ query); in bf16, and K5 pool-free, the Triton kernels of
 (``bn_act_bwd_plan``: ``bn_input_stats``' units and routes, a block a
 tenant at the small maps, else one cooperative launch, whose blocks keep
 their chunks of da and y in shared memory where they fit), and
-``act_bwd`` ``csrc/act.cu``, 16 bytes of the flat tensor a thread. K2
-runs ``csrc/bn_act_fwd.cu`` in both modes and both dtypes (one kernel
-each, templated on the element type; ``bn_fwd_plan`` gives its launch):
-pooled a thread a pooled pixel x 4 channels, pool-free 16 bytes of the
-flat tensor a thread. The layer
-norm's statistics and backward run ``csrc/layer_norm.cu`` in both dtypes,
-one launch a call: ``layer_norm_stats`` a warp a row at the small maps
-and a thread block cluster a row above (``ln_stats_plan``),
-``layer_norm_bwd`` one cooperative launch over (tenant, column tile)
-items (``ln_bwd_plan``, sized from the occupancy query).
+``act_fwd`` / ``act_bwd`` ``csrc/act.cu``, 16 bytes of the flat tensor a
+thread. K2 runs ``csrc/bn_act_fwd.cu`` in both modes and both dtypes (one
+kernel each, templated on the element type; ``bn_fwd_plan`` gives its
+launch): pooled a thread a pooled pixel x 4 channels, pool-free 16 bytes
+of the flat tensor a thread. The layer norm's statistics, forward and
+backward run ``csrc/layer_norm.cu`` in both dtypes, one launch a call:
+``layer_norm_stats`` a warp a row at the small maps and a thread block
+cluster a row above (``ln_stats_plan``), ``layer_norm_fwd`` a block a
+tile of one image, gamma and beta shared by a tenant's images in L2
+(``ln_fwd_plan``), ``layer_norm_bwd`` one cooperative launch over
+(tenant, column tile) items (``ln_bwd_plan``, sized from the occupancy
+query).
 ``bn_input_stats`` runs ``csrc/bn_input_stats.cu`` in both dtypes, one
 launch a call (``bn_stats_plan``: a block a tenant at the small maps, else
 one cooperative launch of a few blocks a tenant, their partials merged
@@ -349,7 +351,7 @@ BN_ACT_BWD_GROUP = {1: 4, 3: 2}
 #: da and y in between the reduce and the apply (the grid route in one
 #: wave; with the static arrays within a block's 227 KB)
 BN_ACT_BWD_STAGE_BYTES = 200 * 1024
-#: act_bwd (csrc/act.cu): a block's threads
+#: act_fwd and act_bwd (csrc/act.cu): a block's threads
 ACT_THREADS = 256
 
 _P = ctypes.c_void_p
@@ -452,14 +454,15 @@ def _check_flat(name: str, x: Tensor) -> Tuple[int, int, int, int, int]:
     return tuple(x.shape)
 
 
-#: the entries of csrc/layer_norm.cu and csrc/bn_input_stats.cu take their
-#: arguments packed as 64-bit integers, in one ctypes argument (a call's
-#: host time counts at the small maps), and one float; those of
-#: csrc/global_avg_pool.cu the packed integers alone; csrc/act.cu's and
-#: csrc/bn_act_bwd.cu's the packed integers by address (``_packed``) and
-#: one or two floats
+#: the entries of csrc/layer_norm.cu (but its forward) and
+#: csrc/bn_input_stats.cu take their arguments packed as 64-bit integers,
+#: in one ctypes argument (a call's host time counts at the small maps),
+#: and one float; those of csrc/global_avg_pool.cu the packed integers
+#: alone; csrc/act.cu's, csrc/bn_act_bwd.cu's and ``layer_norm_fwd`` the
+#: packed integers by address (``_packed``) and none, one or two floats
 _PACKED_EPS_ENTRY = (ctypes.POINTER(ctypes.c_longlong), _F)
 _PACKED_ENTRY = (ctypes.POINTER(ctypes.c_longlong),)
+_ADDR_ENTRY = (_P,)
 _ADDR_F_ENTRY = (_P, _F)
 _ADDR_2F_ENTRY = (_P, _F, _F)
 
@@ -1711,17 +1714,41 @@ def act_pool_gather(g_dy: Tensor, argmax: Tensor, y: Tensor,
     return out
 
 
+def act_blocks(n: int, bf16: bool, vec: bool) -> int:
+    """The blocks of ``act_fwd`` / ``act_bwd`` (csrc/act.cu) over n
+    elements: a thread 16 bytes (4 f32 or 8 bf16 values) with ``vec``, else
+    one element, ``ACT_THREADS`` a block."""
+    return _cdiv(_cdiv(n, _ln_load(bf16, vec)), ACT_THREADS)
+
+
+def _act_packed(ptrs, n: int, bf16: bool, vec: bool, device: int,
+                stream: int) -> array.array:
+    """The packed arguments of csrc/act.cu's entries: the tensors' pointers
+    (y, z; or da, y, dy), then n, bf16, vec, the blocks, the device and
+    the stream."""
+    return _packed(*ptrs, n, bf16, vec, act_blocks(n, bf16, vec), device,
+                   stream)
+
+
 def act_fwd(y: Tensor, negative_slope: float = F.LEAKY_SLOPE) -> Tensor:
-    """The leaky-ReLU alone (the pool-free mode)."""
+    """The leaky-ReLU alone (the pool-free mode): one launch of
+    csrc/act.cu, flat over the tensor."""
     if _on_cpu(y):
         return F.act_fwd(y, negative_slope)
     name = "act_fwd"
-    _check_act(name, y)
-    out = torch.empty_like(y)
-    with torch.cuda.device(y.device):
-        act_pool.launch_fwd(y, out, F.scalar_like(negative_slope, y))
-    LAUNCHES[_counter(name, y)] += 1
-    return out
+    _check_flat(name, y)
+    device = y.device
+    z = torch.empty_like(y)  # fresh: aligned
+    yp = y.data_ptr()
+    args = _act_packed((yp, z.data_ptr()), y.numel(),
+                       y.dtype is torch.bfloat16, yp % 16 == 0,
+                       device.index, _stream(device))
+    rc = build.function("act", "act_fwd", _ADDR_F_ENTRY)(
+        args.buffer_info()[0], F.scalar_like(negative_slope, y))
+    counter = _counter(name, y)
+    build.check(rc, counter)
+    LAUNCHES[counter] += 1
+    return z
 
 
 def act_bwd(da: Tensor, y: Tensor, negative_slope: float = F.LEAKY_SLOPE
@@ -1733,15 +1760,12 @@ def act_bwd(da: Tensor, y: Tensor, negative_slope: float = F.LEAKY_SLOPE
     name = "act_bwd"
     _check_flat(name, y)
     _ln_same(name, "da", da, y.shape, y)
-    n = y.numel()
-    bf16 = y.dtype is torch.bfloat16
     device = y.device
     dy = torch.empty_like(y)  # fresh: aligned
     dap, yp = da.data_ptr(), y.data_ptr()
-    vec = (dap | yp) % 16 == 0
-    args = _packed(dap, yp, dy.data_ptr(), n, bf16, vec,
-                   _cdiv(_cdiv(n, _ln_load(bf16, vec)), ACT_THREADS),
-                   device.index, _stream(device))
+    args = _act_packed((dap, yp, dy.data_ptr()), y.numel(),
+                       y.dtype is torch.bfloat16, (dap | yp) % 16 == 0,
+                       device.index, _stream(device))
     rc = build.function("act", "act_bwd", _ADDR_F_ENTRY)(
         args.buffer_info()[0], F.scalar_like(negative_slope, y))
     counter = _counter(name, y)
@@ -1751,16 +1775,6 @@ def act_bwd(da: Tensor, y: Tensor, negative_slope: float = F.LEAKY_SLOPE
 
 
 # -- the layer norm (B5c) ------------------------------------------------------
-
-
-def _check_ln_rows(name: str, x: Tensor) -> Tuple[int, int, int, int, int]:
-    """Check a layer norm's activation, whose T * N images are rows of the
-    launch grid's second axis (``_check_flat``); returns its shape."""
-    T, N, H, W, C = _check_flat(name, x)
-    if T * N >= 65536:
-        raise ValueError(f"{name}: T * N = {T * N} images exceed the launch "
-                         "grid's 65,535 rows")
-    return T, N, H, W, C
 
 
 def _ln_same(name: str, what: str, t: Tensor, shape, x: Tensor) -> None:
@@ -1776,7 +1790,7 @@ def _check_ln_args(name: str, x: Tensor, mean: Tensor, rstd: Tensor,
                                                        int]:
     """Check a layer norm's activation, its (T, N) statistics and its (T,
     H, W, C) parameters; returns x's shape."""
-    T, N, H, W, C = _check_ln_rows(name, x)
+    T, N, H, W, C = _check_flat(name, x)
     _ln_same(name, "mean", mean, (T, N), x)
     _ln_same(name, "rstd", rstd, (T, N), x)
     for what, t in params.items():
@@ -1848,7 +1862,7 @@ def layer_norm_stats(x: Tensor, eps: float = F.LN_EPS
     if _on_cpu(x):
         return F.layer_norm_stats(x, eps)
     name = "layer_norm_stats"
-    T, N, H, W, C = _check_ln_rows(name, x)
+    T, N, H, W, C = _check_flat(name, x)
     R, M = T * N, H * W * C
     bf16 = x.dtype is torch.bfloat16
     xp, device = x.data_ptr(), x.device
@@ -1867,19 +1881,75 @@ def layer_norm_stats(x: Tensor, eps: float = F.LN_EPS
     return out.unbind(0)
 
 
+class LnFwdPlan(NamedTuple):
+    """The launch of ``layer_norm_fwd`` at one shape (csrc/layer_norm.cu,
+    one plain launch): ``grid`` = T x N x ``tiles`` blocks of ``threads``,
+    block b the tile b % tiles of image b // tiles (images in (tenant,
+    image) order), a tile ``threads`` loads of ``vec`` values (16 bytes,
+    or one value) of the image, gamma and beta."""
+
+    grid: int
+    threads: int
+    tiles: int
+    vec: int
+
+
+@functools.lru_cache(maxsize=None)
+def ln_fwd_plan(T: int, N: int, M: int, bf16: bool = False, vec: bool = True
+                ) -> LnFwdPlan:
+    """``layer_norm_fwd``'s launch for T tenants of N images of M values, in
+    f32 or bf16, with 16-byte loads (``vec``: M a multiple of their values,
+    and x, gamma, beta and z 16-byte aligned) or a value at a time. A pure
+    function of the shape: the wrapper calls it, and so do the CPU tests.
+    A thread takes one load of an image and the same load of its tenant's
+    gamma and beta. Raises for a shape the kernel does not take."""
+    v = _ln_load(bf16, vec)
+    if min(T, N, M) < 1 or M % v:
+        raise ValueError(f"ln_fwd_plan: no forward of (T={T}, N={N}) rows "
+                         f"of {M} values{' with vectors' if vec else ''}")
+    tiles = _cdiv(M // v, LN_THREADS)
+    if T * N * tiles > 2 ** 31 - 1:
+        raise ValueError(f"ln_fwd_plan: (T={T}, N={N}) rows of {M} values "
+                         "exceed the launch grid")
+    return LnFwdPlan(T * N * tiles, LN_THREADS, tiles, v)
+
+
 def layer_norm_fwd(x: Tensor, mean: Tensor, rstd: Tensor, gamma: Tensor,
                    beta: Tensor) -> Tensor:
     """Layer norm with the given per-image statistics: ``(x - mean) * rstd
-    * gamma + beta``."""
+    * gamma + beta``, one launch of csrc/layer_norm.cu (``ln_fwd_plan``),
+    bit for bit the twin."""
     if _on_cpu(x):
         return F.layer_norm_fwd(x, mean, rstd, gamma, beta)
     name = "layer_norm_fwd"
-    _check_ln_args(name, x, mean, rstd, dict(gamma=gamma, beta=beta))
-    z = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        layer_norm.launch_fwd(x, mean, rstd, gamma, beta, z)
-    LAUNCHES[_counter(name, x)] += 1
+    T, N, H, W, C = _check_ln_args(name, x, mean, rstd,
+                                   dict(gamma=gamma, beta=beta))
+    M = H * W * C
+    bf16 = x.dtype is torch.bfloat16
+    device = x.device
+    z = torch.empty_like(x)  # fresh: aligned
+    xp, gp, bp = x.data_ptr(), gamma.data_ptr(), beta.data_ptr()
+    vec = M % _ln_load(bf16, True) == 0 and (xp | gp | bp) % 16 == 0
+    plan = ln_fwd_plan(T, N, M, bf16, vec)
+    args = _ln_fwd_packed((xp, mean.data_ptr(), rstd.data_ptr(), gp, bp,
+                           z.data_ptr()), T, N, M, bf16, vec, plan,
+                          device.index, _stream(device))
+    rc = build.function("layer_norm", "layer_norm_fwd", _ADDR_ENTRY)(
+        args.buffer_info()[0])
+    counter = _counter(name, x)
+    build.check(rc, counter)
+    LAUNCHES[counter] += 1
     return z
+
+
+def _ln_fwd_packed(ptrs, T: int, N: int, M: int, bf16: bool, vec: bool,
+                   plan: LnFwdPlan, device: int, stream: int
+                   ) -> array.array:
+    """The packed arguments of csrc/layer_norm.cu's ``layer_norm_fwd``: x,
+    mean, rstd, gamma, beta and z's pointers, then T, N, M, bf16, vec, the
+    plan's tiles and grid, the device and the stream."""
+    return _packed(*ptrs, T, N, M, bf16, vec, plan.tiles, plan.grid, device,
+                   stream)
 
 
 class LnBwdPlan(NamedTuple):

@@ -1,19 +1,21 @@
-// The layer norm's statistics (layer_norm_stats) and its backward through
-// them (layer_norm_bwd), f32 and bf16, one launch a call each.
+// The layer norm's statistics (layer_norm_stats), its normalize + affine
+// (layer_norm_fwd) and its backward through the statistics
+// (layer_norm_bwd), f32 and bf16, one launch a call each.
 //
 // Replaces (JAX package) howtotrainyourmamlpytorch_tpu/ops/functional.py::
 // layer_norm :447, as models/vgg.py calls it (on the conv output, or on the
 // block input in the norm-first block): its per-image mean and variance
-// (jnp.mean, jnp.var) and rsqrt(var + eps), and the first derivative XLA
-// takes of it through those statistics. The twins are ops/functional.py::
-// image_stats / layer_norm_stats and ::layer_norm_bwd of the port. The
-// normalize + affine (layer_norm_fwd) and the double backward stay on the
-// Triton kernels of kernels/layer_norm.py.
+// (jnp.mean, jnp.var) and rsqrt(var + eps), the normalize and affine
+// :463-464, and the first derivative XLA takes of it through those
+// statistics. The twins are ops/functional.py::image_stats /
+// layer_norm_stats, ::layer_norm_fwd and ::layer_norm_bwd of the port. The
+// double backward stays on the Triton kernels of kernels/layer_norm.py.
 //
 // x is (T, N, H, W, C); a ROW is one image of M = H * W * C consecutive
 // values, R = T * N rows. gamma is per tenant (T, H, W, C).
 //
 //   stats: mean, population variance, rstd = 1 / sqrt(var + eps), (T, N);
+//   fwd:   z = (x - mean) * rstd * gamma + beta;
 //   bwd:   with g = dz * gamma and xhat = (x - mean) * rstd,
 //          dx = rstd * (g - mean_row(g) - xhat * mean_row(g * xhat)),
 //          dgamma = sum_n dz * xhat, dbeta = sum_n dz per (tenant, column).
@@ -21,13 +23,19 @@
 // bf16 keeps the Triton kernels' rounding points: every load widened to
 // f32, every partial and sum f32; mean and var each rounded once, rstd the
 // f32 1 / sqrt of bf16(bf16(var) + eps) rounded once (maml::store_stats);
-// xhat in f32 from the bf16 mean and rstd; dx, dgamma and dbeta each
-// rounded once at the store.
+// the forward each of its four ops rounded to bf16, as the twin's bf16
+// tensor ops round them (the batch-norm chain at slope 1,
+// bn_act_chain.cuh); xhat in f32 from the bf16 mean and rstd; dx, dgamma
+// and dbeta each rounded once at the store. The f32 forward rounds each of
+// the twin's four ops (x - mean, * rstd, * gamma, + beta; no FMA), so it
+// is the twin's bits in both dtypes.
 //
 // Bound on an H100: bytes (3.35 TB/s; a few FLOPs an element, no matrix
 // product). The statistics read x once; the backward must read dz and x
 // twice (the row sums need the whole row before any dx, the column sums
-// all N rows of a tenant), write dx, dgamma and dbeta.
+// all N rows of a tenant), write dx, dgamma and dbeta. The forward reads
+// x once and writes z once; it reads gamma and beta for each image, from
+// L2 after a tenant's first.
 //
 // * layer_norm_stats: one launch, shaped by conv_block.ln_stats_plan, a
 //   pure function of (R, M, dtype, vectors). A thread loads 16 bytes at a
@@ -45,6 +53,13 @@
 //   (map_shared_rank) and stores; a second cluster.sync keeps the peers'
 //   shared memory alive until then. No scratch, no second launch, no
 //   atomics.
+// * layer_norm_fwd: one plain launch, shaped by conv_block.ln_fwd_plan
+//   (pure): a block a tile of 256 loads (16 bytes, or one value, each) of
+//   one image, the images in order, so that the blocks running at once
+//   stream through x and z and share their tenant's gamma and beta in L2.
+//   (Gamma and beta held in registers by a thread walking its tenant's
+//   images, which reads them once from memory, ran 3% slower in f32 at
+//   the conv-first stage 0: its concurrent reads spread over many images.)
 // * layer_norm_bwd: one cooperative launch (the pattern of
 //   bn_act_pool_bwd.cu), on conv_block.ln_bwd_plan's grid, sized from the
 //   occupancy query. A work item is (tenant, column tile); a tile is one
@@ -73,6 +88,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bn_act_chain.cuh"
 #include "bn_stats_merge.cuh"
 #include "vec_io.cuh"
 
@@ -255,6 +271,75 @@ __global__ void __launch_bounds__(kThreads)
     store_row<T>(a, row, s);
   }
   cluster.sync();  // the peers' shared memory stays until rank 0 has read
+}
+
+// -- layer_norm_fwd ------------------------------------------------------
+
+struct FwdArgs {
+  const void* x;
+  const void* mean;
+  const void* rstd;
+  const void* gamma;
+  const void* beta;
+  void* z;
+  int N, vecs, tiles;  // vecs: M / V, a row's loads; tiles: a row's blocks
+};
+
+// z of V values of one image: f32 the twin's four ops, each rounded
+// (((x - mean) * rstd) * gamma + beta: no FMA); bf16 the chain at slope 1,
+// each op rounded to bf16 (maml::bn_z_bf16), a conversion a pair.
+template <typename T, int V>
+__device__ __forceinline__ void fwd_z(const Packet<T, V>& q, float m,
+                                      float r, const Packet<T, V>& g,
+                                      const Packet<T, V>& b, float (&o)[V]) {
+  if constexpr (sizeof(T) == 4) {
+#pragma unroll
+    for (int i = 0; i < V; ++i)
+      o[i] = __fadd_rn(
+          __fmul_rn(__fmul_rn(__fsub_rn(at(q, i), m), r), at(g, i)),
+          at(b, i));
+  } else if constexpr (V == 1) {
+    o[0] = maml::bn_z_bf16(at(q, 0), m, r, at(g, 0), at(b, 0));
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; i += 2) {
+      o[i] = at(q, i);
+      o[i + 1] = at(q, i + 1);
+      maml::bn_z_bf16_2(o[i], o[i + 1], m, m, r, r, at(g, i), at(g, i + 1),
+                        at(b, i), at(b, i + 1));
+    }
+  }
+}
+
+// Block b: image r = b / tiles (r = t N + n: a tenant's images in order),
+// its tile b % tiles of kThreads loads; a thread one load (V values) of x,
+// gamma and beta, the image's mean and rstd a broadcast load. x is read
+// once (bf16 with an evict-first hint, f32 through L1), z written once,
+// streaming; gamma and beta are read again for each of the tenant's N
+// images, from L2 after the first (the blocks of one tenant's images run
+// together). On an H100 this layout, the loads' and the stores' hints were
+// each chosen by device time at the layer-norm models' large maps
+// (PERF.md).
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads)
+    layer_norm_fwd_kernel(const FwdArgs a) {
+  constexpr bool kLastX = sizeof(T) != 4;
+  const unsigned tiles = (unsigned)a.tiles;
+  const long long r = blockIdx.x / tiles;
+  const int vi = (int)(blockIdx.x % tiles) * kThreads + threadIdx.x;
+  if (vi >= a.vecs) return;
+  const size_t M = (size_t)a.vecs * V;
+  const size_t row = (size_t)r * M + (size_t)vi * V;
+  const size_t col = (size_t)(r / a.N) * M + (size_t)vi * V;
+  Packet<T, V> xq, gq, bq;
+  load<kLastX>(static_cast<const T*>(a.x) + row, xq);
+  load<false>(static_cast<const T*>(a.gamma) + col, gq);
+  load<false>(static_cast<const T*>(a.beta) + col, bq);
+  const float mu = scalar(static_cast<const T*>(a.mean) + r);
+  const float rs = scalar(static_cast<const T*>(a.rstd) + r);
+  float o[V];
+  fwd_z<T, V>(xq, mu, rs, gq, bq, o);
+  store<true>(static_cast<T*>(a.z) + row, o);
 }
 
 // -- layer_norm_bwd ------------------------------------------------------
@@ -511,6 +596,17 @@ const void* bwd_kernel_for(int bf16, int vec) {
   return vec ? bwd_kernel<float, 4>() : bwd_kernel<float, 1>();
 }
 
+template <typename T, int V>
+const void* fwd_kernel() {
+  return reinterpret_cast<const void*>(layer_norm_fwd_kernel<T, V>);
+}
+
+const void* fwd_kernel_for(int bf16, int vec) {
+  if (bf16)
+    return vec ? fwd_kernel<bf16_t, 8>() : fwd_kernel<bf16_t, 1>();
+  return vec ? fwd_kernel<float, 4>() : fwd_kernel<float, 1>();
+}
+
 }  // namespace
 
 extern "C" {
@@ -560,6 +656,42 @@ int layer_norm_stats(const long long* a, float eps) {
     err = vec ? launch_stats<float, 4>(s, warp_rows, cluster, (int)grid, st)
               : launch_stats<float, 1>(s, warp_rows, cluster, (int)grid, st);
   return (int)err;
+}
+
+// layer_norm_fwd, its arguments packed as 64-bit integers and passed by
+// address (one ctypes argument; conv_block._packed), in the order of
+// conv_block.layer_norm_fwd:
+//   a[0..5]   x (T, N, M values), the (T, N) mean and rstd, the (T, M)
+//             gamma and beta, z (T, N, M), all f32 or all bf16 by bf16
+//   a[6..10]  T, N, M, bf16, vec (16-byte loads: M a multiple of their
+//             values and x, gamma, beta and z 16-byte aligned)
+//   a[11..12] the plan (conv_block.ln_fwd_plan): `tiles` blocks of 256
+//             loads a row (ceil(M / values a load / 256)), the grid T N
+//             tiles
+//   a[13..14] the device, the stream
+// Refuses (launching nothing) a plan that does not match the shape or
+// vectors the pointers do not allow. Returns the CUDA error, 0 on success.
+int layer_norm_fwd(const long long* a) {
+  const int T = (int)a[6], N = (int)a[7], M = (int)a[8];
+  const int bf16 = (int)a[9], vec = (int)a[10], tiles = (int)a[11];
+  const long long grid = a[12];
+  const int v = load_width(bf16, vec);
+  if (T < 1 || N < 1 || M < 1 || M % v) return (int)cudaErrorInvalidValue;
+  if (vec && !(aligned(ptr<void>(a[0]), 16) && aligned(ptr<void>(a[3]), 16) &&
+               aligned(ptr<void>(a[4]), 16) && aligned(ptr<void>(a[5]), 16)))
+    return (int)cudaErrorInvalidValue;
+  if (tiles != cdiv(M / v, kThreads) ||
+      grid != (long long)T * N * tiles || grid > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  OnDevice on((int)a[13]);
+  if (on.err != cudaSuccess) return (int)on.err;
+  FwdArgs f = {ptr<const void>(a[0]), ptr<const void>(a[1]),
+               ptr<const void>(a[2]), ptr<const void>(a[3]),
+               ptr<const void>(a[4]), ptr<void>(a[5]), N, M / v, tiles};
+  void* args[] = {&f};
+  return maml::launch_error(cudaLaunchKernel(
+      fwd_kernel_for(bf16, vec), dim3((unsigned)grid), dim3(kThreads), args,
+      0, ptr<CUstream_st>(a[14])));
 }
 
 // The blocks of 256 threads a SM can hold of layer_norm_bwd's kernel in

@@ -1,8 +1,8 @@
-"""Triton kernels of the layer norm (B5c): the normalize + affine and the
-backward of the layer norm's backward. Its statistics
-(``layer_norm_stats``) and its backward (``layer_norm_bwd``) run the CUDA
-kernels of ``csrc/layer_norm.cu``, one launch a call (their wrappers and
-plans are in ``conv_block.py``).
+"""The Triton kernels of the layer norm (B5c): the backward of the layer
+norm's backward. Its statistics (``layer_norm_stats``), its normalize +
+affine (``layer_norm_fwd``) and its backward (``layer_norm_bwd``) run the
+CUDA kernels of ``csrc/layer_norm.cu``, one launch a call (their wrappers
+and plans are in ``conv_block.py``).
 
 Replace (JAX package) ``howtotrainyourmamlpytorch_tpu/ops/functional.py::
 layer_norm`` :447 as ``models/vgg.py`` :250-262 calls it (on the conv
@@ -12,48 +12,37 @@ of M = H*W*C values; the statistics are per row, gamma and beta
 elementwise per (tenant, h, w, c): ``(T, H, W, C)`` (the block expands a
 shared ``(H, W, C)`` leaf).
 
-* ``layer_norm_fwd``: ``z = (x - mean) * rstd * gamma + beta``, one
-  elementwise pass, ``(J, T*N)`` programs of one tile each.
-* ``layer_norm_bwd_bwd``: the gradient of ``layer_norm_bwd`` with respect
-  to dz, x and gamma, given the cotangents ``a`` of dx, ``ggamma`` of
-  dgamma and ``gbeta`` of dbeta (formulas in
-  ``ops/functional.py::layer_norm_bwd_bwd``). ``g_x`` needs the row means
-  of ``G = -r (a mean(g xhat) + g mean(a xhat)) + ggamma dz`` and of ``G
-  xhat``; they follow from seven row sums, ``sum a``, ``a xhat``, ``g``,
-  ``g xhat``, ``a g``, ``ggamma dz`` and ``ggamma dz xhat``. Three
-  launches: (a) ``(J, T)`` programs write the seven partials of each (row,
-  tile); (b) the partials added in tile order (``_row_sums_kernel``); (c)
-  ``(J, T)`` programs loop over the rows of their column tile, write
-  ``g_dz`` and ``g_x`` and add ``dz * r * P(a)`` into ``g_gamma``.
+``layer_norm_bwd_bwd``: the gradient of ``layer_norm_bwd`` with respect to
+dz, x and gamma, given the cotangents ``a`` of dx, ``ggamma`` of dgamma
+and ``gbeta`` of dbeta (formulas in
+``ops/functional.py::layer_norm_bwd_bwd``). ``g_x`` needs the row means of
+``G = -r (a mean(g xhat) + g mean(a xhat)) + ggamma dz`` and of ``G
+xhat``; they follow from seven row sums, ``sum a``, ``a xhat``, ``g``, ``g
+xhat``, ``a g``, ``ggamma dz`` and ``ggamma dz xhat``. Three launches: (a)
+``(J, T)`` programs write the seven partials of each (row, tile); (b) the
+partials added in tile order (``_row_sums_kernel``); (c) ``(J, T)``
+programs loop over the rows of their column tile, write ``g_dz`` and
+``g_x`` and add ``dz * r * P(a)`` into ``g_gamma``.
 
-Bound on an H100: bytes. A handful of FLOPs per element (the double
-backward's ~40 is far under the 67 TFLOP/s FFMA peak's 20 per byte), no
-matrix product. At the conv-first model's stage 0 (M = 338,688) with T =
-8, N = 75 the forward moves 1.63 GB (0.49 ms at 3.35 TB/s). The double
-backward reads its inputs twice (the reduction, then the outputs), with
-the column sums taken in the same pass as the row partials; no atomics,
-every sum in a fixed order, so a run is deterministic. Tiles are 1-D and
-contiguous (a row is M consecutive floats), ``min(tile cap, next_pow2(M))``
-wide, so the small maps of the strided model (M = 256 at 2x2x64) keep
-their lanes.
+Bound on an H100: bytes. About 40 FLOPs an element, far under the 67
+TFLOP/s FFMA peak's 20 per byte; no matrix product. The double backward
+reads its inputs twice (the reduction, then the outputs), with the
+column sums taken in the same pass as the row partials; no atomics, every
+sum in a fixed order, so a run is deterministic. Tiles are 1-D and
+contiguous (a row is M consecutive floats), ``min(tile cap,
+next_pow2(M))`` wide, so the small maps of the strided model (M = 256 at
+2x2x64) keep their lanes.
 
-bf16 (``compute_dtype='bfloat16'``): both kernels load bf16 and convert
+bf16 (``compute_dtype='bfloat16'``): the kernels load bf16 and convert
 each load to f32 before any arithmetic, and each output is rounded once
-where the JAX package's bf16 ``layer_norm`` (:447-464) and its
-derivatives round, as the twins in ``ops/functional.py`` do:
+where the JAX package's bf16 ``layer_norm`` (:447-464) derivatives round,
+as the twin in ``ops/functional.py`` does: ``xhat = (x - mean) * rstd`` in
+f32 from the bf16 mean and rstd (not the forward's rounded chain), every
+partial and sum in f32 scratch, and g_dz, g_x, g_gamma each rounded once
+by the store.
 
-* ``layer_norm_fwd`` takes a ``BF16`` constexpr (the f32 instantiation is
-  unchanged): the chain ``(x - mean)``, ``* rstd``, ``* gamma``, ``+
-  beta``, each op rounded to bf16 (``bn_act_pool._bf16_chain`` at slope
-  1, whose activation is the identity), so it equals its twin bit for
-  bit;
-* ``layer_norm_bwd_bwd``: ``xhat = (x - mean) * rstd`` in f32 from the
-  bf16 mean and rstd (not the forward's rounded chain), every partial and
-  sum in f32 scratch, and g_dz, g_x, g_gamma each rounded once by the
-  store.
-
-Bound: bytes, as in f32, at 2 bytes an element of the activations,
-gamma and beta.
+Bound: bytes, as in f32, at 2 bytes an element of the activations and
+the parameters.
 
 ``triton`` is imported at the first launch, never at import (see
 ``bn_act_pool.py``).
@@ -64,36 +53,11 @@ from __future__ import annotations
 import functools
 from types import SimpleNamespace
 
-from . import bn_act_pool
-
 tl = None  # bound to ``triton.language`` by ``_jit()`` at the first launch
-_bf16_chain = None  # bound to ``bn_act_pool``'s jitted chain by ``_jit()``
 
 TILE = 1024                 # values per column tile (cap)
 ROWS_PER_MERGE = 128        # rows per program of the partial-sum merge
 BWD_BWD_SUMS = 7            # row sums of the double backward
-
-
-def _fwd_kernel(x_ptr, mean_ptr, rstd_ptr, gamma_ptr, beta_ptr, z_ptr, M, N,
-                BLOCK: "tl.constexpr", BF16: "tl.constexpr"):
-    j = tl.program_id(0)
-    r = tl.program_id(1)
-    t = r // N
-    q = j * BLOCK + tl.arange(0, BLOCK)
-    mask = q < M
-    mu = tl.load(mean_ptr + r).to(tl.float32)
-    rs = tl.load(rstd_ptr + r).to(tl.float32)
-    off = r.to(tl.int64) * M + q
-    toff = t.to(tl.int64) * M + q
-    v = tl.load(x_ptr + off, mask=mask, other=0.0).to(tl.float32)
-    g = tl.load(gamma_ptr + toff, mask=mask, other=0.0).to(tl.float32)
-    b = tl.load(beta_ptr + toff, mask=mask, other=0.0).to(tl.float32)
-    if BF16:
-        # every op rounded to bf16: the chain at slope 1
-        z, _ = _bf16_chain(v, mu, rs, g, b, 1.0)
-    else:
-        z = (v - mu) * rs * g + b
-    tl.store(z_ptr + off, z.to(z_ptr.dtype.element_ty), mask=mask)
 
 
 def _row_sums_kernel(part_ptr, out_ptr, R, J, K: "tl.constexpr",
@@ -188,13 +152,9 @@ def _jit() -> SimpleNamespace:
     import triton
     import triton.language
 
-    global tl, _bf16_chain
+    global tl
     tl = triton.language
-    # the forward calls bn_act_pool's jitted chain by this global name
-    bn_act_pool._jit()
-    _bf16_chain = bn_act_pool._bf16_chain
     return SimpleNamespace(
-        fwd=triton.jit(_fwd_kernel),
         row_sums=triton.jit(_row_sums_kernel),
         bwd_bwd_reduce=triton.jit(_bwd_bwd_reduce_kernel),
         bwd_bwd_out=triton.jit(_bwd_bwd_out_kernel),
@@ -219,17 +179,6 @@ def column_tiles(M: int) -> int:
     """J, the column tiles of a row (``tile(M)`` values each) of the
     double backward; its partials are ``(J, 7, R)``."""
     return cdiv(M, tile(M))
-
-
-def launch_fwd(x, mean, rstd, gamma, beta, z) -> None:
-    """``z`` (the shape of x) from x, the (T, N) statistics and the (T, H,
-    W, C) gamma and beta, all f32 or all bf16."""
-    T, N, H, W, C = x.shape
-    M = H * W * C
-    block = tile(M)
-    _jit().fwd[(cdiv(M, block), T * N)](x, mean, rstd, gamma, beta, z, M, N,
-                                       BLOCK=block,
-                                       BF16=bn_act_pool.is_bf16(x))
 
 
 def launch_bwd_bwd(a, ggamma, gbeta, dz, x, mean, rstd, gamma, part, sums,

@@ -38,8 +38,12 @@ and bf16 at every model shape (C = 1, 3, 48, 64) and at edge shapes
 scalar mode), off
 alignment, a second launch bit for bit the first, the bf16 GAP equal to
 its twin bit for bit, their entries' refusals and no Triton kernel
-reached; and the ingest kernel ``episode_expand`` equal to its twin bit
-for bit (it is a pure lookup).
+reached; ``act_fwd`` (``csrc/act.cu``) and ``layer_norm_fwd``
+(``csrc/layer_norm.cu``) in f32 and bf16 at every model shape and at edge
+shapes, off alignment, bit for bit their twins, a second launch bit for
+bit the first, their entries' refusals and no Triton kernel reached; and
+the ingest kernel ``episode_expand`` equal to its twin bit for bit (it is
+a pure lookup).
 These need the card: marked ``cuda``, they skip where
 ``torch.cuda.is_available()`` is false. On the card (``--noconftest``:
 the suite's conftest imports jax, which the port never needs):
@@ -2651,10 +2655,10 @@ def test_ln_entries_refuse_a_plan_that_does_not_match(device):
 
 def test_no_ln_stats_or_bwd_call_reaches_a_triton_kernel(device,
                                                          monkeypatch):
-    """The Triton statistics and backward are gone from
-    kernels/layer_norm.py, and both wrappers run with Triton's compile step
-    made to fail, in f32 and bf16; the forward and the double backward keep
-    their Triton kernels."""
+    """The Triton statistics, forward and backward are gone from
+    kernels/layer_norm.py, and the statistics' and the backward's wrappers
+    run with Triton's compile step made to fail, in f32 and bf16; the
+    double backward keeps its Triton kernels."""
     from howtotrainyourmamlpytorch_tpu_torch.kernels import (
         bn_act_pool,
         layer_norm,
@@ -2662,9 +2666,8 @@ def test_no_ln_stats_or_bwd_call_reaches_a_triton_kernel(device,
 
     for gone in ("launch_stats", "launch_bwd", "stats_plan",
                  "_stats_partial_kernel", "_bwd_reduce_kernel",
-                 "_bwd_dx_kernel"):
+                 "_bwd_dx_kernel", "launch_fwd", "_fwd_kernel"):
         assert not hasattr(layer_norm, gone), gone
-    assert hasattr(layer_norm, "launch_fwd")
     assert hasattr(layer_norm, "launch_bwd_bwd")
 
     def no_triton():
@@ -3316,3 +3319,228 @@ def test_no_k3_free_or_act_bwd_call_reaches_a_triton_kernel(device,
             _check_k3_free(_k3_free_inputs(2, 3, 8, 8, 3, dtype, 83), slope)
             _check_k3_free(_k3_free_inputs(2, 3, 8, 8, 48, dtype, 89), slope)
         _check_act_bwd(*_act_inputs(2, 3, 8, 64, dtype, 97))
+
+
+# -- act_fwd on csrc/act.cu, layer_norm_fwd on csrc/layer_norm.cu -----------
+#
+# One launch a call, f32 and bf16, each bit for bit its twin (act_fwd: one
+# rounding of an exact product; layer_norm_fwd: the twin's four ops each
+# rounded, in bf16 each to bf16) and a second launch bit for bit the first.
+
+# (T, N, H, W, C) of layer_norm_fwd beyond ``LN_MAIN``: the images a shipped
+# geometry's task gives at the Omniglot pooled maps (28/14/7/3 x 64, 5 and
+# 100 images) and at the mini-ImageNet 1-shot support (5 images)
+LN_FWD_MORE = [(8, n, hw, hw, 64) for hw in (28, 3) for n in (5, 100)] + [
+    (2, 5, 84, 84, 48), (8, 5, 21, 21, 48)]
+
+
+def _check_ln_fwd(x, mean, rstd, gamma, beta):
+    """``layer_norm_fwd`` equal to its twin bit for bit, one launch on its
+    counter, a second launch bit for bit the first."""
+    tag = "_bf16" if x.dtype == torch.bfloat16 else ""
+    cb.reset_launches()
+    z = cb.layer_norm_fwd(x, mean, rstd, gamma, beta)
+    assert {k: n for k, n in cb.launches().items() if n} == {
+        "layer_norm_fwd" + tag: 1}
+    want = F.layer_norm_fwd(x, mean, rstd, gamma, beta)
+    assert z.dtype == want.dtype and z.shape == want.shape
+    assert torch.equal(z, want)
+    assert torch.equal(cb.layer_norm_fwd(x, mean, rstd, gamma, beta), z)
+    torch.cuda.synchronize()
+
+
+def _ln_fwd_inputs(T, N, H, W, C, dtype, seed):
+    """x (with an offset), its twin statistics, gamma and beta, in
+    ``dtype``."""
+    x, mean, rstd, gamma, dz = _ln_inputs(T, N, H, W, C, dtype, seed)
+    beta = (dz[:, 0] * 10.0).contiguous()
+    return x, mean, rstd, gamma, beta
+
+
+@pytest.mark.parametrize("dtype", list(LN_DTYPES))
+@pytest.mark.parametrize("shape", [(T, N, hw, hw, C) for T, N, hw, C in
+                                   LN_MAIN] + LN_FWD_MORE + LN_EDGE, ids=str)
+def test_ln_fwd_equals_its_twin(shape, dtype, device):
+    _check_ln_fwd(*_ln_fwd_inputs(*shape, LN_DTYPES[dtype], sum(shape) + 7))
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("dtype", list(LN_DTYPES))
+def test_ln_fwd_takes_tensors_off_16_byte_alignment(dtype, device,
+                                                    monkeypatch):
+    """x, gamma or beta one element into their storage, and an odd M:
+    the plan is asked without vectors (a value a thread) at each launch,
+    and z equals the twin bit for bit; aligned tensors take the
+    vectors."""
+    asked = []
+    plan = cb.ln_fwd_plan
+    monkeypatch.setattr(cb, "ln_fwd_plan",
+                        lambda *a: asked.append(a[4]) or plan(*a))
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, device=t.device, dtype=t.dtype)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    args = _ln_fwd_inputs(2, 3, 10, 10, 48, LN_DTYPES[dtype], 71)
+    for which in (0, 3, 4):  # x, gamma, beta
+        off = list(args)
+        off[which] = shifted(args[which])
+        assert off[which].data_ptr() % 16 != 0
+        asked.clear()
+        _check_ln_fwd(*off)
+        assert asked and not any(asked)
+    asked.clear()
+    _check_ln_fwd(*args)
+    assert asked and all(asked)
+    asked.clear()
+    _check_ln_fwd(*_ln_fwd_inputs(2, 3, 5, 5, 3, LN_DTYPES[dtype], 73))
+    assert asked and not any(asked)  # M = 75: no 16-byte loads
+
+
+def test_ln_fwd_rejects_what_the_kernel_does_not_take(device):
+    """f16 raises ``TypeError``, a non-contiguous x or parameters of
+    another shape ``ValueError``, before any launch."""
+    x, mean, rstd, gamma, beta = _ln_fwd_inputs(2, 3, 6, 6, 8,
+                                                torch.float32, 75)
+    cb.reset_launches()
+    with pytest.raises(TypeError, match="^layer_norm_fwd: .*float32 or "
+                                        "bfloat16"):
+        cb.layer_norm_fwd(*(t.half() for t in (x, mean, rstd, gamma, beta)))
+    with pytest.raises(ValueError, match="contiguous"):
+        cb.layer_norm_fwd(x.transpose(2, 3), mean, rstd, gamma, beta)
+    with pytest.raises(ValueError, match="shape"):
+        cb.layer_norm_fwd(x, mean, rstd, gamma[:1], beta)
+    with pytest.raises(TypeError, match="must be torch.float32"):
+        cb.layer_norm_fwd(x, mean.bfloat16(), rstd, gamma, beta)
+    assert set(cb.launches().values()) == {0}
+
+
+def test_ln_fwd_entry_refuses_a_plan_that_does_not_match(device):
+    """The entry checks the plan against the shape and the vectors against
+    M and the pointers, and launches nothing otherwise."""
+    from howtotrainyourmamlpytorch_tpu_torch.kernels import build
+
+    T, N, H, W, C = 2, 9, 6, 6, 64
+    M = H * W * C
+    x, mean, rstd, gamma, beta = _ln_fwd_inputs(T, N, H, W, C,
+                                                torch.float32, 77)
+    entry = build.function("layer_norm", "layer_norm_fwd", cb._ADDR_ENTRY)
+    stream = torch.cuda.current_stream().cuda_stream
+    z = torch.full_like(x, 7.0)
+    off = torch.empty(x.numel() + 1, device=device)[1:]
+    p = cb.ln_fwd_plan(T, N, M, False, True)
+    scalar = cb.ln_fwd_plan(T, N, M, False, False)
+    assert p.tiles > 1 and scalar.tiles != p.tiles
+
+    def call(xp, m, vec, tiles, grid):
+        args = cb._packed(xp, mean.data_ptr(), rstd.data_ptr(),
+                          gamma.data_ptr(), beta.data_ptr(), z.data_ptr(), T,
+                          N, m, 0, vec, tiles, grid, 0, stream)
+        return entry(args.buffer_info()[0])
+
+    good = (x.data_ptr(), M, 1, p.tiles, p.grid)
+    for bad in ((off.data_ptr(),) + good[1:],        # x off the vectors
+                good[:1] + (M - 2,) + good[2:],      # M off the vectors
+                good[:3] + (p.tiles + 1, p.grid),
+                good[:3] + (scalar.tiles, scalar.grid),  # a value a thread
+                good[:4] + (p.grid + 1,),
+                good[:4] + (0,)):
+        assert call(*bad) != 0
+    torch.cuda.synchronize()
+    assert bool((z == 7.0).all())
+    assert call(*good) == 0
+    assert torch.equal(z, F.layer_norm_fwd(x, mean, rstd, gamma, beta))
+
+
+@pytest.mark.parametrize("dtype", list(K3_FREE_DTYPES))
+@pytest.mark.parametrize("shape", ACT_SHAPES, ids=str)
+def test_act_fwd_equals_its_twin(shape, dtype, device):
+    """``act_fwd`` equal to its twin bit for bit (zeros of both signs
+    included), one launch on its counter, a second launch bit for bit the
+    first."""
+    _, y = _act_inputs(*shape, K3_FREE_DTYPES[dtype], sum(shape) + 3)
+    _check_act_fwd(y)
+
+
+def _check_act_fwd(y):
+    tag = "_bf16" if y.dtype == torch.bfloat16 else ""
+    cb.reset_launches()
+    z = cb.act_fwd(y)
+    assert {k: n for k, n in cb.launches().items() if n} == {
+        "act_fwd" + tag: 1}
+    want = F.act_fwd(y)
+    assert z.dtype == want.dtype and z.shape == want.shape
+    assert torch.equal(z, want)
+    assert torch.equal(z.float().view(torch.int32),
+                       want.float().view(torch.int32))  # -0.0 kept
+    assert torch.equal(cb.act_fwd(y), z)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", list(K3_FREE_DTYPES))
+def test_act_fwd_takes_tensors_off_16_byte_alignment(dtype, device):
+    """y one element into its storage (one element a thread): equal to the
+    twin bit for bit."""
+    _, y = _act_inputs(2, 5, 7, 64, K3_FREE_DTYPES[dtype], 63)
+    buf = torch.empty(y.numel() + 1, device=device, dtype=y.dtype)
+    off = buf[1:].view(y.shape)
+    off.copy_(y)
+    assert off.data_ptr() % 16 != 0
+    _check_act_fwd(off)
+
+
+def test_act_fwd_rejects_and_its_entry_refuses_what_does_not_match(device):
+    """The wrapper: f16 ``TypeError``, a non-contiguous tensor
+    ``ValueError``, before any launch. The entry: a grid that does not
+    match n, or vectors off the pointers, launches nothing."""
+    from howtotrainyourmamlpytorch_tpu_torch.kernels import build
+
+    _, y = _act_inputs(2, 3, 4, 8, torch.float32, 81)
+    cb.reset_launches()
+    with pytest.raises(TypeError, match="^act_fwd: .*float32 or bfloat16"):
+        cb.act_fwd(y.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        cb.act_fwd(y.transpose(2, 3))
+    assert set(cb.launches().values()) == {0}
+    entry = build.function("act", "act_fwd", cb._ADDR_F_ENTRY)
+    stream = torch.cuda.current_stream().cuda_stream
+    z = torch.full_like(y, 7.0)
+    off = torch.empty(y.numel() + 1, device=device)[1:]
+    n = y.numel()
+    for yp, vec, blocks in ((off.data_ptr(), 1, cb.act_blocks(n, False, 1)),
+                            (y.data_ptr(), 1, cb.act_blocks(n, False, 0)),
+                            (y.data_ptr(), 0, cb.act_blocks(n, False, 1)),
+                            (y.data_ptr(), 1, 0)):
+        args = cb._packed(yp, z.data_ptr(), n, 0, vec, blocks, 0, stream)
+        assert entry(args.buffer_info()[0], F.LEAKY_SLOPE) != 0
+    torch.cuda.synchronize()
+    assert bool((z == 7.0).all())
+
+
+def test_no_act_fwd_or_ln_fwd_call_reaches_a_triton_kernel(device,
+                                                           monkeypatch):
+    """The Triton ``act_fwd`` and ``layer_norm_fwd`` are gone from
+    kernels/act_pool.py and kernels/layer_norm.py, and both wrappers run
+    with Triton's compile step made to fail, in f32 and bf16."""
+    from howtotrainyourmamlpytorch_tpu_torch.kernels import (
+        act_pool,
+        bn_act_pool,
+        layer_norm,
+    )
+
+    for gone in ("launch_fwd", "_act_fwd_kernel"):
+        assert not hasattr(act_pool, gone), gone
+    for gone in ("launch_fwd", "_fwd_kernel", "_bf16_chain"):
+        assert not hasattr(layer_norm, gone), gone
+
+    def no_triton():
+        raise AssertionError("an act_fwd or layer_norm_fwd call reached "
+                             "Triton")
+
+    for module in (act_pool, bn_act_pool, layer_norm):
+        monkeypatch.setattr(module, "_jit", no_triton)
+    for dtype in K3_FREE_DTYPES.values():
+        _check_act_fwd(_act_inputs(2, 3, 8, 64, dtype, 97)[1])
+        _check_ln_fwd(*_ln_fwd_inputs(2, 3, 8, 8, 48, dtype, 67))
