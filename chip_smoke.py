@@ -431,11 +431,12 @@ REPLACES.update({
 BF16_KERNELS = tuple(k for k in REPLACES if k != "episode_expand")
 REPLACES.update({f"{k}_bf16": REPLACES[k] for k in BF16_KERNELS})
 # K1 (both modes) and dgrad at stride 2 in both dtypes: the band kernels of
-# conv3x3_s2.cu; wgrad at stride 2 the tile of conv3x3_bwd.cu
+# conv3x3_s2.cu; wgrad at stride 2 in both dtypes conv3x3_wgrad_s2.cu (the
+# band kernel in f32, the tensor-core kernels in bf16)
 S2_SOURCE = ("cuda", "howtotrainyourmamlpytorch_tpu_torch/kernels/csrc/"
                      "conv3x3_s2.cu")
-BWD_TILE = ("cuda", "howtotrainyourmamlpytorch_tpu_torch/kernels/csrc/"
-                    "conv3x3_bwd.cu")
+S2_WGRAD_SOURCE = ("cuda", "howtotrainyourmamlpytorch_tpu_torch/kernels/"
+                           "csrc/conv3x3_wgrad_s2.cu")
 SOURCES = {
     "conv3x3_fwd_stats": (
         "cuda", "howtotrainyourmamlpytorch_tpu_torch/kernels/csrc/"
@@ -462,8 +463,8 @@ SOURCES = {
         "cuda", "howtotrainyourmamlpytorch_tpu_torch/kernels/csrc/"
                 "episode_expand.cu"),
 }
-# K5 pool-free, and K3 and K5 in bf16 pooled (the Triton kernels); K3
-# pool-free (bn_act_bwd, batch_norm_bwd) and act_bwd one CUDA launch a call
+# K5 pool-free, and K5 in bf16 pooled (the Triton kernels); K3 pool-free
+# (bn_act_bwd, batch_norm_bwd) and act_bwd one CUDA launch a call
 BN_TRITON = ("triton",
              "howtotrainyourmamlpytorch_tpu_torch/kernels/bn_act_pool.py")
 K3_FREE_SOURCE = ("cuda", "howtotrainyourmamlpytorch_tpu_torch/kernels/csrc/"
@@ -474,7 +475,7 @@ SOURCES.update({
     "conv3x3_s2_fwd_stats": S2_SOURCE,
     "conv3x3_s2_fwd": S2_SOURCE,
     "conv3x3_s2_dgrad": S2_SOURCE,
-    "conv3x3_s2_wgrad": BWD_TILE,
+    "conv3x3_s2_wgrad": S2_WGRAD_SOURCE,
     "bn_act_fwd": SOURCES["bn_act_pool_fwd"],
     "bn_act_bwd": K3_FREE_SOURCE,
     "bn_act_bwd_bwd": BN_TRITON,
@@ -505,20 +506,19 @@ SOURCES.update({
         "howtotrainyourmamlpytorch_tpu_torch/kernels/csrc/layer_norm.cu")
     for k in ("layer_norm_stats", "layer_norm_fwd", "layer_norm_bwd")})
 # the f32 convs at stride 1 (pad 1 and 0) run the band kernels; at stride 2
-# K1 and dgrad conv3x3_s2.cu, wgrad the tile; the bf16 convs the
-# tensor-core kernels (below) but the stride-2 wgrad, the tile
+# K1 and dgrad conv3x3_s2.cu, wgrad conv3x3_wgrad_s2.cu; the bf16 convs the
+# tensor-core kernels (below; at stride 2 those same two sources)
 SOURCES.update({f"conv3x3_p0_{k}": SOURCES[f"conv3x3_{k}"]
                 for k in ("fwd_stats", "dgrad", "wgrad", "fwd")})
 SOURCES.update({f"conv3x3_s2_p0_{k}": SOURCES[f"conv3x3_s2_{k}"]
                 for k in ("fwd_stats", "dgrad", "wgrad", "fwd")})
-# in bf16, K3 and K5 pooled run the Triton kernels (bn_act_pool.py), as
-# every pool-free K5 does; in f32, csrc/bn_act_pool_bwd.cu; K2 runs
-# csrc/bn_act_fwd.cu, the pool-free K3 csrc/bn_act_bwd.cu, act_fwd and
-# act_bwd csrc/act.cu and the layer norm but its double backward
-# csrc/layer_norm.cu in both dtypes
+# in bf16, K5 pooled runs the Triton kernels (bn_act_pool.py), as every
+# pool-free K5 does; K3 pooled csrc/bn_act_pool_bwd.cu in both dtypes (K5
+# pooled there in f32); K2 runs csrc/bn_act_fwd.cu, the pool-free K3
+# csrc/bn_act_bwd.cu, act_fwd and act_bwd csrc/act.cu and the layer norm
+# but its double backward csrc/layer_norm.cu in both dtypes
 SOURCES.update({f"{k}_bf16": SOURCES[k] for k in BF16_KERNELS})
-SOURCES.update({f"{k}_bf16": BN_TRITON
-                for k in ("bn_act_pool_bwd", "bn_act_pool_bwd_bwd")})
+SOURCES["bn_act_pool_bwd_bwd_bf16"] = BN_TRITON
 # K1 (both modes) and dgrad in bf16 at stride 1, pad 1 and 0: one
 # mma.sync implicit GEMM
 MMA_SOURCE = ("cuda", "howtotrainyourmamlpytorch_tpu_torch/kernels/csrc/"
@@ -740,6 +740,11 @@ MMA_STATS_DEVICE = (MMA_DEVICE, "bn_stats_merge_kernel")
 # the products, taps or packed; csrc/wgrad_reduce.cuh: the reduce of the
 # split partials)
 WGRAD_MMA_DEVICE = ("conv3x3_wgrad_mma", "conv3x3_wgrad_reduce")
+# K4 wgrad at stride 2 on the device (csrc/conv3x3_wgrad_s2.cu, both
+# dtypes: the band or tensor-core kernel, then the reduce)
+S2_WGRAD_DEVICE = ("conv3x3_s2_wgrad", "conv3x3_wgrad_reduce")
+# K3 pooled in bf16 on the device (csrc/bn_act_pool_bwd.cu)
+K3_BF16_DEVICE = "bn_act_pool_bwd_bf16_kernel"
 
 
 def _randn(gen):
@@ -1285,15 +1290,19 @@ def check_strided_kernels(cb, F, records, T=T_TENANTS, n=OMNIGLOT_IMAGES,
                 lambda: nn.grad.conv2d_input(xl.shape, wl, dyl, stride=2,
                                              padding=1, groups=T),
                 conv_flops, 4 * (dy.numel() + w.numel() + x.numel()))
-        err = _bn_errs("conv3x3_s2_wgrad", cb.conv3x3_wgrad(x, dy, 2),
-                       F.conv3x3_wgrad(x, dy, 2), ("dw", "db"), label)
+        got = cb.conv3x3_wgrad(x, dy, 2)
+        err = _bn_errs("conv3x3_s2_wgrad", got, F.conv3x3_wgrad(x, dy, 2),
+                       ("dw", "db"), label)
+        _same_bits("conv3x3_s2_wgrad", lambda: cb.conv3x3_wgrad(x, dy, 2),
+                   got)
         rec("conv3x3_s2_wgrad", label, err,
             lambda: cb.conv3x3_wgrad(x, dy, 2),
             lambda: F.conv3x3_wgrad(x, dy, 2),
             lambda: nn.grad.conv2d_weight(xl, wl.shape, dyl, stride=2,
                                           padding=1, groups=T),
             conv_flops + T * M * C,
-            4 * (x.numel() + dy.numel() + w.numel() + T * C))
+            4 * (x.numel() + dy.numel() + w.numel() + T * C),
+            device=S2_WGRAD_DEVICE)
         if layer == STRIDED_LAYERS[-1][0]:
             _check_gap(cb, F, records, randn, label, F.bn_act_fwd(*bn))
         del x, y, dy, a, db_, args, xl, dyl
@@ -1879,7 +1888,8 @@ def check_unpadded_kernels(cb, F, records, T=T_TENANTS, C=COUT):
                             xl, wl.shape, dyl, stride=s, padding=0,
                             groups=T),
                         conv_flops + T * M * C,
-                        4 * (x.numel() + dy.numel() + w.numel() + T * C))
+                        4 * (x.numel() + dy.numel() + w.numel() + T * C),
+                        device=S2_WGRAD_DEVICE if strided else None)
                     del dy, dyl
                 del x, xl
                 torch.cuda.empty_cache()
@@ -3547,19 +3557,8 @@ def check_bf16_kernels(cb, F, records, T=T_TENANTS, C=COUT):
                 del yl
                 continue
             dp = randn(*pooled.shape, scale=1.0 / math.sqrt(pooled.numel()))
-            args = (dp.to(bf), arg, y, mean, rstd, gamma, beta)
-            got = cb.bn_act_pool_bwd(*args)
-            want = F.bn_act_pool_bwd(*args)
-            # dy, dgamma and dbeta: f32 in both, each rounded once
-            err = max(within_ulp(f"bn_act_pool_bwd_bf16 {what}", a, c)
-                      for what, a, c in zip(("dy", "dgamma", "dbeta"),
-                                            got, want))
-            records.add(
-                "bn_act_pool_bwd_bf16", label, err,
-                lambda: cb.bn_act_pool_bwd(*args),
-                lambda: F.bn_act_pool_bwd(*args), None,
-                10 * y.numel() + 6 * pooled.numel(),
-                2 * (dp.numel() + 2 * y.numel() + 4 * T * C) + arg.numel())
+            _check_bf16_k3(cb, F, records, label, dp.to(bf), arg, y, mean,
+                           rstd, gamma, beta)
             # K4 takes a random dy: K3's sums to zero over each channel
             # (batch norm's backward), so its db would be rounding noise,
             # which no gate relative to the output can judge
@@ -3596,8 +3595,66 @@ def check_bf16_kernels(cb, F, records, T=T_TENANTS, C=COUT):
                 2 * T * M * 9 * cin * C + T * M * C,
                 2 * (x.numel() + dy.numel() + dw.numel() + db.numel()),
                 tensor_cores=True, device=WGRAD_MMA_DEVICE)
-            del x, y, pooled, pooled_p, dy, dyl, xl, got, want
+            del x, y, pooled, pooled_p, dy, dyl, xl, want
             torch.cuda.empty_cache()
+
+
+def _check_bf16_k3(cb, F, records, label, dp, arg, y, mean, rstd, gamma,
+                   beta):
+    """K3 pooled in bf16 (csrc/bn_act_pool_bwd.cu) on these inputs: dy,
+    dgamma and dbeta within one bf16 ulp of the twin (sums f32 in both,
+    each output rounded once), a second launch bit for bit the first,
+    timed beside the twin and the f32 kernel with its device time."""
+    args = (dp, arg, y, mean, rstd, gamma, beta)
+    got = cb.bn_act_pool_bwd(*args)
+    err = max(within_ulp(f"bn_act_pool_bwd_bf16 {what} @ {label}", a, c)
+              for what, a, c in zip(("dy", "dgamma", "dbeta"), got,
+                                    F.bn_act_pool_bwd(*args)))
+    _same_bits("bn_act_pool_bwd_bf16", lambda: cb.bn_act_pool_bwd(*args),
+               got)
+    args32 = tuple(t if t.dtype == torch.uint8 else t.float() for t in args)
+    T, C = y.shape[0], y.shape[-1]
+    records.add(
+        "bn_act_pool_bwd_bf16", label, err,
+        lambda: cb.bn_act_pool_bwd(*args),
+        lambda: F.bn_act_pool_bwd(*args), None,
+        10 * y.numel() + 6 * dp.numel(),
+        2 * (dp.numel() + 2 * y.numel() + 6 * T * C) + arg.numel(),
+        f32_fn=lambda: cb.bn_act_pool_bwd(*args32), device=K3_BF16_DEVICE)
+
+
+def check_bf16_k3_shapes(cb, F, records):
+    """Phase 9, K3 pooled in bf16 beyond the bf16 model's T = 8 stages
+    (``check_bf16_kernels``): at T = 2 (the training batch) at the four
+    mini-ImageNet stages, at the unpadded model's odd conv outputs
+    (82/39/17/6, T = 8; the pool drops the last row and column of 39 and
+    17) and at Omniglot's four layers (28/14/7/3, 64 channels, N = 20; the
+    pool drops a row and a column at 7 and 3). Inputs: a random bf16 conv
+    output, its bf16 statistics, K2's argmax of it, a random pooled
+    gradient."""
+    randn = _randn(torch.Generator(device="cuda").manual_seed(43))
+    bf = torch.bfloat16
+    cases = ([("bf16", 2, 25, hw, COUT, stage)
+              for stage, hw, _ in BF16_STAGES]
+             + [("bf16 unpadded", T_TENANTS, 25, hw, COUT, stage)
+                for stage, hw in (("stage0", 82), ("stage1", 39),
+                                  ("stage2", 17), ("stage3", 6))]
+             + [("bf16 omniglot", T_TENANTS, OMNIGLOT_IMAGES, hw,
+                 OMNIGLOT_COUT, layer)
+                for layer, hw in (("layer1", 28), ("layer2", 14),
+                                  ("layer3", 7), ("layer4", 3))])
+    for model, T, n, hw, C, where in cases:
+        label = f"{model} T={T} {where} N={n}"
+        y = (randn(T, n, hw, hw, C) + 0.3).to(bf)
+        mean, _, rstd = F.bn_stats(y)
+        gamma = (1.0 + randn(T, C, scale=0.1)).to(bf)
+        beta = randn(T, C, scale=0.1).to(bf)
+        pooled, arg = cb.bn_act_pool_fwd(y, mean, rstd, gamma, beta)
+        dp = randn(*pooled.shape, scale=1.0 / math.sqrt(pooled.numel()))
+        _check_bf16_k3(cb, F, records, label, dp.to(bf), arg, y, mean, rstd,
+                       gamma, beta)
+        del y, pooled, arg, dp
+        torch.cuda.empty_cache()
 
 
 def _bf16_conv_lib(x, w, b, T, cin, C, padding, stride=1):
@@ -3886,13 +3943,15 @@ def _bf16_conv_s2(cb, F, records, randn, label, x, w, b, padding):
     want = F.conv3x3_wgrad(x, dy, 2, padding)
     err = max(within_ulp(f"{name} dw", got[0], want[0]),
               within_ulp(f"{name} db", got[1], want[1]))
+    _same_bits(name, lambda: cb.conv3x3_wgrad(x, dy, 2, padding), got)
     rec(name, label, err, lambda: cb.conv3x3_wgrad(x, dy, 2, padding),
         lambda: F.conv3x3_wgrad(x, dy, 2, padding),
         lambda: nn.grad.conv2d_weight(xl, wl.shape, dyl, stride=2,
                                       padding=padding, groups=T),
         flops + T * M * C,
         2 * (x.numel() + dy.numel() + w.numel() + T * C), tensor_cores=True,
-        f32_fn=lambda: cb.conv3x3_wgrad(x32, dy32, 2, padding))
+        f32_fn=lambda: cb.conv3x3_wgrad(x32, dy32, 2, padding),
+        device=S2_WGRAD_DEVICE)
     return None
 
 
@@ -4991,6 +5050,7 @@ def main() -> int:
           "K2/K3/K5 pooled, K4; the pad-0 convs) at the mini-ImageNet "
           "stages, the Omniglot layers and the unpadded stages", flush=True)
     check_bf16_kernels(cb, F, records)
+    check_bf16_k3_shapes(cb, F, records)
     check_bf16_train_kernels(cb, F, records)
     bf16 = cfg.replace(compute_dtype="bfloat16")
     bf16_name = "mini-ImageNet 5-way 5-shot bf16"
@@ -5259,6 +5319,11 @@ def main() -> int:
     print_k1_rows(records, "K1", s2)
     print_k1_rows(records, "K4", tuple(
         f"conv3x3_s2{p}_dgrad{d}" for d in ("", "_bf16") for p in ("", "_p0")))
+    # K4 wgrad at stride 2 (csrc/conv3x3_wgrad_s2.cu), f32 and bf16, and K3
+    # pooled in bf16 (csrc/bn_act_pool_bwd.cu)
+    print_k1_rows(records, "K4", tuple(
+        f"conv3x3_s2{p}_wgrad{d}" for d in ("", "_bf16") for p in ("", "_p0")))
+    print_k1_rows(records, "K3", ("bn_act_pool_bwd_bf16",))
 
     kernels = []
     for k in all_kernels:

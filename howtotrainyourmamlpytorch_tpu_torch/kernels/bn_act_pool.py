@@ -1,36 +1,25 @@
-"""Triton kernels K3 and K5: the backward of batch-norm normalize + affine +
-leaky-ReLU + 2x2 max pool through the batch statistics, and the backward
-of that backward; and K5's pool-free mode, for the strided model
-(``max_pooling=False``). K3 and K5 pooled in f32 (every shipped config's)
-run the cooperative CUDA kernels of ``csrc/bn_act_pool_bwd.cu`` instead
-(``conv_block.bn_bwd_plan``); the pooled K3 and K5 here serve bf16, the
-pool-free K5 both dtypes. K3's pool-free mode is CUDA in both dtypes
-(``csrc/bn_act_bwd.cu``, ``conv_block.bn_act_bwd_plan``), as is their
-forward, K2, in both modes (``csrc/bn_act_fwd.cu``); both round as
-``_bf16_chain`` below (``csrc/bn_act_chain.cuh``).
+"""Triton kernels K5: the backward of K3 (the backward of batch-norm
+normalize + affine + leaky-ReLU + 2x2 max pool through the batch
+statistics), pooled in bf16 and pool-free in both dtypes (the strided
+model, ``max_pooling=False``, and at slope 1 the norm-first block's
+standalone ``batch_norm_bwd_bwd``). K3 pooled runs the cooperative CUDA
+kernel of ``csrc/bn_act_pool_bwd.cu`` in both dtypes and K5 pooled in f32
+runs it too (``conv_block.bn_bwd_plan``); K3's pool-free mode is CUDA in
+both dtypes (``csrc/bn_act_bwd.cu``, ``conv_block.bn_act_bwd_plan``), as
+is their forward, K2, in both modes (``csrc/bn_act_fwd.cu``); all round
+their masks as ``_bf16_chain`` below (``csrc/bn_act_chain.cuh``).
 
 Replace (JAX package) ``howtotrainyourmamlpytorch_tpu/ops/functional.py``:
-the gradient XLA derives for the normalize/affine tail of ``batch_norm``
-:368 inside ``conv_bn_act`` :249, ``leaky_relu`` and ``max_pool2d`` :325
-(VALID; a trailing odd row or column is dropped).
-
-Bound on an H100: bytes. The backward reads the pooled gradient, the
-argmax and y, and writes dy once (K3b), after a reduction pass (K3a) over
-the POOLED positions only (every other position has dz = 0) — a handful
-of FLOPs per element, no tensor-core work. Triton's masked block loads
-handle the ragged 21 -> 10 edge.
-
-K3a writes per-(tenant, split) partial sums, which K3b adds in a fixed
-order: deterministic, no atomics.
-
-K5 (``bn_act_pool_bwd_bwd``) replaces the second derivative XLA derives for
-the same ops when the JAX package differentiates its inner-loop gradient
-(second-order MAML, ``core/maml.py::_task_learner``). Given the cotangents
-``a`` of K3's dy and ``ggamma``/``gbeta`` of its dgamma/dbeta, it returns
-the gradients with respect to K3's inputs dpooled, y and gamma (beta enters
-only through the piecewise-constant masks, so its gradient is 0). With
-``P(v) = v - mean(v) - xhat * mean(v * xhat)`` (K3's projection), per
-(tenant, channel) over m = N*H*W positions::
+the second derivative XLA derives for the normalize/affine tail of
+``batch_norm`` :368 inside ``conv_bn_act`` :249, ``leaky_relu`` and
+``max_pool2d`` :325 (VALID; a trailing odd row or column is dropped), when
+the JAX package differentiates its inner-loop gradient (second-order MAML,
+``core/maml.py::_task_learner``). Given the cotangents ``a`` of K3's dy
+and ``ggamma``/``gbeta`` of its dgamma/dbeta, K5 returns the gradients
+with respect to K3's inputs dpooled, y and gamma (beta enters only through
+the piecewise-constant masks, so its gradient is 0). With ``P(v) = v -
+mean(v) - xhat * mean(v * xhat)`` (K3's projection), per (tenant, channel)
+over m = N*H*W positions::
 
     g_dz      = gamma * r * P(a) + ggamma * xhat + gbeta
     g_dpooled = g_dz, slope-masked, gathered at each window's argmax
@@ -40,12 +29,13 @@ only through the piecewise-constant masks, so its gradient is 0). With
     L_r       = gamma * (S_adz - m * mean(a) mean(dz) - m * mean(a xhat) mean(dz xhat))
 
 with ``r = rstd``; ``mean(G)`` and ``mean(G xhat)`` follow from the same
-five sums, Σa, Σa·xhat, Σdz, Σdz·xhat and Σa·dz. Bound: bytes, like K3 —
-K5a reads a, y and the pooled dpooled/argmax once and writes 5 partial sums
-per split; K5b reads them again and writes g_y densely and g_dpooled at the
-pooled positions only (each pooled element by the one thread that sits on
-its argmax), plus g_gamma (program 0 of each tenant). Two launches,
-partial sums in a fixed order, no atomics.
+five sums, Σa, Σa·xhat, Σdz, Σdz·xhat and Σa·dz. Bound on an H100: bytes
+(a handful of FLOPs per element, no tensor-core work) — K5a reads a, y and
+the pooled dpooled/argmax once and writes 5 partial sums per split; K5b
+reads them again and writes g_y densely and g_dpooled at the pooled
+positions only (each pooled element by the one thread that sits on its
+argmax), plus g_gamma (program 0 of each tenant). Two launches, partial
+sums in a fixed order, no atomics: deterministic.
 
 K5's pool-free mode (``bn_act_bwd_bwd``: sibling kernels, so the pooled
 ones stay as they were) is the same arithmetic with no window: K5a
@@ -56,15 +46,12 @@ maps (7x7, 4x4 and 2x2 at Omniglot's width); the partial sums keep their
 fixed order.
 
 bf16 (``compute_dtype='bfloat16'``): every kernel here takes a ``BF16``
-constexpr (the f32 instantiations are unchanged). K3 takes its leaky-ReLU
-masks from K2's bf16 chain (``_bf16_chain``: bf16 after every op of the
-JAX package's chain — ``y - mean``, ``* rstd``, ``* gamma``, ``+ beta``,
-then ``z * slope`` on the negative side, the slope the bf16 value of 0.01
-— so the masks are K2's decisions), xhat in f32 from the bf16 inputs, its
-per-channel sums in f32, and stores dy rounded once to bf16. Bound: bytes,
-half of f32's. K5 pooled (second-order training) loads bf16 a, y,
-statistics, gamma, beta, pooled gradient and cotangents, takes its masks
-from the same chain (a mask decided on the f32 ``xhat * gamma + beta``
+constexpr (the f32 instantiations are unchanged). K5 pooled (second-order
+training) loads bf16 a, y, statistics, gamma, beta, pooled gradient and
+cotangents, takes its masks from K2's bf16 chain (``_bf16_chain``: bf16
+after every op of the JAX package's chain — ``y - mean``, ``* rstd``, ``*
+gamma``, ``+ beta``, then ``z * slope`` on the negative side, the slope the
+bf16 value of 0.01; a mask decided on the f32 ``xhat * gamma + beta``
 would flip wherever the chain rounds across zero), keeps xhat and its
 five partial sums in f32, and rounds ``g_dpooled``, ``g_y`` and
 ``g_gamma`` once each to bf16, as its twin does. The pool-free K5 (the
@@ -86,7 +73,7 @@ tl = None  # bound to ``triton.language`` by ``_jit()`` at the first launch
 
 BLOCK_P = 64   # pixels per program
 BLOCK_C = 64   # channels per program (power of two >= C; C = 48 here)
-SPLITS = 32    # K3a programs per tenant
+SPLITS = 32    # K5a programs per tenant
 
 
 def _rne_bf16(x):
@@ -108,105 +95,6 @@ def _bf16_chain(v, mu, rs, g, b, slope):
     z = _rne_bf16(z * g)
     z = _rne_bf16(z + b)
     return z, tl.where(z >= 0, z, _rne_bf16(z * slope))
-
-
-def _bn_act_pool_bwd_reduce_kernel(dp_ptr, arg_ptr, y_ptr, mean_ptr,
-                                   rstd_ptr, gamma_ptr, beta_ptr, part_ptr,
-                                   PT, HoWo, Wo, H, W, C, S, CHUNK, slope,
-                                   BLOCK_P: "tl.constexpr",
-                                   BLOCK_C: "tl.constexpr",
-                                   BF16: "tl.constexpr"):
-    t = tl.program_id(0)
-    s = tl.program_id(1)
-    c = tl.arange(0, BLOCK_C)
-    cmask = c < C
-    mu = tl.load(mean_ptr + t * C + c, mask=cmask,
-                 other=0.0).to(tl.float32)[None, :]
-    rs = tl.load(rstd_ptr + t * C + c, mask=cmask,
-                 other=0.0).to(tl.float32)[None, :]
-    g = tl.load(gamma_ptr + t * C + c, mask=cmask,
-                other=0.0).to(tl.float32)[None, :]
-    b = tl.load(beta_ptr + t * C + c, mask=cmask,
-                other=0.0).to(tl.float32)[None, :]
-    acc_dz = tl.zeros([BLOCK_P, BLOCK_C], tl.float32)
-    acc_dzx = tl.zeros([BLOCK_P, BLOCK_C], tl.float32)
-    start = s * CHUNK
-    end = tl.minimum(start + CHUNK, PT)
-    for i in range(start, end, BLOCK_P):
-        q = i + tl.arange(0, BLOCK_P)
-        mask = (q < end)[:, None] & cmask[None, :]
-        p = t.to(tl.int64) * PT + q
-        img = p // HoWo
-        r = p % HoWo
-        ho = r // Wo
-        wo = r % Wo
-        poff = p[:, None] * C + c[None, :]
-        k = tl.load(arg_ptr + poff, mask=mask, other=0).to(tl.int32)
-        yoff = ((img[:, None] * H + 2 * ho[:, None] + k // 2) * W
-                + 2 * wo[:, None] + k % 2) * C + c[None, :]
-        v = tl.load(y_ptr + yoff, mask=mask, other=0.0).to(tl.float32)
-        xh = (v - mu) * rs
-        if BF16:
-            z, _ = _bf16_chain(v, mu, rs, g, b, slope)
-        else:
-            z = xh * g + b
-        d = tl.load(dp_ptr + poff, mask=mask, other=0.0).to(tl.float32)
-        dz = tl.where(z >= 0, d, d * slope)
-        dz = tl.where(mask, dz, 0.0)
-        acc_dz += dz
-        acc_dzx += dz * xh
-    base = (t * S + s) * 2 * C
-    tl.store(part_ptr + base + c, tl.sum(acc_dz, axis=0), mask=cmask)
-    tl.store(part_ptr + base + C + c, tl.sum(acc_dzx, axis=0), mask=cmask)
-
-
-def _bn_act_pool_bwd_dy_kernel(dp_ptr, arg_ptr, y_ptr, mean_ptr, rstd_ptr,
-                               gamma_ptr, beta_ptr, part_ptr, dy_ptr, NHW,
-                               HW, Ho, Wo, W, C, S, inv_m, slope,
-                               BLOCK_P: "tl.constexpr",
-                               BLOCK_C: "tl.constexpr",
-                               BF16: "tl.constexpr"):
-    t = tl.program_id(1)
-    q = tl.program_id(0) * BLOCK_P + tl.arange(0, BLOCK_P)
-    c = tl.arange(0, BLOCK_C)
-    cmask = c < C
-    mask = (q < NHW)[:, None] & cmask[None, :]
-    sum_dz = tl.zeros([BLOCK_C], tl.float32)
-    sum_dzx = tl.zeros([BLOCK_C], tl.float32)
-    for s in range(S):
-        base = (t * S + s) * 2 * C
-        sum_dz += tl.load(part_ptr + base + c, mask=cmask, other=0.0)
-        sum_dzx += tl.load(part_ptr + base + C + c, mask=cmask, other=0.0)
-    mu = tl.load(mean_ptr + t * C + c, mask=cmask, other=0.0).to(tl.float32)
-    rs = tl.load(rstd_ptr + t * C + c, mask=cmask, other=0.0).to(tl.float32)
-    g = tl.load(gamma_ptr + t * C + c, mask=cmask, other=0.0).to(tl.float32)
-    b = tl.load(beta_ptr + t * C + c, mask=cmask, other=0.0).to(tl.float32)
-    pos = t.to(tl.int64) * NHW + q
-    img = pos // HW
-    r = q % HW
-    h = r // W
-    w = r % W
-    ho = h // 2
-    wo = w // 2
-    in_window = (ho < Ho) & (wo < Wo)
-    pidx = (img * Ho + ho) * Wo + wo
-    pmask = mask & in_window[:, None]
-    poff = pidx[:, None] * C + c[None, :]
-    k = tl.load(arg_ptr + poff, mask=pmask, other=255).to(tl.int32)
-    sel = pmask & (k == ((h % 2) * 2 + (w % 2))[:, None])
-    d = tl.load(dp_ptr + poff, mask=sel, other=0.0).to(tl.float32)
-    yoff = pos[:, None] * C + c[None, :]
-    v = tl.load(y_ptr + yoff, mask=mask, other=0.0).to(tl.float32)
-    xh = (v - mu[None, :]) * rs[None, :]
-    if BF16:
-        z, _ = _bf16_chain(v, mu[None, :], rs[None, :], g[None, :],
-                           b[None, :], slope)
-    else:
-        z = xh * g[None, :] + b[None, :]
-    dz = tl.where(z >= 0, d, d * slope)
-    dy = (g * rs)[None, :] * (dz - (sum_dz * inv_m)[None, :]
-                              - xh * (sum_dzx * inv_m)[None, :])
-    tl.store(dy_ptr + yoff, dy.to(dy_ptr.dtype.element_ty), mask=mask)
 
 
 def _bn_act_pool_bwd_bwd_reduce_kernel(a_ptr, dp_ptr, arg_ptr, y_ptr,
@@ -482,8 +370,6 @@ def _jit() -> SimpleNamespace:
     _bf16_chain = triton.jit(_bf16_chain)
     return SimpleNamespace(
         rne_bf16=_rne_bf16,
-        bwd_reduce=triton.jit(_bn_act_pool_bwd_reduce_kernel),
-        bwd_dy=triton.jit(_bn_act_pool_bwd_dy_kernel),
         bwd_bwd_reduce=triton.jit(_bn_act_pool_bwd_bwd_reduce_kernel),
         bwd_bwd_out=triton.jit(_bn_act_pool_bwd_bwd_out_kernel),
         act_bwd_bwd_reduce=triton.jit(_bn_act_bwd_bwd_reduce_kernel),
@@ -498,36 +384,6 @@ def _cdiv(a: int, b: int) -> int:
 def is_bf16(t) -> bool:
     """Whether ``t`` is bf16: the ``BF16`` constexpr of a launch."""
     return str(t.dtype) == "torch.bfloat16"
-
-
-def launch_bwd(dpooled, arg, y, mean, rstd, gamma, beta, part, dy,
-               slope: float) -> None:
-    """K3a then K3b on validated contiguous CUDA tensors, all bf16 (the
-    wrapper's route; f32 takes csrc/bn_act_pool_bwd.cu) or all f32 but
-    the f32 ``part``, ``(T, SPLITS, 2, C)`` scratch that K3a fills
-    with the partial ``sum(dz)`` and ``sum(dz * xhat)`` (see
-    ``conv_block.bn_act_pool_bwd``)."""
-    T, N, H, W, C = y.shape
-    Ho, Wo = H // 2, W // 2
-    PT = N * Ho * Wo
-    if C > BLOCK_C:
-        raise NotImplementedError(
-            f"bn_act_pool_bwd takes at most {BLOCK_C} channels, got {C}"
-        )
-    chunk = _cdiv(_cdiv(PT, SPLITS), BLOCK_P) * BLOCK_P
-    kern = _jit()
-    bf16 = is_bf16(y)
-    kern.bwd_reduce[(T, SPLITS)](
-        dpooled, arg, y, mean, rstd, gamma, beta, part, PT, Ho * Wo, Wo, H,
-        W, C, SPLITS, chunk, slope, BLOCK_P=BLOCK_P, BLOCK_C=BLOCK_C,
-        BF16=bf16,
-    )
-    NHW = N * H * W
-    kern.bwd_dy[(_cdiv(NHW, BLOCK_P), T)](
-        dpooled, arg, y, mean, rstd, gamma, beta, part, dy, NHW, H * W, Ho,
-        Wo, W, C, SPLITS, 1.0 / NHW, slope, BLOCK_P=BLOCK_P, BLOCK_C=BLOCK_C,
-        BF16=bf16,
-    )
 
 
 def launch_bwd_bwd(a, ggamma, gbeta, dpooled, arg, y, mean, rstd, gamma,

@@ -19,7 +19,7 @@ kernel                      route   source                    launches/call
 ``bn_act_pool_bwd_bwd``     CUDA    csrc/bn_act_pool_bwd.cu   1 (cooperative)
 ``conv3x3_s2_*``            CUDA    K1, dgrad: csrc/          as at stride 1
                                     conv3x3_s2.cu; wgrad:
-                                    csrc/conv3x3_bwd.cu
+                                    csrc/conv3x3_wgrad_s2.cu
 ``conv3x3_p0_*``            CUDA    the same sources          as at pad 1
 ``conv3x3_s2_p0_*``         CUDA    the same sources          as at pad 1
 ``bn_act_fwd``              CUDA    csrc/bn_act_fwd.cu        1 (pool-free)
@@ -45,15 +45,18 @@ kernel                      route   source                    launches/call
 ``layer_norm_fwd``          CUDA    csrc/layer_norm.cu        1
 ``layer_norm_bwd``          CUDA    csrc/layer_norm.cu        1 (cooperative)
 ``layer_norm_bwd_bwd``      Triton  layer_norm.py             reduce + sums + out: 3
-``*_bf16``                  as f32  K1, dgrad at stride 1:    as in f32; K3, K5
-                                    csrc/conv3x3_s1_bf16.cu;  pooled 2 each
+``*_bf16``                  as f32  K1, dgrad at stride 1:    as in f32; K5
+                                    csrc/conv3x3_s1_bf16.cu;  pooled 2
                                     wgrad at stride 1: csrc/
                                     conv3x3_wgrad_s1_bf16.cu;
                                     K1, dgrad at stride 2:
                                     conv3x3_s2.cu; wgrad at
-                                    stride 2: bwd.cu;
+                                    stride 2:
+                                    conv3x3_wgrad_s2.cu;
                                     K2: bn_act_fwd.cu;
-                                    K3, K5 pooled:
+                                    K3 pooled:
+                                    bn_act_pool_bwd.cu;
+                                    K5 pooled: Triton
                                     bn_act_pool.py
 ==========================  ======  ========================  ==================
 
@@ -66,16 +69,18 @@ bf16 (``mma.sync``, f32 sums): at stride 1 the band kernels of
 odd column planes, dgrad by the four parity classes of
 ``s2_dgrad_taps``, each with only its live taps). K4 wgrad runs the f32
 band kernel of ``csrc/conv3x3_bwd_s1.cu`` and the bf16 tensor-core kernel
-of ``csrc/conv3x3_wgrad_s1_bf16.cu`` at stride 1, and the tile kernel of
-``csrc/conv3x3_bwd.cu`` at stride 2. ``fwd_plan``, ``dgrad_plan`` (through
-``mma_plan`` in bf16 at stride 1, ``s2_mma_plan`` in bf16 at stride 2)
-and ``wgrad_plan`` give each launch (grid, bands, splits, shared memory,
-scratch) as a pure function of the shape.
-K3 and K5 pooled in f32 run the cooperative kernels of
-``csrc/bn_act_pool_bwd.cu`` (reduce, grid barrier, merge, barrier, apply
-in one launch, on the grid ``bn_bwd_plan`` sizes from the occupancy
-query); in bf16, and K5 pool-free, the Triton kernels of
-``bn_act_pool.py`` (a reduce and an apply launch). K3 pool-free runs
+of ``csrc/conv3x3_wgrad_s1_bf16.cu`` at stride 1, and the same two designs
+at stride 2 in ``csrc/conv3x3_wgrad_s2.cu`` (the source's pixel stride
+doubled; in bf16 the source rows as even and odd column planes), each
+then its reduce. ``fwd_plan``, ``dgrad_plan`` (through ``mma_plan`` in
+bf16 at stride 1, ``s2_mma_plan`` in bf16 at stride 2) and ``wgrad_plan``
+give each launch (grid, bands, splits, shared memory, scratch) as a pure
+function of the shape.
+K3 pooled in both dtypes and K5 pooled in f32 run the cooperative
+kernels of ``csrc/bn_act_pool_bwd.cu`` (reduce, grid barrier, merge,
+barrier, apply in one launch, on the grid ``bn_bwd_plan`` sizes from the
+occupancy query); K5 pooled in bf16, and K5 pool-free, the Triton kernels
+of ``bn_act_pool.py`` (a reduce and an apply launch). K3 pool-free runs
 ``csrc/bn_act_bwd.cu`` in both dtypes, one launch a call
 (``bn_act_bwd_plan``: ``bn_input_stats``' units and routes, a block a
 tenant at the small maps, else one cooperative launch, whose blocks keep
@@ -114,8 +119,8 @@ CPU, and for a CUDA tensor launches its kernel or raises: it checks
 device, dtype, shape, stride and contiguity, launches on the current
 stream, allocates outputs and scratch with ``torch.empty`` and adds one to
 its counter per call that launched. The f32 kernels multiply on FFMA
-only (no TF32); the bf16 convs but the stride-2 wgrad multiply bf16 on the
-tensor cores and sum in f32, as XLA's bf16 conv does.
+only (no TF32); the bf16 convs multiply bf16 on the tensor cores and sum
+in f32, as XLA's bf16 conv does.
 
 bf16 (``compute_dtype='bfloat16'``): every kernel of every model, served
 and trained second order — K1 with statistics and stats-free, K2, K3 and
@@ -270,9 +275,10 @@ WGRAD_MMA_PACKED_WARPS = 8
 WGRAD_MMA_TILES = 18
 WGRAD_MMA_MAX_MT = 4
 WGRAD_MMA_ONE_BLOCK_TILES = 16
-#: the bands a wgrad mma block walks at most where the splits' partials
-#: would otherwise outweigh x and dy (the small maps: a band there is a few
-#: k16 steps, and a longer walk is a chain of staging latencies)
+#: the bands a wgrad mma block (and an f32 stride-2 band block) walks at
+#: most where the splits' partials would otherwise outweigh x and dy (the
+#: small maps: a band there is a few k16 steps, and a longer walk is a
+#: chain of staging latencies)
 WGRAD_MMA_BANDS = 4
 #: the K1 band kernels (csrc/conv3x3_fwd_s1.cu, f32 at stride 1): most
 #: threads a block (8 warps: two blocks a SM within 128 registers a
@@ -303,13 +309,15 @@ WGRAD_BAND_PIXELS = 128
 #: that many bands)
 BAND_BLOCKS_PER_SM = 2
 
-#: K3 and K5 in f32, pooled (csrc/bn_act_pool_bwd.cu, one cooperative
-#: launch a call): a block's threads (``kThreads`` there), the most
-#: channels they take (the Triton kernels' ``BLOCK_C``), and the partial
-#: sums a (tenant, channel) of each
+#: K3 pooled in both dtypes and K5 pooled in f32 (csrc/bn_act_pool_bwd.cu,
+#: one cooperative launch a call): a block's threads (``kThreads`` there),
+#: the most channels they take (the Triton kernels' ``BLOCK_C``), the
+#: partial sums a (tenant, channel) of each, and the channels a thread's
+#: group by dtype (bf16 or not: one 16-byte load, ``kV16`` in bf16)
 BN_BWD_THREADS = 256
 BN_BWD_MAX_C = 64
 BN_BWD_SUMS = {"bn_act_pool_bwd": 2, "bn_act_pool_bwd_bwd": 5}
+BN_BWD_GROUP = {False: 4, True: 8}
 #: K2 in both modes and dtypes (csrc/bn_act_fwd.cu): a block's threads
 #: (``kThreads`` there) and the most channels it takes
 BN_FWD_THREADS = 256
@@ -458,8 +466,9 @@ def _check_flat(name: str, x: Tensor) -> Tuple[int, int, int, int, int]:
 #: csrc/bn_input_stats.cu take their arguments packed as 64-bit integers,
 #: in one ctypes argument (a call's host time counts at the small maps),
 #: and one float; those of csrc/global_avg_pool.cu the packed integers
-#: alone; csrc/act.cu's, csrc/bn_act_bwd.cu's and ``layer_norm_fwd`` the
-#: packed integers by address (``_packed``) and none, one or two floats
+#: alone; csrc/act.cu's, csrc/bn_act_bwd.cu's, ``layer_norm_fwd`` and the
+#: four wgrad kernels' the packed integers by address (``_packed``) and
+#: none, one or two floats
 _PACKED_EPS_ENTRY = (ctypes.POINTER(ctypes.c_longlong), _F)
 _PACKED_ENTRY = (ctypes.POINTER(ctypes.c_longlong),)
 _ADDR_ENTRY = (_P,)
@@ -1113,12 +1122,12 @@ def bn_act_fwd(y: Tensor, mean: Tensor, rstd: Tensor, gamma: Tensor,
 
 class BnBwdPlan(NamedTuple):
     """The launch of K3 or K5 pooled at one shape: ``kernel`` ``"cuda"``
-    (f32, csrc/bn_act_pool_bwd.cu) or ``"triton"`` (bf16:
-    kernels/bn_act_pool.py, on its own grid; the other fields 0). A CUDA
-    block of ``threads`` takes ``slots`` windows at a time x ``groups``
-    groups of 4 channels, ``chunk`` consecutive windows of one tenant in
-    all; ``grid`` is (blocks a tenant, T); a tenant has ``windows``
-    windows."""
+    (csrc/bn_act_pool_bwd.cu: K3 in both dtypes, K5 in f32) or
+    ``"triton"`` (K5 in bf16: kernels/bn_act_pool.py, on its own grid; the
+    other fields 0). A CUDA block of ``threads`` takes ``slots`` windows at
+    a time x ``groups`` groups of one 16-byte load of channels (4 f32 or 8
+    bf16), ``chunk`` consecutive windows of one tenant in all; ``grid`` is
+    (blocks a tenant, T); a tenant has ``windows`` windows."""
 
     kernel: str
     grid: Tuple[int, int]
@@ -1129,28 +1138,31 @@ class BnBwdPlan(NamedTuple):
     windows: int
 
 
+#: the bf16 K5 pooled's plan: the Triton kernels, on their own grid
+_BN_BWD_TRITON = BnBwdPlan("triton", (0, 0), 0, 0, 0, 0, 0)
+
+
 @functools.lru_cache(maxsize=None)
 def bn_bwd_plan(T: int, N: int, H: int, W: int, C: int, sms: int = 132,
                 blocks_per_sm: int = 2, bf16: bool = False) -> BnBwdPlan:
-    """K3's and K5's launch for y ``(T, N, H, W, C)`` on a card of ``sms``
-    SMs that holds ``blocks_per_sm`` of their blocks at once (the
-    occupancy query). A pure function of the shape: the wrappers call it,
-    and so do the CPU tests.
+    """The CUDA K3's (both dtypes) and K5's (f32) launch for y ``(T, N, H,
+    W, C)`` on a card of ``sms`` SMs that holds ``blocks_per_sm`` of their
+    blocks at once (the occupancy query). A pure function of the shape and
+    the dtype: the wrappers call it, and so do the CPU tests.
 
-    f32 pooled, the CUDA kernels: each tenant's map in windows of 2 x 2
-    positions (an odd map's last row or column in windows of one row or
-    column), ceil(H / 2) x ceil(W / 2) an image; a block ``BN_BWD_THREADS``
-    threads, ``slots`` = threads // groups windows at a time; each
-    tenant's windows over as many blocks as the card holds at once (but no
-    block without a window for each of its slots), in chunks of whole
-    ``slots`` windows; no chunk spans two tenants. Raises where the card
-    cannot hold a block a tenant at once (the cooperative launch needs
-    every block resident). bf16: the Triton kernels, on their own grid.
-    The pool-free modes have wrappers of their own: K3 (``bn_act_bwd``,
+    Each tenant's map in windows of 2 x 2 positions (an odd map's last row
+    or column in windows of one row or column), ceil(H / 2) x ceil(W / 2)
+    an image; a block ``BN_BWD_THREADS`` threads, a thread a group of
+    ``BN_BWD_GROUP[bf16]`` channels (one 16-byte load: 4 f32 or 8 bf16),
+    ``slots`` = threads // groups windows at a time; each tenant's windows
+    over as many blocks as the card holds at once (but no block without a
+    window for each of its slots), in chunks of whole ``slots`` windows; no
+    chunk spans two tenants. Raises where the card cannot hold a block a
+    tenant at once (the cooperative launch needs every block resident).
+    The bf16 K5 takes the Triton kernels (``_bn_bwd_route``); the pool-free
+    modes have wrappers of their own: K3 (``bn_act_bwd``,
     ``batch_norm_bwd``) on csrc/bn_act_bwd.cu (``bn_act_bwd_plan``), K5
     (``bn_act_bwd_bwd``, ``batch_norm_bwd_bwd``) on the Triton kernels."""
-    if bf16:
-        return BnBwdPlan("triton", (0, 0), 0, 0, 0, 0, 0)
     if min(T, N, C) < 1 or H < 2 or W < 2 or C > BN_BWD_MAX_C:
         raise ValueError(f"bn_bwd_plan: no pooled K3/K5 of a (T={T}, N={N}, "
                          f"{H}x{W}, C={C}) map")
@@ -1158,7 +1170,7 @@ def bn_bwd_plan(T: int, N: int, H: int, W: int, C: int, sms: int = 132,
     if T > resident:
         raise ValueError(f"bn_bwd_plan: {T} tenants need a block each at "
                          f"once; the card holds {resident}")
-    groups = _cdiv(C, 4)
+    groups = _cdiv(C, BN_BWD_GROUP[bf16])
     slots = BN_BWD_THREADS // groups
     windows = N * _cdiv(H, 2) * _cdiv(W, 2)
     blocks = min(resident // T, _cdiv(windows, slots))
@@ -1167,76 +1179,89 @@ def bn_bwd_plan(T: int, N: int, H: int, W: int, C: int, sms: int = 132,
                      groups, slots, chunk, windows)
 
 
-def _bn_bwd_vec(C: int, ptrs) -> bool:
+def _bn_bwd_vec(C: int, ptrs, bf16: bool = False) -> bool:
     """The CUDA K3/K5's 16-byte loads, for the pointers ``ptrs`` of their
-    input tensors (the uint8 argmax sixth from the end): C % 4 == 0, every
-    f32 tensor 16-byte aligned, the argmax 4-byte; else a float at a
-    time."""
+    input tensors (the uint8 argmax sixth from the end): C a whole number
+    of loads (4 f32, 8 bf16), every f32 or bf16 tensor 16-byte aligned,
+    the argmax 4-byte (f32) or 8-byte (bf16); else a value at a time."""
     arg = len(ptrs) - 6
-    return C % 4 == 0 and ptrs[arg] % 4 == 0 and all(
+    group = BN_BWD_GROUP[bf16]
+    return C % group == 0 and ptrs[arg] % group == 0 and all(
         p % 16 == 0 for i, p in enumerate(ptrs) if i != arg)
 
 
 @functools.lru_cache(maxsize=None)
-def _bn_bwd_blocks_per_sm(device, sums: int, vec: bool) -> int:
-    """The occupancy query of the cooperative K3 (2 sums) or K5 (5)."""
+def _bn_bwd_blocks_per_sm(device, sums: int, vec: bool,
+                          bf16: bool = False) -> int:
+    """The occupancy query of the cooperative K3 (2 sums; f32 or bf16) or
+    K5 (5; f32)."""
     fn = build.function("bn_act_pool_bwd", "bn_act_pool_bwd_blocks_per_sm",
-                        (_I, _I, ctypes.POINTER(ctypes.c_int)))
+                        (_I, _I, _I, ctypes.POINTER(ctypes.c_int)))
     out = ctypes.c_int(0)
     with _device(device):
-        rc = fn(sums, int(vec), ctypes.byref(out))
+        rc = fn(sums, int(vec), int(bf16), ctypes.byref(out))
     build.check(rc, "bn_act_pool_bwd_blocks_per_sm")
     return out.value
 
 
 def _bn_bwd_route(name: str, y: Tensor, vec: bool) -> BnBwdPlan:
-    """``bn_bwd_plan`` of K3 (``name`` ``bn_act_pool_bwd``) or K5 at y's
-    shape and dtype on y's card; bf16 asks no occupancy."""
+    """The plan of K3 (``name`` ``bn_act_pool_bwd``) or K5 at y's shape
+    and dtype on y's card: ``bn_bwd_plan`` for the CUDA kernels (K3 in
+    both dtypes, K5 in f32), the Triton plan for K5 in bf16 (which asks no
+    occupancy)."""
     T, N, H, W, C = y.shape
-    if y.dtype == torch.bfloat16:
-        return bn_bwd_plan(T, N, H, W, C, bf16=True)
+    bf16 = y.dtype == torch.bfloat16
+    if bf16 and name != "bn_act_pool_bwd":
+        return _BN_BWD_TRITON
     return bn_bwd_plan(T, N, H, W, C, _sms(y.device),
                        _bn_bwd_blocks_per_sm(y.device, BN_BWD_SUMS[name],
-                                             vec))
+                                             vec, bf16), bf16)
 
 
+#: the CUDA entries of K3 and K5 by (name, bf16): function, argument types
+_K3_ARGS = (_P,) * 12 + (_I,) * 10 + (_F, _F, _P)
 _BN_BWD_ENTRIES = {
-    "bn_act_pool_bwd": ("bn_act_pool_bwd_f32",
-                        (_P,) * 12 + (_I,) * 10 + (_F, _F, _P)),
-    "bn_act_pool_bwd_bwd": ("bn_act_pool_bwd_bwd_f32",
-                            (_P,) * 15 + (_I,) * 10 + (_F, _F, _P)),
+    ("bn_act_pool_bwd", False): ("bn_act_pool_bwd_f32", _K3_ARGS),
+    ("bn_act_pool_bwd", True): ("bn_act_pool_bwd_bf16", _K3_ARGS),
+    ("bn_act_pool_bwd_bwd", False): ("bn_act_pool_bwd_bwd_f32",
+                                     (_P,) * 15 + (_I,) * 10 + (_F, _F, _P)),
 }
 
 
 def _bn_bwd_cuda(name: str, plan: BnBwdPlan, vec: bool, tensors, ptrs,
                  slope: float) -> Tuple[Tensor, Tensor, Tensor]:
-    """The f32 CUDA K3 (``name`` ``bn_act_pool_bwd``: ``tensors`` dpooled,
-    argmax, y, mean, rstd, gamma, beta; returns dy, dgamma, dbeta) or K5
-    (``bn_act_pool_bwd_bwd``: a, ggamma, gbeta and K3's; returns
-    g_dpooled, g_y, g_gamma) on validated tensors at ``ptrs``, launched by
-    ``plan``. The (T, C) outputs and the f32 scratch (the blocks' partial
-    sums, the merged sums) share one allocation: a call's host time
-    counts at the small maps."""
+    """The CUDA K3 (``name`` ``bn_act_pool_bwd``, f32 or bf16: ``tensors``
+    dpooled, argmax, y, mean, rstd, gamma, beta; returns dy, dgamma,
+    dbeta) or K5 (``bn_act_pool_bwd_bwd``, f32: a, ggamma, gbeta and K3's;
+    returns g_dpooled, g_y, g_gamma) on validated tensors at ``ptrs``,
+    launched by ``plan``. The (T, C) outputs (in y's dtype) and the f32
+    scratch (the blocks' partial sums, the merged sums) share one
+    allocation: a call's host time counts at the small maps."""
     y, dpooled = tensors[-5], tensors[-7]
     T, N, H, W, C = y.shape
+    bf16 = y.dtype == torch.bfloat16
     sums, vecs = BN_BWD_SUMS[name], 2 if name == "bn_act_pool_bwd" else 1
     big = ((torch.empty_like(y),) if vecs == 2
            else (torch.empty_like(dpooled), torch.empty_like(y)))
     TC = T * C
-    small = torch.empty(vecs * TC + sums * TC * (plan.grid[0] + 1),
+    # the (T, C) outputs: vecs * TC values of y's dtype, in f32 words
+    head = _cdiv(vecs * TC, 2) if bf16 else vecs * TC
+    small = torch.empty(head + sums * TC * (plan.grid[0] + 1),
                         device=y.device)
     base = small.data_ptr()
-    part = base + 4 * vecs * TC
-    entry, argtypes = _BN_BWD_ENTRIES[name]
+    part = base + 4 * head
+    esize = y.element_size()
+    entry, argtypes = _BN_BWD_ENTRIES[name, bf16]
     with _device(y.device):
         rc = build.function("bn_act_pool_bwd", entry, argtypes)(
             *ptrs, *(t.data_ptr() for t in big),
-            *(base + 4 * k * TC for k in range(vecs)), part,
+            *(base + esize * k * TC for k in range(vecs)), part,
             part + 4 * sums * TC * plan.grid[0], T, N, H, W, C,
             plan.grid[0], plan.chunk, plan.slots, plan.threads, int(vec),
             slope, 1.0 / (N * H * W), _stream(y.device))
     build.check(rc, name)
-    return (*big, *small[:vecs * TC].view(vecs, T, C).unbind(0))
+    outs = small[:head].view(y.dtype)[:vecs * TC].view(vecs, T, C)
+    return (*big, *outs.unbind(0))
 
 
 def bn_act_pool_bwd(dpooled: Tensor, argmax: Tensor, y: Tensor, mean: Tensor,
@@ -1244,8 +1269,8 @@ def bn_act_pool_bwd(dpooled: Tensor, argmax: Tensor, y: Tensor, mean: Tensor,
                     negative_slope: float = F.LEAKY_SLOPE
                     ) -> Tuple[Tensor, Tensor, Tensor]:
     """The backward of ``bn_act_pool_fwd`` through batch norm with batch
-    statistics; returns ``(dy, dgamma, dbeta)``. f32: one launch of the
-    CUDA kernel (``bn_bwd_plan``); bf16: the Triton kernels."""
+    statistics; returns ``(dy, dgamma, dbeta)``. One launch of the
+    cooperative CUDA kernel in either dtype (``bn_bwd_plan``)."""
     if _on_cpu(y):
         return F.bn_act_pool_bwd(dpooled, argmax, y, mean, rstd, gamma, beta,
                                  negative_slope)
@@ -1253,22 +1278,13 @@ def bn_act_pool_bwd(dpooled: Tensor, argmax: Tensor, y: Tensor, mean: Tensor,
     _check_bn_args(name, y, dict(mean=mean, rstd=rstd, gamma=gamma,
                                  beta=beta), y.device)
     _check_pooled(name, dpooled, argmax, y)
-    T, _, _, _, C = y.shape
-    slope = F.scalar_like(negative_slope, y)
+    C = y.shape[-1]
     tensors = (dpooled, argmax, y, mean, rstd, gamma, beta)
     ptrs = [t.data_ptr() for t in tensors]
-    vec = _bn_bwd_vec(C, ptrs)
+    vec = _bn_bwd_vec(C, ptrs, y.dtype == torch.bfloat16)
     plan = _bn_bwd_route(name, y, vec)
-    if plan.kernel == "cuda":
-        out = _bn_bwd_cuda(name, plan, vec, tensors, ptrs, slope)
-    else:
-        part = torch.empty((T, bn_act_pool.SPLITS, 2, C), device=y.device)
-        dy = torch.empty_like(y)
-        with torch.cuda.device(y.device):
-            bn_act_pool.launch_bwd(*tensors, part, dy, slope)
-        # the f32 partial sums, rounded once to y's dtype
-        sums = part.sum(dim=1).to(y.dtype)
-        out = dy, sums[:, 1], sums[:, 0]
+    out = _bn_bwd_cuda(name, plan, vec, tensors, ptrs,
+                       F.scalar_like(negative_slope, y))
     LAUNCHES[_counter(name, y)] += 1
     return out
 
@@ -1375,7 +1391,7 @@ def bn_act_pool_bwd_bwd(a: Tensor, ggamma: Tensor, gbeta: Tensor,
     slope = F.scalar_like(negative_slope, y)
     tensors = (a, ggamma, gbeta, dpooled, argmax, y, mean, rstd, gamma, beta)
     ptrs = [t.data_ptr() for t in tensors]
-    vec = _bn_bwd_vec(C, ptrs)
+    vec = y.dtype == torch.float32 and _bn_bwd_vec(C, ptrs)
     plan = _bn_bwd_route(name, y, vec)
     if plan.kernel == "cuda":
         out = _bn_bwd_cuda(name, plan, vec, tensors, ptrs, slope)
@@ -2084,17 +2100,17 @@ def layer_norm_bwd_bwd(a: Tensor, ggamma: Tensor, gbeta: Tensor, dz: Tensor,
 class WgradPlan(NamedTuple):
     """The launch of K4 wgrad at one shape. ``kernel`` is ``"band"`` (f32
     at stride 1, csrc/conv3x3_bwd_s1.cu), ``"mma"`` (bf16 at stride 1,
-    csrc/conv3x3_wgrad_s1_bf16.cu) or ``"tile"`` (stride 2,
-    csrc/conv3x3_bwd.cu); ``grid`` is the first launch's (the second sums
-    the ``splits`` partials of each tenant in split order). Band and mma
-    fields: ``band_rows`` output rows of one image a band, ``bands`` a
-    image; band: ``kernel_rows`` (3 or 1) a block, ``groups`` 8-channel
-    groups a block, ``replicas`` of the output tile a block; mma:
-    ``m_tiles`` m16 tiles of source channels a block (16 ``m_tiles``
-    channels; packed at cin <= 3, the packed K / 16), ``channels`` output
-    channels a block; ``smem`` is the dynamic shared memory (0: the tile
-    kernel's is static); ``scratch`` the shapes of the partials ``part_w``
-    and ``part_b``."""
+    csrc/conv3x3_wgrad_s1_bf16.cu), ``"s2"`` (f32 at stride 2) or
+    ``"s2_mma"`` (bf16 at stride 2, both csrc/conv3x3_wgrad_s2.cu);
+    ``grid`` is the first launch's (the second sums the ``splits``
+    partials of each tenant in split order). ``band_rows`` output rows of
+    one image a band, ``bands`` a image; band and s2: ``kernel_rows`` (3 or
+    1) a block, ``groups`` 8-channel groups a block, ``replicas`` of the
+    output tile a block; mma and s2_mma: ``m_tiles`` m16 tiles of source
+    channels a block (16 ``m_tiles`` channels; packed at cin <= 3, the
+    packed K / 16), ``channels`` output channels a block; ``smem`` is the
+    dynamic shared memory; ``scratch`` the shapes of the partials
+    ``part_w`` and ``part_b``."""
 
     kernel: str
     grid: Tuple[int, int, int]
@@ -2112,18 +2128,10 @@ class WgradPlan(NamedTuple):
 
     def split_bands(self, split: int, images: int) -> range:
         """The bands (image * ``bands`` + band) that ``split`` of a tenant
-        of ``images`` images sums, in the band and mma kernels' order."""
+        of ``images`` images sums, in the kernels' order."""
         total = images * self.bands
         return range(total * split // self.splits,
                      total * (split + 1) // self.splits)
-
-
-def _tile_wgrad_splits(T: int, M: int, cin: int, cout: int, sms: int) -> int:
-    """The tile kernel's split of each tenant's M output pixels (stride 2,
-    both dtypes): about 16 blocks a SM, at least 512 pixels a split. Kept
-    as it was, so that those instantiations keep their bits."""
-    blocks = _cdiv(9 * cin, 64) * _cdiv(cout, 16) * T
-    return max(1, min(_cdiv(16 * sms, blocks), M // 512, 65535 // T))
 
 
 @functools.lru_cache(maxsize=None)
@@ -2132,33 +2140,36 @@ def wgrad_plan(T: int, N: int, H: int, W: int, cin: int, cout: int,
                bf16: bool = False) -> WgradPlan:
     """K4 wgrad's launch for x ``(T, N, H, W, cin)`` and ``cout`` output
     channels on a card of ``sms`` SMs. A pure function of the shape: the
-    wrapper calls it, and so do the CPU tests. bf16 at stride 1 runs the
-    mma kernel (``_wgrad_mma_plan``), stride 2 the tile in both dtypes.
+    wrapper calls it, and so do the CPU tests. f32 runs the band kernel
+    (``"band"`` at stride 1, ``"s2"`` at stride 2), bf16 the mma kernel
+    (``"mma"``, ``"s2_mma"``; ``_wgrad_mma_plan``).
 
-    The band kernel (f32, stride 1): a thread holds TK x 8 accumulators (TK
-    = 9, a whole kernel row, at cin <= 3, else 8); a block takes all three
-    kernel rows where that is at most ``WGRAD_MAX_THREADS`` threads, else
-    one (three slices in ``grid[1]``), and ``replicas`` copies of its tile
-    up to that many threads;
-    bands of about ``WGRAD_BAND_PIXELS`` output pixels, fewer rows while
-    the two-band ring exceeds ``WGRAD_RING_BYTES`` or the bands are too few
-    for ``BAND_BLOCKS_PER_SM`` blocks a SM (at most a replica a pixel of a
+    The band kernels (f32): a thread holds TK x 8 accumulators (TK = 9, a
+    whole kernel row, at cin <= 3, else 8); a block takes all three kernel
+    rows where that is at most ``WGRAD_MAX_THREADS`` threads, else one
+    (three slices in ``grid[1]``), and ``replicas`` copies of its tile up
+    to that many threads; bands of about ``WGRAD_BAND_PIXELS`` output
+    pixels, fewer rows while the two-band ring exceeds
+    ``WGRAD_RING_BYTES`` or the bands are too few for
+    ``BAND_BLOCKS_PER_SM`` blocks a SM (at most a replica a pixel of a
     band); and enough splits of each tenant's bands for that many blocks,
-    as far as the bands go. A row whose band of one row needs more than
+    as far as the bands go (at stride 2 no more than keep a split's partial
+    within its share of x and dy, as ``_wgrad_mma_plan``'s rule). A band
+    stages its source rows: at stride 1 its
+    ``band_rows + kernel_rows - 1`` rows of ``Wo + 2`` pixels; at stride 2
+    its ``2 band_rows + 1`` rows (all three kernel rows) or the
+    ``band_rows`` rows its outputs read (one), each of ``max(W + pad, 2 Wo
+    + 1)`` pixels. A row whose band of one row needs more than
     ``BLOCK_SMEM`` raises (at cin and cout 64, rows over about 220
     pixels)."""
     Ho, Wo = F.conv_out_hw(H, W, stride, pad)
-    if min(T, N, Ho, Wo, cin, cout) < 1 or T > 65535:
+    if (min(T, N, Ho, Wo, cin, cout) < 1 or T > 65535
+            or stride not in STRIDES or pad not in PADDINGS):
         raise ValueError(f"wgrad_plan: no conv3x3 wgrad of a {H}x{W} input "
                          f"at stride {stride}, pad {pad} (T={T}, N={N}, "
                          f"cin={cin}, cout={cout})")
-    if bf16 and stride == 1:
-        return _wgrad_mma_plan(T, N, H, W, cin, cout, pad, sms)
-    if stride != 1:
-        S = _tile_wgrad_splits(T, N * Ho * Wo, cin, cout, sms)
-        return WgradPlan(
-            "tile", (_cdiv(9 * cin, 64), _cdiv(cout, 16), T * S), 128, 0, S,
-            0, 0, 0, 0, 0, ((T, S, 9 * cin * cout), (T, S, cout)))
+    if bf16:
+        return _wgrad_mma_plan(T, N, H, W, cin, cout, stride, pad, sms)
     TK = 9 if cin <= 3 else 8
     KGR = _cdiv(3 * cin, TK)
     NG = _cdiv(cout, 8)
@@ -2171,10 +2182,19 @@ def wgrad_plan(T: int, N: int, H: int, W: int, cin: int, cout: int,
                              f"{WGRAD_MAX_THREADS} threads a kernel row")
     TPR = KH * KGR * NGB
     off = (4 - pad * cin % 4) % 4
-    RS = _round4(off + (Wo + 2) * cin)
+    if stride == 1:
+        RS = _round4(off + (Wo + 2) * cin)
+
+        def xrows(CR):
+            return CR + KH - 1
+    else:
+        RS = _round4(off + max(W + pad, 2 * Wo + 1) * cin)
+
+        def xrows(CR):
+            return 2 * CR + 1 if KH == 3 else CR
 
     def ring(CR):
-        return 2 * (_round4((CR + KH - 1) * RS + TK) + CR * Wo * 8 * NG) * 4
+        return 2 * (_round4(xrows(CR) * RS + TK) + CR * Wo * 8 * NG) * 4
 
     ky = 3 // KH * _cdiv(NG, NGB)
     target = BAND_BLOCKS_PER_SM * sms
@@ -2191,35 +2211,55 @@ def wgrad_plan(T: int, N: int, H: int, W: int, cin: int, cout: int,
         raise ValueError(f"wgrad_plan: a band of {Wo} pixels at cin {cin}, "
                          f"cout {cout} needs {smem} B of shared memory")
     S = max(1, min(_cdiv(target, T * ky), N * nb))
+    if stride == 2:
+        # as the mma plan: a split's f32 partial within its share of the
+        # tenant's x and dy bytes, unless a block would then walk more than
+        # WGRAD_MMA_BANDS bands (the 64 x 64 maps of 7 and 4 pixels)
+        inputs = 4 * N * (H * W * cin + Ho * Wo * cout)
+        partial = 4 * (9 * cin + 1) * cout
+        S = max(1, min(S, max(inputs // partial,
+                              _cdiv(N * nb, WGRAD_MMA_BANDS))))
     threads = _cdiv(R * TPR, 32) * 32 + 32  # and a warp for db
-    return WgradPlan("band", (S, ky, T), threads, smem, S, CR, nb, KH, NGB,
-                     R, ((T, S, 9 * cin * cout), (T, S, cout)))
+    return WgradPlan("band" if stride == 1 else "s2", (S, ky, T), threads,
+                     smem, S, CR, nb, KH, NGB, R,
+                     ((T, S, 9 * cin * cout), (T, S, cout)))
 
 
 def wgrad_mma_smem(W: int, Wo: int, cin: int, band_rows: int, m_tiles: int,
-                   channels: int) -> Tuple[int, int]:
-    """(threads, shared memory) of a bf16 stride-1 wgrad block (the
-    geometry of ``wgrad_mma_geom`` in csrc/conv3x3_wgrad_s1_bf16.cu) whose
-    bands have ``band_rows`` rows of ``Wo`` output pixels on the ``Wo +
-    2``-wide grid, K over ``kpx = round16(band_rows (Wo + 2))`` pixels:
-    two slots, each the band's x (the taps kernel: ``kpx + 2 (Wo + 2) +
-    2`` pixels with the taps' halo, 16 ``m_tiles`` + 8 bf16 each; packed at
-    cin <= 3: its ``band_rows + 2`` source rows of ``W`` x cin bf16 as they
-    lie in memory) and its dy (``kpx`` pixels of ``channels`` bf16, + 8
-    where the n8 tiles are even); the taps kernel then its db warps'
-    running sums (a lane's 4 f32 a warp of each n8 tile); packed, before
-    the slots the band's patch matrix (``kpx`` pixels of K + 8 bf16), and
-    the 8 warps' f32 tiles (K x ``channels``) where larger than all
-    that."""
-    Wp = Wo + 2
-    kpx = _cdiv(band_rows * Wp, 16) * 16
+                   channels: int, stride: int = 1) -> Tuple[int, int]:
+    """(threads, shared memory) of a bf16 wgrad block (the geometry of
+    ``wgrad_mma_geom`` in csrc/conv3x3_wgrad_s1_bf16.cu at stride 1, of
+    ``s2_mma_geom`` in csrc/conv3x3_wgrad_s2.cu at stride 2) whose bands
+    have ``band_rows`` rows of ``Wo`` output pixels, K over ``kpx`` band
+    pixels: at stride 1 on the ``Wo + 2``-wide grid, ``kpx =
+    round16(band_rows (Wo + 2))``; at stride 2 dense, ``kpx =
+    round16(band_rows Wo)``. Two slots, each the band's x and its dy
+    (``kpx`` pixels of ``channels`` bf16, + 8 where the n8 tiles are
+    even). The taps kernel's x: at stride 1 ``kpx + 2 (Wo + 2) + 2``
+    pixels with the taps' halo, at stride 2 the ``2 band_rows + 1`` source
+    rows as two column planes of ``Wo + 1`` pixels each; 16 ``m_tiles`` +
+    8 bf16 a pixel; then its db warps' running sums (a lane's 4 f32 a warp
+    of each n8 tile). Packed at cin <= 3: the band's source rows (``band_rows
+    + 2`` at stride 1, ``2 band_rows + 1`` at stride 2) of ``W`` x cin bf16
+    as they lie in memory; before the slots the band's patch matrix
+    (``kpx`` pixels of K + 8 bf16), and the 8 warps' f32 tiles (K x
+    ``channels``) where larger than all that."""
+    if stride == 1:
+        Wp = Wo + 2
+        kpx = _cdiv(band_rows * Wp, 16) * 16
+        xpx = kpx + 2 * Wp + 2
+        raw_rows = band_rows + 2
+    else:
+        kpx = _cdiv(band_rows * Wo, 16) * 16
+        xpx = (2 * band_rows + 1) * 2 * (Wo + 1)
+        raw_rows = 2 * band_rows + 1
     KC = 16 * m_tiles
     SD = channels if channels // 8 % 2 else channels + 8
     d = _cdiv(2 * kpx * SD, 16) * 16
     if cin > 3:
-        x = _cdiv(2 * (kpx + 2 * Wp + 2) * (KC + 8), 16) * 16
+        x = _cdiv(2 * xpx * (KC + 8), 16) * 16
         return 32 * WGRAD_MMA_TAP_WARPS, 2 * (x + d) + 512 * channels // 8
-    raw = _cdiv(2 * _cdiv((band_rows + 2) * W * cin, 2) * 2, 16) * 16
+    raw = _cdiv(2 * _cdiv(raw_rows * W * cin, 2) * 2, 16) * 16
     a = _cdiv(2 * kpx * (KC + 8), 16) * 16
     tree = 4 * WGRAD_MMA_PACKED_WARPS * KC * channels
     return 32 * WGRAD_MMA_PACKED_WARPS, max(a + 2 * (raw + d), tree)
@@ -2253,22 +2293,23 @@ def wgrad_mma_blocks_per_sm(cin: int, m_tiles: int, channels: int) -> int:
     return MMA_BLOCKS_PER_SM
 
 
-def _wgrad_mma_plan(T, N, H, W, cin, cout, pad, sms) -> WgradPlan:
-    """``wgrad_plan``'s mma kernel (bf16, stride 1): the tiles of
-    ``_wgrad_mma_tiles``; the most rows a band that keep a block's shared
-    memory within its share of a SM (``wgrad_mma_blocks_per_sm`` blocks a
-    SM, 1 KB reserved each: ``MMA_SMEM_BYTES`` at two) and the grid at
-    that many blocks a SM, balanced over the image; then splits of each
-    tenant's bands (``split_bands``) for as many blocks as the card holds
-    at once (one wave: 16 splits a tenant at stage 1, T = 8), but no more
-    than keep a split's f32 partial, (9 cin + 1) x cout, within its share
-    of the tenant's x and dy bytes (the partials are written and read
-    back) unless a block would then walk more than ``WGRAD_MMA_BANDS``
-    bands (the small maps: 5 splits of Omniglot's 20 images at 3 x 3), and
-    no more than the bands. Every sum runs in one warp over its bands in
-    order, k16 step by k16 step; the splits are summed in order by the
-    second launch. A row that no block of ``BLOCK_SMEM`` holds raises."""
-    Ho, Wo = F.conv_out_hw(H, W, 1, pad)
+def _wgrad_mma_plan(T, N, H, W, cin, cout, stride, pad, sms) -> WgradPlan:
+    """``wgrad_plan``'s mma kernels (bf16; ``"mma"`` at stride 1,
+    ``"s2_mma"`` at stride 2): the tiles of ``_wgrad_mma_tiles``; the most
+    rows a band that keep a block's shared memory within its share of a SM
+    (``wgrad_mma_blocks_per_sm`` blocks a SM, 1 KB reserved each:
+    ``MMA_SMEM_BYTES`` at two) and the grid at that many blocks a SM,
+    balanced over the image; then splits of each tenant's bands
+    (``split_bands``) for as many blocks as the card holds at once (one
+    wave: 16 splits a tenant at stage 1, T = 8), but no more than keep a
+    split's f32 partial, (9 cin + 1) x cout, within its share of the
+    tenant's x and dy bytes (the partials are written and read back)
+    unless a block would then walk more than ``WGRAD_MMA_BANDS`` bands (the
+    small maps: 5 splits of Omniglot's 20 images at 3 x 3), and no more
+    than the bands. Every sum runs in one warp over its bands in order,
+    k16 step by k16 step; the splits are summed in order by the second
+    launch. A row that no block of ``BLOCK_SMEM`` holds raises."""
+    Ho, Wo = F.conv_out_hw(H, W, stride, pad)
     mt, ci_chunks, channels, co_chunks = _wgrad_mma_tiles(cin, cout)
     chunks = ci_chunks * co_chunks
     bps = wgrad_mma_blocks_per_sm(cin, mt, channels)
@@ -2276,14 +2317,14 @@ def _wgrad_mma_plan(T, N, H, W, cin, cout, pad, sms) -> WgradPlan:
     target = bps * sms
     CR = 1
     for rows in range(2, Ho + 1):
-        _, smem = wgrad_mma_smem(W, Wo, cin, rows, mt, channels)
+        _, smem = wgrad_mma_smem(W, Wo, cin, rows, mt, channels, stride)
         if (smem > budget
                 or T * chunks * N * _cdiv(Ho, rows) < target):
             break
         CR = rows
     nb = _cdiv(Ho, CR)
     CR = _cdiv(Ho, nb)
-    threads, smem = wgrad_mma_smem(W, Wo, cin, CR, mt, channels)
+    threads, smem = wgrad_mma_smem(W, Wo, cin, CR, mt, channels, stride)
     if smem > BLOCK_SMEM:
         raise ValueError(f"wgrad_plan: a {Wo}-pixel output row from {cin} "
                          f"to {cout} channels does not fit a block")
@@ -2292,9 +2333,9 @@ def _wgrad_mma_plan(T, N, H, W, cin, cout, pad, sms) -> WgradPlan:
     partial = 4 * (9 * cin + 1) * cout
     S = max(1, min(N * nb, resident // (T * chunks),
                    max(inputs // partial, _cdiv(N * nb, WGRAD_MMA_BANDS))))
-    return WgradPlan("mma", (S, chunks, T), threads, smem, S, CR, nb, 0, 0,
-                     0, ((T, S, 9 * cin * cout), (T, S, cout)), mt,
-                     channels)
+    return WgradPlan("mma" if stride == 1 else "s2_mma", (S, chunks, T),
+                     threads, smem, S, CR, nb, 0, 0, 0,
+                     ((T, S, 9 * cin * cout), (T, S, cout)), mt, channels)
 
 
 class DgradPlan(NamedTuple):
@@ -2506,12 +2547,22 @@ def conv3x3_dgrad(dy: Tensor, w: Tensor, stride: int = 1,
     return dx
 
 
+#: the entry of each wgrad kernel (``WgradPlan.kernel``): (source stem,
+#: function); every one takes the packed arguments of csrc/wgrad_reduce.cuh
+_WGRAD_ENTRIES = {
+    "band": ("conv3x3_bwd_s1", "conv3x3_wgrad_band"),
+    "mma": ("conv3x3_wgrad_s1_bf16", "conv3x3_wgrad_mma"),
+    "s2": ("conv3x3_wgrad_s2", "conv3x3_s2_wgrad_band"),
+    "s2_mma": ("conv3x3_wgrad_s2", "conv3x3_s2_wgrad_mma"),
+}
+
+
 def conv3x3_wgrad(x: Tensor, dy: Tensor, stride: int = 1, padding: int = 1
                   ) -> Tuple[Tensor, Tensor]:
     """The weight (HWIO) and bias gradients of the 3x3 conv at ``stride``
-    and ``padding``. At stride 1 f32 runs the band kernel and bf16 the mma
-    kernel, at stride 2 the tile kernel (``wgrad_plan``); each sums its
-    split partials in a second launch."""
+    and ``padding``: f32 on the band kernels, bf16 on the tensor-core
+    kernels, at stride 1 and 2 (``wgrad_plan``); each sums its split
+    partials in a second launch of the same call."""
     if _on_cpu(x):
         return F.conv3x3_wgrad(x, dy, stride=stride, padding=padding)
     name = _conv_name("conv3x3_wgrad", stride, padding)
@@ -2519,38 +2570,23 @@ def conv3x3_wgrad(x: Tensor, dy: Tensor, stride: int = 1, padding: int = 1
     cout = dy.shape[-1]
     Ho, Wo = _conv_out(name, H, W, stride, padding)
     _check(name, "dy", dy, (T, N, Ho, Wo, cout), x.device, x.dtype)
-    plan = wgrad_plan(T, N, H, W, cin, cout, stride, padding,
-                      _sms(x.device), x.dtype == torch.bfloat16)
+    device = x.device
+    plan = wgrad_plan(T, N, H, W, cin, cout, stride, padding, _sms(device),
+                      x.dtype == torch.bfloat16)
     # the partials part_w and part_b (plan.scratch) in one f32 allocation
     nw = T * plan.splits * 9 * cin * cout
-    part = torch.empty(nw + T * plan.splits * cout, device=x.device)
-    part_w = _ptr(part)
-    part_b = part_w + 4 * nw
-    dw = torch.empty((T, 3, 3, cin, cout), device=x.device, dtype=x.dtype)
-    db = torch.empty((T, cout), device=x.device, dtype=x.dtype)
+    part = torch.empty(nw + T * plan.splits * cout, device=device)
+    part_w = part.data_ptr()
+    dw = torch.empty((T, 3, 3, cin, cout), device=device, dtype=x.dtype)
+    db = torch.empty((T, cout), device=device, dtype=x.dtype)
+    args = _packed(x.data_ptr(), dy.data_ptr(), part_w, part_w + 4 * nw,
+                   dw.data_ptr(), db.data_ptr(), T, N, H, W, padding, cin,
+                   cout, plan.splits, plan.band_rows, plan.kernel_rows,
+                   plan.groups, plan.replicas, plan.m_tiles, plan.channels,
+                   plan.threads, plan.smem, device.index, _stream(device))
+    rc = build.function(*_WGRAD_ENTRIES[plan.kernel], _ADDR_ENTRY)(
+        args.buffer_info()[0])
     counter = _counter(name, x)
-    with _device(x.device):
-        if plan.kernel == "band":
-            fn = build.function("conv3x3_bwd_s1", "conv3x3_wgrad_band",
-                                (_P,) * 6 + (_I,) * 14 + (_P,))
-            rc = fn(_ptr(x), _ptr(dy), part_w, part_b, _ptr(dw), _ptr(db),
-                    T, N, H, W, padding, cin, cout, plan.splits,
-                    plan.band_rows, plan.kernel_rows, plan.groups,
-                    plan.replicas, plan.threads, plan.smem,
-                    _stream(x.device))
-        elif plan.kernel == "mma":
-            fn = build.function("conv3x3_wgrad_s1_bf16", "conv3x3_wgrad_mma",
-                                (_P,) * 6 + (_I,) * 13 + (_P,))
-            rc = fn(_ptr(x), _ptr(dy), part_w, part_b, _ptr(dw), _ptr(db),
-                    T, N, H, W, padding, cin, cout, plan.band_rows,
-                    plan.m_tiles, plan.channels, plan.splits, plan.threads,
-                    plan.smem, _stream(x.device))
-        else:
-            fn = build.function("conv3x3_bwd", _counter("conv3x3_wgrad", x),
-                                (_P,) * 6 + (_I,) * 9 + (_P,))
-            rc = fn(_ptr(x), _ptr(dy), part_w, part_b, _ptr(dw), _ptr(db),
-                    T, N, H, W, stride, padding, cin, cout, plan.splits,
-                    _stream(x.device))
     build.check(rc, counter)
     LAUNCHES[counter] += 1
     return dw, db

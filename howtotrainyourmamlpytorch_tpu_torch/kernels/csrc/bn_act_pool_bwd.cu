@@ -1,28 +1,33 @@
-// K3 and K5 in f32, pooled: the backward of batch norm + leaky-ReLU + 2x2
-// max pool through the batch statistics (bn_act_pool_bwd_f32) and the
-// derivative of that backward (bn_act_pool_bwd_bwd_f32), each one
-// cooperative launch.
+// K3 and K5 pooled: the backward of batch norm + leaky-ReLU + 2x2 max pool
+// through the batch statistics (bn_act_pool_bwd_f32, and in bf16
+// bn_act_pool_bwd_bf16) and the derivative of that backward in f32
+// (bn_act_pool_bwd_bwd_f32), each one cooperative launch.
 //
 // Replaces (JAX package) howtotrainyourmamlpytorch_tpu/ops/functional.py:
 // the gradient XLA derives for the normalize/affine tail of `batch_norm`
 // :368, `leaky_relu` :363 and `max_pool2d` :325 (VALID: an odd map's last
-// row and column are dropped) inside `conv_bn_act` :249 (K3), and the
-// derivative of that gradient, which second-order MAML takes through the
-// inner loop (core/maml.py::_task_learner; K5). The bf16 and the pool-free
-// modes stay on the Triton kernels of kernels/bn_act_pool.py.
+// row and column are dropped) inside `conv_bn_act` :249 (K3, in f32 and at
+// compute_dtype='bfloat16'), and the derivative of that gradient, which
+// second-order MAML takes through the inner loop (core/maml.py
+// ::_task_learner; K5). K5 in bf16 and the pool-free K5 stay on the Triton
+// kernels of kernels/bn_act_pool.py; the pool-free K3 runs bn_act_bwd.cu.
 //
-// The arithmetic is the Triton kernels' (kernels/bn_act_pool.py derives
-// K5's formulas) and the twins' (ops/functional.py::bn_act_pool_bwd,
-// ::bn_act_pool_bwd_bwd). With xhat = (y - mean) * rstd, z = xhat * gamma
-// + beta (one FMA, as the Triton kernels round it) and dz the pooled
-// gradient at each window's argmax through the leaky slope (0 at every
-// other position, the dropped row and column included), per (tenant,
-// channel) over the m = N * H * W positions:
+// The arithmetic is the twins' (ops/functional.py::bn_act_pool_bwd,
+// ::bn_act_pool_bwd_bwd; kernels/bn_act_pool.py derives K5's formulas).
+// With xhat = (y - mean) * rstd, z = xhat * gamma + beta (one FMA) and dz
+// the pooled gradient at each window's argmax through the leaky slope (0
+// at every other position, the dropped row and column included), per
+// (tenant, channel) over the m = N * H * W positions:
 //   K3: dbeta = sum dz, dgamma = sum dz xhat,
 //       dy = gamma rstd (dz - dbeta / m - xhat dgamma / m);
 //   K5: from the cotangents a (of dy), ggamma and gbeta, the five sums
 //       sum a, a xhat, dz, dz xhat, a dz, then g_dpooled (at the argmax),
 //       g_y (every position) and g_gamma.
+// bf16 K3 rounds at the twin's cast points: the masks are K2's decisions
+// (z by the bf16 chain of bn_act_chain.cuh, so K3 flips no sign K2 took),
+// xhat and the two sums in f32 from the bf16 inputs, and dy, dgamma and
+// dbeta each rounded once to bf16 (within one bf16 ulp of the twin, whose
+// sums run in another order).
 //
 // Bound on an H100: bytes (3.35 TB/s; a few FLOPs an element, no tensor
 // cores). K3 must read y, the pooled gradient and its 1-byte argmax and
@@ -38,18 +43,21 @@
 //   Two plain launches (reduce; then merge and apply) measured slower at
 //   every large map on an H100 (PERF.md §6), so the one launch stays.
 // * The plan (kernels/conv_block.py::bn_bwd_plan, a pure function of the
-//   shape and of the blocks a SM the occupancy query reports): each
-//   tenant's map cut into windows of 2 x 2 positions (an odd map's last row
-//   or column into windows of one row or column, which no pooled element
-//   reads), the windows into chunks of whole windows over as many blocks
-//   as the card holds at once; no chunk spans two tenants. A block is 256
-//   threads: `slots` windows at a time x G = ceil(C / 4) groups of 4
-//   consecutive channels; a thread keeps its group, so its sums are
-//   scalars in registers (C = 48 and 64 take 252 and 256 of the threads).
-// * A thread loads a window's pooled gradient (16 bytes), argmax (4 bytes)
-//   and its positions of y (and a) as 16-byte vectors, and writes dy (g_y)
-//   the same way and g_dpooled as one vector; one float (byte) at a time
-//   where C % 4 != 0 or a tensor is not 16-byte aligned (kVec false).
+//   shape, the dtype and the blocks a SM the occupancy query reports):
+//   each tenant's map cut into windows of 2 x 2 positions (an odd map's
+//   last row or column into windows of one row or column, which no pooled
+//   element reads), the windows into chunks of whole windows over as many
+//   blocks as the card holds at once; no chunk spans two tenants. A block
+//   is 256 threads: `slots` windows at a time x G channel groups, a group
+//   one 16-byte load of a position (4 f32 or 8 bf16 channels: G = ceil(C /
+//   4) or ceil(C / 8)); a thread keeps its group, so its sums are scalars
+//   in registers (C = 48 and 64 take 252 and 256 of the threads in f32, 252
+//   and 256 in bf16).
+// * A thread loads a window's pooled gradient (16 bytes), argmax (4 bytes
+//   in f32, 8 in bf16) and its positions of y (and a) as 16-byte vectors,
+//   and writes dy (g_y) the same way and g_dpooled as one vector; one
+//   value (byte) at a time where the channels are not a whole number of
+//   vectors or a tensor is not aligned (kVec false).
 // * Deterministic, no atomics: a thread sums its windows in order, a block
 //   its slots in order (shared memory), a warp a column's partials over
 //   lane-strided blocks and then a shuffle tree; the order is the plan's,
@@ -59,8 +67,11 @@
 //   and stores with streaming stores.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "bn_act_chain.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -155,8 +166,9 @@ __device__ __forceinline__ void store4(float* p, const float4& v, int n) {
 // Window i of a tenant: the offset (in pixels) of its top-left position,
 // whether it has a second row and column, and the offset of its pooled
 // element (-1: a window of the dropped row or column).
-__device__ __forceinline__ void window(const BwdArgs& p, int i, int& pix,
-                                       bool& h1, bool& w1, int& poff) {
+template <typename A>
+__device__ __forceinline__ void window(const A& p, int i, int& pix, bool& h1,
+                                       bool& w1, int& poff) {
   const int per_image = p.Hc * p.Wc;
   const int n = i / per_image, r = i - n * per_image;
   const int hw = r / p.Wc, ww = r - hw * p.Wc;
@@ -436,12 +448,301 @@ __global__ void __launch_bounds__(kThreads, 2)
   bwd_body<5, kVec>(p);
 }
 
+// -- bf16 K3 ---------------------------------------------------------------
+
+using bf16_t = __nv_bfloat16;
+constexpr int kV16 = 8;  // bf16 channels a thread: one 16-byte load
+
+struct Bf16Args {
+  const bf16_t* y;
+  const bf16_t* dp;     // the pooled gradient
+  const uint8_t* arg;   // its window argmax, 2 * dh + dw
+  const bf16_t* mean;
+  const bf16_t* rstd;
+  const bf16_t* gamma;
+  const bf16_t* beta;
+  bf16_t* out;          // dy
+  bf16_t* vec0;         // dgamma
+  bf16_t* vec1;         // dbeta
+  float* part;          // (T, 2, C, blocks): the blocks' partial sums
+  float* tot;           // (T, 2, C): the merged sums
+  int N, H, W, C, G, Ho, Wo, Hc, Wc, windows, slots, chunk, blocks;
+  float slope, inv_m;
+};
+
+// 8 channels of bf16 from p as their raw bits (n of them where !kVec, zeros
+// past them); kLast as load4
+template <bool kVec, bool kLast>
+__device__ __forceinline__ uint4 load8(const bf16_t* p, int n) {
+  if (kVec) {
+    const uint4* q = reinterpret_cast<const uint4*>(p);
+    return kLast ? __ldcs(q) : __ldg(q);
+  }
+  const unsigned short* q = reinterpret_cast<const unsigned short*>(p);
+  unsigned w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int j = 0; j < kV16; ++j)
+    if (j < n) {
+      const unsigned b = kLast ? __ldcs(q + j) : __ldg(q + j);
+      w[j >> 1] |= b << (16 * (j & 1));
+    }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// channel j of 8 bf16 bits, as f32
+__device__ __forceinline__ float chan(const uint4& v, int j) {
+  const unsigned w = j < 2 ? v.x : j < 4 ? v.y : j < 6 ? v.z : v.w;
+  return __uint_as_float((j & 1) ? (w & 0xffff0000u) : (w << 16));
+}
+
+// channel j of the window position k (0-3), by selects
+__device__ __forceinline__ float pick8(const uint4 (&v)[4], int k, int j) {
+  const float p0 = chan(v[0], j), p1 = chan(v[1], j), p2 = chan(v[2], j),
+              p3 = chan(v[3], j);
+  return k == 0 ? p0 : k == 1 ? p1 : k == 2 ? p2 : p3;
+}
+
+// 8 argmax bytes (a channel's byte k >> 8 (j % 4) of word j / 4); kNoArg
+// past n where !kVec
+template <bool kVec, bool kLast>
+__device__ __forceinline__ uint2 load_arg8(const uint8_t* p, int n) {
+  if (kVec) {
+    const uint2* q = reinterpret_cast<const uint2*>(p);
+    return kLast ? __ldcs(q) : __ldg(q);
+  }
+  unsigned w[2] = {kNoArg, kNoArg};
+#pragma unroll
+  for (int j = 0; j < kV16; ++j)
+    if (j < n) {
+      const unsigned b = kLast ? __ldcs(p + j) : __ldg(p + j);
+      const int s = 8 * (j & 3);
+      w[j >> 2] = (w[j >> 2] & ~(0xffu << s)) | (b << s);
+    }
+  return make_uint2(w[0], w[1]);
+}
+
+__device__ __forceinline__ int arg_of(const uint2& k, int j) {
+  return (int)(((j < 4 ? k.x : k.y) >> (8 * (j & 3))) & 0xffu);
+}
+
+__device__ __forceinline__ unsigned bf16_bits(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+// 8 channels rounded once to bf16 and stored (n of them where !kVec)
+template <bool kVec>
+__device__ __forceinline__ void store8(bf16_t* p, const float (&o)[kV16],
+                                       int n) {
+  if (kVec) {
+    uint4 v;
+    v.x = bf16_bits(o[0]) | (bf16_bits(o[1]) << 16);
+    v.y = bf16_bits(o[2]) | (bf16_bits(o[3]) << 16);
+    v.z = bf16_bits(o[4]) | (bf16_bits(o[5]) << 16);
+    v.w = bf16_bits(o[6]) | (bf16_bits(o[7]) << 16);
+    __stcs(reinterpret_cast<uint4*>(p), v);
+    return;
+  }
+  unsigned short* q = reinterpret_cast<unsigned short*>(p);
+#pragma unroll
+  for (int j = 0; j < kV16; ++j)
+    if (j < n) __stcs(q + j, (unsigned short)bf16_bits(o[j]));
+}
+
+// K3 in bf16, the whole call: reduce, grid barrier, merge, barrier, apply,
+// as bwd_body<2, ...> orders it, a thread 8 channels.
+template <bool kVec>
+__device__ __forceinline__ void bwd_body_bf16(const Bf16Args& p) {
+  // the apply pass's per-channel values: mean, rstd, gamma, beta, gamma *
+  // rstd, mean(dz), mean(dz xhat)
+  constexpr int kN = 7;
+  __shared__ __align__(16) float red[2 * kV16 * kThreads];
+  __shared__ float sums[2 * kMaxC];
+  __shared__ __align__(16) float cst[kN * kMaxC];
+
+  const int t = blockIdx.y, tid = threadIdx.x;
+  const int CP = kV16 * p.G;  // C rounded up to the groups
+  const int slot = tid / p.G, c0 = kV16 * (tid - slot * p.G);
+  const bool active = slot < p.slots;
+  const int nc = min(kV16, p.C - c0);
+  const size_t img = (size_t)t * p.N * p.H * p.W * p.C + c0;
+  const size_t pooled = (size_t)t * p.N * p.Ho * p.Wo * p.C + c0;
+  const bf16_t* y = p.y + img;
+  const bf16_t* dp = p.dp + pooled;
+  const uint8_t* arg = p.arg + pooled;
+  const int first = blockIdx.x * p.chunk;
+  const int last = min(first + p.chunk, p.windows);
+  const float slope = p.slope;
+
+  // -- reduce: this thread's windows, in order ------------------------
+  float acc[2][kV16];
+#pragma unroll
+  for (int j = 0; j < kV16; ++j) acc[0][j] = acc[1][j] = 0.f;
+  if (active) {
+    const int tc = t * p.C + c0;
+    const uint4 mu = load8<kVec, false>(p.mean + tc, nc);
+    const uint4 rs = load8<kVec, false>(p.rstd + tc, nc);
+    const uint4 ga = load8<kVec, false>(p.gamma + tc, nc);
+    const uint4 be = load8<kVec, false>(p.beta + tc, nc);
+    for (int i = first + slot; i < last; i += p.slots) {
+      int pix, poff;
+      bool h1, w1;
+      window(p, i, pix, h1, w1, poff);
+      if (poff < 0) continue;  // no dz in the window
+      uint4 yv[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const bool ok = (!(q >> 1) || h1) && (!(q & 1) || w1);
+        const int off = (pix + (q >> 1) * p.W + (q & 1)) * p.C;
+        yv[q] = ok ? load8<kVec, false>(y + off, nc)
+                   : make_uint4(0u, 0u, 0u, 0u);
+      }
+      const uint4 d = load8<kVec, false>(dp + (size_t)poff * p.C, nc);
+      const uint2 ks = load_arg8<kVec, false>(arg + (size_t)poff * p.C, nc);
+#pragma unroll
+      for (int j = 0; j < kV16; ++j) {
+        const int k = arg_of(ks, j);
+        if (k < 4) {  // the argmax of a pooled window
+          const float v = pick8(yv, k, j);
+          const float m = chan(mu, j), r = chan(rs, j);
+          const float x = maml::bn_xhat(v, m, r);
+          const float z = maml::bn_z_bf16(v, m, r, chan(ga, j), chan(be, j));
+          const float dj = chan(d, j);
+          const float dz = z >= 0.f ? dj : dj * slope;
+          acc[0][j] += dz;
+          acc[1][j] = fmaf(dz, x, acc[1][j]);
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      float* r = &red[(slot * 2 + k) * CP + c0];
+      *reinterpret_cast<float4*>(r) =
+          make_float4(acc[k][0], acc[k][1], acc[k][2], acc[k][3]);
+      *reinterpret_cast<float4*>(r + 4) =
+          make_float4(acc[k][4], acc[k][5], acc[k][6], acc[k][7]);
+    }
+  }
+  __syncthreads();
+  // the block's partials: its slots in order
+  for (int col = tid; col < 2 * p.C; col += kThreads) {
+    const int k = col / p.C, c = col - k * p.C;
+    float s = 0.f;
+    for (int sl = 0; sl < p.slots; ++sl) s += red[(sl * 2 + k) * CP + c];
+    p.part[((size_t)(t * 2 + k) * p.C + c) * p.blocks + blockIdx.x] = s;
+  }
+  // -- merge: every tenant's partials, one warp a column --------------
+  const int lane = tid & 31, warps = kThreads / 32;
+  cg::grid_group grid = cg::this_grid();
+  grid.sync();
+  const int cols = gridDim.y * 2 * p.C;
+  const int nwarps = gridDim.x * gridDim.y * warps;
+  for (int col = (blockIdx.y * gridDim.x + blockIdx.x) * warps + (tid >> 5);
+       col < cols; col += nwarps) {
+    const float s = merge(p.part + (size_t)col * p.blocks, p.blocks, lane);
+    if (lane == 0) p.tot[col] = s;
+  }
+  grid.sync();
+  for (int col = tid; col < 2 * p.C; col += kThreads)
+    sums[col] = __ldcg(p.tot + (size_t)t * 2 * p.C + col);
+  __syncthreads();
+  // -- the per-channel values; the first chunk's block writes dgamma and
+  // dbeta, each rounded once --------------------------------------------
+  const float inv_m = p.inv_m;
+  for (int c = tid; c < CP; c += kThreads) {
+    float v[kN];
+#pragma unroll
+    for (int k = 0; k < kN; ++k) v[k] = 0.f;  // channels past C
+    if (c < p.C) {
+      const int tc = t * p.C + c;
+      const float m = __bfloat162float(p.mean[tc]);
+      const float r = __bfloat162float(p.rstd[tc]);
+      const float g = __bfloat162float(p.gamma[tc]);
+      const float s_dz = sums[c], s_dzx = sums[p.C + c];
+      v[0] = m, v[1] = r, v[2] = g, v[3] = __bfloat162float(p.beta[tc]);
+      v[4] = g * r;
+      v[5] = s_dz * inv_m;
+      v[6] = s_dzx * inv_m;
+      if (blockIdx.x == 0) {
+        p.vec0[tc] = __float2bfloat16_rn(s_dzx);
+        p.vec1[tc] = __float2bfloat16_rn(s_dz);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kN; ++k) cst[k * CP + c] = v[k];
+  }
+  __syncthreads();
+  if (!active) return;
+
+  // -- apply: this thread's windows, last first -------------------------
+  const int mine = last - first - slot;
+  if (mine <= 0) return;
+  for (int i = first + slot + (mine - 1) / p.slots * p.slots; i >= first;
+       i -= p.slots) {
+    int pix, poff;
+    bool h1, w1;
+    window(p, i, pix, h1, w1, poff);
+    uint4 yv[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const bool ok = (!(q >> 1) || h1) && (!(q & 1) || w1);
+      const int off = (pix + (q >> 1) * p.W + (q & 1)) * p.C;
+      yv[q] = ok ? load8<kVec, true>(y + off, nc)
+                 : make_uint4(0u, 0u, 0u, 0u);
+    }
+    uint4 d = make_uint4(0u, 0u, 0u, 0u);
+    uint2 ks = make_uint2(kNoArg, kNoArg);
+    if (poff >= 0) {
+      d = load8<kVec, true>(dp + (size_t)poff * p.C, nc);
+      ks = load_arg8<kVec, true>(arg + (size_t)poff * p.C, nc);
+    }
+    float o[4][kV16];
+#pragma unroll
+    for (int j = 0; j < kV16; ++j) {
+      const float* cj = &cst[c0 + j];
+      const float m = cj[0], r = cj[CP], g = cj[2 * CP], b = cj[3 * CP];
+      const float grs = cj[4 * CP], mdz = cj[5 * CP], mdzx = cj[6 * CP];
+      const int k = arg_of(ks, j);
+      float dzk = 0.f;  // dz at the argmax
+      if (k < 4) {
+        const float v = pick8(yv, k, j);
+        const float z = maml::bn_z_bf16(v, m, r, g, b);
+        const float dj = chan(d, j);
+        dzk = z >= 0.f ? dj : dj * slope;
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float x = maml::bn_xhat(chan(yv[q], j), m, r);
+        const float dz = k == q ? dzk : 0.f;
+        o[q][j] = grs * (dz - mdz - x * mdzx);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const bool ok = (!(q >> 1) || h1) && (!(q & 1) || w1);
+      if (ok)
+        store8<kVec>(p.out + img + (pix + (q >> 1) * p.W + (q & 1)) * p.C,
+                     o[q], nc);
+    }
+  }
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads, 2)
+    bn_act_pool_bwd_bf16_kernel(const Bf16Args p) {
+  bwd_body_bf16<kVec>(p);
+}
+
 template <int kS, bool kVec>
 const void* kernel() {
   if constexpr (kS == 2)
     return reinterpret_cast<const void*>(bn_act_pool_bwd_kernel<kVec>);
   else
     return reinterpret_cast<const void*>(bn_act_pool_bwd_bwd_kernel<kVec>);
+}
+
+template <bool kVec>
+const void* bf16_kernel() {
+  return reinterpret_cast<const void*>(bn_act_pool_bwd_bf16_kernel<kVec>);
 }
 
 inline int cdiv(int a, int b) { return (a + b - 1) / b; }
@@ -452,15 +753,17 @@ inline bool aligned(const void* p, unsigned long long bytes) {
 }
 
 // The geometry of the plan (kernels/conv_block.py::bn_bwd_plan) at this
-// shape; false where the shape or the plan does not match it.
-bool bwd_geom(BwdArgs& p, int T, int N, int H, int W, int C, int blocks,
+// shape, a channel group V channels (4 f32, 8 bf16); false where the shape
+// or the plan does not match it.
+template <typename A>
+bool bwd_geom(A& p, int V, int T, int N, int H, int W, int C, int blocks,
               int chunk, int slots, int threads) {
   if (T < 1 || T > 65535 || N < 1 || H < 2 || W < 2 || C < 1 || C > kMaxC ||
       threads != kThreads)
     return false;
   if ((long long)N * H * W * C >= (1LL << 31)) return false;
   p.N = N, p.H = H, p.W = W, p.C = C;
-  p.G = cdiv(C, 4);
+  p.G = cdiv(C, V);
   p.Ho = H / 2, p.Wo = W / 2, p.Hc = cdiv(H, 2), p.Wc = cdiv(W, 2);
   p.windows = N * p.Hc * p.Wc;
   p.slots = slots, p.chunk = chunk, p.blocks = blocks;
@@ -499,12 +802,14 @@ cudaError_t run(const BwdArgs& p, int T, int vec, cudaStream_t st) {
 extern "C" {
 
 // The blocks of 256 threads a SM can hold of the one-launch kernel of K3
-// (sums 2) or K5 (sums 5), vector (vec 1) or scalar loads: the plan's
-// `blocks_per_sm`, as the cooperative launch requires every block
-// resident at once. Returns the CUDA error, 0 on success.
-int bn_act_pool_bwd_blocks_per_sm(int sums, int vec, int* blocks) {
-  if (sums != 2 && sums != 5) return (int)cudaErrorInvalidValue;
-  const void* k = sums == 2
+// (sums 2) or K5 (sums 5), vector (vec 1) or scalar loads, f32 or (K3 only)
+// bf16: the plan's `blocks_per_sm`, as the cooperative launch requires
+// every block resident at once. Returns the CUDA error, 0 on success.
+int bn_act_pool_bwd_blocks_per_sm(int sums, int vec, int bf16, int* blocks) {
+  if ((sums != 2 && sums != 5) || (bf16 && sums != 2))
+    return (int)cudaErrorInvalidValue;
+  const void* k = bf16 ? (vec ? bf16_kernel<true>() : bf16_kernel<false>())
+                  : sums == 2
                       ? (vec ? kernel<2, true>() : kernel<2, false>())
                       : (vec ? kernel<5, true>() : kernel<5, false>());
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k,
@@ -525,7 +830,7 @@ int bn_act_pool_bwd_f32(const float* dp, const uint8_t* arg, const float* y,
                         int chunk, int slots, int threads, int vec,
                         float slope, float inv_m, void* stream) {
   BwdArgs p = {};
-  if (!bwd_geom(p, T, N, H, W, C, blocks, chunk, slots, threads))
+  if (!bwd_geom(p, 4, T, N, H, W, C, blocks, chunk, slots, threads))
     return (int)cudaErrorInvalidValue;
   p.y = y, p.dp = dp, p.arg = arg, p.mean = mean, p.rstd = rstd;
   p.gamma = gamma, p.beta = beta, p.out = dy, p.vec0 = dgamma;
@@ -549,13 +854,44 @@ int bn_act_pool_bwd_bwd_f32(const float* a, const float* ggamma,
                             int threads, int vec, float slope, float inv_m,
                             void* stream) {
   BwdArgs p = {};
-  if (!bwd_geom(p, T, N, H, W, C, blocks, chunk, slots, threads))
+  if (!bwd_geom(p, 4, T, N, H, W, C, blocks, chunk, slots, threads))
     return (int)cudaErrorInvalidValue;
   p.y = y, p.a = a, p.dp = dp, p.arg = arg, p.mean = mean, p.rstd = rstd;
   p.gamma = gamma, p.beta = beta, p.ggamma = ggamma, p.gbeta = gbeta;
   p.out = g_y, p.gdp = g_dp, p.vec0 = g_gamma, p.part = part, p.tot = tot;
   p.slope = slope, p.inv_m = inv_m;
   return (int)run<5>(p, T, vec, static_cast<cudaStream_t>(stream));
+}
+
+// K3 in bf16: the arguments of bn_act_pool_bwd_f32, every tensor but the
+// argmax and the f32 scratch bf16; `vec` the 16-byte loads (C % 8 == 0,
+// every bf16 tensor 16-byte aligned, the argmax 8-byte).
+int bn_act_pool_bwd_bf16(const bf16_t* dp, const uint8_t* arg,
+                         const bf16_t* y, const bf16_t* mean,
+                         const bf16_t* rstd, const bf16_t* gamma,
+                         const bf16_t* beta, bf16_t* dy, bf16_t* dgamma,
+                         bf16_t* dbeta, float* part, float* tot, int T, int N,
+                         int H, int W, int C, int blocks, int chunk,
+                         int slots, int threads, int vec, float slope,
+                         float inv_m, void* stream) {
+  Bf16Args p = {};
+  if (!bwd_geom(p, kV16, T, N, H, W, C, blocks, chunk, slots, threads))
+    return (int)cudaErrorInvalidValue;
+  p.y = y, p.dp = dp, p.arg = arg, p.mean = mean, p.rstd = rstd;
+  p.gamma = gamma, p.beta = beta, p.out = dy, p.vec0 = dgamma;
+  p.vec1 = dbeta, p.part = part, p.tot = tot;
+  p.slope = slope, p.inv_m = inv_m;
+  if (vec && !(C % kV16 == 0 && aligned(y, 16) && aligned(dp, 16) &&
+               aligned(arg, 8) && aligned(mean, 16) && aligned(rstd, 16) &&
+               aligned(gamma, 16) && aligned(beta, 16) && aligned(dy, 16)))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(p.blocks, T), block(kThreads);
+  void* args[] = {&p};
+  const void* k = vec ? bf16_kernel<true>() : bf16_kernel<false>();
+  const cudaError_t err = cudaLaunchCooperativeKernel(
+      k, grid, block, args, 0, static_cast<cudaStream_t>(stream));
+  const cudaError_t last = cudaGetLastError();
+  return (int)(err != cudaSuccess ? err : last);
 }
 
 }  // extern "C"

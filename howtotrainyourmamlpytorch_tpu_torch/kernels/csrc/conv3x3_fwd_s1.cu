@@ -46,7 +46,7 @@
 //   chunks.
 // * Each output's sum runs over (kh, kw, ci) in order with FFMA, one thread
 //   from the first product to the last: the order of the tile kernel it
-//   replaces (conv3x3_tile.cuh) and of the plain conv's GEMM over the
+//   replaced and of the plain conv's GEMM over the
 //   (kh, kw, ci) patch rows where that GEMM sums in order too: y is the
 //   tile's bit for bit and, at the main path's shapes, the plain conv's, so
 //   a block built on it takes the plain block's pool and sign decisions

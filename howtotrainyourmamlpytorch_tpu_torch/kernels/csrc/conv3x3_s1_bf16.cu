@@ -15,8 +15,8 @@
 // conv3x3_bwd_s1.cu: the JAX package multiplies f32 in true f32); bf16
 // wgrad at stride 1 runs conv3x3_wgrad_s1_bf16.cu (the same ldmatrix and
 // mma.sync helpers, mma_common.cuh), K1 and dgrad at stride 2
-// conv3x3_s2.cu (the same design on stride-2 bands), wgrad at stride 2 the
-// tile of conv3x3_bwd.cu.
+// conv3x3_s2.cu (the same design on stride-2 bands), wgrad at stride 2
+// conv3x3_wgrad_s2.cu.
 //
 // Bound on an H100 (989 TFLOP/s dense bf16; 3.35 TB/s): the bytes, at every
 // main-path shape. At cin <= 3 (mini-ImageNet stage 0, Omniglot layer 1)

@@ -10,7 +10,8 @@
 // `_conv2d_raw` at stride 2 in XLA's second derivative (conv3x3(ddx, w),
 // and conv3x3(x, ddw) + ddb) in conv3x3_s2_fwd; and the gradient XLA
 // derives for `_conv2d_raw` at stride 2 with respect to x in
-// conv3x3_s2_dgrad. The stride-2 wgrad runs conv3x3_bwd.cu's tile.
+// conv3x3_s2_dgrad. The stride-2 wgrad runs conv3x3_wgrad_s2.cu (the
+// stride-1 band and tensor-core wgrad designs, with these planes in bf16).
 //
 // Bound on an H100 (67 TFLOP/s FFMA, 989 dense bf16; 3.35 TB/s): the useful
 // FLOPs in f32 at 48 and 64 channels, the bytes at cin 1 and 3 and in bf16

@@ -8,9 +8,9 @@
 // with respect to w and b at compute_dtype='bfloat16', in the inner-loop
 // support gradient (core/maml.py::_task_learner) and the outer backward:
 // the rows conv3x3_wgrad_bf16 (pad 1) and conv3x3_p0_wgrad_bf16 (pad 0).
-// They ran on the FFMA tile of conv3x3_bwd.cu, whose bf16 wgrad entry now
-// refuses stride 1; wgrad at stride 2 stays on that tile, f32 at stride 1
-// on the band kernel of conv3x3_bwd_s1.cu.
+// They ran on an FFMA tile kernel before; wgrad at stride 2 runs
+// conv3x3_wgrad_s2.cu (this design on the source's even and odd column
+// planes), f32 at stride 1 the band kernel of conv3x3_bwd_s1.cu.
 //
 // Bound on an H100 (989 TFLOP/s dense bf16; 3.35 TB/s): the bytes, at every
 // main-path shape. Per tenant M = 9 cin (tap x source channel), N = cout,
@@ -635,38 +635,42 @@ extern "C" {
 // dw (T, 3, 3, cin, cout) and db (T, cout) of the stride-1 conv at `pad` (1
 // or 0) from x (T, N, H, W, cin) and dy (T, N, Ho, Wo, cout), Ho = H + 2*pad
 // - 2 (Wo likewise), all bf16; part_w (T, splits, 9*cin*cout) and part_b
-// (T, splits, cout) f32 scratch. The plan (kernels/conv_block.py
-// ::wgrad_plan, kernel "mma"): `band_rows`, `m_tiles` (source channels a
-// block: 16 m_tiles; packed at cin <= 3, the packed K / 16), `channels` of
-// cout a block, `splits` a tenant, `threads`, `smem`, checked here against
-// the geometry they follow from. Two launches on `stream` (the products,
-// the reduce); returns the first CUDA error, 0 on success.
-int conv3x3_wgrad_mma(const __nv_bfloat16* x, const __nv_bfloat16* dy,
-                      float* part_w, float* part_b, __nv_bfloat16* dw,
-                      __nv_bfloat16* db, int T, int N, int H, int W, int pad,
-                      int cin, int cout, int band_rows, int m_tiles,
-                      int channels, int splits, int threads, int smem,
-                      void* stream) {
+// (T, splits, cout) f32 scratch. The arguments come packed (wgrad_reduce.cuh:
+// WgradCall); the plan (kernels/conv_block.py::wgrad_plan, kernel "mma"):
+// `band_rows`, `m_tiles` (source channels a block: 16 m_tiles; packed at
+// cin <= 3, the packed K / 16), `channels` of cout a block, `splits` a
+// tenant, `threads`, `smem`, checked here against the geometry they follow
+// from. Two launches on the stream (the products, the reduce); returns the
+// first CUDA error, 0 on success.
+int conv3x3_wgrad_mma(const long long* a) {
   using namespace maml;
+  const WgradCall c = unpack_wgrad(a);
+  const int T = c.T, N = c.N, H = c.H, W = c.W, cin = c.cin, cout = c.cout,
+            m_tiles = c.m_tiles, channels = c.channels, splits = c.splits,
+            threads = c.threads, smem = c.smem;
+  const bf16* x = static_cast<const bf16*>(c.x);
+  const bf16* dy = static_cast<const bf16*>(c.dy);
   WgradMmaGeom g;
-  if (!wgrad_mma_geom(g, T, N, H, W, pad, cin, cout, band_rows, m_tiles,
+  if (!wgrad_mma_geom(g, T, N, H, W, c.pad, cin, cout, c.band_rows, m_tiles,
                       channels, splits, threads, smem))
     return (int)cudaErrorInvalidValue;
   const LaunchFn launch = wgrad_mma_launcher(cin, m_tiles, channels / 8);
   if (launch == nullptr) return (int)cudaErrorInvalidValue;
+  const WgradDevice on(c.device);
+  if (on.err != cudaSuccess) return (int)on.err;
   const bool packed = cin <= 3;
   g.vec_x = packed ? (W * cin) % 2 == 0 &&
                            (reinterpret_cast<unsigned long long>(x) & 3) == 0
                      : cin % 8 == 0 && aligned16(x);
   g.vec_dy = cout % 8 == 0 && aligned16(dy);
   const int ci_chunks = packed ? 1 : cdiv(cin, 16 * m_tiles);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = launch(x, dy, part_w, part_b, g,
+  cudaError_t err = launch(x, dy, c.part_w, c.part_b, g,
                            dim3(splits, ci_chunks * g.co_chunks, T), threads,
-                           smem, st);
+                           smem, c.stream);
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_wgrad_reduce<bf16>(part_w, part_b, dw, db, T, splits,
-                                        9 * cin * cout, cout, st);
+  return (int)launch_wgrad_reduce<bf16>(
+      c.part_w, c.part_b, static_cast<bf16*>(c.dw), static_cast<bf16*>(c.db),
+      T, splits, 9 * cin * cout, cout, c.stream);
 }
 
 }  // extern "C"

@@ -22,14 +22,13 @@ read from the checkout it runs in), weights from the config's seed:
   bf16 stride-1 tensor-core kernel's forward instantiations), K4 dgrad's
   (every kernel whose name holds ``dgrad``, and that kernel's dgrad
   instantiations), K4 wgrad's (every kernel whose name holds ``wgrad``:
-  the f32 band kernel, the bf16 tensor-core kernel or the tile, and the
-  reduce of their split partials), K2's (``bn_act_pool_fwd``; pool-free, the
+  the f32 band kernels, the bf16 tensor-core kernels, and the reduce of
+  their split partials), K2's (``bn_act_pool_fwd``; pool-free, the
   norm-first block's ``batch_norm_fwd``, every kernel whose name holds
   ``bn_act_fwd``), K3's and K5's (every kernel whose name holds
-  ``bn_act_pool_bwd``, and ``bn_act_pool_bwd_bwd`` for K5: the Triton
-  passes or the one CUDA kernel; a Triton K3's sum of its partials is a
-  PyTorch reduction, not counted here) and the largest kernels by device
-  time.
+  ``bn_act_pool_bwd``, and ``bn_act_pool_bwd_bwd`` for K5: the one CUDA
+  kernel, or the bf16 K5's Triton passes) and the largest kernels by
+  device time.
 
 Prints one line per measurement with the card's ``nvidia-smi`` line first.
 Needs one card.

@@ -1,7 +1,8 @@
-"""Time K1 (with statistics and stats-free) and K4 dgrad at stride 2, in f32
-and bf16, pad 1 and 0, at every stride-2 shape the shipped configs give
-them, beside one PyTorch call that computes the same conv (grouped
-``F.conv2d(stride=2)``, ``conv2d_input``) and the bound; with ``--e2e``,
+"""Time K1 (with statistics and stats-free) and K4 dgrad and wgrad at stride
+2, in f32 and bf16, pad 1 and 0, at every stride-2 shape the shipped configs
+give them, beside one PyTorch call that computes the same conv (grouped
+``F.conv2d(stride=2)``, ``conv2d_input``, ``conv2d_weight``) and the bound;
+with ``--e2e``,
 the stride-2 models' steps and dispatches as well: the check that one
 build's stride-2 convs are faster than another's, compared in one process
 run after the other on one card.
@@ -12,14 +13,14 @@ run after the other on one card.
 Run by path, so that ``PYTHONPATH`` picks the package whose kernels are
 built and launched (each checkout builds its own into its own
 ``_build/``); the script uses only the wrappers ``conv3x3_fwd_stats``,
-``conv3x3_fwd`` and ``conv3x3_dgrad`` and the train and serve entry points,
-which every build has. Inputs come from a numpy seed, T = 8 tenants: the
+``conv3x3_fwd``, ``conv3x3_dgrad`` and ``conv3x3_wgrad`` and the train and
+serve entry points, which every build has. Inputs come from a numpy seed, T = 8 tenants: the
 strided Omniglot model's layers 1-4 (28/14/7/4, cin 1 then 64, cout 64,
 pad 1) at N = 20, the unpadded strided mini-ImageNet model's stages 0-3
 (84/41/20/9, cin 3 then 48, cout 48, pad 0) with statistics at N = 75 and
 stats-free (with the bias, as Wgrad's backward passes it) and dgrad at N =
 25; dgrad at layers 2-4 and, for the norm-first models, back to the image
-(cin 1 and 3). Per row: the wrapper's time by CUDA events (host time
+(cin 1 and 3); wgrad (with the bias) at every layer at N = 20 and 25. Per row: the wrapper's time by CUDA events (host time
 included: ``card_timing.time_ms``, every row timed before the first
 profile), its kernels' device time by ``torch.profiler`` (every kernel
 whose name holds ``conv3x3`` and the statistics' merge), the library
@@ -33,7 +34,8 @@ _0.1_64_0.json`` with ``max_pooling=False``) in f32 and bf16 and, in bf16,
 of the unpadded strided mini-ImageNet model (the mini-ImageNet MAML++
 config with ``conv_padding=False, max_pooling=False``, batch 2) and one
 warm bucket-8 serve dispatch of it: the device's busy time and the
-stride-2 K1 and dgrad kernels' device time and launches. Prints one line
+stride-2 K1, dgrad and wgrad kernels' device time and launches (in these
+models every wgrad is at stride 2). Prints one line
 per row with the card's ``nvidia-smi`` line first and (with ``--out``)
 writes every row as JSON. Needs one card.
 """
@@ -80,15 +82,20 @@ def _is_k1(key):
             or S2_MMA in key and not _is_dgrad(key))
 
 
+def _is_wgrad(key):
+    return "wgrad" in key
+
+
 def cases():
     """(model, pad, cout, layer, H = W, cin, N, mode) of every row: K1 in
     both modes, dgrad at every layer (back to the image at the first: the
-    norm-first models)."""
+    norm-first models), wgrad at every layer."""
     for model, pad, cout, n_stats, n, layers in CASES:
         for layer, hw, cin in layers:
             yield model, pad, cout, layer, hw, cin, n_stats, "stats"
             yield model, pad, cout, layer, hw, cin, n, "stats-free"
             yield model, pad, cout, layer, hw, cin, n, "dgrad"
+            yield model, pad, cout, layer, hw, cin, n, "wgrad"
 
 
 def calls(cb, dtype, pad, cout, hw, cin, n, mode):
@@ -108,10 +115,16 @@ def calls(cb, dtype, pad, cout, hw, cin, n, mode):
     wl = w.permute(0, 4, 3, 1, 2).reshape(T * cout, cin, 3, 3).contiguous()
     M = n * ho * ho  # output (dy) pixels a tenant
     flops = 2 * T * M * 9 * cin * cout
-    if mode == "dgrad":
+    if mode in ("dgrad", "wgrad"):
         dy = r(T, n, ho, ho, cout)
         dyl = dy.permute(1, 0, 4, 2, 3).reshape(
             n, T * cout, ho, ho).contiguous()
+        if mode == "wgrad":  # dw and db: each output written once
+            return (lambda: torch.nn.grad.conv2d_weight(
+                        xl, wl.shape, dyl, stride=2, padding=pad, groups=T),
+                    lambda: cb.conv3x3_wgrad(x, dy, 2, pad),
+                    flops + T * M * cout,
+                    x.numel() + dy.numel() + w.numel() + T * cout)
         return (lambda: torch.nn.grad.conv2d_input(
                     xl.shape, wl, dyl, stride=2, padding=pad, groups=T),
                 lambda: cb.conv3x3_dgrad(dy, w, 2, (hw, hw), pad),
@@ -168,7 +181,8 @@ def rows(label):
     return out
 
 
-PARTS = (("K1 s2", _is_k1), ("dgrad s2", _is_dgrad))
+PARTS = (("K1 s2", _is_k1), ("dgrad s2", _is_dgrad),
+         ("wgrad s2", _is_wgrad))
 
 
 def e2e(label):

@@ -26,7 +26,9 @@ import torch
 from howtotrainyourmamlpytorch_tpu.ops import functional as JF
 from howtotrainyourmamlpytorch_tpu_torch.kernels import conv_block as cb
 from howtotrainyourmamlpytorch_tpu_torch.ops import functional as F
+from test_torch_conv_mma_plan import _ulp, _within_ulp
 
+BF16 = torch.bfloat16
 SMS = 132  # an H100 SXM's SMs
 # (H = W, C) of each pooled conv output: mini-ImageNet pad 1 and pad 0,
 # Omniglot
@@ -113,14 +115,21 @@ def test_the_flagship_plans_fill_the_card_at_batch_2():
 
 @pytest.mark.parametrize("shape", [(2, 25, 84, 84, 48), (8, 20, 7, 7, 64),
                                    (2, 3, 11, 9, 17)], ids=str)
-def test_bf16_and_pool_free_keep_the_triton_kernels(shape):
-    """The dtype alone decides the pooled route: bf16 plans the Triton
-    kernels, f32 the CUDA ones. The pool-free modes never plan: their
-    wrappers (``bn_act_bwd``, ``batch_norm_bwd`` and their derivatives)
-    launch the Triton kernels, bit for bit the parent's on the card
-    (``tests/test_torch_kernels_cuda.py``)."""
-    assert cb.bn_bwd_plan(*shape, SMS, 2, bf16=True).kernel == "triton"
-    assert cb.bn_bwd_plan(*shape, SMS, 2).kernel == "cuda"
+def test_bf16_k3_plans_the_cuda_kernel_in_groups_of_8(shape):
+    """Both dtypes plan K3 on the CUDA kernel: f32 a thread 4 channels (one
+    16-byte load of f32), bf16 8 (one of bf16), so a bf16 block takes
+    twice the windows at a time; the bf16 K5 stays on the Triton kernels
+    (``_bn_bwd_route`` decides, on the card). The pool-free modes never
+    plan: their wrappers (``bn_act_bwd``, ``batch_norm_bwd`` and their
+    derivatives) launch csrc/bn_act_bwd.cu and the Triton K5."""
+    T, N, H, W, C = shape
+    f32 = cb.bn_bwd_plan(*shape, SMS, 2)
+    bf16 = cb.bn_bwd_plan(*shape, SMS, 2, bf16=True)
+    assert f32.kernel == bf16.kernel == "cuda"
+    assert (f32.groups, bf16.groups) == (-(-C // 4), -(-C // 8))
+    assert bf16.slots == 256 // bf16.groups >= f32.slots
+    assert bf16.windows == f32.windows == N * -(-H // 2) * -(-W // 2)
+    assert cb.BN_BWD_GROUP == {False: 4, True: 8}
 
 
 def test_bn_bwd_plan_refuses_what_the_card_cannot_hold():
@@ -331,3 +340,155 @@ def test_emulated_k3_and_k5_equal_the_jax_vjp_once_and_twice():
             _close(got, torch.from_numpy(np.array(want)), what)
         # beta enters only through the piecewise-constant masks
         assert float(jnp.abs(want5[3]).max()) == 0.0
+
+
+# -- K3 in bf16 ------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("bps", (2, 3))
+@pytest.mark.parametrize("shape", MAIN_SHAPES, ids=str)
+def test_bf16_plan_covers_each_window_once_and_fits_the_card(shape, bps):
+    """The bf16 K3's plan: 8 channels a thread (one 16-byte load), 256 //
+    ceil(C / 8) windows at a time, the chunks whole slots of windows that
+    tile each tenant's windows once, every block co-resident."""
+    T, N, hw, C = shape
+    plan = cb.bn_bwd_plan(T, N, hw, hw, C, SMS, bps, bf16=True)
+    assert plan == cb.bn_bwd_plan(T, N, hw, hw, C, SMS, bps, bf16=True)
+    blocks, grid_t = plan.grid
+    assert plan.kernel == "cuda" and grid_t == T
+    assert plan.groups == -(-C // 8) and plan.slots == 256 // plan.groups
+    assert plan.windows == N * (-(-hw // 2)) ** 2
+    assert plan.chunk % plan.slots == 0 and plan.chunk >= plan.slots
+    assert (blocks - 1) * plan.chunk < plan.windows <= blocks * plan.chunk
+    assert blocks * T <= SMS * bps
+    assert blocks * T >= min(SMS, T * -(-plan.windows // plan.slots))
+
+
+def _bf16(v):
+    return v.to(BF16).float()
+
+
+def _emulated_k3_bf16(plan, dp, arg, y, mean, rstd, gamma, beta, slope):
+    """The bf16 K3 as the kernel orders and rounds it: the masks by K2's
+    chain (each op of ``(y - mean) * rstd * gamma + beta`` rounded to
+    bf16), xhat in f32 from the bf16 values, the sums of dz and dz xhat in
+    the plan's order (``_emulated_sum``), dy from them; dy, dgamma and dbeta
+    each rounded once to bf16."""
+    H, W = y.shape[2:4]
+    y, mean, rstd, gamma, beta, dp = (
+        v.float() for v in (y, mean, rstd, gamma, beta, dp))
+    xhat = (y - _pc(mean)) * _pc(rstd)
+    z = _bf16(_bf16(_bf16(_bf16(y - _pc(mean)) * _pc(rstd)) * _pc(gamma))
+              + _pc(beta))
+    dz = F._unpool(dp, arg, H, W)
+    dz = torch.where(z >= 0, dz, dz * slope)
+    s_dz = _emulated_sum(plan, _windows(dz))
+    s_dzx = _emulated_sum(plan, _windows(dz * xhat))
+    inv_m = 1.0 / (y.shape[1] * H * W)
+    dy = _pc(gamma * rstd) * (dz - _pc(s_dz * inv_m)
+                              - xhat * _pc(s_dzx * inv_m))
+    return dy.to(BF16), s_dzx.to(BF16), s_dz.to(BF16)
+
+
+def _bf16_inputs(T, N, H, W, C, seed):
+    """K3's bf16 inputs: y whose four positions of each window lie at least
+    0.1 apart (0.3 steps in a random order, uniform noise within 0.1: no
+    window ties in bf16, so the f32 block's argmax is the bf16 chain's and
+    no tie splits JAX's gradient of the max), its bf16 statistics, gamma,
+    beta, the twin K2's argmax and a pooled gradient."""
+    rng = np.random.RandomState(seed)
+    Hc, Wc = -(-H // 2), -(-W // 2)
+    steps = np.argsort(rng.rand(T, N, Hc, Wc, C, 4), axis=-1) * 0.3
+    steps = steps.reshape(T, N, Hc, Wc, C, 2, 2).transpose(
+        0, 1, 2, 5, 3, 6, 4).reshape(T, N, 2 * Hc, 2 * Wc, C)
+    y = (steps[:, :, :H, :W] + rng.uniform(-0.1, 0.1, (T, N, H, W, C))
+         + 0.05 * rng.randn(T, N, 1, 1, C) - 0.4)
+    y = torch.from_numpy(y.astype(np.float32)).to(BF16)
+    mean, _, rstd = F.bn_stats(y)
+    gamma = torch.from_numpy(
+        (1.0 + 0.1 * rng.randn(T, C)).astype(np.float32)).to(BF16)
+    beta = torch.from_numpy((0.1 * rng.randn(T, C)).astype(np.float32)).to(
+        BF16)
+    _, arg = F.bn_act_pool_fwd(y, mean, rstd, gamma, beta)
+    dp = torch.from_numpy(rng.randn(T, N, H // 2, W // 2, C).astype(
+        np.float32)).to(BF16)
+    return dp, arg, y, mean, rstd, gamma, beta
+
+
+@pytest.mark.parametrize("shape", EMULATED, ids=str)
+def test_emulated_bf16_k3_equals_the_twin(shape):
+    """Within one bf16 ulp or 1e-4 of the output's scale (the card's gate):
+    the twin sums dz and dz xhat in another order."""
+    T, N, H, W, C, sms, bps = shape
+    plan = cb.bn_bwd_plan(T, N, H, W, C, sms, bps, bf16=True)
+    k3 = _bf16_inputs(T, N, H, W, C, sum(shape))
+    slope = F.scalar_like(F.LEAKY_SLOPE, k3[2])
+    got = _emulated_k3_bf16(plan, *k3, slope)
+    for g, w, what in zip(got, F.bn_act_pool_bwd(*k3),
+                          ("dy", "dgamma", "dbeta")):
+        _within_ulp(g, w, what)
+
+
+def _jax_decisions(y, gamma, beta):
+    """The JAX block's pool argmax (first maximum) and leaky signs at each
+    argmax, in its own dtype."""
+    z, _, _ = JF.batch_norm(y, gamma, beta, None, None, eps=F.BN_EPS)
+    a = JF.leaky_relu(z, F.LEAKY_SLOPE)
+    H, W, C = a.shape[1:]
+    win = a[:, :H // 2 * 2, :W // 2 * 2].reshape(
+        -1, H // 2, 2, W // 2, 2, C).transpose(0, 1, 3, 5, 2, 4).reshape(
+        -1, H // 2, W // 2, C, 4)
+    zw = z[:, :H // 2 * 2, :W // 2 * 2].reshape(
+        -1, H // 2, 2, W // 2, 2, C).transpose(0, 1, 3, 5, 2, 4).reshape(
+        -1, H // 2, W // 2, C, 4)
+    k = jnp.argmax(win, axis=-1)
+    return (np.array(k),
+            np.array(jnp.take_along_axis(zw, k[..., None], -1)[..., 0] >= 0))
+
+
+def test_emulated_bf16_k3_equals_the_jax_vjp():
+    """At a small odd map (9 x 7: the pool drops a row and a column) cut
+    over several blocks, per tenant, the emulated bf16 K3 against
+    ``jax.vjp`` of the JAX block: (1) the bf16 block's decisions (its pool
+    argmax and leaky signs, from the bf16 ``jax.vjp``'s forward) are the
+    twin K2's; (2) against the f32 ``jax.vjp`` on the same bf16 values,
+    whose decisions are the same on these inputs (asserted), each output
+    rounded once: within 2 bf16 ulps or 1e-3 of the output's scale (the
+    kernel takes K1's statistics rounded to bf16, the f32 block its own);
+    (3) against the bf16 ``jax.vjp``: no farther than that vjp lies from
+    the f32 one, plus one ulp (XLA:CPU sums the bf16 gradient's reductions
+    in a bf16 accumulator, the kernel in f32)."""
+    T, N, H, W, C, sms, bps = (2, 3, 9, 7, 48, 4, 2)
+    plan = cb.bn_bwd_plan(T, N, H, W, C, sms, bps, bf16=True)
+    assert plan.grid[0] > 1
+    k3 = _bf16_inputs(T, N, H, W, C, 13)
+    dp, arg, y, mean, rstd, gamma, beta = k3
+    slope = F.scalar_like(F.LEAKY_SLOPE, y)
+    got = _emulated_k3_bf16(plan, *k3, slope)
+    z = F._affine_act(y, mean, rstd, gamma, beta)[1]
+    sign = torch.gather(F._windows(z), -1,
+                        arg.long().unsqueeze(-1)).squeeze(-1) >= 0
+    win = F._windows(F.bn_act_fwd(y, mean, rstd, gamma, beta))
+    assert ((win == win.max(-1, keepdim=True).values).sum(-1) == 1).all()
+    with jax.disable_jit():
+        for t in range(T):
+            j16 = [jnp.asarray(v[t].float().numpy()).astype(jnp.bfloat16)
+                   for v in (dp, y, gamma, beta)]
+            j32 = [v.astype(jnp.float32) for v in j16]
+            for j in (j16, j32):
+                k, pos = _jax_decisions(*j[1:])
+                assert np.array_equal(k, arg[t].numpy().astype(np.int64))
+                assert np.array_equal(pos, sign[t].numpy())
+            want32 = _jax_k3(*j32)
+            want16 = _jax_k3(*j16)
+            for i, what in enumerate(("dy", "dgamma", "dbeta")):
+                g = got[i][t].double()
+                w32 = torch.from_numpy(np.array(want32[i])).double()
+                w16 = torch.from_numpy(
+                    np.array(want16[i].astype(jnp.float32))).double()
+                ulp = _ulp(w32.to(BF16))
+                tol = torch.clamp_min(2 * ulp, 1e-3 * w32.abs().max().item())
+                assert ((g - w32.to(BF16).double()).abs() <= tol).all(), what
+                spread = (w16 - w32).abs().max().item()
+                assert ((g - w16).abs() <= spread + _ulp(w16.to(BF16))
+                        ).all(), what

@@ -121,30 +121,25 @@ def test_the_large_band_plans_are_what_the_design_says(shape):
 @pytest.mark.parametrize("shape", [
     (8, 20, 28, 1, 64, 2), (8, 25, 84, 3, 48, 2), (8, 25, 42, 48, 48, 1),
     (2, 25, 41, 48, 48, 1)], ids=str)
-def test_bf16_and_stride_2_keep_the_tile_kernels_split_rule(shape):
-    """Both dtypes at stride 2 run the wgrad tile kernel with its split
-    rule as it was (about 16 blocks a SM, at least 512 pixels a split), so
-    their results keep their bits (dgrad at stride 2 runs
-    csrc/conv3x3_s2.cu: tests/test_torch_conv_s2_plan.py). bf16 at stride
-    1 runs the tensor-core kernels: wgrad on ``wgrad_plan``'s mma grid
-    (csrc/conv3x3_wgrad_s1_bf16.cu), dgrad on ``mma_plan``'s
-    (csrc/conv3x3_s1_bf16.cu)."""
+def test_bf16_and_stride_2_plan_the_mma_and_s2_kernels(shape):
+    """The dtype and the stride decide the wgrad kernel: f32 at stride 1
+    the band kernel (above), at stride 2 its stride-2 form (``"s2"``,
+    csrc/conv3x3_wgrad_s2.cu); bf16 the tensor-core kernels, ``"mma"`` at
+    stride 1 (csrc/conv3x3_wgrad_s1_bf16.cu) and ``"s2_mma"`` at stride 2;
+    every one on its own grid (splits, chunks or slices, tenants) with one
+    partial a split. bf16 dgrad at stride 1 runs ``mma_plan``'s grid
+    (csrc/conv3x3_s1_bf16.cu; stride 2: tests/test_torch_conv_s2_plan.py)."""
     T, N, hw, cin, cout, stride = shape
     Ho = (hw - 1) // stride + 1
-    M = N * Ho * Ho
-    blocks = -(-9 * cin // 64) * -(-cout // 16) * T
-    want = max(1, min(-(-16 * SMS // blocks), M // 512, 65535 // T))
     for bf16 in ((False, True) if stride == 2 else (True,)):
         plan = cb.wgrad_plan(T, N, hw, hw, cin, cout, stride, 1, SMS, bf16)
-        if stride == 1:
-            assert plan.kernel == "mma" and plan.grid[2] == T
-            assert plan.grid[0] == plan.splits
-            assert plan.scratch == ((T, plan.splits, 9 * cin * cout),
-                                    (T, plan.splits, cout))
-        else:
-            assert plan.kernel == "tile" and plan.splits == want
-            assert plan.grid == (-(-9 * cin // 64), -(-cout // 16),
-                                 T * want)
+        want = {(1, True): "mma", (2, False): "s2", (2, True): "s2_mma"}
+        assert plan.kernel == want[stride, bf16]
+        assert plan.grid[0] == plan.splits and plan.grid[2] == T
+        assert plan.scratch == ((T, plan.splits, 9 * cin * cout),
+                                (T, plan.splits, cout))
+        assert (plan.bands - 1) * plan.band_rows < Ho <= (plan.bands
+                                                          * plan.band_rows)
         if stride == 1:
             d = cb.dgrad_plan(T, N, hw, hw, cin, cout, stride, 1, SMS, bf16)
             m = cb.mma_plan(T, N, Ho, hw, hw, cout, cin, True, SMS)

@@ -15,7 +15,8 @@ the emulations equal the twins exactly, dx's rows and columns that no
 output reads included (an exact zero). The tap table itself: every tap
 once, dx built from it equal to ``F.conv3x3_dgrad`` in f64 exactly and to
 the JAX package's ``jax.vjp`` of ``_conv2d_raw`` at stride 2 (run eagerly
-on the CPU) within 1e-5 in f32. The stride-2 wgrad still plans the tile.
+on the CPU) within 1e-5 in f32. The stride-2 wgrad's plans and
+emulations: tests/test_torch_wgrad_s2_plan.py.
 
 The kernels themselves run only on the card
 (``tests/test_torch_kernels_cuda.py``).
@@ -141,23 +142,31 @@ def test_dgrad_stride_2_plans_the_band_kernels(shape, bf16):
 @pytest.mark.parametrize("shape", [
     (8, 20, 28, 1, 64), (8, 20, 14, 64, 64), (8, 25, 84, 3, 48),
     (8, 25, 41, 48, 48), (2, 25, 20, 48, 48), (8, 20, 4, 64, 64)], ids=str)
-def test_stride_2_wgrad_still_plans_the_tile(shape):
-    """Both dtypes at stride 2 run the wgrad tile kernel (csrc/
-    conv3x3_bwd.cu) with its split rule as it was (about 16 blocks a SM, at
-    least 512 pixels a split), so its results keep their bits."""
+def test_stride_2_wgrad_plans_the_band_and_mma_kernels(shape):
+    """Both dtypes at stride 2 and both pads run the wgrad kernels of
+    csrc/conv3x3_wgrad_s2.cu: f32 the band kernel (``"s2"``: grid (splits,
+    kernel-row slices x channel tiles, T), all three kernel rows a block at
+    cin <= 4), bf16 the tensor-core kernel (``"s2_mma"``: grid (splits,
+    channel chunks, T), the packed kernel's 8 warps at cin <= 3, a warp a
+    tap above); each with one f32 partial a split
+    (tests/test_torch_wgrad_s2_plan.py holds their emulations)."""
     T, N, hw, cin, cout = shape
     for pad in (1, 0):
         Ho = (hw + 2 * pad - 3) // 2 + 1
-        M = N * Ho * Ho
-        blocks = -(-9 * cin // 64) * -(-cout // 16) * T
-        want = max(1, min(-(-16 * SMS // blocks), M // 512, 65535 // T))
         for bf16 in (False, True):
             plan = cb.wgrad_plan(T, N, hw, hw, cin, cout, 2, pad, SMS, bf16)
-            assert plan.kernel == "tile" and plan.splits == want
-            assert plan.grid == (-(-9 * cin // 64), -(-cout // 16),
-                                 T * want)
-            assert plan.scratch == ((T, want, 9 * cin * cout),
-                                    (T, want, cout))
+            assert plan.kernel == ("s2_mma" if bf16 else "s2")
+            assert plan.grid[0] == plan.splits and plan.grid[2] == T
+            assert (plan.bands - 1) * plan.band_rows < Ho
+            assert Ho <= plan.bands * plan.band_rows
+            if bf16:
+                warps = (cb.WGRAD_MMA_PACKED_WARPS if cin <= 3
+                         else cb.WGRAD_MMA_TAP_WARPS)
+                assert plan.threads == 32 * warps
+            else:
+                assert plan.kernel_rows == (3 if cin <= 4 else 1)
+            assert plan.scratch == ((T, plan.splits, 9 * cin * cout),
+                                    (T, plan.splits, cout))
 
 
 def test_s2_plans_refuse_rows_no_block_holds():

@@ -15,15 +15,21 @@ TypeError of every dtype but f32 and bf16; the layer norm's four kernels
 in bf16 and the layer-norm blocks' second derivative on them; K3 and K5
 in f32, pooled, on their cooperative kernels (``csrc/bn_act_pool_bwd.cu``)
 at every main-path shape and at edge shapes, a second launch bit for bit
-the first, the two-launch variant, the refusal of a shape the plan cannot
-fit, and the bf16 and pool-free K3/K5 still the Triton kernels' bits; K2
+the first, the refusal of a shape the plan cannot fit, and the bf16 and
+pool-free K5 still the Triton kernels' bits; K3 pooled in bf16 on the same
+cooperative kernel at every bf16 main-path shape and at edge shapes, off
+alignment, a second launch bit for bit the first, its entry's refusals and
+no Triton kernel reached; K2
 (``csrc/bn_act_fwd.cu``) pooled and pool-free, f32 and bf16, at every
 main-path shape and at edge shapes, off vector alignment, a second launch
 bit for bit the first, its entries' refusals, and no K2 wrapper reaching
 a Triton kernel; K4 wgrad in bf16 at stride 1 on its tensor-core kernel
 (``csrc/conv3x3_wgrad_s1_bf16.cu``) at every main-path shape and at edge
 shapes, off alignment, a second launch bit for bit the first, and its
-entry's and the tile's refusals; K1 (both modes) and K4 dgrad at stride 2
+entry's refusals; K4 wgrad at stride 2, f32 and bf16, pad 1 and 0
+(``csrc/conv3x3_wgrad_s2.cu``) at every stride-2 main-path shape and at
+edge shapes, off alignment, a second launch bit for bit the first, and its
+entries' refusals; K1 (both modes) and K4 dgrad at stride 2
 on the band kernels of ``csrc/conv3x3_s2.cu``, f32 and bf16, at every
 stride-2 main-path shape and at edge shapes, off alignment, dx's rows and
 columns that no output reads an exact zero, a second launch bit for bit
@@ -1657,6 +1663,152 @@ def test_s2_entries_refuse_a_plan_that_does_not_match(dtype, device):
     assert torch.equal(dx, cb.conv3x3_dgrad(dy, w, 2, (H, W), pad))
 
 
+# K4 wgrad at stride 2, f32 and bf16, pad 1 and 0: csrc/conv3x3_wgrad_s2.cu
+# (the band kernel, ``"s2"``; the tensor-core kernels, ``"s2_mma"``). Every
+# stride-2 shape the shipped configs run — the strided Omniglot model's
+# layers 1-4 (28/14/7/4, cin 1 then 64, cout 64) at N 20, T 8, pad 1; the
+# unpadded strided model's stages 0-3 (84/41/20/9, cin 3 then 48, cout 48)
+# at N 25, T 8 and 2, pad 0 — and edge shapes (S2_EDGE_SHAPES and more):
+# odd and non-square maps (7 -> 4 and 4 -> 2 at pad 1, 9 -> 4 and 20 -> 9
+# at pad 0, the last source row and column of an even map read by no
+# output), T = 1, cin 1, 2, 3 (a whole kernel row a thread; the packed
+# kernel), 5, 17, 20, 48, 64 and 65 (runs of 8, source chunks), cout 1, 3,
+# 4, 12, 20, 33, 65 and 130 (channel groups and n8 tiles padded and masked;
+# output chunks), a split of one band. f32 within 1e-5 + 1e-4 * max |twin|,
+# bf16 ``within_ulp``; one launch on the stride-2 counter; a second launch
+# bit for bit the first.
+S2_WGRAD_MAIN_SHAPES = (
+    [(8, 20, hw, cin, 64, 1)
+     for hw, cin in ((28, 1), (14, 64), (7, 64), (4, 64))]
+    + [(T, 25, hw, cin, 48, 0) for T in (8, 2)
+       for hw, cin in ((84, 3), (41, 48), (20, 48), (9, 48))]
+)
+S2_WGRAD_EDGE_SHAPES = S2_EDGE_SHAPES + [
+    # T, N, H, W, cin, cout, pad
+    (1, 2, 8, 8, 48, 130, 0),
+    (1, 3, 9, 7, 65, 65, 1),
+    (2, 3, 9, 9, 65, 20, 0),
+    (2, 20, 4, 4, 64, 64, 1),
+    (1, 3, 3, 3, 64, 64, 0),
+]
+
+
+def _check_s2_wgrad(T, N, H, W, cin, cout, pad, seed, dtype):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    Ho, Wo = F.conv_out_hw(H, W, 2, pad)
+    x = torch.randn(T, N, H, W, cin, device="cuda", generator=g).to(dtype)
+    dy = torch.randn(T, N, Ho, Wo, cout, device="cuda", generator=g).to(dtype)
+    bf = dtype == torch.bfloat16
+    plan = cb.wgrad_plan(T, N, H, W, cin, cout, 2, pad, cb._sms(x.device), bf)
+    assert plan.kernel == ("s2_mma" if bf else "s2")
+    cb.reset_launches()
+    dw, db = cb.conv3x3_wgrad(x, dy, 2, pad)
+    tag = "_s2" + ("_p0" if pad == 0 else "")
+    assert cb.launches() == {**{k: 0 for k in cb.KERNELS},
+                             f"conv3x3{tag}_wgrad{'_bf16' if bf else ''}": 1}
+    for a, c, what in zip((dw, db), F.conv3x3_wgrad(x, dy, 2, pad),
+                          ("dw", "db")):
+        assert a.dtype == dtype and a.is_contiguous()
+        if bf:
+            within_ulp(a, c, f"wgrad s2 {what}")
+        else:
+            _close(a, c)
+    again = cb.conv3x3_wgrad(x, dy, 2, pad)
+    assert torch.equal(again[0], dw) and torch.equal(again[1], db)
+    torch.cuda.synchronize()
+    return plan
+
+
+@pytest.mark.parametrize("dtype", S2_DTYPES, ids=("f32", "bf16"))
+@pytest.mark.parametrize("shape", S2_WGRAD_MAIN_SHAPES, ids=str)
+def test_s2_wgrad_matches_its_twin_at_main_path_shapes(shape, dtype, device):
+    T, N, hw, cin, cout, pad = shape
+    _check_s2_wgrad(T, N, hw, hw, cin, cout, pad, hw + cin + N + T, dtype)
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("dtype", S2_DTYPES, ids=("f32", "bf16"))
+@pytest.mark.parametrize("shape", S2_WGRAD_EDGE_SHAPES, ids=str)
+def test_s2_wgrad_matches_its_twin_at_edge_shapes(shape, dtype, device):
+    plan = _check_s2_wgrad(*shape, sum(shape), dtype)
+    if shape == (3, 8, 23, 23, 48, 48, 1):
+        assert plan.splits > 1 and plan.bands > 1
+
+
+@pytest.mark.parametrize("dtype", S2_DTYPES, ids=("f32", "bf16"))
+@pytest.mark.parametrize("pad", (1, 0))
+def test_s2_wgrad_takes_tensors_off_16_byte_alignment(pad, dtype, device):
+    """Views one element into their storage (contiguous, so the wrapper
+    takes them): the kernels stage x and dy an element (f32: 4 bytes; the
+    bf16 packed kernel's source rows an element) at a time, with the
+    aligned launch's bits."""
+    for cin in (48, 3, 1):
+        T, N, H, W, cout = 2, 3, 14, 13, 48
+        x = torch.randn(T, N, H, W, cin, device=device).to(dtype)
+        dy = torch.randn(T, N, *F.conv_out_hw(H, W, 2, pad), cout,
+                         device=device).to(dtype)
+
+        def shifted(t):
+            buf = torch.empty(t.numel() + 1, device=t.device, dtype=t.dtype)
+            view = buf[1:].view(t.shape)
+            view.copy_(t)
+            assert view.data_ptr() % 16 != 0
+            return view
+
+        got = cb.conv3x3_wgrad(shifted(x), shifted(dy), 2, pad)
+        want = cb.conv3x3_wgrad(x, dy, 2, pad)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("dtype", S2_DTYPES, ids=("f32", "bf16"))
+def test_s2_wgrad_entries_refuse_a_plan_that_does_not_match(dtype, device):
+    """The stride-2 wgrad entries check the plan's splits, band rows,
+    kernel rows, groups, replicas (f32) or tiles and channels (bf16),
+    threads and shared memory against the geometry they follow from, and
+    launch nothing otherwise; the plan's own launch gives the wrapper's
+    bits."""
+    from howtotrainyourmamlpytorch_tpu_torch.kernels import build
+
+    bf = dtype == torch.bfloat16
+    for T, N, H, W, cin, cout, pad in ((2, 3, 21, 21, 48, 48, 1),
+                                       (2, 3, 20, 20, 3, 48, 0)):
+        Ho, Wo = F.conv_out_hw(H, W, 2, pad)
+        x = torch.randn(T, N, H, W, cin, device=device).to(dtype)
+        dy = torch.randn(T, N, Ho, Wo, cout, device=device).to(dtype)
+        plan = cb.wgrad_plan(T, N, H, W, cin, cout, 2, pad,
+                             cb._sms(device), bf)
+        part = torch.empty(T * plan.splits * (9 * cin + 1) * cout,
+                           device=device)
+        dw = torch.full((T, 3, 3, cin, cout), 7.0, device=device).to(dtype)
+        db = torch.full((T, cout), 7.0, device=device).to(dtype)
+        fn = build.function(*cb._WGRAD_ENTRIES[plan.kernel],
+                            cb._ADDR_ENTRY)
+        stream = torch.cuda.current_stream(device).cuda_stream
+        head = (x.data_ptr(), dy.data_ptr(), part.data_ptr(),
+                part.data_ptr() + 4 * T * plan.splits * 9 * cin * cout,
+                dw.data_ptr(), db.data_ptr(), T, N, H, W, pad, cin, cout)
+        good = [plan.splits, plan.band_rows, plan.kernel_rows, plan.groups,
+                plan.replicas, plan.m_tiles, plan.channels, plan.threads,
+                plan.smem]
+        spoil = [(0, 0), (0, N * plan.bands + 1), (1, Ho + 1),
+                 (7, plan.threads + 32), (8, plan.smem + 16),
+                 (8, plan.smem - 16)]
+        spoil += ([(5, plan.m_tiles + 1), (6, 40)] if bf else
+                  [(2, 2), (3, plan.groups + 1), (4, plan.replicas + 1)])
+        for i, bad in spoil:
+            args = list(good)
+            args[i] = bad
+            packed = cb._packed(*head, *args, device.index, stream)
+            assert fn(packed.buffer_info()[0]) != 0
+        torch.cuda.synchronize()
+        assert bool((dw == 7.0).all()) and bool((db == 7.0).all())
+        packed = cb._packed(*head, *good, device.index, stream)
+        assert fn(packed.buffer_info()[0]) == 0
+        torch.cuda.synchronize()
+        want = cb.conv3x3_wgrad(x, dy, 2, pad)
+        assert torch.equal(dw, want[0]) and torch.equal(db, want[1])
+
+
 def test_k1_band_entries_refuse_a_plan_that_does_not_match(device):
     """The entries check the plan's threads and shared memory against the
     geometry they follow from, and launch nothing otherwise."""
@@ -1994,10 +2146,9 @@ def test_wgrad_mma_takes_tensors_off_16_byte_alignment(pad, device):
 
 def test_wgrad_mma_entry_refuses_a_plan_that_does_not_match(device):
     """The entry checks the plan's band rows, tiles, splits, threads and
-    shared memory against the geometry they follow from and launches
-    nothing otherwise; the tile's bf16 wgrad entry refuses stride 1."""
-    import ctypes
-
+    shared memory against the geometry they follow from (the arguments
+    packed, as every wgrad entry takes them) and launches nothing
+    otherwise."""
     from howtotrainyourmamlpytorch_tpu_torch.kernels import build
 
     T, N, H, W, cin, cout, pad = 2, 3, 21, 21, 48, 48, 1
@@ -2010,37 +2161,31 @@ def test_wgrad_mma_entry_refuses_a_plan_that_does_not_match(device):
     part_b = torch.empty(plan.scratch[1], device=device)
     dw = torch.full((T, 3, 3, cin, cout), 7.0, device=device).bfloat16()
     db = torch.full((T, cout), 7.0, device=device).bfloat16()
-    P, I = ctypes.c_void_p, ctypes.c_int
     fn = build.function("conv3x3_wgrad_s1_bf16", "conv3x3_wgrad_mma",
-                        (P,) * 6 + (I,) * 13 + (P,))
+                        cb._ADDR_ENTRY)
     stream = torch.cuda.current_stream().cuda_stream
-    ptrs = [t.data_ptr() for t in (x, dy, part_w, part_b, dw, db)]
-    geometry = (T, N, H, W, pad, cin, cout)
-    good = (plan.band_rows, plan.m_tiles, plan.channels, plan.splits,
-            plan.threads, plan.smem)
-    for i, bad in ((0, plan.band_rows + 1), (1, plan.m_tiles + 1),
-                   (2, 40), (3, 0), (3, N * plan.bands + 1),
-                   (4, plan.threads + 32), (5, plan.smem + 16),
-                   (5, plan.smem - 16)):
+    head = tuple(t.data_ptr() for t in (x, dy, part_w, part_b, dw, db)) + (
+        T, N, H, W, pad, cin, cout)
+    # splits, band_rows, kernel_rows, groups, replicas, m_tiles, channels,
+    # threads, smem
+    good = [plan.splits, plan.band_rows, 0, 0, 0, plan.m_tiles,
+            plan.channels, plan.threads, plan.smem]
+    for i, bad in ((1, plan.band_rows + 1), (5, plan.m_tiles + 1),
+                   (6, 40), (0, 0), (0, N * plan.bands + 1),
+                   (7, plan.threads + 32), (8, plan.smem + 16),
+                   (8, plan.smem - 16)):
         args = list(good)
         args[i] = bad
-        assert fn(*ptrs, *geometry, *args, stream) != 0
+        packed = cb._packed(*head, *args, device.index, stream)
+        assert fn(packed.buffer_info()[0]) != 0
     torch.cuda.synchronize()
     assert bool((dw == 7.0).all()) and bool((db == 7.0).all())
-    assert fn(*ptrs, *geometry, *good, stream) == 0
+    packed = cb._packed(*head, *good, device.index, stream)
+    assert fn(packed.buffer_info()[0]) == 0
     torch.cuda.synchronize()
     for a, c, what in zip((dw, db), F.conv3x3_wgrad(x, dy, padding=pad),
                           ("dw", "db")):
         within_ulp(a, c, f"wgrad {what}")
-    tile = build.function("conv3x3_bwd", "conv3x3_wgrad_bf16",
-                          (P,) * 6 + (I,) * 9 + (P,))
-    S = 4
-    pw = torch.empty((T, S, 9 * cin * cout), device=device)
-    pb = torch.empty((T, S, cout), device=device)
-    assert tile(x.data_ptr(), dy.data_ptr(), pw.data_ptr(), pb.data_ptr(),
-                dw.data_ptr(), db.data_ptr(), T, N, H, W, 1, pad, cin, cout,
-                S, stream) != 0
-    torch.cuda.synchronize()
 
 
 # K3 and K5 in f32, pooled: the cooperative kernels of
@@ -2149,12 +2294,13 @@ def test_k3_k5_kernels_take_tensors_off_16_byte_alignment(device):
 
 
 def test_bf16_and_pool_free_k3_k5_keep_the_triton_kernels(device):
-    """bf16 K3/K5 pooled plan the Triton kernels, and K5's pool-free mode
+    """bf16 K5 pooled plans the Triton kernels, and K5's pool-free mode
     (``bn_act_bwd_bwd``, ``batch_norm_bwd_bwd``) launches them without a
     plan; both give their bits: the wrappers' outputs equal the Triton
-    launches' (kernels/bn_act_pool.py) called directly. K3's pool-free
-    mode (``bn_act_bwd``, ``batch_norm_bwd``) is CUDA now
-    (csrc/bn_act_bwd.cu): held to its twin, its Triton launcher gone."""
+    launches' (kernels/bn_act_pool.py) called directly. K3 is CUDA in both
+    modes and dtypes: pooled bf16 on csrc/bn_act_pool_bwd.cu (below),
+    pool-free on csrc/bn_act_bwd.cu, held to its twin; their Triton
+    launchers are gone."""
     from howtotrainyourmamlpytorch_tpu_torch.kernels import bn_act_pool
 
     k3, k5 = _k35_inputs(2, 3, 14, 14, 48, seed=19)
@@ -2162,27 +2308,22 @@ def test_bf16_and_pool_free_k3_k5_keep_the_triton_kernels(device):
     k5 = tuple(t if t.dtype == torch.uint8 else t.bfloat16() for t in k5)
     y = k3[2]
     T, C = y.shape[0], y.shape[-1]
-    assert cb._bn_bwd_route("bn_act_pool_bwd", y, True).kernel == "triton"
+    assert cb._bn_bwd_route("bn_act_pool_bwd", y, True).kernel == "cuda"
+    assert cb._bn_bwd_route("bn_act_pool_bwd_bwd", y,
+                            True).kernel == "triton"
     slope = F.scalar_like(F.LEAKY_SLOPE, y)
-    part = torch.empty((T, bn_act_pool.SPLITS, 2, C), device=device)
-    dy = torch.empty_like(y)
-    bn_act_pool.launch_bwd(*k3, part, dy, slope)
-    sums = part.sum(dim=1).to(y.dtype)
     cb.reset_launches()
-    got = cb.bn_act_pool_bwd(*k3)
-    assert all(torch.equal(a, c) for a, c in zip(got, (dy, sums[:, 1],
-                                                       sums[:, 0])))
     part = torch.empty((T, bn_act_pool.SPLITS, 5, C), device=device)
     want = (torch.empty_like(k3[0]), torch.empty_like(y),
             torch.empty((T, C), device=device, dtype=y.dtype))
     bn_act_pool.launch_bwd_bwd(*k5, part, *want, slope)
     got = cb.bn_act_pool_bwd_bwd(*k5)
     assert all(torch.equal(a, c) for a, c in zip(got, want))
-    assert cb.launches()["bn_act_pool_bwd_bf16"] == 1
     assert cb.launches()["bn_act_pool_bwd_bwd_bf16"] == 1
     # the pool-free modes: K5 as bn_act_* and at slope 1 as batch_norm_*
     # on Triton, K3 on CUDA
-    assert not hasattr(bn_act_pool, "launch_act_bwd")
+    for gone in ("launch_bwd", "launch_act_bwd"):
+        assert not hasattr(bn_act_pool, gone)
     _, k5 = _k35_inputs(2, 3, 14, 14, 48, seed=23)
     a, gg, gb, _, _, y, mean, rstd, gamma, beta = k5
     da = torch.randn_like(y)
@@ -2202,6 +2343,127 @@ def test_bf16_and_pool_free_k3_k5_keep_the_triton_kernels(device):
         got = cb._launch_act_bwd_bwd("bn_act_bwd_bwd", a, gg, gb, da, y,
                                      mean, rstd, gamma, beta, s)
         assert all(torch.equal(p, q) for p, q in zip(got, want))
+
+
+# K3 pooled in bf16: the cooperative kernel of csrc/bn_act_pool_bwd.cu, 8
+# channels a thread. Every shape the shipped bf16 configs give it — the
+# mini-ImageNet conv outputs (84/42/21/10) at N 25, T 8 and 2; the
+# unpadded model's (82/39/17/6); Omniglot's (28/14/7/3, 64 channels, the
+# pool drops a row and a column at 7 and 3) at N 20; the large-batch T 256
+# at stage 1 — and edge shapes (C not a whole number of 8-channel loads,
+# odd maps, one window a tenant). dy, dgamma and dbeta ``within_ulp`` of
+# the bf16 twin; one launch on ``bn_act_pool_bwd_bf16`` and no Triton
+# kernel; a second launch bit for bit the first.
+K3_BF16_MAIN_SHAPES = (
+    [(T, 25, hw, 48) for T in (8, 2) for hw in (84, 42, 21, 10)]
+    + [(T, 25, hw, 48) for T in (8, 2) for hw in (82, 39, 17, 6)]
+    + [(8, 20, hw, 64) for hw in (28, 14, 7, 3)]
+    + [(256, 25, 42, 48)]
+)
+K3_BF16_EDGE_SHAPES = K35_EDGE_SHAPES + [(2, 3, 9, 7, 48), (1, 4, 5, 9, 12)]
+
+
+def _check_k3_bf16(k3, monkeypatch=None):
+    k3 = tuple(t if t.dtype == torch.uint8 else t.bfloat16() for t in k3)
+    dp, arg, y, mean, rstd, gamma, beta = k3
+    # K2's argmax of the bf16 values (the pool's first maximum)
+    arg = F.bn_act_pool_fwd(y, mean, rstd, gamma, beta)[1]
+    k3 = (dp, arg, y, mean, rstd, gamma, beta)
+    if monkeypatch is not None:
+        from howtotrainyourmamlpytorch_tpu_torch.kernels import bn_act_pool
+
+        def no_triton():
+            raise AssertionError("a Triton kernel was reached")
+
+        monkeypatch.setattr(bn_act_pool, "_jit", no_triton)
+    cb.reset_launches()
+    got = cb.bn_act_pool_bwd(*k3)
+    assert cb.launches() == {**{k: 0 for k in cb.KERNELS},
+                             "bn_act_pool_bwd_bf16": 1}
+    for a, c, what in zip(got, F.bn_act_pool_bwd(*k3),
+                          ("dy", "dgamma", "dbeta")):
+        assert a.dtype == torch.bfloat16
+        within_ulp(a, c, f"K3 bf16 {what}")
+    assert all(torch.equal(a, c) for a, c in zip(cb.bn_act_pool_bwd(*k3),
+                                                 got))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("shape", K3_BF16_MAIN_SHAPES, ids=str)
+def test_k3_bf16_matches_its_twin_at_main_path_shapes(shape, device,
+                                                      monkeypatch):
+    T, N, hw, C = shape
+    k3, _ = _k35_inputs(T, N, hw, hw, C, seed=hw + C + N + T)
+    plan = cb._bn_bwd_route("bn_act_pool_bwd", k3[2].bfloat16(), True)
+    assert plan.kernel == "cuda" and plan.groups == -(-C // 8)
+    _check_k3_bf16(k3, monkeypatch)
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("shape", K3_BF16_EDGE_SHAPES, ids=str)
+def test_k3_bf16_matches_its_twin_at_edge_shapes(shape, device):
+    _check_k3_bf16(_k35_inputs(*shape, seed=sum(shape))[0])
+
+
+def test_k3_bf16_takes_tensors_off_16_byte_alignment(device):
+    """Views one element into their storage: the kernel loads and stores a
+    value at a time, with the aligned launch's bits."""
+    k3, _ = _k35_inputs(2, 3, 11, 9, 48, seed=17)
+    dp, _, y, mean, rstd, gamma, beta = (
+        t if t.dtype == torch.uint8 else t.bfloat16() for t in k3)
+    arg = F.bn_act_pool_fwd(y, mean, rstd, gamma, beta)[1]
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, device=t.device, dtype=t.dtype)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16 != 0
+        return view
+
+    ptrs = [t.data_ptr() for t in (shifted(dp), arg, shifted(y), mean,
+                                   rstd, gamma, beta)]
+    assert not cb._bn_bwd_vec(48, ptrs, True)
+    got = cb.bn_act_pool_bwd(shifted(dp), shifted(arg), shifted(y), mean,
+                             rstd, gamma, beta)
+    want = cb.bn_act_pool_bwd(dp, arg, y, mean, rstd, gamma, beta)
+    assert all(torch.equal(a, c) for a, c in zip(got, want))
+
+
+def test_k3_bf16_entry_refuses_a_plan_that_does_not_match(device):
+    """The bf16 entry checks the plan's blocks, chunk, slots and threads
+    against the geometry (8 channels a group) and its vector loads against
+    the pointers, and launches nothing otherwise."""
+    from howtotrainyourmamlpytorch_tpu_torch.kernels import build
+
+    k3, _ = _k35_inputs(2, 3, 14, 14, 48, seed=31)
+    dp, _, y, mean, rstd, gamma, beta = (
+        t if t.dtype == torch.uint8 else t.bfloat16() for t in k3)
+    arg = F.bn_act_pool_fwd(y, mean, rstd, gamma, beta)[1]
+    T, N, H, W, C = y.shape
+    plan = cb._bn_bwd_route("bn_act_pool_bwd", y, True)
+    dy = torch.full_like(y, 7.0)
+    small = torch.empty(2 * T * C * (plan.grid[0] + 2), device=device)
+    fn = build.function("bn_act_pool_bwd", "bn_act_pool_bwd_bf16",
+                        cb._K3_ARGS)
+    stream = torch.cuda.current_stream().cuda_stream
+    out = small.view(torch.bfloat16)
+    ptrs = [t.data_ptr() for t in (dp, arg, y, mean, rstd, gamma, beta, dy)]
+    ptrs += [out.data_ptr(), out.data_ptr() + 2 * T * C,
+             small.data_ptr() + 4 * T * C,
+             small.data_ptr() + 4 * T * C * (plan.grid[0] + 1)]
+    good = [plan.grid[0], plan.chunk, plan.slots, plan.threads, 1]
+    for i, bad in ((0, plan.grid[0] + 1), (1, plan.chunk + 1),
+                   (2, plan.slots // 2), (3, 128)):
+        args = list(good)
+        args[i] = bad
+        assert fn(*ptrs, T, N, H, W, C, *args, 0.01, 1.0 / (N * H * W),
+                  stream) != 0
+    bad_ptrs = list(ptrs)
+    bad_ptrs[2] += 2  # y off 16-byte alignment, vector loads asked
+    assert fn(*bad_ptrs, T, N, H, W, C, *good, 0.01, 1.0 / (N * H * W),
+              stream) != 0
+    torch.cuda.synchronize()
+    assert bool((dy == 7.0).all())
 
 
 def test_k3_k5_refuse_a_shape_the_plan_cannot_fit(device):
