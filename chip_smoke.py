@@ -463,8 +463,8 @@ SOURCES = {
         "cuda", "howtotrainyourmamlpytorch_tpu_torch/kernels/csrc/"
                 "episode_expand.cu"),
 }
-# K5 pool-free, and K5 in bf16 pooled (the Triton kernels); K3 pool-free
-# (bn_act_bwd, batch_norm_bwd) and act_bwd one CUDA launch a call
+# K5 pool-free (the Triton kernels); K3 pool-free (bn_act_bwd,
+# batch_norm_bwd) and act_bwd one CUDA launch a call
 BN_TRITON = ("triton",
              "howtotrainyourmamlpytorch_tpu_torch/kernels/bn_act_pool.py")
 K3_FREE_SOURCE = ("cuda", "howtotrainyourmamlpytorch_tpu_torch/kernels/csrc/"
@@ -497,14 +497,13 @@ SOURCES.update({
 SOURCES.update({
     k: ("triton", "howtotrainyourmamlpytorch_tpu_torch/kernels/act_pool.py")
     for k in ("act_pool_fwd", "act_pool_bwd", "act_pool_gather")})
-# the layer norm: the statistics, the forward and the backward one CUDA
-# launch a call (csrc/layer_norm.cu), the double backward Triton
-SOURCES["layer_norm_bwd_bwd"] = (
-    "triton", "howtotrainyourmamlpytorch_tpu_torch/kernels/layer_norm.py")
+# the layer norm: the statistics, the forward, the backward and the double
+# backward one CUDA launch a call (csrc/layer_norm.cu)
 SOURCES.update({
     k: ("cuda",
         "howtotrainyourmamlpytorch_tpu_torch/kernels/csrc/layer_norm.cu")
-    for k in ("layer_norm_stats", "layer_norm_fwd", "layer_norm_bwd")})
+    for k in ("layer_norm_stats", "layer_norm_fwd", "layer_norm_bwd",
+              "layer_norm_bwd_bwd")})
 # the f32 convs at stride 1 (pad 1 and 0) run the band kernels; at stride 2
 # K1 and dgrad conv3x3_s2.cu, wgrad conv3x3_wgrad_s2.cu; the bf16 convs the
 # tensor-core kernels (below; at stride 2 those same two sources)
@@ -512,13 +511,11 @@ SOURCES.update({f"conv3x3_p0_{k}": SOURCES[f"conv3x3_{k}"]
                 for k in ("fwd_stats", "dgrad", "wgrad", "fwd")})
 SOURCES.update({f"conv3x3_s2_p0_{k}": SOURCES[f"conv3x3_s2_{k}"]
                 for k in ("fwd_stats", "dgrad", "wgrad", "fwd")})
-# in bf16, K5 pooled runs the Triton kernels (bn_act_pool.py), as every
-# pool-free K5 does; K3 pooled csrc/bn_act_pool_bwd.cu in both dtypes (K5
-# pooled there in f32); K2 runs csrc/bn_act_fwd.cu, the pool-free K3
-# csrc/bn_act_bwd.cu, act_fwd and act_bwd csrc/act.cu and the layer norm
-# but its double backward csrc/layer_norm.cu in both dtypes
+# in bf16 as in f32: K3 and K5 pooled csrc/bn_act_pool_bwd.cu, K2
+# csrc/bn_act_fwd.cu, the pool-free K3 csrc/bn_act_bwd.cu (the pool-free
+# K5 the Triton kernels of bn_act_pool.py), act_fwd and act_bwd
+# csrc/act.cu and the layer norm's four csrc/layer_norm.cu
 SOURCES.update({f"{k}_bf16": SOURCES[k] for k in BF16_KERNELS})
-SOURCES["bn_act_pool_bwd_bwd_bf16"] = BN_TRITON
 # K1 (both modes) and dgrad in bf16 at stride 1, pad 1 and 0: one
 # mma.sync implicit GEMM
 MMA_SOURCE = ("cuda", "howtotrainyourmamlpytorch_tpu_torch/kernels/csrc/"
@@ -709,8 +706,8 @@ class Records:
 # the f32 stride-1 K1 kernels on the device (csrc/conv3x3_fwd_s1.cu: the
 # conv, and with statistics the merge of their partials)
 K1_DEVICE = ("conv3x3_fwd_band_kernel", "bn_stats_merge_kernel")
-# K3 and K5 in f32, pooled, on the device (csrc/bn_act_pool_bwd.cu: one
-# cooperative kernel a call)
+# K3 in f32 and K5 in either dtype, pooled, on the device
+# (csrc/bn_act_pool_bwd.cu: one cooperative kernel a call)
 K3_DEVICE = "bn_act_pool_bwd_kernel"
 K5_DEVICE = "bn_act_pool_bwd_bwd_kernel"
 # K2 on the device (csrc/bn_act_fwd.cu): pooled, and pool-free (also
@@ -732,6 +729,9 @@ ACT_BWD_DEVICE = "act_bwd_kernel"
 # device, in either dtype
 ACT_FWD_DEVICE = "act_fwd_kernel"
 LN_FWD_DEVICE = "layer_norm_fwd_kernel"
+# the layer norm's double backward on the device (csrc/layer_norm.cu: one
+# cooperative kernel a call), in either dtype
+LN_BWD_BWD_DEVICE = "layer_norm_bwd_bwd_kernel"
 # K1 and dgrad in bf16 at stride 1 on the device (csrc/conv3x3_s1_bf16.cu:
 # the conv, and with statistics the merge)
 MMA_DEVICE = "conv3x3_s1_mma_kernel"
@@ -1754,19 +1754,23 @@ def check_layer_norm_kernels(cb, F, records, T=T_TENANTS):
             args = (a, randn(T, *shape), randn(T, *shape), randn(*x.shape),
                     *ln)
             zero = torch.zeros(T, *shape, device="cuda")
-            err = max(
-                _bn_errs(f"layer_norm_bwd_bwd{case}",
-                         cb.layer_norm_bwd_bwd(*case_args),
-                         F.layer_norm_bwd_bwd(*case_args),
-                         ("g_dz", "g_x", "g_gamma"), label,
-                         scaled_atol=True)
-                for case, case_args in (
+            errs = []
+            for case, case_args in (
                     ("", args),
-                    (" (g_gamma = g_beta = 0)", (a, zero, zero) + args[3:])))
-            rec("layer_norm_bwd_bwd", label, err,
+                    (" (g_gamma = g_beta = 0)", (a, zero, zero) + args[3:])):
+                got = cb.layer_norm_bwd_bwd(*case_args)
+                errs.append(_bn_errs(f"layer_norm_bwd_bwd{case}", got,
+                                     F.layer_norm_bwd_bwd(*case_args),
+                                     ("g_dz", "g_x", "g_gamma"), label,
+                                     scaled_atol=True))
+                _same_bits("layer_norm_bwd_bwd",
+                           lambda: cb.layer_norm_bwd_bwd(*case_args), got)
+                del got
+            rec("layer_norm_bwd_bwd", label, max(errs),
                 lambda: cb.layer_norm_bwd_bwd(*args),
                 lambda: F.layer_norm_bwd_bwd(*args), None,
-                40 * numel, 4 * (5 * numel + 4 * tm + 2 * rows))
+                40 * numel, 4 * (5 * numel + 4 * tm + 2 * rows),
+                device=LN_BWD_BWD_DEVICE)
             del dz, ln, a, args, zero
         del x, mean, var, rstd
         torch.cuda.empty_cache()
@@ -3727,11 +3731,16 @@ def check_bf16_train_kernels(cb, F, records, T=T_TENANTS, C=COUT):
             args = (randn(*y.shape).to(bf), randn(T, cout).to(bf),
                     randn(T, cout).to(bf), randn(*pooled.shape).to(bf), arg,
                     y, mean, rstd, gamma, beta)
+            got = cb.bn_act_pool_bwd_bwd(*args)
             err = max(within_ulp(f"bn_act_pool_bwd_bwd_bf16 {what}", g, p)
                       for what, g, p in zip(
-                          ("g_dpooled", "g_y", "g_gamma"),
-                          cb.bn_act_pool_bwd_bwd(*args),
+                          ("g_dpooled", "g_y", "g_gamma"), got,
                           F.bn_act_pool_bwd_bwd(*args)))
+            _same_bits("bn_act_pool_bwd_bwd_bf16",
+                       lambda: cb.bn_act_pool_bwd_bwd(*args), got)
+            del got
+            args32 = tuple(t if t.dtype == torch.uint8 else t.float()
+                           for t in args)
             # as f32's K5: ~42 FLOPs per element of y, each input read and
             # each output written once, in 2-byte elements
             records.add(
@@ -3740,7 +3749,9 @@ def check_bf16_train_kernels(cb, F, records, T=T_TENANTS, C=COUT):
                 lambda: F.bn_act_pool_bwd_bwd(*args), None,
                 42 * y.numel(),
                 2 * (3 * y.numel() + 2 * pooled.numel() + 7 * T * cout)
-                + arg.numel())
+                + arg.numel(),
+                f32_fn=lambda: cb.bn_act_pool_bwd_bwd(*args32),
+                device=K5_DEVICE)
             if prefix:
                 dy = randn(*y.shape).to(bf)
                 dw, db = cb.conv3x3_wgrad(x, dy)
@@ -4399,15 +4410,19 @@ def check_bf16_layer_norm_kernels(cb, F, records, T=T_TENANTS):
             args = (randn(*x.shape).to(bf), randn(T, *shape).to(bf),
                     randn(T, *shape).to(bf), randn(*x.shape).to(bf), *ln)
             args32 = _f32(*args[:4]) + ln32
+            got = cb.layer_norm_bwd_bwd(*args)
             err = max(within_ulp(f"layer_norm_bwd_bwd_bf16 {what}", a, b)
-                      for what, a, b in zip(("g_dz", "g_x", "g_gamma"),
-                                            cb.layer_norm_bwd_bwd(*args),
+                      for what, a, b in zip(("g_dz", "g_x", "g_gamma"), got,
                                             F.layer_norm_bwd_bwd(*args)))
+            _same_bits("layer_norm_bwd_bwd_bf16",
+                       lambda: cb.layer_norm_bwd_bwd(*args), got)
+            del got
             rec("layer_norm_bwd_bwd_bf16", label, err,
                 lambda: cb.layer_norm_bwd_bwd(*args),
                 lambda: F.layer_norm_bwd_bwd(*args), None,
                 40 * numel, 2 * (5 * numel + 4 * tm + 2 * rows),
-                f32_fn=lambda: cb.layer_norm_bwd_bwd(*args32))
+                f32_fn=lambda: cb.layer_norm_bwd_bwd(*args32),
+                device=LN_BWD_BWD_DEVICE)
             del dz, dz32, ln, ln32, args, args32
         del x, x32, mean, var, rstd, gamma, beta, gamma32, beta32
         torch.cuda.empty_cache()
@@ -5324,6 +5339,11 @@ def main() -> int:
     print_k1_rows(records, "K4", tuple(
         f"conv3x3_s2{p}_wgrad{d}" for d in ("", "_bf16") for p in ("", "_p0")))
     print_k1_rows(records, "K3", ("bn_act_pool_bwd_bf16",))
+    # K5 pooled in bf16 (csrc/bn_act_pool_bwd.cu) and the layer norm's
+    # double backward in both dtypes (csrc/layer_norm.cu)
+    print_k1_rows(records, "K5", ("bn_act_pool_bwd_bwd_bf16",))
+    print_k1_rows(records, "B5c", ("layer_norm_bwd_bwd",
+                                   "layer_norm_bwd_bwd_bf16"))
 
     kernels = []
     for k in all_kernels:

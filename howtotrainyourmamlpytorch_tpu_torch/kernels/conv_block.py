@@ -44,9 +44,9 @@ kernel                      route   source                    launches/call
                                                               cluster a row)
 ``layer_norm_fwd``          CUDA    csrc/layer_norm.cu        1
 ``layer_norm_bwd``          CUDA    csrc/layer_norm.cu        1 (cooperative)
-``layer_norm_bwd_bwd``      Triton  layer_norm.py             reduce + sums + out: 3
-``*_bf16``                  as f32  K1, dgrad at stride 1:    as in f32; K5
-                                    csrc/conv3x3_s1_bf16.cu;  pooled 2
+``layer_norm_bwd_bwd``      CUDA    csrc/layer_norm.cu        1 (cooperative)
+``*_bf16``                  as f32  K1, dgrad at stride 1:    as in f32
+                                    csrc/conv3x3_s1_bf16.cu;
                                     wgrad at stride 1: csrc/
                                     conv3x3_wgrad_s1_bf16.cu;
                                     K1, dgrad at stride 2:
@@ -54,10 +54,8 @@ kernel                      route   source                    launches/call
                                     stride 2:
                                     conv3x3_wgrad_s2.cu;
                                     K2: bn_act_fwd.cu;
-                                    K3 pooled:
-                                    bn_act_pool_bwd.cu;
-                                    K5 pooled: Triton
-                                    bn_act_pool.py
+                                    K3 and K5 pooled:
+                                    bn_act_pool_bwd.cu
 ==========================  ======  ========================  ==================
 
 K1 (both modes) and K4 dgrad stage a band of rows with its halo in
@@ -76,11 +74,11 @@ then its reduce. ``fwd_plan``, ``dgrad_plan`` (through ``mma_plan`` in
 bf16 at stride 1, ``s2_mma_plan`` in bf16 at stride 2) and ``wgrad_plan``
 give each launch (grid, bands, splits, shared memory, scratch) as a pure
 function of the shape.
-K3 pooled in both dtypes and K5 pooled in f32 run the cooperative
-kernels of ``csrc/bn_act_pool_bwd.cu`` (reduce, grid barrier, merge,
+K3 and K5 pooled run the cooperative kernels of
+``csrc/bn_act_pool_bwd.cu`` in both dtypes (reduce, grid barrier, merge,
 barrier, apply in one launch, on the grid ``bn_bwd_plan`` sizes from the
-occupancy query); K5 pooled in bf16, and K5 pool-free, the Triton kernels
-of ``bn_act_pool.py`` (a reduce and an apply launch). K3 pool-free runs
+occupancy query); K5 pool-free the Triton kernels of ``bn_act_pool.py``
+(a reduce and an apply launch). K3 pool-free runs
 ``csrc/bn_act_bwd.cu`` in both dtypes, one launch a call
 (``bn_act_bwd_plan``: ``bn_input_stats``' units and routes, a block a
 tenant at the small maps, else one cooperative launch, whose blocks keep
@@ -89,14 +87,16 @@ their chunks of da and y in shared memory where they fit), and
 thread. K2 runs ``csrc/bn_act_fwd.cu`` in both modes and both dtypes (one
 kernel each, templated on the element type; ``bn_fwd_plan`` gives its
 launch): pooled a thread a pooled pixel x 4 channels, pool-free 16 bytes
-of the flat tensor a thread. The layer norm's statistics, forward and
-backward run ``csrc/layer_norm.cu`` in both dtypes, one launch a call:
+of the flat tensor a thread. The layer norm's statistics, forward,
+backward and double backward run ``csrc/layer_norm.cu`` in both dtypes,
+one launch a call:
 ``layer_norm_stats`` a warp a row at the small maps and a thread block
 cluster a row above (``ln_stats_plan``), ``layer_norm_fwd`` a block a
 tile of one image, gamma and beta shared by a tenant's images in L2
-(``ln_fwd_plan``), ``layer_norm_bwd`` one cooperative launch over
-(tenant, column tile) items (``ln_bwd_plan``, sized from the occupancy
-query).
+(``ln_fwd_plan``), ``layer_norm_bwd`` and ``layer_norm_bwd_bwd`` one
+cooperative launch each over (tenant, column tile) items
+(``ln_bwd_plan``, sized from each kernel's occupancy query; two row sums
+and seven).
 ``bn_input_stats`` runs ``csrc/bn_input_stats.cu`` in both dtypes, one
 launch a call (``bn_stats_plan``: a block a tenant at the small maps, else
 one cooperative launch of a few blocks a tenant, their partials merged
@@ -188,7 +188,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from ..ops import functional as F
-from . import act_pool, bn_act_pool, build, layer_norm
+from . import act_pool, bn_act_pool, build
 
 Tensor = torch.Tensor
 
@@ -309,27 +309,35 @@ WGRAD_BAND_PIXELS = 128
 #: that many bands)
 BAND_BLOCKS_PER_SM = 2
 
-#: K3 pooled in both dtypes and K5 pooled in f32 (csrc/bn_act_pool_bwd.cu,
-#: one cooperative launch a call): a block's threads (``kThreads`` there),
-#: the most channels they take (the Triton kernels' ``BLOCK_C``), the
-#: partial sums a (tenant, channel) of each, and the channels a thread's
-#: group by dtype (bf16 or not: one 16-byte load, ``kV16`` in bf16)
+#: K3 and K5 pooled in both dtypes (csrc/bn_act_pool_bwd.cu, one
+#: cooperative launch a call): a block's threads (``kThreads`` there), the
+#: most channels they take, the partial sums a (tenant, channel) of each,
+#: and the channels of a thread's group by (kernel, bf16): one load, 16
+#: bytes (4 f32, or ``kV16`` = 8 bf16 in K3) or 8 (4 bf16 in K5, whose 5
+#: sums of 8 channels would not fit the register budget)
 BN_BWD_THREADS = 256
 BN_BWD_MAX_C = 64
 BN_BWD_SUMS = {"bn_act_pool_bwd": 2, "bn_act_pool_bwd_bwd": 5}
-BN_BWD_GROUP = {False: 4, True: 8}
+BN_BWD_GROUP = {("bn_act_pool_bwd", False): 4, ("bn_act_pool_bwd", True): 8,
+                ("bn_act_pool_bwd_bwd", False): 4,
+                ("bn_act_pool_bwd_bwd", True): 4}
 #: K2 in both modes and dtypes (csrc/bn_act_fwd.cu): a block's threads
 #: (``kThreads`` there) and the most channels it takes
 BN_FWD_THREADS = 256
 BN_FWD_MAX_C = 64
-#: layer_norm_stats and layer_norm_bwd (csrc/layer_norm.cu, one launch a
-#: call each): a block's threads (``kThreads`` there), the most loads of a
-#: row that one warp takes (``kWarpRowVecs``), the rows of such a block and
-#: the largest cluster a row (``kMaxCluster``)
+#: the layer norm's kernels (csrc/layer_norm.cu, one launch a call each): a
+#: block's threads (``kThreads`` there), the most loads of a row that one
+#: warp takes (``kWarpRowVecs``), the rows of such a block, the largest
+#: cluster a row (``kMaxCluster``), the row sums of the backward and of the
+#: double backward (``kSums``) and the double backward's coefficients a row
+#: (``kCoefs``)
 LN_THREADS = 256
 LN_WARP_ROW_VECS = 256
 LN_WARP_ROWS = 8
 LN_MAX_CLUSTER = 8
+LN_BWD_SUMS = 2
+LN_BWD_BWD_SUMS = 7
+LN_BWD_BWD_COEFS = 8
 #: bn_input_stats (csrc/bn_input_stats.cu, one launch a call): a block's
 #: threads (``kThreads`` there), the most channels it takes, the loads a
 #: thread of one block a tenant at and under which a tenant takes the
@@ -991,8 +999,7 @@ def _check_bn_args(name, y, tensors, device):
 
 
 def _check_pooled(name, dpooled, argmax, y):
-    """Check a pooled gradient and the window argmax against y; returns the
-    pooled shape."""
+    """Check a pooled gradient and the window argmax against y."""
     T, N, H, W, C = y.shape
     pooled_shape = (T, N, H // 2, W // 2, C)
     _check(name, "dpooled", dpooled, pooled_shape, y.device, y.dtype)
@@ -1002,7 +1009,6 @@ def _check_pooled(name, dpooled, argmax, y):
             f"{name}: argmax must be a contiguous uint8 {pooled_shape} "
             f"tensor on {y.device}"
         )
-    return pooled_shape
 
 
 class BnFwdPlan(NamedTuple):
@@ -1121,15 +1127,12 @@ def bn_act_fwd(y: Tensor, mean: Tensor, rstd: Tensor, gamma: Tensor,
 
 
 class BnBwdPlan(NamedTuple):
-    """The launch of K3 or K5 pooled at one shape: ``kernel`` ``"cuda"``
-    (csrc/bn_act_pool_bwd.cu: K3 in both dtypes, K5 in f32) or
-    ``"triton"`` (K5 in bf16: kernels/bn_act_pool.py, on its own grid; the
-    other fields 0). A CUDA block of ``threads`` takes ``slots`` windows at
-    a time x ``groups`` groups of one 16-byte load of channels (4 f32 or 8
-    bf16), ``chunk`` consecutive windows of one tenant in all; ``grid`` is
-    (blocks a tenant, T); a tenant has ``windows`` windows."""
+    """The cooperative launch of K3 or K5 pooled at one shape
+    (csrc/bn_act_pool_bwd.cu, both dtypes): a block of ``threads`` takes
+    ``slots`` windows at a time x ``groups`` groups of one load of channels
+    (``BN_BWD_GROUP``), ``chunk`` consecutive windows of one tenant in all;
+    ``grid`` is (blocks a tenant, T); a tenant has ``windows`` windows."""
 
-    kernel: str
     grid: Tuple[int, int]
     threads: int
     groups: int
@@ -1138,31 +1141,29 @@ class BnBwdPlan(NamedTuple):
     windows: int
 
 
-#: the bf16 K5 pooled's plan: the Triton kernels, on their own grid
-_BN_BWD_TRITON = BnBwdPlan("triton", (0, 0), 0, 0, 0, 0, 0)
-
-
 @functools.lru_cache(maxsize=None)
 def bn_bwd_plan(T: int, N: int, H: int, W: int, C: int, sms: int = 132,
-                blocks_per_sm: int = 2, bf16: bool = False) -> BnBwdPlan:
-    """The CUDA K3's (both dtypes) and K5's (f32) launch for y ``(T, N, H,
-    W, C)`` on a card of ``sms`` SMs that holds ``blocks_per_sm`` of their
-    blocks at once (the occupancy query). A pure function of the shape and
-    the dtype: the wrappers call it, and so do the CPU tests.
+                blocks_per_sm: int = 2, bf16: bool = False,
+                name: str = "bn_act_pool_bwd") -> BnBwdPlan:
+    """The launch of K3 (``name`` ``bn_act_pool_bwd``) or K5
+    (``bn_act_pool_bwd_bwd``), both dtypes, for y ``(T, N, H, W, C)`` on a
+    card of ``sms`` SMs that holds ``blocks_per_sm`` of their blocks at
+    once (the occupancy query). A pure function of the shape, the kernel
+    and the dtype: the wrappers call it, and so do the CPU tests.
 
     Each tenant's map in windows of 2 x 2 positions (an odd map's last row
     or column in windows of one row or column), ceil(H / 2) x ceil(W / 2)
     an image; a block ``BN_BWD_THREADS`` threads, a thread a group of
-    ``BN_BWD_GROUP[bf16]`` channels (one 16-byte load: 4 f32 or 8 bf16),
-    ``slots`` = threads // groups windows at a time; each tenant's windows
-    over as many blocks as the card holds at once (but no block without a
-    window for each of its slots), in chunks of whole ``slots`` windows; no
-    chunk spans two tenants. Raises where the card cannot hold a block a
-    tenant at once (the cooperative launch needs every block resident).
-    The bf16 K5 takes the Triton kernels (``_bn_bwd_route``); the pool-free
-    modes have wrappers of their own: K3 (``bn_act_bwd``,
-    ``batch_norm_bwd``) on csrc/bn_act_bwd.cu (``bn_act_bwd_plan``), K5
-    (``bn_act_bwd_bwd``, ``batch_norm_bwd_bwd``) on the Triton kernels."""
+    ``BN_BWD_GROUP[name, bf16]`` channels (one load: 4 f32, 8 bf16 in K3,
+    4 bf16 in K5), ``slots`` = threads // groups windows at a time; each
+    tenant's windows over as many blocks as the card holds at once (but no
+    block without a window for each of its slots), in chunks of whole
+    ``slots`` windows; no chunk spans two tenants. Raises where the card
+    cannot hold a block a tenant at once (the cooperative launch needs
+    every block resident). The pool-free modes have wrappers of their own:
+    K3 (``bn_act_bwd``, ``batch_norm_bwd``) on csrc/bn_act_bwd.cu
+    (``bn_act_bwd_plan``), K5 (``bn_act_bwd_bwd``, ``batch_norm_bwd_bwd``)
+    on the Triton kernels."""
     if min(T, N, C) < 1 or H < 2 or W < 2 or C > BN_BWD_MAX_C:
         raise ValueError(f"bn_bwd_plan: no pooled K3/K5 of a (T={T}, N={N}, "
                          f"{H}x{W}, C={C}) map")
@@ -1170,31 +1171,34 @@ def bn_bwd_plan(T: int, N: int, H: int, W: int, C: int, sms: int = 132,
     if T > resident:
         raise ValueError(f"bn_bwd_plan: {T} tenants need a block each at "
                          f"once; the card holds {resident}")
-    groups = _cdiv(C, BN_BWD_GROUP[bf16])
+    groups = _cdiv(C, BN_BWD_GROUP[name, bf16])
     slots = BN_BWD_THREADS // groups
     windows = N * _cdiv(H, 2) * _cdiv(W, 2)
     blocks = min(resident // T, _cdiv(windows, slots))
     chunk = _cdiv(_cdiv(windows, blocks), slots) * slots
-    return BnBwdPlan("cuda", (_cdiv(windows, chunk), T), BN_BWD_THREADS,
-                     groups, slots, chunk, windows)
+    return BnBwdPlan((_cdiv(windows, chunk), T), BN_BWD_THREADS, groups,
+                     slots, chunk, windows)
 
 
-def _bn_bwd_vec(C: int, ptrs, bf16: bool = False) -> bool:
-    """The CUDA K3/K5's 16-byte loads, for the pointers ``ptrs`` of their
-    input tensors (the uint8 argmax sixth from the end): C a whole number
-    of loads (4 f32, 8 bf16), every f32 or bf16 tensor 16-byte aligned,
-    the argmax 4-byte (f32) or 8-byte (bf16); else a value at a time."""
+def _bn_bwd_vec(C: int, ptrs, bf16: bool = False,
+                name: str = "bn_act_pool_bwd") -> bool:
+    """K3's or K5's vector loads, for the pointers ``ptrs`` of their input
+    tensors (the uint8 argmax sixth from the end): C a whole number of a
+    group's channels (``BN_BWD_GROUP``), every f32 or bf16 tensor aligned
+    to a group's bytes (16, or 8 in the bf16 K5), the argmax to its
+    channels; else a value at a time."""
     arg = len(ptrs) - 6
-    group = BN_BWD_GROUP[bf16]
+    group = BN_BWD_GROUP[name, bf16]
+    size = group * (2 if bf16 else 4)
     return C % group == 0 and ptrs[arg] % group == 0 and all(
-        p % 16 == 0 for i, p in enumerate(ptrs) if i != arg)
+        p % size == 0 for i, p in enumerate(ptrs) if i != arg)
 
 
 @functools.lru_cache(maxsize=None)
 def _bn_bwd_blocks_per_sm(device, sums: int, vec: bool,
                           bf16: bool = False) -> int:
-    """The occupancy query of the cooperative K3 (2 sums; f32 or bf16) or
-    K5 (5; f32)."""
+    """The occupancy query of the cooperative K3 (2 sums) or K5 (5), f32
+    or bf16."""
     fn = build.function("bn_act_pool_bwd", "bn_act_pool_bwd_blocks_per_sm",
                         (_I, _I, _I, ctypes.POINTER(ctypes.c_int)))
     out = ctypes.c_int(0)
@@ -1205,35 +1209,32 @@ def _bn_bwd_blocks_per_sm(device, sums: int, vec: bool,
 
 
 def _bn_bwd_route(name: str, y: Tensor, vec: bool) -> BnBwdPlan:
-    """The plan of K3 (``name`` ``bn_act_pool_bwd``) or K5 at y's shape
-    and dtype on y's card: ``bn_bwd_plan`` for the CUDA kernels (K3 in
-    both dtypes, K5 in f32), the Triton plan for K5 in bf16 (which asks no
-    occupancy)."""
+    """``bn_bwd_plan`` of K3 (``name`` ``bn_act_pool_bwd``) or K5 at y's
+    shape and dtype on y's card."""
     T, N, H, W, C = y.shape
     bf16 = y.dtype == torch.bfloat16
-    if bf16 and name != "bn_act_pool_bwd":
-        return _BN_BWD_TRITON
     return bn_bwd_plan(T, N, H, W, C, _sms(y.device),
                        _bn_bwd_blocks_per_sm(y.device, BN_BWD_SUMS[name],
-                                             vec, bf16), bf16)
+                                             vec, bf16), bf16, name)
 
 
 #: the CUDA entries of K3 and K5 by (name, bf16): function, argument types
 _K3_ARGS = (_P,) * 12 + (_I,) * 10 + (_F, _F, _P)
+_K5_ARGS = (_P,) * 15 + (_I,) * 10 + (_F, _F, _P)
 _BN_BWD_ENTRIES = {
     ("bn_act_pool_bwd", False): ("bn_act_pool_bwd_f32", _K3_ARGS),
     ("bn_act_pool_bwd", True): ("bn_act_pool_bwd_bf16", _K3_ARGS),
-    ("bn_act_pool_bwd_bwd", False): ("bn_act_pool_bwd_bwd_f32",
-                                     (_P,) * 15 + (_I,) * 10 + (_F, _F, _P)),
+    ("bn_act_pool_bwd_bwd", False): ("bn_act_pool_bwd_bwd_f32", _K5_ARGS),
+    ("bn_act_pool_bwd_bwd", True): ("bn_act_pool_bwd_bwd_bf16", _K5_ARGS),
 }
 
 
 def _bn_bwd_cuda(name: str, plan: BnBwdPlan, vec: bool, tensors, ptrs,
                  slope: float) -> Tuple[Tensor, Tensor, Tensor]:
-    """The CUDA K3 (``name`` ``bn_act_pool_bwd``, f32 or bf16: ``tensors``
-    dpooled, argmax, y, mean, rstd, gamma, beta; returns dy, dgamma,
-    dbeta) or K5 (``bn_act_pool_bwd_bwd``, f32: a, ggamma, gbeta and K3's;
-    returns g_dpooled, g_y, g_gamma) on validated tensors at ``ptrs``,
+    """The CUDA K3 (``name`` ``bn_act_pool_bwd``: ``tensors`` dpooled,
+    argmax, y, mean, rstd, gamma, beta; returns dy, dgamma, dbeta) or K5
+    (``bn_act_pool_bwd_bwd``: a, ggamma, gbeta and K3's; returns
+    g_dpooled, g_y, g_gamma), f32 or bf16, on validated tensors at ``ptrs``,
     launched by ``plan``. The (T, C) outputs (in y's dtype) and the f32
     scratch (the blocks' partial sums, the merged sums) share one
     allocation: a call's host time counts at the small maps."""
@@ -1377,7 +1378,8 @@ def bn_act_pool_bwd_bwd(a: Tensor, ggamma: Tensor, gbeta: Tensor,
                         ) -> Tuple[Tensor, Tensor, Tensor]:
     """K5, the backward of ``bn_act_pool_bwd``: from the cotangents of its
     ``(dy, dgamma, dbeta)`` outputs, the gradients with respect to
-    ``dpooled``, ``y`` and ``gamma`` (beta's is zero)."""
+    ``dpooled``, ``y`` and ``gamma`` (beta's is zero). One launch of the
+    cooperative CUDA kernel in either dtype (``bn_bwd_plan``)."""
     if _on_cpu(y):
         return F.bn_act_pool_bwd_bwd(a, ggamma, gbeta, dpooled, argmax, y,
                                      mean, rstd, gamma, beta, negative_slope)
@@ -1386,25 +1388,14 @@ def bn_act_pool_bwd_bwd(a: Tensor, ggamma: Tensor, gbeta: Tensor,
                                  beta=beta, ggamma=ggamma, gbeta=gbeta),
                    y.device)
     _check(name, "a", a, y.shape, y.device, y.dtype)
-    pooled_shape = _check_pooled(name, dpooled, argmax, y)
-    T, _, _, _, C = y.shape
-    slope = F.scalar_like(negative_slope, y)
+    _check_pooled(name, dpooled, argmax, y)
+    C = y.shape[-1]
     tensors = (a, ggamma, gbeta, dpooled, argmax, y, mean, rstd, gamma, beta)
     ptrs = [t.data_ptr() for t in tensors]
-    vec = y.dtype == torch.float32 and _bn_bwd_vec(C, ptrs)
+    vec = _bn_bwd_vec(C, ptrs, y.dtype == torch.bfloat16, name)
     plan = _bn_bwd_route(name, y, vec)
-    if plan.kernel == "cuda":
-        out = _bn_bwd_cuda(name, plan, vec, tensors, ptrs, slope)
-    else:
-        # the outputs in y's dtype, the five partial sums f32
-        part = torch.empty((T, bn_act_pool.SPLITS, 5, C), device=y.device)
-        g_dpooled = torch.empty(pooled_shape, device=y.device, dtype=y.dtype)
-        g_y = torch.empty_like(y)
-        g_gamma = torch.empty((T, C), device=y.device, dtype=y.dtype)
-        with torch.cuda.device(y.device):
-            bn_act_pool.launch_bwd_bwd(*tensors, part, g_dpooled, g_y,
-                                       g_gamma, slope)
-        out = g_dpooled, g_y, g_gamma
+    out = _bn_bwd_cuda(name, plan, vec, tensors, ptrs,
+                       F.scalar_like(negative_slope, y))
     LAUNCHES[_counter(name, y)] += 1
     return out
 
@@ -1833,6 +1824,10 @@ def _pow2_at_most(n: int) -> int:
     return 1 << (max(1, n).bit_length() - 1)
 
 
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
 def _ln_load(bf16: bool, vec: bool) -> int:
     """The values a layer-norm load takes: 16 bytes (4 f32, 8 bf16) with
     ``vec``, else one."""
@@ -1859,7 +1854,7 @@ def ln_stats_plan(R: int, M: int, bf16: bool = False, vec: bool = True,
     if loads <= LN_WARP_ROW_VECS:
         return LnStatsPlan("warp", _cdiv(R, LN_WARP_ROWS), 1, M, v)
     cluster = min(LN_MAX_CLUSTER,
-                  layer_norm.pow2_at_least(_cdiv(2 * sms, R)),
+                  _pow2_at_least(_cdiv(2 * sms, R)),
                   _pow2_at_most(loads // (2 * LN_THREADS)))
     return LnStatsPlan("cluster", R * cluster, cluster,
                        _cdiv(loads, cluster) * v, v)
@@ -1969,12 +1964,13 @@ def _ln_fwd_packed(ptrs, T: int, N: int, M: int, bf16: bool, vec: bool,
 
 
 class LnBwdPlan(NamedTuple):
-    """The launch of ``layer_norm_bwd`` at one shape (csrc/layer_norm.cu,
-    one cooperative launch): ``grid`` blocks of ``threads``, block b the
-    (tenant, column tile) items [b I / grid, (b + 1) I / grid) of the I =
-    T x ``tiles`` items; a tile is one load of each of ``tpr`` threads (a
-    row group: ``tpr * vec`` values), and a block's ``groups`` = threads /
-    tpr row groups share an item's rows (row n to group n mod groups)."""
+    """The launch of ``layer_norm_bwd`` or ``layer_norm_bwd_bwd`` at one
+    shape (csrc/layer_norm.cu, one cooperative launch): ``grid`` blocks of
+    ``threads``, block b the (tenant, column tile) items [b I / grid, (b +
+    1) I / grid) of the I = T x ``tiles`` items; a tile is one load of each
+    of ``tpr`` threads (a row group: ``tpr * vec`` values), and a block's
+    ``groups`` = threads / tpr row groups share an item's rows (row n to
+    group n mod groups)."""
 
     grid: int
     threads: int
@@ -1987,11 +1983,12 @@ class LnBwdPlan(NamedTuple):
 @functools.lru_cache(maxsize=None)
 def ln_bwd_plan(T: int, N: int, M: int, bf16: bool = False, vec: bool = True,
                 sms: int = 132, blocks_per_sm: int = 2) -> LnBwdPlan:
-    """``layer_norm_bwd``'s launch for T tenants of N rows (images) of M
-    values, in f32 or bf16, with 16-byte loads (``vec``) or a value at a
-    time, on a card of ``sms`` SMs that holds ``blocks_per_sm`` of its
-    blocks at once (the occupancy query). A pure function of the shape:
-    the wrapper calls it, and so do the CPU tests. The row group is the
+    """``layer_norm_bwd``'s or ``layer_norm_bwd_bwd``'s launch for T
+    tenants of N rows (images) of M values, in f32 or bf16, with 16-byte
+    loads (``vec``) or a value at a time, on a card of ``sms`` SMs that
+    holds ``blocks_per_sm`` of the kernel's blocks at once (its occupancy
+    query). A pure function of the shape: the wrappers call it, and so do
+    the CPU tests. The row group is the
     power of two of threads at or above a row's loads (32 to
     ``LN_THREADS``), halved while the card would get fewer items than SMs;
     the items go in even shares to as many blocks as the card holds at
@@ -2003,7 +2000,7 @@ def ln_bwd_plan(T: int, N: int, M: int, bf16: bool = False, vec: bool = True,
         raise ValueError(f"ln_bwd_plan: no backward of (T={T}, N={N}) rows "
                          f"of {M} values{' with vectors' if vec else ''}")
     loads = M // v
-    tpr = max(32, min(LN_THREADS, layer_norm.pow2_at_least(loads)))
+    tpr = max(32, min(LN_THREADS, _pow2_at_least(loads)))
     while tpr > 32 and T * _cdiv(loads, tpr) < sms:
         tpr //= 2
     tiles = _cdiv(loads, tpr)
@@ -2011,21 +2008,34 @@ def ln_bwd_plan(T: int, N: int, M: int, bf16: bool = False, vec: bool = True,
                      LN_THREADS // tpr, tiles, v)
 
 
-def ln_bwd_smem(vec: int) -> int:
-    """The bytes of shared memory a ``layer_norm_bwd`` block takes (static:
-    ``cols`` there, the row groups' column sums) with loads of ``vec``
+def ln_bwd_smem(vec: int, sums: int = LN_BWD_SUMS) -> int:
+    """The bytes of shared memory a ``layer_norm_bwd`` block (``sums`` 2:
+    dgamma's and dbeta's row-group sums) or a ``layer_norm_bwd_bwd`` block
+    (7: g_gamma's) takes (static: ``cols`` there) with loads of ``vec``
     values."""
-    return 4 * 2 * vec * LN_THREADS
+    return 4 * (2 if sums == LN_BWD_SUMS else 1) * vec * LN_THREADS
+
+
+def ln_bwd_scratch(plan: LnBwdPlan, R: int, sums: int = LN_BWD_SUMS) -> int:
+    """The f32 scratch of ``layer_norm_bwd`` (``sums`` 2: each (row, sum,
+    tile, warp)'s partial, then each row's two sums) or
+    ``layer_norm_bwd_bwd`` (7: each row's ``LN_BWD_BWD_COEFS``
+    coefficients first, 16-byte aligned, then each (row, sum, tile,
+    warp)'s partial) on ``plan`` over R rows."""
+    rest = sums if sums == LN_BWD_SUMS else LN_BWD_BWD_COEFS
+    return R * (sums * plan.tiles * (plan.tpr // 32) + rest)
 
 
 @functools.lru_cache(maxsize=None)
-def _ln_bwd_blocks_per_sm(device, bf16: bool, vec: bool) -> int:
-    """The occupancy query of ``layer_norm_bwd``'s kernel."""
+def _ln_bwd_blocks_per_sm(device, bf16: bool, vec: bool,
+                          sums: int = LN_BWD_SUMS) -> int:
+    """The occupancy query of ``layer_norm_bwd``'s kernel (``sums`` 2) or
+    ``layer_norm_bwd_bwd``'s (7)."""
     fn = build.function("layer_norm", "layer_norm_bwd_blocks_per_sm",
-                        (_I, _I, ctypes.POINTER(ctypes.c_int)))
+                        (_I, _I, _I, ctypes.POINTER(ctypes.c_int)))
     out = ctypes.c_int(0)
     with _device(device):
-        rc = fn(int(bf16), int(vec), ctypes.byref(out))
+        rc = fn(sums, int(bf16), int(vec), ctypes.byref(out))
     build.check(rc, "layer_norm_bwd_blocks_per_sm")
     return out.value
 
@@ -2056,7 +2066,7 @@ def layer_norm_bwd(dz: Tensor, x: Tensor, mean: Tensor, rstd: Tensor,
     stream = _stream(device)
     # a (row, tile, warp)'s two partial sums, then a row's two sums
     jw = plan.tiles * (plan.tpr // 32)
-    part = _scratch(device, stream, 2 * R * (jw + 1)).data_ptr()
+    part = _scratch(device, stream, ln_bwd_scratch(plan, R)).data_ptr()
     rc = build.function("layer_norm", "layer_norm_bwd", _PACKED_EPS_ENTRY)(
         _LN_BWD_ARGS(*ptrs, part, part + 8 * R * jw, T, N, M, bf16,
                      vec, plan.tpr, plan.tiles, plan.grid, device.index,
@@ -2073,24 +2083,45 @@ def layer_norm_bwd_bwd(a: Tensor, ggamma: Tensor, gbeta: Tensor, dz: Tensor,
                        ) -> Tuple[Tensor, Tensor, Tensor]:
     """The backward of ``layer_norm_bwd``: from the cotangents of its
     ``(dx, dgamma, dbeta)``, the gradients with respect to ``dz``, ``x``
-    and ``gamma``."""
+    and ``gamma``. One cooperative launch of csrc/layer_norm.cu
+    (``ln_bwd_plan`` on its kernel's occupancy), g_dz and g_x views of one
+    allocation, its f32 scratch kept a stream (``_scratch``)."""
     if _on_cpu(x):
         return F.layer_norm_bwd_bwd(a, ggamma, gbeta, dz, x, mean, rstd,
                                     gamma)
     name = "layer_norm_bwd_bwd"
     T, N, H, W, C = _check_ln_args(name, x, mean, rstd, dict(
         ggamma=ggamma, gbeta=gbeta, gamma=gamma))
-    _check(name, "a", a, x.shape, x.device, x.dtype)
-    _check(name, "dz", dz, x.shape, x.device, x.dtype)
-    J = layer_norm.column_tiles(H * W * C)
-    part = torch.empty((J, layer_norm.BWD_BWD_SUMS, T * N), device=x.device)
-    sums = torch.empty((layer_norm.BWD_BWD_SUMS, T * N), device=x.device)
-    g_dz, g_x = torch.empty_like(x), torch.empty_like(x)
+    _ln_same(name, "a", a, x.shape, x)
+    _ln_same(name, "dz", dz, x.shape, x)
+    R, M = T * N, H * W * C
+    bf16 = x.dtype is torch.bfloat16
+    device = x.device
+    grads = x.new_empty((2, *x.shape))  # g_dz, g_x: aligned where x's vectors
     g_gamma = torch.empty_like(gamma)
-    with torch.cuda.device(x.device):
-        layer_norm.launch_bwd_bwd(a, ggamma, gbeta, dz, x, mean, rstd, gamma,
-                                  part, sums, g_dz, g_x, g_gamma)
-    LAUNCHES[_counter(name, x)] += 1
+    ins = [t.data_ptr() for t in (a, ggamma, gbeta, dz, x, mean, rstd,
+                                  gamma)]
+    vec = M % _ln_load(bf16, True) == 0 and (
+        ins[0] | ins[1] | ins[2] | ins[3] | ins[4] | ins[7]) % 16 == 0
+    plan = ln_bwd_plan(T, N, M, bf16, vec, _sms(device),
+                       _ln_bwd_blocks_per_sm(device, bf16, vec,
+                                             LN_BWD_BWD_SUMS))
+    stream = _stream(device)
+    # each row's coefficients (a fresh buffer: aligned), then each (row,
+    # sum)'s (tile, warp) partials
+    tot = _scratch(device, stream,
+                   ln_bwd_scratch(plan, R, LN_BWD_BWD_SUMS)).data_ptr()
+    base = grads.data_ptr()
+    args = _packed(*ins, base, base + x.numel() * x.element_size(),
+                   g_gamma.data_ptr(), tot + 4 * LN_BWD_BWD_COEFS * R, tot,
+                   T, N, M, bf16, vec, plan.tpr, plan.tiles, plan.grid,
+                   device.index, stream)
+    rc = build.function("layer_norm", "layer_norm_bwd_bwd", _ADDR_F_ENTRY)(
+        args.buffer_info()[0], 1.0 / M)
+    counter = _counter(name, x)
+    build.check(rc, counter)
+    LAUNCHES[counter] += 1
+    g_dz, g_x = grads.unbind(0)
     return g_dz, g_x, g_gamma
 
 

@@ -1,7 +1,8 @@
 // K3 and K5 pooled: the backward of batch norm + leaky-ReLU + 2x2 max pool
 // through the batch statistics (bn_act_pool_bwd_f32, and in bf16
-// bn_act_pool_bwd_bf16) and the derivative of that backward in f32
-// (bn_act_pool_bwd_bwd_f32), each one cooperative launch.
+// bn_act_pool_bwd_bf16) and the derivative of that backward
+// (bn_act_pool_bwd_bwd_f32, bn_act_pool_bwd_bwd_bf16), each one
+// cooperative launch.
 //
 // Replaces (JAX package) howtotrainyourmamlpytorch_tpu/ops/functional.py:
 // the gradient XLA derives for the normalize/affine tail of `batch_norm`
@@ -9,8 +10,9 @@
 // row and column are dropped) inside `conv_bn_act` :249 (K3, in f32 and at
 // compute_dtype='bfloat16'), and the derivative of that gradient, which
 // second-order MAML takes through the inner loop (core/maml.py
-// ::_task_learner; K5). K5 in bf16 and the pool-free K5 stay on the Triton
-// kernels of kernels/bn_act_pool.py; the pool-free K3 runs bn_act_bwd.cu.
+// ::_task_learner; K5, in both dtypes). The pool-free K5 stays on the
+// Triton kernels of kernels/bn_act_pool.py; the pool-free K3 runs
+// bn_act_bwd.cu.
 //
 // The arithmetic is the twins' (ops/functional.py::bn_act_pool_bwd,
 // ::bn_act_pool_bwd_bwd; kernels/bn_act_pool.py derives K5's formulas).
@@ -23,11 +25,14 @@
 //   K5: from the cotangents a (of dy), ggamma and gbeta, the five sums
 //       sum a, a xhat, dz, dz xhat, a dz, then g_dpooled (at the argmax),
 //       g_y (every position) and g_gamma.
-// bf16 K3 rounds at the twin's cast points: the masks are K2's decisions
-// (z by the bf16 chain of bn_act_chain.cuh, so K3 flips no sign K2 took),
-// xhat and the two sums in f32 from the bf16 inputs, and dy, dgamma and
-// dbeta each rounded once to bf16 (within one bf16 ulp of the twin, whose
-// sums run in another order).
+// bf16 K3 and K5 round at the twins' cast points: the masks are K2's
+// decisions (z by the bf16 chain of bn_act_chain.cuh at the argmax, so no
+// sign K2 took flips), xhat and the sums in f32 from the bf16 inputs, and
+// each output (dy, dgamma, dbeta; g_dpooled, g_y, g_gamma) rounded once to
+// bf16 (within one bf16 ulp of the twin, whose sums run in another order).
+// The bf16 K5 is the f32 K5's body on bf16 loads, 4 channels a thread (one
+// 8-byte load): its 20 sums a thread fit the f32 K5's register budget,
+// where 8 channels (the bf16 K3's) would hold 40.
 //
 // Bound on an H100: bytes (3.35 TB/s; a few FLOPs an element, no tensor
 // cores). K3 must read y, the pooled gradient and its 1-byte argmax and
@@ -49,15 +54,15 @@
 //   element reads), the windows into chunks of whole windows over as many
 //   blocks as the card holds at once; no chunk spans two tenants. A block
 //   is 256 threads: `slots` windows at a time x G channel groups, a group
-//   one 16-byte load of a position (4 f32 or 8 bf16 channels: G = ceil(C /
-//   4) or ceil(C / 8)); a thread keeps its group, so its sums are scalars
-//   in registers (C = 48 and 64 take 252 and 256 of the threads in f32, 252
-//   and 256 in bf16).
-// * A thread loads a window's pooled gradient (16 bytes), argmax (4 bytes
-//   in f32, 8 in bf16) and its positions of y (and a) as 16-byte vectors,
-//   and writes dy (g_y) the same way and g_dpooled as one vector; one
-//   value (byte) at a time where the channels are not a whole number of
-//   vectors or a tensor is not aligned (kVec false).
+//   one load of a position (4 f32 channels, 16 bytes; the bf16 K3 8 bf16,
+//   16 bytes; the bf16 K5 4 bf16, 8 bytes: G = ceil(C / 4) or ceil(C /
+//   8)); a thread keeps its group, so its sums are scalars in registers
+//   (C = 48 and 64 take 252 and 256 of the threads).
+// * A thread loads a window's pooled gradient, argmax (a byte a channel)
+//   and its positions of y (and a) as one vector each, and writes dy (g_y)
+//   the same way and g_dpooled as one vector; one value (byte) at a time
+//   where the channels are not a whole number of vectors or a tensor is
+//   not aligned (kVec false).
 // * Deterministic, no atomics: a thread sums its windows in order, a block
 //   its slots in order (shared memory), a warp a column's partials over
 //   lane-strided blocks and then a shuffle tree; the order is the plan's,
@@ -81,21 +86,25 @@ constexpr int kThreads = 256;  // a block
 constexpr int kMaxC = 64;      // the channels the kernels take
 constexpr unsigned kNoArg = 0xffffffffu;  // 4 argmax bytes: no window
 
+using bf16_t = __nv_bfloat16;
+
+// The tensors of K3 and K5 (f32, or bf16 in the K5 of bwd_body): y, a, dp,
+// the (T, C) tables, out and gdp of the body's element type.
 struct BwdArgs {
-  const float* y;
-  const float* a;       // K5: the cotangent of K3's dy
-  const float* dp;      // the pooled gradient
+  const void* y;
+  const void* a;        // K5: the cotangent of K3's dy
+  const void* dp;       // the pooled gradient
   const uint8_t* arg;   // its window argmax, 2 * dh + dw
-  const float* mean;
-  const float* rstd;
-  const float* gamma;
-  const float* beta;
-  const float* ggamma;  // K5: the cotangents of K3's dgamma and dbeta
-  const float* gbeta;
-  float* out;           // K3: dy; K5: g_y
-  float* gdp;           // K5: g_dpooled
-  float* vec0;          // K3: dgamma; K5: g_gamma
-  float* vec1;          // K3: dbeta
+  const void* mean;
+  const void* rstd;
+  const void* gamma;
+  const void* beta;
+  const void* ggamma;   // K5: the cotangents of K3's dgamma and dbeta
+  const void* gbeta;
+  void* out;            // K3: dy; K5: g_y
+  void* gdp;            // K5: g_dpooled
+  void* vec0;           // K3: dgamma; K5: g_gamma
+  void* vec1;           // K3: dbeta
   float* part;          // (T, sums, C, blocks): the blocks' partial sums
   float* tot;           // (T, sums, C): the merged sums
   int N, H, W, C, G, Ho, Wo, Hc, Wc, windows, slots, chunk, blocks;
@@ -121,8 +130,9 @@ __device__ __forceinline__ float pick(const float4 (&v)[4], int k, int j) {
   return k == 0 ? p0 : k == 1 ? p1 : k == 2 ? p2 : p3;
 }
 
-// 4 channels from p (n of them where !kVec, zeros past them); kLast: the
-// pass's last read of the data, with an evict-first hint
+// 4 channels from p as f32 (n of them where !kVec, zeros past them): one
+// 16-byte load of f32 or one 8-byte load of bf16; kLast: the pass's last
+// read of the data, with an evict-first hint
 template <bool kVec, bool kLast>
 __device__ __forceinline__ float4 load4(const float* p, int n) {
   if (kVec) {
@@ -134,6 +144,28 @@ __device__ __forceinline__ float4 load4(const float* p, int n) {
   for (int j = 0; j < 4; ++j)
     if (j < n) set_comp(v, j, kLast ? __ldcs(p + j) : __ldg(p + j));
   return v;
+}
+
+template <bool kVec, bool kLast>
+__device__ __forceinline__ float4 load4(const bf16_t* p, int n) {
+  unsigned w[2] = {0u, 0u};
+  if (kVec) {
+    const uint2* q = reinterpret_cast<const uint2*>(p);
+    const uint2 v = kLast ? __ldcs(q) : __ldg(q);
+    w[0] = v.x, w[1] = v.y;
+  } else {
+    const unsigned short* q = reinterpret_cast<const unsigned short*>(p);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (j < n) {
+        const unsigned b = kLast ? __ldcs(q + j) : __ldg(q + j);
+        w[j >> 1] |= b << (16 * (j & 1));
+      }
+  }
+  return make_float4(__uint_as_float(w[0] << 16),
+                     __uint_as_float(w[0] & 0xffff0000u),
+                     __uint_as_float(w[1] << 16),
+                     __uint_as_float(w[1] & 0xffff0000u));
 }
 
 template <bool kVec, bool kLast>
@@ -152,6 +184,8 @@ __device__ __forceinline__ unsigned load_arg(const uint8_t* p, int n) {
   return k;
 }
 
+// 4 channels stored (n of them where !kVec), streaming; bf16 each rounded
+// once
 template <bool kVec>
 __device__ __forceinline__ void store4(float* p, const float4& v, int n) {
   if (kVec) {
@@ -161,6 +195,45 @@ __device__ __forceinline__ void store4(float* p, const float4& v, int n) {
 #pragma unroll
   for (int j = 0; j < 4; ++j)
     if (j < n) __stcs(p + j, comp(v, j));
+}
+
+__device__ __forceinline__ unsigned bf16_bits(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+template <bool kVec>
+__device__ __forceinline__ void store4(bf16_t* p, const float4& v, int n) {
+  if (kVec) {
+    __stcs(reinterpret_cast<uint2*>(p),
+           make_uint2(bf16_bits(v.x) | (bf16_bits(v.y) << 16),
+                      bf16_bits(v.z) | (bf16_bits(v.w) << 16)));
+    return;
+  }
+  unsigned short* q = reinterpret_cast<unsigned short*>(p);
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (j < n) __stcs(q + j, (unsigned short)bf16_bits(comp(v, j)));
+}
+
+// one value of a (T, C) table as f32, and one stored (bf16 rounded once)
+__device__ __forceinline__ float value(const float* p) { return *p; }
+__device__ __forceinline__ float value(const bf16_t* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(bf16_t* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// z, the leaky-ReLU's side, as K2 decides it: f32 one FMA on xhat; bf16
+// the chain of bn_act_chain.cuh, every op rounded to bf16
+template <typename T>
+__device__ __forceinline__ float side(float v, float m, float r, float g,
+                                      float b) {
+  if constexpr (sizeof(T) == 4)
+    return maml::bn_z(maml::bn_xhat(v, m, r), g, b);
+  else
+    return maml::bn_z_bf16(v, m, r, g, b);
 }
 
 // Window i of a tenant: the offset (in pixels) of its top-left position,
@@ -190,8 +263,10 @@ __device__ __forceinline__ float merge(const float* col, int count,
   return s;
 }
 
-// The whole call: reduce, grid barrier, merge, barrier, apply.
-template <int kS, bool kVec>
+// The whole call: reduce, grid barrier, merge, barrier, apply; T the
+// element type (K3 f32 only: its bf16 form is bwd_body_bf16 below), a
+// thread 4 channels of it.
+template <typename T, int kS, bool kVec>
 __device__ __forceinline__ void bwd_body(const BwdArgs& p) {
   constexpr bool kK5 = kS == 5;
   // the per-channel values of the apply pass, in shared memory: K3's mean,
@@ -210,9 +285,9 @@ __device__ __forceinline__ void bwd_body(const BwdArgs& p) {
   const int nc = min(4, p.C - c0);
   const size_t img = (size_t)t * p.N * p.H * p.W * p.C + c0;
   const size_t pooled = (size_t)t * p.N * p.Ho * p.Wo * p.C + c0;
-  const float* y = p.y + img;
-  const float* a = kK5 ? p.a + img : nullptr;
-  const float* dp = p.dp + pooled;
+  const T* y = static_cast<const T*>(p.y) + img;
+  const T* a = kK5 ? static_cast<const T*>(p.a) + img : nullptr;
+  const T* dp = static_cast<const T*>(p.dp) + pooled;
   const uint8_t* arg = p.arg + pooled;
   const int first = blockIdx.x * p.chunk;
   const int last = min(first + p.chunk, p.windows);
@@ -226,10 +301,14 @@ __device__ __forceinline__ void bwd_body(const BwdArgs& p) {
     for (int j = 0; j < 4; ++j) acc[k][j] = 0.f;
   if (active) {
     const int tc = t * p.C + c0;
-    const float4 mu = load4<kVec, false>(p.mean + tc, nc);
-    const float4 rs = load4<kVec, false>(p.rstd + tc, nc);
-    const float4 ga = load4<kVec, false>(p.gamma + tc, nc);
-    const float4 be = load4<kVec, false>(p.beta + tc, nc);
+    const float4 mu = load4<kVec, false>(static_cast<const T*>(p.mean) + tc,
+                                         nc);
+    const float4 rs = load4<kVec, false>(static_cast<const T*>(p.rstd) + tc,
+                                         nc);
+    const float4 ga =
+        load4<kVec, false>(static_cast<const T*>(p.gamma) + tc, nc);
+    const float4 be = load4<kVec, false>(static_cast<const T*>(p.beta) + tc,
+                                         nc);
     for (int i = first + slot; i < last; i += p.slots) {
       int pix, poff;
       bool h1, w1;
@@ -259,15 +338,16 @@ __device__ __forceinline__ void bwd_body(const BwdArgs& p) {
           // every position of the window; a missing one holds a = 0
 #pragma unroll
           for (int q = 0; q < 4; ++q) {
-            const float x = (comp(yv[q], j) - m) * r;
+            const float x = maml::bn_xhat(comp(yv[q], j), m, r);
             acc[0][j] += comp(av[q], j);
             acc[1][j] = fmaf(comp(av[q], j), x, acc[1][j]);
           }
         }
         const int k = (ks >> (8 * j)) & 0xff;
         if (k < 4) {  // the argmax of a pooled window
-          const float x = (pick(yv, k, j) - m) * r;
-          const float z = fmaf(x, comp(ga, j), comp(be, j));
+          const float v = pick(yv, k, j);
+          const float x = maml::bn_xhat(v, m, r);
+          const float z = side<T>(v, m, r, comp(ga, j), comp(be, j));
           const float dz = z >= 0.f ? comp(d, j) : comp(d, j) * slope;
           constexpr int o = kK5 ? 2 : 0;
           acc[o][j] += dz;
@@ -306,27 +386,31 @@ __device__ __forceinline__ void bwd_body(const BwdArgs& p) {
     sums[col] = __ldcg(p.tot + (size_t)t * kS * p.C + col);
   __syncthreads();
   // -- the per-channel values; the first chunk's block writes the
-  // (T, C) outputs -----------------------------------------------------
+  // (T, C) outputs (in T: bf16 rounded once) ---------------------------
   const float inv_m = p.inv_m;
+  T* vec0 = static_cast<T*>(p.vec0);
   for (int c = tid; c < CP; c += kThreads) {
     float v[kN];
 #pragma unroll
     for (int k = 0; k < kN; ++k) v[k] = 0.f;  // channels past C
     if (c < p.C) {
       const int tc = t * p.C + c;
-      const float m = p.mean[tc], r = p.rstd[tc], g = p.gamma[tc];
-      v[0] = m, v[1] = r, v[2] = g, v[3] = p.beta[tc];
+      const float m = value(static_cast<const T*>(p.mean) + tc);
+      const float r = value(static_cast<const T*>(p.rstd) + tc);
+      const float g = value(static_cast<const T*>(p.gamma) + tc);
+      v[0] = m, v[1] = r, v[2] = g;
+      v[3] = value(static_cast<const T*>(p.beta) + tc);
       if constexpr (!kK5) {
         const float s_dz = sums[c], s_dzx = sums[p.C + c];
         v[4] = g * r;
         v[5] = s_dz * inv_m;
         v[6] = s_dzx * inv_m;
         if (blockIdx.x == 0) {
-          p.vec0[tc] = s_dzx;
-          p.vec1[tc] = s_dz;
+          put(vec0 + tc, s_dzx);
+          put(static_cast<T*>(p.vec1) + tc, s_dz);
         }
       } else {
-        const float gg = p.ggamma[tc];
+        const float gg = value(static_cast<const T*>(p.ggamma) + tc);
         const float s_a = sums[c], s_ax = sums[p.C + c];
         const float s_dz = sums[2 * p.C + c], s_dzx = sums[3 * p.C + c];
         const float s_adz = sums[4 * p.C + c];
@@ -336,7 +420,7 @@ __device__ __forceinline__ void bwd_body(const BwdArgs& p) {
         const float cross = s_adz - (m_a * s_dz + m_ax * s_dzx);
         const float grs = g * r;
         v[4] = gg;
-        v[5] = p.gbeta[tc];
+        v[5] = value(static_cast<const T*>(p.gbeta) + tc);
         v[6] = m_a;
         v[7] = m_ax;
         v[8] = m_dzx;
@@ -344,7 +428,7 @@ __device__ __forceinline__ void bwd_body(const BwdArgs& p) {
         v[10] = -grs * (m_dzx * m_a + m_ax * m_dz) + gg * m_dz;
         v[11] = -2.0f * grs * m_ax * m_dzx + gg * m_dzx;
         v[12] = r * r * inv_m * g * cross;
-        if (blockIdx.x == 0) p.vec0[tc] = r * cross;
+        if (blockIdx.x == 0) put(vec0 + tc, r * cross);
       }
     }
 #pragma unroll
@@ -354,6 +438,8 @@ __device__ __forceinline__ void bwd_body(const BwdArgs& p) {
   if (!active) return;
 
   // -- apply: this thread's windows, last first -------------------------
+  T* out = static_cast<T*>(p.out) + img;
+  T* gdp = kK5 ? static_cast<T*>(p.gdp) + pooled : nullptr;
   const int mine = last - first - slot;
   if (mine <= 0) return;
   for (int i = first + slot + (mine - 1) / p.slots * p.slots; i >= first;
@@ -389,14 +475,20 @@ __device__ __forceinline__ void bwd_body(const BwdArgs& p) {
       const float g = comp(c4[2], j), b = comp(c4[3], j);
       const int k = (ks >> (8 * j)) & 0xff;
       const float dj = comp(d, j);
+      // the side at the argmax, where dz lives (K2's decision)
+      bool pos = false;
+      float dzk = 0.f;
+      if (k < 4) {
+        pos = side<T>(pick(yv, k, j), m, r, g, b) >= 0.f;
+        dzk = pos ? dj : dj * slope;
+      }
       if constexpr (!kK5) {
         const float grs = comp(c4[4], j), mdz = comp(c4[5], j),
                     mdzx = comp(c4[6], j);
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
-          const float x = (comp(yv[q], j) - m) * r;
-          const float z = fmaf(x, g, b);
-          const float dz = k == q ? (z >= 0.f ? dj : dj * slope) : 0.f;
+          const float x = maml::bn_xhat(comp(yv[q], j), m, r);
+          const float dz = k == q ? dzk : 0.f;
           set_comp(o[q], j, grs * (dz - mdz - x * mdzx));
         }
       } else {
@@ -408,10 +500,8 @@ __device__ __forceinline__ void bwd_body(const BwdArgs& p) {
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           const float av_q = comp(av[q], j);
-          const float x = (comp(yv[q], j) - m) * r;
-          const float z = fmaf(x, g, b);
-          const bool pos = z >= 0.f;
-          const float dz = k == q ? (pos ? dj : dj * slope) : 0.f;
+          const float x = maml::bn_xhat(comp(yv[q], j), m, r);
+          const float dz = k == q ? dzk : 0.f;
           // g_y: the batch-norm backward of G, plus the rstd term
           const float big_g = -grs * (m_dzx * av_q + m_ax * dz) + gg * dz;
           set_comp(o[q], j, r * (big_g - mean_g - x * mean_gx) - x * lr);
@@ -426,11 +516,10 @@ __device__ __forceinline__ void bwd_body(const BwdArgs& p) {
     for (int q = 0; q < 4; ++q) {
       const bool ok = (!(q >> 1) || h1) && (!(q & 1) || w1);
       if (ok)
-        store4<kVec>(p.out + img + (pix + (q >> 1) * p.W + (q & 1)) * p.C,
-                     o[q], nc);
+        store4<kVec>(out + (pix + (q >> 1) * p.W + (q & 1)) * p.C, o[q],
+                     nc);
     }
-    if (kK5 && poff >= 0)
-      store4<kVec>(p.gdp + pooled + (size_t)poff * p.C, gd, nc);
+    if (kK5 && poff >= 0) store4<kVec>(gdp + (size_t)poff * p.C, gd, nc);
   }
 }
 
@@ -439,18 +528,19 @@ __device__ __forceinline__ void bwd_body(const BwdArgs& p) {
 template <bool kVec>
 __global__ void __launch_bounds__(kThreads, 2)
     bn_act_pool_bwd_kernel(const BwdArgs p) {
-  bwd_body<2, kVec>(p);
+  bwd_body<float, 2, kVec>(p);
 }
 
-template <bool kVec>
+// K5 in f32 and bf16: the same 20 sums a thread (5 sums x 4 channels) in
+// both, a bf16 group one 8-byte load (8 channels would take 40)
+template <typename T, bool kVec>
 __global__ void __launch_bounds__(kThreads, 2)
     bn_act_pool_bwd_bwd_kernel(const BwdArgs p) {
-  bwd_body<5, kVec>(p);
+  bwd_body<T, 5, kVec>(p);
 }
 
 // -- bf16 K3 ---------------------------------------------------------------
 
-using bf16_t = __nv_bfloat16;
 constexpr int kV16 = 8;  // bf16 channels a thread: one 16-byte load
 
 struct Bf16Args {
@@ -523,10 +613,6 @@ __device__ __forceinline__ uint2 load_arg8(const uint8_t* p, int n) {
 
 __device__ __forceinline__ int arg_of(const uint2& k, int j) {
   return (int)(((j < 4 ? k.x : k.y) >> (8 * (j & 3))) & 0xffu);
-}
-
-__device__ __forceinline__ unsigned bf16_bits(float v) {
-  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
 }
 
 // 8 channels rounded once to bf16 and stored (n of them where !kVec)
@@ -732,12 +818,12 @@ __global__ void __launch_bounds__(kThreads, 2)
   bwd_body_bf16<kVec>(p);
 }
 
-template <int kS, bool kVec>
+template <typename T, int kS, bool kVec>
 const void* kernel() {
   if constexpr (kS == 2)
     return reinterpret_cast<const void*>(bn_act_pool_bwd_kernel<kVec>);
   else
-    return reinterpret_cast<const void*>(bn_act_pool_bwd_bwd_kernel<kVec>);
+    return reinterpret_cast<const void*>(bn_act_pool_bwd_bwd_kernel<T, kVec>);
 }
 
 template <bool kVec>
@@ -753,8 +839,8 @@ inline bool aligned(const void* p, unsigned long long bytes) {
 }
 
 // The geometry of the plan (kernels/conv_block.py::bn_bwd_plan) at this
-// shape, a channel group V channels (4 f32, 8 bf16); false where the shape
-// or the plan does not match it.
+// shape, a channel group V channels (4: f32, and the bf16 K5; 8: the bf16
+// K3); false where the shape or the plan does not match it.
 template <typename A>
 bool bwd_geom(A& p, int V, int T, int N, int H, int W, int C, int blocks,
               int chunk, int slots, int threads) {
@@ -771,30 +857,47 @@ bool bwd_geom(A& p, int V, int T, int N, int H, int W, int C, int blocks,
          blocks == cdiv(p.windows, chunk);
 }
 
-// kVec: C % 4 == 0 and every tensor 16-byte aligned (the argmax 4-byte);
-// the wrapper decides, and the entry refuses a kVec it does not hold.
+// kVec: C % 4 == 0 and every tensor aligned to a group's load (16 bytes of
+// f32, 8 of bf16; the argmax 4 bytes); the wrapper decides, and the entry
+// refuses a kVec it does not hold.
+template <typename T>
 bool vec_ok(const BwdArgs& p) {
-  return p.C % 4 == 0 && aligned(p.y, 16) && aligned(p.a, 16) &&
-         aligned(p.dp, 16) && aligned(p.arg, 4) && aligned(p.mean, 16) &&
-         aligned(p.rstd, 16) && aligned(p.gamma, 16) && aligned(p.beta, 16) &&
-         aligned(p.ggamma, 16) && aligned(p.gbeta, 16) && aligned(p.out, 16) &&
-         aligned(p.gdp, 16);
+  constexpr unsigned long long b = 4 * sizeof(T);
+  return p.C % 4 == 0 && aligned(p.y, b) && aligned(p.a, b) &&
+         aligned(p.dp, b) && aligned(p.arg, 4) && aligned(p.mean, b) &&
+         aligned(p.rstd, b) && aligned(p.gamma, b) && aligned(p.beta, b) &&
+         aligned(p.ggamma, b) && aligned(p.gbeta, b) && aligned(p.out, b) &&
+         aligned(p.gdp, b);
 }
 
-template <int kS, bool kVec>
-cudaError_t launch(BwdArgs p, int T, cudaStream_t st) {
-  const dim3 grid(p.blocks, T), block(kThreads);
+template <typename T, int kS>
+cudaError_t run(BwdArgs p, int T_, int vec, cudaStream_t st) {
+  if (vec && !vec_ok<T>(p)) return cudaErrorInvalidValue;
+  const dim3 grid(p.blocks, T_), block(kThreads);
   void* args[] = {&p};
   const cudaError_t err = cudaLaunchCooperativeKernel(
-      kernel<kS, kVec>(), grid, block, args, 0, st);
+      vec ? kernel<T, kS, true>() : kernel<T, kS, false>(), grid, block,
+      args, 0, st);
   const cudaError_t last = cudaGetLastError();
   return err != cudaSuccess ? err : last;
 }
 
-template <int kS>
-cudaError_t run(const BwdArgs& p, int T, int vec, cudaStream_t st) {
-  if (vec && !vec_ok(p)) return cudaErrorInvalidValue;
-  return vec ? launch<kS, true>(p, T, st) : launch<kS, false>(p, T, st);
+// K5's arguments, in f32 or bf16 (T): the plan's geometry and every
+// pointer; false where the plan does not match the shape.
+template <typename T>
+bool k5_args(BwdArgs& p, const T* a, const T* ggamma, const T* gbeta,
+             const T* dp, const uint8_t* arg, const T* y, const T* mean,
+             const T* rstd, const T* gamma, const T* beta, T* g_dp, T* g_y,
+             T* g_gamma, float* part, float* tot, int T_, int N, int H,
+             int W, int C, int blocks, int chunk, int slots, int threads,
+             float slope, float inv_m) {
+  if (!bwd_geom(p, 4, T_, N, H, W, C, blocks, chunk, slots, threads))
+    return false;
+  p.y = y, p.a = a, p.dp = dp, p.arg = arg, p.mean = mean, p.rstd = rstd;
+  p.gamma = gamma, p.beta = beta, p.ggamma = ggamma, p.gbeta = gbeta;
+  p.out = g_y, p.gdp = g_dp, p.vec0 = g_gamma, p.part = part, p.tot = tot;
+  p.slope = slope, p.inv_m = inv_m;
+  return true;
 }
 
 }  // namespace
@@ -802,16 +905,20 @@ cudaError_t run(const BwdArgs& p, int T, int vec, cudaStream_t st) {
 extern "C" {
 
 // The blocks of 256 threads a SM can hold of the one-launch kernel of K3
-// (sums 2) or K5 (sums 5), vector (vec 1) or scalar loads, f32 or (K3 only)
-// bf16: the plan's `blocks_per_sm`, as the cooperative launch requires
-// every block resident at once. Returns the CUDA error, 0 on success.
+// (sums 2) or K5 (sums 5), vector (vec 1) or scalar loads, f32 or bf16:
+// the plan's `blocks_per_sm`, as the cooperative launch requires every
+// block resident at once. Returns the CUDA error, 0 on success.
 int bn_act_pool_bwd_blocks_per_sm(int sums, int vec, int bf16, int* blocks) {
-  if ((sums != 2 && sums != 5) || (bf16 && sums != 2))
-    return (int)cudaErrorInvalidValue;
-  const void* k = bf16 ? (vec ? bf16_kernel<true>() : bf16_kernel<false>())
-                  : sums == 2
-                      ? (vec ? kernel<2, true>() : kernel<2, false>())
-                      : (vec ? kernel<5, true>() : kernel<5, false>());
+  if (sums != 2 && sums != 5) return (int)cudaErrorInvalidValue;
+  const void* k =
+      sums == 2
+          ? (bf16 ? (vec ? bf16_kernel<true>() : bf16_kernel<false>())
+                  : (vec ? kernel<float, 2, true>()
+                         : kernel<float, 2, false>()))
+          : (bf16 ? (vec ? kernel<bf16_t, 5, true>()
+                         : kernel<bf16_t, 5, false>())
+                  : (vec ? kernel<float, 5, true>()
+                         : kernel<float, 5, false>()));
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k,
                                                             kThreads, 0);
 }
@@ -836,7 +943,7 @@ int bn_act_pool_bwd_f32(const float* dp, const uint8_t* arg, const float* y,
   p.gamma = gamma, p.beta = beta, p.out = dy, p.vec0 = dgamma;
   p.vec1 = dbeta, p.part = part, p.tot = tot;
   p.slope = slope, p.inv_m = inv_m;
-  return (int)run<2>(p, T, vec, static_cast<cudaStream_t>(stream));
+  return (int)run<float, 2>(p, T, vec, static_cast<cudaStream_t>(stream));
 }
 
 // K5: from the cotangents a (T, N, H, W, C), ggamma and gbeta (T, C) of
@@ -854,13 +961,33 @@ int bn_act_pool_bwd_bwd_f32(const float* a, const float* ggamma,
                             int threads, int vec, float slope, float inv_m,
                             void* stream) {
   BwdArgs p = {};
-  if (!bwd_geom(p, 4, T, N, H, W, C, blocks, chunk, slots, threads))
+  if (!k5_args(p, a, ggamma, gbeta, dp, arg, y, mean, rstd, gamma, beta,
+               g_dp, g_y, g_gamma, part, tot, T, N, H, W, C, blocks, chunk,
+               slots, threads, slope, inv_m))
     return (int)cudaErrorInvalidValue;
-  p.y = y, p.a = a, p.dp = dp, p.arg = arg, p.mean = mean, p.rstd = rstd;
-  p.gamma = gamma, p.beta = beta, p.ggamma = ggamma, p.gbeta = gbeta;
-  p.out = g_y, p.gdp = g_dp, p.vec0 = g_gamma, p.part = part, p.tot = tot;
-  p.slope = slope, p.inv_m = inv_m;
-  return (int)run<5>(p, T, vec, static_cast<cudaStream_t>(stream));
+  return (int)run<float, 5>(p, T, vec, static_cast<cudaStream_t>(stream));
+}
+
+// K5 in bf16: the arguments of bn_act_pool_bwd_bwd_f32, every tensor but
+// the argmax and the f32 scratch bf16; the plan's groups 4 channels, as in
+// f32 (`vec`: C % 4 == 0, every bf16 tensor 8-byte aligned, the argmax
+// 4-byte).
+int bn_act_pool_bwd_bwd_bf16(const bf16_t* a, const bf16_t* ggamma,
+                             const bf16_t* gbeta, const bf16_t* dp,
+                             const uint8_t* arg, const bf16_t* y,
+                             const bf16_t* mean, const bf16_t* rstd,
+                             const bf16_t* gamma, const bf16_t* beta,
+                             bf16_t* g_dp, bf16_t* g_y, bf16_t* g_gamma,
+                             float* part, float* tot, int T, int N, int H,
+                             int W, int C, int blocks, int chunk, int slots,
+                             int threads, int vec, float slope, float inv_m,
+                             void* stream) {
+  BwdArgs p = {};
+  if (!k5_args(p, a, ggamma, gbeta, dp, arg, y, mean, rstd, gamma, beta,
+               g_dp, g_y, g_gamma, part, tot, T, N, H, W, C, blocks, chunk,
+               slots, threads, slope, inv_m))
+    return (int)cudaErrorInvalidValue;
+  return (int)run<bf16_t, 5>(p, T, vec, static_cast<cudaStream_t>(stream));
 }
 
 // K3 in bf16: the arguments of bn_act_pool_bwd_f32, every tensor but the

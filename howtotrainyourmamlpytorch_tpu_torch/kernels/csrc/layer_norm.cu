@@ -1,15 +1,16 @@
 // The layer norm's statistics (layer_norm_stats), its normalize + affine
-// (layer_norm_fwd) and its backward through the statistics
-// (layer_norm_bwd), f32 and bf16, one launch a call each.
+// (layer_norm_fwd), its backward through the statistics (layer_norm_bwd)
+// and the backward of that backward (layer_norm_bwd_bwd), f32 and bf16,
+// one launch a call each.
 //
 // Replaces (JAX package) howtotrainyourmamlpytorch_tpu/ops/functional.py::
 // layer_norm :447, as models/vgg.py calls it (on the conv output, or on the
 // block input in the norm-first block): its per-image mean and variance
 // (jnp.mean, jnp.var) and rsqrt(var + eps), the normalize and affine
-// :463-464, and the first derivative XLA takes of it through those
-// statistics. The twins are ops/functional.py::image_stats /
-// layer_norm_stats, ::layer_norm_fwd and ::layer_norm_bwd of the port. The
-// double backward stays on the Triton kernels of kernels/layer_norm.py.
+// :463-464, and the first and second derivatives XLA takes of it through
+// those statistics (the second in second-order MAML's inner loop). The
+// twins are ops/functional.py::image_stats / layer_norm_stats,
+// ::layer_norm_fwd, ::layer_norm_bwd and ::layer_norm_bwd_bwd of the port.
 //
 // x is (T, N, H, W, C); a ROW is one image of M = H * W * C consecutive
 // values, R = T * N rows. gamma is per tenant (T, H, W, C).
@@ -18,24 +19,36 @@
 //   fwd:   z = (x - mean) * rstd * gamma + beta;
 //   bwd:   with g = dz * gamma and xhat = (x - mean) * rstd,
 //          dx = rstd * (g - mean_row(g) - xhat * mean_row(g * xhat)),
-//          dgamma = sum_n dz * xhat, dbeta = sum_n dz per (tenant, column).
+//          dgamma = sum_n dz * xhat, dbeta = sum_n dz per (tenant, column);
+//   bwd_bwd: from the cotangents a (of dx), ggamma and gbeta, with P(u) =
+//          u - mean_row(u) - xhat * mean_row(u * xhat),
+//          g_dz = gamma * rstd * P(a) + ggamma * xhat + gbeta,
+//          g_x = rstd * (G - mean_row(G) - xhat * mean_row(G * xhat))
+//                - xhat * rstd^2 * (mean_row(a g) - mean_row(a) mean_row(g)
+//                                   - mean_row(a xhat) mean_row(g xhat)),
+//          G = -rstd * (a mean_row(g xhat) + g mean_row(a xhat)) + ggamma dz,
+//          g_gamma = sum_n dz * rstd * P(a): the row means of G and G xhat
+//          follow from seven row sums (a, a xhat, g, g xhat, a g, ggamma
+//          dz, ggamma dz xhat).
 //
 // bf16 keeps the Triton kernels' rounding points: every load widened to
 // f32, every partial and sum f32; mean and var each rounded once, rstd the
 // f32 1 / sqrt of bf16(bf16(var) + eps) rounded once (maml::store_stats);
 // the forward each of its four ops rounded to bf16, as the twin's bf16
 // tensor ops round them (the batch-norm chain at slope 1,
-// bn_act_chain.cuh); xhat in f32 from the bf16 mean and rstd; dx, dgamma
-// and dbeta each rounded once at the store. The f32 forward rounds each of
-// the twin's four ops (x - mean, * rstd, * gamma, + beta; no FMA), so it
-// is the twin's bits in both dtypes.
+// bn_act_chain.cuh); xhat in f32 from the bf16 mean and rstd; dx, dgamma,
+// dbeta, g_dz, g_x and g_gamma each rounded once at the store. The f32
+// forward rounds each of the twin's four ops (x - mean, * rstd, * gamma, +
+// beta; no FMA), so it is the twin's bits in both dtypes.
 //
 // Bound on an H100: bytes (3.35 TB/s; a few FLOPs an element, no matrix
 // product). The statistics read x once; the backward must read dz and x
 // twice (the row sums need the whole row before any dx, the column sums
 // all N rows of a tenant), write dx, dgamma and dbeta. The forward reads
 // x once and writes z once; it reads gamma and beta for each image, from
-// L2 after a tenant's first.
+// L2 after a tenant's first. The double backward must read a, dz and x
+// twice (8 accesses of an element where the bound counts 5: its share of
+// the bound is at most 62.5%) and write g_dz and g_x.
 //
 // * layer_norm_stats: one launch, shaped by conv_block.ln_stats_plan, a
 //   pure function of (R, M, dtype, vectors). A thread loads 16 bytes at a
@@ -80,6 +93,23 @@
 //   many blocks as the card holds at once (two a SM: four of at most 64
 //   registers ran slower in f32), so each is resident, as the barriers
 //   need.
+// * layer_norm_bwd_bwd: layer_norm_bwd's cooperative launch with seven row
+//   sums, on ln_bwd_plan's grid sized from its own occupancy query. (1)
+//   Each block walks its items: a thread's load of a, dz and x of each of
+//   its rows gives its seven partials, each warp reduces them (shuffle
+//   trees) into f32 scratch, (row, sum, tile, warp), no barrier between
+//   the warps; no column sum yet (g_gamma needs the row means). (2) Grid
+//   barrier; a warp a row adds each sum's (tile, warp) partials in order
+//   (lane l the partials l, l + 32, ...; four steps' loads in flight),
+//   then a shuffle tree, and lane 0 the row's eight coefficients (its
+//   mean, rstd, mean(a), mean(a xhat), mean(g xhat), mean(G), mean(G
+//   xhat), the term through rstd: two 16-byte loads a row in (3)). (3)
+//   Barrier; g_dz and g_x for the block's items, last item and last rows
+//   first, evict-first loads, streaming stores; each thread adds dz * rstd
+//   * P(a) over its group's rows (last first), and the row groups' sums
+//   are added in group order through shared memory into g_gamma, as
+//   dgamma in (1) of the backward. A row group keeps 2-4 rows in flight
+//   (three loads a row), within 128 registers.
 // * Deterministic: every sum runs in the plan's fixed order, no float
 //   atomics, so a second launch gives the first launch's bits.
 
@@ -549,6 +579,250 @@ __global__ void __launch_bounds__(kThreads, 2)
   bwd_body<T, V>(a);
 }
 
+// -- layer_norm_bwd_bwd ----------------------------------------------------
+
+struct BwdBwdArgs {
+  const void* a;       // the cotangent of dx
+  const void* ggamma;  // the cotangents of dgamma and dbeta (T, M)
+  const void* gbeta;
+  const void* dz;
+  const void* x;
+  const void* mean;
+  const void* rstd;
+  const void* gamma;
+  void* g_dz;
+  void* g_x;
+  void* g_gamma;
+  float* part;  // (R, kSums, J * tpr / 32): each row's (tile, warp)
+                //  partials of each sum
+  float* tot;   // (R, kCoefs), 16-byte aligned: each row's coefficients
+  int T, N, M, tpr, groups, J, items;
+  float inv_m;
+};
+
+// The double backward's row sums: sum a, a xhat, g, g xhat, a g, ggamma dz
+// and ggamma dz xhat, with g = dz gamma; the coefficients of a row that
+// the outputs take from them (two 16-byte loads).
+constexpr int kSums = 7;
+constexpr int kCoefs = 8;
+
+template <typename T, int V>
+__device__ __forceinline__ void bwd_bwd_body(const BwdBwdArgs& a) {
+  // the row groups' column sums of g_gamma at the end of an item
+  __shared__ float cols[V][kThreads];
+  // the rows a row group has in flight, by the values a load takes (three
+  // loads a row: 3 rows of f32 vectors and 2 of bf16 ones keep the
+  // 128-register budget)
+  constexpr int kRowsBB = V == 8 ? 2 : V == 4 ? 3 : 4;
+
+  const T* av = static_cast<const T*>(a.a);
+  const T* ggamma = static_cast<const T*>(a.ggamma);
+  const T* gbeta = static_cast<const T*>(a.gbeta);
+  const T* dz = static_cast<const T*>(a.dz);
+  const T* x = static_cast<const T*>(a.x);
+  const T* mean = static_cast<const T*>(a.mean);
+  const T* rstd = static_cast<const T*>(a.rstd);
+  const T* gamma = static_cast<const T*>(a.gamma);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = tid / a.tpr, l = tid - g * a.tpr;  // row group, its thread
+  const int wpg = a.tpr / 32;                      // warps a row group
+  const int G = a.groups, N = a.N, J = a.J;
+  const int vecs = a.M / V;
+  const int first = (int)((long long)blockIdx.x * a.items / gridDim.x);
+  const int last = (int)((long long)(blockIdx.x + 1) * a.items / gridDim.x);
+  const int step = kRowsBB * G;  // rows a batch
+  const int jw = J * wpg;        // a row's (tile, warp) partials of a sum
+  const int wg = warp - g * wpg;
+
+  // -- (1) the row partials, item by item ---------------------------------
+  for (int it = first; it < last; ++it) {
+    const int t = it / J, j = it - t * J;
+    const int vi = j * a.tpr + l;
+    const bool live = vi < vecs;
+    const size_t col = (size_t)t * a.M + (size_t)vi * V;  // in (T, M)
+    Packet<T, V> gq, ggq;
+    zero(gq);
+    zero(ggq);
+    if (live) {
+      load<false>(gamma + col, gq);
+      load<false>(ggamma + col, ggq);
+    }
+    const int row0 = t * N;
+    for (int n0 = 0; n0 < N; n0 += step) {
+      Packet<T, V> aq[kRowsBB], dq[kRowsBB], xq[kRowsBB];
+      float mu[kRowsBB], rs[kRowsBB];
+#pragma unroll
+      for (int u = 0; u < kRowsBB; ++u) {
+        const int n = n0 + u * G + g;
+        mu[u] = rs[u] = 0.f;
+        zero(aq[u]);
+        zero(dq[u]);
+        zero(xq[u]);
+        if (n < N) {
+          mu[u] = scalar(mean + row0 + n);
+          rs[u] = scalar(rstd + row0 + n);
+          if (live) {
+            const size_t off = (size_t)(row0 + n) * a.M + (size_t)vi * V;
+            load<false>(av + off, aq[u]);
+            load<false>(dz + off, dq[u]);
+            load<false>(x + off, xq[u]);
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kRowsBB; ++u) {
+        float s[kSums];
+#pragma unroll
+        for (int k = 0; k < kSums; ++k) s[k] = 0.f;
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          const float ai = at(aq[u], i), d = at(dq[u], i);
+          const float xh = (at(xq[u], i) - mu[u]) * rs[u];
+          const float gv = d * at(gq, i), ggd = at(ggq, i) * d;
+          s[0] += ai;
+          s[1] = fmaf(ai, xh, s[1]);
+          s[2] += gv;
+          s[3] = fmaf(gv, xh, s[3]);
+          s[4] = fmaf(ai, gv, s[4]);
+          s[5] += ggd;
+          s[6] = fmaf(ggd, xh, s[6]);
+        }
+        // the warp's partials of the row: no barrier, each warp streams
+        // on its own
+#pragma unroll
+        for (int k = 0; k < kSums; ++k) s[k] = warp_sum(s[k]);
+        const int n = n0 + u * G + g;
+        if (lane == 0 && n < N) {
+          float* p = a.part + (size_t)(row0 + n) * kSums * jw + j * wpg + wg;
+#pragma unroll
+          for (int k = 0; k < kSums; ++k) p[(size_t)k * jw] = s[k];
+        }
+      }
+    }
+  }
+
+  // -- (2) the row sums and coefficients, a warp a row --------------------
+  cg::grid_group grid = cg::this_grid();
+  grid.sync();
+  const int R = a.T * N;
+  const float inv_m = a.inv_m;
+  for (int row = blockIdx.x * kWarps + warp; row < R;
+       row += gridDim.x * kWarps) {
+    const float* p = a.part + (size_t)row * kSums * jw;
+    float s[kSums];
+#pragma unroll
+    for (int k = 0; k < kSums; ++k) s[k] = 0.f;
+    // lane l the partials l, l + 32, ... in order (unrolled: the loads of
+    // four steps in flight)
+#pragma unroll 4
+    for (int e = lane; e < jw; e += 32)
+#pragma unroll
+      for (int k = 0; k < kSums; ++k) s[k] += __ldcg(p + (size_t)k * jw + e);
+#pragma unroll
+    for (int k = 0; k < kSums; ++k) s[k] = warp_sum(s[k]);
+    if (lane == 0) {
+      const float m_a = s[0] * inv_m, m_ax = s[1] * inv_m;
+      const float m_g = s[2] * inv_m, m_gx = s[3] * inv_m;
+      const float m_ag = s[4] * inv_m, m_ggd = s[5] * inv_m;
+      const float m_ggdx = s[6] * inv_m;
+      const float rs = scalar(rstd + row);
+      // mean(G) and mean(G xhat) of G = -r (a mean(g xhat) + g mean(a
+      // xhat)) + ggamma dz, and the term through r
+      float4* c = reinterpret_cast<float4*>(a.tot) + 2 * (size_t)row;
+      c[0] = make_float4(scalar(mean + row), rs, m_a, m_ax);
+      c[1] = make_float4(m_gx, -rs * (m_a * m_gx + m_g * m_ax) + m_ggd,
+                         -2.0f * rs * m_ax * m_gx + m_ggdx,
+                         m_ag - m_a * m_g - m_ax * m_gx);
+    }
+  }
+  grid.sync();
+
+  // -- (3) g_dz, g_x and g_gamma, last item and last rows first -------------
+  const int batches = (N + step - 1) / step;
+  for (int it = last - 1; it >= first; --it) {
+    const int t = it / J, j = it - t * J;
+    const int vi = j * a.tpr + l;
+    const bool live = vi < vecs;  // a dead thread still meets the barriers
+    const size_t col = (size_t)t * a.M + (size_t)vi * V;
+    Packet<T, V> gq, ggq, gbq;
+    zero(gq);
+    zero(ggq);
+    zero(gbq);
+    if (live) {
+      load<false>(gamma + col, gq);
+      load<false>(ggamma + col, ggq);
+      load<false>(gbeta + col, gbq);
+    }
+    float acc[V];  // sum over the group's rows of dz r P(a)
+#pragma unroll
+    for (int i = 0; i < V; ++i) acc[i] = 0.f;
+    const int row0 = t * N;
+    for (int b = batches - 1; b >= 0; --b) {
+      const int n0 = b * step;
+      Packet<T, V> aq[kRowsBB], dq[kRowsBB], xq[kRowsBB];
+#pragma unroll
+      for (int u = kRowsBB - 1; u >= 0; --u) {
+        const int n = n0 + u * G + g;
+        if (n < N && live) {
+          const size_t off = (size_t)(row0 + n) * a.M + (size_t)vi * V;
+          load<true>(av + off, aq[u]);
+          load<true>(dz + off, dq[u]);
+          load<true>(x + off, xq[u]);
+        }
+      }
+#pragma unroll
+      for (int u = kRowsBB - 1; u >= 0; --u) {
+        const int n = n0 + u * G + g;
+        if (n >= N || !live) continue;
+        const int r = row0 + n;
+        const float4* c = reinterpret_cast<const float4*>(a.tot) + 2 * r;
+        const float4 c0 = __ldcg(c), c1 = __ldcg(c + 1);
+        const float mu = c0.x, rs = c0.y, m_a = c0.z, m_ax = c0.w;
+        const float m_gx = c1.x, mean_g = c1.y, mean_gx = c1.z;
+        const float cross = c1.w;
+        float o_dz[V], o_x[V];
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          const float ai = at(aq[u], i), d = at(dq[u], i);
+          const float gm = at(gq, i), gg = at(ggq, i);
+          const float xh = (at(xq[u], i) - mu) * rs;
+          const float p_a = ai - m_a - xh * m_ax;
+          o_dz[i] = gm * rs * p_a + gg * xh + at(gbq, i);
+          acc[i] += d * rs * p_a;
+          const float big_g = -rs * (ai * m_gx + d * gm * m_ax) + gg * d;
+          o_x[i] =
+              rs * (big_g - mean_g - xh * mean_gx) - xh * rs * rs * cross;
+        }
+        const size_t off = (size_t)r * a.M + (size_t)vi * V;
+        store<true>(static_cast<T*>(a.g_dz) + off, o_dz);
+        store<true>(static_cast<T*>(a.g_x) + off, o_x);
+      }
+    }
+    // g_gamma of the item's columns: the row groups in order
+    if (G > 1) {
+#pragma unroll
+      for (int i = 0; i < V; ++i) cols[i][tid] = acc[i];
+      __syncthreads();
+      if (g == 0 && live) {
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          float s = 0.f;
+          for (int h = 0; h < G; ++h) s += cols[i][h * a.tpr + l];
+          acc[i] = s;
+        }
+      }
+      __syncthreads();  // cols is free for the next item
+    }
+    if (g == 0 && live) store<false>(static_cast<T*>(a.g_gamma) + col, acc);
+  }
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads, 2)
+    layer_norm_bwd_bwd_kernel(const BwdBwdArgs a) {
+  bwd_bwd_body<T, V>(a);
+}
+
 // -- the entries -----------------------------------------------------------
 
 using maml::aligned;
@@ -594,6 +868,17 @@ const void* bwd_kernel_for(int bf16, int vec) {
   if (bf16)
     return vec ? bwd_kernel<bf16_t, 8>() : bwd_kernel<bf16_t, 1>();
   return vec ? bwd_kernel<float, 4>() : bwd_kernel<float, 1>();
+}
+
+template <typename T, int V>
+const void* bwd_bwd_kernel() {
+  return reinterpret_cast<const void*>(layer_norm_bwd_bwd_kernel<T, V>);
+}
+
+const void* bwd_bwd_kernel_for(int bf16, int vec) {
+  if (bf16)
+    return vec ? bwd_bwd_kernel<bf16_t, 8>() : bwd_bwd_kernel<bf16_t, 1>();
+  return vec ? bwd_bwd_kernel<float, 4>() : bwd_bwd_kernel<float, 1>();
 }
 
 template <typename T, int V>
@@ -694,13 +979,16 @@ int layer_norm_fwd(const long long* a) {
       0, ptr<CUstream_st>(a[14])));
 }
 
-// The blocks of 256 threads a SM can hold of layer_norm_bwd's kernel in
-// f32 or bf16, with 16-byte loads or one value at a time: the plan's
-// `blocks_per_sm` (the cooperative launch needs every block resident), on
-// the current device.
-int layer_norm_bwd_blocks_per_sm(int bf16, int vec, int* blocks) {
+// The blocks of 256 threads a SM can hold of layer_norm_bwd's kernel
+// (sums 2) or layer_norm_bwd_bwd's (sums 7) in f32 or bf16, with 16-byte
+// loads or one value at a time: the plan's `blocks_per_sm` (the
+// cooperative launch needs every block resident), on the current device.
+int layer_norm_bwd_blocks_per_sm(int sums, int bf16, int vec, int* blocks) {
+  if (sums != 2 && sums != kSums) return (int)cudaErrorInvalidValue;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, bwd_kernel_for(bf16, vec), kThreads, 0);
+      blocks,
+      sums == 2 ? bwd_kernel_for(bf16, vec) : bwd_bwd_kernel_for(bf16, vec),
+      kThreads, 0);
 }
 
 // layer_norm_bwd, its arguments packed as layer_norm_stats' (the order of
@@ -747,6 +1035,52 @@ int layer_norm_bwd(const long long* a, float inv_m) {
       ptr<CUstream_st>(a[19]));
   const cudaError_t last = cudaGetLastError();
   return (int)(err != cudaSuccess ? err : last);
+}
+
+// layer_norm_bwd_bwd, its arguments packed as 64-bit integers and passed by
+// address (conv_block._packed), in the order of
+// conv_block.layer_norm_bwd_bwd:
+//   a[0..7]   a, ggamma, gbeta, dz, x, mean, rstd, gamma: a, dz and x (T,
+//             N, M values), the (T, N) mean and rstd, the (T, M) ggamma,
+//             gbeta and gamma, all f32 or all bf16 by bf16
+//   a[8..10]  g_dz and g_x (T, N, M), g_gamma (T, M)
+//   a[11..12] f32 scratch: part (T * N * 7 * J * tpr / 32) and tot (T * N
+//             * 8, 16-byte aligned)
+//   a[13..17] T, N, M, bf16, vec (16-byte loads: M a multiple of their
+//             values and every tensor of M values 16-byte aligned)
+//   a[18..20] the plan (conv_block.ln_bwd_plan on this kernel's
+//             occupancy): tpr, J, blocks, as layer_norm_bwd's
+//   a[21..22] the device, the stream
+// and inv_m = 1 / M. Refuses (launching nothing) a plan that does not match
+// the shape or vectors the pointers do not allow. Returns the CUDA error, 0
+// on success.
+int layer_norm_bwd_bwd(const long long* a, float inv_m) {
+  const int T = (int)a[13], N = (int)a[14], M = (int)a[15];
+  const int bf16 = (int)a[16], vec = (int)a[17];
+  const int tpr = (int)a[18], J = (int)a[19], blocks = (int)a[20];
+  const int v = load_width(bf16, vec);
+  if (T < 1 || N < 1 || M < 1 || M % v) return (int)cudaErrorInvalidValue;
+  if (!aligned(ptr<void>(a[12]), 16)) return (int)cudaErrorInvalidValue;
+  const int tensors[] = {0, 1, 2, 3, 4, 7, 8, 9, 10};  // of M values
+  if (vec)
+    for (int i : tensors)
+      if (!aligned(ptr<void>(a[i]), 16)) return (int)cudaErrorInvalidValue;
+  if (tpr < 32 || tpr > kThreads || (tpr & (tpr - 1)) ||
+      J != cdiv(M / v, tpr) || (long long)T * J > 0x7fffffffLL ||
+      blocks < 1 || blocks > T * J)
+    return (int)cudaErrorInvalidValue;
+  OnDevice on((int)a[21]);
+  if (on.err != cudaSuccess) return (int)on.err;
+  BwdBwdArgs b = {
+      ptr<const void>(a[0]), ptr<const void>(a[1]), ptr<const void>(a[2]),
+      ptr<const void>(a[3]), ptr<const void>(a[4]), ptr<const void>(a[5]),
+      ptr<const void>(a[6]), ptr<const void>(a[7]), ptr<void>(a[8]),
+      ptr<void>(a[9]),       ptr<void>(a[10]),      ptr<float>(a[11]),
+      ptr<float>(a[12]),     T, N, M, tpr, kThreads / tpr, J, T * J, inv_m};
+  void* args[] = {&b};
+  return maml::launch_error(cudaLaunchCooperativeKernel(
+      bwd_bwd_kernel_for(bf16, vec), dim3(blocks), dim3(kThreads), args, 0,
+      ptr<CUstream_st>(a[22])));
 }
 
 }  // extern "C"

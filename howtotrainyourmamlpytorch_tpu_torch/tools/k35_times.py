@@ -1,6 +1,5 @@
-"""Time K3 and K5 in f32, pooled (``bn_act_pool_bwd`` and
-``bn_act_pool_bwd_bwd``), and K3 in bf16, at every shape the shipped
-configs give them, beside their bound: the check that one build's K3 and K5 are faster than
+"""Time K3 and K5 pooled (``bn_act_pool_bwd`` and ``bn_act_pool_bwd_bwd``)
+in f32 and bf16 at every shape the shipped configs give them, beside their bound: the check that one build's K3 and K5 are faster than
 another's, compared in one process run after the other on one card
 (parent, change, change, parent).
 
@@ -16,13 +15,13 @@ gamma and beta, the twin K2's window argmax, a pooled gradient and K5's
 cotangents, at the mini-ImageNet conv outputs (84/42/21/10, 48 channels)
 and the unpadded model's (82/39/17/6) at N = 25, T = 2 and 8, the
 large-batch config's T = 256 at mini stage 1, and Omniglot's (28/14/7/3,
-64 channels) at N = 20, T = 8; K3 in bf16 at the same shapes on the
-same values rounded to bf16 (its argmax K2's of them). Per row: the
+64 channels) at N = 20, T = 8; K3 and K5 in bf16 at the same shapes on
+the same values rounded to bf16 (their argmax K2's of them). Per row: the
 wrapper's time by CUDA events (host time included:
 ``card_timing.time_ms``, every row timed before the first profile), the
 device time of every kernel the call launches and their count by
 ``torch.profiler`` (a Triton K3's two kernels and its sum of the
-partials; one CUDA kernel), the error against the plain twin (f32 within
+partials, a Triton K5's two; one CUDA kernel), the error against the plain twin (f32 within
 1e-5 + 1e-4 of scale, bf16 within one bf16 ulp or 1e-4 of scale), and the
 bound: max(bytes / 3.35 TB/s, FLOPs / 67 TFLOP/s) on an H100 SXM, each
 input read once and each output written once. ``--e2e`` then profiles
@@ -102,8 +101,8 @@ def cases():
 
 def calls(cb, F, T, n, C, hw):
     """K3's and K5's (name, wrapper call, twin call, FLOPs, bytes) at one
-    shape, on inputs from its seed: each input read once, each output
-    written once."""
+    shape in f32 and bf16, on inputs from its seed: each input read once,
+    each output written once."""
     k3, k5 = inputs(T, n, hw, C, hw + C + n + T)
     dp, arg, y = k3[:3]
     TC = T * C
@@ -111,6 +110,7 @@ def calls(cb, F, T, n, C, hw):
         v.bfloat16() for v in (dp, arg, y) + k3[3:])
     arg16 = F.bn_act_pool_fwd(y16, mean16, rstd16, gamma16, beta16)[1]
     k3_16 = (dp16, arg16, y16, mean16, rstd16, gamma16, beta16)
+    k5_16 = tuple(v.bfloat16() for v in k5[:3]) + k3_16
     return (
         ("K3", lambda: cb.bn_act_pool_bwd(*k3),
          lambda: F.bn_act_pool_bwd(*k3), 10 * y.numel() + 6 * dp.numel(),
@@ -120,7 +120,10 @@ def calls(cb, F, T, n, C, hw):
          4 * (3 * y.numel() + 2 * dp.numel() + 7 * TC) + arg.numel()),
         ("K3 bf16", lambda: cb.bn_act_pool_bwd(*k3_16),
          lambda: F.bn_act_pool_bwd(*k3_16), 10 * y.numel() + 6 * dp.numel(),
-         2 * (dp.numel() + 2 * y.numel() + 6 * TC) + arg.numel()))
+         2 * (dp.numel() + 2 * y.numel() + 6 * TC) + arg.numel()),
+        ("K5 bf16", lambda: cb.bn_act_pool_bwd_bwd(*k5_16),
+         lambda: F.bn_act_pool_bwd_bwd(*k5_16), 42 * y.numel(),
+         2 * (3 * y.numel() + 2 * dp.numel() + 7 * TC) + arg.numel()))
 
 
 def rows(label):

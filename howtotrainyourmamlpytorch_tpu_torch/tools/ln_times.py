@@ -1,9 +1,10 @@
-"""Time ``layer_norm_stats``, ``layer_norm_fwd``, ``layer_norm_bwd`` and
-``act_fwd``, in f32 and bf16, at every shape ``chip_smoke.py``'s
-layer-norm and strided norm-first phases give them, beside their bound
-and one PyTorch call that computes the same function (``torch.var_mean``,
-``F.layer_norm`` with its statistics, ``aten.native_layer_norm_backward``,
-``F.leaky_relu``); with ``--e2e``, the layer-norm models' batch-2 train
+"""Time ``layer_norm_stats``, ``layer_norm_fwd``, ``layer_norm_bwd``,
+``layer_norm_bwd_bwd`` and ``act_fwd``, in f32 and bf16, at every shape
+``chip_smoke.py``'s layer-norm and strided norm-first phases give them,
+beside their bound and one PyTorch call that computes the same function
+where there is one (``torch.var_mean``, ``F.layer_norm`` with its
+statistics, ``aten.native_layer_norm_backward``, ``F.leaky_relu``; none
+for the double backward); with ``--e2e``, the layer-norm models' batch-2 train
 step and bucket-8 serve dispatch, the strided layer-norm and the strided
 norm-first Omniglot models' batch-8 train steps, in f32 and bf16 as well:
 the check that one build's kernels are faster than another's, compared
@@ -16,13 +17,15 @@ parent).
 Run by path, so that ``PYTHONPATH`` picks the package whose kernels are
 built and launched (each checkout builds its own into its own
 ``_build/``); the script uses only the wrappers ``layer_norm_stats``,
-``layer_norm_fwd``, ``layer_norm_bwd`` and ``act_fwd`` of
+``layer_norm_fwd``, ``layer_norm_bwd``, ``layer_norm_bwd_bwd`` and
+``act_fwd`` of
 ``kernels/conv_block.py``, their twins and the train and serve entry
 points, which every build has. Inputs come from a numpy seed, T = 8
 tenants: the layer-norm models' normalized tensors — the mini-ImageNet
 conv outputs of the conv-first model (84/42/21/10 x 48) and the
 norm-first model's stage-0 image (84 x 84 x 3), the statistics and the
-forward at N = 75 images and the backward at N = 25; the strided Omniglot
+forward at N = 75 images and the backward and double backward at N = 25
+(the double backward on random cotangents); the strided Omniglot
 model's conv outputs (14/7/4/2 x 64) and its norm-first 28 x 28 x 1 image
 at N = 20 — with gamma and beta shared over the tenants, expanded to
 ``(T, H, W, C)`` as the blocks give them; ``act_fwd`` at the strided
@@ -46,9 +49,9 @@ train step at batch 8 of the Omniglot 20-way 1-shot config
 with ``max_pooling=False`` and ``norm_layer='layer_norm'`` and with
 ``max_pooling=False`` and ``block_order='norm_conv_relu'``, in f32 and
 bf16: the device's busy time, its activities, and the device time and
-launches of the layer norm's statistics, forward and backward and of
-``act_fwd`` (the CUDA kernels, or the Triton passes they replace; the
-Triton row-sum pass, which the double backward shares, apart). Prints one
+launches of the layer norm's statistics, forward, backward and double
+backward and of ``act_fwd`` (the CUDA kernels, or the Triton passes they
+replace). Prints one
 line per row with the card's ``nvidia-smi`` line first and (with
 ``--out``) writes every row as JSON. Needs one card.
 """
@@ -71,7 +74,8 @@ STRIDED = (("strided layer1", 14, 64), ("strided layer2", 7, 64),
            ("strided norm-first layer1", 28, 1))
 # the images each kernel sees: the statistics and the forward at serving's
 # 75 targets, the backward at the 25 support images; 20 at Omniglot
-IMAGES = {"layer_norm_stats": 75, "layer_norm_fwd": 75, "layer_norm_bwd": 25}
+IMAGES = {"layer_norm_stats": 75, "layer_norm_fwd": 75, "layer_norm_bwd": 25,
+          "layer_norm_bwd_bwd": 25}
 # act_fwd at the strided norm-first model's conv outputs, N = 20
 ACT_OUTPUTS = (("strided norm-first layer1", 14, 64),
                ("strided norm-first layer2", 7, 64),
@@ -128,8 +132,8 @@ def _gate(got, want, kernel):
 
 
 def calls(cb, F, dtype, kernel, hw, c, n):
-    """(wrapper call, twin call, library call, FLOPs, bytes) at one shape,
-    on inputs from a numpy seed."""
+    """(wrapper call, twin call, library call or None, FLOPs, bytes) at one
+    shape, on inputs from a numpy seed."""
     rng = np.random.RandomState(hw + c + n)
 
     def r(*shape, scale=1.0):
@@ -163,6 +167,12 @@ def calls(cb, F, dtype, kernel, hw, c, n):
                 esize * (2 * numel + 2 * gamma.numel() + 2 * rows))
     dz = r(T, n, *shape, scale=1.0 / numel ** 0.5).to(dtype)
     ln = (x, mean, rstd, gamma)
+    if kernel == "layer_norm_bwd_bwd":
+        args = (r(T, n, *shape).to(dtype), r(T, *shape).to(dtype),
+                r(T, *shape).to(dtype), dz) + ln
+        return (lambda: cb.layer_norm_bwd_bwd(*args),
+                lambda: F.layer_norm_bwd_bwd(*args), None, 40 * numel,
+                esize * (5 * numel + 4 * gamma.numel() + 2 * rows))
     saved = (mean.float().reshape(T, n, 1, 1, 1),
              rstd.float().reshape(T, n, 1, 1, 1), gamma_s, beta_s,
              [True] * 3)
@@ -188,7 +198,8 @@ def rows(label):
             "build": label, "dtype": tag, "kernel": kernel, "layer": layer,
             "hw": hw, "C": c, "N": n, "T": T,
             "max_abs_err": err, "bit_for_bit": equal,
-            "ms": time_ms(call), "library_ms": time_ms(lib),
+            "ms": time_ms(call),
+            "library_ms": time_ms(lib) if lib is not None else None,
             "bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops > t_bytes else "bytes",
         })
@@ -202,10 +213,12 @@ def rows(label):
                  f", host {r['ms'] - dev:.4f} ms, "
                  f"{100 * r['bound_ms'] / dev:.1f}% of the bound by device "
                  "time")
+        lib = r["library_ms"]
+        lib = ("no library call" if lib is None else
+               f"library {lib:.4f} ms ({r['ms'] / lib:.2f}x)")
         print(f"[ln {label}] {tag} {kernel} {layer} N={n}: {r['ms']:.4f} ms "
               f"(device {fmt_ms(dev)}, {r['kernels_a_call']:g} kernels a "
-              f"call{extra}), library {r['library_ms']:.4f} ms "
-              f"({r['ms'] / r['library_ms']:.2f}x), bound "
+              f"call{extra}), {lib}, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), err "
               f"{r['max_abs_err']:.2e}"
               f"{', bit for bit' if r['bit_for_bit'] else ''}", flush=True)
@@ -215,12 +228,13 @@ def rows(label):
 
 
 def _part(key):
-    """Which of the layer norm's statistics, forward and backward and
-    ``act_fwd`` a device kernel is: the CUDA kernels, or the Triton passes
-    they replace; the Triton row sums (shared with the double backward)
-    apart; None for the rest."""
-    if "bwd_bwd" in key:
-        return None
+    """Which of the layer norm's statistics, forward, backward and double
+    backward and ``act_fwd`` a device kernel is: the CUDA kernels, or the
+    Triton passes they replace; None for the rest."""
+    if "layer_norm_bwd_bwd" in key or key.startswith(
+            ("_bwd_bwd_reduce_kernel", "_bwd_bwd_out_kernel",
+             "_row_sums_kernel")):
+        return "ln bwd bwd"
     if "layer_norm_stats" in key or key.startswith(
             ("_stats_partial_kernel", "_stats_merge_kernel")):
         return "ln stats"
@@ -231,13 +245,11 @@ def _part(key):
         return "ln bwd"
     if "act_fwd_kernel" in key and "bn_act_fwd" not in key:
         return "act fwd"
-    if key.startswith("_row_sums_kernel"):
-        return "row sums"
     return None
 
 
 PARTS = card_timing.by_part(_part, ("ln stats", "ln fwd", "ln bwd",
-                                    "act fwd", "row sums"))
+                                    "ln bwd bwd", "act fwd"))
 
 
 def e2e(label):

@@ -1,6 +1,6 @@
-"""The launch plan of K3 and K5 in f32, pooled (``conv_block.bn_bwd_plan``,
-the cooperative kernels of ``kernels/csrc/bn_act_pool_bwd.cu``), on the
-CPU: a pure function of the shape, checked at every shape the shipped
+"""The launch plan of K3 and K5 pooled (``conv_block.bn_bwd_plan``, the
+cooperative kernels of ``kernels/csrc/bn_act_pool_bwd.cu``), on the CPU,
+in f32 and bf16: a pure function of the shape, checked at every shape the shipped
 configs give K3 and K5 — the mini-ImageNet conv outputs (84/42/21/10, and
 the unpadded 82/39/17/6; 48 channels) and Omniglot's (28/14/7/3, 64
 channels), at the configs' task batches (2, 8 and the large-batch
@@ -69,7 +69,6 @@ def test_plan_covers_each_position_once_and_fits_the_card(shape, bps):
     T, N, hw, C = shape
     plan = cb.bn_bwd_plan(T, N, hw, hw, C, SMS, bps)
     assert plan == cb.bn_bwd_plan(T, N, hw, hw, C, SMS, bps)  # pure
-    assert plan.kernel == "cuda"
     blocks, grid_t = plan.grid
     assert grid_t == T
     # a block of 256 threads: slots windows x ceil(C / 4) channel groups
@@ -116,20 +115,26 @@ def test_the_flagship_plans_fill_the_card_at_batch_2():
 @pytest.mark.parametrize("shape", [(2, 25, 84, 84, 48), (8, 20, 7, 7, 64),
                                    (2, 3, 11, 9, 17)], ids=str)
 def test_bf16_k3_plans_the_cuda_kernel_in_groups_of_8(shape):
-    """Both dtypes plan K3 on the CUDA kernel: f32 a thread 4 channels (one
-    16-byte load of f32), bf16 8 (one of bf16), so a bf16 block takes
-    twice the windows at a time; the bf16 K5 stays on the Triton kernels
-    (``_bn_bwd_route`` decides, on the card). The pool-free modes never
-    plan: their wrappers (``bn_act_bwd``, ``batch_norm_bwd`` and their
-    derivatives) launch csrc/bn_act_bwd.cu and the Triton K5."""
+    """Both dtypes plan K3 and K5 on the CUDA kernels: K3 in f32 a thread 4
+    channels (one 16-byte load of f32), in bf16 8 (one of bf16), so a bf16
+    block takes twice the windows at a time; K5 4 channels a thread in
+    both dtypes (one 8-byte load of bf16: its five sums of 8 channels
+    would not fit the register budget), so the bf16 K5's plan is the f32
+    K5's. The pool-free modes never plan: their wrappers (``bn_act_bwd``,
+    ``batch_norm_bwd`` and their derivatives) launch csrc/bn_act_bwd.cu
+    and the Triton K5."""
     T, N, H, W, C = shape
     f32 = cb.bn_bwd_plan(*shape, SMS, 2)
     bf16 = cb.bn_bwd_plan(*shape, SMS, 2, bf16=True)
-    assert f32.kernel == bf16.kernel == "cuda"
     assert (f32.groups, bf16.groups) == (-(-C // 4), -(-C // 8))
     assert bf16.slots == 256 // bf16.groups >= f32.slots
     assert bf16.windows == f32.windows == N * -(-H // 2) * -(-W // 2)
-    assert cb.BN_BWD_GROUP == {False: 4, True: 8}
+    k5 = cb.bn_bwd_plan(*shape, SMS, 2, name="bn_act_pool_bwd_bwd")
+    assert k5 == f32 == cb.bn_bwd_plan(*shape, SMS, 2, True,
+                                       "bn_act_pool_bwd_bwd")
+    assert cb.BN_BWD_GROUP == {
+        ("bn_act_pool_bwd", False): 4, ("bn_act_pool_bwd", True): 8,
+        ("bn_act_pool_bwd_bwd", False): 4, ("bn_act_pool_bwd_bwd", True): 4}
 
 
 def test_bn_bwd_plan_refuses_what_the_card_cannot_hold():
@@ -278,7 +283,6 @@ EMULATED = [
 def test_emulated_k3_equals_the_twin(shape):
     T, N, H, W, C, sms, bps = shape
     plan = cb.bn_bwd_plan(T, N, H, W, C, sms, bps)
-    assert plan.kernel == "cuda"
     k3, _ = _inputs(T, N, H, W, C, sum(shape))
     slope = F.scalar_like(F.LEAKY_SLOPE, k3[2])
     for got, want, what in zip(_emulated_k3(plan, *k3, slope),
@@ -355,7 +359,7 @@ def test_bf16_plan_covers_each_window_once_and_fits_the_card(shape, bps):
     plan = cb.bn_bwd_plan(T, N, hw, hw, C, SMS, bps, bf16=True)
     assert plan == cb.bn_bwd_plan(T, N, hw, hw, C, SMS, bps, bf16=True)
     blocks, grid_t = plan.grid
-    assert plan.kernel == "cuda" and grid_t == T
+    assert grid_t == T
     assert plan.groups == -(-C // 8) and plan.slots == 256 // plan.groups
     assert plan.windows == N * (-(-hw // 2)) ** 2
     assert plan.chunk % plan.slots == 0 and plan.chunk >= plan.slots
@@ -492,3 +496,91 @@ def test_emulated_bf16_k3_equals_the_jax_vjp():
                 spread = (w16 - w32).abs().max().item()
                 assert ((g - w16).abs() <= spread + _ulp(w16.to(BF16))
                         ).all(), what
+
+
+# -- K5 in bf16 ------------------------------------------------------------------
+
+# the bf16 K5's shapes: every pooled conv output of the shipped configs at
+# the support images second-order training differentiates (N = 25, and 20
+# at Omniglot), T = 2, 8 and 256
+K5_BF16_SHAPES = [s for s in MAIN_SHAPES if s[1] in (20, 25)]
+
+
+@pytest.mark.parametrize("shape", K5_BF16_SHAPES, ids=str)
+def test_bf16_k5_plan_covers_each_window_once_and_fits_the_card(shape):
+    """The bf16 K5's plan: 4 channels a thread (one 8-byte load), 256 //
+    ceil(C / 4) windows at a time, the chunks whole slots of windows that
+    tile each tenant's windows once, every block co-resident, at the two
+    and three blocks a SM the occupancy query may give it."""
+    T, N, hw, C = shape
+    for bps in (2, 3):
+        plan = cb.bn_bwd_plan(T, N, hw, hw, C, SMS, bps, True,
+                              "bn_act_pool_bwd_bwd")
+        blocks, grid_t = plan.grid
+        assert grid_t == T and plan.threads == 256
+        assert plan.groups == -(-C // 4) and plan.slots == 256 // plan.groups
+        assert plan.windows == N * (-(-hw // 2)) ** 2
+        assert plan.chunk % plan.slots == 0 and plan.chunk >= plan.slots
+        assert (blocks - 1) * plan.chunk < plan.windows <= blocks * plan.chunk
+        assert blocks * T <= SMS * bps
+        assert blocks * T >= min(SMS, T * -(-plan.windows // plan.slots))
+
+
+def _emulated_k5_bf16(plan, a, ggamma, gbeta, dp, arg, y, mean, rstd, gamma,
+                      beta, slope):
+    """The bf16 K5 as the kernel orders and rounds it: the masks by K2's
+    chain (each op of ``(y - mean) * rstd * gamma + beta`` rounded to
+    bf16), xhat in f32 from the bf16 values, the five sums in the plan's
+    order (``_emulated_sum``), the apply pass's per-channel values from
+    them in f32; g_dpooled, g_y and g_gamma each rounded once to bf16."""
+    H, W = y.shape[2:4]
+    a, ggamma, gbeta, dp, y, mean, rstd, gamma, beta = (
+        v.float() for v in (a, ggamma, gbeta, dp, y, mean, rstd, gamma,
+                            beta))
+    xhat = (y - _pc(mean)) * _pc(rstd)
+    z = _bf16(_bf16(_bf16(_bf16(y - _pc(mean)) * _pc(rstd)) * _pc(gamma))
+              + _pc(beta))
+    pos = z >= 0
+    dz = F._unpool(dp, arg, H, W)
+    dz = torch.where(pos, dz, dz * slope)
+    s_a, s_ax, s_dz, s_dzx, s_adz = (
+        _emulated_sum(plan, _windows(v))
+        for v in (a, a * xhat, dz, dz * xhat, a * dz))
+    inv_m = 1.0 / (y.shape[1] * H * W)
+    m_a, m_ax = s_a * inv_m, s_ax * inv_m
+    m_dz, m_dzx = s_dz * inv_m, s_dzx * inv_m
+    cross = s_adz - (m_a * s_dz + m_ax * s_dzx)
+    grs = gamma * rstd
+    mean_g = -grs * (m_dzx * m_a + m_ax * m_dz) + ggamma * m_dz
+    mean_gx = -2.0 * grs * m_ax * m_dzx + ggamma * m_dzx
+    lr = rstd * rstd * inv_m * gamma * cross
+    big_g = -_pc(grs) * (_pc(m_dzx) * a + _pc(m_ax) * dz) + _pc(ggamma) * dz
+    g_y = (_pc(rstd) * (big_g - _pc(mean_g) - xhat * _pc(mean_gx))
+           - xhat * _pc(lr))
+    gdz = (_pc(grs) * (a - _pc(m_a) - xhat * _pc(m_ax))
+           + _pc(ggamma) * xhat + _pc(gbeta))
+    gdz = torch.where(pos, gdz, gdz * slope)
+    g_dp = torch.gather(F._windows(gdz), -1,
+                        arg.long().unsqueeze(-1)).squeeze(-1)
+    return g_dp.to(BF16), g_y.to(BF16), (rstd * cross).to(BF16)
+
+
+@pytest.mark.parametrize("shape", EMULATED, ids=str)
+def test_emulated_bf16_k5_equals_the_twin(shape):
+    """Within one bf16 ulp or 1e-4 of the output's scale (the card's gate),
+    on the bf16 K3 inputs (no window ties) and bf16 cotangents: the twin
+    sums the five in another order."""
+    T, N, H, W, C, sms, bps = shape
+    plan = cb.bn_bwd_plan(T, N, H, W, C, sms, bps, True,
+                          "bn_act_pool_bwd_bwd")
+    k3 = _bf16_inputs(T, N, H, W, C, 3 * sum(shape))
+    rng = np.random.RandomState(5 * sum(shape))
+    a, ggamma, gbeta = (
+        torch.from_numpy(rng.randn(*s).astype(np.float32)).to(BF16)
+        for s in ((T, N, H, W, C), (T, C), (T, C)))
+    k5 = (a, ggamma, gbeta) + k3
+    slope = F.scalar_like(F.LEAKY_SLOPE, k3[2])
+    got = _emulated_k5_bf16(plan, *k5, slope)
+    for g, w, what in zip(got, F.bn_act_pool_bwd_bwd(*k5),
+                          ("g_dpooled", "g_y", "g_gamma")):
+        _within_ulp(g, w, what)

@@ -15,11 +15,11 @@ TypeError of every dtype but f32 and bf16; the layer norm's four kernels
 in bf16 and the layer-norm blocks' second derivative on them; K3 and K5
 in f32, pooled, on their cooperative kernels (``csrc/bn_act_pool_bwd.cu``)
 at every main-path shape and at edge shapes, a second launch bit for bit
-the first, the refusal of a shape the plan cannot fit, and the bf16 and
-pool-free K5 still the Triton kernels' bits; K3 pooled in bf16 on the same
+the first, the refusal of a shape the plan cannot fit, and the pool-free
+K5 still the Triton kernels' bits; K3 and K5 pooled in bf16 on the same
 cooperative kernel at every bf16 main-path shape and at edge shapes, off
-alignment, a second launch bit for bit the first, its entry's refusals and
-no Triton kernel reached; K2
+alignment, a second launch bit for bit the first, their entries' refusals
+and no Triton kernel reached; K2
 (``csrc/bn_act_fwd.cu``) pooled and pool-free, f32 and bf16, at every
 main-path shape and at edge shapes, off vector alignment, a second launch
 bit for bit the first, its entries' refusals, and no K2 wrapper reaching
@@ -33,11 +33,11 @@ entries' refusals; K1 (both modes) and K4 dgrad at stride 2
 on the band kernels of ``csrc/conv3x3_s2.cu``, f32 and bf16, at every
 stride-2 main-path shape and at edge shapes, off alignment, dx's rows and
 columns that no output reads an exact zero, a second launch bit for bit
-the first, and their entries' refusals; ``layer_norm_stats`` and
-``layer_norm_bwd`` on ``csrc/layer_norm.cu`` in f32 and bf16 at every
-layer-norm main-path shape and at edge shapes, off alignment, a second
-launch bit for bit the first, their entries' refusals and no Triton kernel
-reached; ``bn_input_stats`` (``csrc/bn_input_stats.cu``) and the global
+the first, and their entries' refusals; ``layer_norm_stats``,
+``layer_norm_bwd`` and ``layer_norm_bwd_bwd`` on ``csrc/layer_norm.cu`` in
+f32 and bf16 at every layer-norm main-path shape and at edge shapes, off
+alignment, a second launch bit for bit the first, their entries' refusals
+and no Triton kernel reached; ``bn_input_stats`` (``csrc/bn_input_stats.cu``) and the global
 average pool's forward and backward (``csrc/global_avg_pool.cu``) in f32
 and bf16 at every model shape (C = 1, 3, 48, 64) and at edge shapes
 (tenants that are not a whole number of loads, channel counts of the
@@ -2259,7 +2259,7 @@ def test_k3_k5_kernels_match_their_twins_at_main_path_shapes(shape, device):
     T, N, hw, C = shape
     k3, k5 = _k35_inputs(T, N, hw, hw, C, seed=hw + C + N + T)
     plan = cb._bn_bwd_route("bn_act_pool_bwd", k3[2], True)
-    assert plan.kernel == "cuda"
+    assert plan.groups == -(-C // 4) and plan.grid[1] == T
     _check_k35(k3, k5)
     torch.cuda.empty_cache()
 
@@ -2294,38 +2294,33 @@ def test_k3_k5_kernels_take_tensors_off_16_byte_alignment(device):
 
 
 def test_bf16_and_pool_free_k3_k5_keep_the_triton_kernels(device):
-    """bf16 K5 pooled plans the Triton kernels, and K5's pool-free mode
-    (``bn_act_bwd_bwd``, ``batch_norm_bwd_bwd``) launches them without a
-    plan; both give their bits: the wrappers' outputs equal the Triton
-    launches' (kernels/bn_act_pool.py) called directly. K3 is CUDA in both
-    modes and dtypes: pooled bf16 on csrc/bn_act_pool_bwd.cu (below),
-    pool-free on csrc/bn_act_bwd.cu, held to its twin; their Triton
-    launchers are gone."""
+    """K3 and K5 pooled are CUDA in both dtypes: in bf16 each plans
+    csrc/bn_act_pool_bwd.cu and is held to its twin, a second launch bit
+    for bit the first, with the pooled Triton K5 gone from
+    kernels/bn_act_pool.py. K5's pool-free mode (``bn_act_bwd_bwd``,
+    ``batch_norm_bwd_bwd``) keeps the Triton kernels, launched without a
+    plan, and gives their bits: the wrappers' outputs equal the Triton
+    launches' called directly. K3 pool-free is CUDA (csrc/bn_act_bwd.cu),
+    held to its twin; its Triton launchers are gone."""
     from howtotrainyourmamlpytorch_tpu_torch.kernels import bn_act_pool
 
     k3, k5 = _k35_inputs(2, 3, 14, 14, 48, seed=19)
-    k3 = tuple(t if t.dtype == torch.uint8 else t.bfloat16() for t in k3)
-    k5 = tuple(t if t.dtype == torch.uint8 else t.bfloat16() for t in k5)
-    y = k3[2]
-    T, C = y.shape[0], y.shape[-1]
-    assert cb._bn_bwd_route("bn_act_pool_bwd", y, True).kernel == "cuda"
-    assert cb._bn_bwd_route("bn_act_pool_bwd_bwd", y,
-                            True).kernel == "triton"
-    slope = F.scalar_like(F.LEAKY_SLOPE, y)
-    cb.reset_launches()
-    part = torch.empty((T, bn_act_pool.SPLITS, 5, C), device=device)
-    want = (torch.empty_like(k3[0]), torch.empty_like(y),
-            torch.empty((T, C), device=device, dtype=y.dtype))
-    bn_act_pool.launch_bwd_bwd(*k5, part, *want, slope)
-    got = cb.bn_act_pool_bwd_bwd(*k5)
-    assert all(torch.equal(a, c) for a, c in zip(got, want))
-    assert cb.launches()["bn_act_pool_bwd_bwd_bf16"] == 1
+    y = k3[2].bfloat16()
+    for name in ("bn_act_pool_bwd", "bn_act_pool_bwd_bwd"):
+        plan = cb._bn_bwd_route(name, y, True)
+        assert plan.groups == -(-48 // cb.BN_BWD_GROUP[name, True])
+    _check_k3_bf16(k3)
+    _check_k5_bf16(k5)
+    for gone in ("launch_bwd", "launch_act_bwd", "launch_bwd_bwd",
+                 "_bn_act_pool_bwd_bwd_reduce_kernel",
+                 "_bn_act_pool_bwd_bwd_out_kernel"):
+        assert not hasattr(bn_act_pool, gone), gone
+    assert not hasattr(cb, "_BN_BWD_TRITON")
     # the pool-free modes: K5 as bn_act_* and at slope 1 as batch_norm_*
     # on Triton, K3 on CUDA
-    for gone in ("launch_bwd", "launch_act_bwd"):
-        assert not hasattr(bn_act_pool, gone)
     _, k5 = _k35_inputs(2, 3, 14, 14, 48, seed=23)
     a, gg, gb, _, _, y, mean, rstd, gamma, beta = k5
+    T, C = y.shape[0], y.shape[-1]
     da = torch.randn_like(y)
     for s in (F.LEAKY_SLOPE, 1.0):
         cb.reset_launches()
@@ -2395,7 +2390,7 @@ def test_k3_bf16_matches_its_twin_at_main_path_shapes(shape, device,
     T, N, hw, C = shape
     k3, _ = _k35_inputs(T, N, hw, hw, C, seed=hw + C + N + T)
     plan = cb._bn_bwd_route("bn_act_pool_bwd", k3[2].bfloat16(), True)
-    assert plan.kernel == "cuda" and plan.groups == -(-C // 8)
+    assert plan.groups == -(-C // 8) and plan.grid[1] == T
     _check_k3_bf16(k3, monkeypatch)
     torch.cuda.empty_cache()
 
@@ -2466,22 +2461,140 @@ def test_k3_bf16_entry_refuses_a_plan_that_does_not_match(device):
     assert bool((dy == 7.0).all())
 
 
+# K5 pooled in bf16: the f32 K5's cooperative kernel of
+# csrc/bn_act_pool_bwd.cu on bf16 loads, 4 channels a thread, at the bf16
+# K3's shapes (the Omniglot maps of 7 and 3 drop a row and a column) and
+# edge shapes. g_dpooled, g_y and g_gamma ``within_ulp`` of the bf16 twin;
+# one launch on ``bn_act_pool_bwd_bwd_bf16`` and no Triton kernel; a
+# second launch bit for bit the first.
+def _check_k5_bf16(k5, monkeypatch=None):
+    k5 = tuple(t if t.dtype == torch.uint8 else t.bfloat16() for t in k5)
+    a, gg, gb, dp, arg, y, mean, rstd, gamma, beta = k5
+    # K2's argmax of the bf16 values (the pool's first maximum)
+    arg = F.bn_act_pool_fwd(y, mean, rstd, gamma, beta)[1]
+    k5 = (a, gg, gb, dp, arg, y, mean, rstd, gamma, beta)
+    if monkeypatch is not None:
+        from howtotrainyourmamlpytorch_tpu_torch.kernels import bn_act_pool
+
+        def no_triton():
+            raise AssertionError("a Triton kernel was reached")
+
+        monkeypatch.setattr(bn_act_pool, "_jit", no_triton)
+    cb.reset_launches()
+    got = cb.bn_act_pool_bwd_bwd(*k5)
+    assert cb.launches() == {**{k: 0 for k in cb.KERNELS},
+                             "bn_act_pool_bwd_bwd_bf16": 1}
+    for o, c, what in zip(got, F.bn_act_pool_bwd_bwd(*k5),
+                          ("g_dpooled", "g_y", "g_gamma")):
+        assert o.dtype == torch.bfloat16 and o.is_contiguous()
+        within_ulp(o, c, f"K5 bf16 {what}")
+    assert all(torch.equal(o, c)
+               for o, c in zip(cb.bn_act_pool_bwd_bwd(*k5), got))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("shape", K3_BF16_MAIN_SHAPES, ids=str)
+def test_k5_bf16_matches_its_twin_at_main_path_shapes(shape, device,
+                                                      monkeypatch):
+    T, N, hw, C = shape
+    _, k5 = _k35_inputs(T, N, hw, hw, C, seed=hw + C + N + T + 1)
+    plan = cb._bn_bwd_route("bn_act_pool_bwd_bwd", k5[5].bfloat16(), True)
+    assert plan.groups == -(-C // 4) and plan.grid[1] == T
+    _check_k5_bf16(k5, monkeypatch)
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("shape", K3_BF16_EDGE_SHAPES, ids=str)
+def test_k5_bf16_matches_its_twin_at_edge_shapes(shape, device):
+    _check_k5_bf16(_k35_inputs(*shape, seed=sum(shape) + 1)[1])
+
+
+def test_k5_bf16_takes_tensors_off_8_byte_alignment(device):
+    """Views one element into their storage: the kernel loads and stores a
+    value at a time (vec = 0), with the aligned launch's bits."""
+    _, k5 = _k35_inputs(2, 3, 11, 9, 48, seed=37)
+    a, gg, gb, dp, _, y, mean, rstd, gamma, beta = (
+        t if t.dtype == torch.uint8 else t.bfloat16() for t in k5)
+    arg = F.bn_act_pool_fwd(y, mean, rstd, gamma, beta)[1]
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, device=t.device, dtype=t.dtype)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 4 != 0
+        return view
+
+    moved = (shifted(a), gg, gb, shifted(dp), shifted(arg), shifted(y),
+             mean, rstd, gamma, beta)
+    assert not cb._bn_bwd_vec(48, [t.data_ptr() for t in moved], True,
+                              "bn_act_pool_bwd_bwd")
+    assert cb._bn_bwd_vec(48, [t.data_ptr() for t in (
+        a, gg, gb, dp, arg, y, mean, rstd, gamma, beta)], True,
+        "bn_act_pool_bwd_bwd")
+    got = cb.bn_act_pool_bwd_bwd(*moved)
+    want = cb.bn_act_pool_bwd_bwd(a, gg, gb, dp, arg, y, mean, rstd, gamma,
+                                  beta)
+    assert all(torch.equal(o, c) for o, c in zip(got, want))
+
+
+def test_k5_bf16_entry_refuses_a_plan_that_does_not_match(device):
+    """The bf16 K5 entry checks the plan's blocks, chunk, slots and threads
+    against the geometry (4 channels a group) and its vector loads against
+    the pointers, and launches nothing otherwise."""
+    from howtotrainyourmamlpytorch_tpu_torch.kernels import build
+
+    _, k5 = _k35_inputs(2, 3, 14, 14, 48, seed=41)
+    a, gg, gb, dp, _, y, mean, rstd, gamma, beta = (
+        t if t.dtype == torch.uint8 else t.bfloat16() for t in k5)
+    arg = F.bn_act_pool_fwd(y, mean, rstd, gamma, beta)[1]
+    T, N, H, W, C = y.shape
+    plan = cb._bn_bwd_route("bn_act_pool_bwd_bwd", y, True)
+    g_dp, g_y = torch.full_like(dp, 7.0), torch.full_like(y, 7.0)
+    g_gamma = torch.full_like(mean, 7.0)
+    scratch = torch.empty(5 * T * C * (plan.grid[0] + 1), device=device)
+    fn = build.function("bn_act_pool_bwd", "bn_act_pool_bwd_bwd_bf16",
+                        cb._K5_ARGS)
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = [t.data_ptr() for t in (a, gg, gb, dp, arg, y, mean, rstd, gamma,
+                                   beta, g_dp, g_y, g_gamma)]
+    ptrs += [scratch.data_ptr(),
+             scratch.data_ptr() + 4 * 5 * T * C * plan.grid[0]]
+    good = [plan.grid[0], plan.chunk, plan.slots, plan.threads, 1]
+    for i, bad in ((0, plan.grid[0] + 1), (1, plan.chunk + 1),
+                   (2, plan.slots // 2), (3, 128)):
+        args = list(good)
+        args[i] = bad
+        assert fn(*ptrs, T, N, H, W, C, *args, 0.01, 1.0 / (N * H * W),
+                  stream) != 0
+    bad_ptrs = list(ptrs)
+    bad_ptrs[5] += 2  # y off 8-byte alignment, vector loads asked
+    assert fn(*bad_ptrs, T, N, H, W, C, *good, 0.01, 1.0 / (N * H * W),
+              stream) != 0
+    torch.cuda.synchronize()
+    for t in (g_dp, g_y, g_gamma):
+        assert bool((t == 7.0).all())
+
+
 def test_k3_k5_refuse_a_shape_the_plan_cannot_fit(device):
     """More tenants than the card holds blocks at once (the cooperative
     launch needs them all resident), or more than 64 channels: the wrapper
-    raises and launches nothing."""
+    raises and launches nothing, in both dtypes."""
     resident = cb._sms(device) * max(
-        cb._bn_bwd_blocks_per_sm(device, s, v) for s in (2, 5)
-        for v in (False, True))
+        cb._bn_bwd_blocks_per_sm(device, s, v, b) for s in (2, 5)
+        for v in (False, True) for b in (False, True))
     for T, C in ((resident + 1, 4), (1, 65)):
         k3, k5 = _k35_inputs(T, 1, 2, 2, C, seed=29)
-        cb.reset_launches()
-        with pytest.raises(ValueError, match="bn_bwd_plan"):
-            cb.bn_act_pool_bwd(*k3)
-        with pytest.raises(ValueError, match="bn_bwd_plan"):
-            cb.bn_act_pool_bwd_bwd(*k5)
-        assert cb.launches()["bn_act_pool_bwd"] == 0
-        assert cb.launches()["bn_act_pool_bwd_bwd"] == 0
+        for cast in (False, True):
+            if cast:
+                k3, k5 = ((t if t.dtype == torch.uint8 else t.bfloat16()
+                           for t in k) for k in (k3, k5))
+                k3, k5 = tuple(k3), tuple(k5)
+            cb.reset_launches()
+            with pytest.raises(ValueError, match="bn_bwd_plan"):
+                cb.bn_act_pool_bwd(*k3)
+            with pytest.raises(ValueError, match="bn_bwd_plan"):
+                cb.bn_act_pool_bwd_bwd(*k5)
+            assert set(cb.launches().values()) == {0}
 
 
 # K2 in both modes and dtypes: csrc/bn_act_fwd.cu. Every shape the shipped
@@ -2917,28 +3030,153 @@ def test_ln_entries_refuse_a_plan_that_does_not_match(device):
 
 def test_no_ln_stats_or_bwd_call_reaches_a_triton_kernel(device,
                                                          monkeypatch):
-    """The Triton statistics, forward and backward are gone from
-    kernels/layer_norm.py, and the statistics' and the backward's wrappers
-    run with Triton's compile step made to fail, in f32 and bf16; the
-    double backward keeps its Triton kernels."""
-    from howtotrainyourmamlpytorch_tpu_torch.kernels import (
-        bn_act_pool,
-        layer_norm,
-    )
+    """The layer norm's Triton module (kernels/layer_norm.py) is gone, and
+    the statistics', the backward's and the double backward's wrappers run
+    with Triton's compile step made to fail, in f32 and bf16."""
+    import importlib
 
-    for gone in ("launch_stats", "launch_bwd", "stats_plan",
-                 "_stats_partial_kernel", "_bwd_reduce_kernel",
-                 "_bwd_dx_kernel", "launch_fwd", "_fwd_kernel"):
-        assert not hasattr(layer_norm, gone), gone
-    assert hasattr(layer_norm, "launch_bwd_bwd")
+    from howtotrainyourmamlpytorch_tpu_torch.kernels import bn_act_pool
+
+    with pytest.raises(ImportError):
+        importlib.import_module(
+            "howtotrainyourmamlpytorch_tpu_torch.kernels.layer_norm")
 
     def no_triton():
         raise AssertionError("a layer-norm wrapper reached Triton")
 
-    monkeypatch.setattr(layer_norm, "_jit", no_triton)
     monkeypatch.setattr(bn_act_pool, "_jit", no_triton)
     for dtype in LN_DTYPES.values():
-        _check_ln(*_ln_inputs(2, 3, 8, 8, 48, dtype, 67))
+        ln = _ln_inputs(2, 3, 8, 8, 48, dtype, 67)
+        _check_ln(*ln)
+        _check_ln_bwd_bwd(*ln, seed=71)
+
+
+# layer_norm_bwd_bwd on csrc/layer_norm.cu: one cooperative launch a call,
+# f32 and bf16, at the layer-norm main-path shapes of the support images
+# (25, and 20 at Omniglot; the odd maps of 21, 7 and 39 included) and at
+# the edge shapes (odd M: one value a load). Gates: f32 within 1e-5 *
+# min(1, scale) + 1e-4 * scale of the twin (an absolute floor that never
+# covers a small output), bf16 ``within_ulp``; one launch on its counter;
+# a second launch bit for bit the first.
+LN_BB_MAIN = [s for s in LN_MAIN if s[1] != 75]
+
+
+def _ln_bb_gate(got, want, what):
+    for o, c, w in zip(got, want, what):
+        assert o.dtype == c.dtype and o.shape == c.shape, w
+        assert o.is_contiguous() and torch.isfinite(o).all(), w
+        if o.dtype == torch.bfloat16:
+            within_ulp(o, c, w)
+        else:
+            err = (o.double() - c.double()).abs().max().item()
+            scale = c.double().abs().max().item()
+            assert err <= 1e-5 * min(1.0, scale) + 1e-4 * scale, (w, err,
+                                                                  scale)
+
+
+def _check_ln_bwd_bwd(x, mean, rstd, gamma, dz, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    T, _, H, W, C = x.shape
+
+    def r(*s):
+        return torch.randn(*s, device="cuda", generator=g).to(x.dtype)
+
+    args = (r(*x.shape), r(T, H, W, C), r(T, H, W, C), dz, x, mean, rstd,
+            gamma)
+    tag = "_bf16" if x.dtype == torch.bfloat16 else ""
+    cb.reset_launches()
+    got = cb.layer_norm_bwd_bwd(*args)
+    assert {k: n for k, n in cb.launches().items() if n} == {
+        "layer_norm_bwd_bwd" + tag: 1}
+    _ln_bb_gate(got, F.layer_norm_bwd_bwd(*args), ("g_dz", "g_x", "g_gamma"))
+    assert all(torch.equal(o, c)
+               for o, c in zip(cb.layer_norm_bwd_bwd(*args), got))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", list(LN_DTYPES))
+@pytest.mark.parametrize("shape", LN_BB_MAIN, ids=str)
+def test_ln_bwd_bwd_matches_its_twin_at_main_path_shapes(shape, dtype,
+                                                         device):
+    T, N, hw, C = shape
+    _check_ln_bwd_bwd(*_ln_inputs(T, N, hw, hw, C, LN_DTYPES[dtype],
+                                  hw + C + N + 1), seed=hw + C)
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("dtype", list(LN_DTYPES))
+@pytest.mark.parametrize("shape", LN_EDGE, ids=str)
+def test_ln_bwd_bwd_matches_its_twin_at_edge_shapes(shape, dtype, device):
+    _check_ln_bwd_bwd(*_ln_inputs(*shape, LN_DTYPES[dtype], sum(shape) + 1),
+                      seed=sum(shape))
+
+
+@pytest.mark.parametrize("dtype", list(LN_DTYPES))
+def test_ln_bwd_bwd_takes_tensors_off_16_byte_alignment(dtype, device,
+                                                        monkeypatch):
+    """Contiguous views one element into their storage: a, dz or x off
+    alignment makes the double backward load one value at a time (its plan
+    asked without vectors), held to the twin as aligned inputs are."""
+    asked = []
+    plan = cb.ln_bwd_plan
+    monkeypatch.setattr(cb, "ln_bwd_plan",
+                        lambda *a: asked.append(a[4]) or plan(*a))
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, device=t.device, dtype=t.dtype)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16 != 0
+        return view
+
+    x, mean, rstd, gamma, dz = _ln_inputs(2, 3, 10, 10, 48, LN_DTYPES[dtype],
+                                          73)
+    for args, vec in (((x, mean, rstd, gamma, shifted(dz)), False),
+                      ((shifted(x), mean, rstd, gamma, dz), False),
+                      ((x, mean, rstd, gamma, dz), True)):
+        asked.clear()
+        _check_ln_bwd_bwd(*args, seed=79)
+        assert asked == [vec, vec], asked
+
+
+def test_ln_bwd_bwd_entry_refuses_a_plan_that_does_not_match(device):
+    """The double backward's entry checks the plan against the shape and
+    the vectors against M and the pointers, and launches nothing
+    otherwise."""
+    from howtotrainyourmamlpytorch_tpu_torch.kernels import build
+
+    T, N, H, W, C = 2, 3, 10, 10, 48
+    R, M = T * N, H * W * C
+    x, mean, rstd, gamma, dz = _ln_inputs(T, N, H, W, C, torch.float32, 83)
+    a = torch.randn_like(x)
+    gg, gb = torch.randn_like(gamma), torch.randn_like(gamma)
+    fn = build.function("layer_norm", "layer_norm_bwd_bwd", cb._ADDR_F_ENTRY)
+    stream = torch.cuda.current_stream().cuda_stream
+    bp = cb.ln_bwd_plan(T, N, M, False, True, 132, 2)
+    outs = torch.full((2, *x.shape), 7.0, device=device)
+    g_gamma = torch.full_like(gamma, 7.0)
+    scratch = torch.empty(cb.ln_bwd_scratch(bp, R, cb.LN_BWD_BWD_SUMS),
+                          device=device)
+    tot = scratch.data_ptr()
+    part = tot + 4 * cb.LN_BWD_BWD_COEFS * R
+    off = torch.empty(x.numel() + 1, device=device)[1:]
+    ins = [t.data_ptr() for t in (a, gg, gb, dz, x, mean, rstd, gamma)]
+    for case in (
+            (ins[4], bp.tpr, bp.tiles + 1, bp.grid, M),
+            (ins[4], 48, bp.tiles, bp.grid, M),
+            (ins[4], bp.tpr, bp.tiles, T * bp.tiles + 1, M),
+            (ins[4], bp.tpr, bp.tiles, 0, M),
+            (ins[4], bp.tpr, bp.tiles, bp.grid, M - 2),  # M off the vectors
+            (off.data_ptr(), bp.tpr, bp.tiles, bp.grid, M),  # x off them
+            (ins[4], bp.tpr, bp.tiles, bp.grid, M, 4)):  # tot off 16 bytes
+        xp, tpr, J, blocks, m, *shift = case
+        args = cb._packed(*ins[:4], xp, *ins[5:], outs[0].data_ptr(),
+                          outs[1].data_ptr(), g_gamma.data_ptr(), part,
+                          tot + sum(shift), T, N, m, 0, 1, tpr, J, blocks,
+                          0, stream)
+        assert fn(args.buffer_info()[0], 1.0 / M) != 0
+    torch.cuda.synchronize()
+    assert bool((outs == 7.0).all()) and bool((g_gamma == 7.0).all())
 
 
 # -- bn_input_stats and the global average pool on CUDA ------------------------
@@ -3783,25 +4021,28 @@ def test_act_fwd_rejects_and_its_entry_refuses_what_does_not_match(device):
 
 def test_no_act_fwd_or_ln_fwd_call_reaches_a_triton_kernel(device,
                                                            monkeypatch):
-    """The Triton ``act_fwd`` and ``layer_norm_fwd`` are gone from
-    kernels/act_pool.py and kernels/layer_norm.py, and both wrappers run
-    with Triton's compile step made to fail, in f32 and bf16."""
+    """The Triton ``act_fwd`` and ``layer_norm_fwd`` are gone (from
+    kernels/act_pool.py; kernels/layer_norm.py with every layer-norm
+    Triton kernel), and both wrappers run with Triton's compile step made
+    to fail, in f32 and bf16."""
+    import importlib
+
     from howtotrainyourmamlpytorch_tpu_torch.kernels import (
         act_pool,
         bn_act_pool,
-        layer_norm,
     )
 
     for gone in ("launch_fwd", "_act_fwd_kernel"):
         assert not hasattr(act_pool, gone), gone
-    for gone in ("launch_fwd", "_fwd_kernel", "_bf16_chain"):
-        assert not hasattr(layer_norm, gone), gone
+    with pytest.raises(ImportError):
+        importlib.import_module(
+            "howtotrainyourmamlpytorch_tpu_torch.kernels.layer_norm")
 
     def no_triton():
         raise AssertionError("an act_fwd or layer_norm_fwd call reached "
                              "Triton")
 
-    for module in (act_pool, bn_act_pool, layer_norm):
+    for module in (act_pool, bn_act_pool):
         monkeypatch.setattr(module, "_jit", no_triton)
     for dtype in K3_FREE_DTYPES.values():
         _check_act_fwd(_act_inputs(2, 3, 8, 64, dtype, 97)[1])

@@ -1,5 +1,5 @@
-"""``layer_norm_stats`` and ``layer_norm_bwd`` (csrc/layer_norm.cu), on the
-CPU: their launch plans (``conv_block.ln_stats_plan``, ``ln_bwd_plan``) at
+"""``layer_norm_stats``, ``layer_norm_bwd`` and ``layer_norm_bwd_bwd``
+(csrc/layer_norm.cu), on the CPU: their launch plans (``conv_block.ln_stats_plan``, ``ln_bwd_plan``) at
 every layer-norm shape of the port's models — the conv-first outputs of
 the mini-ImageNet stages (84/42/21/10 x 48: M = 338,688, 84,672, 21,168,
 4,800), the norm-first image (84 x 84 x 3: 21,168), the unpadded conv
@@ -20,7 +20,13 @@ held to the twins (``ops/functional.py::layer_norm_stats``,
 ``::layer_norm_bwd``): f32 within 1e-5 + 1e-4 * scale, bf16 (the sums in
 f32 on the widened loads, each output rounded once where the twins round)
 within one bf16 ulp; and at one small shape to the JAX package's
-``layer_norm`` :447 and its ``jax.vjp`` (run eagerly on the CPU).
+``layer_norm`` :447 and its ``jax.vjp`` (run eagerly on the CPU). The
+double backward's plan (``ln_bwd_plan`` on its own kernel's occupancy) at
+every layer-norm shape ``chip_smoke.py`` gives it, and its seven row sums
+in the kernel's order, held to the twin
+(``ops/functional.py::layer_norm_bwd_bwd``) in f32 and bf16 and to the
+JAX package's second derivative of ``layer_norm`` (``jax.vjp`` of its
+``jax.vjp``).
 
 The kernels themselves run only on the card
 (``tests/test_torch_kernels_cuda.py``).
@@ -460,3 +466,202 @@ def test_emulated_kernels_equal_the_jax_layer_norm_and_its_vjp():
         _close(dx[rows], np.array(want[0]).reshape(N, M), "dx")
         _close(dgamma[t], np.array(want[1]).reshape(M), "dgamma")
         _close(dbeta[t], np.array(want[2]).reshape(M), "dbeta")
+
+
+# -- the double backward ---------------------------------------------------------
+
+# (T, N, M) of every tensor chip_smoke.py's layer-norm phases give the double
+# backward: the mini-ImageNet conv-first stages and the norm-first image at
+# the 25 support images, the strided Omniglot layers and its 28 x 28 x 1
+# image at 20, T = 8
+BB_SHAPES = ([(8, 25, M) for M in MINI]
+             + [(8, 20, M) for M in STRIDED])
+SUMS = 7  # the double backward's row sums (``kSums``)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", BB_SHAPES, ids=str)
+def test_bwd_bwd_plan_covers_each_value_once_and_fits_the_card(shape, dtype):
+    """The double backward's plan is the backward's (``ln_bwd_plan``) on
+    its own occupancy: at one and two blocks a SM every value of a row in
+    one tile once, the items in even shares, every block resident; its
+    scratch seven partials a (row, tile, warp) and eight coefficients a
+    row; its
+    shared memory one column sum a value of a block's load."""
+    T, N, M = shape
+    bf16 = DTYPES[dtype]
+    v = 8 if bf16 else 4
+    loads = M // v
+    assert cb.LN_BWD_BWD_SUMS == SUMS
+    for bps in (1, 2):
+        plan = cb.ln_bwd_plan(T, N, M, bf16, True, SMS, bps)
+        assert plan.vec == v and plan.groups * plan.tpr == plan.threads
+        assert (plan.tiles - 1) * plan.tpr < loads <= plan.tiles * plan.tpr
+        items = T * plan.tiles
+        assert plan.grid == min(items, SMS * bps)
+        edges = [b * items // plan.grid for b in range(plan.grid + 1)]
+        assert all(b > a for a, b in zip(edges, edges[1:]))
+        jw = plan.tiles * (plan.tpr // 32)
+        R = T * N
+        assert cb.ln_bwd_scratch(plan, R, SUMS) == R * (SUMS * jw + 8)
+        assert cb.ln_bwd_scratch(plan, R) == 2 * R * (jw + 1)
+        assert cb.ln_bwd_smem(v, SUMS) == 4 * v * cb.LN_THREADS <= BLOCK_SMEM
+
+
+def _emulated_bwd_bwd(a, ggamma, gbeta, dz, x, mean, rstd, gamma, plan, T,
+                      N):
+    """g_dz, g_x, g_gamma of (T * N, M) a, dz and x, (T * N,) statistics
+    and (T, M) ggamma, gbeta and gamma in the kernel's order (f32): (1) a
+    thread's seven partials over its load's values in order, each warp's by
+    a shuffle tree, one a (row, sum, tile, warp); (2) a row's partials of
+    each sum, lane l the (tile, warp) partials l, l + 32, ..., then a tree;
+    (3) the outputs from the row means, and g_gamma a thread's sum over its
+    group's rows from the last to the first, then the groups in order."""
+    R, M = x.shape
+    v, tpr, G, J = plan.vec, plan.tpr, plan.groups, plan.tiles
+    width = tpr * v
+    pad = J * width - M
+
+    def rows(t):
+        return np.concatenate([t, np.zeros((R, pad), f32)], 1).reshape(
+            R, J, tpr, v)
+
+    def cols(t):
+        return np.repeat(np.concatenate([t, np.zeros((T, pad), f32)], 1)
+                         .reshape(T, J, tpr, v), N, 0)
+
+    av, d, xx = rows(a), rows(dz), rows(x)
+    gam, ggm = cols(gamma), cols(ggamma)
+    xh = (xx - mean[:, None, None, None]) * rstd[:, None, None, None]
+    gv = d * gam
+    ggd = ggm * d
+    terms = (av, av * xh, gv, gv * xh, av * gv, ggd, ggd * xh)
+    wpg = tpr // 32
+    part = np.zeros((R, SUMS, J * wpg), f32)
+    for k, term in enumerate(terms):
+        p = np.zeros((R, J, tpr), f32)
+        for i in range(v):
+            p = p + term[..., i]
+        part[:, k] = _sum_tree(p.reshape(R, J, wpg, 32)).reshape(R, J * wpg)
+    lanes = np.zeros((R, SUMS, 32), f32)
+    for e in range(J * wpg):
+        lanes[..., e % 32] = lanes[..., e % 32] + part[..., e]
+    m = np.stack([_sum_tree(lanes[:, k]) for k in range(SUMS)], 1)
+    m = m * f32(1.0 / M)
+    m_a, m_ax, m_g, m_gx, m_ag, m_ggd, m_ggdx = (m[:, k:k + 1]
+                                                 for k in range(SUMS))
+    rs = rstd[:, None]
+    mean_g = -rs * (m_a * m_gx + m_g * m_ax) + m_ggd
+    mean_gx = f32(-2.0) * rs * m_ax * m_gx + m_ggdx
+    cross = m_ag - m_a * m_g - m_ax * m_gx
+    gam_f, ggm_f = np.repeat(gamma, N, 0), np.repeat(ggamma, N, 0)
+    xh_f = (x - mean[:, None]) * rs
+    p_a = a - m_a - xh_f * m_ax
+    g_dz = gam_f * rs * p_a + ggm_f * xh_f + np.repeat(gbeta, N, 0)
+    big_g = -rs * (a * m_gx + dz * gam_f * m_ax) + ggm_f * dz
+    g_x = rs * (big_g - mean_g - xh_f * mean_gx) - xh_f * rs * rs * cross
+    term = (dz * rs * p_a).reshape(T, N, M)
+    groups = []
+    for g in range(G):
+        acc = np.zeros((T, M), f32)
+        for n in reversed(range(g, N, G)):
+            acc = acc + term[:, n]
+        groups.append(acc)
+    g_gamma = groups[0]
+    if G > 1:
+        g_gamma = np.zeros((T, M), f32)
+        for acc in groups:
+            g_gamma = g_gamma + acc
+    return g_dz, g_x, g_gamma
+
+
+def _bb_inputs(T, N, M, seed, bf16):
+    """a, ggamma, gbeta (numpy f32, bf16 values in bf16) beside
+    ``_inputs``' x, dz, gamma and statistics."""
+    x, dz, gamma, xt, stats = _inputs(T, N, M, seed, bf16)
+    rng = np.random.RandomState(seed + 1)
+    a = rng.randn(T, N, M).astype(f32)
+    ggamma = rng.randn(T, M).astype(f32)
+    gbeta = rng.randn(T, M).astype(f32)
+    if bf16:
+        a, ggamma, gbeta = _bf16(a), _bf16(ggamma), _bf16(gbeta)
+    return a, ggamma, gbeta, x, dz, gamma, xt, stats
+
+
+def _close_scaled(got, want, what):
+    """Within 1e-5 * min(1, scale) + 1e-4 * scale (the card's gate of the
+    double backward: an absolute floor that never covers a small output)."""
+    got = torch.as_tensor(np.asarray(got, dtype=np.float64))
+    want = torch.as_tensor(np.asarray(want, dtype=np.float64))
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    assert err <= ATOL * min(1.0, scale) + RTOL * scale, (what, err, scale)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", EMULATED, ids=str)
+def test_emulated_bwd_bwd_equals_the_twin(shape, dtype):
+    T, N, M, sms = shape
+    bf16 = DTYPES[dtype]
+    vec = M % (8 if bf16 else 4) == 0
+    plan = cb.ln_bwd_plan(T, N, M, bf16, vec, sms, 2)
+    a, ggamma, gbeta, x, dz, gamma, xt, (mean, _, rstd) = _bb_inputs(
+        T, N, M, 7 * sum(shape), bf16)
+    mu, rs = (v.float().numpy().reshape(-1) for v in (mean, rstd))
+    got = _emulated_bwd_bwd(a.reshape(T * N, M), ggamma, gbeta,
+                            dz.reshape(T * N, M), x.reshape(T * N, M), mu,
+                            rs, gamma, plan, T, N)
+    dtype_t = xt.dtype
+
+    def t(v, shape):
+        return torch.from_numpy(v).to(dtype_t).reshape(shape)
+
+    twin = F.layer_norm_bwd_bwd(
+        t(a, xt.shape), t(ggamma, (T, 1, 1, M)), t(gbeta, (T, 1, 1, M)),
+        t(dz, xt.shape), xt, mean, rstd, t(gamma, (T, 1, 1, M)))
+    for g, w, what in zip(got, twin, ("g_dz", "g_x", "g_gamma")):
+        w = w.reshape(g.shape)
+        if bf16:
+            _within_ulp(_bf16(g), w, what)
+        else:
+            _close_scaled(g, w, what)
+
+
+def test_emulated_bwd_bwd_equals_the_jax_second_derivative():
+    """At a small map (7 x 7 x 24, M = 1,176) on row groups of 64 threads,
+    f32: the emulated double backward (on the twin's statistics) against
+    ``jax.vjp`` of the JAX package's ``layer_norm`` :447 differentiated
+    once by ``jax.vjp`` — the gradients of <a, dx> + <ggamma, dgamma> +
+    <gbeta, dbeta> with respect to dz, x (through the statistics too) and
+    gamma — per tenant, within 1e-5 + 1e-4 * scale."""
+    T, N, H, W, C = 2, 3, 7, 7, 24
+    M = H * W * C
+    plan = cb.ln_bwd_plan(T, N, M, False, True, 8, 2)
+    assert plan.tpr == 64 and plan.groups == 4
+    a, ggamma, gbeta, x, dz, gamma, _, (mean, _, rstd) = _bb_inputs(
+        T, N, M, 9, False)
+    got = _emulated_bwd_bwd(a.reshape(T * N, M), ggamma, gbeta,
+                            dz.reshape(T * N, M), x.reshape(T * N, M),
+                            mean.numpy().reshape(-1),
+                            rstd.numpy().reshape(-1), gamma, plan, T, N)
+    beta = (0.1 * np.random.RandomState(10).randn(T, M)).astype(f32)
+    shape = (N, H, W, C)
+
+    def first(dzs, xs, gs, bs):
+        _, vjp = jax.vjp(lambda u, g, b: JF.layer_norm(u, g, b, F.LN_EPS),
+                         xs, gs, bs)
+        return vjp(dzs)
+
+    for t in range(T):
+        j = [jnp.asarray(v) for v in (dz[t].reshape(shape),
+                                      x[t].reshape(shape),
+                                      gamma[t].reshape(H, W, C),
+                                      beta[t].reshape(H, W, C))]
+        _, vjp2 = jax.vjp(lambda u, v, g: first(u, v, g, j[3]), *j[:3])
+        want = vjp2((jnp.asarray(a[t].reshape(shape)),
+                     jnp.asarray(ggamma[t].reshape(H, W, C)),
+                     jnp.asarray(gbeta[t].reshape(H, W, C))))
+        rows = slice(t * N, (t + 1) * N)
+        _close(got[0][rows], np.array(want[0]).reshape(N, M), "g_dz")
+        _close(got[1][rows], np.array(want[1]).reshape(N, M), "g_x")
+        _close(got[2][t], np.array(want[2]).reshape(M), "g_gamma")
