@@ -46,7 +46,11 @@ Phases, in order; any failure raises and the exit code is non-zero:
    tensor the layer-norm models normalize, T = 2 and 8), each call bit for
    bit its twin and held twice, bit for bit, the timed rows printed at the
    end as ``[FWD]`` lines with their device time, bound share and library
-   ratio;
+   ratio; ``act_pool_fwd`` and ``act_pool_bwd`` (``csrc/act.cu``), f32
+   and bf16, at the norm-first stages (84/42/21/10) and the unpadded conv
+   outputs (82/39/17/6), each call its twin's bits (zeros' signs
+   included) and held twice, the timed rows printed at the end as
+   ``[B2]`` lines with their device time and bound share;
    K1-K5 again at the four layers of the Omniglot 20-way 1-shot
    model (28/14/7/3, cin 1 and 64, cout 64, T = 8, N = 20); and the ingest
    kernel ``episode_expand`` at the Omniglot device-tier train batch, a
@@ -494,9 +498,13 @@ SOURCES.update({
     "act_fwd": ACT_SOURCE,
     "act_bwd": ACT_SOURCE,
 })
-SOURCES.update({
-    k: ("triton", "howtotrainyourmamlpytorch_tpu_torch/kernels/act_pool.py")
-    for k in ("act_pool_fwd", "act_pool_bwd", "act_pool_gather")})
+# the leaky-ReLU + pool forward and backward one CUDA launch a call
+# (csrc/act.cu); the gather still the Triton kernel of act_pool.py
+SOURCES.update({"act_pool_fwd": ACT_SOURCE, "act_pool_bwd": ACT_SOURCE,
+                "act_pool_gather": (
+                    "triton",
+                    "howtotrainyourmamlpytorch_tpu_torch/kernels/"
+                    "act_pool.py")})
 # the layer norm: the statistics, the forward, the backward and the double
 # backward one CUDA launch a call (csrc/layer_norm.cu)
 SOURCES.update({
@@ -728,6 +736,15 @@ ACT_BWD_DEVICE = "act_bwd_kernel"
 # act_fwd (csrc/act.cu) and layer_norm_fwd (csrc/layer_norm.cu) on the
 # device, in either dtype
 ACT_FWD_DEVICE = "act_fwd_kernel"
+# act_pool_fwd and act_pool_bwd on the device (csrc/act.cu), in either
+# dtype
+ACT_POOL_FWD_DEVICE = "act_pool_fwd_kernel"
+ACT_POOL_BWD_DEVICE = "act_pool_bwd_kernel"
+# the unpadded models' conv outputs, which act_pool_fwd / act_pool_bwd
+# take in their norm-first and layer-norm variants (84 -> 82, 41 -> 39,
+# 19 -> 17, 8 -> 6; 48 channels)
+UNPADDED_ACT_POOL = (("stage0", 82), ("stage1", 39), ("stage2", 17),
+                     ("stage3", 6))
 LN_FWD_DEVICE = "layer_norm_fwd_kernel"
 # the layer norm's double backward on the device (csrc/layer_norm.cu: one
 # cooperative kernel a call), in either dtype
@@ -857,6 +874,47 @@ def _same_bits(name, fn, want):
         if not torch.equal(a, b):
             raise AssertionError(f"{name}: two launches on the same inputs "
                                  "differ")
+
+
+def _equal_bits(name, got, want):
+    """A kernel whose outputs are its twin's bits, a zero's sign included
+    (compared as integers); returns 0.0."""
+    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    for g, p in zip(got, want):
+        if g.dtype != p.dtype or g.shape != p.shape:
+            raise AssertionError(f"{name}: {g.dtype} {tuple(g.shape)} "
+                                 f"against the twin's {p.dtype} "
+                                 f"{tuple(p.shape)}")
+        if g.is_floating_point():
+            as_int = torch.int16 if g.element_size() == 2 else torch.int32
+            g, p = g.view(as_int), p.view(as_int)
+        if not torch.equal(g, p):
+            raise AssertionError(f"{name}: not bit for bit its twin")
+    return 0.0
+
+
+def _check_act_pool_unpadded(cb, F, randn, dtype, T=T_TENANTS, C=COUT):
+    """``act_pool_fwd`` (N = 75) and ``act_pool_bwd`` (N = 25) at the
+    unpadded models' conv outputs (82/39/17/6, two of them odd) in
+    ``dtype``: each the twin's bits, a second launch the first's."""
+    tag = "_bf16" if dtype == torch.bfloat16 else ""
+    for stage, hw in UNPADDED_ACT_POOL:
+        y = randn(T, max(IMAGES), hw, hw, C).to(dtype)
+        got = cb.act_pool_fwd(y)
+        _equal_bits("act_pool_fwd" + tag, got, F.act_pool_fwd(y))
+        _same_bits("act_pool_fwd" + tag, lambda: cb.act_pool_fwd(y), got)
+        y = y[:, :min(IMAGES)].contiguous()
+        _, arg = F.act_pool_fwd(y)
+        dp = randn(*arg.shape).to(dtype)
+        dy = cb.act_pool_bwd(dp, arg, y)
+        _equal_bits("act_pool_bwd" + tag, dy, F.act_pool_bwd(dp, arg, y))
+        _same_bits("act_pool_bwd" + tag, lambda: cb.act_pool_bwd(dp, arg, y),
+                   dy)
+        del y, got, arg, dp, dy
+        torch.cuda.empty_cache()
+    print(f"  act_pool_fwd{tag} / act_pool_bwd{tag} at the unpadded conv "
+          f"outputs {'/'.join(str(hw) for _, hw in UNPADDED_ACT_POOL)}: the "
+          "twins' bits, a second launch the first's", flush=True)
 
 
 def _check_k4(cb, F, records, label, x, w, dy, dgrad=True):
@@ -1380,7 +1438,10 @@ def check_norm_first_kernels(cb, F, records, T=T_TENANTS):
     for the act-pool kernels and the double backward. Then
     ``F.batch_norm(training=True)`` beside the two forward kernels
     together. Last, ``bn_input_stats`` at the unpadded norm-first models'
-    block inputs (``UNPADDED_NORM_FIRST``, N = 75)."""
+    block inputs (``UNPADDED_NORM_FIRST``, N = 75) and the act-pool
+    kernels at the unpadded conv outputs. ``act_pool_fwd`` and
+    ``act_pool_bwd`` must be their twins' bits and a second launch the
+    first's."""
     rec = records.add
     randn = _randn(torch.Generator(device="cuda").manual_seed(21))
     nnf = torch.nn.functional
@@ -1443,16 +1504,16 @@ def check_norm_first_kernels(cb, F, records, T=T_TENANTS):
                     del got
                     del z, zl
                 pooled, arg = cb.act_pool_fwd(y)
-                pooled_p, arg_p = F.act_pool_fwd(y)
-                err = max_err("act_pool_fwd", pooled, pooled_p)
-                if not torch.equal(arg, arg_p):
-                    raise AssertionError("act_pool_fwd argmax differs from "
-                                         "its twin's")
+                err = _equal_bits("act_pool_fwd", (pooled, arg),
+                                  F.act_pool_fwd(y))
+                _same_bits("act_pool_fwd", lambda: cb.act_pool_fwd(y),
+                           (pooled, arg))
                 rec("act_pool_fwd", label, err, lambda: cb.act_pool_fwd(y),
                     lambda: F.act_pool_fwd(y), None,
                     3 * y.numel(),
-                    4 * (y.numel() + pooled.numel()) + arg.numel())
-                del pooled, pooled_p, arg, arg_p
+                    4 * (y.numel() + pooled.numel()) + arg.numel(),
+                    device=ACT_POOL_FWD_DEVICE)
+                del pooled, arg
             else:
                 # the backward, on the support (N = 25)
                 dz = randn(*x.shape, scale=1.0 / math.sqrt(x.numel()))
@@ -1495,12 +1556,16 @@ def check_norm_first_kernels(cb, F, records, T=T_TENANTS):
                 P = arg.numel()
                 dp = randn(*arg.shape, scale=1.0 / math.sqrt(P))
                 dy = cb.act_pool_bwd(dp, arg, y)
-                err = max_err("act_pool_bwd", dy, F.act_pool_bwd(dp, arg, y))
+                err = _equal_bits("act_pool_bwd", dy,
+                                  F.act_pool_bwd(dp, arg, y))
+                _same_bits("act_pool_bwd",
+                           lambda: cb.act_pool_bwd(dp, arg, y), dy)
                 # reads dpooled, the argmax and y at it; writes dy densely
                 rec("act_pool_bwd", label, err,
                     lambda: cb.act_pool_bwd(dp, arg, y),
                     lambda: F.act_pool_bwd(dp, arg, y), None,
-                    2 * P, 4 * (2 * P + y.numel()) + P)
+                    2 * P, 4 * (2 * P + y.numel()) + P,
+                    device=ACT_POOL_BWD_DEVICE)
                 g_dy = randn(*y.shape)
                 err = max_err("act_pool_gather",
                               cb.act_pool_gather(g_dy, arg, y),
@@ -1533,6 +1598,7 @@ def check_norm_first_kernels(cb, F, records, T=T_TENANTS):
         _check_stats(cb, F, records, f"norm-first T={T} {stage} N={n}",
                      randn(T, n, hw, hw, cin))
         torch.cuda.empty_cache()
+    _check_act_pool_unpadded(cb, F, randn, torch.float32, T)
 
 
 def check_strided_norm_first_kernels(cb, F, records, T=T_TENANTS,
@@ -4123,11 +4189,13 @@ def check_bf16_norm_first_kernels(cb, F, records, T=T_TENANTS):
     conv outputs of its four layers, the statistics of each layer's input
     (the image, C = 1, then 64 channels), and at layer 1 the stride-2
     dgrad back to the image (cin 1); and the statistics at the unpadded
-    norm-first models' block inputs (``UNPADDED_NORM_FIRST``). Each against
-    its bf16 twin, timed beside the twin, the f32 kernel at the same shape
-    and the library call in bf16 where one computes the same function
-    (``torch.var_mean``, ``F.batch_norm`` given statistics,
-    ``F.leaky_relu``, ``aten.leaky_relu_backward``, ``conv2d_input``)."""
+    norm-first models' block inputs (``UNPADDED_NORM_FIRST``) and the
+    act-pool kernels at the unpadded conv outputs (its twin's bits, held
+    twice). Each against its bf16 twin, timed beside the twin, the f32
+    kernel at the same shape and the library call in bf16 where one
+    computes the same function (``torch.var_mean``, ``F.batch_norm`` given
+    statistics, ``F.leaky_relu``, ``aten.leaky_relu_backward``,
+    ``conv2d_input``)."""
     rec = records.add
     randn = _randn(torch.Generator(device="cuda").manual_seed(31))
     bf = torch.bfloat16
@@ -4165,13 +4233,17 @@ def check_bf16_norm_first_kernels(cb, F, records, T=T_TENANTS):
                     4 * x.numel(), 2 * (2 * x.numel() + 4 * T * cin),
                     f32_fn=lambda: cb.batch_norm_fwd(*bn32),
                     device=K2_FREE_DEVICE)
+                got = cb.act_pool_fwd(y)
+                _same_bits("act_pool_fwd_bf16", lambda: cb.act_pool_fwd(y),
+                           got)
+                P = got[1].numel()
                 rec("act_pool_fwd_bf16", label,
-                    _equal("act_pool_fwd_bf16", cb.act_pool_fwd(y),
-                           F.act_pool_fwd(y)),
+                    _equal_bits("act_pool_fwd_bf16", got, F.act_pool_fwd(y)),
                     lambda: cb.act_pool_fwd(y), lambda: F.act_pool_fwd(y),
-                    None, 3 * y.numel(),
-                    2 * (y.numel() + y.numel() // 4) + y.numel() // 4,
-                    f32_fn=lambda: cb.act_pool_fwd(y32))
+                    None, 3 * y.numel(), 2 * (y.numel() + P) + P,
+                    f32_fn=lambda: cb.act_pool_fwd(y32),
+                    device=ACT_POOL_FWD_DEVICE)
+                del got
                 win = F._windows(F.act_fwd(y))
                 ties = int(((win == win.amax(-1, keepdim=True)).sum(-1)
                             > 1).sum())
@@ -4220,13 +4292,18 @@ def check_bf16_norm_first_kernels(cb, F, records, T=T_TENANTS):
                 P = arg.numel()
                 dp = randn(*arg.shape).to(bf)
                 dp32 = dp.float()
+                dy = cb.act_pool_bwd(dp, arg, y)
+                _same_bits("act_pool_bwd_bf16",
+                           lambda: cb.act_pool_bwd(dp, arg, y), dy)
                 rec("act_pool_bwd_bf16", label,
-                    _equal("act_pool_bwd_bf16", cb.act_pool_bwd(dp, arg, y),
-                           F.act_pool_bwd(dp, arg, y)),
+                    _equal_bits("act_pool_bwd_bf16", dy,
+                                F.act_pool_bwd(dp, arg, y)),
                     lambda: cb.act_pool_bwd(dp, arg, y),
                     lambda: F.act_pool_bwd(dp, arg, y), None, 2 * P,
                     2 * (2 * P + y.numel()) + P,
-                    f32_fn=lambda: cb.act_pool_bwd(dp32, arg, y32))
+                    f32_fn=lambda: cb.act_pool_bwd(dp32, arg, y32),
+                    device=ACT_POOL_BWD_DEVICE)
+                del dy
                 g_dy = randn(*y.shape).to(bf)
                 g_dy32 = g_dy.float()
                 rec("act_pool_gather_bf16", label,
@@ -4316,6 +4393,7 @@ def check_bf16_norm_first_kernels(cb, F, records, T=T_TENANTS):
         _check_stats(cb, F, records, f"bf16 norm-first T={T} {stage} N={n}",
                      randn(T, n, hw, hw, cin).to(bf), bf16=True)
         torch.cuda.empty_cache()
+    _check_act_pool_unpadded(cb, F, randn, bf, T)
 
 
 def check_bf16_layer_norm_kernels(cb, F, records, T=T_TENANTS):
@@ -5319,6 +5397,7 @@ def main() -> int:
     print_device_rows(records, "K3f", ("bn_act_bwd", "batch_norm_bwd",
                                        "act_bwd"))
     print_device_rows(records, "FWD", ("act_fwd", "layer_norm_fwd"))
+    print_device_rows(records, "B2", ("act_pool_fwd", "act_pool_bwd"))
     # the bf16 stride-1 convs on the tensor cores (bound at their rate)
     print_k1_rows(records, "K1", ("conv3x3_fwd_stats_bf16",
                                   "conv3x3_fwd_bf16",

@@ -35,8 +35,8 @@ kernel                      route   source                    launches/call
 ``batch_norm_fwd``          CUDA    csrc/bn_act_fwd.cu        1 (slope 1)
 ``batch_norm_bwd``          CUDA    csrc/bn_act_bwd.cu        1 (slope 1)
 ``batch_norm_bwd_bwd``      Triton  bn_act_pool.py (K5)       2 (slope 1)
-``act_pool_fwd``            Triton  act_pool.py               1
-``act_pool_bwd``            Triton  act_pool.py               1
+``act_pool_fwd``            CUDA    csrc/act.cu               1
+``act_pool_bwd``            CUDA    csrc/act.cu               1
 ``act_pool_gather``         Triton  act_pool.py               1
 ``act_fwd``                 CUDA    csrc/act.cu               1 (pool-free)
 ``act_bwd``                 CUDA    csrc/act.cu               1 (pool-free)
@@ -84,12 +84,17 @@ occupancy query); K5 pool-free the Triton kernels of ``bn_act_pool.py``
 tenant at the small maps, else one cooperative launch, whose blocks keep
 their chunks of da and y in shared memory where they fit), and
 ``act_fwd`` / ``act_bwd`` ``csrc/act.cu``, 16 bytes of the flat tensor a
-thread. K2 runs ``csrc/bn_act_fwd.cu`` in both modes and both dtypes (one
-kernel each, templated on the element type; ``bn_fwd_plan`` gives its
-launch): pooled a thread a pooled pixel x 4 channels, pool-free 16 bytes
-of the flat tensor a thread. The layer norm's statistics, forward,
-backward and double backward run ``csrc/layer_norm.cu`` in both dtypes,
-one launch a call:
+thread. ``act_pool_fwd`` / ``act_pool_bwd`` run the same source's pooled
+kernels in both dtypes, one launch a call (``act_pool_plan``: a thread a
+2x2 window x 16 bytes of channels; the backward's grid takes the dropped
+odd row and column too, and reads y at a tap only where a lane of its
+vector routes its gradient there); ``act_pool_gather`` is the Triton
+kernel of ``act_pool.py``. K2 runs ``csrc/bn_act_fwd.cu`` in both modes
+and both dtypes (one kernel each, templated on the element type;
+``bn_fwd_plan`` gives its launch): pooled a thread a pooled pixel x 4
+channels, pool-free 16 bytes of the flat tensor a thread. The layer
+norm's statistics, forward, backward and double backward run
+``csrc/layer_norm.cu`` in both dtypes, one launch a call:
 ``layer_norm_stats`` a warp a row at the small maps and a thread block
 cluster a row above (``ln_stats_plan``), ``layer_norm_fwd`` a block a
 tile of one image, gamma and beta shared by a tenant's images in L2
@@ -1665,39 +1670,123 @@ def batch_norm_bwd_bwd(a: Tensor, ggamma: Tensor, gbeta: Tensor, dz: Tensor,
 # -- the norm-first block's kernels: leaky-ReLU + max pool (B2) ------------------
 
 
+class ActPoolPlan(NamedTuple):
+    """The launches of ``act_pool_fwd`` and ``act_pool_bwd`` at one shape
+    (csrc/act.cu), ``threads`` a block: a thread takes one 2x2 window x
+    ``items`` consecutive channels (16 bytes, 4 f32 or 8 bf16; 1 without
+    vectors), ``groups`` = C / items threads a window, the window's
+    channel groups on consecutive threads. The forward runs over each
+    image's ``pooled`` (Ho, Wo) windows on ``fwd_blocks`` blocks; the
+    backward over its ``windows`` (ceil(H / 2), ceil(W / 2)), the dropped
+    odd row and column included (it writes their zeros), on
+    ``bwd_blocks``. ``wide``: 64-bit index arithmetic, where y holds
+    2**31 elements or more; else 32-bit."""
+
+    threads: int
+    items: int
+    groups: int
+    pooled: Tuple[int, int]
+    windows: Tuple[int, int]
+    fwd_blocks: int
+    bwd_blocks: int
+    wide: bool
+
+
+@functools.lru_cache(maxsize=None)
+def act_pool_plan(T: int, N: int, H: int, W: int, C: int, bf16: bool = False,
+                  vec: bool = True) -> ActPoolPlan:
+    """The launches of ``act_pool_fwd`` / ``act_pool_bwd`` for y ``(T, N, H,
+    W, C)`` in f32 or bf16, with vectors (``vec``: C a multiple of the
+    vector and the tensors aligned to it) or a channel a thread. A pure
+    function of the shape: both wrappers call it, and so do the CPU tests;
+    the entries refuse a plan that does not match. Raises for a shape the
+    kernels do not take (a map under 2x2: no window)."""
+    items = _ln_load(bf16, vec)
+    if min(T, N, C) < 1 or H < 2 or W < 2 or C % items:
+        raise ValueError(f"act_pool_plan: no act-pool launch of a (T={T}, "
+                         f"N={N}, {H}x{W}, C={C}) map"
+                         f"{' with vectors' if vec else ''}")
+    groups = C // items
+    pooled = (H // 2, W // 2)
+    windows = (_cdiv(H, 2), _cdiv(W, 2))
+    return ActPoolPlan(
+        ACT_THREADS, items, groups, pooled, windows,
+        _cdiv(T * N * pooled[0] * pooled[1] * groups, ACT_THREADS),
+        _cdiv(T * N * windows[0] * windows[1] * groups, ACT_THREADS),
+        T * N * H * W * C >= 2 ** 31)
+
+
+def act_pool_vec(C: int, bf16: bool, ptrs, argp: int) -> bool:
+    """The act-pool kernels' vectors, for the pointers ``ptrs`` of their
+    f32 or bf16 tensors and ``argp`` of the uint8 argmax: C a whole number
+    of 16-byte vectors (4 f32, 8 bf16), every float tensor on 16 bytes and
+    the argmax on a vector's channels; else a channel a thread."""
+    items = _ln_load(bf16, True)
+    return C % items == 0 and argp % items == 0 and all(
+        q % 16 == 0 for q in ptrs)
+
+
+def _check_pooled_fast(name, dpooled, argmax, y, pooled_shape) -> None:
+    """``_check_pooled`` in a few host operations where it passes."""
+    if (dpooled.dtype is not y.dtype or dpooled.shape != pooled_shape
+            or argmax.dtype is not torch.uint8
+            or argmax.shape != pooled_shape or not dpooled.is_contiguous()
+            or not argmax.is_contiguous() or dpooled.device != y.device
+            or argmax.device != y.device):
+        _check_pooled(name, dpooled, argmax, y)
+
+
 def act_pool_fwd(y: Tensor, negative_slope: float = F.LEAKY_SLOPE
                  ) -> Tuple[Tensor, Tensor]:
     """Leaky-ReLU and the 2x2 max pool; returns the pooled activation and
-    the uint8 window argmax (``act_pool.py``)."""
+    the uint8 window argmax. One launch of csrc/act.cu
+    (``act_pool_plan``)."""
     if _on_cpu(y):
         return F.act_pool_fwd(y, negative_slope)
     name = "act_pool_fwd"
-    T, N, H, W, C = _check_act(name, y)
-    out = torch.empty((T, N, H // 2, W // 2, C), device=y.device,
-                      dtype=y.dtype)
-    arg = torch.empty((T, N, H // 2, W // 2, C), device=y.device,
-                      dtype=torch.uint8)
-    with torch.cuda.device(y.device):
-        act_pool.launch_pool_fwd(y, out, arg,
-                                 F.scalar_like(negative_slope, y))
-    LAUNCHES[_counter(name, y)] += 1
+    T, N, H, W, C = _check_flat(name, y)
+    device = y.device
+    shape = (T, N, H // 2, W // 2, C)
+    out = torch.empty(shape, device=device, dtype=y.dtype)
+    arg = torch.empty(shape, device=device, dtype=torch.uint8)
+    yp, outp, argp = y.data_ptr(), out.data_ptr(), arg.data_ptr()
+    bf16 = y.dtype is torch.bfloat16
+    vec = act_pool_vec(C, bf16, (yp, outp), argp)
+    plan = act_pool_plan(T, N, H, W, C, bf16, vec)
+    args = _packed(yp, outp, argp, T, N, H, W, C, bf16, vec, plan.wide,
+                   plan.fwd_blocks, device.index, _stream(device))
+    rc = build.function("act", "act_pool_fwd", _ADDR_F_ENTRY)(
+        args.buffer_info()[0], F.scalar_like(negative_slope, y))
+    counter = _counter(name, y)
+    build.check(rc, counter)
+    LAUNCHES[counter] += 1
     return out, arg
 
 
 def act_pool_bwd(dpooled: Tensor, argmax: Tensor, y: Tensor,
                  negative_slope: float = F.LEAKY_SLOPE) -> Tensor:
     """The backward of ``act_pool_fwd``: ``dy`` from the pooled gradient
-    and the window argmax."""
+    and the window argmax, the dropped odd row and column +0. One launch
+    of csrc/act.cu (``act_pool_plan``)."""
     if _on_cpu(y):
         return F.act_pool_bwd(dpooled, argmax, y, negative_slope)
     name = "act_pool_bwd"
-    _check_act(name, y)
-    _check_pooled(name, dpooled, argmax, y)
-    dy = torch.empty_like(y)
-    with torch.cuda.device(y.device):
-        act_pool.launch_pool_bwd(dpooled, argmax, y, dy,
-                                 F.scalar_like(negative_slope, y))
-    LAUNCHES[_counter(name, y)] += 1
+    T, N, H, W, C = _check_flat(name, y)
+    _check_pooled_fast(name, dpooled, argmax, y, (T, N, H // 2, W // 2, C))
+    device = y.device
+    dy = torch.empty_like(y)  # every element written by the launch
+    dp, argp, yp, dyp = (dpooled.data_ptr(), argmax.data_ptr(), y.data_ptr(),
+                         dy.data_ptr())
+    bf16 = y.dtype is torch.bfloat16
+    vec = act_pool_vec(C, bf16, (dp, yp, dyp), argp)
+    plan = act_pool_plan(T, N, H, W, C, bf16, vec)
+    args = _packed(dp, argp, yp, dyp, T, N, H, W, C, bf16, vec, plan.wide,
+                   plan.bwd_blocks, device.index, _stream(device))
+    rc = build.function("act", "act_pool_bwd", _ADDR_F_ENTRY)(
+        args.buffer_info()[0], F.scalar_like(negative_slope, y))
+    counter = _counter(name, y)
+    build.check(rc, counter)
+    LAUNCHES[counter] += 1
     return dy
 
 

@@ -4047,3 +4047,252 @@ def test_no_act_fwd_or_ln_fwd_call_reaches_a_triton_kernel(device,
     for dtype in K3_FREE_DTYPES.values():
         _check_act_fwd(_act_inputs(2, 3, 8, 64, dtype, 97)[1])
         _check_ln_fwd(*_ln_fwd_inputs(2, 3, 8, 8, 48, dtype, 67))
+
+
+# -- act_pool_fwd and act_pool_bwd on csrc/act.cu --------------------------------
+#
+# One launch a call, f32 and bf16, each bit for bit its twin: the pooled
+# values and the argmax, and dy with the twin's zeros (d * 0 off the argmax
+# in a window, +0 on an odd map's dropped row and column), compared as
+# integers so that a zero's sign counts; a second launch bit for bit the
+# first.
+
+# (T, N, H, W, C): the norm-first and layer-norm blocks' conv outputs at
+# T = 8 (48 channels; the padded stages 84/42/21/10 and the unpadded
+# 82/39/17/6, the forward's N = 75 and the backward's 25) and Omniglot's
+# pooled maps (28/14/7/3 x 64, N = 20)
+ACT_POOL_MAIN = ([(8, n, hw, hw, 48) for hw in (84, 42, 21, 10)
+                  for n in (25, 75)]
+                 + [(8, 25, hw, hw, 48) for hw in (82, 39, 17, 6)]
+                 + [(8, 20, hw, hw, 64) for hw in (28, 7, 3)])
+# edge shapes: odd in one or both dims, C off the vector (one channel a
+# thread: 47, 3, 1), the least map, a vector of 4 but not of 8 (C = 12)
+ACT_POOL_EDGE = [(2, 3, 21, 21, 47), (2, 3, 5, 7, 8), (3, 2, 7, 4, 12),
+                 (1, 1, 2, 2, 1), (2, 2, 9, 9, 3), (1, 2, 3, 2, 16)]
+ACT_POOL_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def _bits(t):
+    """A float tensor's bits as integers (a zero's sign counts)."""
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def _act_pool_inputs(T, N, H, W, C, dtype, seed):
+    """y on a grid of 0.25 (exact ties in many windows, at positive and at
+    negative maxima; zeros of both signs) plus a continuous part on half
+    its elements, and a pooled gradient of both signs, in ``dtype``."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (T, N, H, W, C)
+    y = torch.randint(-4, 4, shape, device="cuda", generator=g) * 0.25
+    y = y + torch.randn(shape, device="cuda", generator=g) * (
+        torch.rand(shape, device="cuda", generator=g) < 0.5)
+    y.view(-1)[3::13] = -0.0
+    dp = torch.randn(T, N, H // 2, W // 2, C, device="cuda", generator=g)
+    return y.to(dtype), dp.to(dtype)
+
+
+def _check_act_pool(y, dp):
+    """Both kernels equal their twins bit for bit, one launch each on its
+    counter, a second launch bit for bit the first; returns dy."""
+    tag = "_bf16" if y.dtype == torch.bfloat16 else ""
+    cb.reset_launches()
+    pooled, arg = cb.act_pool_fwd(y)
+    assert {k: n for k, n in cb.launches().items() if n} == {
+        "act_pool_fwd" + tag: 1}
+    want, want_arg = F.act_pool_fwd(y)
+    assert pooled.dtype == y.dtype and arg.dtype == torch.uint8
+    assert torch.equal(_bits(pooled), _bits(want))
+    assert torch.equal(arg, want_arg)
+    again = cb.act_pool_fwd(y)
+    assert torch.equal(_bits(again[0]), _bits(pooled))
+    assert torch.equal(again[1], arg)
+    cb.reset_launches()
+    dy = cb.act_pool_bwd(dp, arg, y)
+    assert {k: n for k, n in cb.launches().items() if n} == {
+        "act_pool_bwd" + tag: 1}
+    assert dy.dtype == y.dtype and dy.shape == y.shape
+    assert torch.equal(_bits(dy), _bits(F.act_pool_bwd(dp, arg, y)))
+    assert torch.equal(_bits(cb.act_pool_bwd(dp, arg, y)), _bits(dy))
+    torch.cuda.synchronize()
+    return dy
+
+
+@pytest.mark.parametrize("dtype", list(ACT_POOL_DTYPES))
+@pytest.mark.parametrize("shape", ACT_POOL_MAIN, ids=str)
+def test_act_pool_equals_its_twin_at_main_path_shapes(shape, dtype, device):
+    _check_act_pool(*_act_pool_inputs(*shape, ACT_POOL_DTYPES[dtype],
+                                      sum(shape)))
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("dtype", list(ACT_POOL_DTYPES))
+@pytest.mark.parametrize("shape", ACT_POOL_EDGE, ids=str)
+def test_act_pool_equals_its_twin_at_edge_shapes(shape, dtype, device):
+    _check_act_pool(*_act_pool_inputs(*shape, ACT_POOL_DTYPES[dtype],
+                                      sum(shape) + 1))
+
+
+@pytest.mark.parametrize("dtype", list(ACT_POOL_DTYPES))
+def test_act_pool_takes_tensors_off_16_byte_alignment(dtype, device,
+                                                      monkeypatch):
+    """y, the pooled gradient or the argmax one element into its storage
+    (one channel a thread): bit for bit the twins, on the scalar plan."""
+    y, dp = _act_pool_inputs(2, 3, 21, 21, 48, ACT_POOL_DTYPES[dtype], 71)
+    _, arg = F.act_pool_fwd(y)
+
+    def off(t):
+        buf = torch.empty(t.numel() + 1, device=device, dtype=t.dtype)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    asked = []
+    plan = cb.act_pool_plan
+    monkeypatch.setattr(cb, "act_pool_plan",
+                        lambda *a: asked.append(a[-1]) or plan(*a))
+    _check_act_pool(off(y), dp)
+    assert asked == [False, False, False, False]
+    for args in ((off(dp), arg, y), (dp, off(arg), y)):
+        asked.clear()
+        got = cb.act_pool_bwd(*args)
+        assert asked == [False]
+        assert torch.equal(_bits(got), _bits(F.act_pool_bwd(*args)))
+    asked.clear()
+    _check_act_pool(y, dp)
+    assert asked == [True] * 4
+
+
+@pytest.mark.parametrize("dtype", list(ACT_POOL_DTYPES))
+@pytest.mark.parametrize("hw", [21, 39], ids=str)
+def test_act_pool_bwd_writes_the_dropped_row_and_column(hw, dtype, device):
+    """dy's memory first holds NaN (a freed buffer of dy's size, which the
+    caching allocator hands to the next allocation of that size): the
+    launch itself writes +0 on the odd map's dropped row and column."""
+    y, dp = _act_pool_inputs(2, 25, hw, hw, 48, ACT_POOL_DTYPES[dtype], hw)
+    _, arg = F.act_pool_fwd(y)
+    torch.cuda.synchronize()
+    junk = torch.full_like(y, float("nan"))
+    where = junk.data_ptr()
+    del junk
+    dy = cb.act_pool_bwd(dp, arg, y)
+    assert dy.data_ptr() == where  # the NaN block, reused
+    assert not _bits(dy[:, :, hw - 1]).any()
+    assert not _bits(dy[:, :, :, hw - 1]).any()
+    assert torch.equal(_bits(dy), _bits(F.act_pool_bwd(dp, arg, y)))
+
+
+@pytest.mark.parametrize("shape", [(4, 1, 8192, 8192, 8),
+                                   (2, 1, 32768, 32768, 1)], ids=str)
+def test_act_pool_takes_the_64_bit_route(shape, device):
+    """A bf16 y of 2**31 elements (each tenant under 2**31, as
+    ``_check_act`` bounds them) takes the 64-bit plan, with vectors and
+    one channel a thread; the last tenant, whose offsets pass 2**31, is
+    its twin's bits."""
+    T, N, H, W, C = shape
+    assert cb.act_pool_plan(T, N, H, W, C, True, C % 8 == 0).wide
+    g = torch.Generator(device="cuda").manual_seed(5)
+    y = torch.randn(shape, device="cuda", generator=g, dtype=torch.bfloat16)
+    dp = torch.randn(T, N, H // 2, W // 2, C, device="cuda", generator=g,
+                     dtype=torch.bfloat16)
+    pooled, arg = cb.act_pool_fwd(y)
+    want, want_arg = F.act_pool_fwd(y[-1:])
+    assert torch.equal(_bits(pooled[-1:]), _bits(want))
+    assert torch.equal(arg[-1:], want_arg)
+    del want, want_arg
+    dy = cb.act_pool_bwd(dp, arg, y)
+    assert torch.equal(_bits(dy[-1:]),
+                       _bits(F.act_pool_bwd(dp[-1:], arg[-1:], y[-1:])))
+    del y, dp, pooled, arg, dy
+    torch.cuda.empty_cache()
+
+
+def test_act_pool_rejects_and_its_entries_refuse_what_does_not_match(
+        device):
+    """The wrappers: f16 ``TypeError``; a non-contiguous tensor, a pooled
+    gradient or argmax of another shape or dtype, a map under 2x2
+    ``ValueError``, before any launch. The entries: a plan whose blocks,
+    index width or vectors do not hold launches nothing."""
+    from howtotrainyourmamlpytorch_tpu_torch.kernels import build
+
+    y, dp = _act_pool_inputs(2, 3, 6, 6, 8, torch.float32, 87)
+    _, arg = F.act_pool_fwd(y)
+    cb.reset_launches()
+    with pytest.raises(TypeError, match="^act_pool_fwd: .*float32 or "
+                                        "bfloat16"):
+        cb.act_pool_fwd(y.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        cb.act_pool_fwd(y.transpose(2, 3))
+    with pytest.raises(ValueError, match="no act-pool launch"):
+        cb.act_pool_fwd(y[:, :, :1].contiguous())
+    with pytest.raises(ValueError, match="shape"):
+        cb.act_pool_bwd(dp[:, :, :2], arg, y)
+    with pytest.raises(ValueError, match="argmax"):
+        cb.act_pool_bwd(dp, arg.int(), y)
+    with pytest.raises(TypeError, match="dpooled"):
+        cb.act_pool_bwd(dp.bfloat16(), arg, y)
+    assert set(cb.launches().values()) == {0}
+    fwd = build.function("act", "act_pool_fwd", cb._ADDR_F_ENTRY)
+    bwd = build.function("act", "act_pool_bwd", cb._ADDR_F_ENTRY)
+    stream = torch.cuda.current_stream().cuda_stream
+    T, N, H, W, C = y.shape
+    out = torch.full((T, N, H // 2, W // 2, C), 7.0, device=device)
+    darg = torch.full(out.shape, 9, device=device, dtype=torch.uint8)
+    dy = torch.full_like(y, 7.0)
+    plan = cb.act_pool_plan(T, N, H, W, C, False, True)
+    scalar = cb.act_pool_plan(T, N, H, W, C, False, False)
+    y_off = torch.empty(y.numel() + 1, device=device)[1:]
+    for yp, argp, vec, wide, blocks in (
+            (y.data_ptr(), darg.data_ptr(), 1, 0, plan.fwd_blocks + 1),
+            (y.data_ptr(), darg.data_ptr(), 1, 0, scalar.fwd_blocks),
+            (y.data_ptr(), darg.data_ptr(), 0, 0, plan.fwd_blocks),
+            (y.data_ptr(), darg.data_ptr(), 1, 1, plan.fwd_blocks),
+            (y_off.data_ptr(), darg.data_ptr(), 1, 0, plan.fwd_blocks),
+            (y.data_ptr(), darg.data_ptr() + 1, 1, 0, plan.fwd_blocks)):
+        args = cb._packed(yp, out.data_ptr(), argp, T, N, H, W, C, 0, vec,
+                          wide, blocks, 0, stream)
+        assert fwd(args.buffer_info()[0], F.LEAKY_SLOPE) != 0
+    # C = 6 is off the vector; H = 1 has no window
+    for shape in ((T, N, H, W, 6), (T, N, 1, W, C)):
+        args = cb._packed(y.data_ptr(), out.data_ptr(), darg.data_ptr(),
+                          *shape, 0, 1, 0, plan.fwd_blocks, 0, stream)
+        assert fwd(args.buffer_info()[0], F.LEAKY_SLOPE) != 0
+    for blocks in (plan.fwd_blocks - 1, plan.bwd_blocks + 1):
+        args = cb._packed(dp.data_ptr(), arg.data_ptr(), y.data_ptr(),
+                          dy.data_ptr(), T, N, H, W, C, 0, 1, 0, blocks, 0,
+                          stream)
+        assert bwd(args.buffer_info()[0], F.LEAKY_SLOPE) != 0
+    torch.cuda.synchronize()
+    assert bool((out == 7.0).all()) and bool((darg == 9).all())
+    assert bool((dy == 7.0).all())
+    args = cb._packed(dp.data_ptr(), arg.data_ptr(), y.data_ptr(),
+                      dy.data_ptr(), T, N, H, W, C, 0, 1, 0, plan.bwd_blocks,
+                      0, stream)
+    assert bwd(args.buffer_info()[0], F.LEAKY_SLOPE) == 0
+    assert torch.equal(_bits(dy), _bits(F.act_pool_bwd(dp, arg, y)))
+
+
+def test_no_act_pool_fwd_or_bwd_call_reaches_a_triton_kernel(device,
+                                                            monkeypatch):
+    """The Triton ``act_pool_fwd`` and ``act_pool_bwd`` are gone from
+    kernels/act_pool.py (which keeps ``act_pool_gather``), and both
+    wrappers run with Triton's compile step made to fail, in f32 and
+    bf16."""
+    from howtotrainyourmamlpytorch_tpu_torch.kernels import (
+        act_pool,
+        bn_act_pool,
+    )
+
+    for gone in ("launch_pool_fwd", "launch_pool_bwd",
+                 "_act_pool_fwd_kernel", "_act_pool_bwd_kernel",
+                 "_rne_bf16"):
+        assert not hasattr(act_pool, gone), gone
+    assert hasattr(act_pool, "launch_pool_gather")
+
+    def no_triton():
+        raise AssertionError("an act_pool_fwd or act_pool_bwd call reached "
+                             "Triton")
+
+    for module in (act_pool, bn_act_pool):
+        monkeypatch.setattr(module, "_jit", no_triton)
+    for dtype in ACT_POOL_DTYPES.values():
+        _check_act_pool(*_act_pool_inputs(2, 3, 9, 8, 48, dtype, 97))
