@@ -50,7 +50,12 @@ Phases, in order; any failure raises and the exit code is non-zero:
    and bf16, at the norm-first stages (84/42/21/10) and the unpadded conv
    outputs (82/39/17/6), each call its twin's bits (zeros' signs
    included) and held twice, the timed rows printed at the end as
-   ``[B2]`` lines with their device time and bound share;
+   ``[B2]`` lines with their device time and bound share; the pool-free
+   K5 (``csrc/bn_act_bwd.cu``: ``bn_act_bwd_bwd``, and at slope 1
+   ``batch_norm_bwd_bwd``) and ``act_pool_gather`` (``csrc/act.cu``, its
+   twin's bits), f32 and bf16, at the strided layers and the norm-first
+   stages, each call held twice, bit for bit, the timed rows printed at
+   the end as ``[K5f]`` and ``[B2]`` lines;
    K1-K5 again at the four layers of the Omniglot 20-way 1-shot
    model (28/14/7/3, cin 1 and 64, cout 64, T = 8, N = 20); and the ingest
    kernel ``episode_expand`` at the Omniglot device-tier train batch, a
@@ -467,10 +472,8 @@ SOURCES = {
         "cuda", "howtotrainyourmamlpytorch_tpu_torch/kernels/csrc/"
                 "episode_expand.cu"),
 }
-# K5 pool-free (the Triton kernels); K3 pool-free (bn_act_bwd,
-# batch_norm_bwd) and act_bwd one CUDA launch a call
-BN_TRITON = ("triton",
-             "howtotrainyourmamlpytorch_tpu_torch/kernels/bn_act_pool.py")
+# K3 and K5 pool-free (bn_act_bwd, batch_norm_bwd; bn_act_bwd_bwd,
+# batch_norm_bwd_bwd) and act_bwd one CUDA launch a call
 K3_FREE_SOURCE = ("cuda", "howtotrainyourmamlpytorch_tpu_torch/kernels/csrc/"
                           "bn_act_bwd.cu")
 ACT_SOURCE = ("cuda",
@@ -482,7 +485,7 @@ SOURCES.update({
     "conv3x3_s2_wgrad": S2_WGRAD_SOURCE,
     "bn_act_fwd": SOURCES["bn_act_pool_fwd"],
     "bn_act_bwd": K3_FREE_SOURCE,
-    "bn_act_bwd_bwd": BN_TRITON,
+    "bn_act_bwd_bwd": K3_FREE_SOURCE,
     "global_avg_pool2d_fwd": (
         "cuda", "howtotrainyourmamlpytorch_tpu_torch/kernels/csrc/"
                 "global_avg_pool.cu"),
@@ -494,17 +497,14 @@ SOURCES.update({
                 "bn_input_stats.cu"),
     "batch_norm_fwd": SOURCES["bn_act_pool_fwd"],
     "batch_norm_bwd": K3_FREE_SOURCE,
-    "batch_norm_bwd_bwd": BN_TRITON,
+    "batch_norm_bwd_bwd": K3_FREE_SOURCE,
     "act_fwd": ACT_SOURCE,
     "act_bwd": ACT_SOURCE,
 })
-# the leaky-ReLU + pool forward and backward one CUDA launch a call
-# (csrc/act.cu); the gather still the Triton kernel of act_pool.py
+# the leaky-ReLU + pool forward, backward and gather one CUDA launch a
+# call (csrc/act.cu)
 SOURCES.update({"act_pool_fwd": ACT_SOURCE, "act_pool_bwd": ACT_SOURCE,
-                "act_pool_gather": (
-                    "triton",
-                    "howtotrainyourmamlpytorch_tpu_torch/kernels/"
-                    "act_pool.py")})
+                "act_pool_gather": ACT_SOURCE})
 # the layer norm: the statistics, the forward, the backward and the double
 # backward one CUDA launch a call (csrc/layer_norm.cu)
 SOURCES.update({
@@ -520,9 +520,9 @@ SOURCES.update({f"conv3x3_p0_{k}": SOURCES[f"conv3x3_{k}"]
 SOURCES.update({f"conv3x3_s2_p0_{k}": SOURCES[f"conv3x3_s2_{k}"]
                 for k in ("fwd_stats", "dgrad", "wgrad", "fwd")})
 # in bf16 as in f32: K3 and K5 pooled csrc/bn_act_pool_bwd.cu, K2
-# csrc/bn_act_fwd.cu, the pool-free K3 csrc/bn_act_bwd.cu (the pool-free
-# K5 the Triton kernels of bn_act_pool.py), act_fwd and act_bwd
-# csrc/act.cu and the layer norm's four csrc/layer_norm.cu
+# csrc/bn_act_fwd.cu, the pool-free K3 and K5 csrc/bn_act_bwd.cu, the
+# act-pool kernels, act_fwd and act_bwd csrc/act.cu and the layer norm's
+# four csrc/layer_norm.cu
 SOURCES.update({f"{k}_bf16": SOURCES[k] for k in BF16_KERNELS})
 # K1 (both modes) and dgrad in bf16 at stride 1, pad 1 and 0: one
 # mma.sync implicit GEMM
@@ -733,6 +733,11 @@ GAP_BWD_DEVICE = "global_avg_pool_bwd_kernel"
 # csrc/act.cu), in either dtype
 K3_FREE_DEVICE = "bn_act_bwd_kernel"
 ACT_BWD_DEVICE = "act_bwd_kernel"
+# the pool-free K5 (also ``batch_norm_bwd_bwd``) and act_pool_gather on the
+# device (csrc/bn_act_bwd.cu, csrc/act.cu: one kernel a call), in either
+# dtype
+K5_FREE_DEVICE = "bn_act_bwd_bwd_kernel"
+ACT_POOL_GATHER_DEVICE = "act_pool_gather_kernel"
 # act_fwd (csrc/act.cu) and layer_norm_fwd (csrc/layer_norm.cu) on the
 # device, in either dtype
 ACT_FWD_DEVICE = "act_fwd_kernel"
@@ -1330,9 +1335,11 @@ def check_strided_kernels(cb, F, records, T=T_TENANTS, n=OMNIGLOT_IMAGES,
                      label, scaled_atol=True)
             for case, case_args in (("", args), (" (g_gamma = g_beta = 0)",
                                                  (a, zero, zero) + args[3:])))
+        _same_bits("bn_act_bwd_bwd", lambda: cb.bn_act_bwd_bwd(*args),
+                   cb.bn_act_bwd_bwd(*args))
         rec("bn_act_bwd_bwd", label, err, lambda: cb.bn_act_bwd_bwd(*args),
             lambda: F.bn_act_bwd_bwd(*args), None, 42 * y.numel(),
-            4 * (5 * y.numel() + 7 * T * C))
+            4 * (5 * y.numel() + 7 * T * C), device=K5_FREE_DEVICE)
         dyl = _nchw_tenants(dy)
         # K4 at stride 2: dgrad at layers 2-4 (layer 1's input is the
         # images); bound: the useful FLOPs, the forward's
@@ -1548,10 +1555,14 @@ def check_norm_first_kernels(cb, F, records, T=T_TENANTS):
                         ("", args),
                         (" (g_gamma = g_beta = 0)", (a, zero, zero)
                          + args[3:])))
+                _same_bits("batch_norm_bwd_bwd",
+                           lambda: cb.batch_norm_bwd_bwd(*args),
+                           cb.batch_norm_bwd_bwd(*args))
                 rec("batch_norm_bwd_bwd", label, err,
                     lambda: cb.batch_norm_bwd_bwd(*args),
                     lambda: F.batch_norm_bwd_bwd(*args), None,
-                    42 * x.numel(), 4 * (5 * x.numel() + 7 * T * cin))
+                    42 * x.numel(), 4 * (5 * x.numel() + 7 * T * cin),
+                    device=K5_FREE_DEVICE)
                 _, arg = F.act_pool_fwd(y)
                 P = arg.numel()
                 dp = randn(*arg.shape, scale=1.0 / math.sqrt(P))
@@ -1567,13 +1578,18 @@ def check_norm_first_kernels(cb, F, records, T=T_TENANTS):
                     2 * P, 4 * (2 * P + y.numel()) + P,
                     device=ACT_POOL_BWD_DEVICE)
                 g_dy = randn(*y.shape)
-                err = max_err("act_pool_gather",
-                              cb.act_pool_gather(g_dy, arg, y),
-                              F.act_pool_gather(g_dy, arg, y))
+                got = cb.act_pool_gather(g_dy, arg, y)
+                err = _equal_bits("act_pool_gather", got,
+                                  F.act_pool_gather(g_dy, arg, y))
+                _same_bits("act_pool_gather",
+                           lambda: cb.act_pool_gather(g_dy, arg, y), got)
+                del got
+                # reads the argmax and g_dy and y at it; writes the pooled
+                # quarter
                 rec("act_pool_gather", label, err,
                     lambda: cb.act_pool_gather(g_dy, arg, y),
                     lambda: F.act_pool_gather(g_dy, arg, y), None,
-                    2 * P, 4 * 3 * P + P)
+                    2 * P, 4 * 3 * P + P, device=ACT_POOL_GATHER_DEVICE)
                 if cin == 3:
                     # dgrad back to the normalized image: 3 of dgrad's 16
                     # channel lanes live
@@ -4141,15 +4157,19 @@ def check_bf16_strided_kernels(cb, F, records, T=T_TENANTS,
         args = (randn(*y.shape).to(bf), randn(T, C).to(bf),
                 randn(T, C).to(bf), da, *bn)
         args32 = _f32(*args)
+        got = cb.bn_act_bwd_bwd(*args)
         err = max(within_ulp(f"bn_act_bwd_bwd_bf16 {what}", a, c)
-                  for what, a, c in zip(("g_da", "g_y", "g_gamma"),
-                                        cb.bn_act_bwd_bwd(*args),
+                  for what, a, c in zip(("g_da", "g_y", "g_gamma"), got,
                                         F.bn_act_bwd_bwd(*args)))
+        _same_bits("bn_act_bwd_bwd_bf16", lambda: cb.bn_act_bwd_bwd(*args),
+                   got)
+        del got
         rec("bn_act_bwd_bwd_bf16", label, err,
             lambda: cb.bn_act_bwd_bwd(*args),
             lambda: F.bn_act_bwd_bwd(*args), None, 42 * y.numel(),
             2 * (5 * y.numel() + 7 * T * C),
-            f32_fn=lambda: cb.bn_act_bwd_bwd(*args32))
+            f32_fn=lambda: cb.bn_act_bwd_bwd(*args32),
+            device=K5_FREE_DEVICE)
         if layer == STRIDED_LAYERS[-1][0]:
             _bf16_gap(cb, F, records, randn, label, act)
         del x, y, act, yl, da, args, args32
@@ -4278,16 +4298,20 @@ def check_bf16_norm_first_kernels(cb, F, records, T=T_TENANTS):
                 args = (randn(*x.shape).to(bf), randn(T, cin).to(bf),
                         randn(T, cin).to(bf), dz, *bn)
                 args32 = _f32(*args)
+                got = cb.batch_norm_bwd_bwd(*args)
                 err = max(within_ulp(f"batch_norm_bwd_bwd_bf16 {what}", a, c)
                           for what, a, c in zip(
-                              ("g_dz", "g_x", "g_gamma"),
-                              cb.batch_norm_bwd_bwd(*args),
+                              ("g_dz", "g_x", "g_gamma"), got,
                               F.batch_norm_bwd_bwd(*args)))
+                _same_bits("batch_norm_bwd_bwd_bf16",
+                           lambda: cb.batch_norm_bwd_bwd(*args), got)
+                del got
                 rec("batch_norm_bwd_bwd_bf16", label, err,
                     lambda: cb.batch_norm_bwd_bwd(*args),
                     lambda: F.batch_norm_bwd_bwd(*args), None,
                     42 * x.numel(), 2 * (5 * x.numel() + 7 * T * cin),
-                    f32_fn=lambda: cb.batch_norm_bwd_bwd(*args32))
+                    f32_fn=lambda: cb.batch_norm_bwd_bwd(*args32),
+                    device=K5_FREE_DEVICE)
                 _, arg = F.act_pool_fwd(y)
                 P = arg.numel()
                 dp = randn(*arg.shape).to(bf)
@@ -4306,14 +4330,18 @@ def check_bf16_norm_first_kernels(cb, F, records, T=T_TENANTS):
                 del dy
                 g_dy = randn(*y.shape).to(bf)
                 g_dy32 = g_dy.float()
+                got = cb.act_pool_gather(g_dy, arg, y)
+                _same_bits("act_pool_gather_bf16",
+                           lambda: cb.act_pool_gather(g_dy, arg, y), got)
                 rec("act_pool_gather_bf16", label,
-                    _equal("act_pool_gather_bf16",
-                           cb.act_pool_gather(g_dy, arg, y),
-                           F.act_pool_gather(g_dy, arg, y)),
+                    _equal_bits("act_pool_gather_bf16", got,
+                                F.act_pool_gather(g_dy, arg, y)),
                     lambda: cb.act_pool_gather(g_dy, arg, y),
                     lambda: F.act_pool_gather(g_dy, arg, y), None, 2 * P,
                     2 * 3 * P + P,
-                    f32_fn=lambda: cb.act_pool_gather(g_dy32, arg, y32))
+                    f32_fn=lambda: cb.act_pool_gather(g_dy32, arg, y32),
+                    device=ACT_POOL_GATHER_DEVICE)
+                del got
                 if cin == 3:
                     # dgrad back to the normalized image, on a random dy
                     dy = randn(*y.shape).to(bf)
@@ -5396,8 +5424,11 @@ def main() -> int:
                                       "global_avg_pool2d_bwd"))
     print_device_rows(records, "K3f", ("bn_act_bwd", "batch_norm_bwd",
                                        "act_bwd"))
+    print_device_rows(records, "K5f", ("bn_act_bwd_bwd",
+                                       "batch_norm_bwd_bwd"))
     print_device_rows(records, "FWD", ("act_fwd", "layer_norm_fwd"))
-    print_device_rows(records, "B2", ("act_pool_fwd", "act_pool_bwd"))
+    print_device_rows(records, "B2", ("act_pool_fwd", "act_pool_bwd",
+                                      "act_pool_gather"))
     # the bf16 stride-1 convs on the tensor cores (bound at their rate)
     print_k1_rows(records, "K1", ("conv3x3_fwd_stats_bf16",
                                   "conv3x3_fwd_bf16",

@@ -1,11 +1,10 @@
 """Hand-written Hopper kernels of the port and their wrappers.
 
 CUDA C++ sources live in ``csrc/`` and are built at first use by
-``build.py``; the Triton kernels live in ``bn_act_pool.py`` (the
-pool-free K5) and ``act_pool.py`` (``act_pool_gather``); the wrappers, launch counters and the
+``build.py``; the wrappers, launch counters and the
 ``autograd.Function``s of the blocks live in ``conv_block.py``, those of
 the ingest kernel in ``episode_expand.py``.
-Importing this package imports neither triton nor the CUDA toolkit.
+Importing this package imports no compiler and needs no card.
 """
 
 from typing import Dict

@@ -26,7 +26,9 @@ kernel                      route   source                    launches/call
 ``bn_act_bwd``              CUDA    csrc/bn_act_bwd.cu        1 (pool-free; a
                                                               block a tenant,
                                                               or cooperative)
-``bn_act_bwd_bwd``          Triton  bn_act_pool.py (K5)       2 (pool-free)
+``bn_act_bwd_bwd``          CUDA    csrc/bn_act_bwd.cu        1 (pool-free; a
+                                                              block a tenant,
+                                                              or cooperative)
 ``global_avg_pool2d_fwd``   CUDA    csrc/global_avg_pool.cu   1
 ``global_avg_pool2d_bwd``   CUDA    csrc/global_avg_pool.cu   1
 ``bn_input_stats``          CUDA    csrc/bn_input_stats.cu    1 (a block a
@@ -34,10 +36,10 @@ kernel                      route   source                    launches/call
                                                               cooperative)
 ``batch_norm_fwd``          CUDA    csrc/bn_act_fwd.cu        1 (slope 1)
 ``batch_norm_bwd``          CUDA    csrc/bn_act_bwd.cu        1 (slope 1)
-``batch_norm_bwd_bwd``      Triton  bn_act_pool.py (K5)       2 (slope 1)
+``batch_norm_bwd_bwd``      CUDA    csrc/bn_act_bwd.cu        1 (slope 1)
 ``act_pool_fwd``            CUDA    csrc/act.cu               1
 ``act_pool_bwd``            CUDA    csrc/act.cu               1
-``act_pool_gather``         Triton  act_pool.py               1
+``act_pool_gather``         CUDA    csrc/act.cu               1
 ``act_fwd``                 CUDA    csrc/act.cu               1 (pool-free)
 ``act_bwd``                 CUDA    csrc/act.cu               1 (pool-free)
 ``layer_norm_stats``        CUDA    csrc/layer_norm.cu        1 (a warp or a
@@ -77,20 +79,22 @@ function of the shape.
 K3 and K5 pooled run the cooperative kernels of
 ``csrc/bn_act_pool_bwd.cu`` in both dtypes (reduce, grid barrier, merge,
 barrier, apply in one launch, on the grid ``bn_bwd_plan`` sizes from the
-occupancy query); K5 pool-free the Triton kernels of ``bn_act_pool.py``
-(a reduce and an apply launch). K3 pool-free runs
-``csrc/bn_act_bwd.cu`` in both dtypes, one launch a call
-(``bn_act_bwd_plan``: ``bn_input_stats``' units and routes, a block a
+occupancy query). K3 and K5 pool-free run ``csrc/bn_act_bwd.cu`` in
+both dtypes, one launch a call (``bn_act_bwd_plan`` and
+``bn_act_bwd_bwd_plan``: ``bn_input_stats``' units and routes, a block a
 tenant at the small maps, else one cooperative launch, whose blocks keep
-their chunks of da and y in shared memory where they fit), and
+their chunks of the inputs in shared memory where they fit; K5 sums five
+per-channel sums and reads its coefficients from a table in shared
+memory), and
 ``act_fwd`` / ``act_bwd`` ``csrc/act.cu``, 16 bytes of the flat tensor a
 thread. ``act_pool_fwd`` / ``act_pool_bwd`` run the same source's pooled
 kernels in both dtypes, one launch a call (``act_pool_plan``: a thread a
 2x2 window x 16 bytes of channels; the backward's grid takes the dropped
 odd row and column too, and reads y at a tap only where a lane of its
-vector routes its gradient there); ``act_pool_gather`` is the Triton
-kernel of ``act_pool.py``. K2 runs ``csrc/bn_act_fwd.cu`` in both modes
-and both dtypes (one kernel each, templated on the element type;
+vector routes its gradient there); ``act_pool_gather`` runs the same
+source's kernel on the forward's mapping (g_dy and y read only at the
+taps a lane of its vector selects). K2 runs ``csrc/bn_act_fwd.cu`` in
+both modes and both dtypes (one kernel each, templated on the element type;
 ``bn_fwd_plan`` gives its launch): pooled a thread a pooled pixel x 4
 channels, pool-free 16 bytes of the flat tensor a thread. The layer
 norm's statistics, forward, backward and double backward run
@@ -193,7 +197,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from ..ops import functional as F
-from . import act_pool, bn_act_pool, build
+from . import build
 
 Tensor = torch.Tensor
 
@@ -372,6 +376,22 @@ BN_ACT_BWD_GROUP = {1: 4, 3: 2}
 #: da and y in between the reduce and the apply (the grid route in one
 #: wave; with the static arrays within a block's 227 KB)
 BN_ACT_BWD_STAGE_BYTES = 200 * 1024
+#: K5 pool-free (csrc/bn_act_bwd.cu, K3's layout, threads and channels):
+#: the loads a thread of one block a tenant at and under which a tenant
+#: takes the block route (a block reduces and applies three tensors with
+#: five sums, so K5 leaves it sooner than K3: on an H100 the strided L3
+#: map, 20 loads a thread, took 0.0149 ms by device time on the block
+#: route and 0.0085 on the grid route, PERF.md §6), the units a thread
+#: loads at a time by the loads a unit (``G5`` there: 2 of a's, da's and
+#: y's one load, 1 of their three at C = 3), its per-channel sums and
+#: table rows (``kSums5``, ``kCoefs5``), and the most dynamic shared memory
+#: a block keeps its chunk of a, da and y in (with the static arrays, 21
+#: KB at most, within a block's 227 KB)
+BN_ACT_BWD_BWD_BLOCK_LOADS = 6
+BN_ACT_BWD_BWD_GROUP = {1: 2, 3: 1}
+BN_ACT_BWD_BWD_SUMS = 5
+BN_ACT_BWD_BWD_COEFS = 13
+BN_ACT_BWD_BWD_STAGE_BYTES = 201 * 1024
 #: act_fwd and act_bwd (csrc/act.cu): a block's threads
 ACT_THREADS = 256
 
@@ -497,7 +517,7 @@ def _packed(*values: int) -> array.array:
     return array.array("q", values)
 
 #: f32 scratch of the one-launch kernels (layer_norm_bwd, bn_input_stats,
-#: the pool-free K3), one buffer a (device, stream), grown as needed: a
+#: the pool-free K3 and K5), one buffer a (device, stream), grown as needed: a
 #: launch writes every value of it that it reads before reading it, and
 #: the launches on one stream run in order
 _SCRATCH: Dict[Tuple[int, int], Tensor] = {}
@@ -1166,9 +1186,9 @@ def bn_bwd_plan(T: int, N: int, H: int, W: int, C: int, sms: int = 132,
     ``slots`` windows; no chunk spans two tenants. Raises where the card
     cannot hold a block a tenant at once (the cooperative launch needs
     every block resident). The pool-free modes have wrappers of their own:
-    K3 (``bn_act_bwd``, ``batch_norm_bwd``) on csrc/bn_act_bwd.cu
-    (``bn_act_bwd_plan``), K5 (``bn_act_bwd_bwd``, ``batch_norm_bwd_bwd``)
-    on the Triton kernels."""
+    K3 (``bn_act_bwd``, ``batch_norm_bwd``) and K5 (``bn_act_bwd_bwd``,
+    ``batch_norm_bwd_bwd``) on csrc/bn_act_bwd.cu (``bn_act_bwd_plan``,
+    ``bn_act_bwd_bwd_plan``)."""
     if min(T, N, C) < 1 or H < 2 or W < 2 or C > BN_BWD_MAX_C:
         raise ValueError(f"bn_bwd_plan: no pooled K3/K5 of a (T={T}, N={N}, "
                          f"{H}x{W}, C={C}) map")
@@ -1307,6 +1327,19 @@ def bn_act_bwd(da: Tensor, y: Tensor, mean: Tensor, rstd: Tensor,
                            negative_slope)
 
 
+def _check_like(name, y, full, tables) -> None:
+    """Check the tensors of ``full`` (name: tensor) against y's shape and
+    those of ``tables`` against (T, C), each of y's dtype and device and
+    contiguous: in a few host operations each where they pass (a call's
+    host time counts at the small maps), else with ``_check``'s error."""
+    dtype, device, tc = y.dtype, y.device, (y.shape[0], y.shape[-1])
+    for group, shape in ((full, y.shape), (tables, tc)):
+        for what, t in group.items():
+            if not (t.dtype is dtype and t.shape == shape
+                    and t.is_contiguous() and t.device == device):
+                _ln_same(name, what, t, shape, y)
+
+
 def _launch_act_bwd(name, da, y, mean, rstd, gamma, beta, slope
                     ) -> Tuple[Tensor, Tensor, Tensor]:
     """K3's pool-free mode on the card, counted on ``name`` (on
@@ -1316,18 +1349,8 @@ def _launch_act_bwd(name, da, y, mean, rstd, gamma, beta, slope
     stream (``_scratch``)."""
     T, N, H, W, C = _check_flat(name, y)
     dtype, device = y.dtype, y.device
-    tc = (T, C)
-    # da and the (T, C) tables checked in a few host operations each
-    ok = (da.dtype is dtype and da.shape == y.shape and da.is_contiguous()
-          and da.device == device)
-    for t in (mean, rstd, gamma, beta):
-        ok = (ok and t.dtype is dtype and t.shape == tc
-              and t.is_contiguous() and t.device == device)
-    if not ok:
-        for what, t in (("mean", mean), ("rstd", rstd), ("gamma", gamma),
-                        ("beta", beta)):
-            _ln_same(name, what, t, tc, y)
-        _ln_same(name, "da", da, y.shape, y)
+    _check_like(name, y, dict(da=da), dict(mean=mean, rstd=rstd,
+                                           gamma=gamma, beta=beta))
     P = N * H * W
     bf16 = dtype is torch.bfloat16
     dap, yp = da.data_ptr(), y.data_ptr()
@@ -1421,24 +1444,64 @@ def bn_act_bwd_bwd(a: Tensor, ggamma: Tensor, gbeta: Tensor, da: Tensor,
 def _launch_act_bwd_bwd(name, a, ggamma, gbeta, da, y, mean, rstd, gamma,
                         beta, slope) -> Tuple[Tensor, Tensor, Tensor]:
     """K5's pool-free mode on the card, counted on ``name`` (on
-    ``<name>_bf16`` in bf16)."""
-    _check_bn_args(name, y, dict(mean=mean, rstd=rstd, gamma=gamma,
-                                 beta=beta, ggamma=ggamma, gbeta=gbeta),
-                   y.device)
-    _check(name, "a", a, y.shape, y.device, y.dtype)
-    _check(name, "da", da, y.shape, y.device, y.dtype)
-    T, _, _, _, C = y.shape
-    # the outputs in y's dtype, the five partial sums f32
-    part = torch.empty((T, bn_act_pool.SPLITS, 5, C), device=y.device)
+    ``<name>_bf16`` in bf16): one launch of csrc/bn_act_bwd.cu
+    (``bn_act_bwd_bwd_plan``; the kernel writes g_da, g_y and g_gamma), the
+    grid route's f32 scratch kept a stream (``_scratch``)."""
+    T, N, H, W, C = _check_flat(name, y)
+    dtype, device = y.dtype, y.device
+    tc = (T, C)
+    _check_like(name, y, dict(a=a, da=da),
+                dict(mean=mean, rstd=rstd, gamma=gamma, beta=beta,
+                     ggamma=ggamma, gbeta=gbeta))
+    P = N * H * W
+    bf16 = dtype is torch.bfloat16
+    ap, dap, yp = a.data_ptr(), da.data_ptr(), y.data_ptr()
+    # g_da and g_y are fresh allocations: aligned
+    plan = _bn_act_bwd_bwd_route(device, T, P, C, bf16,
+                                 (ap | dap | yp) % 16 == 0)
     g_da = torch.empty_like(y)
     g_y = torch.empty_like(y)
-    g_gamma = torch.empty((T, C), device=y.device, dtype=y.dtype)
-    with torch.cuda.device(y.device):
-        bn_act_pool.launch_act_bwd_bwd(a, ggamma, gbeta, da, y, mean, rstd,
-                                       gamma, beta, part, g_da, g_y, g_gamma,
-                                       F.scalar_like(slope, y))
-    LAUNCHES[_counter(name, y)] += 1
+    g_gamma = y.new_empty(tc)
+    stream = _stream(device)
+    part = tot = 0
+    if plan.splits > 1:  # (T, S, 5, C) partials, then (T, 5, C) totals
+        sums = BN_ACT_BWD_BWD_SUMS * C
+        part = _scratch(device, stream, sums * (plan.grid + T)).data_ptr()
+        tot = part + 4 * sums * plan.grid
+    args = _packed(ap, dap, yp, mean.data_ptr(), rstd.data_ptr(),
+                   gamma.data_ptr(), beta.data_ptr(), ggamma.data_ptr(),
+                   gbeta.data_ptr(), g_da.data_ptr(), g_y.data_ptr(),
+                   g_gamma.data_ptr(), part, tot, T, C, P * C, bf16,
+                   plan.mode != "scalar", plan.threads, plan.chunk,
+                   plan.splits, plan.grid, device.index, stream, plan.stage)
+    rc = build.function("bn_act_bwd", "bn_act_bwd_bwd", _ADDR_2F_ENTRY)(
+        args.buffer_info()[0], F.scalar_like(slope, y), 1.0 / P)
+    counter = _counter(name, y)
+    build.check(rc, counter)
+    LAUNCHES[counter] += 1
     return g_da, g_y, g_gamma
+
+
+@functools.lru_cache(maxsize=None)
+def _bn_act_bwd_bwd_blocks_per_sm(device, bf16: bool, mode: str) -> int:
+    """The occupancy query of the pool-free K5's grid-route kernel."""
+    fn = build.function("bn_act_bwd", "bn_act_bwd_bwd_blocks_per_sm",
+                        (_I, _I, ctypes.POINTER(ctypes.c_int)))
+    out = ctypes.c_int(0)
+    with _device(device):
+        rc = fn(int(bf16), BN_STATS_MODES.index(mode), ctypes.byref(out))
+    build.check(rc, "bn_act_bwd_bwd_blocks_per_sm")
+    return out.value
+
+
+@functools.lru_cache(maxsize=None)
+def _bn_act_bwd_bwd_route(device, T: int, P: int, C: int, bf16: bool,
+                          vec: bool) -> BnStatsPlan:
+    """``bn_act_bwd_bwd_plan`` on ``device``'s SMs and occupancy."""
+    mode = bn_stats_mode(C, P * C, bf16, vec)
+    return bn_act_bwd_bwd_plan(T, P, C, bf16, vec, _sms(device),
+                               _bn_act_bwd_bwd_blocks_per_sm(device, bf16,
+                                                             mode))
 
 
 # -- the norm-first block's kernels: standalone batch norm (B5b) ----------------
@@ -1446,8 +1509,9 @@ def _launch_act_bwd_bwd(name, a, ggamma, gbeta, da, y, mean, rstd, gamma,
 
 class BnStatsPlan(NamedTuple):
     """The launch of ``bn_input_stats`` at one shape
-    (csrc/bn_input_stats.cu), and of the pool-free K3 (csrc/bn_act_bwd.cu,
-    ``bn_act_bwd_plan``: the units of da and y). A thread takes units of
+    (csrc/bn_input_stats.cu), and of the pool-free K3 and K5
+    (csrc/bn_act_bwd.cu, ``bn_act_bwd_plan``: the units of da and y;
+    ``bn_act_bwd_bwd_plan``: of a, da and y). A thread takes units of
     ``unit`` loads of ``vec`` values (16 bytes, or one value) and holds
     ``chans`` channels: ``mode`` ``"lanes"`` (C a multiple of a load's
     values: a load is ``vec`` consecutive channels), ``"packed1"`` /
@@ -1460,9 +1524,9 @@ class BnStatsPlan(NamedTuple):
     of slots); ``grid`` = T x splits. ``route``
     ``"block"`` (splits 1: a block a tenant, a plain launch) or ``"grid"``
     (one cooperative launch, its blocks' partials merged after a grid
-    barrier). ``stage`` (the pool-free K3 only): the dynamic shared memory
-    a block keeps its packets of da and y in from the reduce to the apply,
-    or 0 (the apply reads them again from L2)."""
+    barrier). ``stage`` (the pool-free K3 and K5 only): the dynamic shared
+    memory a block keeps its packets of the inputs in from the reduce to
+    the apply, or 0 (the apply reads them again from L2)."""
 
     route: str
     mode: str
@@ -1548,6 +1612,19 @@ def bn_stats_plan(T: int, P: int, C: int, bf16: bool = False,
                       BN_STATS_MAX_C)
 
 
+def _staged(p: BnStatsPlan, sms: int, tensors: int, budget: int
+            ) -> BnStatsPlan:
+    """``p`` with the stage of a kernel that reads ``tensors`` tensors
+    twice: on the grid route in one wave of a block a SM with 16-byte
+    loads, each thread's units times their loads, 16 bytes each of each
+    tensor, where that fits in ``budget`` bytes."""
+    if p.route == "grid" and p.mode != "scalar" and p.grid <= sms:
+        stage = _cdiv(p.chunk, p.threads) * p.unit * tensors * p.threads * 16
+        if stage <= budget:
+            return p._replace(stage=stage)
+    return p
+
+
 @functools.lru_cache(maxsize=None)
 def bn_act_bwd_plan(T: int, P: int, C: int, bf16: bool = False,
                     vec: bool = True, sms: int = 132, blocks_per_sm: int = 2
@@ -1569,11 +1646,30 @@ def bn_act_bwd_plan(T: int, P: int, C: int, bf16: bool = False,
                    vec, sms, blocks_per_sm, BN_ACT_BWD_THREADS,
                    BN_ACT_BWD_BLOCK_LOADS, BN_ACT_BWD_WAVE_LOADS,
                    BN_ACT_BWD_MAX_C)
-    if p.route == "grid" and p.mode != "scalar" and p.grid <= sms:
-        stage = _cdiv(p.chunk, p.threads) * p.unit * 2 * p.threads * 16
-        if stage <= BN_ACT_BWD_STAGE_BYTES:
-            return p._replace(stage=stage)
-    return p
+    return _staged(p, sms, 2, BN_ACT_BWD_STAGE_BYTES)
+
+
+@functools.lru_cache(maxsize=None)
+def bn_act_bwd_bwd_plan(T: int, P: int, C: int, bf16: bool = False,
+                        vec: bool = True, sms: int = 132,
+                        blocks_per_sm: int = 2) -> BnStatsPlan:
+    """The pool-free K5's launch (csrc/bn_act_bwd.cu: ``bn_act_bwd_bwd``,
+    and ``batch_norm_bwd_bwd`` at slope 1) for T tenants of P pixels x C
+    channels of a, da and y, in f32 or bf16, with 16-byte loads where
+    ``vec`` (a, da, y, g_da and g_y 16-byte aligned) and the shape allow,
+    on a card of ``sms`` SMs that holds ``blocks_per_sm`` of K5's
+    grid-route blocks at once (its own occupancy query): K3's units,
+    modes and routes (``bn_act_bwd_plan``), the block route only up to
+    ``BN_ACT_BWD_BWD_BLOCK_LOADS`` loads a thread, and a stage of a
+    block's packets of a, da and y where they fit in
+    ``BN_ACT_BWD_BWD_STAGE_BYTES``. A pure function of the shape: the
+    wrappers call it, and so do the CPU tests. Raises for a shape the
+    kernel does not take."""
+    p = _flat_plan("bn_act_bwd_bwd_plan: no pool-free K5 of", T, P, C, bf16,
+                   vec, sms, blocks_per_sm, BN_ACT_BWD_THREADS,
+                   BN_ACT_BWD_BWD_BLOCK_LOADS, BN_ACT_BWD_WAVE_LOADS,
+                   BN_ACT_BWD_MAX_C)
+    return _staged(p, sms, 3, BN_ACT_BWD_BWD_STAGE_BYTES)
 
 
 @functools.lru_cache(maxsize=None)
@@ -1671,12 +1767,13 @@ def batch_norm_bwd_bwd(a: Tensor, ggamma: Tensor, gbeta: Tensor, dz: Tensor,
 
 
 class ActPoolPlan(NamedTuple):
-    """The launches of ``act_pool_fwd`` and ``act_pool_bwd`` at one shape
-    (csrc/act.cu), ``threads`` a block: a thread takes one 2x2 window x
-    ``items`` consecutive channels (16 bytes, 4 f32 or 8 bf16; 1 without
-    vectors), ``groups`` = C / items threads a window, the window's
-    channel groups on consecutive threads. The forward runs over each
-    image's ``pooled`` (Ho, Wo) windows on ``fwd_blocks`` blocks; the
+    """The launches of ``act_pool_fwd``, ``act_pool_bwd`` and
+    ``act_pool_gather`` at one shape (csrc/act.cu), ``threads`` a block: a
+    thread takes one 2x2 window x ``items`` consecutive channels (16
+    bytes, 4 f32 or 8 bf16; 1 without vectors), ``groups`` = C / items
+    threads a window, the window's channel groups on consecutive threads.
+    The forward and the gather run over each image's ``pooled`` (Ho, Wo)
+    windows on ``fwd_blocks`` blocks; the
     backward over its ``windows`` (ceil(H / 2), ceil(W / 2)), the dropped
     odd row and column included (it writes their zeros), on
     ``bwd_blocks``. ``wide``: 64-bit index arithmetic, where y holds
@@ -1695,10 +1792,11 @@ class ActPoolPlan(NamedTuple):
 @functools.lru_cache(maxsize=None)
 def act_pool_plan(T: int, N: int, H: int, W: int, C: int, bf16: bool = False,
                   vec: bool = True) -> ActPoolPlan:
-    """The launches of ``act_pool_fwd`` / ``act_pool_bwd`` for y ``(T, N, H,
-    W, C)`` in f32 or bf16, with vectors (``vec``: C a multiple of the
-    vector and the tensors aligned to it) or a channel a thread. A pure
-    function of the shape: both wrappers call it, and so do the CPU tests;
+    """The launches of ``act_pool_fwd`` / ``act_pool_bwd`` /
+    ``act_pool_gather`` for y ``(T, N, H, W, C)`` in f32 or bf16, with
+    vectors (``vec``: C a multiple of the vector and the tensors aligned to
+    it) or a channel a thread. A pure function of the shape: the three
+    wrappers call it, and so do the CPU tests;
     the entries refuse a plan that does not match. Raises for a shape the
     kernels do not take (a map under 2x2: no window)."""
     items = _ln_load(bf16, vec)
@@ -1793,20 +1891,29 @@ def act_pool_bwd(dpooled: Tensor, argmax: Tensor, y: Tensor,
 def act_pool_gather(g_dy: Tensor, argmax: Tensor, y: Tensor,
                     negative_slope: float = F.LEAKY_SLOPE) -> Tensor:
     """The adjoint of ``act_pool_bwd`` in its gradient: ``g_dy *
-    leaky_relu'(y)`` at each window's argmax."""
+    leaky_relu'(y)`` at each window's argmax, in the pooled shape. One
+    launch of csrc/act.cu on the forward's plan (``act_pool_plan``)."""
     if _on_cpu(y):
         return F.act_pool_gather(g_dy, argmax, y, negative_slope)
     name = "act_pool_gather"
-    _check_act(name, y)
-    _check(name, "g_dy", g_dy, y.shape, y.device, y.dtype)
-    T, N, H, W, C = y.shape
-    out = torch.empty((T, N, H // 2, W // 2, C), device=y.device,
-                      dtype=y.dtype)
-    _check_pooled(name, out, argmax, y)
-    with torch.cuda.device(y.device):
-        act_pool.launch_pool_gather(g_dy, argmax, y, out,
-                                    F.scalar_like(negative_slope, y))
-    LAUNCHES[_counter(name, y)] += 1
+    T, N, H, W, C = _check_flat(name, y)
+    _ln_same(name, "g_dy", g_dy, y.shape, y)
+    device = y.device
+    shape = (T, N, H // 2, W // 2, C)
+    out = torch.empty(shape, device=device, dtype=y.dtype)
+    _check_pooled_fast(name, out, argmax, y, shape)
+    gp, argp, yp, outp = (g_dy.data_ptr(), argmax.data_ptr(), y.data_ptr(),
+                          out.data_ptr())
+    bf16 = y.dtype is torch.bfloat16
+    vec = act_pool_vec(C, bf16, (gp, yp, outp), argp)
+    plan = act_pool_plan(T, N, H, W, C, bf16, vec)
+    args = _packed(gp, yp, argp, outp, T, N, H, W, C, bf16, vec, plan.wide,
+                   plan.fwd_blocks, device.index, _stream(device))
+    rc = build.function("act", "act_pool_gather", _ADDR_F_ENTRY)(
+        args.buffer_info()[0], F.scalar_like(negative_slope, y))
+    counter = _counter(name, y)
+    build.check(rc, counter)
+    LAUNCHES[counter] += 1
     return out
 
 

@@ -12,14 +12,19 @@
 //                 models' norm-first and layer-norm blocks);
 //   act_pool_bwd: each pooled gradient d at its window's argmax times the
 //                 leaky-ReLU's derivative at y there, d * 0 at the window's
-//                 other taps, +0 on the dropped row and column.
+//                 other taps, +0 on the dropped row and column;
+//   act_pool_gather: the adjoint of act_pool_bwd in its gradient (the
+//                 derivative second-order MAML takes through it): g_dy
+//                 times the leaky-ReLU's derivative at y, at each window's
+//                 argmax, into the pooled shape.
 //
 // Replaces (JAX package) howtotrainyourmamlpytorch_tpu/ops/functional.py:
 // `leaky_relu` :363 and `max_pool2d` :325 (impl='reduce_window': the whole
 // gradient to the first maximum) after the conv of the norm-first block
-// (models/vgg.py:300-302), and the gradients XLA derives for them. The
-// twins are ops/functional.py::act_fwd, ::act_bwd, ::act_pool_fwd and
-// ::act_pool_bwd of the port.
+// (models/vgg.py:300-302), the gradients XLA derives for them, and the
+// gradient of that gradient (act_pool_gather). The twins are
+// ops/functional.py::act_fwd, ::act_bwd, ::act_pool_fwd, ::act_pool_bwd
+// and ::act_pool_gather of the port.
 //
 // Rounding: in f32 one multiply; in bf16 the product of two bf16 values
 // (y or da, and the slope's bf16 value) is exact in f32, so one rounding
@@ -29,14 +34,17 @@
 // pair a conversion), so that exact bf16 ties, common at full width, fall
 // to the first maximum as the twin's do. The backward's zeros are the
 // twin's: its unpool multiplies a one-hot by d (d * 0: the sign of d),
-// its pad writes +0 on the dropped row and column. Bit for bit the twins
-// in both dtypes.
+// its pad writes +0 on the dropped row and column. The gather's mask comes
+// from y, as the twin's `select(y >= 0, g, bf16(slope * g))`. Bit for bit
+// the twins in both dtypes.
 //
 // Bound on an H100: bytes (3.35 TB/s; a select, a multiply and a compare
 // an element). act_fwd reads y and writes z; act_bwd reads da and y and
 // writes dy; act_pool_fwd reads y and writes the pooled quarter and a
 // byte of argmax an element of it; act_pool_bwd reads the pooled gradient
-// and the argmax, y where a window routes its gradient, and writes dy.
+// and the argmax, y where a window routes its gradient, and writes dy;
+// act_pool_gather reads the argmax, g_dy and y at it, and writes the
+// pooled quarter.
 // * act_fwd / act_bwd: 16 bytes of the flat tensor a thread (4 f32 or 8
 //   bf16).
 // * act_pool_fwd / act_pool_bwd: a thread owns one 2x2 window x 16 bytes
@@ -50,6 +58,13 @@
 //   grid covers ceil(H / 2) x ceil(W / 2) windows: those past the pooled
 //   map (an odd map's dropped row and column) write their taps' zeros, in
 //   the same launch.
+// * act_pool_gather: the forward's mapping. A thread loads its argmax
+//   bytes once, then g_dy and y as vectors only at the taps some lane of
+//   its vector selects, every load before its one store. DRAM moves whole
+//   32-byte sectors, so a tap's sector is read if any of its channels
+//   selects the tap: with independent argmaxes about 3.6 of 4 taps in f32
+//   (3.96 in bf16), which caps the gather near 38% of the bound that
+//   counts g_dy and y at the argmax alone.
 // * act_fwd / act_bwd load evict-first (read once); the act-pool kernels
 //   load plain (an evict-first hint measured 5-10% slower at their
 //   stage-0 maps), every load a thread makes before its first store.
@@ -182,10 +197,12 @@ int launch(const Args& args, int bf16, int vec, long long blocks,
 // -- the leaky-ReLU with the 2x2 max pool ------------------------------------
 
 struct PoolArgs {
-  const void* dp;   // the backward's pooled gradient; unused by the forward
+  const void* dp;   // the backward's pooled gradient, the gather's g_dy;
+                    // unused by the forward
   void* arg;        // the uint8 window argmax (T, N, Ho, Wo, C)
   const void* y;    // (T, N, H, W, C)
-  void* out;        // the forward's pooled values, the backward's dy
+  void* out;        // the forward's pooled values, the backward's dy, the
+                    // gather's pooled values
   long long work;   // threads with a window: T * N * Hw * Ww * G
   int H, W, C;
   int G;            // threads a window: C / V
@@ -358,29 +375,78 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int V, typename I, bool kFwd>
+// value i of the packet of tap k (0-3) of four
+template <typename T, int V>
+__device__ __forceinline__ float pick(const Packet<T, V> (&q)[4], unsigned k,
+                                      int i) {
+  const float v0 = at(q[0], i), v1 = at(q[1], i), v2 = at(q[2], i),
+              v3 = at(q[3], i);
+  return k == 0 ? v0 : k == 1 ? v1 : k == 2 ? v2 : v3;
+}
+
+template <typename T, int V, typename I>
+__global__ void __launch_bounds__(kThreads)
+    act_pool_gather_kernel(const PoolArgs a) {
+  const I l = (I)blockIdx.x * kThreads + threadIdx.x;
+  if (l >= (I)a.work) return;
+  const Window<I> win = locate<I, V>(a, l);
+  unsigned arg[V];
+  load_arg<V>(static_cast<const uint8_t*>(a.arg) + win.pooled, arg);
+  // g_dy and y at a tap only where some lane takes it
+  const T* g = static_cast<const T*>(a.dp) + win.y;
+  const T* y = static_cast<const T*>(a.y) + win.y;
+  Packet<T, V> qg[4], qy[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    bool hit = false;
+#pragma unroll
+    for (int i = 0; i < V; ++i) hit |= arg[i] == (unsigned)k;
+    if (hit) {
+      load_plain(g + tap<I>(a, k), qg[k]);
+      load_plain(y + tap<I>(a, k), qy[k]);
+    } else {
+      maml::zero(qg[k]);
+      maml::zero(qy[k]);
+    }
+  }
+  float o[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i)
+    o[i] = leaky<false>(pick(qg, arg[i], i), pick(qy, arg[i], i), a.slope);
+  maml::store<false>(static_cast<T*>(a.out) + win.pooled, o);
+}
+
+// the pooled kernels: the forward, the backward, the gather
+enum PoolKind { kPoolFwd = 0, kPoolBwd = 1, kPoolGather = 2 };
+
+template <typename T, int V, typename I, int kKind>
 const void* pool_kernel_of() {
-  return kFwd ? reinterpret_cast<const void*>(act_pool_fwd_kernel<T, V, I>)
-              : reinterpret_cast<const void*>(act_pool_bwd_kernel<T, V, I>);
+  if constexpr (kKind == kPoolFwd)
+    return reinterpret_cast<const void*>(act_pool_fwd_kernel<T, V, I>);
+  else if constexpr (kKind == kPoolBwd)
+    return reinterpret_cast<const void*>(act_pool_bwd_kernel<T, V, I>);
+  else
+    return reinterpret_cast<const void*>(act_pool_gather_kernel<T, V, I>);
 }
 
-template <typename T, int V, bool kFwd>
+template <typename T, int V, int kKind>
 const void* pool_kernel_at(int wide) {
-  return wide ? pool_kernel_of<T, V, unsigned long long, kFwd>()
-              : pool_kernel_of<T, V, unsigned, kFwd>();
+  return wide ? pool_kernel_of<T, V, unsigned long long, kKind>()
+              : pool_kernel_of<T, V, unsigned, kKind>();
 }
 
-template <typename T, bool kFwd>
+template <typename T, int kKind>
 const void* pool_kernel_for(int vec, int wide) {
   constexpr int V = sizeof(T) == 4 ? 4 : 8;
-  return vec ? pool_kernel_at<T, V, kFwd>(wide)
-             : pool_kernel_at<T, 1, kFwd>(wide);
+  return vec ? pool_kernel_at<T, V, kKind>(wide)
+             : pool_kernel_at<T, 1, kKind>(wide);
 }
 
 // Checks a pooled launch against the shape (T, N, H, W, C), the dtype, the
 // vectors, the index width and the blocks, and launches it; the CUDA
-// error, 0 on success.
-template <bool kFwd>
+// error, 0 on success. The forward and the gather run over the pooled
+// windows, the backward over ceil(H / 2) x ceil(W / 2).
+template <int kKind>
 int launch_pool(PoolArgs p, long long T, long long N, int bf16, int vec,
                 int wide, long long blocks, int device, long long stream) {
   const int V = vec ? (bf16 ? 8 : 4) : 1;
@@ -388,25 +454,25 @@ int launch_pool(PoolArgs p, long long T, long long N, int bf16, int vec,
     return (int)cudaErrorInvalidValue;
   p.G = p.C / V;
   p.Ho = p.H / 2, p.Wo = p.W / 2;
-  p.Hw = kFwd ? p.Ho : (p.H + 1) / 2;
-  p.Ww = kFwd ? p.Wo : (p.W + 1) / 2;
+  p.Hw = kKind == kPoolBwd ? (p.H + 1) / 2 : p.Ho;
+  p.Ww = kKind == kPoolBwd ? (p.W + 1) / 2 : p.Wo;
   p.work = T * N * p.Hw * p.Ww * p.G;
   const long long total = T * N * p.H * p.W * (long long)p.C;
   if (blocks != (p.work + kThreads - 1) / kThreads ||
       blocks > 0x7fffffffLL || wide != (total >= (1LL << 31)))
     return (int)cudaErrorInvalidValue;
-  // vectors: y, the pooled values (or dy and the pooled gradient) on 16
-  // bytes, the argmax on V bytes
+  // vectors: y, the pooled values (or dy and the pooled gradient; or the
+  // gathered values and g_dy) on 16 bytes, the argmax on V bytes
   const unsigned long long bytes = 16;
   if (vec && !(maml::aligned(p.y, bytes) && maml::aligned(p.out, bytes) &&
                maml::aligned(p.arg, V) &&
-               (kFwd || maml::aligned(p.dp, bytes))))
+               (kKind == kPoolFwd || maml::aligned(p.dp, bytes))))
     return (int)cudaErrorInvalidValue;
   maml::OnDevice on(device);
   if (on.err != cudaSuccess) return (int)on.err;
   void* params[] = {&p};
-  const void* k = bf16 ? pool_kernel_for<bf16_t, kFwd>(vec, wide)
-                       : pool_kernel_for<float, kFwd>(vec, wide);
+  const void* k = bf16 ? pool_kernel_for<bf16_t, kKind>(vec, wide)
+                       : pool_kernel_for<float, kKind>(vec, wide);
   return maml::launch_error(cudaLaunchKernel(
       k, dim3((unsigned)blocks), dim3(kThreads), params, 0,
       maml::ptr<CUstream_st>(stream)));
@@ -475,8 +541,8 @@ int act_pool_fwd(const long long* a, float slope) {
     return (int)cudaErrorInvalidValue;
   p.H = (int)a[5], p.W = (int)a[6], p.C = (int)a[7];
   p.slope = slope;
-  return launch_pool<true>(p, a[3], a[4], (int)a[8], (int)a[9], (int)a[10],
-                           a[11], (int)a[12], a[13]);
+  return launch_pool<kPoolFwd>(p, a[3], a[4], (int)a[8], (int)a[9],
+                               (int)a[10], a[11], (int)a[12], a[13]);
 }
 
 // act_pool_bwd, its arguments packed as act_fwd's, in the order of
@@ -501,8 +567,34 @@ int act_pool_bwd(const long long* a, float slope) {
     return (int)cudaErrorInvalidValue;
   p.H = (int)a[6], p.W = (int)a[7], p.C = (int)a[8];
   p.slope = slope;
-  return launch_pool<false>(p, a[4], a[5], (int)a[9], (int)a[10],
-                            (int)a[11], a[12], (int)a[13], a[14]);
+  return launch_pool<kPoolBwd>(p, a[4], a[5], (int)a[9], (int)a[10],
+                               (int)a[11], a[12], (int)a[13], a[14]);
+}
+
+// act_pool_gather, its arguments packed as act_fwd's, in the order of
+// conv_block.act_pool_gather:
+//   a[0..3]   g_dy and y (T, N, H, W, C), the uint8 argmax and the
+//             gathered values (T, N, H/2, W/2, C), the three float
+//             tensors all f32 (bf16 0) or all bf16
+//   a[4..8]   T, N, H, W, C (H, W >= 2)
+//   a[9..11]  bf16, vec (as act_pool_fwd's; g_dy 16-byte aligned too),
+//             wide
+//   a[12]     blocks: the forward's, ceil(T * N * (H/2) * (W/2) * C /
+//             channels a thread / 256)
+//   a[13..14] the device, the stream
+// and the slope, rounded to the dtype. Refuses as act_pool_fwd.
+int act_pool_gather(const long long* a, float slope) {
+  PoolArgs p = {};
+  p.dp = maml::ptr<const void>(a[0]);
+  p.y = maml::ptr<const void>(a[1]);
+  p.arg = maml::ptr<void>(a[2]);
+  p.out = maml::ptr<void>(a[3]);
+  if (a[6] > 0x7fffffffLL || a[7] > 0x7fffffffLL || a[8] > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  p.H = (int)a[6], p.W = (int)a[7], p.C = (int)a[8];
+  p.slope = slope;
+  return launch_pool<kPoolGather>(p, a[4], a[5], (int)a[9], (int)a[10],
+                                  (int)a[11], a[12], (int)a[13], a[14]);
 }
 
 }  // extern "C"

@@ -10,12 +10,11 @@
 // row and column are dropped) inside `conv_bn_act` :249 (K3, in f32 and at
 // compute_dtype='bfloat16'), and the derivative of that gradient, which
 // second-order MAML takes through the inner loop (core/maml.py
-// ::_task_learner; K5, in both dtypes). The pool-free K5 stays on the
-// Triton kernels of kernels/bn_act_pool.py; the pool-free K3 runs
+// ::_task_learner; K5, in both dtypes). The pool-free K3 and K5 run
 // bn_act_bwd.cu.
 //
 // The arithmetic is the twins' (ops/functional.py::bn_act_pool_bwd,
-// ::bn_act_pool_bwd_bwd; kernels/bn_act_pool.py derives K5's formulas).
+// ::bn_act_pool_bwd_bwd; ::bn_act_bwd_bwd derives K5's formulas).
 // With xhat = (y - mean) * rstd, z = xhat * gamma + beta (one FMA) and dz
 // the pooled gradient at each window's argmax through the leaky slope (0
 // at every other position, the dropped row and column included), per

@@ -565,13 +565,29 @@ def bn_act_bwd_bwd(a: Tensor, ggamma: Tensor, gbeta: Tensor, da: Tensor,
                    beta: Tensor, negative_slope: float = LEAKY_SLOPE
                    ) -> Tuple[Tensor, Tensor, Tensor]:
     """Twin of K5's pool-free mode: the backward of ``bn_act_bwd``, written
-    out as formulas (``kernels/bn_act_pool.py`` derives them).
+    out as formulas.
 
     ``a``, ``ggamma``, ``gbeta`` are the cotangents of K3's ``dy``,
     ``dgamma`` and ``dbeta``. Returns the gradients with respect to
     ``da``, ``y`` (through the statistics too: ``mean`` and ``rstd`` are
     functions of y) and ``gamma``; beta's is zero (it enters only through
-    the masks)."""
+    the masks). With ``P(v) = v - mean(v) - xhat * mean(v * xhat)`` (K3's
+    projection), r = rstd and dz the slope-masked da, per (tenant,
+    channel) over m = N*H*W positions::
+
+        g_dz    = gamma * r * P(a) + ggamma * xhat + gbeta
+        g_da    = g_dz, slope-masked
+        cross   = S_adz - m * mean(a) * mean(dz)
+                  - m * mean(a xhat) * mean(dz xhat)
+        g_gamma = r * cross
+        G       = -gamma * r * (mean(dz xhat) * a + mean(a xhat) * dz)
+                  + ggamma * dz
+        g_y     = r * (G - mean(G) - xhat * mean(G xhat))
+                  - r^2 * gamma * xhat * cross / m
+
+    (``mean(G)`` and ``mean(G xhat)`` follow from the five sums Σa, Σa·xhat,
+    Σdz, Σdz·xhat and Σa·dz, which the kernel,
+    ``kernels/csrc/bn_act_bwd.cu``, reduces)."""
     _, n, h, w, _ = y.shape
     m = n * h * w
     dims = (1, 2, 3)

@@ -30,7 +30,7 @@ Every ``DispatchResult`` carries the bytes its upload moved
 its predict-only program, AOT export, telemetry sinks and tracing spans.
 PyTorch runs eagerly, so there is no program table or retrace detector;
 ``warmup`` runs every (bucket, shots) shape once so the kernels are built
-and the Triton kernels compiled before the first request.
+and loaded before the first request.
 """
 
 from __future__ import annotations
@@ -329,8 +329,8 @@ class ServingEngine:
         return fetched, (time.perf_counter() - start) * 1e3
 
     def warmup(self) -> float:
-        """Run every (bucket, shots) shape once on zeros: builds the CUDA
-        kernels and compiles the Triton kernels before real traffic.
+        """Run every (bucket, shots) shape once on zeros: builds and loads
+        the CUDA kernels before real traffic.
         Returns the wall seconds spent."""
         start = time.perf_counter()
         for shots in self.shots_buckets:

@@ -1,5 +1,6 @@
-"""Time ``act_pool_fwd`` and ``act_pool_bwd``, in f32 and bf16, at every
-shape the norm-first and layer-norm models give them, beside their bound;
+"""Time ``act_pool_fwd``, ``act_pool_bwd`` and ``act_pool_gather``, in f32
+and bf16, at every shape the norm-first and layer-norm models give them,
+beside their bound;
 with ``--e2e``, the norm-first model's batch-2 train step and bucket-8
 serve dispatch, in f32 and bf16: the check that one build's kernels are
 faster than another's, compared in one process run after the other on one
@@ -10,13 +11,14 @@ card (parent, change, change, parent).
 
 Run by path, so that ``PYTHONPATH`` picks the package whose kernels are
 built and launched (each checkout builds its own into its own
-``_build/``); the script uses only the wrappers ``act_pool_fwd`` and
-``act_pool_bwd`` of ``kernels/conv_block.py``, their twins and the train
-and serve entry points, which every build has. Inputs come from a numpy
-seed, T = 8 tenants, 48 channels: the mini-ImageNet conv outputs of the
-padded models (84/42/21/10) and of the unpadded ones (82/39/17/6), the
-forward at N = 75 images and the backward at N = 25, on y with exact ties
-in many windows and the twin's argmax. Per row: the wrapper's time by
+``_build/``); the script uses only the wrappers ``act_pool_fwd``,
+``act_pool_bwd`` and ``act_pool_gather`` of ``kernels/conv_block.py``,
+their twins and the train and serve entry points, which every build has.
+Inputs come from a numpy seed, T = 8 tenants, 48 channels: the
+mini-ImageNet conv outputs of the padded models (84/42/21/10) and of the
+unpadded ones (82/39/17/6), the forward at N = 75 images and the backward
+and the gather at N = 25, on y with exact ties in many windows and the
+twin's argmax. Per row: the wrapper's time by
 CUDA events (host time included: ``card_timing.time_ms``, every row timed
 before the first profile), the device time of every kernel the call
 launches and their count a call by ``torch.profiler``, the host time a
@@ -24,11 +26,12 @@ call (events ms less device ms), whether the outputs equal the twin's
 (values; an earlier build's backward wrote +0 where the twin's zero has
 d's sign) and whether they are its bits, and the bound: bytes over 3.35
 TB/s on an H100 SXM, each input read once and each output written once
-(the backward reads y at the argmax only). No PyTorch call computes
-either function. The backward's row also gives the bytes it moves from
-device memory, which reads y in whole 32-byte sectors wherever a
-channel selects a tap (counted on this row's argmax), and the share of
-the bound that caps it at.
+(the backward reads y at the argmax only, the gather g_dy and y there).
+No PyTorch call computes any of them. The backward's and the gather's
+rows also give the bytes they move from device memory, which reads y
+(and g_dy) in whole 32-byte sectors wherever a channel selects a tap
+(counted on this row's argmax), and the share of the bound that caps
+them at.
 
 ``--e2e`` then profiles one warm second-order train step at batch 2 and
 one warm bucket-8 serve dispatch of the mini-ImageNet MAML++ config
@@ -57,7 +60,7 @@ STAGES = (("stage0", 84), ("stage1", 42), ("stage2", 21), ("stage3", 10),
           ("unpadded stage2", 17), ("unpadded stage3", 6))
 # the images each kernel sees: the forward at serving's 75 targets, the
 # backward at the 25 support images
-IMAGES = {"act_pool_fwd": 75, "act_pool_bwd": 25}
+IMAGES = {"act_pool_fwd": 75, "act_pool_bwd": 25, "act_pool_gather": 25}
 DTYPES = ((torch.float32, "f32"), (torch.bfloat16, "bf16"))
 BW = 3.35e12
 CONFIG = ("experiment_config/"
@@ -87,14 +90,18 @@ def _gate(got, want):
                else True for g, w in zip(got, want))
 
 
-def _moved(arg, y):
-    """The bytes the backward moves from device memory, which reads y in
-    whole 32-byte sectors: the pooled gradient, the argmax, dy, and at
-    each tap every sector of y in which some channel selects the tap."""
+def _moved(kernel, arg, y):
+    """The bytes the backward or the gather moves from device memory,
+    which reads y (and the gather g_dy) in whole 32-byte sectors: the
+    argmax and, at each tap, every sector of y (and g_dy) in which some
+    channel selects the tap; the backward's pooled gradient and dy, the
+    gather's pooled output."""
     esize = y.element_size()
     P = arg.numel()
     lanes = arg.reshape(-1, 32 // esize).long()
     sectors = sum(int((lanes == k).any(1).sum()) for k in range(4))
+    if kernel == "act_pool_gather":
+        return P + 2 * 32 * sectors + esize * P
     return esize * P + P + 32 * sectors + esize * y.numel()
 
 
@@ -115,6 +122,14 @@ def inputs(F, dtype, hw, n):
     return y, arg, dp
 
 
+@functools.lru_cache(maxsize=None)
+def gather_input(dtype, hw, n):
+    """The gather's g_dy (y's shape), from a numpy seed."""
+    rng = np.random.default_rng(hw + n + 1)
+    return torch.from_numpy(rng.standard_normal(
+        (T, n, hw, hw, C), dtype=np.float32)).cuda().to(dtype)
+
+
 def calls(cb, F, dtype, kernel, hw, n):
     """(wrapper call, twin call, bytes) at one shape."""
     y, arg, dp = inputs(F, dtype, hw, n)
@@ -122,6 +137,10 @@ def calls(cb, F, dtype, kernel, hw, n):
     if kernel == "act_pool_fwd":
         return (lambda: cb.act_pool_fwd(y), lambda: F.act_pool_fwd(y),
                 esize * (y.numel() + P) + P)
+    if kernel == "act_pool_gather":
+        g = gather_input(dtype, hw, n)
+        return (lambda: cb.act_pool_gather(g, arg, y),
+                lambda: F.act_pool_gather(g, arg, y), esize * 3 * P + P)
     return (lambda: cb.act_pool_bwd(dp, arg, y),
             lambda: F.act_pool_bwd(dp, arg, y),
             esize * (2 * P + y.numel()) + P)
@@ -137,7 +156,7 @@ def rows(label):
         call, twin, nbytes = calls(cb, F, dtype, kernel, hw, n)
         bits = _gate(call(), twin())
         y, arg, _ = inputs(F, dtype, hw, n)
-        moved = _moved(arg, y) if kernel == "act_pool_bwd" else None
+        moved = None if kernel == "act_pool_fwd" else _moved(kernel, arg, y)
         bound = nbytes / BW * 1e3
         out.append({
             "build": label, "dtype": tag, "kernel": kernel, "stage": stage,
@@ -157,7 +176,7 @@ def rows(label):
                  f"{100 * r['bound_ms'] / dev:.1f}% of the bound by device "
                  "time")
         cap = ("" if r["cap"] is None else
-               f", y's sectors at the argmax taps cap it at "
+               f", the sectors read at the argmax taps cap it at "
                f"{100 * r['cap']:.1f}%")
         print(f"[act_pool {label}] {tag} {kernel} {stage} N={n}: "
               f"{r['ms']:.4f} ms (device {fmt_ms(dev)}, "
@@ -167,6 +186,7 @@ def rows(label):
               flush=True)
         del call
     inputs.cache_clear()
+    gather_input.cache_clear()
     torch.cuda.empty_cache()
     return out
 

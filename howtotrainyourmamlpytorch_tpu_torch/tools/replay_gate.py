@@ -1,13 +1,16 @@
 """Run ``chip_smoke.py``'s replayed meta-gradient gate
 (``check_grads_replayed``) for the strided Omniglot model (20-way 1-shot
-with ``max_pooling=False``, second order, batch 2) in f32 or bf16 on the
-chosen data seeds, and print what that gate prints: per seed the decisions
-unlike f64, and over the seeds the quantiles (median, p90, max) of the
-kernels' error over the larger plain run's, leaf by leaf, and of the null
-ratios. The check that one build's kernels sit no farther from f64 than
-another's at the gate's tail, compared in one call on one card.
+with ``max_pooling=False``) or the norm-first mini-ImageNet model (5-way
+5-shot with ``block_order='norm_conv_relu'``), second order, batch 2, in
+f32 or bf16 on the chosen data seeds, and print what that gate prints: per
+seed the decisions unlike f64, and over the seeds the quantiles (median,
+p90, max) of the kernels' error over the larger plain run's, leaf by leaf,
+and of the null ratios. The check that one build's kernels sit no farther
+from f64 than another's at the gate's tail, compared in one call on one
+card.
 
     PYTHONPATH=<checkout> python3 <this file> [--dtype bfloat16]
+                                              [--model strided]
                                               [--seeds 0,1,...,9]
 
 ``chip_smoke`` is imported from the checkout that ``PYTHONPATH`` names, so
@@ -27,6 +30,8 @@ def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--dtype", default="bfloat16",
                     choices=("float32", "bfloat16"))
+    ap.add_argument("--model", default="strided",
+                    choices=("strided", "norm-first"))
     ap.add_argument("--seeds", default=",".join(map(str, range(10))))
     args = ap.parse_args(argv)
 
@@ -38,11 +43,16 @@ def main(argv) -> int:
 
     print(cs.card_line(), flush=True)
     resolve_device("cuda:0")
-    cfg = MAMLConfig.from_json_file(cs.OMNIGLOT).replace(
-        max_pooling=False, compute_dtype=args.dtype)
+    if args.model == "strided":
+        cfg = MAMLConfig.from_json_file(cs.OMNIGLOT).replace(
+            max_pooling=False, compute_dtype=args.dtype)
+        what = "strided Omniglot"
+    else:
+        cfg = MAMLConfig.from_json_file(cs.FLAGSHIP).replace(
+            block_order="norm_conv_relu", compute_dtype=args.dtype)
+        what = "norm-first mini-ImageNet"
     seeds = tuple(int(v) for v in args.seeds.split(","))
-    print(f"[replay gate] strided Omniglot {args.dtype}, seeds {seeds}",
-          flush=True)
+    print(f"[replay gate] {what} {args.dtype}, seeds {seeds}", flush=True)
     try:
         cs.check_grads_replayed(cfg, cb, F, seeds)
     except AssertionError as err:

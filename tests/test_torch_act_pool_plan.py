@@ -1,5 +1,5 @@
-"""The launch plan of ``act_pool_fwd`` and ``act_pool_bwd``
-(``conv_block.act_pool_plan``, the pooled kernels of
+"""The launch plan of ``act_pool_fwd``, ``act_pool_bwd`` and
+``act_pool_gather`` (``conv_block.act_pool_plan``, the pooled kernels of
 ``kernels/csrc/act.cu``) on the CPU: a pure function of the shape, checked
 at every act-pool shape ``chip_smoke.py`` runs — the norm-first and
 layer-norm blocks' conv outputs, padded (84/42/21/10) and unpadded
@@ -21,7 +21,13 @@ for bit in f32 and bf16, zeros' signs included, at odd maps and on inputs
 that hold exact ties; and against the JAX package's ``max_pool2d(
 leaky_relu(x), impl='reduce_window')`` :325/:363 and its ``jax.vjp``, run
 on the CPU: every value equal (no tolerance; only the sign of a zero off
-the argmax may differ, which a value compare does not see).
+the argmax may differ, which a value compare does not see). The gather
+likewise, on the forward's mapping (each thread its argmax word once,
+g_dy and y only at the taps a lane of its vector selects, the mask from
+y): bit for bit ``::act_pool_gather`` with exact ties and zeros of both
+signs, every pooled element written once, and value-equal to the JAX
+package's second derivative (``jax.vjp`` in the cotangent of the
+``jax.vjp`` of ``max_pool2d(leaky_relu(x), impl='reduce_window')``).
 
 The kernels themselves run only on the card
 (``tests/test_torch_kernels_cuda.py``).
@@ -394,3 +400,106 @@ def test_emulated_kernels_equal_the_jax_package(shape, dtype):
     dy, _ = _emulated_bwd(plan, dp, arg, y, slope)
     assert torch.equal(got, _to_torch(jout, y.dtype))
     assert torch.equal(dy, _to_torch(jdy, y.dtype))
+
+
+def _emulated_gather(plan, g_dy, arg, y, slope):
+    """The gather thread by thread over the pooled windows, into a pooled
+    tensor prefilled with NaN: each loads its argmax word, then g_dy and y
+    at a tap only where a lane of its vector selects it (else +0), and
+    writes leaky(g, y) at its lanes' argmax taps, rounded once to y's
+    dtype. Returns the output and the taps whose g_dy and y it read."""
+    T, N, H, W, C = y.shape
+    Ho, Wo = plan.pooled
+    V = plan.items
+    _, _, first, dst = _locate(plan, H, W, C,
+                               np.arange(_work(plan, T, N, False)), False)
+    j = np.arange(V)
+    word_type = {1: np.uint8, 4: np.uint32, 8: np.uint64}[V]
+    words = arg.numpy().reshape(-1).view(word_type)[dst // V]
+    sel = torch.from_numpy(((words[:, None].astype(np.uint64)
+                             >> (8 * j).astype(np.uint64)) & 0xff
+                            ).astype(np.int64))
+    gf, yf = g_dy.float().reshape(-1), y.float().reshape(-1)
+    picked_g = torch.zeros(sel.shape)
+    picked_y = torch.zeros(sel.shape)
+    loads = 0
+    for k in range(4):
+        hit = (sel == k).any(1, keepdim=True)
+        loads += int(hit.sum())
+        at = torch.from_numpy(first[:, None] + _tap(k, W, C) + j)
+        gk = torch.where(hit, gf[at], torch.zeros(()))
+        yk = torch.where(hit, yf[at], torch.zeros(()))
+        picked_g = torch.where(sel == k, gk, picked_g)
+        picked_y = torch.where(sel == k, yk, picked_y)
+    out = torch.full((T * N * Ho * Wo * C,), float("nan"), dtype=y.dtype)
+    out[torch.from_numpy(dst[:, None] + j).reshape(-1)] = _leaky_masked(
+        picked_g, picked_y, slope).reshape(-1).to(y.dtype)
+    return out.reshape(T, N, Ho, Wo, C), loads
+
+
+def _leaky_masked(g, y, slope):
+    """``leaky`` of csrc/act.cu in the gradient: g where y >= 0, else one
+    IEEE multiply by the slope."""
+    return torch.where(y >= 0, g, g * slope)
+
+
+def _gather_inputs(T, N, H, W, C, dtype, seed):
+    """y with exact ties and zeros of both signs (``_inputs``), its twin's
+    argmax, and g_dy of both signs with zeros of both signs."""
+    y, _ = _inputs(T, N, H, W, C, dtype, seed)
+    _, arg = F.act_pool_fwd(y)
+    rng = np.random.RandomState(seed + 1)
+    g = rng.randn(T, N, H, W, C).astype(np.float32)
+    g.reshape(-1)[5::11] = -0.0
+    g.reshape(-1)[7::17] = 0.0
+    return y, arg, torch.from_numpy(g).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", EMULATED, ids=str)
+def test_emulated_gather_equals_the_twin_bit_for_bit(shape, dtype):
+    """The gather emulated with vectors (where C takes them) and a
+    channel a thread: the twin's bits, zeros' signs included; every pooled
+    element written; g_dy and y skipped at the taps no lane of a vector
+    selects."""
+    T, N, H, W, C = shape
+    bf16 = dtype == "bf16"
+    y, arg, g_dy = _gather_inputs(*shape, DTYPES[dtype], 2 * sum(shape))
+    slope = F.scalar_like(F.LEAKY_SLOPE, y)
+    want = F.act_pool_gather(g_dy, arg, y)
+    for vec in (True, False):
+        if vec and C % (8 if bf16 else 4):
+            continue
+        plan = cb.act_pool_plan(T, N, H, W, C, bf16, vec)
+        got, loads = _emulated_gather(plan, g_dy, arg, y, slope)
+        assert not torch.isnan(got).any()
+        assert torch.equal(_bits(got), _bits(want))
+        taps = 4 * arg.numel() // plan.items
+        assert loads < taps if vec else loads == arg.numel()
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", [(2, 3, 9, 7, 16), (2, 2, 6, 6, 48),
+                                   (2, 2, 5, 5, 3)], ids=str)
+def test_emulated_gather_equals_the_jax_second_derivative(shape, dtype):
+    """The JAX package's second derivative through ``max_pool2d(
+    leaky_relu(x), impl='reduce_window')`` per tenant: the ``jax.vjp`` of
+    the pooled cotangent's ``jax.vjp``, at g_dy, on the CPU, against the
+    emulated gather on the same y, argmax and g_dy: every value equal."""
+    T, N, H, W, C = shape
+    bf16 = dtype == "bf16"
+    y, arg, g_dy = _gather_inputs(*shape, DTYPES[dtype], 5 * sum(shape))
+    jdt = jnp.bfloat16 if bf16 else jnp.float32
+    jy = jnp.asarray(y.float().numpy()).astype(jdt)
+
+    def act_pool(v):
+        return JF.max_pool2d(JF.leaky_relu(v), impl="reduce_window")
+
+    _, vjp = jax.vjp(jax.vmap(act_pool), jy)
+    dp0 = jnp.zeros(tuple(arg.shape), jdt)
+    _, vjp2 = jax.vjp(lambda dp: vjp(dp)[0], dp0)
+    (jg,) = vjp2(jnp.asarray(g_dy.float().numpy()).astype(jdt))
+    plan = cb.act_pool_plan(T, N, H, W, C, bf16, C % (8 if bf16 else 4) == 0)
+    got, _ = _emulated_gather(plan, g_dy, arg, y,
+                              F.scalar_like(F.LEAKY_SLOPE, y))
+    assert torch.equal(got, _to_torch(jg, y.dtype))

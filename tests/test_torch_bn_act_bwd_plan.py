@@ -1,5 +1,6 @@
-"""The pool-free K3 (csrc/bn_act_bwd.cu: ``bn_act_bwd``, and at slope 1
-``batch_norm_bwd``) and ``act_bwd`` (csrc/act.cu), on the CPU.
+"""The pool-free K3 and K5 (csrc/bn_act_bwd.cu: ``bn_act_bwd`` and
+``bn_act_bwd_bwd``, and at slope 1 ``batch_norm_bwd`` and
+``batch_norm_bwd_bwd``) and ``act_bwd`` (csrc/act.cu), on the CPU.
 
 The K3 launch plan (``conv_block.bn_act_bwd_plan``, ``bn_input_stats``'
 units and routes with K3's constants) at every shape the port's models
@@ -27,6 +28,17 @@ map cut over several blocks to ``jax.vjp`` of the JAX package's
 ``batch_norm`` -> ``leaky_relu`` (run eagerly on the CPU); and the port's
 ``act_bwd`` twin to ``jax.vjp`` of ``leaky_relu``, bit for bit in f32 and
 bf16.
+
+K5 likewise: its plan (K3's layout with three tensors: the stage holds a
+block's packets of a, da and y within ``BN_ACT_BWD_BWD_STAGE_BYTES``, the
+static arrays within a block's 48 KB) at every shape the models give it,
+every value covered once; the kernel's order emulated in numpy (the five
+sums of each thread in (unit, value) order, the block's and the grid's
+merges as K3's, the coefficients and the apply) against the twin
+(``::bn_act_bwd_bwd``, ``::batch_norm_bwd_bwd``) at every mode and route
+and at both slopes, and at a small map cut over several blocks to the
+JAX package's own second derivative (``jax.vjp`` of the ``jax.vjp`` of
+``batch_norm`` -> ``leaky_relu``, run eagerly), in f32.
 
 The kernels themselves run only on the card
 (``tests/test_torch_kernels_cuda.py``).
@@ -435,3 +447,277 @@ def test_act_bwd_twin_equals_the_jax_vjp_bit_for_bit(dtype):
     assert got.dtype == ty.dtype
     assert np.array_equal(got.float().numpy(),
                           np.asarray(want.astype(jnp.float32)))
+
+
+# -- K5 pool-free: the plan --------------------------------------------------
+
+K5_STATIC_SMEM = 48 * 1024  # static shared memory a block may take
+
+
+def _k5_static(chans):
+    """K5's static shared memory: one round of the block's sums
+    (``ss[CH][256]``) and the (13, 256) table of per-channel values."""
+    return 4 * (cb.BN_ACT_BWD_THREADS * chans
+                + cb.BN_ACT_BWD_BWD_COEFS * cb.BN_ACT_BWD_MAX_C)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("hw_c", MAPS, ids=str)
+def test_k5_plan_covers_each_value_once_and_fits_the_card(hw_c, dtype):
+    """K5's plan is K3's layout (the same units and modes: every value in
+    one block's chunk, each thread's channels fixed, the cooperative grid
+    within the card) with its own block-route threshold and a stage of
+    three tensors, wherever it fits in K5's budget; static and dynamic
+    shared memory within a block's."""
+    hw, C = hw_c
+    bf16 = DTYPES[dtype]
+    for T in TENANTS:
+        for N in IMAGES:
+            P = N * hw * hw
+            for vec in (True, False):
+                for bps in BLOCKS_PER_SM:
+                    p = cb.bn_act_bwd_bwd_plan(T, P, C, bf16, vec, SMS, bps)
+                    k3 = cb.bn_act_bwd_plan(T, P, C, bf16, vec, SMS, bps)
+                    assert (p.mode, p.vec, p.unit, p.chans, p.slots,
+                            p.threads, p.units) == (
+                        k3.mode, k3.vec, k3.unit, k3.chans, k3.slots,
+                        k3.threads, k3.units)
+                    assert p.chunk % p.slots == 0
+                    assert p.units * p.unit * p.vec == P * C
+                    assert ((p.splits - 1) * p.chunk < p.units
+                            <= p.splits * p.chunk)
+                    assert p.grid == T * p.splits
+                    loads = p.units * p.unit
+                    if p.route == "grid":
+                        assert p.grid <= SMS * min(bps, 2)
+                        assert loads > (p.threads
+                                        * cb.BN_ACT_BWD_BWD_BLOCK_LOADS)
+                    else:
+                        assert (loads <= p.threads
+                                * cb.BN_ACT_BWD_BWD_BLOCK_LOADS
+                                or T > SMS // 2)
+                    static = _k5_static(p.chans)
+                    assert static <= K5_STATIC_SMEM
+                    need = (-(-p.chunk // p.threads) * p.unit * 3
+                            * p.threads * 16)
+                    can = (p.route == "grid" and p.mode != "scalar"
+                           and p.grid <= SMS)
+                    assert p.stage == (
+                        need if can and need <= cb.BN_ACT_BWD_BWD_STAGE_BYTES
+                        else 0)
+                    assert static + p.stage <= BLOCK_SMEM
+
+
+def test_k5_plan_routes_at_the_model_shapes():
+    """At T = 8: strided L1-L3 (14/7/4 x 64, N = 20) stage their chunks
+    of a, da and y on the grid route, L4 (five loads a thread) takes a
+    block a tenant; the norm-first stage 1 (42 x 42 x 48, N = 25) takes
+    two waves (it cannot stage), the image one wave of the packed3 mode,
+    its bf16 stage 2 stages; the strided norm-first image (28 x 28 x 1)
+    the grid route in the packed1 mode."""
+    def plan(hw, C, N, bf16=False):
+        return cb.bn_act_bwd_bwd_plan(8, N * hw * hw, C, bf16)
+
+    for hw in (14, 7, 4):
+        assert plan(hw, 64, 20).route == "grid" and plan(hw, 64, 20).stage
+    assert plan(2, 64, 20).route == plan(2, 64, 20, True).route == "block"
+    nf1 = plan(42, 48, 25)
+    assert nf1.splits == 2 * SMS // 8 and not nf1.stage
+    image = plan(84, 3, 25)
+    assert image.mode == "packed3" and image.route == "grid"
+    assert not plan(21, 48, 25).stage and plan(21, 48, 25, True).stage
+    small = plan(28, 1, 20)
+    assert small.mode == "packed1" and small.route == "grid"
+
+
+def test_k5_constants_are_the_kernels():
+    """K5's constants are those it is compiled with (csrc/bn_act_bwd.cu):
+    the units a group by the loads a unit, its sums and table rows; its
+    stage budget keeps a block within its shared memory."""
+    src = (pathlib.Path(cb.__file__).parent / "csrc"
+           / "bn_act_bwd.cu").read_text()
+    one, three = re.search(
+        r"constexpr int G5 = U == 1 \? (\d+) : (\d+);", src).groups()
+    assert cb.BN_ACT_BWD_BWD_GROUP == {1: int(one), 3: int(three)}
+    assert re.search(r"constexpr int kSums5 = (\d+);", src).group(1) == \
+        str(cb.BN_ACT_BWD_BWD_SUMS)
+    assert re.search(r"constexpr int kCoefs5 = (\d+);", src).group(1) == \
+        str(cb.BN_ACT_BWD_BWD_COEFS)
+    assert _k5_static(8) + cb.BN_ACT_BWD_BWD_STAGE_BYTES <= BLOCK_SMEM
+
+
+def test_k5_plan_refuses_what_the_kernel_does_not_take():
+    for bad in ((0, 16, 3), (2, 0, 3), (2, 16, 0), (2, 16, 257)):
+        with pytest.raises(ValueError, match="no pool-free K5"):
+            cb.bn_act_bwd_bwd_plan(*bad)
+    with pytest.raises(ValueError, match="no pool-free K5"):
+        cb.bn_act_bwd_bwd_plan(2, 16, 3, False, True, SMS, 0)
+    # more channels than the Triton kernel took (64): a plan, up to 256
+    assert cb.bn_act_bwd_bwd_plan(2, 16, 256).mode == "lanes"
+    assert cb.bn_act_bwd_bwd_plan(2, 16, 100, True).mode == "scalar"
+
+
+# -- K5 pool-free: the kernel's order, emulated ------------------------------
+
+
+def _block_sums5(av, xh, dz, plan, C):
+    """One block's (5, C) sums over its units (units, W): sum a, a xhat,
+    dz, dz xhat and a dz, each thread's in (unit, value) order (the
+    products by FMAs), then L lanes a channel over the threads of its
+    slot, one sum a round."""
+    th, chans, W = plan.threads, plan.chans, plan.unit * plan.vec
+    units = xh.shape[0]
+    sums = np.zeros((5, th, chans), f32)
+    for k in range(-(-units // th)):
+        idx = np.arange(th) + k * th
+        valid = idx < units
+        idx = np.minimum(idx, units - 1)
+        for i in range(W):
+            a, d, x = av[idx, i], dz[idx, i], xh[idx, i]
+            j = i % chans
+            new = (sums[0, :, j] + a, _fma(a, x, sums[1, :, j]),
+                   sums[2, :, j] + d, _fma(d, x, sums[3, :, j]),
+                   _fma(a, d, sums[4, :, j]))
+            for s, v in enumerate(new):
+                sums[s, :, j] = np.where(valid, v, sums[s, :, j])
+    c = np.arange(C)
+    slot, j = c // chans, c % chans
+    threads = slot[:, None] + plan.slots * np.arange(th // plan.slots)
+    return _lanes_then_tree(sums[:, threads, j[:, None]], _channel_lanes(C))
+
+
+def _emulated_k5(plan, a, ggamma, gbeta, da, x, mean, rstd, gamma, beta,
+                 slope):
+    """The kernel's (g_da, g_y, g_gamma) from the twin's inputs (torch, f32
+    or bf16), in its order: the masks K2's, the five sums reduced as K3's
+    two, then each channel's coefficients and the apply in f32, each
+    output rounded once."""
+    bf16 = x.dtype == torch.bfloat16
+    T, N, H, W, C = x.shape
+    flat = [v.float().numpy().reshape(T, -1) for v in (x, da, a)]
+    tab = [v.float().numpy() for v in (mean, rstd, gamma, beta)]
+    gg, gb = (v.float().numpy() for v in (ggamma, gbeta))
+    xh, dz = _terms(flat[0], flat[1], *tab, slope, bf16)
+    av = flat[2]
+    m, r, g, b = tab
+    ch = np.arange(xh.shape[1]) % C
+    if bf16:
+        z = _bf16(_bf16(_bf16(_bf16(flat[0] - m[:, ch]) * r[:, ch])
+                        * g[:, ch]) + b[:, ch])
+    else:
+        z = _fma(xh, g[:, ch], b[:, ch])
+    Wu = plan.unit * plan.vec
+    parts = [v.reshape(T, plan.units, Wu) for v in (av, xh, dz)]
+    part = np.zeros((T, plan.splits, 5, C), f32)
+    for t in range(T):
+        for s in range(plan.splits):
+            lo, hi = s * plan.chunk, min((s + 1) * plan.chunk, plan.units)
+            part[t, s] = _block_sums5(*(v[t, lo:hi] for v in parts), plan, C)
+    tot = (part[:, 0] if plan.splits == 1
+           else _lanes_then_tree(part.transpose(0, 2, 3, 1), 32))
+    inv_m = f32(1.0 / (N * H * W))
+    s_a, s_ax, s_dz, s_dzx, s_adz = (tot[:, k] for k in range(5))
+    m_a, m_ax, m_dz, m_dzx = (v * inv_m for v in (s_a, s_ax, s_dz, s_dzx))
+    cross = s_adz - (m_a * s_dz + m_ax * s_dzx)
+    grs = g * r
+    mean_g = -grs * (m_dzx * m_a + m_ax * m_dz) + gg * m_dz
+    mean_gx = f32(-2.0) * grs * m_ax * m_dzx + gg * m_dzx
+    lr = r * r * inv_m * g * cross
+    gdz = (grs[:, ch] * (av - m_a[:, ch] - xh * m_ax[:, ch])
+           + gg[:, ch] * xh + gb[:, ch])
+    g_da = np.where(z >= 0, gdz, gdz * f32(slope))
+    big_g = -grs[:, ch] * (m_dzx[:, ch] * av + m_ax[:, ch] * dz) \
+        + gg[:, ch] * dz
+    g_y = (r[:, ch] * (big_g - mean_g[:, ch] - xh * mean_gx[:, ch])
+           - xh * lr[:, ch])
+    out = (g_da.reshape(x.shape), g_y.reshape(x.shape), r * cross)
+    return tuple(_bf16(v) if bf16 else v.astype(f32) for v in out)
+
+
+def _k5_inputs(T, N, H, W, C, seed, bf16):
+    """K5's arguments in the twin's order: the cotangents a, ggamma and
+    gbeta, then K3's (da, x and its statistics, gamma, beta)."""
+    da, x, mean, rstd, gamma, beta = _inputs(T, N, H, W, C, seed, bf16)
+    rng = np.random.RandomState(seed + 1)
+
+    def t(v):
+        return torch.from_numpy(v.astype(f32)).to(x.dtype)
+
+    return (t(rng.randn(T, N, H, W, C)), t(rng.randn(T, C)),
+            t(rng.randn(T, C)), da, x, mean, rstd, gamma, beta)
+
+
+# K3's shapes, and lanes on the block route at K5's lower threshold (the
+# strided L4's two by two map)
+K5_EMULATED = EMULATED + [(2, 5, 2, 2, 64, True, 132)]
+
+
+def _emulated_k5_plan(shape, bf16):
+    T, N, H, W, C, vec, sms = shape
+    return cb.bn_act_bwd_bwd_plan(T, N * H * W, C, bf16, vec, sms, 2)
+
+
+@pytest.mark.parametrize("slope", SLOPES, ids=("leaky", "slope1"))
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", K5_EMULATED, ids=str)
+def test_emulated_k5_equals_the_twin(shape, dtype, slope):
+    T, N, H, W, C, _, _ = shape
+    bf16 = DTYPES[dtype]
+    plan = _emulated_k5_plan(shape, bf16)
+    args = _k5_inputs(T, N, H, W, C, sum(shape[:5]) + 3, bf16)
+    s = F.scalar_like(slope, args[4])
+    got = _emulated_k5(plan, *args, s)
+    want = (F.bn_act_bwd_bwd(*args, slope) if slope != 1.0
+            else F.batch_norm_bwd_bwd(*args))
+    for g, w, what in zip(got, want, ("g_da", "g_y", "g_gamma")):
+        if bf16:
+            _within_ulp(g, w, what)
+        else:
+            _close(g, w, what)
+
+
+def test_emulated_k5_takes_every_mode_and_route():
+    seen = {(p.mode, p.route) for shape in K5_EMULATED
+            for bf16 in (False, True)
+            for p in [_emulated_k5_plan(shape, bf16)]}
+    assert {m for m, _ in seen} == set(cb.BN_STATS_MODES)
+    assert {("packed3", "grid"), ("lanes", "grid"), ("packed1", "grid"),
+            ("scalar", "grid"), ("lanes", "block")} <= seen
+    assert max(_emulated_k5_plan(s, False).splits for s in K5_EMULATED) > 32
+    stages = {bool(_emulated_k5_plan(s, bf16).stage) for s in K5_EMULATED
+              for bf16 in (False, True)}
+    assert stages == {False, True}
+
+
+@pytest.mark.parametrize("slope", SLOPES, ids=("leaky", "slope1"))
+def test_emulated_k5_equals_the_jax_second_derivative(slope):
+    """At a small map cut over several blocks (the grid route, lanes of
+    48 channels), the emulated K5 against the JAX package's own second
+    derivative per tenant, in f32: ``jax.vjp`` of the function that maps
+    (da, x, gamma) to ``jax.vjp`` of ``batch_norm`` (batch statistics) ->
+    ``leaky_relu`` at da, taken at the cotangents (a, ggamma, gbeta);
+    within the card's f32 gate (1e-5 + 1e-4 * scale). beta's gradient is
+    zero (it enters only through the masks)."""
+    shape = (2, 6, 12, 12, 48, True, 4)
+    T, N, H, W, C, _, _ = shape
+    plan = _emulated_k5_plan(shape, False)
+    assert plan.route == "grid" and plan.mode == "lanes"
+    args = _k5_inputs(T, N, H, W, C, 11, False)
+    a, gg, gb, da, x, mean, rstd, gamma, beta = args
+    got = _emulated_k5(plan, *args, slope)
+    block = _jax_block(slope)
+    for t in range(T):
+        jb = jnp.asarray(beta[t].numpy())
+
+        def first(d, v, g):
+            _, vjp = jax.vjp(lambda v_, g_: block(v_, g_, jb), v, g)
+            dx, dgamma = vjp(d)
+            _, vjp_b = jax.vjp(lambda b_: block(v, g, b_), jb)
+            return dx, dgamma, vjp_b(d)[0]
+
+        _, vjp2 = jax.vjp(first, *(jnp.asarray(v[t].numpy())
+                                    for v in (da, x, gamma)))
+        want = vjp2(tuple(jnp.asarray(v[t].numpy()) for v in (a, gg, gb)))
+        for g, w, what in zip((v[t] for v in got), want,
+                              ("g_da", "g_y", "g_gamma")):
+            _close(g, np.array(w), what)

@@ -3,6 +3,8 @@
 * no module of the port, and not ``chip_smoke.py``, imports jax, jaxlib,
   optax, orbax or anything of the JAX package (checked on the AST, so
   every import counts, however deep in a function it sits);
+* nor ``triton``: every kernel of the port is hand-written CUDA C++, and
+  the Triton modules that held the last of them are gone;
 * entry points run on the card unless asked for the CPU: with no CUDA
   device and no device named, they raise naming ``--device cpu``;
 * a tensor that is not on the CPU never reaches a plain version: the
@@ -15,6 +17,7 @@
 import ast
 import dataclasses
 import glob
+import importlib
 import os
 
 import numpy as np
@@ -73,6 +76,22 @@ def test_the_forbidden_rule():
 def test_port_imports_nothing_of_jax(path):
     bad = [m for m in _imported_modules(path) if _forbidden(m)]
     assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize(
+    "path", _port_files(), ids=lambda p: os.path.relpath(p, ROOT))
+def test_port_imports_no_triton(path):
+    bad = [m for m in _imported_modules(path) if m.split(".")[0] == "triton"]
+    assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
+    src = open(path).read()
+    assert "triton.jit" not in src and "tl.constexpr" not in src
+
+
+@pytest.mark.parametrize("gone", ["bn_act_pool", "act_pool"])
+def test_the_triton_modules_are_gone(gone):
+    with pytest.raises(ImportError):
+        importlib.import_module(
+            f"howtotrainyourmamlpytorch_tpu_torch.kernels.{gone}")
 
 
 def _tiny_cfg():

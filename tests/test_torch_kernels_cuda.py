@@ -7,58 +7,61 @@ pool) and the norm-first block (``bn_input_stats``, K2/K3/K5 at slope 1,
 the leaky-ReLU + pool kernels, K1 stats-free and dgrad at cin 1 and 3),
 and the layer-norm blocks (``layer_norm_stats/fwd/bwd/bwd_bwd``, both
 orders, pooled and strided); the conv kernels at pad 0 (the unpadded
-models, ``conv_padding=False``) and the unpadded blocks' derivatives;
-the bf16 kernels (``compute_dtype='bfloat16'``: K1 with statistics and
-stats-free, K2/K3/K5 pooled, K4, the convs at pad 1 and 0) against their
-bf16 twins, the bf16 block's first and second derivatives, and the
-TypeError of every dtype but f32 and bf16; the layer norm's four kernels
-in bf16 and the layer-norm blocks' second derivative on them; K3 and K5
-in f32, pooled, on their cooperative kernels (``csrc/bn_act_pool_bwd.cu``)
-at every main-path shape and at edge shapes, a second launch bit for bit
-the first, the refusal of a shape the plan cannot fit, and the pool-free
-K5 still the Triton kernels' bits; K3 and K5 pooled in bf16 on the same
-cooperative kernel at every bf16 main-path shape and at edge shapes, off
-alignment, a second launch bit for bit the first, their entries' refusals
-and no Triton kernel reached; K2
-(``csrc/bn_act_fwd.cu``) pooled and pool-free, f32 and bf16, at every
-main-path shape and at edge shapes, off vector alignment, a second launch
-bit for bit the first, its entries' refusals, and no K2 wrapper reaching
-a Triton kernel; K4 wgrad in bf16 at stride 1 on its tensor-core kernel
+models, ``conv_padding=False``) and the unpadded blocks' derivatives; the
+bf16 kernels (``compute_dtype='bfloat16'``: K1 with statistics and stats-
+free, K2/K3/K5 pooled, K4, the convs at pad 1 and 0) against their bf16
+twins, the bf16 block's first and second derivatives, and the TypeError of
+every dtype but f32 and bf16; the layer norm's four kernels in bf16 and
+the layer-norm blocks' second derivative on them; K3 and K5 in f32,
+pooled, on their cooperative kernels (``csrc/bn_act_pool_bwd.cu``) at
+every main-path shape and at edge shapes, a second launch bit for bit the
+first, the refusal of a shape the plan cannot fit; K3 and K5 pooled in
+bf16 on the same cooperative kernel at every bf16 main-path shape and at
+edge shapes, off alignment, a second launch bit for bit the first, their
+entries' refusals; K2 (``csrc/bn_act_fwd.cu``) pooled and pool-free, f32
+and bf16, at every main-path shape and at edge shapes, off vector
+alignment, a second launch bit for bit the first, its entries' refusals;
+K4 wgrad in bf16 at stride 1 on its tensor-core kernel
 (``csrc/conv3x3_wgrad_s1_bf16.cu``) at every main-path shape and at edge
 shapes, off alignment, a second launch bit for bit the first, and its
 entry's refusals; K4 wgrad at stride 2, f32 and bf16, pad 1 and 0
 (``csrc/conv3x3_wgrad_s2.cu``) at every stride-2 main-path shape and at
 edge shapes, off alignment, a second launch bit for bit the first, and its
-entries' refusals; K1 (both modes) and K4 dgrad at stride 2
-on the band kernels of ``csrc/conv3x3_s2.cu``, f32 and bf16, at every
-stride-2 main-path shape and at edge shapes, off alignment, dx's rows and
-columns that no output reads an exact zero, a second launch bit for bit
-the first, and their entries' refusals; ``layer_norm_stats``,
-``layer_norm_bwd`` and ``layer_norm_bwd_bwd`` on ``csrc/layer_norm.cu`` in
-f32 and bf16 at every layer-norm main-path shape and at edge shapes, off
-alignment, a second launch bit for bit the first, their entries' refusals
-and no Triton kernel reached; ``bn_input_stats`` (``csrc/bn_input_stats.cu``) and the global
-average pool's forward and backward (``csrc/global_avg_pool.cu``) in f32
-and bf16 at every model shape (C = 1, 3, 48, 64) and at edge shapes
-(tenants that are not a whole number of loads, channel counts of the
-scalar mode), off
-alignment, a second launch bit for bit the first, the bf16 GAP equal to
-its twin bit for bit, their entries' refusals and no Triton kernel
-reached; ``act_fwd`` (``csrc/act.cu``) and ``layer_norm_fwd``
-(``csrc/layer_norm.cu``) in f32 and bf16 at every model shape and at edge
-shapes, off alignment, bit for bit their twins, a second launch bit for
-bit the first, their entries' refusals and no Triton kernel reached; and
-the ingest kernel ``episode_expand`` equal to its twin bit for bit (it is
-a pure lookup).
-These need the card: marked ``cuda``, they skip where
-``torch.cuda.is_available()`` is false. On the card (``--noconftest``:
-the suite's conftest imports jax, which the port never needs):
+entries' refusals; K1 (both modes) and K4 dgrad at stride 2 on the band
+kernels of ``csrc/conv3x3_s2.cu``, f32 and bf16, at every stride-2 main-
+path shape and at edge shapes, off alignment, dx's rows and columns that
+no output reads an exact zero, a second launch bit for bit the first, and
+their entries' refusals; ``layer_norm_stats``, ``layer_norm_bwd`` and
+``layer_norm_bwd_bwd`` on ``csrc/layer_norm.cu`` in f32 and bf16 at every
+layer-norm main-path shape and at edge shapes, off alignment, a second
+launch bit for bit the first, their entries' refusals; ``bn_input_stats``
+(``csrc/bn_input_stats.cu``) and the global average pool's forward and
+backward (``csrc/global_avg_pool.cu``) in f32 and bf16 at every model
+shape (C = 1, 3, 48, 64) and at edge shapes (tenants that are not a whole
+number of loads, channel counts of the scalar mode), off alignment, a
+second launch bit for bit the first, the bf16 GAP equal to its twin bit
+for bit, their entries' refusals; ``act_fwd`` (``csrc/act.cu``) and
+``layer_norm_fwd`` (``csrc/layer_norm.cu``) in f32 and bf16 at every model
+shape and at edge shapes, off alignment, bit for bit their twins, a second
+launch bit for bit the first, their entries' refusals; the pool-free K5
+(``csrc/bn_act_bwd.cu``: ``bn_act_bwd_bwd``, and at slope 1
+``batch_norm_bwd_bwd``) and ``act_pool_gather`` (``csrc/act.cu``) in f32
+and bf16 at every model shape and at edge shapes, off alignment, within
+their gates (the gather bit for bit), a second launch bit for bit the
+first, their entries' refusals; the Triton modules gone (no kernel of the
+port is Triton); and the ingest kernel ``episode_expand`` equal to its
+twin bit for bit (it is a pure lookup). These need the card: marked
+``cuda``, they skip where ``torch.cuda.is_available()`` is false. On the
+card (``--noconftest``: the suite's conftest imports jax, which the port
+never needs):
 
     python -m pytest tests/test_torch_kernels_cuda.py -q --noconftest
 
 Tolerance: ``max |kernel - twin| <= 1e-5 + 1e-4 * max |twin|`` (f32, sums
 in another order); the bf16 gates are stated above their tests.
 """
+
+import importlib
 
 import numpy as np
 import pytest
@@ -94,6 +97,18 @@ def _close(got, want):
     err = (got.double() - want.double()).abs().max().item()
     scale = want.double().abs().max().item()
     assert err <= 1e-5 + 1e-4 * scale, (err, scale)
+
+
+#: the Triton modules the port once held: every kernel is CUDA C++ now
+TRITON_MODULES = ("bn_act_pool", "act_pool", "layer_norm", "bn_stats",
+                  "global_avg_pool")
+
+
+def _triton_modules_gone():
+    for gone in TRITON_MODULES:
+        with pytest.raises(ImportError):
+            importlib.import_module(
+                f"howtotrainyourmamlpytorch_tpu_torch.kernels.{gone}")
 
 
 def _inputs(shape, device, seed=0):
@@ -2293,17 +2308,14 @@ def test_k3_k5_kernels_take_tensors_off_16_byte_alignment(device):
         _close(got, want)
 
 
-def test_bf16_and_pool_free_k3_k5_keep_the_triton_kernels(device):
+def test_bf16_and_pool_free_k3_k5_run_cuda(device):
     """K3 and K5 pooled are CUDA in both dtypes: in bf16 each plans
     csrc/bn_act_pool_bwd.cu and is held to its twin, a second launch bit
-    for bit the first, with the pooled Triton K5 gone from
-    kernels/bn_act_pool.py. K5's pool-free mode (``bn_act_bwd_bwd``,
-    ``batch_norm_bwd_bwd``) keeps the Triton kernels, launched without a
-    plan, and gives their bits: the wrappers' outputs equal the Triton
-    launches' called directly. K3 pool-free is CUDA (csrc/bn_act_bwd.cu),
-    held to its twin; its Triton launchers are gone."""
-    from howtotrainyourmamlpytorch_tpu_torch.kernels import bn_act_pool
-
+    for bit the first. Their pool-free modes (``bn_act_bwd``,
+    ``batch_norm_bwd``; ``bn_act_bwd_bwd``, ``batch_norm_bwd_bwd``) run
+    csrc/bn_act_bwd.cu, each one launch on its counter, held to its twin;
+    the Triton modules are gone."""
+    _triton_modules_gone()
     k3, k5 = _k35_inputs(2, 3, 14, 14, 48, seed=19)
     y = k3[2].bfloat16()
     for name in ("bn_act_pool_bwd", "bn_act_pool_bwd_bwd"):
@@ -2311,16 +2323,11 @@ def test_bf16_and_pool_free_k3_k5_keep_the_triton_kernels(device):
         assert plan.groups == -(-48 // cb.BN_BWD_GROUP[name, True])
     _check_k3_bf16(k3)
     _check_k5_bf16(k5)
-    for gone in ("launch_bwd", "launch_act_bwd", "launch_bwd_bwd",
-                 "_bn_act_pool_bwd_bwd_reduce_kernel",
-                 "_bn_act_pool_bwd_bwd_out_kernel"):
-        assert not hasattr(bn_act_pool, gone), gone
     assert not hasattr(cb, "_BN_BWD_TRITON")
-    # the pool-free modes: K5 as bn_act_* and at slope 1 as batch_norm_*
-    # on Triton, K3 on CUDA
+    # the pool-free modes: K3 and K5 as bn_act_* and at slope 1 as
+    # batch_norm_*
     _, k5 = _k35_inputs(2, 3, 14, 14, 48, seed=23)
     a, gg, gb, _, _, y, mean, rstd, gamma, beta = k5
-    T, C = y.shape[0], y.shape[-1]
     da = torch.randn_like(y)
     for s in (F.LEAKY_SLOPE, 1.0):
         cb.reset_launches()
@@ -2330,14 +2337,12 @@ def test_bf16_and_pool_free_k3_k5_keep_the_triton_kernels(device):
         for p, q in zip(got, F.bn_act_bwd(da, y, mean, rstd, gamma, beta,
                                           s)):
             _close(p, q)
-        part = torch.empty((T, bn_act_pool.SPLITS, 5, C), device=device)
-        want = (torch.empty_like(y), torch.empty_like(y),
-                torch.empty((T, C), device=device))
-        bn_act_pool.launch_act_bwd_bwd(a, gg, gb, da, y, mean, rstd, gamma,
-                                       beta, part, *want, s)
         got = cb._launch_act_bwd_bwd("bn_act_bwd_bwd", a, gg, gb, da, y,
                                      mean, rstd, gamma, beta, s)
-        assert all(torch.equal(p, q) for p, q in zip(got, want))
+        assert cb.launches()["bn_act_bwd_bwd"] == 1
+        for p, q in zip(got, F.bn_act_bwd_bwd(a, gg, gb, da, y, mean, rstd,
+                                              gamma, beta, s)):
+            _close(p, q)
 
 
 # K3 pooled in bf16: the cooperative kernel of csrc/bn_act_pool_bwd.cu, 8
@@ -2347,8 +2352,8 @@ def test_bf16_and_pool_free_k3_k5_keep_the_triton_kernels(device):
 # pool drops a row and a column at 7 and 3) at N 20; the large-batch T 256
 # at stage 1 — and edge shapes (C not a whole number of 8-channel loads,
 # odd maps, one window a tenant). dy, dgamma and dbeta ``within_ulp`` of
-# the bf16 twin; one launch on ``bn_act_pool_bwd_bf16`` and no Triton
-# kernel; a second launch bit for bit the first.
+# the bf16 twin; one launch on ``bn_act_pool_bwd_bf16``; a second launch
+# bit for bit the first.
 K3_BF16_MAIN_SHAPES = (
     [(T, 25, hw, 48) for T in (8, 2) for hw in (84, 42, 21, 10)]
     + [(T, 25, hw, 48) for T in (8, 2) for hw in (82, 39, 17, 6)]
@@ -2358,19 +2363,12 @@ K3_BF16_MAIN_SHAPES = (
 K3_BF16_EDGE_SHAPES = K35_EDGE_SHAPES + [(2, 3, 9, 7, 48), (1, 4, 5, 9, 12)]
 
 
-def _check_k3_bf16(k3, monkeypatch=None):
+def _check_k3_bf16(k3):
     k3 = tuple(t if t.dtype == torch.uint8 else t.bfloat16() for t in k3)
     dp, arg, y, mean, rstd, gamma, beta = k3
     # K2's argmax of the bf16 values (the pool's first maximum)
     arg = F.bn_act_pool_fwd(y, mean, rstd, gamma, beta)[1]
     k3 = (dp, arg, y, mean, rstd, gamma, beta)
-    if monkeypatch is not None:
-        from howtotrainyourmamlpytorch_tpu_torch.kernels import bn_act_pool
-
-        def no_triton():
-            raise AssertionError("a Triton kernel was reached")
-
-        monkeypatch.setattr(bn_act_pool, "_jit", no_triton)
     cb.reset_launches()
     got = cb.bn_act_pool_bwd(*k3)
     assert cb.launches() == {**{k: 0 for k in cb.KERNELS},
@@ -2385,13 +2383,12 @@ def _check_k3_bf16(k3, monkeypatch=None):
 
 
 @pytest.mark.parametrize("shape", K3_BF16_MAIN_SHAPES, ids=str)
-def test_k3_bf16_matches_its_twin_at_main_path_shapes(shape, device,
-                                                      monkeypatch):
+def test_k3_bf16_matches_its_twin_at_main_path_shapes(shape, device):
     T, N, hw, C = shape
     k3, _ = _k35_inputs(T, N, hw, hw, C, seed=hw + C + N + T)
     plan = cb._bn_bwd_route("bn_act_pool_bwd", k3[2].bfloat16(), True)
     assert plan.groups == -(-C // 8) and plan.grid[1] == T
-    _check_k3_bf16(k3, monkeypatch)
+    _check_k3_bf16(k3)
     torch.cuda.empty_cache()
 
 
@@ -2465,21 +2462,14 @@ def test_k3_bf16_entry_refuses_a_plan_that_does_not_match(device):
 # csrc/bn_act_pool_bwd.cu on bf16 loads, 4 channels a thread, at the bf16
 # K3's shapes (the Omniglot maps of 7 and 3 drop a row and a column) and
 # edge shapes. g_dpooled, g_y and g_gamma ``within_ulp`` of the bf16 twin;
-# one launch on ``bn_act_pool_bwd_bwd_bf16`` and no Triton kernel; a
-# second launch bit for bit the first.
-def _check_k5_bf16(k5, monkeypatch=None):
+# one launch on ``bn_act_pool_bwd_bwd_bf16``; a second launch bit for bit
+# the first.
+def _check_k5_bf16(k5):
     k5 = tuple(t if t.dtype == torch.uint8 else t.bfloat16() for t in k5)
     a, gg, gb, dp, arg, y, mean, rstd, gamma, beta = k5
     # K2's argmax of the bf16 values (the pool's first maximum)
     arg = F.bn_act_pool_fwd(y, mean, rstd, gamma, beta)[1]
     k5 = (a, gg, gb, dp, arg, y, mean, rstd, gamma, beta)
-    if monkeypatch is not None:
-        from howtotrainyourmamlpytorch_tpu_torch.kernels import bn_act_pool
-
-        def no_triton():
-            raise AssertionError("a Triton kernel was reached")
-
-        monkeypatch.setattr(bn_act_pool, "_jit", no_triton)
     cb.reset_launches()
     got = cb.bn_act_pool_bwd_bwd(*k5)
     assert cb.launches() == {**{k: 0 for k in cb.KERNELS},
@@ -2494,13 +2484,12 @@ def _check_k5_bf16(k5, monkeypatch=None):
 
 
 @pytest.mark.parametrize("shape", K3_BF16_MAIN_SHAPES, ids=str)
-def test_k5_bf16_matches_its_twin_at_main_path_shapes(shape, device,
-                                                      monkeypatch):
+def test_k5_bf16_matches_its_twin_at_main_path_shapes(shape, device):
     T, N, hw, C = shape
     _, k5 = _k35_inputs(T, N, hw, hw, C, seed=hw + C + N + T + 1)
     plan = cb._bn_bwd_route("bn_act_pool_bwd_bwd", k5[5].bfloat16(), True)
     assert plan.groups == -(-C // 4) and plan.grid[1] == T
-    _check_k5_bf16(k5, monkeypatch)
+    _check_k5_bf16(k5)
     torch.cuda.empty_cache()
 
 
@@ -2802,20 +2791,10 @@ def test_k2_wrappers_reject_what_the_kernels_do_not_take(device):
     assert set(cb.launches().values()) == {0}
 
 
-def test_no_k2_name_reaches_a_triton_kernel(device, monkeypatch):
-    """The Triton K2 kernels are gone from kernels/bn_act_pool.py, and every
-    K2 wrapper runs with Triton's compile step made to fail: pooled and
-    pool-free, ``batch_norm_fwd``, f32 and bf16."""
-    from howtotrainyourmamlpytorch_tpu_torch.kernels import bn_act_pool
-
-    for gone in ("launch_fwd", "launch_act_fwd", "_bn_act_pool_fwd_kernel",
-                 "_bn_act_fwd_kernel"):
-        assert not hasattr(bn_act_pool, gone)
-
-    def no_triton():
-        raise AssertionError("a K2 wrapper reached the Triton kernels")
-
-    monkeypatch.setattr(bn_act_pool, "_jit", no_triton)
+def test_no_k2_name_reaches_a_triton_kernel(device):
+    """The Triton modules are gone, and every K2 wrapper runs its CUDA
+    kernel: pooled and pool-free, ``batch_norm_fwd``, f32 and bf16."""
+    _triton_modules_gone()
     for dtype in K2_DTYPES.values():
         bn = _k2_inputs(2, 3, 8, 8, 48, dtype, 47)
         for pool, slope in ((True, F.LEAKY_SLOPE), (False, F.LEAKY_SLOPE),
@@ -3028,23 +3007,12 @@ def test_ln_entries_refuse_a_plan_that_does_not_match(device):
     _ln_gate(out.unbind(0), F.layer_norm_stats(x), ("mean", "var", "rstd"))
 
 
-def test_no_ln_stats_or_bwd_call_reaches_a_triton_kernel(device,
-                                                         monkeypatch):
-    """The layer norm's Triton module (kernels/layer_norm.py) is gone, and
-    the statistics', the backward's and the double backward's wrappers run
-    with Triton's compile step made to fail, in f32 and bf16."""
-    import importlib
-
-    from howtotrainyourmamlpytorch_tpu_torch.kernels import bn_act_pool
-
-    with pytest.raises(ImportError):
-        importlib.import_module(
-            "howtotrainyourmamlpytorch_tpu_torch.kernels.layer_norm")
-
-    def no_triton():
-        raise AssertionError("a layer-norm wrapper reached Triton")
-
-    monkeypatch.setattr(bn_act_pool, "_jit", no_triton)
+def test_no_ln_stats_or_bwd_call_reaches_a_triton_kernel(device):
+    """The layer norm's Triton module (kernels/layer_norm.py) is gone with
+    every Triton module of the port, and the statistics', the backward's
+    and the double backward's wrappers run their CUDA kernels, in f32 and
+    bf16."""
+    _triton_modules_gone()
     for dtype in LN_DTYPES.values():
         ln = _ln_inputs(2, 3, 8, 8, 48, dtype, 67)
         _check_ln(*ln)
@@ -3426,24 +3394,11 @@ def test_stats_and_gap_entries_refuse_what_does_not_match(device):
     _stats_gate(out.unbind(0), F.bn_input_stats(x), ("mean", "var", "rstd"))
 
 
-def test_no_stats_or_gap_call_reaches_a_triton_kernel(device, monkeypatch):
-    """The Triton statistics and GAP modules are gone, and
-    ``bn_input_stats`` and both GAP wrappers run with Triton's compile step
-    made to fail (``bn_act_pool._jit``, whose rounding the Triton
-    statistics' bf16 merge called), in f32 and bf16."""
-    import importlib
-
-    from howtotrainyourmamlpytorch_tpu_torch.kernels import bn_act_pool
-
-    for gone in ("bn_stats", "global_avg_pool"):
-        with pytest.raises(ImportError):
-            importlib.import_module(
-                f"howtotrainyourmamlpytorch_tpu_torch.kernels.{gone}")
-
-    def no_triton():
-        raise AssertionError("a statistics or GAP wrapper reached Triton")
-
-    monkeypatch.setattr(bn_act_pool, "_jit", no_triton)
+def test_no_stats_or_gap_call_reaches_a_triton_kernel(device):
+    """The Triton statistics and GAP modules are gone with every Triton
+    module of the port, and ``bn_input_stats`` and both GAP wrappers run
+    their CUDA kernels, in f32 and bf16."""
+    _triton_modules_gone()
     for dtype in STATS_DTYPES.values():
         _check_stats(_stats_input(2, 3, 8, 8, 3, dtype, 83))
         _check_stats(_stats_input(2, 3, 8, 8, 48, dtype, 89))
@@ -3791,34 +3746,256 @@ def test_k3_free_and_act_bwd_entries_refuse_what_does_not_match(device):
     assert torch.equal(dy, staged[0]) and torch.equal(sums, staged[1])
 
 
-def test_no_k3_free_or_act_bwd_call_reaches_a_triton_kernel(device,
-                                                            monkeypatch):
-    """The Triton pool-free K3 and ``act_bwd`` are gone from
-    kernels/bn_act_pool.py and kernels/act_pool.py, and ``bn_act_bwd``,
-    ``batch_norm_bwd`` and ``act_bwd`` run with Triton's compile step made
-    to fail, in f32 and bf16."""
-    from howtotrainyourmamlpytorch_tpu_torch.kernels import (
-        act_pool,
-        bn_act_pool,
-    )
-
-    for gone in ("launch_act_bwd", "_bn_act_bwd_reduce_kernel",
-                 "_bn_act_bwd_dy_kernel"):
-        assert not hasattr(bn_act_pool, gone), gone
-    for gone in ("launch_bwd", "_act_bwd_kernel"):
-        assert not hasattr(act_pool, gone), gone
-
-    def no_triton():
-        raise AssertionError("a K3 pool-free or act_bwd call reached "
-                             "Triton")
-
-    monkeypatch.setattr(bn_act_pool, "_jit", no_triton)
-    monkeypatch.setattr(act_pool, "_jit", no_triton)
+def test_no_k3_free_or_act_bwd_call_reaches_a_triton_kernel(device):
+    """The Triton modules that held the pool-free K3 and ``act_bwd`` are
+    gone, and ``bn_act_bwd``, ``batch_norm_bwd`` and ``act_bwd`` run their
+    CUDA kernels, in f32 and bf16."""
+    _triton_modules_gone()
     for dtype in K3_FREE_DTYPES.values():
         for slope in K3_FREE_SLOPES.values():
             _check_k3_free(_k3_free_inputs(2, 3, 8, 8, 3, dtype, 83), slope)
             _check_k3_free(_k3_free_inputs(2, 3, 8, 8, 48, dtype, 89), slope)
         _check_act_bwd(*_act_inputs(2, 3, 8, 64, dtype, 97))
+
+
+# -- K5 pool-free (bn_act_bwd_bwd, batch_norm_bwd_bwd) on CUDA ----------------
+#
+# One launch a call, f32 and bf16, on csrc/bn_act_bwd.cu (K3's layout and
+# routes, ``bn_act_bwd_bwd_plan``), at slope 0.01 (``bn_act_bwd_bwd``) and
+# 1 (``batch_norm_bwd_bwd``). Gates: f32 within 1e-5 + 1e-4 * scale of the
+# twin, bf16 within one bf16 ulp (or 1e-4 of scale); one launch on its
+# counter; a second launch bit for bit the first.
+
+# (T, N, H = W, C): K3's shapes (the strided and unpadded strided conv
+# outputs, every norm-first block input, the large maps at T = 2)
+K5_FREE_MAIN = K3_FREE_MAIN
+
+
+def _k5_free_inputs(T, N, H, W, C, dtype, seed):
+    """The cotangents a, ggamma and gbeta, then K3's arguments (da, x and
+    its statistics, gamma, beta), in ``dtype``."""
+    k3 = _k3_free_inputs(T, N, H, W, C, dtype, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+
+    def r(*s):
+        return torch.randn(*s, device="cuda", generator=g).to(dtype)
+
+    return (r(T, N, H, W, C), r(T, C), r(T, C)) + k3
+
+
+def _k5_free_calls(slope):
+    """(kernel wrapper, twin, counter) of K5 pool-free at ``slope``."""
+    if slope == 1.0:
+        return (cb.batch_norm_bwd_bwd, F.batch_norm_bwd_bwd,
+                "batch_norm_bwd_bwd")
+    return (lambda *a: cb.bn_act_bwd_bwd(*a, slope),
+            lambda *a: F.bn_act_bwd_bwd(*a, slope), "bn_act_bwd_bwd")
+
+
+def _check_k5_free(args, slope):
+    """K5 pool-free against its twin, one launch on its counter, a second
+    launch bit for bit the first."""
+    kernel, twin, name = _k5_free_calls(slope)
+    tag = "_bf16" if args[4].dtype == torch.bfloat16 else ""
+    cb.reset_launches()
+    got = kernel(*args)
+    assert {k: n for k, n in cb.launches().items() if n} == {name + tag: 1}
+    for a, c, what in zip(got, twin(*args), ("g_da", "g_y", "g_gamma")):
+        assert a.dtype == c.dtype and a.shape == c.shape, what
+        assert a.is_contiguous() and torch.isfinite(a).all(), what
+        if a.dtype == torch.bfloat16:
+            within_ulp(a, c, what)
+        else:
+            _close(a, c)
+    assert all(torch.equal(a, c) for a, c in zip(kernel(*args), got))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("slope", list(K3_FREE_SLOPES))
+@pytest.mark.parametrize("dtype", list(K3_FREE_DTYPES))
+@pytest.mark.parametrize("shape", K5_FREE_MAIN, ids=str)
+def test_k5_free_matches_its_twin_at_main_path_shapes(shape, dtype, slope,
+                                                      device):
+    T, N, hw, C = shape
+    _check_k5_free(_k5_free_inputs(T, N, hw, hw, C, K3_FREE_DTYPES[dtype],
+                                   hw + C + N + T + 5),
+                   K3_FREE_SLOPES[slope])
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("slope", list(K3_FREE_SLOPES))
+@pytest.mark.parametrize("dtype", list(K3_FREE_DTYPES))
+@pytest.mark.parametrize("shape", K3_FREE_EDGE, ids=str)
+def test_k5_free_matches_its_twin_at_edge_shapes(shape, dtype, slope,
+                                                 device):
+    _check_k5_free(_k5_free_inputs(*shape, K3_FREE_DTYPES[dtype],
+                                   sum(shape) + 5),
+                   K3_FREE_SLOPES[slope])
+
+
+def test_k5_free_plans_take_every_mode_and_route(device):
+    """The plans of the main-path and edge shapes on this card reach every
+    mode, both routes, and the grid route with and without the stage."""
+    seen = set()
+    for T, N, H, W, C in ([(T, N, hw, hw, C) for T, N, hw, C in
+                           K5_FREE_MAIN] + K3_FREE_EDGE):
+        for bf16 in (False, True):
+            p = cb._bn_act_bwd_bwd_route(torch.device("cuda:0"), T,
+                                         N * H * W, C, bf16, True)
+            seen.add((p.mode, p.route, bool(p.stage)))
+    assert {m for m, _, _ in seen} == set(cb.BN_STATS_MODES)
+    assert {r for _, r, _ in seen} == {"block", "grid"}
+    assert {("lanes", "grid", True), ("lanes", "grid", False),
+            ("packed3", "grid", False)} <= seen
+
+
+# (T, N, H = W, C): shapes whose plans keep the chunks of a, da and y in
+# shared memory (strided L1 and L2; in bf16 also stage 2 at T = 8)
+K5_FREE_STAGED = [(8, 20, 14, 64), (8, 20, 7, 64), (8, 25, 10, 48),
+                  (8, 25, 21, 48)]
+
+
+@pytest.mark.parametrize("dtype", list(K3_FREE_DTYPES))
+@pytest.mark.parametrize("shape", K5_FREE_STAGED, ids=str)
+def test_k5_free_stage_gives_the_apply_from_l2_bits(shape, dtype, device,
+                                                    monkeypatch):
+    """The staged apply (the block's packets of a, da and y read back from
+    shared memory) equals the apply that reads them again from L2 bit for
+    bit: the same values in the same order."""
+    T, N, hw, C = shape
+    args = _k5_free_inputs(T, N, hw, hw, C, K3_FREE_DTYPES[dtype], 103)
+    bf16 = dtype == "bf16"
+    dev = torch.device("cuda:0")
+    cb._bn_act_bwd_bwd_route.cache_clear()
+    staged = cb._bn_act_bwd_bwd_route(dev, T, N * hw * hw, C, bf16,
+                                      True).stage
+    got = [cb.bn_act_bwd_bwd(*args), cb.batch_norm_bwd_bwd(*args)]
+    monkeypatch.setattr(cb, "BN_ACT_BWD_BWD_STAGE_BYTES", 0)
+    cb.bn_act_bwd_bwd_plan.cache_clear()
+    cb._bn_act_bwd_bwd_route.cache_clear()
+    assert not cb._bn_act_bwd_bwd_route(dev, T, N * hw * hw, C, bf16,
+                                        True).stage
+    want = [cb.bn_act_bwd_bwd(*args), cb.batch_norm_bwd_bwd(*args)]
+    cb.bn_act_bwd_bwd_plan.cache_clear()
+    cb._bn_act_bwd_bwd_route.cache_clear()
+    # in f32 stage 2 needs more than a block's memory
+    assert staged or (not bf16 and shape == (8, 25, 21, 48))
+    for g, w in zip(got, want):
+        assert all(torch.equal(a, c) for a, c in zip(g, w))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", list(K3_FREE_DTYPES))
+def test_k5_free_takes_tensors_off_16_byte_alignment(dtype, device,
+                                                     monkeypatch):
+    """a, da or x as contiguous views one element into their storage,
+    which the wrappers take: the plan is asked without vectors (the
+    scalar mode), and the outputs equal the twin's as aligned inputs'
+    do."""
+    asked = []
+    plan = cb.bn_act_bwd_bwd_plan
+    monkeypatch.setattr(cb, "bn_act_bwd_bwd_plan",
+                        lambda *a: asked.append(a[4]) or plan(*a))
+    cb._bn_act_bwd_bwd_route.cache_clear()
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, device=t.device, dtype=t.dtype)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    for C in (3, 48):
+        args = _k5_free_inputs(2, 3, 10, 10, C, K3_FREE_DTYPES[dtype], C)
+        for which in (0, 3, 4):  # a, da, then x, off alignment
+            off = list(args)
+            off[which] = shifted(args[which])
+            assert off[which].data_ptr() % 16 != 0
+            for slope in K3_FREE_SLOPES.values():
+                asked.clear()
+                cb._bn_act_bwd_bwd_route.cache_clear()
+                _check_k5_free(tuple(off), slope)
+                assert asked == [False]
+        asked.clear()
+        cb._bn_act_bwd_bwd_route.cache_clear()
+        _check_k5_free(args, F.LEAKY_SLOPE)
+        assert asked == [True]
+    cb._bn_act_bwd_bwd_route.cache_clear()
+
+
+def test_k5_free_rejects_and_its_entry_refuses_what_does_not_match(device):
+    """The wrappers: f16 ``TypeError``, a non-contiguous tensor, a table or
+    cotangent of another shape, 257 channels ``ValueError``, before any
+    launch. The entry checks the plan against the shape and the mode that
+    C and the vectors give, and the vectors against the pointers, and
+    launches nothing otherwise; a good plan gives the twin's values, with
+    and without the stage the same bits."""
+    from howtotrainyourmamlpytorch_tpu_torch.kernels import build
+
+    args = _k5_free_inputs(2, 3, 4, 4, 8, torch.float32, 73)
+    a, gg, gb, da, x, mean, rstd, gamma, beta = args
+    cb.reset_launches()
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        cb.bn_act_bwd_bwd(*(t.half() for t in args))
+    with pytest.raises(TypeError, match="must be torch.float32"):
+        cb.bn_act_bwd_bwd(a, gg.bfloat16(), *args[2:])
+    with pytest.raises(ValueError, match="contiguous"):
+        cb.batch_norm_bwd_bwd(a.transpose(2, 3), *args[1:])
+    with pytest.raises(ValueError, match="shape"):
+        cb.bn_act_bwd_bwd(a, gg, gb[:, :4], *args[3:])
+    wide = torch.zeros(1, 1, 1, 1, 257, device=device)
+    ones = torch.ones(1, 257, device=device)
+    with pytest.raises(ValueError, match="no pool-free K5"):
+        cb.bn_act_bwd_bwd(wide, ones, ones, wide, wide, ones, ones, ones,
+                          ones)
+    assert set(cb.launches().values()) == {0}
+
+    T, N, H, W, C = 2, 6, 12, 12, 48
+    P = N * H * W
+    a, gg, gb, da, x, mean, rstd, gamma, beta = _k5_free_inputs(
+        T, N, H, W, C, torch.float32, 79)
+    entry = build.function("bn_act_bwd", "bn_act_bwd_bwd", cb._ADDR_2F_ENTRY)
+    stream = torch.cuda.current_stream().cuda_stream
+    g_da = torch.full_like(x, 7.0)
+    g_y = torch.full_like(x, 7.0)
+    g_gamma = torch.full((T, C), 7.0, device=device)
+    p = cb.bn_act_bwd_bwd_plan(T, P, C, False, True, 8, 2)
+    assert p.route == "grid" and p.mode == "lanes" and p.stage
+    scratch = torch.empty(5 * C * (p.grid + T), device=device)
+    off = torch.empty(x.numel() + 1, device=device)[1:]
+
+    def call(ap, vec, threads, chunk, splits, grid, stage):
+        part = scratch.data_ptr()
+        packed = cb._packed(
+            ap, da.data_ptr(), x.data_ptr(), mean.data_ptr(),
+            rstd.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+            gg.data_ptr(), gb.data_ptr(), g_da.data_ptr(), g_y.data_ptr(),
+            g_gamma.data_ptr(), part, part + 20 * C * p.grid, T, C, P * C,
+            0, vec, threads, chunk, splits, grid, 0, stream, stage)
+        return entry(packed.buffer_info()[0], F.LEAKY_SLOPE, 1.0 / P)
+
+    good = (a.data_ptr(), 1, p.threads, p.chunk, p.splits, p.grid, p.stage)
+    for bad in ((off.data_ptr(),) + good[1:],          # a off vectors
+                good[:1] + (0,) + good[2:],            # the scalar mode's
+                good[:2] + (256,) + good[3:],          # not a slot multiple
+                good[:3] + (p.chunk + 1,) + good[4:],  # chunk off the slots
+                good[:3] + (p.chunk // 2,) + good[4:],  # units uncovered
+                good[:5] + (p.grid + 1, p.stage),      # grid != T x splits
+                good[:6] + (p.stage - 16,),            # a stage too small
+                good[:6] + (-1,),
+                (a.data_ptr(), 0) + good[2:]):         # staged scalars
+        assert call(*bad) != 0
+    torch.cuda.synchronize()
+    for t in (g_da, g_y, g_gamma):
+        assert bool((t == 7.0).all())
+    assert call(*good) == 0
+    want = F.bn_act_bwd_bwd(a, gg, gb, da, x, mean, rstd, gamma, beta)
+    for got, c in zip((g_da, g_y, g_gamma), want):
+        _close(got, c)
+    staged = (g_da.clone(), g_y.clone(), g_gamma.clone())
+    assert call(*good[:6], 0) == 0
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip((g_da, g_y, g_gamma),
+                                                  staged))
 
 
 # -- act_fwd on csrc/act.cu, layer_norm_fwd on csrc/layer_norm.cu -----------
@@ -4019,31 +4196,11 @@ def test_act_fwd_rejects_and_its_entry_refuses_what_does_not_match(device):
     assert bool((z == 7.0).all())
 
 
-def test_no_act_fwd_or_ln_fwd_call_reaches_a_triton_kernel(device,
-                                                           monkeypatch):
-    """The Triton ``act_fwd`` and ``layer_norm_fwd`` are gone (from
-    kernels/act_pool.py; kernels/layer_norm.py with every layer-norm
-    Triton kernel), and both wrappers run with Triton's compile step made
-    to fail, in f32 and bf16."""
-    import importlib
-
-    from howtotrainyourmamlpytorch_tpu_torch.kernels import (
-        act_pool,
-        bn_act_pool,
-    )
-
-    for gone in ("launch_fwd", "_act_fwd_kernel"):
-        assert not hasattr(act_pool, gone), gone
-    with pytest.raises(ImportError):
-        importlib.import_module(
-            "howtotrainyourmamlpytorch_tpu_torch.kernels.layer_norm")
-
-    def no_triton():
-        raise AssertionError("an act_fwd or layer_norm_fwd call reached "
-                             "Triton")
-
-    for module in (act_pool, bn_act_pool):
-        monkeypatch.setattr(module, "_jit", no_triton)
+def test_no_act_fwd_or_ln_fwd_call_reaches_a_triton_kernel(device):
+    """The Triton ``act_fwd`` and ``layer_norm_fwd`` are gone with every
+    Triton module of the port, and both wrappers run their CUDA kernels,
+    in f32 and bf16."""
+    _triton_modules_gone()
     for dtype in K3_FREE_DTYPES.values():
         _check_act_fwd(_act_inputs(2, 3, 8, 64, dtype, 97)[1])
         _check_ln_fwd(*_ln_fwd_inputs(2, 3, 8, 8, 48, dtype, 67))
@@ -4092,8 +4249,8 @@ def _act_pool_inputs(T, N, H, W, C, dtype, seed):
 
 
 def _check_act_pool(y, dp):
-    """Both kernels equal their twins bit for bit, one launch each on its
-    counter, a second launch bit for bit the first; returns dy."""
+    """The three kernels equal their twins bit for bit, one launch each on
+    its counter, a second launch bit for bit the first; returns dy."""
     tag = "_bf16" if y.dtype == torch.bfloat16 else ""
     cb.reset_launches()
     pooled, arg = cb.act_pool_fwd(y)
@@ -4113,6 +4270,17 @@ def _check_act_pool(y, dp):
     assert dy.dtype == y.dtype and dy.shape == y.shape
     assert torch.equal(_bits(dy), _bits(F.act_pool_bwd(dp, arg, y)))
     assert torch.equal(_bits(cb.act_pool_bwd(dp, arg, y)), _bits(dy))
+    # the gather, on a g_dy of both signs with zeros of both signs
+    g_dy = torch.randn_like(y)
+    g_dy.view(-1)[5::11] = -0.0
+    g_dy.view(-1)[7::17] = 0.0
+    cb.reset_launches()
+    got = cb.act_pool_gather(g_dy, arg, y)
+    assert {k: n for k, n in cb.launches().items() if n} == {
+        "act_pool_gather" + tag: 1}
+    assert got.dtype == y.dtype and got.shape == arg.shape
+    assert torch.equal(_bits(got), _bits(F.act_pool_gather(g_dy, arg, y)))
+    assert torch.equal(_bits(cb.act_pool_gather(g_dy, arg, y)), _bits(got))
     torch.cuda.synchronize()
     return dy
 
@@ -4135,8 +4303,9 @@ def test_act_pool_equals_its_twin_at_edge_shapes(shape, dtype, device):
 @pytest.mark.parametrize("dtype", list(ACT_POOL_DTYPES))
 def test_act_pool_takes_tensors_off_16_byte_alignment(dtype, device,
                                                       monkeypatch):
-    """y, the pooled gradient or the argmax one element into its storage
-    (one channel a thread): bit for bit the twins, on the scalar plan."""
+    """y, the pooled gradient, g_dy or the argmax one element into its
+    storage (one channel a thread): bit for bit the twins, on the scalar
+    plan."""
     y, dp = _act_pool_inputs(2, 3, 21, 21, 48, ACT_POOL_DTYPES[dtype], 71)
     _, arg = F.act_pool_fwd(y)
 
@@ -4151,15 +4320,21 @@ def test_act_pool_takes_tensors_off_16_byte_alignment(dtype, device,
     monkeypatch.setattr(cb, "act_pool_plan",
                         lambda *a: asked.append(a[-1]) or plan(*a))
     _check_act_pool(off(y), dp)
-    assert asked == [False, False, False, False]
+    assert asked == [False] * 6
     for args in ((off(dp), arg, y), (dp, off(arg), y)):
         asked.clear()
         got = cb.act_pool_bwd(*args)
         assert asked == [False]
         assert torch.equal(_bits(got), _bits(F.act_pool_bwd(*args)))
+    g_dy = torch.randn_like(y)
+    for args in ((off(g_dy), arg, y), (g_dy, off(arg), y)):
+        asked.clear()
+        got = cb.act_pool_gather(*args)
+        assert asked == [False]
+        assert torch.equal(_bits(got), _bits(F.act_pool_gather(*args)))
     asked.clear()
     _check_act_pool(y, dp)
-    assert asked == [True] * 4
+    assert asked == [True] * 6
 
 
 @pytest.mark.parametrize("dtype", list(ACT_POOL_DTYPES))
@@ -4187,7 +4362,7 @@ def test_act_pool_takes_the_64_bit_route(shape, device):
     """A bf16 y of 2**31 elements (each tenant under 2**31, as
     ``_check_act`` bounds them) takes the 64-bit plan, with vectors and
     one channel a thread; the last tenant, whose offsets pass 2**31, is
-    its twin's bits."""
+    its twin's bits in the forward, the backward and the gather."""
     T, N, H, W, C = shape
     assert cb.act_pool_plan(T, N, H, W, C, True, C % 8 == 0).wide
     g = torch.Generator(device="cuda").manual_seed(5)
@@ -4202,7 +4377,11 @@ def test_act_pool_takes_the_64_bit_route(shape, device):
     dy = cb.act_pool_bwd(dp, arg, y)
     assert torch.equal(_bits(dy[-1:]),
                        _bits(F.act_pool_bwd(dp[-1:], arg[-1:], y[-1:])))
-    del y, dp, pooled, arg, dy
+    del pooled
+    got = cb.act_pool_gather(dy, arg, y)  # dy as g_dy: y's shape
+    assert torch.equal(_bits(got[-1:]), _bits(
+        F.act_pool_gather(dy[-1:], arg[-1:], y[-1:])))
+    del y, dp, arg, dy, got
     torch.cuda.empty_cache()
 
 
@@ -4230,6 +4409,12 @@ def test_act_pool_rejects_and_its_entries_refuse_what_does_not_match(
         cb.act_pool_bwd(dp, arg.int(), y)
     with pytest.raises(TypeError, match="dpooled"):
         cb.act_pool_bwd(dp.bfloat16(), arg, y)
+    with pytest.raises(ValueError, match="shape"):
+        cb.act_pool_gather(y[:, :1].contiguous(), arg, y)
+    with pytest.raises(TypeError, match="g_dy"):
+        cb.act_pool_gather(y.bfloat16(), arg, y)
+    with pytest.raises(ValueError, match="argmax"):
+        cb.act_pool_gather(y, arg[:, :1].contiguous(), y)
     assert set(cb.launches().values()) == {0}
     fwd = build.function("act", "act_pool_fwd", cb._ADDR_F_ENTRY)
     bwd = build.function("act", "act_pool_bwd", cb._ADDR_F_ENTRY)
@@ -4264,6 +4449,25 @@ def test_act_pool_rejects_and_its_entries_refuse_what_does_not_match(
     torch.cuda.synchronize()
     assert bool((out == 7.0).all()) and bool((darg == 9).all())
     assert bool((dy == 7.0).all())
+    gather = build.function("act", "act_pool_gather", cb._ADDR_F_ENTRY)
+    g_dy = torch.randn_like(y)
+    g_off = torch.empty(y.numel() + 1, device=device)[1:]
+    for gp, argp, vec, wide, blocks in (
+            (g_dy.data_ptr(), arg.data_ptr(), 1, 0, plan.fwd_blocks + 1),
+            (g_dy.data_ptr(), arg.data_ptr(), 0, 0, plan.fwd_blocks),
+            (g_dy.data_ptr(), arg.data_ptr(), 1, 1, plan.fwd_blocks),
+            (g_off.data_ptr(), arg.data_ptr(), 1, 0, plan.fwd_blocks),
+            (g_dy.data_ptr(), arg.data_ptr() + 1, 1, 0, plan.fwd_blocks)):
+        args = cb._packed(gp, y.data_ptr(), argp, out.data_ptr(), T, N, H,
+                          W, C, 0, vec, wide, blocks, 0, stream)
+        assert gather(args.buffer_info()[0], F.LEAKY_SLOPE) != 0
+    torch.cuda.synchronize()
+    assert bool((out == 7.0).all())
+    args = cb._packed(g_dy.data_ptr(), y.data_ptr(), arg.data_ptr(),
+                      out.data_ptr(), T, N, H, W, C, 0, 1, 0,
+                      plan.fwd_blocks, 0, stream)
+    assert gather(args.buffer_info()[0], F.LEAKY_SLOPE) == 0
+    assert torch.equal(_bits(out), _bits(F.act_pool_gather(g_dy, arg, y)))
     args = cb._packed(dp.data_ptr(), arg.data_ptr(), y.data_ptr(),
                       dy.data_ptr(), T, N, H, W, C, 0, 1, 0, plan.bwd_blocks,
                       0, stream)
@@ -4271,28 +4475,10 @@ def test_act_pool_rejects_and_its_entries_refuse_what_does_not_match(
     assert torch.equal(_bits(dy), _bits(F.act_pool_bwd(dp, arg, y)))
 
 
-def test_no_act_pool_fwd_or_bwd_call_reaches_a_triton_kernel(device,
-                                                            monkeypatch):
-    """The Triton ``act_pool_fwd`` and ``act_pool_bwd`` are gone from
-    kernels/act_pool.py (which keeps ``act_pool_gather``), and both
-    wrappers run with Triton's compile step made to fail, in f32 and
-    bf16."""
-    from howtotrainyourmamlpytorch_tpu_torch.kernels import (
-        act_pool,
-        bn_act_pool,
-    )
-
-    for gone in ("launch_pool_fwd", "launch_pool_bwd",
-                 "_act_pool_fwd_kernel", "_act_pool_bwd_kernel",
-                 "_rne_bf16"):
-        assert not hasattr(act_pool, gone), gone
-    assert hasattr(act_pool, "launch_pool_gather")
-
-    def no_triton():
-        raise AssertionError("an act_pool_fwd or act_pool_bwd call reached "
-                             "Triton")
-
-    for module in (act_pool, bn_act_pool):
-        monkeypatch.setattr(module, "_jit", no_triton)
+def test_no_act_pool_fwd_or_bwd_call_reaches_a_triton_kernel(device):
+    """kernels/act_pool.py, which held the Triton act-pool kernels, is
+    gone with every Triton module of the port, and the act-pool forward,
+    backward and gather run their CUDA kernels, in f32 and bf16."""
+    _triton_modules_gone()
     for dtype in ACT_POOL_DTYPES.values():
         _check_act_pool(*_act_pool_inputs(2, 3, 9, 8, 48, dtype, 97))
