@@ -233,7 +233,29 @@ Phases, in order; any failure raises and the exit code is non-zero:
    Omniglot layer-norm bf16 models. On every bf16 path no f32 kernel may
    move (``episode_expand`` outputs f32 and is the one exception). Every
    kernel must have been launched by some main path.
-12. Print the rows of K1 and dgrad at stride 2 (``csrc/conv3x3_s2.cu``,
+12. The training entry point: ``cli.main(["train", ...])`` in this
+   process at the full width of the mini-ImageNet MAML++ JSON (84x84x3,
+   48 filters, 4 stages, 5-way 5-shot, 15 targets, batch 2, second order
+   from epoch 0, MSL, LSLR, per-step BN, f32), on a procedural pre-split
+   dataset this phase writes with the port's PNG writer under a temp dir
+   (``train/val/test``, 64/16/20 classes, 20 images a class, the
+   ``datasets/make_mini_imagenet_proxy.py`` pictures; a dataset name of
+   its own, so no known-name file count applies), overriding only the
+   dataset, experiment and cache paths, ``total_epochs``,
+   ``total_iter_per_epoch`` (3) and ``num_evaluation_tasks`` (4). Runs:
+   (a) 2 epochs; (b) the same command with ``--total_epochs 3``, which
+   must resume from ``latest`` and add exactly one epoch; (c) a fresh
+   3-epoch run; (d) one epoch through the device tier
+   (``--data_placement device --use_mmap_cache true``: ``episode_expand``
+   in every step). Each run's launches, counted from 0 around it, must
+   equal its train steps times a step's and its eval dispatches times a
+   dispatch's. It fails unless (b) leaves 3 CSV rows, the first two (a)'s
+   bytes; every run writes a ``test_summary.csv`` with a finite accuracy
+   in [0, 1]; the checkpoints on disk are ``latest`` and the
+   ``max_models_to_save`` best epochs; (b)'s third row equals (c)'s bit
+   for bit and (d)'s first row (a)'s, on every column but the timings.
+   Prints the phase's seconds and each run's train-step p50.
+13. Print the rows of K1 and dgrad at stride 2 (``csrc/conv3x3_s2.cu``,
    f32 and bf16, pad 1 and 0: every shape phases 3, 8 and 10 hold them at,
    each held twice bit for bit there) as ``[K1]`` / ``[K4]`` lines with
    their library ratio and bound share; the run's total seconds as a
@@ -4742,6 +4764,189 @@ def _print_accuracy_gap(learning16, learning32):
           f"(gap {a16 - a32:+.4f})", flush=True)
 
 
+# the training entry point's phase (phase 12): a pre-split dataset of
+# mini-ImageNet's shape and split at 20 images a class, under a name of its
+# own (no known-name file count; "imagenet" in it keeps the flagship's
+# normalization and gradient clamp)
+RUNNER_DATASET = "smoke_imagenet_proxy"
+RUNNER_SPLITS = (("train", 64), ("val", 16), ("test", 20))
+RUNNER_IMAGES = 20
+RUNNER_ITERS = 3  # total_iter_per_epoch
+RUNNER_EVAL_TASKS = 4  # num_evaluation_tasks: 2 batches of 2
+
+
+def write_runner_dataset(root):
+    """The pre-split dataset of phase 12: each class's pictures are
+    ``datasets/make_mini_imagenet_proxy.py``'s (its ``_class_spec`` and
+    ``_render``, with its seeds), written as PNGs by the port's writer."""
+    import importlib.util
+    import os
+
+    import numpy as np
+
+    from howtotrainyourmamlpytorch_tpu_torch.data import png
+
+    spec = importlib.util.spec_from_file_location(
+        "make_mini_imagenet_proxy",
+        os.path.join("datasets", "make_mini_imagenet_proxy.py"))
+    proxy = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(proxy)
+    cls = 0
+    for split, n_classes in RUNNER_SPLITS:
+        for _ in range(n_classes):
+            look = proxy._class_spec(np.random.RandomState(1000 + cls))
+            d = os.path.join(root, split, f"n{90000000 + cls:08d}")
+            os.makedirs(d)
+            rng = np.random.RandomState(500_000 + cls)
+            for j in range(RUNNER_IMAGES):
+                png.write(os.path.join(d, f"im{j:04d}.png"),
+                          proxy._render(look, rng))
+            cls += 1
+
+
+def _csv_rows(exp, name="summary_statistics.csv"):
+    import csv
+    import os
+
+    with open(os.path.join(exp, "logs", name)) as f:
+        return list(csv.reader(f))
+
+
+def _untimed(header, row):
+    """A CSV row's columns but its timings (step times, the loader's
+    stream figures, the epoch's wall time), as their strings."""
+    return {k: v for k, v in zip(header, row)
+            if not ("time" in k or "per_sec" in k or k.startswith("stream_"))}
+
+
+def run_runner(ks, cfg, name, exp, data, cache, epochs, extra=(),
+               new_epochs=None, resumed_epochs=0):
+    """One ``train`` run of phase 12; its launches, counted from 0 around
+    it, must be its train steps times a step's plus its eval dispatches
+    times a dispatch's (the device tier: ``episode_expand`` once in
+    each). Returns (the run's launches, its CSV rows, its test accuracy,
+    its seconds, its new epochs' train-step p50s)."""
+    from howtotrainyourmamlpytorch_tpu_torch import cli
+
+    args = ["train", "--name_of_args_json_file", FLAGSHIP,
+            "--dataset_name", RUNNER_DATASET, "--dataset_path", data,
+            "--experiment_name", exp, "--cache_dir", cache,
+            "--total_epochs", str(epochs),
+            "--total_iter_per_epoch", str(RUNNER_ITERS),
+            "--num_evaluation_tasks", str(RUNNER_EVAL_TASKS)] + list(extra)
+    print(f"[runner] ({name}) cli train {' '.join(args[1:])}", flush=True)
+    ks.reset_launches()
+    t0 = time.perf_counter()
+    assert cli.main(args) == 0
+    seconds = time.perf_counter() - t0
+    counts = ks.launches()
+    device_tier = "device" in extra
+    new_epochs = epochs if new_epochs is None else new_epochs
+    steps = new_epochs * RUNNER_ITERS
+    # validation: 2 batches an epoch; the test: 2 batches a kept epoch
+    tested = min(epochs, 5, cfg.max_models_to_save)
+    evals = 2 * new_epochs + 2 * tested
+    per_step = expected_step_launches(cfg, "device" if device_tier
+                                      else "host")
+    per_eval = expected_serve_launches(cfg, "index" if device_tier
+                                       else "f32")
+    for k in counts:
+        want = steps * per_step[k] + evals * per_eval[k]
+        if counts[k] != want:
+            raise AssertionError(
+                f"runner ({name}): {k} launched {counts[k]} times, expected "
+                f"{steps} steps x {per_step[k]} + {evals} eval dispatches x "
+                f"{per_eval[k]}")
+    rows = _csv_rows(exp)
+    test = dict(zip(*_csv_rows(exp, "test_summary.csv")))
+    acc = float(test["test_accuracy_mean"])
+    if not (math.isfinite(acc) and 0.0 <= acc <= 1.0):
+        raise AssertionError(f"runner ({name}): test accuracy {acc}")
+    header = rows[0]
+    p50 = [float(r[header.index("train_step_time_p50_ms")])
+           for r in rows[1 + resumed_epochs:]]
+    print(f"[runner] ({name}) {seconds:.1f} s, {steps} train steps, {evals} "
+          f"eval dispatches; train step p50 per epoch {p50} ms; test "
+          f"accuracy {acc}", flush=True)
+    return counts, rows, acc, seconds, p50
+
+
+def check_runner(ks, card):
+    """Phase 12 (see the module docstring). Returns the launches of its
+    runs, summed."""
+    import os
+    import statistics
+    import tempfile
+
+    import numpy as np
+
+    from howtotrainyourmamlpytorch_tpu_torch.config import MAMLConfig
+    from howtotrainyourmamlpytorch_tpu_torch.experiment import checkpoint
+
+    t_phase = time.perf_counter()
+    cfg = MAMLConfig.from_json_file(FLAGSHIP)
+    total = {}
+    with tempfile.TemporaryDirectory(prefix="runner_") as tmp:
+        data = os.path.join(tmp, RUNNER_DATASET)
+        cache = os.path.join(tmp, "cache")
+        t0 = time.perf_counter()
+        write_runner_dataset(data)
+        print(f"[runner] wrote {sum(n for _, n in RUNNER_SPLITS)} classes x "
+              f"{RUNNER_IMAGES} PNGs (84x84x3) in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        exp_a, exp_c, exp_d = (os.path.join(tmp, e) for e in
+                               ("exp_a", "exp_c", "exp_d"))
+        runs = {}
+        runs["a"] = run_runner(ks, cfg, "a", exp_a, data, cache, 2)
+        rows_a = runs["a"][1]
+        runs["b"] = run_runner(ks, cfg, "b", exp_a, data, cache, 3,
+                               new_epochs=1, resumed_epochs=2)
+        rows_b = runs["b"][1]
+        if len(rows_b) != 4 or rows_b[:3] != rows_a:
+            raise AssertionError(
+                f"runner (b): {len(rows_b) - 1} CSV rows, expected (a)'s 2 "
+                "and one new epoch")
+        runs["c"] = run_runner(ks, cfg, "c", exp_c, data, cache, 3)
+        rows_c = runs["c"][1]
+        header = rows_c[0]
+        if header != rows_b[0] or (_untimed(header, rows_b[3])
+                                   != _untimed(header, rows_c[3])):
+            raise AssertionError(
+                "runner: the resumed run's third epoch differs from the "
+                f"uninterrupted run's: {_untimed(header, rows_b[3])} vs "
+                f"{_untimed(header, rows_c[3])}")
+        runs["d"] = run_runner(ks, cfg, "d", exp_d, data, cache, 1,
+                               ("--data_placement", "device",
+                                "--use_mmap_cache", "true"))
+        rows_d = runs["d"][1]
+        if _untimed(header, rows_d[1]) != _untimed(header, rows_a[1]):
+            raise AssertionError(
+                "runner: the device tier's first epoch differs from the "
+                f"host tier's: {_untimed(header, rows_d[1])} vs "
+                f"{_untimed(header, rows_a[1])}")
+        for exp, rows in ((exp_a, rows_b), (exp_c, rows_c), (exp_d, rows_d)):
+            col = rows[0].index("val_accuracy_mean")
+            val_acc = [float(r[col]) for r in rows[1:]]
+            keep = [str(int(i) + 1) for i in np.argsort(
+                val_acc, kind="stable")[::-1][:cfg.max_models_to_save]]
+            on_disk = checkpoint.list_checkpoints(
+                os.path.join(exp, "saved_models"), "train_model")
+            if sorted(on_disk) != sorted(keep + ["latest"]):
+                raise AssertionError(
+                    f"runner: checkpoints {on_disk} in {exp}, expected "
+                    f"latest and the best {cfg.max_models_to_save}: {keep}")
+        for counts, *_ in runs.values():
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+    seconds = time.perf_counter() - t_phase
+    for key, (_, _, _, run_s, p50) in runs.items():
+        print(f"[runner] run ({key}): {run_s:.1f} s, train step p50 "
+              f"{statistics.median(p50):.2f} ms (median of its epochs' "
+              f"p50) | {card}", flush=True)
+    print(f"[runner] {seconds:.1f} s | {card}", flush=True)
+    return total
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
@@ -5413,6 +5618,12 @@ def main() -> int:
         torch.cuda.empty_cache()
     print(f"[bf16 layer-norm variants] {time.perf_counter() - t0:.1f} s",
           flush=True)
+
+    # the training entry point (phase 12): cli train, resumed, at full
+    # width, host and device tiers
+    for k, v in check_runner(ks, card).items():
+        main_counts[k] += v
+    torch.cuda.empty_cache()
 
     idle = [k for k in all_kernels if not main_counts[k]]
     if idle:

@@ -23,6 +23,15 @@ live in the JAX package; only what differs in the port is noted here:
   the port always carries the task axis as the tenant axis of its
   kernels. ``tests/test_torch_config_fields.py`` holds the port's
   meta-gradients to the JAX package's under each setting.
+* ``compilation_cache_dir`` names XLA's persistent compilation cache; the
+  port compiles nothing at run time, so it is accepted and ignored like
+  the lowering hints.
+* The runner (``cli train``) refuses what it has not ported yet rather
+  than run without it: ``telemetry_level``, ``tracing_level``,
+  ``health_level`` or ``analysis_level`` other than ``'off'``, a
+  ``fault_spec``, a ``profile_trace_dir`` or a ``watchdog_timeout_s``
+  raise ``NotImplementedError`` naming their ROADMAP item
+  (``experiment/builder.py``).
 * Nothing here imports jax; the fault-spec grammar check of the JAX
   package (its ``resilience`` module) is not repeated.
 """
@@ -450,6 +459,13 @@ class MAMLConfig:
     def im_shape(self) -> Tuple[int, int, int]:
         """(h, w, c) — NHWC."""
         return (self.image_height, self.image_width, self.image_channels)
+
+    @property
+    def global_tasks_per_batch(self) -> int:
+        """Tasks the loader stacks per global batch: ``num_of_gpus *
+        batch_size * samples_per_iter``."""
+        return (max(1, self.num_of_gpus) * self.batch_size
+                * max(1, self.samples_per_iter))
 
     @property
     def inner_lr_init(self) -> float:

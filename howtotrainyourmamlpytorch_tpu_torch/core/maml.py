@@ -10,7 +10,12 @@ _epoch_schedule`` :533-555 without its anneal log), ``_task_learner``
 :498), ``make_eval_step`` (:675), ``_serve_outputs``, ``make_serve_step``
 (:762, f32 and uint8 ingests), ``make_serve_step_indexed`` (:843),
 ``make_train_step_indexed`` (:1009) and ``make_eval_step_indexed``
-(:1065). The outer optimizer is ``core/adam.py::make_optimizer``.
+(:1065), and the runner's chunked dispatches ``make_train_multi_step``
+(:603), ``make_eval_multi_step`` (:641), ``make_train_multi_step_indexed``
+(:1041) and ``make_eval_multi_step_indexed`` (:1081): k calls of the
+single step at one epoch, each batch argument with a leading k axis, the
+metrics stacked (k,). The outer optimizer is ``core/adam.py::
+make_optimizer``.
 
 The uint8 and index ingests put ``ops/device_pipeline.py`` in front of the
 step: uint8 batches are decoded on the card, index batches expanded from a
@@ -396,8 +401,8 @@ def make_train_step_indexed(cfg: MAMLConfig, second_order: bool,
     expansion (``data_placement='device'``). ``store`` is the split's
     (N, h, w, c) uint8 store on the card, ``gather`` (tasks, way, spc +
     nts) and ``rot_k`` (tasks, way) int32; ``augment`` rotates train-time
-    Omniglot. A store sharded over hosts (``store_mesh``) is not ported
-    (ROADMAP Queue A9)."""
+    Omniglot. A store sharded over hosts (``store_mesh``) comes with
+    ``parallel/`` (ROADMAP Queue A)."""
     step = make_train_step(cfg, second_order, decode_uint8=False,
                            block=block)
     expand = device_pipeline.make_index_expander(cfg, augment, store_mesh)
@@ -420,3 +425,81 @@ def make_eval_step_indexed(cfg: MAMLConfig, augment: bool = False,
         return step(state, *expand(store, gather, rot_k))
 
     return eval_step
+
+
+def _stack_metrics(metrics: List[Dict[str, Tensor]]) -> Dict[str, Tensor]:
+    return {k: torch.stack([m[k] for m in metrics]) for k in metrics[0]}
+
+
+def _stack_outputs(outs, with_preds: bool):
+    """(stacked metrics, stacked preds or None) of k eval steps."""
+    preds = torch.stack([p for _, p in outs]) if with_preds else None
+    return _stack_metrics([m for m, _ in outs]), preds
+
+
+def make_train_multi_step(cfg: MAMLConfig, second_order: bool,
+                          block: Optional[vgg.BlockFn] = None):
+    """``multi_step(state, x_s, y_s, x_t, y_t, loss_weights, lr) ->
+    (state, metrics)``: ``make_train_step`` over the leading k axis of
+    every batch argument, in order (``steps_per_dispatch``); the metrics
+    come back stacked (k,). The same math as k separate calls."""
+    step = make_train_step(cfg, second_order, block=block)
+
+    def multi_step(state, x_s, y_s, x_t, y_t, loss_weights, lr):
+        metrics = []
+        for batch in zip(x_s, y_s, x_t, y_t):
+            state, m = step(state, *batch, loss_weights, lr)
+            metrics.append(m)
+        return state, _stack_metrics(metrics)
+
+    return multi_step
+
+
+def make_eval_multi_step(cfg: MAMLConfig, with_preds: bool = False,
+                         block: Optional[vgg.BlockFn] = None):
+    """``multi_eval(state, x_s, y_s, x_t, y_t) -> (metrics, preds)``:
+    ``make_eval_step`` over the leading k axis (``eval_batches_per_
+    dispatch``); metrics stacked (k,), preds (k, tasks, targets, classes)
+    only ``with_preds`` (the test ensemble), else None."""
+    step = make_eval_step(cfg, block=block)
+
+    def multi_eval(state, x_s, y_s, x_t, y_t):
+        return _stack_outputs([step(state, *batch) for batch in
+                               zip(x_s, y_s, x_t, y_t)], with_preds)
+
+    return multi_eval
+
+
+def make_train_multi_step_indexed(cfg: MAMLConfig, second_order: bool,
+                                  augment: bool, store_mesh=None,
+                                  block: Optional[vgg.BlockFn] = None):
+    """``multi_step(state, store, gather, rot_k, loss_weights, lr)``: the
+    ``steps_per_dispatch`` form of ``make_train_step_indexed`` over a
+    leading k axis of ``gather`` and ``rot_k``; the resident store is the
+    same for every step."""
+    step = make_train_step_indexed(cfg, second_order, augment, store_mesh,
+                                   block)
+
+    def multi_step(state, store, gather, rot_k, loss_weights, lr):
+        metrics = []
+        for g, r in zip(gather, rot_k):
+            state, m = step(state, store, g, r, loss_weights, lr)
+            metrics.append(m)
+        return state, _stack_metrics(metrics)
+
+    return multi_step
+
+
+def make_eval_multi_step_indexed(cfg: MAMLConfig, with_preds: bool = False,
+                                 augment: bool = False, store_mesh=None,
+                                 block: Optional[vgg.BlockFn] = None):
+    """``multi_eval(state, store, gather, rot_k) -> (metrics, preds)``: the
+    ``eval_batches_per_dispatch`` form of ``make_eval_step_indexed`` (the
+    stacking of ``make_eval_multi_step``)."""
+    step = make_eval_step_indexed(cfg, augment, store_mesh, block)
+
+    def multi_eval(state, store, gather, rot_k):
+        return _stack_outputs([step(state, store, g, r) for g, r in
+                               zip(gather, rot_k)], with_preds)
+
+    return multi_eval

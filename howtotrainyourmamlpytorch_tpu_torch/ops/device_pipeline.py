@@ -12,7 +12,8 @@ Bit-exactness with the host path holds by construction: the decode is a
 lookup in a table that the host pipeline itself filled
 (``decode_lut``), and rot90 of integer pixels commutes with the
 elementwise decode. Not ported yet: ``make_sharded_gather``, the gather
-from a store sharded over hosts (ROADMAP Queue A9).
+from a store sharded over hosts, which comes with ``parallel/`` (ROADMAP
+Queue A).
 """
 
 from __future__ import annotations
@@ -149,7 +150,7 @@ def make_index_expander(cfg: MAMLConfig, augment: bool, store_mesh=None
     if store_mesh is not None:
         raise NotImplementedError(
             "a store sharded over hosts (make_sharded_gather) is not ported "
-            "yet: ROADMAP Queue A9"
+            "yet: it comes with parallel/ (ROADMAP Queue A)"
         )
     rotate = augment and "omniglot" in cfg.dataset_name
     if rotate and cfg.image_height != cfg.image_width:
